@@ -5,10 +5,11 @@
 Phases, each of which exits non-zero on failure:
 
 1. card:    name and power limit (nvidia-smi); TF32 off.
-2. build:   compile every CUDA kernel of the serving path from csrc/.
+2. build:   compile every CUDA kernel from csrc/, one nvcc per source,
+            all started together.
 3. model:   the synthetic model at full size, tables drawn on the card.
-4. kernels: each kernel against its plain PyTorch version on the ids
-            and tables one forward passes it (captured from that
+4. kernels: the lookup kernel against its plain PyTorch version on the
+            ids and tables one forward passes it (captured from that
             forward), f32 and one bf16 table; kernel, plain and library
             device times (torch.profiler) beside the device-memory
             bound.
@@ -19,10 +20,25 @@ Phases, each of which exits non-zero on failure:
 6. serving: a ServingEngine over the model's tables answers requests of
             1, 5, 64 and 4096 samples, each equal to the model's own
             lookup on the same ids.
+7. train:   the model's tables, Adagrad accumulators and MLP in a
+            training state (SparseAdagrad(0.01) and optax-style
+            adagrad(0.01, 0.1, 1e-7), bce_with_logits: the JAX bench's
+            configuration); 5 hybrid steps on distinct batches; every
+            loss finite; every group's apply went through the segment-
+            walk kernel and every lookup through the lookup kernel.
+8. segwalk: the segment-walk kernel against its plain version on each
+            group's update stream captured from one more real step, for
+            sgd (bit-exact), adagrad_dedup and adagrad_sq (rtol = atol =
+            1e-6), untouched rows unchanged, and one bf16 table; kernel
+            device time (torch.profiler), plain time (CUDA events, one
+            call), Tensor.index_add_ for sgd, the bound and the longest
+            segment of each stream.
+9. profile: one training step under torch.profiler: device busy share
+            and device time by kernel.
 
-Launches are counted per path: the forward's, and the serving
-requests' (counted from 0 after the engine's warm-up).  The line before
-last is the kernels' JSON summary; the last line is
+Launches are counted per path: the forward's, the serving requests'
+(counted from 0 after the engine's warm-up) and the training steps'.
+The line before last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
 """
@@ -30,6 +46,7 @@ exits 1 and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -39,10 +56,12 @@ import time
 import numpy as np
 import torch
 
+from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
-from distributed_embeddings_tpu_torch.ops import lookup
-from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.ops import lookup, segwalk
+from distributed_embeddings_tpu_torch.parallel import checkpoint, sparse
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
@@ -54,11 +73,18 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'distributed_embeddings_tpu_torch/csrc/lookup_combine.cu',
     'replaces': 'distributed_embeddings_tpu/ops/pallas_lookup.py:131',
+}, {
+    'name': 'segwalk_apply',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
+    'replaces': 'distributed_embeddings_tpu/ops/pallas_segwalk.py:119',
 }]
 MODEL = 'tiny'
-BATCH = 65536  # global batch of the forward
+BATCH = 65536  # global batch of the forward and of training
 REQUEST_SIZES = (1, 5, 64, 4096)
 SERVE_BATCH = 4096
+TRAIN_STEPS = 5
+LR = 0.01  # the JAX bench's Keras Adagrad defaults
 
 
 def log(*args):
@@ -86,7 +112,8 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
   """Mean device time per call of ``fn``: the summed duration of every
   kernel and copy it ran, from torch.profiler, over ``iters`` calls.  A
   short kernel launched from Python spends longer in the launch than on
-  the device; this counts only the device."""
+  the device; this counts only the device.  Where the profiler records
+  no device time, CUDA events time the calls instead (and say so)."""
   from torch.profiler import ProfilerActivity, profile
   for _ in range(warmup):
     fn()
@@ -98,7 +125,11 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
   total_us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
   if total_us <= 0:
-    raise RuntimeError('torch.profiler recorded no device time')
+    # seen once on the card for Tensor.index_add_ on the 70.2 M-row table
+    ms = event_ms(fn, iters, warmup=0)
+    log(f'[timing] torch.profiler recorded no device time; CUDA events '
+        f'instead: {ms:.4f} ms per call')
+    return ms
   return total_us / 1e3 / iters
 
 
@@ -117,13 +148,15 @@ def phase_card():
 
 def phase_build():
   t0 = time.perf_counter()
-  for k in KERNELS:
-    b = nativebuild.build(k['name'])
+  with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    built = list(pool.map(nativebuild.build, [k['name'] for k in KERNELS]))
+  for b in built:
     log(f'[build] {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}')
     for line in b.log.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'[build]   {line.strip()}')
-  log(f'[build] all kernels in {time.perf_counter() - t0:.2f} s')
+  log(f'[build] all kernels in {time.perf_counter() - t0:.2f} s '
+      '(one nvcc per source, in parallel)')
 
 
 def pad_multi_hot(cats, hotness, rng):
@@ -254,6 +287,7 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
   times = []
   with torch.no_grad():
     for _ in range(n_forwards):
@@ -261,10 +295,12 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
       logits = model(numerical, cats)
       torch.cuda.synchronize()
       times.append((time.perf_counter() - t0) * 1e3)
-  launches = lookup.LAUNCHES
-  if launches != n_forwards * n_subs:
-    raise AssertionError(f'forward launched the kernel {launches} times, '
-                         f'expected {n_forwards} x {n_subs} subgroups')
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES}
+  if launches != {'lookup_combine': n_forwards * n_subs,
+                  'segwalk_apply': 0}:
+    raise AssertionError(f'forward launched {launches}, expected '
+                         f'{n_forwards} x {n_subs} subgroups lookups')
   batch = np.asarray(cats[0]).shape[0]
   if tuple(logits.shape) != (batch, 1) or not bool(
       torch.isfinite(logits).all()):
@@ -288,39 +324,46 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
       raise AssertionError('logits disagree with the plain reference')
   log(f'[forward] batch {batch}: {n_forwards} forwards, ms '
       f'{[round(t, 3) for t in times]} (host clock, synchronised); '
-      f'kernel launches {launches} = {n_forwards} x {n_subs} subgroups')
+      f'kernel launches {json.dumps(launches)}: {n_forwards} x {n_subs} '
+      'subgroups')
   log(f'[forward] tables {model.total_table_gib():.3f} GiB; peak device '
       f'memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; '
       f'logits finite, first {n_check} equal the plain reference')
   return weights, launches
 
 
-def phase_profile(model, numerical, cats, trace=None):
-  """Where one forward's time goes: device time by kernel and the
-  device's busy share of the forward's wall time (torch.profiler)."""
+def profile_once(fn, tag, what, trace=None, top=10):
+  """Where one call of ``fn`` spends its time: device time by kernel and
+  the device's busy share of the call's wall time (torch.profiler)."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
-  with torch.no_grad(), profile(
+  with profile(
       activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    model(numerical, cats)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
   if trace:
     prof.export_chrome_trace(trace)
   kernels = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   if not kernels:
-    log('[profile] the profiler recorded no device time: not measured')
+    log(f'[{tag}] the profiler recorded no device time: not measured')
     return
-  log(f'[profile] one forward: wall {wall_ms:.3f} ms (host clock, under '
-      f'the profiler); device busy {busy_ms:.3f} ms = '
+  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  log(f'[{tag}] {what}: wall {wall_ms:.3f} ms (host clock, under the '
+      f'profiler); device busy {busy_ms:.3f} ms = '
       f'{100 * busy_ms / wall_ms:.1f} % of it')
   for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                  reverse=True)[:10]:
-    log(f'[profile]   {e.self_device_time_total / 1e3:8.3f} ms '
+                  reverse=True)[:top]:
+    log(f'[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms '
         f'x{e.count:<4d} {e.key[:90]}')
+
+
+def phase_profile(model, numerical, cats, trace=None):
+  with torch.no_grad():
+    profile_once(lambda: model(numerical, cats), 'profile', 'one forward',
+                 trace)
 
 
 def phase_serving(model, weights, cats, rng):
@@ -336,6 +379,7 @@ def phase_serving(model, weights, cats, rng):
   warm_launches = lookup.LAUNCHES
   warm_lookups = engine.stats()['batches_served']
   lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
   answers = []
   request_ms = {}
   for n in REQUEST_SIZES:
@@ -349,11 +393,12 @@ def phase_serving(model, weights, cats, rng):
       times.append((time.perf_counter() - t0) * 1e3)
       answers.append((req, got))
     request_ms[n] = times
-  launches = lookup.LAUNCHES
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES}
   lookups = engine.stats()['batches_served'] - warm_lookups
-  if launches != lookups * n_subs:
-    raise AssertionError(f'serving launched the kernel {launches} times '
-                         f'for {lookups} lookups x {n_subs} subgroups')
+  if launches != {'lookup_combine': lookups * n_subs, 'segwalk_apply': 0}:
+    raise AssertionError(f'serving launched {launches} for {lookups} '
+                         f'lookups x {n_subs} subgroups')
   with torch.no_grad():
     for req, got in answers:
       want = dist.apply(model.embedding_params, req)
@@ -370,9 +415,216 @@ def phase_serving(model, weights, cats, rng):
   log(f'[serving] stats {json.dumps(engine.stats())}')
   log(f'[serving] {len(answers)} answers equal the model lookup '
       '(bit-exact hotness 1, 1e-6 hotness 10); kernel launches '
-      f'{launches} = {lookups} request lookups x {n_subs} subgroups, after '
-      f'{warm_launches} in the warm-up of {warm_lookups} rungs')
+      f'{json.dumps(launches)}: {lookups} request lookups x {n_subs} '
+      f'subgroups, after {warm_launches} in the warm-up of {warm_lookups} '
+      'rungs')
   return launches
+
+
+def train_batches(config, hotness, seed, n):
+  """``n`` distinct batches of the power-law pool, multi-hot rows
+  -1-padded as in the forward: ``(cats, (numerical, labels))``."""
+  rng = np.random.default_rng(seed)
+  pool = InputGenerator(config, BATCH, alpha=1.05, num_batches=n,
+                        seed=seed)
+  return [(pad_multi_hot(cats, hotness, rng), (numerical, labels))
+          for (numerical, cats), labels in pool]
+
+
+def build_trainer(model):
+  """The JAX bench's training configuration on the port: SparseAdagrad
+  (dedup) for the tables, optax-style Adagrad for the MLP, mean BCE."""
+  dist = model.dist_embedding
+  dense_opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+  emb_opt = sparse.SparseAdagrad(learning_rate=LR)
+  state = sparse.init_hybrid_train_state(
+      dist, {'embedding': model.embedding_params, **model.dense_params()},
+      dense_opt, emb_opt)
+
+  def head_loss(dense_params, emb_outs, batch):
+    numerical, labels = batch
+    return dlrm.bce_with_logits(model.head(numerical, emb_outs,
+                                           dense_params), labels)
+
+  return sparse.make_hybrid_train_step(dist, head_loss, dense_opt,
+                                       emb_opt), state
+
+
+def captured_applies(step, state, cats, batch):
+  """One real training step that also records each group's apply inputs
+  (the table and accumulator cloned before the in-place update)."""
+  calls = []
+  apply = segwalk.segwalk_apply
+
+  def record(table, acc, ids, grads, lr, *, op, eps=1e-7, g_index=None):
+    calls.append({'table': table.clone(),
+                  'acc': None if acc is None else acc.clone(), 'ids': ids,
+                  'grads': grads, 'g_index': g_index, 'lr': lr, 'eps': eps,
+                  'op': op})
+    return apply(table, acc, ids, grads, lr, op=op, eps=eps,
+                 g_index=g_index)
+
+  segwalk.segwalk_apply = record
+  try:
+    state, loss = step(state, cats, batch)
+  finally:
+    segwalk.segwalk_apply = apply
+  return state, loss, calls
+
+
+def phase_train(model, config, seed):
+  dist = model.dist_embedding
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  # the counted steps' batches, then the capture step's (phase 8) and
+  # the profiled step's (phase 9)
+  batches = train_batches(config, model.hotness, seed + 1, TRAIN_STEPS + 2)
+  step, state = build_trainer(model)
+  torch.cuda.synchronize()
+  log(f'[train] state: tables {model.total_table_gib():.3f} GiB + '
+      f'Adagrad accumulators; device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
+  torch.cuda.reset_peak_memory_stats()
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  times, losses = [], []
+  for cats, batch in batches[:TRAIN_STEPS]:
+    t0 = time.perf_counter()
+    state, loss = step(state, cats, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+  launches = {'segwalk_apply': segwalk.LAUNCHES,
+              'lookup_combine': lookup.LAUNCHES}
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'training losses not finite: {losses}')
+  want = {'segwalk_apply': TRAIN_STEPS * n_groups,
+          'lookup_combine': TRAIN_STEPS * n_subs}
+  if launches != want:
+    raise AssertionError(f'training launched {launches}, expected {want} '
+                         f'({TRAIN_STEPS} steps x {n_groups} groups / '
+                         f'{n_subs} subgroups)')
+  log(f'[train] batch {BATCH}: {TRAIN_STEPS} steps, ms '
+      f'{[round(t, 3) for t in times]} (host clock, synchronised); '
+      f'losses {[round(x, 6) for x in losses]}')
+  log(f'[train] launches {json.dumps(launches)} = {TRAIN_STEPS} steps x '
+      f'({n_groups} groups, {n_subs} subgroups); peak device memory '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+  state, loss, calls = captured_applies(step, state, *batches[TRAIN_STEPS])
+  if not bool(torch.isfinite(loss)):
+    raise AssertionError(f'capture step loss {float(loss)} not finite')
+  return step, state, calls, batches[-1], launches
+
+
+def check_segwalk(call, op, table, label):
+  """Kernel against plain version on one captured stream (clones of its
+  table and accumulator), with the timings and the bound."""
+  lr, eps = call['lr'], call['eps']
+  acc = None if op == 'sgd' else call['acc']
+  ids, grads, g_index = call['ids'], call['grads'], call['g_index']
+  rows, w = table.shape
+  segs = segwalk.sort_stream(ids, rows, g_index)
+  kt = table.clone()
+  ka = None if acc is None else acc.clone()
+  segwalk.apply_segments(kt, ka, segs, grads, lr, op=op, eps=eps)
+  pt = table.clone()
+  pa = None if acc is None else acc.clone()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  segwalk.apply_segments_reference(pt, pa, segs, grads, lr, op=op, eps=eps)
+  end.record()
+  end.synchronize()
+  plain_ms = start.elapsed_time(end)
+  err = float((kt.float() - pt.float()).abs().max())
+  if acc is not None:
+    err = max(err, float((ka - pa).abs().max()))
+  if op == 'sgd':
+    ok, tol = torch.equal(kt, pt), 'bit-exact'
+  else:
+    ok = (torch.allclose(kt.float(), pt.float(), rtol=1e-6, atol=1e-6)
+          and torch.allclose(ka, pa, rtol=1e-6, atol=1e-6))
+    tol = 'rtol=atol=1e-6 (rsqrt)'
+  if not ok:
+    raise AssertionError(f'{label}: kernel disagrees with plain version, '
+                         f'max abs err {err} (tolerance {tol})')
+  # rows the stream does not name stay bitwise unchanged
+  touched = torch.zeros(rows, dtype=torch.bool, device=table.device)
+  touched[segs.sorted_ids[segs.starts].long()] = True
+  changed = (kt != table).any(dim=1)
+  if acc is not None:
+    changed |= (ka != acc).any(dim=1)
+  if bool((changed & ~touched).any()):
+    raise AssertionError(f'{label}: the kernel changed rows outside the '
+                         'stream')
+  del pt, pa
+  kernel_ms = device_ms(
+      lambda: segwalk.apply_segments(kt, ka, segs, grads, lr, op=op,
+                                     eps=eps), 10)
+  library_ms = None
+  if op == 'sgd':
+    # Tensor.index_add_: the one PyTorch call computing the sgd apply
+    lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+    lib_ids = segs.sorted_ids[lo:hi].long()
+    lib_g = grads[segs.gidx[lo:hi].long()]
+    library_ms = device_ms(
+        lambda: kt.index_add_(0, lib_ids, lib_g.to(kt.dtype), alpha=-lr), 10)
+    del lib_ids, lib_g
+  n, m, u = ids.shape[0], grads.shape[0], segs.count
+  valid = int((segs.ends - segs.starts).sum())
+  row_rw = 2 * w * (table.element_size() + (4 if acc is not None else 0))
+  nbytes = n * 4 + n * 4 + m * w * 4 + u * row_rw
+  flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * 6
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = flops / F32_FLOP_PER_S * 1e3
+  row = {
+      'stream': label, 'op': op,
+      'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows,
+      'w': w, 'positions': n, 'valid_positions': valid,
+      'compact_grad_rows': m, 'segments': u,
+      'longest_segment': segs.longest(), 'bytes': nbytes,
+      'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
+      'plain_ms': plain_ms, 'library_ms': library_ms,
+      'bound_ms': max(bytes_ms, ops_ms),
+      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+      'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
+  }
+  log('[segwalk] ' + json.dumps(row))
+  del kt, ka
+  torch.cuda.empty_cache()
+  return row
+
+
+def phase_segwalk(calls):
+  rows = []
+  for call in calls:
+    label = f'w{call["table"].shape[1]}_rows{call["table"].shape[0]}'
+    if call['op'] != 'adagrad_dedup':
+      raise AssertionError(f'the training path applies adagrad_dedup, '
+                           f'captured {call["op"]}')
+    for op in segwalk.OPS:
+      rows.append(check_segwalk(call, op, call['table'], label))
+  # one bf16 table: the largest group's, cast
+  call = max(calls, key=lambda c: c['table'].numel())
+  label = f'w{call["table"].shape[1]}_rows{call["table"].shape[0]}_bf16'
+  bf16_row = check_segwalk(call, 'adagrad_dedup',
+                           call['table'].to(torch.bfloat16), label)
+  for r in rows + [bf16_row]:
+    log(f'[segwalk] {r["stream"]} {r["op"]} {r["dtype"]}: kernel '
+        f'{r["kernel_ms"]:.4f} ms, plain {r["plain_ms"]:.3f} ms (one '
+        f'call), library {r["library_ms"]}, bound {r["bound_ms"]:.4f} ms; '
+        f'{r["segments"]} segments, longest {r["longest_segment"]}')
+  log('[segwalk] Tensor.index_add_ is the library time for sgd; no '
+      'PyTorch call computes the Adagrad applies (library null)')
+  return rows, bf16_row
+
+
+def phase_train_profile(step, state, batch):
+  losses = []
+  profile_once(lambda: losses.append(step(state, *batch)[1]),
+               'profile-train', 'one training step', top=15)
+  if not bool(torch.isfinite(losses[0])):
+    raise AssertionError('profiled step loss not finite')
 
 
 def main(argv=None) -> int:
@@ -407,12 +659,20 @@ def main(argv=None) -> int:
   weights, forward_launches = phase_forward(model, numerical, cats)
   phase_profile(model, numerical, cats, args.trace)
   serve_launches = phase_serving(model, weights, cats, rng)
+  del weights
+  step, state, calls, profile_batch, train_launches = phase_train(
+      model, config, args.seed)
+  seg_rows, seg_bf16 = phase_segwalk(calls)
+  del calls
+  torch.cuda.empty_cache()
+  phase_train_profile(step, state, profile_batch)
 
   k = dict(KERNELS[0])
   k.update({
-      'launches': serve_launches,
-      'launches_forward': forward_launches,
-      'launches_serving': serve_launches,
+      'launches': train_launches['lookup_combine'],
+      'launches_forward': forward_launches['lookup_combine'],
+      'launches_serving': serve_launches['lookup_combine'],
+      'launches_train': train_launches['lookup_combine'],
       'max_abs_err': max(r['max_abs_err'] for r in rows + [bf16_row]),
       'ms': sum(r['kernel_ms'] for r in rows),
       'plain_ms': sum(r['plain_ms'] for r in rows),
@@ -421,8 +681,28 @@ def main(argv=None) -> int:
                    else 'operations'),
       'library_ms': sum(r['library_ms'] for r in rows),
   })
+  # the training path's op, summed over the groups of one step
+  path = [r for r in seg_rows if r['op'] == 'adagrad_dedup']
+  sgd = [r for r in seg_rows if r['op'] == 'sgd']
+  seg = dict(KERNELS[1])
+  seg.update({
+      'launches': train_launches['segwalk_apply'],
+      'launches_forward': forward_launches['segwalk_apply'],
+      'launches_serving': serve_launches['segwalk_apply'],
+      'launches_train': train_launches['segwalk_apply'],
+      'max_abs_err': max(r['max_abs_err'] for r in seg_rows + [seg_bf16]),
+      'ms': sum(r['kernel_ms'] for r in path),
+      'plain_ms': sum(r['plain_ms'] for r in path),
+      'bound_ms': sum(r['bound_ms'] for r in path),
+      'bound_by': ('bytes' if all(r['bound_by'] == 'bytes' for r in path)
+                   else 'operations'),
+      'library_ms': None,
+      'sgd_ms': sum(r['kernel_ms'] for r in sgd),
+      'sgd_library_ms': sum(r['library_ms'] for r in sgd),
+      'longest_segment': {r['stream']: r['longest_segment'] for r in path},
+  })
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
-  log(json.dumps({'kernels': [k]}))
+  log(json.dumps({'kernels': [k, seg]}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-"""The MLP of ``distributed_embeddings_tpu/models/dlrm.py`` as an
-``nn.Module``.  ``DLRM`` and ``dot_interact`` come with the training
-slice (ROADMAP.md Queue 1, item 3).
+"""The MLP and the loss of ``distributed_embeddings_tpu/models/dlrm.py``:
+``MLP`` as an ``nn.Module`` and ``bce_with_logits``.  ``DLRM`` and
+``dot_interact`` are a ROADMAP.md Queue 1 item of their own.
 """
 
 from __future__ import annotations
@@ -57,22 +57,32 @@ class MLP(nn.Module):
         layer.bias.normal_(0.0, 1.0 / math.sqrt(layer.out_features),
                            generator=generator)
 
-  def load_jax_params(self, params: Sequence[Dict[str, np.ndarray]]):
-    """Copy the JAX MLP's ``[{'kernel': [in, out], 'bias': [out]}, ...]``
-    (as numpy) into this module."""
+  def from_jax(self, params: Sequence[Dict[str, np.ndarray]]
+               ) -> Dict[str, torch.Tensor]:
+    """The JAX MLP's ``[{'kernel': [in, out], 'bias': [out]}, ...]`` (as
+    numpy, or any tree of that shape, e.g. an optimizer's per-parameter
+    state) as this module's named tensors ``{'layers.i.weight': [out,
+    in], 'layers.i.bias': [out]}``, f32 on the CPU."""
     if len(params) != len(self.layers):
       raise ValueError(f'{len(params)} layers of params for an MLP of '
                        f'{len(self.layers)}')
+    named = {}
+    for i, (layer, p) in enumerate(zip(self.layers, params)):
+      kernel = torch.as_tensor(np.array(p['kernel'], np.float32))
+      if tuple(kernel.shape) != (layer.in_features, layer.out_features):
+        raise ValueError(f'kernel shape {tuple(kernel.shape)} for a '
+                         f'{layer.in_features}->{layer.out_features} layer')
+      named[f'layers.{i}.weight'] = kernel.T.contiguous()
+      named[f'layers.{i}.bias'] = torch.as_tensor(
+          np.array(p['bias'], np.float32))
+    return named
+
+  def load_jax_params(self, params: Sequence[Dict[str, np.ndarray]]):
+    """Copy the JAX MLP's params (as numpy) into this module."""
+    named = self.from_jax(params)
     with torch.no_grad():
-      for layer, p in zip(self.layers, params):
-        kernel = torch.as_tensor(np.array(p['kernel'], np.float32))
-        bias = torch.as_tensor(np.array(p['bias'], np.float32))
-        if tuple(kernel.shape) != (layer.in_features, layer.out_features):
-          raise ValueError(f'kernel shape {tuple(kernel.shape)} for a '
-                           f'{layer.in_features}->{layer.out_features} '
-                           'layer')
-        layer.weight.copy_(kernel.T)
-        layer.bias.copy_(bias)
+      for name, p in self.named_parameters():
+        p.copy_(named[name])
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     for i, layer in enumerate(self.layers):
@@ -81,3 +91,15 @@ class MLP(nn.Module):
       if not (self.last_linear and i == len(self.layers) - 1):
         x = torch.relu(x)
     return x
+
+
+def bce_with_logits(logits: torch.Tensor, labels) -> torch.Tensor:
+  """Mean binary cross-entropy from logits (the reference uses
+  ``BinaryCrossentropy(from_logits=True)``), written as the JAX
+  package's: ``mean(max(x, 0) - x * y + log1p(exp(-|x|)))``."""
+  logits = logits.reshape(-1)
+  labels = torch.as_tensor(labels).to(device=logits.device,
+                                      dtype=torch.float32).reshape(-1)
+  return torch.mean(
+      torch.clamp(logits, min=0) - logits * labels +
+      torch.log1p(torch.exp(-torch.abs(logits))))

@@ -317,16 +317,33 @@ class SyntheticModel(nn.Module):
     outs = self.dist_embedding.apply(self.embedding_params, categorical)
     return self.head(numerical, outs)
 
-  def head(self, numerical, emb_outs: Sequence[torch.Tensor]
+  def dense_params(self) -> Dict[str, torch.Tensor]:
+    """The data-parallel params, ``{'mlp.layers.i.weight': ..., ...}``:
+    the MLP's own tensors (a train step updates them in place)."""
+    return {f'mlp.{n}': p for n, p in self.mlp.named_parameters()}
+
+  def dense_from_jax(self, dense) -> Dict[str, torch.Tensor]:
+    """The JAX model's dense params ``{'mlp': [...]}`` (as numpy; or a
+    tree of that shape, such as optax's per-parameter state) keyed as
+    ``dense_params``."""
+    return {f'mlp.{n}': t for n, t in self.mlp.from_jax(dense['mlp']).items()}
+
+  def head(self, numerical, emb_outs: Sequence[torch.Tensor],
+           dense_params: Optional[Dict[str, torch.Tensor]] = None
            ) -> torch.Tensor:
-    """Dense half: pool interaction + MLP."""
+    """Dense half: pool interaction + MLP, with the MLP's own params or
+    with ``dense_params`` (keyed as ``dense_params()``) in their place."""
     x = torch.cat([o.to(self.compute_dtype) for o in emb_outs], dim=1)
     if self.config.interact_stride is not None:
       x = _same_avg_pool_1d(x, self.config.interact_stride)
     numerical = torch.as_tensor(numerical).to(device=x.device,
                                               dtype=self.compute_dtype)
     x = torch.cat([x, numerical], dim=1)
-    return self.mlp(x).to(torch.float32)
+    if dense_params is None:
+      return self.mlp(x).to(torch.float32)
+    mlp_params = {k[len('mlp.'):]: v for k, v in dense_params.items()}
+    return torch.func.functional_call(self.mlp, mlp_params,
+                                      (x,)).to(torch.float32)
 
   def total_table_gib(self) -> float:
     tables, _, _ = expand_tables(self.config)

@@ -4,15 +4,18 @@ counterpart of ``set_weights`` / ``get_weights`` in
 
 The contract is the JAX package's: weights are global per-table
 ``[rows, width]`` arrays in table order, so tables saved under one plan
-load under any other.  These two functions are also how weights cross
-from the JAX package to the port: ``get_weights`` of a JAX model,
-``set_weights`` here.  Saving and loading files (``save_train_npz`` and
-the rest) is ROADMAP.md Queue 1, item 11.
+load under any other.  ``get_optimizer_state`` / ``set_optimizer_state``
+do the same for the sparse optimizer's per-element state (the Adagrad
+accumulator).  These functions are also how state crosses from the JAX
+package to the port: ``get_weights`` / ``get_optimizer_state`` of a JAX
+model, then ``set_weights`` / ``set_optimizer_state`` here, or
+``train_state_from_jax`` for a whole train state.  Saving and loading
+files (``save_train_npz`` and the rest) is ROADMAP.md Queue 1, item 11.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Any, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -20,8 +23,41 @@ import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
+from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 
 WeightLike = Union[np.ndarray, torch.Tensor]
+
+
+def _check_tables(plan, arrays: Sequence, what: str):
+  if len(arrays) != len(plan.table_configs):
+    raise ValueError(
+        f'You called {what} with a list of length {len(arrays)}, but the '
+        f'layer was expecting {len(plan.table_configs)} tables.')
+  for tid, (w, cfg) in enumerate(zip(arrays, plan.table_configs)):
+    if tuple(w.shape) != (cfg.input_dim, cfg.output_dim):
+      raise ValueError(
+          f'table {tid}: expected shape {(cfg.input_dim, cfg.output_dim)}, '
+          f'got {tuple(w.shape)}')
+
+
+def _fill_group(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
+                arrays: Sequence[WeightLike]) -> torch.Tensor:
+  """Write this rank's rows of fusion group ``gi`` into ``buf``
+  ``[rows_cap, width]`` from global per-table arrays; padding rows are
+  zero."""
+  off = 0
+  for lt in dist.plan.groups[gi].member_tables[dist.rank]:
+    # row_stride > 1: a mod window (residue class) of the rows
+    piece = arrays[lt.table_id][lt.row_start:lt.row_end:lt.row_stride,
+                                lt.col_start:lt.col_end]
+    if isinstance(piece, np.ndarray):
+      # torch wraps only writable arrays (read-only ones are copied)
+      piece = np.require(piece, requirements='W')
+    buf[off:off + lt.input_dim] = torch.as_tensor(piece).to(
+        device=buf.device, dtype=buf.dtype)
+    off += lt.input_dim
+  buf[off:].zero_()
+  return buf
 
 
 def set_weights(dist: DistributedEmbedding,
@@ -34,36 +70,15 @@ def set_weights(dist: DistributedEmbedding,
   Raises:
     ValueError: on length or shape mismatch.
   """
-  plan = dist.plan
   weights = list(weights)
-  if len(weights) != len(plan.table_configs):
-    raise ValueError(
-        f'You called set_weights with a weight list of length '
-        f'{len(weights)}, but the layer was expecting '
-        f'{len(plan.table_configs)} weights.')
-  for tid, (w, cfg) in enumerate(zip(weights, plan.table_configs)):
-    if tuple(w.shape) != (cfg.input_dim, cfg.output_dim):
-      raise ValueError(
-          f'table {tid}: expected shape {(cfg.input_dim, cfg.output_dim)}, '
-          f'got {tuple(w.shape)}')
-  params = {}
-  for gi, g in enumerate(plan.groups):
-    buf = torch.empty((g.rows_cap, g.width), dtype=dist.param_dtype,
-                      device=dist.device)
-    off = 0
-    for lt in g.member_tables[dist.rank]:
-      # row_stride > 1: a mod window (residue class) of the rows
-      piece = weights[lt.table_id][lt.row_start:lt.row_end:lt.row_stride,
-                                   lt.col_start:lt.col_end]
-      if isinstance(piece, np.ndarray):
-        # torch wraps only writable arrays (read-only ones are copied)
-        piece = np.require(piece, requirements='W')
-      buf[off:off + lt.input_dim] = torch.as_tensor(piece).to(
-          device=dist.device, dtype=dist.param_dtype)
-      off += lt.input_dim
-    buf[off:].zero_()
-    params[f'group_{gi}'] = buf
-  return params
+  _check_tables(dist.plan, weights, 'set_weights')
+  return {
+      f'group_{gi}': _fill_group(
+          dist, gi, torch.empty((g.rows_cap, g.width),
+                                dtype=dist.param_dtype, device=dist.device),
+          weights)
+      for gi, g in enumerate(dist.plan.groups)
+  }
 
 
 def _all_shards(dist: DistributedEmbedding,
@@ -113,3 +128,79 @@ def get_weights(dist: DistributedEmbedding,
           shards[gi][dev][row_offset:row_offset + span])
     result.append(out)
   return result
+
+
+def get_optimizer_state(dist: DistributedEmbedding,
+                        opt_state: Dict[str, Dict[str, torch.Tensor]]
+                        ) -> List[Dict[str, torch.Tensor]]:
+  """Reassemble the sparse optimizer's per-element state (``[rows_cap,
+  width]`` leaves such as Adagrad's ``acc``) into the global per-table
+  layout, exactly as ``get_weights`` does for tables (a collective with
+  more than one rank).
+
+  Returns:
+    Per-table dicts in global table order (``[{'acc': [rows, width]},
+    ...]``); empty dicts for a stateless optimizer.
+  """
+  leaves = sorted({k for gs in opt_state.values() for k in gs})
+  n_groups = len(dist.plan.groups)
+  per_leaf = {
+      k: get_weights(dist, {f'group_{gi}': opt_state[f'group_{gi}'][k]
+                            for gi in range(n_groups)})
+      for k in leaves
+  }
+  return [{k: per_leaf[k][tid] for k in leaves}
+          for tid in range(len(dist.plan.table_configs))]
+
+
+def set_optimizer_state(dist: DistributedEmbedding,
+                        opt_state: Dict[str, Dict[str, torch.Tensor]],
+                        table_states: Sequence[Dict[str, WeightLike]]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+  """The inverse of ``get_optimizer_state``: write global per-table
+  state into ``opt_state``'s leaves (e.g. a fresh ``optimizer.init``), in
+  place, and return it.  Padding rows (never looked up) are zero, as in
+  the JAX package."""
+  table_states = list(table_states)
+  for gi in range(len(dist.plan.groups)):
+    for k, leaf in opt_state.get(f'group_{gi}', {}).items():
+      arrays = [ts[k] for ts in table_states]
+      _check_tables(dist.plan, arrays, 'set_optimizer_state')
+      _fill_group(dist, gi, leaf, arrays)
+  return opt_state
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+  if isinstance(tree, dict):
+    return {k: _to_device(v, device) for k, v in tree.items()}
+  return torch.as_tensor(np.array(tree, np.float32)).to(device)
+
+
+def train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
+                         table_states: Sequence[Dict[str, WeightLike]],
+                         dense_params: Dict[str, Any], dense_opt_state: Any,
+                         step: int, emb_optimizer) -> TrainState:
+  """Carry a JAX hybrid ``TrainState`` into the port (this rank's share).
+
+  Args:
+    tables / table_states: the JAX model's ``get_weights`` and
+      ``get_optimizer_state`` (global per-table arrays).
+    dense_params: the dense params as ``{name: array}`` in the port's
+      layout (e.g. ``SyntheticModel.dense_from_jax``).
+    dense_opt_state: the dense optimizer's state in the port's layout
+      (``optim.adagrad``: ``{'sum_of_squares': {name: array}}``; ``sgd``:
+      ``{}``).
+    step: the JAX state's step.
+    emb_optimizer: the port's ``SparseSGD`` / ``SparseAdagrad``.
+
+  Returns:
+    A ``TrainState`` for ``sparse.make_hybrid_train_step``, f32 dense
+    params and state on ``dist.device``.
+  """
+  emb = set_weights(dist, tables)
+  emb_state = set_optimizer_state(dist, emb_optimizer.init(dist, emb),
+                                  table_states)
+  params = {'embedding': emb, **_to_device(dict(dense_params), dist.device)}
+  return TrainState(params,
+                    (_to_device(dense_opt_state, dist.device), emb_state),
+                    int(step))

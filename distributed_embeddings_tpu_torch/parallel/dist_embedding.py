@@ -17,16 +17,18 @@ gather-combine (``ops/lookup.fused_lookup``: the CUDA kernel on the
 card), ONE fused row exchange back, assemble (column-slice re-concat and
 row-slice merge).
 
-Ported in this slice: ``__init__``, ``init``, ``apply`` with
-``dp_input=True`` on dense ``[B]`` / ``[B, h]`` inputs.  Every other
-option of the JAX constructor raises ``NotImplementedError`` naming its
-ROADMAP item; none is ignored.
+Ported so far: ``__init__``, ``init``, ``apply`` with ``dp_input=True``
+on dense ``[B]`` / ``[B, h]`` inputs, and the sparse training hooks
+``forward_with_residuals`` / ``backward_to_mp`` (the backward mirrors the
+forward's return leg: ONE fused cotangent exchange, plus one all_gather
+per row-sharded input).  Every other option of the JAX constructor
+raises ``NotImplementedError`` naming its ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -257,7 +259,7 @@ class DistributedEmbedding:
       ``compute_dtype`` on ``self.device``.
     """
     inputs, batch, hotness = self._prepare_inputs(inputs)
-    return list(self._build_dp_forward(batch, hotness)(params, inputs))
+    return list(self._build_dp_forward(batch, hotness)(params, inputs)[0])
 
   __call__ = apply
 
@@ -465,8 +467,11 @@ class DistributedEmbedding:
 
   def _build_dp_forward(self, local_batch: int, hotness: tuple):
     """Build (once per signature) the dp-input forward
-    ``fwd(params, inputs) -> outputs``: route, ONE fused id exchange,
-    gather-combine per subgroup, ONE fused row exchange, assemble."""
+    ``fwd(params, inputs) -> (outputs, residuals)``: route, ONE fused id
+    exchange, gather-combine per subgroup, ONE fused row exchange,
+    assemble.  ``residuals`` holds each subgroup's routed fused-space ids
+    ``[n_cap, GB, h]`` (``>= rows_cap`` is padding), what the sparse
+    backward applies at."""
     key = ('dp_fwd', local_batch, hotness)
     if key in self._fn_cache:
       return self._fn_cache[key]
@@ -507,7 +512,7 @@ class DistributedEmbedding:
             _ids))
       recvs = self._exchange(sends, 'fwd/ids', plan=lplan)
       merge_out = {}
-      pre = []
+      pre, residuals = [], []
       for si, (sub, (offs, vocab, lo, hi, st)) in enumerate(
           zip(subs, consts)):
         # [n_cap, D*B, h]: the global batch in source-major order
@@ -516,6 +521,7 @@ class DistributedEmbedding:
         routed = routing.route_ids(ids_c, offs, vocab,
                                    self.plan.groups[sub.gi].rows_cap,
                                    lo, hi, st)
+        residuals.append(routed)
         out_c = lookup_ops.fused_lookup(params[f'group_{sub.gi}'], routed,
                                         sub.lookup_combiner,
                                         self.compute_dtype)
@@ -527,10 +533,146 @@ class DistributedEmbedding:
         pre.append(self._emit_outputs(sub, si, out_c, local_batch,
                                       merge_out))
       backs = self._exchange(pre, 'fwd/rows', plan=lplan)
-      return self._assemble(subs, backs, merge_out)
+      return self._assemble(subs, backs, merge_out), tuple(residuals)
 
     self._fn_cache[key] = fwd
     return fwd
+
+  # ------------------------------------------------- sparse training hooks
+
+  def forward_with_residuals(self, params: Dict[str, torch.Tensor], inputs):
+    """Forward that also returns the routed lookup ids, for the sparse
+    training path (``parallel/sparse.py``).
+
+    Returns:
+      ``(outputs, residuals, (global_batch, hotness))``: outputs as in
+      ``apply``; residuals a tuple of this rank's per-subgroup fused-space
+      ids ``[n_cap, GB, h]`` (values ``>= rows_cap`` mark padding); the
+      last element is the forward's signature, to be passed to
+      ``backward_to_mp`` / ``sparse_apply_updates``.
+    """
+    inputs, batch, hotness = self._prepare_inputs(inputs)
+    outs, residuals = self._build_dp_forward(batch, hotness)(params, inputs)
+    return list(outs), residuals, (batch * self.world_size, hotness)
+
+  def backward_to_mp(self, d_outs: Sequence[torch.Tensor],
+                     global_batch: int, hotness: tuple
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Transpose output cotangents back to per-subgroup mp-side grads:
+    the manual transpose of the forward's output path (row exchange +
+    reorder + column re-concat), so the sparse path never builds a
+    table-shaped gradient.
+
+    PRECONDITION for ROW-SLICED MEAN inputs: the forward divides the
+    owner-side partial sums by the true per-sample id count, so the
+    matching cotangent must arrive here ALREADY divided by that count
+    (``make_hybrid_train_step`` does this).
+
+    Args:
+      d_outs: this rank's per-input cotangents ``[B, out_dim_i]``.
+      global_batch / hotness: the forward call's signature.
+
+    Returns:
+      Tuple of this rank's per-subgroup ``[n_cap, GB, w]`` grads, aligned
+      with ``forward_with_residuals``'s residuals.
+    """
+    if len(d_outs) != self.num_inputs:
+      raise ValueError(f'Expect {self.num_inputs} cotangents, got '
+                       f'{len(d_outs)}.')
+    return self._build_backward(global_batch // self.world_size,
+                                tuple(hotness))(list(d_outs))
+
+  def _build_backward(self, local_batch: int, hotness: tuple):
+    """Build (once per signature) ``bwd(d_outs) -> gsubs``: cotangent send
+    buffers, ONE fused cotangent exchange, and for row-shard slots one
+    all_gather per merged input (the transpose of the forward's
+    reduce-scatter)."""
+    key = ('bwd', local_batch, hotness)
+    if key in self._fn_cache:
+      return self._fn_cache[key]
+    D, me, dev = self.world_size, self.rank, self.device
+    global_batch = local_batch * D
+    subs = self._subgroups(hotness)
+    # slots each subgroup ships through the cotangent exchange (merge
+    # subgroups ship only their unmerged out_sel slots; the rest ride
+    # all_gathers)
+    slots_of = [(s.out_n_cap if s.merge_inputs else s.n_cap) for s in subs]
+    recon = []
+    for sub in subs:
+      # per merge subgroup: slot -> row of [received slots, one full
+      # cotangent per merged input, a zero row]
+      if not sub.merge_inputs:
+        recon.append(None)
+        continue
+      r = np.full(sub.n_cap, sub.out_n_cap + len(sub.merge_inputs),
+                  np.int64)
+      for s, req in enumerate(sub.requests[me]):
+        pos = sub.out_pos.get((me, s))
+        r[s] = (pos if pos is not None else
+                sub.out_n_cap + sub.merge_inputs.index(req.input_id))
+      recon.append(torch.as_tensor(r, device=dev))
+    lplan = LookupPlan(path='bwd', global_batch=global_batch,
+                       hotness=tuple(hotness), fused=True)
+    self._lookup_plans[key] = lplan
+
+    def bwd(d_outs):
+      lplan.legs.clear()
+      dt = d_outs[0].dtype
+      sends = []
+      for si, sub in enumerate(subs):
+        if not slots_of[si]:
+          sends.append(None)
+          continue
+        w = sub.group.width
+        sel = sub.out_sel if sub.merge_inputs else None
+
+        def key_of(d, p, sub=sub, sel=sel):
+          rs = sub.requests[d]
+          s = int(sel[d, p]) if sel is not None else p
+          if s < len(rs):
+            return (rs[s].input_id, rs[s].col_start, rs[s].col_end)
+          return -1
+
+        def val_of(k, w=w):
+          if k == -1:
+            return torch.zeros((local_batch, w), dtype=dt, device=dev)
+          return d_outs[k[0]][:, k[1]:k[2]]
+
+        sends.append(routing.gather_slots(D, slots_of[si], key_of, val_of))
+      recvs = self._exchange(sends, 'bwd/cotangent', plan=lplan)
+      gsubs = []
+      for si, sub in enumerate(subs):
+        w = sub.group.width
+        drecv = None
+        if slots_of[si]:
+          # [D, n, B, w] from every source rank -> [n, D*B, w]
+          drecv = recvs[si].transpose(0, 1).reshape(slots_of[si],
+                                                    global_batch, w)
+        if not sub.merge_inputs:
+          gsubs.append(drecv)
+          continue
+        # row-shard slots: every owner needs the FULL [GB, w] cotangent
+        # of its input (the transpose of the forward's reduce-scatter)
+        parts = [drecv] if sub.out_n_cap else []
+        for inp in sub.merge_inputs:
+          parts.append(self._all_gather_batch(d_outs[inp])[None].to(dt))
+        parts.append(torch.zeros((1, global_batch, w), dtype=dt,
+                                 device=dev))
+        gsubs.append(torch.cat(parts)[recon[si]])
+      return tuple(gsubs)
+
+    self._fn_cache[key] = bwd
+    return bwd
+
+  def _all_gather_batch(self, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``[B, ...]`` block concatenated in rank order:
+    ``[D * B, ...]`` (``jax.lax.all_gather(..., tiled=True)``)."""
+    if self.world_size == 1:
+      return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(self.world_size)]
+    torch_dist.all_gather(parts, x, group=self.mesh.group)
+    return torch.cat(parts)
 
 
 @dataclasses.dataclass

@@ -10,9 +10,6 @@ recorded exchange legs equal the JAX LookupPlan's, fused ones and the
 per-buffer leg of a phase with a single live buffer."""
 
 import json
-import multiprocessing
-import pickle
-import socket
 
 import numpy as np
 import pytest
@@ -36,12 +33,6 @@ TABLES = [(64, 16, 'sum'), (100, 8, 'mean'), (50, 8, None),
 INPUT_TABLE_MAP = [0, 1, 2, 3, 4, 0, 3]
 HOTNESS = [1, 4, 1, 3, 2, 2, 1]
 BATCH = 16
-
-
-def _free_port():
-  with socket.socket() as s:
-    s.bind(('localhost', 0))
-    return s.getsockname()[1]
 
 
 def _case(options):
@@ -75,25 +66,8 @@ def _jax_forward(case):
 
 
 def _run_ranks(case, tmp_path, world_size=2):
-  case_path = tmp_path / 'case.pkl'
-  with open(case_path, 'wb') as f:
-    pickle.dump(case, f)
-  ctx = multiprocessing.get_context('spawn')
-  init = f'tcp://localhost:{_free_port()}'
-  procs = [ctx.Process(target=torch_exchange_worker.run,
-                       args=(r, world_size, init, str(case_path),
-                             str(tmp_path)))
-           for r in range(world_size)]
-  for p in procs:
-    p.start()
-  for p in procs:
-    p.join(timeout=240)
-  alive = [p for p in procs if p.is_alive()]
-  for p in alive:
-    p.kill()
-    p.join(timeout=10)
-  assert not alive, 'a rank hung'
-  assert [p.exitcode for p in procs] == [0] * world_size
+  torch_parity.spawn_ranks(torch_exchange_worker.run, case, tmp_path,
+                           world_size)
   ranks = []
   for r in range(world_size):
     with np.load(tmp_path / f'rank{r}.npz') as z:

@@ -6,8 +6,11 @@ without JAX; from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerances: bit-exact at hotness 1; rtol = atol = 1e-6 above, where the
-plain version may add a row's ids in another order than the kernel.
+Tolerances: the lookup is bit-exact at hotness 1; rtol = atol = 1e-6
+above, where the plain version may add a row's ids in another order than
+the kernel.  The segment-walk apply is bit-exact for ``sgd`` and within
+rtol = atol = 1e-6 for Adagrad (only the reciprocal square root may
+differ), and rows the stream does not name stay bitwise unchanged.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from distributed_embeddings_tpu_torch.ops import lookup
+from distributed_embeddings_tpu_torch.ops import segwalk
 
 torch.set_num_threads(1)
 
@@ -100,3 +104,99 @@ def test_kernel_takes_int64_ids(cuda_device):
   got = lookup.dense_lookup(table, ids, 'sum')
   want = lookup.dense_lookup_reference(table, ids, 'sum')
   torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _segwalk_against_plain(table, acc, ids, grads, op, g_index=None):
+  """Kernel and plain version on clones of one stream: one launch, the
+  agreement the module docstring states, untouched rows unchanged."""
+  kt, pt = table.clone(), table.clone()
+  ka, pa = (None, None) if acc is None else (acc.clone(), acc.clone())
+  before = segwalk.LAUNCHES
+  segwalk.segwalk_apply(kt, ka, ids, grads, 0.3, op=op, g_index=g_index)
+  torch.cuda.synchronize()
+  segs = segwalk.sort_stream(ids, table.shape[0], g_index)
+  assert segwalk.LAUNCHES == before + (1 if segs.count else 0)
+  segwalk.segwalk_apply_reference(pt, pa, ids, grads, 0.3, op=op,
+                                  g_index=g_index)
+  if op == 'sgd':
+    assert torch.equal(kt, pt)
+  else:
+    torch.testing.assert_close(kt.float(), pt.float(), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ka, pa, rtol=1e-6, atol=1e-6)
+  touched = torch.zeros(table.shape[0], dtype=torch.bool, device=ids.device)
+  valid = (ids >= 0) & (ids < table.shape[0])
+  touched[ids[valid].long()] = True
+  assert torch.equal(kt[~touched], table[~touched])
+  if acc is not None:
+    assert torch.equal(ka[~touched], acc[~touched])
+  return kt, ka
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [1, 8, 16, 128])
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+def test_segwalk_matches_plain_version(cuda_device, op, w, dtype):
+  rng = np.random.default_rng(w)
+  rows, n, m = 500, 6000, 1500
+  table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32))
+  table = table.to(_DT[dtype]).to(cuda_device)
+  acc = None if op == 'sgd' else torch.as_tensor(
+      rng.uniform(0.05, 0.2, size=(rows, w)).astype(np.float32)).to(
+          cuda_device)
+  # duplicates (power law), sentinels past the table and -1 padding
+  ids = (rng.zipf(1.3, n) - 1).clip(max=rows + 5).astype(np.int32)
+  ids[::11] = -1
+  ids = torch.as_tensor(ids).to(cuda_device)
+  grads = torch.as_tensor(rng.normal(size=(m, w)).astype(np.float32)).to(
+      cuda_device)
+  g_index = torch.as_tensor(rng.integers(0, m, n).astype(np.int32)).to(
+      cuda_device)
+  kt, _ = _segwalk_against_plain(table, acc, ids, grads, op, g_index)
+  assert not torch.equal(kt, table)
+  # per-position gradient rows (no g_index)
+  _segwalk_against_plain(table, acc, ids, grads[g_index.long()], op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup'])
+def test_segwalk_all_sentinel_stream_launches_nothing(cuda_device, op):
+  table = torch.randn(64, 16, device=cuda_device)
+  acc = None if op == 'sgd' else torch.full_like(table, 0.1)
+  ids = torch.full((300,), 64, dtype=torch.int32, device=cuda_device)
+  ids[::3] = -1
+  kt, ka = _segwalk_against_plain(table, acc, ids,
+                                  torch.ones(300, 16, device=cuda_device), op)
+  assert torch.equal(kt, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_sq'])
+def test_segwalk_one_id_of_100k_positions(cuda_device, op):
+  # one segment walked by one thread group: the kernel's worst case
+  rows, n, w = 32, 100_000, 16
+  table = torch.randn(rows, w, device=cuda_device)
+  acc = None if op == 'sgd' else torch.full_like(table, 0.1)
+  ids = torch.full((n,), 5, dtype=torch.int32, device=cuda_device)
+  ids[:7] = torch.arange(7, dtype=torch.int32, device=cuda_device)
+  grads = torch.randn(n, w, device=cuda_device)
+  segs = segwalk.sort_stream(ids, rows)
+  assert segs.longest() == n - 6
+  _segwalk_against_plain(table, acc, ids, grads, op)
+
+
+@pytest.mark.cuda
+def test_segwalk_on_unaligned_views(cuda_device):
+  # rows that cannot take 16-byte loads fall back to narrower ones
+  base = torch.randn(100 * 8 + 1, device=cuda_device)
+  table = base[1:].view(100, 8)
+  abase = torch.full((100 * 8 + 2,), 0.1, device=cuda_device)
+  acc = abase[2:].view(100, 8)
+  ids = torch.randint(-1, 103, (500,), dtype=torch.int32, device=cuda_device)
+  grads = torch.randn(500 * 8 + 3, device=cuda_device)[3:].view(500, 8)
+  pt, pa = table.clone(), acc.clone()
+  segwalk.segwalk_apply(table, acc, ids, grads, 0.3, op='adagrad_dedup')
+  segwalk.segwalk_apply_reference(pt, pa, ids, grads, 0.3,
+                                  op='adagrad_dedup')
+  torch.testing.assert_close(table, pt, rtol=1e-6, atol=1e-6)
+  torch.testing.assert_close(acc, pa, rtol=1e-6, atol=1e-6)

@@ -51,8 +51,9 @@ def test_imports_nothing_of_jax(path):
 
 def test_scan_sees_the_whole_port():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-  for module in ('ops/lookup.py', 'parallel/planner.py',
-                 'parallel/dist_embedding.py', 'serving/engine.py'):
+  for module in ('ops/lookup.py', 'ops/segwalk.py', 'parallel/planner.py',
+                 'parallel/dist_embedding.py', 'parallel/sparse.py',
+                 'parallel/grad.py', 'optim.py', 'serving/engine.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -101,6 +102,14 @@ def test_library_path_follows_the_source():
   assert path == nativebuild.library_path('lookup_combine')
   assert (nativebuild.CSRC_DIR / 'lookup_combine.cu').exists()
   assert 'arch=compute_90a,code=sm_90a' in nativebuild.NVCC_FLAGS
+
+
+def test_every_kernel_source_builds_to_its_own_path():
+  names = sorted(p.stem for p in nativebuild.CSRC_DIR.glob('*.cu'))
+  assert names == ['lookup_combine', 'segwalk_apply']
+  paths = {nativebuild.library_path(n) for n in names}
+  assert len(paths) == len(names)
+  assert all(p.parent == ROOT / 'build' / 'torch_kernels' for p in paths)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,7 +1,8 @@
-"""One rank of the port's multi-rank forward, for
-tests/test_torch_exchange.py: joins a gloo world on the CPU, runs
-``DistributedEmbedding.apply`` on its slice of the batch and saves what
-it got.  Imports nothing of JAX (spawned processes import only this)."""
+"""One rank of the port's multi-rank forward (``run``, for
+tests/test_torch_exchange.py) or hybrid train step (``train``, for
+tests/test_torch_train_ranks.py): joins a gloo world on the CPU, runs on
+its slice of the batch and saves what it got.  Imports nothing of JAX
+(spawned processes import only this)."""
 
 import json
 import pickle
@@ -38,6 +39,72 @@ def run(rank, world_size, init_method, case_path, out_dir):
     with open(f'{out_dir}/legs{rank}.json', 'w') as f:
       json.dump(legs, f)
     # no rank tears gloo down while the other still talks to it
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def train(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the port's hybrid train step, for
+  tests/test_torch_train_ranks.py: steps on its slice of each batch
+  with a linear head, ``SparseAdagrad`` and ``optim.adagrad``, and saves
+  the gathered tables and accumulators, its head and dense state, the
+  losses and the backward's exchange legs."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, **case['options'])
+    lr = case['lr']
+    dense_opt = optim.adagrad(lr)
+    emb_opt = sparse.SparseAdagrad(lr)
+    # a different head on every rank until the root's is broadcast
+    kernel = torch.tensor(case['kernel']) + rank
+    state = sparse.init_hybrid_train_state(
+        dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+               'kernel': kernel}, dense_opt, emb_opt)
+    grad.broadcast_variables(state.params, root_rank=0, group=m.group)
+
+    def head_loss(dense_params, emb_outs, labels):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - labels)**2)
+
+    step = sparse.make_hybrid_train_step(dist, head_loss, dense_opt, emb_opt)
+    b = case['batch'] // world_size
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    losses = []
+    for cats in case['batches']:
+      state, loss = step(state, [c[rank * b:(rank + 1) * b] for c in cats],
+                         labels)
+      losses.append(float(loss))
+    weights = checkpoint.get_weights(dist, state.params['embedding'])
+    accs = checkpoint.get_optimizer_state(dist, state.opt_state[1])
+    legs = [l.as_dict() for p in dist._lookup_plans.values()
+            if p.path == 'bwd' for l in p.legs]
+    np.savez(f'{out_dir}/train{rank}.npz',
+             kernel=state.params['kernel'].numpy(),
+             sos=state.opt_state[0]['sum_of_squares']['kernel'].numpy(),
+             losses=np.array(losses),
+             **{f'w{i}': w.numpy() for i, w in enumerate(weights)},
+             **{f'a{i}': a['acc'].numpy() for i, a in enumerate(accs)})
+    with open(f'{out_dir}/train_legs{rank}.json', 'w') as f:
+      json.dump(legs, f)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()

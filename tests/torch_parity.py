@@ -5,6 +5,9 @@ JAX side runs on the CPU, the port with ``device='cpu'``.
 """
 
 import dataclasses
+import multiprocessing
+import pickle
+import socket
 
 import numpy as np
 
@@ -74,3 +77,75 @@ def assert_outputs_match(got, want, hotness):
     else:
       np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
                                  err_msg=f'input {i}')
+
+
+# The mixed specs of tests/test_sparse_train.py: (rows, width, combiner,
+# hotness), so fusion, hotness classes and mean scaling are exercised.
+MIXED_SPECS = [
+    (40, 4, None, 1),
+    (30, 4, 'sum', 3),
+    (50, 8, 'mean', 3),
+    (25, 4, 'sum', 1),
+    (60, 8, 'sum', 2),
+    (35, 4, None, 1),
+    (45, 8, 'mean', 2),
+    (55, 4, 'sum', 3),
+    (20, 4, 'sum', 2),
+]
+
+
+def mixed_case(batch, n_batches, seed=0):
+  """Weights, a linear head's kernel, labels and ``n_batches`` input
+  lists for the mixed specs, drawn as tests/test_sparse_train.py draws
+  them (multi-hot rows of combining tables keep a random prefix and pad
+  with -1)."""
+  rng = np.random.default_rng(seed)
+  weights = [rng.normal(size=(r, w)).astype(np.float32)
+             for r, w, _, _ in MIXED_SPECS]
+  total_width = sum(w for _, w, _, _ in MIXED_SPECS)
+  kernel = rng.normal(size=(total_width, 1)).astype(np.float32)
+  labels = rng.normal(size=(batch, 1)).astype(np.float32)
+  batches = []
+  for _ in range(n_batches):
+    cats = []
+    for rows, _, combiner, hot in MIXED_SPECS:
+      ids = rng.integers(0, rows, size=(batch, hot)).astype(np.int32)
+      if combiner is not None and hot > 1:
+        lengths = rng.integers(1, hot + 1, size=(batch,))
+        ids = np.where(np.arange(hot)[None, :] < lengths[:, None], ids, -1)
+      cats.append(ids)
+    batches.append(cats)
+  return weights, kernel, labels, batches
+
+
+def free_port():
+  """A free localhost port for a gloo rendezvous (tier-1 runs test files
+  in parallel, so every spawning test picks its own)."""
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def spawn_ranks(target, case, tmp_path, world_size=2, timeout=240):
+  """Run ``target(rank, world_size, init_method, case_path, out_dir)`` in
+  ``world_size`` spawned processes and wait for all of them; a rank that
+  hangs is killed and fails the test."""
+  case_path = tmp_path / 'case.pkl'
+  with open(case_path, 'wb') as f:
+    pickle.dump(case, f)
+  ctx = multiprocessing.get_context('spawn')
+  init = f'tcp://localhost:{free_port()}'
+  procs = [ctx.Process(target=target,
+                       args=(r, world_size, init, str(case_path),
+                             str(tmp_path)))
+           for r in range(world_size)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(timeout=timeout)
+  alive = [p for p in procs if p.is_alive()]
+  for p in alive:
+    p.kill()
+    p.join(timeout=10)
+  assert not alive, 'a rank hung'
+  assert [p.exitcode for p in procs] == [0] * world_size
