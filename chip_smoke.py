@@ -23,21 +23,27 @@ Phases, each of which exits non-zero on failure:
 7. train:   the model's tables, Adagrad accumulators and MLP in a
             training state (SparseAdagrad(0.01) and optax-style
             adagrad(0.01, 0.1, 1e-7), bce_with_logits: the JAX bench's
-            configuration); 5 hybrid steps on distinct batches; every
-            loss finite; every group's apply went through the segment-
-            walk kernel and every lookup through the lookup kernel.
+            configuration); one warm-up step, then 5 hybrid steps on
+            distinct batches; every loss finite; every group's apply
+            went through the segment-walk kernel and every lookup
+            through the lookup kernel.
 8. segwalk: the segment-walk kernel against its plain version on each
             group's update stream captured from one more real step, for
             sgd (bit-exact), adagrad_dedup and adagrad_sq (rtol = atol =
             1e-6), untouched rows unchanged, and one bf16 table; kernel
-            device time (torch.profiler), plain time (CUDA events, one
-            call), Tensor.index_add_ for sgd, the bound and the longest
-            segment of each stream.
+            device time over both passes (torch.profiler), plain time
+            (CUDA events, one call), Tensor.index_add_ for sgd, the
+            bound, the longest segment and the chunks of each stream;
+            then each stream's three ops timed again in two orders (sgd
+            first, and rotated), each order after one untimed warm-up
+            apply.
 9. profile: one training step under torch.profiler: device busy share
-            and device time by kernel.
+            and device time by kernel; one more step under torch's sync
+            debug mode: its host syncs by source line.
 
 Launches are counted per path: the forward's, the serving requests'
-(counted from 0 after the engine's warm-up) and the training steps'.
+(counted from 0 after the engine's warm-up) and the training steps'
+(counted from 0 after the warm-up step).
 The line before last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
@@ -46,12 +52,15 @@ exits 1 and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -476,19 +485,24 @@ def phase_train(model, config, seed):
   dist = model.dist_embedding
   n_groups = len(dist.plan.groups)
   n_subs = len(dist._subgroups(tuple(model.hotness)))
-  # the counted steps' batches, then the capture step's (phase 8) and
-  # the profiled step's (phase 9)
-  batches = train_batches(config, model.hotness, seed + 1, TRAIN_STEPS + 2)
+  # the warm-up step's batch, the counted steps', then the capture
+  # step's (phase 8) and the profiled step's (phase 9)
+  batches = train_batches(config, model.hotness, seed + 1, TRAIN_STEPS + 3)
   step, state = build_trainer(model)
   torch.cuda.synchronize()
   log(f'[train] state: tables {model.total_table_gib():.3f} GiB + '
       f'Adagrad accumulators; device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
   torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state, loss = step(state, *batches[0])
+  torch.cuda.synchronize()
+  log(f'[train] warm-up step (loads the kernels, allocates): '
+      f'{(time.perf_counter() - t0) * 1e3:.3f} ms, loss {float(loss):.6f}')
   lookup.LAUNCHES = 0
   segwalk.LAUNCHES = 0
   times, losses = [], []
-  for cats, batch in batches[:TRAIN_STEPS]:
+  for cats, batch in batches[1:TRAIN_STEPS + 1]:
     t0 = time.perf_counter()
     state, loss = step(state, cats, batch)
     torch.cuda.synchronize()
@@ -510,7 +524,8 @@ def phase_train(model, config, seed):
   log(f'[train] launches {json.dumps(launches)} = {TRAIN_STEPS} steps x '
       f'({n_groups} groups, {n_subs} subgroups); peak device memory '
       f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
-  state, loss, calls = captured_applies(step, state, *batches[TRAIN_STEPS])
+  state, loss, calls = captured_applies(step, state,
+                                        *batches[TRAIN_STEPS + 1])
   if not bool(torch.isfinite(loss)):
     raise AssertionError(f'capture step loss {float(loss)} not finite')
   return step, state, calls, batches[-1], launches
@@ -582,7 +597,8 @@ def check_segwalk(call, op, table, label):
       'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows,
       'w': w, 'positions': n, 'valid_positions': valid,
       'compact_grad_rows': m, 'segments': u,
-      'longest_segment': segs.longest(), 'bytes': nbytes,
+      'longest_segment': segs.longest(), 'chunk': segwalk.CHUNK,
+      'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
       'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
       'plain_ms': plain_ms, 'library_ms': library_ms,
       'bound_ms': max(bytes_ms, ops_ms),
@@ -595,6 +611,28 @@ def check_segwalk(call, op, table, label):
   return row
 
 
+def order_timings(call, label, order):
+  """Kernel device time of each op in ``order`` on one captured stream,
+  one after the other on the same clones, after one untimed warm-up
+  apply of the first."""
+  segs = segwalk.sort_stream(call['ids'], call['table'].shape[0],
+                             call['g_index'])
+  kt, ka = call['table'].clone(), call['acc'].clone()
+
+  def apply(op):
+    segwalk.apply_segments(kt, None if op == 'sgd' else ka, segs,
+                           call['grads'], call['lr'], op=op, eps=call['eps'])
+
+  apply(order[0])
+  torch.cuda.synchronize()
+  times = {op: device_ms(lambda: apply(op), 10, warmup=0) for op in order}
+  log(f'[segwalk] {label} order {" -> ".join(order)}: kernel ms '
+      f'{json.dumps(times)}')
+  del kt, ka
+  torch.cuda.empty_cache()
+  return times
+
+
 def phase_segwalk(calls):
   rows = []
   for call in calls:
@@ -604,6 +642,9 @@ def phase_segwalk(calls):
                            f'captured {call["op"]}')
     for op in segwalk.OPS:
       rows.append(check_segwalk(call, op, call['table'], label))
+    # is an op's time a matter of its place in the sequence?
+    for order in (segwalk.OPS, segwalk.OPS[1:] + segwalk.OPS[:1]):
+      order_timings(call, label, order)
   # one bf16 table: the largest group's, cast
   call = max(calls, key=lambda c: c['table'].numel())
   label = f'w{call["table"].shape[1]}_rows{call["table"].shape[0]}_bf16'
@@ -613,18 +654,41 @@ def phase_segwalk(calls):
     log(f'[segwalk] {r["stream"]} {r["op"]} {r["dtype"]}: kernel '
         f'{r["kernel_ms"]:.4f} ms, plain {r["plain_ms"]:.3f} ms (one '
         f'call), library {r["library_ms"]}, bound {r["bound_ms"]:.4f} ms; '
-        f'{r["segments"]} segments, longest {r["longest_segment"]}')
+        f'{r["segments"]} segments, longest {r["longest_segment"]}, '
+        f'{r["chunks"]} chunks of {r["chunk"]}')
   log('[segwalk] Tensor.index_add_ is the library time for sgd; no '
       'PyTorch call computes the Adagrad applies (library null)')
   return rows, bf16_row
 
 
+def host_syncs(fn):
+  """The host syncs of one call of ``fn`` that torch's sync debug mode
+  sees (a prototype: it does not see every synchronising operation), by
+  the Python line that made them."""
+  torch.cuda.synchronize()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      fn()
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  return collections.Counter(
+      f'{pathlib.Path(w.filename).name}:{w.lineno}' for w in caught
+      if 'called a synchronizing' in str(w.message))
+
+
 def phase_train_profile(step, state, batch):
   losses = []
   profile_once(lambda: losses.append(step(state, *batch)[1]),
-               'profile-train', 'one training step', top=15)
-  if not bool(torch.isfinite(losses[0])):
+               'profile-train', 'one training step', top=20)
+  syncs = host_syncs(lambda: losses.append(step(state, *batch)[1]))
+  if not all(bool(torch.isfinite(x)) for x in losses):
     raise AssertionError('profiled step loss not finite')
+  log(f'[profile-train] host syncs in one more step (sync debug mode): '
+      f'{sum(syncs.values())}, by line '
+      f'{json.dumps(dict(syncs.most_common()))}')
 
 
 def main(argv=None) -> int:
@@ -700,6 +764,8 @@ def main(argv=None) -> int:
       'sgd_ms': sum(r['kernel_ms'] for r in sgd),
       'sgd_library_ms': sum(r['library_ms'] for r in sgd),
       'longest_segment': {r['stream']: r['longest_segment'] for r in path},
+      'chunk': segwalk.CHUNK,
+      'chunks': {r['stream']: r['chunks'] for r in path},
   })
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
   log(json.dumps({'kernels': [k, seg]}))

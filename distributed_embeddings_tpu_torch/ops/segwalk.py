@@ -3,10 +3,10 @@
 
 ``segwalk_apply`` applies one optimizer step from a per-occurrence
 update stream: the stream's ids are sorted (a stable torch sort), each
-valid id's run of gradient rows is summed in ascending stream position,
-and that row of the table (and of the Adagrad accumulator) is updated
-once, IN PLACE.  Rows the stream does not name stay bitwise unchanged.
-The semantics, per distinct row with gradient sum ``S``:
+valid id's run of gradient rows is summed, and that row of the table
+(and of the Adagrad accumulator) is updated once, IN PLACE.  Rows the
+stream does not name stay bitwise unchanged.  The semantics, per
+distinct row with gradient sum ``S``:
 
 - ``'sgd'``:            ``t -= lr * S``
 - ``'adagrad_dedup'``:  ``a += S * S``;      ``t -= lr * S * rsqrt(a + eps)``
@@ -17,14 +17,29 @@ Ids outside ``[0, rows)`` are padding (the runtime's sentinel is
 ``g_index``, as COMPACT rows that ``g_index`` maps each position to (a
 multi-hot bag's one cotangent row serves all its ids, never broadcast).
 
+Summation order, the contract kernel and plain version share.  The
+sorted stream is cut into chunks of ``CHUNK`` positions: chunk ``k`` is
+positions ``[k * CHUNK, (k + 1) * CHUNK)``.  A segment's partial in a
+chunk is the left fold, from +0, of its gradient rows in that chunk in
+ascending position; its sum ``S`` is the left fold, from +0, of its
+partials in ascending chunk order.  For ``'adagrad_sq'`` the sum of
+squares follows the same order.  A segment inside one chunk is the plain
+left fold of its positions.  ``CHUNK`` depends on nothing else (not the
+device, the width or a launch configuration); the wrapper passes it to
+the kernel.
+
 On a CUDA table ``apply_segments`` launches the hand-written kernel
 ``csrc/segwalk_apply.cu`` (built at first use, ``utils/nativebuild.py``)
-or raises.  On a CPU table it runs the plain version
+or raises: a chunked segmented reduction in two passes, with grids sized
+from the stream length, so neither the sort nor the launch waits on the
+device.  On a CPU table it runs the plain version
 ``apply_segments_reference``, which computes the same function with
 torch ops in the same order: every sum, product and difference rounded
 on its own, rsqrt as ``1 / sqrt``, a bf16 table updated in f32 and
 rounded once at the store.  Nothing falls back from one to the other.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts applies that reached the kernel: one per apply of a
+non-empty stream, which makes one CUDA launch (one chunk) or two (pass
+1 and pass 2).
 
 The TPU kernel's capacity-free contract holds: every segment is applied
 exactly once, whatever the number of distinct ids.
@@ -34,15 +49,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
-# Kernel launches made by this module (one per ``_launch``).
+# Applies that launched the kernel (one per ``_launch`` of a non-empty
+# stream, whether it made one CUDA launch or two).
 LAUNCHES = 0
+
+# Positions per chunk of the sorted stream: the summation order's one
+# parameter (module docstring), shared by the kernel and the plain version.
+CHUNK = 256
 
 OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,9 +74,10 @@ def _kernel():
   global _fn
   if _fn is None:
     fn = nativebuild.load('segwalk_apply').segwalk_apply
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
   return _fn
@@ -63,14 +85,35 @@ def _kernel():
 
 @dataclasses.dataclass(frozen=True)
 class Segments:
-  """An update stream sorted by id and cut into the runs of its valid
-  ids: sorted position ``p`` holds id ``sorted_ids[p]`` and gradient row
-  ``gidx[p]``; segment ``s`` covers positions ``[starts[s], ends[s])``,
-  in ascending id order.  All int32, on the stream's device."""
+  """An update stream sorted by id: sorted position ``p`` holds id
+  ``sorted_ids[p]`` and gradient row ``gidx[p]`` (int32, on the stream's
+  device).  The cut into the runs of its valid ids (in ``[0, rows)``),
+  segment ``s`` covering positions ``[starts[s], ends[s])`` in ascending
+  id order, is computed at first use: the kernel never needs it, and
+  computing it waits on the device (``nonzero``)."""
   sorted_ids: torch.Tensor
   gidx: torch.Tensor
-  starts: torch.Tensor
-  ends: torch.Tensor
+  rows: int
+
+  @functools.cached_property
+  def _bounds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    sid = self.sorted_ids
+    n = sid.shape[0]
+    first = torch.ones(n, dtype=torch.bool, device=sid.device)
+    first[1:] = sid[1:] != sid[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    ends = torch.cat([starts[1:], starts.new_full((min(n, 1),), n)])
+    head = sid[starts]
+    keep = (head >= 0) & (head < self.rows)
+    return starts[keep].to(torch.int32), ends[keep].to(torch.int32)
+
+  @property
+  def starts(self) -> torch.Tensor:
+    return self._bounds[0]
+
+  @property
+  def ends(self) -> torch.Tensor:
+    return self._bounds[1]
 
   @property
   def count(self) -> int:
@@ -83,21 +126,12 @@ class Segments:
 
 def sort_stream(ids: torch.Tensor, rows: int,
                 g_index: Optional[torch.Tensor] = None) -> Segments:
-  """Sort ``ids`` ``[n]`` (stable, so equal ids keep stream order) and
-  cut the sorted stream into the segments of its ids in ``[0, rows)``.
-  ``g_index`` maps stream position -> gradient row (default: the
-  position itself)."""
-  n = ids.shape[0]
+  """Sort ``ids`` ``[n]`` (stable, so equal ids keep stream order); the
+  segments of its ids in ``[0, rows)`` follow on demand.  ``g_index``
+  maps stream position -> gradient row (default: the position itself)."""
   sid, order = torch.sort(ids.to(torch.int32), stable=True)
   gidx = order if g_index is None else g_index[order]
-  first = torch.ones(n, dtype=torch.bool, device=ids.device)
-  first[1:] = sid[1:] != sid[:-1]
-  starts = torch.nonzero(first).squeeze(1)
-  ends = torch.cat([starts[1:], starts.new_full((min(n, 1),), n)])
-  head = sid[starts]
-  keep = (head >= 0) & (head < rows)
-  return Segments(sid, gidx.to(torch.int32), starts[keep].to(torch.int32),
-                  ends[keep].to(torch.int32))
+  return Segments(sid, gidx.to(torch.int32), rows)
 
 
 def _rounded_square(x: torch.Tensor) -> torch.Tensor:
@@ -134,8 +168,8 @@ def _check(table, acc, grads, op):
 
 
 def _cut(table, ids, grads, g_index) -> Segments:
-  """Check the stream against the table and gradient rows, then sort and
-  cut it."""
+  """Check the stream against the table and gradient rows, then sort
+  it."""
   n = ids.shape[0]
   if ids.dim() != 1 or ids.device != table.device:
     raise ValueError(f'ids must be [n] on {table.device}, got '
@@ -176,7 +210,7 @@ def segwalk_apply(table: torch.Tensor, acc: Optional[torch.Tensor],
     op: ``'sgd'`` | ``'adagrad_dedup'`` | ``'adagrad_sq'``.
     eps: Adagrad epsilon.
     g_index: optional ``[n]`` integer map stream position -> row of
-      ``grads``.
+      ``grads`` (its range check reads the device once).
 
   Returns:
     ``(table, acc)``, the same tensors, updated.
@@ -190,8 +224,8 @@ def segwalk_apply(table: torch.Tensor, acc: Optional[torch.Tensor],
 def apply_segments(table: torch.Tensor, acc: Optional[torch.Tensor],
                    segs: Segments, grads: torch.Tensor, lr: float, *,
                    op: str, eps: float = 1e-7) -> None:
-  """The apply proper on a cut stream (``sort_stream``): the kernel for
-  a CUDA table, the plain version for a CPU table."""
+  """The apply proper on a sorted stream (``sort_stream``): the kernel
+  for a CUDA table, the plain version for a CPU table."""
   _check(table, acc, grads, op)
   if table.device.type == 'cuda':
     _launch(table, acc, segs, grads.to(torch.float32).contiguous(), lr, eps,
@@ -203,21 +237,29 @@ def apply_segments(table: torch.Tensor, acc: Optional[torch.Tensor],
 
 
 def _launch(table, acc, segs, grads, lr, eps, op):
-  """One launch of ``segwalk_apply`` on the current stream."""
+  """One ``segwalk_apply`` call on the current stream: both passes, with
+  the partials buffer they share.  Reads nothing from the device."""
   global LAUNCHES
-  if segs.count == 0:
+  n = segs.sorted_ids.shape[0]
+  if n == 0:
     return
   if segs.sorted_ids.device != table.device:
     raise ValueError(f'segments on {segs.sorted_ids.device}, table on '
                      f'{table.device}')
+  w = table.shape[1]
+  chunks = -(-n // CHUNK)
+  # freed to the caching allocator on return: work queued later on this
+  # stream runs after both passes
+  partials = torch.empty((2 if op == 'adagrad_sq' else 1, chunks, 2, w),
+                         dtype=torch.float32, device=table.device)
   with torch.cuda.device(table.device):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _kernel()(segs.sorted_ids.data_ptr(), segs.gidx.data_ptr(),
-                    segs.starts.data_ptr(), segs.ends.data_ptr(),
                     grads.data_ptr(), table.data_ptr(),
-                    None if acc is None else acc.data_ptr(), segs.count,
-                    table.shape[1], int(table.dtype == torch.bfloat16),
-                    OPS.index(op), lr, eps, stream)
+                    None if acc is None else acc.data_ptr(),
+                    partials.data_ptr(), n, table.shape[0], w, CHUNK,
+                    int(table.dtype == torch.bfloat16), OPS.index(op), lr,
+                    eps, stream)
   if err != 0:
     raise RuntimeError(f'segwalk_apply launch failed: cudaError {err}')
   LAUNCHES += 1
@@ -232,31 +274,61 @@ def apply_segments_reference(table: torch.Tensor,
   _apply_plain(table, acc, segs, grads, lr, eps, op)
 
 
+def _left_folds(first: torch.Tensor, lengths: torch.Tensor,
+                rows_at: Callable[[torch.Tensor], torch.Tensor],
+                width: int) -> torch.Tensor:
+  """``out[i]``: the left fold, from zeros, of ``rows_at(first[i] + k)``
+  for ``k = 0 .. lengths[i] - 1`` in ascending ``k``.  Round ``k`` adds
+  the ``k``-th row of every fold longer than ``k``, so it takes as many
+  rounds as the longest fold."""
+  f = first.shape[0]
+  by_len = torch.argsort(lengths, descending=True, stable=True)
+  first = first[by_len]
+  hist = np.bincount(lengths.cpu().numpy(), minlength=1)
+  active = f - np.cumsum(hist)  # active[k]: folds longer than k
+  out = torch.zeros((f, width), dtype=torch.float32, device=first.device)
+  for k in range(len(hist) - 1):
+    a = int(active[k])
+    out[:a] += rows_at(first[:a] + k)
+  folds = torch.empty_like(out)
+  folds[by_len] = out
+  return folds
+
+
 def _apply_plain(table, acc, segs, grads, lr, eps, op):
-  """The plain version, in place.  Sums each segment's gradient rows in
-  ascending position, as the kernel does: round ``k`` adds the ``k``-th
-  row of every segment longer than ``k``, so it takes as many rounds as
-  the longest segment."""
+  """The plain version, in place, in the kernel's summation order (module
+  docstring): first the left fold of every piece (a segment cut at the
+  chunk boundaries), in at most ``CHUNK`` rounds, then the left fold of
+  each segment's pieces, in as many rounds as the most chunks a segment
+  touches.  For ``'adagrad_sq'`` the squares ride along as ``w`` more
+  columns of each fold (columns never mix, so the bits are the same)."""
   dev = table.device
   u, w = segs.count, table.shape[1]
   if u == 0:
     return
   grads = grads.to(torch.float32)
-  lengths = (segs.ends - segs.starts).to(torch.int64)
-  # segments by length, longest first: round k's segments are a prefix
-  by_len = torch.argsort(lengths, descending=True, stable=True)
-  starts = segs.starts[by_len].to(torch.int64)
-  hist = np.bincount(lengths.cpu().numpy())
-  active = u - np.cumsum(hist)  # active[k]: segments longer than k
-  sums = torch.zeros((u, w), dtype=torch.float32, device=dev)
-  squares = (torch.zeros((u, w), dtype=torch.float32, device=dev)
-             if op == 'adagrad_sq' else None)
-  for k in range(len(hist) - 1):
-    a = int(active[k])
-    g = grads[segs.gidx[starts[:a] + k].to(torch.int64)]
-    sums[:a] += g
-    if squares is not None:
-      squares[:a] += g * g
+  gidx = segs.gidx.to(torch.int64)
+  sq = op == 'adagrad_sq'
+
+  def stream_rows(p):
+    g = grads[gidx[p]]
+    return torch.cat([g, _rounded_square(g)], 1) if sq else g
+
+  starts = segs.starts.to(torch.int64)
+  ends = segs.ends.to(torch.int64)
+  first_chunk = starts // CHUNK
+  pieces = (ends - 1) // CHUNK - first_chunk + 1  # per segment
+  seg = torch.repeat_interleave(torch.arange(u, device=dev), pieces)
+  first_piece = torch.cumsum(pieces, 0) - pieces  # per segment
+  chunk = first_chunk[seg] + torch.arange(seg.shape[0], device=dev) - \
+      first_piece[seg]
+  p_first = torch.maximum(starts[seg], chunk * CHUNK)
+  p_end = torch.minimum(ends[seg], (chunk + 1) * CHUNK)
+  partials = _left_folds(p_first, p_end - p_first, stream_rows,
+                         2 * w if sq else w)
+  folds = _left_folds(first_piece, pieces, lambda j: partials[j],
+                      partials.shape[1])
+  sums, squares = (folds[:, :w], folds[:, w:]) if sq else (folds, None)
   rows = segs.sorted_ids[starts].to(torch.int64)
   lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
   t = table[rows].to(torch.float32)

@@ -10,7 +10,10 @@ Tolerances: the lookup is bit-exact at hotness 1; rtol = atol = 1e-6
 above, where the plain version may add a row's ids in another order than
 the kernel.  The segment-walk apply is bit-exact for ``sgd`` and within
 rtol = atol = 1e-6 for Adagrad (only the reciprocal square root may
-differ), and rows the stream does not name stay bitwise unchanged.
+differ), and rows the stream does not name stay bitwise unchanged; its
+streams put runs at the chunk edges of its two-pass design, it finishes
+a 100 k-position single-id stream in under 1 ms, and it runs the sort
+and both passes without a host sync.
 """
 
 import numpy as np
@@ -107,15 +110,15 @@ def test_kernel_takes_int64_ids(cuda_device):
 
 
 def _segwalk_against_plain(table, acc, ids, grads, op, g_index=None):
-  """Kernel and plain version on clones of one stream: one launch, the
-  agreement the module docstring states, untouched rows unchanged."""
+  """Kernel and plain version on clones of one stream: one counted launch
+  for a non-empty stream, the agreement the module docstring states,
+  untouched rows unchanged."""
   kt, pt = table.clone(), table.clone()
   ka, pa = (None, None) if acc is None else (acc.clone(), acc.clone())
   before = segwalk.LAUNCHES
   segwalk.segwalk_apply(kt, ka, ids, grads, 0.3, op=op, g_index=g_index)
   torch.cuda.synchronize()
-  segs = segwalk.sort_stream(ids, table.shape[0], g_index)
-  assert segwalk.LAUNCHES == before + (1 if segs.count else 0)
+  assert segwalk.LAUNCHES == before + (1 if ids.shape[0] else 0)
   segwalk.segwalk_apply_reference(pt, pa, ids, grads, 0.3, op=op,
                                   g_index=g_index)
   if op == 'sgd':
@@ -160,7 +163,9 @@ def test_segwalk_matches_plain_version(cuda_device, op, w, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup'])
-def test_segwalk_all_sentinel_stream_launches_nothing(cuda_device, op):
+def test_segwalk_all_sentinel_stream_changes_nothing(cuda_device, op):
+  # the launch is sized by the stream length alone: it runs and every
+  # run it finds is padding
   table = torch.randn(64, 16, device=cuda_device)
   acc = None if op == 'sgd' else torch.full_like(table, 0.1)
   ids = torch.full((300,), 64, dtype=torch.int32, device=cuda_device)
@@ -173,7 +178,9 @@ def test_segwalk_all_sentinel_stream_launches_nothing(cuda_device, op):
 @pytest.mark.cuda
 @pytest.mark.parametrize('op', ['sgd', 'adagrad_sq'])
 def test_segwalk_one_id_of_100k_positions(cuda_device, op):
-  # one segment walked by one thread group: the kernel's worst case
+  # one segment over 391 chunks: pass 1 folds each chunk in parallel,
+  # pass 2 merges the 391 partials; under 1 ms on the card (events around
+  # back-to-back applies, host gaps included)
   rows, n, w = 32, 100_000, 16
   table = torch.randn(rows, w, device=cuda_device)
   acc = None if op == 'sgd' else torch.full_like(table, 0.1)
@@ -183,6 +190,18 @@ def test_segwalk_one_id_of_100k_positions(cuda_device, op):
   segs = segwalk.sort_stream(ids, rows)
   assert segs.longest() == n - 6
   _segwalk_against_plain(table, acc, ids, grads, op)
+  kt = table.clone()
+  ka = None if acc is None else acc.clone()
+  apply = lambda: segwalk.apply_segments(kt, ka, segs, grads, 0.3, op=op)
+  apply()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(10):
+    apply()
+  end.record()
+  end.synchronize()
+  assert start.elapsed_time(end) / 10 < 1.0
 
 
 @pytest.mark.cuda
@@ -200,3 +219,79 @@ def test_segwalk_on_unaligned_views(cuda_device):
                                   op='adagrad_dedup')
   torch.testing.assert_close(table, pt, rtol=1e-6, atol=1e-6)
   torch.testing.assert_close(acc, pa, rtol=1e-6, atol=1e-6)
+
+
+def _chunk_edge_ids(rng, rows, c):
+  """Ids whose sorted stream (chunks of ``c``) holds -1 padding ending 3
+  positions before a chunk edge, a run ending on that edge, runs of c-1
+  and c+1 (the latter starting at a chunk's last position), a chunk made
+  wholly of one id, a run over more than three chunks, random short runs,
+  and sentinel padding starting on a chunk edge, shuffled."""
+  lengths = [(-1, c - 3), (0, 3), (1, c - 1), (2, c + 1), (3, c),
+             (4, 3 * c + 17)]
+  short = rng.integers(5, rows - 2, 200)
+  pos = sum(k for _, k in lengths) + len(short)
+  fill = (-pos) % c or c
+  parts = [np.full(k, i, np.int32) for i, k in lengths]
+  parts += [short.astype(np.int32), np.full(fill, rows - 2, np.int32),
+            np.full(c + 7, rows, np.int32)]
+  ids = np.concatenate(parts)
+  assert sum(k for _, k in lengths[:3]) == 2 * c - 1
+  assert (pos + fill) % c == 0
+  return ids[rng.permutation(len(ids))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [1, 8, 16, 128])
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+def test_segwalk_chunk_edges(cuda_device, op, w, dtype):
+  rng = np.random.default_rng(1000 + w)
+  rows, m = 500, 700
+  ids = _chunk_edge_ids(rng, rows, segwalk.CHUNK)
+  n = len(ids)
+  table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32))
+  table = table.to(_DT[dtype]).to(cuda_device)
+  acc = None if op == 'sgd' else torch.as_tensor(
+      rng.uniform(0.05, 0.2, size=(rows, w)).astype(np.float32)).to(
+          cuda_device)
+  ids = torch.as_tensor(ids).to(cuda_device)
+  grads = torch.as_tensor(rng.normal(size=(m, w)).astype(np.float32)).to(
+      cuda_device)
+  g_index = torch.as_tensor(rng.integers(0, m, n).astype(np.int32)).to(
+      cuda_device)
+  kt, _ = _segwalk_against_plain(table, acc, ids, grads, op, g_index)
+  assert not torch.equal(kt, table)
+  _segwalk_against_plain(table, acc, ids, grads[g_index.long()], op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+def test_segwalk_apply_does_not_synchronise(cuda_device, op):
+  # sort, partials and both passes under sync debug mode 'error': no
+  # nonzero, no .item(), no grid sized from a device value
+  rng = np.random.default_rng(11)
+  rows, n, w = 1000, 20_000, 16
+  ids = (rng.zipf(1.2, n) - 1).clip(max=rows + 3).astype(np.int32)
+  ids[::13] = -1
+  table = torch.randn(rows, w, device=cuda_device)
+  acc = None if op == 'sgd' else torch.full_like(table, 0.1)
+  ids = torch.as_tensor(ids).to(cuda_device)
+  grads = torch.randn(n, w, device=cuda_device)
+  pt = table.clone()
+  pa = None if acc is None else acc.clone()
+  segwalk.segwalk_apply_reference(pt, pa, ids, grads, 0.3, op=op)
+  # the first call builds and loads the kernel library
+  segwalk.segwalk_apply(table.clone(), None if acc is None else acc.clone(),
+                        ids, grads, 0.3, op=op)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    segwalk.segwalk_apply(table, acc, ids, grads, 0.3, op=op)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  if op == 'sgd':
+    assert torch.equal(table, pt)
+  else:
+    torch.testing.assert_close(table, pt, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(acc, pa, rtol=1e-6, atol=1e-6)

@@ -6,7 +6,10 @@ contract the update into an FMA and computes rsqrt its own way), and one
 short stream through the Pallas kernel itself in interpret mode at the
 same bound.  Within the port: the ``g_index`` stream equals the
 materialised stream bit-exactly, a bf16 table equals the f32 arithmetic
-rounded once, and rows the stream does not name stay bitwise unchanged.
+rounded once, rows the stream does not name stay bitwise unchanged, and
+the plain version sums in the chunked order the kernel shares
+(``ops/segwalk.py``), pinned bit-exactly by a numpy fold at segments that
+cross chunk boundaries.
 """
 
 import zlib
@@ -113,8 +116,8 @@ def test_plain_matches_interpreted_pallas_kernel():
 
 @pytest.mark.parametrize('op', OPS)
 def test_long_segment_matches_f64_sums(op):
-  # one id's run of 5000 positions, summed in f32 in stream order,
-  # against sums in f64: 1e-4, the bound test_pallas_segwalk.py holds
+  # one id's run of 5000 positions, summed in f32 in the chunked order
+  # (20 chunks of 256), against sums in f64: 1e-4, the bound test_pallas_segwalk.py holds
   # the TPU kernel's long segments to
   width, rows = 16, 16
   rng = np.random.default_rng(7)
@@ -176,6 +179,92 @@ def test_untouched_rows_unchanged_and_bf16_rounds_once(op):
   assert torch.equal(t16, torch.tensor(got_t).to(torch.bfloat16))
   if a is not None:
     np.testing.assert_array_equal(a.numpy(), got_a)
+
+
+def _numpy_chunked_apply(op, table, acc, ids, grads, g_index, chunk):
+  """The summation order of ``ops/segwalk.py`` in numpy float32: each
+  segment's partials are left folds over its positions inside one chunk
+  of the sorted stream, and its sum is the left fold of its partials in
+  chunk order; then the update, one rounded op at a time."""
+  rows = table.shape[0]
+  order = np.argsort(ids, kind='stable')
+  sid = ids[order]
+  gidx = order if g_index is None else g_index[order]
+  t, a = table.copy(), acc.copy()
+  lr, eps = np.float32(LR), np.float32(EPS)
+  n, p = len(sid), 0
+  while p < n:
+    e = p
+    while e < n and sid[e] == sid[p]:
+      e += 1
+    uid = sid[p]
+    if 0 <= uid < rows:
+      s = np.zeros(table.shape[1], np.float32)
+      q = np.zeros_like(s)
+      for c in range(p // chunk, (e - 1) // chunk + 1):
+        ps, pq = np.zeros_like(s), np.zeros_like(s)
+        for pos in range(max(p, c * chunk), min(e, (c + 1) * chunk)):
+          g = grads[gidx[pos]]
+          ps = ps + g
+          pq = pq + g * g
+        s = s + ps
+        q = q + pq
+      if op == 'sgd':
+        t[uid] = t[uid] - lr * s
+      else:
+        a[uid] = a[uid] + (s * s if op == 'adagrad_dedup' else q)
+        # torch's CPU sqrt, as the plain version takes it: it is not
+        # always correctly rounded (numpy's is), and the sums' order is
+        # what this reference pins
+        scale = torch.reciprocal(torch.sqrt(torch.from_numpy(
+            a[uid] + eps))).numpy()
+        t[uid] = t[uid] - (lr * s) * scale
+    p = e
+  return t, a
+
+
+@pytest.mark.parametrize('lead', [1, 3, 8])
+@pytest.mark.parametrize('with_g_index', [False, True])
+@pytest.mark.parametrize('op', OPS)
+def test_plain_follows_the_chunked_order(monkeypatch, op, with_g_index,
+                                         lead):
+  # chunks of C = 8: sorted, the stream holds `lead` negative ids, runs of
+  # C-1, C, C+1 and 3C+5 positions, filler up to one position before a
+  # chunk edge, a run starting at a chunk's last position, short runs,
+  # then sentinels
+  c = 8
+  monkeypatch.setattr(segwalk, 'CHUNK', c)
+  rng = np.random.default_rng(lead * 10 + with_g_index)
+  rows, width = 40, 4
+  lengths = [c - 1, c, c + 1, 3 * c + 5]
+  pos = lead + sum(lengths)
+  lengths.append((c - 1 - pos) % c + c)  # filler: next run starts at k*C-1
+  lengths += [2, 1, 3, c + 2]
+  ids = np.concatenate([np.full(lead, -1, np.int32)] + [
+      np.full(k, i * 3 + 1, np.int32) for i, k in enumerate(lengths)] +
+                       [np.full(5, rows, np.int32)])
+  assert (lead + sum(lengths[:5])) % c == c - 1
+  ids = ids[rng.permutation(len(ids))]
+  table = rng.normal(size=(rows, width)).astype(np.float32)
+  acc = rng.uniform(0.05, 0.2, size=(rows, width)).astype(np.float32)
+  if with_g_index:
+    grads = rng.normal(size=(17, width)).astype(np.float32)
+    g_index = rng.integers(0, 17, len(ids)).astype(np.int32)
+  else:
+    grads = rng.normal(size=(len(ids), width)).astype(np.float32)
+    g_index = None
+  want_t, want_a = _numpy_chunked_apply(op, table, acc, ids, grads, g_index,
+                                        c)
+  got_t, got_a = _port(op, table, acc, ids, grads, g_index)
+  np.testing.assert_array_equal(got_t, want_t)
+  if got_a is not None:
+    np.testing.assert_array_equal(got_a, want_a)
+  else:
+    np.testing.assert_array_equal(want_a, acc)
+  # the chunked order is not the single left fold for crossing runs
+  segs = segwalk.sort_stream(torch.as_tensor(ids), rows)
+  assert segs.longest() == 3 * c + 5
+  assert int(((segs.starts // c) != ((segs.ends - 1) // c)).sum()) >= 4
 
 
 def test_segments_cut_the_sorted_stream():
