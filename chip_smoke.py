@@ -40,10 +40,32 @@ Phases, each of which exits non-zero on failure:
 9. profile: one training step under torch.profiler: device busy share
             and device time by kernel; one more step under torch's sync
             debug mode: its host syncs by source line.
+10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
+            the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
+            rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
+            input (dp_input=False), bf16 compute, drawn on the card;
+            batches of the learnable power-law split (utils/data.py) in
+            worker order.  3 forwards (one lookup launch each; the first
+            512 samples equal a plain gather and the head on it); the
+            lookup kernel against its plain version on the forward's ids
+            (bit-exact), with embedding_bag as the library time.
+11. dlrm-train: the example's trainer (SparseSGD(24) and SGD on the
+            warm-up + poly-decay schedule): one warm-up step, 5 timed
+            steps (one lookup and one segment-walk apply each), losses
+            finite, peak memory below the card's.
+12. dlrm-segwalk: one more step's sgd stream, the kernel against its
+            plain version on a compact copy of the touched rows and
+            against what the step wrote (bit-exact), a sample of 1 M
+            untouched rows unchanged; kernel, plain and
+            Tensor.index_add_ timed on the real table at lr 0 (which
+            leaves it as it is, checked).
+13. dlrm profile: one step under torch.profiler, one under sync debug
+            mode, as in phase 9.
 
 Launches are counted per path: the forward's, the serving requests'
 (counted from 0 after the engine's warm-up) and the training steps'
-(counted from 0 after the warm-up step).
+(counted from 0 after the warm-up step); the DLRM's forwards and
+training steps likewise.
 The line before last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
@@ -54,6 +76,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import gc
 import json
 import pathlib
 import statistics
@@ -72,7 +95,7 @@ from distributed_embeddings_tpu_torch.models.synthetic import (
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.parallel import checkpoint, sparse
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
-from distributed_embeddings_tpu_torch.utils import nativebuild
+from distributed_embeddings_tpu_torch.utils import data, nativebuild, schedules
 
 # H100 SXM data-sheet peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -94,6 +117,7 @@ REQUEST_SIZES = (1, 5, 64, 4096)
 SERVE_BATCH = 4096
 TRAIN_STEPS = 5
 LR = 0.01  # the JAX bench's Keras Adagrad defaults
+DLRM_ALPHA = 3.0  # examples/dlrm/gen_data.py's default skew
 
 
 def log(*args):
@@ -149,9 +173,12 @@ def phase_card():
   card = smi.stdout.strip().splitlines()[0]
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  # bf16 GEMMs (the DLRM phase) reduce in f32 throughout
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
   log(card)
   log(f'[card] torch {torch.__version__} cuda {torch.version.cuda}; '
-      'tf32 off for matmul and cudnn (allow_tf32 = False)')
+      'tf32 off for matmul and cudnn (allow_tf32 = False); bf16 GEMMs '
+      'without reduced-precision reductions')
   return card
 
 
@@ -531,6 +558,22 @@ def phase_train(model, config, seed):
   return step, state, calls, batches[-1], launches
 
 
+def segwalk_bound(segs, m, table, acc, op):
+  """``(bytes, bound_ms, bound_by)`` of one apply: each position's id
+  and gradient-row index read once, each compact f32 gradient row read
+  once, each touched table (and accumulator) row read and written once;
+  f32 operations per summed element and per updated element."""
+  n, u, w = segs.sorted_ids.shape[0], segs.count, table.shape[1]
+  valid = int((segs.ends - segs.starts).sum())
+  row_rw = 2 * w * (table.element_size() + (4 if acc is not None else 0))
+  nbytes = n * 4 + n * 4 + m * w * 4 + u * row_rw
+  flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * 6
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = flops / F32_FLOP_PER_S * 1e3
+  return (nbytes, max(bytes_ms, ops_ms),
+          'bytes' if bytes_ms >= ops_ms else 'operations')
+
+
 def check_segwalk(call, op, table, label):
   """Kernel against plain version on one captured stream (clones of its
   table and accumulator), with the timings and the bound."""
@@ -587,11 +630,7 @@ def check_segwalk(call, op, table, label):
     del lib_ids, lib_g
   n, m, u = ids.shape[0], grads.shape[0], segs.count
   valid = int((segs.ends - segs.starts).sum())
-  row_rw = 2 * w * (table.element_size() + (4 if acc is not None else 0))
-  nbytes = n * 4 + n * 4 + m * w * 4 + u * row_rw
-  flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * 6
-  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-  ops_ms = flops / F32_FLOP_PER_S * 1e3
+  nbytes, bound_ms, bound_by = segwalk_bound(segs, m, table, acc, op)
   row = {
       'stream': label, 'op': op,
       'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows,
@@ -601,8 +640,7 @@ def check_segwalk(call, op, table, label):
       'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
       'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
       'plain_ms': plain_ms, 'library_ms': library_ms,
-      'bound_ms': max(bytes_ms, ops_ms),
-      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+      'bound_ms': bound_ms, 'bound_by': bound_by,
       'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
   }
   log('[segwalk] ' + json.dumps(row))
@@ -691,23 +729,331 @@ def phase_train_profile(step, state, batch):
       f'{json.dumps(dict(syncs.most_common()))}')
 
 
-def main(argv=None) -> int:
-  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-  parser.add_argument('--seed', type=int, default=0)
-  parser.add_argument('--trace', default=None,
-                      help='write the profiled forward as a Chrome trace')
-  args = parser.parse_args(argv)
-  if not torch.cuda.is_available():
-    print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
-          'False); this script runs on the GPU only', file=sys.stderr)
-    return 1
-  t_start = time.perf_counter()
-  phase_card()
-  phase_build()
+def dlrm_batches(model, seed, n):
+  """``n`` batches of the learnable power-law split at the MLPerf sizes
+  (``utils.data.generate_split``, alpha 3.0, 13 numerical features), the
+  categorical inputs in worker order: ``(cats, (numerical, labels))``."""
+  rng = np.random.default_rng(seed)
+  plan = model.dist_embedding.plan
+  order = [i for dev in plan.input_ids_list for i in dev]
+  return [([cats[i].astype(np.int32) for i in order],
+           (numerical.astype(np.float32),
+            labels.astype(np.float32)[:, None]))
+          for labels, numerical, cats in data.generate_split(
+              rng, data.MLPERF_SIZES, n * BATCH, DLRM_ALPHA, 13,
+              chunk=BATCH)]
 
+
+def input_order(model, cats):
+  """Worker-order inputs back in input order."""
+  order = [i for dev in model.dist_embedding.plan.input_ids_list
+           for i in dev]
+  pos = {i: k for k, i in enumerate(order)}
+  return [cats[pos[i]] for i in range(len(order))]
+
+
+def phase_dlrm_model(seed):
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  model = dlrm.DLRM(data.MLPERF_SIZES, embedding_dim=128,
+                    param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                    dp_input=False, dist_strategy='memory_balanced',
+                    device='cuda').init(seed)
+  torch.cuda.synchronize()
+  dist = model.dist_embedding
+  log(f'[dlrm] {len(data.MLPERF_SIZES)} tables at the MLPerf Criteo-1TB '
+      f'sizes, {sum(data.MLPERF_SIZES):,} rows x 128, bf16: '
+      f'{model.total_table_gib():.3f} GiB, drawn on the card in '
+      f'{time.perf_counter() - t0:.2f} s; device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during the '
+      'draw')
+  log(f'[dlrm] plan: {len(dist.plan.groups)} group(s) '
+      f'{[(g.width, g.rows_cap, g.combiner) for g in dist.plan.groups]} '
+      '(width, rows_cap, combiner); dp_input=False, bf16 compute; MLPs '
+      f'{model.bottom_mlp.dims} and {model.top_mlp.dims}')
+  return model
+
+
+def phase_dlrm_forward(model, numerical, cats, n_forwards=3, n_check=512):
+  """The example model's forward in model-parallel input mode: one
+  lookup launch per forward; the first ``n_check`` samples' embedding
+  outputs equal an independent gather bit for bit, and their logits the
+  head's on those outputs."""
+  dist = model.dist_embedding
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  times = []
+  with torch.no_grad():
+    for _ in range(n_forwards):
+      t0 = time.perf_counter()
+      logits = model(numerical, cats)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES}
+  if launches != {'lookup_combine': n_forwards, 'segwalk_apply': 0}:
+    raise AssertionError(f'dlrm forward launched {launches}, expected '
+                         f'{n_forwards} lookups')
+  if tuple(logits.shape) != (BATCH, 1) or not bool(
+      torch.isfinite(logits).all()):
+    raise AssertionError(f'dlrm logits {tuple(logits.shape)} not finite '
+                         f'or not [{BATCH}, 1]')
+  weights = checkpoint.get_weights(dist, model.embedding_params)
+  head = [c[:n_check] for c in cats]
+  with torch.no_grad():
+    outs = dist.apply(model.embedding_params, head)
+    ref = plain_embedding_outputs(weights, dist.plan.input_table_map,
+                                  input_order(model, head), n_check)
+    for i, (o, r) in enumerate(zip(outs, ref)):
+      if not torch.equal(o.float(), r.to(o.dtype).float()):
+        raise AssertionError(f'dlrm input {i}: forward != plain gather')
+    ref_logits = model.head(model.dense_params(), numerical[:n_check],
+                            [r.to(torch.bfloat16) for r in ref])
+    if not torch.equal(model(numerical[:n_check], head), ref_logits):
+      raise AssertionError('dlrm logits disagree with the head on the '
+                           'plain gather')
+    # the same samples inside the full batch: other GEMM shapes, bf16
+    err = float((logits[:n_check] - ref_logits).abs().max())
+    if not torch.allclose(logits[:n_check], ref_logits, rtol=2e-2,
+                          atol=2e-2):
+      raise AssertionError(f'dlrm batch logits off the slice by {err}')
+  log(f'[dlrm] forward, batch {BATCH}: ms {[round(t, 3) for t in times]} '
+      f'(host clock, synchronised); launches {json.dumps(launches)}; '
+      f'logits finite; first {n_check} samples equal a plain gather and '
+      f'the head on it, within {err:.3g} of the full batch (bf16 GEMMs '
+      'at another shape; bound 2e-2)')
+  return launches
+
+
+def dlrm_trainer(model):
+  """``examples/dlrm/main.py``'s trainer: SparseSGD(24) on the tables,
+  SGD on the MLPs, both on the warm-up + poly-decay schedule, mean
+  BCE."""
+  dist = model.dist_embedding
+  schedule = schedules.warmup_poly_decay_schedule(
+      base_lr=24.0, warmup_steps=8000, decay_start_step=48000,
+      decay_steps=24000)
+  dense_opt = optim.sgd(schedule)
+  emb_opt = sparse.SparseSGD(learning_rate=24.0)
+  state = sparse.init_hybrid_train_state(
+      dist, {'embedding': model.embedding_params, **model.dense_params()},
+      dense_opt, emb_opt)
+
+  def head_loss(dense_params, emb_outs, batch):
+    numerical, labels = batch
+    return dlrm.bce_with_logits(model.head(dense_params, numerical,
+                                           emb_outs), labels)
+
+  return sparse.make_hybrid_train_step(dist, head_loss, dense_opt, emb_opt,
+                                       lr_schedule=schedule), state
+
+
+def phase_dlrm_train(model, batches):
+  step, state = dlrm_trainer(model)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state, loss = step(state, *batches[0])
+  torch.cuda.synchronize()
+  log(f'[dlrm-train] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} '
+      f'ms, loss {float(loss):.6f}')
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  times, losses = [], []
+  for cats, batch in batches[1:TRAIN_STEPS + 1]:
+    t0 = time.perf_counter()
+    state, loss = step(state, cats, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES}
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'dlrm training losses not finite: {losses}')
+  want = {'lookup_combine': TRAIN_STEPS, 'segwalk_apply': TRAIN_STEPS}
+  if launches != want:
+    raise AssertionError(f'dlrm training launched {launches}, expected '
+                         f'{want}')
+  peak = torch.cuda.max_memory_allocated()
+  total = torch.cuda.get_device_properties(0).total_memory
+  if peak >= total:
+    raise AssertionError(f'peak {peak} B above the card\'s {total} B')
+  med = statistics.median(times)
+  log(f'[dlrm-train] batch {BATCH}: {TRAIN_STEPS} steps, ms '
+      f'{[round(t, 3) for t in times]} (host clock, synchronised), median '
+      f'{med:.3f} = {BATCH / med * 1e3:,.0f} samples/s; losses '
+      f'{[round(x, 6) for x in losses]}')
+  log(f'[dlrm-train] launches {json.dumps(launches)} = {TRAIN_STEPS} steps '
+      f'x 1; peak device memory {peak / 2**30:.3f} GiB of the card\'s '
+      f'{total / 2**30:.3f} GiB')
+  return step, state, launches, times
+
+
+def captured_dlrm_apply(step, state, cats, batch, n_sample=1 << 20):
+  """One real training step that also records its apply: the stream, and
+  before the in-place update a compact copy of the rows it touches and a
+  sample of ``n_sample`` rows it does not (the 48 GB table is never
+  cloned)."""
+  calls = []
+  apply = segwalk.segwalk_apply
+
+  def record(table, acc, ids, grads, lr, *, op, eps=1e-7, g_index=None):
+    rows = table.shape[0]
+    touched = torch.unique(ids[(ids >= 0) & (ids < rows)])
+    gen = torch.Generator(device=table.device).manual_seed(0)
+    sample = torch.randint(0, rows, (n_sample,), device=table.device,
+                           generator=gen, dtype=torch.int64)
+    sample = sample[~torch.isin(sample, touched.long())]
+    calls.append({'table': table, 'ids': ids, 'grads': grads,
+                  'g_index': g_index, 'lr': lr, 'eps': eps, 'op': op,
+                  'touched': touched, 'compact': table[touched.long()],
+                  'sample': sample, 'before': table[sample]})
+    return apply(table, acc, ids, grads, lr, op=op, eps=eps,
+                 g_index=g_index)
+
+  segwalk.segwalk_apply = record
+  try:
+    state, loss = step(state, cats, batch)
+  finally:
+    segwalk.segwalk_apply = apply
+  return state, loss, calls
+
+
+def check_dlrm_segwalk(call):
+  """The captured sgd stream: the kernel against its plain version on a
+  compact copy of the touched rows (ids remapped in order, so the sorted
+  stream and its summation order are the same), both against what the
+  step wrote into the real table (bit-exact); the sampled untouched rows
+  unchanged.  Kernel, plain and ``Tensor.index_add_`` timed on the real
+  table at lr 0, which leaves it bitwise as it is (checked)."""
+  table, ids, grads, lr = call['table'], call['ids'], call['grads'], \
+      call['lr']
+  touched, g_index = call['touched'], call['g_index']
+  rows, w = table.shape
+  if call['op'] != 'sgd':
+    raise AssertionError(f'the DLRM step applies sgd, captured {call["op"]}')
+  if not torch.equal(table[call['sample']], call['before']):
+    raise AssertionError('dlrm: the step changed rows outside its stream')
+  stepped = table[touched.long()]
+  u = touched.shape[0]
+  valid = (ids >= 0) & (ids < rows)
+  cids = torch.where(valid, torch.searchsorted(touched, ids).to(torch.int32),
+                     torch.full_like(ids, u))
+  csegs = segwalk.sort_stream(cids, u, g_index)
+  kt, pt = call['compact'].clone(), call['compact'].clone()
+  segwalk.apply_segments(kt, None, csegs, grads, lr, op='sgd')
+  segwalk.apply_segments_reference(pt, None, csegs, grads, lr, op='sgd')
+  torch.cuda.synchronize()
+  err = float((kt.float() - pt.float()).abs().max())
+  if not (torch.equal(kt, pt) and torch.equal(stepped, pt)):
+    raise AssertionError(f'dlrm sgd: kernel, plain version and the step '
+                         f'disagree, max abs err {err} (bit-exact)')
+  del kt, pt
+  segs = segwalk.sort_stream(ids, rows, g_index)
+  kernel = lambda: segwalk.apply_segments(table, None, segs, grads, 0.0,
+                                          op='sgd')
+  kernel_ms = device_ms(kernel, 10)
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  segwalk.apply_segments_reference(table, None, segs, grads, 0.0, op='sgd')
+  end.record()
+  end.synchronize()
+  plain_ms = start.elapsed_time(end)
+  lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+  lib_ids = segs.sorted_ids[lo:hi].long()
+  lib_g = grads[segs.gidx[lo:hi].long()].to(table.dtype)
+  library_ms = device_ms(lambda: table.index_add_(0, lib_ids, lib_g,
+                                                  alpha=-0.0), 10)
+  del lib_ids, lib_g
+  if not (torch.equal(table[touched.long()], stepped)
+          and torch.equal(table[call['sample']], call['before'])):
+    raise AssertionError('dlrm: an apply at lr 0 changed the table')
+  n, m = ids.shape[0], grads.shape[0]
+  nbytes, bound_ms, bound_by = segwalk_bound(segs, m, table, None, 'sgd')
+  row = {
+      'stream': f'w{w}_rows{rows}', 'op': 'sgd',
+      'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows, 'w': w,
+      'positions': n, 'valid_positions': int((segs.ends - segs.starts).sum()),
+      'compact_grad_rows': m, 'segments': u,
+      'longest_segment': segs.longest(), 'chunk': segwalk.CHUNK,
+      'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
+      'max_abs_err': err, 'tolerance': 'bit-exact',
+      'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+      'bound_ms': bound_ms, 'bound_by': bound_by,
+      'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
+      'untouched_rows_sampled': int(call['sample'].shape[0]),
+  }
+  log('[dlrm-segwalk] ' + json.dumps(row))
+  torch.cuda.empty_cache()
+  return row
+
+
+def run_dlrm(seed, tiny_k, tiny_seg):
+  """The DLRM phases: the example's model at the MLPerf table sizes in
+  bf16, forward, kernels, training, the apply check and a profile.
+  Adds a ``dlrm`` entry to each kernel's summary."""
+  model = phase_dlrm_model(seed)
+  # the forwards', the warm-up's, the timed steps', the capture step's
+  # and the profiled steps' batches
+  t0 = time.perf_counter()
+  batches = dlrm_batches(model, seed + 2, TRAIN_STEPS + 4)
+  log(f'[dlrm] {len(batches)} batches of {BATCH} drawn on the host in '
+      f'{time.perf_counter() - t0:.2f} s (alpha {DLRM_ALPHA})')
+  cats, (numerical, _) = batches[0]
+  fwd_launches = phase_dlrm_forward(model, numerical, cats)
+  (table, routed, combiner), = captured_lookups(model, numerical, cats)
+  if combiner is not None:
+    raise AssertionError(f'the DLRM tables combine with None, got '
+                         f'{combiner}')
+  lk = check_kernel_shape(table, routed.reshape(-1, 1),
+                          f'dlrm_w128_h1_ncap{routed.shape[0]}_bf16')
+  del table, routed
+  step, state, launches, step_ms = phase_dlrm_train(model, batches[1:])
+  state, loss, calls = captured_dlrm_apply(step, state,
+                                           *batches[TRAIN_STEPS + 2])
+  if not bool(torch.isfinite(loss)) or len(calls) != 1:
+    raise AssertionError(f'capture step: loss {float(loss)}, '
+                         f'{len(calls)} applies')
+  sw = check_dlrm_segwalk(calls[0])
+  del calls
+  torch.cuda.empty_cache()
+  phase_train_profile(step, state, batches[TRAIN_STEPS + 3])
+
+  shape = lambda r, keys: {k: r[k] for k in keys}
+  tiny_k['dlrm'] = {
+      'launches': launches['lookup_combine'],
+      'launches_forward': fwd_launches['lookup_combine'],
+      'shape': shape(lk, ('M', 'h', 'w', 'dtype', 'distinct_rows')),
+      'table_rows': sum(data.MLPERF_SIZES),
+      'max_abs_err': lk['max_abs_err'], 'ms': lk['kernel_ms'],
+      'plain_ms': lk['plain_ms'], 'bound_ms': lk['bound_ms'],
+      'bound_by': lk['bound_by'], 'library_ms': lk['library_ms'],
+  }
+  tiny_seg['dlrm'] = {
+      'launches': launches['segwalk_apply'],
+      'launches_forward': fwd_launches['segwalk_apply'],
+      'shape': shape(sw, ('op', 'dtype', 'rows', 'w', 'positions',
+                          'segments', 'longest_segment', 'chunks')),
+      'max_abs_err': sw['max_abs_err'], 'ms': sw['kernel_ms'],
+      'plain_ms': sw['plain_ms'], 'bound_ms': sw['bound_ms'],
+      'bound_by': sw['bound_by'], 'library_ms': sw['library_ms'],
+  }
+  log(f'[dlrm] lookup {lk["kernel_ms"]:.4f} ms (bound '
+      f'{lk["bound_ms"]:.4f}, plain {lk["plain_ms"]:.3f}, embedding_bag '
+      f'{lk["library_ms"]:.4f}); segment walk sgd {sw["kernel_ms"]:.4f} '
+      f'ms (bound {sw["bound_ms"]:.4f}, plain {sw["plain_ms"]:.3f}, '
+      f'index_add_ {sw["library_ms"]:.4f}); steps {step_ms}')
+
+
+def run_tiny(args):
+  """Phases 3-9 on the synthetic tiny model; returns the two kernels'
+  summaries.  Everything the model holds on the card is freed on
+  return."""
   config = SYNTHETIC_MODELS[MODEL]
   t0 = time.perf_counter()
-  model = SyntheticModel(config, device='cuda').init(
+  model = SyntheticModel(config, dp_input=True, device='cuda').init(
       args.seed)
   torch.cuda.synchronize()
   log(f'[model] {config.name}: {len(model.dist_embedding.table_configs)} '
@@ -767,6 +1113,29 @@ def main(argv=None) -> int:
       'chunk': segwalk.CHUNK,
       'chunks': {r['stream']: r['chunks'] for r in path},
   })
+  return k, seg
+
+
+def main(argv=None) -> int:
+  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--trace', default=None,
+                      help='write the profiled forward as a Chrome trace')
+  args = parser.parse_args(argv)
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
+          'False); this script runs on the GPU only', file=sys.stderr)
+    return 1
+  t_start = time.perf_counter()
+  phase_card()
+  phase_build()
+  k, seg = run_tiny(args)
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f'[dlrm] after the tiny model: device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
+      f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
+  run_dlrm(args.seed, k, seg)
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
   log(json.dumps({'kernels': [k, seg]}))
   log(json.dumps({'ok': True, 'device': {

@@ -5,7 +5,8 @@ The seven reference configs (tiny -> colossal), the power-law id
 generator and the input pool are plain numpy and copied as they are, so
 both packages draw identical inputs from one seed.  ``SyntheticModel``
 is an ``nn.Module``: ``DistributedEmbedding`` + average-pool/concat
-interaction + MLP head projecting to 1, with ``dp_input=True``.
+interaction + MLP head projecting to 1, model-parallel input by default
+(``dp_input=False``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -232,9 +233,10 @@ class SyntheticModel(nn.Module):
     mesh / device: as in ``DistributedEmbedding`` (default 'cuda').
     column_slice_threshold / row_slice / strategy: forwarded to the
       planner.
-    dp_input: must be True, the port's default (False, the JAX
-      package's default, is the model-parallel input path: ROADMAP.md
-      Queue 1, item 4).
+    dp_input: False (the default, as in the JAX package): categorical
+      inputs in worker order at the global batch (``InputGenerator``'s
+      ``mp_input_ids``); True: each rank's local batch in input order
+      (see ``DistributedEmbedding``).
     param_dtype / compute_dtype: storage and activation dtypes.
     lookup_impl, hot_cache, overlap_chunks, table_dtype, cold_tier,
       device_hbm_budget, cold_fetch_rows, dcn_sharding: forwarded to
@@ -249,7 +251,7 @@ class SyntheticModel(nn.Module):
                mesh: Optional[mesh_lib.Mesh] = None,
                column_slice_threshold: Optional[int] = None,
                row_slice: Optional[int] = None,
-               dp_input: bool = True,
+               dp_input: bool = False,
                strategy: str = 'memory_balanced',
                param_dtype: torch.dtype = torch.float32,
                compute_dtype: torch.dtype = torch.float32,

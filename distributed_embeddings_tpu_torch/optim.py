@@ -14,7 +14,7 @@ a zero update (``where(t > 0, rsqrt(t + eps), 0)``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Union
 
 import torch
 
@@ -26,16 +26,31 @@ class GradientTransformation(NamedTuple):
   update: Callable
 
 
-def sgd(learning_rate: float) -> GradientTransformation:
-  """``optax.sgd(learning_rate)`` without momentum: ``u = g * -lr``."""
+def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
+  """``optax.sgd(learning_rate)`` without momentum: ``u = g * -lr``.
+
+  A float ``learning_rate`` keeps no state.  A callable is a schedule
+  with optax's ``scale_by_schedule`` semantics: the state ``{'count':
+  n}`` starts at 0, an update uses ``lr = learning_rate(n)`` cast to
+  each gradient's dtype (``u = g * -lr``), then ``n`` grows by one."""
+  scheduled = callable(learning_rate)
 
   def init(params: Params):
     del params
-    return {}
+    return {'count': 0} if scheduled else {}
 
   def update(grads: Params, state, params=None):
     del params
-    return {k: g * -learning_rate for k, g in grads.items()}, state
+    if not scheduled:
+      return {k: g * -learning_rate for k, g in grads.items()}, state
+    step_size = -float(learning_rate(int(state['count'])))
+    # the step size rounded to each gradient's dtype (optax's
+    # ``jnp.array(step_size, dtype=g.dtype)``), as a Python float: a
+    # tensor on the card would cost a host-to-device copy per parameter
+    rounded = {dt: float(torch.tensor(step_size, dtype=dt))
+               for dt in {g.dtype for g in grads.values()}}
+    updates = {k: g * rounded[g.dtype] for k, g in grads.items()}
+    return updates, {'count': int(state['count']) + 1}
 
   return GradientTransformation(init, update)
 

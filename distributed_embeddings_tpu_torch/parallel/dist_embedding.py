@@ -10,19 +10,25 @@ own shard of every fusion group (``params[f'group_{gi}']``, natural
 ``packed_storage=False``) and calling ``torch.distributed`` for the
 exchange.  A world of one process skips every collective.
 
-The dp-input forward keeps the JAX pipeline stage for stage: route every
-(group, hotness) subgroup into canonical ``[D, n_cap, B, h]`` send
-buffers, ONE fused id exchange, per-subgroup route + fused
-gather-combine (``ops/lookup.fused_lookup``: the CUDA kernel on the
-card), ONE fused row exchange back, assemble (column-slice re-concat and
-row-slice merge).
+Both input paths keep the JAX pipeline stage for stage.  The dp-input
+forward (``dp_input=True``) routes every (group, hotness) subgroup into
+canonical ``[D, n_cap, B, h]`` send buffers, makes ONE fused id
+exchange, then per subgroup routes ids and runs the fused gather-combine
+(``ops/lookup.fused_lookup``: the CUDA kernel on the card), makes ONE
+fused row exchange back and assembles (column-slice re-concat and
+row-slice merge).  The model-parallel-input forward (``dp_input=False``,
+the JAX package's ``_build_mp_forward``) receives every table's ids at
+the global batch, builds each subgroup's ``[n_cap, GB, h]`` canonical
+from this rank's own inputs, and so has no id exchange: route, lookup,
+ONE fused row exchange, assemble.
 
-Ported so far: ``__init__``, ``init``, ``apply`` with ``dp_input=True``
-on dense ``[B]`` / ``[B, h]`` inputs, and the sparse training hooks
-``forward_with_residuals`` / ``backward_to_mp`` (the backward mirrors the
-forward's return leg: ONE fused cotangent exchange, plus one all_gather
-per row-sharded input).  Every other option of the JAX constructor
-raises ``NotImplementedError`` naming its ROADMAP item; none is ignored.
+Ported so far: ``__init__``, ``init``, ``apply`` on dense ``[B]`` /
+``[B, h]`` inputs along both input paths, and the sparse training hooks
+``forward_with_residuals`` / ``backward_to_mp`` (the backward, shared by
+both paths as in the JAX package, mirrors the forward's return leg: ONE
+fused cotangent exchange, plus one all_gather per row-sharded input).
+Every other option of the JAX constructor raises ``NotImplementedError``
+naming its ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -44,9 +50,12 @@ from distributed_embeddings_tpu_torch.utils.initializers import (
 
 _SENTINEL = -1
 _PARAM_DTYPES = (torch.float32, torch.bfloat16)
+# ``init`` draws each table in blocks of at most this many elements, so
+# the initializer's f32 scratch stays at 256 MiB beside the tables
+INIT_BLOCK_ELEMENTS = 1 << 26
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
   """The refusal of an option or entry point this slice does not port."""
   return NotImplementedError(
       f'{what} is not ported to distributed_embeddings_tpu_torch yet '
@@ -82,7 +91,14 @@ class DistributedEmbedding:
     embeddings: list of ``TableConfig``s to distribute.
     strategy: 'basic' | 'memory_balanced' | 'memory_optimized'.
     column_slice_threshold / row_slice: as in the JAX package.
-    dp_input: must be True (the model-parallel input path is not ported).
+    dp_input: True: each rank passes its local batch of every input
+      (``[B]`` / ``[B, h]``, input order).  False (model-parallel input):
+      each rank passes the global batch of every input in WORKER order
+      (``plan.input_ids_list`` flattened) and moves only its own tables'
+      inputs to the device.  Either way ``apply`` returns this rank's
+      ``[GB / D, out_dim]`` block of the global batch (rank ``r`` holds
+      samples ``[r * GB / D, (r + 1) * GB / D)``), and the dense half of
+      a batch (numerical features, labels) is that same local slice.
     input_table_map: ``input[i]`` uses ``table[input_table_map[i]]``.
     mesh: a ``parallel.mesh.Mesh`` (device + optional process group);
       default ``create_mesh(device)``.
@@ -134,8 +150,6 @@ class DistributedEmbedding:
           f'Unknown lookup_impl {lookup_impl!r}: the port has one lookup, '
           "'auto' (the CUDA kernel on the card, its plain version on the "
           'CPU)')
-    if not dp_input:
-      raise not_ported('dp_input=False (the model-parallel input path)', 4)
     if hot_cache:
       raise not_ported('hot_cache', 7)
     if (isinstance(overlap_chunks, bool)
@@ -168,7 +182,7 @@ class DistributedEmbedding:
     self.world_size = mesh.world_size
     self.rank = mesh.rank
     self.lookup_impl = lookup_impl
-    self.dp_input = True
+    self.dp_input = bool(dp_input)
     self.param_dtype = param_dtype
     self.compute_dtype = compute_dtype or param_dtype
     self.table_configs = _as_table_configs(embeddings)
@@ -194,10 +208,12 @@ class DistributedEmbedding:
     """This rank's fused tables ``{f'group_{gi}': [rows_cap, width]}``,
     drawn on ``self.device``.
 
-    Each member table slice draws with its own initializer at its sliced
-    shape, from a generator seeded by ``(seed, table, col_start,
-    row_start)``, so a rank builds its shard without any other rank's
-    rows; padding rows are zero."""
+    Each member table slice draws with its own initializer from a
+    generator seeded by ``(seed, table, col_start, row_start)``, so a rank
+    builds its shard without any other rank's rows; padding rows are
+    zero.  The draw goes straight into the group's buffer in blocks of
+    whole rows (``INIT_BLOCK_ELEMENTS``), one after the other from that
+    generator, so the peak is the tables plus one block's scratch."""
     params = {}
     for gi, g in enumerate(self.plan.groups):
       buf = torch.empty((g.rows_cap, g.width), dtype=self.param_dtype,
@@ -207,16 +223,18 @@ class DistributedEmbedding:
         cfg = self.table_configs[lt.table_id]
         init = get_initializer(cfg.initializer)
         kwargs = {}
-        if (getattr(init, 'row_scale_sensitive', False)
-            and lt.input_dim != cfg.input_dim):
-          # a row shard draws with the FULL table's scale
+        if getattr(init, 'row_scale_sensitive', False):
+          # the FULL table's scale, for a row shard and for a block alike
           kwargs['rows'] = cfg.input_dim
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_fold_seed(seed, lt.table_id, lt.col_start,
                                    lt.row_start))
-        buf[off:off + lt.input_dim] = init(
-            (lt.input_dim, lt.width), dtype=self.param_dtype,
-            device=self.device, generator=gen, **kwargs)
+        block = max(1, INIT_BLOCK_ELEMENTS // lt.width)
+        for r0 in range(0, lt.input_dim, block):
+          r1 = min(lt.input_dim, r0 + block)
+          buf[off + r0:off + r1] = init(
+              (r1 - r0, lt.width), dtype=self.param_dtype,
+              device=self.device, generator=gen, **kwargs)
         off += lt.input_dim
       buf[off:].zero_()
       params[f'group_{gi}'] = buf
@@ -227,9 +245,9 @@ class DistributedEmbedding:
   def _input_hotness(self, inputs) -> List[int]:
     hot = []
     for i, x in enumerate(inputs):
-      if x.dim() == 1:
+      if len(x.shape) == 1:
         hot.append(1)
-      elif x.dim() == 2:
+      elif len(x.shape) == 2:
         hot.append(x.shape[1])
       else:
         raise ValueError(
@@ -250,37 +268,76 @@ class DistributedEmbedding:
     Args:
       params: this rank's tables, from ``init`` or
         ``checkpoint.set_weights``.
-      inputs: ``num_inputs`` int arrays or tensors, this rank's
-        ``[local_batch]`` or ``[local_batch, hot]`` ids, ``-1`` padding
-        (every rank passes the same local batch size).
+      inputs: int arrays or tensors, ``-1`` padding.  With
+        ``dp_input=True``: ``num_inputs`` of this rank's ``[local_batch]``
+        or ``[local_batch, hot]`` ids in input order (every rank passes
+        the same local batch size).  With ``dp_input=False``: the
+        ``[global_batch(, hot)]`` ids of every entry of the worker order
+        (``plan.input_ids_list`` flattened), the same list on every rank;
+        each rank moves only its own entries to the device.
 
     Returns:
       List of ``[local_batch, output_dim]`` tensors in input order, at
-      ``compute_dtype`` on ``self.device``.
+      ``compute_dtype`` on ``self.device``: this rank's block of the
+      global batch.
     """
-    inputs, batch, hotness = self._prepare_inputs(inputs)
-    return list(self._build_dp_forward(batch, hotness)(params, inputs)[0])
+    return self.forward_with_residuals(params, inputs)[0]
 
   __call__ = apply
 
   def _prepare_inputs(self, inputs):
-    """Validate and move the inputs: ``(inputs, local_batch, hotness)``
-    with ``inputs`` int32 tensors on ``self.device``."""
+    """Validate the inputs of either path and move this rank's to the
+    device: ``(inputs, batch, hotness)``.
+
+    dp: ``inputs`` the int32 tensors in input order, ``batch`` the local
+    batch.  mp: ``inputs`` maps worker-order position -> int32 tensor for
+    this rank's entries only, ``batch`` is the global batch, and
+    ``hotness`` is recovered from the worker order (an input's first
+    occurrence sets it; an input that appears nowhere counts as 1)."""
     inputs = list(inputs)
-    if len(inputs) != self.num_inputs:
-      raise ValueError(
-          f'Expect {self.num_inputs} inputs, got {len(inputs)}.')
+    if self.dp_input:
+      flat_ids = list(range(self.num_inputs))
+      if len(inputs) != self.num_inputs:
+        raise ValueError(
+            f'Expect {self.num_inputs} inputs, got {len(inputs)}.')
+    else:
+      flat_ids = [i for dev in self.plan.input_ids_list for i in dev]
+      if len(inputs) != len(flat_ids):
+        raise ValueError(f'Expect {len(flat_ids)} worker-order inputs, got '
+                         f'{len(inputs)}.')
     if any(hasattr(x, 'to_padded_dense') for x in inputs):
       raise not_ported('RaggedBatch inputs', 5)
-    inputs = [torch.as_tensor(x).to(device=self.device, dtype=torch.int32)
-              for x in inputs]
+    inputs = [x if hasattr(x, 'shape') else np.asarray(x) for x in inputs]
     batch = inputs[0].shape[0]
     if any(x.shape[0] != batch for x in inputs):
       raise ValueError('All input need to have same batchsize. got ' +
                        str({x.shape[0] for x in inputs}))
-    hotness = self._input_hotness(inputs)
+    hot = self._input_hotness(inputs)
+    as_ids = lambda x: torch.as_tensor(x).to(device=self.device,
+                                             dtype=torch.int32)
+    if self.dp_input:
+      self._check_combiner_hotness(hot)
+      return [as_ids(x) for x in inputs], batch, tuple(hot)
+    if batch % self.world_size:
+      raise ValueError(f'Global batchsize {batch} not divisible workers '
+                       f'count {self.world_size}.')
+    hot_by_input = {}
+    for i, h in zip(flat_ids, hot):
+      hot_by_input.setdefault(i, h)
+    hotness = tuple(hot_by_input.get(i, 1) for i in range(self.num_inputs))
     self._check_combiner_hotness(hotness)
-    return inputs, batch, tuple(hotness)
+    mine = self._worker_positions()[self.rank]
+    return {k: as_ids(inputs[k]) for k in mine.values()}, batch, hotness
+
+  def _worker_positions(self) -> List[Dict[int, int]]:
+    """Per rank, input id -> its position in the worker order."""
+    out, k = [], 0
+    for dev_inputs in self.plan.input_ids_list:
+      out.append({})
+      for i in dev_inputs:
+        out[-1][i] = k
+        k += 1
+    return out
 
   def _subgroups(self, hotness: tuple) -> List['_SubGroup']:
     """Partition each fusion group's requests by input hotness: each
@@ -465,6 +522,38 @@ class DistributedEmbedding:
         return plan
     raise KeyError(f'no LookupPlan built for global_batch={global_batch}')
 
+  def _slot_consts(self, subs):
+    """Per subgroup, this rank's routing constants on the device:
+    ``(offsets, vocab, row_lo, row_hi, row_stride or None)``."""
+    as_t = lambda a: torch.as_tensor(a[self.rank], device=self.device)
+    return [(as_t(sub.offsets), as_t(sub.vocab), as_t(sub.row_lo),
+             as_t(sub.row_hi),
+             as_t(sub.row_stride) if sub.has_mod_windows else None)
+            for sub in subs]
+
+  def _lookup_stage(self, params, subs, consts, canonicals, local_batch):
+    """Route each subgroup's canonical raw ids ``[n_cap, GB, h]`` into
+    the fused table, gather-combine, and stage the outputs for the row
+    exchange: ``(staged, residuals, merge_out)``, ``residuals`` the
+    routed ids (``>= rows_cap`` is padding)."""
+    merge_out, staged, residuals = {}, [], []
+    for si, (sub, ids_c, (offs, vocab, lo, hi, st)) in enumerate(
+        zip(subs, canonicals, consts)):
+      routed = routing.route_ids(ids_c, offs, vocab,
+                                 self.plan.groups[sub.gi].rows_cap, lo, hi,
+                                 st)
+      residuals.append(routed)
+      out_c = lookup_ops.fused_lookup(params[f'group_{sub.gi}'], routed,
+                                      sub.lookup_combiner, self.compute_dtype)
+      if sub.mean_row_sliced:
+        # mean row shards looked up with 'sum': divide by the TRUE
+        # per-sample id count here, where every raw id is in hand
+        out_c = out_c / routing.valid_count(ids_c)[..., None].to(
+            out_c.dtype)
+      staged.append(self._emit_outputs(sub, si, out_c, local_batch,
+                                       merge_out))
+    return staged, tuple(residuals), merge_out
+
   def _build_dp_forward(self, local_batch: int, hotness: tuple):
     """Build (once per signature) the dp-input forward
     ``fwd(params, inputs) -> (outputs, residuals)``: route, ONE fused id
@@ -475,17 +564,10 @@ class DistributedEmbedding:
     key = ('dp_fwd', local_batch, hotness)
     if key in self._fn_cache:
       return self._fn_cache[key]
-    D, me, dev = self.world_size, self.rank, self.device
+    D, dev = self.world_size, self.device
     global_batch = local_batch * D
     subs = self._subgroups(hotness)
-
-    def slot_consts(sub):
-      as_t = lambda a: torch.as_tensor(a[me], device=dev)
-      return (as_t(sub.offsets), as_t(sub.vocab), as_t(sub.row_lo),
-              as_t(sub.row_hi),
-              as_t(sub.row_stride) if sub.has_mod_windows else None)
-
-    consts = [slot_consts(sub) for sub in subs]
+    consts = self._slot_consts(subs)
     lplan = LookupPlan(path='dp', global_batch=global_batch,
                        hotness=tuple(hotness), fused=True)
     self._lookup_plans[key] = lplan
@@ -511,29 +593,62 @@ class DistributedEmbedding:
                                    if s < len(sub.requests[d]) else -1),
             _ids))
       recvs = self._exchange(sends, 'fwd/ids', plan=lplan)
-      merge_out = {}
-      pre, residuals = [], []
-      for si, (sub, (offs, vocab, lo, hi, st)) in enumerate(
-          zip(subs, consts)):
-        # [n_cap, D*B, h]: the global batch in source-major order
-        ids_c = recvs[si].transpose(0, 1).reshape(sub.n_cap, global_batch,
-                                                  sub.hotness)
-        routed = routing.route_ids(ids_c, offs, vocab,
-                                   self.plan.groups[sub.gi].rows_cap,
-                                   lo, hi, st)
-        residuals.append(routed)
-        out_c = lookup_ops.fused_lookup(params[f'group_{sub.gi}'], routed,
-                                        sub.lookup_combiner,
-                                        self.compute_dtype)
-        if sub.mean_row_sliced:
-          # mean row shards looked up with 'sum': divide by the TRUE
-          # per-sample id count here, where every raw id is in hand
-          out_c = out_c / routing.valid_count(ids_c)[..., None].to(
-              out_c.dtype)
-        pre.append(self._emit_outputs(sub, si, out_c, local_batch,
-                                      merge_out))
-      backs = self._exchange(pre, 'fwd/rows', plan=lplan)
-      return self._assemble(subs, backs, merge_out), tuple(residuals)
+      # [n_cap, D*B, h]: the global batch in source-major order
+      canonicals = [r.transpose(0, 1).reshape(sub.n_cap, global_batch,
+                                              sub.hotness)
+                    for sub, r in zip(subs, recvs)]
+      staged, residuals, merge_out = self._lookup_stage(
+          params, subs, consts, canonicals, local_batch)
+      backs = self._exchange(staged, 'fwd/rows', plan=lplan)
+      return self._assemble(subs, backs, merge_out), residuals
+
+    self._fn_cache[key] = fwd
+    return fwd
+
+  def _build_mp_forward(self, global_batch: int, hotness: tuple):
+    """Build (once per signature) the model-parallel-input forward
+    ``fwd(params, inputs) -> (outputs, residuals)`` (JAX
+    ``_build_mp_forward``; the reference's ``dp_input=False``): each
+    rank already holds its tables' ids at the global batch, so there is
+    no id exchange.  Per subgroup, this rank's canonical ``[n_cap, GB,
+    h]`` comes from its own inputs (``inputs`` maps worker-order position
+    -> ids), then route, gather-combine, ONE fused row exchange,
+    assemble."""
+    key = ('mp_fwd', global_batch, hotness)
+    if key in self._fn_cache:
+      return self._fn_cache[key]
+    me, dev = self.rank, self.device
+    local_batch = global_batch // self.world_size
+    subs = self._subgroups(hotness)
+    consts = self._slot_consts(subs)
+    pos_of = self._worker_positions()[me]
+    lplan = LookupPlan(path='mp', global_batch=global_batch,
+                       hotness=tuple(hotness), fused=True)
+    self._lookup_plans[key] = lplan
+
+    def fwd(params, inputs):
+      lplan.legs.clear()
+      canonicals = []
+      for sub in subs:
+        h, mine = sub.hotness, sub.requests[me]
+
+        def _ids(k, h=h):
+          if k == -1:
+            return torch.full((global_batch, h), _SENTINEL,
+                              dtype=torch.int32, device=dev)
+          x = inputs[k]
+          return x[:, None] if x.dim() == 1 else x
+
+        canonicals.append(routing.gather_slots(
+            1, sub.n_cap,
+            lambda _, s, mine=mine: (pos_of[mine[s].input_id]
+                                     if s < len(mine) else -1),
+            _ids)[0])
+      staged, residuals, merge_out = self._lookup_stage(
+          params, subs, consts, canonicals, local_batch)
+      # the mp path has no dp->mp leg; only the return exchange fuses
+      backs = self._exchange(staged, 'fwd/rows', plan=lplan)
+      return self._assemble(subs, backs, merge_out), residuals
 
     self._fn_cache[key] = fwd
     return fwd
@@ -552,8 +667,14 @@ class DistributedEmbedding:
       ``backward_to_mp`` / ``sparse_apply_updates``.
     """
     inputs, batch, hotness = self._prepare_inputs(inputs)
-    outs, residuals = self._build_dp_forward(batch, hotness)(params, inputs)
-    return list(outs), residuals, (batch * self.world_size, hotness)
+    if self.dp_input:
+      global_batch = batch * self.world_size
+      fwd = self._build_dp_forward(batch, hotness)
+    else:
+      global_batch = batch
+      fwd = self._build_mp_forward(batch, hotness)
+    outs, residuals = fwd(params, inputs)
+    return list(outs), residuals, (global_batch, hotness)
 
   def backward_to_mp(self, d_outs: Sequence[torch.Tensor],
                      global_batch: int, hotness: tuple

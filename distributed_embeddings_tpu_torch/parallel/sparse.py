@@ -240,10 +240,21 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       defaults to its fixed ``learning_rate``.
 
   Returns:
-    ``step(state, cats, batch) -> (state, loss)``: ``cats`` this rank's
-    embedding inputs, ``batch`` passed through to ``head_loss_fn``;
-    ``loss`` is the global mean (a 0-d tensor).
+    ``step(state, cats, batch) -> (state, loss)``: ``cats`` the
+    embedding inputs as ``dist.apply`` takes them (this rank's local
+    batch in input order, or with ``dp_input=False`` the global batch in
+    worker order), ``batch`` this rank's local slice of the dense inputs,
+    passed through to ``head_loss_fn``; ``loss`` is the global mean (a
+    0-d tensor).
   """
+  # input id -> its position in ``cats``: with ``dp_input=False`` the
+  # worker order, where a row-sliced input appears on several ranks with
+  # the same ids and its first occurrence serves
+  cat_pos = {}
+  flat = (range(dist.num_inputs) if dist.dp_input else
+          [i for dev in dist.plan.input_ids_list for i in dev])
+  for k, i in enumerate(flat):
+    cat_pos.setdefault(i, k)
 
   def step(state: TrainState, cats, batch):
     emb_params = state.params['embedding']
@@ -277,7 +288,12 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     # sums by the true per-sample id count; the manual transpose divides
     # the cotangent the same way (here, where the raw ids are at hand)
     for i in _mean_row_sliced_inputs(dist, hotness):
-      ids = torch.as_tensor(cats[i]).to(dist.device)
+      ids = cats[cat_pos[i]]
+      if not dist.dp_input:
+        # the global batch: this rank's cotangents are its block of it
+        b = global_batch // world
+        ids = ids[dist.rank * b:(dist.rank + 1) * b]
+      ids = torch.as_tensor(ids).to(dist.device)
       d_emb[i] = d_emb[i] / routing.valid_count(ids)[:, None].to(
           d_emb[i].dtype)
     gsubs = dist.backward_to_mp(d_emb, global_batch, hotness)

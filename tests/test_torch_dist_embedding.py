@@ -98,6 +98,33 @@ def test_init_is_seeded_and_scaled():
   assert not a['group_0'][sum(g.rows[:1]):].any()  # padding rows zero
 
 
+def test_init_draws_in_row_blocks(monkeypatch):
+  # blocks of 3 rows at width 8: many blocks per table, drawn one after
+  # the other from the table's generator, so a seed fixes the table and
+  # the blocks are not repeats of one another; every value inside the
+  # FULL table's scaled-uniform bound, for a row shard too
+  from distributed_embeddings_tpu_torch.parallel import dist_embedding
+  from distributed_embeddings_tpu_torch.utils.initializers import (
+      scaled_uniform_initializer)
+  monkeypatch.setattr(dist_embedding, 'INIT_BLOCK_ELEMENTS', 24)
+  t = [TableConfig(100, 8, combiner='sum',
+                   initializer=scaled_uniform_initializer()),
+       TableConfig(7, 8, combiner='sum')]
+  d = DistributedEmbedding(t, device='cpu', param_dtype=torch.bfloat16)
+  a, b = d.init(5), d.init(5)
+  assert torch.equal(a['group_0'], b['group_0'])
+  assert not torch.equal(a['group_0'], d.init(6)['group_0'])
+  big, small = checkpoint.get_weights(d, a)
+  assert not torch.equal(big[:3], big[3:6])
+  assert float(big.float().abs().max()) <= 0.1 < 2 * float(
+      big.float().abs().max())
+  assert float(small.float().abs().max()) <= 0.05
+  # a row shard of the 100-row table draws with the full table's scale
+  shard = scaled_uniform_initializer()
+  x = shard((3, 8), generator=torch.Generator().manual_seed(0), rows=100)
+  assert float(x.abs().max()) <= 0.1
+
+
 def test_combiners_match_jax():
   # mean and None tables beside sum, variable hotness with padding
   rng = np.random.default_rng(5)
@@ -143,12 +170,37 @@ def test_input_checks_match_jax():
     (dict(cold_tier=True), 12),
     (dict(cold_fetch_rows=64), 12),
     (dict(lookup_impl='sparsecore'), 15),
-    (dict(dp_input=False), 4),
 ])
 def test_unported_options_refuse(kw, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
     DistributedEmbedding([TableConfig(10, 8, combiner='sum')],
                          device='cpu', **kw)
+
+
+def test_model_parallel_input_equals_dp_at_world_one():
+  # the same plan either way; mp takes the inputs in worker order at the
+  # global batch, which at world one is the whole batch
+  _, pd, cats, hot = _tiny_pair()
+  mp = DistributedEmbedding(pd.table_configs, strategy='memory_balanced',
+                            input_table_map=pd.plan.input_table_map,
+                            dp_input=False, device='cpu')
+  assert not mp.dp_input and mp.plan.fingerprint() == pd.plan.fingerprint()
+  flat = [i for dev in mp.plan.input_ids_list for i in dev]
+  assert sorted(flat) == list(range(len(cats)))
+  params = pd.init(0)
+  want, want_res, want_sig = pd.forward_with_residuals(params, cats)
+  got, got_res, got_sig = mp.forward_with_residuals(
+      params, [cats[i] for i in flat])
+  assert got_sig == want_sig == (BATCH, tuple(hot))
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
+  for g, w in zip(got_res, want_res):
+    assert torch.equal(g, w)
+  for g, w in zip(mp.apply(params, [cats[i] for i in flat]), want):
+    assert torch.equal(g, w)
+  assert mp.lookup_plan(BATCH).path == 'mp'
+  with pytest.raises(ValueError, match='Expect 58 worker-order inputs'):
+    mp.apply(params, cats[:-1])
 
 
 def test_other_refusals():

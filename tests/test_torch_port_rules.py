@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm, synthetic
 from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -53,7 +54,9 @@ def test_scan_sees_the_whole_port():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
   for module in ('ops/lookup.py', 'ops/segwalk.py', 'parallel/planner.py',
                  'parallel/dist_embedding.py', 'parallel/sparse.py',
-                 'parallel/grad.py', 'optim.py', 'serving/engine.py'):
+                 'parallel/grad.py', 'optim.py', 'serving/engine.py',
+                 'models/dlrm.py', 'utils/schedules.py', 'utils/data.py',
+                 'utils/metrics.py', 'examples/dlrm/main.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -79,7 +82,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_card():
 
 
 @pytest.mark.parametrize('entry', ['dist_embedding', 'synthetic', 'serving',
-                                   'mlp'])
+                                   'mlp', 'dlrm', 'dlrm_main'])
 def test_entry_points_raise_without_device_argument(entry):
   _no_card()
   t = [TableConfig(10, 8, combiner='sum')]
@@ -90,6 +93,10 @@ def test_entry_points_raise_without_device_argument(entry):
       'serving': lambda: ServingEngine(t, [np.zeros((10, 8), np.float32)],
                                        batch_size=8),
       'mlp': lambda: dlrm.MLP(4, [2]),
+      'dlrm': lambda: dlrm.DLRM([10, 20], embedding_dim=8,
+                                bottom_mlp_dims=[8]),
+      'dlrm_main': lambda: dlrm_main.main(['--table_sizes', '10,20',
+                                           '--num_batches', '1']),
   }[entry]
   with pytest.raises(RuntimeError, match="pass device='cpu'"):
     build()

@@ -126,8 +126,17 @@ def test_init_draws_on_the_device():
       sum(t.size for t in synthetic.expand_tables(cfg)[0]) * 4 / 2**30)
 
 
-def test_model_parallel_input_refuses():
+def test_model_parallel_input_is_the_default():
+  # the JAX model's default; at world one its logits equal dp's bit for
+  # bit, the categorical inputs taken in worker order
+  assert not jax_synthetic.SyntheticModel.dp_input
   cfg = torch_parity.reduced(synthetic, 'tiny', 100)
-  with pytest.raises(NotImplementedError, match='item 4\\)'):
-    synthetic.SyntheticModel(cfg, dp_input=False, device='cpu')
-  assert synthetic.SyntheticModel(cfg, device='cpu').dist_embedding.dp_input
+  mp = synthetic.SyntheticModel(cfg, device='cpu').init(0)
+  dp = synthetic.SyntheticModel(cfg, dp_input=True, device='cpu').init(0)
+  assert not mp.dist_embedding.dp_input and dp.dist_embedding.dp_input
+  flat = [i for dev in mp.dist_embedding.plan.input_ids_list for i in dev]
+  (num, cats), _ = synthetic.InputGenerator(cfg, 16, alpha=1.05,
+                                            num_batches=1, seed=4)[0]
+  cats = torch_parity.padded_cats(cats, mp.hotness, seed=4)
+  with torch.no_grad():
+    assert torch.equal(mp(num, [cats[i] for i in flat]), dp(num, cats))

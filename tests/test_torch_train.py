@@ -217,7 +217,7 @@ def _tiny_models(max_rows=2000):
   jcfg = torch_parity.reduced(jax_synthetic, 'tiny', max_rows)
   jm = jax_synthetic.SyntheticModel(jcfg, mesh=torch_parity.jax_mesh(1),
                                     dp_input=True, packed_storage=False)
-  pm = synthetic.SyntheticModel(pcfg, device='cpu')
+  pm = synthetic.SyntheticModel(pcfg, dp_input=True, device='cpu')
   return pcfg, jm, pm
 
 

@@ -1,8 +1,9 @@
 """One rank of the port's multi-rank forward (``run``, for
-tests/test_torch_exchange.py) or hybrid train step (``train``, for
-tests/test_torch_train_ranks.py): joins a gloo world on the CPU, runs on
-its slice of the batch and saves what it got.  Imports nothing of JAX
-(spawned processes import only this)."""
+tests/test_torch_exchange.py), hybrid train step (``train``, for
+tests/test_torch_train_ranks.py) or model-parallel-input forward and
+step (``mp``, for tests/test_torch_mp_input.py): joins a gloo world on
+the CPU, runs on its slice of the batch and saves what it got.  Imports
+nothing of JAX (spawned processes import only this)."""
 
 import json
 import pickle
@@ -104,6 +105,73 @@ def train(rank, world_size, init_method, case_path, out_dir):
              **{f'w{i}': w.numpy() for i, w in enumerate(weights)},
              **{f'a{i}': a['acc'].numpy() for i, a in enumerate(accs)})
     with open(f'{out_dir}/train_legs{rank}.json', 'w') as f:
+      json.dump(legs, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def mp(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the model-parallel-input path, for
+  tests/test_torch_mp_input.py: ``forward_with_residuals`` on the whole
+  worker-order input list (each rank keeps its own entries), then, when
+  the case carries ``train``, hybrid ``SparseSGD`` + ``optim.sgd`` steps
+  with a linear head on its slice of the labels.  Saves the outputs,
+  residual ids, forward legs, and the gathered tables, head and losses."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, dp_input=False,
+                                **case['options'])
+    flat = [i for dev in dist.plan.input_ids_list for i in dev]
+    params = checkpoint.set_weights(dist, case['weights'])
+    outs, residuals, _ = dist.forward_with_residuals(
+        params, [case['cats'][i] for i in flat])
+    out = {f'o{i}': o.numpy() for i, o in enumerate(outs)}
+    out.update({f'r{i}': r.numpy() for i, r in enumerate(residuals)})
+    legs = [l.as_dict() for l in dist.lookup_plan().legs]
+    train = case.get('train')
+    if train:
+      dense_opt = optim.sgd(train['lr'])
+      emb_opt = sparse.SparseSGD(train['lr'])
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': params, 'kernel': torch.tensor(train['kernel'])},
+          dense_opt, emb_opt)
+
+      def head_loss(dense_params, emb_outs, labels):
+        x = torch.cat(list(emb_outs), dim=1)
+        return torch.mean((x @ dense_params['kernel'] - labels)**2)
+
+      step = sparse.make_hybrid_train_step(dist, head_loss, dense_opt,
+                                           emb_opt)
+      b = case['batch'] // world_size
+      labels = torch.tensor(train['labels'][rank * b:(rank + 1) * b])
+      losses = []
+      for cats in train['batches']:
+        state, loss = step(state, [cats[i] for i in flat], labels)
+        losses.append(float(loss))
+      out['kernel'] = state.params['kernel'].numpy()
+      out['losses'] = np.array(losses)
+      out.update({f'w{i}': w.numpy() for i, w in enumerate(
+          checkpoint.get_weights(dist, state.params['embedding']))})
+    np.savez(f'{out_dir}/mp{rank}.npz', **out)
+    with open(f'{out_dir}/mp_legs{rank}.json', 'w') as f:
       json.dump(legs, f)
     torch_dist.barrier()
   finally:
