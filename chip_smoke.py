@@ -61,11 +61,33 @@ Phases, each of which exits non-zero on failure:
             leaves it as it is, checked).
 13. dlrm profile: one step under torch.profiler, one under sync debug
             mode, as in phase 9.
+14. dense-tiny: the DLRM freed, the tiny model at full size again,
+            trained by the dense autodiff step (grad.make_train_step:
+            autograd through the lookup kernel, whose backward is the
+            segment walk's 'add', then optax-style Adagrad(0.01, 0.1,
+            1e-7) on every param, tables included): one warm-up step, 5
+            timed steps (every loss finite, 4 lookups and 2 backward
+            applies a step, peak memory below the card's); one more
+            step's table gradient of every group from the kernel against
+            the plain version on the same stream (bit-exact, untouched
+            rows exactly zero), with the device times of the kernel's
+            function (zero-fill + 'add'), its parts, the plain version
+            and Tensor.index_add_ into a zero-fill, beside the bound of
+            the function and that of the 'add' alone.
+15. dense-dlrm: the tiny model freed, examples/dlrm/main.py --trainer
+            dense's model and trainer (bf16, dp_input=False, the MLPerf
+            widths, every vocabulary capped at 10 M rows: 54,063,992
+            rows, 12.89 GiB) with the checks of phase 14 (1 lookup and 1
+            backward apply a step), and the lookup kernel against its
+            plain version on this table.
+16. dense profile: right after each of phases 14 and 15, one dense step
+            under torch.profiler and one under sync debug mode, as in
+            phase 9.
 
 Launches are counted per path: the forward's, the serving requests'
 (counted from 0 after the engine's warm-up) and the training steps'
 (counted from 0 after the warm-up step); the DLRM's forwards and
-training steps likewise.
+training steps likewise, and the dense steps of each model.
 The line before last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
@@ -89,13 +111,14 @@ import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
-from distributed_embeddings_tpu_torch.parallel import checkpoint, sparse
+from distributed_embeddings_tpu_torch.parallel import checkpoint, grad, sparse
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
-from distributed_embeddings_tpu_torch.utils import data, nativebuild, schedules
+from distributed_embeddings_tpu_torch.utils import data, nativebuild
 
 # H100 SXM data-sheet peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -118,6 +141,14 @@ SERVE_BATCH = 4096
 TRAIN_STEPS = 5
 LR = 0.01  # the JAX bench's Keras Adagrad defaults
 DLRM_ALPHA = 3.0  # examples/dlrm/gen_data.py's default skew
+# the ops of the hybrid step's apply that phase 8 holds to the plain version
+HYBRID_OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
+# the dense DLRM's one cut: every MLPerf vocabulary capped at 10 M rows
+# (54,063,992 rows, 12.89 GiB of bf16 tables).  The dense step's peak is
+# about three table-sized tensors (the tables, their table-shaped bf16
+# gradient and the update ``g * -lr``); the full 44.77 GiB would need
+# about 134 GiB.  Whether a larger cap fits is open (PERF.md section 7).
+DENSE_DLRM_MAX_ROWS = 10_000_000
 
 
 def log(*args):
@@ -211,22 +242,22 @@ def pad_multi_hot(cats, hotness, rng):
 
 
 def captured_lookups(model, numerical, cats):
-  """The (table, routed ids, combiner) of every ``fused_lookup`` call of
-  one forward, taken from the forward itself; its launches are not
-  counted towards any path."""
+  """The (table, routed ids, combiner) of every subgroup's lookup in one
+  forward (``fused_group_lookup`` calls), taken from the forward itself;
+  its launches are not counted towards any path."""
   calls = []
-  kernel = lookup.fused_lookup
+  kernel = lookup.fused_group_lookup
 
-  def record(table, routed, combiner, compute_dtype):
-    calls.append((table, routed, combiner))
-    return kernel(table, routed, combiner, compute_dtype)
+  def record(table, routed, combiners, compute_dtype):
+    calls.extend((table, r, c) for r, c in zip(routed, combiners))
+    return kernel(table, routed, combiners, compute_dtype)
 
-  lookup.fused_lookup = record
+  lookup.fused_group_lookup = record
   try:
     with torch.no_grad():
       model(numerical, cats)
   finally:
-    lookup.fused_lookup = kernel
+    lookup.fused_group_lookup = kernel
   return calls
 
 
@@ -678,10 +709,10 @@ def phase_segwalk(calls):
     if call['op'] != 'adagrad_dedup':
       raise AssertionError(f'the training path applies adagrad_dedup, '
                            f'captured {call["op"]}')
-    for op in segwalk.OPS:
+    for op in HYBRID_OPS:
       rows.append(check_segwalk(call, op, call['table'], label))
     # is an op's time a matter of its place in the sequence?
-    for order in (segwalk.OPS, segwalk.OPS[1:] + segwalk.OPS[:1]):
+    for order in (HYBRID_OPS, HYBRID_OPS[1:] + HYBRID_OPS[:1]):
       order_timings(call, label, order)
   # one bf16 table: the largest group's, cast
   call = max(calls, key=lambda c: c['table'].numel())
@@ -730,9 +761,10 @@ def phase_train_profile(step, state, batch):
 
 
 def dlrm_batches(model, seed, n):
-  """``n`` batches of the learnable power-law split at the MLPerf sizes
-  (``utils.data.generate_split``, alpha 3.0, 13 numerical features), the
-  categorical inputs in worker order: ``(cats, (numerical, labels))``."""
+  """``n`` batches of the learnable power-law split at the model's
+  vocabularies (``utils.data.generate_split``, alpha 3.0, 13 numerical
+  features), the categorical inputs in worker order: ``(cats,
+  (numerical, labels))``."""
   rng = np.random.default_rng(seed)
   plan = model.dist_embedding.plan
   order = [i for dev in plan.input_ids_list for i in dev]
@@ -740,7 +772,7 @@ def dlrm_batches(model, seed, n):
            (numerical.astype(np.float32),
             labels.astype(np.float32)[:, None]))
           for labels, numerical, cats in data.generate_split(
-              rng, data.MLPERF_SIZES, n * BATCH, DLRM_ALPHA, 13,
+              rng, model.table_sizes, n * BATCH, DLRM_ALPHA, 13,
               chunk=BATCH)]
 
 
@@ -827,26 +859,12 @@ def phase_dlrm_forward(model, numerical, cats, n_forwards=3, n_check=512):
 
 
 def dlrm_trainer(model):
-  """``examples/dlrm/main.py``'s trainer: SparseSGD(24) on the tables,
-  SGD on the MLPs, both on the warm-up + poly-decay schedule, mean
-  BCE."""
-  dist = model.dist_embedding
-  schedule = schedules.warmup_poly_decay_schedule(
-      base_lr=24.0, warmup_steps=8000, decay_start_step=48000,
-      decay_steps=24000)
-  dense_opt = optim.sgd(schedule)
-  emb_opt = sparse.SparseSGD(learning_rate=24.0)
-  state = sparse.init_hybrid_train_state(
-      dist, {'embedding': model.embedding_params, **model.dense_params()},
-      dense_opt, emb_opt)
-
-  def head_loss(dense_params, emb_outs, batch):
-    numerical, labels = batch
-    return dlrm.bce_with_logits(model.head(dense_params, numerical,
-                                           emb_outs), labels)
-
-  return sparse.make_hybrid_train_step(dist, head_loss, dense_opt, emb_opt,
-                                       lr_schedule=schedule), state
+  """``examples/dlrm/main.py``'s sparse trainer (SparseSGD(24) on the
+  tables, SGD on the MLPs, both on the warm-up + poly-decay schedule,
+  mean BCE), called as ``step(state, cats, (numerical, labels))``."""
+  step, state = dlrm_main.make_trainer(model, 'sparse', 24.0)
+  return (lambda state, cats, batch: step(state, batch[0], cats, batch[1]),
+          state)
 
 
 def phase_dlrm_train(model, batches):
@@ -1047,6 +1065,292 @@ def run_dlrm(seed, tiny_k, tiny_seg):
       f'index_add_ {sw["library_ms"]:.4f}); steps {step_ms}')
 
 
+def captured_backward(step, state, *batch):
+  """One real dense step that also records its lookup backwards (the
+  arguments of every ``lookup.lookup_grad`` call: one per fusion
+  group)."""
+  calls = []
+  fn = lookup.lookup_grad
+
+  def record(ids, grads, combiners, vocab, dtype):
+    calls.append({'ids': ids, 'grads': grads, 'combiners': combiners,
+                  'vocab': vocab, 'dtype': dtype})
+    return fn(ids, grads, combiners, vocab, dtype)
+
+  lookup.lookup_grad = record
+  try:
+    state, loss = step(state, *batch)
+  finally:
+    lookup.lookup_grad = fn
+  return state, loss, calls
+
+
+# rows per block of the checks on table-shaped gradients, which make no
+# table-sized temporary (the DLRM's is 12.9 GiB)
+CHECK_BLOCK_ROWS = 1 << 22
+
+
+def untouched_rows_zero(grad_table, touched):
+  """Whether every row outside ``touched`` (a bool mask over the rows)
+  is exactly zero."""
+  for r0 in range(0, grad_table.shape[0], CHECK_BLOCK_ROWS):
+    nonzero = (grad_table[r0:r0 + CHECK_BLOCK_ROWS] != 0).any(dim=1)
+    if bool((nonzero & ~touched[r0:r0 + CHECK_BLOCK_ROWS]).any()):
+      return False
+  return True
+
+
+def compare_tables(a, b):
+  """``(equal, max abs difference)`` of two table-shaped tensors."""
+  same, err = True, 0.0
+  for r0 in range(0, a.shape[0], CHECK_BLOCK_ROWS):
+    x, y = a[r0:r0 + CHECK_BLOCK_ROWS], b[r0:r0 + CHECK_BLOCK_ROWS]
+    same = same and torch.equal(x, y)
+    err = max(err, float((x.float() - y.float()).abs().max()))
+  return same, err
+
+
+def check_dense_grad(call, label):
+  """The lookup's backward on one group's captured stream: the table
+  gradient from the kernel (a zero-fill, then the segment walk's
+  'add') against the plain version (bit-exact), untouched rows exactly
+  zero; device times of the kernel's function, of its two parts, of the
+  plain version (one call) and of ``Tensor.index_add_`` into a zero-fill
+  (the library), beside the function's bound and the 'add''s own."""
+  vocab, dtype = call['vocab'], call['dtype']
+  segs, rows = lookup.grad_stream(call['ids'], call['grads'],
+                                  call['combiners'], vocab)
+  w = rows.shape[1]
+  dev = rows.device
+
+  def kernel():
+    out = torch.zeros((vocab, w), dtype=dtype, device=dev)
+    segwalk.apply_segments(out, None, segs, rows, 0.0, op='add')
+    return out
+
+  kt = kernel()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  pt = torch.zeros((vocab, w), dtype=dtype, device=dev)
+  segwalk.apply_segments_reference(pt, None, segs, rows, 0.0, op='add')
+  end.record()
+  end.synchronize()
+  plain_ms = start.elapsed_time(end)
+  same, err = compare_tables(kt, pt)
+  if not same:
+    raise AssertionError(f'{label}: the backward kernel disagrees with the '
+                         f'plain version, max abs err {err} (bit-exact)')
+  del pt
+  touched = torch.zeros(vocab, dtype=torch.bool, device=dev)
+  touched[segs.sorted_ids[segs.starts].long()] = True
+  if not untouched_rows_zero(kt, touched):
+    raise AssertionError(f'{label}: a row no id names has a gradient')
+  add_ms = device_ms(lambda: segwalk.apply_segments(kt, None, segs, rows,
+                                                    0.0, op='add'), 10)
+  zero_ms = device_ms(kt.zero_, 10)
+  del kt
+  kernel_ms = device_ms(kernel, 10)
+  lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+  lib_ids = segs.sorted_ids[lo:hi].long()
+  lib_rows = rows[segs.gidx[lo:hi].long()].to(dtype)
+  library_ms = device_ms(
+      lambda: torch.zeros((vocab, w), dtype=dtype, device=dev).index_add_(
+          0, lib_ids, lib_rows), 10)
+  del lib_ids, lib_rows
+  # the least bytes of the function: the stream's ids and row map and
+  # its cotangent rows read once, the gradient written once; one f32 add
+  # per valid element.  The 'add' alone reads and writes only the
+  # touched rows, and adds each segment's sum into its row.
+  n, m, u = segs.sorted_ids.shape[0], rows.shape[0], segs.count
+  valid = int((segs.ends - segs.starts).sum())
+  itemsize = torch.empty((), dtype=dtype).element_size()
+  stream_bytes = n * 4 + n * 4 + m * w * 4
+  nbytes = stream_bytes + vocab * w * itemsize
+  add_bytes = stream_bytes + 2 * u * w * itemsize
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = valid * w / F32_FLOP_PER_S * 1e3
+  add_bytes_ms = add_bytes / HBM_BYTES_PER_S * 1e3
+  add_ops_ms = (valid + u) * w / F32_FLOP_PER_S * 1e3
+  row = {
+      'stream': label, 'op': 'add', 'dtype': str(dtype).replace('torch.', ''),
+      'rows': vocab, 'w': w, 'positions': n, 'valid_positions': valid,
+      'cotangent_rows': m, 'segments': u, 'longest_segment': segs.longest(),
+      'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes, 'max_abs_err': err,
+      'tolerance': 'bit-exact', 'kernel_ms': kernel_ms, 'add_ms': add_ms,
+      'zero_fill_ms': zero_ms, 'plain_ms': plain_ms,
+      'library_ms': library_ms, 'bound_ms': max(bytes_ms, ops_ms),
+      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+      'add_bytes': add_bytes, 'add_bound_ms': max(add_bytes_ms, add_ops_ms),
+      'add_bound_by': 'bytes' if add_bytes_ms >= add_ops_ms else 'operations',
+  }
+  log('[dense-grad] ' + json.dumps(row))
+  torch.cuda.empty_cache()
+  return row
+
+
+def phase_dense(tag, step, state, batches, per_step):
+  """Phase 14 or 15: one warm-up dense step, ``TRAIN_STEPS`` timed ones
+  (every loss finite, every lookup on the lookup kernel and every
+  backward on the segment walk, ``per_step`` launches of each a step,
+  peak memory below the card's), then one captured step whose table
+  gradient of every group ``check_dense_grad`` holds to the plain
+  version, then phase 16's profile and host syncs of one more step."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state, loss = step(state, *batches[0])
+  torch.cuda.synchronize()
+  log(f'[{tag}] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms, '
+      f'loss {float(loss):.6f}')
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  times, losses = [], []
+  for batch in batches[1:TRAIN_STEPS + 1]:
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES}
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'{tag}: losses not finite: {losses}')
+  want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+  if launches != want:
+    raise AssertionError(f'{tag}: launched {launches}, expected {want}')
+  peak = torch.cuda.max_memory_allocated()
+  total = torch.cuda.get_device_properties(0).total_memory
+  if peak >= total:
+    raise AssertionError(f'{tag}: peak {peak} B above the card\'s {total} B')
+  med = statistics.median(times)
+  log(f'[{tag}] batch {BATCH}: {TRAIN_STEPS} dense steps, ms '
+      f'{[round(t, 3) for t in times]} (host clock, synchronised), median '
+      f'{med:.3f} = {BATCH / med * 1e3:,.0f} samples/s; losses '
+      f'{[round(x, 6) for x in losses]}')
+  log(f'[{tag}] launches {json.dumps(launches)} = {TRAIN_STEPS} steps x '
+      f'{json.dumps(per_step)} (every forward lookup on lookup_combine, '
+      f'every backward on segwalk_apply \'add\'); peak device memory '
+      f'{peak / 2**30:.3f} GiB of the card\'s {total / 2**30:.3f} GiB')
+  state, loss, calls = captured_backward(step, state,
+                                         *batches[TRAIN_STEPS + 1])
+  if not bool(torch.isfinite(loss)) or len(calls) != per_step['segwalk_apply']:
+    raise AssertionError(f'{tag}: capture step loss {float(loss)}, '
+                         f'{len(calls)} backwards')
+  grad_rows = []
+  while calls:
+    call = calls.pop(0)
+    w = call['grads'][0].shape[1]
+    grad_rows.append(check_dense_grad(call, f'{tag}_rows{call["vocab"]}_w{w}'))
+    del call
+  torch.cuda.empty_cache()
+  # phase 16: the profile and the host syncs of one more step each
+  losses = []
+  profile_once(lambda: losses.append(step(state, *batches[-1])[1]),
+               'dense-profile', f'{tag}: one dense step', top=20)
+  syncs = host_syncs(lambda: losses.append(step(state, *batches[-1])[1]))
+  if not all(bool(torch.isfinite(x)) for x in losses):
+    raise AssertionError(f'{tag}: profiled step loss not finite')
+  log(f'[dense-profile] {tag}: host syncs in one more step (sync debug '
+      f'mode): {sum(syncs.values())}, by line '
+      f'{json.dumps(dict(syncs.most_common()))}')
+  return launches, grad_rows, peak, times
+
+
+def dense_entry(launches, rows, keys, extra=None):
+  """A kernel's ``dense`` entry of the summary line for one model: the
+  times and bounds summed over ``rows`` (one per stream of a step), and
+  each stream's ``keys``."""
+  entry = {'launches': launches,
+           'streams': [{k: r[k] for k in keys} for r in rows],
+           'max_abs_err': max(r['max_abs_err'] for r in rows)}
+  for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms'):
+    entry[k] = sum(r['kernel_ms' if k == 'ms' else k] for r in rows)
+  entry['bound_by'] = ('bytes' if all(r['bound_by'] == 'bytes' for r in rows)
+                       else 'operations')
+  entry.update(extra or {})
+  return entry
+
+
+# each backward stream's shape and parts in the summary line
+DENSE_GRAD_KEYS = ('stream', 'op', 'dtype', 'rows', 'w', 'positions',
+                   'segments', 'longest_segment', 'add_ms', 'add_bound_ms',
+                   'zero_fill_ms')
+
+
+def run_dense_tiny(seed, lookup_k):
+  """Phase 14 (and 16): the tiny model at full size trained by the dense
+  autodiff step with dense Adagrad on every param (``optim.adagrad(0.01,
+  0.1, 1e-7)``, mean BCE, ``dp_input=True``); returns the two kernels'
+  ``dense`` entries for it.  ``lookup_k``: the lookup's summary from
+  phase 4, whose shapes are this model's lookups'."""
+  config = SYNTHETIC_MODELS[MODEL]
+  model = SyntheticModel(config, dp_input=True, device='cuda').init(seed)
+  dist = model.dist_embedding
+  opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+
+  def loss_fn(params, batch):
+    cats, (numerical, labels) = batch
+    return dlrm.bce_with_logits(model.apply(params, numerical, cats), labels)
+
+  step = grad.make_train_step(loss_fn, opt)
+  state = grad.init_train_state(
+      {'embedding': model.embedding_params, **model.dense_params()}, opt)
+  torch.cuda.synchronize()
+  log(f'[dense-tiny] tables {model.total_table_gib():.3f} GiB f32 + '
+      f'Adagrad sum of squares on every param; device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
+  batches = [(batch,) for batch in train_batches(
+      config, model.hotness, seed + 3, TRAIN_STEPS + 3)]
+  per_step = {'lookup_combine': len(dist._subgroups(tuple(model.hotness))),
+              'segwalk_apply': len(dist.plan.groups)}
+  launches, rows, peak, times = phase_dense('dense-tiny', step, state,
+                                            batches, per_step)
+  k = {'launches': launches['lookup_combine'],
+       'shape': 'the forward\'s, timed in phase 4',
+       **{key: lookup_k[key] for key in ('max_abs_err', 'ms', 'plain_ms',
+                                         'library_ms', 'bound_ms',
+                                         'bound_by')},
+       'step_ms': times, 'peak_gib': peak / 2**30}
+  seg = dense_entry(launches['segwalk_apply'], rows, DENSE_GRAD_KEYS)
+  return k, seg
+
+
+def run_dense_dlrm(seed):
+  """Phase 15 (and 16): the DLRM of ``examples/dlrm/main.py --trainer
+  dense`` (bf16, ``dp_input=False``, the MLPerf widths, every vocabulary
+  capped at ``DENSE_DLRM_MAX_ROWS``) through the example's trainer;
+  returns the two kernels' ``dense`` entries for it."""
+  sizes = [min(s, DENSE_DLRM_MAX_ROWS) for s in data.MLPERF_SIZES]
+  t0 = time.perf_counter()
+  model = dlrm.DLRM(sizes, embedding_dim=128, param_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, dp_input=False,
+                    dist_strategy='memory_balanced', device='cuda').init(seed)
+  torch.cuda.synchronize()
+  log(f'[dense-dlrm] {len(sizes)} tables, {sum(sizes):,} rows x 128 (the '
+      f'MLPerf vocabularies capped at {DENSE_DLRM_MAX_ROWS:,}), bf16: '
+      f'{model.total_table_gib():.3f} GiB, drawn in '
+      f'{time.perf_counter() - t0:.2f} s')
+  batches = dlrm_batches(model, seed + 4, TRAIN_STEPS + 3)
+  (table, routed, _), = captured_lookups(model, batches[0][1][0],
+                                         batches[0][0])
+  lk = check_kernel_shape(table, routed.reshape(-1, 1),
+                          f'dense_dlrm_w128_h1_ncap{routed.shape[0]}_bf16')
+  del table, routed
+  step, state = dlrm_main.make_trainer(model, 'dense', 24.0)
+  batches = [(numerical, cats, labels)
+             for cats, (numerical, labels) in batches]
+  launches, rows, peak, times = phase_dense(
+      'dense-dlrm', step, state, batches,
+      {'lookup_combine': 1, 'segwalk_apply': 1})
+  k = dense_entry(launches['lookup_combine'], [lk],
+                  ('M', 'h', 'w', 'dtype', 'distinct_rows'),
+                  {'table_rows': sum(sizes), 'step_ms': times,
+                   'peak_gib': peak / 2**30})
+  seg = dense_entry(launches['segwalk_apply'], rows, DENSE_GRAD_KEYS)
+  return k, seg
+
+
 def run_tiny(args):
   """Phases 3-9 on the synthetic tiny model; returns the two kernels'
   summaries.  Everything the model holds on the card is freed on
@@ -1136,6 +1440,15 @@ def main(argv=None) -> int:
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
       f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
   run_dlrm(args.seed, k, seg)
+  for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
+                   ('dlrm', lambda: run_dense_dlrm(args.seed))):
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'[dense-{tag}] before the model: device memory '
+        f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
+    dk, dseg = run()
+    k.setdefault('dense', {})[tag] = dk
+    seg.setdefault('dense', {})[tag] = dseg
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
   log(json.dumps({'kernels': [k, seg]}))
   log(json.dumps({'ok': True, 'device': {

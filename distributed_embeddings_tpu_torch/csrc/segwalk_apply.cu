@@ -9,6 +9,14 @@
 //   sgd:            t -= lr * S
 //   adagrad_dedup:  a += S * S;       t -= lr * S * rsqrt(a + eps)
 //   adagrad_sq:     a += sum(g * g);  t -= lr * S * rsqrt(a + eps)
+//   add:            t += S
+//
+// `add` (no learning rate, no accumulator) is the backward of the lookup
+// kernel: the wrapper zero-fills a table-shaped gradient and adds each
+// distinct row's summed cotangent rows into it, the port's counterpart of
+// the JAX lookup's VJP `_dl_bwd` (distributed_embeddings_tpu/ops/
+// pallas_lookup.py, an XLA segment_sum).  It is `sgd` at lr = -1, bit for
+// bit: -1 * S is exact and t - (-S) rounds as t + S does.
 //
 // The wrapper (ops/segwalk.py) sorts the stream (a stable torch sort):
 // sorted position p holds row id sid[p] and gradient row gidx[p] (a
@@ -93,6 +101,7 @@ constexpr int kUnroll = 4;  // gradient-row loads in flight per thread
 constexpr int kSgd = 0;
 constexpr int kAdagradDedup = 1;
 constexpr int kAdagradSq = 2;
+constexpr int kAdd = 3;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -174,6 +183,11 @@ __device__ __forceinline__ void apply_row(T* table, float* acc, int64_t off,
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       t.v[k] = from_f32<T>(__fsub_rn(to_f32(t.v[k]), __fmul_rn(lr, sum[k])));
+    }
+  } else if (OP == kAdd) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      t.v[k] = from_f32<T>(__fadd_rn(to_f32(t.v[k]), sum[k]));
     }
   } else {
     Vec<float, V> a = load_f32<V>(acc + off);
@@ -408,6 +422,9 @@ cudaError_t launch(const int32_t* sid, const int32_t* gidx,
     case kAdagradSq:
       return launch_op<T, V, kAdagradSq>(sid, gidx, grads, table, acc, part,
                                          n, rows, w, chunk, lr, eps, stream);
+    case kAdd:
+      return launch_op<T, V, kAdd>(sid, gidx, grads, table, acc, part, n,
+                                   rows, w, chunk, lr, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -454,8 +471,9 @@ cudaError_t dispatch(const int32_t* sid, const int32_t* gidx,
 // sid: [n] int32 sorted row ids; gidx: [n] int32 gradient row of each
 // sorted position; grads: [m, w] f32; table: [rows, w] f32 (table_bf16 ==
 // 0) or bf16, updated in place; acc: [rows, w] f32, updated in place
-// (null for sgd); part: [ceil(n / chunk), 2, w] f32 scratch, twice that
-// for adagrad_sq.  op: 0 sgd, 1 adagrad_dedup, 2 adagrad_sq.  All
+// (null for sgd and add); part: [ceil(n / chunk), 2, w] f32 scratch,
+// twice that for adagrad_sq.  op: 0 sgd, 1 adagrad_dedup, 2 adagrad_sq,
+// 3 add (lr unused).  All
 // contiguous, on the current device.  Launches pass 1, then (more than
 // one chunk) pass 2.  Returns the cudaError_t of the launches (0 on
 // success).

@@ -2,19 +2,23 @@
 ``examples/dlrm/main.py``.
 
 MLPerf-configuration DLRM over synthetic dummy data, hybrid data- and
-model-parallel, the embedding tables trained by row-wise sparse SGD and
-the MLPs by SGD, both on the warm-up + poly-decay schedule, then AUC
-evaluation.  One process on one device.
+model-parallel, then AUC evaluation.  One process on one device.  Two
+trainers, both SGD on the warm-up + poly-decay schedule: ``--trainer
+sparse`` (the default) updates the embedding tables row-wise through the
+segment-walk apply and the MLPs by SGD; ``--trainer dense`` (the
+reference-parity path) differentiates the whole model, tables included,
+and updates every param by the same SGD (``parallel/grad.py``
+``make_train_step``).
 
     python -m distributed_embeddings_tpu_torch.examples.dlrm.main \\
         [--num_batches 100] [--param_dtype bfloat16] [--device cuda]
 
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports it (``--dataset_path`` is item 12, ``--trainer dense``
-item 3b); ``--fast_compile`` is an XLA compile option with no
-counterpart here, and ``--segwalk_apply`` names the port's only
-embedding apply, so it changes nothing.  ``--device`` (default
+item that ports it (``--dataset_path`` is item 12); ``--fast_compile``
+is an XLA compile option with no counterpart here, and
+``--segwalk_apply`` names the port's only embedding apply, so it
+changes nothing.  ``--device`` (default
 ``cuda``) is the port's own flag: ``--device cpu`` runs every kernel's
 plain PyTorch version.
 """
@@ -30,7 +34,7 @@ import torch
 
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
-from distributed_embeddings_tpu_torch.parallel import sparse
+from distributed_embeddings_tpu_torch.parallel import grad, sparse
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
 from distributed_embeddings_tpu_torch.utils.data import DummyDataset
@@ -122,8 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--save_weights', default=None,
                  help='not ported (item 11)')
   p.add_argument('--trainer', default='sparse', choices=['sparse', 'dense'],
-                 help='sparse = row-wise embedding updates; dense is not '
-                 'ported (item 3b)')
+                 help='sparse = row-wise embedding updates; dense = '
+                 'autodiff through the whole model (reference parity)')
   p.add_argument('--save_state', default=None, help='not ported (item 11)')
   p.add_argument('--load_state', default=None, help='not ported (item 11)')
   p.add_argument('--resume_dir', default=None, help='not ported (item 3c)')
@@ -148,11 +152,51 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
   for name, item in UNPORTED.items():
     if getattr(args, name) != parser.get_default(name):
       raise not_ported(f'--{name}', item)
-  if args.trainer != 'sparse':
-    raise not_ported('--trainer dense (the dense autodiff trainer)', '3b')
   if args.fast_compile:
     raise ValueError('--fast_compile sets XLA compile options; the port '
                      'compiles nothing at run time')
+
+
+def make_trainer(model: DLRM, trainer: str, learning_rate: float):
+  """The example's trainer for ``model``: ``(step, state)``, ``step(state,
+  numerical, cats, labels) -> (state, loss)`` with ``cats`` as
+  ``model.dist_embedding.apply`` takes them.  Both trainers run SGD on
+  the reference's warm-up + poly-decay schedule and the mean BCE (JAX
+  ``examples/dlrm/main.py``): ``'sparse'`` updates the tables through
+  ``SparseSGD`` and the MLPs by SGD (``make_hybrid_train_step``);
+  ``'dense'`` differentiates the whole model and updates every param,
+  tables included, by the same SGD (``grad.make_train_step``)."""
+  schedule = warmup_poly_decay_schedule(base_lr=learning_rate,
+                                        warmup_steps=8000,
+                                        decay_start_step=48000,
+                                        decay_steps=24000)
+  optimizer = optim.sgd(schedule)
+  dist = model.dist_embedding
+  params = {'embedding': model.embedding_params, **model.dense_params()}
+  if trainer == 'dense':
+    def loss_fn(p, batch):
+      numerical, cats, labels = batch
+      return bce_with_logits(model.apply(p, numerical, list(cats)), labels)
+
+    dense_step = grad.make_train_step(loss_fn, optimizer,
+                                      group=dist.mesh.group)
+    return (lambda state, numerical, cats, labels: dense_step(
+        state, (numerical, cats, labels)),
+            grad.init_train_state(params, optimizer))
+
+  # embedding tables update through row-wise sparse SGD (exact; the
+  # reference's IndexedSlices path), the MLPs through optax-style SGD
+  def head_loss_fn(dense_params, emb_outs, hbatch):
+    numerical, labels = hbatch
+    return bce_with_logits(model.head(dense_params, numerical, emb_outs),
+                           labels)
+
+  emb_opt = sparse.SparseSGD(learning_rate=learning_rate)
+  hybrid_step = sparse.make_hybrid_train_step(dist, head_loss_fn, optimizer,
+                                              emb_opt, lr_schedule=schedule)
+  return (lambda state, numerical, cats, labels: hybrid_step(
+      state, cats, (numerical, labels)),
+          sparse.init_hybrid_train_state(dist, params, optimizer, emb_opt))
 
 
 def _sync(device: torch.device):
@@ -193,25 +237,7 @@ def main(argv=None):
   eval_dataset = DummyDataset(args.batch_size, args.num_numerical_features,
                               len(table_ids), 10)
 
-  schedule = warmup_poly_decay_schedule(base_lr=args.learning_rate,
-                                        warmup_steps=8000,
-                                        decay_start_step=48000,
-                                        decay_steps=24000)
-  optimizer = optim.sgd(schedule)
-
-  # embedding tables update through row-wise sparse SGD (exact; the
-  # reference's IndexedSlices path), the MLPs through optax-style SGD
-  def head_loss_fn(dense_params, emb_outs, hbatch):
-    numerical, labels = hbatch
-    return bce_with_logits(model.head(dense_params, numerical, emb_outs),
-                           labels)
-
-  emb_opt = sparse.SparseSGD(learning_rate=args.learning_rate)
-  step = sparse.make_hybrid_train_step(dist, head_loss_fn, optimizer,
-                                       emb_opt, lr_schedule=schedule)
-  state = sparse.init_hybrid_train_state(
-      dist, {'embedding': model.embedding_params, **model.dense_params()},
-      optimizer, emb_opt)
+  step, state = make_trainer(model, args.trainer, args.learning_rate)
 
   def run_eval(step_no):
     auc_metric = StreamingAUC(num_thresholds=8000)
@@ -219,7 +245,8 @@ def main(argv=None):
       for bi, (numerical, cats, labels) in enumerate(eval_dataset):
         if args.eval_batches and bi >= args.eval_batches:
           break
-        preds = torch.sigmoid(model(numerical, list(cats)))
+        preds = torch.sigmoid(model.apply(state.params, numerical,
+                                          list(cats)))
         auc_metric.update(labels, preds.float().cpu().numpy())
     auc = auc_metric.result()
     print(f'step: {step_no}  eval AUC: {auc:.5f}', flush=True)
@@ -230,7 +257,7 @@ def main(argv=None):
   samples = 0
   loss = None
   for i, (numerical, cats, labels) in enumerate(train_dataset):
-    state, loss = step(state, list(cats), (numerical, labels))
+    state, loss = step(state, numerical, list(cats), labels)
     samples += args.batch_size
     if i % 1000 == 0:
       if not np.isfinite(float(loss)):

@@ -266,8 +266,17 @@ class DLRM(nn.Module):
 
   def forward(self, numerical, categorical) -> torch.Tensor:
     """Logits ``[batch, 1]`` (reference ``DLRM.call``)."""
-    outs = self.dist_embedding.apply(self.embedding_params, categorical)
-    return self.head(self.dense_params(), numerical, outs)
+    return self.apply({'embedding': self.embedding_params,
+                       **self.dense_params()}, numerical, categorical)
+
+  def apply(self, params, numerical, categorical) -> torch.Tensor:
+    """Logits ``[batch, 1]`` from ``params`` = ``{'embedding': group
+    tables, **dense_params()}`` in place of the model's own tensors (JAX
+    ``DLRM.apply``): the function the dense autodiff trainer
+    differentiates."""
+    outs = self.dist_embedding.apply(params['embedding'], categorical)
+    dense = {k: v for k, v in params.items() if k != 'embedding'}
+    return self.head(dense, numerical, outs)
 
   def head(self, dense_params: Dict[str, torch.Tensor], numerical,
            emb_outs: Sequence[torch.Tensor]) -> torch.Tensor:

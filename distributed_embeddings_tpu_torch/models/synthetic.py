@@ -319,6 +319,15 @@ class SyntheticModel(nn.Module):
     outs = self.dist_embedding.apply(self.embedding_params, categorical)
     return self.head(numerical, outs)
 
+  def apply(self, params, numerical, categorical) -> torch.Tensor:
+    """Logits ``[batch, 1]`` from ``params`` = ``{'embedding': group
+    tables, **dense_params()}`` in place of the model's own tensors (JAX
+    ``SyntheticModel.apply``): the function the dense autodiff trainer
+    differentiates."""
+    outs = self.dist_embedding.apply(params['embedding'], categorical)
+    dense = {k: v for k, v in params.items() if k != 'embedding'}
+    return self.head(numerical, outs, dense)
+
   def dense_params(self) -> Dict[str, torch.Tensor]:
     """The data-parallel params, ``{'mlp.layers.i.weight': ..., ...}``:
     the MLP's own tensors (a train step updates them in place)."""

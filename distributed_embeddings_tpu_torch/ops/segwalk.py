@@ -11,6 +11,14 @@ distinct row with gradient sum ``S``:
 - ``'sgd'``:            ``t -= lr * S``
 - ``'adagrad_dedup'``:  ``a += S * S``;      ``t -= lr * S * rsqrt(a + eps)``
 - ``'adagrad_sq'``:     ``a += sum(g * g)``; ``t -= lr * S * rsqrt(a + eps)``
+- ``'add'``:            ``t += S`` (``lr`` unused)
+
+``'add'`` carries the lookup's backward (``ops/lookup.py``
+``LookupCombine``): into a zeroed table-shaped gradient it writes each
+distinct row's summed cotangent rows, the counterpart of the JAX
+lookup's VJP ``_dl_bwd`` (an XLA ``segment_sum``).  It is ``'sgd'`` at
+``lr = -1``, bit for bit (``-1 * S`` is exact, and ``t - (-S)`` rounds as
+``t + S`` does), in the same summation order.
 
 Ids outside ``[0, rows)`` are padding (the runtime's sentinel is
 ``rows``).  Gradient rows arrive either one per stream position or, with
@@ -65,7 +73,8 @@ LAUNCHES = 0
 # parameter (module docstring), shared by the kernel and the plain version.
 CHUNK = 256
 
-OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
+OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq', 'add')
+_STATELESS = ('sgd', 'add')
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
 
@@ -145,7 +154,7 @@ def _rounded_square(x: torch.Tensor) -> torch.Tensor:
 def _check(table, acc, grads, op):
   if op not in OPS:
     raise ValueError(f'unknown op {op!r}: one of {OPS}')
-  if (op == 'sgd') != (acc is None):
+  if (op in _STATELESS) != (acc is None):
     raise ValueError('acc must be provided iff op is an adagrad variant')
   if table.dim() != 2 or table.dtype not in _TABLE_DTYPES:
     raise ValueError(f'segwalk table must be [rows, w] f32 or bf16, got '
@@ -201,13 +210,13 @@ def segwalk_apply(table: torch.Tensor, acc: Optional[torch.Tensor],
   Args:
     table: ``[rows, w]`` f32 or bf16, updated in place.
     acc: the Adagrad accumulator, ``[rows, w]`` f32 (updated in place),
-      or None for ``'sgd'``.
+      or None for ``'sgd'`` and ``'add'``.
     ids: ``[n]`` row ids in any order; ids outside ``[0, rows)`` are
       padding.
     grads: f32 gradient rows: ``[n, w]`` (one per position), or
       ``[m, w]`` compact rows with ``g_index``.
-    lr: learning rate.
-    op: ``'sgd'`` | ``'adagrad_dedup'`` | ``'adagrad_sq'``.
+    lr: learning rate (unused by ``'add'``).
+    op: ``'sgd'`` | ``'adagrad_dedup'`` | ``'adagrad_sq'`` | ``'add'``.
     eps: Adagrad epsilon.
     g_index: optional ``[n]`` integer map stream position -> row of
       ``grads`` (its range check reads the device once).
@@ -334,6 +343,8 @@ def _apply_plain(table, acc, segs, grads, lr, eps, op):
   t = table[rows].to(torch.float32)
   if op == 'sgd':
     t = t - lr_t * sums
+  elif op == 'add':
+    t = t + sums
   else:
     add = _rounded_square(sums) if op == 'adagrad_dedup' else squares
     a_new = acc[rows] + add

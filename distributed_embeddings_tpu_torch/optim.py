@@ -1,15 +1,19 @@
-"""Dense optimizers with optax's arithmetic, for the data-parallel params
-of the hybrid train step (the JAX package uses ``optax.sgd`` and
-``optax.adagrad``).
+"""Dense optimizers with optax's arithmetic (the JAX package uses
+``optax.sgd`` and ``optax.adagrad``): for the data-parallel params of the
+hybrid train step, and for every param, tables included, of the dense
+autodiff trainer (``parallel/grad.make_train_step``).
 
 Each is a ``GradientTransformation``: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)``; the caller adds
 the updates (``p + u``), as the JAX step does.  Params, gradients and
-updates are dicts of tensors keyed by name.
+updates are dicts of tensors keyed by name, nested dicts allowed (the
+dense trainer's ``'embedding'`` entry is a dict of group tables); the
+state's per-parameter trees have the params' structure.
 
 ``adagrad`` follows optax's ``scale_by_rss``, not ``torch.optim.Adagrad``:
-``eps`` is added INSIDE the square root, and a zero sum of squares gives
-a zero update (``where(t > 0, rsqrt(t + eps), 0)``).
+``eps`` is added INSIDE the square root, a zero sum of squares gives a
+zero update (``where(t > 0, rsqrt(t + eps), 0)``), and the sum of
+squares keeps each param's dtype.
 """
 
 from __future__ import annotations
@@ -18,12 +22,28 @@ from typing import Callable, Dict, NamedTuple, Union
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Union[torch.Tensor, 'Params']]
 
 
 class GradientTransformation(NamedTuple):
   init: Callable
   update: Callable
+
+
+def tree_map(fn: Callable, tree, *rest):
+  """``fn`` over the leaves of nested dicts of tensors (``rest`` of the
+  same structure as ``tree``), keeping the structure."""
+  if isinstance(tree, dict):
+    return {k: tree_map(fn, v, *(r[k] for r in rest))
+            for k, v in tree.items()}
+  return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+  """The tensors of nested dicts, in key order of each dict."""
+  if isinstance(tree, dict):
+    return [x for v in tree.values() for x in tree_leaves(v)]
+  return [tree]
 
 
 def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
@@ -42,14 +62,14 @@ def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
   def update(grads: Params, state, params=None):
     del params
     if not scheduled:
-      return {k: g * -learning_rate for k, g in grads.items()}, state
+      return tree_map(lambda g: g * -learning_rate, grads), state
     step_size = -float(learning_rate(int(state['count'])))
     # the step size rounded to each gradient's dtype (optax's
     # ``jnp.array(step_size, dtype=g.dtype)``), as a Python float: a
     # tensor on the card would cost a host-to-device copy per parameter
     rounded = {dt: float(torch.tensor(step_size, dtype=dt))
-               for dt in {g.dtype for g in grads.values()}}
-    updates = {k: g * rounded[g.dtype] for k, g in grads.items()}
+               for dt in {g.dtype for g in tree_leaves(grads)}}
+    updates = tree_map(lambda g: g * rounded[g.dtype], grads)
     return updates, {'count': int(state['count']) + 1}
 
   return GradientTransformation(init, update)
@@ -58,22 +78,22 @@ def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
 def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
             eps: float = 1e-7) -> GradientTransformation:
   """``optax.adagrad``: ``t += g * g``; ``u = where(t > 0, 1 / sqrt(t +
-  eps), 0) * g * -lr``.  State ``{'sum_of_squares': {name: tensor}}``."""
+  eps), 0) * g * -lr``.  State ``{'sum_of_squares': tree}``, each leaf at
+  its param's dtype."""
 
   def init(params: Params):
-    return {'sum_of_squares': {
-        k: torch.full_like(p, initial_accumulator_value)
-        for k, p in params.items()}}
+    return {'sum_of_squares': tree_map(
+        lambda p: torch.full_like(p, initial_accumulator_value), params)}
 
   def update(grads: Params, state, params=None):
     del params
-    sos, updates = {}, {}
-    for k, g in grads.items():
-      t = g * g + state['sum_of_squares'][k]
+    sos = tree_map(lambda g, s: g * g + s, grads, state['sum_of_squares'])
+
+    def scale(g, t):
       inv = torch.where(t > 0, torch.reciprocal(torch.sqrt(t + eps)),
                         torch.zeros_like(t))
-      sos[k] = t
-      updates[k] = (inv * g) * -learning_rate
-    return updates, {'sum_of_squares': sos}
+      return (inv * g) * -learning_rate
+
+    return tree_map(scale, grads, sos), {'sum_of_squares': sos}
 
   return GradientTransformation(init, update)

@@ -9,7 +9,8 @@ do the same for the sparse optimizer's per-element state (the Adagrad
 accumulator).  These functions are also how state crosses from the JAX
 package to the port: ``get_weights`` / ``get_optimizer_state`` of a JAX
 model, then ``set_weights`` / ``set_optimizer_state`` here, or
-``train_state_from_jax`` for a whole train state.  Saving and loading
+``train_state_from_jax`` (hybrid) / ``dense_train_state_from_jax``
+(dense autodiff trainer) for a whole train state.  Saving and loading
 files (``save_train_npz`` and the rest) is ROADMAP.md Queue 1, item 11.
 """
 
@@ -204,3 +205,42 @@ def train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
   return TrainState(params,
                     (_to_device(dense_opt_state, dist.device), emb_state),
                     int(step))
+
+
+def dense_train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
+                               dense_params: Dict[str, Any], opt_state: Any,
+                               step: int) -> TrainState:
+  """Carry a JAX dense ``TrainState`` (``grad.make_train_step``'s) into
+  the port (this rank's share).
+
+  Args:
+    tables: the JAX model's ``get_weights`` (global per-table arrays).
+    dense_params: the dense params as ``{name: array}`` in the port's
+      layout (e.g. ``DLRM.dense_from_jax``).
+    opt_state: the optimizer's state in the port's layout
+      (``optim.adagrad``: ``{'sum_of_squares': tree}``; ``optim.sgd``:
+      ``{}`` or ``{'count': n}``), where a per-parameter tree's
+      ``'embedding'`` entry holds global per-table arrays (the JAX
+      ``get_weights`` of that tree's ``'embedding'``): it is resharded
+      exactly as ``set_weights`` reshards the tables.
+    step: the JAX state's step.
+
+  Returns:
+    A ``TrainState`` for ``grad.make_train_step`` on ``dist.device``:
+    tables and their state at ``dist.param_dtype`` (optax keeps a state
+    leaf at its param's dtype), every other array bf16 if it came as
+    bf16 and f32 otherwise; Python ints (a schedule's count) as they are.
+  """
+  def carry(tree):
+    if isinstance(tree, dict):
+      return {k: (set_weights(dist, v) if k == 'embedding' else carry(v))
+              for k, v in tree.items()}
+    if isinstance(tree, int):
+      return tree
+    a = np.asarray(tree)
+    dtype = torch.bfloat16 if a.dtype.name == 'bfloat16' else torch.float32
+    return torch.as_tensor(a.astype(np.float32)).to(device=dist.device,
+                                                     dtype=dtype)
+
+  params = carry({'embedding': tables, **dict(dense_params)})
+  return TrainState(params, carry(opt_state), int(step))

@@ -14,8 +14,8 @@ Both input paths keep the JAX pipeline stage for stage.  The dp-input
 forward (``dp_input=True``) routes every (group, hotness) subgroup into
 canonical ``[D, n_cap, B, h]`` send buffers, makes ONE fused id
 exchange, then per subgroup routes ids and runs the fused gather-combine
-(``ops/lookup.fused_lookup``: the CUDA kernel on the card), makes ONE
-fused row exchange back and assembles (column-slice re-concat and
+(``ops/lookup.fused_group_lookup``: the CUDA kernel on the card), makes
+ONE fused row exchange back and assembles (column-slice re-concat and
 row-slice merge).  The model-parallel-input forward (``dp_input=False``,
 the JAX package's ``_build_mp_forward``) receives every table's ids at
 the global batch, builds each subgroup's ``[n_cap, GB, h]`` canonical
@@ -27,6 +27,10 @@ Ported so far: ``__init__``, ``init``, ``apply`` on dense ``[B]`` /
 ``forward_with_residuals`` / ``backward_to_mp`` (the backward, shared by
 both paths as in the JAX package, mirrors the forward's return leg: ONE
 fused cotangent exchange, plus one all_gather per row-sharded input).
+``apply`` is differentiable in the tables (the dense autodiff trainer,
+``parallel/grad.make_train_step``): the lookup is one autograd node per
+fusion group (``ops/lookup.LookupCombine``), the row exchange and the
+row-shard reduce-scatter carry their cotangents back.
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -411,11 +415,10 @@ class DistributedEmbedding:
 
   def _psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
     """Sum ``x`` ``[D * B, ...]`` over the ranks and keep this rank's
-    ``[B, ...]`` block (``jax.lax.psum_scatter(..., tiled=True)``)."""
-    x = x.contiguous().clone()
-    torch_dist.all_reduce(x, group=self.mesh.group)
-    b = x.shape[0] // self.world_size
-    return x[self.rank * b:(self.rank + 1) * b]
+    ``[B, ...]`` block (``jax.lax.psum_scatter(..., tiled=True)``);
+    differentiable, its backward ``_all_gather_batch``."""
+    return _PsumScatter.apply(x, self.mesh.group, self.rank,
+                              self.world_size)
 
   def _emit_outputs(self, sub, si, out, local_batch, merge_out):
     """Stage one subgroup's lookup outputs ``[n_cap, GB, w]`` for the
@@ -444,7 +447,13 @@ class DistributedEmbedding:
 
   def _assemble(self, subs, sub_back, merge_out):
     """Gather output pieces back to input order (column-slice re-concat;
-    row-shard pieces arrive summed in ``merge_out``)."""
+    row-shard pieces arrive summed in ``merge_out``).  Each subgroup's
+    ``[D, out_n_cap, B, w]`` buffer is unbound into its ``[B, w]`` pieces
+    at once, so the backward stacks their cotangents into one buffer
+    (indexing each piece out on its own would zero-fill a buffer-sized
+    cotangent per piece and add them all up)."""
+    sub_back = [None if b is None else b.reshape(-1, *b.shape[2:]).unbind(0)
+                for b in sub_back]
     locate = {}
     for si, sub in enumerate(subs):
       for dev, rs in enumerate(sub.requests):
@@ -466,7 +475,7 @@ class DistributedEmbedding:
           pieces.append(merge_out[(si, inp)])
         else:
           assert j == i + 1, 'unmerged requests sharing a column range'
-          pieces.append(sub_back[si][r.device, pos])
+          pieces.append(sub_back[si][r.device * subs[si].out_n_cap + pos])
         i = j
       outs.append(pieces[0] if len(pieces) == 1 else torch.cat(
           pieces, dim=-1))
@@ -481,7 +490,9 @@ class DistributedEmbedding:
     per class; the result splits back by the segment offsets (a single
     live buffer moves as it is, under the JAX package's per-buffer leg
     name).  ``None`` entries pass through; a world of one returns the
-    buffers untouched.  Issued legs are recorded into ``plan``."""
+    buffers untouched.  Issued legs are recorded into ``plan``.  A float
+    leg is differentiable (``_AllToAll``: the cotangents take the same
+    exchange back)."""
     D = self.world_size
     out = list(bufs)
     live = [(i, b) for i, b in enumerate(bufs) if b is not None]
@@ -496,8 +507,7 @@ class DistributedEmbedding:
       for leg in legs:
         members = [by_label[s.label] for s in leg.segments]
         flat = torch.cat([b.reshape(D, -1) for _, b in members], dim=1)
-        recv = torch.empty_like(flat)
-        torch_dist.all_to_all_single(recv, flat, group=group)
+        recv = _AllToAll.apply(flat, group)
         for seg, (i, b) in zip(leg.segments, members):
           out[i] = recv[:, seg.offset:seg.offset + seg.size].reshape(
               b.shape)
@@ -506,10 +516,7 @@ class DistributedEmbedding:
       for i, b in live:
         legs += fuse_layout(f'{name}/g{i}', [(f'g{i}', tuple(b.shape),
                                               _wire_dtype_name(b.dtype))])
-        b = b.contiguous()
-        recv = torch.empty_like(b)
-        torch_dist.all_to_all_single(recv, b, group=group)
-        out[i] = recv
+        out[i] = _AllToAll.apply(b, group)
     if plan is not None:
       plan.record(legs)
     return out
@@ -535,16 +542,26 @@ class DistributedEmbedding:
     """Route each subgroup's canonical raw ids ``[n_cap, GB, h]`` into
     the fused table, gather-combine, and stage the outputs for the row
     exchange: ``(staged, residuals, merge_out)``, ``residuals`` the
-    routed ids (``>= rows_cap`` is padding)."""
-    merge_out, staged, residuals = {}, [], []
-    for si, (sub, ids_c, (offs, vocab, lo, hi, st)) in enumerate(
-        zip(subs, canonicals, consts)):
-      routed = routing.route_ids(ids_c, offs, vocab,
-                                 self.plan.groups[sub.gi].rows_cap, lo, hi,
-                                 st)
-      residuals.append(routed)
-      out_c = lookup_ops.fused_lookup(params[f'group_{sub.gi}'], routed,
-                                      sub.lookup_combiner, self.compute_dtype)
+    routed ids (``>= rows_cap`` is padding).  The subgroups of one
+    fusion group look up through one ``fused_group_lookup`` call (one
+    kernel launch each, one autograd node for the table)."""
+    residuals = tuple(
+        routing.route_ids(ids_c, offs, vocab,
+                          self.plan.groups[sub.gi].rows_cap, lo, hi, st)
+        for sub, ids_c, (offs, vocab, lo, hi, st) in zip(subs, canonicals,
+                                                         consts))
+    outs = [None] * len(subs)
+    for gi in range(len(self.plan.groups)):
+      sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
+      if not sis:
+        continue
+      got = lookup_ops.fused_group_lookup(
+          params[f'group_{gi}'], [residuals[si] for si in sis],
+          [subs[si].lookup_combiner for si in sis], self.compute_dtype)
+      for si, out_c in zip(sis, got):
+        outs[si] = out_c
+    merge_out, staged = {}, []
+    for si, (sub, ids_c, out_c) in enumerate(zip(subs, canonicals, outs)):
       if sub.mean_row_sliced:
         # mean row shards looked up with 'sum': divide by the TRUE
         # per-sample id count here, where every raw id is in hand
@@ -552,7 +569,7 @@ class DistributedEmbedding:
             out_c.dtype)
       staged.append(self._emit_outputs(sub, si, out_c, local_batch,
                                        merge_out))
-    return staged, tuple(residuals), merge_out
+    return staged, residuals, merge_out
 
   def _build_dp_forward(self, local_batch: int, hotness: tuple):
     """Build (once per signature) the dp-input forward
@@ -790,10 +807,55 @@ class DistributedEmbedding:
     ``[D * B, ...]`` (``jax.lax.all_gather(..., tiled=True)``)."""
     if self.world_size == 1:
       return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(self.world_size)]
-    torch_dist.all_gather(parts, x, group=self.mesh.group)
-    return torch.cat(parts)
+    return _all_gather(x, self.mesh.group, self.world_size)
+
+
+def _all_gather(x: torch.Tensor, group, world: int) -> torch.Tensor:
+  x = x.contiguous()
+  parts = [torch.empty_like(x) for _ in range(world)]
+  torch_dist.all_gather(parts, x, group=group)
+  return torch.cat(parts)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+  x = x.contiguous()
+  recv = torch.empty_like(x)
+  torch_dist.all_to_all_single(recv, x, group=group)
+  return recv
+
+
+class _AllToAll(torch.autograd.Function):
+  """``all_to_all_single`` of a canonical ``[D, ...]`` buffer (slot ``d``
+  goes to rank ``d``, slot ``s`` of the result came from rank ``s``).  The
+  layout makes the exchange its own adjoint: a cotangent in slot ``s``
+  goes back to rank ``s``, into the slot that rank sent it from."""
+
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    return _all_to_all(x, group)
+
+  @staticmethod
+  def backward(ctx, g):
+    return _all_to_all(g, ctx.group), None
+
+
+class _PsumScatter(torch.autograd.Function):
+  """Sum ``[D * B, ...]`` over the ranks, keep this rank's ``[B, ...]``
+  block; the transpose (JAX's ``psum_scatter`` VJP) gathers every rank's
+  block cotangent back into ``[D * B, ...]``."""
+
+  @staticmethod
+  def forward(ctx, x, group, rank, world):
+    ctx.group, ctx.world = group, world
+    x = x.contiguous().clone()
+    torch_dist.all_reduce(x, group=group)
+    b = x.shape[0] // world
+    return x[rank * b:(rank + 1) * b].clone()
+
+  @staticmethod
+  def backward(ctx, g):
+    return _all_gather(g, ctx.group, ctx.world), None, None, None
 
 
 @dataclasses.dataclass

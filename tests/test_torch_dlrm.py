@@ -278,7 +278,7 @@ def test_entry_point_trains_and_evaluates(capsys):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--dataset_path', 'criteo'], '12'), (['--trainer', 'dense'], '3b'),
+    (['--dataset_path', 'criteo'], '12'), (['--resume_dir', 'ckpt'], '3c'),
     (['--hot_cache'], '7'), (['--overlap_chunks', '2'], '8'),
     (['--no-fused_exchange'], '8'), (['--table_dtype', 'int8'], '9'),
     (['--save_state', 'x.npz'], '11'), (['--audit_every', '5'], '3c'),

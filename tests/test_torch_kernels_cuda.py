@@ -13,7 +13,10 @@ rtol = atol = 1e-6 for Adagrad (only the reciprocal square root may
 differ), and rows the stream does not name stay bitwise unchanged; its
 streams put runs at the chunk edges of its two-pass design, it finishes
 a 100 k-position single-id stream in under 1 ms, and it runs the sort
-and both passes without a host sync.
+and both passes without a host sync.  Its ``'add'`` (the lookup's
+backward) is bit-exact, and equals ``'sgd'`` at ``lr = -1`` bit for bit.
+The lookup's backward on a CUDA table launches the segment walk or
+raises, and gives the plain version's gradient bit for bit.
 """
 
 import numpy as np
@@ -22,6 +25,10 @@ import torch
 
 from distributed_embeddings_tpu_torch.ops import lookup
 from distributed_embeddings_tpu_torch.ops import segwalk
+from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+    DistributedEmbedding)
+from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 
 torch.set_num_threads(1)
 
@@ -93,7 +100,7 @@ def test_fused_lookup_launches_once(cuda_device):
   routed = torch.randint(0, 51, (3, 32, 2), dtype=torch.int32,
                          device=cuda_device)
   before = lookup.LAUNCHES
-  out = lookup.fused_lookup(table, routed, 'mean', torch.float32)
+  out, = lookup.fused_group_lookup(table, [routed], ['mean'], torch.float32)
   assert lookup.LAUNCHES == before + 1
   want = lookup.dense_lookup_reference(table, routed.reshape(-1, 2),
                                        'mean').reshape(3, 32, 16)
@@ -121,7 +128,7 @@ def _segwalk_against_plain(table, acc, ids, grads, op, g_index=None):
   assert segwalk.LAUNCHES == before + (1 if ids.shape[0] else 0)
   segwalk.segwalk_apply_reference(pt, pa, ids, grads, 0.3, op=op,
                                   g_index=g_index)
-  if op == 'sgd':
+  if acc is None:
     assert torch.equal(kt, pt)
   else:
     torch.testing.assert_close(kt.float(), pt.float(), rtol=1e-6, atol=1e-6)
@@ -138,13 +145,13 @@ def _segwalk_against_plain(table, acc, ids, grads, op, g_index=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('w', [1, 8, 16, 128])
-@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq', 'add'])
 def test_segwalk_matches_plain_version(cuda_device, op, w, dtype):
   rng = np.random.default_rng(w)
   rows, n, m = 500, 6000, 1500
   table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32))
   table = table.to(_DT[dtype]).to(cuda_device)
-  acc = None if op == 'sgd' else torch.as_tensor(
+  acc = None if op in ('sgd', 'add') else torch.as_tensor(
       rng.uniform(0.05, 0.2, size=(rows, w)).astype(np.float32)).to(
           cuda_device)
   # duplicates (power law), sentinels past the table and -1 padding
@@ -244,7 +251,7 @@ def _chunk_edge_ids(rng, rows, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('w', [1, 8, 16, 128])
-@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq', 'add'])
 def test_segwalk_chunk_edges(cuda_device, op, w, dtype):
   rng = np.random.default_rng(1000 + w)
   rows, m = 500, 700
@@ -252,7 +259,7 @@ def test_segwalk_chunk_edges(cuda_device, op, w, dtype):
   n = len(ids)
   table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32))
   table = table.to(_DT[dtype]).to(cuda_device)
-  acc = None if op == 'sgd' else torch.as_tensor(
+  acc = None if op in ('sgd', 'add') else torch.as_tensor(
       rng.uniform(0.05, 0.2, size=(rows, w)).astype(np.float32)).to(
           cuda_device)
   ids = torch.as_tensor(ids).to(cuda_device)
@@ -295,3 +302,86 @@ def test_segwalk_apply_does_not_synchronise(cuda_device, op):
   else:
     torch.testing.assert_close(table, pt, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(acc, pa, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_segwalk_add_is_sgd_at_lr_minus_one(cuda_device, dtype):
+  rng = np.random.default_rng(21)
+  rows, w = 400, 16
+  ids = torch.as_tensor(_chunk_edge_ids(rng, rows, segwalk.CHUNK)).to(
+      cuda_device)
+  n = ids.shape[0]
+  table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32)).to(
+      _DT[dtype]).to(cuda_device)
+  grads = torch.randn(n, w, device=cuda_device)
+  added, stepped = table.clone(), table.clone()
+  segwalk.segwalk_apply(added, None, ids, grads, 0.0, op='add')
+  segwalk.segwalk_apply(stepped, None, ids, grads, -1.0, op='sgd')
+  assert torch.equal(added, stepped) and not torch.equal(added, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('combiner,h', [(None, 1), ('sum', 10), ('mean', 7)])
+def test_lookup_backward_matches_plain_version(cuda_device, combiner, h,
+                                               dtype):
+  rng = np.random.default_rng(h)
+  vocab, w, m = 1000, 16, 3000
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32)).to(
+      _DT[dtype])
+  ids = torch.as_tensor(_ids(rng, m, h, vocab))
+  g = torch.as_tensor(rng.normal(size=(m, w)).astype(np.float32))
+  grads = []
+  for dev in (torch.device('cpu'), cuda_device):
+    t = table.detach().to(dev).requires_grad_(True)
+    before = segwalk.LAUNCHES
+    lookup.dense_lookup(t, ids.to(dev), combiner,
+                        out_dtype=torch.float32).backward(g.to(dev))
+    # the plain version on the CPU is no launch; one apply on the card
+    assert segwalk.LAUNCHES == before + (dev.type == 'cuda')
+    assert t.grad.dtype == t.dtype
+    grads.append(t.grad.cpu())
+  assert torch.equal(grads[1], grads[0])
+  valid = ids[(ids >= 0) & (ids < vocab)].long()
+  untouched = torch.ones(vocab, dtype=torch.bool)
+  untouched[valid] = False
+  assert not grads[1][untouched].any()
+
+
+@pytest.mark.cuda
+def test_tables_on_the_card_get_gradients_through_apply(cuda_device):
+  rng = np.random.default_rng(23)
+  specs = [(40, 4, None, 1), (50, 8, 'mean', 3), (60, 8, 'sum', 2)]
+  weights = [rng.normal(size=(r, w)).astype(np.float32)
+             for r, w, _, _ in specs]
+  cats = [rng.integers(-1, r, size=(32, h)).astype(np.int32)
+          for r, _, _, h in specs]
+  cats[0] = cats[0][:, 0]
+  grads = []
+  for dev in ('cpu', cuda_device):
+    dist = DistributedEmbedding(
+        [TableConfig(r, w, combiner=c) for r, w, c, _ in specs], device=dev)
+    params = {k: t.requires_grad_(True)
+              for k, t in checkpoint.set_weights(dist, weights).items()}
+    outs = dist.apply(params, cats)
+    sum((o * o).sum() for o in outs).backward()
+    assert all(t.grad is not None for t in params.values())
+    grads.append([g.cpu() for g in checkpoint.get_weights(
+        dist, {k: t.grad for k, t in params.items()})])
+  for a, b in zip(*grads):
+    torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lookup_backward_raises_when_the_kernel_cannot_launch(
+    cuda_device, monkeypatch):
+  table = torch.randn(50, 8, device=cuda_device, requires_grad=True)
+  ids = torch.randint(0, 50, (20, 2), dtype=torch.int32, device=cuda_device)
+  out = lookup.dense_lookup(table, ids, 'sum')
+  torch.cuda.synchronize()
+  # a refused launch (cudaErrorInvalidConfiguration)
+  monkeypatch.setattr(segwalk, '_kernel', lambda: lambda *args: 9)
+  with pytest.raises(RuntimeError, match='segwalk_apply launch failed'):
+    out.sum().backward()
+  assert table.grad is None

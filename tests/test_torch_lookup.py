@@ -105,8 +105,8 @@ def test_fused_lookup_matches_jax(w, combiner, h, dtype):
   routed = rng.integers(0, rows_cap, size=(n_cap, gb, h)).astype(np.int32)
   routed[:, ::3, h // 2:] = rows_cap
   routed[1, 4] = rows_cap
-  got = lookup.fused_lookup(table_t, torch.as_tensor(routed), combiner,
-                            torch.float32)
+  got, = lookup.fused_group_lookup(table_t, [torch.as_tensor(routed)],
+                                   [combiner], torch.float32)
   want = _fused_lookup(table_j, jnp.asarray(routed), combiner, jnp.float32)
   assert tuple(got.shape) == (n_cap, gb, w)
   _assert_close(got, want, h)
@@ -134,7 +134,7 @@ def test_refusals_match_jax():
     pallas_lookup.dense_lookup(jnp.zeros((32, 8)), jnp.asarray(ids.numpy()),
                                None, interpret=True)
   with pytest.raises(ValueError, match='hotness 1'):
-    lookup.fused_lookup(table_t, ids[None], None, torch.float32)
+    lookup.fused_group_lookup(table_t, [ids[None]], [None], torch.float32)
   with pytest.raises(ValueError, match='hotness 1'):
     pallas_lookup.fused_lookup(jnp.zeros((32, 8)),
                                jnp.asarray(ids.numpy())[None], None,

@@ -1,7 +1,8 @@
 """One rank of the port's multi-rank forward (``run``, for
 tests/test_torch_exchange.py), hybrid train step (``train``, for
-tests/test_torch_train_ranks.py) or model-parallel-input forward and
-step (``mp``, for tests/test_torch_mp_input.py): joins a gloo world on
+tests/test_torch_train_ranks.py), model-parallel-input forward and
+step (``mp``, for tests/test_torch_mp_input.py) or dense autodiff step
+(``dense``, for tests/test_torch_dense_ranks.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -173,6 +174,62 @@ def mp(rank, world_size, init_method, case_path, out_dir):
     np.savez(f'{out_dir}/mp{rank}.npz', **out)
     with open(f'{out_dir}/mp_legs{rank}.json', 'w') as f:
       json.dump(legs, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def dense(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the port's dense autodiff step, for
+  tests/test_torch_dense_ranks.py: ``grad.make_train_step`` with SGD and
+  a linear head, on its slice of the batch (``dp_input``) or on the
+  whole worker-order list (model-parallel input) with its slice of the
+  labels; saves the gathered tables, the head and the losses."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, dp_input=case['dp_input'],
+                                **case['options'])
+    params = {'embedding': checkpoint.set_weights(dist, case['weights']),
+              'kernel': torch.tensor(case['kernel'])}
+
+    def loss_fn(p, batch):
+      cats, labels = batch
+      x = torch.cat(dist.apply(p['embedding'], cats), dim=1)
+      return torch.mean((x @ p['kernel'] - labels)**2)
+
+    opt = optim.sgd(case['lr'])
+    step = grad.make_train_step(loss_fn, opt, group=m.group)
+    state = grad.init_train_state(params, opt)
+    b = case['batch'] // world_size
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    flat = [i for dev in dist.plan.input_ids_list for i in dev]
+    losses = []
+    for cats in case['batches']:
+      cats = ([c[rank * b:(rank + 1) * b] for c in cats] if case['dp_input']
+              else [cats[i] for i in flat])
+      state, loss = step(state, (cats, labels))
+      losses.append(float(loss))
+    weights = checkpoint.get_weights(dist, state.params['embedding'])
+    np.savez(f'{out_dir}/dense{rank}.npz',
+             kernel=state.params['kernel'].numpy(), losses=np.array(losses),
+             **{f'w{i}': w.numpy() for i, w in enumerate(weights)})
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
