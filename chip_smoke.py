@@ -40,6 +40,15 @@ Phases, each of which exits non-zero on failure:
 9. profile: one training step under torch.profiler: device busy share
             and device time by kernel; one more step under torch's sync
             debug mode: its host syncs by source line.
+9b. tiny-adam: on the same tables, lazy Adam (SparseAdam(0.001), the
+            segment walk's 'adam' op; Adagrad on the MLP): one warm-up
+            and 3 timed steps, every loss finite; a sample of 1 M rows
+            a group that no step named keeps its weights bitwise and m =
+            v = t = 0; one more step's streams, the kernel against its
+            plain version on compact copies of the touched rows (t exact,
+            m and v bit-exact, the table rtol = atol = 1e-6) and against
+            what the step wrote (bit-exact); kernel and plain times, the
+            bound (no library call computes lazy Adam).
 10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -83,12 +92,38 @@ Phases, each of which exits non-zero on failure:
 16. dense profile: right after each of phases 14 and 15, one dense step
             under torch.profiler and one under sync debug mode, as in
             phase 9.
+17. small:  the dense models freed, synthetic Small V3 at full size
+            (107 tables, 220,630,300 rows at widths 16 and 32, hotness 1
+            and 30, 13.15 GiB of bf16 tables, no cut), bf16 compute,
+            dp_input=True, drawn on the card: the lookup kernel against
+            its plain version on the ids of a forward (phase 4's checks),
+            then 3 forwards (4 lookups each) checked as in phase 5 (bf16:
+            hotness 30 within one bf16 ulp, logits within 2e-2).
+18. small-train: the JAX bench's jumbo-scale optimizer configuration,
+            SparseAdagrad(0.01, stream_dtype='bfloat16', accum_dtype=
+            'bfloat16', use_segwalk_apply=True) and adagrad(0.01, 0.1,
+            1e-7) on the bf16 MLP (26.29 GiB of tables and bf16
+            accumulators): one warm-up step, 5 timed steps, every loss
+            finite, every apply through both bf16 arms (counted per arm),
+            peak memory below the card's; then a profiled step and one
+            under sync debug mode, as in phase 9.
+19. small-segwalk: one more step's two streams: adagrad_dedup on both
+            bf16 arms against the plain version on compact copies of the
+            touched rows (rtol = atol = 1e-6) and against what the step
+            wrote (bit-exact), sgd on the bf16 stream (bit-exact), a
+            sample of untouched rows unchanged; kernel, plain, bound, the
+            same stream on the f32 arms (an f32 stream and accumulator)
+            and Tensor.index_add_ of the bf16 rows (the sgd library
+            time), timed on the real tables at lr 0.
 
 Launches are counted per path: the forward's, the serving requests'
 (counted from 0 after the engine's warm-up) and the training steps'
 (counted from 0 after the warm-up step); the DLRM's forwards and
-training steps likewise, and the dense steps of each model.
-The line before last is the kernels' JSON summary; the last line is
+training steps likewise, the dense steps of each model, the lazy-Adam
+steps and Small V3's forwards and steps, and for the last two each arm
+of the segment walk they ran (``segwalk.ARM_LAUNCHES``).
+The line before last is the kernels' JSON summary (the lookup, the
+segment walk, its two bf16 arms and its adam op); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
 """
@@ -114,7 +149,7 @@ from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
-    SYNTHETIC_MODELS, InputGenerator, SyntheticModel)
+    SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.parallel import checkpoint, grad, sparse
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
@@ -134,11 +169,32 @@ KERNELS = [{
     'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
     'replaces': 'distributed_embeddings_tpu/ops/pallas_segwalk.py:119',
 }]
+# the segment walk's arms and its adam op: template instances of the same
+# source (built with it)
+ARMS = [{
+    'name': 'segwalk_apply:bf16_stream',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
+    'replaces': 'distributed_embeddings_tpu/ops/pallas_segwalk.py:233',
+}, {
+    'name': 'segwalk_apply:bf16_accumulator',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
+    'replaces': 'distributed_embeddings_tpu/ops/pallas_segwalk.py:326',
+}, {
+    # lazy Adam: an XLA apply in the JAX package, an op of the segment walk
+    # here
+    'name': 'segwalk_apply:adam',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
+    'replaces': 'distributed_embeddings_tpu/parallel/sparse.py:563',
+}]
 MODEL = 'tiny'
 BATCH = 65536  # global batch of the forward and of training
 REQUEST_SIZES = (1, 5, 64, 4096)
 SERVE_BATCH = 4096
 TRAIN_STEPS = 5
+ADAM_STEPS = 3
 LR = 0.01  # the JAX bench's Keras Adagrad defaults
 DLRM_ALPHA = 3.0  # examples/dlrm/gen_data.py's default skew
 # the ops of the hybrid step's apply that phase 8 holds to the plain version
@@ -317,13 +373,15 @@ def check_kernel_shape(table, ids, label):
   return row
 
 
-def phase_kernels(model, numerical, cats):
+def phase_kernels(model, numerical, cats, bf16_copy=True):
   calls = captured_lookups(model, numerical, cats)
   if any(c != 'sum' for _, _, c in calls):
-    raise AssertionError('the tiny model combines with sum only')
+    raise AssertionError('the synthetic models combine with sum only')
   label = lambda t, r: f'w{t.shape[1]}_h{r.shape[-1]}_ncap{r.shape[0]}'
   rows = [check_kernel_shape(t, r.reshape(-1, r.shape[-1]), label(t, r))
           for t, r, _ in calls]
+  if not bf16_copy:
+    return rows, None
   # one bf16 table: the widest multi-hot lookup, cast
   t, r, _ = max(calls, key=lambda c: (c[1].shape[-1], c[0].shape[1]))
   bf16_row = check_kernel_shape(t.to(torch.bfloat16),
@@ -348,7 +406,14 @@ def plain_embedding_outputs(weights, input_table_map, cats, n):
   return outs
 
 
-def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
+def phase_forward(model, numerical, cats, n_forwards=3, n_check=512,
+                  tag='forward'):
+  """A few forwards at the global batch, every subgroup's lookup through
+  the kernel; the logits finite and the first ``n_check`` samples equal
+  an independent plain reference: bit-exact at hotness 1 (in the
+  model's compute dtype), within rtol = atol = 1e-6 above (sum order;
+  one bf16 ulp, 2**-8 relative, in bf16), logits within 1e-5 (f32) or
+  2e-2 (bf16 GEMMs at another shape than the slice's)."""
   dist = model.dist_embedding
   n_subs = len(dist._subgroups(tuple(model.hotness)))
   torch.cuda.synchronize()
@@ -366,13 +431,14 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
               'segwalk_apply': segwalk.LAUNCHES}
   if launches != {'lookup_combine': n_forwards * n_subs,
                   'segwalk_apply': 0}:
-    raise AssertionError(f'forward launched {launches}, expected '
+    raise AssertionError(f'{tag}: launched {launches}, expected '
                          f'{n_forwards} x {n_subs} subgroups lookups')
   batch = np.asarray(cats[0]).shape[0]
   if tuple(logits.shape) != (batch, 1) or not bool(
       torch.isfinite(logits).all()):
-    raise AssertionError(f'logits {tuple(logits.shape)} not finite or '
-                         f'not [{batch}, 1]')
+    raise AssertionError(f'{tag}: logits {tuple(logits.shape)} not finite '
+                         f'or not [{batch}, 1]')
+  f32 = model.compute_dtype == torch.float32
   # independent reference on the first n_check samples
   weights = checkpoint.get_weights(dist, model.embedding_params)
   with torch.no_grad():
@@ -380,20 +446,24 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512):
     ref = plain_embedding_outputs(weights, model.input_table_map, cats,
                                   n_check)
     for i, (o, r, h) in enumerate(zip(outs, ref, model.hotness)):
+      o, r = o.float(), r.to(o.dtype).float()
       if h == 1 and not torch.equal(o, r):
-        raise AssertionError(f'input {i}: forward != plain reference')
-      if h > 1 and not torch.allclose(o, r, rtol=1e-6, atol=1e-6):
-        raise AssertionError(f'input {i}: forward != plain reference '
+        raise AssertionError(f'{tag} input {i}: forward != plain reference')
+      if h > 1 and not torch.allclose(o, r, rtol=1e-6 if f32 else 2**-8,
+                                      atol=1e-6):
+        raise AssertionError(f'{tag} input {i}: forward != plain reference '
                              f'(max err {float((o - r).abs().max())})')
     ref_logits = model.head(np.asarray(numerical)[:n_check], ref)
-    if not torch.allclose(logits[:n_check], ref_logits, rtol=1e-5,
-                          atol=1e-5):
-      raise AssertionError('logits disagree with the plain reference')
-  log(f'[forward] batch {batch}: {n_forwards} forwards, ms '
+    tol = 1e-5 if f32 else 2e-2
+    if not torch.allclose(logits[:n_check], ref_logits, rtol=tol, atol=tol):
+      err = float((logits[:n_check] - ref_logits).abs().max())
+      raise AssertionError(f'{tag}: logits disagree with the plain reference '
+                           f'(max err {err}, tolerance {tol})')
+  log(f'[{tag}] batch {batch}: {n_forwards} forwards, ms '
       f'{[round(t, 3) for t in times]} (host clock, synchronised); '
       f'kernel launches {json.dumps(launches)}: {n_forwards} x {n_subs} '
       'subgroups')
-  log(f'[forward] tables {model.total_table_gib():.3f} GiB; peak device '
+  log(f'[{tag}] tables {model.total_table_gib():.3f} GiB; peak device '
       f'memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; '
       f'logits finite, first {n_check} equal the plain reference')
   return weights, launches
@@ -498,23 +568,28 @@ def train_batches(config, hotness, seed, n):
           for (numerical, cats), labels in pool]
 
 
-def build_trainer(model):
-  """The JAX bench's training configuration on the port: SparseAdagrad
-  (dedup) for the tables, optax-style Adagrad for the MLP, mean BCE."""
-  dist = model.dist_embedding
-  dense_opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
-  emb_opt = sparse.SparseAdagrad(learning_rate=LR)
-  state = sparse.init_hybrid_train_state(
-      dist, {'embedding': model.embedding_params, **model.dense_params()},
-      dense_opt, emb_opt)
-
+def tiny_head_loss(model):
+  """The synthetic model's head and mean BCE, as the hybrid step takes
+  it."""
   def head_loss(dense_params, emb_outs, batch):
     numerical, labels = batch
     return dlrm.bce_with_logits(model.head(numerical, emb_outs,
                                            dense_params), labels)
+  return head_loss
 
-  return sparse.make_hybrid_train_step(dist, head_loss, dense_opt,
-                                       emb_opt), state
+
+def build_trainer(model, emb_opt=None):
+  """The JAX bench's training configuration on the port: SparseAdagrad
+  (dedup; ``emb_opt`` in its place) for the tables, optax-style Adagrad
+  for the MLP, mean BCE."""
+  dist = model.dist_embedding
+  dense_opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+  emb_opt = emb_opt or sparse.SparseAdagrad(learning_rate=LR)
+  state = sparse.init_hybrid_train_state(
+      dist, {'embedding': model.embedding_params, **model.dense_params()},
+      dense_opt, emb_opt)
+  return sparse.make_hybrid_train_step(dist, tiny_head_loss(model),
+                                       dense_opt, emb_opt), state
 
 
 def captured_applies(step, state, cats, batch):
@@ -551,37 +626,10 @@ def phase_train(model, config, seed):
   log(f'[train] state: tables {model.total_table_gib():.3f} GiB + '
       f'Adagrad accumulators; device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
-  torch.cuda.reset_peak_memory_stats()
-  t0 = time.perf_counter()
-  state, loss = step(state, *batches[0])
-  torch.cuda.synchronize()
-  log(f'[train] warm-up step (loads the kernels, allocates): '
-      f'{(time.perf_counter() - t0) * 1e3:.3f} ms, loss {float(loss):.6f}')
-  lookup.LAUNCHES = 0
-  segwalk.LAUNCHES = 0
-  times, losses = [], []
-  for cats, batch in batches[1:TRAIN_STEPS + 1]:
-    t0 = time.perf_counter()
-    state, loss = step(state, cats, batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - t0) * 1e3)
-    losses.append(float(loss))
-  launches = {'segwalk_apply': segwalk.LAUNCHES,
-              'lookup_combine': lookup.LAUNCHES}
-  if not all(np.isfinite(losses)):
-    raise AssertionError(f'training losses not finite: {losses}')
-  want = {'segwalk_apply': TRAIN_STEPS * n_groups,
-          'lookup_combine': TRAIN_STEPS * n_subs}
-  if launches != want:
-    raise AssertionError(f'training launched {launches}, expected {want} '
-                         f'({TRAIN_STEPS} steps x {n_groups} groups / '
-                         f'{n_subs} subgroups)')
-  log(f'[train] batch {BATCH}: {TRAIN_STEPS} steps, ms '
-      f'{[round(t, 3) for t in times]} (host clock, synchronised); '
-      f'losses {[round(x, 6) for x in losses]}')
-  log(f'[train] launches {json.dumps(launches)} = {TRAIN_STEPS} steps x '
-      f'({n_groups} groups, {n_subs} subgroups); peak device memory '
-      f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+  state, launches, _, _ = timed_steps(
+      'train', step, state, batches,
+      {'segwalk_apply': TRAIN_STEPS * n_groups,
+       'lookup_combine': TRAIN_STEPS * n_subs})
   state, loss, calls = captured_applies(step, state,
                                         *batches[TRAIN_STEPS + 1])
   if not bool(torch.isfinite(loss)):
@@ -589,16 +637,24 @@ def phase_train(model, config, seed):
   return step, state, calls, batches[-1], launches
 
 
-def segwalk_bound(segs, m, table, acc, op):
+def segwalk_bound(segs, grads, table, acc, op):
   """``(bytes, bound_ms, bound_by)`` of one apply: each position's id
-  and gradient-row index read once, each compact f32 gradient row read
-  once, each touched table (and accumulator) row read and written once;
-  f32 operations per summed element and per updated element."""
+  and gradient-row index read once, each compact gradient row read once
+  (2 B an element for a bf16 stream), each touched table and state row
+  read and written once (a bf16 accumulator at 2 B an element; Adam's m
+  and v at 4 B and its count at 4 B a row); f32 operations per summed
+  element and per updated element."""
   n, u, w = segs.sorted_ids.shape[0], segs.count, table.shape[1]
   valid = int((segs.ends - segs.starts).sum())
-  row_rw = 2 * w * (table.element_size() + (4 if acc is not None else 0))
-  nbytes = n * 4 + n * 4 + m * w * 4 + u * row_rw
-  flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * 6
+  if op == 'adam':
+    state_bytes, row_bytes, ops = 8, 4, 13
+  else:
+    state_bytes, row_bytes, ops = (
+        0 if acc is None else acc.element_size(), 0, 6)
+  row_rw = 2 * (w * (table.element_size() + state_bytes) + row_bytes)
+  nbytes = n * 4 + n * 4 + grads.shape[0] * w * grads.element_size() + \
+      u * row_rw
+  flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * ops
   bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
   ops_ms = flops / F32_FLOP_PER_S * 1e3
   return (nbytes, max(bytes_ms, ops_ms),
@@ -618,13 +674,8 @@ def check_segwalk(call, op, table, label):
   segwalk.apply_segments(kt, ka, segs, grads, lr, op=op, eps=eps)
   pt = table.clone()
   pa = None if acc is None else acc.clone()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  segwalk.apply_segments_reference(pt, pa, segs, grads, lr, op=op, eps=eps)
-  end.record()
-  end.synchronize()
-  plain_ms = start.elapsed_time(end)
+  plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+      pt, pa, segs, grads, lr, op=op, eps=eps))
   err = float((kt.float() - pt.float()).abs().max())
   if acc is not None:
     err = max(err, float((ka - pa).abs().max()))
@@ -661,7 +712,7 @@ def check_segwalk(call, op, table, label):
     del lib_ids, lib_g
   n, m, u = ids.shape[0], grads.shape[0], segs.count
   valid = int((segs.ends - segs.starts).sum())
-  nbytes, bound_ms, bound_by = segwalk_bound(segs, m, table, acc, op)
+  nbytes, bound_ms, bound_by = segwalk_bound(segs, grads, table, acc, op)
   row = {
       'stream': label, 'op': op,
       'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows,
@@ -748,14 +799,14 @@ def host_syncs(fn):
       if 'called a synchronizing' in str(w.message))
 
 
-def phase_train_profile(step, state, batch):
+def phase_train_profile(step, state, batch, tag='profile-train'):
   losses = []
   profile_once(lambda: losses.append(step(state, *batch)[1]),
-               'profile-train', 'one training step', top=20)
+               tag, 'one training step', top=20)
   syncs = host_syncs(lambda: losses.append(step(state, *batch)[1]))
   if not all(bool(torch.isfinite(x)) for x in losses):
     raise AssertionError('profiled step loss not finite')
-  log(f'[profile-train] host syncs in one more step (sync debug mode): '
+  log(f'[{tag}] host syncs in one more step (sync debug mode): '
       f'{sum(syncs.values())}, by line '
       f'{json.dumps(dict(syncs.most_common()))}')
 
@@ -869,66 +920,61 @@ def dlrm_trainer(model):
 
 def phase_dlrm_train(model, batches):
   step, state = dlrm_trainer(model)
-  torch.cuda.synchronize()
-  torch.cuda.reset_peak_memory_stats()
-  t0 = time.perf_counter()
-  state, loss = step(state, *batches[0])
-  torch.cuda.synchronize()
-  log(f'[dlrm-train] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} '
-      f'ms, loss {float(loss):.6f}')
-  lookup.LAUNCHES = 0
-  segwalk.LAUNCHES = 0
-  times, losses = [], []
-  for cats, batch in batches[1:TRAIN_STEPS + 1]:
-    t0 = time.perf_counter()
-    state, loss = step(state, cats, batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - t0) * 1e3)
-    losses.append(float(loss))
-  launches = {'lookup_combine': lookup.LAUNCHES,
-              'segwalk_apply': segwalk.LAUNCHES}
-  if not all(np.isfinite(losses)):
-    raise AssertionError(f'dlrm training losses not finite: {losses}')
-  want = {'lookup_combine': TRAIN_STEPS, 'segwalk_apply': TRAIN_STEPS}
-  if launches != want:
-    raise AssertionError(f'dlrm training launched {launches}, expected '
-                         f'{want}')
-  peak = torch.cuda.max_memory_allocated()
-  total = torch.cuda.get_device_properties(0).total_memory
-  if peak >= total:
-    raise AssertionError(f'peak {peak} B above the card\'s {total} B')
-  med = statistics.median(times)
-  log(f'[dlrm-train] batch {BATCH}: {TRAIN_STEPS} steps, ms '
-      f'{[round(t, 3) for t in times]} (host clock, synchronised), median '
-      f'{med:.3f} = {BATCH / med * 1e3:,.0f} samples/s; losses '
-      f'{[round(x, 6) for x in losses]}')
-  log(f'[dlrm-train] launches {json.dumps(launches)} = {TRAIN_STEPS} steps '
-      f'x 1; peak device memory {peak / 2**30:.3f} GiB of the card\'s '
-      f'{total / 2**30:.3f} GiB')
+  state, launches, times, _ = timed_steps(
+      'dlrm-train', step, state, batches,
+      {'lookup_combine': TRAIN_STEPS, 'segwalk_apply': TRAIN_STEPS})
   return step, state, launches, times
 
 
-def captured_dlrm_apply(step, state, cats, batch, n_sample=1 << 20):
-  """One real training step that also records its apply: the stream, and
-  before the in-place update a compact copy of the rows it touches and a
-  sample of ``n_sample`` rows it does not (the 48 GB table is never
-  cloned)."""
+def state_rows(acc, idx):
+  """Rows ``idx`` of an optimizer state: None, an accumulator or Adam's
+  ``Moments`` (a copy)."""
+  if acc is None:
+    return None
+  if isinstance(acc, segwalk.Moments):
+    return segwalk.Moments(*(x[idx] for x in acc))
+  return acc[idx]
+
+
+def state_clone(acc):
+  if isinstance(acc, segwalk.Moments):
+    return segwalk.Moments(*(x.clone() for x in acc))
+  return None if acc is None else acc.clone()
+
+
+def state_equal(a, b):
+  if a is None:
+    return b is None
+  if isinstance(a, segwalk.Moments):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+  return torch.equal(a, b)
+
+
+def captured_compact_applies(step, state, cats, batch, n_sample=1 << 20):
+  """One real training step that also records its applies: each stream,
+  and before the in-place update a compact copy of the rows it touches
+  and a sample of ``n_sample`` rows it does not, of the table and of the
+  optimizer state (no table is cloned whole)."""
   calls = []
   apply = segwalk.segwalk_apply
 
-  def record(table, acc, ids, grads, lr, *, op, eps=1e-7, g_index=None):
+  def record(table, acc, ids, grads, lr, *, op, eps=1e-7, g_index=None,
+             betas=segwalk.BETAS):
     rows = table.shape[0]
     touched = torch.unique(ids[(ids >= 0) & (ids < rows)])
     gen = torch.Generator(device=table.device).manual_seed(0)
     sample = torch.randint(0, rows, (n_sample,), device=table.device,
                            generator=gen, dtype=torch.int64)
     sample = sample[~torch.isin(sample, touched.long())]
-    calls.append({'table': table, 'ids': ids, 'grads': grads,
+    calls.append({'table': table, 'acc': acc, 'ids': ids, 'grads': grads,
                   'g_index': g_index, 'lr': lr, 'eps': eps, 'op': op,
-                  'touched': touched, 'compact': table[touched.long()],
-                  'sample': sample, 'before': table[sample]})
+                  'betas': betas, 'touched': touched,
+                  'compact': table[touched.long()],
+                  'compact_acc': state_rows(acc, touched.long()),
+                  'sample': sample, 'before': table[sample],
+                  'before_acc': state_rows(acc, sample)})
     return apply(table, acc, ids, grads, lr, op=op, eps=eps,
-                 g_index=g_index)
+                 g_index=g_index, betas=betas)
 
   segwalk.segwalk_apply = record
   try:
@@ -938,6 +984,152 @@ def captured_dlrm_apply(step, state, cats, batch, n_sample=1 << 20):
   return state, loss, calls
 
 
+def compact_applies(call, op, grads):
+  """The kernel and the plain version on compact copies of the rows the
+  captured stream touches (its ids remapped in order: the same sorted
+  stream, the same summation order): ``[(table, state)] * 2``."""
+  ids, touched, rows = call['ids'], call['touched'], call['table'].shape[0]
+  u = touched.shape[0]
+  valid = (ids >= 0) & (ids < rows)
+  cids = torch.where(valid, torch.searchsorted(touched, ids).to(torch.int32),
+                     torch.full_like(ids, u))
+  csegs = segwalk.sort_stream(cids, u, call['g_index'])
+  acc = None if op == 'sgd' else call['compact_acc']
+  out = []
+  for fn in (segwalk.apply_segments, segwalk.apply_segments_reference):
+    t, a = call['compact'].clone(), state_clone(acc)
+    fn(t, a, csegs, grads, call['lr'], op=op, eps=call['eps'],
+       betas=call['betas'])
+    out.append((t, a))
+  torch.cuda.synchronize()
+  return out
+
+
+def timed_steps(tag, step, state, batches, want, n_steps=TRAIN_STEPS):
+  """One warm-up step on ``batches[0]``, then ``n_steps`` timed ones on
+  the next batches, the launch counts set to 0 just before them and
+  read just after: every loss finite, the launches (kernels and arms) as
+  ``want``, the peak device memory below the card's.  Returns ``(state,
+  launches, times, peak)``."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state, loss = step(state, *batches[0])
+  torch.cuda.synchronize()
+  log(f'[{tag}] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms, '
+      f'loss {float(loss):.6f}')
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  segwalk.ARM_LAUNCHES.clear()
+  times, losses = [], []
+  for batch in batches[1:n_steps + 1]:
+    t0 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'segwalk_apply': segwalk.LAUNCHES,
+              **{f'segwalk_apply:{arm}': n
+                 for arm, n in sorted(segwalk.ARM_LAUNCHES.items())}}
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'{tag}: losses not finite: {losses}')
+  if launches != want:
+    raise AssertionError(f'{tag}: launched {launches}, expected {want}')
+  peak = torch.cuda.max_memory_allocated()
+  total = torch.cuda.get_device_properties(0).total_memory
+  if peak >= total:
+    raise AssertionError(f'{tag}: peak {peak} B above the card\'s {total} B')
+  med = statistics.median(times)
+  log(f'[{tag}] batch {BATCH}: {n_steps} steps, ms '
+      f'{[round(t, 3) for t in times]} (host clock, synchronised), median '
+      f'{med:.3f} = {BATCH / med * 1e3:,.0f} samples/s; losses '
+      f'{[round(x, 6) for x in losses]}')
+  log(f'[{tag}] launches {json.dumps(launches)}; peak device memory '
+      f'{peak / 2**30:.3f} GiB of the card\'s {total / 2**30:.3f} GiB')
+  return state, launches, times, peak
+
+
+def check_compact(call, op, grads, label, stepped=None):
+  """The kernel against its plain version on compact copies of one
+  captured stream's touched rows (``compact_applies``): sgd bit-exact;
+  the Adagrad ops rtol = atol = 1e-6 on table and accumulator; adam its
+  step counts exact, its moments bit-exact (no pow in them) and its table
+  rtol = atol = 1e-6.  With ``stepped`` (the rows and state the real
+  step wrote), the kernel's equal them bit for bit.  Returns the max abs
+  error and the tolerance."""
+  (kt, ka), (pt, pa) = compact_applies(call, op, grads)
+  err = float((kt.float() - pt.float()).abs().max())
+  if op == 'sgd':
+    ok, tol = torch.equal(kt, pt), 'bit-exact'
+  elif op == 'adam':
+    err = max(err, float((ka.m - pa.m).abs().max()),
+              float((ka.v - pa.v).abs().max()))
+    ok = (torch.equal(ka.t, pa.t) and torch.equal(ka.m, pa.m)
+          and torch.equal(ka.v, pa.v)
+          and torch.allclose(kt.float(), pt.float(), rtol=1e-6, atol=1e-6))
+    tol = 't, m, v bit-exact; table rtol=atol=1e-6 (powf)'
+  else:
+    err = max(err, float((ka.float() - pa.float()).abs().max()))
+    ok = (torch.allclose(kt.float(), pt.float(), rtol=1e-6, atol=1e-6)
+          and torch.allclose(ka.float(), pa.float(), rtol=1e-6, atol=1e-6))
+    tol = 'rtol=atol=1e-6 (rsqrt)'
+  if not ok:
+    raise AssertionError(f'{label} {op}: kernel disagrees with the plain '
+                         f'version, max abs err {err} ({tol})')
+  if stepped is not None and not (torch.equal(kt, stepped[0])
+                                  and state_equal(ka, stepped[1])):
+    raise AssertionError(f'{label} {op}: the kernel on the compact copy '
+                         'differs from what the step wrote')
+  return err, tol
+
+
+def check_untouched(call, label):
+  """The sampled rows the captured stream does not name: the table's and
+  the state's unchanged by the step."""
+  table, acc, sample = call['table'], call['acc'], call['sample']
+  if not (torch.equal(table[sample], call['before'])
+          and state_equal(state_rows(acc, sample), call['before_acc'])):
+    raise AssertionError(f'{label}: the step changed rows outside its '
+                         'stream')
+
+
+def plain_ms_of(fn) -> float:
+  """CUDA-event time of one call of the plain version."""
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end)
+
+
+def stream_row(call, op, grads, acc, label, err, tol, kernel_ms, plain_ms,
+               library_ms, **extra):
+  """One summary row of an apply on a captured stream, with its bound."""
+  table = call['table']
+  segs = segwalk.sort_stream(call['ids'], table.shape[0], call['g_index'])
+  nbytes, bound_ms, bound_by = segwalk_bound(segs, grads, table, acc, op)
+  n = segs.sorted_ids.shape[0]
+  row = {
+      'stream': label, 'op': op,
+      'dtype': str(table.dtype).replace('torch.', ''),
+      'stream_dtype': str(grads.dtype).replace('torch.', ''),
+      'acc_dtype': (None if acc is None else 'float32' if isinstance(
+          acc, segwalk.Moments) else str(acc.dtype).replace('torch.', '')),
+      'rows': table.shape[0], 'w': table.shape[1], 'positions': n,
+      'valid_positions': int((segs.ends - segs.starts).sum()),
+      'compact_grad_rows': grads.shape[0], 'segments': segs.count,
+      'longest_segment': segs.longest(), 'chunk': segwalk.CHUNK,
+      'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
+      'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
+      'plain_ms': plain_ms, 'library_ms': library_ms, 'bound_ms': bound_ms,
+      'bound_by': bound_by,
+      'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9, **extra}
+  return row, segs
+
+
 def check_dlrm_segwalk(call):
   """The captured sgd stream: the kernel against its plain version on a
   compact copy of the touched rows (ids remapped in order, so the sorted
@@ -945,64 +1137,31 @@ def check_dlrm_segwalk(call):
   step wrote into the real table (bit-exact); the sampled untouched rows
   unchanged.  Kernel, plain and ``Tensor.index_add_`` timed on the real
   table at lr 0, which leaves it bitwise as it is (checked)."""
-  table, ids, grads, lr = call['table'], call['ids'], call['grads'], \
-      call['lr']
-  touched, g_index = call['touched'], call['g_index']
+  table, grads, touched = call['table'], call['grads'], call['touched']
   rows, w = table.shape
+  label = f'w{w}_rows{rows}'
   if call['op'] != 'sgd':
     raise AssertionError(f'the DLRM step applies sgd, captured {call["op"]}')
-  if not torch.equal(table[call['sample']], call['before']):
-    raise AssertionError('dlrm: the step changed rows outside its stream')
+  check_untouched(call, 'dlrm')
   stepped = table[touched.long()]
-  u = touched.shape[0]
-  valid = (ids >= 0) & (ids < rows)
-  cids = torch.where(valid, torch.searchsorted(touched, ids).to(torch.int32),
-                     torch.full_like(ids, u))
-  csegs = segwalk.sort_stream(cids, u, g_index)
-  kt, pt = call['compact'].clone(), call['compact'].clone()
-  segwalk.apply_segments(kt, None, csegs, grads, lr, op='sgd')
-  segwalk.apply_segments_reference(pt, None, csegs, grads, lr, op='sgd')
-  torch.cuda.synchronize()
-  err = float((kt.float() - pt.float()).abs().max())
-  if not (torch.equal(kt, pt) and torch.equal(stepped, pt)):
-    raise AssertionError(f'dlrm sgd: kernel, plain version and the step '
-                         f'disagree, max abs err {err} (bit-exact)')
-  del kt, pt
-  segs = segwalk.sort_stream(ids, rows, g_index)
-  kernel = lambda: segwalk.apply_segments(table, None, segs, grads, 0.0,
-                                          op='sgd')
-  kernel_ms = device_ms(kernel, 10)
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  segwalk.apply_segments_reference(table, None, segs, grads, 0.0, op='sgd')
-  end.record()
-  end.synchronize()
-  plain_ms = start.elapsed_time(end)
+  err, tol = check_compact(call, 'sgd', grads, 'dlrm', (stepped, None))
+  segs = segwalk.sort_stream(call['ids'], rows, call['g_index'])
+  kernel_ms = device_ms(lambda: segwalk.apply_segments(
+      table, None, segs, grads, 0.0, op='sgd'), 10)
+  plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+      table, None, segs, grads, 0.0, op='sgd'))
   lo, hi = int(segs.starts[0]), int(segs.ends[-1])
   lib_ids = segs.sorted_ids[lo:hi].long()
   lib_g = grads[segs.gidx[lo:hi].long()].to(table.dtype)
   library_ms = device_ms(lambda: table.index_add_(0, lib_ids, lib_g,
                                                   alpha=-0.0), 10)
   del lib_ids, lib_g
-  if not (torch.equal(table[touched.long()], stepped)
-          and torch.equal(table[call['sample']], call['before'])):
+  if not torch.equal(table[touched.long()], stepped):
     raise AssertionError('dlrm: an apply at lr 0 changed the table')
-  n, m = ids.shape[0], grads.shape[0]
-  nbytes, bound_ms, bound_by = segwalk_bound(segs, m, table, None, 'sgd')
-  row = {
-      'stream': f'w{w}_rows{rows}', 'op': 'sgd',
-      'dtype': str(table.dtype).replace('torch.', ''), 'rows': rows, 'w': w,
-      'positions': n, 'valid_positions': int((segs.ends - segs.starts).sum()),
-      'compact_grad_rows': m, 'segments': u,
-      'longest_segment': segs.longest(), 'chunk': segwalk.CHUNK,
-      'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
-      'max_abs_err': err, 'tolerance': 'bit-exact',
-      'kernel_ms': kernel_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-      'bound_ms': bound_ms, 'bound_by': bound_by,
-      'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
-      'untouched_rows_sampled': int(call['sample'].shape[0]),
-  }
+  check_untouched(call, 'dlrm')
+  row, _ = stream_row(call, 'sgd', grads, None, label, err, tol, kernel_ms,
+                      plain_ms, library_ms,
+                      untouched_rows_sampled=int(call['sample'].shape[0]))
   log('[dlrm-segwalk] ' + json.dumps(row))
   torch.cuda.empty_cache()
   return row
@@ -1029,8 +1188,8 @@ def run_dlrm(seed, tiny_k, tiny_seg):
                           f'dlrm_w128_h1_ncap{routed.shape[0]}_bf16')
   del table, routed
   step, state, launches, step_ms = phase_dlrm_train(model, batches[1:])
-  state, loss, calls = captured_dlrm_apply(step, state,
-                                           *batches[TRAIN_STEPS + 2])
+  state, loss, calls = captured_compact_applies(step, state,
+                                                *batches[TRAIN_STEPS + 2])
   if not bool(torch.isfinite(loss)) or len(calls) != 1:
     raise AssertionError(f'capture step: loss {float(loss)}, '
                          f'{len(calls)} applies')
@@ -1129,14 +1288,10 @@ def check_dense_grad(call, label):
     return out
 
   kt = kernel()
-  start = torch.cuda.Event(enable_timing=True)
-  end = torch.cuda.Event(enable_timing=True)
-  start.record()
   pt = torch.zeros((vocab, w), dtype=dtype, device=dev)
-  segwalk.apply_segments_reference(pt, None, segs, rows, 0.0, op='add')
-  end.record()
-  end.synchronize()
-  plain_ms = start.elapsed_time(end)
+  # the plain version's zero-fill is timed with it, as the kernel's is
+  plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+      pt.zero_(), None, segs, rows, 0.0, op='add'))
   same, err = compare_tables(kt, pt)
   if not same:
     raise AssertionError(f'{label}: the backward kernel disagrees with the '
@@ -1196,42 +1351,9 @@ def phase_dense(tag, step, state, batches, per_step):
   peak memory below the card's), then one captured step whose table
   gradient of every group ``check_dense_grad`` holds to the plain
   version, then phase 16's profile and host syncs of one more step."""
-  torch.cuda.synchronize()
-  torch.cuda.reset_peak_memory_stats()
-  t0 = time.perf_counter()
-  state, loss = step(state, *batches[0])
-  torch.cuda.synchronize()
-  log(f'[{tag}] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms, '
-      f'loss {float(loss):.6f}')
-  lookup.LAUNCHES = 0
-  segwalk.LAUNCHES = 0
-  times, losses = [], []
-  for batch in batches[1:TRAIN_STEPS + 1]:
-    t0 = time.perf_counter()
-    state, loss = step(state, *batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - t0) * 1e3)
-    losses.append(float(loss))
-  launches = {'lookup_combine': lookup.LAUNCHES,
-              'segwalk_apply': segwalk.LAUNCHES}
-  if not all(np.isfinite(losses)):
-    raise AssertionError(f'{tag}: losses not finite: {losses}')
-  want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
-  if launches != want:
-    raise AssertionError(f'{tag}: launched {launches}, expected {want}')
-  peak = torch.cuda.max_memory_allocated()
-  total = torch.cuda.get_device_properties(0).total_memory
-  if peak >= total:
-    raise AssertionError(f'{tag}: peak {peak} B above the card\'s {total} B')
-  med = statistics.median(times)
-  log(f'[{tag}] batch {BATCH}: {TRAIN_STEPS} dense steps, ms '
-      f'{[round(t, 3) for t in times]} (host clock, synchronised), median '
-      f'{med:.3f} = {BATCH / med * 1e3:,.0f} samples/s; losses '
-      f'{[round(x, 6) for x in losses]}')
-  log(f'[{tag}] launches {json.dumps(launches)} = {TRAIN_STEPS} steps x '
-      f'{json.dumps(per_step)} (every forward lookup on lookup_combine, '
-      f'every backward on segwalk_apply \'add\'); peak device memory '
-      f'{peak / 2**30:.3f} GiB of the card\'s {total / 2**30:.3f} GiB')
+  state, launches, times, peak = timed_steps(
+      tag, step, state, batches,
+      {k: TRAIN_STEPS * v for k, v in per_step.items()})
   state, loss, calls = captured_backward(step, state,
                                          *batches[TRAIN_STEPS + 1])
   if not bool(torch.isfinite(loss)) or len(calls) != per_step['segwalk_apply']:
@@ -1351,6 +1473,256 @@ def run_dense_dlrm(seed):
   return k, seg
 
 
+def phase_tiny_adam(model, config, seed):
+  """Lazy Adam on the tiny model already built: ``SparseAdam(0.001)`` on
+  the tables (the segment walk's 'adam' op) and Adagrad on the MLP; one
+  warm-up step and 3 timed steps; a sample of rows no step named keeps
+  its weights bitwise and zero moments and count; then one more step's
+  streams, the kernel against its plain version on compact copies of
+  the touched rows and against what the step wrote."""
+  dist = model.dist_embedding
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  dense_opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+  emb_opt = sparse.SparseAdam(0.001)
+  state = sparse.init_hybrid_train_state(
+      dist, {'embedding': model.embedding_params, **model.dense_params()},
+      dense_opt, emb_opt)
+  step = sparse.make_hybrid_train_step(dist, tiny_head_loss(model),
+                                       dense_opt, emb_opt)
+  batches = train_batches(config, model.hotness, seed + 5, ADAM_STEPS + 2)
+  # a sample of each group's rows, and every id the steps name
+  gen = torch.Generator(device='cuda').manual_seed(seed)
+  samples = {k: torch.randint(0, t.shape[0], (1 << 20,), device='cuda',
+                              generator=gen)
+             for k, t in model.embedding_params.items()}
+  before = {k: model.embedding_params[k][x] for k, x in samples.items()}
+  named = collections.defaultdict(list)
+  apply = segwalk.segwalk_apply
+
+  def record(table, acc, ids, *args, **kwargs):
+    key = next(k for k, t in model.embedding_params.items() if t is table)
+    named[key].append(ids)  # kept, not reduced: no host sync in the step
+    return apply(table, acc, ids, *args, **kwargs)
+
+  segwalk.segwalk_apply = record
+  try:
+    per_step = {'lookup_combine': n_subs, 'segwalk_apply': n_groups,
+                'segwalk_apply:adam': n_groups}
+    state, launches, times, peak = timed_steps(
+        'tiny-adam', step, state, batches[:ADAM_STEPS + 1],
+        {k: v * ADAM_STEPS for k, v in per_step.items()}, n_steps=ADAM_STEPS)
+  finally:
+    segwalk.segwalk_apply = apply
+  opt_state = state.opt_state[1]
+  cold_rows = 0
+  for k, x in samples.items():
+    cold = ~torch.isin(x, torch.cat(named[k]).long())
+    st = opt_state[k]
+    ok = (torch.equal(model.embedding_params[k][x[cold]], before[k][cold])
+          and not st['m'][x[cold]].any() and not st['v'][x[cold]].any()
+          and not st['t'][x[cold]].any()
+          and bool((st['t'][x[~cold]] > 0).all()))
+    if not ok:
+      raise AssertionError(f'tiny-adam {k}: not lazy on the sampled rows')
+    cold_rows += int(cold.sum())
+  log(f'[tiny-adam] lazy: {cold_rows} sampled rows no step named kept '
+      'their weights bitwise and m = v = t = 0; the named ones have t > 0')
+  state, loss, calls = captured_compact_applies(step, state, *batches[-1])
+  if not bool(torch.isfinite(loss)) or len(calls) != n_groups:
+    raise AssertionError(f'tiny-adam capture step: loss {float(loss)}, '
+                         f'{len(calls)} applies')
+  rows = []
+  for call in calls:
+    table, grads = call['table'], call['grads']
+    label = f'adam_w{table.shape[1]}_rows{table.shape[0]}'
+    check_untouched(call, label)
+    touched = call['touched'].long()
+    err, tol = check_compact(call, 'adam', grads, label, stepped=(
+        table[touched], state_rows(call['acc'], touched)))
+    segs = segwalk.sort_stream(call['ids'], table.shape[0], call['g_index'])
+    # timed on the real state (it is not used after this phase)
+    kernel_ms = device_ms(lambda: segwalk.apply_segments(
+        table, call['acc'], segs, grads, call['lr'], op='adam',
+        eps=call['eps'], betas=call['betas']), 10)
+    plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        table, call['acc'], segs, grads, call['lr'], op='adam',
+        eps=call['eps'], betas=call['betas']))
+    row, _ = stream_row(call, 'adam', grads, call['acc'], label, err, tol,
+                        kernel_ms, plain_ms, None)
+    log('[tiny-adam] ' + json.dumps(row))
+    rows.append(row)
+  del calls
+  torch.cuda.empty_cache()
+  log('[tiny-adam] no PyTorch call computes lazy Adam with a per-row step '
+      'count (library null)')
+  return launches, rows, times
+
+
+def run_small(seed, lookup_k, seg_k):
+  """Synthetic Small V3 at full size in bf16 (tables and compute),
+  ``dp_input=True``, tables drawn on the card: 3 forwards checked
+  against a plain reference, the lookup kernel on their ids; then the
+  JAX bench's jumbo-scale optimizer configuration
+  (``SparseAdagrad(0.01, stream_dtype='bfloat16', accum_dtype=
+  'bfloat16')`` on the segment walk, ``optim.adagrad(0.01, 0.1, 1e-7)``
+  on the bf16 MLP): one warm-up step, 5 timed steps through the bf16
+  arms, a profile and the host syncs; then one more step's streams, the
+  kernel against its plain version on compact copies (adagrad_dedup on
+  both bf16 arms, sgd on the bf16 stream) with the times of each arm,
+  of the f32 arms on the same stream and of ``index_add_``.  Returns the
+  summary entries of the two arms, and adds a ``small`` entry to the
+  lookup's and the segment walk's (``lookup_k``, ``seg_k``)."""
+  config = SYNTHETIC_MODELS['small']
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  model = SyntheticModel(config, dp_input=True, param_dtype=torch.bfloat16,
+                         compute_dtype=torch.bfloat16,
+                         device='cuda').init(seed)
+  torch.cuda.synchronize()
+  dist = model.dist_embedding
+  tables, _, _ = expand_tables(config)
+  log(f'[small] {config.name}: {len(tables)} tables, {dist.num_inputs} '
+      f'inputs, {sum(t.input_dim for t in tables):,} rows, bf16: '
+      f'{model.total_table_gib():.3f} GiB, drawn on the card in '
+      f'{time.perf_counter() - t0:.2f} s (peak '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); groups '
+      f'{[(g.width, g.rows_cap) for g in dist.plan.groups]} (width, '
+      f'rows); MLP {model.mlp.dims}')
+  t0 = time.perf_counter()
+  batches = train_batches(config, model.hotness, seed + 6,
+                          TRAIN_STEPS + 5)
+  log(f'[small] {len(batches)} batches of {BATCH} drawn on the host in '
+      f'{time.perf_counter() - t0:.2f} s (alpha 1.05)')
+  cats, (numerical, _) = batches[0]
+  lk_rows, _ = phase_kernels(model, numerical, cats, bf16_copy=False)
+  _, fwd_launches = phase_forward(model, numerical, cats, tag='small')
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  emb_opt = sparse.SparseAdagrad(LR, stream_dtype='bfloat16',
+                                 accum_dtype='bfloat16',
+                                 use_segwalk_apply=True)
+  step, state = build_trainer(model, emb_opt)
+  torch.cuda.synchronize()
+  log(f'[small-train] state: tables and bf16 accumulators, device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
+  per_step = {'lookup_combine': n_subs, 'segwalk_apply': n_groups,
+              'segwalk_apply:bf16_accumulator': n_groups,
+              'segwalk_apply:bf16_stream': n_groups}
+  state, launches, times, peak = timed_steps(
+      'small-train', step, state, batches[1:],
+      {k: v * TRAIN_STEPS for k, v in per_step.items()})
+  phase_train_profile(step, state, batches[TRAIN_STEPS + 2],
+                      tag='small-profile')
+  state, loss, calls = captured_compact_applies(step, state,
+                                                *batches[TRAIN_STEPS + 3])
+  if not bool(torch.isfinite(loss)) or len(calls) != n_groups:
+    raise AssertionError(f'small capture step: loss {float(loss)}, '
+                         f'{len(calls)} applies')
+  rows = phase_small_segwalk(calls)
+  path = [r for r in rows if r['op'] == 'adagrad_dedup']
+  sgd = [r for r in rows if r['op'] == 'sgd']
+  lookup_k['small'] = {
+      'launches': launches['lookup_combine'],
+      'launches_forward': fwd_launches['lookup_combine'],
+      'shapes': [{key: r[key] for key in ('shape', 'M', 'h', 'w', 'dtype',
+                                          'distinct_rows', 'kernel_ms',
+                                          'bound_ms', 'max_abs_err')}
+                 for r in lk_rows],
+      'table_rows': sum(t.input_dim for t in tables),
+      **{key: sum(r[key] for r in lk_rows)
+         for key in ('plain_ms', 'bound_ms', 'library_ms')},
+      'ms': sum(r['kernel_ms'] for r in lk_rows),
+      'max_abs_err': max(r['max_abs_err'] for r in lk_rows),
+  }
+  seg_k['small'] = {'launches': launches['segwalk_apply'],
+                    'step_ms': times, 'peak_gib': peak / 2**30}
+  stream_arm = summed(ARMS[0], launches['segwalk_apply:bf16_stream'], sgd, {
+      'f32_stream_ms': sum(r['f32_stream_ms'] for r in sgd),
+      'note': 'ms, plain_ms, bound_ms, library_ms: sgd on the bf16 stream; '
+              'the path runs this arm inside its adagrad_dedup applies '
+              '(the bf16_accumulator entry times them)'})
+  acc_arm = summed(ARMS[1], launches['segwalk_apply:bf16_accumulator'],
+                   path, {
+                       'f32_arms_ms': sum(r['f32_arms_ms'] for r in path),
+                       'f32_arms_bound_ms': sum(r['f32_arms_bound_ms']
+                                                for r in path),
+                       'step_ms': times, 'peak_gib': peak / 2**30})
+  return stream_arm, acc_arm
+
+
+def phase_small_segwalk(calls):
+  """Each captured stream of Small V3: adagrad_dedup on both bf16 arms
+  (the path's op) and sgd on the bf16 stream, kernel against plain on
+  compact copies, the former also against what the step wrote; sampled
+  untouched rows unchanged.  Timed on the real tables at lr 0 (which
+  leaves the tables as they are; the timed Adagrad applies add to the
+  accumulators, which nothing reads after this phase): each arm and, in
+  turns with it, the f32 stream and f32 accumulator on the same stream
+  (their accumulator a converted copy); ``index_add_`` of the bf16
+  rows."""
+  rows = []
+  for call in calls:
+    table, acc, grads = call['table'], call['acc'], call['grads']
+    label = f'small_w{table.shape[1]}_rows{table.shape[0]}'
+    if (call['op'], grads.dtype, acc.dtype) != (
+        'adagrad_dedup', torch.bfloat16, torch.bfloat16):
+      raise AssertionError(f'{label}: the path applies adagrad_dedup on a '
+                           f'bf16 stream and accumulator, captured '
+                           f'{call["op"]} {grads.dtype} {acc.dtype}')
+    check_untouched(call, label)
+    touched = call['touched'].long()
+    err, tol = check_compact(call, 'adagrad_dedup', grads, label,
+                             stepped=(table[touched], acc[touched]))
+    sgd_err, sgd_tol = check_compact(call, 'sgd', grads, label)
+    segs = segwalk.sort_stream(call['ids'], table.shape[0], call['g_index'])
+    apply = lambda a, g, op: lambda: segwalk.apply_segments(
+        table, a, segs, g, 0.0, op=op, eps=call['eps'])
+    kept = table[touched]
+    acc32, grads32 = acc.float(), grads.float()
+    runs = {('adagrad_dedup', 'bf16'): apply(acc, grads, 'adagrad_dedup'),
+            ('adagrad_dedup', 'f32'): apply(acc32, grads32, 'adagrad_dedup'),
+            ('sgd', 'bf16'): apply(None, grads, 'sgd'),
+            ('sgd', 'f32'): apply(None, grads32, 'sgd')}
+    # the bf16 arms and the f32 arms on the same stream in turns (bf16,
+    # f32, f32, bf16), so that neither gains from its place in the order
+    turns = collections.defaultdict(list)
+    for arms in ('bf16', 'f32', 'f32', 'bf16'):
+      for op in ('adagrad_dedup', 'sgd'):
+        turns[op, arms].append(device_ms(runs[op, arms], 10))
+    mean = lambda op, arms: statistics.mean(turns[op, arms])
+    plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        table, acc, segs, grads, 0.0, op='adagrad_dedup', eps=call['eps']))
+    sgd_plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        table, None, segs, grads, 0.0, op='sgd'))
+    lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+    lib_ids = segs.sorted_ids[lo:hi].long()
+    lib_g = grads[segs.gidx[lo:hi].long()]
+    library_ms = device_ms(lambda: table.index_add_(0, lib_ids, lib_g,
+                                                    alpha=-0.0), 10)
+    del lib_ids, lib_g, runs
+    f32_bytes, f32_bound_ms, _ = segwalk_bound(segs, grads32, table, acc32,
+                                               'adagrad_dedup')
+    del acc32, grads32
+    if not torch.equal(table[touched], kept):
+      raise AssertionError(f'{label}: an apply at lr 0 changed the table')
+    row, _ = stream_row(
+        call, 'adagrad_dedup', grads, acc, label, err, tol,
+        mean('adagrad_dedup', 'bf16'), plain_ms, None,
+        f32_arms_ms=mean('adagrad_dedup', 'f32'), f32_arms_bytes=f32_bytes,
+        f32_arms_bound_ms=f32_bound_ms,
+        turns_ms={a: turns['adagrad_dedup', a] for a in ('bf16', 'f32')})
+    sgd_row, _ = stream_row(
+        call, 'sgd', grads, None, label, sgd_err, sgd_tol, mean('sgd', 'bf16'),
+        sgd_plain_ms, library_ms, f32_stream_ms=mean('sgd', 'f32'),
+        turns_ms={a: turns['sgd', a] for a in ('bf16', 'f32')})
+    for r in (row, sgd_row):
+      log('[small-segwalk] ' + json.dumps(r))
+    rows += [row, sgd_row]
+    torch.cuda.empty_cache()
+  return rows
+
+
 def run_tiny(args):
   """Phases 3-9 on the synthetic tiny model; returns the two kernels'
   summaries.  Everything the model holds on the card is freed on
@@ -1380,6 +1752,10 @@ def run_tiny(args):
   del calls
   torch.cuda.empty_cache()
   phase_train_profile(step, state, profile_batch)
+  del step, state
+  torch.cuda.empty_cache()
+  adam_launches, adam_rows, adam_times = phase_tiny_adam(model, config,
+                                                         args.seed)
 
   k = dict(KERNELS[0])
   k.update({
@@ -1417,7 +1793,33 @@ def run_tiny(args):
       'chunk': segwalk.CHUNK,
       'chunks': {r['stream']: r['chunks'] for r in path},
   })
-  return k, seg
+  adam = summed(ARMS[2], adam_launches['segwalk_apply:adam'], adam_rows,
+                {'step_ms': adam_times})
+  return k, seg, adam
+
+
+def summed(kernel, launches, rows, extra=None):
+  """A summary entry: ``kernel``'s name and sources, the path's launch
+  count, and the times and bounds summed over ``rows`` (one a stream of
+  a step), with each stream's shape."""
+  entry = dict(kernel)
+  entry.update({
+      'launches': launches,
+      'max_abs_err': max(r['max_abs_err'] for r in rows),
+      'ms': sum(r['kernel_ms'] for r in rows),
+      'plain_ms': sum(r['plain_ms'] for r in rows),
+      'bound_ms': sum(r['bound_ms'] for r in rows),
+      'bound_by': ('bytes' if all(r['bound_by'] == 'bytes' for r in rows)
+                   else 'operations'),
+      'library_ms': (None if any(r['library_ms'] is None for r in rows)
+                     else sum(r['library_ms'] for r in rows)),
+      'streams': [{key: r[key] for key in (
+          'stream', 'op', 'dtype', 'stream_dtype', 'acc_dtype', 'rows', 'w',
+          'positions', 'segments', 'longest_segment', 'chunks', 'bytes',
+          'kernel_ms', 'bound_ms', 'tolerance')} for r in rows],
+  })
+  entry.update(extra or {})
+  return entry
 
 
 def main(argv=None) -> int:
@@ -1433,7 +1835,7 @@ def main(argv=None) -> int:
   t_start = time.perf_counter()
   phase_card()
   phase_build()
-  k, seg = run_tiny(args)
+  k, seg, adam = run_tiny(args)
   gc.collect()
   torch.cuda.empty_cache()
   log(f'[dlrm] after the tiny model: device memory '
@@ -1449,8 +1851,13 @@ def main(argv=None) -> int:
     dk, dseg = run()
     k.setdefault('dense', {})[tag] = dk
     seg.setdefault('dense', {})[tag] = dseg
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f'[small] before the model: device memory '
+      f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
+  arms = run_small(args.seed, k, seg)
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
-  log(json.dumps({'kernels': [k, seg]}))
+  log(json.dumps({'kernels': [k, seg, *arms, adam]}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

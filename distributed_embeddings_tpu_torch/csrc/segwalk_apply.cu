@@ -10,6 +10,19 @@
 //   adagrad_dedup:  a += S * S;       t -= lr * S * rsqrt(a + eps)
 //   adagrad_sq:     a += sum(g * g);  t -= lr * S * rsqrt(a + eps)
 //   add:            t += S
+//   adam:           k += 1;  m = b1 * m + (1 - b1) * S;
+//                   v = b2 * v + (1 - b2) * S * S;
+//                   t += -lr * (m / (1 - b1^k)) / (sqrt(v / (1 - b2^k)) + eps)
+//
+// `adam` is lazy Adam (the JAX package's SparseAdam, parallel/sparse.py
+// `row_updates`, an XLA apply there): only the rows the stream names
+// advance their moments m, v (f32, [rows, w]) and their step count k
+// (int32, [rows]).  Its update is rounded to the table's dtype BEFORE the
+// add, as `table.at[ids].add(delta.astype(table.dtype))` does there, so a
+// bf16 table rounds twice (the other ops round once).  The count of a row
+// is read by every thread that updates a column of it and written once,
+// after all of them have read it (pass 1: after the block's last column
+// tile; pass 2: after a __syncwarp).
 //
 // `add` (no learning rate, no accumulator) is the backward of the lookup
 // kernel: the wrapper zero-fills a table-shaped gradient and adds each
@@ -42,7 +55,26 @@
 // JAX package); rsqrt is 1 / sqrt with both correctly rounded
 // (__fsqrt_rn, __fdiv_rn), which the plain PyTorch version computes the
 // same way.  A bf16 table is read up to f32, updated in f32 and rounded
-// once, to nearest even, at the store.  The accumulator is f32.
+// once, to nearest even, at the store.  Adam's bias corrections take
+// powf(b, k) of the f32 count and its scalars come in as the JAX package
+// forms them (1 - b1 in double, then f32).
+//
+// Two arms of the TPU kernel, template parameters here (the TPU kernel's
+// pallas_segwalk.py:232-236 and :321-330):
+// - the gradient stream G may be bf16 (stream_dtype='bfloat16': the
+//   wrapper rounds each compact gradient row to bf16 once).  Its rows are
+//   read as bf16 and up-cast to f32 once per element when they are staged;
+//   sums and sums of squares stay f32 in the same chunk order, so they
+//   equal the f32 stream's on the rounded rows, bit for bit.
+// - the Adagrad accumulator A may be bf16 (accum_dtype='bfloat16'): read
+//   up to f32, S*S (or the summed squares) added in f32, the scale taken
+//   from that UNROUNDED f32 value, and the value rounded once, to nearest
+//   even, at the store (sparse.py `row_updates` of the JAX package: "the
+//   update this step uses the EXACT f32 running value").  This kernel
+//   serves it on an f32 table too (the JAX Pallas kernel serves it only on
+//   a bf16 table and its XLA apply the rest, with this arithmetic).
+// Only the combinations that exist are compiled: a bf16 A with the Adagrad
+// ops, a bf16 G with sgd and the Adagrad ops.
 //
 // Design: two passes, no atomics, the same result on every run, and
 // grids sized from the stream length alone (the host reads nothing back).
@@ -75,17 +107,19 @@
 //
 // What bounds it: device-memory bytes.  The sorted ids and indices are
 // read coalesced; the gradient rows are gathered in 32 B or 64 B sectors
-// (w8, w16 f32); each distinct row of the table (and accumulator) is read
+// (w8, w16 f32; half as many bytes for a bf16 stream); each distinct row
+// of the table (and accumulator, or Adam's two moments and count) is read
 // and written once, at random (64 B rows of the 4.5 GB w16 table); a
 // handful of flops per element.  The TPU kernel's lane packing, pair
 // fetch, SMEM sideband and DMA parity protocol fed the TPU's 512 B bursts
 // and (8, 128) tiles; on Hopper a 32 B sector is the unit of a random
 // read, so rows stay in natural [rows, w] layout.
 //
-// Plain C interface, loaded with ctypes.  Both launches go on the stream
-// the caller passes (PyTorch's current stream); the function does not
-// synchronise, allocates nothing (the wrapper allocates the partials),
-// and returns the cudaError_t of the launches.
+// Plain C interface, loaded with ctypes, one entry point; the dtypes come
+// as flags.  Both launches go on the stream the caller passes (PyTorch's
+// current stream); the function does not synchronise, allocates nothing
+// (the wrapper allocates the partials), and returns the cudaError_t of
+// the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +127,8 @@
 #include <cstdint>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
@@ -102,22 +138,26 @@ constexpr int kSgd = 0;
 constexpr int kAdagradDedup = 1;
 constexpr int kAdagradSq = 2;
 constexpr int kAdd = 3;
+constexpr int kAdam = 4;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
+template <typename X>
+constexpr bool is_bf16() {
+  return sizeof(X) == 2;
 }
 
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The (stream, accumulator, op) combinations that exist.
+template <typename G, typename A, int OP>
+constexpr bool supported() {
+  const bool adagrad = OP == kAdagradDedup || OP == kAdagradSq;
+  return (!is_bf16<A>() || adagrad) && (!is_bf16<G>() || adagrad ||
+                                         OP == kSgd);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename X>
+__device__ __forceinline__ X from_f32(float x);
 
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
@@ -125,27 +165,53 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 }
 
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T v[V];
+template <typename X, int V>
+struct alignas(sizeof(X) * V) Vec {
+  X v[V];
 };
 
-template <int V>
-__device__ __forceinline__ Vec<float, V> load_f32(const float* p) {
-  return *reinterpret_cast<const Vec<float, V>*>(p);
+// V elements of type X at p, up-cast to f32.
+template <int V, typename X>
+__device__ __forceinline__ Vec<float, V> load_f32(const X* p) {
+  const Vec<X, V> x = *reinterpret_cast<const Vec<X, V>*>(p);
+  Vec<float, V> y;
+#pragma unroll
+  for (int k = 0; k < V; ++k) y.v[k] = to_f32(x.v[k]);
+  return y;
 }
 
-template <int V>
-__device__ __forceinline__ void store_f32(float* p, const float (&x)[V]) {
-  Vec<float, V> v;
+// V f32 values stored at p as type X, each rounded once to nearest even.
+template <int V, typename X>
+__device__ __forceinline__ void store_as(X* p, const float (&x)[V]) {
+  Vec<X, V> v;
 #pragma unroll
-  for (int k = 0; k < V; ++k) v.v[k] = x[k];
-  *reinterpret_cast<Vec<float, V>*>(p) = v;
+  for (int k = 0; k < V; ++k) v.v[k] = from_f32<X>(x[k]);
+  *reinterpret_cast<Vec<X, V>*>(p) = v;
 }
+
+// The rows an apply updates in place: the table, the Adagrad accumulator
+// (or Adam's first moment m), Adam's second moment v and its per-row step
+// count (null where the op has none).
+template <typename T, typename A>
+struct Rows {
+  T* table;
+  A* acc;
+  float* acc2;
+  int32_t* count;
+};
+
+struct Hyper {
+  float lr;
+  float eps;
+  float b1;
+  float b2;
+  float omb1;  // 1 - b1, formed in double
+  float omb2;  // 1 - b2, formed in double
+};
 
 // sum += x (and sq += x * x for adagrad_sq), each op rounded on its own.
 template <int V, int OP>
@@ -172,50 +238,72 @@ __device__ __forceinline__ void merge(float (&sum)[V], float (&sq)[V],
   }
 }
 
-// The update of V columns of one row at element offset `off`.
-template <typename T, int V, int OP>
-__device__ __forceinline__ void apply_row(T* table, float* acc, int64_t off,
+// The update of V columns of one row at element offset `off`; `step` is
+// the row's Adam step count after this step (adam only).
+template <typename T, typename A, int V, int OP>
+__device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t off,
                                           const float (&sum)[V],
-                                          const float (&sq)[V], float lr,
-                                          float eps) {
-  Vec<T, V> t = *reinterpret_cast<const Vec<T, V>*>(table + off);
-  if (OP == kSgd) {
+                                          const float (&sq)[V],
+                                          const Hyper& h, float step) {
+  const Vec<float, V> t = load_f32<V>(r.table + off);
+  float out[V];
+  if constexpr (OP == kSgd) {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      t.v[k] = from_f32<T>(__fsub_rn(to_f32(t.v[k]), __fmul_rn(lr, sum[k])));
+      out[k] = __fsub_rn(t.v[k], __fmul_rn(h.lr, sum[k]));
     }
-  } else if (OP == kAdd) {
+  } else if constexpr (OP == kAdd) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[k] = __fadd_rn(t.v[k], sum[k]);
+  } else if constexpr (OP == kAdam) {
+    float m[V];
+    float v[V];
+    const Vec<float, V> m0 = load_f32<V>(r.acc + off);
+    const Vec<float, V> v0 = load_f32<V>(r.acc2 + off);
+    const float bc1 = __fsub_rn(1.0f, powf(h.b1, step));
+    const float bc2 = __fsub_rn(1.0f, powf(h.b2, step));
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      t.v[k] = from_f32<T>(__fadd_rn(to_f32(t.v[k]), sum[k]));
+      m[k] = __fadd_rn(__fmul_rn(h.b1, m0.v[k]), __fmul_rn(h.omb1, sum[k]));
+      v[k] = __fadd_rn(__fmul_rn(h.b2, v0.v[k]),
+                       __fmul_rn(__fmul_rn(h.omb2, sum[k]), sum[k]));
+      const float mhat = __fdiv_rn(m[k], bc1);
+      const float vhat = __fdiv_rn(v[k], bc2);
+      const float delta = __fdiv_rn(__fmul_rn(-h.lr, mhat),
+                                    __fadd_rn(__fsqrt_rn(vhat), h.eps));
+      // the update at the table's dtype, then the add
+      out[k] = __fadd_rn(t.v[k], to_f32(from_f32<T>(delta)));
     }
+    store_as<V>(r.acc + off, m);
+    store_as<V>(r.acc2 + off, v);
   } else {
-    Vec<float, V> a = load_f32<V>(acc + off);
+    const Vec<float, V> a0 = load_f32<V>(r.acc + off);
+    float a[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const float add =
           OP == kAdagradDedup ? __fmul_rn(sum[k], sum[k]) : sq[k];
-      a.v[k] = __fadd_rn(a.v[k], add);
-      const float scale = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(a.v[k], eps)));
-      t.v[k] = from_f32<T>(__fsub_rn(
-          to_f32(t.v[k]), __fmul_rn(__fmul_rn(lr, sum[k]), scale)));
+      // the scale from the unrounded f32 value; a bf16 A rounds at the store
+      a[k] = __fadd_rn(a0.v[k], add);
+      const float scale = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(a[k], h.eps)));
+      out[k] = __fsub_rn(t.v[k], __fmul_rn(__fmul_rn(h.lr, sum[k]), scale));
     }
-    *reinterpret_cast<Vec<float, V>*>(acc + off) = a;
+    store_as<V>(r.acc + off, a);
   }
-  *reinterpret_cast<Vec<T, V>*>(table + off) = t;
+  store_as<V>(r.table + off, out);
 }
 
 // Pass 1: block b folds the runs of chunk b.  Dynamic shared memory:
 // the staged gradient rows [chunk, min(w, kTile)] f32, then the chunk's
 // ids, gradient-row indices and run heads (chunk + 1), int32.
 // part: [chunks, 2, w] partial sums, then (adagrad_sq) as many squares.
-template <typename T, int V, int OP>
+template <typename T, typename G, typename A, int V, int OP>
 __global__ void __launch_bounds__(kBlock)
     chunk_pass(const int32_t* __restrict__ sid,
                const int32_t* __restrict__ gidx,
-               const float* __restrict__ grads, T* __restrict__ table,
-               float* __restrict__ acc, float* __restrict__ part, int64_t n,
-               int64_t rows, int w, int chunk, float lr, float eps) {
+               const G* __restrict__ grads, Rows<T, A> rows_out,
+               float* __restrict__ part, int64_t n, int64_t rows, int w,
+               int chunk, Hyper h) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = min(w, kTile);
   float* g_s = reinterpret_cast<float*>(smem);
@@ -268,7 +356,7 @@ __global__ void __launch_bounds__(kBlock)
     const int wt = min(kTile, w - c0);
     const int nv = wt / V;  // vectors of V columns per row in this tile
     const int items = len * nv;
-    // stage the tile's columns of the chunk's gradient rows
+    // stage the tile's columns of the chunk's gradient rows, up-cast to f32
     for (int i0 = t; i0 < items; i0 += kBlock * kUnroll) {
       Vec<float, V> x[kUnroll];
 #pragma unroll
@@ -317,25 +405,36 @@ __global__ void __launch_bounds__(kBlock)
         const int64_t off =
             (static_cast<int64_t>(blockIdx.x) * 2 + (crosses_left ? 0 : 1)) *
                 w + c;
-        store_f32<V>(part + off, sum);
-        if (OP == kAdagradSq) store_f32<V>(part + sq_part + off, sq);
+        store_as<V>(part + off, sum);
+        if (OP == kAdagradSq) store_as<V>(part + sq_part + off, sq);
       } else {
-        apply_row<T, V, OP>(table, acc, static_cast<int64_t>(id) * w + c, sum,
-                            sq, lr, eps);
+        const float step =
+            OP == kAdam ? static_cast<float>(rows_out.count[id] + 1) : 0.0f;
+        apply_row<T, A, V, OP>(rows_out, static_cast<int64_t>(id) * w + c,
+                               sum, sq, h, step);
       }
     }
     __syncthreads();
+  }
+  if constexpr (OP == kAdam) {
+    // every column of the rows applied here has read its count
+    for (int r = t; r < runs; r += kBlock) {
+      const int32_t id = sid_s[run_s[r]];
+      const bool crosses =
+          (r == 0 && head_crosses) || (r == runs - 1 && tail_crosses);
+      if (id >= 0 && id < rows && !crosses) rows_out.count[id] += 1;
+    }
   }
 }
 
 // Pass 2: warp k merges and applies the segment that begins in chunk k
 // and crosses its last boundary, if there is one.
-template <typename T, int V, int OP>
+template <typename T, typename A, int V, int OP>
 __global__ void __launch_bounds__(kBlock)
     merge_pass(const int32_t* __restrict__ sid,
-               const float* __restrict__ part, T* __restrict__ table,
-               float* __restrict__ acc, int64_t n, int64_t rows, int w,
-               int chunk, int64_t chunks, float lr, float eps) {
+               const float* __restrict__ part, Rows<T, A> rows_out,
+               int64_t n, int64_t rows, int w, int chunk, int64_t chunks,
+               Hyper h) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * kWarps +
                     (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -359,6 +458,7 @@ __global__ void __launch_bounds__(kBlock)
   }
   const int64_t last = lo / chunk;
   const int64_t sq_part = chunks * 2 * w;
+  const int32_t count = OP == kAdam ? rows_out.count[id] : 0;
   for (int c = lane * V; c < w; c += 32 * V) {
     float sum[V];
     float sq[V];
@@ -374,127 +474,187 @@ __global__ void __launch_bounds__(kBlock)
       const int64_t head = j * 2 * w + c;
       merge<V, OP>(sum, sq, part + head, part + sq_part + head);
     }
-    apply_row<T, V, OP>(table, acc, static_cast<int64_t>(id) * w + c, sum, sq,
-                        lr, eps);
+    apply_row<T, A, V, OP>(rows_out, static_cast<int64_t>(id) * w + c, sum,
+                           sq, h, static_cast<float>(count + 1));
+  }
+  if constexpr (OP == kAdam) {
+    __syncwarp();  // every lane has read the count
+    if (lane == 0) rows_out.count[id] = count + 1;
   }
 }
 
-template <typename T, int V, int OP>
-cudaError_t launch_op(const int32_t* sid, const int32_t* gidx,
-                      const float* grads, T* table, float* acc, float* part,
-                      int64_t n, int64_t rows, int w, int chunk, float lr,
-                      float eps, cudaStream_t stream) {
+template <typename T, typename G, typename A, int V, int OP>
+cudaError_t launch_op(const int32_t* sid, const int32_t* gidx, const G* grads,
+                      const Rows<T, A>& r, float* part, int64_t n,
+                      int64_t rows, int w, int chunk, const Hyper& h,
+                      cudaStream_t stream) {
   const int64_t chunks = (n + chunk - 1) / chunk;
   const size_t smem =
       static_cast<size_t>(chunk) * (w < kTile ? w : kTile) * sizeof(float) +
       (3 * static_cast<size_t>(chunk) + 1) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chunk_pass<T, V, OP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        chunk_pass<T, G, A, V, OP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  chunk_pass<T, V, OP><<<static_cast<unsigned>(chunks), kBlock, smem,
-                         stream>>>(sid, gidx, grads, table, acc, part, n,
-                                   rows, w, chunk, lr, eps);
+  chunk_pass<T, G, A, V, OP><<<static_cast<unsigned>(chunks), kBlock, smem,
+                               stream>>>(sid, gidx, grads, r, part, n, rows,
+                                         w, chunk, h);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks < 2) return err;
-  merge_pass<T, V, OP>
+  merge_pass<T, A, V, OP>
       <<<static_cast<unsigned>((chunks + kWarps - 1) / kWarps), kBlock, 0,
-         stream>>>(sid, part, table, acc, n, rows, w, chunk, chunks, lr,
-                   eps);
+         stream>>>(sid, part, r, n, rows, w, chunk, chunks, h);
   return cudaGetLastError();
 }
 
-template <typename T, int V>
-cudaError_t launch(const int32_t* sid, const int32_t* gidx,
-                   const float* grads, T* table, float* acc, float* part,
-                   int64_t n, int64_t rows, int w, int chunk, int op,
-                   float lr, float eps, cudaStream_t stream) {
+template <typename T, typename G, typename A, int V, int OP>
+cudaError_t launch_if(const int32_t* sid, const int32_t* gidx, const G* grads,
+                      const Rows<T, A>& r, float* part, int64_t n,
+                      int64_t rows, int w, int chunk, const Hyper& h,
+                      cudaStream_t stream) {
+  if constexpr (supported<G, A, OP>()) {
+    return launch_op<T, G, A, V, OP>(sid, gidx, grads, r, part, n, rows, w,
+                                     chunk, h, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename G, typename A, int V>
+cudaError_t launch(const int32_t* sid, const int32_t* gidx, const G* grads,
+                   const Rows<T, A>& r, float* part, int64_t n, int64_t rows,
+                   int w, int chunk, int op, const Hyper& h,
+                   cudaStream_t stream) {
   switch (op) {
     case kSgd:
-      return launch_op<T, V, kSgd>(sid, gidx, grads, table, acc, part, n,
-                                   rows, w, chunk, lr, eps, stream);
+      return launch_if<T, G, A, V, kSgd>(sid, gidx, grads, r, part, n, rows,
+                                         w, chunk, h, stream);
     case kAdagradDedup:
-      return launch_op<T, V, kAdagradDedup>(sid, gidx, grads, table, acc,
-                                            part, n, rows, w, chunk, lr, eps,
-                                            stream);
+      return launch_if<T, G, A, V, kAdagradDedup>(sid, gidx, grads, r, part,
+                                                  n, rows, w, chunk, h,
+                                                  stream);
     case kAdagradSq:
-      return launch_op<T, V, kAdagradSq>(sid, gidx, grads, table, acc, part,
-                                         n, rows, w, chunk, lr, eps, stream);
+      return launch_if<T, G, A, V, kAdagradSq>(sid, gidx, grads, r, part, n,
+                                               rows, w, chunk, h, stream);
     case kAdd:
-      return launch_op<T, V, kAdd>(sid, gidx, grads, table, acc, part, n,
-                                   rows, w, chunk, lr, eps, stream);
+      return launch_if<T, G, A, V, kAdd>(sid, gidx, grads, r, part, n, rows,
+                                         w, chunk, h, stream);
+    case kAdam:
+      return launch_if<T, G, A, V, kAdam>(sid, gidx, grads, r, part, n, rows,
+                                          w, chunk, h, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // Widest vector (4 elements at most: 16 B of f32) that divides the width
-// and matches the alignment of the table, accumulator, gradient rows and
-// partials.
-template <typename T>
-int vector_width(const void* table, const void* acc, const void* grads,
-                 const void* part, int w) {
+// and matches the alignment of every row operand at its own element size.
+template <typename T, typename G, typename A>
+int vector_width(const Rows<T, A>& r, const G* grads, const float* part,
+                 int w) {
   int v = 4;
   while (v > 1 &&
-         (w % v != 0 ||
-          reinterpret_cast<uintptr_t>(table) % (v * sizeof(T)) != 0 ||
-          reinterpret_cast<uintptr_t>(acc) % (v * sizeof(float)) != 0 ||
-          reinterpret_cast<uintptr_t>(grads) % (v * sizeof(float)) != 0 ||
-          reinterpret_cast<uintptr_t>(part) % (v * sizeof(float)) != 0)) {
+         (w % v != 0 || !aligned(r.table, v * sizeof(T)) ||
+          !aligned(r.acc, v * sizeof(A)) ||
+          !aligned(r.acc2, v * sizeof(float)) ||
+          !aligned(grads, v * sizeof(G)) ||
+          !aligned(part, v * sizeof(float)))) {
     v /= 2;
   }
   return v;
 }
 
-template <typename T>
-cudaError_t dispatch(const int32_t* sid, const int32_t* gidx,
-                     const float* grads, T* table, float* acc, float* part,
-                     int64_t n, int64_t rows, int w, int chunk, int op,
-                     float lr, float eps, cudaStream_t stream) {
-  switch (vector_width<T>(table, acc, grads, part, w)) {
+template <typename T, typename G, typename A>
+cudaError_t dispatch(const void* sid, const void* gidx, const void* grads,
+                     void* table, void* acc, void* acc2, void* count,
+                     void* part, int64_t n, int64_t rows, int w, int chunk,
+                     int op, const Hyper& h, cudaStream_t stream) {
+  const auto* i = static_cast<const int32_t*>(sid);
+  const auto* x = static_cast<const int32_t*>(gidx);
+  const auto* g = static_cast<const G*>(grads);
+  const Rows<T, A> r{static_cast<T*>(table), static_cast<A*>(acc),
+                     static_cast<float*>(acc2), static_cast<int32_t*>(count)};
+  auto* p = static_cast<float*>(part);
+  switch (vector_width<T, G, A>(r, g, p, w)) {
     case 4:
-      return launch<T, 4>(sid, gidx, grads, table, acc, part, n, rows, w,
-                          chunk, op, lr, eps, stream);
+      return launch<T, G, A, 4>(i, x, g, r, p, n, rows, w, chunk, op, h,
+                                stream);
     case 2:
-      return launch<T, 2>(sid, gidx, grads, table, acc, part, n, rows, w,
-                          chunk, op, lr, eps, stream);
+      return launch<T, G, A, 2>(i, x, g, r, p, n, rows, w, chunk, op, h,
+                                stream);
     default:
-      return launch<T, 1>(sid, gidx, grads, table, acc, part, n, rows, w,
-                          chunk, op, lr, eps, stream);
+      return launch<T, G, A, 1>(i, x, g, r, p, n, rows, w, chunk, op, h,
+                                stream);
   }
+}
+
+template <typename T, typename G>
+cudaError_t by_accumulator(int acc_bf16, const void* sid, const void* gidx,
+                           const void* grads, void* table, void* acc,
+                           void* acc2, void* count, void* part, int64_t n,
+                           int64_t rows, int w, int chunk, int op,
+                           const Hyper& h, cudaStream_t stream) {
+  return acc_bf16 ? dispatch<T, G, bf16>(sid, gidx, grads, table, acc, acc2,
+                                         count, part, n, rows, w, chunk, op,
+                                         h, stream)
+                  : dispatch<T, G, float>(sid, gidx, grads, table, acc, acc2,
+                                          count, part, n, rows, w, chunk, op,
+                                          h, stream);
+}
+
+template <typename T>
+cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
+                      const void* gidx, const void* grads, void* table,
+                      void* acc, void* acc2, void* count, void* part,
+                      int64_t n, int64_t rows, int w, int chunk, int op,
+                      const Hyper& h, cudaStream_t stream) {
+  return grads_bf16
+             ? by_accumulator<T, bf16>(acc_bf16, sid, gidx, grads, table,
+                                       acc, acc2, count, part, n, rows, w,
+                                       chunk, op, h, stream)
+             : by_accumulator<T, float>(acc_bf16, sid, gidx, grads, table,
+                                        acc, acc2, count, part, n, rows, w,
+                                        chunk, op, h, stream);
 }
 
 }  // namespace
 
 // sid: [n] int32 sorted row ids; gidx: [n] int32 gradient row of each
-// sorted position; grads: [m, w] f32; table: [rows, w] f32 (table_bf16 ==
-// 0) or bf16, updated in place; acc: [rows, w] f32, updated in place
-// (null for sgd and add); part: [ceil(n / chunk), 2, w] f32 scratch,
-// twice that for adagrad_sq.  op: 0 sgd, 1 adagrad_dedup, 2 adagrad_sq,
-// 3 add (lr unused).  All
-// contiguous, on the current device.  Launches pass 1, then (more than
-// one chunk) pass 2.  Returns the cudaError_t of the launches (0 on
-// success).
+// sorted position; grads: [m, w] f32 (grads_bf16 == 0) or bf16; table:
+// [rows, w] f32 (table_bf16 == 0) or bf16, updated in place; acc: [rows,
+// w], updated in place: the Adagrad accumulator, f32 (acc_bf16 == 0) or
+// bf16, or Adam's first moment (f32); acc2: Adam's second moment [rows, w]
+// f32; count: Adam's step counts [rows] int32 (acc for the Adagrad ops
+// and adam, acc2 and count for adam, null otherwise); part: [ceil(n /
+// chunk), 2, w] f32 scratch, twice that for adagrad_sq.  op: 0 sgd, 1
+// adagrad_dedup, 2 adagrad_sq, 3 add (lr unused), 4 adam (b1, b2 and 1 -
+// b1, 1 - b2 used by it alone).  All contiguous, on the current device.
+// Launches pass 1, then (more than one chunk) pass 2.  Returns the
+// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for a
+// combination of dtypes and op that does not exist).
 extern "C" int segwalk_apply(const void* sid, const void* gidx,
                              const void* grads, void* table, void* acc,
-                             void* part, long long n, long long rows, int w,
-                             int chunk, int table_bf16, int op, float lr,
-                             float eps, void* stream) {
+                             void* acc2, void* count, void* part,
+                             long long n, long long rows, int w, int chunk,
+                             int table_bf16, int grads_bf16, int acc_bf16,
+                             int op, float lr, float eps, float b1, float b2,
+                             float omb1, float omb2, void* stream) {
   if (n <= 0) return 0;
   if (chunk <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* i = static_cast<const int32_t*>(sid);
-  const auto* x = static_cast<const int32_t*>(gidx);
-  const auto* g = static_cast<const float*>(grads);
-  auto* a = static_cast<float*>(acc);
-  auto* p = static_cast<float*>(part);
+  const Hyper h{lr, eps, b1, b2, omb1, omb2};
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      table_bf16
-          ? dispatch(i, x, g, static_cast<__nv_bfloat16*>(table), a, p, n,
-                     rows, w, chunk, op, lr, eps, s)
-          : dispatch(i, x, g, static_cast<float*>(table), a, p, n, rows, w,
-                     chunk, op, lr, eps, s);
+  const cudaError_t err =
+      table_bf16 ? by_stream<bf16>(grads_bf16, acc_bf16, sid, gidx, grads,
+                                   table, acc, acc2, count, part, n, rows, w,
+                                   chunk, op, h, s)
+                 : by_stream<float>(grads_bf16, acc_bf16, sid, gidx, grads,
+                                    table, acc, acc2, count, part, n, rows, w,
+                                    chunk, op, h, s);
   return static_cast<int>(err);
 }

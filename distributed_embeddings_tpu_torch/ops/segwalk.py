@@ -4,14 +4,18 @@
 ``segwalk_apply`` applies one optimizer step from a per-occurrence
 update stream: the stream's ids are sorted (a stable torch sort), each
 valid id's run of gradient rows is summed, and that row of the table
-(and of the Adagrad accumulator) is updated once, IN PLACE.  Rows the
-stream does not name stay bitwise unchanged.  The semantics, per
-distinct row with gradient sum ``S``:
+(and of the optimizer state) is updated once, IN PLACE.  Rows the stream
+does not name stay bitwise unchanged.  The semantics, per distinct row
+with gradient sum ``S``:
 
 - ``'sgd'``:            ``t -= lr * S``
 - ``'adagrad_dedup'``:  ``a += S * S``;      ``t -= lr * S * rsqrt(a + eps)``
 - ``'adagrad_sq'``:     ``a += sum(g * g)``; ``t -= lr * S * rsqrt(a + eps)``
 - ``'add'``:            ``t += S`` (``lr`` unused)
+- ``'adam'``:           lazy Adam (``Moments``): ``k += 1``; ``m = b1 * m +
+  (1 - b1) * S``; ``v = b2 * v + (1 - b2) * S * S``; ``t += -lr * mhat /
+  (sqrt(vhat) + eps)`` with ``mhat = m / (1 - b1**k)``, ``vhat = v / (1 -
+  b2**k)``
 
 ``'add'`` carries the lookup's backward (``ops/lookup.py``
 ``LookupCombine``): into a zeroed table-shaped gradient it writes each
@@ -19,6 +23,29 @@ distinct row's summed cotangent rows, the counterpart of the JAX
 lookup's VJP ``_dl_bwd`` (an XLA ``segment_sum``).  It is ``'sgd'`` at
 ``lr = -1``, bit for bit (``-1 * S`` is exact, and ``t - (-S)`` rounds as
 ``t + S`` does), in the same summation order.
+
+``'adam'`` is the JAX package's ``SparseAdam`` (``parallel/sparse.py``
+``row_updates``, an XLA compaction there): only named rows advance their
+moments and their step count ``k``.  Its arithmetic is JAX's, op by op:
+``1 - b1`` formed in double and then rounded to f32, the bias
+corrections ``powf`` of the f32 count, and the update rounded to the
+table's dtype BEFORE the add (``table.at[ids].add(delta.astype(
+table.dtype))``), so on a bf16 table it rounds twice where the other ops
+round once.
+
+Two arms of the TPU kernel, chosen by dtype:
+
+- **bf16 stream** (``stream_dtype='bfloat16'`` of the sparse optimizers):
+  ``grads`` bf16.  Each row was rounded to bf16 once by the caller; the
+  apply up-casts it to f32 and sums in f32 in the order below, so sums
+  (and, for ``'adagrad_sq'``, sums of squares of the up-cast values) equal
+  the f32 stream's on the rounded rows, bit for bit.  ``'sgd'`` and the
+  Adagrad ops take it.
+- **bf16 accumulator** (``accum_dtype='bfloat16'``): ``acc`` bf16.  It is
+  read up to f32, the addition and the rsqrt run on the unrounded f32
+  value, and the store rounds once, to nearest even.  The Adagrad ops
+  take it, on an f32 or a bf16 table (JAX's Pallas kernel takes it on a
+  bf16 table only, its XLA apply on the rest, with this arithmetic).
 
 Ids outside ``[0, rows)`` are padding (the runtime's sentinel is
 ``rows``).  Gradient rows arrive either one per stream position or, with
@@ -44,10 +71,12 @@ device.  On a CPU table it runs the plain version
 ``apply_segments_reference``, which computes the same function with
 torch ops in the same order: every sum, product and difference rounded
 on its own, rsqrt as ``1 / sqrt``, a bf16 table updated in f32 and
-rounded once at the store.  Nothing falls back from one to the other.
+rounded once at the store.  Nothing falls back from one to the other,
+and no arm up-casts to another.
 ``LAUNCHES`` counts applies that reached the kernel: one per apply of a
 non-empty stream, which makes one CUDA launch (one chunk) or two (pass
-1 and pass 2).
+1 and pass 2); ``ARM_LAUNCHES`` counts those of them that ran each arm
+(``'bf16_stream'``, ``'bf16_accumulator'``) or the ``'adam'`` op.
 
 The TPU kernel's capacity-free contract holds: every segment is applied
 exactly once, whatever the number of distinct ids.
@@ -55,10 +84,11 @@ exactly once, whatever the number of distinct ids.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,27 +96,43 @@ import torch
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
 # Applies that launched the kernel (one per ``_launch`` of a non-empty
-# stream, whether it made one CUDA launch or two).
+# stream, whether it made one CUDA launch or two), and those of them that
+# ran each arm or the adam op.
 LAUNCHES = 0
+ARM_LAUNCHES = collections.Counter()
 
 # Positions per chunk of the sorted stream: the summation order's one
 # parameter (module docstring), shared by the kernel and the plain version.
 CHUNK = 256
 
-OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq', 'add')
+OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq', 'add', 'adam')
 _STATELESS = ('sgd', 'add')
-_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+# the ops that take a bf16 stream (the others take f32 gradient rows)
+_BF16_STREAM_OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+BETAS = (0.9, 0.999)  # SparseAdam's defaults
 _fn = None
+
+
+class Moments(NamedTuple):
+  """Lazy Adam's state of one table, updated in place: the first and
+  second moments ``m``, ``v`` (``[rows, w]`` f32) and each row's step
+  count ``t`` (``[rows]`` int32)."""
+  m: torch.Tensor
+  v: torch.Tensor
+  t: torch.Tensor
+
+
+State = Union[None, torch.Tensor, Moments]
 
 
 def _kernel():
   global _fn
   if _fn is None:
     fn = nativebuild.load('segwalk_apply').segwalk_apply
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+            ctypes.c_float] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
   return _fn
@@ -155,25 +201,43 @@ def _check(table, acc, grads, op):
   if op not in OPS:
     raise ValueError(f'unknown op {op!r}: one of {OPS}')
   if (op in _STATELESS) != (acc is None):
-    raise ValueError('acc must be provided iff op is an adagrad variant')
-  if table.dim() != 2 or table.dtype not in _TABLE_DTYPES:
+    raise ValueError('acc must be provided iff op is an adagrad variant or '
+                     'adam')
+  if table.dim() != 2 or table.dtype not in _FLOAT_DTYPES:
     raise ValueError(f'segwalk table must be [rows, w] f32 or bf16, got '
                      f'{tuple(table.shape)} {table.dtype}')
   if not table.is_contiguous():
     raise ValueError('segwalk updates the table in place: it must be '
                      'contiguous')
-  if acc is not None and (acc.shape != table.shape
-                          or acc.dtype != torch.float32
-                          or not acc.is_contiguous()
-                          or acc.device != table.device):
-    raise ValueError(f'accumulator must be a contiguous f32 tensor of the '
-                     f'table\'s shape and device, got {tuple(acc.shape)} '
-                     f'{acc.dtype} on {acc.device}')
+  if op == 'adam':
+    if not isinstance(acc, Moments):
+      raise ValueError('adam takes its state as Moments(m, v, t)')
+    for x, what, shape, dtype in (
+        (acc.m, 'm', table.shape, torch.float32),
+        (acc.v, 'v', table.shape, torch.float32),
+        (acc.t, 't', table.shape[:1], torch.int32)):
+      if (x.shape != shape or x.dtype != dtype or not x.is_contiguous()
+          or x.device != table.device):
+        raise ValueError(f'Adam {what} must be a contiguous {dtype} tensor '
+                         f'of shape {tuple(shape)} on {table.device}, got '
+                         f'{tuple(x.shape)} {x.dtype} on {x.device}')
+  elif acc is not None and (acc.shape != table.shape
+                            or acc.dtype not in _FLOAT_DTYPES
+                            or not acc.is_contiguous()
+                            or acc.device != table.device):
+    raise ValueError(f'accumulator must be a contiguous f32 or bf16 tensor '
+                     f'of the table\'s shape and device, got '
+                     f'{tuple(acc.shape)} {acc.dtype} on {acc.device}')
   if (grads.dim() != 2 or grads.shape[1] != table.shape[1]
       or grads.device != table.device):
     raise ValueError(f'gradient rows must be [m, {table.shape[1]}] on '
                      f'{table.device}, got {tuple(grads.shape)} on '
                      f'{grads.device}')
+  if grads.dtype not in (_FLOAT_DTYPES if op in _BF16_STREAM_OPS
+                         else (torch.float32,)):
+    raise ValueError(f'{op} takes f32 gradient rows'
+                     + (' or bf16' if op in _BF16_STREAM_OPS else '')
+                     + f', got {grads.dtype}')
 
 
 def _cut(table, ids, grads, g_index) -> Segments:
@@ -200,52 +264,63 @@ def _cut(table, ids, grads, g_index) -> Segments:
   return sort_stream(ids, table.shape[0], g_index)
 
 
-def segwalk_apply(table: torch.Tensor, acc: Optional[torch.Tensor],
-                  ids: torch.Tensor, grads: torch.Tensor, lr: float, *,
-                  op: str, eps: float = 1e-7,
-                  g_index: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def segwalk_apply(table: torch.Tensor, acc: State, ids: torch.Tensor,
+                  grads: torch.Tensor, lr: float, *, op: str,
+                  eps: float = 1e-7, g_index: Optional[torch.Tensor] = None,
+                  betas: Tuple[float, float] = BETAS
+                  ) -> Tuple[torch.Tensor, State]:
   """Apply one optimizer step from an update stream, in place.
 
   Args:
     table: ``[rows, w]`` f32 or bf16, updated in place.
-    acc: the Adagrad accumulator, ``[rows, w]`` f32 (updated in place),
-      or None for ``'sgd'`` and ``'add'``.
+    acc: the optimizer state, updated in place: the Adagrad accumulator
+      (``[rows, w]`` f32 or bf16), ``Moments`` for ``'adam'``, or None for
+      ``'sgd'`` and ``'add'``.
     ids: ``[n]`` row ids in any order; ids outside ``[0, rows)`` are
       padding.
-    grads: f32 gradient rows: ``[n, w]`` (one per position), or
-      ``[m, w]`` compact rows with ``g_index``.
+    grads: gradient rows, f32 (or bf16 for ``'sgd'`` and the Adagrad ops):
+      ``[n, w]`` (one per position), or ``[m, w]`` compact rows with
+      ``g_index``.
     lr: learning rate (unused by ``'add'``).
-    op: ``'sgd'`` | ``'adagrad_dedup'`` | ``'adagrad_sq'`` | ``'add'``.
-    eps: Adagrad epsilon.
+    op: one of ``OPS``.
+    eps: Adagrad's or Adam's epsilon.
     g_index: optional ``[n]`` integer map stream position -> row of
       ``grads`` (its range check reads the device once).
+    betas: Adam's ``(b1, b2)``.
 
   Returns:
-    ``(table, acc)``, the same tensors, updated.
+    ``(table, acc)``, the same objects, updated.
   """
   _check(table, acc, grads, op)
   apply_segments(table, acc, _cut(table, ids, grads, g_index), grads, lr,
-                 op=op, eps=eps)
+                 op=op, eps=eps, betas=betas)
   return table, acc
 
 
-def apply_segments(table: torch.Tensor, acc: Optional[torch.Tensor],
-                   segs: Segments, grads: torch.Tensor, lr: float, *,
-                   op: str, eps: float = 1e-7) -> None:
+def apply_segments(table: torch.Tensor, acc: State, segs: Segments,
+                   grads: torch.Tensor, lr: float, *, op: str,
+                   eps: float = 1e-7,
+                   betas: Tuple[float, float] = BETAS) -> None:
   """The apply proper on a sorted stream (``sort_stream``): the kernel
   for a CUDA table, the plain version for a CPU table."""
   _check(table, acc, grads, op)
   if table.device.type == 'cuda':
-    _launch(table, acc, segs, grads.to(torch.float32).contiguous(), lr, eps,
-            op)
+    _launch(table, acc, segs, grads.contiguous(), lr, eps, op, betas)
   elif table.device.type == 'cpu':
-    _apply_plain(table, acc, segs, grads, lr, eps, op)
+    _apply_plain(table, acc, segs, grads, lr, eps, op, betas)
   else:
     raise ValueError(f'segwalk: table on {table.device}')
 
 
-def _launch(table, acc, segs, grads, lr, eps, op):
+def _arms(acc, grads, op):
+  """The arms (and the adam op) one apply runs."""
+  return ([op] if op == 'adam' else []) + (
+      ['bf16_stream'] if grads.dtype == torch.bfloat16 else []) + (
+          ['bf16_accumulator'] if isinstance(acc, torch.Tensor)
+          and acc.dtype == torch.bfloat16 else [])
+
+
+def _launch(table, acc, segs, grads, lr, eps, op, betas):
   """One ``segwalk_apply`` call on the current stream: both passes, with
   the partials buffer they share.  Reads nothing from the device."""
   global LAUNCHES
@@ -261,26 +336,33 @@ def _launch(table, acc, segs, grads, lr, eps, op):
   # stream runs after both passes
   partials = torch.empty((2 if op == 'adagrad_sq' else 1, chunks, 2, w),
                          dtype=torch.float32, device=table.device)
+  if op == 'adam':
+    state = (acc.m.data_ptr(), acc.v.data_ptr(), acc.t.data_ptr())
+  else:
+    state = (None if acc is None else acc.data_ptr(), None, None)
+  bf16 = lambda x: int(x is not None and x.dtype == torch.bfloat16)
+  b1, b2 = betas
   with torch.cuda.device(table.device):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _kernel()(segs.sorted_ids.data_ptr(), segs.gidx.data_ptr(),
-                    grads.data_ptr(), table.data_ptr(),
-                    None if acc is None else acc.data_ptr(),
+                    grads.data_ptr(), table.data_ptr(), *state,
                     partials.data_ptr(), n, table.shape[0], w, CHUNK,
-                    int(table.dtype == torch.bfloat16), OPS.index(op), lr,
-                    eps, stream)
+                    bf16(table), bf16(grads),
+                    bf16(acc if isinstance(acc, torch.Tensor) else None),
+                    OPS.index(op), lr, eps, b1, b2, 1 - b1, 1 - b2, stream)
   if err != 0:
     raise RuntimeError(f'segwalk_apply launch failed: cudaError {err}')
   LAUNCHES += 1
+  ARM_LAUNCHES.update(_arms(acc, grads, op))
 
 
-def apply_segments_reference(table: torch.Tensor,
-                             acc: Optional[torch.Tensor], segs: Segments,
-                             grads: torch.Tensor, lr: float, *, op: str,
-                             eps: float = 1e-7) -> None:
+def apply_segments_reference(table: torch.Tensor, acc: State,
+                             segs: Segments, grads: torch.Tensor, lr: float,
+                             *, op: str, eps: float = 1e-7,
+                             betas: Tuple[float, float] = BETAS) -> None:
   """The plain PyTorch version of ``apply_segments``, on any device."""
   _check(table, acc, grads, op)
-  _apply_plain(table, acc, segs, grads, lr, eps, op)
+  _apply_plain(table, acc, segs, grads, lr, eps, op, betas)
 
 
 def _left_folds(first: torch.Tensor, lengths: torch.Tensor,
@@ -304,13 +386,14 @@ def _left_folds(first: torch.Tensor, lengths: torch.Tensor,
   return folds
 
 
-def _apply_plain(table, acc, segs, grads, lr, eps, op):
+def _apply_plain(table, acc, segs, grads, lr, eps, op, betas):
   """The plain version, in place, in the kernel's summation order (module
   docstring): first the left fold of every piece (a segment cut at the
   chunk boundaries), in at most ``CHUNK`` rounds, then the left fold of
   each segment's pieces, in as many rounds as the most chunks a segment
   touches.  For ``'adagrad_sq'`` the squares ride along as ``w`` more
-  columns of each fold (columns never mix, so the bits are the same)."""
+  columns of each fold (columns never mix, so the bits are the same).  A
+  bf16 stream is up-cast (exactly) before the folds."""
   dev = table.device
   u, w = segs.count, table.shape[1]
   if u == 0:
@@ -339,30 +422,50 @@ def _apply_plain(table, acc, segs, grads, lr, eps, op):
                       partials.shape[1])
   sums, squares = (folds[:, :w], folds[:, w:]) if sq else (folds, None)
   rows = segs.sorted_ids[starts].to(torch.int64)
-  lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+  f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+  lr_t, eps_t = f32(lr), f32(eps)
   t = table[rows].to(torch.float32)
   if op == 'sgd':
     t = t - lr_t * sums
   elif op == 'add':
     t = t + sums
+  elif op == 'adam':
+    b1, b2 = betas
+    m = f32(b1) * acc.m[rows] + f32(1 - b1) * sums
+    v = f32(b2) * acc.v[rows] + (f32(1 - b2) * sums) * sums
+    count = acc.t[rows] + 1
+    k = count.to(torch.float32)[:, None]
+    # powf of the f32 count, as the kernel takes it: a tensor base, so
+    # torch computes in f32 and not from a double scalar
+    mhat = m / (1 - torch.pow(torch.full_like(k, b1), k))
+    vhat = v / (1 - torch.pow(torch.full_like(k, b2), k))
+    delta = (-lr_t * mhat) / (torch.sqrt(vhat) + eps_t)
+    # the update at the table's dtype, then the add (JAX's ``delta.astype(
+    # table.dtype)``)
+    t = t + delta.to(table.dtype).to(torch.float32)
+    acc.m[rows] = m
+    acc.v[rows] = v
+    acc.t[rows] = count
   else:
     add = _rounded_square(sums) if op == 'adagrad_dedup' else squares
-    a_new = acc[rows] + add
-    scale = torch.reciprocal(torch.sqrt(
-        a_new + torch.tensor(eps, dtype=torch.float32, device=dev)))
+    # the scale from the unrounded f32 value; a bf16 accumulator rounds
+    # once at the store
+    a_new = acc[rows].to(torch.float32) + add
+    scale = torch.reciprocal(torch.sqrt(a_new + eps_t))
     t = t - (lr_t * sums) * scale
-    acc[rows] = a_new
+    acc[rows] = a_new.to(acc.dtype)
   table[rows] = t.to(table.dtype)
 
 
-def segwalk_apply_reference(table: torch.Tensor, acc: Optional[torch.Tensor],
+def segwalk_apply_reference(table: torch.Tensor, acc: State,
                             ids: torch.Tensor, grads: torch.Tensor,
                             lr: float, *, op: str, eps: float = 1e-7,
-                            g_index: Optional[torch.Tensor] = None
-                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                            g_index: Optional[torch.Tensor] = None,
+                            betas: Tuple[float, float] = BETAS
+                            ) -> Tuple[torch.Tensor, State]:
   """``segwalk_apply`` through the plain version, on any device: the
   kernel's oracle on the card."""
   _check(table, acc, grads, op)
   _apply_plain(table, acc, _cut(table, ids, grads, g_index), grads, lr, eps,
-               op)
+               op, betas)
   return table, acc

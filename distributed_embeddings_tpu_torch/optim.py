@@ -14,6 +14,12 @@ state's per-parameter trees have the params' structure.
 ``eps`` is added INSIDE the square root, a zero sum of squares gives a
 zero update (``where(t > 0, rsqrt(t + eps), 0)``), and the sum of
 squares keeps each param's dtype.
+
+Scalars round as optax's do: a Python float meets an array as a weak
+type, so JAX rounds the learning rate and ``eps`` to the array's dtype
+before the op (``_rounded``); torch would keep them in f32 and round
+only the result, which differs in the last bf16 place.  The reciprocal
+square root of a bf16 sum rounds once, as XLA's ``rsqrt`` does.
 """
 
 from __future__ import annotations
@@ -46,8 +52,19 @@ def tree_leaves(tree) -> list:
   return [tree]
 
 
+def _rounded(x: float, dtypes) -> Dict[torch.dtype, float]:
+  """``x`` rounded to each of ``dtypes``, as a Python float (a tensor on
+  the card would cost a host-to-device copy per parameter)."""
+  return {dt: float(torch.tensor(x, dtype=dt)) for dt in dtypes}
+
+
+def _dtypes(tree) -> set:
+  return {g.dtype for g in tree_leaves(tree)}
+
+
 def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
-  """``optax.sgd(learning_rate)`` without momentum: ``u = g * -lr``.
+  """``optax.sgd(learning_rate)`` without momentum: ``u = g * -lr``, with
+  ``-lr`` rounded to each gradient's dtype.
 
   A float ``learning_rate`` keeps no state.  A callable is a schedule
   with optax's ``scale_by_schedule`` semantics: the state ``{'count':
@@ -61,16 +78,14 @@ def sgd(learning_rate: Union[float, Callable]) -> GradientTransformation:
 
   def update(grads: Params, state, params=None):
     del params
-    if not scheduled:
-      return tree_map(lambda g: g * -learning_rate, grads), state
-    step_size = -float(learning_rate(int(state['count'])))
-    # the step size rounded to each gradient's dtype (optax's
-    # ``jnp.array(step_size, dtype=g.dtype)``), as a Python float: a
-    # tensor on the card would cost a host-to-device copy per parameter
-    rounded = {dt: float(torch.tensor(step_size, dtype=dt))
-               for dt in {g.dtype for g in tree_leaves(grads)}}
-    updates = tree_map(lambda g: g * rounded[g.dtype], grads)
-    return updates, {'count': int(state['count']) + 1}
+    if scheduled:
+      # optax's ``jnp.array(step_size, dtype=g.dtype)``
+      step_size = -float(learning_rate(int(state['count'])))
+      state = {'count': int(state['count']) + 1}
+    else:
+      step_size = -learning_rate
+    rounded = _rounded(step_size, _dtypes(grads))
+    return tree_map(lambda g: g * rounded[g.dtype], grads), state
 
   return GradientTransformation(init, update)
 
@@ -88,11 +103,13 @@ def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
   def update(grads: Params, state, params=None):
     del params
     sos = tree_map(lambda g, s: g * g + s, grads, state['sum_of_squares'])
+    step = _rounded(-learning_rate, _dtypes(grads))
+    eps_at = _rounded(eps, _dtypes(sos))
 
     def scale(g, t):
-      inv = torch.where(t > 0, torch.reciprocal(torch.sqrt(t + eps)),
-                        torch.zeros_like(t))
-      return (inv * g) * -learning_rate
+      rsqrt = torch.reciprocal(torch.sqrt((t + eps_at[t.dtype]).float()))
+      inv = torch.where(t > 0, rsqrt.to(t.dtype), torch.zeros_like(t))
+      return (inv * g) * step[g.dtype]
 
     return tree_map(scale, grads, sos), {'sum_of_squares': sos}
 

@@ -5,10 +5,14 @@ counterpart of ``set_weights`` / ``get_weights`` in
 The contract is the JAX package's: weights are global per-table
 ``[rows, width]`` arrays in table order, so tables saved under one plan
 load under any other.  ``get_optimizer_state`` / ``set_optimizer_state``
-do the same for the sparse optimizer's per-element state (the Adagrad
-accumulator).  These functions are also how state crosses from the JAX
-package to the port: ``get_weights`` / ``get_optimizer_state`` of a JAX
-model, then ``set_weights`` / ``set_optimizer_state`` here, or
+do the same for the sparse optimizer's state: per-element leaves
+``[rows, width]`` (Adagrad's ``acc``, Adam's ``m`` and ``v``) at their
+dtype (a bf16 accumulator stays bf16), and per-row leaves ``[rows]``
+(Adam's step count ``t``), identical across the column slices of a row,
+so the first slice is canonical.  These functions are also how state
+crosses from the JAX package to the port: ``get_weights`` /
+``get_optimizer_state`` of a JAX model, then ``set_weights`` /
+``set_optimizer_state`` here, or
 ``train_state_from_jax`` (hybrid) / ``dense_train_state_from_jax``
 (dense autodiff trainer) for a whole train state.  Saving and loading
 files (``save_train_npz`` and the rest) is ROADMAP.md Queue 1, item 11.
@@ -29,30 +33,35 @@ from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 WeightLike = Union[np.ndarray, torch.Tensor]
 
 
-def _check_tables(plan, arrays: Sequence, what: str):
+def _check_tables(plan, arrays: Sequence, what: str, per_row: bool = False):
+  """``per_row``: ``[rows]`` arrays (a per-row optimizer leaf)."""
   if len(arrays) != len(plan.table_configs):
     raise ValueError(
         f'You called {what} with a list of length {len(arrays)}, but the '
         f'layer was expecting {len(plan.table_configs)} tables.')
   for tid, (w, cfg) in enumerate(zip(arrays, plan.table_configs)):
-    if tuple(w.shape) != (cfg.input_dim, cfg.output_dim):
-      raise ValueError(
-          f'table {tid}: expected shape {(cfg.input_dim, cfg.output_dim)}, '
-          f'got {tuple(w.shape)}')
+    want = (cfg.input_dim,) + (() if per_row else (cfg.output_dim,))
+    if tuple(w.shape) != want:
+      raise ValueError(f'table {tid}: expected shape {want}, got '
+                       f'{tuple(w.shape)}')
 
 
 def _fill_group(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
                 arrays: Sequence[WeightLike]) -> torch.Tensor:
   """Write this rank's rows of fusion group ``gi`` into ``buf``
-  ``[rows_cap, width]`` from global per-table arrays; padding rows are
-  zero."""
+  ``[rows_cap, width]`` (or a per-row ``[rows_cap]``) from global
+  per-table arrays; padding rows are zero."""
   off = 0
   for lt in dist.plan.groups[gi].member_tables[dist.rank]:
     # row_stride > 1: a mod window (residue class) of the rows
-    piece = arrays[lt.table_id][lt.row_start:lt.row_end:lt.row_stride,
-                                lt.col_start:lt.col_end]
+    rows = slice(lt.row_start, lt.row_end, lt.row_stride)
+    piece = arrays[lt.table_id][
+        (rows,) if buf.dim() == 1 else (rows, slice(lt.col_start, lt.col_end))]
     if isinstance(piece, np.ndarray):
-      # torch wraps only writable arrays (read-only ones are copied)
+      # torch takes no numpy bf16 (ml_dtypes): through f32, exactly; and
+      # wraps only writable arrays (read-only ones are copied)
+      if piece.dtype.name == 'bfloat16':
+        piece = piece.astype(np.float32)
       piece = np.require(piece, requirements='W')
     buf[off:off + lt.input_dim] = torch.as_tensor(piece).to(
         device=buf.device, dtype=buf.dtype)
@@ -102,7 +111,8 @@ def get_weights(dist: DistributedEmbedding,
   Returns:
     List of ``[rows, width]`` tensors in global table order, on the
     params' device (unsliced tables of a world of one are views of the
-    params).
+    params).  Per-row ``[rows_cap]`` leaves give ``[rows]`` vectors, the
+    first column slice of a row serving (all hold the same values).
   """
   plan = dist.plan
   group_index = {g.key: gi for gi, g in enumerate(plan.groups)}
@@ -119,13 +129,17 @@ def get_weights(dist: DistributedEmbedding,
     # paste the row x column windows into the global canvas; zeros, so a
     # gap in the layout reads as zeros, never as uninitialised memory
     first = shards[group_index[layout[0][1]]][0]
-    out = torch.zeros((cfg.input_dim, cfg.output_dim), dtype=first.dtype,
-                      device=first.device)
+    per_row = first.dim() == 1
+    # in reverse, so that a per-row leaf keeps its first column slice's
+    out = torch.zeros((cfg.input_dim,) + (() if per_row else
+                                          (cfg.output_dim,)),
+                      dtype=first.dtype, device=first.device)
     for dev, group_key, row_offset, col_start, col_end, row_start, \
-        row_end, row_stride in layout:
+        row_end, row_stride in reversed(layout):
       gi = group_index[group_key]
       span = -(-(row_end - row_start) // row_stride)
-      out[row_start:row_end:row_stride, col_start:col_end] = (
+      rows = slice(row_start, row_end, row_stride)
+      out[(rows,) if per_row else (rows, slice(col_start, col_end))] = (
           shards[gi][dev][row_offset:row_offset + span])
     result.append(out)
   return result
@@ -134,14 +148,16 @@ def get_weights(dist: DistributedEmbedding,
 def get_optimizer_state(dist: DistributedEmbedding,
                         opt_state: Dict[str, Dict[str, torch.Tensor]]
                         ) -> List[Dict[str, torch.Tensor]]:
-  """Reassemble the sparse optimizer's per-element state (``[rows_cap,
-  width]`` leaves such as Adagrad's ``acc``) into the global per-table
+  """Reassemble the sparse optimizer's state into the global per-table
   layout, exactly as ``get_weights`` does for tables (a collective with
-  more than one rank).
+  more than one rank): per-element leaves (``[rows_cap, width]``:
+  Adagrad's ``acc``, Adam's ``m``, ``v``) at their dtype, per-row leaves
+  (``[rows_cap]``: Adam's ``t``) from the first column slice of each row.
 
   Returns:
     Per-table dicts in global table order (``[{'acc': [rows, width]},
-    ...]``); empty dicts for a stateless optimizer.
+    ...]``, ``[{'m': ..., 't': [rows], 'v': ...}, ...]``); empty dicts
+    for a stateless optimizer.
   """
   leaves = sorted({k for gs in opt_state.values() for k in gs})
   n_groups = len(dist.plan.groups)
@@ -160,21 +176,30 @@ def set_optimizer_state(dist: DistributedEmbedding,
                         ) -> Dict[str, Dict[str, torch.Tensor]]:
   """The inverse of ``get_optimizer_state``: write global per-table
   state into ``opt_state``'s leaves (e.g. a fresh ``optimizer.init``), in
-  place, and return it.  Padding rows (never looked up) are zero, as in
-  the JAX package."""
+  place, at each leaf's dtype, and return it.  A per-row ``[rows]`` leaf
+  serves every column slice of its table.  Padding rows (never looked
+  up) are zero, as in the JAX package."""
   table_states = list(table_states)
   for gi in range(len(dist.plan.groups)):
     for k, leaf in opt_state.get(f'group_{gi}', {}).items():
       arrays = [ts[k] for ts in table_states]
-      _check_tables(dist.plan, arrays, 'set_optimizer_state')
+      _check_tables(dist.plan, arrays, 'set_optimizer_state',
+                    per_row=leaf.dim() == 1)
       _fill_group(dist, gi, leaf, arrays)
   return opt_state
 
 
-def _to_device(tree: Any, device: torch.device) -> Any:
+def _carry(tree: Any, device: torch.device) -> Any:
+  """A tree of arrays from the JAX package on ``device``: bf16 if it came
+  as bf16 and f32 otherwise; Python ints (a schedule's count) as they
+  are."""
   if isinstance(tree, dict):
-    return {k: _to_device(v, device) for k, v in tree.items()}
-  return torch.as_tensor(np.array(tree, np.float32)).to(device)
+    return {k: _carry(v, device) for k, v in tree.items()}
+  if isinstance(tree, int):
+    return tree
+  a = np.asarray(tree)
+  dtype = torch.bfloat16 if a.dtype.name == 'bfloat16' else torch.float32
+  return torch.as_tensor(a.astype(np.float32)).to(device=device, dtype=dtype)
 
 
 def train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
@@ -192,18 +217,22 @@ def train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
       (``optim.adagrad``: ``{'sum_of_squares': {name: array}}``; ``sgd``:
       ``{}``).
     step: the JAX state's step.
-    emb_optimizer: the port's ``SparseSGD`` / ``SparseAdagrad``.
+    emb_optimizer: the port's ``SparseSGD`` / ``SparseAdagrad`` /
+      ``SparseAdam``, whose ``init`` sets each leaf's dtype (a bf16
+      ``acc`` for ``accum_dtype='bfloat16'``, Adam's int32 ``t``).
 
   Returns:
-    A ``TrainState`` for ``sparse.make_hybrid_train_step``, f32 dense
-    params and state on ``dist.device``.
+    A ``TrainState`` for ``sparse.make_hybrid_train_step`` on
+    ``dist.device``: the tables at ``dist.param_dtype``, their state at
+    the optimizer's dtypes, dense params and state bf16 if they came as
+    bf16 and f32 otherwise.
   """
   emb = set_weights(dist, tables)
   emb_state = set_optimizer_state(dist, emb_optimizer.init(dist, emb),
                                   table_states)
-  params = {'embedding': emb, **_to_device(dict(dense_params), dist.device)}
+  params = {'embedding': emb, **_carry(dict(dense_params), dist.device)}
   return TrainState(params,
-                    (_to_device(dense_opt_state, dist.device), emb_state),
+                    (_carry(dense_opt_state, dist.device), emb_state),
                     int(step))
 
 
@@ -235,12 +264,7 @@ def dense_train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
     if isinstance(tree, dict):
       return {k: (set_weights(dist, v) if k == 'embedding' else carry(v))
               for k, v in tree.items()}
-    if isinstance(tree, int):
-      return tree
-    a = np.asarray(tree)
-    dtype = torch.bfloat16 if a.dtype.name == 'bfloat16' else torch.float32
-    return torch.as_tensor(a.astype(np.float32)).to(device=dist.device,
-                                                     dtype=dtype)
+    return _carry(tree, dist.device)
 
   params = carry({'embedding': tables, **dict(dense_params)})
   return TrainState(params, carry(opt_state), int(step))

@@ -17,7 +17,24 @@ The hybrid step keeps the JAX package's structure:
 
 The segment walk is the port's only apply path: it sums every distinct
 id's run exactly once, so the XLA path's compaction capacities
-(``capacity_fraction``, ``capacity_rows``) have nothing to size.
+(``capacity_fraction``, ``capacity_rows``, ``calibrate_capacity_rows``)
+have nothing to size.  It serves every optimizer here: ``SparseSGD``
+(op ``'sgd'``), ``SparseAdagrad`` (``'adagrad_dedup'`` or
+``'adagrad_sq'``) and lazy ``SparseAdam`` (``'adam'``, where the JAX
+package runs an XLA compaction).
+
+Two storage options halve bytes, as in the JAX package:
+
+- ``stream_dtype='bfloat16'`` (``SparseSGD``, ``SparseAdagrad``): each
+  group's compact gradient rows are rounded to bf16 once, then summed in
+  f32 by the kernel's bf16-stream arm.  As in the JAX package it takes
+  effect only with ``use_segwalk_apply=True``: JAX's XLA apply, which
+  ``use_segwalk_apply=False`` selects there, ignores it, and so does the
+  port (its apply is the segment walk either way).
+- ``accum_dtype='bfloat16'`` (``SparseAdagrad``): the accumulator is
+  stored in bf16; each step accumulates and takes the rsqrt in f32 and
+  rounds once at the store (the kernel's bf16-accumulator arm), on an
+  f32 or a bf16 table.
 
 Each rank runs its own process.  ``head_loss_fn`` returns the mean loss
 over this rank's LOCAL batch; the step turns that into the JAX package's
@@ -33,6 +50,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import grad as grad_lib
@@ -42,15 +60,18 @@ from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
 from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 
 _F32 = 'float32'
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
-def _refuse_unported(opt):
+def _check_options(opt):
+  """Refuse what is not ported, and storage dtypes other than f32 and
+  bf16 (the JAX package's ``ValueError``)."""
   if opt.use_sparsecore_apply:
     raise not_ported('use_sparsecore_apply', 15)
-  if opt.stream_dtype != _F32:
-    raise not_ported(f'stream_dtype={opt.stream_dtype!r}', 6)
-  if getattr(opt, 'accum_dtype', _F32) != _F32:
-    raise not_ported(f'accum_dtype={opt.accum_dtype!r}', 6)
+  for name in ('stream_dtype', 'accum_dtype'):
+    value = getattr(opt, name, _F32)
+    if value not in _DTYPES:
+      raise ValueError(f'{name} must be float32 or bfloat16, got {value!r}')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,18 +82,20 @@ class SparseSGD:
 
   ``capacity_fraction`` / ``capacity_rows`` are accepted for API parity
   and have no effect: the segment walk has no capacity or overflow
-  machinery.  ``use_sparsecore_apply`` and a ``stream_dtype`` other than
-  ``'float32'`` are not ported and raise."""
+  machinery.  ``stream_dtype='bfloat16'`` with ``use_segwalk_apply=True``
+  rounds the update stream to bf16 (module docstring).
+  ``use_sparsecore_apply`` is not ported and raises."""
   learning_rate: float = 0.01
   capacity_fraction: float = 0.5
   capacity_rows: Optional[Tuple[Optional[int], ...]] = None
+  use_segwalk_apply: bool = False
   stream_dtype: str = _F32
   use_sparsecore_apply: bool = False
 
   needs_sq = False
 
   def __post_init__(self):
-    _refuse_unported(self)
+    _check_options(self)
 
   @property
   def segwalk_op(self) -> str:
@@ -92,23 +115,26 @@ class SparseAdagrad:
   ``dedup=False`` adds the per-occurrence squares ``sum(g * g)``
   (``needs_sq``).  Every occurrence of a row reads the accumulator after
   the whole batch's additions.  A bf16 table updates in f32 and rounds
-  once, to nearest even, at the store; the accumulator is f32.
+  once, to nearest even, at the store.  The accumulator is stored at
+  ``accum_dtype`` (``'float32'`` or ``'bfloat16'``: accumulate and rsqrt
+  in f32, one rounding at the store); ``stream_dtype`` as in
+  ``SparseSGD``.
 
   ``capacity_fraction`` / ``capacity_rows`` have no effect (see
-  ``SparseSGD``).  ``use_sparsecore_apply`` and ``stream_dtype`` /
-  ``accum_dtype`` other than ``'float32'`` are not ported and raise."""
+  ``SparseSGD``).  ``use_sparsecore_apply`` is not ported and raises."""
   learning_rate: float = 0.001
   initial_accumulator_value: float = 0.1
   epsilon: float = 1e-7
   dedup: bool = True
   capacity_fraction: float = 0.5
   capacity_rows: Optional[Tuple[Optional[int], ...]] = None
+  use_segwalk_apply: bool = False
   stream_dtype: str = _F32
   accum_dtype: str = _F32
   use_sparsecore_apply: bool = False
 
   def __post_init__(self):
-    _refuse_unported(self)
+    _check_options(self)
 
   @property
   def needs_sq(self) -> bool:
@@ -123,20 +149,80 @@ class SparseAdagrad:
         f'group_{gi}': {
             'acc': torch.full_like(params[f'group_{gi}'],
                                    self.initial_accumulator_value,
-                                   dtype=torch.float32)
+                                   dtype=_DTYPES[self.accum_dtype])
         } for gi in range(len(dist.plan.groups))
     }
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAdam:
+  """Row-wise *lazy* Adam: moments and the bias-correction step advance
+  only for rows touched this batch (nonlinear in the row gradient, so
+  duplicates are summed first).  Per touched row with gradient sum ``S``:
+  ``t += 1``; ``m = b1 * m + (1 - b1) * S``; ``v = b2 * v + (1 - b2) * S *
+  S``; ``table += -lr * mhat / (sqrt(vhat) + eps)`` with ``mhat = m / (1 -
+  b1**t)``, ``vhat = v / (1 - b2**t)``, the update rounded to the table's
+  dtype before the add.  State per group: ``m`` and ``v`` (f32, the
+  table's shape) and the per-row step count ``t`` (int32, ``[rows]``).
+
+  The port applies it with the segment walk's ``'adam'`` op (the JAX
+  package with an XLA compaction); ``capacity_fraction`` /
+  ``capacity_rows`` have no effect.  Cold-tier layers are refused, as in
+  the JAX package.  The JAX package also refuses packed storage for
+  large narrow groups; the port stores every table in natural
+  ``[rows, w]`` layout, so that refusal has no counterpart."""
+  learning_rate: float = 0.001
+  b1: float = 0.9
+  b2: float = 0.999
+  epsilon: float = 1e-8
+  capacity_fraction: float = 0.5
+  capacity_rows: Optional[Tuple[Optional[int], ...]] = None
+
+  needs_sq = False
+  # the JAX hot-cache backward ships an occurrence count for lazy Adam
+  needs_touch = True
+
+  @property
+  def segwalk_op(self) -> str:
+    return 'adam'
+
+  def init(self, dist: DistributedEmbedding, params) -> Dict:
+    if getattr(dist, 'cold_tier', None):
+      raise ValueError(
+          'SparseAdam does not support cold-tier layers: the lazy '
+          "per-row step counter 't' has no tier fetch/writeback channel. "
+          'Train tiered tables with SparseSGD or SparseAdagrad, or '
+          'disable the cold tier.')
+    out = {}
+    for gi in range(len(dist.plan.groups)):
+      p = params[f'group_{gi}']
+      out[f'group_{gi}'] = {
+          'm': torch.zeros_like(p, dtype=torch.float32),
+          'v': torch.zeros_like(p, dtype=torch.float32),
+          't': torch.zeros(p.shape[:1], dtype=torch.int32, device=p.device),
+      }
+    return out
 
 
 def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
                    g_index=None):
   """One group's apply through the segment walk, in place: ``flat_g``
   holds COMPACT per-(sample, bag) rows and ``g_index`` maps each stream
-  position to its row."""
-  segwalk.segwalk_apply(table, state.get('acc'), flat_ids, flat_g, lr,
-                        op=optimizer.segwalk_op,
-                        eps=getattr(optimizer, 'epsilon', 1e-7),
-                        g_index=g_index)
+  position to its row.  A bf16 ``stream_dtype`` rounds them here, once,
+  before the kernel gathers them (``pallas_segwalk.py``'s
+  ``sorted_g.astype(sdt)``)."""
+  if (getattr(optimizer, 'use_segwalk_apply', False)
+      and getattr(optimizer, 'stream_dtype', _F32) == 'bfloat16'):
+    flat_g = flat_g.to(torch.bfloat16)
+  if isinstance(optimizer, SparseAdam):
+    acc = segwalk.Moments(state['m'], state['v'], state['t'])
+    extra = {'eps': optimizer.epsilon,
+             'betas': (optimizer.b1, optimizer.b2)}
+  else:
+    acc = state.get('acc')
+    extra = {'eps': getattr(optimizer, 'epsilon', 1e-7)}
+  segwalk.segwalk_apply(table, acc, flat_ids, flat_g, lr,
+                        op=optimizer.segwalk_op, g_index=g_index, **extra)
   return table, state
 
 
@@ -235,7 +321,7 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       without its ``'embedding'`` entry.
     dense_optimizer: a port dense optimizer (``optim.sgd``,
       ``optim.adagrad``).
-    emb_optimizer: ``SparseSGD`` or ``SparseAdagrad``.
+    emb_optimizer: ``SparseSGD``, ``SparseAdagrad`` or ``SparseAdam``.
     lr_schedule: optional ``step -> lr`` for the embedding optimizer;
       defaults to its fixed ``learning_rate``.
 
@@ -307,6 +393,48 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
                       state.step + 1), loss
 
   return step
+
+
+def calibrate_capacity_rows(dist: DistributedEmbedding, cats,
+                            margin: float = 1.3,
+                            params=None) -> Tuple[int, ...]:
+  """The JAX package's per-group compaction capacities for one sample
+  batch: each group's distinct valid ids in this batch's update stream,
+  the most over the ranks, times ``margin`` (at least 8; 8 for a group no
+  input reaches).
+
+  They have no effect on the port: the segment walk is capacity-free
+  (module docstring).  The function is here so that code written for the
+  JAX package (``SparseAdagrad(capacity_rows=calibrate_capacity_rows(
+  ...))``) runs unchanged and gets the same tuple.  With more than one
+  rank it is a collective (an all-reduce of the counts).
+
+  Args:
+    dist: the ``DistributedEmbedding``.
+    cats: a representative embedding input list, as
+      ``forward_with_residuals`` takes it.
+    margin: multiplicative headroom over the measured count.
+    params: optional embedding params of the right shapes (default: a
+      fresh ``dist.init(0)``; the routed ids do not depend on values).
+  """
+  if params is None:
+    params = dist.init(0)
+  with torch.no_grad():
+    _, residuals, (_, hotness) = dist.forward_with_residuals(params, cats)
+  per_group = {}
+  for si, sub in enumerate(dist._subgroups(hotness)):
+    per_group.setdefault(sub.gi, []).append(residuals[si].reshape(-1))
+  counts = torch.zeros(len(dist.plan.groups), dtype=torch.int64,
+                       device=dist.device)
+  for gi, streams in per_group.items():
+    ids = torch.cat(streams)
+    counts[gi] = torch.unique(ids[ids < dist.plan.groups[gi].rows_cap]
+                              ).numel()
+  if dist.world_size > 1:
+    torch_dist.all_reduce(counts, op=torch_dist.ReduceOp.MAX,
+                          group=dist.mesh.group)
+  return tuple(max(8, int(u * margin)) if gi in per_group else 8
+               for gi, u in enumerate(counts.tolist()))
 
 
 def init_hybrid_train_state(dist: DistributedEmbedding, params,

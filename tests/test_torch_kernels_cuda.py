@@ -16,7 +16,12 @@ a 100 k-position single-id stream in under 1 ms, and it runs the sort
 and both passes without a host sync.  Its ``'add'`` (the lookup's
 backward) is bit-exact, and equals ``'sgd'`` at ``lr = -1`` bit for bit.
 The lookup's backward on a CUDA table launches the segment walk or
-raises, and gives the plain version's gradient bit for bit.
+raises, and gives the plain version's gradient bit for bit.  The segment
+walk's bf16 arms: a bf16 stream is the f32 stream on the rounded rows,
+bit for bit; a bf16 accumulator is held to the f32 one's bound; each
+launch is counted per arm.
+Its ``adam`` op: step counts exact, moments bit-exact, the table within
+rtol = atol = 1e-6 (``powf`` against ``torch.pow``).
 """
 
 import numpy as np
@@ -385,3 +390,172 @@ def test_lookup_backward_raises_when_the_kernel_cannot_launch(
   with pytest.raises(RuntimeError, match='segwalk_apply launch failed'):
     out.sum().backward()
   assert table.grad is None
+
+
+def _arm_stream(rng, rows, w, table_dtype, acc_dtype, device, n=6000, m=1500):
+  """A power-law stream with padding and compact rows (g_index), its
+  table and accumulator, and the chunk-edge stream's ids."""
+  table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32)).to(
+      _DT[table_dtype]).to(device)
+  acc = torch.as_tensor(rng.uniform(0.05, 0.2, size=(rows, w)).astype(
+      np.float32)).to(_DT[acc_dtype]).to(device)
+  ids = (rng.zipf(1.3, n) - 1).clip(max=rows + 5).astype(np.int32)
+  ids[::11] = -1
+  grads = torch.as_tensor(rng.normal(size=(m, w)).astype(np.float32)).to(
+      device)
+  g_index = torch.as_tensor(rng.integers(0, m, n).astype(np.int32)).to(
+      device)
+  return table, acc, torch.as_tensor(ids).to(device), grads, g_index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('table_dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [1, 8, 16, 32, 128])
+@pytest.mark.parametrize('op,stream,acc_dtype', [
+    ('sgd', 'bfloat16', None),
+    ('adagrad_dedup', 'bfloat16', 'float32'),
+    ('adagrad_dedup', 'float32', 'bfloat16'),
+    ('adagrad_dedup', 'bfloat16', 'bfloat16'),
+    ('adagrad_sq', 'bfloat16', 'bfloat16'),
+    ('adagrad_sq', 'float32', 'bfloat16')])
+def test_segwalk_bf16_arms_match_plain_version(cuda_device, op, stream,
+                                               acc_dtype, w, table_dtype):
+  # the bf16 stream and the bf16 accumulator: kernel against the plain
+  # version (sgd bit-exact, Adagrad rtol = atol = 1e-6), untouched rows
+  # unchanged, each arm counted; on power-law and chunk-edge streams
+  rng = np.random.default_rng(w + 7)
+  rows = 500
+  table, acc, ids, grads, g_index = _arm_stream(
+      rng, rows, w, table_dtype, acc_dtype or 'float32', cuda_device)
+  acc = None if op == 'sgd' else acc
+  edge = torch.as_tensor(_chunk_edge_ids(rng, rows, segwalk.CHUNK)).to(
+      cuda_device)
+  edge_index = torch.randint(0, grads.shape[0], edge.shape,
+                             dtype=torch.int32, device=cuda_device)
+  grads = grads.to(_DT[stream])
+  want_arms = [a for a, on in (('bf16_stream', stream == 'bfloat16'),
+                               ('bf16_accumulator', acc_dtype == 'bfloat16'))
+               if on]
+  for x, gi in ((ids, g_index), (edge, edge_index)):
+    before = dict(segwalk.ARM_LAUNCHES)
+    kt, ka = table.clone(), None if acc is None else acc.clone()
+    segwalk.segwalk_apply(kt, ka, x, grads, 0.3, op=op, g_index=gi)
+    torch.cuda.synchronize()
+    for arm in ('bf16_stream', 'bf16_accumulator', 'adam'):
+      assert segwalk.ARM_LAUNCHES[arm] == before.get(arm, 0) + (
+          arm in want_arms)
+    pt, pa = table.clone(), None if acc is None else acc.clone()
+    segwalk.segwalk_apply_reference(pt, pa, x, grads, 0.3, op=op,
+                                    g_index=gi)
+    if acc is None:
+      assert torch.equal(kt, pt)
+    else:
+      assert ka.dtype == acc.dtype
+      torch.testing.assert_close(kt.float(), pt.float(), rtol=1e-6,
+                                 atol=1e-6)
+      torch.testing.assert_close(ka.float(), pa.float(), rtol=1e-6,
+                                 atol=1e-6)
+    touched = torch.zeros(rows, dtype=torch.bool, device=cuda_device)
+    touched[x[(x >= 0) & (x < rows)].long()] = True
+    assert torch.equal(kt[~touched], table[~touched])
+    assert not torch.equal(kt[touched], table[touched])
+    if acc is not None:
+      assert torch.equal(ka[~touched], acc[~touched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
+def test_segwalk_bf16_stream_equals_prequantised_f32_stream(cuda_device, op):
+  # the arm's only effect is one bf16 rounding of each row before the f32
+  # sums: bit for bit the f32 arm on the up-cast rows
+  rng = np.random.default_rng(31)
+  table, acc, ids, grads, g_index = _arm_stream(rng, 500, 32, 'float32',
+                                                'float32', cuda_device)
+  acc = None if op == 'sgd' else acc
+  g16 = grads.to(torch.bfloat16)
+  a_t, b_t = table.clone(), table.clone()
+  a_a, b_a = (None, None) if acc is None else (acc.clone(), acc.clone())
+  segwalk.segwalk_apply(a_t, a_a, ids, g16, 0.3, op=op, g_index=g_index)
+  segwalk.segwalk_apply(b_t, b_a, ids, g16.float(), 0.3, op=op,
+                        g_index=g_index)
+  assert torch.equal(a_t, b_t)
+  if acc is not None:
+    assert torch.equal(a_a, b_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [1, 8, 16, 32, 128])
+def test_segwalk_adam_matches_plain_version(cuda_device, w, dtype):
+  # three applies (the step count grows): t exact, m and v bit-exact (no
+  # pow in them), the table within rtol = atol = 1e-6 (powf against
+  # torch.pow), untouched rows and their state unchanged
+  rng = np.random.default_rng(w + 40)
+  rows = 500
+  table, _, ids, grads, g_index = _arm_stream(rng, rows, w, dtype, 'float32',
+                                              cuda_device)
+  edge = torch.as_tensor(_chunk_edge_ids(rng, rows, segwalk.CHUNK)).to(
+      cuda_device)
+  zeros = lambda: segwalk.Moments(
+      torch.zeros(rows, w, device=cuda_device),
+      torch.zeros(rows, w, device=cuda_device),
+      torch.zeros(rows, dtype=torch.int32, device=cuda_device))
+  kt, pt = table.clone(), table.clone()
+  km, pm = zeros(), zeros()
+  streams = [(ids, g_index), (edge, None), (ids[::2], g_index[::2])]
+  for x, gi in streams:
+    g = grads if gi is not None else torch.randn(x.shape[0], w,
+                                                 device=cuda_device)
+    before = segwalk.ARM_LAUNCHES['adam']
+    segwalk.segwalk_apply(kt, km, x, g, 0.01, op='adam', eps=1e-8,
+                          g_index=gi)
+    torch.cuda.synchronize()
+    assert segwalk.ARM_LAUNCHES['adam'] == before + 1
+    segwalk.segwalk_apply_reference(pt, pm, x, g, 0.01, op='adam', eps=1e-8,
+                                    g_index=gi)
+    assert torch.equal(km.t, pm.t)
+    assert torch.equal(km.m, pm.m) and torch.equal(km.v, pm.v)
+    torch.testing.assert_close(kt.float(), pt.float(), rtol=1e-6, atol=1e-6)
+  touched = torch.zeros(rows, dtype=torch.bool, device=cuda_device)
+  for x, _ in streams:
+    touched[x[(x >= 0) & (x < rows)].long()] = True
+  assert int(km.t.max()) == 3 and bool((km.t[touched] > 0).all())
+  assert torch.equal(kt[~touched], table[~touched])
+  assert not (km.t[~touched].any() or km.m[~touched].any()
+              or km.v[~touched].any())
+
+
+def state_clone(acc):
+  if isinstance(acc, segwalk.Moments):
+    return segwalk.Moments(*(x.clone() for x in acc))
+  return None if acc is None else acc.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op,stream,acc_dtype', [
+    ('adagrad_dedup', 'bfloat16', 'bfloat16'), ('sgd', 'bfloat16', None),
+    ('adam', 'float32', None)])
+def test_segwalk_new_arms_do_not_synchronise(cuda_device, op, stream,
+                                             acc_dtype):
+  rng = np.random.default_rng(33)
+  table, acc, ids, grads, g_index = _arm_stream(rng, 1000, 32, 'bfloat16',
+                                                acc_dtype or 'float32',
+                                                cuda_device, n=20_000)
+  if op == 'adam':
+    acc = segwalk.Moments(torch.zeros_like(acc), torch.zeros_like(acc),
+                          torch.zeros(1000, dtype=torch.int32,
+                                      device=cuda_device))
+  elif op == 'sgd':
+    acc = None
+  grads = grads.to(_DT[stream])
+  # the first call builds and loads the kernel library
+  segwalk.segwalk_apply(table.clone(), state_clone(acc), ids, grads, 0.3,
+                        op=op, g_index=g_index)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    segwalk.apply_segments(table, acc, segwalk.sort_stream(ids, 1000,
+                                                           g_index),
+                           grads, 0.3, op=op)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)

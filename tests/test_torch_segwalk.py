@@ -284,14 +284,31 @@ def test_refusals():
   ids = torch.zeros(3, dtype=torch.int32)
   g = torch.zeros(3, 4)
   with pytest.raises(ValueError, match='unknown op'):
-    segwalk.segwalk_apply(t, None, ids, g, LR, op='adam')
+    segwalk.segwalk_apply(t, None, ids, g, LR, op='momentum')
   with pytest.raises(ValueError, match='acc must be provided'):
     segwalk.segwalk_apply(t, None, ids, g, LR, op='adagrad_dedup')
   with pytest.raises(ValueError, match='acc must be provided'):
     segwalk.segwalk_apply(t, torch.zeros(8, 4), ids, g, LR, op='sgd')
   with pytest.raises(ValueError, match='accumulator'):
-    segwalk.segwalk_apply(t, torch.zeros(8, 4, dtype=torch.bfloat16), ids,
+    segwalk.segwalk_apply(t, torch.zeros(8, 4, dtype=torch.float16), ids,
                           g, LR, op='adagrad_dedup')
+  with pytest.raises(ValueError, match='Moments'):
+    segwalk.segwalk_apply(t, torch.zeros(8, 4), ids, g, LR, op='adam')
+  with pytest.raises(ValueError, match='Adam t'):
+    segwalk.segwalk_apply(t, segwalk.Moments(torch.zeros(8, 4),
+                                             torch.zeros(8, 4),
+                                             torch.zeros(8)), ids, g, LR,
+                          op='adam')
+  for op in ('add', 'adam'):
+    # no bf16 stream for these (JAX has none for adam)
+    with pytest.raises(ValueError, match='takes f32 gradient rows, got'):
+      segwalk.segwalk_apply(
+          t, None if op == 'add' else segwalk.Moments(
+              torch.zeros(8, 4), torch.zeros(8, 4),
+              torch.zeros(8, dtype=torch.int32)), ids, g.bfloat16(), LR,
+          op=op)
+  with pytest.raises(ValueError, match='or bf16, got torch.float16'):
+    segwalk.segwalk_apply(t, None, ids, g.half(), LR, op='sgd')
   with pytest.raises(ValueError, match='gradient rows'):
     segwalk.segwalk_apply(t, None, ids, torch.zeros(2, 4), LR, op='sgd')
   with pytest.raises(ValueError, match='g_index must be'):
