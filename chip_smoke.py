@@ -49,6 +49,23 @@ Phases, each of which exits non-zero on failure:
             m and v bit-exact, the table rtol = atol = 1e-6) and against
             what the step wrote (bit-exact); kernel and plain times, the
             bound (no library call computes lazy Adam).
+9c. fit-tiny: on the same tables, drawn anew from the seed before each
+            run, the resumable and self-healing training loop (grad.fit) with
+            phase 7's optimizers (SparseAdagrad(0.01), Adagrad on the
+            MLP): run A, 6 uninterrupted steps (each timed, synchronised;
+            peak memory; the host syncs of one more step bare and inside
+            fit); run B, the same 6 steps with
+            CheckpointCallback(every=3, keep_last=1), one accumulator
+            element made NaN after step 4, StateAuditor(every=1, full
+            sweeps) finding it at step 4 and on_anomaly='rollback'
+            restoring the step-3 file in place and replaying; run C, a
+            fresh draw resumed from the step-3 file (fit(resume_from=dir))
+            to step 6.  B and C equal A bit for bit (the audit digest of
+            every table, accumulator, dense param and optimizer leaf, the
+            count and the losses; the w16 table compared in full); every
+            step launched the lookup (4) and the segment walk (2).  Save
+            and restore seconds and GB/s (8.4 GB files), the audit's ms a
+            call.
 10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -70,6 +87,20 @@ Phases, each of which exits non-zero on failure:
             leaves it as it is, checked).
 13. dlrm profile: one step under torch.profiler, one under sync debug
             mode, as in phase 9.
+13b. dlrm-resume: the DLRM freed, examples/dlrm/main.py in process at
+            the MLPerf widths, bf16, sparse trainer, dummy data; one cut:
+            the vocabularies of gen_data.py's onechip preset (every
+            vocabulary capped at 2,000,000 rows: 13,110,446 rows x 128,
+            3.13 GiB on the card, 6.7 GB of f32 on disk).  A: 6 steps and
+            --save_state; B: 3 steps and --save_state, then --load_state
+            and 3 more and --save_state.  The two files' manifests list
+            the same sha256 for every array; verify_checkpoint passes on
+            both and rejects a copy with one byte flipped; --resume_dir
+            with a truncated newest file falls back to the step-3 file,
+            quarantines the bad one and ends equal to A.  Each run's steps
+            launch one lookup and one apply each.  Save and restore
+            seconds and GB/s; the free disk space first (too little
+            fails the phase).
 14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
@@ -121,7 +152,8 @@ Launches are counted per path: the forward's, the serving requests'
 (counted from 0 after the warm-up step); the DLRM's forwards and
 training steps likewise, the dense steps of each model, the lazy-Adam
 steps and Small V3's forwards and steps, and for the last two each arm
-of the segment walk they ran (``segwalk.ARM_LAUNCHES``).
+of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
+phases 9c and 13b.
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms and its adam op); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -135,7 +167,9 @@ import collections
 import concurrent.futures
 import gc
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -150,9 +184,13 @@ from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
+from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
-from distributed_embeddings_tpu_torch.parallel import checkpoint, grad, sparse
+from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
+                                                       checkpoint, grad,
+                                                       sparse)
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
+from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import data, nativebuild
 
 # H100 SXM data-sheet peaks (the bound's denominators)
@@ -205,6 +243,12 @@ HYBRID_OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
 # gradient and the update ``g * -lr``); the full 44.77 GiB would need
 # about 134 GiB.  Whether a larger cap fits is open (PERF.md section 7).
 DENSE_DLRM_MAX_ROWS = 10_000_000
+FIT_STEPS = 6  # phase 9c's runs; the checkpoint at step 3
+# phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
+ONECHIP_MAX_ROWS = 2_000_000
+# the checkpoint files of phases 9c and 13b, inside the checkout (build/
+# is not committed)
+CKPT_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_ckpt'
 
 
 def log(*args):
@@ -1559,6 +1603,325 @@ def phase_tiny_adam(model, config, seed):
   return launches, rows, times
 
 
+def reset_launches():
+  lookup.LAUNCHES = 0
+  segwalk.LAUNCHES = 0
+  segwalk.ARM_LAUNCHES.clear()
+
+
+def read_launches():
+  return {'lookup_combine': lookup.LAUNCHES,
+          'segwalk_apply': segwalk.LAUNCHES}
+
+
+def check_disk(need_bytes, tag):
+  """The free space under ``CKPT_DIR``, logged; too little fails the
+  phase with the numbers."""
+  CKPT_DIR.mkdir(parents=True, exist_ok=True)
+  free = shutil.disk_usage(CKPT_DIR).free
+  log(f'[{tag}] free disk under {CKPT_DIR}: {free / 1e9:.1f} GB; this '
+      f'phase needs {need_bytes / 1e9:.1f} GB')
+  if free < need_bytes:
+    raise AssertionError(f'{tag}: {free / 1e9:.1f} GB free under '
+                         f'{CKPT_DIR}, the phase needs '
+                         f'{need_bytes / 1e9:.1f} GB for its checkpoints')
+
+
+def metric_ms(name):
+  """``(count, total ms)`` of one registry histogram."""
+  h = obs_metrics.snapshot().get(name)
+  return (0, 0.0) if h is None else (h['count'], h['sum'])
+
+
+def logical_digests(dist, state):
+  """The audit digests of a hybrid state's logical content: every table
+  and sparse-optimizer leaf in the global layout (``get_weights``: views
+  of the group tables, without the padding rows, which a restore
+  zero-fills), the dense params and optimizer state, the step."""
+  return audit.tree_digests({
+      'tables': checkpoint.get_weights(dist, state.params['embedding']),
+      'sparse': checkpoint.get_optimizer_state(dist, state.opt_state[1]),
+      'dense': {k: v for k, v in state.params.items() if k != 'embedding'},
+      'dense_opt': state.opt_state[0], 'step': state.step})
+
+
+def compare_digests(tag, want, got):
+  if got != want:
+    bad = sorted(k for k in set(want) | set(got)
+                 if want.get(k) != got.get(k))
+    raise AssertionError(f'{tag}: state differs from run A in {bad}')
+
+
+def phase_fit_tiny(model, config, seed):
+  """Runs A, B and C of phase 9c; returns each run's launches and the
+  save, restore, audit and step numbers."""
+  dist = model.dist_embedding
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  per_step = {'lookup_combine': n_subs, 'segwalk_apply': n_groups}
+  batches = train_batches(config, model.hotness, seed + 9, FIT_STEPS + 1)
+  spare = batches.pop()  # for the host-sync count after run A
+  big = max(model.embedding_params,
+            key=lambda k: model.embedding_params[k].numel())
+  # the big group's rows in use (the rest pad it and never train)
+  used = sum(lt.input_dim for lt in dist.plan.groups[
+      int(big.split('_')[1])].member_tables[0])
+  state_bytes = 2 * sum(t.numel() * 4
+                        for t in model.embedding_params.values())
+  check_disk(2.5 * state_bytes, 'fit-tiny')
+  shutil.rmtree(CKPT_DIR / 'fit', ignore_errors=True)
+  dir_b, dir_c = CKPT_DIR / 'fit' / 'b', CKPT_DIR / 'fit' / 'c'
+  dir_b.mkdir(parents=True)
+  dir_c.mkdir(parents=True)
+
+  def run(tag, want_steps, wrap=lambda s: s, data_=None, **fit_kw):
+    """One fit from tables and MLP drawn anew from the seed."""
+    model.embedding_params = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.init(seed + 9)
+    step, state = build_trainer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = grad.fit(wrap(step), state, iter(data_ or batches),
+                           steps=FIT_STEPS, log_every=3, verbose=False,
+                           dist=dist, **fit_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {k: v * want_steps for k, v in per_step.items()}
+    if launches != want:
+      raise AssertionError(f'fit-tiny {tag}: launched {launches}, expected '
+                           f'{want} ({want_steps} steps)')
+    digests = logical_digests(dist, state)
+    log(f'[fit-tiny] run {tag}: {want_steps} steps in {wall:.2f} s, '
+        f'losses {hist["loss"]}, launches {json.dumps(launches)}, peak '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+    return step, state, hist, digests, launches
+
+  # run A: uninterrupted, each step timed (synchronised)
+  times = []
+
+  def timed(step):
+    def run_step(state, *args):
+      t0 = time.perf_counter()
+      out = step(state, *args)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+      return out
+    return run_step
+
+  step, state, hist_a, dig_a, launch_a = run('A', FIT_STEPS, wrap=timed)
+  peak_a = torch.cuda.max_memory_allocated()
+  full_a = state.params['embedding'][big][:used].clone()
+  bare = host_syncs(lambda: step(state, *spare))
+  in_fit = host_syncs(lambda: grad.fit(step, state, iter([spare]),
+                                       log_every=1, verbose=False))
+  log(f'[fit-tiny] run A step times (synchronised) ms '
+      f'{[round(t, 3) for t in times]}, median '
+      f'{statistics.median(times):.3f} (phase 7 times the same step); '
+      f'host syncs of one step: bare {sum(bare.values())}, inside fit '
+      f'(log_every=1) {sum(in_fit.values())}')
+  if sum(in_fit.values()) != sum(bare.values()) + 1:
+    raise AssertionError(f'fit-tiny: fit added {dict(in_fit - bare)} '
+                         'host syncs to a step, one (the loss window) '
+                         'expected')
+  del step, state
+
+  # run B: checkpoint at step 3, NaN in an accumulator after step 4,
+  # found by the audit, rolled back in place and replayed
+  obs_metrics.enable()
+  obs_metrics.reset()
+  calls = [0]
+
+  def poisoned(step):
+    def run_step(state, *args):
+      state, loss = step(state, *args)
+      calls[0] += 1
+      if calls[0] == 4:
+        state.opt_state[1][big]['acc'][12_345, 0] = float('nan')
+      return state, loss
+    return run_step
+
+  def keep_step3(s, state, logs):
+    # run C resumes from this file; run B's retention prunes it at step 6
+    if s == 3 and 'checkpoint' in logs:
+      os.link(logs['checkpoint'], dir_c / 'ckpt_3.npz')
+
+  cb = callbacks.CheckpointCallback(dist, str(dir_b / 'ckpt_{step}.npz'),
+                                    every=3, keep_last=1)
+  auditor = audit.StateAuditor(dist, every=1, bytes_per_audit=None)
+  audit_ms = []  # each call's host time (it ends in a host sync)
+  check_state = auditor.check_state
+
+  def timed_check(state, step=None):
+    t0 = time.perf_counter()
+    findings = check_state(state, step=step)
+    audit_ms.append((time.perf_counter() - t0) * 1e3)
+    return findings
+
+  auditor.check_state = timed_check
+  _, state, hist_b, dig_b, launch_b = run(
+      'B', FIT_STEPS + 1, wrap=poisoned, callbacks=[cb, keep_step3],
+      on_anomaly='rollback', rollback_dir=str(dir_b),
+      data_factory=lambda s: iter(batches[s:]), auditor=auditor)
+  if hist_b.get('anomalies') != [{'kind': 'audit_failure', 'step': 4}]:
+    raise AssertionError(f'fit-tiny B: anomalies {hist_b.get("anomalies")}')
+  if sorted(os.listdir(dir_b)) != ['ckpt_6.npz']:
+    raise AssertionError(f'fit-tiny B: {sorted(os.listdir(dir_b))} left')
+  compare_digests('fit-tiny B', dig_a, dig_b)
+  if hist_b['loss'] != hist_a['loss'] or not torch.equal(
+      state.params['embedding'][big][:used], full_a):
+    raise AssertionError(f'fit-tiny B: losses {hist_b["loss"]} against '
+                         f'{hist_a["loss"]}, or the {big} table differs')
+  file_bytes = os.path.getsize(dir_c / 'ckpt_3.npz')
+  saves = metric_ms('ckpt.save_ms')
+  restore_b = metric_ms('ckpt.restore_ms')
+  del state
+  shutil.rmtree(dir_b)
+
+  # run C: a fresh draw resumed from the step-3 file
+  obs_metrics.reset()
+  _, state, hist_c, dig_c, launch_c = run(
+      'C', FIT_STEPS - 3, data_=batches[3:], resume_from=str(dir_c))
+  restore_c = metric_ms('ckpt.restore_ms')
+  obs_metrics.disable()
+  compare_digests('fit-tiny C', dig_a, dig_c)
+  if hist_c['loss'] != hist_a['loss'][1:] or not torch.equal(
+      state.params['embedding'][big][:used], full_a):
+    raise AssertionError(f'fit-tiny C: losses {hist_c["loss"]} against '
+                         f'{hist_a["loss"][1:]}, or the {big} table '
+                         'differs')
+  del state, full_a
+  shutil.rmtree(CKPT_DIR / 'fit')
+  save_s = saves[1] / 1e3 / saves[0]
+  numbers = {
+      'file_bytes': file_bytes, 'saves': saves[0], 'save_s': save_s,
+      'save_gb_per_s': file_bytes / 1e9 / save_s,
+      'restore_s': {'rollback': restore_b[1] / 1e3,
+                    'resume': restore_c[1] / 1e3},
+      # the 4th call found the NaN (and localized it); the others swept a
+      # healthy state
+      'audit_ms': audit_ms,
+      'audit_ms_healthy_median': statistics.median(
+          audit_ms[:3] + audit_ms[4:]),
+      'step_ms': times, 'peak_gib': peak_a / 2**30,
+      'host_syncs': {'bare_step': sum(bare.values()),
+                     'fit_step': sum(in_fit.values())},
+  }
+  numbers['restore_gb_per_s'] = {
+      k: file_bytes / 1e9 / v for k, v in numbers['restore_s'].items()}
+  log(f'[fit-tiny] B and C equal A bit for bit ({len(dig_a)} leaf '
+      f'digests, the losses, the {big} table in full); the audit found '
+      'the NaN at step 4 and the rollback replayed steps 4-6')
+  log('[fit-tiny] ' + json.dumps(numbers))
+  return {'A': launch_a, 'B': launch_b, 'C': launch_c}, numbers
+
+
+def phase_dlrm_resume():
+  """Phase 13b: examples/dlrm/main.py's resume flags at the MLPerf
+  widths on the onechip vocabularies.  Returns each run's launches and
+  the save, restore and verify numbers."""
+  sizes = [min(s, ONECHIP_MAX_ROWS) for s in data.MLPERF_SIZES]
+  file_est = sum(sizes) * 128 * 4
+  check_disk(3.2 * file_est, 'dlrm-resume')
+  root = CKPT_DIR / 'dlrm'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  common = ['--param_dtype', 'bfloat16', '--table_sizes',
+            ','.join(map(str, sizes)), '--num_batches', str(FIT_STEPS),
+            '--device', 'cuda']
+  launches = {}
+
+  def main(tag, steps, *argv):
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = dlrm_main.main(common + list(argv))
+    launches[tag] = read_launches()
+    want = {'lookup_combine': steps, 'segwalk_apply': steps}
+    if launches[tag] != want:
+      raise AssertionError(f'dlrm-resume {tag}: launched {launches[tag]}, '
+                           f'expected {want}')
+    log(f'[dlrm-resume] run {tag}: {time.perf_counter() - t0:.2f} s, '
+        f'{json.dumps(out)}')
+    return out
+
+  def verify(path, want_rc):
+    t0 = time.perf_counter()
+    rc = verify_checkpoint.main([str(path), '--quiet'])
+    if rc != want_rc:
+      raise AssertionError(f'verify_checkpoint {path.name}: exit {rc}, '
+                           f'expected {want_rc}')
+    return time.perf_counter() - t0
+
+  a, b3, b = root / 'a.npz', root / 'b3.npz', root / 'b.npz'
+  out_a = main('A', FIT_STEPS, '--max_steps', str(FIT_STEPS),
+               '--save_state', str(a))
+  man_a = checkpoint.read_manifest(str(a))
+  file_bytes = os.path.getsize(a)
+  verify_s = [verify(a, 0)]
+  os.remove(a)
+  out_b3 = main('B1', 3, '--max_steps', '3', '--save_state', str(b3))
+  out_b = main('B2', FIT_STEPS - 3, '--load_state', str(b3), '--max_steps',
+               str(FIT_STEPS), '--save_state', str(b))
+  man_b = checkpoint.read_manifest(str(b))
+  if man_b['arrays'] != man_a['arrays'] or man_b['step'] != FIT_STEPS:
+    bad = [k for k in man_a['arrays']
+           if man_a['arrays'][k] != man_b['arrays'].get(k)]
+    raise AssertionError(f'dlrm-resume: b.npz differs from a.npz in {bad}')
+  verify_s.append(verify(b, 0))
+  flipped = root / 'flipped.npz'
+  shutil.copyfile(b, flipped)
+  with open(flipped, 'r+b') as f:
+    f.seek(file_bytes // 2)
+    byte = f.read(1)
+    f.seek(file_bytes // 2)
+    f.write(bytes([byte[0] ^ 0x10]))
+  verify(flipped, 1)
+  os.remove(flipped)
+  # --resume_dir: the step-3 file and a newer, truncated one
+  resume = root / 'resume'
+  resume.mkdir()
+  os.replace(b3, resume / 'ckpt_3.npz')
+  with open(b, 'rb') as f, open(resume / 'ckpt_6.npz', 'wb') as g:
+    g.write(f.read(1 << 20))
+  os.remove(b)
+  os.utime(resume / 'ckpt_3.npz', (1, 1))
+  c = root / 'c.npz'
+  out_c = main('C', FIT_STEPS - 3, '--resume_dir', str(resume),
+               '--save_state', str(c))
+  left = sorted(os.listdir(resume))
+  if out_c['resumed_from'] != str(resume / 'ckpt_3.npz') or left != [
+      'ckpt_3.npz', 'ckpt_6.npz.corrupt']:
+    raise AssertionError(f'dlrm-resume C: resumed from '
+                         f'{out_c["resumed_from"]}, left {left}')
+  if checkpoint.read_manifest(str(c))['arrays'] != man_a['arrays']:
+    raise AssertionError('dlrm-resume: c.npz differs from a.npz')
+  shutil.rmtree(root)
+  numbers = {
+      'rows': sum(sizes), 'file_bytes': file_bytes,
+      'save_s': [out_a['save_s'], out_b3['save_s'], out_b['save_s'],
+                 out_c['save_s']],
+      'restore_s': [out_b['restore_s'], out_c['restore_s']],
+      'verify_s': verify_s, 'loss': out_a['loss'],
+  }
+  numbers['save_gb_per_s'] = [file_bytes / 1e9 / t
+                              for t in numbers['save_s']]
+  numbers['restore_gb_per_s'] = [file_bytes / 1e9 / t
+                                 for t in numbers['restore_s']]
+  log(f'[dlrm-resume] {len(sizes)} tables, {sum(sizes):,} rows x 128 '
+      f'(onechip cut), files of {file_bytes / 1e9:.3f} GB: the resumed '
+      'file equals the uninterrupted one array by array (sha256); '
+      'verify_checkpoint passed both and rejected the flipped copy; '
+      '--resume_dir quarantined the truncated file and resumed at step 3')
+  log('[dlrm-resume] ' + json.dumps(numbers))
+  return launches, numbers
+
+
 def run_small(seed, lookup_k, seg_k):
   """Synthetic Small V3 at full size in bf16 (tables and compute),
   ``dp_input=True``, tables drawn on the card: 3 forwards checked
@@ -1756,6 +2119,7 @@ def run_tiny(args):
   torch.cuda.empty_cache()
   adam_launches, adam_rows, adam_times = phase_tiny_adam(model, config,
                                                          args.seed)
+  fit_launches, fit_numbers = phase_fit_tiny(model, config, args.seed)
 
   k = dict(KERNELS[0])
   k.update({
@@ -1795,6 +2159,10 @@ def run_tiny(args):
   })
   adam = summed(ARMS[2], adam_launches['segwalk_apply:adam'], adam_rows,
                 {'step_ms': adam_times})
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_fit_tiny'] = {run: n[name]
+                                  for run, n in fit_launches.items()}
+  seg['fit_tiny'] = fit_numbers
   return k, seg, adam
 
 
@@ -1842,6 +2210,13 @@ def main(argv=None) -> int:
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
       f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
   run_dlrm(args.seed, k, seg)
+  gc.collect()
+  torch.cuda.empty_cache()
+  resume_launches, resume_numbers = phase_dlrm_resume()
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_resume'] = {run: n[name]
+                                     for run, n in resume_launches.items()}
+  seg['dlrm_resume'] = resume_numbers
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()

@@ -21,11 +21,28 @@ is an XLA compile option with no counterpart here, and
 changes nothing.  ``--device`` (default
 ``cuda``) is the port's own flag: ``--device cpu`` runs every kernel's
 plain PyTorch version.
+
+Checkpoints are the JAX example's files (either package resumes the
+other's): ``--save_weights`` (the reference's positional ``arr_i``
+tables), ``--save_state`` (a resumable ``save_train_npz`` file),
+``--load_state`` (resume from one file) and ``--resume_dir`` (resume
+from the newest valid file of a directory).  A resume skips the batches
+the resumed run consumed; ``--max_steps`` counts the steps of this
+invocation, as in the JAX example.  One difference: an auto-resume from
+``--resume_dir`` also quarantines (renames ``*.corrupt``) the candidates
+that fail verification, as the rollback path does, so no later resume
+rescans known-bad bytes.  ``--audit_every`` audits the state
+(``parallel.audit.StateAuditor``); ``--on_anomaly rollback`` restores
+the newest valid file of ``--resume_dir`` in place and skips the
+offending window (at most ``--rollback_budget`` times); ``--eval_every``
+evaluates AUC during training and prints the curve.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
 import sys
 import time
 
@@ -34,9 +51,11 @@ import torch
 
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
-from distributed_embeddings_tpu_torch.parallel import grad, sparse
+from distributed_embeddings_tpu_torch.parallel import checkpoint, grad, sparse
+from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
+from distributed_embeddings_tpu_torch.utils import resilience
 from distributed_embeddings_tpu_torch.utils.data import DummyDataset
 from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
 from distributed_embeddings_tpu_torch.utils.schedules import (
@@ -49,10 +68,7 @@ UNPORTED = {
     'hot_calib_batches': 7, 'hot_budget_mb': 7, 'overlap_chunks': 8,
     'fused_exchange': 8, 'wire_dtype': 9, 'table_dtype': 9,
     'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
-    'loader_bench': 12, 'eval_every': '3c',
-    'save_weights': 11, 'save_state': 11, 'load_state': 11,
-    'resume_dir': '3c', 'audit_every': '3c', 'on_anomaly': '3c',
-    'rollback_budget': '3c', 'trace': 14,
+    'loader_bench': 12, 'trace': 14,
 }
 
 
@@ -111,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--eval', action='store_true',
                  help='run AUC evaluation after training')
   p.add_argument('--eval_every', type=int, default=0,
-                 help='not ported (item 3c)')
+                 help='evaluate AUC every N steps (0 = off)')
   p.add_argument('--eval_batches', type=int, default=0,
                  help='cap eval to this many batches (0 = all)')
   p.add_argument('--loader_bench', action='store_true',
@@ -124,23 +140,31 @@ def build_parser() -> argparse.ArgumentParser:
                  help='stop after this many train steps (0 = the whole '
                  'dataset)')
   p.add_argument('--save_weights', default=None,
-                 help='not ported (item 11)')
+                 help='save the tables as the reference\'s arr_i npz')
   p.add_argument('--trainer', default='sparse', choices=['sparse', 'dense'],
                  help='sparse = row-wise embedding updates; dense = '
                  'autodiff through the whole model (reference parity)')
-  p.add_argument('--save_state', default=None, help='not ported (item 11)')
-  p.add_argument('--load_state', default=None, help='not ported (item 11)')
-  p.add_argument('--resume_dir', default=None, help='not ported (item 3c)')
+  p.add_argument('--save_state', default=None,
+                 help='save a resumable checkpoint (tables, optimizer '
+                 'state, step) at the end')
+  p.add_argument('--load_state', default=None,
+                 help='resume from this checkpoint file')
+  p.add_argument('--resume_dir', default=None,
+                 help='resume from the newest valid checkpoint here '
+                 '(corrupt candidates are quarantined); the rollback '
+                 'directory of --on_anomaly rollback')
   p.add_argument('--on_batch_error', default='raise',
                  choices=['raise', 'skip'], help='not ported (item 12)')
   p.add_argument('--audit_every', type=int, default=0,
-                 help='not ported (item 3c)')
+                 help='state-integrity audit every N steps (0 = off; '
+                 'needs --trainer sparse)')
   p.add_argument('--on_anomaly', default='terminate',
                  choices=['terminate', 'rollback'],
-                 help='rollback is not ported (item 3c); a non-finite '
-                 'loss terminates (exit 3)')
+                 help='on a non-finite loss or a failed audit: exit 3, '
+                 'or roll back to the newest valid checkpoint of '
+                 '--resume_dir and skip the offending window')
   p.add_argument('--rollback_budget', type=int, default=2,
-                 help='not ported (item 3c)')
+                 help='in-process rollbacks before terminating')
   p.add_argument('--trace', default=None, metavar='PATH',
                  help='not ported (item 14)')
   p.add_argument('--device', default='cuda',
@@ -239,6 +263,33 @@ def main(argv=None):
 
   step, state = make_trainer(model, args.trainer, args.learning_rate)
 
+  # resume: one file (--load_state) or the newest VALID file of
+  # --resume_dir; restore_train_state reshards the tables and sparse
+  # optimizer state and restores the MLPs and both schedules' counts
+  resume_step = 0
+  resume_source = args.load_state or (
+      args.resume_dir if args.resume_dir and os.path.isdir(args.resume_dir)
+      else None)
+  resumed_from = None
+  timings = {}
+  if resume_source is not None:
+    t0 = time.perf_counter()
+    try:
+      state, resumed_from = checkpoint.restore_train_state(
+          dist, state, resume_source,
+          quarantine=args.load_state is None)
+    except FileNotFoundError as e:
+      if args.load_state:
+        raise
+      print(f'resume_dir: no valid checkpoint yet ({e}); starting fresh')
+    else:
+      resume_step = int(state.step)
+      timings['restore_s'] = time.perf_counter() - t0
+      print(f'resumed from {resumed_from} at step {resume_step} in '
+            f'{timings["restore_s"]:.2f} s')
+
+  auc_history = []
+
   def run_eval(step_no):
     auc_metric = StreamingAUC(num_thresholds=8000)
     with torch.no_grad():
@@ -249,30 +300,104 @@ def main(argv=None):
                                           list(cats)))
         auc_metric.update(labels, preds.float().cpu().numpy())
     auc = auc_metric.result()
+    auc_history.append((step_no, auc))
     print(f'step: {step_no}  eval AUC: {auc:.5f}', flush=True)
     return auc
+
+  # self-healing: periodic state audits, and terminate (exit 3) or roll
+  # back in place.  The loop's input is sequential, so a rollback keeps
+  # the current input position: the window between the restored step and
+  # the detection is skipped (journaled), as in the JAX example.
+  auditor = None
+  if args.audit_every > 0:
+    if args.trainer != 'sparse':
+      raise SystemExit('--audit_every requires --trainer sparse (the '
+                       'auditor checks the hybrid embedding state)')
+    auditor = StateAuditor(dist, every=args.audit_every)
+    print(f'audit: state-integrity checks every {args.audit_every} '
+          f'step(s), on_anomaly={args.on_anomaly}')
+  if args.on_anomaly == 'rollback' and not args.resume_dir:
+    raise SystemExit('--on_anomaly rollback needs --resume_dir (the '
+                     'checkpoint directory to restore from)')
+  rollbacks = 0
+
+  def handle_anomaly(step_no, why):
+    """Exit 3, or roll back in place and return.  A sibling of fit's
+    handler (parallel/grad.py) with the same journal events: this loop
+    exits with a process code and cannot rewind its input."""
+    nonlocal state, rollbacks
+    policy = ('rollback_skip' if args.on_anomaly == 'rollback'
+              else args.on_anomaly)
+    resilience.journal('anomaly_detected', anomaly=why, step=step_no,
+                       policy=policy)
+    if args.on_anomaly == 'rollback' and rollbacks < args.rollback_budget:
+      try:
+        state, pth = checkpoint.restore_train_state(
+            dist, state, args.resume_dir, quarantine=True)
+      except (FileNotFoundError, ValueError) as e:
+        resilience.journal('rollback_failed', step=step_no, anomaly=why,
+                           error=str(e))
+        print(f'on_anomaly=rollback: {why} at step {step_no} and no '
+              f'valid checkpoint to roll back to ({e}); terminating')
+        sys.exit(3)
+      rollbacks += 1
+      resilience.journal('rollback', anomaly=why, detect_step=step_no,
+                         at_step=step_no, to_step=int(state.step),
+                         path=pth, attempt=rollbacks, policy=policy)
+      resilience.journal('skip_window', from_step=int(state.step),
+                         to_step=step_no,
+                         batches=step_no - int(state.step))
+      print(f'on_anomaly=rollback: {why} at step {step_no} -> restored '
+            f'{pth} at step {int(state.step)} (attempt {rollbacks}/'
+            f'{args.rollback_budget}); input continues at the current '
+            'batch (offending window skipped)')
+      return
+    if args.on_anomaly == 'rollback':
+      resilience.journal('rollback_budget_exhausted',
+                         budget=args.rollback_budget, step=step_no,
+                         anomaly=why)
+      print(f'on_anomaly=rollback: {why} at step {step_no} but the '
+            f'rollback budget ({args.rollback_budget}) is exhausted; '
+            'terminating')
+    else:
+      print(f'on_anomaly=terminate: {why} at step {step_no}; '
+            'terminating (journaled)')
+    sys.exit(3)
 
   start = time.perf_counter()
   steady_start = None  # after the warm-up steps, which load the kernels
   samples = 0
   loss = None
-  for i, (numerical, cats, labels) in enumerate(train_dataset):
+  data_iter = iter(train_dataset)
+  if resume_step:
+    # skip the batches the resumed run consumed (one epoch at most)
+    data_iter = itertools.islice(
+        data_iter, resume_step % max(1, len(train_dataset)), None)
+  for i, (numerical, cats, labels) in enumerate(data_iter):
     state, loss = step(state, numerical, list(cats), labels)
     samples += args.batch_size
-    if i % 1000 == 0:
-      if not np.isfinite(float(loss)):
-        print(f'on_anomaly=terminate: non_finite_loss at step {i + 1}; '
-              'terminating')
-        sys.exit(3)
-      print(f'step: {i}  loss: {float(loss):.5f}')
+    step_no = resume_step + i + 1
+    if auditor is not None and (i + 1) % args.audit_every == 0:
+      findings = auditor.check_state(state, step=step_no)
+      if findings:
+        handle_anomaly(step_no, 'audit_failure: '
+                       + '; '.join(f.brief() for f in findings[:3]))
+      elif not np.isfinite(float(loss)):  # the audit paid the sync
+        handle_anomaly(step_no, 'non_finite_loss')
+    elif i % 1000 == 0 and not np.isfinite(float(loss)):
+      handle_anomaly(step_no, 'non_finite_loss')
     if i == 2:
       _sync(device)
       steady_start = (time.perf_counter(), samples)
+    if i % 1000 == 0:
+      print(f'step: {resume_step + i}  loss: {float(loss):.5f}')
+    if args.eval_every and (i + 1) % args.eval_every == 0:
+      run_eval(step_no)
     if args.max_steps and i + 1 >= args.max_steps:
       break
   if loss is None:
-    print('no batches to train on')
-    return
+    print('no batches to train on (resume skipped the whole dataset)')
+    return None
   _sync(device)
   elapsed = time.perf_counter() - start
   print(f'trained {samples} samples in {elapsed:.1f}s '
@@ -287,7 +412,30 @@ def main(argv=None):
   if args.eval:
     auc = run_eval(int(state.step))
     print(f'Evaluation completed, AUC: {auc:.5f}')
+  if len(auc_history) > 1:
+    print('AUC curve: ' + ' '.join(f'{s}:{a:.4f}' for s, a in auc_history))
 
+  weights = None
+  t0 = time.perf_counter()
+  if args.save_weights or args.save_state:
+    weights = checkpoint.export_tables(dist, state.params['embedding'])
+  if args.save_weights:
+    checkpoint.save_npz(args.save_weights, weights)
+    print(f'saved embedding weights to {args.save_weights}')
+  if args.save_state:
+    st_tables = (checkpoint.get_optimizer_state(dist, state.opt_state[1])
+                 if args.trainer == 'sparse' else None)
+    checkpoint.save_train_npz(
+        args.save_state, weights, st_tables,
+        extras=checkpoint.train_extras(dist, state,
+                                       sparse=args.trainer == 'sparse'),
+        plan=dist)
+    timings['save_s'] = time.perf_counter() - t0
+    print(f'saved resumable state to {args.save_state} in '
+          f'{timings["save_s"]:.2f} s (the tables\' device-to-host copy '
+          'included)')
+  return {'step': int(state.step), 'loss': float(loss),
+          'resumed_from': resumed_from, 'auc': auc_history, **timings}
 
 if __name__ == '__main__':
   main()

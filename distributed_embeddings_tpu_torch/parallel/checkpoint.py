@@ -1,5 +1,5 @@
-"""Global canonical tables <-> a rank's group shards: the port's
-counterpart of ``set_weights`` / ``get_weights`` in
+"""Checkpoints: global canonical tables <-> a rank's group shards, and
+the checkpoint files.  The port's counterpart of
 ``distributed_embeddings_tpu/parallel/checkpoint.py``.
 
 The contract is the JAX package's: weights are global per-table
@@ -9,26 +9,64 @@ do the same for the sparse optimizer's state: per-element leaves
 ``[rows, width]`` (Adagrad's ``acc``, Adam's ``m`` and ``v``) at their
 dtype (a bf16 accumulator stays bf16), and per-row leaves ``[rows]``
 (Adam's step count ``t``), identical across the column slices of a row,
-so the first slice is canonical.  These functions are also how state
-crosses from the JAX package to the port: ``get_weights`` /
-``get_optimizer_state`` of a JAX model, then ``set_weights`` /
-``set_optimizer_state`` here, or
-``train_state_from_jax`` (hybrid) / ``dense_train_state_from_jax``
-(dense autodiff trainer) for a whole train state.  Saving and loading
-files (``save_train_npz`` and the rest) is ROADMAP.md Queue 1, item 11.
+so the first slice is canonical.  ``train_state_from_jax`` (hybrid) /
+``dense_train_state_from_jax`` (dense autodiff trainer) carry a JAX
+train state held in memory.
+
+The files are the JAX package's, byte layout and key names alike, so
+either package reads what the other wrote:
+
+- ``save_train_npz`` / ``load_train_npz``: ``table{i}``,
+  ``table{i}/{leaf}`` and ``extra/{name}`` members plus an embedded
+  ``__manifest__`` (per-array sha256, dtype and shape, the step, the
+  ``plan_fingerprint``), written atomically (tmp file, fsync,
+  ``os.replace``).  bf16 arrays are stored as f32 (exact; numpy has no
+  bf16) and cast back to the live dtype on load; every other dtype is
+  stored as it is (an int32 count stays int32).
+- ``train_extras`` names the dense params and the dense optimizer's
+  state as the JAX package does (``'dense:' + keystr(path)``,
+  ``'opt:' + keystr(path)``): ``_jax_segments`` maps an ``nn.Linear``
+  parameter ``'{m}.layers.{i}.weight'`` (``[out, in]``) to the JAX MLP's
+  ``['{m}'][{i}]['kernel']`` (``[in, out]``, transposed) and the port's
+  optimizer states (``optim.adagrad``'s ``{'sum_of_squares': tree}``,
+  scheduled ``optim.sgd``'s ``{'count': n}``) to optax's chain
+  (``[0].sum_of_squares...``, ``[1].count``).
+- ``load_latest_valid`` (newest valid file of a directory; numeric
+  tie-break on equal mtimes), ``quarantine_checkpoint``,
+  ``prune_checkpoints`` (anchored to the newest verified file; in-flight
+  restore targets exempt), ``verify_npz``, ``save_npz`` / ``load_npz``
+  (the reference's positional ``arr_i`` weights format).
+- ``restore_train_state``: a hybrid or dense ``TrainState`` from a file
+  or a directory, written IN PLACE into the template state's tensors on
+  their device (the train steps update in place too).
+
+Left for their items: quantized entries (``QuantizedWeight``, item 9),
+the hot-row overlay (item 7), the hierarchical-layout refusal (item 10)
+and the rendezvous sanitizer's records (item 16).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Union
+import concurrent.futures
+import glob as glob_lib
+import hashlib
+import json
+import os
+import re
+import threading
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    DistributedEmbedding)
+    DistributedEmbedding, not_ported)
 from distributed_embeddings_tpu_torch.parallel.grad import TrainState
+from distributed_embeddings_tpu_torch.utils import resilience
 
 WeightLike = Union[np.ndarray, torch.Tensor]
 
@@ -268,3 +306,706 @@ def dense_train_state_from_jax(dist: DistributedEmbedding, tables: Sequence,
 
   params = carry({'embedding': tables, **dict(dense_params)})
   return TrainState(params, carry(opt_state), int(step))
+
+
+# --------------------------------------------------------------------------
+# host copies: what a file stores
+# --------------------------------------------------------------------------
+
+# rows per device-to-host copy: at most 2**27 elements (512 MiB of f32),
+# so saving a multi-GiB table never stages a table-sized copy
+CHUNK_ELEMS = 1 << 27
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+  """A tensor's host copy as numpy, in row chunks of at most
+  ``CHUNK_ELEMS`` elements: bf16 up-cast to f32 (exact; numpy has no
+  bf16), every other dtype as it is.  Always a copy: the train steps
+  update their tensors in place."""
+  t = t.detach()
+  dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+  out = torch.empty(t.shape, dtype=dtype)
+  if t.dim() == 0 or t.shape[0] == 0:
+    out.copy_(t)
+    return out.numpy()
+  step = max(1, CHUNK_ELEMS // max(1, t[0].numel()))
+  for r0 in range(0, t.shape[0], step):
+    out[r0:r0 + step].copy_(t[r0:r0 + step])
+  return out.numpy()
+
+
+def _portable(a) -> np.ndarray:
+  """The on-disk form of one array: tensors through ``_host``; numpy
+  bf16 (ml_dtypes, which ``np.savez`` would store as raw ``V2`` bytes)
+  up-cast to f32; every other array as it is (the JAX package's rule:
+  only bf16 is widened)."""
+  if isinstance(a, torch.Tensor):
+    return _host(a)
+  a = np.asarray(a)
+  if a.dtype.kind == 'V' and a.dtype.names is None:
+    return a.astype(np.float32)
+  return a
+
+
+def export_tables(dist: DistributedEmbedding, params) -> List[np.ndarray]:
+  """The canonical per-table checkpoint entries of ``params``: global
+  ``[rows, width]`` host arrays (``get_weights``, then ``_host``; a
+  collective with more than one rank).  Quantized plans (payload and
+  scale pairs) are item 9."""
+  return [_host(t) for t in get_weights(dist, params)]
+
+
+# --------------------------------------------------------------------------
+# the JAX package's names for the dense params and optimizer state
+# --------------------------------------------------------------------------
+
+# a PyTorch ``nn.Linear`` parameter of an ``MLP`` (``layers`` ModuleList)
+_LAYER = re.compile(r'^(.+)\.layers\.(\d+)\.(weight|bias)$')
+# the port's optimizer states -> optax's chain: (scale_by_rss or trace,
+# scale_by_learning_rate); optax keeps the schedule's count in the second
+_OPT_PATHS = {
+    'sum_of_squares': (('idx', 0), ('attr', 'sum_of_squares')),
+    'count': (('idx', 1), ('attr', 'count')),
+}
+
+
+def _jax_segments(key) -> Tuple[Tuple, bool]:
+  """``(path segments, transposed)`` of one dict key of the port's
+  trees: ``'{m}.layers.{i}.weight'`` is the JAX MLP's ``['{m}'][{i}]
+  ['kernel']``, stored ``[in, out]`` (the transpose of ``nn.Linear``'s
+  ``[out, in]``); ``'{m}.layers.{i}.bias'`` its ``['bias']``; any other
+  key a dict key of its own."""
+  m = _LAYER.match(str(key))
+  if m is None:
+    return (('key', key),), False
+  weight = m.group(3) == 'weight'
+  return ((('key', m.group(1)), ('idx', int(m.group(2))),
+           ('key', 'kernel' if weight else 'bias')), weight)
+
+
+def _keystr(path) -> str:
+  """``jax.tree_util.keystr`` of a path of segments."""
+  return ''.join(f'[{v}]' if kind == 'idx' else
+                 f'.{v}' if kind == 'attr' else f'[{v!r}]'
+                 for kind, v in path)
+
+
+def _walk(tree, fn, opt: bool = False, path=(), transposed=False):
+  """``tree`` (dicts, tuples, lists) rebuilt with each leaf replaced by
+  ``fn(path, leaf, transposed)``, ``path`` the leaf's segments in the JAX
+  package's tree.  ``opt``: the tree is an optimizer state, whose top
+  level maps through ``_OPT_PATHS``."""
+  if isinstance(tree, dict):
+    if opt and set(tree) <= set(_OPT_PATHS):
+      segs = {k: (_OPT_PATHS[k], False) for k in tree}
+    else:
+      segs = {k: _jax_segments(k) for k in tree}
+    return {k: _walk(v, fn, False, path + segs[k][0], segs[k][1])
+            for k, v in tree.items()}
+  if isinstance(tree, (tuple, list)):
+    return type(tree)(_walk(v, fn, False, path + (('idx', i),))
+                      for i, v in enumerate(tree))
+  return fn(path, tree, transposed)
+
+
+def _flatten(tree, opt: bool = False):
+  """``[(path, leaf, transposed)]`` of a port tree in the JAX package's
+  flatten order (dict keys sorted, sequences by index)."""
+  out = []
+  _walk(tree, lambda *leaf: out.append(leaf), opt)
+  return sorted(out, key=lambda e: [(kind == 'key', str(v)) if kind != 'idx'
+                                    else (0, f'{v:012d}')
+                                    for kind, v in e[0]])
+
+
+def _is_shard(path) -> bool:
+  """A leaf of a tree's ``'embedding'`` entry: this rank's share of a
+  group (the dense trainer's per-parameter optimizer state), stored as
+  the JAX package stores it, every rank's ``[world, rows_cap, ...]``."""
+  return ('key', 'embedding') in path
+
+
+def _extra_value(dist: DistributedEmbedding, path, leaf, transposed):
+  if isinstance(leaf, int):  # a schedule's count: optax keeps int32
+    return np.asarray(leaf, np.int32)
+  if _is_shard(path):
+    return np.stack([_host(s) for s in _all_shards(dist, leaf)])
+  a = _portable(leaf)
+  return np.ascontiguousarray(a.T) if transposed else a
+
+
+def train_extras(dist: DistributedEmbedding, state,
+                 step: Optional[int] = None,
+                 sparse: Optional[bool] = None) -> Dict[str, np.ndarray]:
+  """The ``extras`` of ``save_train_npz`` for ``state``, named as the
+  JAX package's ``CheckpointCallback`` and DLRM example name them:
+  ``'step'`` (int64), ``'dense:' + keystr`` for every param but the
+  tables, ``'opt:' + keystr`` for the dense optimizer's state (the
+  hybrid state's ``opt_state[0]``, or the dense trainer's whole state,
+  whose table leaves are stored ``[world, rows_cap, ...]``).  A
+  collective with more than one rank.
+
+  ``step``: the step to record (default ``state.step``); ``sparse``:
+  whether ``state.opt_state`` is the hybrid layout (default:
+  ``is_hybrid_opt_state``)."""
+  if sparse is None:
+    sparse = is_hybrid_opt_state(dist, state.opt_state)
+  extras = {'step': np.int64(int(state.step if step is None else step))}
+  dense = {k: v for k, v in state.params.items() if k != 'embedding'}
+  for path, leaf, tr in _flatten(dense):
+    extras['dense:' + _keystr(path)] = _extra_value(dist, path, leaf, tr)
+  dense_opt = state.opt_state[0] if sparse else state.opt_state
+  for path, leaf, tr in _flatten(dense_opt, opt=True):
+    extras['opt:' + _keystr(path)] = _extra_value(dist, path, leaf, tr)
+  return extras
+
+
+def _restore_like(dist: DistributedEmbedding, template,
+                  saved: Dict[str, np.ndarray], prefix: str, opt=False):
+  """``template`` with every leaf whose ``prefix + keystr`` is in
+  ``saved`` replaced by the saved value: tensors written in place (at
+  their dtype and device; transposed back; a table shard takes this
+  rank's slice), Python ints replaced.  Leaves without a saved key keep
+  their value.  Every shape is checked before anything is written."""
+  writes = []
+  values = {}
+
+  def check(path, leaf, tr):
+    key = prefix + _keystr(path)
+    if key not in saved:
+      return
+    a = np.asarray(saved[key])
+    if isinstance(leaf, int):
+      values[path] = int(a)
+      return
+    if _is_shard(path):
+      if a.shape != (dist.world_size,) + tuple(leaf.shape):
+        raise ValueError(f'{key}: saved {a.shape}, expected every rank\'s '
+                         f'{(dist.world_size,) + tuple(leaf.shape)}')
+      a = a[dist.rank]
+    elif tr:
+      a = a.T
+    if a.shape != tuple(leaf.shape):
+      raise ValueError(f'{key}: saved shape {a.shape}, expected '
+                       f'{tuple(leaf.shape)}')
+    writes.append((leaf, a))
+
+  _walk(template, check, opt)
+  with torch.no_grad():
+    for leaf, a in writes:
+      leaf.copy_(torch.as_tensor(np.ascontiguousarray(a)))
+  return _walk(template, lambda path, leaf, tr: values.get(path, leaf), opt)
+
+
+# --------------------------------------------------------------------------
+# checkpoint integrity: atomic writes, manifest + checksums, verified load
+# --------------------------------------------------------------------------
+
+MANIFEST_KEY = '__manifest__'
+MANIFEST_VERSION = 1
+
+
+def _atomic_savez(path: str, payload: Dict[str, np.ndarray]):
+  """The one write path of every npz of this module: a same-directory
+  tmp file, flush + fsync, then ``os.replace``; a crash leaves the old
+  file or the new one, never a truncated hybrid, and no tmp debris."""
+  path = os.fspath(path)
+  d = os.path.dirname(os.path.abspath(path)) or '.'
+  tmp = os.path.join(d, f'.{os.path.basename(path)}.tmp.{os.getpid()}')
+  try:
+    with open(tmp, 'wb') as f:
+      np.savez(f, **payload)
+      f.flush()
+      os.fsync(f.fileno())
+    os.replace(tmp, path)
+  finally:
+    if os.path.exists(tmp):
+      try:
+        os.remove(tmp)
+      except OSError:
+        pass
+
+
+def plan_fingerprint(obj) -> str:
+  """Fingerprint of the LOGICAL table set (per-table rows, width,
+  combiner), not the layout: a file written under one world size or
+  strategy loads under any other.  Accepts a ``DistributedEmbedding``,
+  a plan, a ``TableConfig`` sequence or a fingerprint string; equal to
+  the JAX package's for the same tables."""
+  if isinstance(obj, str):
+    return obj
+  configs = getattr(obj, 'table_configs', None)
+  if configs is None:
+    plan = getattr(obj, 'plan', None)
+    configs = plan.table_configs if plan is not None else obj
+  material = json.dumps(
+      [[int(c.input_dim), int(c.output_dim), c.combiner] for c in configs])
+  return hashlib.sha256(material.encode()).hexdigest()[:16]
+
+
+def _checksum(a: np.ndarray) -> str:
+  """sha256 over dtype + shape + the raw bytes of one stored array (the
+  JAX package's digest), hashed from a byte view: no copy."""
+  a = np.ascontiguousarray(a)
+  h = hashlib.sha256(f'{a.dtype.str}:{a.shape}:'.encode())
+  h.update(a.reshape(-1).view(np.uint8))
+  return h.hexdigest()
+
+
+def _hash_pool() -> concurrent.futures.ThreadPoolExecutor:
+  """Threads for the checksums (hashlib releases the GIL on large
+  buffers, so arrays hash in parallel)."""
+  return concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1))
+
+
+def _build_manifest(payload: Dict[str, np.ndarray],
+                    step: Optional[int] = None,
+                    plan=None) -> np.ndarray:
+  with _hash_pool() as pool:
+    sums = dict(zip(payload, pool.map(_checksum, payload.values())))
+  man = {
+      'version': MANIFEST_VERSION,
+      'step': None if step is None else int(step),
+      'plan': None if plan is None else plan_fingerprint(plan),
+      'arrays': {
+          k: {'sha256': sums[k], 'dtype': np.asarray(v).dtype.str,
+              'shape': list(np.asarray(v).shape)}
+          for k, v in payload.items()
+      },
+  }
+  return np.array(json.dumps(man))
+
+
+def read_manifest(path: str) -> Optional[Dict]:
+  """The file's embedded manifest, or None for a legacy (manifest-less)
+  npz, which stays loadable."""
+  with np.load(path, allow_pickle=False) as data:
+    if MANIFEST_KEY not in data.files:
+      return None
+    return json.loads(str(data[MANIFEST_KEY][()]))
+
+
+def _load_verified(path: str, expect_plan=None
+                   ) -> Tuple[Dict[str, np.ndarray], Optional[Dict]]:
+  """One pass: every member is read once and, for a file with a
+  manifest, sha256-checked (each array hashes on a worker thread while
+  the next one is read).  Returns ``(arrays, manifest)`` (manifest None
+  for legacy files); raises ``ValueError`` with the reason otherwise."""
+  try:
+    with np.load(path, allow_pickle=False) as data, _hash_pool() as pool:
+      files = list(data.files)
+      arrays_meta = None
+      man = None
+      if MANIFEST_KEY in files:
+        man = json.loads(str(data[MANIFEST_KEY][()]))
+        if expect_plan is not None and man.get('plan') is not None:
+          want = plan_fingerprint(expect_plan)
+          if man['plan'] != want:
+            raise ValueError(f'plan-mismatch: file plan {man["plan"]}, '
+                             f'expected {want}')
+        arrays_meta = man.get('arrays', {})
+        missing = [k for k in arrays_meta if k not in files]
+        if missing:
+          raise ValueError(f'missing array {missing[0]!r}')
+        stray = [k for k in files
+                 if k != MANIFEST_KEY and k not in arrays_meta]
+        if stray:
+          raise ValueError(f'arrays not in manifest: {stray}')
+      loaded = {}
+      sums = {}
+      for k in files:  # decompression errors surface truncation
+        if k == MANIFEST_KEY:
+          continue
+        loaded[k] = data[k]
+        if arrays_meta is not None:
+          sums[k] = pool.submit(_checksum, loaded[k])
+      for k, fut in sums.items():
+        if fut.result() != arrays_meta[k]['sha256']:
+          raise ValueError(f'checksum mismatch on {k!r}')
+      return loaded, man
+  except ValueError:
+    raise
+  except Exception as e:  # truncated zip, bad json, short member, ...
+    raise ValueError(f'unreadable: {e!r}') from e
+
+
+def verify_npz(path: str, expect_plan=None
+               ) -> Tuple[bool, str, Optional[Dict]]:
+  """Validate one checkpoint file: ``(ok, reason, manifest)``.  A file
+  with a manifest must decompress, carry every manifested array with a
+  matching sha256, list no stray array and match ``expect_plan``'s
+  fingerprint when given; a legacy file passes on a structural read
+  (reason ``'legacy-no-manifest'``).  Never raises."""
+  try:
+    _, man = _load_verified(path, expect_plan=expect_plan)
+  except ValueError as e:
+    return False, str(e), None
+  return True, 'ok' if man is not None else 'legacy-no-manifest', man
+
+
+def _step_hint(path: str) -> int:
+  """The last integer in the file name (``ckpt_1000.npz`` -> 1000), -1
+  without one: the tie-break on equal mtimes (a lexical one would rank
+  ckpt_999 above ckpt_1000)."""
+  groups = re.findall(r'\d+', os.path.basename(path))
+  return int(groups[-1]) if groups else -1
+
+
+def _is_atomic_tmp(name: str) -> bool:
+  """Exactly ``_atomic_savez``'s tmp naming (``.{basename}.tmp.{pid}``)."""
+  return name.startswith('.') and '.tmp.' in name
+
+
+QUARANTINE_SUFFIX = '.corrupt'
+
+_QUARANTINE_RE = re.compile(r'\.corrupt(\.\d+)?$')
+
+
+def _is_quarantined(name: str) -> bool:
+  """Exactly ``quarantine_checkpoint``'s naming (``*.corrupt`` /
+  ``*.corrupt.N``); '.corrupt' inside a name does not count."""
+  return _QUARANTINE_RE.search(name) is not None
+
+
+def _candidates(directory: str, pattern: str) -> List[str]:
+  """Checkpoint files under ``directory`` newest first (mtime, then the
+  step in the name, then the name), without in-flight tmp files and
+  quarantined files."""
+  paths = [p for p in glob_lib.glob(os.path.join(directory, pattern))
+           if not _is_atomic_tmp(os.path.basename(p))
+           and not _is_quarantined(os.path.basename(p))]
+  return sorted(paths,
+                key=lambda p: (os.path.getmtime(p), _step_hint(p), p),
+                reverse=True)
+
+
+# files an in-flight restore is reading: retention skips them
+_PROTECTED_LOCK = threading.Lock()
+_PROTECTED: set = set()
+
+
+class _protect_path:
+  """Context manager marking ``path`` as in flight (prune-exempt)."""
+
+  def __init__(self, path: str):
+    self.path = os.path.abspath(path)
+
+  def __enter__(self):
+    with _PROTECTED_LOCK:
+      _PROTECTED.add(self.path)
+    return self.path
+
+  def __exit__(self, *exc):
+    with _PROTECTED_LOCK:
+      _PROTECTED.discard(self.path)
+
+
+def protected_paths() -> List[str]:
+  with _PROTECTED_LOCK:
+    return sorted(_PROTECTED)
+
+
+# verdicts for the RETENTION ANCHOR only, keyed by (mtime_ns, size): the
+# anchor search runs after every periodic save and must not re-read the
+# multi-GiB file it verified one save ago.  Resume and restore never
+# consult it.  Bounded, FIFO.
+_VERIFY_CACHE: Dict[str, Tuple[Tuple[int, int], bool]] = {}
+_VERIFY_CACHE_CAP = 64
+
+
+def _cache_verdict(path: str, ok: bool):
+  st = os.stat(path)
+  if len(_VERIFY_CACHE) >= _VERIFY_CACHE_CAP:
+    _VERIFY_CACHE.pop(next(iter(_VERIFY_CACHE)))
+  _VERIFY_CACHE[os.path.abspath(path)] = ((st.st_mtime_ns, st.st_size), ok)
+
+
+def _verified_cached(path: str) -> bool:
+  try:
+    st = os.stat(path)
+  except OSError:
+    return False
+  hit = _VERIFY_CACHE.get(os.path.abspath(path))
+  if hit is not None and hit[0] == (st.st_mtime_ns, st.st_size):
+    return hit[1]
+  ok, _, _ = verify_npz(path)
+  _cache_verdict(path, ok)
+  return ok
+
+
+def quarantine_checkpoint(path: str) -> str:
+  """Rename a checkpoint that failed verification to ``{path}.corrupt``
+  (``.corrupt.2``, ... if taken), never delete it: the damaged bytes are
+  the evidence.  Journaled (``checkpoint_quarantined``); returns the new
+  path."""
+  target = path + QUARANTINE_SUFFIX
+  n = 1
+  while os.path.exists(target):
+    n += 1
+    target = f'{path}{QUARANTINE_SUFFIX}.{n}'
+  os.replace(path, target)
+  resilience.journal('checkpoint_quarantined', path=path, target=target)
+  return target
+
+
+def load_latest_valid(directory: str,
+                      expect_plan=None,
+                      pattern: str = '*.npz',
+                      quarantine: bool = False):
+  """The newest VALID resumable checkpoint under ``directory``: ``(path,
+  (weights, table_states, extras))``.
+
+  Each rejected candidate (truncated, checksum-mismatched,
+  plan-mismatched, or not a ``save_train_npz`` file) is journaled
+  (``checkpoint_rejected``) and skipped.  With ``quarantine=True`` a
+  candidate failing an INTEGRITY check is also renamed ``*.corrupt``; a
+  plan-mismatched file is a valid checkpoint of another model and stays.
+  Raises ``FileNotFoundError`` with the reasons when nothing valid is
+  left."""
+  reasons = []
+  for path in _candidates(directory, pattern):
+    with _protect_path(path):
+      try:
+        arrays, _ = _load_verified(path, expect_plan=expect_plan)
+      except ValueError as e:
+        reason = str(e)
+        resilience.journal('checkpoint_rejected', path=path,
+                           reason=reason)
+        reasons.append((path, reason))
+        if quarantine and not reason.startswith('plan-mismatch'):
+          try:
+            quarantine_checkpoint(path)
+          except FileNotFoundError:  # another rank moved it first
+            pass
+        continue
+      try:
+        payload = _parse_train_payload(arrays, path)
+      except ValueError as e:  # intact, but not a train checkpoint
+        reason = f'not-a-train-checkpoint: {e!r}'
+        resilience.journal('checkpoint_rejected', path=path,
+                           reason=reason)
+        reasons.append((path, reason))
+        continue
+      return path, payload
+  detail = '; '.join(f'{os.path.basename(p)}: {r}' for p, r in reasons)
+  raise FileNotFoundError(
+      f'no valid checkpoint under {directory!r} (pattern {pattern!r})'
+      + (f' - rejected: {detail}' if detail else ''))
+
+
+def prune_checkpoints(directory: str, keep_last: int,
+                      pattern: str = '*.npz') -> List[str]:
+  """Retention: delete all but the newest ``keep_last`` checkpoints
+  matching ``pattern``; returns the removed paths (journaled
+  ``checkpoint_pruned``).  Exempt beyond the window: the newest file that
+  VERIFIES (so a rollback always has a target) and every path an
+  in-flight restore holds.  Quarantined files neither count nor go."""
+  if keep_last < 1:
+    raise ValueError(f'keep_last must be >= 1, got {keep_last}')
+  cands = _candidates(directory, pattern)
+  anchor = next((p for p in cands if _verified_cached(p)), None)
+  protected = set(protected_paths())
+  removed = []
+  for path in cands[keep_last:]:
+    if path == anchor or os.path.abspath(path) in protected:
+      continue
+    try:
+      os.remove(path)
+      removed.append(path)
+    except OSError:
+      continue
+  if removed:
+    resilience.journal('checkpoint_pruned', removed=removed,
+                       keep_last=keep_last)
+  return removed
+
+
+def save_npz(path: str, weights: Sequence):
+  """Save global weights as the reference DLRM example does: one
+  positional ``arr_{i}`` member per table and NO manifest (external
+  readers enumerate the members), atomically.  ``verify_npz`` treats the
+  file as legacy."""
+  _atomic_savez(path, {f'arr_{i}': _portable(w)
+                       for i, w in enumerate(weights)})
+
+
+def load_npz(path: str) -> List[np.ndarray]:
+  with np.load(path) as data:
+    return [data[k] for k in data.files if k != MANIFEST_KEY]
+
+
+def save_train_npz(path: str,
+                   weights: Sequence,
+                   table_states: Optional[Sequence[Dict]] = None,
+                   extras: Optional[Dict] = None,
+                   plan=None):
+  """Save weights plus (optionally) the sparse optimizer's state in one
+  npz, atomically, with an embedded manifest: per-array sha256, the step
+  (``extras['step']``) and the plan fingerprint when ``plan`` is given.
+
+  Keys: ``table{i}`` for weights, ``table{i}/{leaf}`` for state leaves
+  (the global canonical layout) and ``extra/{name}`` for everything
+  else.  Arrays may be numpy arrays or tensors on any device (copied to
+  the host in chunks; bf16 stored as f32)."""
+  t0 = obs_trace.now()
+  try:
+    _save_train_npz(path, weights, table_states, extras, plan)
+  finally:
+    save_ms = (obs_trace.now() - t0) * 1000.0
+    obs_trace.complete('ckpt/save', t0, save_ms / 1000.0,
+                       path=os.path.basename(path))
+  obs_metrics.inc('ckpt.saves')
+  obs_metrics.observe('ckpt.save_ms', save_ms)
+  # the rendezvous sanitizer's record and barrier check: item 16
+
+
+def _save_train_npz(path, weights, table_states, extras, plan):
+  if table_states is not None and len(table_states) != len(weights):
+    raise ValueError(f'got {len(table_states)} per-table states for '
+                     f'{len(weights)} weight tables')
+  payload = {f'table{i}': _portable(w) for i, w in enumerate(weights)}
+  for i, entry in enumerate(table_states or []):
+    for k, v in entry.items():
+      payload[f'table{i}/{k}'] = _portable(v)
+  for k, v in (extras or {}).items():
+    payload[f'extra/{k}'] = _portable(v)
+  step = None
+  if extras and 'step' in extras:
+    step = int(np.asarray(extras['step']))
+  payload[MANIFEST_KEY] = _build_manifest(payload, step=step, plan=plan)
+  _atomic_savez(path, payload)
+  # this path just checksummed every array and published the file
+  # atomically: seed the retention anchor's cache, so the prune after a
+  # periodic save does not re-read it
+  _cache_verdict(path, True)
+
+
+def _parse_train_payload(arrays: Dict[str, np.ndarray], path: str):
+  """``save_train_npz``'s key scheme -> ``(weights, table_states,
+  extras)``; ``ValueError`` when the arrays are not a train checkpoint."""
+  table_keys = [k for k in arrays if k.startswith('table')]
+  if not table_keys:
+    raise ValueError(f'{path}: no table entries')
+  n = 1 + max(
+      int(k.split('/')[0].partition(':')[0][5:]) for k in table_keys)
+  weights: List[Optional[np.ndarray]] = [None] * n
+  states: List[Dict[str, np.ndarray]] = [dict() for _ in range(n)]
+  extras: Dict[str, np.ndarray] = {}
+  for k, v in arrays.items():
+    head, _, leaf = k.partition('/')
+    if head == 'extra':
+      extras[leaf] = v
+      continue
+    name, _, tag = head.partition(':')
+    if tag:
+      raise not_ported(f'{path}: quantized table entries ({k})', 9)
+    i = int(name[5:])
+    if leaf:
+      states[i][leaf] = v
+    else:
+      weights[i] = v
+  missing = [i for i, w in enumerate(weights) if w is None]
+  if missing:
+    raise ValueError(f'{path}: missing weight entries for tables {missing}')
+  return weights, states, extras
+
+
+def load_train_npz(path: str):
+  """Inverse of ``save_train_npz``: ``(weights, table_states,
+  extras)``."""
+  with np.load(path) as data:
+    return _parse_train_payload(
+        {k: data[k] for k in data.files if k != MANIFEST_KEY}, path)
+
+
+# --------------------------------------------------------------------------
+# full train-state restore (fit's resume and rollback)
+# --------------------------------------------------------------------------
+
+
+def is_hybrid_opt_state(dist: DistributedEmbedding, opt_state) -> bool:
+  """Whether ``opt_state`` is the hybrid step's: a 2-tuple whose second
+  element is a dict keyed exactly by the plan's group names."""
+  group_names = {f'group_{gi}' for gi in range(len(dist.plan.groups))}
+  return (isinstance(opt_state, tuple) and len(opt_state) == 2
+          and isinstance(opt_state[1], dict)
+          and set(opt_state[1].keys()) == group_names)
+
+
+def restore_train_state(dist: DistributedEmbedding, state, source: str,
+                        quarantine: bool = False):
+  """Restore a ``TrainState`` from a resumable checkpoint, IN PLACE into
+  ``state``'s tensors (a fresh ``init_train_state`` /
+  ``init_hybrid_train_state``, or the live state of a rollback): the
+  tables reshard through ``set_weights``' layout, the sparse optimizer's
+  state through ``set_optimizer_state``'s, the dense params and dense
+  optimizer state (schedule counts too) from the ``dense:`` / ``opt:``
+  extras, and the step.  Files of the JAX package restore the same way.
+
+  ``source``: one ``.npz`` (verified first; ``ValueError`` when corrupt
+  or of another model) or a directory (``load_latest_valid``).
+  ``quarantine``: rename candidates that fail integrity checks to
+  ``*.corrupt`` (the rollback path).  The chosen file is prune-exempt
+  while the restore runs.  Nothing is written into ``state`` unless the
+  file verified and every shape matched.
+
+  Returns ``(state, path)``."""
+  t0 = obs_trace.now()
+  try:
+    out = _restore_train_state(dist, state, source, quarantine)
+  finally:
+    restore_ms = (obs_trace.now() - t0) * 1000.0
+    obs_trace.complete('ckpt/restore', t0, restore_ms / 1000.0,
+                       source=os.path.basename(source))
+  obs_metrics.inc('ckpt.restores')
+  obs_metrics.observe('ckpt.restore_ms', restore_ms)
+  return out
+
+
+def _restore_train_state(dist, state, source, quarantine):
+  # hierarchical (dcn_sharding) layouts are refused at construction
+  # (item 10), so every layout here is flat
+  if os.path.isdir(source):
+    path, (weights, st_tables, extras) = load_latest_valid(
+        source, expect_plan=dist, quarantine=quarantine)
+  else:
+    try:
+      arrays, _ = _load_verified(source, expect_plan=dist)
+    except ValueError as e:
+      resilience.journal('checkpoint_rejected', path=source,
+                         reason=str(e))
+      raise ValueError(f'{source}: invalid checkpoint: {e}') from e
+    path = source
+    weights, st_tables, extras = _parse_train_payload(arrays, source)
+  with _protect_path(path):
+    return _rebuild_train_state(dist, state, path, weights, st_tables,
+                                extras)
+
+
+def _rebuild_train_state(dist, state, path, weights, st_tables, extras):
+  emb = state.params['embedding']
+  _check_tables(dist.plan, weights, 'restore_train_state')
+  hybrid = is_hybrid_opt_state(dist, state.opt_state)
+  if hybrid and any(st_tables):
+    for gi in range(len(dist.plan.groups)):
+      for k, leaf in state.opt_state[1][f'group_{gi}'].items():
+        _check_tables(dist.plan, [ts[k] for ts in st_tables],
+                      'restore_train_state', per_row=leaf.dim() == 1)
+  dense = {k: v for k, v in state.params.items() if k != 'embedding'}
+  dense = _restore_like(dist, dense, extras, 'dense:')
+  with torch.no_grad():
+    for gi in range(len(dist.plan.groups)):
+      _fill_group(dist, gi, emb[f'group_{gi}'], weights)
+  if hybrid:
+    emb_opt_state = state.opt_state[1]
+    if any(st_tables):
+      set_optimizer_state(dist, emb_opt_state, st_tables)
+    opt_state = (_restore_like(dist, state.opt_state[0], extras, 'opt:',
+                               opt=True), emb_opt_state)
+  else:
+    opt_state = _restore_like(dist, state.opt_state, extras, 'opt:',
+                              opt=True)
+  step = int(np.asarray(extras.get('step', 0)))
+  resilience.journal('resume', path=path, step=step)
+  params = {k: emb if k == 'embedding' else dense[k] for k in state.params}
+  return type(state)(params, opt_state, step), path

@@ -15,18 +15,38 @@ shard.
 idiomatic entry point: autograd through the whole model, tables
 included (``DistributedEmbedding.apply`` is differentiable), then one
 optimizer update of every param.  ``DistributedGradientTape`` takes the
-same gradients for a loop of the caller's own.  ``fit`` and its
-resume/rollback/audit machinery are ROADMAP.md Queue 1, item 3c.
+same gradients for a loop of the caller's own.  ``fit`` drives either
+step: log windows with one host sync each, eval, callbacks, resume from
+a checkpoint, a step watchdog and the self-healing anomaly policy
+(terminate, or roll back to the newest valid checkpoint in place).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.utils import resilience
+
+ANOMALY_POLICIES = (None, 'terminate', 'rollback', 'rollback_skip')
+
+
+class _Anomaly(Exception):
+  """Internal control flow of ``fit``'s anomaly policy: a detected
+  anomaly unwinds to the policy handler, which terminates or rolls
+  back in place."""
+
+  def __init__(self, kind: str, step: int, detail: str = ''):
+    self.kind = kind
+    self.step = int(step)
+    self.detail = detail
+    super().__init__(f'{kind} at step {step}: {detail}')
 
 
 class TrainState(NamedTuple):
@@ -173,3 +193,309 @@ def init_train_state(params, optimizer) -> TrainState:
   """Initial ``TrainState`` for ``make_train_step``: ``params`` is
   ``{'embedding': this rank's group tables, **dense params}``."""
   return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def fit(step_fn: Callable,
+        state: TrainState,
+        data,
+        steps: Optional[int] = None,
+        *,
+        log_every: int = 100,
+        eval_fn: Optional[Callable] = None,
+        eval_every: Optional[int] = None,
+        callbacks=(),
+        verbose: bool = True,
+        print_fn: Callable = print,
+        resume_from: Optional[str] = None,
+        dist=None,
+        terminate_on_nan: bool = False,
+        step_timeout_s: Optional[float] = None,
+        on_anomaly: Optional[str] = None,
+        rollback_dir: Optional[str] = None,
+        rollback_budget: int = 3,
+        data_factory: Optional[Callable] = None,
+        auditor=None,
+        spike_zscore: Optional[float] = None,
+        spike_warmup: int = 10):
+  """Keras-``fit``-like loop over the train steps of the port (JAX
+  ``grad.fit``): iterate, keep the losses on the device between log
+  points (one host sync per ``log_every`` steps, none per step), run
+  periodic eval and callbacks; the state is a value the caller owns.
+
+  Args:
+    step_fn: ``make_train_step`` / ``make_hybrid_train_step``'s step,
+      called as ``step_fn(state, *batch_args)``.
+    state: the initial ``TrainState``.
+    data: iterable of per-step argument tuples (everything after
+      ``state``): ``(batch,)`` for ``make_train_step``, ``(cats,
+      batch)`` for the hybrid step.
+    steps: stop at this step (``None`` drains ``data``).  After a resume
+      it still counts from step 0: the TOTAL budget.
+    log_every: steps between loss syncs, history entries and callbacks.
+    eval_fn: ``eval_fn(state) -> dict`` of Python metrics.
+    eval_every: steps between evals (default ``log_every``).
+    callbacks: ``cb(step, state, logs)`` at every log or eval point
+      (``StopIteration`` stops the run).
+    verbose / print_fn: one line per log point.
+    resume_from: a checkpoint ``.npz`` or a directory (newest valid file
+      wins, ``checkpoint.load_latest_valid``); restored into ``state``
+      in place (``checkpoint.restore_train_state``), and the step
+      resumes, so ``data`` must start at the first untrained batch.
+      Needs ``dist``.
+    dist: the model's ``DistributedEmbedding``.
+    terminate_on_nan: the old spelling of ``on_anomaly='terminate'``.
+    on_anomaly: the self-healing policy.  An anomaly is a non-finite
+      loss in a log window, a loss spike past the EMA z-score gate
+      (``spike_zscore``) or a failed state audit (``auditor``).  Each
+      journals ``anomaly_detected`` and lands in
+      ``history['anomalies']``.  ``None``: no detection.
+      ``'terminate'``: stop with a journaled reason.  ``'rollback'``:
+      restore the newest VALID checkpoint under ``rollback_dir`` in
+      place (corrupt candidates quarantined), reposition the input with
+      ``data_factory`` and replay the window (bit-exact for a transient
+      corruption).  ``'rollback_skip'``: the same, but the input skips
+      the offending window (journaled ``skip_window``).  At most
+      ``rollback_budget`` rollbacks; the next anomaly journals
+      ``rollback_budget_exhausted`` and terminates.  (The JAX package
+      also takes the cold tier's ``TierIntegrityError`` here; the port
+      has no cold tier until item 12.)
+    rollback_dir: the checkpoint directory the rollback policies scan.
+    rollback_budget: in-place rollbacks per call.
+    data_factory: ``step -> iterable`` positioned at the batch that
+      trains ``step + 1``; needed by the rollback policies.
+    auditor: a ``parallel.audit.StateAuditor``, called every
+      ``auditor.every`` steps before that step's log point (a failing
+      state never reaches the checkpoint callback).
+    spike_zscore / spike_warmup: arm ``audit.LossSpikeGate``.
+    step_timeout_s: hung-step watchdog: every step and every log-point
+      sync runs under this timeout (``resilience.call_with_timeout``, on
+      the caller's CUDA device and stream); on expiry tracebacks are
+      dumped, ``watchdog_fired`` journaled and ``StepHangError`` raised.
+      ``None`` (default) adds nothing.
+
+  Returns:
+    ``(state, history)``: ``history['step']`` / ``['loss']`` one entry a
+    log point, eval metrics in their own lists aligned with
+    ``history['eval_step']`` (a metric named ``step``, ``loss`` or
+    ``eval_step`` becomes ``eval_<name>``).
+  """
+  eval_every = eval_every or log_every
+  if on_anomaly not in ANOMALY_POLICIES:
+    raise ValueError(f'on_anomaly must be one of {ANOMALY_POLICIES}, '
+                     f'got {on_anomaly!r}')
+  if on_anomaly is None and (terminate_on_nan or auditor is not None
+                             or spike_zscore is not None):
+    on_anomaly = 'terminate'
+  if on_anomaly in ('rollback', 'rollback_skip'):
+    if dist is None or rollback_dir is None:
+      raise ValueError(
+          f'fit(on_anomaly={on_anomaly!r}) needs rollback_dir= (the '
+          'checkpoint directory to restore from, normally where a '
+          'CheckpointCallback in callbacks= writes) and dist= (the '
+          'DistributedEmbedding defining the resharding layout)')
+    if data_factory is None:
+      raise ValueError(
+          f'fit(on_anomaly={on_anomaly!r}) needs data_factory=, a '
+          'callable step -> iterable positioned at the batch that trains '
+          'step+1 (deterministic sources: lambda s: iter(batches[s:])); '
+          'a bare iterator cannot be rewound after a rollback')
+  gate = None
+  if spike_zscore is not None:
+    from distributed_embeddings_tpu_torch.parallel.audit import (
+        LossSpikeGate)
+    gate = LossSpikeGate(zscore=spike_zscore, warmup=spike_warmup)
+  reserved = ('step', 'loss', 'eval_step')
+  history: dict = {'step': [], 'loss': [], 'eval_step': []}
+  window = []  # the losses since the last sync, on the device
+  i = 0
+  it = iter(data) if data is not None else None
+  if resume_from is not None:
+    if dist is None:
+      raise ValueError('fit(resume_from=...) needs dist= (the '
+                       'DistributedEmbedding defining the resharding '
+                       'layout)')
+    from distributed_embeddings_tpu_torch.parallel.checkpoint import (
+        restore_train_state)
+    state, ckpt_path = restore_train_state(dist, state, resume_from)
+    i = int(state.step)
+    if verbose:
+      print_fn(f'resumed from {ckpt_path} at step {i}')
+  if it is None:
+    if data_factory is None:
+      raise ValueError('fit() needs data= or data_factory=')
+    it = iter(data_factory(i))
+  last_eval_at = None
+
+  def sync_window(i):
+    """The window's one host sync, where a wedged device shows: under
+    the watchdog when armed; the 'train/sync' span records the wait."""
+    stacked = torch.stack([x.reshape(()).float() for x in window])
+    window.clear()
+    t0 = obs_trace.now()
+    if step_timeout_s is None:
+      host = stacked.cpu().numpy()
+    else:
+      host = resilience.call_with_timeout(
+          lambda: stacked.cpu().numpy(), step_timeout_s,
+          what=f'device-step sync at step {i}')
+    sync_s = obs_trace.now() - t0
+    obs_trace.complete('train/sync', t0, sync_s, step=i)
+    obs_metrics.observe('train.sync_ms', sync_s * 1000.0)
+    return host
+
+  def flush(i, final=False):
+    nonlocal last_eval_at
+    if not window and not final:
+      return None
+    logs = {}
+    if window:
+      n_window = len(window)
+      host = sync_window(i)
+      if on_anomaly is not None:
+        # in step order: the first anomalous value names the step
+        # (non-finite before spike; a healthy value trains the gate)
+        for j, v in enumerate(host):
+          step_j = i - n_window + j + 1
+          if not np.isfinite(v):
+            raise _Anomaly('non_finite_loss', step_j, repr(v))
+          if gate is not None:
+            z = gate.observe(float(v))
+            if z is not None:
+              raise _Anomaly(
+                  'loss_spike', step_j,
+                  f'loss={float(v):.6g} zscore={z:.2f} '
+                  f'(gate {gate.zscore:g})')
+      mean = float(host.mean())
+      logs['loss'] = mean
+      history['step'].append(i)
+      history['loss'].append(mean)
+      obs_metrics.set_gauge('train.loss', mean)
+      obs_metrics.journal_snapshot(step=i)
+    # the run always ends with an eval of the returned state, once
+    if (eval_fn is not None and (i % eval_every == 0 or final)
+        and last_eval_at != i):
+      evals = eval_fn(state)
+      history['eval_step'].append(i)
+      for k, v in evals.items():
+        kk = 'eval_' + k if k in reserved else k
+        logs[kk] = v
+        history.setdefault(kk, []).append(v)
+      last_eval_at = i
+    if not logs:
+      return None
+    if verbose:
+      print_fn('step %d: ' % i +
+               ' '.join(f'{k}={v:.6g}' for k, v in logs.items()))
+    for cb in callbacks:
+      cb(i, state, logs)
+    return logs
+
+  rollbacks = 0
+
+  def handle_anomaly(a: _Anomaly) -> bool:
+    """Apply the policy to one detection: True after an in-place
+    rollback (training goes on), False when the run must stop."""
+    nonlocal state, i, it, rollbacks, last_eval_at
+    obs_metrics.inc('train.anomalies')
+    resilience.journal('anomaly_detected', anomaly=a.kind,
+                       step=a.step, policy=on_anomaly, detail=a.detail)
+    history.setdefault('anomalies', []).append(
+        {'kind': a.kind, 'step': a.step})
+    if on_anomaly == 'terminate':
+      if a.kind == 'non_finite_loss':
+        # the old guard's event name and history key
+        resilience.journal('terminate_on_nan', step=a.step,
+                           loss=a.detail)
+        history['terminated_on_nan'] = a.step
+        print_fn(f'terminate_on_nan: non-finite loss at step {a.step}; '
+                 'stopping (event journaled to '
+                 f'{resilience.journal_path() or "memory"})')
+      else:
+        history['terminated_on_anomaly'] = a.step
+        print_fn(f'on_anomaly=terminate: {a.kind} at step {a.step}; '
+                 f'stopping ({a.detail})')
+      return False
+    if rollbacks >= rollback_budget:
+      resilience.journal('rollback_budget_exhausted',
+                         budget=rollback_budget, step=a.step,
+                         anomaly=a.kind)
+      history['terminated_on_anomaly'] = a.step
+      history['rollback_budget_exhausted'] = True
+      print_fn(f'on_anomaly={on_anomaly}: {a.kind} at step {a.step} '
+               f'but the rollback budget ({rollback_budget}) is '
+               'exhausted; escalating to termination')
+      return False
+    from distributed_embeddings_tpu_torch.parallel.checkpoint import (
+        restore_train_state)
+    try:
+      state, path = restore_train_state(dist, state, rollback_dir,
+                                        quarantine=True)
+    except (FileNotFoundError, ValueError) as e:
+      resilience.journal('rollback_failed', step=a.step,
+                         anomaly=a.kind, error=str(e))
+      history['terminated_on_anomaly'] = a.step
+      print_fn(f'on_anomaly={on_anomaly}: {a.kind} at step {a.step} '
+               f'and no valid checkpoint to roll back to ({e}); '
+               'terminating')
+      return False
+    rollbacks += 1
+    obs_metrics.inc('train.rollbacks')
+    to_step = int(state.step)
+    detect_at = i
+    window.clear()
+    last_eval_at = None  # replayed steps evaluate again
+    resilience.journal('rollback', anomaly=a.kind, detect_step=a.step,
+                       at_step=detect_at, to_step=to_step, path=path,
+                       attempt=rollbacks, policy=on_anomaly)
+    # the rendezvous sanitizer's records of the rollback: item 16
+    if on_anomaly == 'rollback_skip' and detect_at > to_step:
+      # batches (to_step, detect_at] never replay
+      resilience.journal('skip_window', from_step=to_step,
+                         to_step=detect_at,
+                         batches=detect_at - to_step)
+      it = iter(data_factory(detect_at))
+    else:
+      it = iter(data_factory(to_step))
+    i = to_step
+    if verbose:
+      print_fn(f'rollback: {a.kind} at step {a.step} -> restored '
+               f'{path} at step {to_step} (attempt '
+               f'{rollbacks}/{rollback_budget}'
+               + (', input fast-forwarded past the offending window'
+                  if on_anomaly == 'rollback_skip' else '') + ')')
+    return True
+
+  try:
+    while True:
+      try:
+        while steps is None or i < steps:
+          try:
+            args = next(it)
+          except StopIteration:
+            break
+          with obs_trace.span('train/step', step=i + 1):
+            if step_timeout_s is not None:
+              state, loss = resilience.call_with_timeout(
+                  lambda s=state, a=args: step_fn(s, *a),
+                  step_timeout_s, what=f'train step dispatch at step {i}')
+            else:
+              state, loss = step_fn(state, *args)
+          obs_metrics.inc('train.steps')
+          window.append(loss)
+          i += 1
+          if auditor is not None and i % auditor.every == 0:
+            findings = auditor.check_state(state, step=i)
+            if findings:
+              raise _Anomaly(
+                  'audit_failure', i,
+                  '; '.join(f.brief() for f in findings[:3]))
+          if i % log_every == 0:
+            flush(i, final=(steps == i))
+        flush(i, final=True)
+        break
+      except _Anomaly as a:
+        if not handle_anomaly(a):
+          break
+  except StopIteration:  # raised by a callback: early stop
+    pass
+  return state, history

@@ -278,11 +278,12 @@ def test_entry_point_trains_and_evaluates(capsys):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--dataset_path', 'criteo'], '12'), (['--resume_dir', 'ckpt'], '3c'),
+    (['--dataset_path', 'criteo'], '12'),
+    (['--cold_tier_budget_mb', '64'], '12'),
     (['--hot_cache'], '7'), (['--overlap_chunks', '2'], '8'),
     (['--no-fused_exchange'], '8'), (['--table_dtype', 'int8'], '9'),
-    (['--save_state', 'x.npz'], '11'), (['--audit_every', '5'], '3c'),
-    (['--eval_every', '2'], '3c'), (['--loader_bench'], '12'),
+    (['--wire_dtype', 'bfloat16'], '9'), (['--csr_feed'], '12'),
+    (['--hot_budget_mb', '8'], '7'), (['--loader_bench'], '12'),
     (['--trace', 't.json'], '14')])
 def test_entry_point_refuses_unported_flags(flags, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):

@@ -22,6 +22,9 @@ bit for bit; a bf16 accumulator is held to the f32 one's bound; each
 launch is counted per arm.
 Its ``adam`` op: step counts exact, moments bit-exact, the table within
 rtol = atol = 1e-6 (``powf`` against ``torch.pow``).
+The checkpoint files and the auditor on the card: the audit digest of a
+tensor on the card equals its digest on the CPU, and a bf16 table saved
+from the card (chunked device-to-host copies) loads back bit-exact.
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ import torch
 
 from distributed_embeddings_tpu_torch.ops import lookup
 from distributed_embeddings_tpu_torch.ops import segwalk
+from distributed_embeddings_tpu_torch.parallel import audit
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
@@ -559,3 +563,49 @@ def test_segwalk_new_arms_do_not_synchronise(cuda_device, op, stream,
                            grads, 0.3, op=op)
   finally:
     torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_audit_digest_on_the_card_equals_the_cpu(cuda_device, dtype,
+                                                 monkeypatch):
+  # chunks smaller than the tensor, so the running mod-2**32 sum is held
+  monkeypatch.setattr(audit, '_CHUNK', 1 << 20)
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  if dtype == torch.int32:
+    t = torch.randint(-2**31, 2**31 - 1, (3_000_001,), device='cuda',
+                      dtype=torch.int32, generator=gen)
+  else:
+    t = (torch.randn(3_000_001, device='cuda', generator=gen) * 1e3).to(
+        dtype)
+  assert int(audit.digest_u32(t)) == int(audit.digest_u32(t.cpu()))
+  if dtype != torch.int32:
+    assert bool(audit._sums_finite(t))
+    t[123] = float('nan')
+    assert int(audit._nonfinite_count(t)) == 1
+    assert not bool(audit._sums_finite(t))
+
+
+@pytest.mark.cuda
+def test_bf16_table_saved_from_the_card_loads_back_bit_exact(cuda_device,
+                                                             tmp_path,
+                                                             monkeypatch):
+  # copies in chunks of 2**16 elements: several chunks per table
+  monkeypatch.setattr(checkpoint, 'CHUNK_ELEMS', 1 << 16)
+  dist = DistributedEmbedding([TableConfig(70_001, 16, combiner='sum'),
+                               TableConfig(1_000, 8, combiner='sum')],
+                              device='cuda', param_dtype=torch.bfloat16)
+  params = dist.init(3)
+  tables = checkpoint.export_tables(dist, params)
+  assert all(t.dtype == np.float32 for t in tables)
+  path = str(tmp_path / 'bf16.npz')
+  checkpoint.save_train_npz(path, tables, extras={'step': np.int64(1)},
+                            plan=dist)
+  weights, _, _ = checkpoint.load_train_npz(path)
+  back = checkpoint.set_weights(dist, weights)
+  assert all(t.dtype == torch.bfloat16 and t.device.type == 'cuda'
+             for t in back.values())
+  for a, b in zip(checkpoint.get_weights(dist, back),
+                  checkpoint.get_weights(dist, params)):
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
