@@ -11,8 +11,8 @@ Phases, each of which exits non-zero on failure:
 4. kernels: the lookup kernel against its plain PyTorch version on the
             ids and tables one forward passes it (captured from that
             forward), f32 and one bf16 table; kernel, plain and library
-            device times (torch.profiler) beside the device-memory
-            bound.
+            device times (device_ms: CUDA events around calls queued
+            ahead of the device) beside the device-memory bound.
 5. forward: a few forwards at the global batch; every subgroup's lookup
             ran through the kernel; logits finite and equal to an
             independent plain reference on a slice of the batch; one
@@ -31,7 +31,7 @@ Phases, each of which exits non-zero on failure:
             group's update stream captured from one more real step, for
             sgd (bit-exact), adagrad_dedup and adagrad_sq (rtol = atol =
             1e-6), untouched rows unchanged, and one bf16 table; kernel
-            device time over both passes (torch.profiler), plain time
+            device time over both passes (device_ms), plain time
             (CUDA events, one call), Tensor.index_add_ for sgd, the
             bound, the longest segment and the chunks of each stream;
             then each stream's three ops timed again in two orders (sgd
@@ -66,6 +66,16 @@ Phases, each of which exits non-zero on failure:
             step launched the lookup (4) and the segment walk (2).  Save
             and restore seconds and GB/s (8.4 GB files), the audit's ms a
             call.
+9d. ragged-tiny: on the same tables, drawn anew from the seed, the
+            hotness-10 inputs as RaggedBatches on the card (rows of 1-10
+            ids): one forward equal to the same ids in the dense layout
+            bit for bit (densified at _ragged_cap: 16); a warm-up and 3
+            hybrid steps (phase 7's optimizers) on the ragged inputs and
+            the same on the dense layout from the same state, every loss
+            finite, every lookup through the lookup kernel's dense arm
+            and every apply through the segment walk; the tables of the
+            two runs within rtol = atol = 1e-6 (bit-exact reported); the
+            host syncs of one more step with and without hot_cap.
 10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -146,6 +156,20 @@ Phases, each of which exits non-zero on failure:
             same stream on the f32 arms (an f32 stream and accumulator)
             and Tensor.index_add_ of the bf16 rows (the sgd library
             time), timed on the real tables at lr 0.
+20. ragged-lookup: Small V3 freed, the lookup microbenchmark's entry
+            point (examples/benchmarks/lookup_benchmark.py) at its full
+            size: one 1 M x 128 f32 table, 65536 ragged rows of 1-61 ids
+            (about 2.03 M), the ragged and padded forwards, the gradient,
+            the sparse and dense SGD timed (CUDA events); every ragged
+            forward (the gradient's too) on the lookup kernel's CSR arm,
+            every backward and sparse SGD on the segment walk (counted).
+            Then the CSR arm against its plain version on those ids (sum
+            and mean, f32 and a bf16 copy; rtol = atol = 1e-6, bit-exact
+            where every row has one id), the backward's 'add' and the
+            sparse SGD against theirs (bit-exact, untouched rows
+            unchanged); kernel, plain and embedding_bag (offsets) device
+            times beside the bound (each distinct row read once, as phase
+            4 counts; every gathered row once beside it).
 
 Launches are counted per path: the forward's, the serving requests'
 (counted from 0 after the engine's warm-up) and the training steps'
@@ -153,10 +177,15 @@ Launches are counted per path: the forward's, the serving requests'
 training steps likewise, the dense steps of each model, the lazy-Adam
 steps and Small V3's forwards and steps, and for the last two each arm
 of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
-phases 9c and 13b.
+phases 9c and 13b, phase 9d's steps and phase 20's benchmark (with
+the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
-segment walk, its two bf16 arms and its adam op); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+segment walk, its two bf16 arms, its adam op and the lookup's CSR
+arm); each row and summary with a kernel time says by which ``clock``:
+``queued`` (CUDA events around back-to-back calls queued ahead of the
+device, so no launch gap counts) or ``events: <keys>`` (the times of
+calls that wait on the device, their gaps counted).
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits 1 and prints no result.  It imports nothing of JAX.
 """
 
@@ -180,12 +209,15 @@ import numpy as np
 import torch
 
 from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch.examples.benchmarks import (
+    lookup_benchmark)
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
+from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
                                                        checkpoint, grad,
                                                        sparse)
@@ -227,6 +259,14 @@ ARMS = [{
     'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
     'replaces': 'distributed_embeddings_tpu/parallel/sparse.py:563',
 }]
+# the lookup's row-offsets (CSR) arm: an arm of the same source, built
+# with it; it stands in for the JAX package's XLA _ragged_combine
+CSR_ARM = {
+    'name': 'lookup_combine:csr',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/lookup_combine.cu',
+    'replaces': 'distributed_embeddings_tpu/ops/embedding_lookup.py:114',
+}
 MODEL = 'tiny'
 BATCH = 65536  # global batch of the forward and of training
 REQUEST_SIZES = (1, 5, 64, 4096)
@@ -244,6 +284,7 @@ HYBRID_OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
 # about 134 GiB.  Whether a larger cap fits is open (PERF.md section 7).
 DENSE_DLRM_MAX_ROWS = 10_000_000
 FIT_STEPS = 6  # phase 9c's runs; the checkpoint at step 3
+RAGGED_STEPS = 3  # phase 9d's hybrid steps after its warm-up
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
@@ -272,29 +313,91 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
   return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 2) -> float:
-  """Mean device time per call of ``fn``: the summed duration of every
-  kernel and copy it ran, from torch.profiler, over ``iters`` calls.  A
-  short kernel launched from Python spends longer in the launch than on
-  the device; this counts only the device.  Where the profiler records
-  no device time, CUDA events time the calls instead (and say so)."""
-  from torch.profiler import ProfilerActivity, profile
+class EventMs(float):
+  """A time from CUDA events around calls the host could not queue ahead
+  of the device (a call that waits on the device): it counts the gaps
+  the host leaves between launches.  A sum with it keeps the mark, and
+  ``clocked`` names it in the ``clock`` of every row holding one."""
+
+  def __add__(self, other):
+    return EventMs(float(self) + other)
+
+  __radd__ = __add__
+
+
+QUEUE_TRIES = 3  # device spins, each 4x longer, before the gaps are kept
+SLEEP_MS = 20.0  # the first spin: enough to queue 20 calls of any kernel
+SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep spins clock cycles;
+                                 # an H100 runs at most 1.98 GHz
+
+
+def mean_ms(times) -> float:
+  """The mean of ``times``, an ``EventMs`` if any of them is one."""
+  m = statistics.mean(times)
+  return EventMs(m) if any(isinstance(t, EventMs) for t in times) else m
+
+
+def clocked(obj):
+  """``obj`` (rows and summaries of timings) with each dict that holds a
+  kernel time (``ms`` or ``kernel_ms``) marked ``clock``: ``'queued'``
+  where every ``device_ms`` time in it came from calls queued ahead of
+  the device, else ``'events: <keys>'`` naming its ``EventMs`` times.  A
+  plain version timed over one call (``plain_ms_of``) is a CUDA-event
+  time with its gaps in either case."""
+  if isinstance(obj, list):
+    return [clocked(v) for v in obj]
+  if not isinstance(obj, dict):
+    return obj
+  out = {k: clocked(v) for k, v in obj.items()}
+  if 'ms' in obj or 'kernel_ms' in obj:
+    gaps = [k for k, v in obj.items() if isinstance(v, EventMs)]
+    out['clock'] = 'events: ' + ', '.join(gaps) if gaps else 'queued'
+  return out
+
+
+def device_ms(fn, iters: int, warmup: int = 2, floor_ms: float = 0.0
+              ) -> float:
+  """Mean device time per call of ``fn`` over ``iters`` back-to-back
+  calls, between two CUDA events.  The device first spins
+  (``torch.cuda._sleep``) while the host queues every call, so no gap of
+  the host's launches lands between the events: a short kernel launched
+  from Python spends longer in the launch than on the device.  The calls
+  were queued ahead when the device has not reached the first event by
+  the time the host has queued the last; if it has, the spin is made 4x
+  longer, up to ``QUEUE_TRIES`` spins, and then the time, gaps and all,
+  is an ``EventMs`` (a call that waits on the device).  torch.profiler
+  is not the clock: on the card it lost some or all of its records from
+  some point in a run on.  A time below ``floor_ms`` (the least time the
+  card could take for the work) fails the phase: the bound or the clock
+  is wrong."""
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+  sleep_ms = SLEEP_MS
+  for _ in range(QUEUE_TRIES):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+    start.record()
     for _ in range(iters):
       fn()
-    torch.cuda.synchronize()
-  total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-  if total_us <= 0:
-    # seen once on the card for Tensor.index_add_ on the 70.2 M-row table
-    ms = event_ms(fn, iters, warmup=0)
-    log(f'[timing] torch.profiler recorded no device time; CUDA events '
-        f'instead: {ms:.4f} ms per call')
-    return ms
-  return total_us / 1e3 / iters
+    end.record()
+    ahead = not start.query()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    if ahead:
+      break
+    sleep_ms *= 4
+  else:
+    ms = EventMs(ms)
+    log(f'[timing] the calls could not be queued ahead of the device '
+        f'(they wait on it); CUDA events with the host\'s gaps: {ms:.4f} '
+        'ms a call (an EventMs)')
+  if ms < floor_ms:
+    raise AssertionError(f'{ms:.4f} ms a call, below the bound '
+                         f'{floor_ms:.4f} ms: the bound or the clock is '
+                         'wrong')
+  return ms
 
 
 def phase_card():
@@ -386,10 +489,6 @@ def check_kernel_shape(table, ids, label):
                                                 torch.float32)
   library = lambda: torch.nn.functional.embedding_bag(
       safe, table, mode='sum', per_sample_weights=weights)
-  kernel_ms = device_ms(kernel, 20)
-  plain_ms = device_ms(plain, 5)
-  library_ms = device_ms(library, 20)
-  kernel_event_ms = event_ms(kernel, 20)
   # the least bytes: each id read once, each DISTINCT row read once,
   # each output written once (a row gathered again may hit L2)
   valid = int(mask.sum())
@@ -400,6 +499,11 @@ def check_kernel_shape(table, ids, label):
   flops = valid * w
   bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
   ops_ms = flops / F32_FLOP_PER_S * 1e3
+  floor = max(bytes_ms, ops_ms)
+  kernel_ms = device_ms(kernel, 20, floor_ms=floor)
+  plain_ms = device_ms(plain, 5, floor_ms=floor)
+  library_ms = device_ms(library, 20, floor_ms=floor)
+  kernel_event_ms = event_ms(kernel, 20)
   row = {
       'shape': label, 'M': m, 'h': h, 'w': w,
       'dtype': str(table.dtype).replace('torch.', ''),
@@ -413,7 +517,7 @@ def check_kernel_shape(table, ids, label):
       'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
       'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
   }
-  log('[kernels] ' + json.dumps(row))
+  log('[kernels] ' + json.dumps(clocked(row)))
   return row
 
 
@@ -769,7 +873,7 @@ def check_segwalk(call, op, table, label):
       'bound_ms': bound_ms, 'bound_by': bound_by,
       'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
   }
-  log('[segwalk] ' + json.dumps(row))
+  log('[segwalk] ' + json.dumps(clocked(row)))
   del kt, ka
   torch.cuda.empty_cache()
   return row
@@ -1206,7 +1310,7 @@ def check_dlrm_segwalk(call):
   row, _ = stream_row(call, 'sgd', grads, None, label, err, tol, kernel_ms,
                       plain_ms, library_ms,
                       untouched_rows_sampled=int(call['sample'].shape[0]))
-  log('[dlrm-segwalk] ' + json.dumps(row))
+  log('[dlrm-segwalk] ' + json.dumps(clocked(row)))
   torch.cuda.empty_cache()
   return row
 
@@ -1383,7 +1487,7 @@ def check_dense_grad(call, label):
       'add_bytes': add_bytes, 'add_bound_ms': max(add_bytes_ms, add_ops_ms),
       'add_bound_by': 'bytes' if add_bytes_ms >= add_ops_ms else 'operations',
   }
-  log('[dense-grad] ' + json.dumps(row))
+  log('[dense-grad] ' + json.dumps(clocked(row)))
   torch.cuda.empty_cache()
   return row
 
@@ -1594,7 +1698,7 @@ def phase_tiny_adam(model, config, seed):
         eps=call['eps'], betas=call['betas']))
     row, _ = stream_row(call, 'adam', grads, call['acc'], label, err, tol,
                         kernel_ms, plain_ms, None)
-    log('[tiny-adam] ' + json.dumps(row))
+    log('[tiny-adam] ' + json.dumps(clocked(row)))
     rows.append(row)
   del calls
   torch.cuda.empty_cache()
@@ -1605,6 +1709,7 @@ def phase_tiny_adam(model, config, seed):
 
 def reset_launches():
   lookup.LAUNCHES = 0
+  lookup.ARM_LAUNCHES.clear()
   segwalk.LAUNCHES = 0
   segwalk.ARM_LAUNCHES.clear()
 
@@ -2047,13 +2152,20 @@ def phase_small_segwalk(calls):
             ('adagrad_dedup', 'f32'): apply(acc32, grads32, 'adagrad_dedup'),
             ('sgd', 'bf16'): apply(None, grads, 'sgd'),
             ('sgd', 'f32'): apply(None, grads32, 'sgd')}
+    floors = {
+        (op, arms): segwalk_bound(segs, g, table, a, op)[1]
+        for op, arms, g, a in (
+            ('adagrad_dedup', 'bf16', grads, acc),
+            ('adagrad_dedup', 'f32', grads32, acc32),
+            ('sgd', 'bf16', grads, None), ('sgd', 'f32', grads32, None))}
     # the bf16 arms and the f32 arms on the same stream in turns (bf16,
     # f32, f32, bf16), so that neither gains from its place in the order
     turns = collections.defaultdict(list)
     for arms in ('bf16', 'f32', 'f32', 'bf16'):
       for op in ('adagrad_dedup', 'sgd'):
-        turns[op, arms].append(device_ms(runs[op, arms], 10))
-    mean = lambda op, arms: statistics.mean(turns[op, arms])
+        turns[op, arms].append(device_ms(runs[op, arms], 10,
+                                         floor_ms=floors[op, arms]))
+    mean = lambda op, arms: mean_ms(turns[op, arms])
     plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
         table, acc, segs, grads, 0.0, op='adagrad_dedup', eps=call['eps']))
     sgd_plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
@@ -2062,7 +2174,8 @@ def phase_small_segwalk(calls):
     lib_ids = segs.sorted_ids[lo:hi].long()
     lib_g = grads[segs.gidx[lo:hi].long()]
     library_ms = device_ms(lambda: table.index_add_(0, lib_ids, lib_g,
-                                                    alpha=-0.0), 10)
+                                                    alpha=-0.0), 10,
+                           floor_ms=floors['sgd', 'bf16'])
     del lib_ids, lib_g, runs
     f32_bytes, f32_bound_ms, _ = segwalk_bound(segs, grads32, table, acc32,
                                                'adagrad_dedup')
@@ -2080,10 +2193,130 @@ def phase_small_segwalk(calls):
         sgd_plain_ms, library_ms, f32_stream_ms=mean('sgd', 'f32'),
         turns_ms={a: turns['sgd', a] for a in ('bf16', 'f32')})
     for r in (row, sgd_row):
-      log('[small-segwalk] ' + json.dumps(r))
+      log('[small-segwalk] ' + json.dumps(clocked(r)))
     rows += [row, sgd_row]
     torch.cuda.empty_cache()
   return rows
+
+
+def as_ragged(c, hot_cap=None):
+  """A ``[B, h]`` -1-padded input (a prefix of ids a row) as the
+  ``RaggedBatch`` of the same rows on the card."""
+  c = np.asarray(c)
+  valid = c >= 0
+  r = RaggedBatch.from_row_lengths(c[valid], valid.sum(axis=1))
+  r.hot_cap = hot_cap
+  return r.to('cuda')
+
+
+def ragged_cats(cats, hot_cap=None):
+  """The multi-hot inputs of a batch as ``RaggedBatch``es on the card,
+  the hotness-1 ones as they are."""
+  return [as_ragged(c, hot_cap) if np.ndim(c) == 2 else c for c in cats]
+
+
+def phase_ragged_tiny(model, config, seed):
+  """Phase 9d: the tiny model's multi-hot inputs as ``RaggedBatch``es
+  (rows of 1-10 ids), one forward against the same ids as the dense
+  layout (bit-exact), then a warm-up and ``RAGGED_STEPS`` hybrid steps
+  on each layout from the same tables (drawn anew from the seed); the
+  ragged run's tables against the dense run's; the host syncs of one
+  more step with and without ``hot_cap``."""
+  dist = model.dist_embedding
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  want = {'lookup_combine': RAGGED_STEPS * n_subs,
+          'segwalk_apply': RAGGED_STEPS * n_groups}
+  dense = train_batches(config, model.hotness, seed + 13, RAGGED_STEPS + 2)
+  spare = dense.pop()
+  ragged = [(ragged_cats(cats), batch) for cats, batch in dense]
+  multi = [i for i, h in enumerate(model.hotness) if h > 1]
+  caps = {dist._ragged_cap(ragged[0][0][i]) for i in multi}
+  lengths = [int(ragged[0][0][i].row_lengths().min()) for i in multi] + [
+      int(ragged[0][0][i].row_lengths().max()) for i in multi]
+
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  model.init(seed + 13)
+  reset_launches()
+  with torch.no_grad():
+    got = dist.apply(model.embedding_params, ragged[0][0])
+    fwd_launches = read_launches()
+    want_outs = dist.apply(model.embedding_params, dense[0][0])
+  if fwd_launches != {'lookup_combine': n_subs, 'segwalk_apply': 0}:
+    raise AssertionError(f'ragged-tiny forward: launched {fwd_launches}, '
+                         f'{n_subs} lookups expected')
+  for i, (g, w) in enumerate(zip(got, want_outs)):
+    if not torch.equal(g, w):
+      raise AssertionError(f'ragged-tiny input {i}: the ragged forward '
+                           'differs from the hand-densified one (bit-exact '
+                           f'expected), max err {float((g - w).abs().max())}')
+  del got, want_outs
+  log(f'[ragged-tiny] {len(multi)} inputs as RaggedBatch (row lengths '
+      f'{min(lengths)}-{max(lengths)}), densified at _ragged_cap '
+      f'{sorted(caps)} (the dense layout: hotness 10); the forward equals '
+      f'the hand-densified one bit for bit; launches '
+      f'{json.dumps(fwd_launches)}')
+
+  runs = {}
+  for tag, batches in (('ragged', ragged), ('dense', dense)):
+    model.embedding_params = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.init(seed + 13)
+    step, state = build_trainer(model)
+    lookup.ARM_LAUNCHES.clear()
+    state, launches, times, _ = timed_steps(f'ragged-tiny-{tag}', step,
+                                            state, batches, want,
+                                            n_steps=RAGGED_STEPS)
+    if lookup.ARM_LAUNCHES['csr']:
+      raise AssertionError('ragged-tiny: the densified inputs reached the '
+                           'CSR arm')
+    runs[tag] = {'launches': launches, 'times': times}
+    if tag == 'ragged':
+      tables = {k: v.clone() for k, v in state.params['embedding'].items()}
+      # the ragged batches on the card before the step, as a loader
+      # would hand them over
+      spare_r, spare_cap = ragged_cats(spare[0]), ragged_cats(spare[0], 10)
+      syncs = host_syncs(lambda: step(state, spare_r, spare[1]))
+      syncs_cap = host_syncs(lambda: step(state, spare_cap, spare[1]))
+      del step, state
+      continue
+    exact, err = True, 0.0
+    for k, t in state.params['embedding'].items():
+      same, e = compare_tables(t, tables[k])
+      exact, err = exact and same, max(err, e)
+      for r0 in range(0, t.shape[0], CHECK_BLOCK_ROWS):
+        if not torch.allclose(tables[k][r0:r0 + CHECK_BLOCK_ROWS],
+                              t[r0:r0 + CHECK_BLOCK_ROWS], rtol=1e-6,
+                              atol=1e-6):
+          raise AssertionError(f'ragged-tiny {k}: tables after the ragged '
+                               f'steps differ from the dense ones, max err '
+                               f'{e} (rtol = atol = 1e-6)')
+    del tables
+    syncs_dense = host_syncs(lambda: step(state, *spare))
+    del step, state
+  syncs_numbers = {'ragged': sum(syncs.values()),
+                   'ragged_hot_cap': sum(syncs_cap.values()),
+                   'dense': sum(syncs_dense.values())}
+  log(f'[ragged-tiny] tables after {RAGGED_STEPS} steps on ragged inputs '
+      f'against the same steps on the dense layout: '
+      f'{"bit-exact" if exact else "within rtol = atol = 1e-6"} (max abs '
+      f'err {err})')
+  log(f'[ragged-tiny] host syncs of one step: ragged {syncs_numbers["ragged"]}'
+      f', ragged with hot_cap {syncs_numbers["ragged_hot_cap"]}, dense '
+      f'{syncs_numbers["dense"]}; by line: ragged '
+      f'{json.dumps(dict(syncs.most_common()))}; hot_cap '
+      f'{json.dumps(dict(syncs_cap.most_common()))}')
+  gc.collect()
+  torch.cuda.empty_cache()
+  return {'launches': runs['ragged']['launches'],
+          'forward_launches': fwd_launches,
+          'step_ms': runs['ragged']['times'],
+          'dense_step_ms': runs['dense']['times'],
+          'tables_bit_exact': exact, 'max_abs_err': err,
+          'host_syncs': syncs_numbers}
 
 
 def run_tiny(args):
@@ -2120,6 +2353,7 @@ def run_tiny(args):
   adam_launches, adam_rows, adam_times = phase_tiny_adam(model, config,
                                                          args.seed)
   fit_launches, fit_numbers = phase_fit_tiny(model, config, args.seed)
+  ragged_numbers = phase_ragged_tiny(model, config, args.seed)
 
   k = dict(KERNELS[0])
   k.update({
@@ -2162,8 +2396,158 @@ def run_tiny(args):
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_fit_tiny'] = {run: n[name]
                                   for run, n in fit_launches.items()}
+    entry['launches_ragged_tiny'] = ragged_numbers['launches'][name]
   seg['fit_tiny'] = fit_numbers
+  k['ragged_tiny'] = ragged_numbers
   return k, seg, adam
+
+
+def phase_ragged_lookup():
+  """Phase 20: the lookup microbenchmark's entry point at its full size
+  (``examples/benchmarks/lookup_benchmark.py``: 1 M x 128 f32, 65536
+  ragged rows, hotness up to 500), its launches counted from 0; then the
+  CSR arm against its plain version on its ids (sum and mean, f32 and a
+  bf16 copy), the backward and the sparse SGD against theirs, and the
+  arm's kernel, plain, library and bound times.  Returns the arm's
+  summary entry."""
+  reset_launches()
+  t0 = time.perf_counter()
+  res = lookup_benchmark.main([])
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {**read_launches(),
+              'lookup_combine:csr': lookup.ARM_LAUNCHES['csr']}
+  calls = res.calls
+  want = {'lookup_combine': calls['ragged_forward'] + calls['dense_grad']
+                            + calls['padded_forward'],
+          'segwalk_apply': calls['dense_grad'] + calls['sparse_sgd'],
+          'lookup_combine:csr': calls['ragged_forward'] + calls['dense_grad']}
+  if launches != want:
+    raise AssertionError(f'ragged-lookup: launched {launches}, expected '
+                         f'{want} for the calls {calls}')
+  log(f'[ragged-lookup] the benchmark in {wall:.1f} s: calls '
+      f'{json.dumps(calls)}; launches {json.dumps(launches)} (every ragged '
+      'forward, the gradient\'s included, on the CSR arm; every backward '
+      'and sparse SGD on the segment walk)')
+  log(f'[ragged-lookup] ms {json.dumps(res.ms)} ({res.clock})')
+
+  table, r = res.table, res.ragged
+  values, splits = r.values, r.row_splits
+  vocab, w = table.shape
+  nrows, nnz, cap = r.nrows, res.nnz, r.nnz_cap
+  lengths = r.row_lengths()
+  one_id_rows = bool((lengths == 1).all())
+  tol = 'bit-exact' if one_id_rows else 'rtol=atol=1e-6 (sum order)'
+  err = 0.0
+  for t in (table, table.to(torch.bfloat16)):
+    for combiner in ('sum', 'mean'):
+      got = lookup.ragged_lookup(t, values, splits, combiner, torch.float32)
+      ref = lookup.ragged_lookup_reference(t, values, splits, combiner,
+                                           torch.float32)
+      torch.cuda.synchronize()
+      e = float((got - ref).abs().max())
+      err = max(err, e)
+      ok = (torch.equal(got, ref) if one_id_rows else
+            torch.allclose(got, ref, rtol=1e-6, atol=1e-6))
+      if not ok:
+        raise AssertionError(f'ragged-lookup: the CSR arm disagrees with its '
+                             f'plain version ({t.dtype}, {combiner}), max '
+                             f'abs err {e} ({tol})')
+  del got, ref
+
+  # the backward: the segment walk's 'add' against the plain version
+  gen = torch.Generator(device='cuda').manual_seed(20)
+  cot = torch.randn((nrows, w), generator=gen, device='cuda')
+  segs, rows = lookup.ragged_grad_stream(values, splits, cot, res.combiner,
+                                         vocab)
+  kt = lookup._table_grad(segs, rows, vocab, table.dtype)
+  pt = torch.zeros_like(kt)
+  segwalk.apply_segments_reference(pt, None, segs, rows, 0.0, op='add')
+  same, grad_err = compare_tables(kt, pt)
+  if not same:
+    raise AssertionError(f'ragged-lookup: the backward disagrees with the '
+                         f'plain version, max abs err {grad_err} (bit-exact)')
+  del kt, pt, cot, segs, rows
+
+  # the sparse SGD: the segment walk's 'sgd' on the ragged stream
+  ids, g_index, grads = res.sgd_stream()
+  segs = segwalk.sort_stream(ids, vocab, g_index)
+  kt, pt = table.clone(), table.clone()
+  segwalk.apply_segments(kt, None, segs, grads, lookup_benchmark.LR,
+                         op='sgd')
+  segwalk.apply_segments_reference(pt, None, segs, grads,
+                                   lookup_benchmark.LR, op='sgd')
+  same, sgd_err = compare_tables(kt, pt)
+  touched = torch.zeros(vocab, dtype=torch.bool, device='cuda')
+  touched[segs.sorted_ids[segs.starts].long()] = True
+  if not same or not torch.equal(kt[~touched], table[~touched]):
+    raise AssertionError(f'ragged-lookup: the sparse SGD disagrees with the '
+                         f'plain version (max abs err {sgd_err}) or changed '
+                         'an untouched row (bit-exact)')
+  del kt, pt, segs, grads
+
+  # the arm's times on the benchmark's shape (f32, its combiner)
+  c = res.combiner
+  kernel = lambda: lookup.ragged_lookup(table, values, splits, c,
+                                        torch.float32)
+  plain = lambda: lookup.ragged_lookup_reference(table, values, splits, c,
+                                                 torch.float32)
+  library = lambda: torch.nn.functional.embedding_bag(
+      values, table, splits, mode=c, include_last_offset=True)
+  lib_out = library()
+  if not torch.allclose(lib_out, kernel(), rtol=1e-5, atol=1e-6):
+    raise AssertionError('ragged-lookup: embedding_bag computes another '
+                         'function than the CSR arm')
+  del lib_out
+  # the least bytes, as phase 4 counts them: the ids and splits read
+  # once, each DISTINCT row read once, the output written once (a row
+  # gathered again may hit L2); every gathered row read once beside it.
+  # One f32 add per valid element.
+  distinct = int(torch.unique(values[:nnz]).numel())
+  row_bytes = w * table.element_size()
+  index_bytes = cap * 4 + (nrows + 1) * 4 + nrows * w * 4
+  nbytes = distinct * row_bytes + index_bytes
+  gathered_bytes = nnz * row_bytes + index_bytes
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = nnz * w / F32_FLOP_PER_S * 1e3
+  floor = max(bytes_ms, ops_ms)
+  kernel_ms = device_ms(kernel, 20, floor_ms=floor)
+  plain_ms = device_ms(plain, 5, floor_ms=floor)
+  library_ms = device_ms(library, 20, floor_ms=floor)
+  kernel_event_ms = event_ms(kernel, 20)
+  row = {
+      'shape': f'csr_{nrows}rows_nnz{nnz}_w{w}', 'rows': vocab, 'w': w,
+      'batch': nrows, 'nnz': nnz, 'nnz_cap': cap,
+      'longest_row': int(lengths.max()), 'distinct_rows': distinct,
+      'dtype': 'float32', 'combiner': c, 'bytes': nbytes,
+      'max_abs_err': err, 'tolerance': tol, 'backward_max_abs_err': grad_err,
+      'sgd_max_abs_err': sgd_err, 'kernel_ms': kernel_ms,
+      'kernel_event_ms': kernel_event_ms, 'plain_ms': plain_ms,
+      'library_ms': library_ms, 'bound_ms': floor,
+      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+      'gathered_bytes': gathered_bytes,
+      'gathered_bound_ms': gathered_bytes / HBM_BYTES_PER_S * 1e3,
+      'achieved_GBps': nbytes / (kernel_ms * 1e-3) / 1e9,
+  }
+  log('[kernels] ' + json.dumps(clocked(row)))
+  log('[ragged-lookup] the CSR arm equals its plain version (sum and mean, '
+      f'f32 and bf16; {tol}); the backward and the sparse SGD bit-exact, '
+      'untouched rows unchanged; embedding_bag with offsets is the library '
+      'time')
+  entry = dict(CSR_ARM)
+  entry.update({
+      'launches': launches['lookup_combine:csr'],
+      'max_abs_err': max(err, grad_err, sgd_err),
+      'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': row['bound_ms'],
+      'bound_by': row['bound_by'], 'library_ms': library_ms,
+      'gathered_bound_ms': row['gathered_bound_ms'],
+      'shape': row['shape'], 'benchmark_ms': res.ms,
+      'benchmark_calls': calls, 'launches_benchmark': launches,
+  })
+  del res, table, values, splits
+  gc.collect()
+  torch.cuda.empty_cache()
+  return entry
 
 
 def summed(kernel, launches, rows, extra=None):
@@ -2231,8 +2615,11 @@ def main(argv=None) -> int:
   log(f'[small] before the model: device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
   arms = run_small(args.seed, k, seg)
+  gc.collect()
+  torch.cuda.empty_cache()
+  csr = phase_ragged_lookup()
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
-  log(json.dumps({'kernels': [k, seg, *arms, adam]}))
+  log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr])}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

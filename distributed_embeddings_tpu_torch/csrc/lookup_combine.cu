@@ -12,6 +12,23 @@
 // with no valid id is zero.  The table is f32 or bf16, stored in natural
 // row-major [rows, w] layout; any width is served.
 //
+// Two arms of one kernel, chosen by the `splits` pointer:
+//
+// - dense (splits == nullptr): row m's ids are ids[m * h .. m * h + h),
+//   the padded [M, h] layout the distributed runtime routes;
+// - row offsets (CSR): row m's ids are ids[splits[m] .. splits[m + 1]),
+//   the capacity-padded CSR of a RaggedBatch (`h` is then the capacity
+//   of `ids`, and no row reads past it).  This arm stands in for the JAX
+//   package's XLA `_ragged_combine` (ops/embedding_lookup.py), which
+//   gathers [nnz_cap, w] rows and segment-sums them; the reference runs
+//   the same function in its CUDA kernel EmbeddingLookUpVariableHot,
+//   which reads CSR directly, as this arm does.  Positions at or after
+//   splits[M] (capacity padding) are never read.
+//
+// Everything else is shared: the same vector loads, f32 accumulation in
+// ascending position order, `mean`'s max(count, 1) divisor and an
+// all-zero row where a row has no valid id.
+//
 // What bounds it: device-memory bytes.  Each valid id costs one random
 // row read of w * itemsize bytes (32 or 64 B at the widths of the
 // synthetic tiny model) and adds w floats: about 0.25 flop per byte,
@@ -67,21 +84,34 @@ struct alignas(sizeof(T) * V) Vec {
 template <typename T, int V>
 __global__ void __launch_bounds__(kBlock)
     lookup_combine_kernel(const int32_t* __restrict__ ids,
+                          const int32_t* __restrict__ splits,
                           const T* __restrict__ table,
-                          float* __restrict__ out, int64_t m, int h,
+                          float* __restrict__ out, int64_t m, int64_t h,
                           int64_t rows, int w, int tpr, int mean) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
   const int64_t r = g / tpr;
   if (r >= m) return;
   const int lane = static_cast<int>(g - r * tpr);
-  const int32_t* row_ids = ids + r * h;
+  const int32_t* row_ids;
+  int64_t n;
+  if (splits == nullptr) {
+    row_ids = ids + r * h;
+    n = h;
+  } else {
+    // clamped to the capacity h, so malformed splits never read past it
+    int64_t lo = __ldg(splits + r), hi = __ldg(splits + r + 1);
+    lo = lo < 0 ? 0 : (lo > h ? h : lo);
+    hi = hi < lo ? lo : (hi > h ? h : hi);
+    row_ids = ids + lo;
+    n = hi - lo;
+  }
   float* out_row = out + r * static_cast<int64_t>(w);
   for (int c = lane * V; c < w; c += tpr * V) {
     float acc[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.0f;
     int count = 0;
-    for (int j = 0; j < h; ++j) {
+    for (int64_t j = 0; j < n; ++j) {
       const int32_t id = __ldg(row_ids + j);
       if (id < 0 || id >= rows) continue;
       ++count;
@@ -103,16 +133,16 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 template <typename T, int V>
-cudaError_t launch(const int32_t* ids, const T* table, float* out, int64_t m,
-                   int h, int64_t rows, int w, int mean,
-                   cudaStream_t stream) {
+cudaError_t launch(const int32_t* ids, const int32_t* splits, const T* table,
+                   float* out, int64_t m, int64_t h, int64_t rows, int w,
+                   int mean, cudaStream_t stream) {
   int tpr = (w + V - 1) / V;
   if (tpr > 32) tpr = 32;
   const int64_t threads = m * tpr;
   const int64_t blocks = (threads + kBlock - 1) / kBlock;
   lookup_combine_kernel<T, V><<<static_cast<unsigned>(blocks), kBlock, 0,
-                                stream>>>(ids, table, out, m, h, rows, w, tpr,
-                                          mean);
+                                stream>>>(ids, splits, table, out, m, h, rows,
+                                          w, tpr, mean);
   return cudaGetLastError();
 }
 
@@ -131,37 +161,45 @@ int vector_width(const void* table, const void* out, int w) {
 }
 
 template <typename T>
-cudaError_t dispatch(const int32_t* ids, const T* table, float* out,
-                     int64_t m, int h, int64_t rows, int w, int mean,
-                     cudaStream_t stream) {
+cudaError_t dispatch(const int32_t* ids, const int32_t* splits,
+                     const T* table, float* out, int64_t m, int64_t h,
+                     int64_t rows, int w, int mean, cudaStream_t stream) {
   switch (vector_width<T>(table, out, w)) {
     case 8:
-      return launch<T, 8>(ids, table, out, m, h, rows, w, mean, stream);
+      return launch<T, 8>(ids, splits, table, out, m, h, rows, w, mean,
+                          stream);
     case 4:
-      return launch<T, 4>(ids, table, out, m, h, rows, w, mean, stream);
+      return launch<T, 4>(ids, splits, table, out, m, h, rows, w, mean,
+                          stream);
     case 2:
-      return launch<T, 2>(ids, table, out, m, h, rows, w, mean, stream);
+      return launch<T, 2>(ids, splits, table, out, m, h, rows, w, mean,
+                          stream);
     default:
-      return launch<T, 1>(ids, table, out, m, h, rows, w, mean, stream);
+      return launch<T, 1>(ids, splits, table, out, m, h, rows, w, mean,
+                          stream);
   }
 }
 
 }  // namespace
 
-// ids: [m, h] int32; table: [rows, w] f32 (table_bf16 == 0) or bf16;
-// out: [m, w] f32.  All contiguous, on the current device.  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int lookup_combine(const void* ids, const void* table, void* out,
-                              long long m, int h, long long rows, int w,
+// Dense arm (splits == NULL): ids [m, h] int32.  Row-offsets arm: ids
+// [h] int32 (the CSR values, h their capacity), splits [m + 1] int32.
+// table: [rows, w] f32 (table_bf16 == 0) or bf16; out: [m, w] f32.  All
+// contiguous, on the current device.  Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int lookup_combine(const void* ids, const void* splits,
+                              const void* table, void* out, long long m,
+                              long long h, long long rows, int w,
                               int table_bf16, int mean, void* stream) {
   if (m <= 0) return 0;
   const auto* i = static_cast<const int32_t*>(ids);
+  const auto* sp = static_cast<const int32_t*>(splits);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      table_bf16 ? dispatch(i, static_cast<const __nv_bfloat16*>(table), o,
-                            m, h, rows, w, mean, s)
-                 : dispatch(i, static_cast<const float*>(table), o, m, h,
+      table_bf16 ? dispatch(i, sp, static_cast<const __nv_bfloat16*>(table),
+                            o, m, h, rows, w, mean, s)
+                 : dispatch(i, sp, static_cast<const float*>(table), o, m, h,
                             rows, w, mean, s);
   return static_cast<int>(err);
 }

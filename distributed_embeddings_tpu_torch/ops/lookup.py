@@ -38,10 +38,22 @@ segment walk's chunked sum over that concatenated stream (``ops/
 segwalk.py``: left folds inside chunks of ``CHUNK`` sorted positions,
 then across the chunks), the same stream and order as the sparse
 step's apply of that group.
+
+``ragged_lookup`` is the same combine over capacity-padded CSR ids
+(``values`` and ``row_splits`` of a ``RaggedBatch``): on a CUDA table
+the kernel's row-offsets arm, on a CPU table its plain version
+``ragged_lookup_reference``, a transcription of the JAX package's XLA
+``_ragged_combine`` (``ops/embedding_lookup.py``).  Its backward is the
+same machinery: each position's cotangent row is its CSR row's,
+capacity padding carries the id ``vocab`` and so contributes nothing,
+and one sort and one segment-walk ``'add'`` make the table gradient
+(``RaggedLookupCombine``).  ``ARM_LAUNCHES['csr']`` counts the launches
+of that arm; each counts in ``LAUNCHES`` too.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Sequence, Tuple
 
@@ -50,8 +62,10 @@ import torch
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
-# Kernel launches made by this module (one per ``_launch``).
+# Kernel launches made by this module (one per ``_launch``), and those
+# of them that ran the row-offsets (CSR) arm.
 LAUNCHES = 0
+ARM_LAUNCHES = collections.Counter()
 
 _COMBINERS = (None, 'sum', 'mean')
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -63,37 +77,51 @@ def _kernel():
   if _fn is None:
     fn = nativebuild.load('lookup_combine').lookup_combine
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
   return _fn
 
 
-def _launch(table: torch.Tensor, ids: torch.Tensor, mean: bool
-            ) -> torch.Tensor:
+def _launch(table: torch.Tensor, ids: torch.Tensor, mean: bool,
+            splits: Optional[torch.Tensor] = None) -> torch.Tensor:
   """One launch of ``lookup_combine`` on the current stream: the f32
-  ``[M, width]`` sum (or mean) of the valid rows of each ``ids`` row."""
+  ``[M, width]`` sum (or mean) of the valid rows of each ``ids`` row
+  (``ids`` ``[M, h]``), or with ``splits`` ``[M + 1]`` of each CSR row of
+  the values ``ids`` ``[nnz_cap]`` (the row-offsets arm)."""
   global LAUNCHES
-  if ids.device != table.device:
-    raise ValueError(f'ids on {ids.device}, table on {table.device}')
-  if not (table.is_contiguous() and ids.is_contiguous()):
-    raise ValueError('lookup_combine needs contiguous table and ids')
-  if ids.dtype != torch.int32:
-    raise ValueError(f'ids must be int32, got {ids.dtype}')
-  m, h = ids.shape
+  for x in (ids, splits):
+    if x is None:
+      continue
+    if x.device != table.device:
+      raise ValueError(f'ids on {x.device}, table on {table.device}')
+    if x.dtype != torch.int32:
+      raise ValueError(f'ids and splits must be int32, got {x.dtype}')
+    if not x.is_contiguous():
+      raise ValueError('lookup_combine needs contiguous ids and splits')
+  if not table.is_contiguous():
+    raise ValueError('lookup_combine needs a contiguous table')
+  if splits is None:
+    m, h = ids.shape
+  else:
+    m, h = splits.shape[0] - 1, ids.shape[0]
   vocab, w = table.shape
   out = torch.empty((m, w), dtype=torch.float32, device=table.device)
   if m == 0:
     return out
   with torch.cuda.device(table.device):
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = _kernel()(ids.data_ptr(), table.data_ptr(), out.data_ptr(), m, h,
-                    vocab, w, int(table.dtype == torch.bfloat16), int(mean),
-                    stream)
+    err = _kernel()(ids.data_ptr(),
+                    None if splits is None else splits.data_ptr(),
+                    table.data_ptr(), out.data_ptr(), m, h, vocab, w,
+                    int(table.dtype == torch.bfloat16), int(mean), stream)
   if err != 0:
     raise RuntimeError(f'lookup_combine launch failed: cudaError {err}')
   LAUNCHES += 1
+  if splits is not None:
+    ARM_LAUNCHES['csr'] += 1
   return out
 
 
@@ -150,6 +178,32 @@ def _forward(table: torch.Tensor, ids: torch.Tensor,
   return dense_lookup_reference(table, ids, combiner, torch.float32)
 
 
+def _divided(g: torch.Tensor, counts: torch.Tensor,
+             combiner: Optional[str]) -> torch.Tensor:
+  """The f32 cotangent rows of one stream, ``'mean'`` rows divided by
+  their id count (at least 1)."""
+  g = g.to(torch.float32)
+  if combiner == 'mean':
+    g = g / torch.clamp(counts.to(torch.float32), min=1.0)[:, None]
+  return g
+
+
+def _sorted_stream(parts, vocab: int, dev: torch.device
+                   ) -> Tuple[segwalk.Segments, torch.Tensor]:
+  """One update stream from ``(ids [n], local g_index [n], rows [m, w])``
+  parts, in the order given: each part's ``g_index`` offset past the
+  rows before it, the ids sorted (stable)."""
+  flat_ids, g_index, rows, off = [], [], [], 0
+  for ids, gi, g in parts:
+    flat_ids.append(ids.to(torch.int32))
+    g_index.append(gi.to(torch.int32) + off)
+    rows.append(g)
+    off += g.shape[0]
+  segs = segwalk.sort_stream(torch.cat(flat_ids).to(dev), vocab,
+                             torch.cat(g_index).to(dev))
+  return segs, torch.cat(rows)
+
+
 def grad_stream(ids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                 combiners: Sequence[Optional[str]], vocab: int
                 ) -> Tuple[segwalk.Segments, torch.Tensor]:
@@ -157,21 +211,25 @@ def grad_stream(ids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
   stream, in the order given, each position mapped to its bag's f32
   cotangent row (``'mean'`` rows divided by their id count), and those
   rows."""
-  dev = grads[0].device
-  flat_ids, rows, g_index, off = [], [], [], 0
+  parts = []
   for x, g, combiner in zip(ids, grads, combiners):
     m, h = x.shape
-    g = g.to(torch.float32)
-    if combiner == 'mean':
-      counts = ((x >= 0) & (x < vocab)).sum(dim=1).to(torch.float32)
-      g = g / torch.clamp(counts, min=1.0)[:, None]
-    flat_ids.append(x.reshape(-1).to(torch.int32))
-    rows.append(g)
-    g_index.append(torch.arange(off, off + m, dtype=torch.int32,
-                                device=dev).repeat_interleave(h))
-    off += m
-  segs = segwalk.sort_stream(torch.cat(flat_ids), vocab, torch.cat(g_index))
-  return segs, torch.cat(rows)
+    counts = ((x >= 0) & (x < vocab)).sum(dim=1)
+    parts.append((x.reshape(-1),
+                  torch.arange(m, dtype=torch.int32,
+                               device=x.device).repeat_interleave(h),
+                  _divided(g, counts, combiner)))
+  return _sorted_stream(parts, vocab, grads[0].device)
+
+
+def _table_grad(segs: segwalk.Segments, rows: torch.Tensor, vocab: int,
+                dtype: torch.dtype) -> torch.Tensor:
+  """The segment walk's ``'add'`` of a sorted stream into a zeroed
+  ``[vocab, width]`` gradient at ``dtype``."""
+  dtable = torch.zeros((vocab, rows.shape[1]), dtype=dtype,
+                       device=rows.device)
+  segwalk.apply_segments(dtable, None, segs, rows, 0.0, op='add')
+  return dtable
 
 
 def lookup_grad(ids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -181,10 +239,133 @@ def lookup_grad(ids: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
   ``dtype``, from each stream's ids ``[M, h]`` and its output cotangent
   ``[M, width]`` (module docstring).  Rows no valid id names are zero."""
   segs, rows = grad_stream(ids, grads, combiners, vocab)
-  dtable = torch.zeros((vocab, rows.shape[1]), dtype=dtype,
-                       device=rows.device)
-  segwalk.apply_segments(dtable, None, segs, rows, 0.0, op='add')
-  return dtable
+  return _table_grad(segs, rows, vocab, dtype)
+
+
+# ------------------------------------------------------ the CSR (ragged) arm
+
+
+def _csr_rows(values: torch.Tensor, splits: torch.Tensor, vocab: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Per position of the CSR values: its row (``nrows`` at capacity
+  padding, as ``RaggedBatch.row_ids``), whether it is a real id (before
+  ``splits[-1]`` and inside ``[0, vocab)``), and per row the count of
+  real ids."""
+  nrows = splits.shape[0] - 1
+  pos = torch.arange(values.shape[0], dtype=splits.dtype,
+                     device=splits.device)
+  rowids = torch.searchsorted(splits, pos, right=True, out_int32=True) - 1
+  real = (pos < splits[-1]) & (values >= 0) & (values < vocab)
+  counts = torch.zeros(nrows + 1, dtype=torch.int32, device=splits.device)
+  counts.index_add_(0, rowids.long(), real.to(torch.int32))
+  return rowids, real, counts[:nrows]
+
+
+def ragged_lookup_reference(table: torch.Tensor, values: torch.Tensor,
+                            splits: torch.Tensor, combiner: str,
+                            out_dtype: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
+  """The plain PyTorch version of the kernel's row-offsets arm: the JAX
+  package's ``_ragged_combine`` (gather the rows in f32, zero the
+  padding, sum them by CSR row, ``'mean'`` divides by the row's id
+  count), with the kernel's validity rule: ids outside ``[0, vocab)``
+  are padding and are not counted (``embedding_lookup`` clips ids before
+  either runs, so there the count is the row length).  Each row's sum is
+  the left fold of its ids in ascending position, the kernel's order, on
+  either device (a segment sum by ``index_add_`` would add in another
+  order on the card)."""
+  vocab, cap = table.shape[0], values.shape[0]
+  _, real, counts = _csr_rows(values, splits, vocab)
+  safe = torch.where(real, values, 0).long()
+
+  def rows_at(p):
+    return torch.where(real[p, None], table[safe[p]].to(torch.float32), 0.0)
+
+  lo = torch.clamp(splits[:-1].long(), 0, cap)
+  hi = torch.maximum(torch.clamp(splits[1:].long(), 0, cap), lo)
+  out = segwalk._left_folds(lo, hi - lo, rows_at, table.shape[1])
+  if combiner == 'mean':
+    out = out / torch.clamp(counts.to(torch.float32), min=1.0)[:, None]
+  return out.to(out_dtype or table.dtype)
+
+
+def ragged_grad_stream(values: torch.Tensor, splits: torch.Tensor,
+                       grad: torch.Tensor, combiner: str, vocab: int
+                       ) -> Tuple[segwalk.Segments, torch.Tensor]:
+  """The update stream of the CSR arm's backward: each position's
+  cotangent row is its CSR row's (``'mean'`` rows divided by the row's
+  id count); positions that are not real ids carry the id ``vocab`` and
+  contribute nothing."""
+  nrows = splits.shape[0] - 1
+  rowids, real, counts = _csr_rows(values, splits, vocab)
+  ids = torch.where(real, values, vocab)
+  g_index = torch.clamp(rowids, 0, max(nrows - 1, 0))
+  return _sorted_stream([(ids, g_index, _divided(grad, counts, combiner))],
+                        vocab, grad.device)
+
+
+class RaggedLookupCombine(torch.autograd.Function):
+  """The CSR arm's combine as one autograd node: the forward launches the
+  row-offsets arm once (f32 ``[nrows, width]``), the backward is one
+  sort and one segment-walk ``'add'`` (``ragged_grad_stream``)."""
+
+  @staticmethod
+  def forward(ctx, table: torch.Tensor, combiner: str, values: torch.Tensor,
+              splits: torch.Tensor) -> torch.Tensor:
+    ctx.save_for_backward(values, splits)
+    ctx.combiner = combiner
+    ctx.vocab = table.shape[0]
+    ctx.dtype = table.dtype
+    if table.device.type == 'cuda':
+      return _launch(table, values.to(torch.int32).contiguous(),
+                     combiner == 'mean', splits.to(torch.int32).contiguous())
+    return ragged_lookup_reference(table, values, splits, combiner,
+                                   torch.float32)
+
+  @staticmethod
+  def backward(ctx, grad: torch.Tensor):
+    dtable = None
+    if ctx.needs_input_grad[0]:
+      values, splits = ctx.saved_tensors
+      segs, rows = ragged_grad_stream(values, splits, grad, ctx.combiner,
+                                      ctx.vocab)
+      dtable = _table_grad(segs, rows, ctx.vocab, ctx.dtype)
+    return dtable, None, None, None
+
+
+def ragged_lookup(table: torch.Tensor, values: torch.Tensor,
+                  splits: torch.Tensor, combiner: str,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+  """Fused lookup+combine over capacity-padded CSR ids.
+
+  Args:
+    table: ``[vocab, width]`` f32 or bf16.
+    values: ``[nnz_cap]`` integer ids; positions at or after
+      ``splits[-1]`` are capacity padding, and ids outside ``[0, vocab)``
+      are padding too.
+    splits: ``[nrows + 1]`` integer row offsets, non-decreasing, from 0,
+      at most ``nnz_cap``.
+    combiner: 'sum' | 'mean'.
+    out_dtype: output dtype (default ``table.dtype``).
+
+  Returns:
+    ``[nrows, width]``, accumulated in f32 and rounded once; a row with
+    no valid id is zero.  Differentiable in ``table``
+    (``RaggedLookupCombine``).
+  """
+  if combiner not in ('sum', 'mean') or table.dtype not in _TABLE_DTYPES:
+    raise ValueError(f'ragged_lookup unsupported: dtype {table.dtype}, '
+                     f'combiner {combiner}')
+  if table.dim() != 2 or values.dim() != 1 or splits.dim() != 1:
+    raise ValueError(f'ragged_lookup needs table [vocab, w], values [n] and '
+                     f'splits [nrows + 1], got {tuple(table.shape)}, '
+                     f'{tuple(values.shape)} and {tuple(splits.shape)}')
+  if table.device.type not in ('cuda', 'cpu') or not (
+      values.device == splits.device == table.device):
+    raise ValueError(f'ragged_lookup: table on {table.device}, values on '
+                     f'{values.device}, splits on {splits.device}')
+  out = RaggedLookupCombine.apply(table, combiner, values, splits)
+  return out.to(out_dtype or table.dtype)
 
 
 class LookupCombine(torch.autograd.Function):

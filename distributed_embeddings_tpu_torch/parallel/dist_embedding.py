@@ -22,8 +22,10 @@ the global batch, builds each subgroup's ``[n_cap, GB, h]`` canonical
 from this rank's own inputs, and so has no id exchange: route, lookup,
 ONE fused row exchange, assemble.
 
-Ported so far: ``__init__``, ``init``, ``apply`` on dense ``[B]`` /
-``[B, h]`` inputs along both input paths, and the sparse training hooks
+Ported so far: ``__init__`` (``TableConfig``s or ``Embedding`` layers),
+``init``, ``apply`` on dense ``[B]`` / ``[B, h]`` inputs along both input
+paths and on ``RaggedBatch`` inputs along the dp-input path (densified
+first, ``_densify``, as the JAX package does), and the sparse training hooks
 ``forward_with_residuals`` / ``backward_to_mp`` (the backward, shared by
 both paths as in the JAX package, mirrors the forward's return leg: ONE
 fused cotangent exchange, plus one all_gather per row-sharded input).
@@ -45,6 +47,7 @@ import torch
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
+from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.planner import (
@@ -67,12 +70,18 @@ def not_ported(what: str, item) -> NotImplementedError:
 
 
 def _as_table_configs(embeddings) -> List[TableConfig]:
+  # function-level import: layers.embedding imports the planner, so a
+  # module-level import here would be circular
+  from distributed_embeddings_tpu_torch.layers.embedding import Embedding
   configs = []
   for e in embeddings:
-    if not isinstance(e, TableConfig):
-      raise TypeError(f'embeddings must be TableConfigs, got {type(e)} '
-                      '(Embedding layers are ROADMAP.md Queue 1, item 5)')
-    configs.append(e)
+    if isinstance(e, TableConfig):
+      configs.append(e)
+    elif isinstance(e, Embedding):
+      configs.append(e.table_config())
+    else:
+      raise TypeError(
+          f'embeddings must be Embedding layers or TableConfigs, got {type(e)}')
   return configs
 
 
@@ -92,7 +101,8 @@ class DistributedEmbedding:
   ``DistributedEmbedding``).
 
   Args:
-    embeddings: list of ``TableConfig``s to distribute.
+    embeddings: list of ``TableConfig``s or ``layers.Embedding`` layers
+      (their ``table_config()``) to distribute.
     strategy: 'basic' | 'memory_balanced' | 'memory_optimized'.
     column_slice_threshold / row_slice: as in the JAX package.
     dp_input: True: each rank passes its local batch of every input
@@ -274,8 +284,10 @@ class DistributedEmbedding:
         ``checkpoint.set_weights``.
       inputs: int arrays or tensors, ``-1`` padding.  With
         ``dp_input=True``: ``num_inputs`` of this rank's ``[local_batch]``
-        or ``[local_batch, hot]`` ids in input order (every rank passes
-        the same local batch size).  With ``dp_input=False``: the
+        or ``[local_batch, hot]`` ids or ``RaggedBatch``es of
+        ``local_batch`` rows in input order (every rank passes the same
+        local batch size; a ``RaggedBatch`` is densified at
+        ``_ragged_cap``).  With ``dp_input=False``: the
         ``[global_batch(, hot)]`` ids of every entry of the worker order
         (``plan.input_ids_list`` flattened), the same list on every rank;
         each rank moves only its own entries to the device.
@@ -309,8 +321,13 @@ class DistributedEmbedding:
       if len(inputs) != len(flat_ids):
         raise ValueError(f'Expect {len(flat_ids)} worker-order inputs, got '
                          f'{len(inputs)}.')
-    if any(hasattr(x, 'to_padded_dense') for x in inputs):
-      raise not_ported('RaggedBatch inputs', 5)
+    if self.dp_input:
+      inputs = self._densify(inputs)
+    elif any(isinstance(x, RaggedBatch) for x in inputs):
+      raise TypeError(
+          'RaggedBatch inputs need dp_input=True: the model-parallel input '
+          'path takes dense [global_batch(, hot)] ids (densify with '
+          'to_padded_dense first)')
     inputs = [x if hasattr(x, 'shape') else np.asarray(x) for x in inputs]
     batch = inputs[0].shape[0]
     if any(x.shape[0] != batch for x in inputs):
@@ -332,6 +349,59 @@ class DistributedEmbedding:
     self._check_combiner_hotness(hotness)
     mine = self._worker_positions()[self.rank]
     return {k: as_ids(inputs[k]) for k in mine.values()}, batch, hotness
+
+  def _densify(self, inputs) -> list:
+    """Each ``RaggedBatch`` of a dp-input list as its padded dense ids,
+    ``to_padded_dense(self._ragged_cap(x))``; other inputs unchanged."""
+    inputs = list(inputs)
+    ragged = [i for i, x in enumerate(inputs) if isinstance(x, RaggedBatch)]
+    if not ragged:
+      return inputs
+    caps = self._ragged_caps([inputs[i] for i in ragged])
+    for i, cap in zip(ragged, caps):
+      inputs[i] = inputs[i].to_padded_dense(cap)
+    return inputs
+
+  def _ragged_cap(self, ragged: RaggedBatch) -> int:
+    """Densification capacity of one ragged input.
+
+    ``to_padded_dense`` DROPS ids past the capacity, so the batch's
+    ``hot_cap`` serves where it carries one, and otherwise the TRUE
+    longest row (one read of the lengths back to the host, as in the JAX
+    package's eager path; no capacity is guessed, which could drop ids
+    of skewed rows).  Rounded up to the next power of two, to bound the
+    set of routed shapes, and clamped to ``nnz_cap`` (no row can be
+    longer).  The JAX package's ``_ragged_cap`` exactly, on this rank's
+    batch."""
+    return self._ragged_caps([ragged])[0]
+
+  def _ragged_caps(self, batches: Sequence[RaggedBatch]) -> List[int]:
+    """``_ragged_cap`` of each batch of a list.  Across ranks (each passes
+    its local batch) the routed shapes must agree, so the ranks exchange
+    each batch's longest row and capacity in one all_gather and take the
+    capacity of the global batch, the ranks' batches concatenated: the
+    largest longest row, clamped to the summed ``nnz_cap``, as the JAX
+    package does on the global batch."""
+    longest = []
+    for b in batches:
+      if b.hot_cap is not None:
+        longest.append(int(b.hot_cap))
+      else:
+        lengths = b.row_lengths()
+        longest.append(int(lengths.max()) if lengths.numel() else 1)
+    nnz = [b.nnz_cap for b in batches]
+    if self.world_size > 1:
+      mine = torch.tensor([longest, nnz], dtype=torch.int64,
+                          device=self.device)
+      every = _all_gather(mine[None], self.mesh.group, self.world_size)
+      longest = every[:, 0].max(0).values.tolist()
+      nnz = every[:, 1].sum(0).tolist()
+    caps = []
+    for m, cap in zip(longest, nnz):
+      # next power of two, clamped to nnz_cap
+      caps.append(1 if m <= 1 else min(1 << max(0, m - 1).bit_length(),
+                                       cap))
+    return caps
 
   def _worker_positions(self) -> List[Dict[int, int]]:
     """Per rank, input id -> its position in the worker order."""

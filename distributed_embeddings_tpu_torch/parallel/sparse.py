@@ -343,6 +343,11 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     cat_pos.setdefault(i, k)
 
   def step(state: TrainState, cats, batch):
+    if dist.dp_input:
+      # RaggedBatch inputs densified once, here (the JAX step's ``run``
+      # does it outside its jit): the forward and the mean row-shard
+      # division below both read the dense ids
+      cats = dist._densify(cats)
     emb_params = state.params['embedding']
     dense = {k: v for k, v in state.params.items() if k != 'embedding'}
     dense_opt_state, emb_opt_state = state.opt_state

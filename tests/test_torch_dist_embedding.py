@@ -11,13 +11,14 @@ import torch
 
 import jax
 
-from distributed_embeddings_tpu.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu.parallel import checkpoint as jax_ckpt
 from distributed_embeddings_tpu.parallel import planner as jax_planner
 from distributed_embeddings_tpu.parallel.dist_embedding import (
     DistributedEmbedding as JaxDistributedEmbedding)
 from distributed_embeddings_tpu.models import synthetic as jax_synthetic
 from distributed_embeddings_tpu_torch.models import synthetic
+from distributed_embeddings_tpu_torch.ops.ragged import (
+    RaggedBatch as PortRaggedBatch)
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
@@ -211,10 +212,23 @@ def test_other_refusals():
     DistributedEmbedding(t, device='cpu', param_dtype=torch.float16)
   with pytest.raises(TypeError, match='row_slice'):
     DistributedEmbedding(t, device='cpu', row_slice=True)
+
+
+def test_ragged_batch_through_apply_equals_hand_densified():
+  # a RaggedBatch (the port's) is densified at _ragged_cap (3 -> 4) and
+  # gives the outputs of the same ids densified by hand at hotness 3
+  t = [TableConfig(10, 8, combiner='sum'), TableConfig(12, 4, combiner='mean')]
   d = DistributedEmbedding(t, device='cpu')
-  ragged = RaggedBatch.from_lists([[1, 2], [3]])
-  with pytest.raises(NotImplementedError, match='item 5\\)'):
-    d.apply(d.init(0), [ragged])
+  params = d.init(0)
+  rows = [[[1, 2], [3], [4, 5, 6], []], [[0], [11, 2, 2], [], [5]]]
+  ragged = [PortRaggedBatch.from_lists(r, nnz_cap=12) for r in rows]
+  dense = [r.to_padded_dense(3) for r in ragged]
+  got = d.apply(params, ragged)
+  want = d.apply(params, dense)
+  assert d.lookup_plan().hotness == (3, 3)
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
+  assert [d._ragged_cap(r) for r in ragged] == [4, 4]
 
 
 def test_bfloat16_tables():

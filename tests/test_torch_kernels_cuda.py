@@ -609,3 +609,102 @@ def test_bf16_table_saved_from_the_card_loads_back_bit_exact(cuda_device,
   for a, b in zip(checkpoint.get_weights(dist, back),
                   checkpoint.get_weights(dist, params)):
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _csr(rng, vocab, lengths, pad=7):
+  """CSR ids of rows of the given lengths, ``pad`` capacity positions
+  after ``splits[-1]`` filled with ids the kernel must never read (out of
+  range, negative, and valid ones), and some ids outside ``[0, vocab)``
+  inside rows (padding to the kernel)."""
+  lengths = np.asarray(lengths)
+  nnz = int(lengths.sum())
+  values = rng.integers(0, vocab, size=nnz + pad).astype(np.int32)
+  values[nnz:] = [vocab + 3, -2, 0, 1, vocab, 5, 6][:pad]
+  values[:nnz:13] = -1
+  values[5:nnz:17] = vocab + 1
+  splits = np.zeros(len(lengths) + 1, np.int32)
+  np.cumsum(lengths, out=splits[1:])
+  return torch.as_tensor(values), torch.as_tensor(splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [8, 16, 128])
+@pytest.mark.parametrize('combiner', ['sum', 'mean'])
+def test_csr_arm_matches_plain_version(cuda_device, combiner, w, dtype):
+  rng = np.random.default_rng(w)
+  vocab = 2000
+  # rows of 0, 1 and 500 ids among random ones
+  lengths = np.concatenate([[0, 1, 500, 0], rng.integers(0, 40, 600), [1]])
+  values, splits = _csr(rng, vocab, lengths)
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32))
+  table = table.to(_DT[dtype]).to(cuda_device)
+  before = (lookup.LAUNCHES, lookup.ARM_LAUNCHES['csr'])
+  got = lookup.ragged_lookup(table, values.to(cuda_device),
+                             splits.to(cuda_device), combiner,
+                             out_dtype=torch.float32)
+  torch.cuda.synchronize()
+  assert (lookup.LAUNCHES, lookup.ARM_LAUNCHES['csr']) == (before[0] + 1,
+                                                           before[1] + 1)
+  want = lookup.ragged_lookup_reference(table, values.to(cuda_device),
+                                        splits.to(cuda_device), combiner,
+                                        torch.float32)
+  torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  assert not got[0].any() and not got[3].any()  # empty rows are zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_csr_arm_one_id_a_row_is_bit_exact(cuda_device, dtype):
+  rng = np.random.default_rng(3)
+  vocab, w = 500, 40
+  values, splits = _csr(rng, vocab, np.ones(777, np.int64))
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32))
+  table = table.to(_DT[dtype]).to(cuda_device)
+  for combiner in ('sum', 'mean'):
+    got = lookup.ragged_lookup(table, values.to(cuda_device),
+                               splits.to(cuda_device), combiner)
+    want = lookup.ragged_lookup_reference(table, values.to(cuda_device),
+                                          splits.to(cuda_device), combiner)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('combiner', ['sum', 'mean'])
+def test_csr_arm_backward_matches_plain_version(cuda_device, combiner, dtype):
+  rng = np.random.default_rng(11)
+  vocab, w = 3000, 16
+  lengths = np.concatenate([[0, 1, 500], rng.integers(0, 40, 1000)])
+  values, splits = _csr(rng, vocab, lengths)
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32)).to(
+      _DT[dtype])
+  g = torch.as_tensor(rng.normal(size=(len(lengths), w)).astype(np.float32))
+  grads = []
+  for dev in (torch.device('cpu'), cuda_device):
+    t = table.detach().to(dev).requires_grad_(True)
+    before = segwalk.LAUNCHES
+    lookup.ragged_lookup(t, values.to(dev), splits.to(dev), combiner,
+                         out_dtype=torch.float32).backward(g.to(dev))
+    assert segwalk.LAUNCHES == before + (dev.type == 'cuda')
+    assert t.grad.dtype == t.dtype
+    grads.append(t.grad.cpu())
+  assert torch.equal(grads[1], grads[0])
+  nnz = int(splits[-1])
+  real = values[:nnz][(values[:nnz] >= 0) & (values[:nnz] < vocab)].long()
+  untouched = torch.ones(vocab, dtype=torch.bool)
+  untouched[real] = False
+  assert not grads[1][untouched].any()
+
+
+@pytest.mark.cuda
+def test_embedding_lookup_on_the_card_runs_the_csr_arm(cuda_device):
+  from distributed_embeddings_tpu_torch import RaggedBatch, embedding_lookup
+  table = torch.randn(100, 16, device=cuda_device)
+  rows = [[1, 2, -5], [], [99, 150], [7]]
+  r = RaggedBatch.from_lists(rows, nnz_cap=9)
+  before = lookup.ARM_LAUNCHES['csr']
+  got = embedding_lookup(table, r.to(cuda_device), 'mean')
+  assert lookup.ARM_LAUNCHES['csr'] == before + 1
+  want = embedding_lookup(table.cpu(), r, 'mean')
+  torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

@@ -16,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_embeddings_tpu_torch import layers
+from distributed_embeddings_tpu_torch.examples.benchmarks import (
+    lookup_benchmark)
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
+from distributed_embeddings_tpu_torch.layers import dist_embed
 from distributed_embeddings_tpu_torch.models import dlrm, synthetic
 from distributed_embeddings_tpu_torch.parallel import mesh
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -60,7 +64,10 @@ def test_scan_sees_the_whole_port():
                  'parallel/checkpoint.py', 'parallel/audit.py',
                  'parallel/callbacks.py', 'utils/resilience.py',
                  'obs/trace.py', 'obs/metrics.py',
-                 'tools/verify_checkpoint.py'):
+                 'tools/verify_checkpoint.py', 'ops/ragged.py',
+                 'ops/embedding_lookup.py', 'layers/embedding.py',
+                 'layers/dist_embed.py',
+                 'examples/benchmarks/lookup_benchmark.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -86,7 +93,9 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_card():
 
 
 @pytest.mark.parametrize('entry', ['dist_embedding', 'synthetic', 'serving',
-                                   'mlp', 'dlrm', 'dlrm_main'])
+                                   'mlp', 'dlrm', 'dlrm_main', 'embedding',
+                                   'concat_one_hot', 'dist_embed',
+                                   'lookup_benchmark'])
 def test_entry_points_raise_without_device_argument(entry):
   _no_card()
   t = [TableConfig(10, 8, combiner='sum')]
@@ -101,6 +110,11 @@ def test_entry_points_raise_without_device_argument(entry):
                                 bottom_mlp_dims=[8]),
       'dlrm_main': lambda: dlrm_main.main(['--table_sizes', '10,20',
                                            '--num_batches', '1']),
+      'embedding': lambda: layers.Embedding(10, 8),
+      'concat_one_hot': lambda: layers.ConcatOneHotEmbedding([3, 4], 8),
+      'dist_embed': lambda: dist_embed.DistEmbed.build(t),
+      'lookup_benchmark': lambda: lookup_benchmark.main(
+          ['--rows', '10', '--batch', '4']),
   }[entry]
   with pytest.raises(RuntimeError, match="pass device='cpu'"):
     build()

@@ -1,8 +1,10 @@
 """One rank of the port's multi-rank forward (``run``, for
 tests/test_torch_exchange.py), hybrid train step (``train``, for
 tests/test_torch_train_ranks.py), model-parallel-input forward and
-step (``mp``, for tests/test_torch_mp_input.py) or dense autodiff step
-(``dense``, for tests/test_torch_dense_ranks.py): joins a gloo world on
+step (``mp``, for tests/test_torch_mp_input.py), dense autodiff step
+(``dense``, for tests/test_torch_dense_ranks.py) or ragged inputs
+through all three (``ragged``, for tests/test_torch_ragged_dist.py;
+``ragged_run`` is the world of one's and each rank's body there): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -230,6 +232,115 @@ def dense(rank, world_size, init_method, case_path, out_dir):
     np.savez(f'{out_dir}/dense{rank}.npz',
              kernel=state.params['kernel'].numpy(), losses=np.array(losses),
              **{f'w{i}': w.numpy() for i, w in enumerate(weights)})
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def ragged_inputs(cats, lo, hi, nnz_caps, keep_hot_cap=True):
+  """The port's inputs for samples ``[lo, hi)`` of one batch of
+  tests/test_torch_ragged_dist.py: a dense array as its slice, a list of
+  rows as a ``RaggedBatch`` of capacity ``nnz_caps[i]`` (without its
+  ``hot_cap`` unless ``keep_hot_cap``)."""
+  from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
+  out = []
+  for i, c in enumerate(cats):
+    if isinstance(c, list):
+      r = RaggedBatch.from_lists(c[lo:hi], nnz_cap=nnz_caps[i])
+      out.append(r if keep_hot_cap else RaggedBatch(r.values, r.row_splits))
+    else:
+      out.append(c[lo:hi])
+  return out
+
+
+def ragged_run(dist, case, rank, world_size, group=None):
+  """Ragged inputs through ``dist`` on this rank's slice of each batch:
+  one ``apply``, 3 hybrid steps (``SparseAdagrad`` + ``optim.adagrad``;
+  odd batches without ``hot_cap``, so the capacity comes from the
+  lengths) and 3 dense steps (``optim.sgd``), each from the case's
+  weights.  Returns the outputs, the gathered tables and accumulators,
+  the heads and the losses as numpy."""
+  import numpy as np
+  import torch
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import sparse
+
+  b = case['batch'] // world_size
+  lo, hi = rank * b, (rank + 1) * b
+  caps = [c // world_size for c in case['nnz_caps']]
+  labels = torch.tensor(case['labels'][lo:hi])
+  out = {}
+  outs = dist.apply(checkpoint.set_weights(dist, case['weights']),
+                    ragged_inputs(case['batches'][0], lo, hi, caps))
+  out['outs'] = [o.numpy() for o in outs]
+
+  def head_loss(dense_params, emb_outs, y):
+    x = torch.cat(list(emb_outs), dim=1)
+    return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+  dense_opt, emb_opt = optim.adagrad(case['lr']), sparse.SparseAdagrad(
+      case['lr'])
+  state = sparse.init_hybrid_train_state(
+      dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+             'kernel': torch.tensor(case['kernel'])}, dense_opt, emb_opt)
+  step = sparse.make_hybrid_train_step(dist, head_loss, dense_opt, emb_opt)
+  losses = []
+  for k, cats in enumerate(case['batches']):
+    state, loss = step(state, ragged_inputs(cats, lo, hi, caps, k % 2 == 0),
+                       labels)
+    losses.append(float(loss))
+  out['hybrid'] = {
+      'weights': [w.numpy() for w in checkpoint.get_weights(
+          dist, state.params['embedding'])],
+      'accs': [a['acc'].numpy() for a in checkpoint.get_optimizer_state(
+          dist, state.opt_state[1])],
+      'kernel': state.params['kernel'].numpy(), 'losses': np.array(losses)}
+
+  def loss_fn(p, batch):
+    cats, y = batch
+    x = torch.cat(dist.apply(p['embedding'], cats), dim=1)
+    return torch.mean((x @ p['kernel'] - y)**2)
+
+  opt = optim.sgd(case['lr'])
+  dstep = grad.make_train_step(loss_fn, opt, group=group)
+  dstate = grad.init_train_state(
+      {'embedding': checkpoint.set_weights(dist, case['weights']),
+       'kernel': torch.tensor(case['kernel'])}, opt)
+  losses = []
+  for cats in case['batches']:
+    dstate, loss = dstep(dstate, (ragged_inputs(cats, lo, hi, caps), labels))
+    losses.append(float(loss))
+  out['dense'] = {
+      'weights': [w.numpy() for w in checkpoint.get_weights(
+          dist, dstate.params['embedding'])],
+      'kernel': dstate.params['kernel'].numpy(), 'losses': np.array(losses)}
+  return out
+
+
+def ragged(rank, world_size, init_method, case_path, out_dir):
+  """One rank of ``ragged_run``; saves its results (pickled)."""
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, **case['options'])
+    out = ragged_run(dist, case, rank, world_size, m.group)
+    with open(f'{out_dir}/ragged{rank}.pkl', 'wb') as f:
+      pickle.dump(out, f)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
