@@ -76,6 +76,35 @@ Phases, each of which exits non-zero on failure:
             and every apply through the segment walk; the tables of the
             two runs within rtol = atol = 1e-6 (bit-exact reported); the
             host syncs of one more step with and without hot_cap.
+9e. hot-tiny: on the same tables, drawn anew from the seed, the hot-row
+            cache: the JAX bench's hot sets (analytic_power_law_hot_sets,
+            alpha 1.05: coverage 0.85 for training; 0.95 in 256 MiB with
+            state_copies=0 for serving) and a second model with them,
+            drawn from the same seed.  The cached forward against the
+            uncached one at batch 65536 (bit-exact hotness 1, rtol = atol
+            = 1e-6 hotness 10), every cold-row gather and hot partial on
+            the lookup kernel (counted); the exchange counters
+            (measure_exchange_counters) cache off and on; an engine with
+            the serving hot sets answers requests of 1, 5, 64 and 4096
+            samples equal to an engine without them; phase 7's optimizers,
+            a warm-up and 5 timed steps each way from the same state
+            (every loss finite, launches counted per step, peak memory),
+            the canonical tables after them within rtol 2e-4 / atol 2e-6
+            and the accumulators within 5e-3 / 5e-4 (the JAX hot-vs-off
+            bounds), the host syncs of one step each way and one cached
+            step under torch.profiler; on one more captured cached step,
+            each kernel against its plain version (the cold gathers and
+            hot partials: lookup, exact at hotness 1, 1e-6 at 10; the hot
+            and cold segment sums: 'add' into a zero-fill, bit-exact; the
+            deduplicated cold applies:
+            adagrad_dedup 1e-6 and against what the step wrote, sgd
+            bit-exact) with device times beside the bound and the library
+            call (embedding_bag, index_add_ into a zero-fill); then 2 lazy
+            SparseAdam steps on the cached layer: losses finite, t > 0
+            exactly at the hot rows the batches name, every other hot row
+            keeps its weights bit for bit and m = v = t = 0; the last
+            step's hot segment sums with their count column (width w + 1)
+            against their plain version, timed.
 10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -111,6 +140,15 @@ Phases, each of which exits non-zero on failure:
             launch one lookup and one apply each.  Save and restore
             seconds and GB/s; the free disk space first (too little
             fails the phase).
+13c. dlrm-hot: examples/dlrm/main.py --dp_input --hot_cache
+            --param_dtype bfloat16 in process at phase 13b's onechip
+            vocabularies (the same one cut), hot sets calibrated on the
+            dummy data; 5 steps, the state audited after each (so every
+            loss is checked finite), each step launching the lookup and
+            the segment walk (counted against the plan); the calibration
+            line printed; --save_state passes verify_checkpoint and
+            restores into the same model without the cache with equal
+            canonical tables.
 14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
@@ -177,8 +215,9 @@ Launches are counted per path: the forward's, the serving requests'
 training steps likewise, the dense steps of each model, the lazy-Adam
 steps and Small V3's forwards and steps, and for the last two each arm
 of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
-phases 9c and 13b, phase 9d's steps and phase 20's benchmark (with
-the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
+phases 9c and 13b, phase 9d's steps, phase 9e's forward, requests,
+steps and lazy-Adam steps, phase 13c's run and phase 20's benchmark
+(with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms, its adam op and the lookup's CSR
 arm); each row and summary with a kernel time says by which ``clock``:
@@ -194,6 +233,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import gc
 import json
 import os
@@ -220,6 +260,7 @@ from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
                                                        checkpoint, grad,
+                                                       hotcache, routing,
                                                        sparse)
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
@@ -285,6 +326,14 @@ HYBRID_OPS = ('sgd', 'adagrad_dedup', 'adagrad_sq')
 DENSE_DLRM_MAX_ROWS = 10_000_000
 FIT_STEPS = 6  # phase 9c's runs; the checkpoint at step 3
 RAGGED_STEPS = 3  # phase 9d's hybrid steps after its warm-up
+# phase 9e's hot sets: the JAX bench's defaults (bench.py --alpha,
+# --hot_coverage, --serve_hot_coverage, --serve_hot_budget_mb)
+HOT_ALPHA = 1.05
+HOT_COVERAGE = 0.85
+SERVE_HOT_COVERAGE = 0.95
+SERVE_HOT_BUDGET = 256 << 20
+HOT_ADAM_STEPS = 2  # phase 9e's lazy-Adam steps on the cached layer
+DLRM_HOT_STEPS = 5  # phase 13c's steps
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
@@ -1418,15 +1467,21 @@ def compare_tables(a, b):
 
 
 def check_dense_grad(call, label):
-  """The lookup's backward on one group's captured stream: the table
-  gradient from the kernel (a zero-fill, then the segment walk's
-  'add') against the plain version (bit-exact), untouched rows exactly
-  zero; device times of the kernel's function, of its two parts, of the
-  plain version (one call) and of ``Tensor.index_add_`` into a zero-fill
-  (the library), beside the function's bound and the 'add''s own."""
-  vocab, dtype = call['vocab'], call['dtype']
+  """The lookup's backward on one group's captured stream
+  (``check_add_stream`` of its sorted stream and cotangent rows)."""
   segs, rows = lookup.grad_stream(call['ids'], call['grads'],
-                                  call['combiners'], vocab)
+                                  call['combiners'], call['vocab'])
+  return check_add_stream(segs, rows, call['vocab'], call['dtype'], label,
+                          'dense-grad')
+
+
+def check_add_stream(segs, rows, vocab, dtype, label, tag):
+  """A segment sum into a zeroed ``[vocab, w]`` buffer at ``dtype``: the
+  kernel's (a zero-fill, then the segment walk's 'add') against the
+  plain version (bit-exact), rows no id names exactly zero; device
+  times of the kernel's function, of its two parts, of the plain
+  version (one call) and of ``Tensor.index_add_`` into a zero-fill (the
+  library), beside the function's bound and the 'add''s own."""
   w = rows.shape[1]
   dev = rows.device
 
@@ -1487,7 +1542,7 @@ def check_dense_grad(call, label):
       'add_bytes': add_bytes, 'add_bound_ms': max(add_bytes_ms, add_ops_ms),
       'add_bound_by': 'bytes' if add_bytes_ms >= add_ops_ms else 'operations',
   }
-  log('[dense-grad] ' + json.dumps(clocked(row)))
+  log(f'[{tag}] ' + json.dumps(clocked(row)))
   torch.cuda.empty_cache()
   return row
 
@@ -2319,6 +2374,514 @@ def phase_ragged_tiny(model, config, seed):
           'host_syncs': syncs_numbers}
 
 
+def hot_launches(dist, hotness):
+  """Kernel launches of one cached forward and of one cached hybrid step
+  of a hot-cache layer: lookups, one cold-row gather per subgroup and
+  one hot partial per (hot group, hotness) class; segment walks, one
+  'add' per subgroup (the cold grads) and per read hot group (the hot
+  grads), and one apply per group.  ``(forward, step)`` dicts."""
+  subs = dist._subgroups(tuple(hotness))
+  readers = dist._hot_meta()['readers']
+  classes = {(gi, hotness[r[0]]) for gi, rs in readers.items() for r in rs}
+  fwd = len(subs) + len(classes)
+  adds = len(subs) + sum(1 for rs in readers.values() if rs)
+  applies = len({s.gi for s in subs})
+  return ({'lookup_combine': fwd, 'segwalk_apply': 0},
+          {'lookup_combine': fwd, 'segwalk_apply': adds + applies})
+
+
+def close_tables(a, b, rtol, atol):
+  """``(all close, max abs difference)`` of two table-shaped tensors,
+  compared in row blocks (no table-sized temporary)."""
+  ok, err = True, 0.0
+  for r0 in range(0, a.shape[0], CHECK_BLOCK_ROWS):
+    x = a[r0:r0 + CHECK_BLOCK_ROWS].float()
+    y = b[r0:r0 + CHECK_BLOCK_ROWS].float()
+    ok = ok and torch.allclose(x, y, rtol=rtol, atol=atol)
+    err = max(err, float((x - y).abs().max()))
+  return ok, err
+
+
+def captured_hot_step(step, state, cats, batch):
+  """One real cached training step that also records the arguments of
+  its lookups (the cold-row gathers, ``fused_group_lookup``, and the hot
+  partials, ``dense_lookup``), of its segment sums
+  (``routing.segment_sum``) and, as ``captured_compact_applies`` does,
+  of its applies."""
+  gathers, partials, sums = [], [], []
+  fused, dense, segsum = (lookup.fused_group_lookup, lookup.dense_lookup,
+                          routing.segment_sum)
+
+  def record_fused(table, routed, combiners, compute_dtype):
+    gathers.extend((table, r) for r in routed)
+    return fused(table, routed, combiners, compute_dtype)
+
+  def record_dense(table, ids, combiner, out_dtype=None):
+    partials.append((table, ids))
+    return dense(table, ids, combiner, out_dtype)
+
+  def record_sum(seg, rows, num, row_index=None):
+    sums.append((seg, rows, num, row_index))
+    return segsum(seg, rows, num, row_index)
+
+  lookup.fused_group_lookup = record_fused
+  lookup.dense_lookup = record_dense
+  routing.segment_sum = record_sum
+  try:
+    state, loss, applies = captured_compact_applies(step, state, cats, batch)
+  finally:
+    lookup.fused_group_lookup = fused
+    lookup.dense_lookup = dense
+    routing.segment_sum = segsum
+  return state, loss, {'gathers': gathers, 'partials': partials,
+                       'sums': sums, 'applies': applies}
+
+
+def phase_hot_serving(model, serve_sets, cats, rng):
+  """Phase 9e's serving part: an engine with the serving hot sets and
+  one without, over the model's tables; requests of ``REQUEST_SIZES``
+  samples; every answer of the cached engine equal to the other's
+  (bit-exact hotness 1, 1e-6 hotness 10), every cold gather and hot
+  partial on the lookup kernel (counted).  Returns the launches and the
+  request times."""
+  dist = model.dist_embedding
+  weights = checkpoint.get_weights(dist, model.embedding_params)
+  common = dict(batch_size=SERVE_BATCH, device=dist.device,
+                input_table_map=model.input_table_map, hotness=model.hotness)
+  hot = ServingEngine(dist.table_configs, weights, hot_sets=serve_sets,
+                      **common)
+  plain = ServingEngine(dist.table_configs, weights, **common)
+  del weights
+  sample = [c[:SERVE_BATCH] for c in cats]
+  hot.warmup(sample_cats=sample)
+  plain.warmup(sample_cats=sample)
+  per_lookup, _ = hot_launches(hot.dist, model.hotness)
+  batch = np.asarray(cats[0]).shape[0]
+  times = {n: [] for n in REQUEST_SIZES}
+  launches = {'lookup_combine': 0, 'segwalk_apply': 0}
+  for n in REQUEST_SIZES:
+    for _ in range(5):
+      start = int(rng.integers(0, batch - n + 1))
+      req = [c[start:start + n] for c in cats]
+      reset_launches()
+      t0 = time.perf_counter()
+      got = hot.lookup_padded(req)
+      torch.cuda.synchronize()
+      times[n].append((time.perf_counter() - t0) * 1e3)
+      for k, v in read_launches().items():
+        launches[k] += v
+      want = plain.lookup_padded(req)
+      for i, (g, w, h) in enumerate(zip(got, want, model.hotness)):
+        same = (torch.equal(g, w) if h == 1 else
+                torch.allclose(g, w, rtol=1e-6, atol=1e-6))
+        if not same:
+          raise AssertionError(f'hot-serving request of {n}: input {i} '
+                               'differs from the engine without hot sets')
+  lookups = 5 * len(REQUEST_SIZES)
+  want = {k: v * lookups for k, v in per_lookup.items()}
+  if launches != want:
+    raise AssertionError(f'hot-serving: launched {launches}, expected '
+                         f'{want} for {lookups} lookups')
+  for n, t in times.items():
+    log(f'[hot-serving] request of {n} samples: ms {[round(x, 3) for x in t]}'
+        f' median {statistics.median(t):.3f} (host clock, synchronised)')
+  log(f'[hot-serving] {lookups} answers equal the engine without hot sets '
+      '(bit-exact hotness 1, 1e-6 hotness 10); kernel launches '
+      f'{json.dumps(launches)}; hot buffers '
+      f'{sum(g.hot_rows_cap * g.width * 4 for g in hot.dist.plan.groups) / 2**20:.1f}'
+      ' MiB')
+  return {'launches': launches,
+          'request_ms_median': {n: statistics.median(t)
+                                for n, t in times.items()}}
+
+
+def phase_hot_tiny(model, config, seed):
+  """Phase 9e: the hot-row cache on the tiny model at full size (see the
+  module docstring).  Returns the numbers and the kernel rows."""
+  dist = model.dist_embedding
+  hotness = tuple(model.hotness)
+  n_groups = len(dist.plan.groups)
+  n_subs = len(dist._subgroups(hotness))
+  tables, _, _ = expand_tables(config)
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  serve_sets = hotcache.analytic_power_law_hot_sets(
+      tables, HOT_ALPHA, coverage=SERVE_HOT_COVERAGE,
+      budget_bytes=SERVE_HOT_BUDGET, state_copies=0)
+  numbers = {'train_sets': {
+      'tables': len(train_sets),
+      'rows': sum(h.size for h in train_sets.values()),
+      'largest': max(h.size for h in train_sets.values())},
+             'serve_sets': {'tables': len(serve_sets),
+                            'rows': sum(h.size for h in serve_sets.values())}}
+  log(f'[hot-tiny] hot sets: training analytic_power_law_hot_sets(alpha '
+      f'{HOT_ALPHA}, coverage {HOT_COVERAGE}) {json.dumps(numbers["train_sets"])}; '
+      f'serving (coverage {SERVE_HOT_COVERAGE}, {SERVE_HOT_BUDGET >> 20} MiB, '
+      f'state_copies=0) {json.dumps(numbers["serve_sets"])}')
+
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  model.init(seed + 17)
+  hot_model = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                             device='cuda').init(seed + 17)
+  hdist = hot_model.dist_embedding
+  fwd_want, step_want = hot_launches(hdist, hotness)
+  hot_mib = sum(t.numel() * t.element_size()
+                for k, t in hot_model.embedding_params.items()
+                if k.startswith('hot_')) / 2**20
+  log(f'[hot-tiny] the cached model drawn from the same seed: hot buffers '
+      f'{hot_mib:.1f} MiB over {len(hdist.plan.hot_groups)} groups; a '
+      f'forward launches {json.dumps(fwd_want)}, a step {json.dumps(step_want)}')
+  batches = train_batches(config, hotness, seed + 17, TRAIN_STEPS + 3)
+  cats = batches[0][0]
+
+  # forward: the cached layer against the uncached one
+  with torch.no_grad():
+    reset_launches()
+    got = hdist.apply(hot_model.embedding_params, cats)
+    fwd_launches = read_launches()
+    want = dist.apply(model.embedding_params, cats)
+    if fwd_launches != fwd_want:
+      raise AssertionError(f'hot-tiny forward: launched {fwd_launches}, '
+                           f'expected {fwd_want}')
+    err = 0.0
+    for i, (g, w, h) in enumerate(zip(got, want, hotness)):
+      same = (torch.equal(g, w) if h == 1 else
+              torch.allclose(g, w, rtol=1e-6, atol=1e-6))
+      if not same:
+        raise AssertionError(f'hot-tiny input {i}: the cached forward differs '
+                             'from the uncached one (bit-exact hotness 1, '
+                             f'1e-6 hotness {h}), max err '
+                             f'{float((g - w).abs().max())}')
+      err = max(err, float((g - w).abs().max()))
+    del got, want
+    fwd_ms = {}
+    for tag, d, p in (('off', dist, model.embedding_params),
+                      ('on', hdist, hot_model.embedding_params)):
+      fwd_ms[tag] = []
+      for _ in range(3):
+        t0 = time.perf_counter()
+        d.apply(p, cats)
+        torch.cuda.synchronize()
+        fwd_ms[tag].append((time.perf_counter() - t0) * 1e3)
+  numbers.update(forward_launches=fwd_launches, forward_max_abs_err=err,
+                 forward_ms=fwd_ms)
+  log(f'[hot-tiny] the cached forward equals the uncached one (bit-exact '
+      f'hotness 1; max abs err {err} at hotness 10, within 1e-6); launches '
+      f'{json.dumps(fwd_launches)}; forward ms (host clock, synchronised) '
+      f'{json.dumps(fwd_ms)}')
+
+  # exchange counters, cache off and on
+  t0 = time.perf_counter()
+  counters = {'off': hotcache.measure_exchange_counters(dist, cats,
+                                                        hot_sets={}),
+              'on': hotcache.measure_exchange_counters(hdist, cats)}
+  keys = ('alltoall_rows_sent', 'alltoall_rows_sent_off', 'hot_hit_rate',
+          'total_id_occurrences', 'scatter_rows_per_step',
+          'scatter_rows_per_step_off')
+  numbers['counters'] = {tag: {k: c[k] for k in keys}
+                         for tag, c in counters.items()}
+  log(f'[hot-tiny] exchange counters of batch {BATCH} (host numpy, '
+      f'{time.perf_counter() - t0:.1f} s): '
+      f'{json.dumps(numbers["counters"])}')
+
+  numbers['serving'] = phase_hot_serving(model, serve_sets, cats,
+                                         np.random.default_rng(seed + 17))
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # training: the same batches from the same state, cache off and on
+  off_step, off_state = build_trainer(model)
+  on_step, on_state = build_trainer(hot_model)
+  runs = {}
+  for tag, per in (('off', {'lookup_combine': n_subs,
+                            'segwalk_apply': n_groups}), ('on', step_want)):
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    step, state = (off_step, off_state) if tag == 'off' else (on_step,
+                                                               on_state)
+    state, launches, times, peak = timed_steps(
+        f'hot-tiny-{tag}', step, state, batches,
+        {k: v * TRAIN_STEPS for k, v in per.items()})
+    if tag == 'off':
+      off_state = state
+    else:
+      on_state = state
+    runs[tag] = {'launches': launches, 'step_ms': times,
+                 'resident_gib': resident / 2**30, 'peak_gib': peak / 2**30}
+  del step, state
+  exact, errs = True, {'tables': 0.0, 'acc': 0.0}
+  for what, rtol, atol in (('tables', 2e-4, 2e-6), ('acc', 5e-3, 5e-4)):
+    if what == 'tables':
+      a = checkpoint.get_weights(hdist, on_state.params['embedding'])
+      b = checkpoint.get_weights(dist, off_state.params['embedding'])
+    else:
+      a = [s['acc'] for s in checkpoint.get_optimizer_state(
+          hdist, on_state.opt_state[1])]
+      b = [s['acc'] for s in checkpoint.get_optimizer_state(
+          dist, off_state.opt_state[1])]
+    for t, (x, y) in enumerate(zip(a, b)):
+      ok, e = close_tables(x, y, rtol, atol)
+      same, _ = compare_tables(x, y)
+      exact = exact and same
+      errs[what] = max(errs[what], e)
+      if not ok:
+        raise AssertionError(f'hot-tiny {what} {t}: cache on and off differ '
+                             f'after {TRAIN_STEPS + 1} steps beyond rtol '
+                             f'{rtol} / atol {atol}, max err {e}')
+    del a, b
+  syncs = {tag: host_syncs(lambda s=s, st=st: s(st, *batches[TRAIN_STEPS + 1]))
+           for tag, s, st in (('off', off_step, off_state),
+                              ('on', on_step, on_state))}
+  numbers['train'] = runs
+  numbers['train'].update(max_abs_err=errs, bit_exact=exact, host_syncs={
+      tag: sum(c.values()) for tag, c in syncs.items()})
+  log(f'[hot-tiny] after {TRAIN_STEPS + 1} steps the canonical tables and '
+      f'accumulators of cache on and off agree (tables rtol 2e-4 / atol '
+      f'2e-6, accumulators 5e-3 / 5e-4): max abs err {json.dumps(errs)}, '
+      f'bit-exact {exact}')
+  for tag, c in syncs.items():
+    log(f'[hot-tiny] host syncs of one step, cache {tag}: '
+        f'{sum(c.values())}, by line {json.dumps(dict(c.most_common()))}')
+  # where a cached step's time goes (phase 9 profiles the uncached one)
+  phase_train_profile(on_step, on_state, batches[TRAIN_STEPS + 1],
+                      tag='profile-hot-train')
+  del off_step, off_state
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # the kernels on a captured cached step
+  on_state, loss, calls = captured_hot_step(on_step, on_state,
+                                            *batches[TRAIN_STEPS + 2])
+  if not bool(torch.isfinite(loss)):
+    raise AssertionError(f'hot-tiny capture step: loss {float(loss)}')
+  rows = {'gather': [], 'partial': [], 'add': [], 'apply': []}
+  for table, routed in calls['gathers']:
+    rows['gather'].append(check_kernel_shape(
+        table, routed.reshape(-1, 1),
+        f'hot_cold_gather_w{table.shape[1]}_ncap{routed.shape[0]}'))
+  for table, ids in calls['partials']:
+    rows['partial'].append(check_kernel_shape(
+        table, ids, f'hot_partial_w{table.shape[1]}_h{ids.shape[1]}_'
+        f'K{table.shape[0]}'))
+  for seg, srows, num, row_index in calls['sums']:
+    segs = segwalk.sort_stream(seg.to(torch.int32), num,
+                               row_index.to(torch.int32))
+    rows['add'].append(check_add_stream(
+        segs, srows.float(), num, torch.float32,
+        f'hot_add_rows{num}_w{srows.shape[1]}', 'hot-tiny'))
+  for call in calls['applies']:
+    table, grads = call['table'], call['grads']
+    label = f'hot_cold_w{table.shape[1]}_rows{table.shape[0]}'
+    check_untouched(call, label)
+    touched = call['touched'].long()
+    err, tol = check_compact(call, 'adagrad_dedup', grads, label, stepped=(
+        table[touched], state_rows(call['acc'], touched)))
+    err_sgd, _ = check_compact(call, 'sgd', grads, label)
+    segs = segwalk.sort_stream(call['ids'], table.shape[0], call['g_index'])
+    # timed at lr 0 on the real state (it is not used after this phase)
+    kernel_ms = device_ms(lambda: segwalk.apply_segments(
+        table, call['acc'], segs, grads, 0.0, op='adagrad_dedup'), 10)
+    plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        table, call['acc'], segs, grads, 0.0, op='adagrad_dedup'))
+    row, _ = stream_row(call, 'adagrad_dedup', grads, call['acc'], label,
+                        max(err, err_sgd), tol + '; sgd bit-exact',
+                        kernel_ms, plain_ms, None)
+    log('[hot-tiny] ' + json.dumps(clocked(row)))
+    rows['apply'].append(row)
+  del calls
+  log('[hot-tiny] the captured step\'s kernels equal their plain versions: '
+      f'{len(rows["gather"])} cold gathers and {len(rows["partial"])} hot '
+      f'partials (bit-exact hotness 1, 1e-6 hotness 10), {len(rows["add"])} '
+      f'segment sums (bit-exact), {len(rows["apply"])} cold applies')
+  del on_step, on_state
+  gc.collect()
+  torch.cuda.empty_cache()
+  numbers['adam'], rows['add_touch'] = phase_hot_adam(hot_model, config,
+                                                      seed, step_want)
+  del hot_model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return numbers, rows
+
+
+def phase_hot_adam(hot_model, config, seed, step_want):
+  """Phase 9e's lazy Adam: ``HOT_ADAM_STEPS`` steps of SparseAdam(0.001)
+  (Adagrad on the MLP) on the cached layer; every loss finite; per hot
+  group, ``t > 0`` exactly at the hot rows the batches name, and every
+  other hot row keeps its weights bit for bit and m = v = t = 0.  The
+  last step's hot segment sums carry the occurrence count (width ``w +
+  1``, the segment walk's narrow vector arm): each against its plain
+  version, timed (``check_add_stream``).  Returns the numbers and those
+  rows."""
+  hdist = hot_model.dist_embedding
+  dense_opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+  emb_opt = sparse.SparseAdam(0.001)
+  params = hot_model.embedding_params
+  state = sparse.init_hybrid_train_state(
+      hdist, {'embedding': params, **hot_model.dense_params()}, dense_opt,
+      emb_opt)
+  step = sparse.make_hybrid_train_step(hdist, tiny_head_loss(hot_model),
+                                       dense_opt, emb_opt)
+  batches = train_batches(config, hot_model.hotness, seed + 19,
+                          HOT_ADAM_STEPS)
+  before = {k: v.clone() for k, v in params.items() if k.startswith('hot_')}
+  readers = hdist._hot_meta()['readers']
+  named = {gi: torch.zeros(hdist.plan.groups[gi].hot_rows_cap,
+                           dtype=torch.bool, device='cuda')
+           for gi in hdist.plan.hot_groups}
+  for cats, _ in batches:
+    inputs, _, _ = hdist._prepare_inputs(cats)
+    mem = hdist._hot_membership(inputs)
+    for gi, rs in readers.items():
+      for i, _, _, off in rs:
+        hot = mem[i]['hot']
+        named[gi][(hot[hot >= 0] + off).long()] = True
+  sums, segsum = [], routing.segment_sum
+
+  def record_sum(seg, rows, num, row_index=None):
+    sums.append((seg, rows, num, row_index))
+    return segsum(seg, rows, num, row_index)
+
+  reset_launches()
+  segwalk.ARM_LAUNCHES.clear()
+  losses = []
+  routing.segment_sum = record_sum
+  try:
+    for cats, batch in batches:
+      sums.clear()
+      state, loss = step(state, cats, batch)
+      losses.append(float(loss))
+  finally:
+    routing.segment_sum = segsum
+  launches = {**read_launches(), 'segwalk_apply:adam':
+              segwalk.ARM_LAUNCHES['adam']}
+  n_applies = len({s.gi for s in hdist._subgroups(tuple(hot_model.hotness))})
+  want = {**{k: v * HOT_ADAM_STEPS for k, v in step_want.items()},
+          'segwalk_apply:adam': n_applies * HOT_ADAM_STEPS}
+  if not all(np.isfinite(losses)) or launches != want:
+    raise AssertionError(f'hot-adam: losses {losses}, launched {launches}, '
+                         f'expected {want}')
+  untouched = 0
+  for gi in hdist.plan.hot_groups:
+    k = f'hot_group_{gi}'
+    st = state.opt_state[1][k]
+    cold = ~named[gi]
+    if not (torch.equal(st['t'] > 0, named[gi])
+            and torch.equal(params[k][cold], before[k][cold])
+            and not st['m'][cold].any() and not st['v'][cold].any()):
+      raise AssertionError(f'hot-adam {k}: not lazy on the hot rows the '
+                           'batches do not name')
+    untouched += int(cold.sum())
+  log(f'[hot-adam] {HOT_ADAM_STEPS} SparseAdam steps on the cached layer: '
+      f'losses {losses}; launches {json.dumps(launches)}; t > 0 exactly at '
+      f'the {sum(int(m.sum()) for m in named.values())} hot rows the batches '
+      f'name; the other {untouched} kept their weights bit for bit and '
+      'm = v = t = 0')
+  del state, step
+  hot_rows = {g.hot_rows_cap for g in hdist.plan.groups if g.hot_rows_cap}
+  rows = []
+  for seg, srows, num, row_index in sums:
+    if num in hot_rows:  # the hot grads with their count column
+      segs = segwalk.sort_stream(seg.to(torch.int32), num,
+                                 row_index.to(torch.int32))
+      rows.append(check_add_stream(
+          segs, srows.float(), num, torch.float32,
+          f'hot_add_touch_rows{num}_w{srows.shape[1]}', 'hot-adam'))
+  return {'losses': losses, 'launches': launches,
+          'untouched_hot_rows': untouched}, rows
+
+
+def phase_dlrm_hot():
+  """Phase 13c: examples/dlrm/main.py --dp_input --hot_cache in process,
+  bf16, at phase 13b's onechip vocabularies (the same one cut), 5 steps
+  with the state audited after each (so every loss is checked finite)
+  and --save_state; verify_checkpoint passes the file, and it restores
+  into the same model without the cache with equal canonical tables.
+  Returns the launches and numbers."""
+  sizes = [min(s, ONECHIP_MAX_ROWS) for s in data.MLPERF_SIZES]
+  check_disk(1.2 * sum(sizes) * 128 * 4, 'dlrm-hot')
+  root = CKPT_DIR / 'dlrm_hot'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  path = root / 'hot.npz'
+  argv = ['--param_dtype', 'bfloat16', '--table_sizes',
+          ','.join(map(str, sizes)), '--num_batches', str(DLRM_HOT_STEPS),
+          '--max_steps', str(DLRM_HOT_STEPS), '--device', 'cuda',
+          '--dp_input', '--hot_cache', '--audit_every', '1',
+          '--save_state', str(path)]
+  # the launches a step makes, from the plan the example builds
+  args = dlrm_main.build_parser().parse_args(argv)
+  probe = dlrm.DLRM(sizes, embedding_dim=128, param_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, dp_input=True,
+                    hot_cache=dlrm_main.calibrate_hot_sets(args, sizes),
+                    device='cuda').dist_embedding
+  _, per_step = hot_launches(probe, (1,) * len(sizes))
+  del probe
+  gc.collect()
+  torch.cuda.empty_cache()
+  out_lines = _Tee()
+  reset_launches()
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(out_lines):
+    out = dlrm_main.main(argv)
+  wall = time.perf_counter() - t0
+  launches = read_launches()
+  want = {k: v * DLRM_HOT_STEPS for k, v in per_step.items()}
+  calibrated = [l for l in out_lines.lines if l.startswith('hot_cache: ')]
+  if launches != want or not calibrated or out['step'] != DLRM_HOT_STEPS:
+    raise AssertionError(f'dlrm-hot: launched {launches} (expected {want}), '
+                         f'calibration line {calibrated}, step {out["step"]}')
+  if verify_checkpoint.main([str(path), '--quiet']) != 0:
+    raise AssertionError('dlrm-hot: verify_checkpoint rejected the file')
+  gc.collect()
+  torch.cuda.empty_cache()
+  model = dlrm.DLRM(sizes, embedding_dim=128, param_dtype=torch.bfloat16,
+                    compute_dtype=torch.bfloat16, dp_input=True,
+                    device='cuda').init(0)
+  step, state = dlrm_main.make_trainer(model, 'sparse', args.learning_rate)
+  t1 = time.perf_counter()
+  state, _ = checkpoint.restore_train_state(model.dist_embedding, state,
+                                            str(path))
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t1
+  weights, _, _ = checkpoint.load_train_npz(str(path))
+  for t, (a, w) in enumerate(zip(checkpoint.get_weights(
+      model.dist_embedding, state.params['embedding']), weights)):
+    same, e = compare_tables(a.float(), torch.from_numpy(w).to('cuda'))
+    if not same:
+      raise AssertionError(f'dlrm-hot table {t}: restored without the cache, '
+                           f'differs from the file (max err {e})')
+  del model, step, state, weights
+  gc.collect()
+  torch.cuda.empty_cache()
+  shutil.rmtree(root)
+  numbers = {'rows': sum(sizes), 'calibration': calibrated[0],
+             'wall_s': wall, 'loss': out['loss'],
+             'save_s': out['save_s'], 'restore_s': restore_s}
+  log(f'[dlrm-hot] {json.dumps(numbers)}; launches {json.dumps(launches)} '
+      f'({json.dumps(per_step)} a step); verify_checkpoint passed the file; '
+      'restored without the cache, the canonical tables equal it')
+  return launches, numbers
+
+
+class _Tee:
+  """A stdout that keeps the lines written to it and passes them on."""
+
+  def __init__(self):
+    self.lines = []
+    self._out = sys.stdout
+
+  def write(self, text):
+    self.lines.extend(x for x in text.splitlines() if x)
+    return self._out.write(text)
+
+  def flush(self):
+    self._out.flush()
+
+
 def run_tiny(args):
   """Phases 3-9 on the synthetic tiny model; returns the two kernels'
   summaries.  Everything the model holds on the card is freed on
@@ -2354,6 +2917,7 @@ def run_tiny(args):
                                                          args.seed)
   fit_launches, fit_numbers = phase_fit_tiny(model, config, args.seed)
   ragged_numbers = phase_ragged_tiny(model, config, args.seed)
+  hot_numbers, hot_rows = phase_hot_tiny(model, config, args.seed)
 
   k = dict(KERNELS[0])
   k.update({
@@ -2399,6 +2963,29 @@ def run_tiny(args):
     entry['launches_ragged_tiny'] = ragged_numbers['launches'][name]
   seg['fit_tiny'] = fit_numbers
   k['ragged_tiny'] = ragged_numbers
+  # phase 9e: each path's launches, and its kernel shapes beside the bound
+  lookup_rows = hot_rows['gather'] + hot_rows['partial']
+  seg_rows = hot_rows['add'] + hot_rows['add_touch'] + hot_rows['apply']
+  for entry, name, rows in ((k, 'lookup_combine', lookup_rows),
+                            (seg, 'segwalk_apply', seg_rows)):
+    entry['launches_hot_tiny'] = {
+        'forward': hot_numbers['forward_launches'][name],
+        'serving': hot_numbers['serving']['launches'][name],
+        'train': hot_numbers['train']['on']['launches'][name],
+        'adam': hot_numbers['adam']['launches'][name]}
+    entry['max_abs_err'] = max([entry['max_abs_err']]
+                               + [r['max_abs_err'] for r in rows])
+    entry['hot_tiny'] = {
+        'ms': sum(r['kernel_ms'] for r in rows),
+        'plain_ms': sum(r['plain_ms'] for r in rows),
+        'bound_ms': sum(r['bound_ms'] for r in rows),
+        'library_ms': (None if any(r['library_ms'] is None for r in rows)
+                       else sum(r['library_ms'] for r in rows)),
+        'shapes': [{key: r.get(key) for key in (
+            'shape', 'stream', 'op', 'w', 'M', 'h', 'rows', 'positions',
+            'segments', 'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by', 'max_abs_err')} for r in rows]}
+  seg['hot_tiny_numbers'] = hot_numbers
   return k, seg, adam
 
 
@@ -2601,6 +3188,12 @@ def main(argv=None) -> int:
     entry['launches_dlrm_resume'] = {run: n[name]
                                      for run, n in resume_launches.items()}
   seg['dlrm_resume'] = resume_numbers
+  gc.collect()
+  torch.cuda.empty_cache()
+  dlrm_hot_launches, dlrm_hot_numbers = phase_dlrm_hot()
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_hot'] = dlrm_hot_launches[name]
+  seg['dlrm_hot'] = dlrm_hot_numbers
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()

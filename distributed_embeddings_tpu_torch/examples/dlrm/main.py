@@ -13,6 +13,11 @@ and updates every param by the same SGD (``parallel/grad.py``
     python -m distributed_embeddings_tpu_torch.examples.dlrm.main \\
         [--num_batches 100] [--param_dtype bfloat16] [--device cuda]
 
+``--hot_cache`` (with ``--dp_input`` and the sparse trainer) calibrates
+hot sets over ``--hot_calib_batches`` dummy batches, as the JAX example
+does (``--hot_coverage``, ``--hot_budget_mb``), and trains with the
+hot-row cache.
+
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
 item that ports it (``--dataset_path`` is item 12); ``--fast_compile``
@@ -51,10 +56,12 @@ import torch
 
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
-from distributed_embeddings_tpu_torch.parallel import checkpoint, grad, sparse
+from distributed_embeddings_tpu_torch.parallel import (checkpoint, grad,
+                                                       hotcache, sparse)
 from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
+from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 from distributed_embeddings_tpu_torch.utils import resilience
 from distributed_embeddings_tpu_torch.utils.data import DummyDataset
 from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
@@ -64,8 +71,7 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
 UNPORTED = {
-    'dataset_path': 12, 'hot_cache': 7, 'hot_coverage': 7,
-    'hot_calib_batches': 7, 'hot_budget_mb': 7, 'overlap_chunks': 8,
+    'dataset_path': 12, 'overlap_chunks': 8,
     'fused_exchange': 8, 'wire_dtype': 9, 'table_dtype': 9,
     'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
     'loader_bench': 12, 'trace': 14,
@@ -97,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                  help='element threshold above which tables shard along '
                  'rows')
   p.add_argument('--hot_cache', action='store_true',
-                 help='not ported (item 7)')
+                 help='frequency-aware hot-row cache: calibrate hot sets '
+                 'from --hot_calib_batches batches and replicate them '
+                 '(needs --dp_input and --trainer sparse)')
   p.add_argument('--overlap_chunks', type=int, default=1,
                  help='> 1: not ported (item 8)')
   p.add_argument('--fused_exchange', default=True,
@@ -107,11 +115,13 @@ def build_parser() -> argparse.ArgumentParser:
                  choices=['none', 'bfloat16', 'table'],
                  help='not ported (item 9)')
   p.add_argument('--hot_coverage', type=float, default=0.8,
-                 help='not ported (item 7)')
+                 help='per-table occurrence coverage target of the hot '
+                 'sets')
   p.add_argument('--hot_calib_batches', type=int, default=2,
-                 help='not ported (item 7)')
+                 help='batches counted to calibrate the hot sets')
   p.add_argument('--hot_budget_mb', type=float, default=None,
-                 help='not ported (item 7)')
+                 help='per-device replication budget of the hot rows and '
+                 'their optimizer state (None = unbudgeted)')
   p.add_argument('--table_dtype', default='none',
                  choices=['none', 'int8', 'float8_e4m3'],
                  help='not ported (item 9)')
@@ -181,6 +191,40 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
                      'compiles nothing at run time')
 
 
+def calibrate_hot_sets(args, table_sizes):
+  """The hot sets of ``--hot_cache``: id counts over
+  ``--hot_calib_batches`` batches of the dummy data (``--dataset_path``
+  is item 12), at ``--hot_coverage`` and within ``--hot_budget_mb``, as
+  the JAX example calibrates them.  Refuses ``--hot_cache`` without
+  ``--dp_input`` or with ``--trainer dense``, as the JAX example does."""
+  if not args.dp_input:
+    raise SystemExit('--hot_cache requires --dp_input (the cache '
+                     'partitions the dp->mp id exchange, which only '
+                     'the data-parallel input path has)')
+  if args.trainer != 'sparse':
+    raise SystemExit('--hot_cache pairs with --trainer sparse (the '
+                     'split hot/cold optimizer state lives in the '
+                     'sparse row-wise path)')
+  cal_ids = list(range(len(table_sizes)))
+  cal_ds = DummyDataset(args.batch_size, args.num_numerical_features,
+                        len(cal_ids), args.hot_calib_batches)
+  cfgs = [TableConfig(s, args.embedding_dim) for s in table_sizes]
+  batches = []
+  for bi, (_, cats_b, _) in enumerate(cal_ds):
+    if bi >= args.hot_calib_batches:
+      break
+    batches.append([np.asarray(c) for c in cats_b])
+  hot_sets = hotcache.calibrate_hot_sets(
+      cfgs, cal_ids, batches, coverage=args.hot_coverage,
+      budget_bytes=(int(args.hot_budget_mb * 2**20)
+                    if args.hot_budget_mb else None))
+  print(f'hot_cache: calibrated '
+        f'{sum(h.size for h in hot_sets.values())} hot rows over '
+        f'{len(hot_sets)} table(s) from {len(batches)} batch(es) '
+        f'(coverage target {args.hot_coverage})')
+  return hot_sets
+
+
 def make_trainer(model: DLRM, trainer: str, learning_rate: float):
   """The example's trainer for ``model``: ``(step, state)``, ``step(state,
   numerical, cats, labels) -> (state, loss)`` with ``cats`` as
@@ -235,6 +279,7 @@ def main(argv=None):
 
   table_sizes = [int(s) for s in args.table_sizes.split(',')]
   param_dtype = getattr(torch, args.param_dtype)
+  hot_sets = calibrate_hot_sets(args, table_sizes) if args.hot_cache else None
   model = DLRM(table_sizes=table_sizes,
                embedding_dim=args.embedding_dim,
                bottom_mlp_dims=[int(d) for d in
@@ -245,6 +290,7 @@ def main(argv=None):
                column_slice_threshold=args.column_slice_threshold,
                row_slice=args.row_slice,
                dp_input=args.dp_input,
+               hot_cache=hot_sets,
                param_dtype=param_dtype,
                compute_dtype=getattr(torch, args.compute_dtype
                                      or args.param_dtype),

@@ -1,7 +1,7 @@
 """Metrics registry: the port's own copy of the parts of
 ``distributed_embeddings_tpu/obs/metrics.py`` that the checkpoint files,
-the auditor and ``fit`` call (the serving and feed instruments come with
-ROADMAP.md item 14).
+the auditor, ``fit`` and the hot cache's exchange counters call (the
+serving and feed instruments come with ROADMAP.md item 14).
 
 Counters, gauges and fixed-bucket millisecond histograms under
 ``METRIC_TYPES`` (the JAX package's names), updated through ``inc`` /
@@ -37,6 +37,12 @@ METRIC_TYPES: Dict[str, str] = {
     'ckpt.restores': 'counter',
     'ckpt.save_ms': 'histogram',
     'ckpt.restore_ms': 'histogram',
+    # exchange counters (parallel/hotcache.py measure_exchange_counters)
+    'exchange.rows_max': 'gauge',
+    'exchange.rows_mean': 'gauge',
+    'exchange.dcn_rows': 'gauge',
+    'exchange.ici_rows': 'gauge',
+    'exchange.dcn_dedup_ratio': 'gauge',
 }
 
 REGISTERED_METRICS = frozenset(METRIC_TYPES)

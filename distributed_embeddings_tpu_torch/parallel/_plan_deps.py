@@ -4,8 +4,8 @@ The port imports nothing of ``distributed_embeddings_tpu``, not even its
 modules that are free of JAX, so the planner's few outside helpers are
 copied here:
 
-- ``HotSet`` from ``parallel/hotcache.py`` (the plan validates and
-  fingerprints hot sets; the port's runtime does not serve them yet);
+- ``HotSet``, re-exported from the port's own ``parallel/hotcache.py``
+  (the plan validates and fingerprints hot sets);
 - ``SCALE_BYTES``, ``QuantSpec``, ``resolve_table_dtype`` and
   ``wire_bytes_per_row`` from ``parallel/quantization.py`` (byte
   accounting of quantized plans);
@@ -17,12 +17,14 @@ copied here:
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+# re-exported: the planner's hot-set type
+from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet  # noqa: F401
 
 try:  # the fp8 payload dtype rides ml_dtypes, where it is installed
   import ml_dtypes
@@ -38,31 +40,6 @@ if _FP8 is not None:
 
 SCALE_BYTES = 4  # one f32 scale per row, stored alongside the payload
 WIRE_EXP_BYTES = 2  # trailing int16 frexp exponent of the po2 row scale
-
-
-@dataclasses.dataclass(frozen=True)
-class HotSet:
-  """The replicated-row set of one table: ``ids`` sorted, unique,
-  ``>= 0`` (``np.int64``); ``coverage`` is informational."""
-  table_id: int
-  ids: np.ndarray
-  coverage: float = 0.0
-
-  def __post_init__(self):
-    ids = np.asarray(self.ids, dtype=np.int64)
-    if ids.ndim != 1:
-      raise ValueError(f'HotSet ids must be 1-D, got shape {ids.shape}')
-    if ids.size and ((np.diff(ids) <= 0).any() or ids[0] < 0):
-      raise ValueError('HotSet ids must be sorted, unique and >= 0')
-    object.__setattr__(self, 'ids', ids)
-
-  @property
-  def size(self) -> int:
-    return int(self.ids.size)
-
-  def fingerprint_material(self) -> str:
-    h = hashlib.sha256(self.ids.tobytes()).hexdigest()[:16]
-    return f'{self.table_id}:{self.size}:{h}'
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,11 +15,15 @@ and row provenance, and hands it to ``fit``'s anomaly policy
   current rotating row window (``bytes_per_audit``), and read with one
   host sync; rows are localized on the full leaf only on failure.
 - ``replicated``: the leaves every rank holds a copy of must be
-  bit-identical across ranks.  In the port these are the data-parallel
-  (dense) params and their optimizer state; each rank's ``digest_u32``
-  of each is all-gathered and compared (nothing to compare in a world of
-  one).  The JAX package's replicated leaves are the hot-row buffers,
-  which come with item 7.
+  bit-identical across ranks: the hot-row buffers ``hot_group_{gi}``
+  and their optimizer slots (``hot_group_{gi}/{leaf}``; the plan names
+  them, ``hotcache.replicated_leaf_names``), digested over the same
+  rotating row windows as the finite check, as in the JAX package; and,
+  in the port, also the data-parallel (dense) params and their
+  optimizer state.  Each rank's ``digest_u32`` of each is all-gathered
+  and compared (nothing to compare in a world of one); a diverged leaf
+  is localized on the full copies: the ranks off the majority (every
+  rank on a tie) and the rows that differ.
 - ``quantized`` (item 9) and ``tier`` (item 12) are refused with
   ``not_ported``.
 
@@ -46,6 +50,8 @@ import torch.distributed as torch_dist
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel.hotcache import (
+    replicated_leaf_names)
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
 from distributed_embeddings_tpu_torch.utils import resilience
@@ -315,6 +321,13 @@ class StateAuditor:
     self.full_coverage_audits = 1
     self.audits = 0
     self.findings_total = 0
+    # the plan names its replicated leaves; optimizer slots of a
+    # replicated buffer ({leaf}/{k}) replicate with it
+    self._replicated = frozenset(replicated_leaf_names(dist.plan))
+
+  def _is_replicated(self, name: str) -> bool:
+    return (name in self._replicated
+            or name.partition('/')[0] in self._replicated)
 
   def _gather(self, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` stacked ``[world, ...]`` (``t`` itself in a
@@ -344,14 +357,54 @@ class StateAuditor:
     self.full_coverage_audits = worst
     return out
 
-  def _finite_findings(self, leaves) -> List[AuditFinding]:
+  def _replica_finding(self, name: str, vec: np.ndarray,
+                       copies: torch.Tensor, transposed: bool = False
+                       ) -> AuditFinding:
+    """The finding of one leaf whose per-rank digests ``vec`` disagree,
+    localized on its per-rank ``copies`` (``[world, ...]`` on the host):
+    the ranks off the majority digest, or every rank on a tie (the vote
+    cannot say which copy is healthy), and the rows that differ from a
+    majority copy (on a tie, the first copy; ``transposed``: a dense
+    leaf in the JAX layout)."""
+    values, counts = np.unique(vec, return_counts=True)
+    ref = values[np.argmax(counts)]
+    if (counts == counts.max()).sum() > 1:
+      devices = tuple(range(len(vec)))
+    else:
+      devices = tuple(int(d) for d in np.nonzero(vec != ref)[0])
+    base = copies[int(np.nonzero(vec == ref)[0][0])]
+    rows = []
+    for d in devices:
+      diff = (copies[d] != base) if copies[d].dim() else (
+          copies[d] != base)[None]
+      diff = diff.T if transposed else diff
+      rows += _bad_rows(diff.numpy(), self.max_rows)
+    return AuditFinding('replicated', name, devices,
+                        tuple(rows[:self.max_rows]),
+                        f'replica digests diverged: {vec.tolist()}')
+
+  def _replicated_findings(self, leaves, windows) -> List[AuditFinding]:
+    """The replicated embedding leaves (the hot buffers and their
+    optimizer slots): each rank's digest of each leaf's current window,
+    all-gathered and read with one host sync; a leaf that disagrees is
+    localized on its full copies."""
+    names = sorted(leaves)
+    digests = self._gather(torch.stack(
+        [digest_u32(leaves[k][s:s + n])
+         for k, (s, n) in ((k, windows[k]) for k in names)])).cpu().numpy()
+    return [self._replica_finding(name, digests[:, j],
+                                  self._gather(leaves[name]).cpu())
+            for j, name in enumerate(names)
+            if not np.all(digests[:, j] == digests[0, j])]
+
+  def _finite_findings(self, leaves, windows) -> List[AuditFinding]:
     """The embedding leaves over their windows: one device vector of
     ``_sums_finite`` screens, all-gathered, read with one host sync; a
     leaf whose screen fails on some rank is counted exactly, and, where
     the count is not zero, localized, on every rank."""
     names = sorted(leaves)
-    windows = {k: leaves[k][s:s + n]
-               for k, (s, n) in self._windows(leaves).items()}
+    windows = {k: leaves[k][s:s + n] for k, (s, n) in windows.items()
+               if k in leaves}
     ok = torch.stack([_sums_finite(windows[k]) for k in names])
     ok = self._gather(ok.to(torch.uint8)).cpu().numpy()  # [world, leaves]
     findings = []
@@ -403,25 +456,9 @@ class StateAuditor:
           [digest_u32(t) for _, t, _ in leaves])).cpu().numpy()
       for j, (name, t, tr) in enumerate(leaves):
         vec = digests[:, j]
-        if np.all(vec == vec[0]):
-          continue
-        copies = self._gather(t).cpu()
-        values, counts = np.unique(vec, return_counts=True)
-        ref = values[np.argmax(counts)]
-        if (counts == counts.max()).sum() > 1:  # a tie names every rank
-          devices = tuple(range(len(vec)))
-        else:
-          devices = tuple(int(d) for d in np.nonzero(vec != ref)[0])
-        base = copies[int(np.nonzero(vec == ref)[0][0])]
-        rows = []
-        for d in devices:
-          diff = (copies[d] != base) if copies[d].dim() else (
-              copies[d] != base)[None]
-          diff = diff.T if tr else diff
-          rows += _bad_rows(diff.numpy(), self.max_rows)
-        findings.append(AuditFinding(
-            'replicated', name, devices, tuple(rows[:self.max_rows]),
-            f'replica digests diverged: {vec.tolist()}'))
+        if not np.all(vec == vec[0]):
+          findings.append(self._replica_finding(
+              name, vec, self._gather(t).cpu(), tr))
     return findings
 
   def run(self, params=None, opt_state=None, dense=None,
@@ -439,15 +476,21 @@ class StateAuditor:
     self.audits += 1
     t0 = time.perf_counter()
     findings: List[AuditFinding] = []
-    leaves = {}
-    if 'finite' in self.checks:
-      leaves = {k: v for k, v in (params or {}).items()
-                if v.is_floating_point()}
-      for gk, entry in (opt_state or {}).items():
-        leaves.update({f'{gk}/{lk}': v for lk, v in entry.items()
-                       if v.is_floating_point()})
-    if leaves:
-      findings += self._finite_findings(leaves)
+    emb = dict(params or {})
+    for gk, entry in (opt_state or {}).items():
+      emb.update({f'{gk}/{lk}': v for lk, v in entry.items()})
+    finite = ({k: v for k, v in emb.items() if v.is_floating_point()}
+              if 'finite' in self.checks else {})
+    replicated = ({k: v for k, v in emb.items() if self._is_replicated(k)}
+                  if 'replicated' in self.checks
+                  and self.dist.world_size > 1 else {})
+    if finite or replicated:
+      # one rotating window per leaf, shared by both checks
+      windows = self._windows({**finite, **replicated})
+      if finite:
+        findings += self._finite_findings(finite, windows)
+      if replicated:
+        findings += self._replicated_findings(replicated, windows)
     if dense_flat is not None:
       findings += self._dense_findings(dense_flat)
     for f in findings:

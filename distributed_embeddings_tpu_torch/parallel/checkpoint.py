@@ -40,9 +40,18 @@ either package reads what the other wrote:
   or a directory, written IN PLACE into the template state's tensors on
   their device (the train steps update in place too).
 
+Hot membership (``hot_cache``, docs/design.md §10) is a layout detail:
+``set_weights`` / ``set_optimizer_state`` fill the replicated
+``hot_group_{gi}`` buffers and their split state from the global tables
+(``_fill_hot``; JAX ``_hot_leaves_from_tables``), and ``get_weights`` /
+``get_optimizer_state`` overlay them onto the canonical tables
+(``_overlay_hot``; the shards' copies of hot rows go stale while the
+rows are hot), so a file written under one hot set restores under any
+other, or under none.
+
 Left for their items: quantized entries (``QuantizedWeight``, item 9),
-the hot-row overlay (item 7), the hierarchical-layout refusal (item 10)
-and the rendezvous sanitizer's records (item 16).
+the hierarchical-layout refusal (item 10) and the rendezvous sanitizer's
+records (item 16).
 """
 
 from __future__ import annotations
@@ -108,25 +117,90 @@ def _fill_group(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
   return buf
 
 
+def _hot_rows(array: WeightLike, ids: np.ndarray, cs: int, ce: int,
+              device: torch.device) -> torch.Tensor:
+  """Rows ``ids`` at columns ``[cs, ce)`` of one global array (or the
+  entries ``ids`` of a per-row ``[rows]`` array), as a tensor on
+  ``device``: gathered where the array lives, so only the hot rows
+  move."""
+  if isinstance(array, torch.Tensor):
+    rows = array[torch.as_tensor(ids, dtype=torch.long, device=array.device)]
+  else:
+    rows = np.asarray(array)[ids]
+    if rows.dtype.name == 'bfloat16':
+      rows = rows.astype(np.float32)
+    rows = torch.as_tensor(np.require(rows, requirements='W'))
+  if rows.dim() == 2:
+    rows = rows[:, cs:ce]
+  return rows.to(device)
+
+
+def _fill_hot(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
+              arrays: Sequence[Optional[WeightLike]]) -> torch.Tensor:
+  """Write hot group ``gi``'s rows into ``buf`` (``[hot_rows_cap, w]``,
+  or a per-row ``[hot_rows_cap]``) from global per-table arrays (``None``
+  entries leave their chunk zero); padding rows are zero (the JAX
+  package's ``_hot_leaves_from_tables``)."""
+  buf.zero_()
+  plan = dist.plan
+  for tid, cs, ce, off, k in plan.groups[gi].hot_chunks:
+    if k and arrays[tid] is not None:
+      buf[off:off + k] = _hot_rows(arrays[tid], plan.hot_sets[tid].ids, cs,
+                                   ce, buf.device).to(buf.dtype)
+  return buf
+
+
 def set_weights(dist: DistributedEmbedding,
                 weights: Sequence[WeightLike]) -> Dict[str, torch.Tensor]:
   """Build this rank's params ``{f'group_{gi}': [rows_cap, width]}`` on
   ``dist.device`` from global per-table weights (numpy arrays or
   tensors on any device; a tensor already on the device is sliced
-  there, without a round trip through the host).
+  there, without a round trip through the host), and with ``hot_cache``
+  the replicated hot buffers ``{f'hot_group_{gi}': [hot_rows_cap,
+  width]}`` re-sliced from the same rows.
 
   Raises:
     ValueError: on length or shape mismatch.
   """
   weights = list(weights)
   _check_tables(dist.plan, weights, 'set_weights')
-  return {
+  params = {
       f'group_{gi}': _fill_group(
           dist, gi, torch.empty((g.rows_cap, g.width),
                                 dtype=dist.param_dtype, device=dist.device),
           weights)
       for gi, g in enumerate(dist.plan.groups)
   }
+  for gi in dist.plan.hot_groups:
+    g = dist.plan.groups[gi]
+    params[f'hot_group_{gi}'] = _fill_hot(
+        dist, gi, torch.empty((g.hot_rows_cap, g.width),
+                              dtype=dist.param_dtype, device=dist.device),
+        weights)
+  return params
+
+
+def _overlay_hot(dist: DistributedEmbedding, result: List[torch.Tensor],
+                 leaves: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
+  """Write each hot group's replicated rows (``leaves[gi]``) back into the
+  global per-table arrays ``result``, in place: the shards' copies of
+  hot rows are stale while the rows are hot, and the buffer is
+  authoritative.  A per-row ``[rows]`` leaf takes its entries by id
+  (identical across column slices)."""
+  plan = dist.plan
+  for gi, buf in leaves.items():
+    for tid, cs, ce, off, k in plan.groups[gi].hot_chunks:
+      if not k:
+        continue
+      out = result[tid]
+      ids = torch.as_tensor(plan.hot_sets[tid].ids, dtype=torch.long,
+                            device=out.device)
+      rows = buf[off:off + k].to(device=out.device, dtype=out.dtype)
+      if out.dim() == 1:
+        out[ids] = rows
+      else:
+        out[ids, cs:ce] = rows
+  return result
 
 
 def _all_shards(dist: DistributedEmbedding,
@@ -149,20 +223,27 @@ def get_weights(dist: DistributedEmbedding,
   Returns:
     List of ``[rows, width]`` tensors in global table order, on the
     params' device (unsliced tables of a world of one are views of the
-    params).  Per-row ``[rows_cap]`` leaves give ``[rows]`` vectors, the
-    first column slice of a row serving (all hold the same values).
+    params, except those with hot rows, copied before the hot buffers'
+    rows overlay them).  Per-row ``[rows_cap]`` leaves give ``[rows]``
+    vectors, the first column slice of a row serving (all hold the same
+    values).
   """
   plan = dist.plan
   group_index = {g.key: gi for gi, g in enumerate(plan.groups)}
   shards = {gi: _all_shards(dist, params[f'group_{gi}'])
             for gi in range(len(plan.groups))}
+  hot = {gi: params[f'hot_group_{gi}'] for gi in plan.hot_groups
+         if f'hot_group_{gi}' in params}
   result = []
   for tid, layout in enumerate(plan.shard_layout()):
     cfg = plan.table_configs[tid]
     if len(layout) == 1 and layout[0][7] == 1:
       dev, group_key, row_offset = layout[0][:3]
       gi = group_index[group_key]
-      result.append(shards[gi][dev][row_offset:row_offset + cfg.input_dim])
+      piece = shards[gi][dev][row_offset:row_offset + cfg.input_dim]
+      # the overlay below must not write into the live params
+      result.append(piece.clone() if hot and tid in plan.hot_sets
+                    else piece)
       continue
     # paste the row x column windows into the global canvas; zeros, so a
     # gap in the layout reads as zeros, never as uninitialised memory
@@ -180,7 +261,7 @@ def get_weights(dist: DistributedEmbedding,
       out[(rows,) if per_row else (rows, slice(col_start, col_end))] = (
           shards[gi][dev][row_offset:row_offset + span])
     result.append(out)
-  return result
+  return _overlay_hot(dist, result, hot)
 
 
 def get_optimizer_state(dist: DistributedEmbedding,
@@ -192,6 +273,9 @@ def get_optimizer_state(dist: DistributedEmbedding,
   Adagrad's ``acc``, Adam's ``m``, ``v``) at their dtype, per-row leaves
   (``[rows_cap]``: Adam's ``t``) from the first column slice of each row.
 
+  The split state of hot rows (``hot_group_{gi}`` entries) overlays the
+  canonical layout as the hot buffers do the tables.
+
   Returns:
     Per-table dicts in global table order (``[{'acc': [rows, width]},
     ...]``, ``[{'m': ..., 't': [rows], 'v': ...}, ...]``); empty dicts
@@ -200,8 +284,12 @@ def get_optimizer_state(dist: DistributedEmbedding,
   leaves = sorted({k for gs in opt_state.values() for k in gs})
   n_groups = len(dist.plan.groups)
   per_leaf = {
-      k: get_weights(dist, {f'group_{gi}': opt_state[f'group_{gi}'][k]
-                            for gi in range(n_groups)})
+      k: get_weights(dist, {
+          **{f'group_{gi}': opt_state[f'group_{gi}'][k]
+             for gi in range(n_groups)},
+          **{f'hot_group_{gi}': opt_state[f'hot_group_{gi}'][k]
+             for gi in dist.plan.hot_groups
+             if k in opt_state.get(f'hot_group_{gi}', {})}})
       for k in leaves
   }
   return [{k: per_leaf[k][tid] for k in leaves}
@@ -216,7 +304,8 @@ def set_optimizer_state(dist: DistributedEmbedding,
   state into ``opt_state``'s leaves (e.g. a fresh ``optimizer.init``), in
   place, at each leaf's dtype, and return it.  A per-row ``[rows]`` leaf
   serves every column slice of its table.  Padding rows (never looked
-  up) are zero, as in the JAX package."""
+  up) are zero, as in the JAX package.  The split state of hot rows is
+  re-sliced into whatever hot set the live plan carries."""
   table_states = list(table_states)
   for gi in range(len(dist.plan.groups)):
     for k, leaf in opt_state.get(f'group_{gi}', {}).items():
@@ -224,6 +313,9 @@ def set_optimizer_state(dist: DistributedEmbedding,
       _check_tables(dist.plan, arrays, 'set_optimizer_state',
                     per_row=leaf.dim() == 1)
       _fill_group(dist, gi, leaf, arrays)
+  for gi in dist.plan.hot_groups:
+    for k, leaf in opt_state.get(f'hot_group_{gi}', {}).items():
+      _fill_hot(dist, gi, leaf, [ts.get(k) for ts in table_states])
   return opt_state
 
 
@@ -925,8 +1017,10 @@ def load_train_npz(path: str):
 
 def is_hybrid_opt_state(dist: DistributedEmbedding, opt_state) -> bool:
   """Whether ``opt_state`` is the hybrid step's: a 2-tuple whose second
-  element is a dict keyed exactly by the plan's group names."""
-  group_names = {f'group_{gi}' for gi in range(len(dist.plan.groups))}
+  element is a dict keyed exactly by the plan's group names (and hot
+  group names)."""
+  group_names = {f'group_{gi}' for gi in range(len(dist.plan.groups))} | {
+      f'hot_group_{gi}' for gi in dist.plan.hot_groups}
   return (isinstance(opt_state, tuple) and len(opt_state) == 2
           and isinstance(opt_state[1], dict)
           and set(opt_state[1].keys()) == group_names)
@@ -996,6 +1090,8 @@ def _rebuild_train_state(dist, state, path, weights, st_tables, extras):
   with torch.no_grad():
     for gi in range(len(dist.plan.groups)):
       _fill_group(dist, gi, emb[f'group_{gi}'], weights)
+    for gi in dist.plan.hot_groups:
+      _fill_hot(dist, gi, emb[f'hot_group_{gi}'], weights)
   if hybrid:
     emb_opt_state = state.opt_state[1]
     if any(st_tables):

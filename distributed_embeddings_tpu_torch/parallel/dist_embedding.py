@@ -16,7 +16,12 @@ canonical ``[D, n_cap, B, h]`` send buffers, makes ONE fused id
 exchange, then per subgroup routes ids and runs the fused gather-combine
 (``ops/lookup.fused_group_lookup``: the CUDA kernel on the card), makes
 ONE fused row exchange back and assembles (column-slice re-concat and
-row-slice merge).  The model-parallel-input forward (``dp_input=False``,
+row-slice merge).  With ``hot_cache`` (docs/design.md §10) the
+dp-input forward splits each input into its hot ids, served from
+replicated ``hot_group_{gi}`` buffers on every rank, and its cold ids,
+which sort-unique per (source rank, slot) before ONE fused id exchange,
+so each distinct cold row crosses once (``_build_dp_forward_hot``).  The
+model-parallel-input forward (``dp_input=False``,
 the JAX package's ``_build_mp_forward``) receives every table's ids at
 the global batch, builds each subgroup's ``[n_cap, GB, h]`` canonical
 from this rank's own inputs, and so has no id exchange: route, lookup,
@@ -32,7 +37,10 @@ fused cotangent exchange, plus one all_gather per row-sharded input).
 ``apply`` is differentiable in the tables (the dense autodiff trainer,
 ``parallel/grad.make_train_step``): the lookup is one autograd node per
 fusion group (``ops/lookup.LookupCombine``), the row exchange and the
-row-shard reduce-scatter carry their cotangents back.
+row-shard reduce-scatter carry their cotangents back.  The hot cache
+serves the sparse hybrid step and serving; differentiating a hot layer
+is refused (the dense trainer on a hot layer is a part of item 7 left
+for later).
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -40,7 +48,7 @@ naming its ROADMAP item; none is ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,8 +134,15 @@ class DistributedEmbedding:
       tables on the card, its plain version for tables on the CPU.
     device_hbm_budget: per-device table byte budget; an over-budget plan
       refuses at construction.
-    hot_cache / overlap_chunks > 1 / table_dtype / cold_tier /
-      cold_fetch_rows / dcn_sharding / wire_dtype: not ported; raise.
+    hot_cache: optional frequency-aware hot-row sets (``HotSet`` dict or
+      sequence, ``parallel/hotcache.py``; docs/design.md §10).  Hot rows
+      replicate into per-group buffers (``hot_group_{gi}`` params) served
+      on every rank; cold ids sort-unique per (source rank, slot) before
+      the id exchange.  Requires ``dp_input=True``.  Hot membership is a
+      layout detail: checkpoints stay global canonical and restore under
+      any other hot set.
+    overlap_chunks > 1 / table_dtype / cold_tier / cold_fetch_rows /
+      dcn_sharding / wire_dtype: not ported; raise.
   """
 
   def __init__(self,
@@ -164,8 +179,11 @@ class DistributedEmbedding:
           f'Unknown lookup_impl {lookup_impl!r}: the port has one lookup, '
           "'auto' (the CUDA kernel on the card, its plain version on the "
           'CPU)')
-    if hot_cache:
-      raise not_ported('hot_cache', 7)
+    if hot_cache and not dp_input:
+      raise ValueError(
+          'hot_cache requires dp_input=True: the cache partitions the '
+          'dp->mp id exchange, which the model-parallel input path does '
+          'not have')
     if (isinstance(overlap_chunks, bool)
         or not isinstance(overlap_chunks, (int, np.integer))
         or overlap_chunks < 1):
@@ -207,10 +225,18 @@ class DistributedEmbedding:
                              column_slice_threshold=column_slice_threshold,
                              row_slice_threshold=row_slice,
                              packed_storage=False,
+                             hot_sets=hot_cache,
                              device_hbm_budget=device_hbm_budget,
                              param_itemsize=torch.empty(
                                  0, dtype=param_dtype).element_size())
     self.num_inputs = len(self.plan.input_table_map)
+    self.hot_enabled = bool(self.plan.hot_sets)
+    self._hot_meta_cache = None
+    # the JAX layer's flat-layout attributes, which the exchange
+    # counters read (no dcn axis, item 10; the compute-dtype wire, item 9)
+    self.num_slices = 1
+    self.dcn_axis = None
+    self.wire_dtype = None
     # forward closures and their LookupPlans, keyed by
     # (local batch, hotness); a plan's legs are those of its last call
     self._fn_cache: Dict[Any, Any] = {}
@@ -220,7 +246,8 @@ class DistributedEmbedding:
 
   def init(self, seed: int = 0) -> Dict[str, torch.Tensor]:
     """This rank's fused tables ``{f'group_{gi}': [rows_cap, width]}``,
-    drawn on ``self.device``.
+    drawn on ``self.device``, and with ``hot_cache`` the replicated hot
+    buffers ``{f'hot_group_{gi}': [hot_rows_cap, width]}`` (``_init_hot``).
 
     Each member table slice draws with its own initializer from a
     generator seeded by ``(seed, table, col_start, row_start)``, so a rank
@@ -252,7 +279,32 @@ class DistributedEmbedding:
         off += lt.input_dim
       buf[off:].zero_()
       params[f'group_{gi}'] = buf
+    if self.hot_enabled:
+      params.update(self._init_hot(params))
     return params
+
+  def _init_hot(self, params) -> Dict[str, torch.Tensor]:
+    """The replicated hot buffers filled from the freshly built shards:
+    each hot row is resident on exactly one rank
+    (``GroupSpec.hot_owner_rows`` / ``hot_owner_dst``), which copies it
+    into a zero buffer; one all-reduce (the JAX ``psum``) replicates the
+    union, so a cached layer starts from exactly the values the uncached
+    layer draws."""
+    out = {}
+    for gi in self.plan.hot_groups:
+      g = self.plan.groups[gi]
+      buf = torch.zeros((g.hot_rows_cap, g.width), dtype=self.param_dtype,
+                        device=self.device)
+      rows = g.hot_owner_rows[self.rank]
+      if rows.size:
+        as_idx = lambda a: torch.as_tensor(a, dtype=torch.long,
+                                           device=self.device)
+        buf[as_idx(g.hot_owner_dst[self.rank])] = params[f'group_{gi}'][
+            as_idx(rows)]
+      if self.world_size > 1:
+        torch_dist.all_reduce(buf, group=self.mesh.group)
+      out[f'hot_group_{gi}'] = buf
+    return out
 
   # --------------------------------------------------------------- forward
 
@@ -742,30 +794,54 @@ class DistributedEmbedding:
 
   # ------------------------------------------------- sparse training hooks
 
-  def forward_with_residuals(self, params: Dict[str, torch.Tensor], inputs):
+  def forward_with_residuals(self, params: Dict[str, torch.Tensor], inputs,
+                             with_routing: bool = False):
     """Forward that also returns the routed lookup ids, for the sparse
     training path (``parallel/sparse.py``).
 
     Returns:
       ``(outputs, residuals, (global_batch, hotness))``: outputs as in
       ``apply``; residuals a tuple of this rank's per-subgroup fused-space
-      ids ``[n_cap, GB, h]`` (values ``>= rows_cap`` mark padding); the
-      last element is the forward's signature, to be passed to
-      ``backward_to_mp`` / ``sparse_apply_updates``.
+      ids ``[n_cap, GB, h]`` (values ``>= rows_cap`` mark padding; on a
+      hot-cache layer the owner-side UNIQUE cold ids ``[n_cap, D * U,
+      1]``, ``U = local_batch * h``); the last element is the forward's
+      signature, to be passed to ``backward_to_mp`` /
+      ``sparse_apply_updates``.
+
+      With ``with_routing=True`` the return is ``(outputs, residuals,
+      routing, signature)``: ``routing`` the forward's routing products,
+      which ``backward_to_mp(routing=...)`` reuses instead of re-deriving
+      them: on a hot-cache layer a ``HotRouting`` (each subgroup's
+      sort-unique inverse permutation and each input's hot/cold split),
+      ``()`` on the uncached paths.
     """
     inputs, batch, hotness = self._prepare_inputs(inputs)
-    if self.dp_input:
+    routing_out = ()
+    if self.hot_enabled:
+      if torch.is_grad_enabled() and any(t.requires_grad
+                                         for t in params.values()):
+        raise not_ported('differentiating a hot_cache layer (the dense '
+                         'autodiff trainer on a hot layer)',
+                         '7, its remaining parts')
       global_batch = batch * self.world_size
-      fwd = self._build_dp_forward(batch, hotness)
+      outs, residuals, routing_out = self._build_dp_forward_hot(
+          batch, hotness)(params, inputs)
+    elif self.dp_input:
+      global_batch = batch * self.world_size
+      outs, residuals = self._build_dp_forward(batch, hotness)(params,
+                                                               inputs)
     else:
       global_batch = batch
-      fwd = self._build_mp_forward(batch, hotness)
-    outs, residuals = fwd(params, inputs)
+      outs, residuals = self._build_mp_forward(batch, hotness)(params,
+                                                               inputs)
+    if with_routing:
+      return list(outs), residuals, routing_out, (global_batch, hotness)
     return list(outs), residuals, (global_batch, hotness)
 
   def backward_to_mp(self, d_outs: Sequence[torch.Tensor],
-                     global_batch: int, hotness: tuple
-                     ) -> Tuple[torch.Tensor, ...]:
+                     global_batch: int, hotness: tuple, cats=None,
+                     with_sq: bool = False, with_touch: bool = False,
+                     routing: Optional['HotRouting'] = None):
     """Transpose output cotangents back to per-subgroup mp-side grads:
     the manual transpose of the forward's output path (row exchange +
     reorder + column re-concat), so the sparse path never builds a
@@ -776,19 +852,49 @@ class DistributedEmbedding:
     matching cotangent must arrive here ALREADY divided by that count
     (``make_hybrid_train_step`` does this).
 
+    HOT-CACHE layers (``hot_enabled``) take the transpose of the cached
+    forward (``_build_backward_hot``): the cold cotangents segment-sum to
+    the forward's per-(source, slot) unique rows and ship deduplicated;
+    the hot cotangents segment-sum into the replicated buffers' layout
+    and are all-reduced once.  Mean division happens inside (hot layers
+    need no caller-side pre-division).  The return is then ``(gsubs,
+    hot_grads)``: per-subgroup ``[n_cap, D * U, w]`` grads aligned with
+    the cached residuals, and ``{gi: [hot_rows_cap, w]}`` (``2w`` with
+    ``with_sq``, one more column with ``with_touch``).
+
     Args:
       d_outs: this rank's per-input cotangents ``[B, out_dim_i]``.
       global_batch / hotness: the forward call's signature.
+      cats: the forward's inputs (hot-cache layers, without ``routing``:
+        the unique cold streams are rebuilt from them).
+      with_sq: also carry per-occurrence squared grads (per-occurrence
+        Adagrad; hot-cache layers only).
+      with_touch: also carry a trailing occurrence count on the hot
+        grads (lazy Adam's touched-row mask; hot-cache layers only).
+      routing: the forward's routing products
+        (``forward_with_residuals(with_routing=True)``; hot-cache layers).
 
     Returns:
       Tuple of this rank's per-subgroup ``[n_cap, GB, w]`` grads, aligned
-      with ``forward_with_residuals``'s residuals.
+      with ``forward_with_residuals``'s residuals, or ``(gsubs,
+      hot_grads)`` for hot-cache layers (above).
     """
     if len(d_outs) != self.num_inputs:
       raise ValueError(f'Expect {self.num_inputs} cotangents, got '
                        f'{len(d_outs)}.')
-    return self._build_backward(global_batch // self.world_size,
-                                tuple(hotness))(list(d_outs))
+    local_batch = global_batch // self.world_size
+    if self.hot_enabled:
+      if routing is None:
+        if cats is None:
+          raise ValueError('hot-cache backward needs cats= (the forward '
+                           'inputs rebuild the unique cold streams) or '
+                           'routing=')
+        inputs, _, _ = self._prepare_inputs(cats)
+        routing = self._hot_routing(local_batch, tuple(hotness), inputs)
+      return self._build_backward_hot(local_batch, tuple(hotness),
+                                      with_sq, with_touch)(list(d_outs),
+                                                           routing)
+    return self._build_backward(local_batch, tuple(hotness))(list(d_outs))
 
   def _build_backward(self, local_batch: int, hotness: tuple):
     """Build (once per signature) ``bwd(d_outs) -> gsubs``: cotangent send
@@ -872,6 +978,327 @@ class DistributedEmbedding:
     self._fn_cache[key] = bwd
     return bwd
 
+  # --------------------------- frequency-aware hot cache (design §10)
+
+  def _hot_meta(self):
+    """Hot-cache metadata, built once: per table its sorted hot ids on
+    the device (int32), and per hot group the ``(input, col_start,
+    col_end, buffer offset)`` chunks its hot partials read (inputs of
+    tables with an empty hot set left out)."""
+    if self._hot_meta_cache is None:
+      plan = self.plan
+      table_ids = {
+          t: torch.as_tensor(hs.ids.astype(np.int32), device=self.device)
+          for t, hs in plan.hot_sets.items()
+      }
+      chunk_off = {(tid, cs, ce): (gi, off)
+                   for gi, g in enumerate(plan.groups)
+                   for tid, cs, ce, off, _ in g.hot_chunks}
+      readers: Dict[int, list] = {gi: [] for gi in plan.hot_groups}
+      for i, reqs in enumerate(plan.input_requests):
+        tid = plan.input_table_map[i]
+        if tid not in table_ids or not table_ids[tid].numel():
+          continue
+        for cs, ce in dict.fromkeys((r.col_start, r.col_end) for r in reqs):
+          gi, off = chunk_off[(tid, cs, ce)]
+          readers[gi].append((i, cs, ce, off))
+      self._hot_meta_cache = dict(table_ids=table_ids, readers=readers)
+    return self._hot_meta_cache
+
+  def _hot_membership(self, inputs) -> List[Dict[str, Any]]:
+    """Per-input hot/cold split: ``x2`` the ``[B, h]`` int32 ids,
+    ``cold`` the vocab-clipped ids with hot AND padding positions at the
+    ``-1`` sentinel (what the exchange ships), ``hot`` the ``[B, h]``
+    hot-buffer ranks (``-1`` where not hot; None for a table without hot
+    rows).  Membership is a ``searchsorted`` on the vocab-clipped id, so
+    out-of-vocab ids follow the last row's membership, as the uncached
+    clip-then-lookup does."""
+    meta = self._hot_meta()
+    out = []
+    for i, x in enumerate(inputs):
+      x2 = (x[:, None] if x.dim() == 1 else x).to(torch.int32)
+      tid = self.plan.input_table_map[i]
+      vocab = self.plan.table_configs[tid].input_dim
+      valid = x2 >= 0
+      # cold ids ship vocab-CLIPPED: routing clips identically, and the
+      # out-of-vocab spellings of the last row unify in the dedup
+      clipped = torch.clamp(x2, 0, vocab - 1)
+      hot_ids = meta['table_ids'].get(tid)
+      if hot_ids is None or hot_ids.numel() == 0:
+        out.append(dict(x2=x2, cold=torch.where(valid, clipped, _SENTINEL),
+                        hot=None))
+        continue
+      pos = torch.searchsorted(hot_ids, clipped, out_int32=True)
+      safe = torch.clamp(pos, max=hot_ids.numel() - 1)
+      ishot = valid & (hot_ids[safe.long()] == clipped)
+      out.append(dict(x2=x2,
+                      cold=torch.where(ishot | ~valid, _SENTINEL, clipped),
+                      hot=torch.where(ishot, safe, -1)))
+    return out
+
+  def _cold_sends(self, subs, mem, local_batch: int):
+    """Per subgroup the deduplicated cold send buffer ``[D, n_cap, U]``
+    (``U = local_batch * h``; the sort-unique of each (destination rank,
+    slot) row, ``-1`` padding) and its inverse permutation ``[D * n_cap,
+    U]`` (``U`` at dropped positions)."""
+    D, dev = self.world_size, self.device
+    sends, invs = [], []
+    for sub in subs:
+      h = sub.hotness
+      u = local_batch * h
+
+      def _cold(k, h=h):
+        if k == -1:
+          return torch.full((local_batch, h), _SENTINEL, dtype=torch.int32,
+                            device=dev)
+        return mem[k]['cold']
+
+      send = routing.gather_slots(
+          D, sub.n_cap,
+          lambda d, s, sub=sub: (sub.requests[d][s].input_id
+                                 if s < len(sub.requests[d]) else -1),
+          _cold)
+      uniq, inv = routing.unique_with_inverse(send.reshape(D * sub.n_cap, u),
+                                              u)
+      sends.append(uniq.reshape(D, sub.n_cap, u))
+      invs.append(inv)
+    return sends, invs
+
+  def _hot_routing(self, local_batch: int, hotness: tuple,
+                   inputs) -> 'HotRouting':
+    """The hot forward's routing products from the inputs alone (no
+    exchange): the backward's fallback without ``routing=``."""
+    mem = self._hot_membership(inputs)
+    _, invs = self._cold_sends(self._subgroups(hotness), mem, local_batch)
+    return HotRouting(tuple(invs), mem)
+
+  def _build_dp_forward_hot(self, local_batch: int, hotness: tuple):
+    """Build (once per signature) the hot-cache dp forward ``fwd(params,
+    inputs) -> (outputs, residuals, HotRouting)`` (JAX
+    ``_build_dp_forward_hot``):
+
+    - route: per subgroup the cold ids' send buffer, sort-uniqued per
+      (destination rank, slot), then ONE fused exchange of the unique
+      ids (leg ``fwd/cold_ids``);
+    - gather: at the owner the ids route into the fused table and each
+      distinct row is gathered once, a hotness-1 lookup-kernel launch
+      per subgroup (out-of-window ids of row shards come back zero);
+    - ONE fused exchange of the rows back (leg ``fwd/cold_rows``);
+    - combine: the inverse permutation over a zero-extended row buffer,
+      then the f32 fold over the hot axis;
+    - hot partials: the lookup kernel over each replicated
+      ``hot_group_{gi}`` buffer, one launch per (hot group, hotness),
+      the inputs stacked, at index ``offset + rank`` (``-1`` where the
+      id is not hot);
+    - merge: each (input, column range) piece is its cold partials, then
+      plus the hot partial, in f32; mean tables divide by the TRUE
+      per-sample id count.
+
+    Bit-exact against the uncached forward for hotness-1 inputs (a
+    position is hot or cold, the other side adds an exact zero);
+    multi-hot bags mixing hot and cold ids re-associate the f32 fold.
+    ``residuals`` are the owner-side routed unique ids ``[n_cap, D * U,
+    1]`` (sentinel ``rows_cap``), already-deduplicated update streams."""
+    key = ('dp_fwd_hot', local_batch, hotness)
+    if key in self._fn_cache:
+      return self._fn_cache[key]
+    D = self.world_size
+    plan = self.plan
+    subs = self._subgroups(hotness)
+    consts = self._slot_consts(subs)
+    meta = self._hot_meta()
+    lplan = LookupPlan(path='hot', global_batch=local_batch * D,
+                       hotness=tuple(hotness), fused=True)
+    self._lookup_plans[key] = lplan
+    # the hot partials' launches: per (hot group, hotness), its readers
+    hot_classes: Dict[tuple, list] = {}
+    for gi, readers in meta['readers'].items():
+      for chunk in readers:
+        hot_classes.setdefault((gi, hotness[chunk[0]]), []).append(chunk)
+    ranges = [sorted({(r.col_start, r.col_end)
+                      for r in plan.input_requests[i]})
+              for i in range(self.num_inputs)]
+    is_mean = [plan.table_configs[t].combiner == 'mean'
+               for t in plan.input_table_map]
+
+    def fwd(params, inputs):
+      lplan.legs.clear()
+      mem = self._hot_membership(inputs)
+      sends, invs = self._cold_sends(subs, mem, local_batch)
+      recvs = self._exchange(sends, 'fwd/cold_ids', plan=lplan)
+      routed = []
+      for sub, r, (offs, vocab, lo, hi, st) in zip(subs, recvs, consts):
+        ids_c = r.transpose(0, 1).reshape(sub.n_cap, -1)
+        routed.append(routing.route_ids(ids_c[..., None], offs, vocab,
+                                        plan.groups[sub.gi].rows_cap, lo, hi,
+                                        st))
+      rows = [None] * len(subs)
+      for gi in range(len(plan.groups)):
+        sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
+        if sis:
+          got = lookup_ops.fused_group_lookup(
+              params[f'group_{gi}'], [routed[si] for si in sis],
+              [None] * len(sis), self.compute_dtype)
+          for si, r in zip(sis, got):
+            rows[si] = r
+      pre = [r.reshape(sub.n_cap, D, -1, sub.group.width).transpose(0, 1)
+             for sub, r in zip(subs, rows)]
+      backs = self._exchange(pre, 'fwd/cold_rows', plan=lplan)
+      piece: Dict[tuple, torch.Tensor] = {}
+      for si, (sub, back) in enumerate(zip(subs, backs)):
+        h, w = sub.hotness, sub.group.width
+        u = local_batch * h
+        ext = torch.cat([back, back.new_zeros((D, sub.n_cap, 1, w))], dim=2)
+        inv3 = invs[si].reshape(D, sub.n_cap, u).long()
+        occ = torch.gather(ext, 2, inv3[..., None].expand(-1, -1, -1, w))
+        occ = occ.reshape(D, sub.n_cap, local_batch, h, w).to(torch.float32)
+        comb = torch.zeros((D, sub.n_cap, local_batch, w),
+                           dtype=torch.float32, device=occ.device)
+        for j in range(h):
+          comb = comb + occ[:, :, :, j]
+        for dev in range(D):
+          for s, r in enumerate(sub.requests[dev]):
+            k = (r.input_id, r.col_start, r.col_end)
+            piece[k] = comb[dev, s] if k not in piece else piece[k] + comb[
+                dev, s]
+      for (gi, h), members in hot_classes.items():
+        idx = torch.stack([
+            torch.where(mem[i]['hot'] >= 0, mem[i]['hot'] + off, -1)
+            for i, _, _, off in members]).reshape(-1, h)
+        parts = lookup_ops.dense_lookup(params[f'hot_group_{gi}'], idx,
+                                        'sum', torch.float32)
+        for (i, cs, ce, _), hp in zip(members,
+                                      parts.reshape(len(members),
+                                                    local_batch, -1)):
+          k = (i, cs, ce)
+          piece[k] = hp if k not in piece else piece[k] + hp
+      outs = []
+      for i in range(self.num_inputs):
+        parts = [piece[(i, cs, ce)] for cs, ce in ranges[i]]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        if is_mean[i]:
+          out = out / routing.valid_count(mem[i]['x2'])[:, None]
+        outs.append(out.to(self.compute_dtype))
+      return tuple(outs), tuple(routed), HotRouting(tuple(invs), mem)
+
+    self._fn_cache[key] = fwd
+    return fwd
+
+  def _build_backward_hot(self, local_batch: int, hotness: tuple,
+                          with_sq: bool = False, with_touch: bool = False):
+    """Build (once per signature) the transpose of the hot-cache forward
+    ``bwd(d_outs, routing) -> (gsubs, hot_grads)`` (JAX
+    ``_build_backward_hot``).
+
+    Cold: mean cotangents are divided by the true per-sample count, and
+    each slot's occurrence cotangents segment-sum to its unique rows
+    through the forward's inverse permutation.  The distinct (input,
+    column range) slots of a subgroup make ONE stream keyed ``slot * U +
+    inv`` (one segment-walk ``'add'``, ``routing.segment_sum``), and ONE
+    fused exchange ships every subgroup's deduplicated ``[D, n_cap, U,
+    w]`` grads (leg ``bwd/cold_grads``), aligned with the forward's
+    owner-side residuals.  Hot: per hot group ONE segment sum of every
+    reading input's occurrences into ``[hot_rows_cap, w]``, then one
+    all-reduce over the ranks (the JAX ``psum``).  ``with_sq`` appends
+    per-occurrence squares as ``w`` more columns, ``with_touch`` a
+    trailing occurrence count (hot grads only)."""
+    key = ('bwd_hot', local_batch, hotness, with_sq, with_touch)
+    if key in self._fn_cache:
+      return self._fn_cache[key]
+    D, dev = self.world_size, self.device
+    plan = self.plan
+    subs = self._subgroups(hotness)
+    meta = self._hot_meta()
+    lplan = LookupPlan(path='bwd_hot', global_batch=local_batch * D,
+                       hotness=tuple(hotness), fused=True)
+    self._lookup_plans[('bwd_hot', local_batch, hotness)] = lplan
+    is_mean = [plan.table_configs[t].combiner == 'mean'
+               for t in plan.input_table_map]
+    # per subgroup: its distinct (input, col range) slot contents in
+    # first-seen order, the (dev, slot) each one's inverse is read from,
+    # and each (dev, slot)'s content index (the zero block past them for
+    # an empty slot)
+    slot_keys = []
+    for sub in subs:
+      keys, first, sel = [], [], np.empty((D, sub.n_cap), np.int64)
+      for d in range(D):
+        for s in range(sub.n_cap):
+          rs = sub.requests[d]
+          k = ((rs[s].input_id, rs[s].col_start, rs[s].col_end)
+               if s < len(rs) else None)
+          if k is not None and k not in keys:
+            keys.append(k)
+            first.append((d, s))
+          sel[d, s] = -1 if k is None else keys.index(k)
+      sel[sel < 0] = len(keys)
+      slot_keys.append((keys, first, torch.as_tensor(sel, device=dev)))
+    bag_of = {h: torch.arange(local_batch, dtype=torch.int32,
+                              device=dev).repeat_interleave(h)
+              for h in set(hotness)}
+
+    def bwd(d_outs, hot_routing):
+      lplan.legs.clear()
+      mem, invs = hot_routing.mem, hot_routing.invs
+      cot = []
+      for i, d in enumerate(d_outs):
+        c = d.to(torch.float32)
+        if is_mean[i]:
+          c = c / routing.valid_count(mem[i]['x2'])[:, None]
+        cot.append(c)
+      grads = []
+      for si, sub in enumerate(subs):
+        h, w = sub.hotness, sub.group.width
+        u = local_batch * h
+        keys, first, sel = slot_keys[si]
+        inv3 = invs[si].reshape(D, sub.n_cap, u)
+        n_seg = len(keys) * u
+        segs, payload, index = [], [], []
+        for j, ((inp, cs, ce), (d, s)) in enumerate(zip(keys, first)):
+          inv = inv3[d, s]
+          segs.append(torch.where(inv < u, inv + j * u, n_seg))
+          p = cot[inp][:, cs:ce]
+          payload.append(torch.cat([p, p * p], dim=1) if with_sq else p)
+          index.append(bag_of[h] + j * local_batch)
+        summed = routing.segment_sum(torch.cat(segs), torch.cat(payload),
+                                     n_seg, torch.cat(index))
+        wc = summed.shape[1]
+        blocks = torch.cat([summed.reshape(len(keys), u, wc),
+                            summed.new_zeros((1, u, wc))])
+        grads.append(blocks[sel])
+      recvs = self._exchange(grads, 'bwd/cold_grads', plan=lplan)
+      gsubs = tuple(r.transpose(0, 1).reshape(sub.n_cap, -1, r.shape[-1])
+                    for sub, r in zip(subs, recvs))
+      hot_grads = {}
+      for gi in plan.hot_groups:
+        g = plan.groups[gi]
+        n_rows = g.hot_rows_cap
+        segs, payload, index = [], [], []
+        for j, (i, cs, ce, off) in enumerate(meta['readers'][gi]):
+          hotm = mem[i]['hot']
+          h = hotm.shape[1]
+          segs.append(torch.where(hotm >= 0, hotm + off, n_rows).reshape(-1))
+          p = cot[i][:, cs:ce]
+          if with_sq:
+            p = torch.cat([p, p * p], dim=1)
+          if with_touch:
+            p = torch.cat([p, p.new_ones((local_batch, 1))], dim=1)
+          payload.append(p)
+          index.append(bag_of[h] + j * local_batch)
+        wch = g.width * (2 if with_sq else 1) + int(with_touch)
+        if segs:
+          total = routing.segment_sum(torch.cat(segs), torch.cat(payload),
+                                      n_rows, torch.cat(index))
+        else:
+          total = torch.zeros((n_rows, wch), dtype=torch.float32,
+                              device=dev)
+        if D > 1:
+          torch_dist.all_reduce(total, group=self.mesh.group)
+        hot_grads[gi] = total
+      return gsubs, hot_grads
+
+    self._fn_cache[key] = bwd
+    return bwd
+
   def _all_gather_batch(self, x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``[B, ...]`` block concatenated in rank order:
     ``[D * B, ...]`` (``jax.lax.all_gather(..., tiled=True)``)."""
@@ -926,6 +1353,14 @@ class _PsumScatter(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     return _all_gather(g, ctx.group, ctx.world), None, None, None
+
+
+class HotRouting(NamedTuple):
+  """The hot-cache forward's routing products, which its backward reuses:
+  per subgroup the sort-unique inverse permutation ``[D * n_cap, U]``,
+  and per input the hot/cold split (``_hot_membership``)."""
+  invs: Tuple[torch.Tensor, ...]
+  mem: List[Dict[str, Any]]
 
 
 @dataclasses.dataclass

@@ -36,6 +36,18 @@ Two storage options halve bytes, as in the JAX package:
   rounds once at the store (the kernel's bf16-accumulator arm), on an
   f32 or a bf16 table.
 
+Hot-cache layers (``hot_cache``, docs/design.md §10) split the state:
+rows of the hot sets live in replicated ``hot_group_{gi}`` buffers with
+their own optimizer state, updated by one DENSE elementwise step per hot
+group (``apply_hot``, torch ops with the JAX package's arithmetic) from
+the all-reduced hot gradient sums; the cold streams arrive already
+deduplicated per (source rank, slot) and take the same segment-walk
+applies.  One exception, as in the JAX package (which takes its XLA
+apply there): per-occurrence Adagrad (``dedup=False``) carries its
+squares pre-summed, which the segment walk cannot consume, so its cold
+rows are summed by the segment walk's ``'add'`` and updated by torch ops
+(``_apply_presummed_sq``).
+
 Each rank runs its own process.  ``head_loss_fn`` returns the mean loss
 over this rank's LOCAL batch; the step turns that into the JAX package's
 global-mean loss: embedding cotangents are divided by the world size,
@@ -93,6 +105,7 @@ class SparseSGD:
   use_sparsecore_apply: bool = False
 
   needs_sq = False
+  needs_touch = False
 
   def __post_init__(self):
     _check_options(self)
@@ -102,7 +115,18 @@ class SparseSGD:
     return 'sgd'
 
   def init(self, dist: DistributedEmbedding, params) -> Dict:
-    return {f'group_{gi}': {} for gi in range(len(dist.plan.groups))}
+    out = {f'group_{gi}': {} for gi in range(len(dist.plan.groups))}
+    for gi in dist.plan.hot_groups:
+      out[f'hot_group_{gi}'] = {}
+    return out
+
+  def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
+    """DENSE step on a replicated hot buffer, in place: ``sum_g`` is the
+    all-reduced per-row gradient sum (untouched rows carry exact zeros),
+    ``hot += (-lr * sum_g)`` at the buffer's dtype."""
+    del sum_sq, count
+    hot.copy_(hot + (-_f32(lr, hot.device) * sum_g).to(hot.dtype))
+    return hot, state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +157,8 @@ class SparseAdagrad:
   accum_dtype: str = _F32
   use_sparsecore_apply: bool = False
 
+  needs_touch = False
+
   def __post_init__(self):
     _check_options(self)
 
@@ -145,13 +171,31 @@ class SparseAdagrad:
     return 'adagrad_dedup' if self.dedup else 'adagrad_sq'
 
   def init(self, dist: DistributedEmbedding, params) -> Dict:
+    # hot rows' accumulators live in the replicated split state while the
+    # rows are hot; the checkpoint boundary overlays them canonically
+    keys = [f'group_{gi}' for gi in range(len(dist.plan.groups))] + [
+        f'hot_group_{gi}' for gi in dist.plan.hot_groups]
     return {
-        f'group_{gi}': {
-            'acc': torch.full_like(params[f'group_{gi}'],
-                                   self.initial_accumulator_value,
-                                   dtype=_DTYPES[self.accum_dtype])
-        } for gi in range(len(dist.plan.groups))
+        k: {'acc': torch.full_like(params[k], self.initial_accumulator_value,
+                                   dtype=_DTYPES[self.accum_dtype])}
+        for k in keys
     }
+
+  def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
+    """DENSE Adagrad step on a replicated hot buffer, in place (the JAX
+    package's ``apply_hot``): ``a += S * S`` (or the all-reduced squares
+    with ``dedup=False``); ``hot += (-lr * S * rsqrt(a + eps))`` at the
+    buffer's dtype; the accumulator stored at its dtype with one
+    rounding.  Untouched rows add exact zeros and keep their bits."""
+    del count
+    dev = hot.device
+    add = segwalk._rounded_square(sum_g) if self.dedup else sum_sq
+    acc_rows = state['acc'].to(torch.float32) + add
+    update = (-_f32(lr, dev) * sum_g
+              * torch.rsqrt(acc_rows + _f32(self.epsilon, dev)))
+    hot.copy_(hot + update.to(hot.dtype))
+    state['acc'].copy_(acc_rows.to(state['acc'].dtype))
+    return hot, state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,14 +238,58 @@ class SparseAdam:
           'Train tiered tables with SparseSGD or SparseAdagrad, or '
           'disable the cold tier.')
     out = {}
-    for gi in range(len(dist.plan.groups)):
-      p = params[f'group_{gi}']
-      out[f'group_{gi}'] = {
+    # hot rows' moments and step counts live in the replicated split
+    # state while the rows are hot
+    keys = [f'group_{gi}' for gi in range(len(dist.plan.groups))] + [
+        f'hot_group_{gi}' for gi in dist.plan.hot_groups]
+    for k in keys:
+      p = params[k]
+      out[k] = {
           'm': torch.zeros_like(p, dtype=torch.float32),
           'v': torch.zeros_like(p, dtype=torch.float32),
           't': torch.zeros(p.shape[:1], dtype=torch.int32, device=p.device),
       }
     return out
+
+  def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
+    """DENSE lazy-Adam step on a replicated hot buffer, in place (the JAX
+    package's ``apply_hot``).  ``count`` is the all-reduced per-row
+    occurrence count (``backward_to_mp(with_touch=True)``): rows with
+    ``count > 0`` advance ``t`` and take the segment walk's arithmetic
+    on their all-reduced sum; the others keep their bits (a touched row
+    with a zero sum still decays its moments and advances ``t``)."""
+    del sum_sq
+    if count is None:
+      raise ValueError(
+          'SparseAdam.apply_hot needs the occurrence-count channel: '
+          'call backward_to_mp(with_touch=True) (make_hybrid_train_step '
+          'does this for needs_touch optimizers)')
+    dev = hot.device
+    touched = count[:, 0] > 0
+    t = state['t'] + touched.to(state['t'].dtype)
+    m_rows = _f32(self.b1, dev) * state['m'] + _f32(1 - self.b1, dev) * sum_g
+    v_rows = (_f32(self.b2, dev) * state['v']
+              + _f32(1 - self.b2, dev) * sum_g * sum_g)
+    # untouched rows keep t == 0: clamp the bias-correction exponent so
+    # their (masked-away) update never divides by zero
+    k = torch.clamp(t, min=1).to(torch.float32)[:, None]
+    mhat = m_rows / (1 - torch.pow(torch.full_like(k, self.b1), k))
+    vhat = v_rows / (1 - torch.pow(torch.full_like(k, self.b2), k))
+    update = (-_f32(lr, dev) * mhat) / (torch.sqrt(vhat)
+                                        + _f32(self.epsilon, dev))
+    mask = touched[:, None]
+    hot.copy_(hot + torch.where(mask, update, 0.0).to(hot.dtype))
+    state['m'].copy_(torch.where(mask, m_rows, state['m']))
+    state['v'].copy_(torch.where(mask, v_rows, state['v']))
+    state['t'].copy_(t)
+    return hot, state
+
+
+def _f32(x, device) -> torch.Tensor:
+  """A Python scalar as a 0-d f32 tensor (JAX's weakly typed scalar: the
+  arithmetic runs in f32), filled on the device: no host copy, so no
+  host sync."""
+  return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
@@ -226,15 +314,43 @@ def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
   return table, state
 
 
+def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr):
+  """Per-occurrence Adagrad on a cached stream, in place: ``flat_g2``
+  rows carry ``[sum g, sum g * g]`` already summed per (source rank,
+  slot), so the squares add as they are (never re-squared).  Each
+  distinct row's two sums come from the segment walk's ``'add'``
+  (``routing.segment_sum``); the update is the JAX package's XLA apply
+  of a pre-summed square: ``a += sum_sq``; ``t += (-lr * sum_g *
+  rsqrt(a + eps))`` at the table's dtype."""
+  rows, w = table.shape
+  dev = table.device
+  valid = (flat_ids >= 0) & (flat_ids < rows)
+  uids, seg = torch.unique(flat_ids[valid], return_inverse=True)
+  sums = routing.segment_sum(seg, flat_g2[valid], uids.shape[0])
+  r = uids.long()
+  acc = state['acc']
+  acc_rows = acc[r].to(torch.float32) + sums[:, w:]
+  delta = (-_f32(lr, dev) * sums[:, :w]
+           * torch.rsqrt(acc_rows + _f32(optimizer.epsilon, dev)))
+  table[r] = table[r] + delta.to(table.dtype)
+  acc[r] = acc_rows.to(acc.dtype)
+
+
 def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                         local_batch: int, hotness: tuple):
   """Build (once per signature) ``apply(params, opt_state, lr, residuals,
-  gsubs)``: per fusion group, concatenate its subgroups' routed ids and
-  compact cotangent rows into ONE update stream and apply it."""
+  gsubs, hot_grads)``: per fusion group, concatenate its subgroups'
+  routed ids and compact cotangent rows into ONE update stream and apply
+  it; on a hot-cache layer the streams are the deduplicated cold ones
+  (one gradient row a position), and each hot group takes one dense
+  ``apply_hot`` step from its all-reduced gradient buffer."""
   key = ('sparse_apply', optimizer, local_batch, hotness)
   if key in dist._fn_cache:
     return dist._fn_cache[key]
   subs = dist._subgroups(hotness)
+  cached = dist.hot_enabled
+  needs_sq = cached and optimizer.needs_sq
+  needs_touch = cached and optimizer.needs_touch
   gb = local_batch * dist.world_size
   slots_of = {gi: [si for si, sub in enumerate(subs) if sub.gi == gi]
               for gi in range(len(dist.plan.groups))}
@@ -244,6 +360,9 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
   # broadcasting the rows)
   g_index = {}
   for gi, slots in slots_of.items():
+    if cached:  # the cold streams: one gradient row a position
+      g_index[gi] = None
+      continue
     rows = [torch.arange(subs[si].n_cap * gb, dtype=torch.int32,
                          device=dist.device).repeat_interleave(
                              subs[si].hotness) for si in slots]
@@ -251,9 +370,22 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
     g_index[gi] = (torch.cat([r + int(o) for r, o in zip(rows, offs)])
                    if slots else None)
 
-  def apply(params, opt_state, lr, residuals, gsubs):
+  def apply(params, opt_state, lr, residuals, gsubs, hot_grads=None):
     for gi, group in enumerate(dist.plan.groups):
       if not slots_of[gi]:
+        continue
+      key_g = f'group_{gi}'
+      if cached:
+        flat_ids = torch.cat([residuals[si].reshape(-1)
+                              for si in slots_of[gi]])
+        flat_g = torch.cat([gsubs[si].to(torch.float32).reshape(
+            -1, gsubs[si].shape[-1]) for si in slots_of[gi]])
+        if needs_sq:
+          _apply_presummed_sq(optimizer, params[key_g], opt_state[key_g],
+                              flat_ids, flat_g, lr)
+        else:
+          _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
+                         flat_ids, flat_g, lr)
         continue
       ids_list, grad_list = [], []
       for si in slots_of[gi]:
@@ -266,10 +398,19 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
           gg = gg / torch.clamp(cnt, min=1.0)[..., None]
         ids_list.append(ids.reshape(-1))
         grad_list.append(gg.reshape(-1, group.width))
-      key_g = f'group_{gi}'
       _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
                      torch.cat(ids_list), torch.cat(grad_list), lr,
                      g_index=g_index[gi])
+    for gi in dist.plan.hot_groups:
+      # one dense elementwise step per hot group: the grads arrived
+      # all-reduced, so every replica applies identically
+      hk = f'hot_group_{gi}'
+      hg = hot_grads[gi].to(torch.float32)
+      w = dist.plan.groups[gi].width
+      cnt = 2 * w if needs_sq else w
+      optimizer.apply_hot(params[hk], opt_state[hk], hg[:, :w],
+                          hg[:, w:2 * w] if needs_sq else None, lr,
+                          count=hg[:, cnt:cnt + 1] if needs_touch else None)
     return params, opt_state
 
   dist._fn_cache[key] = apply
@@ -278,12 +419,20 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
 
 def sparse_apply_updates(dist: DistributedEmbedding, optimizer, params,
                          opt_state, residuals, gsubs, lr,
-                         global_batch: int, hotness: tuple):
+                         global_batch: int, hotness: tuple, hot_grads=None):
   """Apply one sparse optimizer step to this rank's embedding params, in
-  place; returns ``(params, opt_state)``, the same dicts."""
+  place; returns ``(params, opt_state)``, the same dicts.
+
+  ``hot_grads``: for hot-cache layers, the ``{group_index: [K, w]}``
+  replicated hot-row gradient buffers ``backward_to_mp`` returns."""
+  if dist.plan.hot_groups and not hot_grads:
+    raise ValueError(
+        'sparse_apply_updates on a hot-cache layer requires hot_grads= '
+        '(the {group_index: [K, w]} replicated hot-row gradient buffers '
+        'that backward_to_mp returns alongside gsubs)')
   fn = _build_sparse_apply(dist, optimizer, global_batch // dist.world_size,
                            tuple(hotness))
-  return fn(params, opt_state, float(lr), residuals, gsubs)
+  return fn(params, opt_state, float(lr), residuals, gsubs, hot_grads)
 
 
 def _mean_row_sliced_inputs(dist: DistributedEmbedding, hotness: tuple):
@@ -353,8 +502,9 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     dense_opt_state, emb_opt_state = state.opt_state
     world = dist.world_size
 
-    outs, residuals, (global_batch, hotness) = dist.forward_with_residuals(
-        emb_params, cats)
+    # hot-cache layers: the backward reuses the forward's routing products
+    outs, residuals, hot_routing, (global_batch, hotness) = (
+        dist.forward_with_residuals(emb_params, cats, with_routing=True))
     # the embedding outputs are the autograd leaves of the head: the
     # tables stay outside the graph
     outs = [o.detach().requires_grad_(True) for o in outs]
@@ -375,6 +525,21 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
 
     # the local-mean loss's cotangents, scaled to the global mean's
     d_emb = [o.grad if world == 1 else o.grad / world for o in outs]
+    lr = (lr_schedule(state.step) if lr_schedule is not None
+          else emb_optimizer.learning_rate)
+    if dist.hot_enabled:
+      # the backward divides mean cotangents itself and returns the
+      # replicated hot-row grads beside the deduplicated cold streams
+      gsubs, hot_grads = dist.backward_to_mp(
+          d_emb, global_batch, hotness, cats=cats,
+          with_sq=emb_optimizer.needs_sq,
+          with_touch=emb_optimizer.needs_touch, routing=hot_routing)
+      emb_params, emb_opt_state = sparse_apply_updates(
+          dist, emb_optimizer, emb_params, emb_opt_state, residuals, gsubs,
+          lr, global_batch, hotness, hot_grads=hot_grads)
+      params = {**dense, 'embedding': emb_params}
+      return TrainState(params, (dense_opt_state, emb_opt_state),
+                        state.step + 1), loss
     # row-sliced MEAN inputs: the forward divided the owner-side partial
     # sums by the true per-sample id count; the manual transpose divides
     # the cotangent the same way (here, where the raw ids are at hand)
@@ -388,8 +553,6 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       d_emb[i] = d_emb[i] / routing.valid_count(ids)[:, None].to(
           d_emb[i].dtype)
     gsubs = dist.backward_to_mp(d_emb, global_batch, hotness)
-    lr = (lr_schedule(state.step) if lr_schedule is not None
-          else emb_optimizer.learning_rate)
     emb_params, emb_opt_state = sparse_apply_updates(
         dist, emb_optimizer, emb_params, emb_opt_state, residuals, gsubs,
         lr, global_batch, hotness)

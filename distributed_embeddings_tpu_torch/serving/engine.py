@@ -11,9 +11,12 @@ built and loaded and the per-rung buffers exist before the first
 request.  PyTorch runs eagerly, so a rung is a launch shape, not a
 compiled program.
 
-Ported in this slice: plain f32/bf16 tables.  ``from_bundle``,
-``hot_only_filter``, the batcher and the pool are ROADMAP.md Queue 1,
-item 13; hot sets, quantized and tiered tables raise at construction.
+Ported: plain f32/bf16 tables, and ``hot_sets`` (a read-only hot-row
+cache: hot rows replicate on every rank and are served with no exchange,
+``hotcache.serving_hot_sets`` / ``analytic_power_law_hot_sets``).
+``from_bundle``, ``hot_only_filter``, the batcher and the pool are
+ROADMAP.md Queue 1, item 13; quantized and tiered tables raise at
+construction.
 """
 
 from __future__ import annotations
@@ -65,10 +68,13 @@ class ServingEngine:
       fewer ids pad with ``-1``, more refuse.
     table_dtype: 'auto' or None (plain tables); a quantized dtype is not
       ported.
+    hot_sets: serving-sized read-only hot sets
+      (``hotcache.serving_hot_sets``): hot rows replicate on every rank
+      and are served with no exchange.
     compute_dtype / lookup_impl / strategy / column_slice_threshold /
       row_slice: as in ``DistributedEmbedding``.
-    hot_sets / cold_tier / device_hbm_budget / cold_fetch_rows /
-      wire_dtype: forwarded; those not ported raise.
+    cold_tier / device_hbm_budget / cold_fetch_rows / wire_dtype:
+      forwarded; those not ported raise.
   """
 
   def __init__(self, table_configs, weights, *, batch_size: int,

@@ -20,6 +20,7 @@ from distributed_embeddings_tpu_torch.models import synthetic
 from distributed_embeddings_tpu_torch.ops.ragged import (
     RaggedBatch as PortRaggedBatch)
 from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel import hotcache
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
@@ -163,7 +164,6 @@ def test_input_checks_match_jax():
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(hot_cache={0: np.arange(3)}), 7),
     (dict(overlap_chunks=2), 8),
     (dict(table_dtype='int8'), 9),
     (dict(wire_dtype='bfloat16'), 9),
@@ -176,6 +176,25 @@ def test_unported_options_refuse(kw, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
     DistributedEmbedding([TableConfig(10, 8, combiner='sum')],
                          device='cpu', **kw)
+
+
+def test_hot_cache_option_builds_and_runs():
+  # item 7 is ported: hot_cache builds (the card by default), serves its
+  # hot rows from a replicated buffer and equals the uncached layer
+  tables = [TableConfig(10, 8, combiner='sum')]
+  hot = {0: hotcache.HotSet(0, np.arange(3))}
+  with pytest.raises(RuntimeError, match='no CUDA'):
+    DistributedEmbedding(tables, hot_cache=hot)
+  on = DistributedEmbedding(tables, device='cpu', hot_cache=hot)
+  off = DistributedEmbedding(tables, device='cpu')
+  assert on.hot_enabled and not off.hot_enabled
+  params = on.init(0)
+  assert tuple(params['hot_group_0'].shape) == (8, 8)
+  ids = [np.array([[0, 5, -1], [2, 2, 11]], np.int32)]
+  for a, b in zip(on.apply(params, ids), off.apply(off.init(0), ids)):
+    assert torch.equal(a, b)
+  with pytest.raises(TypeError, match='HotSet'):
+    DistributedEmbedding(tables, device='cpu', hot_cache={0: np.arange(3)})
 
 
 def test_model_parallel_input_equals_dp_at_world_one():

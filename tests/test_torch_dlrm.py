@@ -37,6 +37,7 @@ from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel import hotcache
 from distributed_embeddings_tpu_torch.parallel import sparse
 from distributed_embeddings_tpu_torch.utils import data, metrics, schedules
 
@@ -280,13 +281,47 @@ def test_entry_point_trains_and_evaluates(capsys):
 @pytest.mark.parametrize('flags,item', [
     (['--dataset_path', 'criteo'], '12'),
     (['--cold_tier_budget_mb', '64'], '12'),
-    (['--hot_cache'], '7'), (['--overlap_chunks', '2'], '8'),
+    (['--overlap_chunks', '2'], '8'),
     (['--no-fused_exchange'], '8'), (['--table_dtype', 'int8'], '9'),
     (['--wire_dtype', 'bfloat16'], '9'), (['--csr_feed'], '12'),
-    (['--hot_budget_mb', '8'], '7'), (['--loader_bench'], '12'),
+    (['--loader_bench'], '12'),
     (['--trace', 't.json'], '14')])
 def test_entry_point_refuses_unported_flags(flags, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
+    dlrm_main.main(SMALL_FLAGS + flags)
+
+
+def test_entry_point_trains_with_the_hot_cache(capsys, tmp_path):
+  # --hot_cache and --hot_budget_mb are ported (item 7): calibrate, train,
+  # save; the file loads into the same run without the cache, tables equal
+  path = str(tmp_path / 'hot.npz')
+  out = dlrm_main.main(SMALL_FLAGS + [
+      '--dp_input', '--hot_cache', '--hot_budget_mb', '8', '--hot_coverage',
+      '0.9', '--hot_calib_batches', '1', '--max_steps', '3', '--save_state',
+      path])
+  assert 'hot_cache: calibrated 4 hot rows over 4 table(s) from 1 ' \
+      'batch(es) (coverage target 0.9)' in capsys.readouterr().out
+  assert out['step'] == 3 and np.isfinite(out['loss'])
+  args = dlrm_main.build_parser().parse_args(SMALL_FLAGS + ['--dp_input'])
+  model = dlrm.DLRM(table_sizes=[30, 20, 50, 10], dp_input=True,
+                    device='cpu', **SMALL).init(0)
+  step, state = dlrm_main.make_trainer(model, args.trainer,
+                                       args.learning_rate)
+  state, _ = checkpoint.restore_train_state(model.dist_embedding, state,
+                                            path)
+  weights, _, _ = checkpoint.load_train_npz(path)
+  for a, b in zip(checkpoint.export_tables(model.dist_embedding,
+                                           state.params['embedding']),
+                  weights):
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('flags,why', [
+    (['--hot_cache'], 'requires --dp_input'),
+    (['--dp_input', '--hot_cache', '--trainer', 'dense'],
+     'pairs with --trainer sparse')])
+def test_entry_point_hot_cache_refusals(flags, why):
+  with pytest.raises(SystemExit, match=why):
     dlrm_main.main(SMALL_FLAGS + flags)
 
 
@@ -311,5 +346,19 @@ def test_bottom_mlp_must_end_at_embedding_dim():
   with pytest.raises(ValueError, match='embedding_dim'):
     dlrm.DLRM([10], embedding_dim=8, bottom_mlp_dims=[16, 4],
               top_mlp_dims=[1], num_numerical_features=2, device='cpu')
-  with pytest.raises(NotImplementedError, match='item 7\\)'):
-    dlrm.DLRM([10], hot_cache={0: np.arange(2)}, device='cpu', **SMALL)
+
+
+def test_dlrm_passes_the_hot_cache_through():
+  # item 7 is ported: DLRM(hot_cache=...) builds its layer with the cache,
+  # and its logits equal the uncached model's
+  hot = {0: hotcache.HotSet(0, np.arange(2)), 2: hotcache.HotSet(
+      2, np.array([4, 9]))}
+  on = dlrm.DLRM([10, 20, 30], hot_cache=hot, device='cpu', **SMALL).init(0)
+  off = dlrm.DLRM([10, 20, 30], device='cpu', **SMALL).init(0)
+  assert on.dist_embedding.hot_enabled
+  rng = np.random.default_rng(0)
+  numerical = rng.normal(size=(6, 4)).astype(np.float32)
+  cats = [rng.integers(0, n, size=(6,)).astype(np.int32) for n in (10, 20,
+                                                                   30)]
+  with torch.no_grad():
+    assert torch.equal(on(numerical, cats), off(numerical, cats))

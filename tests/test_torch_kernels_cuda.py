@@ -25,6 +25,12 @@ rtol = atol = 1e-6 (``powf`` against ``torch.pow``).
 The checkpoint files and the auditor on the card: the audit digest of a
 tensor on the card equals its digest on the CPU, and a bf16 table saved
 from the card (chunked device-to-host copies) loads back bit-exact.
+The hot-row cache's kernel shapes: the hot partial (a replicated buffer,
+stacked inputs, ``-1`` where an id is not hot) as the lookup's; the
+segment sums (``routing.segment_sum``, the ``'add'`` into a zero-fill) at
+the odd widths ``w + 1`` and ``2w + 1`` of its touch and squares
+columns, bit-exact; a hot layer on the card equals the uncached layer
+and, after a hybrid step, its own run on the CPU.
 """
 
 import numpy as np
@@ -35,6 +41,9 @@ from distributed_embeddings_tpu_torch.ops import lookup
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import audit
 from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel import hotcache
+from distributed_embeddings_tpu_torch.parallel import routing
+from distributed_embeddings_tpu_torch.parallel import sparse
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
@@ -708,3 +717,99 @@ def test_embedding_lookup_on_the_card_runs_the_csr_arm(cuda_device):
   assert lookup.ARM_LAUNCHES['csr'] == before + 1
   want = embedding_lookup(table.cpu(), r, 'mean')
   torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [8, 16])
+@pytest.mark.parametrize('h', [1, 10])
+def test_hot_partial_lookup_matches_plain_version(cuda_device, h, w, dtype):
+  # the hot partial's shape: a [K, w] replicated buffer, three inputs of
+  # one (group, hotness) class stacked, offset + rank where the id is hot
+  rng = np.random.default_rng(h * w)
+  k, b = 4000, 512
+  buf = torch.as_tensor(rng.normal(size=(k, w)).astype(np.float32)).to(
+      _DT[dtype]).to(cuda_device)
+  rank = rng.integers(0, 1000, size=(3, b, h)).astype(np.int32)
+  rank[rng.random(size=rank.shape) < 0.3] = -1        # not hot
+  offs = np.array([0, 1000, 2500], np.int32)[:, None, None]
+  idx = torch.as_tensor(np.where(rank >= 0, rank + offs, -1).reshape(-1, h))
+  idx = idx.to(cuda_device)
+  before = lookup.LAUNCHES
+  got = lookup.dense_lookup(buf, idx, 'sum', torch.float32)
+  torch.cuda.synchronize()
+  assert lookup.LAUNCHES == before + 1
+  want = lookup.dense_lookup_reference(buf, idx, 'sum', torch.float32)
+  if h == 1:
+    assert torch.equal(got, want)
+  else:
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w', [8, 16])
+@pytest.mark.parametrize('extra', ['touch', 'squares'])
+def test_segment_sum_at_odd_widths_matches_plain_version(cuda_device, w,
+                                                         extra):
+  # the hot gradient buffer with the touch count (w + 1) or the squares
+  # and the touch count (2w + 1): the segment walk's narrow vector arm
+  rng = np.random.default_rng(w)
+  width = w + 1 if extra == 'touch' else 2 * w + 1
+  n, m, num = 50_000, 4_000, 3_000
+  seg = rng.integers(0, num + 200, size=n).astype(np.int32)  # some drop
+  seg[:5000] = 17                                # a long segment
+  rows = rng.normal(size=(m, width)).astype(np.float32)
+  index = rng.integers(0, m, size=n).astype(np.int32)
+  args = [torch.as_tensor(x) for x in (seg, rows, index)]
+  want = routing.segment_sum(args[0], args[1], num, args[2])
+  before = segwalk.LAUNCHES
+  got = routing.segment_sum(*[a.to(cuda_device) for a in args[:2]], num,
+                            args[2].to(cuda_device))
+  torch.cuda.synchronize()
+  assert segwalk.LAUNCHES == before + 1
+  assert got.shape == (num, width) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_hot_layer_on_the_card_matches_the_cpu(cuda_device):
+  tables = [TableConfig(300, 8, 'sum'), TableConfig(200, 16, 'mean'),
+            TableConfig(50, 4, None)]
+  hot = {0: hotcache.HotSet(0, np.arange(20)),
+         2: hotcache.HotSet(2, np.array([3, 7, 49]))}
+  rng = np.random.default_rng(0)
+  weights = [rng.normal(size=(t.input_dim, t.output_dim)).astype(np.float32)
+             for t in tables]
+  cats = [rng.integers(0, 300, size=(64, 5)).astype(np.int32),
+          rng.integers(-1, 200, size=(64, 3)).astype(np.int32),
+          rng.integers(0, 50, size=(64,)).astype(np.int32)]
+  got = {}
+  for dev in ('cuda', 'cpu'):
+    on = DistributedEmbedding(tables, device=dev, hot_cache=hot)
+    off = DistributedEmbedding(tables, device=dev)
+    params = checkpoint.set_weights(on, weights)
+    outs = on.apply(params, cats)
+    want = off.apply(checkpoint.set_weights(off, weights), cats)
+    assert torch.equal(outs[2], want[2])
+    for a, b in zip(outs, want):
+      torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    opt = sparse.SparseAdagrad(learning_rate=0.1)
+    state = sparse.init_hybrid_train_state(on, {'embedding': params}, _NoOpt(),
+                                           opt)
+    step = sparse.make_hybrid_train_step(
+        on, lambda dense, embs, _: sum((e.float()**2).mean() for e in embs),
+        _NoOpt(), opt)
+    state, loss = step(state, cats, None)
+    got[dev] = [t.cpu() for t in checkpoint.get_weights(
+        on, state.params['embedding'])]
+  for a, b in zip(got['cuda'], got['cpu']):
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+class _NoOpt:
+  """A dense optimizer for a head without params."""
+
+  def init(self, params):
+    return {}
+
+  def update(self, grads, state, params):
+    return {}, state

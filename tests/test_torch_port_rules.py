@@ -22,7 +22,7 @@ from distributed_embeddings_tpu_torch.examples.benchmarks import (
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.layers import dist_embed
 from distributed_embeddings_tpu_torch.models import dlrm, synthetic
-from distributed_embeddings_tpu_torch.parallel import mesh
+from distributed_embeddings_tpu_torch.parallel import hotcache, mesh
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
@@ -67,7 +67,8 @@ def test_scan_sees_the_whole_port():
                  'tools/verify_checkpoint.py', 'ops/ragged.py',
                  'ops/embedding_lookup.py', 'layers/embedding.py',
                  'layers/dist_embed.py',
-                 'examples/benchmarks/lookup_benchmark.py'):
+                 'examples/benchmarks/lookup_benchmark.py',
+                 'parallel/hotcache.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -95,7 +96,8 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_card():
 @pytest.mark.parametrize('entry', ['dist_embedding', 'synthetic', 'serving',
                                    'mlp', 'dlrm', 'dlrm_main', 'embedding',
                                    'concat_one_hot', 'dist_embed',
-                                   'lookup_benchmark'])
+                                   'lookup_benchmark', 'hot_cache',
+                                   'dlrm_main_hot_cache'])
 def test_entry_points_raise_without_device_argument(entry):
   _no_card()
   t = [TableConfig(10, 8, combiner='sum')]
@@ -115,6 +117,11 @@ def test_entry_points_raise_without_device_argument(entry):
       'dist_embed': lambda: dist_embed.DistEmbed.build(t),
       'lookup_benchmark': lambda: lookup_benchmark.main(
           ['--rows', '10', '--batch', '4']),
+      'hot_cache': lambda: DistributedEmbedding(
+          t, hot_cache={0: hotcache.HotSet(0, np.arange(3))}),
+      'dlrm_main_hot_cache': lambda: dlrm_main.main(
+          ['--table_sizes', '10,20', '--num_batches', '1', '--dp_input',
+           '--hot_cache']),
   }[entry]
   with pytest.raises(RuntimeError, match="pass device='cpu'"):
     build()

@@ -139,8 +139,8 @@ def test_unported_serving_refuses():
     engine.ServingEngine.from_bundle('bundle', batch_size=8)
   with pytest.raises(NotImplementedError, match='item 13\\)'):
     e.hot_only_filter([np.zeros(2, np.int32)])
-  for kw, item in ((dict(hot_sets={0: np.arange(2)}), 7),
-                   (dict(table_dtype='int8'), 9),
+  # hot_sets are served since item 7 (tests/test_torch_hotcache_ckpt.py)
+  for kw, item in ((dict(table_dtype='int8'), 9),
                    (dict(cold_tier=True), 12),
                    (dict(wire_dtype='bfloat16'), 9)):
     with pytest.raises(NotImplementedError, match=f'item {item}\\)'):

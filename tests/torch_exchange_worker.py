@@ -2,9 +2,10 @@
 tests/test_torch_exchange.py), hybrid train step (``train``, for
 tests/test_torch_train_ranks.py), model-parallel-input forward and
 step (``mp``, for tests/test_torch_mp_input.py), dense autodiff step
-(``dense``, for tests/test_torch_dense_ranks.py) or ragged inputs
+(``dense``, for tests/test_torch_dense_ranks.py), ragged inputs
 through all three (``ragged``, for tests/test_torch_ragged_dist.py;
-``ragged_run`` is the world of one's and each rank's body there): joins a gloo world on
+``ragged_run`` is the world of one's and each rank's body there) or a
+hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -341,6 +342,84 @@ def ragged(rank, world_size, init_method, case_path, out_dir):
     out = ragged_run(dist, case, rank, world_size, m.group)
     with open(f'{out_dir}/ragged{rank}.pkl', 'wb') as f:
       pickle.dump(out, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def hot(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a hot-cache layer, for tests/test_torch_hotcache_ranks.py:
+  the cached forward on its slice of the batch, hybrid ``SparseAdagrad``
+  + ``optim.sgd`` steps with a linear head, then the auditor's replica
+  check before and after rank 1's copy of a hot buffer is made to
+  diverge.  Saves the outputs, the gathered tables and accumulators, the
+  losses, the exchange legs and the audit findings."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot_sets = {t: HotSet(t, np.asarray(ids))
+                for t, ids in case['hot'].items()}
+    dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                hot_cache=hot_sets, **case['options'])
+    b = case['batch'] // world_size
+    mine = lambda cats: [c[rank * b:(rank + 1) * b] for c in cats]
+    params = checkpoint.set_weights(dist, case['weights'])
+    outs = dist.apply(params, mine(case['cats']))
+    legs = {'fwd': [l.as_dict() for l in dist.lookup_plan().legs]}
+    lr = case['lr']
+    dense_opt = optim.sgd(lr)
+    emb_opt = sparse.SparseAdagrad(lr)
+    state = sparse.init_hybrid_train_state(
+        dist, {'embedding': params,
+               'kernel': torch.tensor(case['kernel'])}, dense_opt, emb_opt)
+
+    def head_loss(dense_params, emb_outs, labels):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - labels)**2)
+
+    step = sparse.make_hybrid_train_step(dist, head_loss, dense_opt, emb_opt)
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    losses = []
+    for cats in case['batches']:
+      state, loss = step(state, mine(cats), labels)
+      losses.append(float(loss))
+    legs['bwd'] = [l.as_dict() for p in dist._lookup_plans.values()
+                   if p.path == 'bwd_hot' for l in p.legs]
+    weights = checkpoint.get_weights(dist, state.params['embedding'])
+    accs = checkpoint.get_optimizer_state(dist, state.opt_state[1])
+    auditor = StateAuditor(dist, every=1, bytes_per_audit=None)
+    findings = {'clean': auditor.check_state(state)}
+    gi = dist.plan.hot_groups[0]
+    if rank == 1:
+      with torch.no_grad():
+        state.params['embedding'][f'hot_group_{gi}'][3, 0] += 1.0
+    findings['diverged'] = auditor.check_state(state)
+    np.savez(f'{out_dir}/hot{rank}.npz', losses=np.array(losses),
+             **{f'o{i}': o.numpy() for i, o in enumerate(outs)},
+             **{f'w{i}': w.numpy() for i, w in enumerate(weights)},
+             **{f'a{i}': a['acc'].numpy() for i, a in enumerate(accs)})
+    with open(f'{out_dir}/hot{rank}.json', 'w') as f:
+      json.dump({'legs': legs, 'hot_group': gi, 'findings': {
+          k: [[x.check, x.leaf, list(x.devices), list(x.rows)] for x in v]
+          for k, v in findings.items()}}, f)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
