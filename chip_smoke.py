@@ -105,7 +105,26 @@ Phases, each of which exits non-zero on failure:
             keeps its weights bit for bit and m = v = t = 0; the last
             step's hot segment sums with their count column (width w + 1)
             against their plain version, timed.
-10. dlrm:   the tiny model freed, the DLRM of examples/dlrm/main.py at
+9f. chunked-tiny: on the same tables, drawn anew from the seed, a
+            second model with overlap_chunks=4 (bench.py's default; its
+            subgroups of 31, 1, 24 and 2 slots take 4, 1, 4 and 2 chunk
+            rounds: 11 lookup launches a forward against 4), drawn from
+            the same seed (its tables checked equal).  Its forward, and
+            one with fused_exchange=False, on the same tables equal the
+            unchunked forward bit for bit at every hotness, launches
+            counted; every launch of the chunked and of the unchunked
+            forward against its plain version, timed beside its bound; a
+            warm-up and 5 sparse steps (phase 7's optimizers) each way
+            from the same state: tables, accumulators, MLP, dense
+            optimizer state and every loss bit-equal, launches counted,
+            step times, peaks and the host syncs of one step;
+            measure_exchange_ms and a2a_overlap_stats of both arms (a
+            world of one has no collective: the program times buffer
+            plumbing only); the same with phase 9e's hot sets (forward and
+            a warm-up and 5 steps bit-equal, hot buffers included; the
+            hot apply in 4 row chunks); 2 dense make_train_step steps
+            (phase 14's configuration) each way bit-equal, each arm's
+            peak above its resident state.   the tiny model freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
             input (dp_input=False), bf16 compute, drawn on the card;
@@ -149,7 +168,21 @@ Phases, each of which exits non-zero on failure:
             line printed; --save_state passes verify_checkpoint and
             restores into the same model without the cache with equal
             canonical tables.
-14. dense-tiny: the DLRM freed, the tiny model at full size again,
+13d. dlrm-chunked: the DLRM at the MLPerf sizes (bf16, 44.77 GiB, no
+            cut) with dp_input=True, one layer with overlap_chunks=4 and
+            one without over the same tables (two copies do not fit the
+            card), group shapes equal; the 26 slots take rounds of 7, 7,
+            6 and 6 (4 launches of [458752,1] / [393216,1] ids against
+            one of [1703936,1]).  3 forwards each way, one forward's
+            residuals and backward_to_mp's grads bit-equal, launches
+            counted; each forward's launches against their plain
+            versions, timed beside the bound; the example's trainer, a
+            warm-up and 5 timed steps each way (the second from where the
+            first left the tables: times and launches only); both arms'
+            exchange programs.  Then examples/dlrm/main.py --dp_input
+            --overlap_chunks 4 and --overlap_chunks 1 in process at phase
+            13b's onechip vocabularies, 3 steps and --save_state each:
+            the two files list the same sha256 for every array. the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
             segment walk's 'add', then optax-style Adagrad(0.01, 0.1,
@@ -216,8 +249,10 @@ training steps likewise, the dense steps of each model, the lazy-Adam
 steps and Small V3's forwards and steps, and for the last two each arm
 of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
 phases 9c and 13b, phase 9d's steps, phase 9e's forward, requests,
-steps and lazy-Adam steps, phase 13c's run and phase 20's benchmark
-(with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
+steps and lazy-Adam steps, phase 13c's run, each arm of phases 9f
+and 13d (forwards, sparse, cached and dense steps, the example runs)
+and phase 20's benchmark (with the CSR arm's launches,
+``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms, its adam op and the lookup's CSR
 arm); each row and summary with a kernel time says by which ``clock``:
@@ -260,8 +295,10 @@ from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
                                                        checkpoint, grad,
-                                                       hotcache, routing,
-                                                       sparse)
+                                                       hotcache, overlap,
+                                                       routing, sparse)
+from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+    DistributedEmbedding)
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import data, nativebuild
@@ -334,6 +371,9 @@ SERVE_HOT_COVERAGE = 0.95
 SERVE_HOT_BUDGET = 256 << 20
 HOT_ADAM_STEPS = 2  # phase 9e's lazy-Adam steps on the cached layer
 DLRM_HOT_STEPS = 5  # phase 13c's steps
+CHUNKS = 4  # phases 9f and 13d: bench.py's default overlap_chunks
+CHUNKED_DENSE_STEPS = 2  # phase 9f's dense steps each way
+CHUNKED_EXAMPLE_STEPS = 3  # phase 13d's example runs
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
@@ -1202,17 +1242,21 @@ def compact_applies(call, op, grads):
   return out
 
 
-def timed_steps(tag, step, state, batches, want, n_steps=TRAIN_STEPS):
+def timed_steps(tag, step, state, batches, want, n_steps=TRAIN_STEPS,
+                losses_out=None):
   """One warm-up step on ``batches[0]``, then ``n_steps`` timed ones on
   the next batches, the launch counts set to 0 just before them and
   read just after: every loss finite, the launches (kernels and arms) as
   ``want``, the peak device memory below the card's.  Returns ``(state,
-  launches, times, peak)``."""
+  launches, times, peak)``; every loss, the warm-up's first, is appended
+  to ``losses_out`` where one is given."""
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   state, loss = step(state, *batches[0])
   torch.cuda.synchronize()
+  if losses_out is not None:
+    losses_out.append(loss.detach().clone())
   log(f'[{tag}] warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms, '
       f'loss {float(loss):.6f}')
   lookup.LAUNCHES = 0
@@ -1225,6 +1269,8 @@ def timed_steps(tag, step, state, batches, want, n_steps=TRAIN_STEPS):
     torch.cuda.synchronize()
     times.append((time.perf_counter() - t0) * 1e3)
     losses.append(float(loss))
+    if losses_out is not None:
+      losses_out.append(loss.detach().clone())
   launches = {'lookup_combine': lookup.LAUNCHES,
               'segwalk_apply': segwalk.LAUNCHES,
               **{f'segwalk_apply:{arm}': n
@@ -2383,11 +2429,64 @@ def hot_launches(dist, hotness):
   subs = dist._subgroups(tuple(hotness))
   readers = dist._hot_meta()['readers']
   classes = {(gi, hotness[r[0]]) for gi, rs in readers.items() for r in rs}
-  fwd = len(subs) + len(classes)
+  fwd = chunk_rounds(dist, hotness) + len(classes)
   adds = len(subs) + sum(1 for rs in readers.values() if rs)
   applies = len({s.gi for s in subs})
   return ({'lookup_combine': fwd, 'segwalk_apply': 0},
           {'lookup_combine': fwd, 'segwalk_apply': adds + applies})
+
+
+def chunk_rounds(dist, hotness):
+  """The dp (or cold) lookup launches of one forward: one a subgroup
+  and chunk round (``overlap_chunks``; one a subgroup unchunked)."""
+  return sum(len(dist._chunk_bounds(s.n_cap))
+             for s in dist._subgroups(tuple(hotness)))
+
+
+def check_equal(tag, got, want):
+  """Two lists of tensors equal bit for bit (dtype and shape too)."""
+  if len(got) != len(want):
+    raise AssertionError(f'{tag}: {len(got)} tensors against {len(want)}')
+  for i, (g, w) in enumerate(zip(got, want)):
+    if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+      err = (float((g.float() - w.float()).abs().max())
+             if g.shape == w.shape else None)
+      raise AssertionError(f'{tag} {i}: the chunked arm differs from the '
+                           f'unchunked one (max abs err {err})')
+
+
+def check_hybrid_states(tag, dist_a, a, dist_b, b):
+  """Two hybrid (or dense) train states equal bit for bit: every
+  canonical table, every sparse-optimizer leaf in the global layout, the
+  dense params and the dense optimizer state."""
+  for t, (x, y) in enumerate(zip(
+      checkpoint.get_weights(dist_a, a.params['embedding']),
+      checkpoint.get_weights(dist_b, b.params['embedding']))):
+    same, err = compare_tables(x, y)
+    if not same:
+      raise AssertionError(f'{tag} table {t}: differs, max err {err}')
+  dense_a = {k: v for k, v in a.params.items() if k != 'embedding'}
+  dense_b = {k: v for k, v in b.params.items() if k != 'embedding'}
+  check_equal(f'{tag} dense params', [dense_a[k] for k in sorted(dense_a)],
+              [dense_b[k] for k in sorted(dense_a)])
+  opt_a, opt_b = a.opt_state, b.opt_state
+  if isinstance(opt_a, tuple):  # the hybrid step's (dense, sparse)
+    for t, (x, y) in enumerate(zip(
+        checkpoint.get_optimizer_state(dist_a, opt_a[1]),
+        checkpoint.get_optimizer_state(dist_b, opt_b[1]))):
+      for k in x:
+        same, err = compare_tables(x[k].float(), y[k].float())
+        if not same:
+          raise AssertionError(f'{tag} table {t} state {k}: differs, max '
+                               f'err {err}')
+    opt_a, opt_b = opt_a[0], opt_b[0]
+  as_rows = lambda x: x.reshape(x.shape[0] if x.dim() else 1, -1)
+  for i, (x, y) in enumerate(zip(optim.tree_leaves(opt_a),
+                                 optim.tree_leaves(opt_b))):
+    same, err = compare_tables(as_rows(x), as_rows(y))
+    if not same:
+      raise AssertionError(f'{tag} dense optimizer leaf {i}: differs, max '
+                           f'err {err}')
 
 
 def close_tables(a, b, rtol, atol):
@@ -2918,6 +3017,8 @@ def run_tiny(args):
   fit_launches, fit_numbers = phase_fit_tiny(model, config, args.seed)
   ragged_numbers = phase_ragged_tiny(model, config, args.seed)
   hot_numbers, hot_rows = phase_hot_tiny(model, config, args.seed)
+  chunked_numbers, chunked_rows = phase_chunked_tiny(model, config, args.seed,
+                                                     numerical, cats)
 
   k = dict(KERNELS[0])
   k.update({
@@ -2986,7 +3087,426 @@ def run_tiny(args):
             'segments', 'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by', 'max_abs_err')} for r in rows]}
   seg['hot_tiny_numbers'] = hot_numbers
+  # phase 9f: the chunked forward's launch shapes beside the unchunked
+  chunked_summary(k, seg, 'chunked_tiny', chunked_numbers, chunked_rows, {
+      'forward': 'forward_launches', 'sparse': 'sparse', 'hot': 'hot',
+      'dense': 'dense'})
   return k, seg, adam
+
+
+def chunked_summary(k, seg, key, numbers, rows, paths):
+  """Phase 9f's or 13d's entries of the summary line: each path's
+  launches chunked and unchunked (``paths`` maps a path to its entry of
+  ``numbers``), and under the lookup's ``key`` the chunked forward's
+  launch shapes, their times summed beside the unchunked launches' and
+  the bound."""
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry[f'launches_{key}'] = {
+        path: {arm: numbers[n][arm].get('launches', numbers[n][arm])[name]
+               for arm in ('unchunked', 'chunked')}
+        for path, n in paths.items()}
+    entry['max_abs_err'] = max([entry['max_abs_err']] + [
+        r['max_abs_err'] for arm in rows.values() for r in arm])
+  k[key] = {arm: kernel_sum(r) for arm, r in rows.items()}
+  k[key]['numbers'] = numbers
+
+
+def chunked_kernel_rows(tag, model, numerical, cats):
+  """Every lookup launch of one forward of ``model`` (captured from the
+  forward) against its plain version, timed beside its bound
+  (``check_kernel_shape``)."""
+  return [check_kernel_shape(
+      t, r.reshape(-1, r.shape[-1]),
+      f'{tag}_w{t.shape[1]}_h{r.shape[-1]}_n{r.shape[0]}')
+          for t, r, _ in captured_lookups(model, numerical, cats)]
+
+
+def kernel_sum(rows):
+  """Times and bounds of a forward's launches, summed."""
+  return {'launches': len(rows),
+          'shapes': [[r['M'], r['h'], r['w']] for r in rows],
+          **{k: sum(r[k] for r in rows)
+             for k in ('kernel_ms', 'plain_ms', 'library_ms', 'bound_ms')},
+          'max_abs_err': max(r['max_abs_err'] for r in rows)}
+
+
+def step_arms(tag, arms, batches, want, n_steps=TRAIN_STEPS):
+  """``timed_steps`` for each ``(name, build)`` arm on the same batches,
+  ``build()`` making its ``(step, state)`` just before it runs (so no
+  initial state outlives its arm), each arm's launches as ``want[name]``;
+  returns per arm its step, final state, launches, times, peak above
+  what was resident before it was built, and its losses (the warm-up's
+  first)."""
+  out = {}
+  for name, build in arms:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    step, state = build()
+    losses = []
+    state, launches, times, peak = timed_steps(
+        f'{tag}-{name}', step, state, batches, want[name], n_steps,
+        losses_out=losses)
+    out[name] = {'step': step, 'state': state, 'launches': launches,
+                 'step_ms': times,
+                 'peak_gib': peak / 2**30,
+                 'peak_above_resident_gib': (peak - resident) / 2**30,
+                 'losses': losses}
+  return out
+
+
+def exchange_stats(tag, arms, cats, off_ms, on_ms):
+  """``measure_exchange_ms`` of each ``(name, dist)`` arm and the
+  overlap A/B record.  On one card there is no collective: the
+  exchange program times buffer plumbing only."""
+  exch = {name: overlap.measure_exchange_ms(d, cats) for name, d in arms}
+  stats = overlap.a2a_overlap_stats(
+      off_ms, on_ms, exch['chunked'], CHUNKS,
+      overlap.group_chunk_counts(dict(arms)['chunked'].plan))
+  log(f'[{tag}] world of one: no collective. measure_exchange_ms '
+      f'{json.dumps(exch)} (the exchange program, buffer plumbing only); '
+      f'a2a_overlap_stats {json.dumps(stats)}')
+  return {'exchange_ms': exch, 'a2a': stats}
+
+
+def phase_chunked_tiny(model, config, seed, numerical, cats):
+  """Phase 9f: the chunked exchange (``overlap_chunks=CHUNKS``) on the
+  tiny model at full size against the unchunked layer (see the module
+  docstring).  Returns the numbers and the chunked and unchunked
+  forwards' kernel rows."""
+  tables, itm, _ = expand_tables(config)
+  hotness = tuple(model.hotness)
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  model.init(seed + 19)
+  chunked = SyntheticModel(config, dp_input=True, overlap_chunks=CHUNKS,
+                           device='cuda').init(seed + 19)
+  dist, cdist = model.dist_embedding, chunked.dist_embedding
+  n_caps = [s.n_cap for s in dist._subgroups(hotness)]
+  per_fwd = {'unchunked': chunk_rounds(dist, hotness),
+             'chunked': chunk_rounds(cdist, hotness)}
+  n_groups = len(dist.plan.groups)
+  numbers = {'chunks': CHUNKS, 'n_caps': n_caps,
+             'rounds': [len(cdist._chunk_bounds(n)) for n in n_caps],
+             'group_chunks': overlap.group_chunk_counts(cdist.plan),
+             'lookups_a_forward': per_fwd}
+  log(f'[chunked-tiny] overlap_chunks={CHUNKS}: subgroups of {n_caps} slots '
+      f'take {numbers["rounds"]} rounds: {per_fwd["chunked"]} lookup '
+      f'launches a forward against {per_fwd["unchunked"]}')
+  check_equal('chunked-tiny drawn tables',
+              [chunked.embedding_params[k] for k in sorted(
+                  chunked.embedding_params)],
+              [model.embedding_params[k] for k in sorted(
+                  model.embedding_params)])
+
+  # forwards: the same tables through both layers, and the per-group
+  # schedule
+  per_group = DistributedEmbedding(
+      tables, strategy='memory_balanced', dp_input=True,
+      input_table_map=itm, device='cuda', overlap_chunks=CHUNKS,
+      fused_exchange=False)
+  outs, launches, fwd_ms = {}, {}, {}
+  with torch.no_grad():
+    for name, d in (('unchunked', dist), ('chunked', cdist),
+                    ('per_group', per_group)):
+      reset_launches()
+      outs[name] = d.apply(model.embedding_params, cats)
+      launches[name] = read_launches()
+      fwd_ms[name] = []
+      for _ in range(3):
+        t0 = time.perf_counter()
+        d.apply(model.embedding_params, cats)
+        torch.cuda.synchronize()
+        fwd_ms[name].append((time.perf_counter() - t0) * 1e3)
+    check_equal('chunked-tiny forward', outs['chunked'], outs['unchunked'])
+    check_equal('chunked-tiny per-group forward', outs['per_group'],
+                outs['unchunked'])
+    check_equal('chunked-tiny forward on its own tables',
+                cdist.apply(chunked.embedding_params, cats),
+                outs['unchunked'])
+  del outs, per_group
+  for name in ('unchunked', 'chunked'):
+    want = {'lookup_combine': per_fwd[name], 'segwalk_apply': 0}
+    if launches[name] != want:
+      raise AssertionError(f'chunked-tiny {name} forward: launched '
+                           f'{launches[name]}, expected {want}')
+  numbers.update(forward_launches=launches, forward_ms=fwd_ms)
+  log(f'[chunked-tiny] forwards bit-equal at every hotness (chunked, '
+      f'per-group schedule); launches {json.dumps(launches)}; forward ms '
+      f'(host clock, synchronised) {json.dumps(fwd_ms)}')
+  rows = {'chunked': chunked_kernel_rows('chunked_tiny', chunked, numerical,
+                                         cats),
+          'unchunked': chunked_kernel_rows('unchunked_tiny', model,
+                                           numerical, cats)}
+
+  # 1 + TRAIN_STEPS sparse steps each way from the same state
+  batches = train_batches(config, hotness, seed + 19, TRAIN_STEPS + 2)
+  want = {name: {'lookup_combine': per_fwd[name] * TRAIN_STEPS,
+                 'segwalk_apply': n_groups * TRAIN_STEPS}
+          for name in per_fwd}
+  runs = step_arms('chunked-tiny', [
+      ('unchunked', lambda: build_trainer(model)),
+      ('chunked', lambda: build_trainer(chunked))], batches, want)
+  check_hybrid_states('chunked-tiny sparse', dist,
+                      runs['unchunked']['state'], cdist,
+                      runs['chunked']['state'])
+  check_equal('chunked-tiny losses', runs['chunked']['losses'],
+              runs['unchunked']['losses'])
+  syncs = {name: sum(host_syncs(lambda r=r: r['step'](
+      r['state'], *batches[TRAIN_STEPS + 1])).values())
+           for name, r in runs.items()}
+  med = {name: statistics.median(r['step_ms']) for name, r in runs.items()}
+  numbers['sparse'] = {name: {k: r[k] for k in (
+      'launches', 'step_ms', 'peak_gib', 'peak_above_resident_gib')}
+                       for name, r in runs.items()}
+  numbers['sparse']['host_syncs'] = syncs
+  numbers['sparse'].update(exchange_stats(
+      'chunked-tiny', [('unchunked', dist), ('chunked', cdist)], cats,
+      med['unchunked'], med['chunked']))
+  log(f'[chunked-tiny] {TRAIN_STEPS + 1} sparse steps each way: tables, '
+      'accumulators, MLP, dense state and every loss bit-equal; median ms '
+      f'{json.dumps(med)}; host syncs of one step {json.dumps(syncs)}')
+  del runs
+  model.embedding_params, chunked.embedding_params = {}, {}
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # the hot sets of phase 9e: the cached layer chunked and unchunked
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  hot = {name: SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                              overlap_chunks=k, device='cuda').init(seed + 19)
+         for name, k in (('unchunked', 1), ('chunked', CHUNKS))}
+  with torch.no_grad():
+    hot_outs, hot_launch = {}, {}
+    for name, m in hot.items():
+      reset_launches()
+      hot_outs[name] = m.dist_embedding.apply(m.embedding_params, cats)
+      hot_launch[name] = read_launches()
+  check_equal('chunked-tiny cached forward', hot_outs['chunked'],
+              hot_outs['unchunked'])
+  del hot_outs
+  hot_want = {}
+  for name, m in hot.items():
+    fwd, per_step = hot_launches(m.dist_embedding, hotness)
+    if hot_launch[name] != fwd:
+      raise AssertionError(f'chunked-tiny cached {name} forward: launched '
+                           f'{hot_launch[name]}, expected {fwd}')
+    hot_want[name] = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+  hruns = step_arms('chunked-tiny-hot', [
+      (name, lambda m=m: build_trainer(m)) for name, m in hot.items()],
+                    batches, hot_want)
+  check_hybrid_states('chunked-tiny cached', hot['unchunked'].dist_embedding,
+                      hruns['unchunked']['state'],
+                      hot['chunked'].dist_embedding,
+                      hruns['chunked']['state'])
+  hot_buffers = lambda r: [v for k, v in sorted(
+      r['state'].params['embedding'].items()) if k.startswith('hot_')]
+  check_equal('chunked-tiny cached hot buffers',
+              hot_buffers(hruns['chunked']), hot_buffers(hruns['unchunked']))
+  check_equal('chunked-tiny cached losses', hruns['chunked']['losses'],
+              hruns['unchunked']['losses'])
+  numbers['hot'] = {'forward_launches': hot_launch, **{
+      name: {k: r[k] for k in ('launches', 'step_ms', 'peak_gib',
+                               'peak_above_resident_gib')}
+      for name, r in hruns.items()}}
+  log(f'[chunked-tiny] the cached layer (phase 9e\'s hot sets): forward and '
+      f'{TRAIN_STEPS + 1} steps bit-equal chunked and unchunked (apply_hot '
+      f'in {CHUNKS} row chunks); launches {json.dumps(hot_launch)} a forward')
+  del hruns, hot
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # the dense step (phase 14's configuration) each way
+  def dense_trainer(m):
+    m.init(seed + 19)
+    opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+
+    def loss_fn(params, batch):
+      cats_b, (num_b, labels) = batch
+      return dlrm.bce_with_logits(m.apply(params, num_b, cats_b), labels)
+
+    return grad.make_train_step(loss_fn, opt), grad.init_train_state(
+        {'embedding': m.embedding_params, **m.dense_params()}, opt)
+
+  druns = step_arms('chunked-tiny-dense', [
+      ('unchunked', lambda: dense_trainer(model)),
+      ('chunked', lambda: dense_trainer(chunked))],
+                    [(b,) for b in batches],
+                    {name: {'lookup_combine': per_fwd[name] *
+                            (CHUNKED_DENSE_STEPS - 1),
+                            'segwalk_apply': n_groups *
+                            (CHUNKED_DENSE_STEPS - 1)}
+                     for name in per_fwd}, n_steps=CHUNKED_DENSE_STEPS - 1)
+  check_hybrid_states('chunked-tiny dense', dist,
+                      druns['unchunked']['state'], cdist,
+                      druns['chunked']['state'])
+  check_equal('chunked-tiny dense losses', druns['chunked']['losses'],
+              druns['unchunked']['losses'])
+  numbers['dense'] = {name: {k: r[k] for k in (
+      'launches', 'step_ms', 'peak_gib', 'peak_above_resident_gib')}
+                      for name, r in druns.items()}
+  log(f'[chunked-tiny] {CHUNKED_DENSE_STEPS} dense steps each way bit-equal '
+      '(tables, MLP, Adagrad state, losses); peak above the resident state '
+      f'{json.dumps({n: r["peak_above_resident_gib"] for n, r in druns.items()})} GiB')
+  del druns
+  model.embedding_params, chunked.embedding_params = {}, {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  return numbers, rows
+
+
+def phase_dlrm_chunked(seed):
+  """Phase 13d: the DLRM at the MLPerf sizes in bf16 with
+  ``dp_input=True``, one layer chunked (``overlap_chunks=CHUNKS``) and
+  one not over the same tables (two copies do not fit the card), then
+  the example with ``--dp_input --overlap_chunks`` (see the module
+  docstring).  Returns the numbers and the chunked and unchunked
+  forwards' kernel rows."""
+  kw = dict(embedding_dim=128, param_dtype=torch.bfloat16,
+            compute_dtype=torch.bfloat16, dp_input=True,
+            dist_strategy='memory_balanced', device='cuda')
+  model = dlrm.DLRM(data.MLPERF_SIZES, **kw).init(seed)
+  chunked = dlrm.DLRM(data.MLPERF_SIZES, overlap_chunks=CHUNKS, **kw)
+  chunked.embedding_params = model.embedding_params
+  chunked.bottom_mlp, chunked.top_mlp = model.bottom_mlp, model.top_mlp
+  dist, cdist = model.dist_embedding, chunked.dist_embedding
+  shapes = lambda d: [(g.width, g.rows_cap, g.combiner) for g in d.plan.groups]
+  if shapes(dist) != shapes(cdist):
+    raise AssertionError(f'dlrm-chunked: group shapes {shapes(cdist)} '
+                         f'against {shapes(dist)}')
+  hotness = (1,) * len(data.MLPERF_SIZES)
+  per_fwd = {'unchunked': chunk_rounds(dist, hotness),
+             'chunked': chunk_rounds(cdist, hotness)}
+  numbers = {'groups': shapes(dist),
+             'n_caps': [s.n_cap for s in dist._subgroups(hotness)],
+             'bounds': [cdist._chunk_bounds(s.n_cap)
+                        for s in cdist._subgroups(hotness)],
+             'lookups_a_forward': per_fwd}
+  log(f'[dlrm-chunked] {sum(data.MLPERF_SIZES):,} rows x 128 bf16 '
+      f'({model.total_table_gib():.3f} GiB, one copy), dp_input=True; '
+      f'chunks {numbers["bounds"]}: {per_fwd["chunked"]} lookups a '
+      f'forward against {per_fwd["unchunked"]}')
+  batches = [(input_order(model, c), b) for c, b in dlrm_batches(
+      model, seed + 5, TRAIN_STEPS + 2)]
+  cats, (numerical, _) = batches[0]
+  launches, fwd_ms = {}, {}
+  with torch.no_grad():
+    for name, d in (('unchunked', dist), ('chunked', cdist)):
+      reset_launches()
+      fwd_ms[name] = []
+      for _ in range(3):
+        t0 = time.perf_counter()
+        outs = d.apply(model.embedding_params, cats)
+        torch.cuda.synchronize()
+        fwd_ms[name].append((time.perf_counter() - t0) * 1e3)
+        if name == 'unchunked':
+          want_outs = outs
+        else:
+          check_equal('dlrm-chunked forward', outs, want_outs)
+      launches[name] = read_launches()
+      if launches[name] != {'lookup_combine': 3 * per_fwd[name],
+                            'segwalk_apply': 0}:
+        raise AssertionError(f'dlrm-chunked {name} forwards launched '
+                             f'{launches[name]}')
+    del outs, want_outs
+    res = {name: d.forward_with_residuals(model.embedding_params, cats)
+           for name, d in (('unchunked', dist), ('chunked', cdist))}
+    check_equal('dlrm-chunked residual', res['chunked'][1],
+                res['unchunked'][1])
+    gen = torch.Generator(device='cuda').manual_seed(seed + 6)
+    d_outs = [torch.randn(o.shape, generator=gen, device='cuda').to(o.dtype)
+              for o in res['unchunked'][0]]
+    sig = res['unchunked'][2]
+    del res
+    check_equal('dlrm-chunked backward_to_mp',
+                cdist.backward_to_mp(d_outs, *sig),
+                dist.backward_to_mp(d_outs, *sig))
+    del d_outs
+  log(f'[dlrm-chunked] 3 forwards, the residuals and backward_to_mp '
+      f'bit-equal chunked and unchunked; launches {json.dumps(launches)}; '
+      f'forward ms (host clock, synchronised) {json.dumps(fwd_ms)}')
+  rows = {'chunked': chunked_kernel_rows('dlrm_chunked', chunked, numerical,
+                                         cats),
+          'unchunked': chunked_kernel_rows('dlrm_unchunked', model,
+                                           numerical, cats)}
+  # timed steps, each arm from where the one before left the tables
+  # (one copy): times and launches, not equality
+  runs = step_arms('dlrm-chunked', [
+      (name, lambda m=m: dlrm_trainer(m))
+      for name, m in (('unchunked', model), ('chunked', chunked))], batches,
+                   {name: {'lookup_combine': per_fwd[name] * TRAIN_STEPS,
+                           'segwalk_apply': TRAIN_STEPS}
+                    for name in per_fwd})
+  med = {name: statistics.median(r['step_ms']) for name, r in runs.items()}
+  numbers.update(forward_launches=launches, forward_ms=fwd_ms, steps={
+      name: {k: r[k] for k in ('launches', 'step_ms', 'peak_gib',
+                               'peak_above_resident_gib')}
+      for name, r in runs.items()})
+  numbers['steps'].update(exchange_stats(
+      'dlrm-chunked', [('unchunked', dist), ('chunked', cdist)], cats,
+      med['unchunked'], med['chunked']))
+  del runs, model, chunked, dist, cdist, batches
+  gc.collect()
+  torch.cuda.empty_cache()
+  numbers['example'] = phase_dlrm_chunked_example()
+  return numbers, rows
+
+
+def phase_dlrm_chunked_example():
+  """Phase 13d's example runs: ``examples/dlrm/main.py --dp_input
+  --overlap_chunks CHUNKS`` and ``--overlap_chunks 1`` in process at
+  phase 13b's onechip vocabularies, ``CHUNKED_EXAMPLE_STEPS`` steps and
+  ``--save_state`` each; the two files list the same sha256 for every
+  array."""
+  sizes = [min(s, ONECHIP_MAX_ROWS) for s in data.MLPERF_SIZES]
+  check_disk(1.2 * sum(sizes) * 128 * 4, 'dlrm-chunked')
+  root = CKPT_DIR / 'dlrm_chunked'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  common = ['--param_dtype', 'bfloat16', '--table_sizes',
+            ','.join(map(str, sizes)), '--num_batches',
+            str(CHUNKED_EXAMPLE_STEPS), '--max_steps',
+            str(CHUNKED_EXAMPLE_STEPS), '--device', 'cuda', '--dp_input']
+  probe = dlrm.DLRM(sizes, embedding_dim=128, param_dtype=torch.bfloat16,
+                    dp_input=True, overlap_chunks=CHUNKS,
+                    device='cuda').dist_embedding
+  lookups = chunk_rounds(probe, (1,) * len(sizes))
+  del probe
+  out, manifests = {}, {}
+  for chunks, per_step in ((CHUNKS, lookups), (1, 1)):
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = root / f'chunks{chunks}.npz'
+    reset_launches()
+    t0 = time.perf_counter()
+    res = dlrm_main.main(common + ['--overlap_chunks', str(chunks),
+                                   '--save_state', str(path)])
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    want = {'lookup_combine': per_step * CHUNKED_EXAMPLE_STEPS,
+            'segwalk_apply': CHUNKED_EXAMPLE_STEPS}
+    if got != want or res['step'] != CHUNKED_EXAMPLE_STEPS:
+      raise AssertionError(f'dlrm-chunked example --overlap_chunks {chunks}: '
+                           f'launched {got} (expected {want}), step '
+                           f'{res["step"]}')
+    manifests[chunks] = checkpoint.read_manifest(str(path))['arrays']
+    os.remove(path)
+    out['chunked' if chunks > 1 else 'unchunked'] = {
+        'launches': got, 'wall_s': wall, 'loss': res['loss'],
+        'save_s': res['save_s']}
+  shutil.rmtree(root)
+  if manifests[CHUNKS] != manifests[1]:
+    bad = [k for k in manifests[1] if manifests[1][k] != manifests[CHUNKS].get(k)]
+    raise AssertionError(f'dlrm-chunked example: the chunked file differs '
+                         f'from the unchunked one in {bad}')
+  log(f'[dlrm-chunked] the example with --dp_input --overlap_chunks '
+      f'{CHUNKS} and with --overlap_chunks 1, {CHUNKED_EXAMPLE_STEPS} steps '
+      f'each ({sum(sizes):,} rows, the onechip cut): the files list the same '
+      f'sha256 for all {len(manifests[1])} arrays; {json.dumps(out)}')
+  return out
 
 
 def phase_ragged_lookup():
@@ -3194,6 +3714,13 @@ def main(argv=None) -> int:
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_hot'] = dlrm_hot_launches[name]
   seg['dlrm_hot'] = dlrm_hot_numbers
+  gc.collect()
+  torch.cuda.empty_cache()
+  dlrm_chunked_numbers, dlrm_chunked_rows = phase_dlrm_chunked(args.seed)
+  chunked_summary(k, seg, 'chunked_dlrm', dlrm_chunked_numbers,
+                  dlrm_chunked_rows, {'forward': 'forward_launches',
+                                      'sparse': 'steps',
+                                      'example': 'example'})
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()

@@ -71,8 +71,7 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
 UNPORTED = {
-    'dataset_path': 12, 'overlap_chunks': 8,
-    'fused_exchange': 8, 'wire_dtype': 9, 'table_dtype': 9,
+    'dataset_path': 12, 'wire_dtype': 9, 'table_dtype': 9,
     'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
     'loader_bench': 12, 'trace': 14,
 }
@@ -107,10 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
                  'from --hot_calib_batches batches and replicate them '
                  '(needs --dp_input and --trainer sparse)')
   p.add_argument('--overlap_chunks', type=int, default=1,
-                 help='> 1: not ported (item 8)')
+                 help='split the dp<->mp exchanges into this many slot '
+                 'chunks pipelined against the lookup (needs --dp_input '
+                 'and --trainer sparse)')
   p.add_argument('--fused_exchange', default=True,
                  action=argparse.BooleanOptionalAction,
-                 help='--no-fused_exchange: not ported (item 8)')
+                 help='one collective per exchange phase (default); '
+                 '--no-fused_exchange: one per group')
   p.add_argument('--wire_dtype', default='none',
                  choices=['none', 'bfloat16', 'table'],
                  help='not ported (item 9)')
@@ -186,6 +188,16 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
   for name, item in UNPORTED.items():
     if getattr(args, name) != parser.get_default(name):
       raise not_ported(f'--{name}', item)
+  if args.overlap_chunks > 1:
+    if not args.dp_input:
+      raise SystemExit('--overlap_chunks > 1 requires --dp_input (the '
+                       'chunked pipeline overlaps the dp->mp id '
+                       'exchange, which only the data-parallel input '
+                       'path has)')
+    if args.trainer != 'sparse':
+      raise SystemExit('--overlap_chunks > 1 pairs with --trainer '
+                       'sparse (the chunked gradient exchange/apply '
+                       'lives in the sparse row-wise path)')
   if args.fast_compile:
     raise ValueError('--fast_compile sets XLA compile options; the port '
                      'compiles nothing at run time')
@@ -291,6 +303,8 @@ def main(argv=None):
                row_slice=args.row_slice,
                dp_input=args.dp_input,
                hot_cache=hot_sets,
+               overlap_chunks=args.overlap_chunks,
+               fused_exchange=args.fused_exchange,
                param_dtype=param_dtype,
                compute_dtype=getattr(torch, args.compute_dtype
                                      or args.param_dtype),

@@ -167,7 +167,7 @@ class DLRM(nn.Module):
     param_dtype: storage dtype of the tables and both MLPs.
     compute_dtype: activation dtype (bfloat16 for the AMP-equivalent
       path).
-    hot_cache, overlap_chunks > 1, table_dtype, cold_tier,
+    hot_cache, overlap_chunks, fused_exchange, table_dtype, cold_tier,
       device_hbm_budget, cold_fetch_rows, wire_dtype: forwarded to
       ``DistributedEmbedding``, which refuses those it does not port.
 
@@ -194,6 +194,7 @@ class DLRM(nn.Module):
                device_hbm_budget: Optional[int] = None,
                cold_fetch_rows: Any = None,
                wire_dtype: Optional[str] = None,
+               fused_exchange: bool = True,
                device: mesh_lib.DeviceLike = None):
     super().__init__()
     if bottom_mlp_dims[-1] != embedding_dim:
@@ -217,7 +218,8 @@ class DLRM(nn.Module):
         hot_cache=hot_cache, overlap_chunks=overlap_chunks,
         table_dtype=table_dtype, cold_tier=cold_tier,
         device_hbm_budget=device_hbm_budget,
-        cold_fetch_rows=cold_fetch_rows, wire_dtype=wire_dtype)
+        cold_fetch_rows=cold_fetch_rows, wire_dtype=wire_dtype,
+        fused_exchange=fused_exchange)
     self.device = self.dist_embedding.device
     self.bottom_mlp = MLP(num_numerical_features, list(bottom_mlp_dims),
                           param_dtype=param_dtype, device=self.device)

@@ -37,7 +37,9 @@ order given, with one sort and one apply.  A row's gradient is therefore the
 segment walk's chunked sum over that concatenated stream (``ops/
 segwalk.py``: left folds inside chunks of ``CHUNK`` sorted positions,
 then across the chunks), the same stream and order as the sparse
-step's apply of that group.
+step's apply of that group.  ``ChunkedGroupLookup`` keeps that one node
+when the chunked exchange launches a group's lookups over several
+rounds: the rounds' streams concatenate back to the one stream.
 
 ``ragged_lookup`` is the same combine over capacity-padded CSR ids
 (``values`` and ``row_splits`` of a ``RaggedBatch``): on a CUDA table
@@ -434,3 +436,106 @@ def fused_group_lookup(table: torch.Tensor, routed: Sequence[torch.Tensor],
   outs = LookupCombine.apply(table, tuple(combiners), *flat)
   return tuple(o.to(compute_dtype).reshape(r.shape[0], r.shape[1], -1)
                for o, r in zip(outs, routed))
+
+
+class ChunkedGroupLookup:
+  """One fusion group's lookups made over the rounds of the chunked
+  exchange (``parallel/overlap.py``), differentiated as ONE node.
+
+  ``combiners`` maps each of the group's id streams (any key, in stream
+  order) to its combiner.  ``lookup(k, streams, routed)`` launches round
+  ``k``'s pieces (one kernel launch each) as soon as their ids arrive.  Without a table
+  that requires grad that is ``fused_group_lookup``.  With one, every
+  round hangs off one anchor node of the table: each round's node
+  keeps its cotangents, and the anchor's backward concatenates each
+  stream's pieces back in round order (the monolithic ``[n_cap * GB,
+  h]`` stream) and makes ONE ``lookup_grad``: one zero-filled gradient
+  and one segment-walk ``'add'`` over the very stream the unchunked
+  ``LookupCombine`` sums, so the gradient is the same bit for bit.  A
+  node per round would zero-fill a table-sized gradient each and let
+  autograd re-associate their sum."""
+
+  def __init__(self, table: torch.Tensor, combiners: dict,
+               compute_dtype: torch.dtype):
+    self.table = table
+    self.combiners = dict(combiners)
+    self.compute_dtype = compute_dtype
+    # per stream, round -> its flat ids [m, h] / f32 cotangent [m, w]
+    self.ids = {s: {} for s in self.combiners}
+    self.grads = {s: {} for s in self.combiners}
+    self.anchor = None
+    if torch.is_grad_enabled() and table.requires_grad:
+      self.anchor = _GroupAnchor.apply(table, self)
+
+  def lookup(self, k: int, streams: Sequence,
+             routed: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Round ``k``: ``routed[j]`` the ``[n, GB, h]`` routed ids of stream
+    ``streams[j]``'s chunk; returns each ``[n, GB, w]`` at
+    ``compute_dtype``."""
+    combiners = [self.combiners[s] for s in streams]
+    if self.anchor is None:
+      return fused_group_lookup(self.table, routed, combiners,
+                                self.compute_dtype)
+    flat = []
+    for s, r, c in zip(streams, routed, combiners):
+      x = r.reshape(-1, r.shape[2])
+      _check(self.table, x, c)
+      self.ids[s][k] = x
+      flat.append(x)
+    outs = _ChunkLookup.apply(self.anchor, self, k, tuple(streams), *flat)
+    return tuple(o.to(self.compute_dtype).reshape(r.shape[0], r.shape[1],
+                                                  -1)
+                 for o, r in zip(outs, routed))
+
+  def table_grad(self) -> torch.Tensor:
+    ids, grads, combiners = [], [], []
+    width = self.table.shape[1]
+    for s, c in self.combiners.items():
+      rounds = sorted(self.ids[s])
+      if not rounds:
+        continue
+      ids.append(torch.cat([self.ids[s][k] for k in rounds]))
+      # a round whose outputs reached no loss gets no backward call
+      grads.append(torch.cat([
+          self.grads[s][k] if k in self.grads[s] else torch.zeros(
+              (self.ids[s][k].shape[0], width), dtype=torch.float32,
+              device=self.table.device) for k in rounds]))
+      combiners.append(c)
+    self.grads = {s: {} for s in self.combiners}
+    return lookup_grad(ids, grads, combiners, self.table.shape[0],
+                       self.table.dtype)
+
+
+class _GroupAnchor(torch.autograd.Function):
+  """The table's one node under ``ChunkedGroupLookup``: an empty output
+  the rounds' nodes take as input, so autograd runs its backward once,
+  after every round's."""
+
+  @staticmethod
+  def forward(ctx, table, group):
+    ctx.group = group
+    return table.new_empty(0)
+
+  @staticmethod
+  def backward(ctx, _):
+    return ctx.group.table_grad(), None
+
+
+class _ChunkLookup(torch.autograd.Function):
+  """One round of ``ChunkedGroupLookup``: one launch a stream; the
+  backward only keeps the cotangents for the anchor."""
+
+  @staticmethod
+  def forward(ctx, anchor, group, k, streams, *ids):
+    ctx.group, ctx.k, ctx.streams = group, k, streams
+    ctx.anchor_like = (anchor.dtype, anchor.device)
+    return tuple(_forward(group.table, x, group.combiners[s])
+                 for s, x in zip(streams, ids))
+
+  @staticmethod
+  def backward(ctx, *grads):
+    for s, g in zip(ctx.streams, grads):
+      ctx.group.grads[s][ctx.k] = g.to(torch.float32)
+    dtype, device = ctx.anchor_like
+    return ((torch.zeros(0, dtype=dtype, device=device), None, None, None)
+            + (None,) * len(grads))

@@ -40,7 +40,11 @@ fusion group (``ops/lookup.LookupCombine``), the row exchange and the
 row-shard reduce-scatter carry their cotangents back.  The hot cache
 serves the sparse hybrid step and serving; differentiating a hot layer
 is refused (the dense trainer on a hot layer is a part of item 7 left
-for later).
+for later).  ``overlap_chunks=k`` (docs/design.md §11,
+``parallel/overlap.py``) runs every exchange of the dp-input paths in
+``k`` rounds of the slot axis, each issued asynchronously before the
+round before it is consumed, bit-exact against one round;
+``fused_exchange=False`` ships each buffer through its own collective.
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -57,6 +61,7 @@ import torch.distributed as torch_dist
 from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+from distributed_embeddings_tpu_torch.parallel import overlap
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.planner import (
     GroupSpec, LookupPlan, ShardingPlan, TableConfig, fuse_layout)
@@ -141,8 +146,19 @@ class DistributedEmbedding:
       the id exchange.  Requires ``dp_input=True``.  Hot membership is a
       layout detail: checkpoints stay global canonical and restore under
       any other hot set.
-    overlap_chunks > 1 / table_dtype / cold_tier / cold_fetch_rows /
-      dcn_sharding / wire_dtype: not ported; raise.
+    overlap_chunks: split each subgroup's dp<->mp exchange buffers into
+      this many static chunks along the slot axis and pipeline them
+      (``parallel/overlap.py``, docs/design.md §11): round ``k``'s
+      collective is issued (``async_op=True``) before round ``k-1``'s
+      route, lookup and return leg run.  Bit-exact against
+      ``overlap_chunks=1``.  Requires ``dp_input=True``, and
+      ``hot_cache`` when a table is row-sliced (the JAX refusals).
+    fused_exchange: True (default): ONE collective per exchange phase
+      and dtype class carries every live buffer (``fuse_layout``);
+      False: one collective per buffer (the per-group schedule, the
+      A/B arm), legs named ``{phase}/g{i}``.  Bit-identical either way.
+    table_dtype / cold_tier / cold_fetch_rows / dcn_sharding /
+      wire_dtype: not ported; raise.
   """
 
   def __init__(self,
@@ -164,6 +180,7 @@ class DistributedEmbedding:
                device_hbm_budget: Optional[int] = None,
                cold_fetch_rows=None,
                dcn_sharding: bool = False,
+               fused_exchange: bool = True,
                wire_dtype: Optional[str] = None):
     if row_slice is not None and (isinstance(row_slice, bool)
                                   or not isinstance(row_slice,
@@ -189,8 +206,12 @@ class DistributedEmbedding:
         or overlap_chunks < 1):
       raise ValueError(
           f'overlap_chunks must be an int >= 1, got {overlap_chunks!r}')
-    if overlap_chunks > 1:
-      raise not_ported('overlap_chunks > 1', 8)
+    overlap_chunks = int(overlap_chunks)
+    if overlap_chunks > 1 and not dp_input:
+      raise ValueError(
+          'overlap_chunks > 1 requires dp_input=True: the chunked '
+          'pipeline overlaps the dp->mp id exchange, which the '
+          'model-parallel input path does not have')
     if table_dtype is not None:
       raise not_ported('table_dtype', 9)
     if wire_dtype is not None:
@@ -226,11 +247,23 @@ class DistributedEmbedding:
                              row_slice_threshold=row_slice,
                              packed_storage=False,
                              hot_sets=hot_cache,
+                             overlap_chunks=overlap_chunks,
                              device_hbm_budget=device_hbm_budget,
                              param_itemsize=torch.empty(
                                  0, dtype=param_dtype).element_size())
     self.num_inputs = len(self.plan.input_table_map)
     self.hot_enabled = bool(self.plan.hot_sets)
+    if overlap_chunks > 1 and any(self.plan.row_sliced) \
+        and not self.hot_enabled:
+      raise ValueError(
+          'overlap_chunks > 1 with row-sliced tables requires '
+          'hot_cache: the uncached forward merges row-shard outputs '
+          'through per-input psum_scatter slots whose exchange has no '
+          'chunk alignment (docs/design.md §11 refusal matrix). '
+          'Enable hot_cache (its row shards ride the chunked slot '
+          'exchange), disable row_slice, or set overlap_chunks=1.')
+    self.overlap_chunks = self.plan.overlap_chunks
+    self.fused_exchange = bool(fused_exchange)
     self._hot_meta_cache = None
     # the JAX layer's flat-layout attributes, which the exchange
     # counters read (no dcn axis, item 10; the compute-dtype wire, item 9)
@@ -564,7 +597,7 @@ class DistributedEmbedding:
                                        device=out.device)]
     else:
       picked = out
-    return picked.reshape(sub.out_n_cap, D, local_batch,
+    return picked.reshape(picked.shape[0], D, local_batch,
                           w).transpose(0, 1)
 
   def _assemble(self, subs, sub_back, merge_out):
@@ -605,43 +638,80 @@ class DistributedEmbedding:
 
   def _exchange(self, bufs, name, plan=None):
     """The EXCHANGE stage: ship canonical ``[D, ...]`` buffers between
-    the ranks (slot ``d`` of the leading axis goes to rank ``d``).
+    the ranks (slot ``d`` of the leading axis goes to rank ``d``) and
+    return what arrived; ``_issue(...).wait()``."""
+    return self._issue(bufs, name, plan).wait()
 
-    The live buffers flatten to ``[D, flat]``, concatenate per dtype
-    class in ``fuse_layout`` order and move in ONE ``all_to_all_single``
-    per class; the result splits back by the segment offsets (a single
-    live buffer moves as it is, under the JAX package's per-buffer leg
-    name).  ``None`` entries pass through; a world of one returns the
-    buffers untouched.  Issued legs are recorded into ``plan``.  A float
-    leg is differentiable (``_AllToAll``: the cotangents take the same
-    exchange back)."""
+  def _issue(self, bufs, name, plan=None) -> '_Pending':
+    """Issue one exchange phase; ``wait()`` on the result completes it
+    and returns the buffers.
+
+    With ``fused_exchange`` and more than one live buffer, the live
+    buffers flatten to ``[D, flat]``, concatenate per dtype class in
+    ``fuse_layout`` order and move in ONE ``all_to_all_single`` per
+    class; the result splits back by the segment offsets.  Otherwise
+    each live buffer moves on its own under the leg name
+    ``{name}/g{i}`` (the JAX package's per-group schedule).  ``None``
+    entries pass through (chunk rounds a subgroup has run out of; merge
+    subgroups whose every slot left by reduce-scatter); a world of one
+    returns the buffers untouched.  The legs are recorded into ``plan``
+    when issued, so a pipelined loop records them in its issue order.
+
+    The collectives are issued with ``async_op=True`` (on NCCL they run
+    on the process group's stream and ``wait`` orders the current
+    stream after them; gloo runs them on its thread), and the pending
+    phase keeps the send buffers alive until ``wait``.  A float buffer
+    that requires grad takes the synchronous, differentiable
+    ``_AllToAll`` instead (the cotangents take the same exchange back)."""
     D = self.world_size
     out = list(bufs)
     live = [(i, b) for i, b in enumerate(bufs) if b is not None]
+    pending = _Pending(out)
     if not live or D == 1:
-      return out
+      return pending
     group = self.mesh.group
-    if len(live) > 1:
+    if self.fused_exchange and len(live) > 1:
       legs = fuse_layout(name, [(f'g{i}', tuple(b.shape),
                                  _wire_dtype_name(b.dtype))
                                 for i, b in live])
       by_label = {f'g{i}': (i, b) for i, b in live}
-      for leg in legs:
-        members = [by_label[s.label] for s in leg.segments]
-        flat = torch.cat([b.reshape(D, -1) for _, b in members], dim=1)
-        recv = _AllToAll.apply(flat, group)
-        for seg, (i, b) in zip(leg.segments, members):
-          out[i] = recv[:, seg.offset:seg.offset + seg.size].reshape(
-              b.shape)
+      moves = [([by_label[s.label] for s in leg.segments], leg.segments)
+               for leg in legs]
     else:
-      legs = []
+      legs, moves = [], []
       for i, b in live:
         legs += fuse_layout(f'{name}/g{i}', [(f'g{i}', tuple(b.shape),
                                               _wire_dtype_name(b.dtype))])
-        out[i] = _AllToAll.apply(b, group)
+        moves.append(([(i, b)], None))
     if plan is not None:
       plan.record(legs)
-    return out
+    differentiable = torch.is_grad_enabled() and any(
+        b.requires_grad for _, b in live)
+    for members, segments in moves:
+      send = (members[0][1] if segments is None else
+              torch.cat([b.reshape(D, -1) for _, b in members], dim=1))
+      if differentiable:
+        pending.add(None, send, _AllToAll.apply(send, group), members,
+                    segments)
+        continue
+      send = send.contiguous()
+      recv = torch.empty_like(send)
+      work = torch_dist.all_to_all_single(recv, send, group=group,
+                                          async_op=True)
+      pending.add(work, send, recv, members, segments)
+    return pending
+
+  def _chunked_exchange(self, bufs, bounds, n_rounds, name, plan):
+    """Ship ``bufs`` (``[D, n, ...]``, or None) in chunk rounds of their
+    slot axis: round ``k`` carries every buffer's ``[:, lo:hi]`` slice
+    (``bounds[i][k]``) through one ``_issue``; every round is issued
+    before the first is waited on, and each buffer's rounds concatenate
+    back along the slot axis."""
+    return _wait_rounds([
+        self._issue([b[:, bd[k][0]:bd[k][1]]
+                     if b is not None and k < len(bd) else None
+                     for b, bd in zip(bufs, bounds)], name, plan=plan)
+        for k in range(n_rounds)], len(bufs))
 
   def lookup_plan(self, global_batch: Optional[int] = None):
     """The most recently built ``LookupPlan`` (optionally of one global
@@ -660,37 +730,55 @@ class DistributedEmbedding:
              as_t(sub.row_stride) if sub.has_mod_windows else None)
             for sub in subs]
 
-  def _lookup_stage(self, params, subs, consts, canonicals, local_batch):
-    """Route each subgroup's canonical raw ids ``[n_cap, GB, h]`` into
-    the fused table, gather-combine, and stage the outputs for the row
+  def _chunk_bounds(self, n_slots: int):
+    """The ``[lo, hi)`` slot ranges of an ``n_slots`` buffer's chunk
+    rounds (``overlap.chunk_bounds`` at ``overlap_chunks``)."""
+    return overlap.chunk_bounds(
+        n_slots, overlap.effective_chunks(self.overlap_chunks, n_slots))
+
+  def _lookup_stage(self, params, subs, consts, canonicals, local_batch,
+                    lookup=None):
+    """Route each subgroup's canonical raw ids ``[n, GB, h]`` into the
+    fused table, gather-combine, and stage the outputs for the row
     exchange: ``(staged, residuals, merge_out)``, ``residuals`` the
-    routed ids (``>= rows_cap`` is padding).  The subgroups of one
-    fusion group look up through one ``fused_group_lookup`` call (one
-    kernel launch each, one autograd node for the table)."""
-    residuals = tuple(
-        routing.route_ids(ids_c, offs, vocab,
-                          self.plan.groups[sub.gi].rows_cap, lo, hi, st)
-        for sub, ids_c, (offs, vocab, lo, hi, st) in zip(subs, canonicals,
-                                                         consts))
+    routed ids (``>= rows_cap`` is padding).  ``canonicals[si]`` is None
+    for a subgroup that has no slots in this chunk round (its staged
+    buffer and residual are None too); ``consts[si]`` are the routing
+    constants of its ``n`` slots.  The subgroups of one fusion group
+    look up through one ``lookup(gi, sis, routed)`` call (default one
+    ``fused_group_lookup``: one kernel launch each, one autograd node
+    for the table)."""
+    live = [si for si, c in enumerate(canonicals) if c is not None]
+    residuals = [None] * len(subs)
+    for si in live:
+      offs, vocab, lo, hi, st = consts[si]
+      residuals[si] = routing.route_ids(
+          canonicals[si], offs, vocab, self.plan.groups[subs[si].gi].rows_cap,
+          lo, hi, st)
     outs = [None] * len(subs)
     for gi in range(len(self.plan.groups)):
-      sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
+      sis = [si for si in live if subs[si].gi == gi]
       if not sis:
         continue
-      got = lookup_ops.fused_group_lookup(
-          params[f'group_{gi}'], [residuals[si] for si in sis],
-          [subs[si].lookup_combiner for si in sis], self.compute_dtype)
+      routed = [residuals[si] for si in sis]
+      if lookup is None:
+        got = lookup_ops.fused_group_lookup(
+            params[f'group_{gi}'], routed,
+            [subs[si].lookup_combiner for si in sis], self.compute_dtype)
+      else:
+        got = lookup(gi, sis, routed)
       for si, out_c in zip(sis, got):
         outs[si] = out_c
-    merge_out, staged = {}, []
-    for si, (sub, ids_c, out_c) in enumerate(zip(subs, canonicals, outs)):
+    merge_out, staged = {}, [None] * len(subs)
+    for si in live:
+      sub, out_c = subs[si], outs[si]
       if sub.mean_row_sliced:
         # mean row shards looked up with 'sum': divide by the TRUE
         # per-sample id count here, where every raw id is in hand
-        out_c = out_c / routing.valid_count(ids_c)[..., None].to(
+        out_c = out_c / routing.valid_count(canonicals[si])[..., None].to(
             out_c.dtype)
-      staged.append(self._emit_outputs(sub, si, out_c, local_batch,
-                                       merge_out))
+      staged[si] = self._emit_outputs(sub, si, out_c, local_batch,
+                                      merge_out)
     return staged, residuals, merge_out
 
   def _build_dp_forward(self, local_batch: int, hotness: tuple):
@@ -699,7 +787,16 @@ class DistributedEmbedding:
     exchange, gather-combine per subgroup, ONE fused row exchange,
     assemble.  ``residuals`` holds each subgroup's routed fused-space ids
     ``[n_cap, GB, h]`` (``>= rows_cap`` is padding), what the sparse
-    backward applies at."""
+    backward applies at.
+
+    With ``overlap_chunks > 1`` the send buffers are built once and each
+    round ``k`` ships every subgroup's slot slice ``[:, lo:hi]`` (JAX's
+    chunk loop): round ``k``'s id exchange is issued before round
+    ``k-1``'s route, lookup (one launch per subgroup and round) and
+    row-return issue run, and the rounds' rows and residuals
+    concatenate back to the monolithic layouts, bit for bit.  The
+    lookups of a fusion group over all rounds are one autograd node
+    (``lookup_ops.ChunkedGroupLookup``)."""
     key = ('dp_fwd', local_batch, hotness)
     if key in self._fn_cache:
       return self._fn_cache[key]
@@ -707,8 +804,15 @@ class DistributedEmbedding:
     global_batch = local_batch * D
     subs = self._subgroups(hotness)
     consts = self._slot_consts(subs)
+    bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
+    n_rounds = max(len(b) for b in bounds)
+    if n_rounds > 1:
+      # row-sliced plans refuse chunking without the hot cache, so every
+      # slot rides the exchange (no reduce-scatter merge slots)
+      assert not any(s.merge_inputs or s.mean_row_sliced for s in subs)
     lplan = LookupPlan(path='dp', global_batch=global_batch,
-                       hotness=tuple(hotness), fused=True)
+                       hotness=tuple(hotness), fused=self.fused_exchange,
+                       chunks=n_rounds)
     self._lookup_plans[key] = lplan
 
     def fwd(params, inputs):
@@ -731,14 +835,47 @@ class DistributedEmbedding:
             lambda d, s, sub=sub: (sub.requests[d][s].input_id
                                    if s < len(sub.requests[d]) else -1),
             _ids))
-      recvs = self._exchange(sends, 'fwd/ids', plan=lplan)
-      # [n_cap, D*B, h]: the global batch in source-major order
-      canonicals = [r.transpose(0, 1).reshape(sub.n_cap, global_batch,
-                                              sub.hotness)
-                    for sub, r in zip(subs, recvs)]
-      staged, residuals, merge_out = self._lookup_stage(
-          params, subs, consts, canonicals, local_batch)
-      backs = self._exchange(staged, 'fwd/rows', plan=lplan)
+      if n_rounds > 1:
+        groups = {
+            gi: lookup_ops.ChunkedGroupLookup(
+                params[f'group_{gi}'],
+                {si: sub.lookup_combiner for si, sub in enumerate(subs)
+                 if sub.gi == gi}, self.compute_dtype)
+            for gi in {sub.gi for sub in subs}}
+      routed_parts = [[] for _ in subs]
+      rows_pending, merge_out = [], {}
+
+      def issue(k):
+        return self._issue([sends[si][:, b[k][0]:b[k][1]]
+                            if k < len(b) else None
+                            for si, b in enumerate(bounds)],
+                           'fwd/ids', plan=lplan)
+
+      def process(k, pending):
+        recvs = pending.wait()
+        canonicals, cuts = [None] * len(subs), [None] * len(subs)
+        for si, (sub, r) in enumerate(zip(subs, recvs)):
+          if r is None:
+            continue
+          lo, hi = bounds[si][k]
+          # [n, D*B, h]: the global batch in source-major order
+          canonicals[si] = r.transpose(0, 1).reshape(hi - lo, global_batch,
+                                                     sub.hotness)
+          cuts[si] = tuple(None if c is None else c[lo:hi]
+                           for c in consts[si])
+        lookup = None if n_rounds == 1 else (
+            lambda gi, sis, routed: groups[gi].lookup(k, sis, routed))
+        staged, residuals, merged = self._lookup_stage(
+            params, subs, cuts, canonicals, local_batch, lookup=lookup)
+        merge_out.update(merged)
+        for si, r in enumerate(residuals):
+          if r is not None:
+            routed_parts[si].append(r)
+        rows_pending.append(self._issue(staged, 'fwd/rows', plan=lplan))
+
+      _pipeline(n_rounds, issue, process)
+      backs = _wait_rounds(rows_pending, len(subs))
+      residuals = tuple(_cat(rp, 0) for rp in routed_parts)
       return self._assemble(subs, backs, merge_out), residuals
 
     self._fn_cache[key] = fwd
@@ -762,7 +899,7 @@ class DistributedEmbedding:
     consts = self._slot_consts(subs)
     pos_of = self._worker_positions()[me]
     lplan = LookupPlan(path='mp', global_batch=global_batch,
-                       hotness=tuple(hotness), fused=True)
+                       hotness=tuple(hotness), fused=self.fused_exchange)
     self._lookup_plans[key] = lplan
 
     def fwd(params, inputs):
@@ -787,7 +924,7 @@ class DistributedEmbedding:
           params, subs, consts, canonicals, local_batch)
       # the mp path has no dp->mp leg; only the return exchange fuses
       backs = self._exchange(staged, 'fwd/rows', plan=lplan)
-      return self._assemble(subs, backs, merge_out), residuals
+      return self._assemble(subs, backs, merge_out), tuple(residuals)
 
     self._fn_cache[key] = fwd
     return fwd
@@ -900,7 +1037,9 @@ class DistributedEmbedding:
     """Build (once per signature) ``bwd(d_outs) -> gsubs``: cotangent send
     buffers, ONE fused cotangent exchange, and for row-shard slots one
     all_gather per merged input (the transpose of the forward's
-    reduce-scatter)."""
+    reduce-scatter).  With ``overlap_chunks > 1`` the exchange goes in
+    chunk rounds of the slot axis (every round issued, then each
+    waited), concatenated back bit for bit."""
     key = ('bwd', local_batch, hotness)
     if key in self._fn_cache:
       return self._fn_cache[key]
@@ -925,8 +1064,11 @@ class DistributedEmbedding:
         r[s] = (pos if pos is not None else
                 sub.out_n_cap + sub.merge_inputs.index(req.input_id))
       recon.append(torch.as_tensor(r, device=dev))
+    bounds = [self._chunk_bounds(n) if n else [] for n in slots_of]
+    n_rounds = max([len(b) for b in bounds] + [1])
     lplan = LookupPlan(path='bwd', global_batch=global_batch,
-                       hotness=tuple(hotness), fused=True)
+                       hotness=tuple(hotness), fused=self.fused_exchange,
+                       chunks=n_rounds)
     self._lookup_plans[key] = lplan
 
     def bwd(d_outs):
@@ -953,7 +1095,8 @@ class DistributedEmbedding:
           return d_outs[k[0]][:, k[1]:k[2]]
 
         sends.append(routing.gather_slots(D, slots_of[si], key_of, val_of))
-      recvs = self._exchange(sends, 'bwd/cotangent', plan=lplan)
+      recvs = self._chunked_exchange(sends, bounds, n_rounds,
+                                     'bwd/cotangent', lplan)
       gsubs = []
       for si, sub in enumerate(subs):
         w = sub.group.width
@@ -1098,7 +1241,10 @@ class DistributedEmbedding:
     position is hot or cold, the other side adds an exact zero);
     multi-hot bags mixing hot and cold ids re-associate the f32 fold.
     ``residuals`` are the owner-side routed unique ids ``[n_cap, D * U,
-    1]`` (sentinel ``rows_cap``), already-deduplicated update streams."""
+    1]`` (sentinel ``rows_cap``), already-deduplicated update streams.
+    With ``overlap_chunks > 1`` the two cold exchanges and the gathers
+    between them go in slot rounds, as in ``_build_dp_forward``; the
+    combine runs once over the concatenated rows."""
     key = ('dp_fwd_hot', local_batch, hotness)
     if key in self._fn_cache:
       return self._fn_cache[key]
@@ -1107,8 +1253,11 @@ class DistributedEmbedding:
     subs = self._subgroups(hotness)
     consts = self._slot_consts(subs)
     meta = self._hot_meta()
+    bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
+    n_rounds = max(len(b) for b in bounds)
     lplan = LookupPlan(path='hot', global_batch=local_batch * D,
-                       hotness=tuple(hotness), fused=True)
+                       hotness=tuple(hotness), fused=self.fused_exchange,
+                       chunks=n_rounds)
     self._lookup_plans[key] = lplan
     # the hot partials' launches: per (hot group, hotness), its readers
     hot_classes: Dict[tuple, list] = {}
@@ -1125,25 +1274,47 @@ class DistributedEmbedding:
       lplan.legs.clear()
       mem = self._hot_membership(inputs)
       sends, invs = self._cold_sends(subs, mem, local_batch)
-      recvs = self._exchange(sends, 'fwd/cold_ids', plan=lplan)
-      routed = []
-      for sub, r, (offs, vocab, lo, hi, st) in zip(subs, recvs, consts):
-        ids_c = r.transpose(0, 1).reshape(sub.n_cap, -1)
-        routed.append(routing.route_ids(ids_c[..., None], offs, vocab,
-                                        plan.groups[sub.gi].rows_cap, lo, hi,
-                                        st))
-      rows = [None] * len(subs)
-      for gi in range(len(plan.groups)):
-        sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
-        if sis:
+      routed_parts, rows_pending = [[] for _ in subs], []
+
+      def issue(k):
+        # the per-(source, slot) sort-unique is slot-local, so the slot
+        # axis chunks exactly as on the uncached path
+        return self._issue([sends[si][:, b[k][0]:b[k][1]]
+                            if k < len(b) else None
+                            for si, b in enumerate(bounds)],
+                           'fwd/cold_ids', plan=lplan)
+
+      def process(k, pending):
+        recvs = pending.wait()
+        routed = [None] * len(subs)
+        for si, (sub, r) in enumerate(zip(subs, recvs)):
+          if r is None:
+            continue
+          lo, hi = bounds[si][k]
+          offs, vocab, rlo, rhi, st = (None if c is None else c[lo:hi]
+                                       for c in consts[si])
+          ids_c = r.transpose(0, 1).reshape(hi - lo, -1)
+          routed[si] = routing.route_ids(ids_c[..., None], offs, vocab,
+                                         plan.groups[sub.gi].rows_cap, rlo,
+                                         rhi, st)
+          routed_parts[si].append(routed[si])
+        pre = [None] * len(subs)
+        for gi in range(len(plan.groups)):
+          sis = [si for si, sub in enumerate(subs)
+                 if sub.gi == gi and routed[si] is not None]
+          if not sis:
+            continue
           got = lookup_ops.fused_group_lookup(
               params[f'group_{gi}'], [routed[si] for si in sis],
               [None] * len(sis), self.compute_dtype)
           for si, r in zip(sis, got):
-            rows[si] = r
-      pre = [r.reshape(sub.n_cap, D, -1, sub.group.width).transpose(0, 1)
-             for sub, r in zip(subs, rows)]
-      backs = self._exchange(pre, 'fwd/cold_rows', plan=lplan)
+            pre[si] = r.reshape(r.shape[0], D, -1,
+                                subs[si].group.width).transpose(0, 1)
+        rows_pending.append(self._issue(pre, 'fwd/cold_rows', plan=lplan))
+
+      _pipeline(n_rounds, issue, process)
+      backs = _wait_rounds(rows_pending, len(subs))
+      routed = [_cat(rp, 0) for rp in routed_parts]
       piece: Dict[tuple, torch.Tensor] = {}
       for si, (sub, back) in enumerate(zip(subs, backs)):
         h, w = sub.hotness, sub.group.width
@@ -1199,7 +1370,9 @@ class DistributedEmbedding:
     w]`` grads (leg ``bwd/cold_grads``), aligned with the forward's
     owner-side residuals.  Hot: per hot group ONE segment sum of every
     reading input's occurrences into ``[hot_rows_cap, w]``, then one
-    all-reduce over the ranks (the JAX ``psum``).  ``with_sq`` appends
+    all-reduce over the ranks (the JAX ``psum``).  With ``overlap_chunks
+    > 1`` the cold exchange goes in slot rounds and the all-reduce in row
+    chunks, each issued asynchronously (``HotGrads``).  ``with_sq`` appends
     per-occurrence squares as ``w`` more columns, ``with_touch`` a
     trailing occurrence count (hot grads only)."""
     key = ('bwd_hot', local_batch, hotness, with_sq, with_touch)
@@ -1209,8 +1382,11 @@ class DistributedEmbedding:
     plan = self.plan
     subs = self._subgroups(hotness)
     meta = self._hot_meta()
+    bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
+    n_rounds = max(len(b) for b in bounds)
     lplan = LookupPlan(path='bwd_hot', global_batch=local_batch * D,
-                       hotness=tuple(hotness), fused=True)
+                       hotness=tuple(hotness), fused=self.fused_exchange,
+                       chunks=n_rounds)
     self._lookup_plans[('bwd_hot', local_batch, hotness)] = lplan
     is_mean = [plan.table_configs[t].combiner == 'mean'
                for t in plan.input_table_map]
@@ -1265,10 +1441,11 @@ class DistributedEmbedding:
         blocks = torch.cat([summed.reshape(len(keys), u, wc),
                             summed.new_zeros((1, u, wc))])
         grads.append(blocks[sel])
-      recvs = self._exchange(grads, 'bwd/cold_grads', plan=lplan)
+      recvs = self._chunked_exchange(grads, bounds, n_rounds,
+                                     'bwd/cold_grads', lplan)
       gsubs = tuple(r.transpose(0, 1).reshape(sub.n_cap, -1, r.shape[-1])
                     for sub, r in zip(subs, recvs))
-      hot_grads = {}
+      hot_grads = HotGrads()
       for gi in plan.hot_groups:
         g = plan.groups[gi]
         n_rows = g.hot_rows_cap
@@ -1291,9 +1468,15 @@ class DistributedEmbedding:
         else:
           total = torch.zeros((n_rows, wch), dtype=torch.float32,
                               device=dev)
-        if D > 1:
-          torch_dist.all_reduce(total, group=self.mesh.group)
         hot_grads[gi] = total
+        hot_grads.bounds[gi] = self._chunk_bounds(n_rows)
+        if D > 1:
+          # in row chunks, each issued async: the hot apply waits on
+          # chunk k alone before stepping its rows (HotGrads.chunks)
+          hot_grads.pending[gi] = [
+              torch_dist.all_reduce(total[lo:hi], group=self.mesh.group,
+                                    async_op=True)
+              for lo, hi in hot_grads.bounds[gi]]
       return gsubs, hot_grads
 
     self._fn_cache[key] = bwd
@@ -1305,6 +1488,37 @@ class DistributedEmbedding:
     if self.world_size == 1:
       return x
     return _all_gather(x, self.mesh.group, self.world_size)
+
+
+def _pipeline(n_rounds: int, issue, process):
+  """The chunk loop: ``issue(k)`` starts round ``k``'s exchange and
+  ``process(k, issued)`` consumes it; round ``k`` is issued before round
+  ``k-1`` is processed."""
+  pending = None
+  for k in range(n_rounds):
+    issued = issue(k)
+    if pending is not None:
+      process(*pending)
+    pending = (k, issued)
+  process(*pending)
+
+
+def _cat(parts, dim: int):
+  """The rounds' pieces of one buffer concatenated (None without any)."""
+  if not parts:
+    return None
+  return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _wait_rounds(rounds, n: int) -> list:
+  """Wait on each round's ``_Pending`` in order; per buffer, its rounds'
+  pieces concatenated along the slot axis (dim 1)."""
+  parts = [[] for _ in range(n)]
+  for r in rounds:
+    for i, got in enumerate(r.wait()):
+      if got is not None:
+        parts[i].append(got)
+  return [_cat(p, 1) for p in parts]
 
 
 def _all_gather(x: torch.Tensor, group, world: int) -> torch.Tensor:
@@ -1353,6 +1567,73 @@ class _PsumScatter(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     return _all_gather(g, ctx.group, ctx.world), None, None, None
+
+
+class _Pending:
+  """One exchange phase in flight (``DistributedEmbedding._issue``):
+  ``wait()`` completes its collectives and returns the phase's buffers.
+  The send tensors stay referenced until then."""
+
+  def __init__(self, out):
+    self.out = out
+    self.moves = []
+
+  def add(self, work, send, recv, members, segments):
+    self.moves.append((work, send, recv, members, segments))
+
+  def wait(self) -> list:
+    for work, _, recv, members, segments in self.moves:
+      if work is not None:
+        work.wait()
+      if segments is None:
+        self.out[members[0][0]] = recv
+        continue
+      for seg, (i, b) in zip(segments, members):
+        self.out[i] = recv[:, seg.offset:seg.offset + seg.size].reshape(
+            b.shape)
+    self.moves = []
+    return self.out
+
+
+class HotGrads(dict):
+  """The hot-cache backward's ``{group index: [K, w]}`` replicated hot
+  gradients, whose all-reduce may still be in flight.  ``bounds[gi]``
+  are the row chunks (``overlap_chunks`` of them, ``overlap.
+  chunk_bounds``) and ``pending[gi]`` one all-reduce ``Work`` a chunk
+  (row chunks are bit-exact: every element takes the same one add).
+  ``chunks(gi)`` yields each chunk's rows once its own all-reduce is
+  done, so a chunk's apply overlaps the later chunks' reduce; reading a
+  group through ``[]``, ``get``, ``values`` or ``items`` waits on all of
+  its chunks first."""
+
+  def __init__(self, *args, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.bounds: Dict[int, list] = {}
+    self.pending: Dict[int, list] = {}
+
+  def chunks(self, gi):
+    """``(lo, hi, rows)`` of each row chunk of group ``gi`` in order."""
+    total = dict.__getitem__(self, gi)
+    works = self.pending.pop(gi, None)
+    for j, (lo, hi) in enumerate(self.bounds.get(gi,
+                                                 [(0, total.shape[0])])):
+      if works:
+        works[j].wait()
+      yield lo, hi, total[lo:hi]
+
+  def __getitem__(self, gi):
+    for work in self.pending.pop(gi, ()):
+      work.wait()
+    return super().__getitem__(gi)
+
+  def get(self, gi, default=None):
+    return self[gi] if gi in self else default
+
+  def values(self):
+    return [self[gi] for gi in self]
+
+  def items(self):
+    return [(gi, self[gi]) for gi in self]
 
 
 class HotRouting(NamedTuple):

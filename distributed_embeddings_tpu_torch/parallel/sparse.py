@@ -68,7 +68,7 @@ from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import grad as grad_lib
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    DistributedEmbedding, not_ported)
+    DistributedEmbedding, HotGrads, not_ported)
 from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 
 _F32 = 'float32'
@@ -401,16 +401,23 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
       _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
                      torch.cat(ids_list), torch.cat(grad_list), lr,
                      g_index=g_index[gi])
+    if not isinstance(hot_grads, HotGrads):  # a caller's plain dict
+      hot_grads = HotGrads(hot_grads or {})
     for gi in dist.plan.hot_groups:
       # one dense elementwise step per hot group: the grads arrived
-      # all-reduced, so every replica applies identically
+      # all-reduced, so every replica applies identically.  It runs in
+      # the backward's row chunks (overlap_chunks), each once its own
+      # all-reduce is done: elementwise per row, so bit-exact
       hk = f'hot_group_{gi}'
-      hg = hot_grads[gi].to(torch.float32)
       w = dist.plan.groups[gi].width
       cnt = 2 * w if needs_sq else w
-      optimizer.apply_hot(params[hk], opt_state[hk], hg[:, :w],
-                          hg[:, w:2 * w] if needs_sq else None, lr,
-                          count=hg[:, cnt:cnt + 1] if needs_touch else None)
+      for lo, hi, hg in hot_grads.chunks(gi):
+        hg = hg.to(torch.float32)
+        optimizer.apply_hot(params[hk][lo:hi],
+                            {k: v[lo:hi] for k, v in opt_state[hk].items()},
+                            hg[:, :w], hg[:, w:2 * w] if needs_sq else None,
+                            lr,
+                            count=hg[:, cnt:cnt + 1] if needs_touch else None)
     return params, opt_state
 
   dist._fn_cache[key] = apply

@@ -73,6 +73,9 @@ class ServingEngine:
       and are served with no exchange.
     compute_dtype / lookup_impl / strategy / column_slice_threshold /
       row_slice: as in ``DistributedEmbedding``.
+    fused_exchange: ship every group's buffers through ONE collective
+      per exchange phase (default) or one per group (False), as in
+      ``DistributedEmbedding``; reported by ``stats``.
     cold_tier / device_hbm_budget / cold_fetch_rows / wire_dtype:
       forwarded; those not ported raise.
   """
@@ -93,6 +96,7 @@ class ServingEngine:
                cold_tier: bool = False,
                device_hbm_budget: Optional[int] = None,
                cold_fetch_rows=None,
+               fused_exchange: bool = True,
                wire_dtype: Optional[str] = None):
     weights = list(weights)
     if table_dtype == 'auto':
@@ -114,6 +118,7 @@ class ServingEngine:
         cold_tier=cold_tier,
         device_hbm_budget=device_hbm_budget,
         cold_fetch_rows=cold_fetch_rows,
+        fused_exchange=fused_exchange,
         wire_dtype=wire_dtype)
     batch_size = int(batch_size)
     if batch_size < 1:
@@ -296,4 +301,7 @@ class ServingEngine:
           'pad_waste_pct': (round(100.0 * self._pad_rows / launched, 3)
                             if launched else None),
           'world_size': self.dist.world_size,
+          'hot_cache': bool(self.dist.hot_enabled),
+          'fused_exchange': bool(self.dist.fused_exchange),
+          'wire_dtype': self.dist.wire_dtype,
       }

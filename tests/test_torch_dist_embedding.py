@@ -24,6 +24,7 @@ from distributed_embeddings_tpu_torch.parallel import hotcache
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 
 import torch_parity
 
@@ -164,7 +165,6 @@ def test_input_checks_match_jax():
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(overlap_chunks=2), 8),
     (dict(table_dtype='int8'), 9),
     (dict(wire_dtype='bfloat16'), 9),
     (dict(dcn_sharding=True), 10),
@@ -176,6 +176,42 @@ def test_unported_options_refuse(kw, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
     DistributedEmbedding([TableConfig(10, 8, combiner='sum')],
                          device='cpu', **kw)
+
+
+def test_overlap_options_build_and_run():
+  # item 8 is ported: overlap_chunks > 1 and fused_exchange=False build
+  # (the card by default) and equal the default layer
+  tables = [TableConfig(10, 8, combiner='sum'), TableConfig(12, 8, 'sum'),
+            TableConfig(14, 8, 'sum')]
+  with pytest.raises(RuntimeError, match='no CUDA'):
+    DistributedEmbedding(tables, overlap_chunks=2)
+  base = DistributedEmbedding(tables, device='cpu')
+  ids = [np.array([[0, 5, -1], [2, 2, 11]], np.int32),
+         np.array([3, 11], np.int32), np.array([[13], [0]], np.int32)]
+  want = base.apply(base.init(0), ids)
+  for kw in (dict(overlap_chunks=2), dict(overlap_chunks=3),
+             dict(fused_exchange=False)):
+    d = DistributedEmbedding(tables, device='cpu', **kw)
+    assert d.overlap_chunks == kw.get('overlap_chunks', 1)
+    assert d.fused_exchange == kw.get('fused_exchange', True)
+    for a, b in zip(d.apply(d.init(0), ids), want):
+      assert torch.equal(a, b)
+
+
+def test_serving_engine_per_group_exchange_answers_the_same():
+  tables = [TableConfig(50, 8, combiner='sum'), TableConfig(30, 16, 'mean')]
+  rng = np.random.default_rng(2)
+  weights = [rng.normal(size=(50, 8)).astype(np.float32),
+             rng.normal(size=(30, 16)).astype(np.float32)]
+  engines = [ServingEngine(tables, weights, batch_size=16, device='cpu',
+                           hotness=(1, 3), fused_exchange=fused)
+             for fused in (True, False)]
+  assert [e.stats()['fused_exchange'] for e in engines] == [True, False]
+  for n in (1, 5, 16):
+    req = [rng.integers(0, 50, n).astype(np.int32),
+           rng.integers(-1, 30, (n, 3)).astype(np.int32)]
+    for a, b in zip(*(e.lookup_padded(req) for e in engines)):
+      assert torch.equal(a, b)
 
 
 def test_hot_cache_option_builds_and_runs():

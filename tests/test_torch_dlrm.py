@@ -281,8 +281,7 @@ def test_entry_point_trains_and_evaluates(capsys):
 @pytest.mark.parametrize('flags,item', [
     (['--dataset_path', 'criteo'], '12'),
     (['--cold_tier_budget_mb', '64'], '12'),
-    (['--overlap_chunks', '2'], '8'),
-    (['--no-fused_exchange'], '8'), (['--table_dtype', 'int8'], '9'),
+    (['--table_dtype', 'int8'], '9'),
     (['--wire_dtype', 'bfloat16'], '9'), (['--csr_feed'], '12'),
     (['--loader_bench'], '12'),
     (['--trace', 't.json'], '14')])
@@ -314,6 +313,56 @@ def test_entry_point_trains_with_the_hot_cache(capsys, tmp_path):
                                            state.params['embedding']),
                   weights):
     np.testing.assert_array_equal(a, b)
+
+
+def _state_arrays(path):
+  with np.load(path) as z:
+    return {k: z[k] for k in z.files}
+
+
+def test_entry_point_trains_chunked_as_unchunked(tmp_path):
+  # --overlap_chunks is ported (item 8): the chunked run saves the very
+  # arrays of the unchunked one
+  got = {}
+  for chunks in (1, 3):
+    path = str(tmp_path / f'c{chunks}.npz')
+    out = dlrm_main.main(SMALL_FLAGS + [
+        '--dp_input', '--overlap_chunks', str(chunks), '--max_steps', '3',
+        '--save_state', path])
+    assert out['step'] == 3 and np.isfinite(out['loss'])
+    got[chunks] = _state_arrays(path)
+  assert sorted(got[1]) == sorted(got[3])
+  for k in got[1]:
+    np.testing.assert_array_equal(got[1][k], got[3][k], err_msg=k)
+
+
+def test_entry_point_trains_with_the_per_group_exchange(capsys):
+  out = dlrm_main.main(SMALL_FLAGS + ['--no-fused_exchange', '--dp_input',
+                                      '--overlap_chunks', '2',
+                                      '--max_steps', '2'])
+  assert out['step'] == 2 and np.isfinite(out['loss'])
+  assert 'trained 128 samples in ' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('flags', [['--overlap_chunks', '2'],
+                                   ['--overlap_chunks', '2', '--dp_input',
+                                    '--trainer', 'dense']],
+                         ids=['mp_input', 'dense'])
+def test_entry_point_overlap_refusals_match_jax(flags):
+  # the JAX example refuses before it builds anything
+  from examples.dlrm import main as jax_main
+  import sys
+  jax_flags = [f for f in SMALL_FLAGS if f not in ('--device', 'cpu')]
+  argv, sys.argv = sys.argv, ['main.py'] + jax_flags + flags
+  try:
+    with pytest.raises(SystemExit) as want:
+      jax_main.main()
+  finally:
+    sys.argv = argv
+  with pytest.raises(SystemExit) as got:
+    dlrm_main.main(SMALL_FLAGS + flags)
+  assert str(got.value) == str(want.value)
+  assert '--overlap_chunks > 1' in str(got.value)
 
 
 @pytest.mark.parametrize('flags,why', [

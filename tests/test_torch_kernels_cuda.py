@@ -31,6 +31,9 @@ segment sums (``routing.segment_sum``, the ``'add'`` into a zero-fill) at
 the odd widths ``w + 1`` and ``2w + 1`` of its touch and squares
 columns, bit-exact; a hot layer on the card equals the uncached layer
 and, after a hybrid step, its own run on the CPU.
+The chunked exchange (``overlap_chunks=3``) on the card: the forward and
+the tables after a hybrid step equal the unchunked layer's bit for bit,
+cached and uncached, with more lookup launches a forward.
 """
 
 import numpy as np
@@ -803,6 +806,46 @@ def test_hot_layer_on_the_card_matches_the_cpu(cuda_device):
         on, state.params['embedding'])]
   for a, b in zip(got['cuda'], got['cpu']):
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hot', [False, True], ids=['uncached', 'cached'])
+def test_chunked_layer_on_the_card_equals_unchunked(cuda_device, hot):
+  tables = [TableConfig(300 + 10 * i, 8, 'sum') for i in range(5)] + [
+      TableConfig(200, 16, 'mean'), TableConfig(150, 16, 'mean')]
+  hot_sets = ({0: hotcache.HotSet(0, np.arange(20)),
+               5: hotcache.HotSet(5, np.arange(7))} if hot else None)
+  rng = np.random.default_rng(1)
+  weights = [rng.normal(size=(t.input_dim, t.output_dim)).astype(np.float32)
+             for t in tables]
+  cats = [rng.integers(-1, t.input_dim + 2,
+                       size=(256, 1 + i % 3)).astype(np.int32)
+          for i, t in enumerate(tables)]
+  got = {}
+  for chunks in (1, 3):
+    d = DistributedEmbedding(tables, device=cuda_device, overlap_chunks=chunks,
+                             hot_cache=hot_sets)
+    params = checkpoint.set_weights(d, weights)
+    before = lookup.LAUNCHES
+    with torch.no_grad():
+      outs = d.apply(params, cats)
+    launched = lookup.LAUNCHES - before
+    opt = sparse.SparseAdagrad(learning_rate=0.1)
+    state = sparse.init_hybrid_train_state(d, {'embedding': params}, _NoOpt(),
+                                           opt)
+    step = sparse.make_hybrid_train_step(
+        d, lambda dense, embs, _: sum((e.float()**2).mean() for e in embs),
+        _NoOpt(), opt)
+    state, _ = step(state, cats, None)
+    got[chunks] = (outs, checkpoint.get_weights(d, state.params['embedding']),
+                   launched)
+  for a, b in zip(got[1][0], got[3][0]):
+    assert torch.equal(a, b)
+  for a, b in zip(got[1][1], got[3][1]):
+    assert torch.equal(a, b)
+  # the chunked forward launches the cold/dp lookup once per (subgroup,
+  # round): more launches than the unchunked one
+  assert got[3][2] > got[1][2]
 
 
 class _NoOpt:

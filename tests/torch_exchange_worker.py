@@ -4,8 +4,10 @@ tests/test_torch_train_ranks.py), model-parallel-input forward and
 step (``mp``, for tests/test_torch_mp_input.py), dense autodiff step
 (``dense``, for tests/test_torch_dense_ranks.py), ragged inputs
 through all three (``ragged``, for tests/test_torch_ragged_dist.py;
-``ragged_run`` is the world of one's and each rank's body there) or a
-hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py): joins a gloo world on
+``ragged_run`` is the world of one's and each rank's body there), a
+hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py) or
+the chunked exchange (``overlap``, for
+tests/test_torch_overlap_ranks.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -420,6 +422,173 @@ def hot(rank, world_size, init_method, case_path, out_dir):
       json.dump({'legs': legs, 'hot_group': gi, 'findings': {
           k: [[x.check, x.leaf, list(x.devices), list(x.rows)] for x in v]
           for k, v in findings.items()}}, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def overlap(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the chunked exchange (``overlap_chunks``) and the
+  per-group schedule (``fused_exchange=False``), for
+  tests/test_torch_overlap_ranks.py.  For every arm of ``case['arms']``
+  (hot sets on or off, chunk count, fused): the forward of its slice of
+  the first batch, ``backward_to_mp`` under fixed cotangents (uncached),
+  2 ``SparseAdagrad`` and 2 ``SparseAdam`` steps and (uncached) 2 dense
+  SGD steps, each from the case's weights, and the legs of the
+  forward's and the backward's ``LookupPlan``s; then the order of the
+  calls of one 3-round forward, and the row-slice refusal's message."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import dist_embedding
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import hotcache
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot_sets = {t: hotcache.HotSet(t, np.asarray(v))
+                for t, v in case['hot'].items()}
+    b = case['batch'] // world_size
+    mine = lambda cats: [c[rank * b:(rank + 1) * b] for c in cats]
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+
+    def layer(hot, chunks, fused):
+      return dist_embedding.DistributedEmbedding(
+          tables, mesh=m, input_table_map=case['input_table_map'],
+          overlap_chunks=chunks, fused_exchange=fused,
+          hot_cache=hot_sets if hot else None,
+          **(case['hot_options'] if hot else {}))
+
+    def head(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    def sparse_run(dist, emb_opt):
+      dense_opt = optim.sgd(case['lr'])
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+                 'kernel': torch.tensor(case['kernel'])}, dense_opt, emb_opt)
+      step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
+      losses = []
+      for cats in case['batches']:
+        state, loss = step(state, mine(cats), labels)
+        losses.append(float(loss))
+      got = {f'w{i}': w.numpy() for i, w in enumerate(
+          checkpoint.get_weights(dist, state.params['embedding']))}
+      for i, s in enumerate(checkpoint.get_optimizer_state(
+          dist, state.opt_state[1])):
+        got.update({f's{i}_{k}': v.numpy() for k, v in s.items()})
+      got['losses'] = np.array(losses)
+      return got
+
+    def dense_run(dist):
+      def loss_fn(p, batch):
+        cats, y = batch
+        return head(p, dist.apply(p['embedding'], cats), y)
+
+      opt = optim.sgd(case['lr'])
+      state = grad.init_train_state(
+          {'embedding': checkpoint.set_weights(dist, case['weights']),
+           'kernel': torch.tensor(case['kernel'])}, opt)
+      step = grad.make_train_step(loss_fn, opt, group=m.group)
+      losses = []
+      for cats in case['batches']:
+        state, loss = step(state, (mine(cats), labels))
+        losses.append(float(loss))
+      got = {f'w{i}': w.numpy() for i, w in enumerate(
+          checkpoint.get_weights(dist, state.params['embedding']))}
+      got['losses'] = np.array(losses)
+      return got
+
+    legs = {}
+    for hot, chunks, fused in case['arms']:
+      tag = f'{int(hot)}_{chunks}_{int(fused)}'
+      dist = layer(hot, chunks, fused)
+      params = checkpoint.set_weights(dist, case['weights'])
+      cats = mine(case['batches'][0])
+      with torch.no_grad():
+        outs, _, sig = dist.forward_with_residuals(params, cats)
+      got = {f'o{i}': o.numpy() for i, o in enumerate(outs)}
+      d_outs = [torch.as_tensor(d[rank * b:(rank + 1) * b])
+                for d in case['d_outs']]
+      if hot:
+        gsubs, hot_grads = dist.backward_to_mp(d_outs, *sig, cats=cats)
+        got.update({f'h{gi}': g.numpy() for gi, g in hot_grads.items()})
+      else:
+        gsubs = dist.backward_to_mp(d_outs, *sig)
+      got.update({f'g{i}': g.numpy() for i, g in enumerate(gsubs)})
+      legs[tag] = {p.path: [l.as_dict() for l in p.legs]
+                   for p in dist._lookup_plans.values()}
+      for name, opt in (('adagrad', sparse.SparseAdagrad(case['lr'])),
+                        ('adam', sparse.SparseAdam(case['lr']))):
+        got.update({f'{name}_{k}': v for k, v in sparse_run(
+            layer(hot, chunks, fused), opt).items()})
+      if not hot:
+        got.update({f'dense_{k}': v
+                    for k, v in dense_run(layer(hot, chunks, fused)).items()})
+      np.savez(f'{out_dir}/overlap{rank}_{tag}.npz', **got)
+
+    # the order of one 3-round forward's calls: each round's id
+    # exchange is issued before the round before it is waited on and
+    # looked up, and every collective of the loop is asynchronous
+    events = []
+    issue, wait = (dist_embedding.DistributedEmbedding._issue,
+                   dist_embedding._Pending.wait)
+    fused_lookup, a2a = (lookup_ops.fused_group_lookup,
+                         torch_dist.all_to_all_single)
+
+    def rec_issue(self, bufs, name, plan=None):
+      events.append(f'issue {name}')
+      return issue(self, bufs, name, plan)
+
+    def rec_wait(self):
+      events.append('wait')
+      return wait(self)
+
+    def rec_lookup(*a, **k):
+      events.append('lookup')
+      return fused_lookup(*a, **k)
+
+    def rec_a2a(*a, async_op=False, **k):
+      events.append(f'a2a async={async_op}')
+      return a2a(*a, async_op=async_op, **k)
+
+    dist = layer(False, 3, True)
+    params = checkpoint.set_weights(dist, case['weights'])
+    dist_embedding.DistributedEmbedding._issue = rec_issue
+    dist_embedding._Pending.wait = rec_wait
+    lookup_ops.fused_group_lookup = rec_lookup
+    torch_dist.all_to_all_single = rec_a2a
+    try:
+      with torch.no_grad():
+        dist.apply(params, mine(case['batches'][0]))
+    finally:
+      dist_embedding.DistributedEmbedding._issue = issue
+      dist_embedding._Pending.wait = wait
+      lookup_ops.fused_group_lookup = fused_lookup
+      torch_dist.all_to_all_single = a2a
+
+    refusal = None
+    try:
+      dist_embedding.DistributedEmbedding(
+          tables, mesh=m, input_table_map=case['input_table_map'],
+          overlap_chunks=3, **case['hot_options'])
+    except ValueError as e:
+      refusal = str(e)
+    with open(f'{out_dir}/overlap{rank}.json', 'w') as f:
+      json.dump({'legs': legs, 'events': events, 'refusal': refusal}, f)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
