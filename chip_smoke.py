@@ -124,7 +124,29 @@ Phases, each of which exits non-zero on failure:
             a warm-up and 5 steps bit-equal, hot buffers included; the
             hot apply in 4 row chunks); 2 dense make_train_step steps
             (phase 14's configuration) each way bit-equal, each arm's
-            peak above its resident state.   the tiny model freed, the DLRM of examples/dlrm/main.py at
+            peak above its resident state.
+9g. quant-tiny: the tiny model freed, the tiny model at full size in
+            int8, then in fp8 (1.31 GiB of payloads and scales each,
+            drawn and quantized on the card): the lookup kernel's
+            dequantizing arm against its plain version on every lookup
+            of a forward (bit-exact hotness 1, 1e-6 hotness 10), with
+            kernel, plain and library (embedding_bag over the
+            dequantized tables, the dequantization inside) device times
+            beside the bound; a forward whose every lookup is on the
+            dequantizing arm (counted), its first 512 samples equal to a
+            plain gather of the dequantized tables; an engine serving
+            the same values quantized answers requests of 1, 5, 64 and
+            4096 samples equal to the model's lookup; phase 9e's hot
+            sets over the same draw: the cached forward equal to the
+            uncached one (bit-exact hotness 1) and a cached step;
+            phase 7's optimizers, a warm-up and 3 steps (losses finite,
+            every lookup on the dequantizing arm, every segment sum on
+            the segment walk, counted), then one more step whose every
+            requantization equals the numpy quantizer and whose rows
+            named by no id keep their bits; in int8, one checkpoint
+            (payload and scale pairs, accumulators, MLP) saved and
+            restored in place, equal in every logical leaf.
+10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
             input (dp_input=False), bf16 compute, drawn on the card;
@@ -182,7 +204,20 @@ Phases, each of which exits non-zero on failure:
             exchange programs.  Then examples/dlrm/main.py --dp_input
             --overlap_chunks 4 and --overlap_chunks 1 in process at phase
             13b's onechip vocabularies, 3 steps and --save_state each:
-            the two files list the same sha256 for every array. the DLRM freed, the tiny model at full size again,
+            the two files list the same sha256 for every array.
+13e. dlrm-int8: examples/dlrm/main.py --table_dtype int8 --param_dtype
+            float32's model and trainer at the MLPerf Criteo-1TB
+            vocabularies, no cut (187,767,399 rows x 128: 22.38 GiB of
+            int8 payload and 0.70 GiB of scales, drawn and quantized in
+            blocks on the card), model-parallel input, f32 MLPs: one
+            forward (one dequantizing lookup), its lookup against the
+            plain version (bit-exact) timed beside the bound (no library
+            call: it would need the 89.5 GiB f32 table); the example's
+            sparse trainer (SparseSGD(24), SGD on the schedule), a
+            warm-up and 4 timed steps (losses finite, one dequantizing
+            lookup and one segment-walk 'add' each, counted), peak
+            memory, the host syncs of one more step.
+14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
             segment walk's 'add', then optax-style Adagrad(0.01, 0.1,
@@ -251,11 +286,13 @@ of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
 phases 9c and 13b, phase 9d's steps, phase 9e's forward, requests,
 steps and lazy-Adam steps, phase 13c's run, each arm of phases 9f
 and 13d (forwards, sparse, cached and dense steps, the example runs)
-and phase 20's benchmark (with the CSR arm's launches,
-``lookup.ARM_LAUNCHES``).
+phase 9g's forward, requests and steps of each dtype, phase 13e's
+forward and steps (with the dequantizing arm's launches) and phase 20's
+benchmark (with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
-segment walk, its two bf16 arms, its adam op and the lookup's CSR
-arm); each row and summary with a kernel time says by which ``clock``:
+segment walk, its two bf16 arms, its adam op, the lookup's CSR arm and
+its dequantizing arm: launches from phase 13e's steps, times at its
+shape, the tiny models' shapes beside them); each row and summary with a kernel time says by which ``clock``:
 ``queued`` (CUDA events around back-to-back calls queued ahead of the
 device, so no launch gap counts) or ``events: <keys>`` (the times of
 calls that wait on the device, their gaps counted).
@@ -296,6 +333,7 @@ from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
                                                        checkpoint, grad,
                                                        hotcache, overlap,
+                                                       quantization,
                                                        routing, sparse)
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
@@ -345,6 +383,15 @@ CSR_ARM = {
     'source': 'distributed_embeddings_tpu_torch/csrc/lookup_combine.cu',
     'replaces': 'distributed_embeddings_tpu/ops/embedding_lookup.py:114',
 }
+# the lookup's dequantizing arm (quantized tables): an arm of the same
+# source, built with it; it stands in for the JAX package's XLA
+# _fused_lookup scale branch (the Pallas kernel had no such arm)
+DEQUANT_ARM = {
+    'name': 'lookup_combine:dequant',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/lookup_combine.cu',
+    'replaces': 'distributed_embeddings_tpu/parallel/dist_embedding.py:2984',
+}
 MODEL = 'tiny'
 BATCH = 65536  # global batch of the forward and of training
 REQUEST_SIZES = (1, 5, 64, 4096)
@@ -374,6 +421,9 @@ DLRM_HOT_STEPS = 5  # phase 13c's steps
 CHUNKS = 4  # phases 9f and 13d: bench.py's default overlap_chunks
 CHUNKED_DENSE_STEPS = 2  # phase 9f's dense steps each way
 CHUNKED_EXAMPLE_STEPS = 3  # phase 13d's example runs
+QUANT_DTYPES = ('int8', 'float8_e4m3')  # phase 9g's two tiny models
+QUANT_STEPS = 3  # phase 9g's steps after the warm-up, each dtype
+DLRM_INT8_STEPS = 4  # phase 13e's steps after the warm-up
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
@@ -540,9 +590,10 @@ def captured_lookups(model, numerical, cats):
   calls = []
   kernel = lookup.fused_group_lookup
 
-  def record(table, routed, combiners, compute_dtype):
-    calls.extend((table, r, c) for r, c in zip(routed, combiners))
-    return kernel(table, routed, combiners, compute_dtype)
+  def record(table, routed, combiners, compute_dtype, scale=None):
+    calls.extend((table, r, c) if scale is None else (table, r, c, scale)
+                 for r, c in zip(routed, combiners))
+    return kernel(table, routed, combiners, compute_dtype, scale)
 
   lookup.fused_group_lookup = record
   try:
@@ -740,13 +791,14 @@ def phase_profile(model, numerical, cats, trace=None):
                  trace)
 
 
-def phase_serving(model, weights, cats, rng):
+def phase_serving(model, weights, cats, rng, table_dtype='auto',
+                  tag='serving'):
   dist = model.dist_embedding
   n_subs = len(dist._subgroups(tuple(model.hotness)))
   engine = ServingEngine(dist.table_configs, weights,
                          batch_size=SERVE_BATCH, device=dist.device,
                          input_table_map=model.input_table_map,
-                         hotness=model.hotness)
+                         hotness=model.hotness, table_dtype=table_dtype)
   batch = np.asarray(cats[0]).shape[0]
   lookup.LAUNCHES = 0
   engine.warmup(sample_cats=[c[:SERVE_BATCH] for c in cats])
@@ -783,11 +835,11 @@ def phase_serving(model, weights, cats, rng):
           raise AssertionError(f'request of {len(req[0])}: input {i} '
                                'differs from the model lookup')
   for n, times in request_ms.items():
-    log(f'[serving] request of {n} samples: ms {[round(t, 3) for t in times]}'
+    log(f'[{tag}] request of {n} samples: ms {[round(t, 3) for t in times]}'
         f' median {statistics.median(times):.3f} (host clock, '
         'synchronised; pad + copy + lookup)')
-  log(f'[serving] stats {json.dumps(engine.stats())}')
-  log(f'[serving] {len(answers)} answers equal the model lookup '
+  log(f'[{tag}] stats {json.dumps(engine.stats())}')
+  log(f'[{tag}] {len(answers)} answers equal the model lookup '
       '(bit-exact hotness 1, 1e-6 hotness 10); kernel launches '
       f'{json.dumps(launches)}: {lookups} request lookups x {n_subs} '
       f'subgroups, after {warm_launches} in the warm-up of {warm_lookups} '
@@ -2511,13 +2563,13 @@ def captured_hot_step(step, state, cats, batch):
   fused, dense, segsum = (lookup.fused_group_lookup, lookup.dense_lookup,
                           routing.segment_sum)
 
-  def record_fused(table, routed, combiners, compute_dtype):
+  def record_fused(table, routed, combiners, compute_dtype, scale=None):
     gathers.extend((table, r) for r in routed)
-    return fused(table, routed, combiners, compute_dtype)
+    return fused(table, routed, combiners, compute_dtype, scale)
 
-  def record_dense(table, ids, combiner, out_dtype=None):
+  def record_dense(table, ids, combiner, out_dtype=None, scale=None):
     partials.append((table, ids))
-    return dense(table, ids, combiner, out_dtype)
+    return dense(table, ids, combiner, out_dtype, scale)
 
   def record_sum(seg, rows, num, row_index=None):
     sums.append((seg, rows, num, row_index))
@@ -3164,9 +3216,15 @@ def exchange_stats(tag, arms, cats, off_ms, on_ms):
   stats = overlap.a2a_overlap_stats(
       off_ms, on_ms, exch['chunked'], CHUNKS,
       overlap.group_chunk_counts(dict(arms)['chunked'].plan))
-  log(f'[{tag}] world of one: no collective. measure_exchange_ms '
-      f'{json.dumps(exch)} (the exchange program, buffer plumbing only); '
-      f'a2a_overlap_stats {json.dumps(stats)}')
+  # a world of one has no all_to_all to hide: the derived share would be
+  # read from host noise in the step times, so it is not reported
+  stats['a2a_overlap_pct'] = None
+  log(f'[{tag}] world of one: no collective, so a2a_overlap_pct is not '
+      'applicable (null): its numerator would be the difference of two '
+      'step times that run the same work, host noise')
+  log(f'[{tag}] measure_exchange_ms {json.dumps(exch)} (the exchange '
+      'program, buffer plumbing only); a2a_overlap_stats '
+      f'{json.dumps(stats)}')
   return {'exchange_ms': exch, 'a2a': stats}
 
 
@@ -3681,6 +3739,472 @@ def summed(kernel, launches, rows, extra=None):
   return entry
 
 
+# ------------------------------------------------ quantized table storage
+
+
+def check_dequant_shape(table, ids, scale, label, library=True):
+  """The dequantizing arm against its plain version at one shape, and
+  its timings: kernel, plain, and (``library``) ``embedding_bag`` over
+  the dequantized table, the dequantization timed inside (no PyTorch
+  call takes an int8 or fp8 table with per-row scales)."""
+  m, h = ids.shape
+  w = table.shape[1]
+  lookup.ARM_LAUNCHES['dequant'] = 0
+  got = lookup.dense_lookup(table, ids, 'sum', scale=scale)
+  want = lookup.dense_lookup_reference(table, ids, 'sum', scale=scale)
+  torch.cuda.synchronize()
+  if lookup.ARM_LAUNCHES['dequant'] != 1:
+    raise AssertionError(f'{label}: the dequantizing arm did not launch')
+  err = float((got - want).abs().max()) if m else 0.0
+  if h == 1:
+    ok, tol = torch.equal(got, want), 'bit-exact'
+  else:
+    ok = torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+    tol = 'rtol=atol=1e-6 (sum order)'
+  if not ok:
+    raise AssertionError(f'{label}: the dequantizing arm disagrees with '
+                         f'its plain version, max abs err {err} ({tol})')
+  del got, want
+  mask = (ids >= 0) & (ids < table.shape[0])
+  safe = torch.where(mask, ids, 0).long()
+  valid = int(mask.sum())
+  distinct = int(torch.unique(ids[mask]).numel())
+  # each id read once, each distinct row's payload and scale once, each
+  # output written once; a multiply and an add an element
+  row_bytes = w * table.element_size() + 4
+  nbytes = m * h * 4 + distinct * row_bytes + m * w * 4
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  ops_ms = 2 * valid * w / F32_FLOP_PER_S * 1e3
+  floor = max(bytes_ms, ops_ms)
+  kernel = lambda: lookup.dense_lookup(table, ids, 'sum', scale=scale)
+  plain = lambda: lookup.dense_lookup_reference(table, ids, 'sum',
+                                                scale=scale)
+  row = {
+      'shape': label, 'M': m, 'h': h, 'w': w,
+      'dtype': str(table.dtype).replace('torch.', ''),
+      'valid_ids': valid, 'distinct_rows': distinct, 'bytes': nbytes,
+      'max_abs_err': err, 'tolerance': tol,
+      'kernel_ms': device_ms(kernel, 20, floor_ms=floor),
+      'plain_ms': device_ms(plain, 3, floor_ms=floor),
+      'library_ms': None,
+      'bound_ms': floor,
+      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
+  }
+  if library:
+    weights = mask.to(torch.float32)
+    row['library_ms'] = device_ms(
+        lambda: torch.nn.functional.embedding_bag(
+            safe, quantization.dequantize(table, scale), mode='sum',
+            per_sample_weights=weights), 5, floor_ms=floor)
+  row['achieved_GBps'] = nbytes / (row['kernel_ms'] * 1e-3) / 1e9
+  log('[dequant] ' + json.dumps(clocked(row)))
+  return row
+
+
+def quant_gib(params):
+  """GiB of a quantized layer's payloads and scales."""
+  return sum(t.numel() * t.element_size() for t in params.values()) / 2**30
+
+
+def captured_quantize(step, state, cats, batch):
+  """One real step that also records every requantization (the rows in
+  and the payload and scale out) and each quantized group's touched rows
+  (the valid ids of its stream)."""
+  quants, touched = [], {}
+  quantize, apply_q = quantization.quantize, sparse._apply_quantized
+
+  def record_quantize(rows, spec):
+    p, sc = quantize(rows, spec)
+    quants.append((rows.detach().clone(), p.clone(), sc.clone(), spec))
+    return p, sc
+
+  def record_apply(optimizer, spec, payload, scale, state, flat_ids, *a,
+                   **k):
+    ok = (flat_ids >= 0) & (flat_ids < payload.shape[0])
+    touched[payload.data_ptr()] = torch.unique(flat_ids[ok]).long()
+    return apply_q(optimizer, spec, payload, scale, state, flat_ids, *a, **k)
+
+  quantization.quantize = record_quantize
+  sparse._apply_quantized = record_apply
+  try:
+    state, loss = step(state, cats, batch)
+  finally:
+    quantization.quantize = quantize
+    sparse._apply_quantized = apply_q
+  return state, loss, quants, touched
+
+
+def check_requant_and_untouched(dist, params, before, quants, touched,
+                                tag, max_rows=1 << 18):
+  """The card's requantization of a step against the numpy quantizer on
+  the host (the first ``max_rows`` rows of each call), and the rows no id
+  of the step named unchanged bit for bit, payload and scale.  Returns
+  the rows checked and the rows that changed."""
+  rows_checked = 0
+  for rows, p, sc, spec in quants:
+    n = min(rows.shape[0], max_rows)
+    want_p, want_s = quantization.quantize_np(rows[:n].cpu().numpy(), spec)
+    if not (np.array_equal(p[:n].view(torch.uint8).cpu().numpy(),
+                           want_p.view(np.uint8))
+            and np.array_equal(sc[:n].cpu().numpy(), want_s)):
+      raise AssertionError(f'{tag}: the card\'s requantization differs '
+                           'from the numpy quantizer')
+    rows_checked += n
+  changed = changed_untouched = 0
+  for gi in range(len(dist.plan.groups)):
+    ids = touched.get(params[f'group_{gi}'].data_ptr())
+    for key in (f'group_{gi}', f'scale_group_{gi}'):
+      now = quantization.bits(params[key])
+      diff = (now != before[key]).reshape(now.shape[0], -1).any(dim=1)
+      mask = torch.ones_like(diff)
+      if ids is not None:
+        mask[ids] = False
+      changed += int(diff.sum())
+      changed_untouched += int((diff & mask).sum())
+  if changed_untouched or not changed:
+    raise AssertionError(f'{tag}: {changed} rows changed, '
+                         f'{changed_untouched} of them named by no id')
+  return rows_checked, changed
+
+def phase_quant_tiny(config, seed, dtype, numerical, cats, rng, ckpt):
+  """Phase 9g for one payload dtype (see the module docstring); returns
+  its numbers and kernel rows.  Everything it holds on the card is
+  freed on return."""
+  tag = f'quant-tiny:{dtype}'
+  t0 = time.perf_counter()
+  model = SyntheticModel(config, dp_input=True, device='cuda',
+                         table_dtype=dtype).init(seed)
+  torch.cuda.synchronize()
+  dist = model.dist_embedding
+  hotness = tuple(model.hotness)
+  n_subs = len(dist._subgroups(hotness))
+  n_groups = len(dist.plan.groups)
+  numbers = {'draw_s': time.perf_counter() - t0,
+             'table_gib': quant_gib(model.embedding_params)}
+  log(f'[{tag}] the tiny model at full size, {dtype} payloads and f32 '
+      f'scales: {numbers["table_gib"]:.3f} GiB (f32: '
+      f'{model.total_table_gib():.3f} GiB), drawn and quantized on the '
+      f'card in {numbers["draw_s"]:.2f} s')
+  # the arm against its plain version on the forward's own lookups
+  calls = captured_lookups(model, numerical, cats)
+  if any(len(c) != 4 for c in calls):
+    raise AssertionError(f'{tag}: a lookup went without its scale')
+  rows = [check_dequant_shape(t, r.reshape(-1, r.shape[-1]), sc,
+                              f'{dtype}_w{t.shape[1]}_h{r.shape[-1]}'
+                              f'_ncap{r.shape[0]}')
+          for t, r, _, sc in calls]
+  del calls
+  # the forward: every lookup on the dequantizing arm
+  reset_launches()
+  with torch.no_grad():
+    logits = model(numerical, cats)
+  torch.cuda.synchronize()
+  fwd = {'lookup_combine': lookup.LAUNCHES,
+         'dequant': lookup.ARM_LAUNCHES['dequant'],
+         'segwalk_apply': segwalk.LAUNCHES}
+  if fwd != {'lookup_combine': n_subs, 'dequant': n_subs,
+             'segwalk_apply': 0}:
+    raise AssertionError(f'{tag}: the forward launched {fwd}, expected '
+                         f'{n_subs} dequantizing lookups')
+  if not bool(torch.isfinite(logits).all()):
+    raise AssertionError(f'{tag}: logits not finite')
+  # a slice of the batch against a plain gather of the dequantized values
+  n_check = 512
+  weights = checkpoint.get_weights(dist, model.embedding_params)
+  head = [c[:n_check] for c in cats]
+  with torch.no_grad():
+    outs = dist.apply(model.embedding_params, head)
+    ref = plain_embedding_outputs(weights, dist.plan.input_table_map, head,
+                                  n_check)
+  for i, (o, r, h) in enumerate(zip(outs, ref, hotness)):
+    same = (torch.equal(o, r) if h == 1 else
+            torch.allclose(o, r, rtol=1e-6, atol=1e-6))
+    if not same:
+      raise AssertionError(f'{tag}: input {i} differs from the plain '
+                           'gather of the dequantized tables')
+  del outs, ref
+  log(f'[{tag}] forward at batch {BATCH}: launches {json.dumps(fwd)}, '
+      f'logits finite; the first {n_check} samples equal a plain gather of '
+      'the dequantized tables (bit-exact hotness 1, 1e-6 hotness 10)')
+  # serving: an engine quantizing the same values equals the model
+  serve = phase_serving(model, weights, cats, rng, table_dtype=dtype,
+                        tag=tag)
+  del weights
+  gc.collect()
+  torch.cuda.empty_cache()
+  # phase 9e's hot sets over the same draw: the cached forward
+  tables, _, _ = expand_tables(config)
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  hot_model = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                             device='cuda', table_dtype=dtype).init(seed)
+  hdist = hot_model.dist_embedding
+  fwd_want, step_want = hot_launches(hdist, hotness)
+  with torch.no_grad():
+    reset_launches()
+    got = hdist.apply(hot_model.embedding_params, cats)
+    hot_fwd = read_launches()
+    hot_dequant = lookup.ARM_LAUNCHES['dequant']
+    want = dist.apply(model.embedding_params, cats)
+  if hot_fwd != fwd_want or hot_dequant != fwd_want['lookup_combine']:
+    raise AssertionError(f'{tag}: the cached forward launched {hot_fwd} '
+                         f'({hot_dequant} dequantizing), expected '
+                         f'{fwd_want}')
+  for i, (g, w, h) in enumerate(zip(got, want, hotness)):
+    same = (torch.equal(g, w) if h == 1 else
+            torch.allclose(g, w, rtol=1e-6, atol=1e-6))
+    if not same:
+      raise AssertionError(f'{tag}: cached input {i} differs from the '
+                           'uncached forward')
+  del got, want
+  # one cached step (a warm-up, then a counted one)
+  hstep, hstate = build_trainer(hot_model)
+  hot_batches = train_batches(config, hotness, seed + 19, 2)
+  hstate, hloss = hstep(hstate, *hot_batches[0])
+  reset_launches()
+  hstate, hloss = hstep(hstate, *hot_batches[1])
+  torch.cuda.synchronize()
+  hot_step = read_launches()
+  if hot_step != step_want or not bool(torch.isfinite(hloss)):
+    raise AssertionError(f'{tag}: the cached step launched {hot_step} '
+                         f'(want {step_want}), loss {float(hloss)}')
+  log(f'[{tag}] phase 9e\'s hot sets ({len(train_sets)} tables): the '
+      'cached forward equals the uncached one (bit-exact hotness 1, 1e-6 '
+      f'hotness 10), launches {json.dumps(hot_fwd)}; a cached step '
+      f'launched {json.dumps(hot_step)}, loss {float(hloss):.6f}')
+  numbers['hot'] = {'forward': hot_fwd, 'step': hot_step,
+                    'loss': float(hloss)}
+  del hot_model, hdist, hstep, hstate
+  gc.collect()
+  torch.cuda.empty_cache()
+  # training: phase 7's optimizers, a warm-up and QUANT_STEPS steps
+  step, state = build_trainer(model)
+  batches = train_batches(config, hotness, seed + 5, QUANT_STEPS + 2)
+  torch.cuda.reset_peak_memory_stats()
+  state, loss = step(state, *batches[0])
+  reset_launches()
+  times, losses = [], []
+  for batch in batches[1:QUANT_STEPS + 1]:
+    t1 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t1) * 1e3)
+    losses.append(float(loss))
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'dequant': lookup.ARM_LAUNCHES['dequant'],
+              'segwalk_apply': segwalk.LAUNCHES}
+  want_launches = {'lookup_combine': QUANT_STEPS * n_subs,
+                   'dequant': QUANT_STEPS * n_subs,
+                   'segwalk_apply': QUANT_STEPS * n_groups}
+  if launches != want_launches or not all(np.isfinite(losses)):
+    raise AssertionError(f'{tag}: steps launched {launches} (want '
+                         f'{want_launches}), losses {losses}')
+  peak = torch.cuda.max_memory_allocated()
+  log(f'[{tag}] {QUANT_STEPS} steps (SparseAdagrad({LR}), Adagrad on the '
+      f'MLP): ms {[round(t, 3) for t in times]} (host clock, '
+      f'synchronised), losses {losses}; launches {json.dumps(launches)} '
+      '(every lookup on the dequantizing arm, every segment sum on the '
+      f'segment walk); peak {peak / 2**30:.3f} GiB')
+  numbers.update({'launches': launches, 'step_ms': times, 'losses': losses,
+                  'peak_gib': peak / 2**30, 'forward': fwd,
+                  'serving': serve})
+  # one more step: its requantization against numpy, untouched rows
+  emb = state.params['embedding']
+  before = {k: quantization.bits(v).clone() for k, v in emb.items()
+            if not k.startswith('hot_')}
+  state, loss, quants, touched = captured_quantize(
+      step, state, *batches[QUANT_STEPS + 1])
+  torch.cuda.synchronize()
+  checked, changed = check_requant_and_untouched(dist, emb, before, quants,
+                                                 touched, tag)
+  del before, quants
+  log(f'[{tag}] one more step: its requantization equals the numpy '
+      f'quantizer on {checked:,} rows (bit for bit, payload and scale); '
+      f'{changed:,} rows changed, every one named by an id of the step; '
+      'the others kept their bits')
+  numbers['host_syncs'] = sum(host_syncs(
+      lambda: step(state, *batches[1])).values())
+  if ckpt:
+    numbers['checkpoint'] = quant_checkpoint(model, step, state, tag)
+  del step, state, model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return numbers, rows
+
+
+def quant_checkpoint(model, step, state, tag):
+  """One quantized checkpoint: save (payload and scale pairs, the
+  Adagrad accumulators, the MLP and its optimizer state), restore into a
+  fresh draw in place, equal in every logical leaf; the file deleted."""
+  dist = model.dist_embedding
+  want = logical_digests(dist, state)
+  shutil.rmtree(CKPT_DIR / 'quant', ignore_errors=True)
+  (CKPT_DIR / 'quant').mkdir(parents=True, exist_ok=True)
+  path = str(CKPT_DIR / 'quant' / 'ckpt.npz')
+  check_disk(6e9, tag)
+  t0 = time.perf_counter()
+  checkpoint.save_train_npz(
+      path, checkpoint.export_tables(dist, state.params['embedding']),
+      checkpoint.get_optimizer_state(dist, state.opt_state[1]),
+      extras=checkpoint.train_extras(dist, state, sparse=True), plan=dist)
+  save_s = time.perf_counter() - t0
+  size = os.path.getsize(path)
+  verdict = verify_checkpoint.verify_one(path)
+  model.init(0)
+  _, fresh = build_trainer(model)
+  t0 = time.perf_counter()
+  restored, _ = checkpoint.restore_train_state(dist, fresh, path)
+  torch.cuda.synchronize()
+  restore_s = time.perf_counter() - t0
+  compare_digests(f'{tag} restore', want, logical_digests(dist, restored))
+  shutil.rmtree(CKPT_DIR / 'quant', ignore_errors=True)
+  if verdict[0] != 'OK':
+    raise AssertionError(f'{tag}: verify_checkpoint {verdict}')
+  log(f'[{tag}] checkpoint: {size / 1e9:.2f} GB saved in {save_s:.2f} s, '
+      f'restored in place in {restore_s:.2f} s, every table, accumulator, '
+      f'MLP leaf and the step equal (audit digests); verify_checkpoint '
+      f'{verdict[0]}: {verdict[1]}')
+  return {'bytes': size, 'save_s': save_s, 'restore_s': restore_s}
+
+
+def run_quant_tiny(args):
+  """Phase 9g: the tiny model in int8, then fp8 (see the module
+  docstring).  Returns the numbers and the kernel rows of each dtype."""
+  config = SYNTHETIC_MODELS[MODEL]
+  rng = np.random.default_rng(args.seed + 31)
+  (numerical, cats), _ = InputGenerator(config, BATCH, alpha=1.05,
+                                        num_batches=1, seed=args.seed + 31)[0]
+  tables, _, hotness = expand_tables(config)
+  del tables
+  cats = pad_multi_hot(cats, hotness, rng)
+  out = {}
+  for dtype in QUANT_DTYPES:
+    out[dtype] = phase_quant_tiny(config, args.seed, dtype, numerical, cats,
+                                  rng, ckpt=dtype == 'int8')
+  return out
+
+
+def run_dlrm_int8(seed):
+  """Phase 13e: examples/dlrm/main.py --table_dtype int8 --param_dtype
+  float32 at the uncut MLPerf vocabularies (see the module docstring).
+  Returns its numbers and the captured lookup's row."""
+  tag = 'dlrm-int8'
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  model = dlrm.DLRM(data.MLPERF_SIZES, embedding_dim=128,
+                    param_dtype=torch.float32, compute_dtype=torch.float32,
+                    dp_input=False, dist_strategy='memory_balanced',
+                    table_dtype='int8', device='cuda').init(seed)
+  torch.cuda.synchronize()
+  dist = model.dist_embedding
+  draw_s = time.perf_counter() - t0
+  stats = quantization.table_bytes_stats(dist.plan)
+  gib = quant_gib(model.embedding_params)
+  log(f'[{tag}] {len(data.MLPERF_SIZES)} tables at the MLPerf Criteo-1TB '
+      f'sizes, {stats["table_rows"]:,} rows x 128, int8 payloads and f32 '
+      f'scales: {gib:.3f} GiB on the card ({stats["table_payload_bytes"] / 2**30:.3f}'
+      f' GiB payload + {stats["table_scale_bytes"] / 2**30:.3f} GiB '
+      f'scales; f32 would be {stats["table_payload_bytes"] * 4 / 2**30:.3f} '
+      f'GiB), drawn and quantized in blocks on the card in {draw_s:.2f} s, '
+      f'peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB during the '
+      'draw')
+  batches = dlrm_batches(model, seed + 2, DLRM_INT8_STEPS + 3)
+  cats, (numerical, _) = batches[0]
+  reset_launches()
+  with torch.no_grad():
+    logits = model(numerical, cats)
+  torch.cuda.synchronize()
+  fwd = {'lookup_combine': lookup.LAUNCHES,
+         'dequant': lookup.ARM_LAUNCHES['dequant']}
+  if fwd != {'lookup_combine': 1, 'dequant': 1} or not bool(
+      torch.isfinite(logits).all()):
+    raise AssertionError(f'{tag}: forward launched {fwd}, logits finite '
+                         f'{bool(torch.isfinite(logits).all())}')
+  (table, routed, combiner, scale), = captured_lookups(model, numerical,
+                                                       cats)
+  # the library call would dequantize the whole table first: 89.5 GiB
+  row = check_dequant_shape(table, routed.reshape(-1, 1), scale,
+                            f'dlrm_int8_w128_h1_ncap{routed.shape[0]}',
+                            library=False)
+  del table, routed, scale, logits
+  step, state = dlrm_trainer(model)
+  torch.cuda.reset_peak_memory_stats()
+  state, loss = step(state, *batches[1])
+  reset_launches()
+  times, losses = [], []
+  for batch in batches[2:DLRM_INT8_STEPS + 2]:
+    t1 = time.perf_counter()
+    state, loss = step(state, *batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t1) * 1e3)
+    losses.append(float(loss))
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'dequant': lookup.ARM_LAUNCHES['dequant'],
+              'segwalk_apply': segwalk.LAUNCHES}
+  want = {'lookup_combine': DLRM_INT8_STEPS, 'dequant': DLRM_INT8_STEPS,
+          'segwalk_apply': DLRM_INT8_STEPS}
+  if launches != want or not all(np.isfinite(losses)):
+    raise AssertionError(f'{tag}: steps launched {launches} (want {want}), '
+                         f'losses {losses}')
+  peak = torch.cuda.max_memory_allocated()
+  syncs = host_syncs(lambda: step(state, *batches[DLRM_INT8_STEPS + 2]))
+  med = statistics.median(times)
+  log(f'[{tag}] the example\'s sparse trainer (SparseSGD(24), SGD on the '
+      f'schedule): {DLRM_INT8_STEPS} steps, ms {[round(t, 3) for t in times]}'
+      f' (host clock, synchronised), median {med:.3f} = '
+      f'{BATCH / med * 1e3:,.0f} samples/s; losses {losses}; launches '
+      f'{json.dumps(launches)}; peak {peak / 2**30:.3f} GiB; host syncs of '
+      f'one more step {sum(syncs.values())}, by line '
+      f'{json.dumps(dict(syncs.most_common()))}')
+  numbers = {'table_gib': gib, 'draw_s': draw_s, 'forward': fwd,
+             'launches': launches, 'step_ms': times, 'losses': losses,
+             'peak_gib': peak / 2**30, 'host_syncs': sum(syncs.values())}
+  del model, step, state
+  gc.collect()
+  torch.cuda.empty_cache()
+  return numbers, row
+
+
+def dequant_summary(quant_tiny, dlrm_int8):
+  """The dequantizing arm's row of the kernels line: launches and times
+  at the main path's shape (phase 13e's steps and captured lookup), each
+  tiny model's shapes beside it."""
+  numbers, row = dlrm_int8
+  entry = dict(DEQUANT_ARM)
+  tiny = {}
+  errs = [row['max_abs_err']]
+  for dtype, (n, rows) in quant_tiny.items():
+    errs += [r['max_abs_err'] for r in rows]
+    tiny[dtype] = {
+        'launches': n['launches']['dequant'],
+        'ms': sum(r['kernel_ms'] for r in rows),
+        'plain_ms': sum(r['plain_ms'] for r in rows),
+        'bound_ms': sum(r['bound_ms'] for r in rows),
+        'library_ms': sum(r['library_ms'] for r in rows),
+        'shapes': [{k: r[k] for k in ('shape', 'M', 'h', 'w', 'dtype',
+                                      'distinct_rows', 'kernel_ms',
+                                      'plain_ms', 'library_ms', 'bound_ms',
+                                      'tolerance', 'max_abs_err')}
+                   for r in rows],
+        'numbers': n}
+  entry.update({
+      'launches': numbers['launches']['dequant'],
+      'max_abs_err': max(errs),
+      'ms': row['kernel_ms'], 'plain_ms': row['plain_ms'],
+      'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+      'library_ms': None,
+      'library_note': ('no PyTorch call takes an int8 table with per-row '
+                       'scales; embedding_bag over the dequantized table '
+                       'would make an 89.5 GiB f32 copy (the tiny models\' '
+                       'library_ms time it, dequantization inside)'),
+      'shape': {k: row[k] for k in ('M', 'h', 'w', 'dtype',
+                                    'distinct_rows', 'bytes', 'tolerance')},
+      'dlrm_int8': numbers,
+      'quant_tiny': tiny,
+  })
+  return entry
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -3700,6 +4224,9 @@ def main(argv=None) -> int:
   log(f'[dlrm] after the tiny model: device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
       f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
+  quant_tiny = run_quant_tiny(args)
+  gc.collect()
+  torch.cuda.empty_cache()
   run_dlrm(args.seed, k, seg)
   gc.collect()
   torch.cuda.empty_cache()
@@ -3721,6 +4248,13 @@ def main(argv=None) -> int:
                   dlrm_chunked_rows, {'forward': 'forward_launches',
                                       'sparse': 'steps',
                                       'example': 'example'})
+  gc.collect()
+  torch.cuda.empty_cache()
+  dequant = dequant_summary(quant_tiny, run_dlrm_int8(args.seed))
+  seg['quant'] = {
+      'dlrm_int8': dequant['dlrm_int8']['launches']['segwalk_apply'],
+      **{dtype: t['numbers']['launches']['segwalk_apply']
+         for dtype, t in dequant['quant_tiny'].items()}}
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()
@@ -3739,7 +4273,7 @@ def main(argv=None) -> int:
   torch.cuda.empty_cache()
   csr = phase_ragged_lookup()
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
-  log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr])}))
+  log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr, dequant])}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

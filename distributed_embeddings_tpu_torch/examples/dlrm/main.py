@@ -18,6 +18,11 @@ hot sets over ``--hot_calib_batches`` dummy batches, as the JAX example
 does (``--hot_coverage``, ``--hot_budget_mb``), and trains with the
 hot-row cache.
 
+``--table_dtype int8`` / ``float8_e4m3`` (with the sparse trainer and
+``--param_dtype float32``, as in the JAX example) stores the tables
+quantized, one f32 power-of-two scale a row (docs/design.md §12), and
+prints the storage line of ``quantization.table_bytes_stats``.
+
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
 item that ports it (``--dataset_path`` is item 12); ``--fast_compile``
@@ -57,7 +62,8 @@ import torch
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
 from distributed_embeddings_tpu_torch.parallel import (checkpoint, grad,
-                                                       hotcache, sparse)
+                                                       hotcache,
+                                                       quantization, sparse)
 from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
@@ -71,7 +77,7 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
 UNPORTED = {
-    'dataset_path': 12, 'wire_dtype': 9, 'table_dtype': 9,
+    'dataset_path': 12, 'wire_dtype': 9,
     'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
     'loader_bench': 12, 'trace': 14,
 }
@@ -126,7 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                  'their optimizer state (None = unbudgeted)')
   p.add_argument('--table_dtype', default='none',
                  choices=['none', 'int8', 'float8_e4m3'],
-                 help='not ported (item 9)')
+                 help='quantized table storage: int8 / fp8 payload plus '
+                 'one f32 scale per row (needs --trainer sparse and '
+                 '--param_dtype float32)')
   p.add_argument('--cold_tier_budget_mb', type=float, default=None,
                  help='not ported (item 12)')
   p.add_argument('--param_dtype', default='float32',
@@ -198,6 +206,15 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
       raise SystemExit('--overlap_chunks > 1 pairs with --trainer '
                        'sparse (the chunked gradient exchange/apply '
                        'lives in the sparse row-wise path)')
+  if args.table_dtype != 'none':
+    if args.trainer != 'sparse':
+      raise SystemExit('--table_dtype requires --trainer sparse (dense '
+                       'autodiff cannot differentiate through integer '
+                       'payloads; design §12 refusal matrix)')
+    if args.param_dtype != 'float32':
+      raise SystemExit('--table_dtype requires --param_dtype float32 '
+                       '(the per-row scale carries the dynamic range; '
+                       'design §12 refusal matrix)')
   if args.fast_compile:
     raise ValueError('--fast_compile sets XLA compile options; the port '
                      'compiles nothing at run time')
@@ -305,12 +322,22 @@ def main(argv=None):
                hot_cache=hot_sets,
                overlap_chunks=args.overlap_chunks,
                fused_exchange=args.fused_exchange,
+               table_dtype=(None if args.table_dtype == 'none'
+                            else args.table_dtype),
                param_dtype=param_dtype,
                compute_dtype=getattr(torch, args.compute_dtype
                                      or args.param_dtype),
                device=args.device).init(0)
   dist = model.dist_embedding
   device = dist.device
+  if args.table_dtype != 'none':
+    tb = quantization.table_bytes_stats(dist.plan)
+    print(f"table_dtype: {tb['table_dtype']} — "
+          f"{tb['table_bytes_per_row']:.1f} payload B/row + "
+          f"{tb['table_scale_bytes_per_row']} scale B/row over "
+          f"{tb['table_rows']:,} rows "
+          f"({tb['table_payload_bytes'] + tb['table_scale_bytes']:,} "
+          f"bytes total vs {tb['table_payload_bytes'] * 4:,} at f32)")
 
   if args.dp_input:
     table_ids = list(range(len(table_sizes)))

@@ -51,6 +51,18 @@ capacity padding carries the id ``vocab`` and so contributes nothing,
 and one sort and one segment-walk ``'add'`` make the table gradient
 (``RaggedLookupCombine``).  ``ARM_LAUNCHES['csr']`` counts the launches
 of that arm; each counts in ``LAUNCHES`` too.
+
+Quantized tables (``table_dtype``, docs/design.md §12): an int8 or
+float8_e4m3 payload with a per-row f32 power-of-two ``scale`` (``[rows,
+1]``) goes through the kernel's dequantizing arm (``dense_lookup`` and
+``fused_group_lookup`` with ``scale=``): each valid id adds ``payload *
+scale`` in f32, the product exact, summed in ascending position as the
+other arms.  Its plain version is ``dense_lookup_reference`` with
+``scale=``, a transcription of the JAX runtime's ``_fused_lookup``
+``scale`` branch.  A quantized table is no autograd leaf (the dense
+trainer refuses it), so these calls make no autograd node; the CSR arm
+refuses one.  ``ARM_LAUNCHES['dequant']`` counts the launches of the
+dequantizing arm; each counts in ``LAUNCHES`` too.
 """
 
 from __future__ import annotations
@@ -65,12 +77,18 @@ from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
 # Kernel launches made by this module (one per ``_launch``), and those
-# of them that ran the row-offsets (CSR) arm.
+# of them that ran the row-offsets (CSR) arm or the dequantizing arm.
 LAUNCHES = 0
 ARM_LAUNCHES = collections.Counter()
 
 _COMBINERS = (None, 'sum', 'mean')
-_TABLE_DTYPES = (torch.float32, torch.bfloat16)
+_PLAIN_DTYPES = (torch.float32, torch.bfloat16)
+# quantized payloads: one byte an element, dequantized by a per-row scale
+_QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+_TABLE_DTYPES = _PLAIN_DTYPES + _QUANT_DTYPES
+# the kernel's table kinds (csrc/lookup_combine.cu)
+_TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
 _fn = None
 
 
@@ -79,20 +97,23 @@ def _kernel():
   if _fn is None:
     fn = nativebuild.load('lookup_combine').lookup_combine
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
   return _fn
 
 
 def _launch(table: torch.Tensor, ids: torch.Tensor, mean: bool,
-            splits: Optional[torch.Tensor] = None) -> torch.Tensor:
+            splits: Optional[torch.Tensor] = None,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
   """One launch of ``lookup_combine`` on the current stream: the f32
   ``[M, width]`` sum (or mean) of the valid rows of each ``ids`` row
   (``ids`` ``[M, h]``), or with ``splits`` ``[M + 1]`` of each CSR row of
-  the values ``ids`` ``[nnz_cap]`` (the row-offsets arm)."""
+  the values ``ids`` ``[nnz_cap]`` (the row-offsets arm); with ``scale``
+  (``[vocab, 1]`` f32) of a quantized table's dequantized rows (the
+  dequantizing arm)."""
   global LAUNCHES
   for x in (ids, splits):
     if x is None:
@@ -105,6 +126,14 @@ def _launch(table: torch.Tensor, ids: torch.Tensor, mean: bool,
       raise ValueError('lookup_combine needs contiguous ids and splits')
   if not table.is_contiguous():
     raise ValueError('lookup_combine needs a contiguous table')
+  if (table.dtype in _QUANT_DTYPES) != (scale is not None):
+    raise ValueError(f'a {table.dtype} table needs a scale exactly when '
+                     'it is quantized (int8 or float8_e4m3fn)')
+  if scale is not None and not (scale.device == table.device
+                                and scale.dtype == torch.float32
+                                and scale.is_contiguous()):
+    raise ValueError('lookup_combine needs a contiguous f32 scale on the '
+                     "table's device")
   if splits is None:
     m, h = ids.shape
   else:
@@ -117,30 +146,48 @@ def _launch(table: torch.Tensor, ids: torch.Tensor, mean: bool,
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _kernel()(ids.data_ptr(),
                     None if splits is None else splits.data_ptr(),
-                    table.data_ptr(), out.data_ptr(), m, h, vocab, w,
-                    int(table.dtype == torch.bfloat16), int(mean), stream)
+                    table.data_ptr(),
+                    None if scale is None else scale.data_ptr(),
+                    out.data_ptr(), m, h, vocab, w, _TABLE_KIND[table.dtype],
+                    int(mean), stream)
   if err != 0:
     raise RuntimeError(f'lookup_combine launch failed: cudaError {err}')
   LAUNCHES += 1
   if splits is not None:
     ARM_LAUNCHES['csr'] += 1
+  if scale is not None:
+    ARM_LAUNCHES['dequant'] += 1
   return out
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """``table[idx]`` as f32; a float8 table through its uint8 bits (float8
+  indexing is not implemented everywhere)."""
+  if table.dtype == torch.float8_e4m3fn:
+    return table.view(torch.uint8)[idx].view(table.dtype).to(torch.float32)
+  return table[idx].to(torch.float32)
 
 
 def dense_lookup_reference(table: torch.Tensor, ids: torch.Tensor,
                            combiner: Optional[str],
-                           out_dtype: Optional[torch.dtype] = None
+                           out_dtype: Optional[torch.dtype] = None,
+                           scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
   """The plain PyTorch version of the kernel: gather, mask, combine.
 
   Transcribes ``_fused_lookup`` + ``_combine_rows``
   (``distributed_embeddings_tpu/parallel/dist_embedding.py``) on
   ``[M, h]`` ids, with the validity mask of ``dense_lookup`` (``0 <= id
-  < vocab``).  Accumulates in f32 and sums the hot axis in ascending
-  order, as the kernel does."""
+  < vocab``); with ``scale`` (a quantized table), ``_fused_lookup``'s
+  ``scale`` branch: each gathered row is ``payload * scale`` in f32.
+  Accumulates in f32 and sums the hot axis in ascending order, as the
+  kernel does."""
   vocab = table.shape[0]
   mask = (ids >= 0) & (ids < vocab)
-  rows = table[torch.where(mask, ids, 0).long()].to(torch.float32)
+  safe = torch.where(mask, ids, 0).long()
+  rows = _gather_rows(table, safe)
+  if scale is not None:
+    rows = rows * scale.reshape(-1)[safe][..., None].to(torch.float32)
   rows = torch.where(mask[..., None], rows, 0.0)  # [M, h, w]
   if combiner is None:
     out = rows[:, 0]
@@ -152,10 +199,13 @@ def dense_lookup_reference(table: torch.Tensor, ids: torch.Tensor,
     if combiner == 'mean':
       counts = mask.sum(dim=1).to(torch.float32)
       out = out / torch.clamp(counts, min=1.0)[:, None]
-  return out.to(out_dtype or table.dtype)
+  if out_dtype is None:
+    out_dtype = torch.float32 if scale is not None else table.dtype
+  return out.to(out_dtype)
 
 
-def _check(table: torch.Tensor, ids: torch.Tensor, combiner: Optional[str]):
+def _check(table: torch.Tensor, ids: torch.Tensor, combiner: Optional[str],
+           scale: Optional[torch.Tensor] = None):
   if ids.dim() != 2 or table.dim() != 2:
     raise ValueError(f'dense_lookup needs ids [M, h] and table [vocab, w], '
                      f'got {tuple(ids.shape)} and {tuple(table.shape)}')
@@ -168,16 +218,28 @@ def _check(table: torch.Tensor, ids: torch.Tensor, combiner: Optional[str]):
   if table.device.type not in ('cuda', 'cpu') or ids.device != table.device:
     raise ValueError(f'dense_lookup: table on {table.device}, ids on '
                      f'{ids.device}')
+  if (table.dtype in _QUANT_DTYPES) != (scale is not None):
+    raise ValueError(
+        f'dense_lookup: a {table.dtype} table takes a scale exactly when '
+        'it is quantized (an int8 or float8_e4m3fn payload)')
+  if scale is not None and (scale.dtype != torch.float32
+                            or scale.device != table.device
+                            or scale.numel() != table.shape[0]):
+    raise ValueError(
+        f'dense_lookup: the scale must be f32 [vocab, 1] on the table\'s '
+        f'device, got {scale.dtype} {tuple(scale.shape)} on {scale.device}')
 
 
 def _forward(table: torch.Tensor, ids: torch.Tensor,
-             combiner: Optional[str]) -> torch.Tensor:
+             combiner: Optional[str],
+             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
   """The f32 ``[M, width]`` combine: the kernel on a CUDA table, the plain
   version on a CPU table."""
   if table.device.type == 'cuda':
     return _launch(table, ids.to(torch.int32).contiguous(),
-                   combiner == 'mean')
-  return dense_lookup_reference(table, ids, combiner, torch.float32)
+                   combiner == 'mean',
+                   scale=None if scale is None else scale.contiguous())
+  return dense_lookup_reference(table, ids, combiner, torch.float32, scale)
 
 
 def _divided(g: torch.Tensor, counts: torch.Tensor,
@@ -355,7 +417,8 @@ def ragged_lookup(table: torch.Tensor, values: torch.Tensor,
     no valid id is zero.  Differentiable in ``table``
     (``RaggedLookupCombine``).
   """
-  if combiner not in ('sum', 'mean') or table.dtype not in _TABLE_DTYPES:
+  if combiner not in ('sum', 'mean') or table.dtype not in _PLAIN_DTYPES:
+    # a quantized table has no scale on this arm
     raise ValueError(f'ragged_lookup unsupported: dtype {table.dtype}, '
                      f'combiner {combiner}')
   if table.dim() != 2 or values.dim() != 1 or splits.dim() != 1:
@@ -396,34 +459,44 @@ class LookupCombine(torch.autograd.Function):
 
 def dense_lookup(table: torch.Tensor, ids: torch.Tensor,
                  combiner: Optional[str],
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Fused lookup+combine over the dense padded layout.
 
   Args:
-    table: ``[vocab, width]`` f32 or bf16.
+    table: ``[vocab, width]`` f32 or bf16, or a quantized int8 /
+      float8_e4m3fn payload with its ``scale``.
     ids: ``[M, h]`` integer ids (the kernel reads them as int32); ids
       outside ``[0, vocab)`` are padding.
     combiner: 'sum' | 'mean' | None (None requires ``h == 1``).
-    out_dtype: output dtype (default ``table.dtype``).
+    out_dtype: output dtype (default ``table.dtype``; f32 for a quantized
+      table).
+    scale: a quantized table's ``[vocab, 1]`` f32 per-row scales.
 
   Returns:
     ``[M, width]`` combined embeddings; rows with no valid id are zero.
-    Differentiable in ``table`` (``LookupCombine``).
+    Differentiable in an f32 or bf16 ``table`` (``LookupCombine``).
   """
-  _check(table, ids, combiner)
+  _check(table, ids, combiner, scale)
+  if scale is not None:
+    out = _forward(table, ids, combiner, scale)
+    return out if out_dtype is None else out.to(out_dtype)
   out, = LookupCombine.apply(table, (combiner,), ids)
   return out.to(out_dtype or table.dtype)
 
 
 def fused_group_lookup(table: torch.Tensor, routed: Sequence[torch.Tensor],
                        combiners: Sequence[Optional[str]],
-                       compute_dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+                       compute_dtype: torch.dtype,
+                       scale: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
   """The runtime's hot path: ``table`` the ``[rows_cap, w]`` fused local
-  table of one fusion group, ``routed`` its subgroups' ``[n_cap, GB, h]``
-  fused row ids (``>= rows_cap`` marks padding, see
+  table of one fusion group (with ``scale`` its ``[rows_cap, 1]`` scales
+  when the group is quantized), ``routed`` its subgroups' ``[n_cap, GB,
+  h]`` fused row ids (``>= rows_cap`` marks padding, see
   ``routing.route_ids``).  Returns each subgroup's ``[n_cap, GB, w]`` at
-  ``compute_dtype``: one launch per subgroup and one autograd node for
-  the table."""
+  ``compute_dtype``: one launch per subgroup and, for an f32 or bf16
+  table, one autograd node for the table."""
   flat = []
   for r, c in zip(routed, combiners):
     if c is None and r.shape[2] != 1:
@@ -431,9 +504,12 @@ def fused_group_lookup(table: torch.Tensor, routed: Sequence[torch.Tensor],
       # _check_combiner_hotness); summing h > 1 rows would diverge from it
       raise ValueError(f'combiner=None requires hotness 1, got {r.shape[2]}')
     x = r.reshape(-1, r.shape[2])
-    _check(table, x, c)
+    _check(table, x, c, scale)
     flat.append(x)
-  outs = LookupCombine.apply(table, tuple(combiners), *flat)
+  if scale is not None:
+    outs = [_forward(table, x, c, scale) for x, c in zip(flat, combiners)]
+  else:
+    outs = LookupCombine.apply(table, tuple(combiners), *flat)
   return tuple(o.to(compute_dtype).reshape(r.shape[0], r.shape[1], -1)
                for o, r in zip(outs, routed))
 
@@ -445,7 +521,8 @@ class ChunkedGroupLookup:
   ``combiners`` maps each of the group's id streams (any key, in stream
   order) to its combiner.  ``lookup(k, streams, routed)`` launches round
   ``k``'s pieces (one kernel launch each) as soon as their ids arrive.  Without a table
-  that requires grad that is ``fused_group_lookup``.  With one, every
+  that requires grad (a quantized table with its ``scale`` never does)
+  that is ``fused_group_lookup``.  With one, every
   round hangs off one anchor node of the table: each round's node
   keeps its cotangents, and the anchor's backward concatenates each
   stream's pieces back in round order (the monolithic ``[n_cap * GB,
@@ -456,8 +533,10 @@ class ChunkedGroupLookup:
   autograd re-associate their sum."""
 
   def __init__(self, table: torch.Tensor, combiners: dict,
-               compute_dtype: torch.dtype):
+               compute_dtype: torch.dtype,
+               scale: Optional[torch.Tensor] = None):
     self.table = table
+    self.scale = scale
     self.combiners = dict(combiners)
     self.compute_dtype = compute_dtype
     # per stream, round -> its flat ids [m, h] / f32 cotangent [m, w]
@@ -475,7 +554,7 @@ class ChunkedGroupLookup:
     combiners = [self.combiners[s] for s in streams]
     if self.anchor is None:
       return fused_group_lookup(self.table, routed, combiners,
-                                self.compute_dtype)
+                                self.compute_dtype, self.scale)
     flat = []
     for s, r, c in zip(streams, routed, combiners):
       x = r.reshape(-1, r.shape[2])

@@ -24,8 +24,18 @@ and row provenance, and hands it to ``fit``'s anomaly policy
   and compared (nothing to compare in a world of one); a diverged leaf
   is localized on the full copies: the ranks off the majority (every
   rank on a tie) and the rows that differ.
-- ``quantized`` (item 9) and ``tier`` (item 12) are refused with
-  ``not_ported``.
+- ``quantized`` (quantized table storage, docs/design.md §12): every
+  per-row scale (``scale_group_{gi}``, ``hot_scale_group_{gi}``) is a
+  finite, positive, exact power of two, and every payload element
+  (``group_{gi}``, ``hot_group_{gi}`` of a quantized plan) is on its
+  dtype's grid: no int8 -128, no fp8 NaN (``quantization.
+  scale_bad_mask`` / ``payload_bad_mask``, the masks
+  ``tools/verify_checkpoint`` applies to files).  Counted on the device
+  over the same rotating windows, read with the finite check's one host
+  sync; a failing leaf is localized on its full copy.  As in the JAX
+  package, payload and scale leaves take this check instead of
+  ``finite``.
+- ``tier`` (item 12) is refused with ``not_ported``.
 
 ``digest_u32`` is the JAX package's ``_digest_u32`` bit for bit: the
 uint32 wrap-around sum of each element's bit pattern times ``(index &
@@ -50,6 +60,7 @@ import torch.distributed as torch_dist
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import checkpoint
+from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel.hotcache import (
     replicated_leaf_names)
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -58,8 +69,8 @@ from distributed_embeddings_tpu_torch.utils import resilience
 
 CHECKS = ('replicated', 'quantized', 'finite', 'tier')
 # the JAX package's checks the port runs; the others name their item
-PORTED_CHECKS = ('replicated', 'finite')
-_DEFERRED = {'quantized': 9, 'tier': 12}
+PORTED_CHECKS = ('replicated', 'quantized', 'finite')
+_DEFERRED = {'tier': 12}
 
 # provenance row lists are bounded: the first few damaged rows
 MAX_ROWS = 8
@@ -151,6 +162,31 @@ def _nonfinite_count(x: torch.Tensor) -> torch.Tensor:
   for r0 in range(0, x.shape[0], step):
     total += torch.isfinite(x[r0:r0 + step]).logical_not_().sum()
   return total
+
+
+def _mask_count(x: torch.Tensor, mask_fn) -> torch.Tensor:
+  """The elements of ``x`` where ``mask_fn`` is True, as a 0-d int64
+  tensor on its device, in chunks of rows (bounded temporaries)."""
+  total = torch.zeros((), dtype=torch.int64, device=x.device)
+  step = max(1, _CHUNK // max(1, x[0].numel())) if x.dim() else 1
+  for r0 in range(0, max(1, x.shape[0] if x.dim() else 1), step):
+    total += mask_fn(x[r0:r0 + step] if x.dim() else x).sum()
+  return total
+
+
+def _mask_rows_device(x: torch.Tensor, mask_fn, limit: int = MAX_ROWS
+                      ) -> Tuple[int, ...]:
+  """The first rows of ``x`` where ``mask_fn`` holds, on its device
+  (only the row indices cross to the host)."""
+  found: List[int] = []
+  step = max(1, _CHUNK // max(1, x[0].numel()))
+  for r0 in range(0, x.shape[0], step):
+    part = mask_fn(x[r0:r0 + step])
+    rows = part.reshape(part.shape[0], -1).any(dim=1).nonzero().reshape(-1)
+    found += [r0 + int(r) for r in rows[:limit - len(found)].tolist()]
+    if len(found) >= limit:
+      break
+  return tuple(found)
 
 
 def _sums_finite(x: torch.Tensor) -> torch.Tensor:
@@ -281,9 +317,8 @@ class StateAuditor:
     dist: the model's ``DistributedEmbedding`` (its ranks and group
       layout).
     every: audit cadence in steps (what ``fit(auditor=...)`` keys off).
-    checks: a subset of ``PORTED_CHECKS`` (default: both);
-      ``'quantized'`` and ``'tier'`` raise ``NotImplementedError``
-      naming their items.
+    checks: a subset of ``PORTED_CHECKS`` (default: all three);
+      ``'tier'`` raises ``NotImplementedError`` naming its item.
     max_rows: provenance row cap per finding.
     bytes_per_audit: per-audit read budget over the embedding leaves
       (``BYTES_PER_AUDIT``; ``None`` reads everything every audit).
@@ -392,10 +427,46 @@ class StateAuditor:
     digests = self._gather(torch.stack(
         [digest_u32(leaves[k][s:s + n])
          for k, (s, n) in ((k, windows[k]) for k in names)])).cpu().numpy()
-    return [self._replica_finding(name, digests[:, j],
-                                  self._gather(leaves[name]).cpu())
+    # float8 copies compare and travel as their bits
+    return [self._replica_finding(
+        name, digests[:, j],
+        self._gather(quantization.bits(leaves[name])).cpu())
             for j, name in enumerate(names)
             if not np.all(digests[:, j] == digests[0, j])]
+
+  def _quantized_findings(self, leaves, windows) -> List[AuditFinding]:
+    """The quantized leaves (``{name: (tensor, 'scale' | 'payload')}``)
+    over their windows: one device vector of violation counts,
+    all-gathered and read with one host sync; a failing leaf is
+    localized on its full copy on every rank that counts one."""
+    q = self.dist.quant
+    fns = {'scale': quantization.scale_bad_mask,
+           'payload': lambda x: quantization.payload_bad_mask(x, q)}
+    what = {'scale': 'non-power-of-two/invalid scale',
+            'payload': 'off-grid payload value'}
+    names = sorted(leaves)
+    counts = torch.stack([
+        _mask_count(leaves[k][0][s:s + n], fns[leaves[k][1]])
+        for k, (s, n) in ((k, windows[k]) for k in names)])
+    counts = self._gather(counts).cpu().numpy()  # [world, leaves]
+    findings = []
+    for j, name in enumerate(names):
+      vec = counts[:, j]
+      if not vec.any():
+        continue
+      leaf, kind = leaves[name]
+      devices = tuple(int(d) for d in np.nonzero(vec)[0])
+      rows = torch.full((self.max_rows,), -1, dtype=torch.int64,
+                        device=leaf.device)
+      if self.dist.rank in devices:
+        mine = _mask_rows_device(leaf, fns[kind], self.max_rows)
+        rows[:len(mine)] = torch.tensor(mine, dtype=torch.int64)
+      every = self._gather(rows).cpu().numpy()
+      found = [int(r) for d in devices for r in every[d] if r >= 0]
+      findings.append(AuditFinding(
+          'quantized', name, devices, tuple(found[:self.max_rows]),
+          f'{int(vec.sum())} {what[kind]}(s); per-device {vec.tolist()}'))
+    return findings
 
   def _finite_findings(self, leaves, windows) -> List[AuditFinding]:
     """The embedding leaves over their windows: one device vector of
@@ -477,18 +548,33 @@ class StateAuditor:
     t0 = time.perf_counter()
     findings: List[AuditFinding] = []
     emb = dict(params or {})
+    # a quantized plan's payload and scale leaves (params, not optimizer
+    # state) take the quantized check, never the finite one
+    quant_kind = {}
+    if self.dist.quant is not None:
+      for k in emb:
+        if 'scale_group_' in k:
+          quant_kind[k] = 'scale'
+        elif 'group_' in k:
+          quant_kind[k] = 'payload'
     for gk, entry in (opt_state or {}).items():
       emb.update({f'{gk}/{lk}': v for lk, v in entry.items()})
-    finite = ({k: v for k, v in emb.items() if v.is_floating_point()}
+    finite = ({k: v for k, v in emb.items()
+               if v.is_floating_point() and k not in quant_kind}
               if 'finite' in self.checks else {})
+    quantized = ({k: emb[k] for k in quant_kind}
+                 if 'quantized' in self.checks else {})
     replicated = ({k: v for k, v in emb.items() if self._is_replicated(k)}
                   if 'replicated' in self.checks
                   and self.dist.world_size > 1 else {})
-    if finite or replicated:
-      # one rotating window per leaf, shared by both checks
-      windows = self._windows({**finite, **replicated})
+    if finite or quantized or replicated:
+      # one rotating window per leaf, shared by every check
+      windows = self._windows({**finite, **quantized, **replicated})
       if finite:
         findings += self._finite_findings(finite, windows)
+      if quantized:
+        findings += self._quantized_findings(
+            {k: (v, quant_kind[k]) for k, v in quantized.items()}, windows)
       if replicated:
         findings += self._replicated_findings(replicated, windows)
     if dense_flat is not None:

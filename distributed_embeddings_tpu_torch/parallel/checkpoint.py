@@ -49,14 +49,26 @@ Hot membership (``hot_cache``, docs/design.md §10) is a layout detail:
 rows are hot), so a file written under one hot set restores under any
 other, or under none.
 
-Left for their items: quantized entries (``QuantizedWeight``, item 9),
-the hierarchical-layout refusal (item 10) and the rendezvous sanitizer's
-records (item 16).
+Quantized plans (``table_dtype``, docs/design.md §12): ``get_weights``
+returns the exact dequantized f32 values (power-of-two scales only
+shift exponents); ``export_tables`` returns ``QuantizedWeight`` payload
+and scale pairs, which ``save_train_npz`` stores as the JAX package
+does (``table{i}`` the payload, int8 or fp8 as its uint8 bits, and the
+``table{i}:scale`` / ``table{i}:dtype`` sidecars) and
+``load_train_npz`` reads back.  ``set_weights`` (and
+``restore_train_state``) quantizes full-width rows from any entry, or
+copies a same-dtype ``QuantizedWeight``'s stored pair straight in (the
+quantizer's fixed point), so files move between quantized and f32
+plans both ways.
+
+Left for their items: the hierarchical-layout refusal (item 10) and the
+rendezvous sanitizer's records (item 16).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import glob as glob_lib
 import hashlib
 import json
@@ -72,12 +84,58 @@ import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    DistributedEmbedding, not_ported)
+    DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 from distributed_embeddings_tpu_torch.utils import resilience
 
-WeightLike = Union[np.ndarray, torch.Tensor]
+
+@dataclasses.dataclass
+class QuantizedWeight:
+  """One table's canonical QUANTIZED entry (the JAX package's
+  ``QuantizedWeight``): ``payload`` ``[rows, width]`` on the host (int8,
+  or float8_e4m3 as its uint8 bits), ``scale`` ``[rows]`` f32
+  power-of-two per-row scales, ``dtype_name`` ``'int8'`` or
+  ``'float8_e4m3'``.  ``values()`` is the exact dequantization, so it
+  restores into an f32 plan, or into a quantized plan whose shards span
+  full rows, without loss.  A column-sliced quantized table keeps a
+  scale per slice at run time; its first save re-rounds each slice onto
+  the row's scale (one quantization step at most; later saves of the
+  same values are bit-stable)."""
+  payload: np.ndarray
+  scale: np.ndarray
+  dtype_name: str
+
+  @property
+  def shape(self):
+    return self.payload.shape
+
+  @property
+  def spec(self) -> quantization.QuantSpec:
+    return quantization.resolve_table_dtype(self.dtype_name)
+
+  def values(self) -> np.ndarray:
+    return quantization.dequantize_np(self.payload,
+                                      np.asarray(self.scale).reshape(-1, 1),
+                                      self.spec)
+
+  def rows(self, sel) -> np.ndarray:
+    """The exact f32 values of rows ``sel`` only."""
+    return quantization.dequantize_np(
+        np.asarray(self.payload)[sel],
+        np.asarray(self.scale, np.float32).reshape(-1, 1)[sel], self.spec)
+
+  @classmethod
+  def from_values(cls, values, spec) -> 'QuantizedWeight':
+    spec = quantization.resolve_table_dtype(spec)
+    payload, scale = quantization.quantize_np(
+        np.asarray(values, np.float32), spec)
+    return cls(payload=payload, scale=scale.reshape(-1),
+               dtype_name=spec.name)
+
+
+WeightLike = Union[np.ndarray, torch.Tensor, QuantizedWeight]
 
 
 def _check_tables(plan, arrays: Sequence, what: str, per_row: bool = False):
@@ -102,8 +160,12 @@ def _fill_group(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
   for lt in dist.plan.groups[gi].member_tables[dist.rank]:
     # row_stride > 1: a mod window (residue class) of the rows
     rows = slice(lt.row_start, lt.row_end, lt.row_stride)
-    piece = arrays[lt.table_id][
-        (rows,) if buf.dim() == 1 else (rows, slice(lt.col_start, lt.col_end))]
+    src = arrays[lt.table_id]
+    if isinstance(src, QuantizedWeight):
+      piece = src.rows(rows)[:, lt.col_start:lt.col_end]
+    else:
+      piece = src[(rows,) if buf.dim() == 1 else
+                  (rows, slice(lt.col_start, lt.col_end))]
     if isinstance(piece, np.ndarray):
       # torch takes no numpy bf16 (ml_dtypes): through f32, exactly; and
       # wraps only writable arrays (read-only ones are copied)
@@ -123,7 +185,9 @@ def _hot_rows(array: WeightLike, ids: np.ndarray, cs: int, ce: int,
   entries ``ids`` of a per-row ``[rows]`` array), as a tensor on
   ``device``: gathered where the array lives, so only the hot rows
   move."""
-  if isinstance(array, torch.Tensor):
+  if isinstance(array, QuantizedWeight):
+    rows = torch.as_tensor(array.rows(ids))
+  elif isinstance(array, torch.Tensor):
     rows = array[torch.as_tensor(ids, dtype=torch.long, device=array.device)]
   else:
     rows = np.asarray(array)[ids]
@@ -150,33 +214,123 @@ def _fill_hot(dist: DistributedEmbedding, gi: int, buf: torch.Tensor,
   return buf
 
 
+def _quantized_rows(dist: DistributedEmbedding, w: WeightLike, sel,
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``(payload bits, scale [n, 1] f32)`` of full-width rows ``sel`` of one
+  entry, on ``device``, at the plan's quantized dtype: a same-dtype
+  ``QuantizedWeight``'s stored rows as they are (the quantizer's fixed
+  point), any other entry's exact values quantized there (the JAX
+  package quantizes on the host, bit for bit the same).  The payload
+  comes as ``quantization.bits`` (uint8 for fp8)."""
+  q = dist.quant
+  if isinstance(w, QuantizedWeight) and w.dtype_name == q.name:
+    payload = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(w.payload)[sel])).to(device)
+    scale = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(w.scale, np.float32).reshape(-1, 1)[sel])).to(device)
+    return payload, scale
+  if isinstance(w, QuantizedWeight):
+    vals = torch.as_tensor(w.rows(sel))
+  elif isinstance(w, torch.Tensor):
+    vals = w[sel if isinstance(sel, slice) else torch.as_tensor(
+        sel, dtype=torch.long, device=w.device)]
+  else:
+    vals = np.asarray(w)[sel]
+    vals = torch.as_tensor(np.require(vals.astype(np.float32),
+                                      requirements='W'))
+  payload, scale = quantization.quantize(vals.to(device), q)
+  return quantization.bits(payload), scale
+
+
+def _fill_group_quantized(dist: DistributedEmbedding, gi: int,
+                          payload: torch.Tensor, scale: torch.Tensor,
+                          weights: Sequence[WeightLike]):
+  """Write this rank's rows of quantized group ``gi`` into ``payload``
+  ``[rows_cap, width]`` and ``scale`` ``[rows_cap, 1]``: each member
+  slice's FULL-WIDTH rows are quantized (the canonical per-row grid) and
+  its columns cut after, as the JAX package's ``set_weights`` does;
+  padding rows take payload 0 and scale 1."""
+  out = quantization.bits(payload)
+  off = 0
+  for lt in dist.plan.groups[gi].member_tables[dist.rank]:
+    rows = slice(lt.row_start, lt.row_end, lt.row_stride)
+    p, sc = _quantized_rows(dist, weights[lt.table_id], rows, payload.device)
+    out[off:off + lt.input_dim] = p[:, lt.col_start:lt.col_end]
+    scale[off:off + lt.input_dim] = sc
+    off += lt.input_dim
+  out[off:].zero_()
+  scale[off:].fill_(1.0)
+
+
+def _fill_hot_quantized(dist: DistributedEmbedding, gi: int,
+                        payload: torch.Tensor, scale: torch.Tensor,
+                        weights: Sequence[WeightLike]):
+  """Hot group ``gi``'s quantized buffers from global entries (the JAX
+  package's ``_hot_leaves_from_tables`` on a quantized plan): full-width
+  hot rows quantized per row, the payload cut per chunk after."""
+  out = quantization.bits(payload)
+  out.zero_()
+  scale.fill_(1.0)
+  plan = dist.plan
+  for tid, cs, ce, off, k in plan.groups[gi].hot_chunks:
+    if k:
+      p, sc = _quantized_rows(dist, weights[tid], plan.hot_sets[tid].ids,
+                              payload.device)
+      out[off:off + k] = p[:, cs:ce]
+      scale[off:off + k] = sc
+
+
+def _fill_tables(dist: DistributedEmbedding, params: Dict[str, torch.Tensor],
+                 weights: Sequence[WeightLike]):
+  """Write every table leaf of ``params`` (groups, hot buffers and, on a
+  quantized plan, their scales) from global entries, in place."""
+  for gi in range(len(dist.plan.groups)):
+    if dist.quant is None:
+      _fill_group(dist, gi, params[f'group_{gi}'], weights)
+    else:
+      _fill_group_quantized(dist, gi, params[f'group_{gi}'],
+                            params[f'scale_group_{gi}'], weights)
+  for gi in dist.plan.hot_groups:
+    if dist.quant is None:
+      _fill_hot(dist, gi, params[f'hot_group_{gi}'], weights)
+    else:
+      _fill_hot_quantized(dist, gi, params[f'hot_group_{gi}'],
+                          params[f'hot_scale_group_{gi}'], weights)
+
+
 def set_weights(dist: DistributedEmbedding,
                 weights: Sequence[WeightLike]) -> Dict[str, torch.Tensor]:
   """Build this rank's params ``{f'group_{gi}': [rows_cap, width]}`` on
-  ``dist.device`` from global per-table weights (numpy arrays or
-  tensors on any device; a tensor already on the device is sliced
-  there, without a round trip through the host), and with ``hot_cache``
-  the replicated hot buffers ``{f'hot_group_{gi}': [hot_rows_cap,
-  width]}`` re-sliced from the same rows.
+  ``dist.device`` from global per-table weights (numpy arrays,
+  ``QuantizedWeight``s or tensors on any device; a tensor already on the
+  device is sliced there, without a round trip through the host), and
+  with ``hot_cache`` the replicated hot buffers ``{f'hot_group_{gi}':
+  [hot_rows_cap, width]}`` re-sliced from the same rows.  A quantized
+  plan also gets the ``scale_group_{gi}`` (``hot_scale_group_{gi}``)
+  leaves (``_fill_group_quantized``).
 
   Raises:
     ValueError: on length or shape mismatch.
   """
   weights = list(weights)
   _check_tables(dist.plan, weights, 'set_weights')
-  params = {
-      f'group_{gi}': _fill_group(
-          dist, gi, torch.empty((g.rows_cap, g.width),
-                                dtype=dist.param_dtype, device=dist.device),
-          weights)
-      for gi, g in enumerate(dist.plan.groups)
-  }
+  params = {}
+  for gi, g in enumerate(dist.plan.groups):
+    params[f'group_{gi}'] = torch.empty((g.rows_cap, g.width),
+                                        dtype=dist.table_dtype,
+                                        device=dist.device)
+    if dist.quant is not None:
+      params[f'scale_group_{gi}'] = torch.empty(
+          (g.rows_cap, 1), dtype=torch.float32, device=dist.device)
   for gi in dist.plan.hot_groups:
     g = dist.plan.groups[gi]
-    params[f'hot_group_{gi}'] = _fill_hot(
-        dist, gi, torch.empty((g.hot_rows_cap, g.width),
-                              dtype=dist.param_dtype, device=dist.device),
-        weights)
+    params[f'hot_group_{gi}'] = torch.empty((g.hot_rows_cap, g.width),
+                                            dtype=dist.table_dtype,
+                                            device=dist.device)
+    if dist.quant is not None:
+      params[f'hot_scale_group_{gi}'] = torch.empty(
+          (g.hot_rows_cap, 1), dtype=torch.float32, device=dist.device)
+  _fill_tables(dist, params, weights)
   return params
 
 
@@ -213,12 +367,29 @@ def _all_shards(dist: DistributedEmbedding,
   return shards
 
 
+def _value_leaves(dist: DistributedEmbedding,
+                  params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """The table leaves of ``params`` as values: on a quantized plan each
+  group and hot buffer dequantized against its scales (exact), the
+  scale leaves dropped; the params themselves otherwise."""
+  if dist.quant is None:
+    return params
+  out = {}
+  for k, v in params.items():
+    if 'scale_group_' in k:
+      continue
+    out[k] = quantization.dequantize(v, params[k.replace('group_',
+                                                         'scale_group_')])
+  return out
+
+
 def get_weights(dist: DistributedEmbedding,
                 params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
   """Reassemble global per-table weights from the sharded params: the
   inverse of ``set_weights``.  Un-fuses each rank's tall table and undoes
   column and row slicing.  With more than one rank every rank gathers
-  all shards (a collective: call it on every rank).
+  all shards (a collective: call it on every rank).  A quantized plan's
+  tables come back as their exact dequantized f32 values.
 
   Returns:
     List of ``[rows, width]`` tensors in global table order, on the
@@ -228,6 +399,13 @@ def get_weights(dist: DistributedEmbedding,
     vectors, the first column slice of a row serving (all hold the same
     values).
   """
+  return _canonical(dist, _value_leaves(dist, params))
+
+
+def _canonical(dist: DistributedEmbedding,
+               params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+  """``get_weights`` of leaves that are values already (the tables of an
+  unquantized plan, optimizer state)."""
   plan = dist.plan
   group_index = {g.key: gi for gi, g in enumerate(plan.groups)}
   shards = {gi: _all_shards(dist, params[f'group_{gi}'])
@@ -284,7 +462,7 @@ def get_optimizer_state(dist: DistributedEmbedding,
   leaves = sorted({k for gs in opt_state.values() for k in gs})
   n_groups = len(dist.plan.groups)
   per_leaf = {
-      k: get_weights(dist, {
+      k: _canonical(dist, {
           **{f'group_{gi}': opt_state[f'group_{gi}'][k]
              for gi in range(n_groups)},
           **{f'hot_group_{gi}': opt_state[f'hot_group_{gi}'][k]
@@ -427,10 +605,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _portable(a) -> np.ndarray:
-  """The on-disk form of one array: tensors through ``_host``; numpy
-  bf16 (ml_dtypes, which ``np.savez`` would store as raw ``V2`` bytes)
-  up-cast to f32; every other array as it is (the JAX package's rule:
-  only bf16 is widened)."""
+  """The on-disk form of one array: tensors through ``_host``; a
+  ``QuantizedWeight`` as its exact f32 values (the positional ``arr_i``
+  format has no room for a scale); numpy bf16 (ml_dtypes, which
+  ``np.savez`` would store as raw ``V2`` bytes) up-cast to f32; every
+  other array as it is (the JAX package's rule: only bf16 is widened)."""
+  if isinstance(a, QuantizedWeight):
+    return a.values()
   if isinstance(a, torch.Tensor):
     return _host(a)
   a = np.asarray(a)
@@ -439,12 +620,43 @@ def _portable(a) -> np.ndarray:
   return a
 
 
-def export_tables(dist: DistributedEmbedding, params) -> List[np.ndarray]:
+def export_tables(dist: DistributedEmbedding, params) -> List[WeightLike]:
   """The canonical per-table checkpoint entries of ``params``: global
   ``[rows, width]`` host arrays (``get_weights``, then ``_host``; a
-  collective with more than one rank).  Quantized plans (payload and
-  scale pairs) are item 9."""
-  return [_host(t) for t in get_weights(dist, params)]
+  collective with more than one rank), or on a quantized plan
+  ``QuantizedWeight`` payload and scale pairs quantized from those
+  values on the host (the JAX package's ``export_tables``): what
+  ``save_train_npz`` should be handed, so the file carries quantized
+  bytes."""
+  q = dist.quant
+  plan = dist.plan
+  if q is not None and not any(
+      (cs, ce) != (0, plan.table_configs[tid].output_dim)
+      for tid, layout in enumerate(plan.shard_layout())
+      for _, _, _, cs, ce, *_ in layout):
+    # every shard spans full rows: the stored pairs are the quantizer's
+    # fixed point, so they ARE the canonical entries, and no f32 table
+    # is made (the value path below gives the same bits)
+    hot = plan.hot_groups
+    payload = _canonical(dist, {
+        **{f'group_{gi}': quantization.bits(params[f'group_{gi}'])
+           for gi in range(len(plan.groups))},
+        **{f'hot_group_{gi}': quantization.bits(params[f'hot_group_{gi}'])
+           for gi in hot}})
+    scale = _canonical(dist, {
+        **{f'group_{gi}': params[f'scale_group_{gi}'][:, 0]
+           for gi in range(len(plan.groups))},
+        **{f'hot_group_{gi}': params[f'hot_scale_group_{gi}'][:, 0]
+           for gi in hot}})
+    return [QuantizedWeight(payload=_host(p), scale=_host(sc),
+                            dtype_name=q.name)
+            for p, sc in zip(payload, scale)]
+  tables = [_host(t) for t in get_weights(dist, params)]
+  if q is None:
+    return tables
+  # a column slice keeps a scale of its own: the values re-round onto
+  # the row's scale, as in the JAX package
+  return [QuantizedWeight.from_values(t, q) for t in tables]
 
 
 # --------------------------------------------------------------------------
@@ -951,11 +1163,29 @@ def save_train_npz(path: str,
   # the rendezvous sanitizer's record and barrier check: item 16
 
 
+def _quantized_members(i: int, w: QuantizedWeight) -> Dict[str, np.ndarray]:
+  """``save_train_npz``'s members of one quantized table, as the JAX
+  package writes them: the payload under ``table{i}`` (int8, or fp8 as
+  its uint8 bits) and the ``table{i}:scale`` / ``table{i}:dtype``
+  sidecars."""
+  p = np.asarray(w.payload)
+  return {
+      f'table{i}': p if p.dtype.kind == 'i' else p.view(np.uint8),
+      f'table{i}:scale': np.asarray(w.scale, np.float32).reshape(-1),
+      f'table{i}:dtype': np.array(w.dtype_name),
+  }
+
+
 def _save_train_npz(path, weights, table_states, extras, plan):
   if table_states is not None and len(table_states) != len(weights):
     raise ValueError(f'got {len(table_states)} per-table states for '
                      f'{len(weights)} weight tables')
-  payload = {f'table{i}': _portable(w) for i, w in enumerate(weights)}
+  payload = {}
+  for i, w in enumerate(weights):
+    if isinstance(w, QuantizedWeight):
+      payload.update(_quantized_members(i, w))
+    else:
+      payload[f'table{i}'] = _portable(w)
   for i, entry in enumerate(table_states or []):
     for k, v in entry.items():
       payload[f'table{i}/{k}'] = _portable(v)
@@ -980,8 +1210,9 @@ def _parse_train_payload(arrays: Dict[str, np.ndarray], path: str):
     raise ValueError(f'{path}: no table entries')
   n = 1 + max(
       int(k.split('/')[0].partition(':')[0][5:]) for k in table_keys)
-  weights: List[Optional[np.ndarray]] = [None] * n
+  weights: List[Optional[WeightLike]] = [None] * n
   states: List[Dict[str, np.ndarray]] = [dict() for _ in range(n)]
+  sidecars: Dict[int, Dict[str, np.ndarray]] = {}
   extras: Dict[str, np.ndarray] = {}
   for k, v in arrays.items():
     head, _, leaf = k.partition('/')
@@ -989,13 +1220,23 @@ def _parse_train_payload(arrays: Dict[str, np.ndarray], path: str):
       extras[leaf] = v
       continue
     name, _, tag = head.partition(':')
-    if tag:
-      raise not_ported(f'{path}: quantized table entries ({k})', 9)
     i = int(name[5:])
-    if leaf:
+    if tag:
+      sidecars.setdefault(i, {})[tag] = v
+    elif leaf:
       states[i][leaf] = v
     else:
       weights[i] = v
+  for i, sc in sidecars.items():
+    # tables with sidecars reassemble into QuantizedWeight pairs (fp8
+    # payloads stay as their uint8 bits)
+    if 'scale' not in sc or weights[i] is None:
+      raise ValueError(f'{path}: incomplete quantized entry for table {i}')
+    spec = quantization.resolve_table_dtype(
+        str(sc['dtype'][()]) if 'dtype' in sc else 'int8')
+    weights[i] = QuantizedWeight(
+        payload=np.asarray(weights[i]).view(spec.np_dtype),
+        scale=np.asarray(sc['scale'], np.float32), dtype_name=spec.name)
   missing = [i for i, w in enumerate(weights) if w is None]
   if missing:
     raise ValueError(f'{path}: missing weight entries for tables {missing}')
@@ -1088,10 +1329,7 @@ def _rebuild_train_state(dist, state, path, weights, st_tables, extras):
   dense = {k: v for k, v in state.params.items() if k != 'embedding'}
   dense = _restore_like(dist, dense, extras, 'dense:')
   with torch.no_grad():
-    for gi in range(len(dist.plan.groups)):
-      _fill_group(dist, gi, emb[f'group_{gi}'], weights)
-    for gi in dist.plan.hot_groups:
-      _fill_hot(dist, gi, emb[f'hot_group_{gi}'], weights)
+    _fill_tables(dist, emb, weights)
   if hybrid:
     emb_opt_state = state.opt_state[1]
     if any(st_tables):

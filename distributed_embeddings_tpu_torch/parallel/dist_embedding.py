@@ -45,6 +45,9 @@ for later).  ``overlap_chunks=k`` (docs/design.md §11,
 ``k`` rounds of the slot axis, each issued asynchronously before the
 round before it is consumed, bit-exact against one round;
 ``fused_exchange=False`` ships each buffer through its own collective.
+``table_dtype`` (docs/design.md §12) stores the tables as int8 or
+float8_e4m3 payloads with per-row power-of-two scales; every lookup
+dequantizes at the gather (the lookup kernel's dequantizing arm).
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -62,6 +65,7 @@ from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel import overlap
+from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.planner import (
     GroupSpec, LookupPlan, ShardingPlan, TableConfig, fuse_layout)
@@ -107,6 +111,15 @@ def _fold_seed(seed: int, *keys: int) -> int:
 
 def _wire_dtype_name(dtype: torch.dtype) -> str:
   return str(dtype).replace('torch.', '')
+
+
+# the dense trainer's refusal of quantized tables (the JAX package's §12
+# refusal matrix)
+QUANTIZED_AUTODIFF = (
+    'dense autodiff cannot differentiate through integer payloads: a '
+    'table_dtype-quantized layer trains with the sparse trainer '
+    '(parallel/sparse.make_hybrid_train_step; docs/design.md §12 refusal '
+    'matrix)')
 
 
 class DistributedEmbedding:
@@ -157,8 +170,17 @@ class DistributedEmbedding:
       and dtype class carries every live buffer (``fuse_layout``);
       False: one collective per buffer (the per-group schedule, the
       A/B arm), legs named ``{phase}/g{i}``.  Bit-identical either way.
-    table_dtype / cold_tier / cold_fetch_rows / dcn_sharding /
-      wire_dtype: not ported; raise.
+    table_dtype: quantized table storage (docs/design.md §12): ``None``
+      | ``'int8'`` | ``'float8_e4m3'``.  Each group stores its payload at
+      this dtype (``group_{gi}``, ``hot_group_{gi}``) with one f32
+      power-of-two scale a row (``scale_group_{gi}`` /
+      ``hot_scale_group_{gi}`` ``[rows, 1]``); every lookup dequantizes
+      at the gather (the lookup kernel's dequantizing arm), so outputs
+      are f32, and the sparse apply requantizes exactly the touched rows
+      with a refreshed scale (``parallel/sparse.py``).  Requires
+      ``param_dtype=float32``; the dense autodiff trainer refuses it.
+    cold_tier / cold_fetch_rows / dcn_sharding / wire_dtype: not ported;
+      raise.
   """
 
   def __init__(self,
@@ -212,8 +234,14 @@ class DistributedEmbedding:
           'overlap_chunks > 1 requires dp_input=True: the chunked '
           'pipeline overlaps the dp->mp id exchange, which the '
           'model-parallel input path does not have')
-    if table_dtype is not None:
-      raise not_ported('table_dtype', 9)
+    quant = quantization.resolve_table_dtype(table_dtype)
+    if quant is not None and param_dtype != torch.float32:
+      raise ValueError(
+          f'table_dtype={quant.name!r} requires param_dtype='
+          f'float32 (got {param_dtype}): the per-row scale '
+          'already carries the dynamic range, and the f32 dequant at '
+          'the gather is the storage contract (docs/design.md §12). '
+          'Drop param_dtype=bfloat16 or drop table_dtype.')
     if wire_dtype is not None:
       raise not_ported('wire_dtype', 9)
     if dcn_sharding:
@@ -248,11 +276,17 @@ class DistributedEmbedding:
                              packed_storage=False,
                              hot_sets=hot_cache,
                              overlap_chunks=overlap_chunks,
+                             table_dtype=quant,
                              device_hbm_budget=device_hbm_budget,
                              param_itemsize=torch.empty(
                                  0, dtype=param_dtype).element_size())
     self.num_inputs = len(self.plan.input_table_map)
     self.hot_enabled = bool(self.plan.hot_sets)
+    # quantized storage: the dtype the tables (and hot buffers) store
+    # at; the scales live in scale_group_{gi} / hot_scale_group_{gi}
+    self.quant = self.plan.table_spec
+    self.table_dtype = (self.quant.torch_dtype if self.quant is not None
+                        else param_dtype)
     if overlap_chunks > 1 and any(self.plan.row_sliced) \
         and not self.hot_enabled:
       raise ValueError(
@@ -281,17 +315,24 @@ class DistributedEmbedding:
     """This rank's fused tables ``{f'group_{gi}': [rows_cap, width]}``,
     drawn on ``self.device``, and with ``hot_cache`` the replicated hot
     buffers ``{f'hot_group_{gi}': [hot_rows_cap, width]}`` (``_init_hot``).
+    Quantized plans also hold ``scale_group_{gi}`` ``[rows_cap, 1]`` (and
+    ``hot_scale_group_{gi}``).
 
     Each member table slice draws with its own initializer from a
     generator seeded by ``(seed, table, col_start, row_start)``, so a rank
     builds its shard without any other rank's rows; padding rows are
-    zero.  The draw goes straight into the group's buffer in blocks of
-    whole rows (``INIT_BLOCK_ELEMENTS``), one after the other from that
-    generator, so the peak is the tables plus one block's scratch."""
+    zero (scale 1).  The draw goes straight into the group's buffer in
+    blocks of whole rows (``INIT_BLOCK_ELEMENTS``), one after the other
+    from that generator, so the peak is the tables plus one block's
+    scratch; a quantized plan quantizes each f32 block as it is drawn
+    (the tables never exist at f32)."""
     params = {}
+    q = self.quant
     for gi, g in enumerate(self.plan.groups):
-      buf = torch.empty((g.rows_cap, g.width), dtype=self.param_dtype,
+      buf = torch.empty((g.rows_cap, g.width), dtype=self.table_dtype,
                         device=self.device)
+      sbuf = (torch.empty((g.rows_cap, 1), dtype=torch.float32,
+                          device=self.device) if q is not None else None)
       off = 0
       for lt in g.member_tables[self.rank]:
         cfg = self.table_configs[lt.table_id]
@@ -306,15 +347,31 @@ class DistributedEmbedding:
         block = max(1, INIT_BLOCK_ELEMENTS // lt.width)
         for r0 in range(0, lt.input_dim, block):
           r1 = min(lt.input_dim, r0 + block)
-          buf[off + r0:off + r1] = init(
-              (r1 - r0, lt.width), dtype=self.param_dtype,
-              device=self.device, generator=gen, **kwargs)
+          vals = init((r1 - r0, lt.width), dtype=self.param_dtype,
+                      device=self.device, generator=gen, **kwargs)
+          if q is None:
+            buf[off + r0:off + r1] = vals
+            continue
+          payload, scale = quantization.quantize(vals, q)
+          quantization.bits(buf)[off + r0:off + r1] = quantization.bits(
+              payload)
+          sbuf[off + r0:off + r1] = scale
         off += lt.input_dim
-      buf[off:].zero_()
+      quantization.bits(buf)[off:].zero_()
       params[f'group_{gi}'] = buf
+      if q is not None:
+        sbuf[off:].fill_(1.0)
+        params[f'scale_group_{gi}'] = sbuf
     if self.hot_enabled:
       params.update(self._init_hot(params))
     return params
+
+  def _scale(self, params, gi: int, hot: bool = False):
+    """Group ``gi``'s per-row scales (of its hot buffer with ``hot``);
+    None for an unquantized plan."""
+    if self.quant is None:
+      return None
+    return params[f'{"hot_" if hot else ""}scale_group_{gi}']
 
   def _init_hot(self, params) -> Dict[str, torch.Tensor]:
     """The replicated hot buffers filled from the freshly built shards:
@@ -322,21 +379,34 @@ class DistributedEmbedding:
     (``GroupSpec.hot_owner_rows`` / ``hot_owner_dst``), which copies it
     into a zero buffer; one all-reduce (the JAX ``psum``) replicates the
     union, so a cached layer starts from exactly the values the uncached
-    layer draws."""
+    layer draws.  On a quantized plan the owned rows dequantize to f32
+    first (exact), the all-reduce adds one non-zero term an element
+    (exact in any order), and every rank requantizes the union the same
+    way (``hot_group_{gi}`` + ``hot_scale_group_{gi}``)."""
     out = {}
+    q = self.quant
     for gi in self.plan.hot_groups:
       g = self.plan.groups[gi]
-      buf = torch.zeros((g.hot_rows_cap, g.width), dtype=self.param_dtype,
+      buf = torch.zeros((g.hot_rows_cap, g.width),
+                        dtype=torch.float32 if q else self.param_dtype,
                         device=self.device)
       rows = g.hot_owner_rows[self.rank]
       if rows.size:
         as_idx = lambda a: torch.as_tensor(a, dtype=torch.long,
                                            device=self.device)
-        buf[as_idx(g.hot_owner_dst[self.rank])] = params[f'group_{gi}'][
-            as_idx(rows)]
+        src = as_idx(rows)
+        vals = quantization.bits(params[f'group_{gi}'])[src]
+        if q is not None:
+          vals = quantization.dequantize(
+              vals.view(q.torch_dtype), params[f'scale_group_{gi}'][src])
+        buf[as_idx(g.hot_owner_dst[self.rank])] = vals
       if self.world_size > 1:
         torch_dist.all_reduce(buf, group=self.mesh.group)
-      out[f'hot_group_{gi}'] = buf
+      if q is None:
+        out[f'hot_group_{gi}'] = buf
+      else:
+        out[f'hot_group_{gi}'], out[f'hot_scale_group_{gi}'] = (
+            quantization.quantize(buf, q))
     return out
 
   # --------------------------------------------------------------- forward
@@ -764,7 +834,8 @@ class DistributedEmbedding:
       if lookup is None:
         got = lookup_ops.fused_group_lookup(
             params[f'group_{gi}'], routed,
-            [subs[si].lookup_combiner for si in sis], self.compute_dtype)
+            [subs[si].lookup_combiner for si in sis], self.compute_dtype,
+            self._scale(params, gi))
       else:
         got = lookup(gi, sis, routed)
       for si, out_c in zip(sis, got):
@@ -840,7 +911,8 @@ class DistributedEmbedding:
             gi: lookup_ops.ChunkedGroupLookup(
                 params[f'group_{gi}'],
                 {si: sub.lookup_combiner for si, sub in enumerate(subs)
-                 if sub.gi == gi}, self.compute_dtype)
+                 if sub.gi == gi}, self.compute_dtype,
+                self._scale(params, gi))
             for gi in {sub.gi for sub in subs}}
       routed_parts = [[] for _ in subs]
       rows_pending, merge_out = [], {}
@@ -954,6 +1026,9 @@ class DistributedEmbedding:
     """
     inputs, batch, hotness = self._prepare_inputs(inputs)
     routing_out = ()
+    if (self.quant is not None and torch.is_grad_enabled()
+        and any(t.requires_grad for t in params.values())):
+      raise ValueError(QUANTIZED_AUTODIFF)
     if self.hot_enabled:
       if torch.is_grad_enabled() and any(t.requires_grad
                                          for t in params.values()):
@@ -993,7 +1068,8 @@ class DistributedEmbedding:
     forward (``_build_backward_hot``): the cold cotangents segment-sum to
     the forward's per-(source, slot) unique rows and ship deduplicated;
     the hot cotangents segment-sum into the replicated buffers' layout
-    and are all-reduced once.  Mean division happens inside (hot layers
+    and are summed over the ranks once (in rank order, ``_OrderedSum``).
+    Mean division happens inside (hot layers
     need no caller-side pre-division).  The return is then ``(gsubs,
     hot_grads)``: per-subgroup ``[n_cap, D * U, w]`` grads aligned with
     the cached residuals, and ``{gi: [hot_rows_cap, w]}`` (``2w`` with
@@ -1306,7 +1382,8 @@ class DistributedEmbedding:
             continue
           got = lookup_ops.fused_group_lookup(
               params[f'group_{gi}'], [routed[si] for si in sis],
-              [None] * len(sis), self.compute_dtype)
+              [None] * len(sis), self.compute_dtype,
+              self._scale(params, gi))
           for si, r in zip(sis, got):
             pre[si] = r.reshape(r.shape[0], D, -1,
                                 subs[si].group.width).transpose(0, 1)
@@ -1337,7 +1414,8 @@ class DistributedEmbedding:
             torch.where(mem[i]['hot'] >= 0, mem[i]['hot'] + off, -1)
             for i, _, _, off in members]).reshape(-1, h)
         parts = lookup_ops.dense_lookup(params[f'hot_group_{gi}'], idx,
-                                        'sum', torch.float32)
+                                        'sum', torch.float32,
+                                        self._scale(params, gi, hot=True))
         for (i, cs, ce, _), hp in zip(members,
                                       parts.reshape(len(members),
                                                     local_batch, -1)):
@@ -1369,10 +1447,10 @@ class DistributedEmbedding:
     fused exchange ships every subgroup's deduplicated ``[D, n_cap, U,
     w]`` grads (leg ``bwd/cold_grads``), aligned with the forward's
     owner-side residuals.  Hot: per hot group ONE segment sum of every
-    reading input's occurrences into ``[hot_rows_cap, w]``, then one
-    all-reduce over the ranks (the JAX ``psum``).  With ``overlap_chunks
-    > 1`` the cold exchange goes in slot rounds and the all-reduce in row
-    chunks, each issued asynchronously (``HotGrads``).  ``with_sq`` appends
+    reading input's occurrences into ``[hot_rows_cap, w]``, then one sum
+    over the ranks (the JAX ``psum``) in a fixed order, ``_OrderedSum``.
+    With ``overlap_chunks > 1`` the cold exchange goes in slot rounds and
+    the sum in row chunks, each issued asynchronously (``HotGrads``).  ``with_sq`` appends
     per-occurrence squares as ``w`` more columns, ``with_touch`` a
     trailing occurrence count (hot grads only)."""
     key = ('bwd_hot', local_batch, hotness, with_sq, with_touch)
@@ -1474,8 +1552,7 @@ class DistributedEmbedding:
           # in row chunks, each issued async: the hot apply waits on
           # chunk k alone before stepping its rows (HotGrads.chunks)
           hot_grads.pending[gi] = [
-              torch_dist.all_reduce(total[lo:hi], group=self.mesh.group,
-                                    async_op=True)
+              _OrderedSum(total[lo:hi], self.mesh.group, D)
               for lo, hi in hot_grads.bounds[gi]]
       return gsubs, hot_grads
 
@@ -1595,16 +1672,72 @@ class _Pending:
     return self.out
 
 
+class _OrderedSum:
+  """The sum over the ranks of one f32 buffer (``x``, contiguous),
+  written back into it, in an order that is the same for every element:
+  the left fold ``((x_0 + x_1) + x_2) + ...`` over the ranks in rank
+  order.  An all-reduce gives no such order: gloo, and NCCL's rings and
+  trees, add an element's terms in an order that depends on where it
+  sits in the buffer, so from three ranks up the sum of a row chunk is
+  not the sum of the same rows inside the whole buffer.  Here:
+
+  - an ``all_to_all`` of ``D`` contiguous blocks of the flat buffer
+    (zero-padded to a multiple of ``D``): rank ``d`` receives block ``d``
+    of every rank, issued asynchronously at construction;
+  - ``fold()``: wait for it, fold the received blocks in rank order in
+    f32, and issue the ``all_gather`` of the folded blocks;
+  - ``wait()``: wait for the gather and copy the sum into ``x``.
+
+  The bytes on the wire are a ring all-reduce's: each rank sends and
+  receives ``(D - 1) / D`` of the buffer twice."""
+
+  def __init__(self, x: torch.Tensor, group, world: int):
+    self.x, self.group, self.world = x, group, world
+    flat = x.reshape(-1)
+    self.n = flat.numel()
+    self.block = -(-self.n // world)
+    self.send = flat.new_zeros(world * self.block)
+    self.send[:self.n] = flat
+    self.recv = torch.empty_like(self.send)
+    self.work = torch_dist.all_to_all_single(self.recv, self.send,
+                                             group=group, async_op=True)
+
+  def fold(self):
+    """Fold the received blocks and issue the gather (once)."""
+    if self.recv is None:
+      return
+    self.work.wait()
+    parts = self.recv.view(self.world, self.block)
+    acc = parts[0].clone()
+    for s in range(1, self.world):
+      acc = acc + parts[s]
+    self.gathered = torch.empty_like(self.send)
+    # the folded block stays referenced until the gather is waited on
+    self.acc = acc
+    self.work = torch_dist.all_gather(
+        list(self.gathered.view(self.world, self.block).unbind(0)), acc,
+        group=self.group, async_op=True)
+    self.send = self.recv = None
+
+  def wait(self):
+    self.fold()
+    self.work.wait()
+    self.x.copy_(self.gathered[:self.n].view_as(self.x))
+    self.gathered = self.acc = None
+
+
 class HotGrads(dict):
   """The hot-cache backward's ``{group index: [K, w]}`` replicated hot
-  gradients, whose all-reduce may still be in flight.  ``bounds[gi]``
-  are the row chunks (``overlap_chunks`` of them, ``overlap.
-  chunk_bounds``) and ``pending[gi]`` one all-reduce ``Work`` a chunk
-  (row chunks are bit-exact: every element takes the same one add).
-  ``chunks(gi)`` yields each chunk's rows once its own all-reduce is
-  done, so a chunk's apply overlaps the later chunks' reduce; reading a
-  group through ``[]``, ``get``, ``values`` or ``items`` waits on all of
-  its chunks first."""
+  gradients, whose sum over the ranks may still be in flight.
+  ``bounds[gi]`` are the row chunks (``overlap_chunks`` of them,
+  ``overlap.chunk_bounds``) and ``pending[gi]`` one ``_OrderedSum`` a
+  chunk.  Row chunks are bit-exact: every element is the left fold of
+  its ranks' terms in rank order wherever it sits, in a chunk or in the
+  whole buffer.  ``chunks(gi)`` yields each chunk's rows once its own
+  sum is done, and issues the next chunk's gather before waiting, so a
+  chunk's apply overlaps the later chunks' sums; reading a group
+  through ``[]``, ``get``, ``values`` or ``items`` waits on all of its
+  chunks first."""
 
   def __init__(self, *args, **kwargs):
     super().__init__(*args, **kwargs)
@@ -1614,16 +1747,19 @@ class HotGrads(dict):
   def chunks(self, gi):
     """``(lo, hi, rows)`` of each row chunk of group ``gi`` in order."""
     total = dict.__getitem__(self, gi)
-    works = self.pending.pop(gi, None)
+    sums = self.pending.pop(gi, None)
     for j, (lo, hi) in enumerate(self.bounds.get(gi,
                                                  [(0, total.shape[0])])):
-      if works:
-        works[j].wait()
+      if sums:
+        sums[j].fold()
+        if j + 1 < len(sums):
+          sums[j + 1].fold()
+        sums[j].wait()
       yield lo, hi, total[lo:hi]
 
   def __getitem__(self, gi):
-    for work in self.pending.pop(gi, ()):
-      work.wait()
+    for s in self.pending.pop(gi, ()):
+      s.wait()
     return super().__getitem__(gi)
 
   def get(self, gi, default=None):

@@ -112,6 +112,9 @@ class DistributedGradientTape:
   exchange's backward already summed over every rank's cotangents, is
   scaled by ``1 / world_size``.  A world of one calls no collective.
 
+  A quantized layer's tables (``table_dtype``) are refused: dense
+  autodiff cannot differentiate through integer payloads.
+
   Args:
     loss_fn: the local-mean loss.
     group: the process group the tables shard over (the model's
@@ -128,6 +131,12 @@ class DistributedGradientTape:
     """``(global-mean loss, grads)``: grads a tree of ``params``'
     structure, the loss a detached 0-d tensor."""
     world = _world(self.group)
+    if any(not (p.is_floating_point() and p.element_size() > 1)
+           for p in optim.tree_leaves(params.get('embedding', {}))):
+      # a quantized layer's int8 / float8 payloads
+      from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+          QUANTIZED_AUTODIFF)
+      raise ValueError(QUANTIZED_AUTODIFF)
     # fresh leaves on the params' storage: the caller's tensors never
     # enter a graph
     leaves = optim.tree_map(lambda p: p.detach().requires_grad_(True),

@@ -48,6 +48,19 @@ squares pre-summed, which the segment walk cannot consume, so its cold
 rows are summed by the segment walk's ``'add'`` and updated by torch ops
 (``_apply_presummed_sq``).
 
+Quantized tables (``table_dtype``, docs/design.md §12) take neither the
+segment walk's in-place apply nor a kernel of their own, as in the JAX
+package (its ``_QuantizedTableOptimizer``): each group's stream is
+summed per touched row by the segment walk's ``'add'``
+(``routing.segment_sum``), and then, with torch ops on exactly the
+touched rows, the payload is dequantized, the optimizer's ``row_updates``
+(the JAX package's arithmetic and op order, in f32) give the new values
+and state, and the rows are requantized with a refreshed scale and
+scattered back (``_apply_quantized``).  The optimizer state keeps its
+own dtype at full row width.  A quantized hot buffer takes its dense
+step on its dequantized rows and is requantized whole
+(``_apply_hot_quantized``): untouched rows round-trip bit for bit.
+
 Each rank runs its own process.  ``head_loss_fn`` returns the mean loss
 over this rank's LOCAL batch; the step turns that into the JAX package's
 global-mean loss: embedding cotangents are divided by the world size,
@@ -66,6 +79,7 @@ import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import grad as grad_lib
+from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding, HotGrads, not_ported)
@@ -119,6 +133,14 @@ class SparseSGD:
     for gi in dist.plan.hot_groups:
       out[f'hot_group_{gi}'] = {}
     return out
+
+  def row_updates(self, state, uids, sum_g, sum_sq, lr):
+    """The f32 deltas of the touched rows ``uids`` (strictly unique) from
+    their summed gradients, the optimizer state updated at those rows in
+    place (the JAX package's ``row_updates``: the arithmetic the
+    quantized apply shares).  SGD: ``-lr * S``."""
+    del state, uids, sum_sq
+    return -_f32(lr, sum_g.device) * sum_g
 
   def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
     """DENSE step on a replicated hot buffer, in place: ``sum_g`` is the
@@ -180,6 +202,19 @@ class SparseAdagrad:
                                    dtype=_DTYPES[self.accum_dtype])}
         for k in keys
     }
+
+  def row_updates(self, state, uids, sum_g, sum_sq, lr):
+    """``SparseSGD.row_updates`` for Adagrad: ``a += S * S`` (or the
+    summed squares with ``dedup=False``) at the touched rows, stored at
+    the accumulator's dtype; the delta ``-lr * S * rsqrt(a + eps)`` reads
+    the f32 running value."""
+    dev = sum_g.device
+    acc = state['acc']
+    add = segwalk._rounded_square(sum_g) if self.dedup else sum_sq
+    acc_rows = acc[uids].to(torch.float32) + add
+    acc[uids] = acc_rows.to(acc.dtype)
+    return (-_f32(lr, dev) * sum_g
+            * torch.rsqrt(acc_rows + _f32(self.epsilon, dev)))
 
   def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
     """DENSE Adagrad step on a replicated hot buffer, in place (the JAX
@@ -250,6 +285,26 @@ class SparseAdam:
           't': torch.zeros(p.shape[:1], dtype=torch.int32, device=p.device),
       }
     return out
+
+  def row_updates(self, state, uids, sum_g, sum_sq, lr):
+    """``SparseSGD.row_updates`` for lazy Adam: ``t += 1``, the moments
+    decay and add, and the bias-corrected delta reads the advanced
+    ``t``, at the touched rows only."""
+    del sum_sq
+    dev = sum_g.device
+    t = state['t']
+    t[uids] += 1
+    m_rows = (_f32(self.b1, dev) * state['m'][uids]
+              + _f32(1 - self.b1, dev) * sum_g)
+    v_rows = (_f32(self.b2, dev) * state['v'][uids]
+              + _f32(1 - self.b2, dev) * sum_g * sum_g)
+    state['m'][uids] = m_rows
+    state['v'][uids] = v_rows
+    k = t[uids].to(torch.float32)[:, None]
+    mhat = m_rows / (1 - torch.pow(torch.full_like(k, self.b1), k))
+    vhat = v_rows / (1 - torch.pow(torch.full_like(k, self.b2), k))
+    return (-_f32(lr, dev) * mhat) / (torch.sqrt(vhat)
+                                      + _f32(self.epsilon, dev))
 
   def apply_hot(self, hot, state, sum_g, sum_sq, lr, count=None):
     """DENSE lazy-Adam step on a replicated hot buffer, in place (the JAX
@@ -336,6 +391,55 @@ def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr):
   acc[r] = acc_rows.to(acc.dtype)
 
 
+def _apply_quantized(optimizer, spec, payload, scale, state, flat_ids,
+                     flat_g, lr, g_index=None, with_sq=False,
+                     presummed_sq=False):
+  """One quantized group's apply, in place (the JAX package's
+  ``_QuantizedTableOptimizer.apply_unique``): the stream's rows summed
+  per touched row by the segment walk's ``'add'``
+  (``routing.segment_sum``), then on exactly the touched rows: dequantize
+  (exact), ``optimizer.row_updates`` in f32, requantize with a refreshed
+  scale, scatter payload (float8 through its bits) and scale back.
+
+  ``flat_g`` holds compact rows and ``g_index`` maps each position to its
+  row (None: one row a position).  ``with_sq``: per-occurrence Adagrad on
+  an uncached stream, whose squares are summed beside the gradients;
+  ``presummed_sq``: a cached stream's rows carry ``[sum g, sum g * g]``
+  already (added as they are, never re-squared)."""
+  rows_cap, w = payload.shape
+  valid = (flat_ids >= 0) & (flat_ids < rows_cap)
+  uids, seg = torch.unique(flat_ids[valid], return_inverse=True)
+  g = flat_g.to(torch.float32)
+  if with_sq:
+    g = torch.cat([g, g * g], dim=1)
+  sums = routing.segment_sum(
+      seg, g if g_index is not None else g[valid], uids.shape[0],
+      None if g_index is None else g_index[valid])
+  r = uids.long()
+  bits = quantization.bits(payload)
+  old = quantization.dequantize(bits[r].view(payload.dtype), scale[r])
+  sum_sq = sums[:, w:] if (with_sq or presummed_sq) else None
+  delta = optimizer.row_updates(state, r, sums[:, :w], sum_sq, lr)
+  new_payload, new_scale = quantization.quantize(old + delta, spec)
+  bits[r] = quantization.bits(new_payload)
+  scale[r] = new_scale
+
+
+def _apply_hot_quantized(optimizer, spec, payload, scale, state, sum_g,
+                         sum_sq, lr, count=None):
+  """A quantized hot buffer's dense step (JAX
+  ``_QuantizedTableOptimizer.apply_hot``), in place: dequantize its rows
+  (exact), run the optimizer's ``apply_hot`` on them in f32, requantize
+  every row.  An untouched row takes a zero update, and the quantizer's
+  fixed point keeps its payload and scale bit for bit."""
+  bits = quantization.bits(payload)
+  hot = quantization.dequantize(payload, scale)
+  optimizer.apply_hot(hot, state, sum_g, sum_sq, lr, count=count)
+  new_payload, new_scale = quantization.quantize(hot, spec)
+  bits.copy_(quantization.bits(new_payload))
+  scale.copy_(new_scale)
+
+
 def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                         local_batch: int, hotness: tuple):
   """Build (once per signature) ``apply(params, opt_state, lr, residuals,
@@ -370,6 +474,8 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
     g_index[gi] = (torch.cat([r + int(o) for r, o in zip(rows, offs)])
                    if slots else None)
 
+  quant = dist.quant
+
   def apply(params, opt_state, lr, residuals, gsubs, hot_grads=None):
     for gi, group in enumerate(dist.plan.groups):
       if not slots_of[gi]:
@@ -380,7 +486,11 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                               for si in slots_of[gi]])
         flat_g = torch.cat([gsubs[si].to(torch.float32).reshape(
             -1, gsubs[si].shape[-1]) for si in slots_of[gi]])
-        if needs_sq:
+        if quant is not None:
+          _apply_quantized(optimizer, quant, params[key_g],
+                           params[f'scale_group_{gi}'], opt_state[key_g],
+                           flat_ids, flat_g, lr, presummed_sq=needs_sq)
+        elif needs_sq:
           _apply_presummed_sq(optimizer, params[key_g], opt_state[key_g],
                               flat_ids, flat_g, lr)
         else:
@@ -398,6 +508,13 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
           gg = gg / torch.clamp(cnt, min=1.0)[..., None]
         ids_list.append(ids.reshape(-1))
         grad_list.append(gg.reshape(-1, group.width))
+      if quant is not None:
+        _apply_quantized(optimizer, quant, params[key_g],
+                         params[f'scale_group_{gi}'], opt_state[key_g],
+                         torch.cat(ids_list), torch.cat(grad_list), lr,
+                         g_index=g_index[gi],
+                         with_sq=optimizer.needs_sq)
+        continue
       _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
                      torch.cat(ids_list), torch.cat(grad_list), lr,
                      g_index=g_index[gi])
@@ -405,19 +522,23 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
       hot_grads = HotGrads(hot_grads or {})
     for gi in dist.plan.hot_groups:
       # one dense elementwise step per hot group: the grads arrived
-      # all-reduced, so every replica applies identically.  It runs in
-      # the backward's row chunks (overlap_chunks), each once its own
-      # all-reduce is done: elementwise per row, so bit-exact
+      # summed over the ranks, so every replica applies identically.  It
+      # runs in the backward's row chunks (overlap_chunks), each once its
+      # own sum is done: elementwise per row, so bit-exact
       hk = f'hot_group_{gi}'
       w = dist.plan.groups[gi].width
       cnt = 2 * w if needs_sq else w
       for lo, hi, hg in hot_grads.chunks(gi):
         hg = hg.to(torch.float32)
-        optimizer.apply_hot(params[hk][lo:hi],
-                            {k: v[lo:hi] for k, v in opt_state[hk].items()},
-                            hg[:, :w], hg[:, w:2 * w] if needs_sq else None,
-                            lr,
-                            count=hg[:, cnt:cnt + 1] if needs_touch else None)
+        args = ({k: v[lo:hi] for k, v in opt_state[hk].items()},
+                hg[:, :w], hg[:, w:2 * w] if needs_sq else None, lr)
+        count = hg[:, cnt:cnt + 1] if needs_touch else None
+        if quant is not None:
+          _apply_hot_quantized(optimizer, quant, params[hk][lo:hi],
+                               params[f'hot_scale_group_{gi}'][lo:hi],
+                               *args, count=count)
+        else:
+          optimizer.apply_hot(params[hk][lo:hi], *args, count=count)
     return params, opt_state
 
   dist._fn_cache[key] = apply

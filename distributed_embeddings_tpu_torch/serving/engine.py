@@ -11,12 +11,14 @@ built and loaded and the per-rung buffers exist before the first
 request.  PyTorch runs eagerly, so a rung is a launch shape, not a
 compiled program.
 
-Ported: plain f32/bf16 tables, and ``hot_sets`` (a read-only hot-row
-cache: hot rows replicate on every rank and are served with no exchange,
-``hotcache.serving_hot_sets`` / ``analytic_power_law_hot_sets``).
-``from_bundle``, ``hot_only_filter``, the batcher and the pool are
-ROADMAP.md Queue 1, item 13; quantized and tiered tables raise at
-construction.
+Ported: plain f32/bf16 tables, quantized ones (``table_dtype='auto'``
+serves a uniformly quantized set of ``checkpoint.QuantizedWeight``s at
+its own dtype, through the lookup kernel's dequantizing arm), and
+``hot_sets`` (a read-only hot-row cache: hot rows replicate on every
+rank and are served with no exchange, ``hotcache.serving_hot_sets`` /
+``analytic_power_law_hot_sets``).  ``from_bundle``, ``hot_only_filter``,
+the batcher and the pool are ROADMAP.md Queue 1, item 13; tiered tables
+raise at construction.
 """
 
 from __future__ import annotations
@@ -31,6 +33,21 @@ from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding, not_ported)
+
+
+def _resolve_bundle_dtype(weights) -> Optional[str]:
+  """``table_dtype='auto'``: a uniformly quantized weight set serves at
+  its own dtype (its rows never widen on the device); anything else,
+  plain arrays or mixed dtypes, serves at f32 (dequantization is exact),
+  never a silent narrowing.  The JAX package's ``_resolve_bundle_dtype``."""
+  if not weights:
+    return None
+  names = set()
+  for w in weights:
+    if not isinstance(w, checkpoint.QuantizedWeight):
+      return None
+    names.add(w.dtype_name)
+  return names.pop() if len(names) == 1 else None
 
 
 def default_bucket_ladder(batch_size: int, denom: int):
@@ -66,8 +83,8 @@ class ServingEngine:
     input_table_map: as in ``DistributedEmbedding``.
     hotness: per-input hot caps (default 1 per input); requests with
       fewer ids pad with ``-1``, more refuse.
-    table_dtype: 'auto' or None (plain tables); a quantized dtype is not
-      ported.
+    table_dtype: 'auto' (``_resolve_bundle_dtype``), None (f32 storage)
+      or a quantized dtype (``'int8'``, ``'float8_e4m3'``).
     hot_sets: serving-sized read-only hot sets
       (``hotcache.serving_hot_sets``): hot rows replicate on every rank
       and are served with no exchange.
@@ -100,8 +117,7 @@ class ServingEngine:
                wire_dtype: Optional[str] = None):
     weights = list(weights)
     if table_dtype == 'auto':
-      # plain arrays serve as they are; quantized bundles are not ported
-      table_dtype = None
+      table_dtype = _resolve_bundle_dtype(weights)
     self.dist = DistributedEmbedding(
         list(table_configs),
         strategy=strategy,

@@ -10,9 +10,13 @@ a resume or a serving export, so corrupt bytes are caught at rest.
 Verdicts: ``OK`` (manifest verified), ``LEGACY`` (no manifest; every
 member decompresses), ``FAIL`` (with the reason), ``QUARANTINED``
 (``*.corrupt`` files: listed, out of every resume path, never a
-failure).  Files with quantized ``table{i}:scale`` sidecars fail with
-the item that ports quantized storage (9).  Exit codes as the JAX
-package's tools: 0 clean, 1 failing files, 2 no file matched.
+failure).  Files with quantized ``table{i}:scale`` sidecars are also
+held to the row contract of quantized storage (docs/design.md §12):
+every scale a finite, positive, exact power of two, every payload value
+on the int8 / fp8 grid (``quantization.scale_bad_mask_np`` /
+``payload_bad_mask_np``, the masks the auditor uses), and as many scale
+rows as payload rows.  Exit codes as the JAX package's tools: 0 clean,
+1 failing files, 2 no file matched.
 """
 
 from __future__ import annotations
@@ -26,10 +30,51 @@ import sys
 import numpy as np
 
 from distributed_embeddings_tpu_torch.parallel import checkpoint
-from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    not_ported)
+from distributed_embeddings_tpu_torch.parallel import quantization
 
 EXIT_OK, EXIT_FINDINGS, EXIT_MALFORMED = 0, 1, 2
+
+
+def _quantized_row_verdict(path):
+  """``(ok, reason)`` of the row contract over every quantized table of
+  the file; ``(True, 'f32')`` when it carries no quantized sidecars."""
+  problems = []
+  quantized = 0
+  with np.load(path, allow_pickle=False) as data:
+    scales = [k for k in data.files if k.endswith(':scale')]
+    for sk in scales:
+      name = sk[:-len(':scale')]
+      if name not in data.files:
+        problems.append(f'{sk} without {name} payload')
+        continue
+      quantized += 1
+      dk = f'{name}:dtype'
+      dtype_name = (str(data[dk][()]) if dk in data.files else 'int8')
+      try:
+        spec = quantization.resolve_table_dtype(dtype_name)
+      except ValueError as e:
+        problems.append(f'{name}: {e}')
+        continue
+      payload = data[name].view(spec.np_dtype)  # fp8 as its uint8 bits
+      scale = data[sk]
+      if payload.shape[0] != scale.reshape(-1).shape[0]:
+        problems.append(f'{name}: payload rows {payload.shape[0]} != '
+                        f'scale rows {scale.reshape(-1).shape[0]}')
+        continue
+      bad_s = quantization.scale_bad_mask_np(scale)
+      if bad_s.any():
+        rows = np.nonzero(bad_s.reshape(-1))[0][:4].tolist()
+        problems.append(f'{name}: {int(bad_s.sum())} non-power-of-two/'
+                        f'invalid scale(s), rows {rows}')
+      bad_p = quantization.payload_bad_mask_np(payload, spec)
+      if bad_p.any():
+        rows = np.nonzero(bad_p.any(axis=-1))[0][:4].tolist()
+        problems.append(f'{name}: {int(bad_p.sum())} off-grid payload '
+                        f'value(s), rows {rows}')
+  if problems:
+    return False, '; '.join(problems)
+  return True, (f'{quantized} quantized table(s) on-contract'
+                if quantized else 'f32')
 
 
 def verify_one(path):
@@ -40,13 +85,16 @@ def verify_one(path):
   ok, reason, man = checkpoint.verify_npz(path)
   if not ok:
     return 'FAIL', reason
-  with np.load(path, allow_pickle=False) as data:
-    scales = [k for k in data.files if k.endswith(':scale')]
-  if scales:
-    return 'FAIL', str(not_ported(f'quantized entries ({scales[0]})', 9))
   step = man.get('step') if man else None
+  try:
+    qok, qreason = _quantized_row_verdict(path)
+  except Exception as e:  # a structurally odd npz still reports
+    return 'FAIL', f'quantized-invariant scan failed: {e!r}'
+  if not qok:
+    return 'FAIL', qreason
   verdict = 'OK' if man is not None else 'LEGACY'
-  return verdict, 'f32' if step is None else f'step {step}'
+  detail = qreason if step is None else f'step {step}; {qreason}'
+  return verdict, detail
 
 
 def collect(paths, pattern):

@@ -515,7 +515,8 @@ def test_save_npz_keeps_reference_interchange_format(tmp_path):
 
 def test_verify_checkpoint_cli(dist, tmp_path, capsys):
   """Per-file verdicts; quarantined files informational; exit 1 on any
-  failure, 0 on a healthy walk; a quantized file is refused by name."""
+  failure, 0 on a healthy walk; a quantized file off the row contract
+  (a scale that is no power of two) fails with the reason."""
   weights = _weights(21)
   good = str(tmp_path / 'good_10.npz')
   checkpoint.save_train_npz(good, weights, extras={'step': np.int64(10)},
@@ -528,7 +529,7 @@ def test_verify_checkpoint_cli(dist, tmp_path, capsys):
   checkpoint.save_npz(legacy, weights)
   quant = str(tmp_path / 'quant_20.npz')
   np.savez(quant, **{'table0': np.zeros((4, 2), np.int8),
-                     'table0:scale': np.ones(4, np.float32)})
+                     'table0:scale': np.array([1, 1, 0.3, 1], np.float32)})
   old = str(tmp_path / 'old_5.npz')
   checkpoint.save_train_npz(old, weights, extras={'step': np.int64(5)},
                             plan=dist)
@@ -540,7 +541,7 @@ def test_verify_checkpoint_cli(dist, tmp_path, capsys):
   assert 'OK' in lines['good_10.npz'] and 'step 10' in lines['good_10.npz']
   assert 'FAIL' in lines['flipped_40.npz']
   assert 'LEGACY' in lines['legacy_2.npz']
-  assert 'FAIL' in lines['quant_20.npz'] and 'item 9' in lines[
+  assert 'FAIL' in lines['quant_20.npz'] and 'invalid scale' in lines[
       'quant_20.npz']
   assert 'QUARANTINED' in lines['old_5.npz.corrupt']
   assert '2 failing' in out

@@ -281,7 +281,7 @@ def test_entry_point_trains_and_evaluates(capsys):
 @pytest.mark.parametrize('flags,item', [
     (['--dataset_path', 'criteo'], '12'),
     (['--cold_tier_budget_mb', '64'], '12'),
-    (['--table_dtype', 'int8'], '9'),
+    (['--table_dtype', 'int8', '--wire_dtype', 'table'], '9'),
     (['--wire_dtype', 'bfloat16'], '9'), (['--csr_feed'], '12'),
     (['--loader_bench'], '12'),
     (['--trace', 't.json'], '14')])

@@ -15,6 +15,16 @@ half of the batch.
   equal the JAX LookupPlans'.
 - ``StateAuditor``'s replica check passes the healthy state and names
   the diverged hot buffer, on every rank (a two-way tie names both).
+
+Four ranks (``test_four_ranks_chunked_hot_sum_like_unchunked``): from
+three ranks up, a collective's sum of an element depends on where it
+sits in the buffer, so a hot gradient summed in row chunks
+(``overlap_chunks=4``) would differ from the whole buffer's sum.  The
+port sums in rank order wherever an element sits; over 3 cached steps
+whose batches lean on the hot rows, the chunked run equals the unchunked
+one bit for bit in the hot buffers, tables, accumulators and losses, on
+every rank, and both stay within the two-rank bounds above against JAX
+on a 4-device CPU mesh.
 """
 
 import json
@@ -153,3 +163,94 @@ def test_two_ranks_hot_cache_like_jax(tmp_path):
     check, leaf, devices, rows = finding
     assert (check, leaf, devices, rows) == ('replicated', f'hot_group_{gi}',
                                             [0, 1], [3])
+
+
+def _skewed_ids(rng, batch):
+  """Ids of which about two thirds are hot, so that most hot rows take
+  gradient terms from three or four ranks in a step."""
+  ids = []
+  for t, (r, _, c) in enumerate(TABLES):
+    shape = (batch,) if c is None else (batch, 3)
+    x = rng.integers(0, r, size=shape)
+    if t in HOT:
+      hot = np.asarray(HOT[t])
+      pick = rng.random(shape) < 2 / 3
+      x = np.where(pick, hot[rng.integers(0, hot.size, size=shape)], x)
+    ids.append(x.astype(np.int32))
+  return ids
+
+
+def _four_rank_case():
+  rng = np.random.default_rng(23)
+  batch = 32
+  return {
+      'tables': TABLES, 'hot': HOT, 'batch': batch, 'lr': LR, 'chunks': 4,
+      'options': dict(row_slice=600),
+      'weights': [(rng.normal(size=(r, w)) * 0.1).astype(np.float32)
+                  for r, w, _ in TABLES],
+      'kernel': (rng.standard_normal((sum(w for _, w, _ in TABLES), 1))
+                 * 0.1).astype(np.float32),
+      'labels': rng.integers(0, 2, (batch, 1)).astype(np.float32),
+      'batches': [_skewed_ids(rng, batch) for _ in range(STEPS)],
+  }
+
+
+def _jax_steps(case, n_devices):
+  """JAX's cached layer on an ``n_devices`` CPU mesh: the tables,
+  accumulators and losses after the case's steps."""
+  jd = JaxDistributedEmbedding(
+      [jax_planner.TableConfig(*t) for t in TABLES],
+      mesh=torch_parity.jax_mesh(n_devices), dp_input=True,
+      packed_storage=False,
+      hot_cache={t: jax_hotcache.HotSet(t, np.asarray(v))
+                 for t, v in HOT.items()}, **case['options'])
+  dense_opt = optax.sgd(LR)
+  emb_opt = jax_sparse.SparseAdagrad(LR)
+  state = jax_sparse.init_hybrid_train_state(
+      jd, {'embedding': jax_ckpt.set_weights(jd, case['weights']),
+           'kernel': jnp.asarray(case['kernel'])}, dense_opt, emb_opt)
+
+  def head_loss(dense_params, emb_outs, labels):
+    x = jnp.concatenate(list(emb_outs), axis=1)
+    return jnp.mean((x @ dense_params['kernel'] - labels)**2)
+
+  step = jax_sparse.make_hybrid_train_step(jd, head_loss, dense_opt, emb_opt,
+                                           donate=False)
+  losses = []
+  for cats in case['batches']:
+    state, loss = step(state, [jnp.asarray(c) for c in cats],
+                       jnp.asarray(case['labels']))
+    losses.append(float(loss))
+  return {'weights': jax_ckpt.get_weights(jd, state.params['embedding']),
+          'accs': [a['acc'] for a in jax_ckpt.get_optimizer_state(
+              jd, state.opt_state[1])],
+          'losses': np.array(losses)}
+
+
+def test_four_ranks_chunked_hot_sum_like_unchunked(tmp_path):
+  case = _four_rank_case()
+  world = 4
+  torch_parity.spawn_ranks(torch_exchange_worker.hot_chunks, case, tmp_path,
+                           world_size=world)
+  runs = {}
+  for r in range(world):
+    for chunks in (1, case['chunks']):
+      with np.load(tmp_path / f'hot_chunks{r}_{chunks}.npz') as z:
+        runs[(r, chunks)] = dict(z)
+  base = runs[(0, 1)]
+  assert any(k.startswith('h') and not k.startswith('ha') for k in base)
+  for (r, chunks), got in runs.items():
+    # chunked == unchunked, and every rank == rank 0, bit for bit
+    assert sorted(got) == sorted(base)
+    for key in got:
+      np.testing.assert_array_equal(got[key], base[key],
+                                    err_msg=f'rank {r} chunks {chunks} {key}')
+  want = _jax_steps(case, world)
+  n = len(TABLES)
+  for t in range(n):
+    np.testing.assert_allclose(base[f'w{t}'], want['weights'][t], rtol=2e-4,
+                               atol=2e-6, err_msg=f'table {t}')
+    np.testing.assert_allclose(base[f'a{t}'], want['accs'][t], rtol=5e-3,
+                               atol=5e-4, err_msg=f'accumulator {t}')
+  np.testing.assert_allclose(base['losses'], want['losses'], rtol=2e-4,
+                             atol=2e-6)

@@ -34,6 +34,13 @@ and, after a hybrid step, its own run on the CPU.
 The chunked exchange (``overlap_chunks=3``) on the card: the forward and
 the tables after a hybrid step equal the unchunked layer's bit for bit,
 cached and uncached, with more lookup launches a forward.
+The lookup's dequantizing arm (quantized tables): int8 and fp8 payloads
+with per-row scales, widths 4 / 8 / 16 / 128, hotness 1 and 10, sum and
+mean, padding ids and a subnormal-scale row, against the plain version:
+bit-exact at hotness 1, rtol = atol = 1e-6 above; each launch counted as
+``'dequant'``.  The card's quantizer equals the numpy one bit for bit
+(subnormal scales included), and a quantized layer's hybrid step on the
+card equals its run on the CPU.
 """
 
 import numpy as np
@@ -45,6 +52,7 @@ from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import audit
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import hotcache
+from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel import sparse
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -856,3 +864,114 @@ class _NoOpt:
 
   def update(self, grads, state, params):
     return {}, state
+
+
+def _quantized_table(rng, vocab, w, spec):
+  """A quantized table of rows at scales over many octaves, with a zero
+  row (0), a subnormal-scale row (1) and a row at +-qmax (2)."""
+  rows = (rng.normal(size=(vocab, w))
+          * np.exp(rng.normal(size=(vocab, 1)) * 3)).astype(np.float32)
+  rows[0] = 0.0
+  rows[1] = np.linspace(-1, 1, w) * np.float32(spec.qmax * 2.0**-127)
+  rows[2] = np.linspace(-spec.qmax, spec.qmax, w)
+  payload, scale = quantization.quantize_np(rows, spec)
+  assert scale[1, 0] < np.finfo(np.float32).tiny
+  return payload, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['int8', 'float8_e4m3'])
+@pytest.mark.parametrize('w', [4, 8, 16, 128])
+@pytest.mark.parametrize('combiner,h', [('sum', 1), ('sum', 10),
+                                        ('mean', 10), (None, 1)])
+def test_dequant_arm_matches_plain_version(cuda_device, dtype, w, combiner,
+                                           h):
+  spec = quantization.resolve_table_dtype(dtype)
+  rng = np.random.default_rng(w * 10 + h)
+  vocab, m = 1000, 777
+  payload, scale = _quantized_table(rng, vocab, w, spec)
+  table = torch.from_numpy(payload).view(spec.torch_dtype).to(cuda_device)
+  sc = torch.from_numpy(scale).to(cuda_device)
+  ids = _ids(rng, m, h, vocab)
+  ids[9:12, 0] = [0, 1, 2]
+  ids = torch.as_tensor(ids).to(cuda_device)
+  before = lookup.ARM_LAUNCHES['dequant']
+  got = lookup.dense_lookup(table, ids, combiner, scale=sc)
+  torch.cuda.synchronize()
+  assert lookup.ARM_LAUNCHES['dequant'] == before + 1
+  want = lookup.dense_lookup_reference(table, ids, combiner, scale=sc)
+  if h == 1:
+    assert torch.equal(got, want)
+  else:
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  # the subnormal-scale row alone: exact against the host dequantization
+  one = torch.full((1, h), -1, dtype=torch.int32, device=cuda_device)
+  one[0, 0] = 1
+  np.testing.assert_array_equal(
+      lookup.dense_lookup(table, one, 'sum', scale=sc)[0].cpu().numpy(),
+      quantization.dequantize_np(payload, scale, spec)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['int8', 'float8_e4m3'])
+def test_quantizer_on_the_card_equals_numpy(cuda_device, dtype):
+  spec = quantization.resolve_table_dtype(dtype)
+  rng = np.random.default_rng(2)
+  rows = (rng.normal(size=(4096, 32))
+          * np.exp(rng.normal(size=(4096, 1)) * 8)).astype(np.float32)
+  rows[:8] *= np.float32(1e-38)
+  rows[8] = 0.0
+  rows[9] = np.float32(spec.qmax * 2.0**-3)
+  want_p, want_s = quantization.quantize_np(rows, spec)
+  got_p, got_s = quantization.quantize(torch.from_numpy(rows).to(cuda_device),
+                                       spec)
+  np.testing.assert_array_equal(got_p.view(torch.uint8).cpu().numpy(),
+                                want_p.view(np.uint8))
+  np.testing.assert_array_equal(got_s.cpu().numpy(), want_s)
+  assert (want_s < np.finfo(np.float32).tiny).any()
+  again = quantization.quantize(quantization.dequantize(got_p, got_s), spec)
+  assert torch.equal(quantization.bits(again[0]), quantization.bits(got_p))
+  assert torch.equal(again[1], got_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['int8', 'float8_e4m3'])
+def test_quantized_layer_on_the_card_matches_the_cpu(cuda_device, dtype):
+  tables = [TableConfig(300, 16, 'sum'), TableConfig(120, 8, 'mean'),
+            TableConfig(50, 4, None)]
+  hot_sets = {0: hotcache.HotSet(0, np.arange(12))}
+  rng = np.random.default_rng(4)
+  weights = [rng.normal(size=(t.input_dim, t.output_dim)).astype(np.float32)
+             for t in tables]
+  cats = [rng.integers(-1, t.input_dim + 2,
+                       size=(256,) if t.combiner is None else (256, 3)
+                       ).astype(np.int32) for t in tables]
+  got = {}
+  for dev in ('cpu', cuda_device):
+    for hot in (None, hot_sets):
+      d = DistributedEmbedding(tables, device=dev, table_dtype=dtype,
+                               hot_cache=hot)
+      params = checkpoint.set_weights(d, weights)
+      with torch.no_grad():
+        outs = d.apply(params, cats)
+      opt = sparse.SparseAdagrad(learning_rate=0.1)
+      state = sparse.init_hybrid_train_state(d, {'embedding': params},
+                                             _NoOpt(), opt)
+      step = sparse.make_hybrid_train_step(
+          d, lambda dense, embs, _: sum((e.float()**2).mean() for e in embs),
+          _NoOpt(), opt)
+      state, _ = step(state, cats, None)
+      emb = state.params['embedding']
+      got[(str(dev), hot is None)] = (
+          [o.cpu() for o in outs],
+          {k: quantization.bits(v).cpu() for k, v in emb.items()})
+  for hot in (True, False):
+    cpu, card = got[('cpu', hot)], got[(str(cuda_device), hot)]
+    for a, b in zip(cpu[0], card[0]):
+      torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+    for k in cpu[1]:
+      # one quantization step at most where the step's sums re-associate
+      diff = (cpu[1][k].float() - card[1][k].float()).abs()
+      assert float(diff.max()) <= (1 if 'scale' not in k else float(
+          cpu[1][k].abs().max())), k
+

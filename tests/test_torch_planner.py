@@ -104,8 +104,13 @@ def test_plan_deps_match_jax():
   for name in ('int8', 'float8_e4m3'):
     a = _plan_deps.resolve_table_dtype(name)
     b = jax_quant.resolve_table_dtype(name)
-    assert (a.name, a.dtype, a.qmax, a.integer) == (b.name, b.dtype, b.qmax,
-                                                    b.integer)
+    # the port stores fp8 as torch.float8_e4m3fn on the device and as its
+    # uint8 bits on the host (no ml_dtypes), so the JAX spec's numpy
+    # dtype compares by width
+    assert (a.name, a.qmax, a.integer, a.itemsize) == (
+        b.name, b.qmax, b.integer, np.dtype(b.dtype).itemsize)
+    assert a.torch_dtype == {'int8': torch.int8,
+                             'float8_e4m3': torch.float8_e4m3fn}[name]
     for w in (8, 16, 128):
       assert (_plan_deps.wire_bytes_per_row(w, a)
               == jax_quant.wire_bytes_per_row(w, b))

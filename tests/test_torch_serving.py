@@ -140,7 +140,10 @@ def test_unported_serving_refuses():
   with pytest.raises(NotImplementedError, match='item 13\\)'):
     e.hot_only_filter([np.zeros(2, np.int32)])
   # hot_sets are served since item 7 (tests/test_torch_hotcache_ckpt.py)
-  for kw, item in ((dict(table_dtype='int8'), 9),
+  # quantized tables are served since item 9a; its wire codec (9b) is not
+  assert engine.ServingEngine(t, w, batch_size=8, device='cpu',
+                              table_dtype='int8').dist.quant.name == 'int8'
+  for kw, item in ((dict(table_dtype='int8', wire_dtype='table'), 9),
                    (dict(cold_tier=True), 12),
                    (dict(wire_dtype='bfloat16'), 9)):
     with pytest.raises(NotImplementedError, match=f'item {item}\\)'):

@@ -5,9 +5,11 @@ step (``mp``, for tests/test_torch_mp_input.py), dense autodiff step
 (``dense``, for tests/test_torch_dense_ranks.py), ragged inputs
 through all three (``ragged``, for tests/test_torch_ragged_dist.py;
 ``ragged_run`` is the world of one's and each rank's body there), a
-hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py) or
+hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py, and
+``hot_chunks``, its four-rank test of the chunked hot-gradient sum),
 the chunked exchange (``overlap``, for
-tests/test_torch_overlap_ranks.py): joins a gloo world on
+tests/test_torch_overlap_ranks.py) or an int8-quantized layer
+(``quant``, for tests/test_torch_quantized_ranks.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -589,6 +591,145 @@ def overlap(rank, world_size, init_method, case_path, out_dir):
       refusal = str(e)
     with open(f'{out_dir}/overlap{rank}.json', 'w') as f:
       json.dump({'legs': legs, 'events': events, 'refusal': refusal}, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def hot_chunks(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a hot-cache layer trained at ``overlap_chunks`` 1 and
+  ``case['chunks']`` (for tests/test_torch_hotcache_ranks.py's
+  four-rank test): for each, ``case['batches']`` hybrid ``SparseAdagrad``
+  + ``optim.sgd`` steps from the case's weights; saves the hot buffers
+  and their accumulators as the rank holds them, the gathered tables and
+  accumulators, and the losses."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot_sets = {t: HotSet(t, np.asarray(ids))
+                for t, ids in case['hot'].items()}
+    b = case['batch'] // world_size
+    mine = lambda cats: [c[rank * b:(rank + 1) * b] for c in cats]
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+
+    def head_loss(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    for chunks in (1, case['chunks']):
+      dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                  hot_cache=hot_sets, overlap_chunks=chunks,
+                                  **case['options'])
+      dense_opt = optim.sgd(case['lr'])
+      emb_opt = sparse.SparseAdagrad(case['lr'])
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+                 'kernel': torch.tensor(case['kernel'])}, dense_opt, emb_opt)
+      step = sparse.make_hybrid_train_step(dist, head_loss, dense_opt,
+                                           emb_opt)
+      losses = []
+      for cats in case['batches']:
+        state, loss = step(state, mine(cats), labels)
+        losses.append(float(loss))
+      emb, emb_state = state.params['embedding'], state.opt_state[1]
+      got = {'losses': np.array(losses)}
+      for gi in dist.plan.hot_groups:
+        got[f'h{gi}'] = emb[f'hot_group_{gi}'].numpy()
+        got[f'ha{gi}'] = emb_state[f'hot_group_{gi}']['acc'].numpy()
+      for i, w in enumerate(checkpoint.get_weights(dist, emb)):
+        got[f'w{i}'] = w.numpy()
+      for i, s in enumerate(checkpoint.get_optimizer_state(dist, emb_state)):
+        got[f'a{i}'] = s['acc'].numpy()
+      np.savez(f'{out_dir}/hot_chunks{rank}_{chunks}.npz', **got)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def quant(rank, world_size, init_method, case_path, out_dir):
+  """One rank of an int8-quantized layer (for
+  tests/test_torch_quantized_ranks.py), uncached and cached: the forward
+  of its slice of the batch, then ``SparseAdagrad`` + ``optim.sgd``
+  steps with a linear head; saves the outputs, the exported payload and
+  scale pairs, the accumulators, the hot buffers and the losses."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import quantization
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    b = case['batch'] // world_size
+    mine = lambda cats: [c[rank * b:(rank + 1) * b] for c in cats]
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+
+    def head(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    for hot in (False, True):
+      hot_sets = ({t: HotSet(t, np.asarray(ids))
+                   for t, ids in case['hot'].items()} if hot else None)
+      dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                  table_dtype=case['dtype'],
+                                  hot_cache=hot_sets, **case['options'])
+      params = checkpoint.set_weights(dist, case['weights'])
+      with torch.no_grad():
+        outs = dist.apply(params, mine(case['cats']))
+      dense_opt = optim.sgd(case['lr'])
+      emb_opt = sparse.SparseAdagrad(case['lr'])
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': params, 'kernel': torch.tensor(case['kernel'])},
+          dense_opt, emb_opt)
+      step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
+      losses = []
+      for cats in case['batches']:
+        state, loss = step(state, mine(cats), labels)
+        losses.append(float(loss))
+      emb = state.params['embedding']
+      got = {'losses': np.array(losses)}
+      got.update({f'o{i}': o.numpy() for i, o in enumerate(outs)})
+      for i, w in enumerate(checkpoint.export_tables(dist, emb)):
+        got[f'p{i}'] = np.asarray(w.payload).view(np.uint8)
+        got[f's{i}'] = w.scale
+      for i, s in enumerate(checkpoint.get_optimizer_state(
+          dist, state.opt_state[1])):
+        got[f'a{i}'] = s['acc'].numpy()
+      for k, v in emb.items():
+        if k.startswith('hot_'):
+          got[k] = quantization.bits(v).numpy()
+      np.savez(f'{out_dir}/quant{rank}_{int(hot)}.npz', **got)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
