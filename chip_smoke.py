@@ -146,6 +146,34 @@ Phases, each of which exits non-zero on failure:
             named by no id keep their bits; in int8, one checkpoint
             (payload and scale pairs, accumulators, MLP) saved and
             restored in place, equal in every logical leaf.
+9h. wire-ranks: the wire codec (wire_dtype) across ranks: two processes
+            on the one card (both on cuda:0), joined over gloo, which
+            stages CUDA tensors through host memory (NCCL cannot put two
+            ranks on one card); they import nothing of JAX and load the
+            kernels phase 2 built.  Each first checks that
+            all_to_all_single, all_gather and all_reduce take CUDA
+            tensors.  The tiny model at full size, global batch 65536
+            (32768 a rank), each arm beside its wire_dtype=None twin
+            drawn from the same seed (tables checked equal): 'table' on
+            int8 tables (1.31 GiB) with phase 9e's hot sets and
+            overlap_chunks=3; 'bfloat16' on the flat f32 layer (4.19
+            GiB), one chunk.  Per arm 3 forwards, then a warm-up and 3
+            hybrid steps (phase 7's optimizers) each way: forwards,
+            tables, accumulators, MLP and its optimizer state bit-exact
+            ('table') or within 2^-6 of each tensor's scale
+            ('bfloat16'); every loss finite; every lookup and apply on
+            the kernels, counted on each rank against the plan; each
+            lookup launch of one wired forward (the dequantizing arm on
+            the int8 arm's cold gathers and hot partials) and each
+            segment-walk launch of one more wired step (sums bit-exact,
+            applies on compact copies of their rows) captured on each
+            rank and held against its plain version at these shapes;
+            the wired plan's narrowed legs (uint8 for q8) with fewer bytes
+            than their payload and the twin's collective count; the
+            example's line (narrowed legs, wire against payload bytes)
+            and the step wall times, which are gloo through the host.
+            A rank that fails or outlasts its timeout fails the phase,
+            its output printed.
 10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -217,6 +245,19 @@ Phases, each of which exits non-zero on failure:
             warm-up and 4 timed steps (losses finite, one dequantizing
             lookup and one segment-walk 'add' each, counted), peak
             memory, the host syncs of one more step.
+13f. dlrm-wire: a world of one: examples/dlrm/main.py --dp_input
+            --wire_dtype bfloat16 and the same run without the flag in
+            process at phase 13b's onechip vocabularies, 3 steps and
+            --save_state each (one lookup and one apply a step, counted):
+            the files list the same sha256 for every array (a world of
+            one ships nothing); --wire_dtype table --table_dtype int8
+            --param_dtype float32 is accepted and prints that no leg was
+            narrowed.  Then the codec at the DLRM's 1,703,936 rows x 128
+            (torch ops, not a kernel): for int8 and fp8 grid rows the
+            card's encode equals the numpy encoder's bytes on the host
+            copy and decode(encode) is the identity; the bf16 cast equals
+            the CPU's; encode, decode and cast timed (device_ms) beside
+            their bound (each byte read and written once).
 14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
@@ -287,7 +328,8 @@ phases 9c and 13b, phase 9d's steps, phase 9e's forward, requests,
 steps and lazy-Adam steps, phase 13c's run, each arm of phases 9f
 and 13d (forwards, sparse, cached and dense steps, the example runs)
 phase 9g's forward, requests and steps of each dtype, phase 13e's
-forward and steps (with the dequantizing arm's launches) and phase 20's
+forward and steps (with the dequantizing arm's launches), phase 9h's
+forwards and steps on each rank, phase 13f's example runs and phase 20's
 benchmark (with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms, its adam op, the lookup's CSR arm and
@@ -311,6 +353,7 @@ import json
 import os
 import pathlib
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -319,6 +362,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.examples.benchmarks import (
@@ -424,6 +468,20 @@ CHUNKED_EXAMPLE_STEPS = 3  # phase 13d's example runs
 QUANT_DTYPES = ('int8', 'float8_e4m3')  # phase 9g's two tiny models
 QUANT_STEPS = 3  # phase 9g's steps after the warm-up, each dtype
 DLRM_INT8_STEPS = 4  # phase 13e's steps after the warm-up
+# phase 9h: two ranks on the one card over gloo, each arm beside its
+# wire_dtype=None twin; 'table' on phase 9e's hot sets (True stands for
+# them) with int8 tables in 3 chunk rounds, 'bfloat16' on the flat f32
+# layer
+WIRE_WORLD = 2
+WIRE_ARMS = (('table', {'table_dtype': 'int8', 'hot_cache': True,
+                        'overlap_chunks': 3}),
+             ('bfloat16', {}))
+WIRE_FORWARDS = 3
+WIRE_STEPS = 3  # after a warm-up, each arm and twin
+WIRE_TIMEOUT_S = 600  # both ranks, start to end
+BF16_WIRE_BOUND = 2.0**-6  # the JAX package's bound for the bf16 wire
+WIRE_EXAMPLE_STEPS = 3  # phase 13f's example runs
+DLRM_WIRE_ROWS = 1_703_936  # the DLRM's looked-up rows a step (65536 x 26)
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
@@ -4205,6 +4263,572 @@ def dequant_summary(quant_tiny, dlrm_int8):
   return entry
 
 
+# ------------------------------------------------- 9h: wire-ranks (item 9b)
+
+
+def _drift(a, b):
+  """``(max |a - b|, max |b|)`` of two tensors, in row blocks."""
+  err, scale = 0.0, 0.0
+  a2, b2 = a.reshape(a.shape[0] if a.dim() else 1, -1), b.reshape(
+      b.shape[0] if b.dim() else 1, -1)
+  for r0 in range(0, a2.shape[0], CHECK_BLOCK_ROWS):
+    x = a2[r0:r0 + CHECK_BLOCK_ROWS].detach().float()
+    y = b2[r0:r0 + CHECK_BLOCK_ROWS].detach().float()
+    err = max(err, float((x - y).abs().max()) if x.numel() else 0.0)
+    scale = max(scale, float(y.abs().max()) if y.numel() else 0.0)
+  return err, scale
+
+
+def check_wired(tag, got, want, exact):
+  """Two lists of tensors of a wired arm and its twin: bit for bit
+  (``exact``, the ``'table'`` wire) or within ``BF16_WIRE_BOUND`` of each
+  tensor's scale (the bf16 wire).  Returns the largest relative drift."""
+  if len(got) != len(want):
+    raise AssertionError(f'{tag}: {len(got)} tensors against {len(want)}')
+  worst = 0.0
+  for i, (g, w) in enumerate(zip(got, want)):
+    if g.shape != w.shape or g.dtype != w.dtype:
+      raise AssertionError(f'{tag} {i}: {g.dtype}{tuple(g.shape)} against '
+                           f'{w.dtype}{tuple(w.shape)}')
+    if exact:
+      if not torch.equal(quantization.bits(g), quantization.bits(w)):
+        raise AssertionError(f'{tag} {i}: the wired arm differs from its '
+                             'twin')
+      continue
+    err, scale = _drift(g, w)
+    drift = err / max(scale, 1e-6)
+    worst = max(worst, drift)
+    if drift > BF16_WIRE_BOUND:
+      raise AssertionError(f'{tag} {i}: drift {drift} above '
+                           f'{BF16_WIRE_BOUND}')
+  return worst
+
+
+def _state_tensors(state):
+  """The tensors of a hybrid state as a rank holds them, in a fixed
+  order: the embedding params and sparse optimizer state by key, the
+  dense params, the dense optimizer's leaves."""
+  emb = state.params['embedding']
+  out = [emb[k] for k in sorted(emb)]
+  sparse_state = state.opt_state[1]
+  out += [v for k in sorted(sparse_state)
+          for _, v in sorted(sparse_state[k].items())]
+  out += [state.params[k] for k in sorted(state.params) if k != 'embedding']
+  return out + list(optim.tree_leaves(state.opt_state[0]))
+
+
+def probe_collectives(device, rank, world):
+  """Each collective the multi-rank paths call, once on ``device`` under
+  the process group's backend, checked: ``{name: None or the error}``."""
+  out = {}
+  base = torch.arange(4 * world, dtype=torch.float32, device=device)
+
+  def a2a():
+    send = base + 100 * rank
+    recv = torch.empty_like(send)
+    torch_dist.all_to_all_single(recv, send, async_op=True).wait()
+    want = torch.cat([base[4 * rank:4 * rank + 4] + 100 * r
+                      for r in range(world)])
+    return torch.equal(recv, want)
+
+  def gather():
+    parts = [torch.empty(4, device=device) for _ in range(world)]
+    torch_dist.all_gather(parts, base[:4] + rank, async_op=True).wait()
+    return all(torch.equal(p, base[:4] + r) for r, p in enumerate(parts))
+
+  def reduce():
+    x = base + rank
+    torch_dist.all_reduce(x)
+    return torch.equal(x, world * base + sum(range(world)))
+
+  for name, fn in (('all_to_all_single', a2a), ('all_gather', gather),
+                   ('all_reduce', reduce)):
+    try:
+      out[name] = None if fn() else 'wrong result'
+    except Exception as e:  # recorded and reported by the parent
+      out[name] = f'{type(e).__name__}: {e}'
+  torch_dist.barrier()
+  return out
+
+
+def wire_lookup_rows(dist, params, cats, tag):
+  """Every lookup launch of one forward of ``dist`` (the cold gathers'
+  ``fused_group_lookup`` calls and the hot partials' ``dense_lookup``,
+  each with its scale on a quantized layer), captured from the forward
+  itself and held against its plain version (``check_kernel_shape``, or
+  ``check_dequant_shape`` where a scale comes with the table); the
+  capture's launches count towards no path."""
+  calls = []
+  fused, dense = lookup.fused_group_lookup, lookup.dense_lookup
+
+  def record_fused(table, routed, combiners, compute_dtype, scale=None):
+    calls.extend((table, r.reshape(-1, r.shape[-1]), c, scale)
+                 for r, c in zip(routed, combiners))
+    return fused(table, routed, combiners, compute_dtype, scale)
+
+  def record_dense(table, ids, combiner, out_dtype=None, scale=None):
+    calls.append((table, ids, combiner, scale))
+    return dense(table, ids, combiner, out_dtype, scale)
+
+  lookup.fused_group_lookup = record_fused
+  lookup.dense_lookup = record_dense
+  try:
+    with torch.no_grad():
+      dist.apply(params, cats)
+  finally:
+    lookup.fused_group_lookup = fused
+    lookup.dense_lookup = dense
+  if any(c not in (None, 'sum') for _, _, c, _ in calls):
+    raise AssertionError(f'{tag}: the synthetic models combine with sum '
+                         'only')
+  rows = []
+  for table, ids, _, scale in calls:
+    label = (f'{tag}_w{table.shape[1]}_h{ids.shape[1]}_n{ids.shape[0]}_'
+             f'rows{table.shape[0]}')
+    rows.append(check_kernel_shape(table, ids, label) if scale is None else
+                check_dequant_shape(table, ids, scale, label, library=False))
+  return rows
+
+
+def wire_segwalk_rows(step, state, cats, batch, tag):
+  """Every segment-walk launch of one more hybrid step, captured from the
+  step itself (``captured_hot_step``) and held against its plain
+  version: each segment sum (the cold and hot gradients, a quantized
+  group's apply) bit-exact (``check_add_stream``); each apply on compact
+  copies of its touched rows, within rtol = atol = 1e-6 and equal to
+  what the step wrote, the sampled untouched rows unchanged
+  (``check_compact``), then timed at lr 0 on the real state, which is
+  not used after it.  The capture's launches count towards no path."""
+  state, loss, calls = captured_hot_step(step, state, cats, batch)
+  if not bool(torch.isfinite(loss)):
+    raise AssertionError(f'{tag}: capture step loss {float(loss)}')
+  rows = []
+  for seg, srows, num, row_index in calls['sums']:
+    segs = segwalk.sort_stream(seg.to(torch.int32), num,
+                               None if row_index is None
+                               else row_index.to(torch.int32))
+    rows.append(check_add_stream(
+        segs, srows.float(), num, torch.float32,
+        f'{tag}_add_rows{num}_w{srows.shape[1]}', tag))
+  for call in calls['applies']:
+    table, grads, acc, op = (call['table'], call['grads'], call['acc'],
+                             call['op'])
+    label = f'{tag}_{op}_w{table.shape[1]}_rows{table.shape[0]}'
+    check_untouched(call, label)
+    touched = call['touched'].long()
+    err, tol = check_compact(call, op, grads, label, stepped=(
+        table[touched], state_rows(acc, touched)))
+    segs = segwalk.sort_stream(call['ids'], table.shape[0], call['g_index'])
+    kernel_ms = device_ms(lambda: segwalk.apply_segments(
+        table, acc, segs, grads, 0.0, op=op), 10)
+    plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        table, acc, segs, grads, 0.0, op=op))
+    row, _ = stream_row(call, op, grads, acc, label, err, tol, kernel_ms,
+                        plain_ms, None)
+    log(f'[{tag}] ' + json.dumps(clocked(row)))
+    rows.append(row)
+  return rows
+
+
+def checked_sum(rows):
+  """The launches of a run held against their plain versions, their
+  times and bounds summed (a null library time stays null)."""
+  library = [r['library_ms'] for r in rows]
+  return {'launches': len(rows),
+          **{k: sum(r[k] for r in rows)
+             for k in ('kernel_ms', 'plain_ms', 'bound_ms')},
+          'library_ms': None if None in library else sum(library),
+          'max_abs_err': max(r['max_abs_err'] for r in rows),
+          'tolerances': sorted({r['tolerance'] for r in rows})}
+
+
+def wire_rank(rank, init, out_dir, seed):
+  """One of phase 9h's two ranks (a process of its own, both on the one
+  card, joined over gloo): the collectives probed, then each arm of
+  ``WIRE_ARMS`` beside its ``wire_dtype=None`` twin over the same tables
+  (see the module docstring).  Writes ``rank{rank}.json`` under
+  ``out_dir``."""
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import planner
+  config = SYNTHETIC_MODELS[MODEL]
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+  world = WIRE_WORLD
+  m = mesh_lib.init_distributed(init, world, rank, backend='gloo',
+                                device='cuda:0')
+  result = {'rank': rank, 'device': str(m.device), 'arms': {}}
+  try:
+    result['collectives'] = probe_collectives(m.device, rank, world)
+    failed = {k: v for k, v in result['collectives'].items() if v}
+    if failed:
+      raise AssertionError(f'gloo on {m.device}: {failed}')
+    tables, _, hotness = expand_tables(config)
+    hotness = tuple(hotness)
+    train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                      HOT_COVERAGE)
+    local = BATCH // world
+    lo, hi = rank * local, (rank + 1) * local
+
+    def mine(b):
+      cats, (numerical, labels) = b
+      return ([c[lo:hi] for c in cats], (numerical[lo:hi], labels[lo:hi]))
+
+    # the forwards', the warm-up's, the counted steps' and the capture
+    # step's batches
+    batches = [mine(b) for b in train_batches(
+        config, hotness, seed + 41, WIRE_FORWARDS + WIRE_STEPS + 2)]
+    for wire, options in WIRE_ARMS:
+      options = dict(options)
+      if options.pop('hot_cache', False):
+        options['hot_cache'] = train_sets
+      exact = wire == 'table'
+      models = {w: SyntheticModel(config, mesh=m, dp_input=True,
+                                  wire_dtype=w, **options).init(seed + 43)
+                for w in (wire, None)}
+      on, off = models[wire], models[None]
+      check_wired(f'{wire}: the twins\' tables as drawn',
+                  [on.embedding_params[k] for k in sorted(
+                      on.embedding_params)],
+                  [off.embedding_params[k] for k in sorted(
+                      off.embedding_params)], exact=True)
+      dist = on.dist_embedding
+      n_subs = len(dist._subgroups(hotness))
+      n_groups = len(dist.plan.groups)
+      if dist.hot_enabled:
+        fwd_want, step_want = hot_launches(dist, hotness)
+      else:
+        fwd_want = {'lookup_combine': chunk_rounds(dist, hotness),
+                    'segwalk_apply': 0}
+        step_want = {'lookup_combine': fwd_want['lookup_combine'],
+                     'segwalk_apply': n_groups}
+      arm = {'options': {k: (v if k != 'hot_cache' else len(v))
+                         for k, v in options.items()},
+             'subgroups': n_subs, 'groups': n_groups}
+      # forwards: the wired arm counted, each against its twin
+      drift, fwd_ms = 0.0, []
+      for cats, _ in batches[:WIRE_FORWARDS]:
+        with torch.no_grad():
+          reset_launches()
+          t0 = time.perf_counter()
+          got = dist.apply(on.embedding_params, cats)
+          torch.cuda.synchronize()
+          fwd_ms.append((time.perf_counter() - t0) * 1e3)
+          launches = read_launches()
+          want = off.dist_embedding.apply(off.embedding_params, cats)
+        if launches != fwd_want:
+          raise AssertionError(f'{wire}: the wired forward launched '
+                               f'{launches}, expected {fwd_want}')
+        drift = max(drift, check_wired(f'{wire} forward', list(got),
+                                       list(want), exact))
+      arm['forward'] = {'launches': launches, 'ms': fwd_ms, 'drift': drift}
+      # each lookup launch of a wired forward against its plain version
+      tag = f'wire-rank{rank}-{wire}'
+      lookup_rows = wire_lookup_rows(dist, on.embedding_params,
+                                     batches[0][0], tag)
+      if len(lookup_rows) != fwd_want['lookup_combine']:
+        raise AssertionError(f'{tag}: {len(lookup_rows)} lookups captured, '
+                             f'{fwd_want["lookup_combine"]} launched')
+      # the recorded legs: narrowed, at the twin's collective count
+      lp_on, lp_off = dist.lookup_plan(), off.dist_embedding.lookup_plan()
+      wired = [l for l in lp_on.legs if l.wire]
+      if (not wired or [l for l in lp_off.legs if l.wire]
+          or lp_on.collective_count() != lp_off.collective_count()
+          or any(l.nbytes >= l.payload_bytes for l in wired)
+          or any(l.dtype != ('uint8' if l.wire == 'q8' else 'bfloat16')
+                 for l in wired)):
+        raise AssertionError(
+            f'{wire}: legs {[(l.name, l.dtype, l.wire) for l in lp_on.legs]}'
+            f' ({lp_on.collective_count()} collectives against the '
+            f'twin\'s {lp_off.collective_count()})')
+      rec = planner.reconcile_exchange(dist, journal=False)
+      arm['legs'] = {'collectives': lp_on.collective_count(),
+                     'wired': sorted({l.name for l in wired}),
+                     'wire_bytes': rec['counted_wire_bytes'],
+                     'payload_bytes': rec['counted_payload_bytes']}
+      arm['line'] = (
+          f'wire_dtype {wire}: narrowed leg(s) {arm["legs"]["wired"]}; '
+          f'forward exchange ships {rec["counted_wire_bytes"]:,} bytes on '
+          f'the wire vs {rec["counted_payload_bytes"]:,} at compute dtype '
+          f'({rec["counted_payload_bytes"] / max(rec["counted_wire_bytes"], 1):.2f}x '
+          'fewer)')
+      # a warm-up and `steps` hybrid steps each, phase 7's optimizers
+      trainers = {w: build_trainer(models[w]) for w in (wire, None)}
+      losses, step_ms, counted = {wire: [], None: []}, [], None
+      for w in (wire, None):
+        step, state = trainers[w]
+        state, loss = step(state, *batches[WIRE_FORWARDS])
+        losses[w].append(float(loss))
+        reset_launches()
+        for b in batches[WIRE_FORWARDS + 1:-1]:
+          t0 = time.perf_counter()
+          state, loss = step(state, *b)
+          torch.cuda.synchronize()
+          if w == wire:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+          losses[w].append(float(loss))
+        if w == wire:
+          counted = read_launches()
+        trainers[w] = (step, state)
+      want_steps = {k: v * WIRE_STEPS for k, v in step_want.items()}
+      if counted != want_steps:
+        raise AssertionError(f'{wire}: the wired steps launched {counted}, '
+                             f'expected {want_steps}')
+      if not all(np.isfinite(losses[wire] + losses[None])):
+        raise AssertionError(f'{wire}: losses {losses}')
+      arm['steps'] = {
+          'launches': counted, 'ms': step_ms, 'losses': losses[wire],
+          'twin_losses': losses[None],
+          'drift': check_wired(f'{wire} state after the steps',
+                               _state_tensors(trainers[wire][1]),
+                               _state_tensors(trainers[None][1]), exact)}
+      # each segment-walk launch of one more wired step against its plain
+      # version
+      seg_rows = wire_segwalk_rows(*trainers[wire], *batches[-1], tag)
+      if len(seg_rows) != step_want['segwalk_apply']:
+        raise AssertionError(f'{tag}: {len(seg_rows)} segment walks '
+                             f'captured, {step_want["segwalk_apply"]} '
+                             'launched a step')
+      arm['kernels'] = {'lookup_combine': lookup_rows,
+                        'segwalk_apply': seg_rows}
+      result['arms'][wire] = arm
+      del models, on, off, dist, trainers, got, want
+      gc.collect()
+      torch.cuda.empty_cache()
+    torch_dist.barrier()
+  finally:
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+      json.dump(result, f)
+    torch_dist.destroy_process_group()
+  return result
+
+
+def _free_port():
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def phase_wire_ranks(seed):
+  """Phase 9h: two processes on the one card, joined over gloo, run
+  ``wire_rank`` (see the module docstring).  A child that fails or does
+  not end within ``WIRE_TIMEOUT_S`` fails the phase, its output printed.
+  Returns the numbers of both ranks."""
+  root = CKPT_DIR.parent / 'chip_smoke_wire'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  here = str(pathlib.Path(__file__).resolve().parent)
+  init = f'tcp://localhost:{_free_port()}'
+  procs, logs = [], []
+  t0 = time.perf_counter()
+  for rank in range(WIRE_WORLD):
+    logs.append(open(root / f'rank{rank}.log', 'w+'))
+    code = (f'import sys; sys.path.insert(0, {here!r}); import chip_smoke; '
+            f'chip_smoke.wire_rank({rank}, {init!r}, {str(root)!r}, {seed})')
+    procs.append(subprocess.Popen([sys.executable, '-c', code], cwd=here,
+                                  stdout=logs[-1], stderr=subprocess.STDOUT))
+  deadline = time.monotonic() + WIRE_TIMEOUT_S
+  hung = False
+  for p in procs:
+    try:
+      p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+      hung = True
+  for p in procs:
+    if p.poll() is None:
+      p.kill()
+      p.wait()
+  wall = time.perf_counter() - t0
+  outputs = []
+  for f in logs:
+    f.seek(0)
+    outputs.append(f.read())
+    f.close()
+  codes = [p.returncode for p in procs]
+  if hung or any(codes):
+    for rank, text in enumerate(outputs):
+      log(f'[wire-ranks] rank {rank} (exit {codes[rank]}) output:\n'
+          + text[-20000:])
+    raise AssertionError(f'wire-ranks: {"a rank hung past " if hung else ""}'
+                         f'{WIRE_TIMEOUT_S if hung else ""} exit codes '
+                         f'{codes}')
+  results = []
+  for rank in range(WIRE_WORLD):
+    with open(root / f'rank{rank}.json') as f:
+      results.append(json.load(f))
+  shutil.rmtree(root)
+  for r in results:
+    log(f'[wire-ranks] rank {r["rank"]} on {r["device"]}: gloo took CUDA '
+        f'tensors in {sorted(r["collectives"])}')
+    for wire, arm in r['arms'].items():
+      log(f'[wire-ranks] rank {r["rank"]} {arm["line"]}')
+      log(f'[wire-ranks] rank {r["rank"]} {wire} ({json.dumps(arm["options"])}'
+          f'): forwards {json.dumps(arm["forward"])}; steps (gloo through '
+          f'the host, host clock, synchronised) {json.dumps(arm["steps"])}')
+      log(f'[wire-ranks] rank {r["rank"]} {wire}: every launch of a wired '
+          'forward and of one more wired step held against its plain '
+          'version (device_ms, queued, while the other rank shares the '
+          'card): ' + json.dumps(clocked(
+              {name: checked_sum(rows)
+               for name, rows in arm['kernels'].items()})))
+  log(f'[wire-ranks] both ranks passed in {wall:.1f} s (two processes on '
+      'one card over gloo, which stages CUDA tensors through host memory: '
+      'a correctness run, not an exchange speed)')
+  return {'wall_s': wall, 'ranks': results}
+
+
+def wire_summary(k, seg, wire_ranks):
+  """Phase 9h in the kernels line: per kernel, each arm's step launches
+  on each rank (``launches_wire_ranks``) and each rank's launches held
+  against their plain versions, summed (``wire_ranks``); their largest
+  error joins the kernel's ``max_abs_err``."""
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    rows = {wire: [r['arms'][wire]['kernels'][name]
+                   for r in wire_ranks['ranks']] for wire, _ in WIRE_ARMS}
+    entry['launches_wire_ranks'] = {
+        wire: [r['arms'][wire]['steps']['launches'][name]
+               for r in wire_ranks['ranks']] for wire, _ in WIRE_ARMS}
+    entry['wire_ranks'] = {wire: [checked_sum(rank) for rank in ranks]
+                           for wire, ranks in rows.items()}
+    entry['max_abs_err'] = max([entry['max_abs_err']] + [
+        r['max_abs_err'] for ranks in rows.values() for rank in ranks
+        for r in rank])
+
+
+# ---------------------------------------------------- 13f: dlrm-wire
+
+
+def codec_timings(rows):
+  """The wire codec on the card over f32 ``rows``: per dtype, on the
+  grid rows quantizing them gives, the card's encode equal to the numpy
+  encoder's bytes on the host copy and decode then encode the identity,
+  both timed beside their bound; the bf16 cast of ``rows`` equal to the
+  CPU's, timed."""
+  n, w = rows.shape
+  out = {'rows': n, 'width': w}
+  for name in QUANT_DTYPES:
+    spec = quantization.resolve_table_dtype(name)
+    grid = quantization.dequantize(*quantization.quantize(rows, spec))
+    enc = quantization.wire_encode_rows(grid, spec)
+    host = quantization.wire_encode_rows_np(grid.cpu().numpy(), spec)
+    if not np.array_equal(enc.cpu().numpy(), host):
+      raise AssertionError(f'dlrm-wire {name}: the card\'s encode differs '
+                           'from the numpy encoder')
+    dec = quantization.wire_decode_rows(enc, spec, w)
+    if not torch.equal(dec, grid):
+      raise AssertionError(f'dlrm-wire {name}: decode(encode(rows)) is not '
+                           'the identity on grid rows')
+    f32_bytes = grid.numel() * 4
+    wire_bytes = enc.numel()
+    bound = (f32_bytes + wire_bytes) / HBM_BYTES_PER_S * 1e3
+    out[name] = {
+        'wire_bytes_per_row': quantization.wire_bytes_per_row(w, spec),
+        'encode_ms': device_ms(
+            lambda: quantization.wire_encode_rows(grid, spec), 10,
+            floor_ms=bound),
+        'decode_ms': device_ms(
+            lambda: quantization.wire_decode_rows(enc, spec, w), 10,
+            floor_ms=bound),
+        'bound_ms': bound, 'bound_by': 'bytes'}
+    del grid, enc, host, dec
+  cast = rows.to(torch.bfloat16)
+  if not torch.equal(cast.cpu(), rows.cpu().to(torch.bfloat16)):
+    raise AssertionError('dlrm-wire: the card\'s bf16 cast differs from the '
+                         'CPU\'s')
+  bound = rows.numel() * 6 / HBM_BYTES_PER_S * 1e3
+  out['bfloat16'] = {
+      'cast_ms': device_ms(lambda: rows.to(torch.bfloat16), 10,
+                           floor_ms=bound),
+      'bound_ms': bound, 'bound_by': 'bytes'}
+  return out
+
+
+def phase_dlrm_wire(seed):
+  """Phase 13f: ``examples/dlrm/main.py --dp_input --wire_dtype
+  bfloat16`` and the same run without the flag in process at phase
+  13b's onechip vocabularies, ``WIRE_EXAMPLE_STEPS`` steps and
+  ``--save_state`` each: a world of one ships nothing, so the files list
+  the same sha256 for every array; ``--wire_dtype table --table_dtype
+  int8 --param_dtype float32`` is accepted and narrows no leg; then the
+  codec at the DLRM's row count (``codec_timings``).  Returns the
+  launches and numbers."""
+  sizes = [min(s, ONECHIP_MAX_ROWS) for s in data.MLPERF_SIZES]
+  check_disk(1.2 * sum(sizes) * 128 * 4, 'dlrm-wire')
+  root = CKPT_DIR / 'dlrm_wire'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  common = ['--param_dtype', 'bfloat16', '--table_sizes',
+            ','.join(map(str, sizes)), '--num_batches',
+            str(WIRE_EXAMPLE_STEPS), '--max_steps', str(WIRE_EXAMPLE_STEPS),
+            '--device', 'cuda', '--dp_input']
+  out, manifests, launches = {}, {}, {}
+  want = {'lookup_combine': WIRE_EXAMPLE_STEPS,
+          'segwalk_apply': WIRE_EXAMPLE_STEPS}
+  for wire in ('bfloat16', 'none'):
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = root / f'{wire}.npz'
+    lines = _Tee()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(lines):
+      res = dlrm_main.main(common + ['--wire_dtype', wire, '--save_state',
+                                     str(path)])
+    wall = time.perf_counter() - t0
+    launches[wire] = read_launches()
+    said = [l for l in lines.lines if l.startswith('wire_dtype ')]
+    if (launches[wire] != want or res['step'] != WIRE_EXAMPLE_STEPS
+        or (wire != 'none') != bool(said)):
+      raise AssertionError(f'dlrm-wire --wire_dtype {wire}: launched '
+                           f'{launches[wire]} (expected {want}), step '
+                           f'{res["step"]}, wire line {said}')
+    manifests[wire] = checkpoint.read_manifest(str(path))['arrays']
+    os.remove(path)
+    out[wire] = {'launches': launches[wire], 'wall_s': wall,
+                 'loss': res['loss'], 'save_s': res['save_s'],
+                 'line': said[0] if said else None}
+  if manifests['bfloat16'] != manifests['none']:
+    bad = [k for k in manifests['none']
+           if manifests['none'][k] != manifests['bfloat16'].get(k)]
+    raise AssertionError(f'dlrm-wire: the --wire_dtype bfloat16 file '
+                         f'differs from the unwired one in {bad}')
+  shutil.rmtree(root)
+  gc.collect()
+  torch.cuda.empty_cache()
+  lines = _Tee()
+  with contextlib.redirect_stdout(lines):
+    res = dlrm_main.main(common[:-1] + [
+        '--param_dtype', 'float32', '--table_dtype', 'int8', '--wire_dtype',
+        'table', '--max_steps', '1'])
+  said = [l for l in lines.lines if l.startswith('wire_dtype table: ')]
+  if not said or 'narrowed leg(s) none' not in said[0] or res['step'] != 1:
+    raise AssertionError(f'dlrm-wire --wire_dtype table: {said}, step '
+                         f'{res["step"]}')
+  out['table'] = {'line': said[0], 'loss': res['loss']}
+  log(f'[dlrm-wire] the example with --dp_input --wire_dtype bfloat16 and '
+      f'without it, {WIRE_EXAMPLE_STEPS} steps each ({sum(sizes):,} rows, '
+      f'the onechip cut): the files list the same sha256 for all '
+      f'{len(manifests["none"])} arrays (a world of one ships nothing); '
+      f'--wire_dtype table --table_dtype int8 accepted: {said[0]}; '
+      f'{json.dumps(out)}')
+  del res
+  gc.collect()
+  torch.cuda.empty_cache()
+  gen = torch.Generator(device='cuda').manual_seed(seed + 47)
+  rows = torch.randn((DLRM_WIRE_ROWS, 128), generator=gen, device='cuda')
+  codec = codec_timings(rows)
+  del rows
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f'[dlrm-wire] the codec at the DLRM\'s {DLRM_WIRE_ROWS:,} rows x 128 '
+      f'(torch ops, not a kernel; device_ms, queued): the card\'s encode '
+      f'equals the numpy encoder\'s bytes and decode(encode) is the '
+      f'identity on grid rows, int8 and fp8; the bf16 cast equals the '
+      f'CPU\'s; {json.dumps(clocked(codec))}')
+  out['codec'] = codec
+  return launches['bfloat16'], out
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -4227,6 +4851,7 @@ def main(argv=None) -> int:
   quant_tiny = run_quant_tiny(args)
   gc.collect()
   torch.cuda.empty_cache()
+  wire_summary(k, seg, phase_wire_ranks(args.seed))
   run_dlrm(args.seed, k, seg)
   gc.collect()
   torch.cuda.empty_cache()
@@ -4255,6 +4880,11 @@ def main(argv=None) -> int:
       'dlrm_int8': dequant['dlrm_int8']['launches']['segwalk_apply'],
       **{dtype: t['numbers']['launches']['segwalk_apply']
          for dtype, t in dequant['quant_tiny'].items()}}
+  gc.collect()
+  torch.cuda.empty_cache()
+  wire_launches, _ = phase_dlrm_wire(args.seed)
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_wire'] = wire_launches[name]
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()

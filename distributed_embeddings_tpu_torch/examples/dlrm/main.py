@@ -23,6 +23,13 @@ hot-row cache.
 quantized, one f32 power-of-two scale a row (docs/design.md §12), and
 prints the storage line of ``quantization.table_bytes_stats``.
 
+``--wire_dtype bfloat16`` / ``table`` (with ``--fused_exchange`` and the
+sparse trainer; ``table`` with ``--table_dtype``, as in the JAX example)
+narrows what the exchange ships (docs/design.md §24) and prints the
+recorded legs' on-wire bytes beside their compute-dtype bytes
+(``planner.reconcile_exchange``).  A world of one ships nothing, so
+there no leg is narrowed.
+
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
 item that ports it (``--dataset_path`` is item 12); ``--fast_compile``
@@ -62,7 +69,7 @@ import torch
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
 from distributed_embeddings_tpu_torch.parallel import (checkpoint, grad,
-                                                       hotcache,
+                                                       hotcache, planner,
                                                        quantization, sparse)
 from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -77,7 +84,7 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
 UNPORTED = {
-    'dataset_path': 12, 'wire_dtype': 9,
+    'dataset_path': 12,
     'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
     'loader_bench': 12, 'trace': 14,
 }
@@ -121,7 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
                  '--no-fused_exchange: one per group')
   p.add_argument('--wire_dtype', default='none',
                  choices=['none', 'bfloat16', 'table'],
-                 help='not ported (item 9)')
+                 help='wire format of the exchange\'s row and gradient '
+                 'legs: bfloat16 casts the float legs on the wire; table '
+                 'ships a quantized table\'s stored payload and scale '
+                 '(bit-exact; needs --table_dtype).  Needs '
+                 '--fused_exchange and --trainer sparse')
   p.add_argument('--hot_coverage', type=float, default=0.8,
                  help='per-table occurrence coverage target of the hot '
                  'sets')
@@ -215,6 +226,20 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
       raise SystemExit('--table_dtype requires --param_dtype float32 '
                        '(the per-row scale carries the dynamic range; '
                        'design §12 refusal matrix)')
+  if args.wire_dtype != 'none':
+    if not args.fused_exchange:
+      raise SystemExit('--wire_dtype requires --fused_exchange: the '
+                       'codec lives at the fused-leg seam '
+                       '(docs/design.md §24)')
+    if args.trainer != 'sparse':
+      raise SystemExit('--wire_dtype pairs with --trainer sparse (the '
+                       'gradient legs it narrows ride the sparse '
+                       'row-wise backward)')
+    if args.wire_dtype == 'table' and args.table_dtype == 'none':
+      raise SystemExit("--wire_dtype table requires --table_dtype "
+                       "(int8/float8_e4m3): the passthrough ships the "
+                       "stored quantized payload; use --wire_dtype "
+                       "bfloat16 for f32 tables")
   if args.fast_compile:
     raise ValueError('--fast_compile sets XLA compile options; the port '
                      'compiles nothing at run time')
@@ -322,6 +347,8 @@ def main(argv=None):
                hot_cache=hot_sets,
                overlap_chunks=args.overlap_chunks,
                fused_exchange=args.fused_exchange,
+               wire_dtype=(None if args.wire_dtype == 'none'
+                           else args.wire_dtype),
                table_dtype=(None if args.table_dtype == 'none'
                             else args.table_dtype),
                param_dtype=param_dtype,
@@ -496,6 +523,17 @@ def main(argv=None):
     print(f'steady-state: {(samples - s0) / dt:,.0f} samples/s '
           f'({samples - s0} samples after warmup; reference DLRM '
           f'8xA100 TF32: 9,158,000 samples/s)')
+  if args.wire_dtype != 'none':
+    # the recorded legs are what the collectives shipped (docs/design.md
+    # §24): the on-wire bytes beside the compute-dtype bytes
+    rec = planner.reconcile_exchange(dist, journal=False)
+    wb = rec['counted_wire_bytes']
+    pb = rec['counted_payload_bytes']
+    wired = sorted(k for k, v in rec['wire_legs'].items() if v.get('wire'))
+    print(f'wire_dtype {args.wire_dtype}: narrowed leg(s) '
+          f'{wired or "none"}; forward exchange ships {wb:,} bytes on '
+          f'the wire vs {pb:,} at compute dtype '
+          f'({pb / max(wb, 1):.2f}x fewer)')
   if args.eval:
     auc = run_eval(int(state.step))
     print(f'Evaluation completed, AUC: {auc:.5f}')

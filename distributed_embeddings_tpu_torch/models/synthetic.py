@@ -239,8 +239,9 @@ class SyntheticModel(nn.Module):
       (see ``DistributedEmbedding``).
     param_dtype / compute_dtype: storage and activation dtypes.
     lookup_impl, hot_cache, overlap_chunks, table_dtype, cold_tier,
-      device_hbm_budget, cold_fetch_rows, dcn_sharding: forwarded to
-      ``DistributedEmbedding``, which refuses those it does not port.
+      device_hbm_budget, cold_fetch_rows, dcn_sharding, wire_dtype:
+      forwarded to ``DistributedEmbedding``, which refuses those it does
+      not port.
 
   The embedding tables are ``self.embedding_params`` (filled by
   ``init`` or ``load_params``); ``forward(numerical, categorical)``
@@ -263,6 +264,7 @@ class SyntheticModel(nn.Module):
                device_hbm_budget: Optional[int] = None,
                cold_fetch_rows=None,
                dcn_sharding: bool = False,
+               wire_dtype: Optional[str] = None,
                device: mesh_lib.DeviceLike = None):
     super().__init__()
     self.config = config
@@ -288,7 +290,8 @@ class SyntheticModel(nn.Module):
         cold_tier=cold_tier,
         device_hbm_budget=device_hbm_budget,
         cold_fetch_rows=cold_fetch_rows,
-        dcn_sharding=dcn_sharding)
+        dcn_sharding=dcn_sharding,
+        wire_dtype=wire_dtype)
     self.device = self.dist_embedding.device
     total_width = sum(tables[t].output_dim for t in input_table_map)
     if config.interact_stride is not None:

@@ -48,6 +48,9 @@ round before it is consumed, bit-exact against one round;
 ``table_dtype`` (docs/design.md §12) stores the tables as int8 or
 float8_e4m3 payloads with per-row power-of-two scales; every lookup
 dequantizes at the gather (the lookup kernel's dequantizing arm).
+``wire_dtype`` (docs/design.md §24) narrows what the exchange ships: the
+bf16 cast wire, or the quantized rows' payload and scale exponent, both
+at the one seam every exchange passes (``_issue`` / ``_Pending``).
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -179,8 +182,16 @@ class DistributedEmbedding:
       are f32, and the sparse apply requantizes exactly the touched rows
       with a refreshed scale (``parallel/sparse.py``).  Requires
       ``param_dtype=float32``; the dense autodiff trainer refuses it.
-    cold_tier / cold_fetch_rows / dcn_sharding / wire_dtype: not ported;
-      raise.
+    wire_dtype: the exchange's wire format (docs/design.md §24):
+      ``None`` (the compute dtype), ``'bfloat16'`` (``'bf16'``: the
+      float row and gradient legs cross at bf16, one rounding a
+      crossing) or ``'table'`` (needs ``table_dtype``: the pre-combine
+      row legs of the hot cache ship the stored payload and the scale's
+      exponent, ``quantization.wire_encode_rows``, bit-exact).  Each
+      buffer is encoded in ``_issue`` and decoded in ``_Pending.wait``;
+      the collective count does not change, and a world of one ships
+      nothing.
+    cold_tier / cold_fetch_rows / dcn_sharding: not ported; raise.
   """
 
   def __init__(self,
@@ -242,8 +253,22 @@ class DistributedEmbedding:
           'already carries the dynamic range, and the f32 dequant at '
           'the gather is the storage contract (docs/design.md §12). '
           'Drop param_dtype=bfloat16 or drop table_dtype.')
-    if wire_dtype is not None:
-      raise not_ported('wire_dtype', 9)
+    # the wire codec's refusal matrix (docs/design.md §24)
+    if wire_dtype == 'bf16':  # the common short alias
+      wire_dtype = 'bfloat16'
+    if wire_dtype not in (None, 'bfloat16', 'table'):
+      raise ValueError(
+          f'Unknown wire_dtype {wire_dtype!r}: expected None (compute-'
+          "dtype wire), 'bfloat16' (cast row/grad legs to bf16 on the "
+          "wire) or 'table' (quantized payload+scale passthrough on "
+          'pre-combine row legs — bit-exact; docs/design.md §24)')
+    if wire_dtype == 'table' and quant is None:
+      raise ValueError(
+          "wire_dtype='table' requires table_dtype ('int8' or "
+          "'float8_e4m3'): the table wire ships the STORED quantized "
+          'payload + po2 scale across the exchange, so an unquantized '
+          'table has no payload to pass through (docs/design.md §24). '
+          "Use wire_dtype='bfloat16' for f32/bf16 tables.")
     if dcn_sharding:
       raise not_ported('dcn_sharding', 10)
     if cold_tier:
@@ -300,10 +325,10 @@ class DistributedEmbedding:
     self.fused_exchange = bool(fused_exchange)
     self._hot_meta_cache = None
     # the JAX layer's flat-layout attributes, which the exchange
-    # counters read (no dcn axis, item 10; the compute-dtype wire, item 9)
+    # counters read (no dcn axis, item 10)
     self.num_slices = 1
     self.dcn_axis = None
-    self.wire_dtype = None
+    self.wire_dtype = wire_dtype
     # forward closures and their LookupPlans, keyed by
     # (local batch, hotness); a plan's legs are those of its last call
     self._fn_cache: Dict[Any, Any] = {}
@@ -706,6 +731,49 @@ class DistributedEmbedding:
           pieces, dim=-1))
     return tuple(outs)
 
+  # The wire codec by exchange phase (docs/design.md §24).  Pre-combine
+  # phases ship single rows, which on quantized plans are grid values
+  # (payload * po2 scale): the passthrough requantizes them to the
+  # stored bits, so that wire is exact.  Combined phases carry sums,
+  # which only the lossy bf16 cast may narrow.  Id phases ('fwd/ids',
+  # 'fwd/cold_ids', 'dcn/ids') never narrow.
+  _WIRE_PRECOMBINE_ROW_PHASES = frozenset({'fwd/cold_rows', 'dcn/rows'})
+  _WIRE_CAST_PHASES = frozenset(
+      {'fwd/rows', 'bwd/cotangent', 'bwd/cold_grads'})
+
+  def _wire_codec(self, name: str) -> Optional[str]:
+    """The codec of one exchange phase under ``self.wire_dtype``:
+    ``'q8'`` (payload and scale exponent, exact), ``'bf16'`` (one bf16
+    rounding a crossing) or ``None`` (the compute dtype)."""
+    if self.wire_dtype is None:
+      return None
+    if name in self._WIRE_PRECOMBINE_ROW_PHASES:
+      if self.quant is not None:
+        return 'q8'
+      return 'bf16' if self.wire_dtype == 'bfloat16' else None
+    if self.wire_dtype == 'bfloat16' and name in self._WIRE_CAST_PHASES:
+      return 'bf16'
+    return None
+
+  def _wire_encode(self, b: torch.Tensor, codec: str):
+    """Encode one exchange buffer for the wire: ``(wire_buffer,
+    decode)``, ``decode`` restoring the dtype (and for ``'q8'`` the
+    ``[..., w]`` shape).  The bf16 cast is differentiable, so autograd
+    sends the cotangent back at bf16 too; the ``'q8'`` bytes are not."""
+    orig = b.dtype
+    if codec == 'bf16':
+      return b.to(torch.bfloat16), lambda x: x.to(orig)
+    assert codec == 'q8', codec
+    if torch.is_grad_enabled() and b.requires_grad:
+      raise ValueError(
+          "the 'q8' wire codec ships quantized bytes, through which no "
+          'gradient flows: a quantized layer trains with the sparse '
+          'trainer (docs/design.md §12 and §24)')
+    w = b.shape[-1]
+    return (quantization.wire_encode_rows(b.to(torch.float32), self.quant),
+            lambda x: quantization.wire_decode_rows(x, self.quant,
+                                                    w).to(orig))
+
   def _exchange(self, bufs, name, plan=None):
     """The EXCHANGE stage: ship canonical ``[D, ...]`` buffers between
     the ranks (slot ``d`` of the leading axis goes to rank ``d``) and
@@ -727,6 +795,14 @@ class DistributedEmbedding:
     returns the buffers untouched.  The legs are recorded into ``plan``
     when issued, so a pipelined loop records them in its issue order.
 
+    The wire codec lives here and nowhere else (docs/design.md §24):
+    where ``_wire_codec`` maps the phase to a codec, every live buffer
+    is encoded before the concat and decoded in ``wait`` after the
+    split-back, so every path, chunk round and schedule inherits it;
+    the legs record the on-wire dtype and shape, ``wire`` and the
+    pre-encode bytes (``payload_nbytes``), and the collective count is
+    unchanged.
+
     The collectives are issued with ``async_op=True`` (on NCCL they run
     on the process group's stream and ``wait`` orders the current
     stream after them; gloo runs them on its thread), and the pending
@@ -736,14 +812,25 @@ class DistributedEmbedding:
     D = self.world_size
     out = list(bufs)
     live = [(i, b) for i, b in enumerate(bufs) if b is not None]
-    pending = _Pending(out)
     if not live or D == 1:
-      return pending
+      return _Pending(out)
     group = self.mesh.group
+    codec = self._wire_codec(name)
+    decode, orig_nbytes, payload_nbytes = {}, {}, None
+    if codec is not None:
+      wired = []
+      for i, b in live:
+        orig_nbytes[i] = b.numel() * b.element_size()
+        wb, decode[i] = self._wire_encode(b, codec)
+        wired.append((i, wb))
+      live = wired
+      payload_nbytes = sum(orig_nbytes.values())
+    pending = _Pending(out, decode)
     if self.fused_exchange and len(live) > 1:
       legs = fuse_layout(name, [(f'g{i}', tuple(b.shape),
                                  _wire_dtype_name(b.dtype))
-                                for i, b in live])
+                                for i, b in live], wire=codec,
+                         payload_nbytes=payload_nbytes)
       by_label = {f'g{i}': (i, b) for i, b in live}
       moves = [([by_label[s.label] for s in leg.segments], leg.segments)
                for leg in legs]
@@ -751,7 +838,8 @@ class DistributedEmbedding:
       legs, moves = [], []
       for i, b in live:
         legs += fuse_layout(f'{name}/g{i}', [(f'g{i}', tuple(b.shape),
-                                              _wire_dtype_name(b.dtype))])
+                                              _wire_dtype_name(b.dtype))],
+                            wire=codec, payload_nbytes=orig_nbytes.get(i))
         moves.append(([(i, b)], None))
     if plan is not None:
       plan.record(legs)
@@ -1648,11 +1736,13 @@ class _PsumScatter(torch.autograd.Function):
 
 class _Pending:
   """One exchange phase in flight (``DistributedEmbedding._issue``):
-  ``wait()`` completes its collectives and returns the phase's buffers.
-  The send tensors stay referenced until then."""
+  ``wait()`` completes its collectives and returns the phase's buffers,
+  each decoded from the wire (``decode``: buffer index -> its codec's
+  decode).  The send tensors stay referenced until then."""
 
-  def __init__(self, out):
+  def __init__(self, out, decode=None):
     self.out = out
+    self.decode = decode or {}
     self.moves = []
 
   def add(self, work, send, recv, members, segments):
@@ -1668,7 +1758,9 @@ class _Pending:
       for seg, (i, b) in zip(segments, members):
         self.out[i] = recv[:, seg.offset:seg.offset + seg.size].reshape(
             b.shape)
-    self.moves = []
+    for i, dec in self.decode.items():
+      self.out[i] = dec(self.out[i])
+    self.moves, self.decode = [], {}
     return self.out
 
 

@@ -88,25 +88,27 @@ def build_exchange_program(dist, cats, chunks: Optional[int] = None,
   ``fn(*inputs)`` runs exactly the chunked id exchange and the
   row-return exchange of every subgroup: the send buffers are assembled
   from the real inputs, each chunk's dp->mp ``all_to_all`` ships the real
-  ids, and the return leg ships a width-``w`` f32 broadcast of the
-  received ids, with no lookup in between.  It returns the sum of what
-  came back (a 0-d f32 tensor).  ``rows_only=True`` builds the backward
-  twin: only the width-``w`` row leg ships, one ``all_to_all`` per chunk
-  per subgroup (the cotangent exchange's shape).  A world of one skips
-  every collective, as the runtime does.
+  ids, and the return leg ships a width-``w`` broadcast of the received
+  ids, with no lookup in between.  It returns the sum of what came back
+  (a 0-d f32 tensor).  ``rows_only=True`` builds the backward twin: only
+  the width-``w`` row leg ships, one ``all_to_all`` per chunk per
+  subgroup (the cotangent exchange's shape).  A world of one skips every
+  collective, as the runtime does.
 
-  The hierarchical DCN leg (``dcn_sharding``) and a narrow wire
-  (``wire_dtype``) are not ported and raise; ``dcn_leg`` selects that
-  leg only on such layers."""
+  The row legs ship at the layer's wire format (``wire_dtype``,
+  docs/design.md §24; ``_wire_rows``), so the measured bytes are the
+  runtime's: ``'q8'`` legs as uint8 rows of ``wire_bytes_per_row``
+  bytes, ``'bf16'`` legs at bf16, the rest at f32.  The hierarchical
+  DCN leg (``dcn_sharding``) is not ported and raises; ``dcn_leg``
+  selects that leg only on such layers."""
   # function-level import: dist_embedding imports this module
+  from distributed_embeddings_tpu_torch.parallel import quantization
   from distributed_embeddings_tpu_torch.parallel import routing
   from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
       _SENTINEL, _all_to_all, not_ported)
 
   if getattr(dist, 'dcn_sharding', False) and dcn_leg:
     raise not_ported('the exchange program\'s DCN leg', 10)
-  if getattr(dist, 'wire_dtype', None) is not None:
-    raise not_ported('the exchange program at a wire dtype', 9)
   if not dist.dp_input:
     raise ValueError('build_exchange_program needs a dp_input layer '
                      '(the measured exchange is the dp<->mp pair)')
@@ -118,6 +120,18 @@ def build_exchange_program(dist, cats, chunks: Optional[int] = None,
 
   def a2a(x):
     return _all_to_all(x, group) if D > 1 else x
+
+  def _wire_rows(vals, phase, w):
+    # a synthetic row leg at the phase's wire dtype and width
+    codec = dist._wire_codec(phase)
+    if codec == 'q8':
+      ww = quantization.wire_bytes_per_row(w, dist.quant)
+      return vals[..., None].to(torch.uint8).expand(*vals.shape, ww)
+    dt = torch.bfloat16 if codec == 'bf16' else torch.float32
+    return vals[..., None].to(dt).expand(*vals.shape, w)
+
+  def total_of(x):
+    return x.sum(dtype=torch.float32)
 
   def fn(*inputs):
     total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -139,17 +153,17 @@ def build_exchange_program(dist, cats, chunks: Optional[int] = None,
       for lo, hi in chunk_bounds(sub.n_cap, req):
         part = send[:, lo:hi]
         if rows_only:
-          rows = part[:, :, :, 0, None].to(torch.float32).expand(
-              -1, -1, -1, w)
-          total = total + a2a(rows).sum()
+          rows = _wire_rows(part[:, :, :, 0], 'bwd/cotangent', w)
+          total = total + total_of(a2a(rows))
           continue
         recv = a2a(part)
         ids = recv.transpose(0, 1).reshape(hi - lo, global_batch, h)
         # the return leg: the received ids broadcast to the row width,
         # real data-dependent bytes
-        rows = ids[:, :, 0, None].to(torch.float32).expand(-1, -1, w)
-        back = rows.reshape(hi - lo, D, local_batch, w).transpose(0, 1)
-        total = total + a2a(back).sum()
+        rows = _wire_rows(ids[:, :, 0], 'fwd/rows', w)
+        back = rows.reshape(hi - lo, D, local_batch,
+                            rows.shape[-1]).transpose(0, 1)
+        total = total + total_of(a2a(back))
     return total
 
   return fn, inputs

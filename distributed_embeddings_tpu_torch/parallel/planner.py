@@ -1546,6 +1546,17 @@ class Segment:
             'shape': list(self.shape), 'dtype': self.dtype}
 
 
+def _dtype_name(dtype) -> str:
+  """A leg dtype's numpy name.  numpy knows ``'bfloat16'`` only where
+  ``ml_dtypes`` is loaded, which the port does not need, so that name is
+  kept as it is."""
+  return 'bfloat16' if str(dtype) == 'bfloat16' else str(np.dtype(dtype))
+
+
+def _itemsize(dtype: str) -> int:
+  return 2 if dtype == 'bfloat16' else np.dtype(dtype).itemsize
+
+
 @dataclasses.dataclass(frozen=True)
 class LegLayout:
   """The offset table of ONE fused collective: every segment shares the
@@ -1576,7 +1587,7 @@ class LegLayout:
 
   @property
   def nbytes(self) -> int:
-    return self.lead * self.total * np.dtype(self.dtype).itemsize
+    return self.lead * self.total * _itemsize(self.dtype)
 
   @property
   def payload_bytes(self) -> int:
@@ -1618,7 +1629,7 @@ def fuse_layout(name: str, entries: Sequence[Tuple[str, Sequence[int],
   leads: Dict[str, int] = {}
   for label, shape, dtype in entries:
     shape = tuple(int(d) for d in shape)
-    dt = str(np.dtype(dtype))
+    dt = _dtype_name(dtype)
     by_dtype.setdefault(dt, []).append((label, shape))
     lead = leads.setdefault(dt, shape[0])
     if shape[0] != lead:

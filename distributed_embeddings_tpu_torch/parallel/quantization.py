@@ -18,7 +18,8 @@ quantized rows, so rows no update touches keep their bits through any
 number of dense hot applies and checkpoint round trips.
 
 Two versions of every function, bit for bit the same and the same as the
-JAX package's ``quantize_np``:
+JAX package's ``quantize_np`` (and, for the wire codec of the exchange,
+``wire_encode_rows_np``):
 
 - torch (``row_scale``, ``quantize``, ``dequantize``, the masks), on any
   device: the exponent comes from ``torch.frexp`` and the power of two
@@ -264,6 +265,57 @@ def payload_bad_mask_np(payload: np.ndarray, spec: QuantSpec) -> np.ndarray:
   if spec.integer:
     return p == np.asarray(-128, p.dtype)
   return np.isnan(payload_values_np(p, spec))
+
+
+# ------------------------------------------------------------ wire codec
+#
+# The wire codec (docs/design.md §24) ships quantized rows across the
+# exchange as ONE uint8 buffer: the payload's bytes, then the po2 scale
+# as its int16 frexp exponent in two little-endian bytes.  int16 holds
+# every finite f32 exponent, so decode(encode(rows)) is exact on grid
+# rows (the quant -> dequant -> requant identity above).  The torch and
+# numpy codecs give the same bytes, and the JAX package's
+# ``wire_encode_rows_np`` / ``wire_encode_rows_jnp`` give them too.
+
+
+def wire_encode_rows(rows: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+  """Encode ``[..., w]`` rows into ``[..., w * itemsize + 2]`` uint8 wire
+  rows on their device: the ``quantize`` payload's bytes (fp8 as its
+  bits), then the scale's frexp exponent as an int16."""
+  payload, scale = quantize(rows, spec)
+  _, e = torch.frexp(scale)  # scale = 0.5 * 2**e exactly
+  return torch.cat([bits(payload).view(torch.uint8),
+                    e.to(torch.int16).view(torch.uint8)], dim=-1)
+
+
+def wire_decode_rows(wire: torch.Tensor, spec: QuantSpec,
+                     width: int) -> torch.Tensor:
+  """The exact inverse of ``wire_encode_rows``: ``[..., width]`` f32
+  rows."""
+  n = width * spec.itemsize
+  payload = wire[..., :n].contiguous().view(spec.torch_dtype)
+  e = wire[..., n:].contiguous().view(torch.int16).to(torch.int32)
+  return dequantize(payload, _pow2(e - 1))
+
+
+def wire_encode_rows_np(rows: np.ndarray, spec: QuantSpec) -> np.ndarray:
+  """``wire_encode_rows`` on the host: the same bytes."""
+  payload, scale = quantize_np(np.asarray(rows, np.float32), spec)
+  _, e = np.frexp(scale)
+  return np.concatenate([
+      np.ascontiguousarray(payload).view(np.uint8),
+      np.ascontiguousarray(e.astype(np.int16)).view(np.uint8)], axis=-1)
+
+
+def wire_decode_rows_np(wire: np.ndarray, spec: QuantSpec,
+                        width: int) -> np.ndarray:
+  """``wire_decode_rows`` on the host: ``[..., width]`` f32 rows."""
+  wire = np.asarray(wire, np.uint8)
+  n = width * spec.itemsize
+  payload = np.ascontiguousarray(wire[..., :n]).view(spec.np_dtype)
+  e = np.ascontiguousarray(wire[..., n:]).view(np.int16).astype(np.int32)
+  scale = np.ldexp(np.float32(0.5), e).astype(np.float32)
+  return dequantize_np(payload, scale, spec)
 
 
 # ------------------------------------------------------- bytes accounting

@@ -93,8 +93,11 @@ class ServingEngine:
     fused_exchange: ship every group's buffers through ONE collective
       per exchange phase (default) or one per group (False), as in
       ``DistributedEmbedding``; reported by ``stats``.
-    cold_tier / device_hbm_budget / cold_fetch_rows / wire_dtype:
-      forwarded; those not ported raise.
+    wire_dtype: the exchange's wire format (``None``, ``'bfloat16'``,
+      or ``'table'`` with quantized tables), as in
+      ``DistributedEmbedding``; reported by ``stats``.
+    cold_tier / device_hbm_budget / cold_fetch_rows: forwarded; those
+      not ported raise.
   """
 
   def __init__(self, table_configs, weights, *, batch_size: int,

@@ -165,8 +165,6 @@ def test_input_checks_match_jax():
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(table_dtype='int8', wire_dtype='table'), 9),
-    (dict(wire_dtype='bfloat16'), 9),
     (dict(dcn_sharding=True), 10),
     (dict(cold_tier=True), 12),
     (dict(cold_fetch_rows=64), 12),

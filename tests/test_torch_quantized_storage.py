@@ -324,9 +324,12 @@ def test_refusal_matrix():
     DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',
                          hot_cache={0: HotSet(0, np.array([1]))},
                          cold_tier=True, device_hbm_budget=1 << 20)
-  with pytest.raises(NotImplementedError, match='item 9'):
-    DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',
-                         wire_dtype='table')
+  # the wire codec (item 9b) takes the table's payload: 'table' builds
+  # on a quantized plan and refuses without one, with JAX's message
+  assert DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',
+                              wire_dtype='table').wire_dtype == 'table'
+  with pytest.raises(ValueError, match="wire_dtype='table' requires"):
+    DistributedEmbedding(CONFIGS, device='cpu', wire_dtype='table')
   # the dense trainer refuses, with the JAX package's reason
   d = DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8')
   params = d.init(0)
@@ -536,7 +539,7 @@ def test_example_table_dtype(tmp_path):
   with pytest.raises(SystemExit, match='--param_dtype float32'):
     dlrm_main.main(base + ['--table_dtype', 'int8', '--param_dtype',
                            'bfloat16'])
-  with pytest.raises(NotImplementedError, match='item 9'):
+  with pytest.raises(SystemExit, match='--wire_dtype table requires'):
     dlrm_main.main(base + ['--wire_dtype', 'table'])
 
 

@@ -140,11 +140,12 @@ def test_unported_serving_refuses():
   with pytest.raises(NotImplementedError, match='item 13\\)'):
     e.hot_only_filter([np.zeros(2, np.int32)])
   # hot_sets are served since item 7 (tests/test_torch_hotcache_ckpt.py)
-  # quantized tables are served since item 9a; its wire codec (9b) is not
+  # quantized tables are served since item 9a, the wire codec since 9b
   assert engine.ServingEngine(t, w, batch_size=8, device='cpu',
                               table_dtype='int8').dist.quant.name == 'int8'
-  for kw, item in ((dict(table_dtype='int8', wire_dtype='table'), 9),
-                   (dict(cold_tier=True), 12),
-                   (dict(wire_dtype='bfloat16'), 9)):
-    with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
-      engine.ServingEngine(t, w, batch_size=8, device='cpu', **kw)
+  for kw in (dict(table_dtype='int8', wire_dtype='table'),
+             dict(wire_dtype='bfloat16')):
+    e = engine.ServingEngine(t, w, batch_size=8, device='cpu', **kw)
+    assert e.stats()['wire_dtype'] == kw['wire_dtype']
+  with pytest.raises(NotImplementedError, match='item 12\\)'):
+    engine.ServingEngine(t, w, batch_size=8, device='cpu', cold_tier=True)

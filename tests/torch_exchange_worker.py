@@ -8,11 +8,14 @@ through all three (``ragged``, for tests/test_torch_ragged_dist.py;
 hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py, and
 ``hot_chunks``, its four-rank test of the chunked hot-gradient sum),
 the chunked exchange (``overlap``, for
-tests/test_torch_overlap_ranks.py) or an int8-quantized layer
-(``quant``, for tests/test_torch_quantized_ranks.py): joins a gloo world on
+tests/test_torch_overlap_ranks.py), an int8-quantized layer
+(``quant``, for tests/test_torch_quantized_ranks.py and, column-sliced,
+tests/test_torch_wire_ranks.py) or a wire-codec draw (``wire``, for
+tests/test_torch_wire_ranks.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
+import itertools
 import json
 import pickle
 
@@ -665,10 +668,13 @@ def hot_chunks(rank, world_size, init_method, case_path, out_dir):
 
 def quant(rank, world_size, init_method, case_path, out_dir):
   """One rank of an int8-quantized layer (for
-  tests/test_torch_quantized_ranks.py), uncached and cached: the forward
+  tests/test_torch_quantized_ranks.py), uncached and cached, at each
+  wire dtype of ``case['wires']`` (default ``None`` alone): the forward
   of its slice of the batch, then ``SparseAdagrad`` + ``optim.sgd``
   steps with a linear head; saves the outputs, the exported payload and
-  scale pairs, the accumulators, the hot buffers and the losses."""
+  scale pairs, the accumulators, the hot buffers and the losses.  With
+  ``case['save']`` rank 0 also saves the uncached layer's tables as set
+  (``save_train_npz``), before any step."""
   import numpy as np
   import torch
   import torch.distributed as torch_dist
@@ -698,13 +704,21 @@ def quant(rank, world_size, init_method, case_path, out_dir):
       x = torch.cat(list(emb_outs), dim=1)
       return torch.mean((x @ dense_params['kernel'] - y)**2)
 
-    for hot in (False, True):
+    for wire, hot in itertools.product(case.get('wires', (None,)),
+                                       (False, True)):
       hot_sets = ({t: HotSet(t, np.asarray(ids))
                    for t, ids in case['hot'].items()} if hot else None)
       dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
                                   table_dtype=case['dtype'],
-                                  hot_cache=hot_sets, **case['options'])
+                                  hot_cache=hot_sets, wire_dtype=wire,
+                                  **case['options'])
       params = checkpoint.set_weights(dist, case['weights'])
+      tag = f'{int(hot)}' + ('' if wire is None else f'_{wire}')
+      if case.get('save') and not hot:
+        weights = checkpoint.export_tables(dist, params)
+        if rank == 0:
+          checkpoint.save_train_npz(f'{out_dir}/quant_{tag}.ckpt.npz',
+                                    weights, plan=dist)
       with torch.no_grad():
         outs = dist.apply(params, mine(case['cats']))
       dense_opt = optim.sgd(case['lr'])
@@ -729,7 +743,132 @@ def quant(rank, world_size, init_method, case_path, out_dir):
       for k, v in emb.items():
         if k.startswith('hot_'):
           got[k] = quantization.bits(v).numpy()
-      np.savez(f'{out_dir}/quant{rank}_{int(hot)}.npz', **got)
+      np.savez(f'{out_dir}/quant{rank}_{tag}.npz', **got)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
+
+
+def _leaves(prefix, tree, out):
+  """The tensors of a nested dict as ``out[prefix/key/...]`` numpy arrays
+  (a float8 tensor as its bits)."""
+  from distributed_embeddings_tpu_torch.parallel import quantization
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      _leaves(f'{prefix}/{k}', v, out)
+    else:
+      out[f'{prefix}/{k}'] = quantization.bits(v).detach().numpy()
+  return out
+
+
+def wire(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a wire-codec draw (``wire_dtype``, for
+  tests/test_torch_wire_ranks.py): the layer at ``case['wire']`` and its
+  ``wire_dtype=None`` twin over the same weights.  For each: the forward
+  of its slice of the batch; ``backward_to_mp`` under the case's
+  cotangents, then the legs of its plans, their collective counts and
+  ``planner.reconcile_exchange``; uncached, one ``SparseAdagrad(0.05)``
+  apply of those gradients; then ``case['steps']`` hybrid steps
+  (``case['opt']``, SGD on a linear head).  Saves what the rank holds
+  (tables, scales, hot buffers, optimizer state) bit for bit, the
+  exported tables, the gathered optimizer state and the losses."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import planner
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot_sets = (None if case['hot'] is None else
+                {t: HotSet(t, np.asarray(v)) for t, v in case['hot'].items()})
+    b = case['batch'] // world_size
+    mine = lambda xs: [x[rank * b:(rank + 1) * b] for x in xs]
+    cats = mine(case['ids'])
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    d_outs = [torch.as_tensor(d) for d in mine(case['d_outs'])]
+    lr = case['lr']
+
+    def head(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=-1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    info = {}
+    for tag, wire_dtype in (('off', None), ('on', case['wire'])):
+      dist = DistributedEmbedding(
+          tables, mesh=m, dp_input=True, hot_cache=hot_sets,
+          overlap_chunks=case['chunks'], table_dtype=case['dtype'],
+          wire_dtype=wire_dtype)
+      params = checkpoint.set_weights(dist, case['weights'])
+      with torch.no_grad():
+        got = {f'o{i}': o.numpy()
+               for i, o in enumerate(dist.apply(params, cats))}
+        _, residuals, routing, sig = dist.forward_with_residuals(
+            params, cats, with_routing=True)
+        if hot_sets:
+          gsubs, hot_grads = dist.backward_to_mp(d_outs, *sig,
+                                                 routing=routing)
+          got.update({f'h{gi}': g.numpy() for gi, g in hot_grads.items()})
+        else:
+          gsubs = dist.backward_to_mp(d_outs, *sig)
+      got.update({f'g{i}': g.numpy() for i, g in enumerate(gsubs)})
+      plans = {p.path: p for p in dist._lookup_plans.values()}
+      info[tag] = {
+          'wire_dtype': dist.wire_dtype,
+          'legs': {k: [l.as_dict() for l in p.legs]
+                   for k, p in plans.items()},
+          'collectives': {k: p.collective_count() for k, p in plans.items()},
+          'reconcile': planner.reconcile_exchange(dist, journal=False)}
+      if not hot_sets:
+        iso = sparse.SparseAdagrad(0.05)
+        iso_state = iso.init(dist, params)
+        sparse.sparse_apply_updates(dist, iso, params, iso_state, residuals,
+                                    list(gsubs), 0.05, *sig)
+        _leaves('iso_p', params, got)
+        _leaves('iso_s', iso_state, got)
+      emb_opt = (sparse.SparseSGD(lr) if case['opt'] == 'sgd'
+                 else sparse.SparseAdagrad(lr))
+      dense_opt = optim.sgd(lr)
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+                 'kernel': torch.tensor(case['kernel'])}, dense_opt,
+          emb_opt)
+      step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
+      losses = []
+      for _ in range(case['steps']):
+        state, loss = step(state, cats, labels)
+        losses.append(float(loss))
+      got['losses'] = np.array(losses)
+      got['kernel'] = state.params['kernel'].numpy()
+      _leaves('p', state.params['embedding'], got)
+      _leaves('s', state.opt_state[1], got)
+      for i, w in enumerate(checkpoint.export_tables(
+          dist, state.params['embedding'])):
+        if case['dtype'] is None:
+          got[f'w{i}'] = w
+        else:
+          got[f'w{i}_payload'] = np.asarray(w.payload).view(np.uint8)
+          got[f'w{i}_scale'] = w.scale
+      for i, s in enumerate(checkpoint.get_optimizer_state(
+          dist, state.opt_state[1])):
+        got.update({f'a{i}/{k}': v.numpy() for k, v in s.items()})
+      np.savez(f'{out_dir}/wire{rank}_{tag}.npz', **got)
+    with open(f'{out_dir}/wire{rank}.json', 'w') as f:
+      json.dump(info, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
