@@ -174,6 +174,34 @@ Phases, each of which exits non-zero on failure:
             and the step wall times, which are gloo through the host.
             A rank that fails or outlasts its timeout fails the phase,
             its output printed.
+9i. dcn-ranks: the two-axis mesh and the hierarchical exchange
+            (dcn_sharding): four processes on the one card (all on
+            cuda:0), a 2 x 2 (dcn, data) mesh over gloo; each checks
+            all_to_all_single, all_gather and all_reduce on CUDA tensors
+            over each of its three groups (data, dcn, product).  The
+            tiny model at full size, global batch 65536 (16384 a rank),
+            two arms, each a dcn_sharding=True model (tables over the
+            axis product) beside its two-axis flat twin (tables over the
+            data axis, replicated across slices) drawn from the same
+            seed, the hierarchical draw checked equal to the twin's
+            resharded (hierarchical_params): f32 uncached, one chunk;
+            int8 with phase 9e's hot sets, overlap_chunks=3 and
+            wire_dtype='table'.  Per arm 3 forwards, then a warm-up and
+            3 hybrid steps (phase 7's optimizers) each way: forwards,
+            losses, every real hierarchical row and accumulator against
+            the trained-then-resharded flat ones, the MLP and its
+            optimizer bit-exact; launches counted against the twin's
+            (a gather and a combine a subgroup and chunk round where the
+            twin has one lookup; the same segment walks); the DCN legs
+            on the dcn axis (dcn/rows uint8 on the int8 arm);
+            measure_exchange_counters on rank 0 (dcn_rows, dcn_rows_off,
+            dcn_dedup_ratio above 1); each lookup of one hierarchical
+            forward and each segment walk of one more step captured on
+            each rank and held against its plain version.  Both 9h and
+            9i start their ranks through launch_ranks: a file
+            rendezvous, each rank's output logged, a marker written
+            after its work, os._exit(0); a rank that fails, leaves no
+            marker or outlasts its timeout fails the phase.
 10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -329,7 +357,7 @@ steps and lazy-Adam steps, phase 13c's run, each arm of phases 9f
 and 13d (forwards, sparse, cached and dense steps, the example runs)
 phase 9g's forward, requests and steps of each dtype, phase 13e's
 forward and steps (with the dequantizing arm's launches), phase 9h's
-forwards and steps on each rank, phase 13f's example runs and phase 20's
+and 9i's forwards and steps on each rank, phase 13f's example runs and phase 20's
 benchmark (with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms, its adam op, the lookup's CSR arm and
@@ -353,7 +381,6 @@ import json
 import os
 import pathlib
 import shutil
-import socket
 import statistics
 import subprocess
 import sys
@@ -481,6 +508,15 @@ WIRE_STEPS = 3  # after a warm-up, each arm and twin
 WIRE_TIMEOUT_S = 600  # both ranks, start to end
 BF16_WIRE_BOUND = 2.0**-6  # the JAX package's bound for the bf16 wire
 WIRE_EXAMPLE_STEPS = 3  # phase 13f's example runs
+# phase 9i: a 2 x 2 (dcn, data) mesh of four ranks on the one card; each
+# arm a dcn_sharding=True model beside its two-axis flat twin
+DCN_SHAPE = (2, 2)
+DCN_ARMS = (('f32', {}),
+            ('int8', {'table_dtype': 'int8', 'hot_cache': True,
+                      'overlap_chunks': 3, 'wire_dtype': 'table'}))
+DCN_FORWARDS = 3
+DCN_STEPS = 3  # after a warm-up, each arm and twin
+DCN_TIMEOUT_S = 600  # all four ranks, start to end
 DLRM_WIRE_ROWS = 1_703_936  # the DLRM's looked-up rows a step (65536 x 26)
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
@@ -4317,28 +4353,33 @@ def _state_tensors(state):
   return out + list(optim.tree_leaves(state.opt_state[0]))
 
 
-def probe_collectives(device, rank, world):
+def probe_collectives(device, rank, world, group=None):
   """Each collective the multi-rank paths call, once on ``device`` under
-  the process group's backend, checked: ``{name: None or the error}``."""
+  the process group's backend, over ``group`` (default the world; this
+  process is its ``rank`` of ``world``), checked: ``{name: None or the
+  error}``.  Every process calls it for the same groups in one order
+  (its barrier is the world's)."""
   out = {}
   base = torch.arange(4 * world, dtype=torch.float32, device=device)
 
   def a2a():
     send = base + 100 * rank
     recv = torch.empty_like(send)
-    torch_dist.all_to_all_single(recv, send, async_op=True).wait()
+    torch_dist.all_to_all_single(recv, send, group=group,
+                                 async_op=True).wait()
     want = torch.cat([base[4 * rank:4 * rank + 4] + 100 * r
                       for r in range(world)])
     return torch.equal(recv, want)
 
   def gather():
     parts = [torch.empty(4, device=device) for _ in range(world)]
-    torch_dist.all_gather(parts, base[:4] + rank, async_op=True).wait()
+    torch_dist.all_gather(parts, base[:4] + rank, group=group,
+                          async_op=True).wait()
     return all(torch.equal(p, base[:4] + r) for r, p in enumerate(parts))
 
   def reduce():
     x = base + rank
-    torch_dist.all_reduce(x)
+    torch_dist.all_reduce(x, group=group)
     return torch.equal(x, world * base + sum(range(world)))
 
   for name, fn in (('all_to_all_single', a2a), ('all_gather', gather),
@@ -4603,31 +4644,44 @@ def wire_rank(rank, init, out_dir, seed):
   return result
 
 
-def _free_port():
-  with socket.socket() as s:
-    s.bind(('localhost', 0))
-    return s.getsockname()[1]
+def rank_main(fn_name, rank, init, out_dir, *args):
+  """The body of a rank process of phases 9h and 9i: ``faulthandler`` on,
+  ``fn_name(rank, init, out_dir, *args)`` run (its ``finally`` tears its
+  process group down), the streams flushed, ``done{rank}`` written under
+  ``out_dir``, and then ``os._exit(0)``: the interpreter's teardown (the
+  module and C++ static destructors) is skipped, where a gloo rank could
+  abort with ``terminate called without an active exception`` after its
+  work was done.  A rank that raised exits non-zero without its marker."""
+  import faulthandler
+  faulthandler.enable(all_threads=True)
+  globals()[fn_name](rank, init, out_dir, *args)
+  sys.stdout.flush()
+  sys.stderr.flush()
+  with open(os.path.join(out_dir, f'done{rank}'), 'w') as f:
+    f.write('done\n')
+  os._exit(0)
 
 
-def phase_wire_ranks(seed):
-  """Phase 9h: two processes on the one card, joined over gloo, run
-  ``wire_rank`` (see the module docstring).  A child that fails or does
-  not end within ``WIRE_TIMEOUT_S`` fails the phase, its output printed.
-  Returns the numbers of both ranks."""
-  root = CKPT_DIR.parent / 'chip_smoke_wire'
-  shutil.rmtree(root, ignore_errors=True)
-  root.mkdir(parents=True)
+def launch_ranks(tag, root, fn_name, world, timeout_s, *args):
+  """``world`` processes on the one card running ``rank_main(fn_name,
+  rank, ...)``, joined through a file rendezvous under ``root`` (no port
+  to race for, no TCPStore thread), each writing its output to
+  ``root/rank{r}.log``.  Fails unless every rank exits 0 within
+  ``timeout_s`` and left its marker; the message gives each rank's exit
+  code (-6 is SIGABRT), its marker and the tail of its output.  Returns
+  the wall seconds."""
   here = str(pathlib.Path(__file__).resolve().parent)
-  init = f'tcp://localhost:{_free_port()}'
+  init = f'file://{root / "rendezvous"}'
   procs, logs = [], []
   t0 = time.perf_counter()
-  for rank in range(WIRE_WORLD):
+  for rank in range(world):
     logs.append(open(root / f'rank{rank}.log', 'w+'))
     code = (f'import sys; sys.path.insert(0, {here!r}); import chip_smoke; '
-            f'chip_smoke.wire_rank({rank}, {init!r}, {str(root)!r}, {seed})')
+            f'chip_smoke.rank_main({fn_name!r}, {rank}, {init!r}, '
+            f'{str(root)!r}, *{args!r})')
     procs.append(subprocess.Popen([sys.executable, '-c', code], cwd=here,
                                   stdout=logs[-1], stderr=subprocess.STDOUT))
-  deadline = time.monotonic() + WIRE_TIMEOUT_S
+  deadline = time.monotonic() + timeout_s
   hung = False
   for p in procs:
     try:
@@ -4645,13 +4699,28 @@ def phase_wire_ranks(seed):
     outputs.append(f.read())
     f.close()
   codes = [p.returncode for p in procs]
-  if hung or any(codes):
+  markers = [(root / f'done{r}').exists() for r in range(world)]
+  if hung or any(codes) or not all(markers):
     for rank, text in enumerate(outputs):
-      log(f'[wire-ranks] rank {rank} (exit {codes[rank]}) output:\n'
+      log(f'[{tag}] rank {rank} (exit {codes[rank]}, marker '
+          f'{"written" if markers[rank] else "missing"}) output:\n'
           + text[-20000:])
-    raise AssertionError(f'wire-ranks: {"a rank hung past " if hung else ""}'
-                         f'{WIRE_TIMEOUT_S if hung else ""} exit codes '
-                         f'{codes}')
+    raise AssertionError(f'{tag}: {"a rank hung past " if hung else ""}'
+                         f'{timeout_s if hung else ""} exit codes {codes}, '
+                         f'markers {markers}')
+  return wall
+
+
+def phase_wire_ranks(seed):
+  """Phase 9h: two processes on the one card, joined over gloo, run
+  ``wire_rank`` (see the module docstring) through ``launch_ranks``.  A
+  child that fails or does not end within ``WIRE_TIMEOUT_S`` fails the
+  phase, its output printed.  Returns the numbers of both ranks."""
+  root = CKPT_DIR.parent / 'chip_smoke_wire'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  wall = launch_ranks('wire-ranks', root, 'wire_rank', WIRE_WORLD,
+                      WIRE_TIMEOUT_S, seed)
   results = []
   for rank in range(WIRE_WORLD):
     with open(root / f'rank{rank}.json') as f:
@@ -4690,6 +4759,301 @@ def wire_summary(k, seg, wire_ranks):
                for r in wire_ranks['ranks']] for wire, _ in WIRE_ARMS}
     entry['wire_ranks'] = {wire: [checked_sum(rank) for rank in ranks]
                            for wire, ranks in rows.items()}
+    entry['max_abs_err'] = max([entry['max_abs_err']] + [
+        r['max_abs_err'] for ranks in rows.values() for rank in ranks
+        for r in rank])
+
+
+# ---------------------------------------------------- 9i: dcn-ranks
+
+
+def hier_rows(tag, hdist, got, want):
+  """Two ``{leaf: tensor}`` dicts of a ``dcn_sharding`` layer's params on
+  this rank, equal bit for bit on every REAL row of each table leaf (the
+  cell's ``rows_h``; padding past them is filler) and in full on the hot
+  buffers."""
+  real = {gi: g.rows_h[hdist.slice_index][hdist.rank]
+          for gi, g in enumerate(hdist.hier.groups)}
+  if sorted(got) != sorted(want):
+    raise AssertionError(f'{tag}: leaves {sorted(got)} against '
+                         f'{sorted(want)}')
+  for k in sorted(got):
+    a, b = got[k], want[k]
+    if not k.startswith('hot_'):
+      n = real[int(k.rsplit('_', 1)[1])]
+      a, b = a[:n], b[:n]
+    if not torch.equal(quantization.bits(a), quantization.bits(b)):
+      raise AssertionError(f'{tag}: {k} differs')
+
+
+def hier_state(hdist, flat_state):
+  """A flat twin's sparse optimizer state in the hierarchical layout of
+  ``hdist`` (this cell's sub-windows of each group's rows, as
+  ``hierarchical_params`` relocates the tables)."""
+  s, d = hdist.slice_index, hdist.rank
+  out = {}
+  for k, leaves in flat_state.items():
+    if k.startswith('hot_'):
+      out[k] = leaves
+      continue
+    hl = hdist.hier.groups[int(k.rsplit('_', 1)[1])]
+    out[k] = {leaf: torch.cat([v[lo:lo + n] for lo, n in
+                               hl.flat_ranges[s][d]])
+              for leaf, v in leaves.items()}
+  return out
+
+
+def dcn_rank(rank, init, out_dir, seed):
+  """One of phase 9i's four ranks (a process of its own, all on the one
+  card, a 2 x 2 ``(dcn, data)`` mesh over gloo): each group's
+  collectives probed, then each arm of ``DCN_ARMS`` as a
+  ``dcn_sharding=True`` model beside its two-axis flat twin drawn from
+  the same seed (see the module docstring).  Writes ``rank{rank}.json``
+  under ``out_dir``."""
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      hierarchical_params)
+  config = SYNTHETIC_MODELS[MODEL]
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+  world = DCN_SHAPE[0] * DCN_SHAPE[1]
+  m = mesh_lib.init_distributed(init, world, rank, backend='gloo',
+                                device='cuda:0', mesh_shape=DCN_SHAPE)
+  result = {'rank': rank, 'cell': [m.slice_index, m.rank],
+            'device': str(m.device), 'arms': {}}
+  try:
+    result['collectives'] = {
+        axis: probe_collectives(m.device, idx, n, group)
+        for axis, idx, n, group in (
+            ('data', m.rank, m.world_size, m.group),
+            ('dcn', m.slice_index, m.num_slices, m.dcn_group),
+            ('product', m.product_rank, m.product_size, m.product_group))}
+    failed = {a: {k: v for k, v in c.items() if v}
+              for a, c in result['collectives'].items()}
+    if any(failed.values()):
+      raise AssertionError(f'gloo on {m.device}: {failed}')
+    tables, _, hotness = expand_tables(config)
+    hotness = tuple(hotness)
+    train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                      HOT_COVERAGE)
+    local = BATCH // world
+    lo, hi = m.product_rank * local, (m.product_rank + 1) * local
+
+    def mine(b):
+      cats, (numerical, labels) = b
+      return ([c[lo:hi] for c in cats], (numerical[lo:hi], labels[lo:hi]))
+
+    # the forwards', the warm-up's, the counted steps' and the capture
+    # step's batches (global; each rank takes its block)
+    global_batches = train_batches(config, hotness, seed + 47,
+                                   DCN_FORWARDS + DCN_STEPS + 2)
+    batches = [mine(b) for b in global_batches]
+    for name, options in DCN_ARMS:
+      options = dict(options)
+      if options.pop('hot_cache', False):
+        options['hot_cache'] = train_sets
+      models = {h: SyntheticModel(config, mesh=m, dp_input=True,
+                                  dcn_sharding=h, **options).init(seed + 43)
+                for h in (True, False)}
+      hier, flat = models[True], models[False]
+      hdist, fdist = hier.dist_embedding, flat.dist_embedding
+      # the hierarchical draw is the twin's resharded
+      hier_rows(f'{name}: init', hdist, hier.embedding_params,
+                hierarchical_params(hdist, flat.embedding_params))
+      check_equal(f'{name}: MLP', list(hier.dense_params().values()),
+                  list(flat.dense_params().values()))
+      rounds = chunk_rounds(fdist, hotness)
+      arm = {'options': {k: (v if k != 'hot_cache' else len(v))
+                         for k, v in options.items()},
+             'subgroups': len(hdist._subgroups(hotness)),
+             'groups': len(hdist.plan.groups), 'chunk_rounds': rounds,
+             'hier_rows_cap': [g.rows_cap_h for g in hdist.hier.groups],
+             'flat_rows_cap': [g.rows_cap for g in fdist.plan.groups]}
+      # forwards: the hierarchical one counted, each bit-equal to the
+      # twin's; the DCN pair adds a gather and a combine a subgroup and
+      # round to the twin's lookups
+      fwd_ms = []
+      for cats, _ in batches[:DCN_FORWARDS]:
+        with torch.no_grad():
+          reset_launches()
+          want = fdist.apply(flat.embedding_params, cats)
+          torch.cuda.synchronize()
+          twin = read_launches()
+          reset_launches()
+          t0 = time.perf_counter()
+          got = hdist.apply(hier.embedding_params, cats)
+          torch.cuda.synchronize()
+          fwd_ms.append((time.perf_counter() - t0) * 1e3)
+          launches = read_launches()
+        check_equal(f'{name} forward', list(got), list(want))
+        if (launches['lookup_combine'] != twin['lookup_combine'] + rounds
+            or launches['segwalk_apply'] or not twin['lookup_combine']):
+          raise AssertionError(f'{name}: the forward launched {launches}, '
+                               f'the twin {twin}, {rounds} subgroup rounds')
+      arm['forward'] = {'launches': launches, 'twin_launches': twin,
+                        'ms': fwd_ms}
+      tag = f'dcn-rank{rank}-{name}'
+      lookup_rows = wire_lookup_rows(hdist, hier.embedding_params,
+                                     batches[0][0], tag)
+      if len(lookup_rows) != launches['lookup_combine']:
+        raise AssertionError(f'{tag}: {len(lookup_rows)} lookups captured, '
+                             f'{launches["lookup_combine"]} launched')
+      # the recorded legs: the DCN pair on the dcn axis; the table wire
+      # ships dcn/rows as the stored payload (uint8)
+      legs = hdist.lookup_plan().legs
+      dcn_legs = [l for l in legs if l.name.startswith('dcn/')]
+      if (sorted({l.name.split('/')[0] + '/' + l.name.split('/')[1]
+                  for l in dcn_legs}) != ['dcn/ids', 'dcn/rows']
+          or any(l.axis != 'dcn' for l in dcn_legs)):
+        raise AssertionError(f'{name}: legs {[(l.name, l.axis) for l in legs]}')
+      rows_legs = [l for l in dcn_legs if l.name.startswith('dcn/rows')]
+      if options.get('wire_dtype') == 'table' and any(
+          l.dtype != 'uint8' or l.wire != 'q8' for l in rows_legs):
+        raise AssertionError(f'{name}: dcn/rows legs '
+                             f'{[(l.dtype, l.wire) for l in rows_legs]}')
+      arm['legs'] = {'collectives': len(legs),
+                     'dcn': [(l.name, l.dtype, l.wire, l.nbytes)
+                             for l in dcn_legs]}
+      if m.product_rank == 0:
+        counters = hotcache.measure_exchange_counters(
+            hdist, global_batches[0][0])
+        arm['counters'] = {k: counters[k] for k in (
+            'dcn_rows', 'dcn_rows_off', 'dcn_dedup_ratio',
+            'dcn_rows_per_slice', 'dcn_rows_off_per_slice', 'ici_rows')}
+        if not (0 < counters['dcn_rows'] < counters['dcn_rows_off']
+                and counters['dcn_dedup_ratio'] > 1.0):
+          raise AssertionError(f'{name}: counters {arm["counters"]}')
+      # a warm-up and DCN_STEPS hybrid steps each way, phase 7's
+      # optimizers: every loss and every real row bit-equal
+      trainers = {h: build_trainer(models[h]) for h in (True, False)}
+      losses, step_ms, counted = {True: [], False: []}, [], {}
+      for h in (True, False):
+        step, state = trainers[h]
+        state, loss = step(state, *batches[DCN_FORWARDS])
+        losses[h].append(float(loss))
+        reset_launches()
+        for b in batches[DCN_FORWARDS + 1:-1]:
+          t0 = time.perf_counter()
+          state, loss = step(state, *b)
+          torch.cuda.synchronize()
+          if h:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+          losses[h].append(float(loss))
+        counted[h] = read_launches()
+        trainers[h] = (step, state)
+      if losses[True] != losses[False] or not all(np.isfinite(losses[True])):
+        raise AssertionError(f'{name}: losses {losses}')
+      want_launches = dict(counted[False])
+      want_launches['lookup_combine'] += rounds * DCN_STEPS
+      if counted[True] != want_launches or not counted[True][
+          'segwalk_apply']:
+        raise AssertionError(f'{name}: the steps launched {counted[True]}, '
+                             f'the twin {counted[False]}')
+      hstate, fstate = trainers[True][1], trainers[False][1]
+      hier_rows(f'{name}: tables after the steps', hdist,
+                hstate.params['embedding'],
+                hierarchical_params(hdist, fstate.params['embedding']))
+      want_opt = hier_state(hdist, fstate.opt_state[1])
+      for k, leaves in hstate.opt_state[1].items():
+        for leaf, v in leaves.items():
+          hier_rows(f'{name}: optimizer state {k}/{leaf} after the steps',
+                    hdist, {k: v}, {k: want_opt[k][leaf]})
+      check_equal(f'{name}: MLP and its optimizer after the steps',
+                  [hstate.params[k] for k in sorted(hstate.params)
+                   if k != 'embedding']
+                  + list(optim.tree_leaves(hstate.opt_state[0])),
+                  [fstate.params[k] for k in sorted(fstate.params)
+                   if k != 'embedding']
+                  + list(optim.tree_leaves(fstate.opt_state[0])))
+      arm['steps'] = {'launches': counted[True],
+                      'twin_launches': counted[False], 'ms': step_ms,
+                      'losses': losses[True]}
+      # each segment-walk launch of one more hierarchical step against its
+      # plain version
+      per_step = {k: v // DCN_STEPS for k, v in counted[True].items()}
+      seg_rows = wire_segwalk_rows(*trainers[True], *batches[-1], tag)
+      if len(seg_rows) != per_step['segwalk_apply']:
+        raise AssertionError(f'{tag}: {len(seg_rows)} segment walks '
+                             f'captured, {per_step["segwalk_apply"]} '
+                             'launched a step')
+      arm['kernels'] = {'lookup_combine': lookup_rows,
+                        'segwalk_apply': seg_rows}
+      arm['line'] = (
+          f'{name}: hierarchical forward, steps and rows bit-equal to the '
+          f'two-axis flat twin; DCN legs '
+          f'{[(l.name, l.dtype) for l in dcn_legs]}' + (
+              f'; counters dcn_rows {arm["counters"]["dcn_rows"]:,}, '
+              f'dcn_rows_off {arm["counters"]["dcn_rows_off"]:,}, ratio '
+              f'{arm["counters"]["dcn_dedup_ratio"]}'
+              if 'counters' in arm else ''))
+      result['arms'][name] = arm
+      del models, hier, flat, hdist, fdist, trainers, hstate, fstate, got
+      del want, want_opt
+      gc.collect()
+      torch.cuda.empty_cache()
+    torch_dist.barrier()
+  finally:
+    with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+      json.dump(result, f)
+    torch_dist.destroy_process_group()
+  return result
+
+
+def phase_dcn_ranks(seed):
+  """Phase 9i: four processes on the one card, a 2 x 2 ``(dcn, data)``
+  mesh over gloo, run ``dcn_rank`` (see the module docstring) through
+  ``launch_ranks``.  A rank that fails or does not end within
+  ``DCN_TIMEOUT_S`` fails the phase, its output printed.  Returns the
+  numbers of every rank."""
+  root = CKPT_DIR.parent / 'chip_smoke_dcn'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  world = DCN_SHAPE[0] * DCN_SHAPE[1]
+  wall = launch_ranks('dcn-ranks', root, 'dcn_rank', world, DCN_TIMEOUT_S,
+                      seed)
+  results = []
+  for rank in range(world):
+    with open(root / f'rank{rank}.json') as f:
+      results.append(json.load(f))
+  shutil.rmtree(root)
+  for r in results:
+    log(f'[dcn-ranks] rank {r["rank"]} (slice, data) {r["cell"]} on '
+        f'{r["device"]}: gloo took CUDA tensors in '
+        f'{ {a: sorted(c) for a, c in r["collectives"].items()} }')
+    for name, arm in r['arms'].items():
+      log(f'[dcn-ranks] rank {r["rank"]} {arm["line"]}')
+      log(f'[dcn-ranks] rank {r["rank"]} {name} '
+          f'({json.dumps(arm["options"])}): forwards '
+          f'{json.dumps(arm["forward"])}; steps (gloo through the host, '
+          f'host clock, synchronised) {json.dumps(arm["steps"])}; legs '
+          f'{json.dumps(arm["legs"])}'
+          + (f'; counters {json.dumps(arm["counters"])}'
+             if 'counters' in arm else ''))
+      log(f'[dcn-ranks] rank {r["rank"]} {name}: every launch of a '
+          'hierarchical forward and of one more step held against its '
+          'plain version (device_ms, queued, while three other ranks share '
+          'the card): ' + json.dumps(clocked(
+              {k: checked_sum(rows) for k, rows in arm['kernels'].items()})))
+  log(f'[dcn-ranks] all four ranks passed in {wall:.1f} s (four processes '
+      'on one card over gloo, which stages CUDA tensors through host '
+      'memory: a correctness run, not an exchange speed)')
+  return {'wall_s': wall, 'ranks': results}
+
+
+def dcn_summary(k, seg, dcn_ranks):
+  """Phase 9i in the kernels line: per kernel, each arm's step launches
+  on each rank (``launches_dcn_ranks``) and each rank's launches held
+  against their plain versions, summed (``dcn_ranks``); their largest
+  error joins the kernel's ``max_abs_err``."""
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    rows = {arm: [r['arms'][arm]['kernels'][name]
+                  for r in dcn_ranks['ranks']] for arm, _ in DCN_ARMS}
+    entry['launches_dcn_ranks'] = {
+        arm: [r['arms'][arm]['steps']['launches'][name]
+              for r in dcn_ranks['ranks']] for arm, _ in DCN_ARMS}
+    entry['dcn_ranks'] = {arm: [checked_sum(rank) for rank in ranks]
+                          for arm, ranks in rows.items()}
     entry['max_abs_err'] = max([entry['max_abs_err']] + [
         r['max_abs_err'] for ranks in rows.values() for rank in ranks
         for r in rank])
@@ -4852,6 +5216,7 @@ def main(argv=None) -> int:
   gc.collect()
   torch.cuda.empty_cache()
   wire_summary(k, seg, phase_wire_ranks(args.seed))
+  dcn_summary(k, seg, phase_dcn_ranks(args.seed))
   run_dlrm(args.seed, k, seg)
   gc.collect()
   torch.cuda.empty_cache()

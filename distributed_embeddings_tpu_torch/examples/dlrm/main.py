@@ -300,8 +300,7 @@ def make_trainer(model: DLRM, trainer: str, learning_rate: float):
       numerical, cats, labels = batch
       return bce_with_logits(model.apply(p, numerical, list(cats)), labels)
 
-    dense_step = grad.make_train_step(loss_fn, optimizer,
-                                      group=dist.mesh.group)
+    dense_step = grad.make_train_step(loss_fn, optimizer, dist=dist)
     return (lambda state, numerical, cats, labels: dense_step(
         state, (numerical, cats, labels)),
             grad.init_train_state(params, optimizer))

@@ -366,11 +366,15 @@ class StateAuditor:
 
   def _gather(self, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` stacked ``[world, ...]`` (``t`` itself in a
-    world of one)."""
-    if self.dist.world_size == 1:
+    world of one), over every rank of the mesh: on a two-axis mesh both
+    axes, index ``slice * D + rank`` (the JAX auditor's ``all_gather``
+    over every mesh axis), so a replica that diverged on another slice
+    shows too."""
+    mesh = self.dist.mesh
+    if mesh.product_size == 1:
       return t[None]
-    out = [torch.empty_like(t) for _ in range(self.dist.world_size)]
-    torch_dist.all_gather(out, t.contiguous(), group=self.dist.mesh.group)
+    out = [torch.empty_like(t) for _ in range(mesh.product_size)]
+    torch_dist.all_gather(out, t.contiguous(), group=mesh.product_group)
     return torch.stack(out)
 
   def _windows(self, leaves: Dict[str, torch.Tensor]):
@@ -458,7 +462,7 @@ class StateAuditor:
       devices = tuple(int(d) for d in np.nonzero(vec)[0])
       rows = torch.full((self.max_rows,), -1, dtype=torch.int64,
                         device=leaf.device)
-      if self.dist.rank in devices:
+      if self.dist.mesh.product_rank in devices:
         mine = _mask_rows_device(leaf, fns[kind], self.max_rows)
         rows[:len(mine)] = torch.tensor(mine, dtype=torch.int64)
       every = self._gather(rows).cpu().numpy()
@@ -488,7 +492,7 @@ class StateAuditor:
       devices = tuple(int(d) for d in np.nonzero(vec)[0])
       rows = torch.full((self.max_rows,), -1, dtype=torch.int64,
                         device=leaves[name].device)
-      if self.dist.rank in devices:
+      if self.dist.mesh.product_rank in devices:
         mine = _bad_rows_device(leaves[name], self.max_rows)
         rows[:len(mine)] = torch.tensor(mine, dtype=torch.int64)
       every = self._gather(rows).cpu().numpy()
@@ -522,7 +526,8 @@ class StateAuditor:
             _bad_rows(m.reshape(m.shape[0], -1) if m.ndim > 1 else m,
                       self.max_rows),
             f'{int(m.sum())} non-finite value(s) in a dense leaf'))
-    if 'replicated' in self.checks and self.dist.world_size > 1 and leaves:
+    if ('replicated' in self.checks and self.dist.mesh.product_size > 1
+        and leaves):
       digests = self._gather(torch.stack(
           [digest_u32(t) for _, t, _ in leaves])).cpu().numpy()
       for j, (name, t, tr) in enumerate(leaves):
@@ -566,7 +571,7 @@ class StateAuditor:
                  if 'quantized' in self.checks else {})
     replicated = ({k: v for k, v in emb.items() if self._is_replicated(k)}
                   if 'replicated' in self.checks
-                  and self.dist.world_size > 1 else {})
+                  and self.dist.mesh.product_size > 1 else {})
     if finite or quantized or replicated:
       # one rotating window per leaf, shared by every check
       windows = self._windows({**finite, **quantized, **replicated})

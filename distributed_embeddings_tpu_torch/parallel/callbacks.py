@@ -77,7 +77,9 @@ class CheckpointCallback:
                  if sparse else None)
     extras = train_extras(self.dist, state, step=step, sparse=sparse)
     path = self.path.format(step=step)
-    if self.dist.rank == 0:
+    # one writer over the whole mesh (a two-axis mesh's slices hold
+    # replicas of the same tables)
+    if self.dist.mesh.product_rank == 0:
       save_train_npz(path, weights, st_tables, extras=extras,
                      plan=self.dist)
       if path != self.path and self.keep_last is not None:
@@ -88,8 +90,8 @@ class CheckpointCallback:
             re.split(r'\{step[^}]*\}', os.path.basename(self.path)))
         prune_checkpoints(os.path.dirname(os.path.abspath(path)) or '.',
                           self.keep_last, pattern=base)
-    if self.dist.world_size > 1:
-      torch_dist.barrier(group=self.dist.mesh.group)
+    if self.dist.mesh.product_size > 1:
+      torch_dist.barrier(group=self.dist.mesh.product_group)
     logs['checkpoint'] = path
 
 

@@ -61,8 +61,13 @@ copies a same-dtype ``QuantizedWeight``'s stored pair straight in (the
 quantizer's fixed point), so files move between quantized and f32
 plans both ways.
 
-Left for their items: the hierarchical-layout refusal (item 10) and the
-rendezvous sanitizer's records (item 16).
+A hierarchical (``dcn_sharding``) layer is refused by every function
+that walks the shards, with the JAX package's message
+(``_refuse_dcn_sharding``): its weights go through a flat twin and
+``dist_embedding.hierarchical_params``.  A two-axis flat layer saves and
+restores as a flat one (its slices hold replicas; rank 0 of the mesh
+writes).  Left for its item: the rendezvous sanitizer's records (item
+16).
 """
 
 from __future__ import annotations
@@ -298,6 +303,23 @@ def _fill_tables(dist: DistributedEmbedding, params: Dict[str, torch.Tensor],
                           params[f'hot_scale_group_{gi}'], weights)
 
 
+def _refuse_dcn_sharding(dist, op: str):
+  """The checkpoint functions walk ``dist.world_size`` flat shards; a
+  hierarchical (``dcn_sharding=True``) layer's shards hold per-slice
+  sub-windows of them over the (dcn, data) axis product
+  (docs/design.md §20), which read as flat would drop or misplace rows.
+  So they refuse it, with the JAX package's message; the route is the
+  flat twin's: save and restore the flat layer of the same plan, then
+  ``dist_embedding.hierarchical_params``."""
+  if getattr(dist, 'dcn_sharding', False):
+    raise NotImplementedError(
+        f'{op} does not support dcn_sharding=True layers yet: the '
+        f'hierarchical (dcn x ici) layout shards over the axis product '
+        f'with per-slice row permutations (design §20). Checkpoint a '
+        f'flat twin of the same plan geometry and convert with '
+        f'dist_embedding.hierarchical_params(dist, flat_params).')
+
+
 def set_weights(dist: DistributedEmbedding,
                 weights: Sequence[WeightLike]) -> Dict[str, torch.Tensor]:
   """Build this rank's params ``{f'group_{gi}': [rows_cap, width]}`` on
@@ -312,6 +334,7 @@ def set_weights(dist: DistributedEmbedding,
   Raises:
     ValueError: on length or shape mismatch.
   """
+  _refuse_dcn_sharding(dist, 'set_weights')
   weights = list(weights)
   _check_tables(dist.plan, weights, 'set_weights')
   params = {}
@@ -399,6 +422,7 @@ def get_weights(dist: DistributedEmbedding,
     vectors, the first column slice of a row serving (all hold the same
     values).
   """
+  _refuse_dcn_sharding(dist, 'get_weights')
   return _canonical(dist, _value_leaves(dist, params))
 
 
@@ -459,6 +483,7 @@ def get_optimizer_state(dist: DistributedEmbedding,
     ...]``, ``[{'m': ..., 't': [rows], 'v': ...}, ...]``); empty dicts
     for a stateless optimizer.
   """
+  _refuse_dcn_sharding(dist, 'get_optimizer_state')
   leaves = sorted({k for gs in opt_state.values() for k in gs})
   n_groups = len(dist.plan.groups)
   per_leaf = {
@@ -484,6 +509,7 @@ def set_optimizer_state(dist: DistributedEmbedding,
   serves every column slice of its table.  Padding rows (never looked
   up) are zero, as in the JAX package.  The split state of hot rows is
   re-sliced into whatever hot set the live plan carries."""
+  _refuse_dcn_sharding(dist, 'set_optimizer_state')
   table_states = list(table_states)
   for gi in range(len(dist.plan.groups)):
     for k, leaf in opt_state.get(f'group_{gi}', {}).items():
@@ -1285,6 +1311,7 @@ def restore_train_state(dist: DistributedEmbedding, state, source: str,
   file verified and every shape matched.
 
   Returns ``(state, path)``."""
+  _refuse_dcn_sharding(dist, 'restore_train_state')
   t0 = obs_trace.now()
   try:
     out = _restore_train_state(dist, state, source, quarantine)

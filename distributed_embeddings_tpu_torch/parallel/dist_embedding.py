@@ -50,7 +50,12 @@ float8_e4m3 payloads with per-row power-of-two scales; every lookup
 dequantizes at the gather (the lookup kernel's dequantizing arm).
 ``wire_dtype`` (docs/design.md §24) narrows what the exchange ships: the
 bf16 cast wire, or the quantized rows' payload and scale exponent, both
-at the one seam every exchange passes (``_issue`` / ``_Pending``).
+at the one seam every exchange passes (``_issue`` / ``_Pending``).  On a
+two-axis ``(dcn, data)`` mesh (docs/design.md §20) the tables shard over
+the data axis and replicate across slices, or with ``dcn_sharding``
+shard over the axis product; then the lookup of each slice's distinct
+ids crosses slices in one more exchange pair (``_hier_lookup_many``),
+whose owner-side gathers and combines run on the lookup kernel.
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -71,7 +76,8 @@ from distributed_embeddings_tpu_torch.parallel import overlap
 from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.planner import (
-    GroupSpec, LookupPlan, ShardingPlan, TableConfig, fuse_layout)
+    GroupSpec, LookupPlan, ShardingPlan, TableConfig, fuse_layout,
+    hierarchical_layout, price_exchange)
 from distributed_embeddings_tpu_torch.utils.initializers import (
     get_initializer)
 
@@ -191,7 +197,24 @@ class DistributedEmbedding:
       buffer is encoded in ``_issue`` and decoded in ``_Pending.wait``;
       the collective count does not change, and a world of one ships
       nothing.
-    cold_tier / cold_fetch_rows / dcn_sharding: not ported; raise.
+    dcn_sharding: on a two-axis mesh (``mesh.create_mesh(shape=(S,
+      D))``), shard the tables over the axis PRODUCT instead of
+      replicating them across slices (docs/design.md §20): the shard of
+      cell ``(slice, rank)`` holds each member's ``slice``-th contiguous
+      sub-window (``planner.hierarchical_layout``), and the dp->mp
+      exchange becomes the intra-slice leg plus a DCN leg in which each
+      distinct row crosses slices at most once per source slice
+      (``dcn/ids`` out, ``dcn/rows`` back).  Bit-exact against the
+      two-axis flat layer.  Requires ``dp_input=True`` and no
+      ``row_slice``; weights arrive through ``hierarchical_params`` of
+      a flat twin (the checkpoint functions refuse the layout).
+    cold_tier / cold_fetch_rows: not ported; raise.
+
+  On a two-axis mesh without ``dcn_sharding`` the tables shard over the
+  data axis and replicate across slices; the batch splits over the
+  product (rank ``slice * D + rank`` holds that block), each slice runs
+  the exchange inside itself, and the sparse apply gathers the slices'
+  compacted update streams (``parallel/sparse.py``).
   """
 
   def __init__(self,
@@ -269,12 +292,6 @@ class DistributedEmbedding:
           'payload + po2 scale across the exchange, so an unquantized '
           'table has no payload to pass through (docs/design.md §24). '
           "Use wire_dtype='bfloat16' for f32/bf16 tables.")
-    if dcn_sharding:
-      raise not_ported('dcn_sharding', 10)
-    if cold_tier:
-      raise not_ported('cold_tier', 12)
-    if cold_fetch_rows is not None:
-      raise not_ported('cold_fetch_rows', 12)
     if param_dtype not in _PARAM_DTYPES:
       raise ValueError(f'param_dtype must be one of {_PARAM_DTYPES}, got '
                        f'{param_dtype}')
@@ -285,8 +302,45 @@ class DistributedEmbedding:
                        f'{mesh.device}')
     self.mesh = mesh
     self.device = mesh.device
+    # the data axis: the tables shard over it (world_size ranks, this
+    # one at ``rank``); a two-axis mesh adds the slice axis, over which
+    # the tables replicate (or, with dcn_sharding, shard too) and the
+    # batch splits (docs/design.md §20)
     self.world_size = mesh.world_size
     self.rank = mesh.rank
+    # (a mesh-like object without the slice axis reads as flat)
+    self.dcn_axis = (mesh_lib.DCN_AXIS if getattr(mesh, 'shape', None)
+                     else None)
+    self.num_slices = getattr(mesh, 'num_slices', 1)
+    self.slice_index = getattr(mesh, 'slice_index', 0)
+    if cold_tier and self.dcn_axis is not None:
+      raise ValueError(
+          'cold_tier on a two-axis (ICI x DCN) mesh is not '
+          'supported: the host tier is per-device state and the '
+          'cross-slice update-stream gather has no tier writeback '
+          'channel yet. Use a flat mesh with the cold tier.')
+    if cold_tier:
+      raise not_ported('cold_tier', 12)
+    if cold_fetch_rows is not None:
+      raise not_ported('cold_fetch_rows', 12)
+    # ---- hierarchical (dcn x ici) placement refusal matrix (§20) ----
+    if dcn_sharding:
+      if self.dcn_axis is None:
+        raise ValueError(
+            'dcn_sharding=True needs a two-axis (dcn, data) mesh '
+            '(create_mesh((slices, chips))): with one axis there is no '
+            'DCN boundary to shard across')
+      if not dp_input:
+        raise ValueError(
+            'dcn_sharding requires dp_input=True: the two-level '
+            'exchange deduplicates the dp->mp id stream at the '
+            'slice-local representative, which the model-parallel '
+            'input path does not have (docs/design.md §20)')
+      if row_slice is not None:
+        raise ValueError(
+            'dcn_sharding is incompatible with row_slice: the DCN '
+            'axis itself row-shards every table S-fold; combine it '
+            'with column slicing (column_slice_threshold) instead')
     self.lookup_impl = lookup_impl
     self.dp_input = bool(dp_input)
     self.param_dtype = param_dtype
@@ -324,11 +378,23 @@ class DistributedEmbedding:
     self.overlap_chunks = self.plan.overlap_chunks
     self.fused_exchange = bool(fused_exchange)
     self._hot_meta_cache = None
-    # the JAX layer's flat-layout attributes, which the exchange
-    # counters read (no dcn axis, item 10)
-    self.num_slices = 1
-    self.dcn_axis = None
+    # hierarchical placement, derived FROM the flat plan (per-member
+    # S-way contiguous sub-windows), so the two-level path stays
+    # bit-exact against the flat one (docs/design.md §20)
+    self.dcn_sharding = bool(dcn_sharding)
+    self.hier = (hierarchical_layout(self.plan, self.num_slices)
+                 if self.dcn_sharding else None)
+    self._hier_cuts: Dict[int, tuple] = {}
     self.wire_dtype = wire_dtype
+    if self.num_slices > 1:
+      # price this plan's exchange under the per-axis cost model and
+      # journal the assumption (one id per sample: the hotness is not
+      # known until inputs arrive)
+      price_exchange(self.plan, 8 * self.num_slices * self.world_size,
+                     [1] * len(self.plan.input_table_map),
+                     num_slices=self.num_slices,
+                     hierarchical=self.dcn_sharding,
+                     wire_dtype=self.wire_dtype)
     # forward closures and their LookupPlans, keyed by
     # (local batch, hotness); a plan's legs are those of its last call
     self._fn_cache: Dict[Any, Any] = {}
@@ -350,38 +416,44 @@ class DistributedEmbedding:
     blocks of whole rows (``INIT_BLOCK_ELEMENTS``), one after the other
     from that generator, so the peak is the tables plus one block's
     scratch; a quantized plan quantizes each f32 block as it is drawn
-    (the tables never exist at f32)."""
+    (the tables never exist at f32).
+
+    A ``dcn_sharding`` layer's shard of cell ``(slice, rank)`` holds the
+    slice's sub-window of each member (``hier.groups[gi].sub_windows``,
+    ``rows_cap_h`` rows): each member draws in full as the flat layer's
+    would and keeps its sub-window, so the hierarchical init is the
+    flat init resharded (``hierarchical_params``)."""
     params = {}
     q = self.quant
     for gi, g in enumerate(self.plan.groups):
-      buf = torch.empty((g.rows_cap, g.width), dtype=self.table_dtype,
+      members = g.member_tables[self.rank]
+      if self.dcn_sharding:
+        hl = self.hier.groups[gi]
+        rows = hl.rows_cap_h
+        windows = hl.sub_windows[self.slice_index][self.rank]
+      else:
+        rows = g.rows_cap
+        windows = [(0, lt.input_dim) for lt in members]
+      buf = torch.empty((rows, g.width), dtype=self.table_dtype,
                         device=self.device)
-      sbuf = (torch.empty((g.rows_cap, 1), dtype=torch.float32,
+      sbuf = (torch.empty((rows, 1), dtype=torch.float32,
                           device=self.device) if q is not None else None)
       off = 0
-      for lt in g.member_tables[self.rank]:
-        cfg = self.table_configs[lt.table_id]
-        init = get_initializer(cfg.initializer)
-        kwargs = {}
-        if getattr(init, 'row_scale_sensitive', False):
-          # the FULL table's scale, for a row shard and for a block alike
-          kwargs['rows'] = cfg.input_dim
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_fold_seed(seed, lt.table_id, lt.col_start,
-                                   lt.row_start))
-        block = max(1, INIT_BLOCK_ELEMENTS // lt.width)
-        for r0 in range(0, lt.input_dim, block):
-          r1 = min(lt.input_dim, r0 + block)
-          vals = init((r1 - r0, lt.width), dtype=self.param_dtype,
-                      device=self.device, generator=gen, **kwargs)
+      for lt, (start, size) in zip(members, windows):
+        for r0, r1, vals in self._draw_member(lt, seed):
+          # the drawn block's rows inside the kept window
+          lo, hi = max(r0, start), min(r1, start + size)
+          if lo >= hi:
+            continue
+          vals = vals[lo - r0:hi - r0]
+          dst = slice(off + lo - start, off + hi - start)
           if q is None:
-            buf[off + r0:off + r1] = vals
+            buf[dst] = vals
             continue
           payload, scale = quantization.quantize(vals, q)
-          quantization.bits(buf)[off + r0:off + r1] = quantization.bits(
-              payload)
-          sbuf[off + r0:off + r1] = scale
-        off += lt.input_dim
+          quantization.bits(buf)[dst] = quantization.bits(payload)
+          sbuf[dst] = scale
+        off += size
       quantization.bits(buf)[off:].zero_()
       params[f'group_{gi}'] = buf
       if q is not None:
@@ -390,6 +462,25 @@ class DistributedEmbedding:
     if self.hot_enabled:
       params.update(self._init_hot(params))
     return params
+
+  def _draw_member(self, lt, seed: int):
+    """One member table slice's draw, ``(r0, r1, values)`` block by block
+    of whole rows (``INIT_BLOCK_ELEMENTS``), one after the other from
+    its generator (seeded by ``(seed, table, col_start, row_start)``)."""
+    cfg = self.table_configs[lt.table_id]
+    init = get_initializer(cfg.initializer)
+    kwargs = {}
+    if getattr(init, 'row_scale_sensitive', False):
+      # the FULL table's scale, for a row shard and for a block alike
+      kwargs['rows'] = cfg.input_dim
+    gen = torch.Generator(device=self.device)
+    gen.manual_seed(_fold_seed(seed, lt.table_id, lt.col_start,
+                               lt.row_start))
+    block = max(1, INIT_BLOCK_ELEMENTS // lt.width)
+    for r0 in range(0, lt.input_dim, block):
+      r1 = min(lt.input_dim, r0 + block)
+      yield r0, r1, init((r1 - r0, lt.width), dtype=self.param_dtype,
+                         device=self.device, generator=gen, **kwargs)
 
   def _scale(self, params, gi: int, hot: bool = False):
     """Group ``gi``'s per-row scales (of its hot buffer with ``hot``);
@@ -407,26 +498,38 @@ class DistributedEmbedding:
     layer draws.  On a quantized plan the owned rows dequantize to f32
     first (exact), the all-reduce adds one non-zero term an element
     (exact in any order), and every rank requantizes the union the same
-    way (``hot_group_{gi}`` + ``hot_scale_group_{gi}``)."""
+    way (``hot_group_{gi}`` + ``hot_scale_group_{gi}``).
+
+    On a two-axis mesh each slice holds a replica of the rows, so the
+    sum runs over the data axis; under ``dcn_sharding`` a hot row lives
+    on one ``(slice, rank)`` cell (``HierGroupLayout.map_rows``) and the
+    sum runs over the axis product."""
     out = {}
     q = self.quant
+    group = self.mesh.product_group if self.dcn_sharding else self.mesh.group
+    n = self.mesh.product_size if self.dcn_sharding else self.world_size
+    as_idx = lambda a: torch.as_tensor(a, dtype=torch.long,
+                                       device=self.device)
     for gi in self.plan.hot_groups:
       g = self.plan.groups[gi]
       buf = torch.zeros((g.hot_rows_cap, g.width),
                         dtype=torch.float32 if q else self.param_dtype,
                         device=self.device)
-      rows = g.hot_owner_rows[self.rank]
+      rows = np.asarray(g.hot_owner_rows[self.rank])
+      dst = np.asarray(g.hot_owner_dst[self.rank])
+      if self.dcn_sharding and rows.size:
+        owner, hrow = self.hier.groups[gi].map_rows(self.rank, rows)
+        mine = owner == self.slice_index
+        rows, dst = hrow[mine], dst[mine]
       if rows.size:
-        as_idx = lambda a: torch.as_tensor(a, dtype=torch.long,
-                                           device=self.device)
         src = as_idx(rows)
         vals = quantization.bits(params[f'group_{gi}'])[src]
         if q is not None:
           vals = quantization.dequantize(
               vals.view(q.torch_dtype), params[f'scale_group_{gi}'][src])
-        buf[as_idx(g.hot_owner_dst[self.rank])] = vals
-      if self.world_size > 1:
-        torch_dist.all_reduce(buf, group=self.mesh.group)
+        buf[as_idx(dst)] = vals
+      if n > 1:
+        torch_dist.all_reduce(buf, group=group)
       if q is None:
         out[f'hot_group_{gi}'] = buf
       else:
@@ -519,16 +622,21 @@ class DistributedEmbedding:
     if self.dp_input:
       self._check_combiner_hotness(hot)
       return [as_ids(x) for x in inputs], batch, tuple(hot)
-    if batch % self.world_size:
+    workers = self.world_size * self.num_slices
+    if batch % workers:
       raise ValueError(f'Global batchsize {batch} not divisible workers '
-                       f'count {self.world_size}.')
+                       f'count {workers}.')
     hot_by_input = {}
     for i, h in zip(flat_ids, hot):
       hot_by_input.setdefault(i, h)
     hotness = tuple(hot_by_input.get(i, 1) for i in range(self.num_inputs))
     self._check_combiner_hotness(hotness)
     mine = self._worker_positions()[self.rank]
-    return {k: as_ids(inputs[k]) for k in mine.values()}, batch, hotness
+    # a two-axis mesh: this slice serves its block of the global batch
+    sb = batch // self.num_slices
+    block = slice(self.slice_index * sb, (self.slice_index + 1) * sb)
+    return ({k: as_ids(inputs[k][block]) for k in mine.values()}, batch,
+            hotness)
 
   def _densify(self, inputs) -> list:
     """Each ``RaggedBatch`` of a dp-input list as its padded dense ids,
@@ -570,10 +678,11 @@ class DistributedEmbedding:
         lengths = b.row_lengths()
         longest.append(int(lengths.max()) if lengths.numel() else 1)
     nnz = [b.nnz_cap for b in batches]
-    if self.world_size > 1:
+    if self.mesh.product_size > 1:
       mine = torch.tensor([longest, nnz], dtype=torch.int64,
                           device=self.device)
-      every = _all_gather(mine[None], self.mesh.group, self.world_size)
+      every = _all_gather(mine[None], self.mesh.product_group,
+                          self.mesh.product_size)
       longest = every[:, 0].max(0).values.tolist()
       nnz = every[:, 1].sum(0).tolist()
     caps = []
@@ -774,15 +883,20 @@ class DistributedEmbedding:
             lambda x: quantization.wire_decode_rows(x, self.quant,
                                                     w).to(orig))
 
-  def _exchange(self, bufs, name, plan=None):
+  def _exchange(self, bufs, name, plan=None, axis=None):
     """The EXCHANGE stage: ship canonical ``[D, ...]`` buffers between
     the ranks (slot ``d`` of the leading axis goes to rank ``d``) and
     return what arrived; ``_issue(...).wait()``."""
-    return self._issue(bufs, name, plan).wait()
+    return self._issue(bufs, name, plan, axis).wait()
 
-  def _issue(self, bufs, name, plan=None) -> '_Pending':
+  def _issue(self, bufs, name, plan=None, axis=None) -> '_Pending':
     """Issue one exchange phase; ``wait()`` on the result completes it
     and returns the buffers.
+
+    ``axis`` is the mesh axis the phase crosses: the data axis (the
+    default, ``[D, ...]`` buffers over this slice's ranks) or
+    ``dcn_axis`` (``[S, ...]`` buffers over the ranks of this data index
+    across slices: the hierarchical DCN legs); the legs record it.
 
     With ``fused_exchange`` and more than one live buffer, the live
     buffers flatten to ``[D, flat]``, concatenate per dtype class in
@@ -809,12 +923,14 @@ class DistributedEmbedding:
     phase keeps the send buffers alive until ``wait``.  A float buffer
     that requires grad takes the synchronous, differentiable
     ``_AllToAll`` instead (the cotangents take the same exchange back)."""
-    D = self.world_size
+    if axis is not None and axis == self.dcn_axis:
+      D, group = self.num_slices, self.mesh.dcn_group
+    else:
+      axis, D, group = mesh_lib.DEFAULT_AXIS, self.world_size, self.mesh.group
     out = list(bufs)
     live = [(i, b) for i, b in enumerate(bufs) if b is not None]
     if not live or D == 1:
       return _Pending(out)
-    group = self.mesh.group
     codec = self._wire_codec(name)
     decode, orig_nbytes, payload_nbytes = {}, {}, None
     if codec is not None:
@@ -829,7 +945,7 @@ class DistributedEmbedding:
     if self.fused_exchange and len(live) > 1:
       legs = fuse_layout(name, [(f'g{i}', tuple(b.shape),
                                  _wire_dtype_name(b.dtype))
-                                for i, b in live], wire=codec,
+                                for i, b in live], axis=axis, wire=codec,
                          payload_nbytes=payload_nbytes)
       by_label = {f'g{i}': (i, b) for i, b in live}
       moves = [([by_label[s.label] for s in leg.segments], leg.segments)
@@ -839,7 +955,8 @@ class DistributedEmbedding:
       for i, b in live:
         legs += fuse_layout(f'{name}/g{i}', [(f'g{i}', tuple(b.shape),
                                               _wire_dtype_name(b.dtype))],
-                            wire=codec, payload_nbytes=orig_nbytes.get(i))
+                            axis=axis, wire=codec,
+                            payload_nbytes=orig_nbytes.get(i))
         moves.append(([(i, b)], None))
     if plan is not None:
       plan.record(legs)
@@ -895,7 +1012,7 @@ class DistributedEmbedding:
         n_slots, overlap.effective_chunks(self.overlap_chunks, n_slots))
 
   def _lookup_stage(self, params, subs, consts, canonicals, local_batch,
-                    lookup=None):
+                    lookup=None, plan=None):
     """Route each subgroup's canonical raw ids ``[n, GB, h]`` into the
     fused table, gather-combine, and stage the outputs for the row
     exchange: ``(staged, residuals, merge_out)``, ``residuals`` the
@@ -905,7 +1022,9 @@ class DistributedEmbedding:
     constants of its ``n`` slots.  The subgroups of one fusion group
     look up through one ``lookup(gi, sis, routed)`` call (default one
     ``fused_group_lookup``: one kernel launch each, one autograd node
-    for the table)."""
+    for the table).  A ``dcn_sharding`` layer looks every live subgroup
+    up through the two-level exchange instead (``_hier_lookup_many``,
+    its DCN legs recorded into ``plan``)."""
     live = [si for si, c in enumerate(canonicals) if c is not None]
     residuals = [None] * len(subs)
     for si in live:
@@ -914,9 +1033,14 @@ class DistributedEmbedding:
           canonicals[si], offs, vocab, self.plan.groups[subs[si].gi].rows_cap,
           lo, hi, st)
     outs = [None] * len(subs)
+    if self.dcn_sharding and live:
+      got = self._hier_lookup_many(
+          params, [(subs[si], residuals[si]) for si in live], plan=plan)
+      for si, out_c in zip(live, got):
+        outs[si] = out_c
     for gi in range(len(self.plan.groups)):
       sis = [si for si in live if subs[si].gi == gi]
-      if not sis:
+      if not sis or self.dcn_sharding:
         continue
       routed = [residuals[si] for si in sis]
       if lookup is None:
@@ -960,7 +1084,9 @@ class DistributedEmbedding:
     if key in self._fn_cache:
       return self._fn_cache[key]
     D, dev = self.world_size, self.device
-    global_batch = local_batch * D
+    # this slice's batch; every collective but the DCN pair of a
+    # dcn_sharding layer stays inside the slice
+    slice_batch = local_batch * D
     subs = self._subgroups(hotness)
     consts = self._slot_consts(subs)
     bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
@@ -969,7 +1095,7 @@ class DistributedEmbedding:
       # row-sliced plans refuse chunking without the hot cache, so every
       # slot rides the exchange (no reduce-scatter merge slots)
       assert not any(s.merge_inputs or s.mean_row_sliced for s in subs)
-    lplan = LookupPlan(path='dp', global_batch=global_batch,
+    lplan = LookupPlan(path='dp', global_batch=slice_batch * self.num_slices,
                        hotness=tuple(hotness), fused=self.fused_exchange,
                        chunks=n_rounds)
     self._lookup_plans[key] = lplan
@@ -994,7 +1120,7 @@ class DistributedEmbedding:
             lambda d, s, sub=sub: (sub.requests[d][s].input_id
                                    if s < len(sub.requests[d]) else -1),
             _ids))
-      if n_rounds > 1:
+      if n_rounds > 1 and not self.dcn_sharding:
         groups = {
             gi: lookup_ops.ChunkedGroupLookup(
                 params[f'group_{gi}'],
@@ -1018,15 +1144,16 @@ class DistributedEmbedding:
           if r is None:
             continue
           lo, hi = bounds[si][k]
-          # [n, D*B, h]: the global batch in source-major order
-          canonicals[si] = r.transpose(0, 1).reshape(hi - lo, global_batch,
+          # [n, D*B, h]: the slice's batch in source-major order
+          canonicals[si] = r.transpose(0, 1).reshape(hi - lo, slice_batch,
                                                      sub.hotness)
           cuts[si] = tuple(None if c is None else c[lo:hi]
                            for c in consts[si])
-        lookup = None if n_rounds == 1 else (
+        lookup = None if n_rounds == 1 or self.dcn_sharding else (
             lambda gi, sis, routed: groups[gi].lookup(k, sis, routed))
         staged, residuals, merged = self._lookup_stage(
-            params, subs, cuts, canonicals, local_batch, lookup=lookup)
+            params, subs, cuts, canonicals, local_batch, lookup=lookup,
+            plan=lplan)
         merge_out.update(merged)
         for si, r in enumerate(residuals):
           if r is not None:
@@ -1054,7 +1181,9 @@ class DistributedEmbedding:
     if key in self._fn_cache:
       return self._fn_cache[key]
     me, dev = self.rank, self.device
-    local_batch = global_batch // self.world_size
+    # inputs arrive cut to this slice's block of the global batch
+    slice_batch = global_batch // self.num_slices
+    local_batch = slice_batch // self.world_size
     subs = self._subgroups(hotness)
     consts = self._slot_consts(subs)
     pos_of = self._worker_positions()[me]
@@ -1070,7 +1199,7 @@ class DistributedEmbedding:
 
         def _ids(k, h=h):
           if k == -1:
-            return torch.full((global_batch, h), _SENTINEL,
+            return torch.full((slice_batch, h), _SENTINEL,
                               dtype=torch.int32, device=dev)
           x = inputs[k]
           return x[:, None] if x.dim() == 1 else x
@@ -1123,11 +1252,11 @@ class DistributedEmbedding:
         raise not_ported('differentiating a hot_cache layer (the dense '
                          'autodiff trainer on a hot layer)',
                          '7, its remaining parts')
-      global_batch = batch * self.world_size
+      global_batch = batch * self.world_size * self.num_slices
       outs, residuals, routing_out = self._build_dp_forward_hot(
           batch, hotness)(params, inputs)
     elif self.dp_input:
-      global_batch = batch * self.world_size
+      global_batch = batch * self.world_size * self.num_slices
       outs, residuals = self._build_dp_forward(batch, hotness)(params,
                                                                inputs)
     else:
@@ -1183,7 +1312,7 @@ class DistributedEmbedding:
     if len(d_outs) != self.num_inputs:
       raise ValueError(f'Expect {self.num_inputs} cotangents, got '
                        f'{len(d_outs)}.')
-    local_batch = global_batch // self.world_size
+    local_batch = global_batch // (self.world_size * self.num_slices)
     if self.hot_enabled:
       if routing is None:
         if cats is None:
@@ -1208,7 +1337,7 @@ class DistributedEmbedding:
     if key in self._fn_cache:
       return self._fn_cache[key]
     D, me, dev = self.world_size, self.rank, self.device
-    global_batch = local_batch * D
+    slice_batch = local_batch * D
     subs = self._subgroups(hotness)
     # slots each subgroup ships through the cotangent exchange (merge
     # subgroups ship only their unmerged out_sel slots; the rest ride
@@ -1230,7 +1359,7 @@ class DistributedEmbedding:
       recon.append(torch.as_tensor(r, device=dev))
     bounds = [self._chunk_bounds(n) if n else [] for n in slots_of]
     n_rounds = max([len(b) for b in bounds] + [1])
-    lplan = LookupPlan(path='bwd', global_batch=global_batch,
+    lplan = LookupPlan(path='bwd', global_batch=slice_batch * self.num_slices,
                        hotness=tuple(hotness), fused=self.fused_exchange,
                        chunks=n_rounds)
     self._lookup_plans[key] = lplan
@@ -1268,7 +1397,7 @@ class DistributedEmbedding:
         if slots_of[si]:
           # [D, n, B, w] from every source rank -> [n, D*B, w]
           drecv = recvs[si].transpose(0, 1).reshape(slots_of[si],
-                                                    global_batch, w)
+                                                    slice_batch, w)
         if not sub.merge_inputs:
           gsubs.append(drecv)
           continue
@@ -1277,7 +1406,7 @@ class DistributedEmbedding:
         parts = [drecv] if sub.out_n_cap else []
         for inp in sub.merge_inputs:
           parts.append(self._all_gather_batch(d_outs[inp])[None].to(dt))
-        parts.append(torch.zeros((1, global_batch, w), dtype=dt,
+        parts.append(torch.zeros((1, slice_batch, w), dtype=dt,
                                  device=dev))
         gsubs.append(torch.cat(parts)[recon[si]])
       return tuple(gsubs)
@@ -1419,7 +1548,8 @@ class DistributedEmbedding:
     meta = self._hot_meta()
     bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
     n_rounds = max(len(b) for b in bounds)
-    lplan = LookupPlan(path='hot', global_batch=local_batch * D,
+    lplan = LookupPlan(path='hot',
+                       global_batch=local_batch * D * self.num_slices,
                        hotness=tuple(hotness), fused=self.fused_exchange,
                        chunks=n_rounds)
     self._lookup_plans[key] = lplan
@@ -1466,13 +1596,22 @@ class DistributedEmbedding:
         for gi in range(len(plan.groups)):
           sis = [si for si, sub in enumerate(subs)
                  if sub.gi == gi and routed[si] is not None]
-          if not sis:
+          if not sis or self.dcn_sharding:
             continue
           got = lookup_ops.fused_group_lookup(
               params[f'group_{gi}'], [routed[si] for si in sis],
               [None] * len(sis), self.compute_dtype,
               self._scale(params, gi))
           for si, r in zip(sis, got):
+            pre[si] = r.reshape(r.shape[0], D, -1,
+                                subs[si].group.width).transpose(0, 1)
+        if self.dcn_sharding:
+          # the owner's distinct cold rows come through the two-level
+          # exchange (one DCN pair for every subgroup of the round)
+          live = [si for si in range(len(subs)) if routed[si] is not None]
+          got = self._hier_cold_gather_many(
+              params, [(subs[si].gi, routed[si]) for si in live], plan=lplan)
+          for si, r in zip(live, got):
             pre[si] = r.reshape(r.shape[0], D, -1,
                                 subs[si].group.width).transpose(0, 1)
         rows_pending.append(self._issue(pre, 'fwd/cold_rows', plan=lplan))
@@ -1550,7 +1689,8 @@ class DistributedEmbedding:
     meta = self._hot_meta()
     bounds = [self._chunk_bounds(sub.n_cap) for sub in subs]
     n_rounds = max(len(b) for b in bounds)
-    lplan = LookupPlan(path='bwd_hot', global_batch=local_batch * D,
+    lplan = LookupPlan(path='bwd_hot',
+                       global_batch=local_batch * D * self.num_slices,
                        hotness=tuple(hotness), fused=self.fused_exchange,
                        chunks=n_rounds)
     self._lookup_plans[('bwd_hot', local_batch, hotness)] = lplan
@@ -1636,16 +1776,151 @@ class DistributedEmbedding:
                               device=dev)
         hot_grads[gi] = total
         hot_grads.bounds[gi] = self._chunk_bounds(n_rows)
-        if D > 1:
+        if self.mesh.product_size > 1:
           # in row chunks, each issued async: the hot apply waits on
-          # chunk k alone before stepping its rows (HotGrads.chunks)
+          # chunk k alone before stepping its rows (HotGrads.chunks).
+          # The buffers replicate over every rank of the mesh, so the
+          # sum runs over the axis product (JAX's psum over both axes)
           hot_grads.pending[gi] = [
-              _OrderedSum(total[lo:hi], self.mesh.group, D)
+              _OrderedSum(total[lo:hi], self.mesh.product_group,
+                          self.mesh.product_size)
               for lo, hi in hot_grads.bounds[gi]]
       return gsubs, hot_grads
 
     self._fn_cache[key] = bwd
     return bwd
+
+  # --------------- hierarchical (dcn x data) two-level exchange (§20)
+
+  def _hier_cut(self, gi: int):
+    """Group ``gi``'s interval tables for this rank's data index on the
+    device: ``(cut_lo, cut_slice, cut_hier)`` (``HierGroupLayout``)."""
+    if gi not in self._hier_cuts:
+      hl = self.hier.groups[gi]
+      self._hier_cuts[gi] = tuple(
+          torch.as_tensor(np.asarray(a[self.rank]), dtype=torch.int64,
+                          device=self.device)
+          for a in (hl.cut_lo, hl.cut_slice, hl.cut_hier))
+    return self._hier_cuts[gi]
+
+  def _hier_dcn_send(self, gi: int, uniq: torch.Tensor):
+    """Route stage of the DCN fetch: per-slot DEDUPLICATED flat-space
+    ids ``uniq`` (``-1`` padding) to their owner ``(slice, hier row)``
+    through the interval tables, and the cross-slice send buffer ``[S,
+    ...]`` (``rows_cap_h``, past the owner's rows, where a position is
+    not bound for that slice).  Returns ``(send, owner, valid)``."""
+    cut_lo, cut_sl, cut_h = self._hier_cut(gi)
+    valid = uniq >= 0
+    safe = torch.clamp(uniq, min=0).to(torch.int64)
+    k = torch.clamp(torch.searchsorted(cut_lo, safe.reshape(-1),
+                                       right=True) - 1,
+                    0, cut_lo.numel() - 1).reshape(safe.shape)
+    owner = cut_sl[k]
+    hrow = safe - cut_lo[k] + cut_h[k]
+    dest = torch.arange(self.num_slices, device=uniq.device).reshape(
+        (-1,) + (1,) * uniq.dim())
+    send = torch.where(valid[None] & (owner[None] == dest), hrow[None],
+                       self.hier.groups[gi].rows_cap_h).to(torch.int32)
+    return send, owner, valid
+
+  def _hier_fetch_unique_many(self, params, items, plan=None):
+    """Rows of per-slot DEDUPLICATED flat-space ids from their owners
+    across slices (docs/design.md §20), for many subgroups at once: ONE
+    DCN exchange ships every item's ids out (leg ``dcn/ids``), each
+    owner gathers the rows of its hierarchical shard (the lookup kernel
+    at hotness 1, dequantizing on a quantized table, zero rows at the
+    sentinel), and ONE exchange ships them back (leg ``dcn/rows``, where
+    the wire codec applies), where each id takes its owner's row: an
+    exact selection.
+
+    ``items``: ``(gi, uniq)`` with ``uniq`` ``[n_cap, U]`` flat
+    fused-local row ids of this rank's column, ``-1`` padding.  Returns
+    per item ``[n_cap, U, w]`` rows (zeros at padding), at the table
+    dtype (f32 when quantized).  Each distinct id crosses DCN at most
+    once per source slice."""
+    pre = [self._hier_dcn_send(gi, uniq) for gi, uniq in items]
+    recvs = self._exchange([p[0] for p in pre], 'dcn/ids', plan=plan,
+                           axis=self.dcn_axis)
+    rows = []
+    for (gi, _), recv in zip(items, recvs):
+      table = params[f'group_{gi}']
+      scale = self._scale(params, gi)
+      got = lookup_ops.dense_lookup(
+          table, recv.reshape(-1, 1), None,
+          torch.float32 if scale is not None else table.dtype, scale)
+      rows.append(got.reshape(*recv.shape, table.shape[1]))
+    backs = self._exchange(rows, 'dcn/rows', plan=plan, axis=self.dcn_axis)
+    out = []
+    for back, (_, owner, valid) in zip(backs, pre):
+      sel = owner[None, ..., None].expand((1,) + tuple(owner.shape)
+                                          + (back.shape[-1],))
+      rows_u = torch.gather(back, 0, sel)[0]
+      out.append(torch.where(valid[..., None], rows_u,
+                             torch.zeros((), dtype=rows_u.dtype,
+                                         device=rows_u.device)))
+    return out
+
+  def _hier_combine(self, rows_u: torch.Tensor, inv: torch.Tensor,
+                    valid: torch.Tensor, combiner, out_dtype):
+    """The combine over fetched distinct rows ``rows_u`` ``[n_cap, U,
+    w]``: the lookup kernel over them as one ``[n_cap * U, w]`` table,
+    each occurrence's id its slot's offset plus its inverse position
+    ``inv`` ``[n_cap, M, h]`` (``-1`` where not ``valid``).  The addends
+    and their order are the flat lookup's, so the result is bit for bit
+    the flat layer's.  Returns ``[n_cap, M, w]`` at ``out_dtype``."""
+    n_cap, u, w = rows_u.shape
+    _, m, h = inv.shape
+    base = (torch.arange(n_cap, device=inv.device, dtype=torch.int64)
+            * u).reshape(n_cap, 1, 1)
+    ids = torch.where(valid, inv.to(torch.int64) + base, -1)
+    out = lookup_ops.dense_lookup(rows_u.reshape(n_cap * u, w),
+                                  ids.reshape(n_cap * m, h), combiner,
+                                  out_dtype)
+    return out.reshape(n_cap, m, w)
+
+  def _hier_lookup_many(self, params, pairs, plan=None):
+    """Two-level lookup+combine of many subgroups' routed ids
+    (``pairs``: ``(sub, routed)``, ``routed`` ``[n_cap, GB, h]`` flat
+    fused-space ids, sentinel ``rows_cap``): a per-slot sort-unique over
+    the slice's batch, the DCN fetch of every subgroup's distinct rows
+    (``_hier_fetch_unique_many``), then the combine over them
+    (``_hier_combine``), bit-exact against the flat lookup."""
+    pre = []
+    for sub, routed in pairs:
+      rows_cap = self.plan.groups[sub.gi].rows_cap
+      n_cap, gb, h = routed.shape
+      valid = routed < rows_cap
+      vr = torch.where(valid, routed, -1).reshape(n_cap, gb * h)
+      uniq, inv = routing.unique_with_inverse(vr.to(torch.int32), gb * h)
+      pre.append((sub, valid, uniq, inv.reshape(n_cap, gb, h)))
+    fetched = self._hier_fetch_unique_many(
+        params, [(sub.gi, uniq) for sub, _, uniq, _ in pre], plan=plan)
+    return [self._hier_combine(rows_u, inv, valid, sub.lookup_combiner,
+                               self.compute_dtype)
+            for (sub, valid, _, inv), rows_u in zip(pre, fetched)]
+
+  def _hier_cold_gather_many(self, params, items, plan=None):
+    """The hot-cache forward's owner-side cold-row gather through the
+    two-level exchange: ``items`` are ``(gi, routed)``, ``routed``
+    ``[n_cap, M, 1]`` this slice's cold-id union for this rank's column
+    (already deduplicated per source rank); each slot sort-uniques it
+    once more, so each distinct row crosses DCN at most once per slice,
+    and the fetched rows scatter back by inverse position (the lookup
+    kernel with combiner None).  Returns per item what the flat gather
+    returns: ``[n_cap, M, w]`` at ``compute_dtype``."""
+    pre = []
+    for gi, routed in items:
+      r = routed[..., 0]
+      n_cap, m = r.shape
+      valid = r < self.plan.groups[gi].rows_cap
+      uniq, inv = routing.unique_with_inverse(
+          torch.where(valid, r, -1).to(torch.int32), m)
+      pre.append((gi, valid, uniq, inv))
+    fetched = self._hier_fetch_unique_many(
+        params, [(gi, uniq) for gi, _, uniq, _ in pre], plan=plan)
+    return [self._hier_combine(rows_u, inv[..., None], valid[..., None],
+                               None, self.compute_dtype)
+            for (_, valid, _, inv), rows_u in zip(pre, fetched)]
 
   def _all_gather_batch(self, x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``[B, ...]`` block concatenated in rank order:
@@ -1653,6 +1928,55 @@ class DistributedEmbedding:
     if self.world_size == 1:
       return x
     return _all_gather(x, self.mesh.group, self.world_size)
+
+
+def hierarchical_params(dist: DistributedEmbedding,
+                        flat_params: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+  """This rank's params of a ``dcn_sharding=True`` layer from a FLAT
+  twin's (the same tables and options without ``dcn_sharding``, on the
+  same two-axis mesh): pure row relocation through the
+  ``HierGroupLayout`` interval map, exact, no collective.  The cell
+  ``(slice, rank)`` keeps, of its flat shard, each member's
+  sub-window of its slice (``flat_ranges``), in order; padding rows past
+  them are filler (payload 0, scale 1), never read and not comparable
+  across layouts.  Hot-cache leaves, the same replicated values in both
+  layouts, pass through.  This is how weights reach a hierarchical
+  layer: ``checkpoint.set_weights`` of the flat twin, then this
+  (docs/design.md §20)."""
+  if not getattr(dist, 'dcn_sharding', False):
+    raise ValueError(
+        'hierarchical_params needs a dcn_sharding=True DistributedEmbedding')
+  s, d = dist.slice_index, dist.rank
+  out = {}
+  for gi, g in enumerate(dist.plan.groups):
+    hl = dist.hier.groups[gi]
+    leaves = [(f'group_{gi}', 0)]
+    if dist.quant is not None:
+      leaves.append((f'scale_group_{gi}', 1.0))
+    for name, fill in leaves:
+      flat = flat_params[name]
+      if flat.shape[0] != g.rows_cap:
+        raise ValueError(
+            f'{name}: the flat leaf has {flat.shape[0]} rows, the plan\'s '
+            f'shard {g.rows_cap}: plan geometry differs')
+      shard = torch.empty((hl.rows_cap_h,) + tuple(flat.shape[1:]),
+                          dtype=flat.dtype, device=flat.device)
+      bits = quantization.bits(shard)
+      if fill == 0:
+        bits.fill_(0)
+      else:
+        shard.fill_(fill)
+      n = 0
+      for lo, size in hl.flat_ranges[s][d]:
+        bits[n:n + size] = quantization.bits(flat)[lo:lo + size]
+        n += size
+      assert n == hl.rows_h[s][d], (name, s, d, n, hl.rows_h[s][d])
+      out[name] = shard
+  for name, leaf in flat_params.items():
+    if name.startswith('hot_'):
+      out[name] = leaf
+  return out
 
 
 def _pipeline(n_rounds: int, issue, process):

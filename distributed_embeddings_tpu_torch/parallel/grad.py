@@ -115,16 +115,31 @@ class DistributedGradientTape:
   A quantized layer's tables (``table_dtype``) are refused: dense
   autodiff cannot differentiate through integer payloads.
 
+  On a two-axis mesh (``dist`` given), the batch splits over both axes:
+  the dense gradients average over every rank, and a layer whose tables
+  replicate across slices (no ``dcn_sharding``) sums each table
+  gradient over the ``dcn`` group first, in rank order
+  (``_OrderedSum``): the sum JAX's autodiff derives from the
+  replication.  A ``dcn_sharding`` layer's table gradients already
+  carry every slice's cotangents (its DCN exchange is differentiable).
+
   Args:
     loss_fn: the local-mean loss.
-    group: the process group the tables shard over (the model's
-      ``dist_embedding.mesh.group``); default: the world, or a world of
-      one without ``torch.distributed``.
+    group: the process group the batch splits over; default: the
+      world, or a world of one without ``torch.distributed``.
+    dist: the model's ``DistributedEmbedding``; when given, the group is
+      its mesh's product and the cross-slice sum above applies.
   """
 
   def __init__(self, loss_fn: Callable,
-               group: Optional[torch_dist.ProcessGroup] = None):
+               group: Optional[torch_dist.ProcessGroup] = None,
+               dist=None):
     self._loss_fn = loss_fn
+    self.dcn_group, self.num_slices = None, 1
+    if dist is not None:
+      group = dist.mesh.product_group if group is None else group
+      if dist.num_slices > 1 and not dist.dcn_sharding:
+        self.dcn_group, self.num_slices = dist.mesh.dcn_group, dist.num_slices
     self.group = _default_group(group)
 
   def value_and_gradient(self, params, *args, **kwargs):
@@ -155,6 +170,12 @@ class DistributedGradientTape:
     loss = loss.detach()
     dense = {k: g for k, g in grads.items() if k != 'embedding'}
     allreduce_mean_(optim.tree_leaves(dense) + [loss], self.group)
+    if self.dcn_group is not None:
+      # function-level import, as for QUANTIZED_AUTODIFF above
+      from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+          _OrderedSum)
+      for g in optim.tree_leaves(grads.get('embedding', {})):
+        _OrderedSum(g, self.dcn_group, self.num_slices).wait()
     if world > 1:
       for g in optim.tree_leaves(grads.get('embedding', {})):
         g.div_(world)
@@ -165,8 +186,8 @@ class DistributedGradientTape:
 
 
 def make_train_step(loss_fn: Callable, optimizer,
-                    group: Optional[torch_dist.ProcessGroup] = None
-                    ) -> Callable:
+                    group: Optional[torch_dist.ProcessGroup] = None,
+                    dist=None) -> Callable:
   """Build the dense autodiff train step (JAX ``make_train_step``).
 
   Args:
@@ -176,7 +197,8 @@ def make_train_step(loss_fn: Callable, optimizer,
       package's global mean (``DistributedGradientTape``).
     optimizer: a port ``GradientTransformation`` (``optim.sgd``,
       ``optim.adagrad``), applied to every param, tables included.
-    group: as in ``DistributedGradientTape``.
+    group / dist: as in ``DistributedGradientTape`` (pass ``dist`` on a
+      two-axis mesh).
 
   Returns:
     ``step(state: TrainState, batch) -> (TrainState, loss)``, ``loss``
@@ -184,7 +206,7 @@ def make_train_step(loss_fn: Callable, optimizer,
     (under ``torch.no_grad()``), as the JAX step's donated buffers are
     reused: the returned state holds the same tensors.
   """
-  tape = DistributedGradientTape(loss_fn, group)
+  tape = DistributedGradientTape(loss_fn, group, dist)
 
   def step(state: TrainState, batch):
     loss, grads = tape.value_and_gradient(state.params, batch)

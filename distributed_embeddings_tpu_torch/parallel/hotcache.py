@@ -296,7 +296,14 @@ def measure_exchange_counters(dist, cats,
     global counts and reconciled with them (a mismatch raises);
   - ``fused_leg_bytes`` and the wire counters of the legs the layer's
     forwards recorded (empty before any multi-rank forward);
-  - the DCN counters (zero traffic on the port's flat layouts).
+  - the DCN counters of a ``dcn_sharding`` layer (docs/design.md §20):
+    ``dcn_rows`` (distinct off-slice-owned rows crossing slices after
+    the slice-wide dedup: each at most once per source slice and slot),
+    ``dcn_rows_off`` (every arriving off-slice occurrence, the wire
+    without that dedup), ``dcn_dedup_ratio`` (their quotient), and the
+    per-source-slice lists, computed on an independent path and
+    reconciled; the owner map is ``HierGroupLayout.map_rows``, the
+    runtime's.  Other layers report an idle DCN lane (0, 0, 1.0).
 
   ``hot_sets`` defaults to the plan's own; pass ``{}`` for the counters
   of a cache-less layer.
@@ -420,6 +427,58 @@ def measure_exchange_counters(dist, cats,
     sent_off_per_src[src] += m * n_valid
     sent_on_per_src[src] += m * blk_uniq_cold[(inp, src)]
 
+  # the hierarchical DCN leg (docs/design.md §20): what crosses slices,
+  # with and without the slice-wide dedup.  The global counts unique the
+  # slice's concatenated arriving stream; the per-slice lists rebuild
+  # the same quantities block by block with set unions: two paths over
+  # one wire, reconciled below
+  hier = (getattr(dist, 'hier', None)
+          if getattr(dist, 'dcn_sharding', False) else None)
+  dcn_on = 0
+  dcn_off = 0
+  dcn_on_per_slice = np.zeros((max(num_slices, 1),), np.int64)
+  dcn_off_per_slice = np.zeros((max(num_slices, 1),), np.int64)
+  if hier is not None and num_slices > 1:
+    # (input, src) -> the stream that source block delivers inside its
+    # slice: per-source sort-uniqued cold ids on the cache path, raw
+    # valid occurrences otherwise
+    arriving: Dict[tuple, np.ndarray] = {}
+
+    def _arriving(inp: int, src: int) -> np.ndarray:
+      if (inp, src) not in arriving:
+        tid = plan.input_table_map[inp]
+        x2 = cats[inp].reshape(batch, -1)
+        blk = x2[src * local_batch:(src + 1) * local_batch].reshape(-1)
+        v = _clip_valid(blk, plan.table_configs[tid].input_dim)
+        if tid in hot_ids:
+          v = np.unique(v[~np.isin(v, hot_ids[tid])])
+        arriving[(inp, src)] = v
+      return arriving[(inp, src)]
+
+    for sub in subs:
+      hl = hier.groups[sub.gi]
+      for dev in range(D):
+        for r in sub.requests[dev]:
+          for s0 in range(num_slices):
+            # global path: the slice's arriving blocks concatenated,
+            # routed once, uniqued once
+            rows = _route(r, np.concatenate(
+                [_arriving(r.input_id, s0 * D + j) for j in range(D)]))
+            owner, _ = hl.map_rows(dev, rows)
+            off_slice = rows[owner != s0]
+            dcn_off += int(off_slice.size)
+            dcn_on += int(np.unique(off_slice).size)
+            # per-slice path: each block routed alone, deduplicated
+            # through a set union
+            uniq_set: set = set()
+            for j in range(D):
+              rows_j = _route(r, _arriving(r.input_id, s0 * D + j))
+              owner_j, _ = hl.map_rows(dev, rows_j)
+              off_j = rows_j[owner_j != s0]
+              dcn_off_per_slice[s0] += int(off_j.size)
+              uniq_set.update(int(x) for x in off_j)
+            dcn_on_per_slice[s0] += len(uniq_set)
+
   recon = (
       ('alltoall_rows_sent', int(sent_on_per_src.sum()), int(sent_on)),
       ('alltoall_rows_sent_off', int(sent_off_per_src.sum()),
@@ -427,6 +486,8 @@ def measure_exchange_counters(dist, cats,
       ('total_id_occurrences', int(valid_per_src.sum()),
        int(total_valid)),
       ('hot_occurrences', int(hot_per_src.sum()), int(total_hot)),
+      ('dcn_rows', int(dcn_on_per_slice.sum()), int(dcn_on)),
+      ('dcn_rows_off', int(dcn_off_per_slice.sum()), int(dcn_off)),
   )
   bad = [(k, s, g) for k, s, g in recon if s != g]
   if bad:
@@ -439,9 +500,10 @@ def measure_exchange_counters(dist, cats,
                         float(sent_on_per_src.max()) if S else 0.0)
   obs_metrics.set_gauge('exchange.rows_mean',
                         float(sent_on_per_src.mean()) if S else 0.0)
-  obs_metrics.set_gauge('exchange.dcn_rows', 0.0)
+  dedup_ratio = round(dcn_off / dcn_on, 4) if dcn_on else 1.0
+  obs_metrics.set_gauge('exchange.dcn_rows', float(dcn_on))
   obs_metrics.set_gauge('exchange.ici_rows', float(sent_on))
-  obs_metrics.set_gauge('exchange.dcn_dedup_ratio', 1.0)
+  obs_metrics.set_gauge('exchange.dcn_dedup_ratio', float(dedup_ratio))
 
   # the fused legs the layer's forwards recorded, by on-wire bytes
   fused_leg_bytes = {}
@@ -494,12 +556,12 @@ def measure_exchange_counters(dist, cats,
                             if S else 0.0,
       'hottest_shard': (f'g{hottest[0][0]}@dev{hottest[0][1]}'
                         if hottest[0] is not None else None),
-      'dcn_rows': 0,
-      'dcn_rows_off': 0,
+      'dcn_rows': int(dcn_on),
+      'dcn_rows_off': int(dcn_off),
       'ici_rows': int(sent_on),
-      'dcn_dedup_ratio': 1.0,
-      'dcn_rows_per_slice': [0] * max(num_slices, 1),
-      'dcn_rows_off_per_slice': [0] * max(num_slices, 1),
+      'dcn_dedup_ratio': dedup_ratio,
+      'dcn_rows_per_slice': [int(x) for x in dcn_on_per_slice],
+      'dcn_rows_off_per_slice': [int(x) for x in dcn_off_per_slice],
   }
 
 

@@ -98,28 +98,38 @@ def build_exchange_program(dist, cats, chunks: Optional[int] = None,
   The row legs ship at the layer's wire format (``wire_dtype``,
   docs/design.md §24; ``_wire_rows``), so the measured bytes are the
   runtime's: ``'q8'`` legs as uint8 rows of ``wire_bytes_per_row``
-  bytes, ``'bf16'`` legs at bf16, the rest at f32.  The hierarchical
-  DCN leg (``dcn_sharding``) is not ported and raises; ``dcn_leg``
-  selects that leg only on such layers."""
+  bytes, ``'bf16'`` legs at bf16, the rest at f32.
+
+  A ``dcn_sharding`` layer adds the hierarchical DCN leg per chunk
+  (docs/design.md §20): after the intra-slice pair, a cross-slice
+  ``all_to_all`` over the ``dcn`` group ships the slice's id stream out
+  and its rows back at the ``'dcn/rows'`` wire format, the collective
+  shapes of ``_hier_fetch_unique_many``; with ``rows_only`` the
+  gradient rows cross to the owners (the apply's exchange shape).
+  ``dcn_leg=False`` builds the intra-slice-only twin on the same
+  layer."""
   # function-level import: dist_embedding imports this module
   from distributed_embeddings_tpu_torch.parallel import quantization
   from distributed_embeddings_tpu_torch.parallel import routing
   from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-      _SENTINEL, _all_to_all, not_ported)
+      _SENTINEL, _all_to_all)
 
-  if getattr(dist, 'dcn_sharding', False) and dcn_leg:
-    raise not_ported('the exchange program\'s DCN leg', 10)
   if not dist.dp_input:
     raise ValueError('build_exchange_program needs a dp_input layer '
                      '(the measured exchange is the dp<->mp pair)')
   inputs, local_batch, hotness = dist._prepare_inputs(cats)
   D, dev, group = dist.world_size, dist.device, dist.mesh.group
-  global_batch = local_batch * D
+  slice_batch = local_batch * D
   subs = dist._subgroups(hotness)
   req = dist.overlap_chunks if chunks is None else int(chunks)
+  S = dist.num_slices
+  hier_dcn = bool(getattr(dist, 'dcn_sharding', False)) and S > 1 and dcn_leg
 
   def a2a(x):
     return _all_to_all(x, group) if D > 1 else x
+
+  def a2a_dcn(x):
+    return _all_to_all(x, dist.mesh.dcn_group)
 
   def _wire_rows(vals, phase, w):
     # a synthetic row leg at the phase's wire dtype and width
@@ -153,11 +163,22 @@ def build_exchange_program(dist, cats, chunks: Optional[int] = None,
       for lo, hi in chunk_bounds(sub.n_cap, req):
         part = send[:, lo:hi]
         if rows_only:
-          rows = _wire_rows(part[:, :, :, 0], 'bwd/cotangent', w)
-          total = total + total_of(a2a(rows))
+          rows = a2a(_wire_rows(part[:, :, :, 0], 'bwd/cotangent', w))
+          if hier_dcn:
+            # the gradient rows cross to their owners (the apply's
+            # exchange shape)
+            hrows = rows[None, 0].expand((S,) + tuple(rows.shape[1:]))
+            total = total + total_of(a2a_dcn(hrows))
+          total = total + total_of(rows)
           continue
         recv = a2a(part)
-        ids = recv.transpose(0, 1).reshape(hi - lo, global_batch, h)
+        ids = recv.transpose(0, 1).reshape(hi - lo, slice_batch, h)
+        if hier_dcn:
+          # the DCN pair: the slice's ids out, rows back at the
+          # 'dcn/rows' wire format
+          hsend = ids[None, :, :, 0].expand(S, hi - lo, slice_batch)
+          hrows = _wire_rows(a2a_dcn(hsend), 'dcn/rows', w)
+          total = total + total_of(a2a_dcn(hrows))
         # the return leg: the received ids broadcast to the row width,
         # real data-dependent bytes
         rows = _wire_rows(ids[:, :, 0], 'fwd/rows', w)
@@ -186,8 +207,8 @@ def measure_exchange_ms(dist, cats, chunks: Optional[int] = None,
   fn, inputs = build_exchange_program(dist, cats, chunks=chunks)
   fn(*inputs)
   _sync(dist.device)
-  if dist.world_size > 1:
-    torch_dist.barrier(group=dist.mesh.group)
+  if dist.mesh.product_size > 1:
+    torch_dist.barrier(group=dist.mesh.product_group)
   best = float('inf')
   for _ in range(max(1, int(repeats))):
     t0 = time.perf_counter()

@@ -56,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from distributed_embeddings_tpu_torch.parallel import _plan_deps
 from distributed_embeddings_tpu_torch.parallel._plan_deps import (
     SCALE_BYTES, HotSet, journal, resolve_table_dtype, wire_bytes_per_row)
 
@@ -1486,7 +1487,8 @@ def reconcile_exchange(dist, journal: bool = True) -> Dict[str, Any]:
       'wire_legs': {k: dict(v) for k, v in wire_legs.items()},
   }
   if journal:
-    journal('exchange_reconciliation', **out)
+    # the argument shadows the module's journal function
+    _plan_deps.journal('exchange_reconciliation', **out)
   return out
 
 

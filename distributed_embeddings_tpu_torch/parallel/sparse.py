@@ -82,7 +82,7 @@ from distributed_embeddings_tpu_torch.parallel import grad as grad_lib
 from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel import routing
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    DistributedEmbedding, HotGrads, not_ported)
+    DistributedEmbedding, HotGrads, _all_gather, not_ported)
 from distributed_embeddings_tpu_torch.parallel.grad import TrainState
 
 _F32 = 'float32'
@@ -369,6 +369,24 @@ def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
   return table, state
 
 
+def _compact_stream(flat_ids, flat_g, rows_cap: int, g_index=None,
+                    with_sq: bool = False):
+  """One group's update stream as ``(uids, sums)``: its distinct valid
+  ids ascending and each one's summed f32 rows (the segment walk's
+  ``'add'``, ``routing.segment_sum``); ``g_index`` maps positions to
+  compact rows (None: one row a position); ``with_sq`` sums each
+  occurrence's squares beside its gradients."""
+  valid = (flat_ids >= 0) & (flat_ids < rows_cap)
+  uids, seg = torch.unique(flat_ids[valid], return_inverse=True)
+  g = flat_g.to(torch.float32)
+  if with_sq:
+    g = torch.cat([g, g * g], dim=1)
+  sums = routing.segment_sum(
+      seg, g if g_index is not None else g[valid], uids.shape[0],
+      None if g_index is None else g_index[valid])
+  return uids, sums
+
+
 def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr):
   """Per-occurrence Adagrad on a cached stream, in place: ``flat_g2``
   rows carry ``[sum g, sum g * g]`` already summed per (source rank,
@@ -379,9 +397,7 @@ def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr):
   rsqrt(a + eps))`` at the table's dtype."""
   rows, w = table.shape
   dev = table.device
-  valid = (flat_ids >= 0) & (flat_ids < rows)
-  uids, seg = torch.unique(flat_ids[valid], return_inverse=True)
-  sums = routing.segment_sum(seg, flat_g2[valid], uids.shape[0])
+  uids, sums = _compact_stream(flat_ids, flat_g2, rows)
   r = uids.long()
   acc = state['acc']
   acc_rows = acc[r].to(torch.float32) + sums[:, w:]
@@ -407,14 +423,7 @@ def _apply_quantized(optimizer, spec, payload, scale, state, flat_ids,
   ``presummed_sq``: a cached stream's rows carry ``[sum g, sum g * g]``
   already (added as they are, never re-squared)."""
   rows_cap, w = payload.shape
-  valid = (flat_ids >= 0) & (flat_ids < rows_cap)
-  uids, seg = torch.unique(flat_ids[valid], return_inverse=True)
-  g = flat_g.to(torch.float32)
-  if with_sq:
-    g = torch.cat([g, g * g], dim=1)
-  sums = routing.segment_sum(
-      seg, g if g_index is not None else g[valid], uids.shape[0],
-      None if g_index is None else g_index[valid])
+  uids, sums = _compact_stream(flat_ids, flat_g, rows_cap, g_index, with_sq)
   r = uids.long()
   bits = quantization.bits(payload)
   old = quantization.dequantize(bits[r].view(payload.dtype), scale[r])
@@ -438,6 +447,78 @@ def _apply_hot_quantized(optimizer, spec, payload, scale, state, sum_g,
   new_payload, new_scale = quantization.quantize(hot, spec)
   bits.copy_(quantization.bits(new_payload))
   scale.copy_(new_scale)
+
+
+def _gather_slices(dist: DistributedEmbedding, x: torch.Tensor
+                   ) -> torch.Tensor:
+  """Every slice's 1-D ``x`` of this data index, concatenated (their
+  lengths may differ)."""
+  S, group = dist.num_slices, dist.mesh.dcn_group
+  counts = _all_gather(
+      torch.tensor([x.numel()], dtype=torch.int64, device=x.device),
+      group, S)
+  cap = max(1, int(counts.max()))
+  padded = x.new_zeros(cap)
+  padded[:x.numel()] = x
+  got = _all_gather(padded[None], group, S)
+  return torch.cat([got[s, :int(c)] for s, c in enumerate(counts.tolist())])
+
+
+def _cross_slice_stream(dist: DistributedEmbedding, gi: int,
+                        uids: torch.Tensor, sums: torch.Tensor):
+  """The update stream a two-axis rank applies, from every slice's
+  compacted stream of its data index (the JAX package's cross-slice
+  exchange, docs/design.md §20).
+
+  Flat two-axis layer: ONE ``all_gather`` over the ``dcn`` group of the
+  ids (bit-cast into an f32 column) beside their sums; every slice then
+  applies all of it, so the replicas stay equal.  ``dcn_sharding``
+  layer: each row maps to its owner ``(slice, hier row)``
+  (``_hier_dcn_send``) and ONE ``all_to_all`` ships every slice its
+  owned rows (the others at the hier sentinel), so only the owning cell
+  applies.  The slices' sizes differ, so one small gather of the counts
+  comes first and the streams pad to the largest.
+
+  Either way the received streams merge into one row a distinct id, its
+  sum the left fold over the slices in slice order (each slice's stream
+  holds an id at most once), so a row's total is the same in both
+  layouts, whatever the other rows: the applies that follow are then
+  bit-exact between them.  Returns ``(ids, rows)``, ids in the apply's
+  row space (``hier`` rows under ``dcn_sharding``)."""
+  S, group, dev = dist.num_slices, dist.mesh.dcn_group, sums.device
+  wc = sums.shape[1]
+  counts = _all_gather(
+      torch.tensor([uids.numel()], dtype=torch.int64, device=dev), group, S)
+  cap = max(1, int(counts.max()))
+  n = uids.numel()
+  rows = torch.zeros((cap, wc), dtype=torch.float32, device=dev)
+  rows[:n] = sums
+  if dist.dcn_sharding:
+    rows_apply = dist.hier.groups[gi].rows_cap_h
+    padded = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    padded[:n] = uids
+    send_ids, _, _ = dist._hier_dcn_send(gi, padded)   # [S, cap]
+    packed = torch.cat([send_ids.view(torch.float32)[..., None],
+                        rows[None].expand(S, cap, wc)], dim=2).contiguous()
+    recv = torch.empty_like(packed)
+    torch_dist.all_to_all_single(recv, packed, group=group)
+  else:
+    rows_apply = dist.plan.groups[gi].rows_cap
+    ids = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    ids[:n] = uids.to(torch.int32)
+    packed = torch.cat([ids.view(torch.float32)[:, None], rows], dim=1)
+    recv = _all_gather(packed[None], group, S)
+  got_ids = recv[..., 0].contiguous().view(torch.int32).to(torch.int64)
+  valid = (got_ids >= 0) & (got_ids < rows_apply)
+  merged, inv = torch.unique(got_ids[valid], return_inverse=True)
+  slice_of = torch.arange(S, device=dev)[:, None].expand(S, cap)[valid]
+  got = recv[..., 1:][valid]
+  total = torch.zeros((merged.numel(), wc), dtype=torch.float32,
+                      device=dev)
+  for s in range(S):
+    mine = slice_of == s
+    total.index_add_(0, inv[mine], got[mine])
+  return merged.to(torch.int32), total
 
 
 def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
@@ -475,6 +556,11 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                    if slots else None)
 
   quant = dist.quant
+  slices = dist.num_slices > 1
+  # per-occurrence squares (Adagrad dedup=False): a cached stream carries
+  # them as trailing columns; across slices an uncached one sums them
+  # beside the gradients at the compaction
+  occ_sq = optimizer.needs_sq and not cached
 
   def apply(params, opt_state, lr, residuals, gsubs, hot_grads=None):
     for gi, group in enumerate(dist.plan.groups):
@@ -486,6 +572,39 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                               for si in slots_of[gi]])
         flat_g = torch.cat([gsubs[si].to(torch.float32).reshape(
             -1, gsubs[si].shape[-1]) for si in slots_of[gi]])
+      else:
+        ids_list, grad_list = [], []
+        for si in slots_of[gi]:
+          ids = residuals[si]                      # [n_cap, GB, h]
+          gg = gsubs[si].to(torch.float32)         # [n_cap, GB, w]
+          if group.combiner == 'mean' and not subs[si].mean_row_sliced:
+            # mean_row_sliced cotangents arrive pre-divided by the TRUE
+            # per-sample count (make_hybrid_train_step)
+            cnt = (ids < group.rows_cap).sum(dim=2).to(torch.float32)
+            gg = gg / torch.clamp(cnt, min=1.0)[..., None]
+          ids_list.append(ids.reshape(-1))
+          grad_list.append(gg.reshape(-1, group.width))
+        flat_ids, flat_g = torch.cat(ids_list), torch.cat(grad_list)
+      if slices:
+        # two-axis mesh: this slice's stream compacted, then merged with
+        # the other slices' (the replicas' or, hierarchically, the
+        # owners' streams), one row a distinct id, its sums pre-added
+        flat_ids, flat_g = _cross_slice_stream(
+            dist, gi, *_compact_stream(flat_ids, flat_g, group.rows_cap,
+                                       g_index[gi], occ_sq))
+        if quant is not None:
+          _apply_quantized(optimizer, quant, params[key_g],
+                           params[f'scale_group_{gi}'], opt_state[key_g],
+                           flat_ids, flat_g, lr,
+                           presummed_sq=optimizer.needs_sq)
+        elif optimizer.needs_sq:
+          _apply_presummed_sq(optimizer, params[key_g], opt_state[key_g],
+                              flat_ids, flat_g, lr)
+        else:
+          _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
+                         flat_ids, flat_g, lr)
+        continue
+      if cached:
         if quant is not None:
           _apply_quantized(optimizer, quant, params[key_g],
                            params[f'scale_group_{gi}'], opt_state[key_g],
@@ -497,27 +616,14 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
           _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
                          flat_ids, flat_g, lr)
         continue
-      ids_list, grad_list = [], []
-      for si in slots_of[gi]:
-        ids = residuals[si]                      # [n_cap, GB, h]
-        gg = gsubs[si].to(torch.float32)         # [n_cap, GB, w]
-        if group.combiner == 'mean' and not subs[si].mean_row_sliced:
-          # mean_row_sliced cotangents arrive pre-divided by the TRUE
-          # per-sample count (make_hybrid_train_step)
-          cnt = (ids < group.rows_cap).sum(dim=2).to(torch.float32)
-          gg = gg / torch.clamp(cnt, min=1.0)[..., None]
-        ids_list.append(ids.reshape(-1))
-        grad_list.append(gg.reshape(-1, group.width))
       if quant is not None:
         _apply_quantized(optimizer, quant, params[key_g],
                          params[f'scale_group_{gi}'], opt_state[key_g],
-                         torch.cat(ids_list), torch.cat(grad_list), lr,
-                         g_index=g_index[gi],
+                         flat_ids, flat_g, lr, g_index=g_index[gi],
                          with_sq=optimizer.needs_sq)
         continue
       _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
-                     torch.cat(ids_list), torch.cat(grad_list), lr,
-                     g_index=g_index[gi])
+                     flat_ids, flat_g, lr, g_index=g_index[gi])
     if not isinstance(hot_grads, HotGrads):  # a caller's plain dict
       hot_grads = HotGrads(hot_grads or {})
     for gi in dist.plan.hot_groups:
@@ -558,8 +664,9 @@ def sparse_apply_updates(dist: DistributedEmbedding, optimizer, params,
         'sparse_apply_updates on a hot-cache layer requires hot_grads= '
         '(the {group_index: [K, w]} replicated hot-row gradient buffers '
         'that backward_to_mp returns alongside gsubs)')
-  fn = _build_sparse_apply(dist, optimizer, global_batch // dist.world_size,
-                           tuple(hotness))
+  fn = _build_sparse_apply(
+      dist, optimizer, global_batch // (dist.world_size * dist.num_slices),
+      tuple(hotness))
   return fn(params, opt_state, float(lr), residuals, gsubs, hot_grads)
 
 
@@ -628,7 +735,9 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     emb_params = state.params['embedding']
     dense = {k: v for k, v in state.params.items() if k != 'embedding'}
     dense_opt_state, emb_opt_state = state.opt_state
-    world = dist.world_size
+    # the batch splits over every rank of the mesh (both axes of a
+    # two-axis mesh)
+    world, group = dist.mesh.product_size, dist.mesh.product_group
 
     # hot-cache layers: the backward reuses the forward's routing products
     outs, residuals, hot_routing, (global_batch, hotness) = (
@@ -641,9 +750,9 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     loss = head_loss_fn(dense_leaves, tuple(outs), batch)
     loss.backward()
     d_dense = {k: p.grad for k, p in dense_leaves.items()}
-    grad_lib.allreduce_mean_(list(d_dense.values()), dist.mesh.group)
+    grad_lib.allreduce_mean_(list(d_dense.values()), group)
     loss = loss.detach()
-    grad_lib.allreduce_mean_([loss], dist.mesh.group)
+    grad_lib.allreduce_mean_([loss], group)
 
     updates, dense_opt_state = dense_optimizer.update(d_dense,
                                                       dense_opt_state, dense)
@@ -676,7 +785,8 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       if not dist.dp_input:
         # the global batch: this rank's cotangents are its block of it
         b = global_batch // world
-        ids = ids[dist.rank * b:(dist.rank + 1) * b]
+        me = dist.mesh.product_rank
+        ids = ids[me * b:(me + 1) * b]
       ids = torch.as_tensor(ids).to(dist.device)
       d_emb[i] = d_emb[i] / routing.valid_count(ids)[:, None].to(
           d_emb[i].dtype)
@@ -724,8 +834,12 @@ def calibrate_capacity_rows(dist: DistributedEmbedding, cats,
                        device=dist.device)
   for gi, streams in per_group.items():
     ids = torch.cat(streams)
-    counts[gi] = torch.unique(ids[ids < dist.plan.groups[gi].rows_cap]
-                              ).numel()
+    ids = torch.unique(ids[ids < dist.plan.groups[gi].rows_cap])
+    if dist.num_slices > 1:
+      # every slice's updates land on every replica: count the union of
+      # the slices' streams (what the cross-slice gather delivers)
+      ids = torch.unique(_gather_slices(dist, ids))
+    counts[gi] = ids.numel()
   if dist.world_size > 1:
     torch_dist.all_reduce(counts, op=torch_dist.ReduceOp.MAX,
                           group=dist.mesh.group)

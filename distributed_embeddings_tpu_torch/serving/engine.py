@@ -139,20 +139,27 @@ class ServingEngine:
         cold_fetch_rows=cold_fetch_rows,
         fused_exchange=fused_exchange,
         wire_dtype=wire_dtype)
+    # a rung is the batch of the whole mesh: each rank serves its block
+    # (the batch splits over the slice x data product in rank order)
+    denom = self.dist.world_size * self.dist.num_slices
     batch_size = int(batch_size)
-    if batch_size < 1:
-      raise ValueError(f'batch_size {batch_size} must be positive')
+    if batch_size < 1 or batch_size % denom:
+      raise ValueError(
+          f'batch_size {batch_size} must be a positive multiple of the '
+          f'serving mesh device count {denom} (every rank serves an '
+          'equal block of a rung)')
     self.batch_size = batch_size
     if buckets is None:
-      self.buckets = default_bucket_ladder(batch_size, 1)
+      self.buckets = default_bucket_ladder(batch_size, denom)
     else:
       rungs = {int(b) for b in buckets}
       rungs.add(batch_size)  # the full rung must exist (max_batch)
       for b in sorted(rungs):
-        if b < 1 or b > batch_size:
+        if b < 1 or b % denom or b > batch_size:
           raise ValueError(
-              f'bucket {b} must be a positive batch <= batch_size '
-              f'{batch_size} (every ladder rung is a launch shape)')
+              f'bucket {b} must be a positive multiple of the serving '
+              f'mesh device count {denom}, <= batch_size {batch_size} '
+              '(every ladder rung is a launch shape)')
       self.buckets = tuple(sorted(rungs))
     self._bucket_set = frozenset(self.buckets)
     self.hotness = tuple(
@@ -233,7 +240,9 @@ class ServingEngine:
     ``[bucket, h<=cap]`` ids (``-1`` padding) whose leading dim is a
     rung; ``samples`` the real sample count inside it (``None``: the
     full rung).  Returns the per-input ``[bucket, output_dim]`` tensors
-    on the serving device."""
+    on the serving device; on several ranks each passes the whole rung
+    and gets its own block of the outputs back
+    (``mesh.batch_sharding``)."""
     cats = list(cats)
     if len(cats) != self.dist.num_inputs:
       raise ValueError(f'expected {self.dist.num_inputs} inputs, '
@@ -253,6 +262,9 @@ class ServingEngine:
     if not 0 <= real <= b:
       raise ValueError(f'samples {real} outside [0, bucket {b}]')
     padded = [self._pad_input(i, x, b) for i, x in enumerate(cats)]
+    if self.dist.mesh.product_size > 1:
+      block = mesh_lib.batch_sharding(self.dist.mesh, b)
+      padded = [x[block] for x in padded]
     outs = self.dist.apply(self.params, padded)
     with self._lock:
       self._batches_served += 1
@@ -275,7 +287,10 @@ class ServingEngine:
     bucket = self.bucket_for(n)
     padded = [self._pad_input(i, x, bucket) for i, x in enumerate(cats)]
     outs = self.lookup(padded, samples=n)
-    return [o[:n] for o in outs]
+    # the real samples inside this rank's block of the rung
+    block = mesh_lib.batch_sharding(self.dist.mesh, bucket)
+    keep = min(max(n - block.start, 0), block.stop - block.start)
+    return [o[:keep] for o in outs]
 
   def warmup(self, sample_cats=None, seed: int = 0) -> 'ServingEngine':
     """Run EVERY ladder rung once (idempotent): the kernel is built and

@@ -68,7 +68,8 @@ def test_scan_sees_the_whole_port():
                  'ops/embedding_lookup.py', 'layers/embedding.py',
                  'layers/dist_embed.py',
                  'examples/benchmarks/lookup_benchmark.py',
-                 'parallel/hotcache.py'):
+                 'parallel/hotcache.py', 'parallel/mesh.py',
+                 'parallel/overlap.py', 'parallel/quantization.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -97,7 +98,7 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_card():
                                    'mlp', 'dlrm', 'dlrm_main', 'embedding',
                                    'concat_one_hot', 'dist_embed',
                                    'lookup_benchmark', 'hot_cache',
-                                   'dlrm_main_hot_cache'])
+                                   'dlrm_main_hot_cache', 'two_axis_mesh'])
 def test_entry_points_raise_without_device_argument(entry):
   _no_card()
   t = [TableConfig(10, 8, combiner='sum')]
@@ -122,6 +123,7 @@ def test_entry_points_raise_without_device_argument(entry):
       'dlrm_main_hot_cache': lambda: dlrm_main.main(
           ['--table_sizes', '10,20', '--num_batches', '1', '--dp_input',
            '--hot_cache']),
+      'two_axis_mesh': lambda: mesh.create_mesh(shape=(2, 2)),
   }[entry]
   with pytest.raises(RuntimeError, match="pass device='cpu'"):
     build()

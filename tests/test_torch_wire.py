@@ -139,12 +139,6 @@ def test_refusals_like_jax(kw):
   assert str(got.value) == str(want.value)
 
 
-def test_dcn_sharding_still_refuses():
-  with pytest.raises(NotImplementedError, match='item 10\\)'):
-    DistributedEmbedding([TableConfig(*t) for t in TABLES], device='cpu',
-                         wire_dtype='bfloat16', dcn_sharding=True)
-
-
 # ------------------------------------------------------- world of one
 
 
@@ -209,6 +203,23 @@ def test_world_of_one_ships_nothing(table_dtype, hot):
     assert sorted(got) == sorted(want)
     for key in want:
       assert torch.equal(got[key], want[key]), (wire, key)
+
+
+def test_reconcile_exchange_journals():
+  """``reconcile_exchange(journal=True)`` journals its record (its
+  ``journal`` argument once shadowed the journal function, so the
+  exchange counters of a layer with recorded legs raised
+  ``TypeError``)."""
+  from distributed_embeddings_tpu_torch.parallel import _plan_deps
+  from distributed_embeddings_tpu_torch.parallel import planner
+  weights, _, _, cats = _case()
+  port, _ = _layers(table_dtype='int8', wire_dtype='table')
+  with torch.no_grad():
+    port.apply(checkpoint.set_weights(port, weights), cats)
+  out = planner.reconcile_exchange(port, journal=True)
+  event = _plan_deps.recent('exchange_reconciliation')[-1]
+  assert {k: event[k] for k in out} == out
+  assert out == planner.reconcile_exchange(port, journal=False)
 
 
 @pytest.mark.parametrize('table_dtype,wire', [(None, 'bfloat16'),

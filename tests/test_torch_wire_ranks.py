@@ -4,12 +4,18 @@ ships nothing, so the codec shows only here.
 
 The draws follow JAX's ``tests/test_wire_compression.py``: the same
 numpy draw of tables, hot sets, weights, ids and head from
-``default_rng(7100 + seed)``, over the flat rows of its ``_AXES`` (the
-hierarchical rows wait for item 10).  Tier-1 runs world 2 with hot sets,
-int8 tables, 3 chunks and ``'table'`` (JAX's seed 0), and world 3 flat
-f32 at one chunk and ``'bfloat16'`` (seed 4's axes on three ranks, so
-the rank-order sums are exercised); world 8 (seeds 2 and 4, as JAX has
-them) is ``slow``.  For each draw, the port's wired layer against:
+``default_rng(7100 + seed)``, over the rows of its ``_AXES``.  Tier-1
+runs world 2 with hot sets, int8 tables, 3 chunks and ``'table'`` (JAX's
+seed 0), world 3 flat f32 at one chunk and ``'bfloat16'`` (seed 4's axes
+on three ranks, so the rank-order sums are exercised), and JAX's seed 5
+on a 2 x 2 ``(dcn, data)`` mesh with ``dcn_sharding`` (int8, 2 chunks,
+``'table'``: the q8 wire on the DCN leg alone, ``dcn/rows`` shipped as
+``uint8``); world 8 (seeds 2 and 4) and the other hierarchical rows
+(seeds 1 and 3) are ``slow``, as JAX marks them.  A hierarchical draw's
+weights reach it through ``set_weights`` of its flat twin and
+``hierarchical_params``, and its trained leaves are held cell by cell
+(the checkpoint functions refuse the layout).  For each draw, the port's
+wired layer against:
 
 - its ``wire_dtype=None`` twin over the same weights: the forward,
   ``backward_to_mp`` under fixed cotangents (uncached: also one isolated
@@ -51,6 +57,8 @@ from distributed_embeddings_tpu.parallel import quantization as jq
 from distributed_embeddings_tpu.parallel import sparse as jax_sparse
 from distributed_embeddings_tpu.parallel.dist_embedding import (
     DistributedEmbedding as JaxDistributedEmbedding)
+from distributed_embeddings_tpu.parallel.dist_embedding import (
+    hierarchical_params as jax_hierarchical_params)
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 
 import torch_exchange_worker
@@ -62,12 +70,16 @@ BF16_WIRE_BOUND = 2.0**-6  # tests/test_wire_compression.py
 STEPS = 10
 RANK_TIMEOUT = 240  # seconds each spawned rank may take
 
-# (JAX _AXES seed, world, hot, table_dtype, chunks, wire)
+# (JAX _AXES seed, world, hot, table_dtype, chunks, wire, dcn_sharding on
+# a 2 x world/2 mesh)
 DRAWS = {
-    'w2_hot_int8_c3_table': (0, 2, True, 'int8', 3, 'table'),
-    'w3_flat_f32_bf16': (4, 3, False, None, 1, 'bfloat16'),
-    'w8_hot_int8_c2_table': (2, 8, True, 'int8', 2, 'table'),
-    'w8_flat_f32_bf16': (4, 8, False, None, 1, 'bfloat16'),
+    'w2_hot_int8_c3_table': (0, 2, True, 'int8', 3, 'table', False),
+    'w3_flat_f32_bf16': (4, 3, False, None, 1, 'bfloat16', False),
+    'w8_hot_int8_c2_table': (2, 8, True, 'int8', 2, 'table', False),
+    'w8_flat_f32_bf16': (4, 8, False, None, 1, 'bfloat16', False),
+    'w4_dcn_f32_bf16': (1, 4, False, None, 1, 'bfloat16', True),
+    'w4_dcn_hot_int8_c2_table': (3, 4, True, 'int8', 2, 'table', True),
+    'w4_dcn_int8_c2_table': (5, 4, False, 'int8', 2, 'table', True),
 }
 
 
@@ -88,7 +100,7 @@ def _wire_close(a, b, msg, bound=BF16_WIRE_BOUND):
 def _draw(name):
   """JAX's fuzz draw of ``_AXES[seed]`` at this world: the same rng
   calls in the same order."""
-  seed, world, want_hot, dtype, chunks, wire = DRAWS[name]
+  seed, world, want_hot, dtype, chunks, wire, dcn = DRAWS[name]
   rng = np.random.default_rng(7100 + seed)
   n_tables = world + int(rng.integers(0, 3))
   widths = [4, 16] + [int(rng.choice([4, 8, 16]))
@@ -126,20 +138,33 @@ def _draw(name):
   kernel = (rng.standard_normal((sum(widths), 1)).astype(np.float32) * 0.1)
   labels = rng.integers(0, 2, (batch, 1)).astype(np.float32)
   return {'world': world, 'tables': tables, 'hot': hot, 'dtype': dtype,
-          'chunks': chunks, 'wire': wire, 'weights': weights, 'batch': batch,
+          'chunks': chunks, 'wire': wire, 'dcn': dcn, 'weights': weights,
+          'batch': batch,
           'ids': ids, 'd_outs': d_outs, 'opt': opt, 'kernel': kernel,
           'labels': labels, 'lr': 0.02, 'steps': STEPS}
 
 
-def _jax_layer(case, wire):
+def _jax_layer(case, wire, dcn_sharding=None):
   return JaxDistributedEmbedding(
       [jax_planner.TableConfig(*t) for t in case['tables']],
-      mesh=torch_parity.jax_mesh(case['world']), dp_input=True,
-      packed_storage=False, overlap_chunks=case['chunks'],
+      mesh=torch_parity.jax_mesh(case['world'],
+                                 slices=2 if case['dcn'] else None),
+      dp_input=True, packed_storage=False, overlap_chunks=case['chunks'],
       table_dtype=case['dtype'], wire_dtype=wire,
+      dcn_sharding=case['dcn'] if dcn_sharding is None else dcn_sharding,
       hot_cache=(None if case['hot'] is None else
                  {t: jax_hotcache.HotSet(t, v)
                   for t, v in case['hot'].items()}))
+
+
+def _jax_params(case, jd):
+  """The draw's weights in ``jd``'s layout: ``set_weights``, or on a
+  hierarchical layer ``hierarchical_params`` of its flat twin's."""
+  if not case['dcn']:
+    return jax_ckpt.set_weights(jd, case['weights'])
+  twin = _jax_layer(case, None, dcn_sharding=False)
+  return jax_hierarchical_params(jd,
+                                 jax_ckpt.set_weights(twin, case['weights']))
 
 
 def _jax(case):
@@ -155,12 +180,12 @@ def _jax(case):
     _, _, sig = jd.forward_with_residuals(params, jids)
     jd.backward_to_mp(d_outs, *sig, **(dict(cats=jids) if hot else {}))
 
-  jax.eval_shape(run, jax_ckpt.set_weights(jd, case['weights']), d_outs)
+  jax.eval_shape(run, _jax_params(case, jd), d_outs)
   out = {'legs': {p.path: [l.as_dict() for l in p.legs]
                   for p in jd._lookup_plans.values()},
          'reconcile': jax_planner.reconcile_exchange(jd, journal=False)}
   jd = _jax_layer(case, case['wire'])
-  params = jax_ckpt.set_weights(jd, case['weights'])
+  params = _jax_params(case, jd)
   out['outs'] = [np.asarray(o) for o in jd.apply(params, jids)]
   if not hot:
     _, _, sig = jd.forward_with_residuals(params, jids)
@@ -183,6 +208,15 @@ def _jax(case):
     state, loss = step(state, jids, jnp.asarray(case['labels']))
     losses.append(float(loss))
   out['losses'] = np.array(losses)
+  if case['dcn']:
+    # the checkpoint functions refuse the hierarchical layout: its leaves
+    out['hier'] = jd
+    out['leaves'] = {f'p/{k}': np.asarray(jax.device_get(v))
+                     for k, v in state.params['embedding'].items()}
+    out['leaves'].update({f's/{k}/{leaf}': np.asarray(jax.device_get(v))
+                          for k, st in state.opt_state[1].items()
+                          for leaf, v in st.items()})
+    return out
   out['tables'] = jax_ckpt.export_tables(jd, state.params['embedding'])
   out['state'] = jax_ckpt.get_optimizer_state(jd, state.opt_state[1])
   return out
@@ -246,8 +280,25 @@ def _held_like_jax(case, got, want):
           [torch.as_tensor(o) for o in outs],
           [w[r * b:(r + 1) * b] for w in want['outs']], hotness)
     for i, g in enumerate(want.get('grads', [])):
-      np.testing.assert_array_equal(on[f'g{i}'], g[r],
+      if case['dcn']:
+        # [D, n_cap, slices * slice batch, w]: this cell's slice block
+        s, d = divmod(r, world // 2)
+        sb = case['batch'] // 2
+        g = g[:, :, s * sb:(s + 1) * sb]
+        r_g = d
+      else:
+        r_g = r
+      np.testing.assert_array_equal(on[f'g{i}'], g[r_g],
                                     err_msg=f'rank {r} grad {i}')
+    if case['dcn']:
+      _held_like_jax_cells(case, r, on, want)
+  if case['dcn']:
+    if bf16:
+      _wire_close(got[(0, 'on')]['losses'], want['losses'], 'losses')
+    else:
+      np.testing.assert_allclose(got[(0, 'on')]['losses'], want['losses'],
+                                 rtol=2e-4, atol=2e-6)
+    return
   on = got[(0, 'on')]
   for t, w in enumerate(want['tables']):
     if case['dtype'] is None:
@@ -274,17 +325,66 @@ def _held_like_jax(case, got, want):
                                atol=2e-6)
 
 
+def _held_like_jax_cells(case, r, on, want):
+  """A hierarchical draw's trained leaves of rank ``r`` (its cell's real
+  rows; hot buffers whole) against JAX's at the rank tests' bounds:
+  int8 payloads dequantized within a grid step a step."""
+  hier = want['hier']
+  D = case['world'] // 2
+  s, d = divmod(r, D)
+  bf16 = case['wire'] == 'bfloat16'
+
+  def cell(key, leaf):
+    group = key.split('/')[1]
+    if group.startswith('hot_'):
+      return leaf
+    n = hier.hier.groups[int(group.rsplit('_', 1)[1])].rows_h[s][d]
+    return leaf[s * D + d, :n]
+
+  for key, w in want['leaves'].items():
+    w = cell(key, w)
+    v = on[key][:w.shape[0]]
+    if key.startswith('s/'):
+      if bf16:
+        _wire_close(v, w, (r, key))
+      else:
+        np.testing.assert_allclose(v, w, rtol=5e-3, atol=5e-4,
+                                   err_msg=f'rank {r} {key}')
+    elif case['dtype'] is None and bf16:
+      _wire_close(v, w, (r, key))
+    elif case['dtype'] is None:
+      np.testing.assert_allclose(v, w, rtol=2e-4, atol=2e-6,
+                                 err_msg=f'rank {r} {key}')
+    elif 'scale_group' not in key:
+      spec = jq.resolve_table_dtype(case['dtype'])
+      skey = key.replace('group_', 'scale_group_')
+      sv = on[skey][:w.shape[0]]
+      sw = cell(skey, want['leaves'][skey])
+      diff = np.abs(jq.dequantize_np(v.view(spec.dtype), sv)
+                    - jq.dequantize_np(w.view(spec.dtype), sw))
+      assert np.all(diff <= STEPS * np.maximum(sv, sw)), (r, key)
+
+
 @pytest.mark.parametrize('name', [
     'w2_hot_int8_c3_table',
     'w3_flat_f32_bf16',
+    'w4_dcn_int8_c2_table',
     pytest.param('w8_hot_int8_c2_table', marks=pytest.mark.slow),
     pytest.param('w8_flat_f32_bf16', marks=pytest.mark.slow),
+    pytest.param('w4_dcn_f32_bf16', marks=pytest.mark.slow),
+    pytest.param('w4_dcn_hot_int8_c2_table', marks=pytest.mark.slow),
 ])
 def test_wired_ranks_like_twin_and_jax(name, tmp_path):
   case = _draw(name)
   got = _spawn(case, tmp_path)
   _held_like_twin(case, got)
   _held_like_jax(case, got, _jax(case))
+  if case['dcn'] and case['wire'] == 'table':
+    # the DCN row leg ships the stored payload: narrowed to uint8
+    dcn_rows = [l for legs in got[0]['on']['legs'].values() for l in legs
+                if l['name'].startswith('dcn/rows')]
+    assert dcn_rows and all(l['dtype'] == 'uint8' and l['wire'] == 'q8'
+                            for l in dcn_rows), dcn_rows
 
 
 # ----------------------------------------------- the differentiable branch

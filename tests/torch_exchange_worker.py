@@ -20,6 +20,35 @@ import json
 import pickle
 
 
+def rank_main(target, rank, world_size, init_method, case_path, out_dir):
+  """The body of every spawned rank (``torch_parity.spawn_ranks``): fd 1
+  and fd 2 go to ``rank{rank}.log`` under ``out_dir`` (``os.dup2``, so
+  the output of C++ lands there too), ``faulthandler`` is on, and
+  ``target(rank, world_size, init_method, case_path, out_dir)`` runs.
+  Once it has returned (every worker tears its process group down in a
+  ``finally``), the streams are flushed and ``done{rank}`` is written;
+  then the process ends with ``os._exit(0)``, which skips the
+  interpreter's teardown (module and C++ static destructors), where a
+  gloo rank could abort with ``terminate called without an active
+  exception`` after its work was done.  A rank that raised never gets
+  here: it exits non-zero without its marker."""
+  import faulthandler
+  import os
+  import sys
+  log = open(os.path.join(out_dir, f'rank{rank}.log'), 'w')
+  os.dup2(log.fileno(), 1)
+  os.dup2(log.fileno(), 2)
+  faulthandler.enable(file=sys.stderr, all_threads=True)
+  target(rank, world_size, init_method, case_path, out_dir)
+  print('returned', flush=True)
+  sys.stdout.flush()
+  sys.stderr.flush()
+  with open(os.path.join(out_dir, f'done{rank}'), 'w') as f:
+    f.write('done\n')
+  log.flush()
+  os._exit(0)
+
+
 def run(rank, world_size, init_method, case_path, out_dir):
   import numpy as np
   import torch
@@ -771,7 +800,13 @@ def wire(rank, world_size, init_method, case_path, out_dir):
   apply of those gradients; then ``case['steps']`` hybrid steps
   (``case['opt']``, SGD on a linear head).  Saves what the rank holds
   (tables, scales, hot buffers, optimizer state) bit for bit, the
-  exported tables, the gathered optimizer state and the losses."""
+  exported tables, the gathered optimizer state and the losses.
+
+  A ``case['dcn']`` draw runs on a 2 x ``world / 2`` ``(dcn, data)`` mesh
+  with ``dcn_sharding=True``: the weights go into a flat twin and from
+  there into the hierarchical layout (``hierarchical_params``), and only
+  the rank's own leaves are saved (the checkpoint functions refuse the
+  layout)."""
   import numpy as np
   import torch
   import torch.distributed as torch_dist
@@ -782,19 +817,34 @@ def wire(rank, world_size, init_method, case_path, out_dir):
   from distributed_embeddings_tpu_torch.parallel import planner
   from distributed_embeddings_tpu_torch.parallel import sparse
   from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-      DistributedEmbedding)
+      DistributedEmbedding, hierarchical_params)
   from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
   from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 
   torch.set_num_threads(1)
   with open(case_path, 'rb') as f:
     case = pickle.load(f)
-  m = mesh_lib.init_distributed(init_method, world_size, rank,
-                                backend='gloo', device='cpu')
+  dcn = case.get('dcn', False)
+  m = mesh_lib.init_distributed(
+      init_method, world_size, rank, backend='gloo', device='cpu',
+      mesh_shape=(2, world_size // 2) if dcn else None)
   try:
     tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
     hot_sets = (None if case['hot'] is None else
                 {t: HotSet(t, np.asarray(v)) for t, v in case['hot'].items()})
+
+    def build(wire_dtype, dcn_sharding=dcn):
+      return DistributedEmbedding(
+          tables, mesh=m, dp_input=True, hot_cache=hot_sets,
+          overlap_chunks=case['chunks'], table_dtype=case['dtype'],
+          wire_dtype=wire_dtype, dcn_sharding=dcn_sharding)
+
+    def weights_of(dist):
+      if not dcn:
+        return checkpoint.set_weights(dist, case['weights'])
+      return hierarchical_params(
+          dist, checkpoint.set_weights(build(None, False), case['weights']))
+
     b = case['batch'] // world_size
     mine = lambda xs: [x[rank * b:(rank + 1) * b] for x in xs]
     cats = mine(case['ids'])
@@ -808,11 +858,8 @@ def wire(rank, world_size, init_method, case_path, out_dir):
 
     info = {}
     for tag, wire_dtype in (('off', None), ('on', case['wire'])):
-      dist = DistributedEmbedding(
-          tables, mesh=m, dp_input=True, hot_cache=hot_sets,
-          overlap_chunks=case['chunks'], table_dtype=case['dtype'],
-          wire_dtype=wire_dtype)
-      params = checkpoint.set_weights(dist, case['weights'])
+      dist = build(wire_dtype)
+      params = weights_of(dist)
       with torch.no_grad():
         got = {f'o{i}': o.numpy()
                for i, o in enumerate(dist.apply(params, cats))}
@@ -843,7 +890,7 @@ def wire(rank, world_size, init_method, case_path, out_dir):
                  else sparse.SparseAdagrad(lr))
       dense_opt = optim.sgd(lr)
       state = sparse.init_hybrid_train_state(
-          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+          dist, {'embedding': weights_of(dist),
                  'kernel': torch.tensor(case['kernel'])}, dense_opt,
           emb_opt)
       step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
@@ -855,6 +902,9 @@ def wire(rank, world_size, init_method, case_path, out_dir):
       got['kernel'] = state.params['kernel'].numpy()
       _leaves('p', state.params['embedding'], got)
       _leaves('s', state.opt_state[1], got)
+      if dcn:
+        np.savez(f'{out_dir}/wire{rank}_{tag}.npz', **got)
+        continue
       for i, w in enumerate(checkpoint.export_tables(
           dist, state.params['embedding'])):
         if case['dtype'] is None:
@@ -872,3 +922,301 @@ def wire(rank, world_size, init_method, case_path, out_dir):
   finally:
     torch_dist.destroy_process_group()
 
+
+
+def two_axis(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a 2 x 2 ``(dcn, data)`` gloo mesh for
+  tests/test_torch_two_axis_mesh.py: each of ``case['scenarios']`` in
+  turn on the two-axis layer (tables on the data axis, replicated across
+  slices): the mesh's axes and each group's collectives (``shape``), a
+  forward and a dense SGD step (``fwd_sgd``), a sparse hybrid step
+  (``sparse``), the weights round trip and a checkpoint file
+  (``ckpt``), ``init``, ``calibrate``, a ``ServingEngine`` (``serve``),
+  the auditor's replica check over both axes (``audit``) and a dense
+  step of a ``dcn_sharding`` layer beside its flat twin
+  (``hier_dense``).  Saves ``two_axis{rank}.pkl``."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import audit
+  from distributed_embeddings_tpu_torch.parallel import callbacks
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding, hierarchical_params)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+  from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu',
+                                mesh_shape=case['shape'])
+  out = {}
+  try:
+    me = m.product_rank
+    for name, sc in case['scenarios'].items():
+      kind = sc['kind']
+      tables = [TableConfig(r, w, combiner=c) for r, w, c in sc['tables']]
+      gb = sc.get('batch', 16)
+      b = gb // m.product_size
+      mine = lambda xs: [x[me * b:(me + 1) * b] for x in xs]
+      if kind == 'shape':
+        probe = {}
+        for axis, group, n in (('data', m.group, m.world_size),
+                               ('dcn', m.dcn_group, m.num_slices),
+                               ('product', m.product_group, m.product_size)):
+          x = torch.full((n, 2), float(me))
+          got = torch.empty_like(x)
+          torch_dist.all_to_all_single(got, x, group=group)
+          parts = [torch.empty(1) for _ in range(n)]
+          torch_dist.all_gather(parts, torch.tensor([float(me)]),
+                                group=group)
+          s = torch.tensor([float(me)])
+          torch_dist.all_reduce(s, group=group)
+          probe[axis] = (got[:, 0].tolist(), [p.item() for p in parts],
+                         s.item())
+        d = DistributedEmbedding(tables, mesh=m)
+        out[name] = {
+            'axis_names': m.axis_names, 'world_size': d.world_size,
+            'num_slices': d.num_slices, 'dcn_axis': d.dcn_axis,
+            'slice': m.slice_index, 'rank': m.rank, 'product_rank': me,
+            'links': mesh_lib.mesh_link_info(m),
+            'batch': mesh_lib.batch_sharding(m, 16), 'probe': probe}
+        continue
+      if kind == 'serve':
+        engine = ServingEngine(tables, sc['weights'], batch_size=gb,
+                               mesh=m, device='cpu',
+                               hotness=[x.shape[1] for x in sc['inputs']])
+        out[name] = {'buckets': engine.buckets, 'outs': [
+            o.numpy() for o in engine.lookup_padded(
+                [x[:sc['n']] for x in sc['inputs']])]}
+        continue
+      if kind == 'hier_dense':
+        # the dense trainer through the hierarchical exchange (its DCN
+        # pair is differentiable) beside the flat twin's replicated sum
+        res = {}
+        for tag, dcn in (('flat', False), ('hier', True)):
+          d = DistributedEmbedding(tables, mesh=m, dcn_sharding=dcn)
+          flat_d = d if not dcn else DistributedEmbedding(tables, mesh=m)
+          p = checkpoint.set_weights(flat_d, sc['weights'])
+          if dcn:
+            p = hierarchical_params(d, p)
+
+          def loss_fn(prm, batch, d=d):
+            return sum((o**2).sum() for o in d.apply(prm['embedding'],
+                                                     batch)) / b
+
+          opt = optim.sgd(sc['lr'])
+          step = grad.make_train_step(loss_fn, opt, dist=d)
+          state, loss = step(grad.init_train_state({'embedding': p}, opt),
+                             mine(sc['inputs']))
+          trained = state.params['embedding']
+          if not dcn:
+            trained = hierarchical_params(
+                DistributedEmbedding(tables, mesh=m, dcn_sharding=True),
+                trained)
+          res[tag] = {'loss': float(loss),
+                      'tables': {k: v.numpy() for k, v in trained.items()}}
+        out[name] = res
+        continue
+      dist = DistributedEmbedding(tables, mesh=m, **sc.get('options', {}))
+      if kind == 'audit':
+        params = checkpoint.set_weights(dist, sc['weights'])
+        state = sparse.init_hybrid_train_state(
+            dist, {'embedding': params,
+                   'kernel': torch.arange(6.0).reshape(3, 2)},
+            optim.adagrad(0.1), sparse.SparseAdagrad(0.1))
+        aud = audit.StateAuditor(dist, every=1)
+        clean = aud.check_state(state)
+        if me == 3:
+          with torch.no_grad():
+            state.params['kernel'][1, 0] += 1.0
+        found = aud.check_state(state)
+        out[name] = {'clean': [f.check for f in clean], 'found': [
+            (f.check, f.leaf, f.devices, f.rows) for f in found]}
+        continue
+      if kind == 'init':
+        out[name] = {k: v.numpy() for k, v in dist.init(3).items()}
+        continue
+      if kind == 'calibrate':
+        out[name] = sparse.calibrate_capacity_rows(dist, mine(sc['cats']),
+                                                   margin=1.0)
+        continue
+      params = checkpoint.set_weights(dist, sc['weights'])
+      if kind == 'ckpt':
+        back = [w.numpy() for w in checkpoint.get_weights(dist, params)]
+        emb_opt = sparse.SparseAdagrad(0.1)
+        state = sparse.init_hybrid_train_state(
+            dist, {'embedding': params, 'kernel': torch.zeros(3, 1)},
+            optim.adagrad(0.1), emb_opt)
+        callbacks.CheckpointCallback(dist, sc['path'], every=1)(
+            4, state._replace(step=4), {})
+        out[name] = {'weights': back}
+        continue
+      if kind == 'fwd_sgd':
+        flat = [i for dev in dist.plan.input_ids_list for i in dev]
+        cats = (mine(sc['inputs']) if sc['options'].get('dp_input', True)
+                else [sc['inputs'][i] for i in flat])
+        with torch.no_grad():
+          outs = [o.numpy() for o in dist.apply(params, cats)]
+
+        def loss_fn(p, batch):
+          return sum((o**2).sum() for o in dist.apply(p['embedding'],
+                                                       batch)) / b
+
+        opt = optim.sgd(sc['lr'])
+        step = grad.make_train_step(loss_fn, opt, dist=dist)
+        state, loss = step(grad.init_train_state({'embedding': params},
+                                                 opt), cats)
+        out[name] = {'outs': outs, 'loss': float(loss), 'weights': [
+            w.numpy() for w in checkpoint.get_weights(
+                dist, state.params['embedding'])]}
+        continue
+      assert kind == 'sparse', kind
+      opt = (sparse.SparseSGD(sc['lr']) if sc['opt'] == 'sgd' else
+             sparse.SparseAdagrad(sc['lr'], initial_accumulator_value=0.1,
+                                  dedup=sc['opt'] == 'adagrad_dedup'))
+
+      def head(dense_params, emb_outs, y):
+        h = torch.cat(list(emb_outs), dim=-1)
+        return torch.mean((h @ dense_params['kernel'] - y)**2)
+
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': params, 'kernel': torch.tensor(sc['kernel'])},
+          optim.sgd(sc['lr']), opt)
+      step = sparse.make_hybrid_train_step(dist, head, optim.sgd(sc['lr']),
+                                           opt)
+      state, loss = step(state, mine(sc['inputs']),
+                         torch.tensor(sc['labels'][me * b:(me + 1) * b]))
+      out[name] = {'loss': float(loss), 'row_sliced': any(
+          dist.plan.row_sliced), 'weights': [
+              w.numpy() for w in checkpoint.get_weights(
+                  dist, state.params['embedding'])]}
+    with open(f'{out_dir}/two_axis{rank}.pkl', 'wb') as f:
+      pickle.dump(out, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def hier(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a 2 x 2 ``(dcn, data)`` gloo mesh for
+  tests/test_torch_hier_exchange.py: per draw of ``case['draws']``, a
+  ``dcn_sharding=True`` layer beside its two-axis flat twin.  Checks
+  that the hierarchical init is the flat init resharded, then takes the
+  draw's weights into the twin (``checkpoint.set_weights``) and from
+  there into the hierarchical layout (``hierarchical_params``); runs the
+  forward of its block of the batch through both, two hybrid steps of
+  each (``case['opt']``, a linear loss), and the exchange program with
+  and without its DCN leg.  Saves ``hier{rank}.pkl``: the outputs, the
+  losses, this cell's hierarchical leaves as converted, as trained and
+  the trained twin's resharded, the forward's legs and the program
+  totals."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import overlap
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding, hierarchical_params)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu',
+                                mesh_shape=case['shape'])
+  out = {}
+  try:
+    me = m.product_rank
+    for name, dr in case['draws'].items():
+      tables = [TableConfig(r, w, combiner=c) for r, w, c in dr['tables']]
+      kw = dict(dr['options'])
+      if dr['hot'] is not None:
+        kw['hot_cache'] = {t: HotSet(t, np.asarray(v))
+                           for t, v in dr['hot'].items()}
+      flat = DistributedEmbedding(tables, mesh=m, **kw)
+      hl = DistributedEmbedding(tables, mesh=m, dcn_sharding=True, **kw)
+      b = dr['batch'] // m.product_size
+      mine = lambda xs: [x[me * b:(me + 1) * b] for x in xs]
+      real = {gi: g.rows_h[m.slice_index][m.rank]
+              for gi, g in enumerate(hl.hier.groups)}
+
+      def cell(params):
+        # this cell's real rows of each leaf (padding past them is filler)
+        leaves = {}
+        for k, v in params.items():
+          v = v.detach()
+          if not k.startswith('hot_'):
+            v = v[:real[int(k.rsplit('_', 1)[1])]]
+          leaves[k] = _leaves('x', {'v': v}, {})['x/v']
+        return leaves
+
+      # the hierarchical init IS the flat init resharded
+      drawn, resharded = (cell(hl.init(dr['seed'])),
+                          cell(hierarchical_params(hl, flat.init(dr['seed']))))
+      assert sorted(drawn) == sorted(resharded)
+      for k in drawn:
+        np.testing.assert_array_equal(drawn[k], resharded[k], err_msg=k)
+      pf = checkpoint.set_weights(flat, dr['weights'])
+      ph = hierarchical_params(hl, pf)
+      res = {'converted': cell(ph)}
+      with torch.no_grad():
+        res['flat_outs'] = [o.numpy() for o in flat.apply(pf, mine(dr['ins']))]
+        res['outs'] = [o.numpy() for o in hl.apply(ph, mine(dr['ins']))]
+      res['legs'] = [l.as_dict() for l in hl.lookup_plan().legs]
+      res['flat_legs'] = [l.as_dict() for l in flat.lookup_plan().legs]
+      opt = (sparse.SparseSGD(0.3) if dr['opt'] == 'sgd'
+             else sparse.SparseAdagrad(0.3))
+      W = [torch.tensor(w) for w in dr['W']]
+
+      def loss_fn(dense_params, emb_outs, batch):
+        return sum((o * w).sum() for o, w in zip(emb_outs, W)) / b
+
+      trained = {}
+      for tag, dist, p in (('flat', flat, pf), ('hier', hl, ph)):
+        state = sparse.init_hybrid_train_state(
+            dist, {'embedding': {k: v.clone() for k, v in p.items()}},
+            optim.sgd(0.1), opt)
+        step = sparse.make_hybrid_train_step(dist, loss_fn, optim.sgd(0.1),
+                                             opt)
+        losses = []
+        for ins in dr['steps']:
+          state, loss = step(state, mine(ins), None)
+          losses.append(float(loss))
+        res[f'{tag}_losses'] = losses
+        trained[tag] = state
+      res['trained'] = cell(trained['hier'].params['embedding'])
+      res['trained_flat'] = cell(hierarchical_params(
+          hl, trained['flat'].params['embedding']))
+      res['state'] = {}
+      for k, st in trained['hier'].opt_state[1].items():
+        for leaf, v in st.items():
+          if not k.startswith('hot_'):
+            v = v[:real[int(k.rsplit('_', 1)[1])]]
+          res['state'][f'{k}/{leaf}'] = v.numpy()
+      totals = {}
+      for tag, dist, leg in (('hier', hl, True), ('ici_only', hl, False),
+                             ('flat', flat, True)):
+        fn, inputs = overlap.build_exchange_program(dist, mine(dr['ins']),
+                                                    dcn_leg=leg)
+        totals[tag] = float(fn(*inputs))
+      res['program'] = totals
+      out[name] = res
+    with open(f'{out_dir}/hier{rank}.pkl', 'wb') as f:
+      pickle.dump(out, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()

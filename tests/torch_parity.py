@@ -7,7 +7,7 @@ JAX side runs on the CPU, the port with ``device='cpu'``.
 import dataclasses
 import multiprocessing
 import pickle
-import socket
+import time
 
 import numpy as np
 
@@ -16,6 +16,8 @@ import jax
 from distributed_embeddings_tpu.models import synthetic as jax_synthetic
 from distributed_embeddings_tpu.parallel.mesh import create_mesh
 from distributed_embeddings_tpu_torch.models import synthetic
+
+import torch_exchange_worker
 
 
 def reduced(module, name='tiny', max_rows=2000, max_tables=None):
@@ -32,7 +34,12 @@ def reduced(module, name='tiny', max_rows=2000, max_tables=None):
   return dataclasses.replace(cfg, embedding_configs=blocks)
 
 
-def jax_mesh(n):
+def jax_mesh(n, slices=None):
+  """A JAX CPU mesh of ``n`` devices: one flat axis, or with ``slices``
+  the two-axis ``(dcn, data)`` mesh ``create_mesh((slices, n //
+  slices))``."""
+  if slices:
+    return create_mesh((slices, n // slices))
   return create_mesh(jax.devices()[:n])
 
 
@@ -118,34 +125,51 @@ def mixed_case(batch, n_batches, seed=0):
   return weights, kernel, labels, batches
 
 
-def free_port():
-  """A free localhost port for a gloo rendezvous (tier-1 runs test files
-  in parallel, so every spawning test picks its own)."""
-  with socket.socket() as s:
-    s.bind(('localhost', 0))
-    return s.getsockname()[1]
+def _log_tail(path, limit=4000):
+  try:
+    with open(path, errors='replace') as f:
+      return f.read()[-limit:]
+  except OSError as e:
+    return f'<no log: {e}>'
 
 
 def spawn_ranks(target, case, tmp_path, world_size=2, timeout=240):
   """Run ``target(rank, world_size, init_method, case_path, out_dir)`` in
-  ``world_size`` spawned processes and wait for all of them; a rank that
-  hangs is killed and fails the test."""
+  ``world_size`` spawned processes and wait for all of them.
+
+  Each rank runs ``torch_exchange_worker.rank_main``: its fd 1 and fd 2
+  go to ``tmp_path/rank{r}.log`` (C++ output included), ``faulthandler``
+  is on, and it writes ``tmp_path/done{r}`` once ``target`` has returned
+  (after its ``destroy_process_group``).  The ranks meet through a file
+  rendezvous in ``tmp_path`` (no port to race for, no TCPStore server
+  thread).  The test fails unless every rank exits 0 AND left its
+  marker; the message gives each rank's exit code (-6 is SIGABRT), its
+  marker and the tail of its log.  A rank that hangs is killed."""
   case_path = tmp_path / 'case.pkl'
   with open(case_path, 'wb') as f:
     pickle.dump(case, f)
   ctx = multiprocessing.get_context('spawn')
-  init = f'tcp://localhost:{free_port()}'
-  procs = [ctx.Process(target=target,
-                       args=(r, world_size, init, str(case_path),
+  init = f'file://{tmp_path / "rendezvous"}'
+  procs = [ctx.Process(target=torch_exchange_worker.rank_main,
+                       args=(target, r, world_size, init, str(case_path),
                              str(tmp_path)))
            for r in range(world_size)]
   for p in procs:
     p.start()
+  deadline = time.monotonic() + timeout
   for p in procs:
-    p.join(timeout=timeout)
+    p.join(timeout=max(1.0, deadline - time.monotonic()))
   alive = [p for p in procs if p.is_alive()]
   for p in alive:
     p.kill()
     p.join(timeout=10)
-  assert not alive, 'a rank hung'
-  assert [p.exitcode for p in procs] == [0] * world_size
+  codes = [p.exitcode for p in procs]
+  markers = [(tmp_path / f'done{r}').exists() for r in range(world_size)]
+  if alive or codes != [0] * world_size or not all(markers):
+    report = [f'{len(alive)} rank(s) hung past {timeout} s' if alive else
+              'a rank failed']
+    for r in range(world_size):
+      report.append(f'--- rank {r}: exit code {codes[r]}, marker '
+                    f'{"written" if markers[r] else "missing"}; log tail:\n'
+                    + _log_tail(tmp_path / f'rank{r}.log'))
+    raise AssertionError('\n'.join(report))
