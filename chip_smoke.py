@@ -202,6 +202,28 @@ Phases, each of which exits non-zero on failure:
             rendezvous, each rank's output logged, a marker written
             after its work, os._exit(0); a rank that fails, leaves no
             marker or outlasts its timeout fails the phase.
+9j. tier-tiny: the host-DRAM cold tier (cold_tier, parallel/coldtier.py)
+            on the tiny model at full size with phase 9e's training hot
+            sets, two arms (f32, then int8 tables), each a tiered model
+            under a device_hbm_budget of half its resident twin's
+            resident_table_bytes() beside that twin, both drawn from the
+            same seed: the draw equal (each head against the twin's first
+            rows, each host tail against the rest, bit for bit); the
+            forward at batch 65536 equal bit for bit at every hotness,
+            launches counted (one more lookup a tiered subgroup: the
+            fetch buffers' gather); one batch's pre-pass, build_fetch
+            (host gather + copy from pinned memory) and write_back timed,
+            its fetched rows and bytes (fetch_stats); phase 7's
+            optimizers, a warm-up and 3 timed steps each (launches
+            counted, the f32 arm's applies on the segment walk's
+            two-source arm), then tables, accumulators, hot buffers and
+            their state over head and tail bit-exact against the twin;
+            one more captured step: each gather of the fetch buffers
+            (the dequantizing arm in int8) and each two-source apply
+            against its plain version (compact copies of the touched head
+            and tail rows; equal to what the step wrote), timed beside
+            the bound; 5 steps through ColdFetchPipeline (its
+            overlap_pct); peak device memory.
 10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -286,6 +308,31 @@ Phases, each of which exits non-zero on failure:
             copy and decode(encode) is the identity; the bf16 cast equals
             the CPU's; encode, decode and cast timed (device_ms) beside
             their bound (each byte read and written once).
+13g. dlrm-tier: host memory read from /proc/meminfo (MemTotal,
+            MemAvailable); gen_data.py's writer puts 8 batches of 65536
+            samples of the learnable power-law split (and one test
+            batch) at the MLPerf Criteo-1TB vocabularies into a directory
+            under build/ (deleted after), the largest vocabularies capped
+            only if MemAvailable cannot hold the host tail plus 16 GiB
+            (the cut printed as reduced); the Python reader timed over
+            it; then examples/dlrm/main.py --dataset_path --dp_input
+            --hot_cache --cold_tier_budget_mb 61440 --cold_fetch_rows
+            262144 --param_dtype float32 --max_steps 5 --loader_bench in
+            process (the capacity fixed: the first batches calibrate the
+            hot sets, so the first has the fewest cold rows): the f32 tables
+            (96.1 GB) larger than the card, 60 GiB of heads on it and the
+            tails in host memory, hot sets calibrated on the dataset, the
+            native reader required (its samples/s from --loader_bench).
+            Every loss finite; around step 1 (the first with a non-zero
+            learning rate) every tail row the step fetched changed and
+            every other tail row kept its bytes (sha1 of every block of
+            the tails before and after, the fetched rows put back);
+            after the last step 512 samples' forward equal bit for bit a
+            plain gather of their rows from the hot buffers, the heads
+            and the host tails, and the head's logits on it; each
+            build_fetch and write_back timed, the pipeline's overlap,
+            the step times and the peak device memory; every kernel and
+            the two-source arm launched on the run (counted).
 14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
@@ -362,7 +409,10 @@ benchmark (with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
 The line before last is the kernels' JSON summary (the lookup, the
 segment walk, its two bf16 arms, its adam op, the lookup's CSR arm and
 its dequantizing arm: launches from phase 13e's steps, times at its
-shape, the tiny models' shapes beside them); each row and summary with a kernel time says by which ``clock``:
+shape, the tiny models' shapes beside them; the segment walk's
+two-source arm: launches from phase 13g's steps, times at phase 9j's
+shapes, and the lookup's tier gathers under ``tier_tiny``); each row
+and summary with a kernel time says by which ``clock``:
 ``queued`` (CUDA events around back-to-back calls queued ahead of the
 device, so no launch gap counts) or ``events: <keys>`` (the times of
 calls that wait on the device, their gaps counted).
@@ -394,6 +444,7 @@ import torch.distributed as torch_dist
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.examples.benchmarks import (
     lookup_benchmark)
+from distributed_embeddings_tpu_torch.examples.dlrm import gen_data
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
@@ -402,15 +453,16 @@ from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
-                                                       checkpoint, grad,
-                                                       hotcache, overlap,
-                                                       quantization,
+                                                       checkpoint, coldtier,
+                                                       grad, hotcache,
+                                                       overlap, quantization,
                                                        routing, sparse)
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
-from distributed_embeddings_tpu_torch.utils import data, nativebuild
+from distributed_embeddings_tpu_torch.utils import (data, fastloader,
+                                                    nativebuild)
 
 # H100 SXM data-sheet peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -462,6 +514,15 @@ DEQUANT_ARM = {
     'route': 'cuda',
     'source': 'distributed_embeddings_tpu_torch/csrc/lookup_combine.cu',
     'replaces': 'distributed_embeddings_tpu/parallel/dist_embedding.py:2984',
+}
+# the segment walk's two-source arm (the cold tier's apply): an arm of the
+# same source, built with it; it stands in for the JAX package's tiered
+# apply, which concatenates the head and the fetched tail
+TWO_SOURCE_ARM = {
+    'name': 'segwalk_apply:two_source',
+    'route': 'cuda',
+    'source': 'distributed_embeddings_tpu_torch/csrc/segwalk_apply.cu',
+    'replaces': 'distributed_embeddings_tpu/parallel/sparse.py:1332',
 }
 MODEL = 'tiny'
 BATCH = 65536  # global batch of the forward and of training
@@ -520,6 +581,19 @@ DCN_TIMEOUT_S = 600  # all four ranks, start to end
 DLRM_WIRE_ROWS = 1_703_936  # the DLRM's looked-up rows a step (65536 x 26)
 # phase 13b's one cut: examples/dlrm/gen_data.py --preset onechip
 ONECHIP_MAX_ROWS = 2_000_000
+TIER_DTYPES = (None, 'int8')  # phase 9j's arms: f32 and int8 tables
+TIER_STEPS = 3  # phase 9j's steps after the warm-up, tier and twin
+TIER_PIPE_STEPS = 5  # phase 9j's pipelined steps
+TIER_BUDGET_MB = 61440  # phase 13g: 60 GiB of tables on the card
+TIER_HOST_HEADROOM = 16 << 30  # host memory phase 13g keeps beside the tail
+TIER_DLRM_BATCHES = 8  # phase 13g's written train batches
+TIER_DLRM_STEPS = 5
+TIER_CHECK_STEP = 1  # the first step with a non-zero learning rate
+# phase 13g's fetch capacity: its first batches also calibrate the hot
+# sets, so the first batch has the fewest cold rows; calibrated on it
+# (68,096 rows), the capacity refused a later batch that needed 137,845
+# (H100 80GB HBM3, 700 W)
+TIER_FETCH_ROWS = 1 << 18
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
 # is not committed)
 CKPT_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_ckpt'
@@ -651,15 +725,18 @@ def phase_card():
 
 def phase_build():
   t0 = time.perf_counter()
-  with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+  with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    host = pool.submit(nativebuild.build_host, 'fastloader')
     built = list(pool.map(nativebuild.build, [k['name'] for k in KERNELS]))
+    built.append(host.result())
   for b in built:
     log(f'[build] {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}')
     for line in b.log.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'[build]   {line.strip()}')
-  log(f'[build] all kernels in {time.perf_counter() - t0:.2f} s '
-      '(one nvcc per source, in parallel)')
+  log(f'[build] all kernels and the host reader in '
+      f'{time.perf_counter() - t0:.2f} s (one compiler per source, in '
+      'parallel)')
 
 
 def pad_multi_hot(cats, hotness, rng):
@@ -5193,6 +5270,648 @@ def phase_dlrm_wire(seed):
   return launches['bfloat16'], out
 
 
+# ------------------------------------------------------ host-DRAM cold tier
+
+
+def same_bits(a, b):
+  """Two tensors equal bit for bit (a ``-0.0`` against a ``+0.0`` or two
+  NaNs of other payloads differ): compared through an integer view of
+  their bytes, in row blocks."""
+  if a.shape != b.shape or a.dtype != b.dtype:
+    return False
+  ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+  view = lambda x: x.contiguous().view(ints[x.element_size()])
+  for r0 in range(0, max(1, a.shape[0]), CHECK_BLOCK_ROWS):
+    x = a[r0:r0 + CHECK_BLOCK_ROWS]
+    y = b[r0:r0 + CHECK_BLOCK_ROWS].to(x.device)
+    if not torch.equal(view(x), view(y)):
+      return False
+  return True
+
+
+def tier_tail(tier, gi, what, leaf=None):
+  """A host tail of the tier as a CPU tensor of its dtype."""
+  if what == 'opt':
+    return tier.opt_tail(gi, leaf)
+  arr = tier.payload[gi] if what == 'payload' else tier.scale[gi]
+  t = torch.from_numpy(arr)
+  if what == 'payload' and tier.quant is not None:
+    t = t.view(tier.quant.torch_dtype)
+  return t
+
+
+def check_tier_state(tag, tdist, tparams, tstate, udist, uparams, ustate):
+  """A tiered layer's state against its fully resident twin's, bit for
+  bit: each group's head against the twin's first rows and its host tail
+  against the rest, for the payload, the scales and every optimizer
+  leaf; the hot buffers and their state whole."""
+  tier = tdist.cold_tier
+  for key, u in uparams.items():
+    t = tparams[key]
+    if key.startswith('hot_'):
+      ok = same_bits(t, u)
+    else:
+      gi = int(key.rsplit('_', 1)[1])
+      res = tdist.plan.groups[gi].device_rows
+      ok = same_bits(t, u[:res])
+      if gi in tier.payload:
+        what = 'scale' if key.startswith('scale_') else 'payload'
+        ok = ok and same_bits(tier_tail(tier, gi, what), u[res:].cpu())
+    if not ok:
+      raise AssertionError(f'{tag}: {key} differs from the resident twin')
+  if tstate is None:
+    return
+  for key, leaves in ustate.items():
+    for leaf, u in leaves.items():
+      t = tstate[key][leaf]
+      if key.startswith('hot_'):
+        ok = same_bits(t, u)
+      else:
+        gi = int(key.rsplit('_', 1)[1])
+        res = tdist.plan.groups[gi].device_rows
+        ok = same_bits(t, u[:res])
+        if gi in tier.payload:
+          ok = ok and same_bits(tier_tail(tier, gi, 'opt', leaf),
+                                u[res:].cpu())
+      if not ok:
+        raise AssertionError(f'{tag}: state {key}/{leaf} differs from the '
+                             'resident twin')
+
+
+def tier_launches(tdist, hotness, per_step):
+  """A tiered layer's launches of one cached step from its twin's
+  (``hot_launches``): one more lookup a tiered subgroup and chunk round
+  (the fetch buffers' gather), the same segment walks; on an unquantized
+  plan each tiered group's apply on the two-source arm."""
+  subs = tdist._subgroups(tuple(hotness))
+  tiered = set(tdist.plan.cold_tier_groups)
+  extra = sum(len(tdist._chunk_bounds(s.n_cap)) for s in subs
+              if s.gi in tiered)
+  fwd = {'lookup_combine': per_step[0]['lookup_combine'] + extra,
+         'segwalk_apply': 0}
+  step = {'lookup_combine': per_step[1]['lookup_combine'] + extra,
+          'segwalk_apply': per_step[1]['segwalk_apply']}
+  if tdist.quant is None:
+    step['segwalk_apply:two_source'] = len({s.gi for s in subs} & tiered)
+  return fwd, step
+
+
+def captured_tier_step(step, state, cats, batch, fetch):
+  """One real tiered step on ``fetch`` that also records the gathers of
+  the fetch buffers (``fused_group_lookup`` on a fetch payload) and each
+  two-source apply, with compact copies of the rows it touches in the
+  head and in the tail (taken before the in-place update)."""
+  gathers, applies = [], []
+  payloads = {f['payload'].data_ptr(): gi for gi, f in fetch.device.items()}
+  fused, apply = lookup.fused_group_lookup, segwalk.segwalk_apply
+
+  def record_fused(table, routed, combiners, compute_dtype, scale=None):
+    if table.data_ptr() in payloads:
+      gathers.extend((table, r.reshape(-1, r.shape[2]), scale)
+                     for r in routed)
+    return fused(table, routed, combiners, compute_dtype, scale)
+
+  def record_apply(table, acc, ids, grads, lr, *, op, eps=1e-7, g_index=None,
+                   betas=segwalk.BETAS, tail=None):
+    if tail is not None:
+      res = table.shape[0]
+      rows = res + tail.table.shape[0]
+      touched = torch.unique(ids[(ids >= 0) & (ids < rows)]).long()
+      head, in_tail = touched[touched < res], touched[touched >= res] - res
+      applies.append({
+          'table': table, 'acc': acc, 'tail': tail, 'ids': ids,
+          'grads': grads, 'g_index': g_index, 'lr': lr, 'eps': eps, 'op': op,
+          'touched': touched, 'head': head, 'in_tail': in_tail,
+          'compact': (table[head], None if acc is None else acc[head],
+                      tail.table[in_tail],
+                      None if tail.acc is None else tail.acc[in_tail])})
+    return apply(table, acc, ids, grads, lr, op=op, eps=eps,
+                 g_index=g_index, betas=betas, tail=tail)
+
+  lookup.fused_group_lookup = record_fused
+  segwalk.segwalk_apply = record_apply
+  try:
+    state, loss = step(state, cats, batch, cold_fetch=fetch)
+  finally:
+    lookup.fused_group_lookup = fused
+    segwalk.segwalk_apply = apply
+  return state, loss, gathers, applies
+
+
+def check_two_source(call, label):
+  """One captured two-source apply: the kernel against its plain version
+  on compact copies of its touched rows (the head's and the tail's, the
+  ids remapped in order: the same sorted stream and summation order),
+  Adagrad rtol = atol = 1e-6, sgd bit-exact, and the kernel's rows equal
+  to what the step wrote, bit for bit; then kernel and plain times on
+  the real head and fetch buffers at lr 0 beside the bound."""
+  op, ids, touched = call['op'], call['ids'], call['touched']
+  table, acc, tail = call['table'], call['acc'], call['tail']
+  rows = table.shape[0] + tail.table.shape[0]
+  u, n_head = touched.shape[0], call['head'].shape[0]
+  valid = (ids >= 0) & (ids < rows)
+  cids = torch.where(valid, torch.searchsorted(
+      touched.to(torch.int32), ids).to(torch.int32), torch.full_like(ids, u))
+  csegs = segwalk.sort_stream(cids, u, call['g_index'])
+  ch, cha, ct, cta = call['compact']
+  out = []
+  for fn in (segwalk.apply_segments, segwalk.apply_segments_reference):
+    h, ha, t, ta = (None if x is None else x.clone()
+                    for x in (ch, cha, ct, cta))
+    fn(h, ha, csegs, call['grads'], call['lr'], op=op, eps=call['eps'],
+       tail=segwalk.Tail(t, ta))
+    out.append((h, ha, t, ta))
+  torch.cuda.synchronize()
+  (kh, kha, kt, kta), (ph, pha, pt, pta) = out
+  err = max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+            for x, y in ((kh, ph), (kt, pt)) + (
+                ((kha, pha), (kta, pta)) if acc is not None else ()))
+  if op == 'sgd':
+    ok, tol = torch.equal(kh, ph) and torch.equal(kt, pt), 'bit-exact'
+  else:
+    ok = all(torch.allclose(x.float(), y.float(), rtol=1e-6, atol=1e-6)
+             for x, y in ((kh, ph), (kt, pt), (kha, pha), (kta, pta)))
+    tol = 'rtol=atol=1e-6 (rsqrt)'
+  if not ok:
+    raise AssertionError(f'{label}: the two-source arm disagrees with its '
+                         f'plain version, max abs err {err} ({tol})')
+  head, in_tail = call['head'], call['in_tail']
+  stepped = ((table[head], kh), (tail.table[in_tail], kt)) + (
+      ((acc[head], kha), (tail.acc[in_tail], kta)) if acc is not None
+      else ())
+  if not all(same_bits(x, y) for x, y in stepped):
+    raise AssertionError(f'{label}: the kernel on the compact copies '
+                         'differs from what the step wrote')
+  segs = segwalk.sort_stream(ids, rows, call['g_index'])
+  nbytes, bound_ms, bound_by = segwalk_bound(segs, call['grads'], table, acc,
+                                             op)
+  kernel_ms = device_ms(lambda: segwalk.apply_segments(
+      table, acc, segs, call['grads'], 0.0, op=op, eps=call['eps'],
+      tail=tail), 10, floor_ms=bound_ms)
+  plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+      table, acc, segs, call['grads'], 0.0, op=op, eps=call['eps'],
+      tail=tail))
+  n = segs.sorted_ids.shape[0]
+  row = {'stream': label, 'op': op, 'dtype': 'float32',
+         'stream_dtype': str(call['grads'].dtype).replace('torch.', ''),
+         'acc_dtype': None if acc is None else 'float32',
+         'rows': rows, 'res': table.shape[0], 'fetch_rows':
+         tail.table.shape[0], 'w': table.shape[1], 'positions': n,
+         'segments': segs.count, 'head_rows': n_head,
+         'tail_rows': u - n_head, 'longest_segment': segs.longest(),
+         'chunks': -(-n // segwalk.CHUNK), 'bytes': nbytes,
+         'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
+         'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound_ms,
+         'bound_by': bound_by}
+  log('[tier-tiny] ' + json.dumps(clocked(row)))
+  return row
+
+
+def phase_tier_tiny(config, seed):
+  """Phase 9j: the host-DRAM cold tier on the tiny model at full size
+  (see the module docstring).  Returns each arm's numbers and the kernel
+  rows."""
+  tables, _, _ = expand_tables(config)
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  numbers, rows = {}, {'gather': [], 'apply': []}
+  for dtype in TIER_DTYPES:
+    tag = f'tier-tiny-{dtype or "f32"}'
+    twin = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                          table_dtype=dtype, device='cuda').init(seed + 19)
+    udist = twin.dist_embedding
+    budget = udist.plan.resident_table_bytes() // 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                           table_dtype=dtype, cold_tier=True,
+                           device_hbm_budget=budget,
+                           device='cuda').init(seed + 19)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dist = model.dist_embedding
+    tier = dist.cold_tier
+    check_tier_state(f'{tag} init', dist, model.embedding_params, None,
+                     udist, twin.embedding_params, None)
+    hotness = tuple(model.hotness)
+    fwd_want, step_want = tier_launches(dist, hotness,
+                                        hot_launches(udist, hotness))
+    geometry = coldtier.tier_stats(dist)
+    num = {'budget_bytes': budget, 'init_s': init_s,
+           'resident_gib': geometry['cold_tier_resident_bytes'] / 2**30,
+           'host_gib': geometry['cold_tier_host_bytes'] / 2**30,
+           'groups': {gi: (dist.plan.groups[gi].device_rows,
+                           dist.plan.groups[gi].tier_rows)
+                      for gi in dist.plan.cold_tier_groups}}
+    log(f'[{tag}] budget {budget:,} B (half the resident twin\'s '
+        f'{budget * 2:,}): {len(num["groups"])} tiered group(s), resident '
+        f'and tail rows {json.dumps(num["groups"])}; {num["resident_gib"]:.3f}'
+        f' GiB on the card, {num["host_gib"]:.3f} GiB in host memory; drawn '
+        f'in {init_s:.2f} s, equal to the twin\'s draw bit for bit')
+    batches = train_batches(config, hotness, seed + 19, TIER_STEPS + 3)
+    cats = batches[0][0]
+    with torch.no_grad():
+      reset_launches()
+      got = dist.apply(model.embedding_params, cats)
+      fwd_launches = read_launches()
+      want = udist.apply(twin.embedding_params, cats)
+    if fwd_launches != fwd_want or not all(
+        same_bits(g, w) for g, w in zip(got, want)):
+      raise AssertionError(f'{tag} forward: launched {fwd_launches} '
+                           f'(expected {fwd_want}), or differs from the '
+                           'twin\'s')
+    del got, want
+    log(f'[{tag}] the tiered forward at batch {BATCH} equals the twin\'s '
+        f'bit for bit (every hotness); launches {json.dumps(fwd_launches)}')
+    # the pre-pass, the fetch and the write-back on one batch
+    inputs, _, _ = dist._prepare_inputs(cats)
+    t0 = time.perf_counter()
+    prepass = coldtier.compute_fetch_rows(dist, inputs)
+    prepass_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fetch = coldtier.build_fetch(dist, inputs, rows=prepass)
+    torch.cuda.synchronize()
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    coldtier.write_back(dist, fetch)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    stats = coldtier.fetch_stats(dist, fetch)
+    num.update(prepass_ms=prepass_ms, build_fetch_ms=fetch_ms,
+               write_back_ms=write_ms,
+               fetch_rows=stats['cold_tier_fetch_rows'],
+               fetch_bytes=stats['cold_tier_fetch_bytes'],
+               fetch_scale_bytes=stats['cold_tier_fetch_scale_bytes'],
+               fetch_caps=dist.fetch_caps_for(BATCH))
+    log(f'[{tag}] one batch: pre-pass {prepass_ms:.3f} ms, build_fetch '
+        f'(host gather + copy) {fetch_ms:.3f} ms, write_back '
+        f'{write_ms:.3f} ms (host clock); {stats["cold_tier_fetch_rows"]:,} '
+        f'rows, {stats["cold_tier_fetch_bytes"]:,} payload bytes and '
+        f'{stats["cold_tier_fetch_scale_bytes"]:,} scale bytes fetched '
+        f'(optimizer rows beside them); capacities '
+        f'{json.dumps(num["fetch_caps"])}')
+    del fetch
+    # SparseAdagrad(0.01) steps from the same state, tier and twin
+    ustep, ustate = build_trainer(twin)
+    tstep, tstate = build_trainer(model)
+    runs = {}
+    for which, step, state, per in (
+        ('twin', ustep, ustate, hot_launches(udist, hotness)[1]),
+        ('tiered', tstep, tstate, step_want)):
+      state, launches, times, peak = timed_steps(
+          f'{tag}-{which}', step, state, batches,
+          {k: v * TIER_STEPS for k, v in per.items()}, n_steps=TIER_STEPS)
+      runs[which] = {'launches': launches, 'step_ms': times,
+                     'peak_gib': peak / 2**30}
+      if which == 'twin':
+        ustate = state
+      else:
+        tstate = state
+    check_tier_state(f'{tag} after {TIER_STEPS + 1} steps', dist,
+                     tstate.params['embedding'], tstate.opt_state[1], udist,
+                     ustate.params['embedding'], ustate.opt_state[1])
+    num['train'] = runs
+    log(f'[{tag}] after {TIER_STEPS + 1} steps the tiered tables and '
+        'accumulators (head and host tail) equal the twin\'s bit for bit')
+    del ustep, ustate, twin, udist
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at the tier's shapes, on one more captured step
+    cats_c, batch_c = batches[TIER_STEPS + 1]
+    fetch = dist.build_cold_fetch(cats_c)
+    tstate, loss, gathers, applies = captured_tier_step(
+        tstep, tstate, cats_c, batch_c, fetch)
+    if not bool(torch.isfinite(loss)):
+      raise AssertionError(f'{tag} capture step: loss {float(loss)}')
+    for table, ids, scale in gathers:
+      label = (f'tier_gather_{dtype or "f32"}_w{table.shape[1]}_'
+               f'cap{table.shape[0]}_M{ids.shape[0]}')
+      rows['gather'].append(
+          check_kernel_shape(table, ids, label) if scale is None else
+          check_dequant_shape(table, ids, scale, label))
+    for call in applies:
+      rows['apply'].append(check_two_source(
+          call, f'tier_apply_{call["op"]}_w{call["table"].shape[1]}_res'
+          f'{call["table"].shape[0]}_cap{call["tail"].table.shape[0]}'))
+    if not gathers or (dtype is None and not applies):
+      raise AssertionError(f'{tag}: the captured step made no tier gather '
+                           f'({len(gathers)}) or two-source apply '
+                           f'({len(applies)})')
+    # the pipelined pre-pass over more steps
+    pipe = coldtier.ColdFetchPipeline(
+        dist, (b[0] for b in batches[:TIER_PIPE_STEPS]))
+    pipe_ms = []
+    for i, ((cats_p, fetch_p), (_, batch_p)) in enumerate(zip(pipe,
+                                                              batches)):
+      t0 = time.perf_counter()
+      tstate, loss = tstep(tstate, cats_p, batch_p, cold_fetch=fetch_p)
+      pipe_ms.append((time.perf_counter() - t0) * 1e3)
+      if not bool(torch.isfinite(loss)):
+        raise AssertionError(f'{tag} pipelined step {i}: loss {float(loss)}')
+      if i == 0:
+        pipe.reset_stats()
+    pipe.close()
+    num['pipeline'] = {**pipe.stats(), 'step_ms': pipe_ms}
+    if not 0.0 <= num['pipeline']['overlap_pct'] <= 1.0:
+      raise AssertionError(f'{tag}: overlap_pct {num["pipeline"]}')
+    num['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    log(f'[{tag}] ColdFetchPipeline over {TIER_PIPE_STEPS} steps: '
+        f'{json.dumps(num["pipeline"])}; peak device memory '
+        f'{num["peak_gib"]:.3f} GiB')
+    numbers[dtype or 'f32'] = num
+    del tstep, tstate, model, dist, tier, fetch, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+  return numbers, rows
+
+
+def tier_summary(k, seg, numbers, rows):
+  """Phase 9j's entries of the summary line: each arm's launches, the
+  tier's gather shapes on the lookup, and the two-source arm's row."""
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_tier_tiny'] = {
+        arm: n['train']['tiered']['launches'][name]
+        for arm, n in numbers.items()}
+  k['max_abs_err'] = max([k['max_abs_err']]
+                         + [r['max_abs_err'] for r in rows['gather']])
+  k['tier_tiny'] = {
+      'ms': sum(r['kernel_ms'] for r in rows['gather']),
+      'plain_ms': sum(r['plain_ms'] for r in rows['gather']),
+      'bound_ms': sum(r['bound_ms'] for r in rows['gather']),
+      'library_ms': (None if any(r['library_ms'] is None
+                                 for r in rows['gather'])
+                     else sum(r['library_ms'] for r in rows['gather'])),
+      'shapes': [{key: r.get(key) for key in (
+          'shape', 'M', 'h', 'w', 'dtype', 'distinct_rows', 'kernel_ms',
+          'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')}
+                 for r in rows['gather']]}
+  seg['tier_tiny'] = numbers
+  launches = numbers['f32']['train']['tiered']['launches'].get(
+      'segwalk_apply:two_source', 0)
+  return summed(TWO_SOURCE_ARM, launches, rows['apply'])
+
+
+def meminfo():
+  """``/proc/meminfo`` in bytes (``MemTotal``, ``MemAvailable``...)."""
+  out = {}
+  with open('/proc/meminfo', encoding='ascii') as f:
+    for line in f:
+      key, value = line.split(':', 1)
+      parts = value.split()
+      out[key] = int(parts[0]) * (1024 if parts[1:] == ['kB'] else 1)
+  return out
+
+
+def tier_sizes(budget):
+  """The vocabularies of phase 13g: the MLPerf ones, the largest capped
+  (10 % at a time) until the host tail the plan leaves plus
+  ``TIER_HOST_HEADROOM`` fits ``MemAvailable``; ``(sizes, cut, tail
+  bytes)``, ``cut`` None without a cap."""
+  from distributed_embeddings_tpu_torch.parallel.planner import (
+      ShardingPlan, TableConfig)
+  avail = meminfo()['MemAvailable']
+  sizes = list(data.MLPERF_SIZES)
+  while True:
+    plan = ShardingPlan([TableConfig(s, 128) for s in sizes], world_size=1,
+                        strategy='memory_balanced', cold_tier=True,
+                        device_hbm_budget=budget, packed_storage=False)
+    tail = sum(g.tier_rows * plan.row_bytes(g.width) for g in plan.groups)
+    if tail + TIER_HOST_HEADROOM <= avail:
+      break
+    top = max(sizes)
+    sizes = [int(s * 0.9) if s == top else s for s in sizes]
+  cut = None if sizes == list(data.MLPERF_SIZES) else {
+      i: (a, b) for i, (a, b) in enumerate(zip(data.MLPERF_SIZES, sizes))
+      if a != b}
+  return sizes, cut, tail
+
+
+def block_hashes(arr, pool, block_rows=1 << 20, patch=None):
+  """sha1 of each block of ``block_rows`` rows of a host array, hashed
+  in parallel (hashlib releases the GIL); ``patch`` ``(rows, values)``
+  hashes the blocks as if those rows held those values."""
+  import hashlib
+
+  def one(lo):
+    block = arr[lo:lo + block_rows]
+    if patch is not None:
+      rows, values = patch
+      mine = (rows >= lo) & (rows < lo + block_rows)
+      if mine.any():
+        block = block.copy()
+        block[rows[mine] - lo] = values[mine]
+    return hashlib.sha1(np.ascontiguousarray(block).view(np.uint8)).digest()
+
+  return list(pool.map(one, range(0, arr.shape[0], block_rows)))
+
+
+def phase_dlrm_tier(seed):
+  """Phase 13g: examples/dlrm/main.py --dataset_path ... --cold_tier_budget_mb
+  in process, f32, at the MLPerf vocabularies (see the module docstring).
+  Returns the launches and numbers."""
+  mem = meminfo()
+  budget = int(TIER_BUDGET_MB * 2**20)
+  sizes, cut, tail_bytes = tier_sizes(budget)
+  log(f'[dlrm-tier] host memory: MemTotal {mem["MemTotal"] / 2**30:.2f} GiB, '
+      f'MemAvailable {mem["MemAvailable"] / 2**30:.2f} GiB; the tail the '
+      f'plan leaves at {TIER_BUDGET_MB} MB/device: {tail_bytes / 2**30:.2f} '
+      f'GiB (+ {TIER_HOST_HEADROOM / 2**30:.0f} GiB headroom); reduced: '
+      f'{json.dumps(cut)}')
+  if not fastloader.available():
+    raise AssertionError('dlrm-tier: the native reader did not build')
+  root = CKPT_DIR / 'dlrm_tier_data'
+  shutil.rmtree(root, ignore_errors=True)
+  t0 = time.perf_counter()
+  with contextlib.redirect_stdout(_Tee()):
+    gen_data.write_dataset(str(root), sizes, TIER_DLRM_BATCHES * BATCH, BATCH,
+                           alpha=DLRM_ALPHA, seed=seed)
+  gen_s = time.perf_counter() - t0
+  python_reader = data.BinaryCriteoReader(
+      str(root), batch_size=BATCH, numerical_features=13,
+      categorical_features=list(range(len(sizes))),
+      categorical_feature_sizes=sizes, prefetch_depth=10,
+      drop_last_batch=True, offset=0, lbs=BATCH, dp_input=True)
+  t0 = time.perf_counter()
+  n = sum(len(b[2]) for b in python_reader)
+  python_sps = n / (time.perf_counter() - t0)
+  numerical0, cats0, _ = python_reader[0]
+  python_reader.close()
+  argv = ['--dataset_path', str(root), '--dp_input', '--hot_cache',
+          '--cold_tier_budget_mb', str(TIER_BUDGET_MB), '--cold_fetch_rows',
+          str(TIER_FETCH_ROWS), '--param_dtype', 'float32', '--max_steps',
+          str(TIER_DLRM_STEPS), '--loader_bench', '--device', 'cuda']
+  pool = concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4)
+  checks = {}
+  build_ms, write_ms = [], []
+  build, write = coldtier._build_fetch, coldtier._write_back
+
+  def timed_build(*a, **kw):
+    t = time.perf_counter()
+    out = build(*a, **kw)
+    torch.cuda.synchronize()
+    build_ms.append((time.perf_counter() - t) * 1e3)
+    return out
+
+  def timed_write(*a, **kw):
+    t = time.perf_counter()
+    out = write(*a, **kw)
+    write_ms.append((time.perf_counter() - t) * 1e3)
+    return out
+
+  def hook(i, model, state, fetch, stage):
+    dist = model.dist_embedding
+    tier = dist.cold_tier
+    if i == TIER_CHECK_STEP and stage == 'before':
+      # the rows this step fetches, and a hash of every block of the tails
+      checks['touched'] = {gi: fetch.rows_np[gi] - dist.plan.groups[
+          gi].device_rows for gi in dist.plan.cold_tier_groups}
+      checks['old'] = {gi: tier.payload[gi][r].copy()
+                       for gi, r in checks['touched'].items()}
+      stats = coldtier.fetch_stats(dist, fetch)
+      checks['fetch'] = {k: stats[k] for k in (
+          'cold_tier_fetch_rows', 'cold_tier_fetch_bytes')}
+      t = time.perf_counter()
+      checks['hashes'] = {gi: block_hashes(tier.payload[gi], pool)
+                          for gi in dist.plan.cold_tier_groups}
+      checks['hash_s'] = time.perf_counter() - t
+    elif i == TIER_CHECK_STEP and stage == 'after':
+      changed = total = 0
+      for gi, r in checks['touched'].items():
+        after = tier.payload[gi][r]
+        changed += int((after != checks['old'][gi]).any(axis=1).sum())
+        total += r.size
+        # every untouched row as it was: each block hashed with the
+        # touched rows put back to their old values
+        if block_hashes(tier.payload[gi], pool, patch=(
+            r, checks['old'][gi])) != checks['hashes'][gi]:
+          raise AssertionError(f'dlrm-tier group {gi}: a tail row the step '
+                               'did not fetch changed')
+      if not total or changed != total:
+        raise AssertionError(f'dlrm-tier step {i}: {changed} of {total} '
+                             'fetched tail rows changed')
+      checks['touched_rows'] = total
+    elif i == TIER_DLRM_STEPS - 1 and stage == 'after':
+      # the check's own launches are not the run's
+      before = {**read_launches(),
+                'two_source': segwalk.ARM_LAUNCHES['two_source']}
+      checks['forward'] = tier_forward_sample(model, state, numerical0,
+                                              cats0)
+      checks['check_launches'] = {
+          k: v - before[k] for k, v in {
+              **read_launches(),
+              'two_source': segwalk.ARM_LAUNCHES['two_source']}.items()}
+      checks['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+
+  torch.cuda.reset_peak_memory_stats()
+  coldtier._build_fetch, coldtier._write_back = timed_build, timed_write
+  reset_launches()
+  out_lines = _Tee()
+  t0 = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(out_lines):
+      out = dlrm_main.main(argv, step_hook=hook)
+  finally:
+    coldtier._build_fetch, coldtier._write_back = build, write
+    pool.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
+  wall = time.perf_counter() - t0
+  extra = checks.get('check_launches', {})
+  launches = {k: v - extra.get(k, 0) for k, v in read_launches().items()}
+  launches['segwalk_apply:two_source'] = (segwalk.ARM_LAUNCHES['two_source']
+                                          - extra.get('two_source', 0))
+  losses = out['tier_losses']
+  if (len(losses) != TIER_DLRM_STEPS or not all(np.isfinite(losses))
+      or out['loader'] != 'native' or 'forward' not in checks
+      or min(launches.values()) == 0):
+    raise AssertionError(f'dlrm-tier: losses {losses}, reader '
+                         f'{out.get("loader")}, checks {sorted(checks)}, '
+                         f'launches {launches}')
+  tier_line = [l for l in out_lines.lines if l.startswith('cold_tier: ')]
+  numbers = {'sizes_rows': sum(sizes), 'reduced': cut,
+             'tail_gib': tail_bytes / 2**30,
+             'mem_total_gib': mem['MemTotal'] / 2**30,
+             'mem_available_gib': mem['MemAvailable'] / 2**30,
+             'gen_data_s': gen_s, 'wall_s': wall, 'losses': losses,
+             'step_ms': out['tier_step_ms'], 'pipeline': out['tier_pipeline'],
+             'build_fetch_ms': build_ms, 'write_back_ms': write_ms,
+             'loader_native_sps': out['loader_samples_per_s'],
+             'loader_python_sps': python_sps,
+             'touched_rows_checked': checks['touched_rows'],
+             'fetch_step1': checks['fetch'],
+             'tail_hash_s': checks['hash_s'], 'peak_gib': checks['peak_gib'],
+             'forward': checks['forward'], 'tier_lines': tier_line}
+  log(f'[dlrm-tier] {json.dumps(numbers)}; launches {json.dumps(launches)}')
+  log(f'[dlrm-tier] every loss finite; at step {TIER_CHECK_STEP} (the first '
+      f'with a non-zero learning rate) every one of the '
+      f'{checks["touched_rows"]:,} fetched tail rows changed and every '
+      'other tail row kept its bytes (sha1 of each block); the '
+      f'{checks["forward"]["samples"]}-sample forward equals the plain '
+      'gather from head and tail; the native reader ran')
+  return launches, numbers
+
+
+def tier_forward_sample(model, state, numerical, cats, n=512):
+  """The tiered model's forward of ``n`` samples against its plain
+  version: each input's row gathered where it lives (a hot id's from its
+  hot buffer, the others' from the head on the card or the host tail)
+  is its embedding output bit for bit, and the head on those rows is
+  the forward's logits bit for bit."""
+  dist = model.dist_embedding
+  plan = dist.plan
+  params = state.params
+  emb = params['embedding']
+  n = min(n, len(cats[0]))
+  cats = [np.asarray(c[:n]) for c in cats]
+  dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+  tail_hits = hot_hits = 0
+  with torch.no_grad():
+    outs = dist.apply(emb, cats)
+    logits = model.apply(params, numerical[:n], cats)
+    plain = []
+    for i, tid in enumerate(plan.input_table_map):
+      (_, key, off, *_), = plan.shard_layout()[tid]
+      gi = next(g for g, grp in enumerate(plan.groups) if grp.key == key)
+      res = plan.groups[gi].device_rows
+      ids = np.minimum(cats[i], dist.table_configs[tid].input_dim - 1)
+      head = emb[f'group_{gi}']
+      rows = torch.empty((n, head.shape[1]), dtype=head.dtype,
+                         device=head.device)
+      local = off + ids
+      hot = np.zeros(n, bool)
+      hs = plan.hot_sets.get(tid)
+      if hs is not None and hs.ids.size:
+        pos = np.minimum(np.searchsorted(hs.ids, ids), hs.ids.size - 1)
+        hot = hs.ids[pos] == ids
+        (hoff,) = [o for t, _, _, o, _ in plan.groups[gi].hot_chunks
+                   if t == tid]
+        if hot.any():
+          rows[dev(np.nonzero(hot)[0])] = emb[f'hot_group_{gi}'][
+              dev(hoff + pos[hot])]
+      in_head = ~hot & (local < res)
+      in_tail = ~hot & (local >= res)
+      if in_head.any():
+        rows[dev(np.nonzero(in_head)[0])] = head[dev(local[in_head])]
+      if in_tail.any():
+        rows[dev(np.nonzero(in_tail)[0])] = dev(
+            dist.cold_tier.payload[gi][local[in_tail] - res])
+      tail_hits += int(in_tail.sum())
+      hot_hits += int(hot.sum())
+      plain.append(rows)
+    for i, (o, p) in enumerate(zip(outs, plain)):
+      if not same_bits(o, p):
+        bad = (o != p).any(dim=1).nonzero()[:5, 0].tolist()
+        raise AssertionError(f'dlrm-tier input {i}: the forward differs '
+                             f'from the plain gather at samples {bad}')
+    dense = {k: v for k, v in params.items() if k != 'embedding'}
+    ref = model.head(dense, numerical[:n], plain)
+    if not same_bits(logits, ref) or not bool(torch.isfinite(logits).all()):
+      raise AssertionError('dlrm-tier: the logits differ from the head on '
+                           'the plain gather')
+  return {'samples': n, 'inputs': len(plain), 'tail_rows': tail_hits,
+          'hot_rows': hot_hits, 'bit_exact': True}
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -5217,6 +5936,10 @@ def main(argv=None) -> int:
   torch.cuda.empty_cache()
   wire_summary(k, seg, phase_wire_ranks(args.seed))
   dcn_summary(k, seg, phase_dcn_ranks(args.seed))
+  two_source = tier_summary(k, seg, *phase_tier_tiny(
+      SYNTHETIC_MODELS[MODEL], args.seed))
+  gc.collect()
+  torch.cuda.empty_cache()
   run_dlrm(args.seed, k, seg)
   gc.collect()
   torch.cuda.empty_cache()
@@ -5250,6 +5973,14 @@ def main(argv=None) -> int:
   wire_launches, _ = phase_dlrm_wire(args.seed)
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_wire'] = wire_launches[name]
+  gc.collect()
+  torch.cuda.empty_cache()
+  tier_launches_dlrm, seg['dlrm_tier'] = phase_dlrm_tier(args.seed)
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_tier'] = tier_launches_dlrm[name]
+  # the arm's launches on the slice's main path, the DLRM's tiered steps
+  two_source['launches_tier_tiny'] = two_source['launches']
+  two_source['launches'] = tier_launches_dlrm['segwalk_apply:two_source']
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()
@@ -5268,7 +5999,8 @@ def main(argv=None) -> int:
   torch.cuda.empty_cache()
   csr = phase_ragged_lookup()
   log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
-  log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr, dequant])}))
+  log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr, dequant,
+                                      two_source])}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

@@ -76,6 +76,16 @@
 // Only the combinations that exist are compiled: a bf16 A with the Adagrad
 // ops, a bf16 G with sgd and the Adagrad ops.
 //
+// A third arm is the port's own, for the host-DRAM cold tier
+// (parallel/coldtier.py): two sources.  Rows [0, res) of the apply live in
+// the table and accumulator, rows [res, rows) in the batch's fetch buffers
+// (tail_table / tail_acc at row - res).  The wrapper remaps the stream's
+// tail ids monotonically, so the sorted stream, its chunks and every sum
+// are those of one [rows, w] table, and apply_row only picks the base
+// pointer of the row it updates: head and tail come out bit for bit as
+// the one table's rows would, and the resident head is never copied.
+// sgd, add and the Adagrad ops take it (lazy Adam's count has no tail).
+//
 // Design: two passes, no atomics, the same result on every run, and
 // grids sized from the stream length alone (the host reads nothing back).
 //
@@ -195,13 +205,25 @@ __device__ __forceinline__ void store_as(X* p, const float (&x)[V]) {
 
 // The rows an apply updates in place: the table, the Adagrad accumulator
 // (or Adam's first moment m), Adam's second moment v and its per-row step
-// count (null where the op has none).
+// count (null where the op has none).  Two sources (the cold tier's arm):
+// rows [0, res) live in `table` / `acc`, rows [res, rows) in `tail_table`
+// / `tail_acc` at row - res; res == rows (no tail) otherwise.
 template <typename T, typename A>
 struct Rows {
   T* table;
   A* acc;
   float* acc2;
   int32_t* count;
+  T* tail_table;
+  A* tail_acc;
+  int64_t res;
+};
+
+// The tail of a two-source apply (the untyped pointers of Rows' tail).
+struct Tail {
+  void* table;
+  void* acc;
+  int64_t res;
 };
 
 struct Hyper {
@@ -238,14 +260,21 @@ __device__ __forceinline__ void merge(float (&sum)[V], float (&sq)[V],
   }
 }
 
-// The update of V columns of one row at element offset `off`; `step` is
-// the row's Adam step count after this step (adam only).
+// The update of V columns [c, c + V) of row `id` of a [rows, w] apply;
+// `step` is the row's Adam step count after this step (adam only).  A row
+// at or past `res` is addressed in the tail (table and accumulator), at
+// row id - res: the arithmetic is the same either way.
 template <typename T, typename A, int V, int OP>
-__device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t off,
+__device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t id,
+                                          int w, int c,
                                           const float (&sum)[V],
                                           const float (&sq)[V],
                                           const Hyper& h, float step) {
-  const Vec<float, V> t = load_f32<V>(r.table + off);
+  const bool in_tail = id >= r.res;
+  const int64_t off = (in_tail ? id - r.res : id) * w + c;
+  T* const table = in_tail ? r.tail_table : r.table;
+  A* const acc = in_tail ? r.tail_acc : r.acc;
+  const Vec<float, V> t = load_f32<V>(table + off);
   float out[V];
   if constexpr (OP == kSgd) {
 #pragma unroll
@@ -258,7 +287,7 @@ __device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t off,
   } else if constexpr (OP == kAdam) {
     float m[V];
     float v[V];
-    const Vec<float, V> m0 = load_f32<V>(r.acc + off);
+    const Vec<float, V> m0 = load_f32<V>(acc + off);
     const Vec<float, V> v0 = load_f32<V>(r.acc2 + off);
     const float bc1 = __fsub_rn(1.0f, powf(h.b1, step));
     const float bc2 = __fsub_rn(1.0f, powf(h.b2, step));
@@ -274,10 +303,10 @@ __device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t off,
       // the update at the table's dtype, then the add
       out[k] = __fadd_rn(t.v[k], to_f32(from_f32<T>(delta)));
     }
-    store_as<V>(r.acc + off, m);
+    store_as<V>(acc + off, m);
     store_as<V>(r.acc2 + off, v);
   } else {
-    const Vec<float, V> a0 = load_f32<V>(r.acc + off);
+    const Vec<float, V> a0 = load_f32<V>(acc + off);
     float a[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -288,9 +317,9 @@ __device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t off,
       const float scale = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(a[k], h.eps)));
       out[k] = __fsub_rn(t.v[k], __fmul_rn(__fmul_rn(h.lr, sum[k]), scale));
     }
-    store_as<V>(r.acc + off, a);
+    store_as<V>(acc + off, a);
   }
-  store_as<V>(r.table + off, out);
+  store_as<V>(table + off, out);
 }
 
 // Pass 1: block b folds the runs of chunk b.  Dynamic shared memory:
@@ -410,8 +439,7 @@ __global__ void __launch_bounds__(kBlock)
       } else {
         const float step =
             OP == kAdam ? static_cast<float>(rows_out.count[id] + 1) : 0.0f;
-        apply_row<T, A, V, OP>(rows_out, static_cast<int64_t>(id) * w + c,
-                               sum, sq, h, step);
+        apply_row<T, A, V, OP>(rows_out, id, w, c, sum, sq, h, step);
       }
     }
     __syncthreads();
@@ -474,8 +502,8 @@ __global__ void __launch_bounds__(kBlock)
       const int64_t head = j * 2 * w + c;
       merge<V, OP>(sum, sq, part + head, part + sq_part + head);
     }
-    apply_row<T, A, V, OP>(rows_out, static_cast<int64_t>(id) * w + c, sum,
-                           sq, h, static_cast<float>(count + 1));
+    apply_row<T, A, V, OP>(rows_out, id, w, c, sum, sq, h,
+                           static_cast<float>(count + 1));
   }
   if constexpr (OP == kAdam) {
     __syncwarp();  // every lane has read the count
@@ -562,6 +590,8 @@ int vector_width(const Rows<T, A>& r, const G* grads, const float* part,
   while (v > 1 &&
          (w % v != 0 || !aligned(r.table, v * sizeof(T)) ||
           !aligned(r.acc, v * sizeof(A)) ||
+          !aligned(r.tail_table, v * sizeof(T)) ||
+          !aligned(r.tail_acc, v * sizeof(A)) ||
           !aligned(r.acc2, v * sizeof(float)) ||
           !aligned(grads, v * sizeof(G)) ||
           !aligned(part, v * sizeof(float)))) {
@@ -573,13 +603,16 @@ int vector_width(const Rows<T, A>& r, const G* grads, const float* part,
 template <typename T, typename G, typename A>
 cudaError_t dispatch(const void* sid, const void* gidx, const void* grads,
                      void* table, void* acc, void* acc2, void* count,
-                     void* part, int64_t n, int64_t rows, int w, int chunk,
+                     const Tail& tl, void* part, int64_t n, int64_t rows,
+                     int w, int chunk,
                      int op, const Hyper& h, cudaStream_t stream) {
   const auto* i = static_cast<const int32_t*>(sid);
   const auto* x = static_cast<const int32_t*>(gidx);
   const auto* g = static_cast<const G*>(grads);
-  const Rows<T, A> r{static_cast<T*>(table), static_cast<A*>(acc),
-                     static_cast<float*>(acc2), static_cast<int32_t*>(count)};
+  const Rows<T, A> r{static_cast<T*>(table),     static_cast<A*>(acc),
+                     static_cast<float*>(acc2),    static_cast<int32_t*>(count),
+                     static_cast<T*>(tl.table),    static_cast<A*>(tl.acc),
+                     tl.res};
   auto* p = static_cast<float*>(part);
   switch (vector_width<T, G, A>(r, g, p, w)) {
     case 4:
@@ -597,30 +630,32 @@ cudaError_t dispatch(const void* sid, const void* gidx, const void* grads,
 template <typename T, typename G>
 cudaError_t by_accumulator(int acc_bf16, const void* sid, const void* gidx,
                            const void* grads, void* table, void* acc,
-                           void* acc2, void* count, void* part, int64_t n,
-                           int64_t rows, int w, int chunk, int op,
+                           void* acc2, void* count, const Tail& tl,
+                           void* part, int64_t n, int64_t rows, int w,
+                           int chunk, int op,
                            const Hyper& h, cudaStream_t stream) {
   return acc_bf16 ? dispatch<T, G, bf16>(sid, gidx, grads, table, acc, acc2,
-                                         count, part, n, rows, w, chunk, op,
-                                         h, stream)
+                                         count, tl, part, n, rows, w, chunk,
+                                         op, h, stream)
                   : dispatch<T, G, float>(sid, gidx, grads, table, acc, acc2,
-                                          count, part, n, rows, w, chunk, op,
-                                          h, stream);
+                                          count, tl, part, n, rows, w, chunk,
+                                          op, h, stream);
 }
 
 template <typename T>
 cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
                       const void* gidx, const void* grads, void* table,
-                      void* acc, void* acc2, void* count, void* part,
-                      int64_t n, int64_t rows, int w, int chunk, int op,
+                      void* acc, void* acc2, void* count, const Tail& tl,
+                      void* part, int64_t n, int64_t rows, int w, int chunk,
+                      int op,
                       const Hyper& h, cudaStream_t stream) {
   return grads_bf16
              ? by_accumulator<T, bf16>(acc_bf16, sid, gidx, grads, table,
-                                       acc, acc2, count, part, n, rows, w,
-                                       chunk, op, h, stream)
+                                       acc, acc2, count, tl, part, n, rows,
+                                       w, chunk, op, h, stream)
              : by_accumulator<T, float>(acc_bf16, sid, gidx, grads, table,
-                                        acc, acc2, count, part, n, rows, w,
-                                        chunk, op, h, stream);
+                                        acc, acc2, count, tl, part, n, rows,
+                                        w, chunk, op, h, stream);
 }
 
 }  // namespace
@@ -631,7 +666,10 @@ cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
 // w], updated in place: the Adagrad accumulator, f32 (acc_bf16 == 0) or
 // bf16, or Adam's first moment (f32); acc2: Adam's second moment [rows, w]
 // f32; count: Adam's step counts [rows] int32 (acc for the Adagrad ops
-// and adam, acc2 and count for adam, null otherwise); part: [ceil(n /
+// and adam, acc2 and count for adam, null otherwise); tail_table,
+// tail_acc, res: the cold tier's two-source arm, rows [res, rows) of the
+// table and accumulator at tail_table / tail_acc row - res (res == rows
+// and null tails otherwise; sgd, add and the Adagrad ops); part: [ceil(n /
 // chunk), 2, w] f32 scratch, twice that for adagrad_sq.  op: 0 sgd, 1
 // adagrad_dedup, 2 adagrad_sq, 3 add (lr unused), 4 adam (b1, b2 and 1 -
 // b1, 1 - b2 used by it alone).  All contiguous, on the current device.
@@ -640,21 +678,26 @@ cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
 // combination of dtypes and op that does not exist).
 extern "C" int segwalk_apply(const void* sid, const void* gidx,
                              const void* grads, void* table, void* acc,
-                             void* acc2, void* count, void* part,
+                             void* acc2, void* count, void* tail_table,
+                             void* tail_acc, long long res, void* part,
                              long long n, long long rows, int w, int chunk,
                              int table_bf16, int grads_bf16, int acc_bf16,
                              int op, float lr, float eps, float b1, float b2,
                              float omb1, float omb2, void* stream) {
   if (n <= 0) return 0;
   if (chunk <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (res < 0 || res > rows || (res < rows && tail_table == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Hyper h{lr, eps, b1, b2, omb1, omb2};
+  const Tail tl{tail_table, tail_acc, res};
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       table_bf16 ? by_stream<bf16>(grads_bf16, acc_bf16, sid, gidx, grads,
-                                   table, acc, acc2, count, part, n, rows, w,
-                                   chunk, op, h, s)
+                                   table, acc, acc2, count, tl, part, n,
+                                   rows, w, chunk, op, h, s)
                  : by_stream<float>(grads_bf16, acc_bf16, sid, gidx, grads,
-                                    table, acc, acc2, count, part, n, rows, w,
-                                    chunk, op, h, s);
+                                    table, acc, acc2, count, tl, part, n,
+                                    rows, w, chunk, op, h, s);
   return static_cast<int>(err);
 }

@@ -30,9 +30,28 @@ recorded legs' on-wire bytes beside their compute-dtype bytes
 (``planner.reconcile_exchange``).  A world of one ships nothing, so
 there no leg is narrowed.
 
+``--dataset_path DIR`` trains on a split-binary Criteo dataset (table
+sizes from its ``model_size.json``, as in the JAX example; written by
+``gen_data.py``), read by the native loader when it builds and by the
+Python reader otherwise (``utils/fastloader.open_raw_binary_dataset``);
+``--loader_bench`` first times the reader alone and prints which one
+ran.  ``--cold_tier_budget_mb MB`` (with ``--dp_input``, ``--hot_cache``
+and the sparse trainer, as in the JAX example) keeps each group's head
+within MB of table memory on the device and its tail rows in host
+memory (docs/design.md §12); the fetch pre-pass of the next batch runs
+on a worker thread during the step (``coldtier.ColdFetchPipeline``), and
+the tier's geometry and the pipeline's overlap are printed.
+``--cold_fetch_rows N`` (the port's own flag; the JAX example has only
+the constructor argument) fixes the per-batch fetch capacity of each
+tiered group; by default it is calibrated from the first batch, which on
+a dataset whose first batches also calibrated the hot sets is the
+batch with the fewest cold rows, so a later batch can overflow it (and
+refuses, naming the flag).
+
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports it (``--dataset_path`` is item 12); ``--fast_compile``
+item that ports it (``--csr_feed`` and ``--on_batch_error`` drive the
+SparseCore feed, item 15); ``--fast_compile``
 is an XLA compile option with no counterpart here, and
 ``--segwalk_apply`` names the port's only embedding apply, so it
 changes nothing.  ``--device`` (default
@@ -58,7 +77,9 @@ evaluates AUC during training and prints the curve.
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
+import json
 import os
 import sys
 import time
@@ -68,14 +89,16 @@ import torch
 
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
-from distributed_embeddings_tpu_torch.parallel import (checkpoint, grad,
-                                                       hotcache, planner,
+from distributed_embeddings_tpu_torch.parallel import (checkpoint, coldtier,
+                                                       grad, hotcache,
+                                                       planner,
                                                        quantization, sparse)
 from distributed_embeddings_tpu_torch.parallel.audit import StateAuditor
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     not_ported)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 from distributed_embeddings_tpu_torch.utils import resilience
+from distributed_embeddings_tpu_torch.utils import fastloader
 from distributed_embeddings_tpu_torch.utils.data import DummyDataset
 from distributed_embeddings_tpu_torch.utils.metrics import StreamingAUC
 from distributed_embeddings_tpu_torch.utils.schedules import (
@@ -83,18 +106,15 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
-UNPORTED = {
-    'dataset_path': 12,
-    'cold_tier_budget_mb': 12, 'csr_feed': 12, 'on_batch_error': 12,
-    'loader_bench': 12, 'trace': 14,
-}
+UNPORTED = {'csr_feed': 15, 'on_batch_error': 15, 'trace': 14}
 
 
 def build_parser() -> argparse.ArgumentParser:
   """The JAX example's flags, plus ``--device``."""
   p = argparse.ArgumentParser(description='DLRM on PyTorch')
   p.add_argument('--dataset_path', default=None,
-                 help='Criteo split-binary dataset (not ported: item 12)')
+                 help='Criteo split-binary dataset directory (train/, '
+                 'test/, model_size.json); default: dummy data')
   p.add_argument('--learning_rate', type=float, default=24)
   p.add_argument('--batch_size', type=int, default=64 * 1024)
   p.add_argument('--top_mlp_dims', default='1024,1024,512,256,1')
@@ -147,7 +167,14 @@ def build_parser() -> argparse.ArgumentParser:
                  'one f32 scale per row (needs --trainer sparse and '
                  '--param_dtype float32)')
   p.add_argument('--cold_tier_budget_mb', type=float, default=None,
-                 help='not ported (item 12)')
+                 help='host-DRAM cold tier: per-device table budget in '
+                 'MB; each group\'s tail rows beyond it live in host '
+                 'memory and stream through the deduplicated cold '
+                 'exchange (needs --dp_input, --hot_cache and --trainer '
+                 'sparse)')
+  p.add_argument('--cold_fetch_rows', type=int, default=None,
+                 help='per-batch fetch capacity (rows) of each tiered '
+                 'group (default: calibrated from the first batch)')
   p.add_argument('--param_dtype', default='float32',
                  choices=['float32', 'bfloat16'],
                  help='table + MLP storage dtype (bfloat16 halves the '
@@ -162,9 +189,10 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--eval_batches', type=int, default=0,
                  help='cap eval to this many batches (0 = all)')
   p.add_argument('--loader_bench', action='store_true',
-                 help='not ported (item 12)')
+                 help='time the data reader alone before training and '
+                 'print which reader ran')
   p.add_argument('--csr_feed', action='store_true',
-                 help='not ported (item 12)')
+                 help='not ported (item 15: the SparseCore feed)')
   p.add_argument('--fast_compile', action='store_true',
                  help='an XLA compile option: no counterpart in the port')
   p.add_argument('--max_steps', type=int, default=0,
@@ -185,7 +213,8 @@ def build_parser() -> argparse.ArgumentParser:
                  '(corrupt candidates are quarantined); the rollback '
                  'directory of --on_anomaly rollback')
   p.add_argument('--on_batch_error', default='raise',
-                 choices=['raise', 'skip'], help='not ported (item 12)')
+                 choices=['raise', 'skip'],
+                 help='not ported (item 15: the SparseCore feed)')
   p.add_argument('--audit_every', type=int, default=0,
                  help='state-integrity audit every N steps (0 = off; '
                  'needs --trainer sparse)')
@@ -240,17 +269,40 @@ def refuse_unported(args, parser: argparse.ArgumentParser):
                        "(int8/float8_e4m3): the passthrough ships the "
                        "stored quantized payload; use --wire_dtype "
                        "bfloat16 for f32 tables")
+  if args.cold_tier_budget_mb is not None:
+    if not args.dp_input or not args.hot_cache:
+      raise SystemExit('--cold_tier_budget_mb requires --dp_input and '
+                       '--hot_cache: the tier streams tail rows '
+                       'through the deduplicated cold exchange of the '
+                       'hot-cache forward (design §12 refusal matrix)')
+    if args.trainer != 'sparse':
+      raise SystemExit('--cold_tier_budget_mb requires --trainer sparse '
+                       '(tier writeback rides the sparse apply)')
   if args.fast_compile:
     raise ValueError('--fast_compile sets XLA compile options; the port '
                      'compiles nothing at run time')
 
 
+def open_dataset(args, table_ids, table_sizes, valid=False,
+                 prefetch_depth=10):
+  """A reader of ``--dataset_path``'s split (whole batches: one process
+  reads its batch), as the JAX example opens it."""
+  return fastloader.open_raw_binary_dataset(
+      data_path=args.dataset_path, batch_size=args.batch_size,
+      numerical_features=args.num_numerical_features,
+      categorical_features=table_ids,
+      categorical_feature_sizes=table_sizes,
+      prefetch_depth=prefetch_depth, drop_last_batch=True, offset=0,
+      lbs=args.batch_size, dp_input=args.dp_input, valid=valid)
+
+
 def calibrate_hot_sets(args, table_sizes):
   """The hot sets of ``--hot_cache``: id counts over
-  ``--hot_calib_batches`` batches of the dummy data (``--dataset_path``
-  is item 12), at ``--hot_coverage`` and within ``--hot_budget_mb``, as
-  the JAX example calibrates them.  Refuses ``--hot_cache`` without
-  ``--dp_input`` or with ``--trainer dense``, as the JAX example does."""
+  ``--hot_calib_batches`` batches of ``--dataset_path`` (a reader of its
+  own, closed after) or of the dummy data, at ``--hot_coverage`` and
+  within ``--hot_budget_mb``, as the JAX example calibrates them.
+  Refuses ``--hot_cache`` without ``--dp_input`` or with ``--trainer
+  dense``, as the JAX example does."""
   if not args.dp_input:
     raise SystemExit('--hot_cache requires --dp_input (the cache '
                      'partitions the dp->mp id exchange, which only '
@@ -260,14 +312,21 @@ def calibrate_hot_sets(args, table_sizes):
                      'split hot/cold optimizer state lives in the '
                      'sparse row-wise path)')
   cal_ids = list(range(len(table_sizes)))
-  cal_ds = DummyDataset(args.batch_size, args.num_numerical_features,
-                        len(cal_ids), args.hot_calib_batches)
+  if args.dataset_path is not None:
+    cal_ds = open_dataset(args, cal_ids, table_sizes, prefetch_depth=2)
+  else:
+    cal_ds = DummyDataset(args.batch_size, args.num_numerical_features,
+                          len(cal_ids), args.hot_calib_batches)
   cfgs = [TableConfig(s, args.embedding_dim) for s in table_sizes]
   batches = []
-  for bi, (_, cats_b, _) in enumerate(cal_ds):
-    if bi >= args.hot_calib_batches:
-      break
-    batches.append([np.asarray(c) for c in cats_b])
+  try:
+    for bi, (_, cats_b, _) in enumerate(cal_ds):
+      if bi >= args.hot_calib_batches:
+        break
+      batches.append([np.asarray(c) for c in cats_b])
+  finally:
+    if hasattr(cal_ds, 'close'):
+      cal_ds.close()
   hot_sets = hotcache.calibrate_hot_sets(
       cfgs, cal_ids, batches, coverage=args.hot_coverage,
       budget_bytes=(int(args.hot_budget_mb * 2**20)
@@ -287,7 +346,9 @@ def make_trainer(model: DLRM, trainer: str, learning_rate: float):
   ``examples/dlrm/main.py``): ``'sparse'`` updates the tables through
   ``SparseSGD`` and the MLPs by SGD (``make_hybrid_train_step``);
   ``'dense'`` differentiates the whole model and updates every param,
-  tables included, by the same SGD (``grad.make_train_step``)."""
+  tables included, by the same SGD (``grad.make_train_step``).  On a
+  cold-tier layer the sparse step also takes ``cold_fetch=``, a
+  pipelined fetch."""
   schedule = warmup_poly_decay_schedule(base_lr=learning_rate,
                                         warmup_steps=8000,
                                         decay_start_step=48000,
@@ -315,8 +376,9 @@ def make_trainer(model: DLRM, trainer: str, learning_rate: float):
   emb_opt = sparse.SparseSGD(learning_rate=learning_rate)
   hybrid_step = sparse.make_hybrid_train_step(dist, head_loss_fn, optimizer,
                                               emb_opt, lr_schedule=schedule)
-  return (lambda state, numerical, cats, labels: hybrid_step(
-      state, cats, (numerical, labels)),
+  return (lambda state, numerical, cats, labels, cold_fetch=None:
+          hybrid_step(state, cats, (numerical, labels),
+                      cold_fetch=cold_fetch),
           sparse.init_hybrid_train_state(dist, params, optimizer, emb_opt))
 
 
@@ -325,12 +387,22 @@ def _sync(device: torch.device):
     torch.cuda.synchronize(device)
 
 
-def main(argv=None):
+def main(argv=None, step_hook=None):
+  """Run the example; returns a dict of its numbers.  ``step_hook``
+  (programmatic callers): called as ``step_hook(i, model, state, fetch,
+  stage)`` with ``stage`` ``'before'`` and ``'after'`` around each
+  training step, ``fetch`` the step's cold-tier fetch (None without a
+  tier)."""
   parser = build_parser()
   args = parser.parse_args(argv)
   refuse_unported(args, parser)
 
   table_sizes = [int(s) for s in args.table_sizes.split(',')]
+  if args.dataset_path is not None:
+    # table sizes come from the dataset (each stored less one)
+    with open(os.path.join(args.dataset_path, 'model_size.json'),
+              encoding='utf-8') as f:
+      table_sizes = [s + 1 for s in json.load(f).values()]
   param_dtype = getattr(torch, args.param_dtype)
   hot_sets = calibrate_hot_sets(args, table_sizes) if args.hot_cache else None
   model = DLRM(table_sizes=table_sizes,
@@ -353,9 +425,27 @@ def main(argv=None):
                param_dtype=param_dtype,
                compute_dtype=getattr(torch, args.compute_dtype
                                      or args.param_dtype),
+               cold_tier=args.cold_tier_budget_mb is not None,
+               device_hbm_budget=(int(args.cold_tier_budget_mb * 2**20)
+                                  if args.cold_tier_budget_mb is not None
+                                  else None),
+               cold_fetch_rows=args.cold_fetch_rows,
                device=args.device).init(0)
   dist = model.dist_embedding
   device = dist.device
+  timings = {}
+  if args.cold_tier_budget_mb is not None:
+    tiers = dist.plan.cold_tier_groups
+    if dist.cold_tier is None:
+      print(f'cold_tier: everything fits the '
+            f'{args.cold_tier_budget_mb} MB/device budget — 0 tiered '
+            'groups, no host tail')
+    else:
+      split = [(dist.plan.groups[gi].device_rows,
+                dist.plan.groups[gi].tier_rows) for gi in tiers]
+      print(f'cold_tier: {len(tiers)} tiered group(s); resident/tail rows '
+            f'per group: {split}; host bytes '
+            f'{dist.cold_tier.host_bytes():,}')
   if args.table_dtype != 'none':
     tb = quantization.table_bytes_stats(dist.plan)
     print(f"table_dtype: {tb['table_dtype']} — "
@@ -369,10 +459,31 @@ def main(argv=None):
     table_ids = list(range(len(table_sizes)))
   else:
     table_ids = [i for dev in dist.plan.input_ids_list for i in dev]
-  train_dataset = DummyDataset(args.batch_size, args.num_numerical_features,
-                               len(table_ids), args.num_batches)
-  eval_dataset = DummyDataset(args.batch_size, args.num_numerical_features,
-                              len(table_ids), 10)
+  if args.dataset_path is not None:
+    train_dataset = open_dataset(args, table_ids, table_sizes)
+    eval_dataset = open_dataset(args, table_ids, table_sizes, valid=True)
+    print(f'dataset: {args.dataset_path}, {len(train_dataset)} train '
+          f'batch(es), {fastloader.reader_kind(train_dataset)} reader')
+  else:
+    train_dataset = DummyDataset(args.batch_size,
+                                 args.num_numerical_features,
+                                 len(table_ids), args.num_batches)
+    eval_dataset = DummyDataset(args.batch_size,
+                                args.num_numerical_features,
+                                len(table_ids), 10)
+  if args.loader_bench:
+    # the data path alone, no device work: it must outrun the trained
+    # samples/s below or the loader is the bottleneck
+    t0 = time.perf_counter()
+    n = 0
+    for _, _, labels_b in train_dataset:
+      n += len(labels_b)
+    dt = time.perf_counter() - t0
+    timings['loader_samples_per_s'] = n / dt
+    timings['loader'] = fastloader.reader_kind(train_dataset)
+    print(f'loader: {n} samples in {dt:.1f}s '
+          f'({n / dt / 1e6:.2f}M samples/s, no device work; '
+          f'{timings["loader"]} reader)')
 
   step, state = make_trainer(model, args.trainer, args.learning_rate)
 
@@ -384,7 +495,6 @@ def main(argv=None):
       args.resume_dir if args.resume_dir and os.path.isdir(args.resume_dir)
       else None)
   resumed_from = None
-  timings = {}
   if resume_source is not None:
     t0 = time.perf_counter()
     try:
@@ -486,8 +596,50 @@ def main(argv=None):
     # skip the batches the resumed run consumed (one epoch at most)
     data_iter = itertools.islice(
         data_iter, resume_step % max(1, len(train_dataset)), None)
-  for i, (numerical, cats, labels) in enumerate(data_iter):
-    state, loss = step(state, numerical, list(cats), labels)
+  tier_pipe = None
+  if dist.cold_tier is not None:
+    # the fetch pre-pass (route + dedup of the batch's tail rows) of
+    # batch N+1 runs on a worker thread while the device runs batch N;
+    # the payload gather stays after the previous step's write-back.
+    # The batches queue in a deque, so numerical features and labels
+    # stay aligned with the pipeline's (ordered) output
+    tier_q = collections.deque()
+
+    def tier_cats(it):
+      for b in it:
+        tier_q.append(b)
+        yield [np.asarray(c) for c in b[1]]
+
+    tier_pipe = coldtier.ColdFetchPipeline(dist, tier_cats(data_iter))
+
+    def tier_batches():
+      for cats_b, fetch in tier_pipe:
+        numerical_b, _, labels_b = tier_q.popleft()
+        yield numerical_b, cats_b, labels_b, fetch
+
+    batch_iter = tier_batches()
+  else:
+    batch_iter = ((n, c, l, None) for n, c, l in data_iter)
+  step_ms = []
+  tier_losses = []
+  for i, (numerical, cats, labels, fetch) in enumerate(batch_iter):
+    if step_hook is not None:
+      step_hook(i, model, state, fetch, 'before')
+    t_step = time.perf_counter()
+    if fetch is not None:
+      state, loss = step(state, numerical, list(cats), labels,
+                         cold_fetch=fetch)
+    else:
+      state, loss = step(state, numerical, list(cats), labels)
+    if tier_pipe is not None:
+      # the tiered step has synchronised (its write-back): the loss is
+      # read at no extra cost
+      tier_losses.append(float(loss))
+      step_ms.append((time.perf_counter() - t_step) * 1000.0)
+      if i == 0:
+        tier_pipe.reset_stats()  # batch 0 has no step to hide behind
+    if step_hook is not None:
+      step_hook(i, model, state, fetch, 'after')
     samples += args.batch_size
     step_no = resume_step + i + 1
     if auditor is not None and (i + 1) % args.audit_every == 0:
@@ -508,6 +660,17 @@ def main(argv=None):
       run_eval(step_no)
     if args.max_steps and i + 1 >= args.max_steps:
       break
+  if tier_pipe is not None:
+    tier_pipe.close()
+    tstats = tier_pipe.stats()
+    timings['tier_step_ms'] = step_ms
+    timings['tier_losses'] = tier_losses
+    timings['tier_pipeline'] = tstats
+    print(f"cold_tier: fetch pre-pass built {tstats['batches']} "
+          f"batch(es) in {tstats['build_ms']:.1f} ms on the worker; "
+          f"consumer blocked {tstats['blocked_ms']:.1f} ms -> "
+          f"{tstats['overlap_pct'] * 100:.1f}% of the host pre-pass "
+          'hidden behind the device step')
   if loss is None:
     print('no batches to train on (resume skipped the whole dataset)')
     return None

@@ -43,6 +43,11 @@ METRIC_TYPES: Dict[str, str] = {
     'exchange.dcn_rows': 'gauge',
     'exchange.ici_rows': 'gauge',
     'exchange.dcn_dedup_ratio': 'gauge',
+    # host-DRAM cold tier (parallel/coldtier.py)
+    'coldtier.fetch_rows': 'counter',
+    'coldtier.batches': 'counter',
+    'coldtier.prepass_ms': 'histogram',
+    'coldtier.blocked_ms': 'histogram',
 }
 
 REGISTERED_METRICS = frozenset(METRIC_TYPES)

@@ -31,10 +31,14 @@ REGISTERED_SPANS = frozenset({
     'audit/check',
     # checkpoints (parallel/checkpoint.py)
     'ckpt/save', 'ckpt/restore',
+    # host-DRAM cold tier (parallel/coldtier.py)
+    'coldtier/fetch', 'coldtier/writeback', 'coldtier/prepass',
+    'coldtier/wait',
 })
 
 # 'wait' spans are host time blocked on the device
-SPAN_CATEGORIES: Dict[str, str] = {'train/sync': 'wait'}
+SPAN_CATEGORIES: Dict[str, str] = {'train/sync': 'wait',
+                                   'coldtier/wait': 'wait'}
 
 
 def span_category(name: str) -> str:

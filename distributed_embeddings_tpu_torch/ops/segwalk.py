@@ -47,6 +47,18 @@ Two arms of the TPU kernel, chosen by dtype:
   take it, on an f32 or a bf16 table (JAX's Pallas kernel takes it on a
   bf16 table only, its XLA apply on the rest, with this arithmetic).
 
+A third arm is the port's own, for the host-DRAM cold tier
+(``parallel/coldtier.py``, docs/design.md §12): **two sources**
+(``tail=Tail(table, acc)``).  Rows ``[0, res)`` of the apply live in
+``table`` / ``acc`` (``res`` their rows), rows ``[res, res + tail rows)``
+in the tail's at ``row - res`` (the batch's fetch buffers).  The stream,
+its sort, its chunks and every sum are those of one ``[res + tail rows,
+w]`` table, and each row's arithmetic is the same wherever it lives, so
+the head and the tail come out bit for bit as that one table's rows would:
+the tiered apply never concatenates the resident head (which, at the
+scale the tier exists for, does not fit twice).  ``'sgd'``, ``'add'`` and
+the Adagrad ops take it (lazy Adam refuses a tier).
+
 Ids outside ``[0, rows)`` are padding (the runtime's sentinel is
 ``rows``).  Gradient rows arrive either one per stream position or, with
 ``g_index``, as COMPACT rows that ``g_index`` maps each position to (a
@@ -76,7 +88,8 @@ and no arm up-casts to another.
 ``LAUNCHES`` counts applies that reached the kernel: one per apply of a
 non-empty stream, which makes one CUDA launch (one chunk) or two (pass
 1 and pass 2); ``ARM_LAUNCHES`` counts those of them that ran each arm
-(``'bf16_stream'``, ``'bf16_accumulator'``) or the ``'adam'`` op.
+(``'bf16_stream'``, ``'bf16_accumulator'``, ``'two_source'``) or the
+``'adam'`` op.
 
 The TPU kernel's capacity-free contract holds: every segment is applied
 exactly once, whatever the number of distinct ids.
@@ -126,12 +139,26 @@ class Moments(NamedTuple):
 State = Union[None, torch.Tensor, Moments]
 
 
+class Tail(NamedTuple):
+  """The tail of a two-source apply (module docstring): rows ``[res, res
+  + tail rows)`` of the apply, ``res`` the head table's rows; ``acc``
+  (None for ``'sgd'`` and ``'add'``) the tail's accumulator rows."""
+  table: torch.Tensor
+  acc: Optional[torch.Tensor] = None
+
+
+def _rows(table: torch.Tensor, tail: Optional[Tail]) -> int:
+  """The rows of an apply: the head's, plus the tail's."""
+  return table.shape[0] + (0 if tail is None else tail.table.shape[0])
+
+
 def _kernel():
   global _fn
   if _fn is None:
     fn = nativebuild.load('segwalk_apply').segwalk_apply
-    fn.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong] + [ctypes.c_int] * 6 + [
             ctypes.c_float] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
@@ -197,9 +224,29 @@ def _rounded_square(x: torch.Tensor) -> torch.Tensor:
   return x * x
 
 
-def _check(table, acc, grads, op):
+def _check(table, acc, grads, op, tail=None):
   if op not in OPS:
     raise ValueError(f'unknown op {op!r}: one of {OPS}')
+  if tail is not None:
+    if op == 'adam':
+      raise ValueError('lazy Adam has no two-source arm (its step counts '
+                       'have no tail): the cold tier refuses SparseAdam')
+    t = tail.table
+    if (t.dim() != 2 or t.shape[1:] != table.shape[1:] or t.dtype
+        != table.dtype or t.device != table.device
+        or not t.is_contiguous()):
+      raise ValueError(f'tail table must be a contiguous [n, '
+                       f'{table.shape[1]}] {table.dtype} tensor on '
+                       f'{table.device}, got {tuple(t.shape)} {t.dtype} on '
+                       f'{t.device}')
+    if (tail.acc is None) != (acc is None) or (
+        acc is not None and (tail.acc.shape != t.shape
+                             or tail.acc.dtype != acc.dtype
+                             or tail.acc.device != t.device
+                             or not tail.acc.is_contiguous())):
+      raise ValueError('the tail carries an accumulator exactly when the '
+                       'head does, of its dtype and the tail table\'s '
+                       'shape')
   if (op in _STATELESS) != (acc is None):
     raise ValueError('acc must be provided iff op is an adagrad variant or '
                      'adam')
@@ -240,7 +287,7 @@ def _check(table, acc, grads, op):
                      + f', got {grads.dtype}')
 
 
-def _cut(table, ids, grads, g_index) -> Segments:
+def _cut(table, ids, grads, g_index, tail=None) -> Segments:
   """Check the stream against the table and gradient rows, then sort
   it."""
   n = ids.shape[0]
@@ -261,13 +308,14 @@ def _cut(table, ids, grads, g_index) -> Segments:
       if int(lo) < 0 or int(hi) >= grads.shape[0]:
         raise ValueError(f'g_index spans [{int(lo)}, {int(hi)}] outside '
                          f'the {grads.shape[0]} gradient rows')
-  return sort_stream(ids, table.shape[0], g_index)
+  return sort_stream(ids, _rows(table, tail), g_index)
 
 
 def segwalk_apply(table: torch.Tensor, acc: State, ids: torch.Tensor,
                   grads: torch.Tensor, lr: float, *, op: str,
                   eps: float = 1e-7, g_index: Optional[torch.Tensor] = None,
-                  betas: Tuple[float, float] = BETAS
+                  betas: Tuple[float, float] = BETAS,
+                  tail: Optional[Tail] = None
                   ) -> Tuple[torch.Tensor, State]:
   """Apply one optimizer step from an update stream, in place.
 
@@ -287,40 +335,44 @@ def segwalk_apply(table: torch.Tensor, acc: State, ids: torch.Tensor,
     g_index: optional ``[n]`` integer map stream position -> row of
       ``grads`` (its range check reads the device once).
     betas: Adam's ``(b1, b2)``.
+    tail: the two-source arm's tail (module docstring): ids ``>=
+      table rows`` address it.
 
   Returns:
     ``(table, acc)``, the same objects, updated.
   """
-  _check(table, acc, grads, op)
-  apply_segments(table, acc, _cut(table, ids, grads, g_index), grads, lr,
-                 op=op, eps=eps, betas=betas)
+  _check(table, acc, grads, op, tail)
+  apply_segments(table, acc, _cut(table, ids, grads, g_index, tail), grads,
+                 lr, op=op, eps=eps, betas=betas, tail=tail)
   return table, acc
 
 
 def apply_segments(table: torch.Tensor, acc: State, segs: Segments,
                    grads: torch.Tensor, lr: float, *, op: str,
                    eps: float = 1e-7,
-                   betas: Tuple[float, float] = BETAS) -> None:
+                   betas: Tuple[float, float] = BETAS,
+                   tail: Optional[Tail] = None) -> None:
   """The apply proper on a sorted stream (``sort_stream``): the kernel
   for a CUDA table, the plain version for a CPU table."""
-  _check(table, acc, grads, op)
+  _check(table, acc, grads, op, tail)
   if table.device.type == 'cuda':
-    _launch(table, acc, segs, grads.contiguous(), lr, eps, op, betas)
+    _launch(table, acc, segs, grads.contiguous(), lr, eps, op, betas, tail)
   elif table.device.type == 'cpu':
-    _apply_plain(table, acc, segs, grads, lr, eps, op, betas)
+    _apply_plain(table, acc, segs, grads, lr, eps, op, betas, tail)
   else:
     raise ValueError(f'segwalk: table on {table.device}')
 
 
-def _arms(acc, grads, op):
+def _arms(acc, grads, op, tail=None):
   """The arms (and the adam op) one apply runs."""
   return ([op] if op == 'adam' else []) + (
+      ['two_source'] if tail is not None else []) + (
       ['bf16_stream'] if grads.dtype == torch.bfloat16 else []) + (
           ['bf16_accumulator'] if isinstance(acc, torch.Tensor)
           and acc.dtype == torch.bfloat16 else [])
 
 
-def _launch(table, acc, segs, grads, lr, eps, op, betas):
+def _launch(table, acc, segs, grads, lr, eps, op, betas, tail=None):
   """One ``segwalk_apply`` call on the current stream: both passes, with
   the partials buffer they share.  Reads nothing from the device."""
   global LAUNCHES
@@ -346,23 +398,27 @@ def _launch(table, acc, segs, grads, lr, eps, op, betas):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _kernel()(segs.sorted_ids.data_ptr(), segs.gidx.data_ptr(),
                     grads.data_ptr(), table.data_ptr(), *state,
-                    partials.data_ptr(), n, table.shape[0], w, CHUNK,
+                    None if tail is None else tail.table.data_ptr(),
+                    None if tail is None or tail.acc is None
+                    else tail.acc.data_ptr(), table.shape[0],
+                    partials.data_ptr(), n, _rows(table, tail), w, CHUNK,
                     bf16(table), bf16(grads),
                     bf16(acc if isinstance(acc, torch.Tensor) else None),
                     OPS.index(op), lr, eps, b1, b2, 1 - b1, 1 - b2, stream)
   if err != 0:
     raise RuntimeError(f'segwalk_apply launch failed: cudaError {err}')
   LAUNCHES += 1
-  ARM_LAUNCHES.update(_arms(acc, grads, op))
+  ARM_LAUNCHES.update(_arms(acc, grads, op, tail))
 
 
 def apply_segments_reference(table: torch.Tensor, acc: State,
                              segs: Segments, grads: torch.Tensor, lr: float,
                              *, op: str, eps: float = 1e-7,
-                             betas: Tuple[float, float] = BETAS) -> None:
+                             betas: Tuple[float, float] = BETAS,
+                             tail: Optional[Tail] = None) -> None:
   """The plain PyTorch version of ``apply_segments``, on any device."""
-  _check(table, acc, grads, op)
-  _apply_plain(table, acc, segs, grads, lr, eps, op, betas)
+  _check(table, acc, grads, op, tail)
+  _apply_plain(table, acc, segs, grads, lr, eps, op, betas, tail)
 
 
 def _left_folds(first: torch.Tensor, lengths: torch.Tensor,
@@ -386,7 +442,36 @@ def _left_folds(first: torch.Tensor, lengths: torch.Tensor,
   return folds
 
 
-def _apply_plain(table, acc, segs, grads, lr, eps, op, betas):
+class TwoSourceRows:
+  """Rows of a head and a tail tensor read and written as those of one
+  ``[head rows + tail rows, ...]`` tensor (the two-source arm)."""
+
+  def __init__(self, head: torch.Tensor, tail: Optional[torch.Tensor],
+               rows: torch.Tensor):
+    self.head, self.tail = head, tail
+    res = head.shape[0]
+    self.in_tail = rows >= res if tail is not None else None
+    self.h_rows = rows if tail is None else rows[~self.in_tail]
+    self.t_rows = None if tail is None else rows[self.in_tail] - res
+
+  def get(self) -> torch.Tensor:
+    if self.tail is None:
+      return self.head[self.h_rows]
+    out = self.head.new_empty((self.in_tail.shape[0],)
+                              + tuple(self.head.shape[1:]))
+    out[~self.in_tail] = self.head[self.h_rows]
+    out[self.in_tail] = self.tail[self.t_rows]
+    return out
+
+  def set(self, values: torch.Tensor):
+    if self.tail is None:
+      self.head[self.h_rows] = values
+      return
+    self.head[self.h_rows] = values[~self.in_tail]
+    self.tail[self.t_rows] = values[self.in_tail]
+
+
+def _apply_plain(table, acc, segs, grads, lr, eps, op, betas, tail=None):
   """The plain version, in place, in the kernel's summation order (module
   docstring): first the left fold of every piece (a segment cut at the
   chunk boundaries), in at most ``CHUNK`` rounds, then the left fold of
@@ -424,7 +509,8 @@ def _apply_plain(table, acc, segs, grads, lr, eps, op, betas):
   rows = segs.sorted_ids[starts].to(torch.int64)
   f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
   lr_t, eps_t = f32(lr), f32(eps)
-  t = table[rows].to(torch.float32)
+  t_rows = TwoSourceRows(table, None if tail is None else tail.table, rows)
+  t = t_rows.get().to(torch.float32)
   if op == 'sgd':
     t = t - lr_t * sums
   elif op == 'add':
@@ -450,22 +536,24 @@ def _apply_plain(table, acc, segs, grads, lr, eps, op, betas):
     add = _rounded_square(sums) if op == 'adagrad_dedup' else squares
     # the scale from the unrounded f32 value; a bf16 accumulator rounds
     # once at the store
-    a_new = acc[rows].to(torch.float32) + add
+    a_rows = TwoSourceRows(acc, None if tail is None else tail.acc, rows)
+    a_new = a_rows.get().to(torch.float32) + add
     scale = torch.reciprocal(torch.sqrt(a_new + eps_t))
     t = t - (lr_t * sums) * scale
-    acc[rows] = a_new.to(acc.dtype)
-  table[rows] = t.to(table.dtype)
+    a_rows.set(a_new.to(acc.dtype))
+  t_rows.set(t.to(table.dtype))
 
 
 def segwalk_apply_reference(table: torch.Tensor, acc: State,
                             ids: torch.Tensor, grads: torch.Tensor,
                             lr: float, *, op: str, eps: float = 1e-7,
                             g_index: Optional[torch.Tensor] = None,
-                            betas: Tuple[float, float] = BETAS
+                            betas: Tuple[float, float] = BETAS,
+                            tail: Optional[Tail] = None
                             ) -> Tuple[torch.Tensor, State]:
   """``segwalk_apply`` through the plain version, on any device: the
   kernel's oracle on the card."""
-  _check(table, acc, grads, op)
-  _apply_plain(table, acc, _cut(table, ids, grads, g_index), grads, lr, eps,
-               op, betas)
+  _check(table, acc, grads, op, tail)
+  _apply_plain(table, acc, _cut(table, ids, grads, g_index, tail), grads, lr,
+               eps, op, betas, tail)
   return table, acc

@@ -35,7 +35,12 @@ and row provenance, and hands it to ``fit``'s anomaly policy
   sync; a failing leaf is localized on its full copy.  As in the JAX
   package, payload and scale leaves take this check instead of
   ``finite``.
-- ``tier`` (item 12) is refused with ``not_ported``.
+- ``tier`` (the host-DRAM cold tier, docs/design.md §12-13): the tier's
+  write-back-maintained per-row digests (``coldtier.HostTier``), which
+  an auditor with this check arms at construction (from then on every
+  fetched row is verified too), swept over a rotating row window under
+  the same byte budget as the device pass, each rank its own tail; the
+  findings of every rank are gathered, so every rank sees the same.
 
 ``digest_u32`` is the JAX package's ``_digest_u32`` bit for bit: the
 uint32 wrap-around sum of each element's bit pattern times ``(index &
@@ -63,14 +68,11 @@ from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import quantization
 from distributed_embeddings_tpu_torch.parallel.hotcache import (
     replicated_leaf_names)
-from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    not_ported)
 from distributed_embeddings_tpu_torch.utils import resilience
 
 CHECKS = ('replicated', 'quantized', 'finite', 'tier')
-# the JAX package's checks the port runs; the others name their item
-PORTED_CHECKS = ('replicated', 'quantized', 'finite')
-_DEFERRED = {'tier': 12}
+# the JAX package's checks the port runs: all of them
+PORTED_CHECKS = CHECKS
 
 # provenance row lists are bounded: the first few damaged rows
 MAX_ROWS = 8
@@ -317,8 +319,8 @@ class StateAuditor:
     dist: the model's ``DistributedEmbedding`` (its ranks and group
       layout).
     every: audit cadence in steps (what ``fit(auditor=...)`` keys off).
-    checks: a subset of ``PORTED_CHECKS`` (default: all three);
-      ``'tier'`` raises ``NotImplementedError`` naming its item.
+    checks: a subset of ``CHECKS`` (default: all four); ``'tier'`` on
+      a cold-tier layer arms its row digests.
     max_rows: provenance row cap per finding.
     bytes_per_audit: per-audit read budget over the embedding leaves
       (``BYTES_PER_AUDIT``; ``None`` reads everything every audit).
@@ -339,9 +341,6 @@ class StateAuditor:
     if unknown:
       raise ValueError(f'unknown audit checks {sorted(unknown)}; '
                        f'expected a subset of {list(CHECKS)}')
-    for c in checks:
-      if c in _DEFERRED:
-        raise not_ported(f'the {c!r} audit check', _DEFERRED[c])
     if every < 1:
       raise ValueError(f'audit cadence must be >= 1, got {every}')
     if bytes_per_audit is not None and bytes_per_audit < 1:
@@ -359,6 +358,9 @@ class StateAuditor:
     # the plan names its replicated leaves; optimizer slots of a
     # replicated buffer ({leaf}/{k}) replicate with it
     self._replicated = frozenset(replicated_leaf_names(dist.plan))
+    tier = getattr(dist, 'cold_tier', None)
+    if 'tier' in self.checks and tier is not None:
+      tier.enable_digests()
 
   def _is_replicated(self, name: str) -> bool:
     return (name in self._replicated
@@ -584,6 +586,9 @@ class StateAuditor:
         findings += self._replicated_findings(replicated, windows)
     if dense_flat is not None:
       findings += self._dense_findings(dense_flat)
+    tier = getattr(self.dist, 'cold_tier', None)
+    if 'tier' in self.checks and tier is not None and tier.digests_enabled:
+      findings += self._tier_findings(tier)
     for f in findings:
       f.journal(step=step)
     self.findings_total += len(findings)
@@ -593,6 +598,40 @@ class StateAuditor:
     obs_metrics.observe('audit.call_ms', call_ms)
     if findings:
       obs_metrics.inc('audit.findings', len(findings))
+    return findings
+
+  def _tier_findings(self, tier) -> List[AuditFinding]:
+    """The host tier's digest sweep under the same rotating byte budget
+    as the device pass (JAX's ``_tier_pass``): each audit re-hashes at
+    most ``bytes_per_audit`` of tail rows, the window advancing with the
+    audit count (every row within ``full_coverage_audits`` audits).
+    Each rank sweeps its own tail; the findings are gathered over the
+    tier's group, so every rank returns them all."""
+    findings: List[AuditFinding] = []
+    plan = self.dist.plan
+    groups = list(plan.cold_tier_groups)
+    total = sum(tier.row_nbytes(gi) * plan.groups[gi].tier_rows
+                * plan.world_size for gi in groups)
+    frac = 1.0
+    if self.bytes_per_audit is not None and total > self.bytes_per_audit:
+      frac = self.bytes_per_audit / total
+    for gi in groups:
+      rows = plan.groups[gi].tier_rows
+      win = max(1, min(rows, int(np.ceil(rows * frac))))
+      n_pos = -(-rows // win)
+      self.full_coverage_audits = max(self.full_coverage_audits, n_pos)
+      off = min((self.audits % n_pos) * win, rows - win)
+      bad = tier.verify_rows(gi, np.arange(off, off + win))
+      if bad.size:
+        findings.append(AuditFinding(
+            'tier', f'tier_group_{gi}', (int(self.dist.rank),),
+            tuple(int(r) for r in bad[:self.max_rows]),
+            'host-tier row bytes disagree with the write-back digest'))
+    if self.dist.world_size > 1:
+      everyone = [None] * self.dist.world_size
+      torch_dist.all_gather_object(everyone, findings,
+                                   group=self.dist._tier_pg)
+      findings = [f for part in everyone for f in part]
     return findings
 
   def check_state(self, state, step: Optional[int] = None

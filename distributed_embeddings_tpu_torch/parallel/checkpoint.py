@@ -61,6 +61,16 @@ copies a same-dtype ``QuantizedWeight``'s stored pair straight in (the
 quantizer's fixed point), so files move between quantized and f32
 plans both ways.
 
+Cold-tier plans (``cold_tier``, docs/design.md §12): a tiered group's
+head lives in ``params`` and its tail rows (payload, scale, optimizer
+rows) in the layer's host tier, so ``get_weights`` /
+``get_optimizer_state`` / ``export_tables`` append each tail to its
+head on the host (the tables of those groups come back on the CPU), and
+``set_weights`` / ``set_optimizer_state`` / ``restore_train_state`` fill
+the group whole on the host and split it back (``set_tail``,
+``set_opt_tail``, which re-certify the tier's digests): files are those
+of the untiered layer, both ways with the JAX package.
+
 A hierarchical (``dcn_sharding``) layer is refused by every function
 that walks the shards, with the JAX package's message
 (``_refuse_dcn_sharding``): its weights go through a flat twin and
@@ -285,16 +295,47 @@ def _fill_hot_quantized(dist: DistributedEmbedding, gi: int,
       scale[off:off + k] = sc
 
 
+def _tiered(dist: DistributedEmbedding, gi: int) -> bool:
+  """Whether group ``gi`` keeps a tail in the host tier (design §12)."""
+  tier = getattr(dist, 'cold_tier', None)
+  return tier is not None and gi in tier.payload
+
+
+def _full_rows(dist: DistributedEmbedding, gi: int, like: torch.Tensor,
+               per_row: bool = False) -> torch.Tensor:
+  """A host buffer of all ``rows_cap`` rows of group ``gi`` at ``like``'s
+  dtype: what a cold-tier group fills before its split."""
+  g = dist.plan.groups[gi]
+  shape = (g.rows_cap,) if per_row else (g.rows_cap,) + tuple(like.shape[1:])
+  return torch.empty(shape, dtype=like.dtype)
+
+
 def _fill_tables(dist: DistributedEmbedding, params: Dict[str, torch.Tensor],
                  weights: Sequence[WeightLike]):
   """Write every table leaf of ``params`` (groups, hot buffers and, on a
-  quantized plan, their scales) from global entries, in place."""
+  quantized plan, their scales) from global entries, in place.  A
+  cold-tier group's rows are filled whole on the host, then split: the
+  head into ``params``, the tail into the host tier (JAX's
+  ``set_weights``)."""
   for gi in range(len(dist.plan.groups)):
+    tiered = _tiered(dist, gi)
+    buf = params[f'group_{gi}']
+    full = _full_rows(dist, gi, buf) if tiered else buf
     if dist.quant is None:
-      _fill_group(dist, gi, params[f'group_{gi}'], weights)
+      _fill_group(dist, gi, full, weights)
     else:
-      _fill_group_quantized(dist, gi, params[f'group_{gi}'],
-                            params[f'scale_group_{gi}'], weights)
+      sbuf = params[f'scale_group_{gi}']
+      sfull = _full_rows(dist, gi, sbuf) if tiered else sbuf
+      _fill_group_quantized(dist, gi, full, sfull, weights)
+    if not tiered:
+      continue
+    res = buf.shape[0]
+    quantization.bits(buf).copy_(quantization.bits(full[:res]))
+    dist.cold_tier.set_tail(gi, 'payload',
+                            quantization.bits(full[res:]).numpy())
+    if dist.quant is not None:
+      sbuf.copy_(sfull[:res])
+      dist.cold_tier.set_tail(gi, 'scale', sfull[res:].numpy())
   for gi in dist.plan.hot_groups:
     if dist.quant is None:
       _fill_hot(dist, gi, params[f'hot_group_{gi}'], weights)
@@ -339,12 +380,13 @@ def set_weights(dist: DistributedEmbedding,
   _check_tables(dist.plan, weights, 'set_weights')
   params = {}
   for gi, g in enumerate(dist.plan.groups):
-    params[f'group_{gi}'] = torch.empty((g.rows_cap, g.width),
+    # a cold-tier group's head (its tail goes to the host tier)
+    params[f'group_{gi}'] = torch.empty((g.device_rows, g.width),
                                         dtype=dist.table_dtype,
                                         device=dist.device)
     if dist.quant is not None:
       params[f'scale_group_{gi}'] = torch.empty(
-          (g.rows_cap, 1), dtype=torch.float32, device=dist.device)
+          (g.device_rows, 1), dtype=torch.float32, device=dist.device)
   for gi in dist.plan.hot_groups:
     g = dist.plan.groups[gi]
     params[f'hot_group_{gi}'] = torch.empty((g.hot_rows_cap, g.width),
@@ -423,16 +465,40 @@ def get_weights(dist: DistributedEmbedding,
     values).
   """
   _refuse_dcn_sharding(dist, 'get_weights')
-  return _canonical(dist, _value_leaves(dist, params))
+  tails = {}
+  tier = getattr(dist, 'cold_tier', None)
+  for gi in range(len(dist.plan.groups)):
+    if _tiered(dist, gi):
+      t = torch.from_numpy(tier.payload[gi])
+      if dist.quant is not None:
+        t = quantization.dequantize(t.view(dist.quant.torch_dtype),
+                                    torch.from_numpy(tier.scale[gi]))
+      tails[gi] = t
+  return _canonical(dist, _value_leaves(dist, params), tails)
+
+
+def _with_tail(head: torch.Tensor, tail: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+  """A cold-tier group's full rows on the host: its head, then its host
+  tail (design §12); the head itself for a resident group."""
+  if tail is None:
+    return head
+  return torch.cat([head.detach().cpu(), tail.to(head.dtype)])
 
 
 def _canonical(dist: DistributedEmbedding,
-               params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+               params: Dict[str, torch.Tensor],
+               tails: Optional[Dict[int, torch.Tensor]] = None
+               ) -> List[torch.Tensor]:
   """``get_weights`` of leaves that are values already (the tables of an
-  unquantized plan, optimizer state)."""
+  unquantized plan, optimizer state); ``tails``: the cold-tier groups'
+  host tails, appended to their heads (the result's tables of those
+  groups are on the host)."""
   plan = dist.plan
+  tails = tails or {}
   group_index = {g.key: gi for gi, g in enumerate(plan.groups)}
-  shards = {gi: _all_shards(dist, params[f'group_{gi}'])
+  shards = {gi: _all_shards(dist, _with_tail(params[f'group_{gi}'],
+                                             tails.get(gi)))
             for gi in range(len(plan.groups))}
   hot = {gi: params[f'hot_group_{gi}'] for gi in plan.hot_groups
          if f'hot_group_{gi}' in params}
@@ -486,13 +552,27 @@ def get_optimizer_state(dist: DistributedEmbedding,
   _refuse_dcn_sharding(dist, 'get_optimizer_state')
   leaves = sorted({k for gs in opt_state.values() for k in gs})
   n_groups = len(dist.plan.groups)
+  tier = getattr(dist, 'cold_tier', None)
+
+  def tails(k):
+    """The cold-tier groups' tail state of leaf ``k`` (zeros where the
+    tier has no such leaf yet, as in the JAX package)."""
+    out = {}
+    for gi in range(n_groups):
+      if _tiered(dist, gi):
+        head = opt_state[f'group_{gi}'][k]
+        out[gi] = (tier.opt_tail(gi, k) if k in tier.opt[gi] else
+                   torch.zeros((dist.plan.groups[gi].tier_rows,)
+                               + tuple(head.shape[1:]), dtype=head.dtype))
+    return out
+
   per_leaf = {
       k: _canonical(dist, {
           **{f'group_{gi}': opt_state[f'group_{gi}'][k]
              for gi in range(n_groups)},
           **{f'hot_group_{gi}': opt_state[f'hot_group_{gi}'][k]
              for gi in dist.plan.hot_groups
-             if k in opt_state.get(f'hot_group_{gi}', {})}})
+             if k in opt_state.get(f'hot_group_{gi}', {})}}, tails(k))
       for k in leaves
   }
   return [{k: per_leaf[k][tid] for k in leaves}
@@ -516,7 +596,16 @@ def set_optimizer_state(dist: DistributedEmbedding,
       arrays = [ts[k] for ts in table_states]
       _check_tables(dist.plan, arrays, 'set_optimizer_state',
                     per_row=leaf.dim() == 1)
-      _fill_group(dist, gi, leaf, arrays)
+      if not _tiered(dist, gi):
+        _fill_group(dist, gi, leaf, arrays)
+        continue
+      # a cold-tier group: filled whole on the host, the head into the
+      # leaf and the tail into the tier (JAX's set_optimizer_state)
+      full = _fill_group(dist, gi, _full_rows(dist, gi, leaf,
+                                              leaf.dim() == 1), arrays)
+      res = leaf.shape[0]
+      leaf.copy_(full[:res])
+      dist.cold_tier.set_opt_tail(gi, k, full[res:])
   for gi in dist.plan.hot_groups:
     for k, leaf in opt_state.get(f'hot_group_{gi}', {}).items():
       _fill_hot(dist, gi, leaf, [ts.get(k) for ts in table_states])
@@ -664,16 +753,20 @@ def export_tables(dist: DistributedEmbedding, params) -> List[WeightLike]:
     # fixed point, so they ARE the canonical entries, and no f32 table
     # is made (the value path below gives the same bits)
     hot = plan.hot_groups
+    tier = getattr(dist, 'cold_tier', None)
+    tiered = [gi for gi in range(len(plan.groups)) if _tiered(dist, gi)]
     payload = _canonical(dist, {
         **{f'group_{gi}': quantization.bits(params[f'group_{gi}'])
            for gi in range(len(plan.groups))},
         **{f'hot_group_{gi}': quantization.bits(params[f'hot_group_{gi}'])
-           for gi in hot}})
+           for gi in hot}},
+        {gi: torch.from_numpy(tier.payload[gi]) for gi in tiered})
     scale = _canonical(dist, {
         **{f'group_{gi}': params[f'scale_group_{gi}'][:, 0]
            for gi in range(len(plan.groups))},
         **{f'hot_group_{gi}': params[f'hot_scale_group_{gi}'][:, 0]
-           for gi in hot}})
+           for gi in hot}},
+        {gi: torch.from_numpy(tier.scale[gi][:, 0]) for gi in tiered})
     return [QuantizedWeight(payload=_host(p), scale=_host(sc),
                             dtype_name=q.name)
             for p, sc in zip(payload, scale)]

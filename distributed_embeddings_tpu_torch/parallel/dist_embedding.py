@@ -56,6 +56,11 @@ the data axis and replicate across slices, or with ``dcn_sharding``
 shard over the axis product; then the lookup of each slice's distinct
 ids crosses slices in one more exchange pair (``_hier_lookup_many``),
 whose owner-side gathers and combines run on the lookup kernel.
+``cold_tier`` (docs/design.md §12, ``parallel/coldtier.py``) keeps only
+each group's resident head on the card and its tail rows in host memory:
+each batch's tail rows are fetched into buffers on the card, gathered
+from there by the lookup kernel (``_tiered_lookup``) and updated there by
+the segment walk's two-source arm, then written back.
 Every other option of the JAX constructor raises ``NotImplementedError``
 naming its ROADMAP item; none is ignored.
 """
@@ -208,7 +213,23 @@ class DistributedEmbedding:
       two-axis flat layer.  Requires ``dp_input=True`` and no
       ``row_slice``; weights arrive through ``hierarchical_params`` of
       a flat twin (the checkpoint functions refuse the layout).
-    cold_tier / cold_fetch_rows: not ported; raise.
+    cold_tier: the host-DRAM cold tier (docs/design.md §12,
+      ``parallel/coldtier.py``): keep only each fusion group's first
+      ``resident_rows`` rows on the device (the plan splits each group
+      under ``device_hbm_budget``) and its tail rows in this rank's host
+      memory (``self.cold_tier``, a ``HostTier``).  Each batch's
+      deduplicated tail rows are fetched into buffers on the device
+      (``build_cold_fetch``, done by ``apply`` when no fetch is passed),
+      the lookup kernel gathers them from there, the sparse apply
+      updates them there, and ``cold_write_back`` stores them back.
+      Bit-exact against the fully resident layer.  Requires
+      ``dp_input=True``, ``hot_cache``, a flat mesh and
+      ``param_dtype=float32`` (JAX's refusal matrix); ``init`` never
+      holds a tiered group whole on the device.
+    cold_fetch_rows: static per-batch fetch capacity (int, or
+      ``{group_index: int}``) of the tier's fetch buffers; by default
+      calibrated from the first batch at each global batch size
+      (``coldtier._ensure_caps``); an overflow refuses.
 
   On a two-axis mesh without ``dcn_sharding`` the tables shard over the
   data axis and replicate across slices; the batch splits over the
@@ -320,9 +341,30 @@ class DistributedEmbedding:
           'cross-slice update-stream gather has no tier writeback '
           'channel yet. Use a flat mesh with the cold tier.')
     if cold_tier:
-      raise not_ported('cold_tier', 12)
-    if cold_fetch_rows is not None:
-      raise not_ported('cold_fetch_rows', 12)
+      # the rest of the JAX package's cold-tier refusal matrix (the
+      # two-axis mesh above; SparseCore raises not_ported earlier)
+      if not dp_input:
+        raise ValueError(
+            'cold_tier requires dp_input=True: the tier streams rows '
+            'through the deduplicated dp->mp cold exchange, which the '
+            'model-parallel input path does not have '
+            '(docs/design.md §12 refusal matrix)')
+      if not hot_cache:
+        raise ValueError(
+            'cold_tier requires hot_cache: the deduplicated cold-id '
+            'exchange of the hot-cache forward is exactly the stream '
+            'the tier fetch rides (docs/design.md §12). Pass hot_sets '
+            '(even a small calibrated set) to enable the tier.')
+      if param_dtype != torch.float32:
+        raise ValueError(
+            f'cold_tier requires param_dtype=float32 (got '
+            f'{param_dtype}): the host tier stores f32 tails and '
+            'the tiered apply concatenates them with the resident '
+            'head, which would silently promote a bfloat16 table leaf '
+            'to f32 after the first step and skip the per-step bf16 '
+            'rounding the untiered program applies (docs/design.md '
+            '§12 refusal matrix). Quantize instead: '
+            "table_dtype='int8' halves storage twice as hard as bf16.")
     # ---- hierarchical (dcn x ici) placement refusal matrix (§20) ----
     if dcn_sharding:
       if self.dcn_axis is None:
@@ -356,6 +398,7 @@ class DistributedEmbedding:
                              hot_sets=hot_cache,
                              overlap_chunks=overlap_chunks,
                              table_dtype=quant,
+                             cold_tier=cold_tier,
                              device_hbm_budget=device_hbm_budget,
                              param_itemsize=torch.empty(
                                  0, dtype=param_dtype).element_size())
@@ -399,6 +442,67 @@ class DistributedEmbedding:
     # (local batch, hotness); a plan's legs are those of its last call
     self._fn_cache: Dict[Any, Any] = {}
     self._lookup_plans: Dict[Any, LookupPlan] = {}
+    # host-DRAM cold tier: this rank's host arrays of the tail rows
+    # (filled by init / set_weights), the fetch capacities per global
+    # batch (constructor-pinned rows seed every batch size), the pinned
+    # staging buffers, and a CPU process group of the tier's own for the
+    # pre-pass's all-gather (created here, on every rank in one order)
+    self.cold_tier = None
+    self._cold_fetch_caps: Dict[int, Dict[int, int]] = {}
+    self._cold_fetch_pinned: Dict[int, int] = {}
+    self._tier_pg = None
+    if self.plan.cold_tier_groups:
+      from distributed_embeddings_tpu_torch.parallel import coldtier
+      self.cold_tier = coldtier.HostTier(self.plan, self.quant, self.rank)
+      self._tier_staging = coldtier._Staging()
+      if self.world_size > 1:
+        self._tier_pg = torch_dist.new_group(
+            torch_dist.get_process_group_ranks(mesh.group), backend='gloo')
+    if cold_fetch_rows is not None:
+      if isinstance(cold_fetch_rows, dict):
+        self._cold_fetch_pinned = {int(k): int(v)
+                                   for k, v in cold_fetch_rows.items()}
+      else:
+        self._cold_fetch_pinned = {gi: int(cold_fetch_rows)
+                                   for gi in self.plan.cold_tier_groups}
+
+  def fetch_caps_for(self, global_batch: int) -> Dict[int, int]:
+    """The per-group static fetch capacities for one global batch size:
+    constructor-pinned ``cold_fetch_rows`` seed every batch size;
+    ``coldtier._ensure_caps`` calibrates the rest from the first batch
+    of that size."""
+    caps = self._cold_fetch_caps.get(int(global_batch))
+    if caps is None:
+      caps = dict(self._cold_fetch_pinned)
+      self._cold_fetch_caps[int(global_batch)] = caps
+    return caps
+
+  def build_cold_fetch(self, cats, rows=None):
+    """The cold tier's host pre-pass and fetch (design §12): this rank's
+    deduplicated tail rows of the batch ``cats`` (its local ids, as
+    ``apply`` takes them), gathered from the tier into buffers on the
+    device (``coldtier.build_fetch``; a collective over the tier's group
+    at a world above one).  ``rows``: precomputed row lists (the
+    pipelined path)."""
+    from distributed_embeddings_tpu_torch.parallel import coldtier
+    inputs, _, _ = self._prepare_inputs(cats)
+    return coldtier.build_fetch(self, inputs, rows=rows)
+
+  def cold_write_back(self, fetch, writeback=None):
+    """Store one step's updated tail rows (the fetch buffers, updated in
+    place by the sparse apply) back into this rank's host tier."""
+    from distributed_embeddings_tpu_torch.parallel import coldtier
+    coldtier.write_back(self, fetch, writeback)
+
+  def _resolve_cold_fetch(self, inputs, cold_fetch):
+    """A tiered layer's fetch for prepared ``inputs``: the one given (a
+    ``ColdFetch`` or its ``device`` dict), or one built now."""
+    if self.cold_tier is None:
+      return None
+    if cold_fetch is not None:
+      return getattr(cold_fetch, 'device', cold_fetch)
+    from distributed_embeddings_tpu_torch.parallel import coldtier
+    return coldtier.build_fetch(self, inputs).device
 
   # ------------------------------------------------------------------ init
 
@@ -422,9 +526,15 @@ class DistributedEmbedding:
     slice's sub-window of each member (``hier.groups[gi].sub_windows``,
     ``rows_cap_h`` rows): each member draws in full as the flat layer's
     would and keeps its sub-window, so the hierarchical init is the
-    flat init resharded (``hierarchical_params``)."""
+    flat init resharded (``hierarchical_params``).
+
+    A cold-tier group keeps its first ``device_rows`` rows on the device
+    and sends the rest of each drawn block to the host tier (JAX's
+    ``_split_cold_tier``, block by block: the group is never whole on the
+    device); the draws are the untiered layer's."""
     params = {}
     q = self.quant
+    tier = self.cold_tier
     for gi, g in enumerate(self.plan.groups):
       members = g.member_tables[self.rank]
       if self.dcn_sharding:
@@ -432,8 +542,9 @@ class DistributedEmbedding:
         rows = hl.rows_cap_h
         windows = hl.sub_windows[self.slice_index][self.rank]
       else:
-        rows = g.rows_cap
+        rows = g.device_rows
         windows = [(0, lt.input_dim) for lt in members]
+      res = rows
       buf = torch.empty((rows, g.width), dtype=self.table_dtype,
                         device=self.device)
       sbuf = (torch.empty((rows, 1), dtype=torch.float32,
@@ -446,18 +557,29 @@ class DistributedEmbedding:
           if lo >= hi:
             continue
           vals = vals[lo - r0:hi - r0]
-          dst = slice(off + lo - start, off + hi - start)
+          d0 = off + lo - start
           if q is None:
-            buf[dst] = vals
-            continue
-          payload, scale = quantization.quantize(vals, q)
-          quantization.bits(buf)[dst] = quantization.bits(payload)
-          sbuf[dst] = scale
+            payload, scale = vals, None
+          else:
+            payload, scale = quantization.quantize(vals, q)
+          head = max(0, min(res, d0 + vals.shape[0]) - d0)
+          if head:
+            quantization.bits(buf)[d0:d0 + head] = quantization.bits(
+                payload[:head])
+            if q is not None:
+              sbuf[d0:d0 + head] = scale[:head]
+          if head < vals.shape[0]:
+            t0 = d0 + head - res
+            t1 = t0 + vals.shape[0] - head
+            tier.payload[gi][t0:t1] = quantization.bits(
+                payload[head:]).cpu().numpy()
+            if q is not None:
+              tier.scale[gi][t0:t1] = scale[head:].cpu().numpy()
         off += size
-      quantization.bits(buf)[off:].zero_()
+      quantization.bits(buf)[min(off, res):].zero_()
       params[f'group_{gi}'] = buf
       if q is not None:
-        sbuf[off:].fill_(1.0)
+        sbuf[min(off, res):].fill_(1.0)
         params[f'scale_group_{gi}'] = sbuf
     if self.hot_enabled:
       params.update(self._init_hot(params))
@@ -522,11 +644,10 @@ class DistributedEmbedding:
         mine = owner == self.slice_index
         rows, dst = hrow[mine], dst[mine]
       if rows.size:
-        src = as_idx(rows)
-        vals = quantization.bits(params[f'group_{gi}'])[src]
+        payload, scale = self._owned_rows(params, gi, rows)
+        vals = quantization.bits(payload)
         if q is not None:
-          vals = quantization.dequantize(
-              vals.view(q.torch_dtype), params[f'scale_group_{gi}'][src])
+          vals = quantization.dequantize(vals.view(q.torch_dtype), scale)
         buf[as_idx(dst)] = vals
       if n > 1:
         torch_dist.all_reduce(buf, group=group)
@@ -536,6 +657,34 @@ class DistributedEmbedding:
         out[f'hot_group_{gi}'], out[f'hot_scale_group_{gi}'] = (
             quantization.quantize(buf, q))
     return out
+
+  def _owned_rows(self, params, gi: int, rows: np.ndarray):
+    """This rank's fused local ``rows`` of group ``gi`` as ``(payload,
+    scale)`` on the device (scale None unquantized): the head's from
+    ``params``, a cold-tier group's tail rows from the host tier."""
+    as_idx = lambda a: torch.as_tensor(a, dtype=torch.long,
+                                       device=self.device)
+    payload = params[f'group_{gi}']
+    scale = self._scale(params, gi)
+    res = self.plan.groups[gi].device_rows
+    if self.cold_tier is None or gi not in self.cold_tier.payload:
+      return (quantization.bits(payload)[as_idx(rows)].view(payload.dtype),
+              None if scale is None else scale[as_idx(rows)])
+    in_tail = rows >= res
+    h_pos, t_pos = as_idx(np.nonzero(~in_tail)[0]), as_idx(
+        np.nonzero(in_tail)[0])
+
+    def two_source(head, tail):
+      out = head.new_empty((rows.size,) + tuple(head.shape[1:]))
+      out[h_pos] = head[as_idx(rows[~in_tail])]
+      out[t_pos] = torch.from_numpy(tail[rows[in_tail] - res]).to(
+          self.device)
+      return out
+
+    got = two_source(quantization.bits(payload),
+                     self.cold_tier.payload[gi]).view(payload.dtype)
+    return got, (None if scale is None else
+                 two_source(scale, self.cold_tier.scale[gi]))
 
   # --------------------------------------------------------------- forward
 
@@ -559,7 +708,7 @@ class DistributedEmbedding:
             f'distributed path, got hotness {h}')
 
   def apply(self, params: Dict[str, torch.Tensor],
-            inputs) -> List[torch.Tensor]:
+            inputs, cold_fetch=None) -> List[torch.Tensor]:
     """Forward pass.
 
     Args:
@@ -574,13 +723,16 @@ class DistributedEmbedding:
         ``[global_batch(, hot)]`` ids of every entry of the worker order
         (``plan.input_ids_list`` flattened), the same list on every rank;
         each rank moves only its own entries to the device.
+      cold_fetch: cold-tier layers only: the batch's fetch
+        (``build_cold_fetch``); built here when omitted.
 
     Returns:
       List of ``[local_batch, output_dim]`` tensors in input order, at
       ``compute_dtype`` on ``self.device``: this rank's block of the
       global batch.
     """
-    return self.forward_with_residuals(params, inputs)[0]
+    return self.forward_with_residuals(params, inputs,
+                                       cold_fetch=cold_fetch)[0]
 
   __call__ = apply
 
@@ -1221,7 +1373,7 @@ class DistributedEmbedding:
   # ------------------------------------------------- sparse training hooks
 
   def forward_with_residuals(self, params: Dict[str, torch.Tensor], inputs,
-                             with_routing: bool = False):
+                             with_routing: bool = False, cold_fetch=None):
     """Forward that also returns the routed lookup ids, for the sparse
     training path (``parallel/sparse.py``).
 
@@ -1240,8 +1392,13 @@ class DistributedEmbedding:
       them: on a hot-cache layer a ``HotRouting`` (each subgroup's
       sort-unique inverse permutation and each input's hot/cold split),
       ``()`` on the uncached paths.
+
+      ``cold_fetch``: cold-tier layers only, the batch's fetch
+      (``build_cold_fetch``; built here when omitted).  The sparse apply
+      then needs the same fetch, and its write-back.
     """
     inputs, batch, hotness = self._prepare_inputs(inputs)
+    fetch = self._resolve_cold_fetch(inputs, cold_fetch)
     routing_out = ()
     if (self.quant is not None and torch.is_grad_enabled()
         and any(t.requires_grad for t in params.values())):
@@ -1254,7 +1411,7 @@ class DistributedEmbedding:
                          '7, its remaining parts')
       global_batch = batch * self.world_size * self.num_slices
       outs, residuals, routing_out = self._build_dp_forward_hot(
-          batch, hotness)(params, inputs)
+          batch, hotness)(params, inputs, fetch)
     elif self.dp_input:
       global_batch = batch * self.world_size * self.num_slices
       outs, residuals = self._build_dp_forward(batch, hotness)(params,
@@ -1564,7 +1721,7 @@ class DistributedEmbedding:
     is_mean = [plan.table_configs[t].combiner == 'mean'
                for t in plan.input_table_map]
 
-    def fwd(params, inputs):
+    def fwd(params, inputs, fetch=None):
       lplan.legs.clear()
       mem = self._hot_membership(inputs)
       sends, invs = self._cold_sends(subs, mem, local_batch)
@@ -1598,10 +1755,14 @@ class DistributedEmbedding:
                  if sub.gi == gi and routed[si] is not None]
           if not sis or self.dcn_sharding:
             continue
-          got = lookup_ops.fused_group_lookup(
-              params[f'group_{gi}'], [routed[si] for si in sis],
-              [None] * len(sis), self.compute_dtype,
-              self._scale(params, gi))
+          if fetch:
+            got = self._tiered_lookup(params, fetch, gi,
+                                      [routed[si] for si in sis])
+          else:
+            got = lookup_ops.fused_group_lookup(
+                params[f'group_{gi}'], [routed[si] for si in sis],
+                [None] * len(sis), self.compute_dtype,
+                self._scale(params, gi))
           for si, r in zip(sis, got):
             pre[si] = r.reshape(r.shape[0], D, -1,
                                 subs[si].group.width).transpose(0, 1)
@@ -1659,6 +1820,44 @@ class DistributedEmbedding:
 
     self._fn_cache[key] = fwd
     return fwd
+
+  def _tiered_lookup(self, params, fetch, gi: int, routed):
+    """The owner-side row gather of group ``gi`` for its subgroups'
+    routed unique ids ``[n_cap, N, 1]`` (``rows_cap`` padding), from the
+    resident head and, for a cold-tier group, this batch's fetch buffers
+    (JAX's ``_tiered_gather``).  Each id is gathered once: one lookup
+    kernel launch on the head with the tail ids at its sentinel, one on
+    the fetch buffers with the resident ids at theirs and the tail ids at
+    their fetch positions (the fetch rows are sorted: a
+    ``searchsorted``), merged by a mask, not an add, so every row (a
+    ``-0.0`` included) is bit for bit the fully resident gather's.  A
+    fully resident group takes ``fused_group_lookup``."""
+    table, scale = params[f'group_{gi}'], self._scale(params, gi)
+    f = fetch.get(gi)
+    if f is None:
+      return lookup_ops.fused_group_lookup(table, routed,
+                                           [None] * len(routed),
+                                           self.compute_dtype, scale)
+    res, rows_cap = table.shape[0], self.plan.groups[gi].rows_cap
+    frows = f['rows']
+    cap = frows.shape[0]
+    out = []
+    for r in routed:
+      x = r.reshape(-1, 1)
+      is_res = x < res
+      pos = torch.clamp(torch.searchsorted(frows, x, out_int32=True),
+                        max=cap - 1)
+      hit = (~is_res) & (x < rows_cap) & (frows[pos.long()] == x)
+      head = lookup_ops.fused_group_lookup(
+          table, [torch.where(is_res, x, res)[None]], [None], torch.float32,
+          scale)[0]
+      tail = lookup_ops.fused_group_lookup(
+          f['payload'], [torch.where(hit, pos, cap)[None]], [None],
+          torch.float32, f.get('scale'))[0]
+      rows = torch.where(is_res, head, tail)
+      out.append(rows.to(self.compute_dtype).reshape(r.shape[0], r.shape[1],
+                                                     -1))
+    return tuple(out)
 
   def _build_backward_hot(self, local_batch: int, hotness: tuple,
                           with_sq: bool = False, with_touch: bool = False):

@@ -32,6 +32,8 @@ import torch.distributed as torch_dist
 from distributed_embeddings_tpu_torch import optim
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.parallel.coldtier import (
+    TierIntegrityError)
 from distributed_embeddings_tpu_torch.utils import resilience
 
 ANOMALY_POLICIES = (None, 'terminate', 'rollback', 'rollback_skip')
@@ -287,9 +289,11 @@ def fit(step_fn: Callable,
       corruption).  ``'rollback_skip'``: the same, but the input skips
       the offending window (journaled ``skip_window``).  At most
       ``rollback_budget`` rollbacks; the next anomaly journals
-      ``rollback_budget_exhausted`` and terminates.  (The JAX package
-      also takes the cold tier's ``TierIntegrityError`` here; the port
-      has no cold tier until item 12.)
+      ``rollback_budget_exhausted`` and terminates.  A cold-tier step's
+      ``coldtier.TierIntegrityError`` (a corrupted host-tier row, caught
+      at fetch time and journaled ``tier_integrity_failure``) is the
+      anomaly ``'tier_integrity'`` under a policy, and raises without
+      one.
     rollback_dir: the checkpoint directory the rollback policies scan.
     rollback_budget: in-place rollbacks per call.
     data_factory: ``step -> iterable`` positioned at the batch that
@@ -526,6 +530,11 @@ def fit(step_fn: Callable,
         break
       except _Anomaly as a:
         if not handle_anomaly(a):
+          break
+      except TierIntegrityError as e:
+        if on_anomaly is None:
+          raise
+        if not handle_anomaly(_Anomaly('tier_integrity', i, str(e))):
           break
   except StopIteration:  # raised by a callback: early stop
     pass

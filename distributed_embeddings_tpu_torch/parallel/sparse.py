@@ -61,6 +61,18 @@ own dtype at full row width.  A quantized hot buffer takes its dense
 step on its dequantized rows and is requantized whole
 (``_apply_hot_quantized``): untouched rows round-trip bit for bit.
 
+Cold-tier groups (``cold_tier``, docs/design.md §12) apply on two
+sources: the stream's tail ids are remapped to ``resident_rows + their
+position in the batch's fetch buffers`` (``_tier_ids``; the fetch rows
+are sorted, so the remap is monotone and the sorted stream, its segments
+and its chunks are the untiered layer's), and the head rows update in
+place on the card while the tail rows update inside the fetch buffers:
+the segment walk's two-source arm (``ops/segwalk.py`` ``Tail``), or for
+the quantized and pre-summed-square applies their row updates split at
+``resident_rows``.  Every row's arithmetic is the untiered layer's, so
+the tiered step is bit for bit the fully resident one; the hybrid step
+then writes the touched tail rows back to the host tier.
+
 Each rank runs its own process.  ``head_loss_fn`` returns the mean loss
 over this rank's LOCAL batch; the step turns that into the JAX package's
 global-mean loss: embedding cotangents are divided by the world size,
@@ -193,6 +205,12 @@ class SparseAdagrad:
     return 'adagrad_dedup' if self.dedup else 'adagrad_sq'
 
   def init(self, dist: DistributedEmbedding, params) -> Dict:
+    if getattr(dist, 'cold_tier', None) is not None:
+      # the accumulator of host-tier tail rows lives in the tier (design
+      # §12); created here so a fresh train state and a restore see the
+      # same leaf set
+      dist.cold_tier.ensure_opt('acc', self.initial_accumulator_value,
+                                _DTYPES[self.accum_dtype])
     # hot rows' accumulators live in the replicated split state while the
     # rows are hot; the checkpoint boundary overlays them canonically
     keys = [f'group_{gi}' for gi in range(len(dist.plan.groups))] + [
@@ -347,13 +365,45 @@ def _f32(x, device) -> torch.Tensor:
   return torch.full((), x, dtype=torch.float32, device=device)
 
 
+def _tier_ids(flat_ids, frows, res: int, rows_cap: int):
+  """A cold-tier group's stream ids in the apply's two-source row space
+  (JAX's tiered apply remap): resident ids pass through, a fetched tail
+  id goes to ``res`` plus its position in the (sorted) fetch rows, and
+  anything else (the sentinel; a tail id the fetch missed, impossible by
+  the pre-pass) to the new sentinel ``res + cap``.  Monotone on the
+  valid ids, so the stream sorts as it did."""
+  cap = frows.shape[0]
+  ids = flat_ids.to(torch.int32)
+  pos = torch.clamp(torch.searchsorted(frows, ids, out_int32=True),
+                    max=cap - 1)
+  hit = (ids >= res) & (ids < rows_cap) & (frows[pos.long()] == ids)
+  return torch.where(ids < res, ids, torch.where(hit, res + pos, res + cap))
+
+
+def _split_row_updates(optimizer, state, tail_state, res, r, sum_g, sum_sq,
+                       lr):
+  """``optimizer.row_updates`` on two sources: the rows ``r < res`` with
+  the head's state, the rest with the tail's at ``r - res``.  Elementwise
+  per row, so the deltas and states are those of one state."""
+  if tail_state is None:
+    return optimizer.row_updates(state, r, sum_g, sum_sq, lr)
+  in_tail = r >= res
+  delta = torch.empty_like(sum_g)
+  for sel, st, rows in ((~in_tail, state, r[~in_tail]),
+                        (in_tail, tail_state, r[in_tail] - res)):
+    delta[sel] = optimizer.row_updates(
+        st, rows, sum_g[sel], None if sum_sq is None else sum_sq[sel], lr)
+  return delta
+
+
 def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
-                   g_index=None):
+                   g_index=None, tail=None):
   """One group's apply through the segment walk, in place: ``flat_g``
   holds COMPACT per-(sample, bag) rows and ``g_index`` maps each stream
   position to its row.  A bf16 ``stream_dtype`` rounds them here, once,
   before the kernel gathers them (``pallas_segwalk.py``'s
-  ``sorted_g.astype(sdt)``)."""
+  ``sorted_g.astype(sdt)``).  ``tail``: a cold-tier group's fetch
+  (``flat_ids`` in the two-source row space, ``_tier_ids``)."""
   if (getattr(optimizer, 'use_segwalk_apply', False)
       and getattr(optimizer, 'stream_dtype', _F32) == 'bfloat16'):
     flat_g = flat_g.to(torch.bfloat16)
@@ -364,6 +414,9 @@ def _segwalk_apply(optimizer, table, state, flat_ids, flat_g, lr,
   else:
     acc = state.get('acc')
     extra = {'eps': getattr(optimizer, 'epsilon', 1e-7)}
+  if tail is not None:
+    extra['tail'] = segwalk.Tail(tail['payload'],
+                                 tail.get('opt', {}).get('acc'))
   segwalk.segwalk_apply(table, acc, flat_ids, flat_g, lr,
                         op=optimizer.segwalk_op, g_index=g_index, **extra)
   return table, state
@@ -387,29 +440,35 @@ def _compact_stream(flat_ids, flat_g, rows_cap: int, g_index=None,
   return uids, sums
 
 
-def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr):
+def _apply_presummed_sq(optimizer, table, state, flat_ids, flat_g2, lr,
+                        tail=None):
   """Per-occurrence Adagrad on a cached stream, in place: ``flat_g2``
   rows carry ``[sum g, sum g * g]`` already summed per (source rank,
   slot), so the squares add as they are (never re-squared).  Each
   distinct row's two sums come from the segment walk's ``'add'``
   (``routing.segment_sum``); the update is the JAX package's XLA apply
   of a pre-summed square: ``a += sum_sq``; ``t += (-lr * sum_g *
-  rsqrt(a + eps))`` at the table's dtype."""
+  rsqrt(a + eps))`` at the table's dtype.  ``tail``: a cold-tier group's
+  fetch (two sources, ``_tier_ids``)."""
   rows, w = table.shape
   dev = table.device
-  uids, sums = _compact_stream(flat_ids, flat_g2, rows)
+  uids, sums = _compact_stream(flat_ids, flat_g2, rows + (
+      0 if tail is None else tail['payload'].shape[0]))
   r = uids.long()
-  acc = state['acc']
-  acc_rows = acc[r].to(torch.float32) + sums[:, w:]
+  t_rows = segwalk.TwoSourceRows(
+      table, None if tail is None else tail['payload'], r)
+  a_rows = segwalk.TwoSourceRows(
+      state['acc'], None if tail is None else tail['opt']['acc'], r)
+  acc_rows = a_rows.get().to(torch.float32) + sums[:, w:]
   delta = (-_f32(lr, dev) * sums[:, :w]
            * torch.rsqrt(acc_rows + _f32(optimizer.epsilon, dev)))
-  table[r] = table[r] + delta.to(table.dtype)
-  acc[r] = acc_rows.to(acc.dtype)
+  t_rows.set(t_rows.get() + delta.to(table.dtype))
+  a_rows.set(acc_rows.to(state['acc'].dtype))
 
 
 def _apply_quantized(optimizer, spec, payload, scale, state, flat_ids,
                      flat_g, lr, g_index=None, with_sq=False,
-                     presummed_sq=False):
+                     presummed_sq=False, tail=None):
   """One quantized group's apply, in place (the JAX package's
   ``_QuantizedTableOptimizer.apply_unique``): the stream's rows summed
   per touched row by the segment walk's ``'add'``
@@ -421,17 +480,27 @@ def _apply_quantized(optimizer, spec, payload, scale, state, flat_ids,
   row (None: one row a position).  ``with_sq``: per-occurrence Adagrad on
   an uncached stream, whose squares are summed beside the gradients;
   ``presummed_sq``: a cached stream's rows carry ``[sum g, sum g * g]``
-  already (added as they are, never re-squared)."""
-  rows_cap, w = payload.shape
-  uids, sums = _compact_stream(flat_ids, flat_g, rows_cap, g_index, with_sq)
+  already (added as they are, never re-squared).  ``tail``: a cold-tier
+  group's fetch (two sources, ``_tier_ids``): rows past the head read and
+  write its payload, scale and optimizer rows."""
+  res, w = payload.shape
+  rows = res + (0 if tail is None else tail['payload'].shape[0])
+  uids, sums = _compact_stream(flat_ids, flat_g, rows, g_index, with_sq)
   r = uids.long()
-  bits = quantization.bits(payload)
-  old = quantization.dequantize(bits[r].view(payload.dtype), scale[r])
+  b_rows = segwalk.TwoSourceRows(
+      quantization.bits(payload),
+      None if tail is None else quantization.bits(tail['payload']), r)
+  s_rows = segwalk.TwoSourceRows(
+      scale, None if tail is None else tail['scale'], r)
+  old = quantization.dequantize(b_rows.get().view(payload.dtype),
+                                s_rows.get())
   sum_sq = sums[:, w:] if (with_sq or presummed_sq) else None
-  delta = optimizer.row_updates(state, r, sums[:, :w], sum_sq, lr)
+  delta = _split_row_updates(optimizer, state,
+                             None if tail is None else tail.get('opt', {}),
+                             res, r, sums[:, :w], sum_sq, lr)
   new_payload, new_scale = quantization.quantize(old + delta, spec)
-  bits[r] = quantization.bits(new_payload)
-  scale[r] = new_scale
+  b_rows.set(quantization.bits(new_payload))
+  s_rows.set(new_scale)
 
 
 def _apply_hot_quantized(optimizer, spec, payload, scale, state, sum_g,
@@ -562,7 +631,8 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
   # beside the gradients at the compaction
   occ_sq = optimizer.needs_sq and not cached
 
-  def apply(params, opt_state, lr, residuals, gsubs, hot_grads=None):
+  def apply(params, opt_state, lr, residuals, gsubs, hot_grads=None,
+            fetch=None):
     for gi, group in enumerate(dist.plan.groups):
       if not slots_of[gi]:
         continue
@@ -605,16 +675,22 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
                          flat_ids, flat_g, lr)
         continue
       if cached:
+        # a cold-tier group: the head and this batch's fetched tail rows
+        tail = (fetch or {}).get(gi)
+        if tail is not None:
+          flat_ids = _tier_ids(flat_ids, tail['rows'], group.device_rows,
+                               group.rows_cap)
         if quant is not None:
           _apply_quantized(optimizer, quant, params[key_g],
                            params[f'scale_group_{gi}'], opt_state[key_g],
-                           flat_ids, flat_g, lr, presummed_sq=needs_sq)
+                           flat_ids, flat_g, lr, presummed_sq=needs_sq,
+                           tail=tail)
         elif needs_sq:
           _apply_presummed_sq(optimizer, params[key_g], opt_state[key_g],
-                              flat_ids, flat_g, lr)
+                              flat_ids, flat_g, lr, tail=tail)
         else:
           _segwalk_apply(optimizer, params[key_g], opt_state[key_g],
-                         flat_ids, flat_g, lr)
+                         flat_ids, flat_g, lr, tail=tail)
         continue
       if quant is not None:
         _apply_quantized(optimizer, quant, params[key_g],
@@ -653,12 +729,21 @@ def _build_sparse_apply(dist: DistributedEmbedding, optimizer,
 
 def sparse_apply_updates(dist: DistributedEmbedding, optimizer, params,
                          opt_state, residuals, gsubs, lr,
-                         global_batch: int, hotness: tuple, hot_grads=None):
+                         global_batch: int, hotness: tuple, hot_grads=None,
+                         cold_fetch=None):
   """Apply one sparse optimizer step to this rank's embedding params, in
   place; returns ``(params, opt_state)``, the same dicts.
 
   ``hot_grads``: for hot-cache layers, the ``{group_index: [K, w]}``
-  replicated hot-row gradient buffers ``backward_to_mp`` returns."""
+  replicated hot-row gradient buffers ``backward_to_mp`` returns.
+  ``cold_fetch``: for cold-tier layers, the forward's fetch: its buffers
+  take the tail rows' updates (write them back with
+  ``dist.cold_write_back``)."""
+  if dist.cold_tier is not None and cold_fetch is None:
+    raise ValueError(
+        'sparse_apply_updates on a cold-tier layer requires cold_fetch= '
+        '(the forward\'s fetch, whose buffers take the tail rows\' '
+        'updates); make_hybrid_train_step passes it')
   if dist.plan.hot_groups and not hot_grads:
     raise ValueError(
         'sparse_apply_updates on a hot-cache layer requires hot_grads= '
@@ -667,7 +752,8 @@ def sparse_apply_updates(dist: DistributedEmbedding, optimizer, params,
   fn = _build_sparse_apply(
       dist, optimizer, global_batch // (dist.world_size * dist.num_slices),
       tuple(hotness))
-  return fn(params, opt_state, float(lr), residuals, gsubs, hot_grads)
+  return fn(params, opt_state, float(lr), residuals, gsubs, hot_grads,
+            getattr(cold_fetch, 'device', cold_fetch))
 
 
 def _mean_row_sliced_inputs(dist: DistributedEmbedding, hotness: tuple):
@@ -710,12 +796,15 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       defaults to its fixed ``learning_rate``.
 
   Returns:
-    ``step(state, cats, batch) -> (state, loss)``: ``cats`` the
-    embedding inputs as ``dist.apply`` takes them (this rank's local
-    batch in input order, or with ``dp_input=False`` the global batch in
-    worker order), ``batch`` this rank's local slice of the dense inputs,
-    passed through to ``head_loss_fn``; ``loss`` is the global mean (a
-    0-d tensor).
+    ``step(state, cats, batch, cold_fetch=None) -> (state, loss)``:
+    ``cats`` the embedding inputs as ``dist.apply`` takes them (this
+    rank's local batch in input order, or with ``dp_input=False`` the
+    global batch in worker order), ``batch`` this rank's local slice of
+    the dense inputs, passed through to ``head_loss_fn``; ``loss`` is the
+    global mean (a 0-d tensor).  On a cold-tier layer the step builds the
+    batch's fetch (``dist.build_cold_fetch``) unless ``cold_fetch`` hands
+    in one (``coldtier.ColdFetchPipeline``), runs the step on it, and
+    writes the touched tail rows back to the tier before it returns.
   """
   # input id -> its position in ``cats``: with ``dp_input=False`` the
   # worker order, where a row-sliced input appears on several ranks with
@@ -726,12 +815,23 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
   for k, i in enumerate(flat):
     cat_pos.setdefault(i, k)
 
-  def step(state: TrainState, cats, batch):
+  def step(state: TrainState, cats, batch, cold_fetch=None):
     if dist.dp_input:
       # RaggedBatch inputs densified once, here (the JAX step's ``run``
       # does it outside its jit): the forward and the mean row-shard
       # division below both read the dense ids
       cats = dist._densify(cats)
+    if dist.cold_tier is not None:
+      # the host pre-pass and fetch (or a pipelined one), the step on
+      # it, then the tail rows' write-back before the loss returns
+      fetch = (cold_fetch if cold_fetch is not None
+               else dist.build_cold_fetch(cats))
+      state, loss = _step(state, cats, batch, fetch)
+      dist.cold_write_back(fetch)
+      return state, loss
+    return _step(state, cats, batch, None)
+
+  def _step(state: TrainState, cats, batch, fetch):
     emb_params = state.params['embedding']
     dense = {k: v for k, v in state.params.items() if k != 'embedding'}
     dense_opt_state, emb_opt_state = state.opt_state
@@ -741,7 +841,8 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
 
     # hot-cache layers: the backward reuses the forward's routing products
     outs, residuals, hot_routing, (global_batch, hotness) = (
-        dist.forward_with_residuals(emb_params, cats, with_routing=True))
+        dist.forward_with_residuals(emb_params, cats, with_routing=True,
+                                    cold_fetch=fetch))
     # the embedding outputs are the autograd leaves of the head: the
     # tables stay outside the graph
     outs = [o.detach().requires_grad_(True) for o in outs]
@@ -773,7 +874,7 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
           with_touch=emb_optimizer.needs_touch, routing=hot_routing)
       emb_params, emb_opt_state = sparse_apply_updates(
           dist, emb_optimizer, emb_params, emb_opt_state, residuals, gsubs,
-          lr, global_batch, hotness, hot_grads=hot_grads)
+          lr, global_batch, hotness, hot_grads=hot_grads, cold_fetch=fetch)
       params = {**dense, 'embedding': emb_params}
       return TrainState(params, (dense_opt_state, emb_opt_state),
                         state.step + 1), loss

@@ -16,9 +16,14 @@ serves a uniformly quantized set of ``checkpoint.QuantizedWeight``s at
 its own dtype, through the lookup kernel's dequantizing arm), and
 ``hot_sets`` (a read-only hot-row cache: hot rows replicate on every
 rank and are served with no exchange, ``hotcache.serving_hot_sets`` /
-``analytic_power_law_hot_sets``).  ``from_bundle``, ``hot_only_filter``,
-the batcher and the pool are ROADMAP.md Queue 1, item 13; tiered tables
-raise at construction.
+``analytic_power_law_hot_sets``), and the read-only cold tier
+(``cold_tier``, docs/design.md §12 and §14): the tail rows live in host
+memory, each lookup fetches its rows (each rung calibrates its own fetch
+capacity at its first launch, which ``warmup`` makes), the tier is
+frozen, so a write-back refuses, and with ``verify_tier_digests`` every
+fetched row is checked against its digest first.  ``from_bundle``,
+``hot_only_filter``, the batcher and the pool are ROADMAP.md Queue 1,
+item 13.
 """
 
 from __future__ import annotations
@@ -96,8 +101,12 @@ class ServingEngine:
     wire_dtype: the exchange's wire format (``None``, ``'bfloat16'``,
       or ``'table'`` with quantized tables), as in
       ``DistributedEmbedding``; reported by ``stats``.
-    cold_tier / device_hbm_budget / cold_fetch_rows: forwarded; those
-      not ported raise.
+    cold_tier / device_hbm_budget / cold_fetch_rows: the host-DRAM
+      cold tier, forwarded to ``DistributedEmbedding`` (it needs
+      ``hot_sets``); the tier is frozen after the tables are set.
+    verify_tier_digests: with a tier, arm its row digests, so every
+      fetched row is verified (a damaged one raises
+      ``coldtier.TierIntegrityError`` before it reaches the device).
   """
 
   def __init__(self, table_configs, weights, *, batch_size: int,
@@ -117,7 +126,8 @@ class ServingEngine:
                device_hbm_budget: Optional[int] = None,
                cold_fetch_rows=None,
                fused_exchange: bool = True,
-               wire_dtype: Optional[str] = None):
+               wire_dtype: Optional[str] = None,
+               verify_tier_digests: bool = True):
     weights = list(weights)
     if table_dtype == 'auto':
       table_dtype = _resolve_bundle_dtype(weights)
@@ -170,6 +180,12 @@ class ServingEngine:
           f'hotness has {len(self.hotness)} entries for '
           f'{self.dist.num_inputs} inputs')
     self.params = checkpoint.set_weights(self.dist, weights)
+    if self.dist.cold_tier is not None:
+      # the read-only tier (design §14): every fetched row is verified,
+      # and nothing writes back
+      if verify_tier_digests:
+        self.dist.cold_tier.enable_digests()
+      self.dist.cold_tier.freeze()
     self.output_dims = [
         self.dist.table_configs[tid].output_dim
         for tid in self.dist.plan.input_table_map
@@ -338,4 +354,5 @@ class ServingEngine:
           'hot_cache': bool(self.dist.hot_enabled),
           'fused_exchange': bool(self.dist.fused_exchange),
           'wire_dtype': self.dist.wire_dtype,
+          'cold_tier': self.dist.cold_tier is not None,
       }

@@ -49,8 +49,9 @@ REGISTERED_EVENTS = frozenset({
     # anomaly policy (parallel/grad.py fit on_anomaly, the DLRM example)
     'terminate_on_nan', 'anomaly_detected', 'rollback', 'rollback_failed',
     'rollback_budget_exhausted', 'skip_window',
-    # state-integrity auditor (parallel/audit.py)
-    'audit_failure',
+    # state-integrity auditor (parallel/audit.py) and the host tier's
+    # fetch-time digests (parallel/coldtier.py)
+    'audit_failure', 'tier_integrity_failure',
     # periodic registry snapshots (obs/metrics.py)
     'metrics_snapshot',
 })

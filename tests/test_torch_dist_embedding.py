@@ -165,8 +165,6 @@ def test_input_checks_match_jax():
 
 
 @pytest.mark.parametrize('kw,item', [
-    (dict(cold_tier=True), 12),
-    (dict(cold_fetch_rows=64), 12),
     (dict(lookup_impl='sparsecore'), 15),
 ])
 def test_unported_options_refuse(kw, item):

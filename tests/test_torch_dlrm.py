@@ -279,10 +279,8 @@ def test_entry_point_trains_and_evaluates(capsys):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--dataset_path', 'criteo'], '12'),
-    (['--cold_tier_budget_mb', '64'], '12'),
-    (['--csr_feed'], '12'),
-    (['--loader_bench'], '12'),
+    (['--csr_feed'], '15'),
+    (['--on_batch_error', 'skip'], '15'),
     (['--trace', 't.json'], '14')])
 def test_entry_point_refuses_unported_flags(flags, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
@@ -374,8 +372,9 @@ def test_entry_point_hot_cache_refusals(flags, why):
 
 
 def test_entry_point_parses_the_jax_flags():
-  # every flag of examples/dlrm/main.py, with its default; --device is
-  # the port's one addition
+  # every flag of examples/dlrm/main.py, with its default; --device and
+  # --cold_fetch_rows (the cold tier's fetch capacity, which the JAX
+  # example only calibrates) are the port's additions
   from examples.dlrm import main as jax_main
   import sys
   argv, sys.argv = sys.argv, ['main.py']
@@ -385,6 +384,7 @@ def test_entry_point_parses_the_jax_flags():
     sys.argv = argv
   got = vars(dlrm_main.build_parser().parse_args([]))
   assert got.pop('device') == 'cuda'
+  assert got.pop('cold_fetch_rows') is None
   assert got == want
   with pytest.raises(ValueError, match='XLA'):
     dlrm_main.main(SMALL_FLAGS + ['--fast_compile'])

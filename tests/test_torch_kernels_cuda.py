@@ -975,3 +975,96 @@ def test_quantized_layer_on_the_card_matches_the_cpu(cuda_device, dtype):
       assert float(diff.max()) <= (1 if 'scale' not in k else float(
           cpu[1][k].abs().max())), k
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w', [1, 8, 128])
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq', 'add'])
+def test_segwalk_two_source_equals_one_table(cuda_device, op, w):
+  """The cold tier's two-source arm: a head and a tail take the apply of
+  the one table they split, bit for bit, on the kernel; and agree with
+  the plain two-source version."""
+  rng = np.random.default_rng(w + 1)
+  rows, res, n, m = 900, 400, 7000, 2000
+  table = torch.as_tensor(rng.normal(size=(rows, w)).astype(np.float32)).to(
+      cuda_device)
+  acc = None if op in ('sgd', 'add') else torch.as_tensor(
+      rng.uniform(0.05, 0.2, size=(rows, w)).astype(np.float32)).to(
+          cuda_device)
+  ids = (rng.zipf(1.3, n) - 1).clip(max=rows + 5).astype(np.int32)
+  ids[::11] = -1
+  ids = torch.as_tensor(ids).to(cuda_device)
+  grads = torch.as_tensor(rng.normal(size=(m, w)).astype(np.float32)).to(
+      cuda_device)
+  g_index = torch.as_tensor(rng.integers(0, m, n).astype(np.int32)).to(
+      cuda_device)
+  whole, whole_acc = _segwalk_against_plain(table, acc, ids, grads, op,
+                                            g_index)
+  out = []
+  for fn in (segwalk.segwalk_apply, segwalk.segwalk_apply_reference):
+    head, tail = table[:res].clone(), table[res:].clone()
+    head_acc = None if acc is None else acc[:res].clone()
+    tail_acc = None if acc is None else acc[res:].clone()
+    before = segwalk.ARM_LAUNCHES['two_source']
+    fn(head, head_acc, ids, grads, 0.3, op=op, g_index=g_index,
+       tail=segwalk.Tail(tail, tail_acc))
+    torch.cuda.synchronize()
+    if fn is segwalk.segwalk_apply:
+      assert segwalk.ARM_LAUNCHES['two_source'] == before + 1
+      assert torch.equal(torch.cat([head, tail]), whole)
+      if acc is not None:
+        assert torch.equal(torch.cat([head_acc, tail_acc]), whole_acc)
+    out.append((torch.cat([head, tail]), None if acc is None
+                else torch.cat([head_acc, tail_acc])))
+  (kt, ka), (pt, pa) = out
+  if acc is None:
+    assert torch.equal(kt, pt)
+  else:
+    torch.testing.assert_close(kt, pt, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(ka, pa, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [None, 'int8'])
+def test_tiered_layer_on_the_card_equals_its_resident_twin(cuda_device,
+                                                           dtype):
+  """A cold-tier layer on the card against its fully resident twin on
+  the card: the forward and 3 Adagrad steps, bit for bit (the tail's
+  gathers on the lookup kernel, its applies on the two-source arm)."""
+  tables = [TableConfig(300, 16, 'sum'), TableConfig(120, 8, 'mean'),
+            TableConfig(50, 4, None)]
+  hot = {0: hotcache.HotSet(0, np.arange(12))}
+  rng = np.random.default_rng(6)
+  weights = [rng.normal(size=(t.input_dim, t.output_dim)).astype(np.float32)
+             for t in tables]
+  batches = [[rng.integers(-1, t.input_dim + 2,
+                           size=(256,) if t.combiner is None else (256, 3)
+                           ).astype(np.int32) for t in tables]
+             for _ in range(3)]
+  twin = DistributedEmbedding(tables, device=cuda_device, table_dtype=dtype,
+                              hot_cache=hot)
+  budget = twin.plan.resident_table_bytes() // 2
+  tiered = DistributedEmbedding(tables, device=cuda_device, table_dtype=dtype,
+                                hot_cache=hot, cold_tier=True,
+                                device_hbm_budget=budget)
+  assert tiered.plan.cold_tier_groups
+  got = {}
+  for name, d in (('twin', twin), ('tiered', tiered)):
+    params = checkpoint.set_weights(d, weights)
+    with torch.no_grad():
+      outs = d.apply(params, batches[0])
+    opt = sparse.SparseAdagrad(learning_rate=0.1)
+    state = sparse.init_hybrid_train_state(d, {'embedding': params},
+                                           _NoOpt(), opt)
+    step = sparse.make_hybrid_train_step(
+        d, lambda dense, embs, _: sum((e.float()**2).mean() for e in embs),
+        _NoOpt(), opt)
+    for cats in batches:
+      state, _ = step(state, cats, None)
+    got[name] = ([o.cpu() for o in outs],
+                 [t.cpu() for t in checkpoint.get_weights(
+                     d, state.params['embedding'])],
+                 [s['acc'].cpu() for s in checkpoint.get_optimizer_state(
+                     d, state.opt_state[1])])
+  for a, b in zip(sum(got['twin'], []), sum(got['tiered'], [])):
+    assert torch.equal(a, b)

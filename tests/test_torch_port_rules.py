@@ -69,7 +69,9 @@ def test_scan_sees_the_whole_port():
                  'layers/dist_embed.py',
                  'examples/benchmarks/lookup_benchmark.py',
                  'parallel/hotcache.py', 'parallel/mesh.py',
-                 'parallel/overlap.py', 'parallel/quantization.py'):
+                 'parallel/overlap.py', 'parallel/quantization.py',
+                 'parallel/coldtier.py', 'utils/fastloader.py',
+                 'examples/dlrm/gen_data.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'
@@ -154,3 +156,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
                       lambda p: False)
   with pytest.raises(RuntimeError, match='nvcc not found'):
     nativebuild.build('lookup_combine')
+
+
+def test_host_build_without_compiler_raises(monkeypatch, tmp_path):
+  """The host arm (``csrc/host/*.cc``): no C++ compiler raises, and a
+  failing compile raises with the compiler's output; nothing falls back."""
+  monkeypatch.setattr(nativebuild, 'BUILD_DIR', tmp_path)
+  monkeypatch.setenv('CXX', '')
+  monkeypatch.setenv('PATH', str(tmp_path))
+  with pytest.raises(RuntimeError, match='no C\\+\\+ compiler'):
+    nativebuild.build_host('fastloader')
+  assert not list(tmp_path.iterdir())
+
+
+def test_host_library_path_follows_the_source():
+  path = nativebuild.host_library_path('fastloader')
+  assert path.parent == nativebuild.BUILD_DIR
+  assert path.name.startswith('libfastloader-host-')
+  assert (nativebuild.HOST_DIR / 'fastloader.cc').exists()

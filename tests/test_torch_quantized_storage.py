@@ -17,8 +17,8 @@ seed.
   payload and scale bit-exact where every touched row occurs once,
   otherwise every dequantized element within one quantization step of
   its row; optimizer state within 1e-6; rows no id names keep their bits.
-- The refusal matrix (JAX :416-458 without the cold tier, item 12), and
-  the dense trainer's refusal.
+- The refusal matrix (JAX :416-458; the cold tier's own cases are in
+  tests/test_torch_coldtier.py), and the dense trainer's refusal.
 - Checkpoint files both ways with the JAX package, bit for bit; a
   quantized file restores into an f32 plan exactly, a legacy f32 file
   into a quantized plan within the bound (JAX :461-556);
@@ -320,10 +320,12 @@ def test_refusal_matrix():
                          param_dtype=torch.bfloat16)
   with pytest.raises(ValueError, match='Unsupported table_dtype'):
     DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int4')
-  with pytest.raises(NotImplementedError, match='item 12'):
-    DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',
-                         hot_cache={0: HotSet(0, np.array([1]))},
-                         cold_tier=True, device_hbm_budget=1 << 20)
+  # the cold tier is ported (item 12, tests/test_torch_coldtier.py): a
+  # budget everything fits in leaves it inert, as in the JAX package
+  d = DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',
+                           hot_cache={0: HotSet(0, np.array([1]))},
+                           cold_tier=True, device_hbm_budget=1 << 20)
+  assert not d.plan.cold_tier_groups and d.cold_tier is None
   # the wire codec (item 9b) takes the table's payload: 'table' builds
   # on a quantized plan and refuses without one, with JAX's message
   assert DistributedEmbedding(CONFIGS, device='cpu', table_dtype='int8',

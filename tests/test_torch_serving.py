@@ -147,5 +147,7 @@ def test_unported_serving_refuses():
              dict(wire_dtype='bfloat16')):
     e = engine.ServingEngine(t, w, batch_size=8, device='cpu', **kw)
     assert e.stats()['wire_dtype'] == kw['wire_dtype']
-  with pytest.raises(NotImplementedError, match='item 12\\)'):
+  # the cold tier is served since item 12 (tests/test_torch_coldtier.py);
+  # without hot sets it refuses with the JAX package's message
+  with pytest.raises(ValueError, match='cold_tier requires hot_cache'):
     engine.ServingEngine(t, w, batch_size=8, device='cpu', cold_tier=True)

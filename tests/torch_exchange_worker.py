@@ -10,8 +10,10 @@ hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py, and
 the chunked exchange (``overlap``, for
 tests/test_torch_overlap_ranks.py), an int8-quantized layer
 (``quant``, for tests/test_torch_quantized_ranks.py and, column-sliced,
-tests/test_torch_wire_ranks.py) or a wire-codec draw (``wire``, for
-tests/test_torch_wire_ranks.py): joins a gloo world on
+tests/test_torch_wire_ranks.py), a wire-codec draw (``wire``, for
+tests/test_torch_wire_ranks.py) or a cold-tier layer beside its fully
+resident twin (``tier``, for tests/test_torch_coldtier_ranks.py): joins a
+gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -1217,6 +1219,131 @@ def hier(rank, world_size, init_method, case_path, out_dir):
       out[name] = res
     with open(f'{out_dir}/hier{rank}.pkl', 'wb') as f:
       pickle.dump(out, f)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def tier(rank, world_size, init_method, case_path, out_dir):
+  """One rank of a cold-tier layer and its fully resident twin (for
+  tests/test_torch_coldtier_ranks.py), per ``case['variants']`` entry
+  ``(table_dtype, optimizer)``: both layers' forward of its slice of
+  ``case['cats']``, its fetch rows and every rank's counts of that batch
+  (``coldtier.compute_fetch_rows``) and ``fetch_stats``, then
+  ``case['steps']`` hybrid steps of each (a linear head, ``optim.sgd``)
+  and the gathered tables, optimizer state and losses.  The first
+  variant also trains a third layer through ``ColdFetchPipeline`` (saved
+  beside its stats), and its tiered layer's ``'tier'`` audit runs once
+  healthy and once after rank ``world_size - 1`` flips a byte of its
+  first tail row."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import audit
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import coldtier
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    b = case['batch'] // world_size
+    mine = lambda cats: [c[rank * b:(rank + 1) * b] for c in cats]
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    hot_sets = lambda: {t: HotSet(t, np.asarray(ids))
+                        for t, ids in case['hot'].items()}
+
+    def head(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    def train(dist, opt_name, pipelined=False):
+      emb_opt = (sparse.SparseSGD(case['lr']) if opt_name == 'sgd'
+                 else sparse.SparseAdagrad(case['lr']))
+      dense_opt = optim.sgd(case['lr'])
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+                 'kernel': torch.tensor(case['kernel'])},
+          dense_opt, emb_opt)
+      step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
+      losses, stats = [], None
+      if pipelined:
+        pipe = coldtier.ColdFetchPipeline(
+            dist, (mine(c) for c in case['batches']))
+        for cats, fetch in pipe:
+          state, loss = step(state, cats, labels, cold_fetch=fetch)
+          losses.append(float(loss))
+        stats = pipe.stats()
+        pipe.close()
+      else:
+        for cats in case['batches']:
+          state, loss = step(state, mine(cats), labels)
+          losses.append(float(loss))
+      got = {'losses': np.array(losses)}
+      for i, w in enumerate(checkpoint.export_tables(
+          dist, state.params['embedding'])):
+        if hasattr(w, 'payload'):
+          got[f'p{i}'] = np.asarray(w.payload).view(np.uint8)
+          got[f's{i}'] = np.asarray(w.scale)
+        else:
+          got[f'w{i}'] = np.asarray(w)
+      for i, st in enumerate(checkpoint.get_optimizer_state(
+          dist, state.opt_state[1])):
+        for k, v in st.items():
+          got[f'{k}{i}'] = v.numpy()
+      return got, stats
+
+    for vi, (dtype, opt_name) in enumerate(case['variants']):
+      twin = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                  table_dtype=dtype, hot_cache=hot_sets())
+      tiered = lambda: DistributedEmbedding(
+          tables, mesh=m, dp_input=True, table_dtype=dtype,
+          hot_cache=hot_sets(), cold_tier=True,
+          device_hbm_budget=case['budgets'][vi])
+      dist = tiered()
+      got = {}
+      with torch.no_grad():
+        for tag, d in (('t', dist), ('u', twin)):
+          outs = d.apply(checkpoint.set_weights(d, case['weights']),
+                         mine(case['cats']))
+          got.update({f'o{tag}{i}': o.numpy() for i, o in enumerate(outs)})
+      inputs, _, _ = dist._prepare_inputs(mine(case['cats']))
+      rows, counts = coldtier.compute_fetch_rows(dist, inputs)
+      for gi in dist.plan.cold_tier_groups:
+        got[f'rows{gi}'] = rows[gi]
+        got[f'counts{gi}'] = np.array(counts[gi])
+      fetch = dist.build_cold_fetch(mine(case['cats']))
+      got['fetch_stats'] = np.array(json.dumps(coldtier.fetch_stats(
+          dist, fetch)))
+      for tag, d in (('t', dist), ('u', twin)):
+        res, _ = train(d, opt_name)
+        got.update({f'{tag}_{k}': v for k, v in res.items()})
+      if vi == 0:
+        res, stats = train(tiered(), opt_name, pipelined=True)
+        got.update({f'pipe_{k}': v for k, v in res.items()})
+        got['pipe_stats'] = np.array(json.dumps(stats))
+        auditor = audit.StateAuditor(dist, every=1, checks=('tier',),
+                                     bytes_per_audit=None)
+        got['audit_healthy'] = np.array(len(auditor.run()))
+        gi = dist.plan.cold_tier_groups[0]
+        if rank == world_size - 1:
+          dist.cold_tier.payload[gi].view(np.uint8)[0, 0] ^= 1
+        found = auditor.run()
+        got['audit_found'] = np.array(json.dumps(
+            [[f.check, f.leaf, list(f.devices), list(f.rows)]
+             for f in found]))
+      np.savez(f'{out_dir}/tier{rank}_{vi}.npz', **got)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
