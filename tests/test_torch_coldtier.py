@@ -19,8 +19,8 @@ resident bytes); data is drawn with numpy from a seed.
   <= 1``; a step writes back exactly the fetched rows.
 - Tiered checkpoint files read both ways with JAX bit for bit; the
   ``'tier'`` audit finds a corrupted host row; a corrupted row fails its
-  fetch (``TierIntegrityError``, journaled) and ``fit`` rolls back from
-  it bit-exact against the undisturbed run.
+  fetch (``TierIntegrityError``, journaled); ``fit`` rolls back from
+  either bit-exact against the undisturbed run.
 - The tiered ``ServingEngine`` equals the resident one, refuses writes,
   refuses a corrupt row at fetch and keeps per-bucket capacities.
 - The refusal matrix, one case each, word for word as JAX's.
@@ -570,6 +570,57 @@ def test_tier_corruption_rollback_bit_exact(tmp_path):
   fails = resilience.recent('audit_failure')
   assert any(f['check'] == 'tier' and f['leaf'] == f'tier_group_{gi}'
              and f['devices'] == [0] and 2 in f['rows'] for f in fails)
+  for i, (a, b) in enumerate(zip(leaves(d_a, ref), leaves(d_b, final))):
+    assert torch.equal(a, b), f'leaf {i}'
+
+
+def test_fetch_time_corruption_rollback_bit_exact(tmp_path):
+  """A host-tier row corrupted where the next step fetches it: the
+  step's fetch raises ``TierIntegrityError`` (journaled first), ``fit``
+  takes it as the anomaly ``'tier_integrity'``, rolls back in place and
+  replays, and the run ends bit-exact against the undisturbed one."""
+  from distributed_embeddings_tpu.utils import faultinject
+  rng = np.random.default_rng(19)
+  w = _weights(rng)
+  kernel, _ = _kernel_labels(rng)
+  r = np.random.default_rng(11)
+  data = [(_ids(r, 8), torch.tensor(r.normal(size=(8, 1)).astype(
+      np.float32))) for _ in range(12)]
+
+  def build():
+    d = _tiered('int8')
+    state, step = _trainer(d, w, kernel, sparse.SparseAdagrad(LR))
+    return d, state, step
+
+  def leaves(d, st):
+    out = list(checkpoint.get_weights(d, st.params['embedding']))
+    for e in checkpoint.get_optimizer_state(d, st.opt_state[1]):
+      out += [e[k] for k in sorted(e)]
+    return out
+
+  d_a, s_a, step_a = build()
+  ref, _ = grad.fit(step_a, s_a, iter(data), steps=12, log_every=4,
+                    verbose=False)
+  d_b, s_b, step_b = build()
+  d_b.cold_tier.enable_digests()
+  cb = callbacks.CheckpointCallback(d_b, str(tmp_path / 'ckpt_{step}.npz'),
+                                    every=4)
+  gi = d_b.plan.cold_tier_groups[0]
+
+  def corrupt(st):
+    for row in range(d_b.plan.groups[gi].tier_rows):
+      _corrupt(d_b.cold_tier, gi, row)
+    return st
+
+  bad = faultinject.CorruptingStep(step_b, at_step=6, mutate=corrupt)
+  final, hist = grad.fit(bad, s_b, iter(data), steps=12, log_every=4,
+                         callbacks=[cb], verbose=False,
+                         on_anomaly='rollback', rollback_dir=str(tmp_path),
+                         dist=d_b, data_factory=lambda s: iter(data[s:]))
+  assert [a['kind'] for a in hist['anomalies']] == ['tier_integrity']
+  assert int(final.step) == 12
+  assert resilience.recent('tier_integrity_failure')
+  assert d_b.cold_tier.verify_all() == []
   for i, (a, b) in enumerate(zip(leaves(d_a, ref), leaves(d_b, final))):
     assert torch.equal(a, b), f'leaf {i}'
 
