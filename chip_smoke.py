@@ -309,30 +309,37 @@ Phases, each of which exits non-zero on failure:
             the CPU's; encode, decode and cast timed (device_ms) beside
             their bound (each byte read and written once).
 13g. dlrm-tier: host memory read from /proc/meminfo (MemTotal,
-            MemAvailable); gen_data.py's writer puts 8 batches of 65536
+            MemAvailable); gen_data.py's writer puts 16 batches of 65536
             samples of the learnable power-law split (and one test
             batch) at the MLPerf Criteo-1TB vocabularies into a directory
             under build/ (deleted after), the largest vocabularies capped
             only if MemAvailable cannot hold the host tail plus 16 GiB
             (the cut printed as reduced); the Python reader timed over
             it; then examples/dlrm/main.py --dataset_path --dp_input
-            --hot_cache --cold_tier_budget_mb 61440 --cold_fetch_rows
-            262144 --param_dtype float32 --max_steps 5 --loader_bench in
-            process (the capacity fixed: the first batches calibrate the
-            hot sets, so the first has the fewest cold rows): the f32 tables
-            (96.1 GB) larger than the card, 60 GiB of heads on it and the
-            tails in host memory, hot sets calibrated on the dataset, the
-            native reader required (its samples/s from --loader_bench).
-            Every loss finite; around step 1 (the first with a non-zero
-            learning rate) every tail row the step fetched changed and
-            every other tail row kept its bytes (sha1 of every block of
-            the tails before and after, the fetched rows put back);
-            after the last step 512 samples' forward equal bit for bit a
+            --hot_cache --cold_tier_budget_mb 61440 --param_dtype float32
+            --max_steps 12 --loader_bench in process (the example sizes
+            the fetch capacity on a batch held out of the hot-set
+            calibration): the f32 tables (96.1 GB) larger than the card,
+            60 GiB of heads on it and the tails in host memory, hot sets
+            calibrated on the dataset, the native reader required (its
+            samples/s from --loader_bench).  Every loss finite; step 1
+            (the first with a non-zero learning rate) is captured: each
+            gather of its fetch buffers and its two-source apply against
+            the plain version at the step's shapes (the apply on compact
+            copies of the touched head and tail rows, bit-exact for sgd,
+            and equal to what the step wrote), timed beside the bound;
+            around it every tail row the step fetched changed and every
+            other tail row kept its bytes (sha1 of every block of the
+            tails before and after, the fetched rows put back); after
+            the last step 512 samples' forward equal bit for bit a
             plain gather of their rows from the hot buffers, the heads
-            and the host tails, and the head's logits on it; each
-            build_fetch and write_back timed, the pipeline's overlap,
-            the step times and the peak device memory; every kernel and
-            the two-source arm launched on the run (counted).
+            and the host tails, and the head's logits on it (the checks'
+            own launches not counted); each build_fetch and write_back
+            timed, each batch's pre-pass on the pipeline's worker and the
+            step's wait for it, the pipeline's overlap over the steps
+            from 5 on (the queue filled during step 1's checks), the step
+            times and the peak device memory; every kernel and the
+            two-source arm launched on the run (counted).
 14. dense-tiny: the DLRM freed, the tiny model at full size again,
             trained by the dense autodiff step (grad.make_train_step:
             autograd through the lookup kernel, whose backward is the
@@ -427,6 +434,7 @@ import collections
 import concurrent.futures
 import contextlib
 import gc
+import itertools
 import json
 import os
 import pathlib
@@ -586,14 +594,10 @@ TIER_STEPS = 3  # phase 9j's steps after the warm-up, tier and twin
 TIER_PIPE_STEPS = 5  # phase 9j's pipelined steps
 TIER_BUDGET_MB = 61440  # phase 13g: 60 GiB of tables on the card
 TIER_HOST_HEADROOM = 16 << 30  # host memory phase 13g keeps beside the tail
-TIER_DLRM_BATCHES = 8  # phase 13g's written train batches
-TIER_DLRM_STEPS = 5
+TIER_DLRM_BATCHES = 16  # phase 13g's written train batches
+TIER_DLRM_STEPS = 12
 TIER_CHECK_STEP = 1  # the first step with a non-zero learning rate
-# phase 13g's fetch capacity: its first batches also calibrate the hot
-# sets, so the first batch has the fewest cold rows; calibrated on it
-# (68,096 rows), the capacity refused a later batch that needed 137,845
-# (H100 80GB HBM3, 700 W)
-TIER_FETCH_ROWS = 1 << 18
+TIER_STEADY_FROM = 5  # phase 13g's steps past the queue step 1's checks fill
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
 # is not committed)
 CKPT_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_ckpt'
@@ -3138,7 +3142,7 @@ def phase_dlrm_hot():
   args = dlrm_main.build_parser().parse_args(argv)
   probe = dlrm.DLRM(sizes, embedding_dim=128, param_dtype=torch.bfloat16,
                     compute_dtype=torch.bfloat16, dp_input=True,
-                    hot_cache=dlrm_main.calibrate_hot_sets(args, sizes),
+                    hot_cache=dlrm_main.calibrate_hot_sets(args, sizes)[0],
                     device='cuda').dist_embedding
   _, per_step = hot_launches(probe, (1,) * len(sizes))
   del probe
@@ -5463,7 +5467,7 @@ def check_two_source(call, label):
          'max_abs_err': err, 'tolerance': tol, 'kernel_ms': kernel_ms,
          'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound_ms,
          'bound_by': bound_by}
-  log('[tier-tiny] ' + json.dumps(clocked(row)))
+  log('[tier-apply] ' + json.dumps(clocked(row)))
   return row
 
 
@@ -5652,6 +5656,31 @@ def tier_summary(k, seg, numbers, rows):
   return summed(TWO_SOURCE_ARM, launches, rows['apply'])
 
 
+def dlrm_tier_summary(k, seg, two_source_tiny, launches, rows):
+  """Phase 13g's entries of the summary line: its launches; its step-1
+  tier gathers on the lookup beside phase 9j's; and the two-source arm's
+  row from its own apply on the slice's main path (launches, check,
+  times and bound), phase 9j's row kept inside it."""
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_tier'] = launches[name]
+  k['max_abs_err'] = max([k['max_abs_err']]
+                         + [r['max_abs_err'] for r in rows['gather']])
+  k['dlrm_tier'] = {
+      'ms': sum(r['kernel_ms'] for r in rows['gather']),
+      'plain_ms': sum(r['plain_ms'] for r in rows['gather']),
+      'bound_ms': sum(r['bound_ms'] for r in rows['gather']),
+      'library_ms': sum(r['library_ms'] for r in rows['gather']),
+      'shapes': [{key: r.get(key) for key in (
+          'shape', 'M', 'h', 'w', 'dtype', 'distinct_rows', 'kernel_ms',
+          'plain_ms', 'library_ms', 'bound_ms', 'bound_by', 'max_abs_err')}
+                 for r in rows['gather']]}
+  tiny = {key: two_source_tiny[key] for key in (
+      'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+      'streams')}
+  return summed(TWO_SOURCE_ARM, launches['segwalk_apply:two_source'],
+                rows['apply'], extra={'tier_tiny': tiny})
+
+
 def meminfo():
   """``/proc/meminfo`` in bytes (``MemTotal``, ``MemAvailable``...)."""
   out = {}
@@ -5738,13 +5767,24 @@ def phase_dlrm_tier(seed):
   numerical0, cats0, _ = python_reader[0]
   python_reader.close()
   argv = ['--dataset_path', str(root), '--dp_input', '--hot_cache',
-          '--cold_tier_budget_mb', str(TIER_BUDGET_MB), '--cold_fetch_rows',
-          str(TIER_FETCH_ROWS), '--param_dtype', 'float32', '--max_steps',
-          str(TIER_DLRM_STEPS), '--loader_bench', '--device', 'cuda']
+          '--cold_tier_budget_mb', str(TIER_BUDGET_MB), '--param_dtype',
+          'float32', '--max_steps', str(TIER_DLRM_STEPS), '--loader_bench',
+          '--device', 'cuda']
   pool = concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4)
   checks = {}
+  rows = {'gather': [], 'apply': []}
+  uncounted = collections.Counter()  # the checks' own launches
   build_ms, write_ms = [], []
   build, write = coldtier._build_fetch, coldtier._write_back
+  make_trainer = dlrm_main.make_trainer
+  counts = lambda: {**read_launches(),
+                    'two_source': segwalk.ARM_LAUNCHES['two_source']}
+
+  def not_counted(fn, *a):
+    before = counts()
+    out = fn(*a)
+    uncounted.update({k: v - before[k] for k, v in counts().items()})
+    return out
 
   def timed_build(*a, **kw):
     t = time.perf_counter()
@@ -5759,81 +5799,131 @@ def phase_dlrm_tier(seed):
     write_ms.append((time.perf_counter() - t) * 1e3)
     return out
 
-  def hook(i, model, state, fetch, stage):
-    dist = model.dist_embedding
+  def check_kernels(gathers, applies):
+    """Step 1's tier gathers and two-source apply against their plain
+    versions at the step's shapes (as phase 9j holds them)."""
+    for table, ids, scale in gathers:
+      rows['gather'].append(check_kernel_shape(
+          table, ids, f'dlrm_tier_gather_w{table.shape[1]}_cap'
+          f'{table.shape[0]}_M{ids.shape[0]}'))
+    for call in applies:
+      rows['apply'].append(check_two_source(
+          call, f'dlrm_tier_apply_{call["op"]}_w{call["table"].shape[1]}_'
+          f'res{call["table"].shape[0]}_cap{call["tail"].table.shape[0]}'))
+    if not gathers or not applies:
+      raise AssertionError(f'dlrm-tier step {TIER_CHECK_STEP}: no tier '
+                           f'gather ({len(gathers)}) or two-source apply '
+                           f'({len(applies)}) captured')
+
+  def before_check(dist, fetch):
+    # the rows this step fetches, and a hash of every block of the tails
     tier = dist.cold_tier
-    if i == TIER_CHECK_STEP and stage == 'before':
-      # the rows this step fetches, and a hash of every block of the tails
-      checks['touched'] = {gi: fetch.rows_np[gi] - dist.plan.groups[
-          gi].device_rows for gi in dist.plan.cold_tier_groups}
-      checks['old'] = {gi: tier.payload[gi][r].copy()
-                       for gi, r in checks['touched'].items()}
-      stats = coldtier.fetch_stats(dist, fetch)
-      checks['fetch'] = {k: stats[k] for k in (
-          'cold_tier_fetch_rows', 'cold_tier_fetch_bytes')}
-      t = time.perf_counter()
-      checks['hashes'] = {gi: block_hashes(tier.payload[gi], pool)
-                          for gi in dist.plan.cold_tier_groups}
-      checks['hash_s'] = time.perf_counter() - t
-    elif i == TIER_CHECK_STEP and stage == 'after':
-      changed = total = 0
-      for gi, r in checks['touched'].items():
-        after = tier.payload[gi][r]
-        changed += int((after != checks['old'][gi]).any(axis=1).sum())
-        total += r.size
-        # every untouched row as it was: each block hashed with the
-        # touched rows put back to their old values
-        if block_hashes(tier.payload[gi], pool, patch=(
-            r, checks['old'][gi])) != checks['hashes'][gi]:
-          raise AssertionError(f'dlrm-tier group {gi}: a tail row the step '
-                               'did not fetch changed')
-      if not total or changed != total:
-        raise AssertionError(f'dlrm-tier step {i}: {changed} of {total} '
-                             'fetched tail rows changed')
-      checks['touched_rows'] = total
-    elif i == TIER_DLRM_STEPS - 1 and stage == 'after':
-      # the check's own launches are not the run's
-      before = {**read_launches(),
-                'two_source': segwalk.ARM_LAUNCHES['two_source']}
-      checks['forward'] = tier_forward_sample(model, state, numerical0,
-                                              cats0)
-      checks['check_launches'] = {
-          k: v - before[k] for k, v in {
-              **read_launches(),
-              'two_source': segwalk.ARM_LAUNCHES['two_source']}.items()}
-      checks['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    checks['touched'] = {gi: fetch.rows_np[gi] - dist.plan.groups[
+        gi].device_rows for gi in dist.plan.cold_tier_groups}
+    checks['old'] = {gi: tier.payload[gi][r].copy()
+                     for gi, r in checks['touched'].items()}
+    stats = coldtier.fetch_stats(dist, fetch)
+    checks['fetch'] = {k: stats[k] for k in (
+        'cold_tier_fetch_rows', 'cold_tier_fetch_bytes')}
+    t = time.perf_counter()
+    checks['hashes'] = {gi: block_hashes(tier.payload[gi], pool)
+                        for gi in dist.plan.cold_tier_groups}
+    checks['hash_s'] = time.perf_counter() - t
+
+  def after_check(dist):
+    tier = dist.cold_tier
+    changed = total = 0
+    for gi, r in checks['touched'].items():
+      after = tier.payload[gi][r]
+      changed += int((after != checks['old'][gi]).any(axis=1).sum())
+      total += r.size
+      # every untouched row as it was: each block hashed with the
+      # touched rows put back to their old values
+      if block_hashes(tier.payload[gi], pool, patch=(
+          r, checks['old'][gi])) != checks['hashes'][gi]:
+        raise AssertionError(f'dlrm-tier group {gi}: a tail row the step '
+                             'did not fetch changed')
+    if not total or changed != total:
+      raise AssertionError(f'dlrm-tier step {TIER_CHECK_STEP}: {changed} of '
+                           f'{total} fetched tail rows changed')
+    checks['touched_rows'] = total
+
+  def checked_trainer(model, trainer, learning_rate):
+    """The example's trainer, its step wrapped: step 1 captured and
+    checked, the last one followed by the forward sample."""
+    step, state0 = make_trainer(model, trainer, learning_rate)
+    dist = model.dist_embedding
+    n = itertools.count()
+
+    def hybrid(state, cats, batch, cold_fetch):
+      return step(state, batch[0], cats, batch[1], cold_fetch=cold_fetch)
+
+    def checked(state, numerical, cats, labels, cold_fetch=None):
+      i = next(n)
+      if i != TIER_CHECK_STEP:
+        state, loss = step(state, numerical, cats, labels,
+                           cold_fetch=cold_fetch)
+      else:
+        before_check(dist, cold_fetch)
+        state, loss, gathers, applies = captured_tier_step(
+            hybrid, state, cats, (numerical, labels), cold_fetch)
+        not_counted(check_kernels, gathers, applies)
+        del gathers, applies
+        after_check(dist)
+      if i == TIER_DLRM_STEPS - 1:
+        checks['forward'] = not_counted(tier_forward_sample, model, state,
+                                        numerical0, cats0)
+        checks['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+      return state, loss
+
+    return checked, state0
 
   torch.cuda.reset_peak_memory_stats()
   coldtier._build_fetch, coldtier._write_back = timed_build, timed_write
+  dlrm_main.make_trainer = checked_trainer
   reset_launches()
   out_lines = _Tee()
   t0 = time.perf_counter()
   try:
     with contextlib.redirect_stdout(out_lines):
-      out = dlrm_main.main(argv, step_hook=hook)
+      out = dlrm_main.main(argv)
   finally:
     coldtier._build_fetch, coldtier._write_back = build, write
+    dlrm_main.make_trainer = make_trainer
     pool.shutdown()
     shutil.rmtree(root, ignore_errors=True)
   wall = time.perf_counter() - t0
-  extra = checks.get('check_launches', {})
-  launches = {k: v - extra.get(k, 0) for k, v in read_launches().items()}
+  launches = {k: v - uncounted[k] for k, v in read_launches().items()}
   launches['segwalk_apply:two_source'] = (segwalk.ARM_LAUNCHES['two_source']
-                                          - extra.get('two_source', 0))
+                                          - uncounted['two_source'])
   losses = out['tier_losses']
   if (len(losses) != TIER_DLRM_STEPS or not all(np.isfinite(losses))
       or out['loader'] != 'native' or 'forward' not in checks
-      or min(launches.values()) == 0):
+      or 'touched_rows' not in checks or min(launches.values()) == 0):
     raise AssertionError(f'dlrm-tier: losses {losses}, reader '
                          f'{out.get("loader")}, checks {sorted(checks)}, '
                          f'launches {launches}')
   tier_line = [l for l in out_lines.lines if l.startswith('cold_tier: ')]
+  # the pipeline over the steps past the queue that step 1's checks
+  # filled: each batch's pre-pass on the worker and the step's wait
+  steady = slice(TIER_STEADY_FROM, None)
+  prepass = sum(out['tier_prepass_ms'][steady])
+  blocked = sum(out['tier_blocked_ms'][steady])
   numbers = {'sizes_rows': sum(sizes), 'reduced': cut,
              'tail_gib': tail_bytes / 2**30,
              'mem_total_gib': mem['MemTotal'] / 2**30,
              'mem_available_gib': mem['MemAvailable'] / 2**30,
              'gen_data_s': gen_s, 'wall_s': wall, 'losses': losses,
-             'step_ms': out['tier_step_ms'], 'pipeline': out['tier_pipeline'],
+             'step_ms': out['tier_step_ms'],
+             'prepass_ms': out['tier_prepass_ms'],
+             'blocked_ms': out['tier_blocked_ms'],
+             'steady': {'from_step': TIER_STEADY_FROM,
+                        'steps': len(out['tier_step_ms'][steady]),
+                        'prepass_ms': prepass, 'blocked_ms': blocked,
+                        'step_ms': sum(out['tier_step_ms'][steady]),
+                        'overlap_pct': (max(0.0, 1.0 - blocked / prepass)
+                                        if prepass > 0 else 0.0)},
+             'pipeline': out['tier_pipeline'],
              'build_fetch_ms': build_ms, 'write_back_ms': write_ms,
              'loader_native_sps': out['loader_samples_per_s'],
              'loader_python_sps': python_sps,
@@ -5843,12 +5933,13 @@ def phase_dlrm_tier(seed):
              'forward': checks['forward'], 'tier_lines': tier_line}
   log(f'[dlrm-tier] {json.dumps(numbers)}; launches {json.dumps(launches)}')
   log(f'[dlrm-tier] every loss finite; at step {TIER_CHECK_STEP} (the first '
-      f'with a non-zero learning rate) every one of the '
-      f'{checks["touched_rows"]:,} fetched tail rows changed and every '
-      'other tail row kept its bytes (sha1 of each block); the '
+      'with a non-zero learning rate) the tier gathers and the two-source '
+      'apply equal their plain versions at the step\'s shapes, every one '
+      f'of the {checks["touched_rows"]:,} fetched tail rows changed and '
+      'every other tail row kept its bytes (sha1 of each block); the '
       f'{checks["forward"]["samples"]}-sample forward equals the plain '
       'gather from head and tail; the native reader ran')
-  return launches, numbers
+  return launches, numbers, rows
 
 
 def tier_forward_sample(model, state, numerical, cats, n=512):
@@ -5975,12 +6066,10 @@ def main(argv=None) -> int:
     entry['launches_dlrm_wire'] = wire_launches[name]
   gc.collect()
   torch.cuda.empty_cache()
-  tier_launches_dlrm, seg['dlrm_tier'] = phase_dlrm_tier(args.seed)
-  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
-    entry['launches_dlrm_tier'] = tier_launches_dlrm[name]
-  # the arm's launches on the slice's main path, the DLRM's tiered steps
-  two_source['launches_tier_tiny'] = two_source['launches']
-  two_source['launches'] = tier_launches_dlrm['segwalk_apply:two_source']
+  tier_launches_dlrm, seg['dlrm_tier'], dlrm_tier_rows = phase_dlrm_tier(
+      args.seed)
+  two_source = dlrm_tier_summary(k, seg, two_source, tier_launches_dlrm,
+                                 dlrm_tier_rows)
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
                    ('dlrm', lambda: run_dense_dlrm(args.seed))):
     gc.collect()

@@ -40,13 +40,11 @@ and the sparse trainer, as in the JAX example) keeps each group's head
 within MB of table memory on the device and its tail rows in host
 memory (docs/design.md §12); the fetch pre-pass of the next batch runs
 on a worker thread during the step (``coldtier.ColdFetchPipeline``), and
-the tier's geometry and the pipeline's overlap are printed.
-``--cold_fetch_rows N`` (the port's own flag; the JAX example has only
-the constructor argument) fixes the per-batch fetch capacity of each
-tiered group; by default it is calibrated from the first batch, which on
-a dataset whose first batches also calibrated the hot sets is the
-batch with the fewest cold rows, so a later batch can overflow it (and
-refuses, naming the flag).
+the tier's geometry and the pipeline's overlap are printed.  The fetch
+capacity of each tiered group is sized on one more batch that the hot-set
+calibration reads and leaves out of the hot sets: the calibration
+batches are the ones the hot sets cover best, so they need the fewest
+tail rows, and a capacity sized on them is overflowed by later batches.
 
 It parses the JAX example's flags.  Those that select something the port
 does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
@@ -172,9 +170,6 @@ def build_parser() -> argparse.ArgumentParser:
                  'memory and stream through the deduplicated cold '
                  'exchange (needs --dp_input, --hot_cache and --trainer '
                  'sparse)')
-  p.add_argument('--cold_fetch_rows', type=int, default=None,
-                 help='per-batch fetch capacity (rows) of each tiered '
-                 'group (default: calibrated from the first batch)')
   p.add_argument('--param_dtype', default='float32',
                  choices=['float32', 'bfloat16'],
                  help='table + MLP storage dtype (bfloat16 halves the '
@@ -302,7 +297,10 @@ def calibrate_hot_sets(args, table_sizes):
   own, closed after) or of the dummy data, at ``--hot_coverage`` and
   within ``--hot_budget_mb``, as the JAX example calibrates them.
   Refuses ``--hot_cache`` without ``--dp_input`` or with ``--trainer
-  dense``, as the JAX example does."""
+  dense``, as the JAX example does.  Returns ``(hot_sets, held_out)``:
+  with ``--cold_tier_budget_mb`` one batch more is read and held out of
+  the hot sets (the cold tier's fetch capacity is sized on it); else
+  ``held_out`` is empty."""
   if not args.dp_input:
     raise SystemExit('--hot_cache requires --dp_input (the cache '
                      'partitions the dp->mp id exchange, which only '
@@ -312,21 +310,24 @@ def calibrate_hot_sets(args, table_sizes):
                      'split hot/cold optimizer state lives in the '
                      'sparse row-wise path)')
   cal_ids = list(range(len(table_sizes)))
+  n_read = args.hot_calib_batches + (args.cold_tier_budget_mb is not None)
   if args.dataset_path is not None:
     cal_ds = open_dataset(args, cal_ids, table_sizes, prefetch_depth=2)
   else:
     cal_ds = DummyDataset(args.batch_size, args.num_numerical_features,
-                          len(cal_ids), args.hot_calib_batches)
+                          len(cal_ids), n_read)
   cfgs = [TableConfig(s, args.embedding_dim) for s in table_sizes]
   batches = []
   try:
     for bi, (_, cats_b, _) in enumerate(cal_ds):
-      if bi >= args.hot_calib_batches:
+      if bi >= n_read:
         break
       batches.append([np.asarray(c) for c in cats_b])
   finally:
     if hasattr(cal_ds, 'close'):
       cal_ds.close()
+  held_out = batches[args.hot_calib_batches:]
+  batches = batches[:args.hot_calib_batches]
   hot_sets = hotcache.calibrate_hot_sets(
       cfgs, cal_ids, batches, coverage=args.hot_coverage,
       budget_bytes=(int(args.hot_budget_mb * 2**20)
@@ -335,7 +336,7 @@ def calibrate_hot_sets(args, table_sizes):
         f'{sum(h.size for h in hot_sets.values())} hot rows over '
         f'{len(hot_sets)} table(s) from {len(batches)} batch(es) '
         f'(coverage target {args.hot_coverage})')
-  return hot_sets
+  return hot_sets, held_out
 
 
 def make_trainer(model: DLRM, trainer: str, learning_rate: float):
@@ -387,12 +388,8 @@ def _sync(device: torch.device):
     torch.cuda.synchronize(device)
 
 
-def main(argv=None, step_hook=None):
-  """Run the example; returns a dict of its numbers.  ``step_hook``
-  (programmatic callers): called as ``step_hook(i, model, state, fetch,
-  stage)`` with ``stage`` ``'before'`` and ``'after'`` around each
-  training step, ``fetch`` the step's cold-tier fetch (None without a
-  tier)."""
+def main(argv=None):
+  """Run the example; returns a dict of its numbers."""
   parser = build_parser()
   args = parser.parse_args(argv)
   refuse_unported(args, parser)
@@ -404,7 +401,8 @@ def main(argv=None, step_hook=None):
               encoding='utf-8') as f:
       table_sizes = [s + 1 for s in json.load(f).values()]
   param_dtype = getattr(torch, args.param_dtype)
-  hot_sets = calibrate_hot_sets(args, table_sizes) if args.hot_cache else None
+  hot_sets, held_out = (calibrate_hot_sets(args, table_sizes)
+                        if args.hot_cache else (None, []))
   model = DLRM(table_sizes=table_sizes,
                embedding_dim=args.embedding_dim,
                bottom_mlp_dims=[int(d) for d in
@@ -429,7 +427,6 @@ def main(argv=None, step_hook=None):
                device_hbm_budget=(int(args.cold_tier_budget_mb * 2**20)
                                   if args.cold_tier_budget_mb is not None
                                   else None),
-               cold_fetch_rows=args.cold_fetch_rows,
                device=args.device).init(0)
   dist = model.dist_embedding
   device = dist.device
@@ -446,6 +443,14 @@ def main(argv=None, step_hook=None):
       print(f'cold_tier: {len(tiers)} tiered group(s); resident/tail rows '
             f'per group: {split}; host bytes '
             f'{dist.cold_tier.host_bytes():,}')
+      if held_out:
+        caps = coldtier.calibrate_fetch_caps(dist, held_out)
+        print(f'cold_tier: fetch capacity {caps} rows per group, sized on '
+              f'{len(held_out)} batch(es) held out of the hot-set '
+              'calibration')
+      else:
+        print('cold_tier: no batch left after the hot-set calibration; '
+              'the first training batch sizes the fetch capacity')
   if args.table_dtype != 'none':
     tb = quantization.table_bytes_stats(dist.plan)
     print(f"table_dtype: {tb['table_dtype']} — "
@@ -620,11 +625,9 @@ def main(argv=None, step_hook=None):
     batch_iter = tier_batches()
   else:
     batch_iter = ((n, c, l, None) for n, c, l in data_iter)
-  step_ms = []
-  tier_losses = []
+  step_ms, tier_losses, tier_prepass_ms, tier_blocked_ms = [], [], [], []
+  seen = {'build_ms': 0.0, 'blocked_ms': 0.0}
   for i, (numerical, cats, labels, fetch) in enumerate(batch_iter):
-    if step_hook is not None:
-      step_hook(i, model, state, fetch, 'before')
     t_step = time.perf_counter()
     if fetch is not None:
       state, loss = step(state, numerical, list(cats), labels,
@@ -636,10 +639,14 @@ def main(argv=None, step_hook=None):
       # read at no extra cost
       tier_losses.append(float(loss))
       step_ms.append((time.perf_counter() - t_step) * 1000.0)
+      # this batch's pre-pass and the consumer's wait for it
+      now = tier_pipe.stats()
+      tier_prepass_ms.append(now['build_ms'] - seen['build_ms'])
+      tier_blocked_ms.append(now['blocked_ms'] - seen['blocked_ms'])
+      seen = {k: now[k] for k in seen}
       if i == 0:
         tier_pipe.reset_stats()  # batch 0 has no step to hide behind
-    if step_hook is not None:
-      step_hook(i, model, state, fetch, 'after')
+        seen = {k: 0.0 for k in seen}
     samples += args.batch_size
     step_no = resume_step + i + 1
     if auditor is not None and (i + 1) % args.audit_every == 0:
@@ -664,6 +671,8 @@ def main(argv=None, step_hook=None):
     tier_pipe.close()
     tstats = tier_pipe.stats()
     timings['tier_step_ms'] = step_ms
+    timings['tier_prepass_ms'] = tier_prepass_ms
+    timings['tier_blocked_ms'] = tier_blocked_ms
     timings['tier_losses'] = tier_losses
     timings['tier_pipeline'] = tstats
     print(f"cold_tier: fetch pre-pass built {tstats['batches']} "

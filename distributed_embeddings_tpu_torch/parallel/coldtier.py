@@ -17,6 +17,12 @@ its per-row scale).  Per batch:
    never interleaves with the step's collectives, and every rank then
    computes every rank's rows, so all calibrate the same capacity and
    refuse the same overflow.  At a world of one nothing is gathered.
+   The layer holds two such groups: ``_tier_pg`` for the consumer
+   thread's tier collectives (an unpipelined pre-pass, the fetch-time
+   digest check, the audit's sweep) and ``_prepass_pg`` for the
+   ``ColdFetchPipeline`` worker's pre-pass alone, since gloo pairs a
+   group's collectives by the order each rank issues them and two
+   threads would issue them in an order that differs between ranks.
 2. ``build_fetch`` gathers this rank's rows (payload, scale, optimizer
    rows) from the tier into padded static-capacity buffers and copies
    them to the card from pinned host memory.
@@ -30,7 +36,7 @@ its per-row scale).  Per batch:
 the device runs batch N; the payload gather of step 2 stays on the
 consumer side, after the previous step's write-back, so a prefetch never
 reads stale rows.  Its ``stats()['overlap_pct']`` is measured from the
-consumer's blocked time.
+consumer's blocked time over the batches it handed out.
 
 Row digests (design §13): once armed (``enable_digests``, the auditor's
 ``'tier'`` check), every tail row's payload + scale + optimizer bytes hash
@@ -45,7 +51,6 @@ import dataclasses
 import queue
 import threading
 import time
-import weakref
 
 from typing import Dict, List, Optional, Tuple
 
@@ -356,10 +361,11 @@ def _host_ids(x) -> np.ndarray:
   return np.asarray(x)
 
 
-def _global_inputs(dist, inputs) -> List[np.ndarray]:
+def _global_inputs(dist, inputs, group=None) -> List[np.ndarray]:
   """The global batch's ids per input: every rank's local ids
-  concatenated in rank order (an all-gather over the tier's CPU group;
-  the inputs as they are at a world of one)."""
+  concatenated in rank order (an all-gather over ``group``, by default
+  the tier's consumer-side CPU group; the inputs as they are at a world
+  of one)."""
   local = [_host_ids(x) for x in inputs]
   world = dist.world_size
   if world == 1:
@@ -368,7 +374,7 @@ def _global_inputs(dist, inputs) -> List[np.ndarray]:
   got = [torch.empty(flat.shape[0], dtype=torch.int32)
          for _ in range(world)]
   torch_dist.all_gather(got, torch.from_numpy(flat),
-                        group=dist._tier_pg)
+                        group=dist._tier_pg if group is None else group)
   out, off = [], 0
   for a in local:
     n = a.size
@@ -378,14 +384,14 @@ def _global_inputs(dist, inputs) -> List[np.ndarray]:
   return out
 
 
-def compute_fetch_rows(dist, inputs):
+def compute_fetch_rows(dist, inputs, group=None):
   """The host pre-pass: per tiered group, this rank's SORTED
   deduplicated fused-local tail rows of the batch's cold exchange, and
   every rank's count.  ``inputs``: this rank's local ids (a collective
-  over the tier's group at a world above one).  Returns ``(rows,
-  counts)``."""
+  over ``group``, by default the tier's consumer-side group, at a world
+  above one).  Returns ``(rows, counts)``."""
   plan = dist.plan
-  cold = _cold_ids_per_input(dist, _global_inputs(dist, inputs))
+  cold = _cold_ids_per_input(dist, _global_inputs(dist, inputs, group))
   rows: Dict[int, np.ndarray] = {}
   counts: Dict[int, List[int]] = {}
   for gi in plan.cold_tier_groups:
@@ -433,6 +439,35 @@ def _ensure_caps(dist, counts, global_batch: int):
           'or warm the engine on traffic representative of this '
           'bucket, so the buffers are sized for the workload — silent '
           'dropping is never an option (docs/design.md §12, §16).')
+
+
+def _prepped(dist, cats) -> List[np.ndarray]:
+  """``cats`` (this rank's ids, as ``apply`` takes them) as the host
+  arrays the pre-pass reads."""
+  return [np.asarray(_host_ids(x)) for x in dist._densify(list(cats))]
+
+
+def calibrate_fetch_caps(dist, batches) -> Dict[int, int]:
+  """Size the fetch capacity of the batches' global batch size from
+  ``batches`` (each this rank's local ids, as ``apply`` takes them): the
+  most tail rows any of them needs on one device, with the margin and
+  alignment of the first-batch calibration.  A batch size already
+  calibrated or pinned keeps its capacity (and refuses an overflow).
+  Returns ``{group: capacity}``; a collective at a world above one."""
+  need: Dict[int, int] = {}
+  sizes = set()
+  for cats in batches:
+    prepped = _prepped(dist, cats)
+    sizes.add(int(prepped[0].shape[0]))
+    _, counts = compute_fetch_rows(dist, prepped)
+    for gi, per in counts.items():
+      need[gi] = max([need.get(gi, 0)] + list(per))
+  if len(sizes) != 1:
+    raise ValueError(f'calibrate_fetch_caps: one batch size per call, got '
+                     f'local batch sizes {sorted(sizes)}')
+  global_batch = sizes.pop() * dist.world_size
+  _ensure_caps(dist, {gi: [n] for gi, n in need.items()}, global_batch)
+  return dict(dist.fetch_caps_for(global_batch))
 
 
 def _verify(dist, rows):
@@ -653,8 +688,9 @@ def tier_stats(dist) -> dict:
 class OverlapStat:
   """Blocked-time accounting of a producer thread and its consumer (the
   JAX package's ``obs.metrics.OverlapStat``): ``build_ms`` the
-  producer's work, ``blocked_ms`` the consumer's wait for it;
-  ``overlap_frac`` the hidden share in [0, 1]."""
+  producer's work on the batches handed out, ``blocked_ms`` the
+  consumer's wait for them; ``overlap_frac`` the hidden share in [0,
+  1]."""
 
   __slots__ = ('batches', 'build_ms', 'blocked_ms')
 
@@ -669,69 +705,104 @@ class OverlapStat:
     return min(1.0, max(0.0, 1.0 - self.blocked_ms / self.build_ms))
 
 
+class _Credits:
+  """The pipeline's flow control: the worker may start the pre-pass of
+  batch ``k`` only while ``k < consumed + depth``.  After ``stop`` a
+  worker whose pre-pass is a collective still runs every pre-pass its
+  credit admits: each rank's consumer stops after the same number of
+  batches, so every rank's worker then issues the same all-gathers and
+  none waits for a rank that has left."""
+
+  def __init__(self, depth: int, collective: bool):
+    self.depth = depth
+    self.collective = collective
+    self.consumed = 0
+    self.stopped = False
+    self._cv = threading.Condition()
+
+  def admit(self, k: int) -> bool:
+    with self._cv:
+      while True:
+        if self.stopped and not self.collective:
+          return False
+        if k < self.consumed + self.depth:
+          return True
+        if self.stopped:
+          return False
+        self._cv.wait()
+
+  def consume(self):
+    with self._cv:
+      self.consumed += 1
+      self._cv.notify_all()
+
+  def stop(self):
+    with self._cv:
+      self.stopped = True
+      self._cv.notify_all()
+
+
 class ColdFetchPipeline:
   """Run the fetch pre-pass ahead of the device.
 
   Wraps an iterator of ``cats`` batches (this rank's local ids); a worker
   thread runs ``compute_fetch_rows`` for batch N+1 while the consumer's
-  step runs batch N.  The payload gather (``build_fetch``) stays on the
-  consumer side, after the previous step's write-back, so a prefetch
-  never reads stale tier rows: only the routing and dedup overlap.  At a
-  world above one the worker's all-gather runs on the tier's own CPU
-  group, in batch order on every rank.
+  step runs batch N, at most ``depth`` batches ahead.  The payload
+  gather (``build_fetch``) stays on the consumer side, after the
+  previous step's write-back, so a prefetch never reads stale tier rows:
+  only the routing and dedup overlap.  At a world above one the worker's
+  all-gather runs on the layer's ``_prepass_pg``, a CPU group that only
+  this worker uses, in batch order on every rank; so one pipeline per
+  layer runs at a time.
 
-  ``stats()['overlap_pct']`` is measured: 1 - blocked / build, with
-  ``blocked_ms`` the consumer's wait inside ``__next__`` and
-  ``build_ms`` the worker's wall time.
+  ``stats()['overlap_pct']`` is measured over the batches handed out: 1 -
+  blocked / build, with ``blocked_ms`` the consumer's wait inside
+  ``__next__`` and ``build_ms`` the worker's wall time on those batches
+  (a pre-pass built but never consumed is not counted).
   """
 
   def __init__(self, dist, cats_iter, depth: int = 2):
     self.dist = dist
-    self._q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
+    collective = dist.world_size > 1
+    if collective:
+      live = getattr(dist, '_prepass_worker', None)
+      if live is not None and live.is_alive():
+        raise RuntimeError(
+            'ColdFetchPipeline: this layer already has a live pipeline; '
+            'close it (and let its worker finish) before starting '
+            'another, since both would all-gather on the layer\'s '
+            'pre-pass group')
+    self._q: queue.Queue = queue.Queue()
     self._overlap = OverlapStat()
     self._err_box: list = []
-    self._stop = threading.Event()
-    # the producer closes over the queue and the stop event, never over
-    # the pipeline: an abandoned pipeline can be collected, and its
-    # __del__ -> close() stops the timed puts below
-    q, stop, err_box = self._q, self._stop, self._err_box
-    ref = weakref.ref(self)
-
-    def put_or_stop(item) -> bool:
-      while not stop.is_set():
-        try:
-          q.put(item, timeout=0.1)
-          return True
-        except queue.Full:
-          continue
-      return False
+    self._credits = _Credits(max(1, int(depth)), collective)
+    # the producer closes over the queue and the credits, never over the
+    # pipeline: an abandoned pipeline can be collected, and its
+    # __del__ -> close() stops the worker
+    q, credits, err_box = self._q, self._credits, self._err_box
+    group = dist._prepass_pg
 
     def producer():
       try:
-        for cats in cats_iter:
-          if stop.is_set():
+        for k, cats in enumerate(cats_iter):
+          if not credits.admit(k):
             return
           t0 = time.perf_counter()
           with obs_trace.span('coldtier/prepass'):
-            prepped = [np.asarray(_host_ids(x)) for x in
-                       dist._densify(list(cats))]
-            rows = compute_fetch_rows(dist, prepped)
+            prepped = _prepped(dist, cats)
+            rows = compute_fetch_rows(dist, prepped, group)
           prepass_ms = (time.perf_counter() - t0) * 1000.0
-          live = ref()
-          if live is not None:
-            live._overlap.build_ms += prepass_ms
-            del live
           obs_metrics.observe('coldtier.prepass_ms', prepass_ms)
-          if not put_or_stop((cats, prepped, rows)):
-            return
+          q.put((cats, prepped, rows, prepass_ms))
       except BaseException as e:  # surfaced on the consumer side
         err_box.append(e)
       finally:
-        put_or_stop(None)
+        q.put(None)
 
     self._thread = threading.Thread(target=producer, daemon=True,
                                     name='cold-tier-prefetch')
     self._thread.start()
+    dist._prepass_worker = self._thread
 
   def __iter__(self):
     return self
@@ -743,38 +814,37 @@ class ColdFetchPipeline:
         item = self._q.get(timeout=0.1)
         break
       except queue.Empty:
-        if self._stop.is_set():
+        if self._credits.stopped:
           raise StopIteration from None
     blocked_ms = (time.perf_counter() - t0) * 1000.0
-    self._overlap.blocked_ms += blocked_ms
     obs_trace.complete('coldtier/wait', t0, blocked_ms / 1000.0)
     obs_metrics.observe('coldtier.blocked_ms', blocked_ms)
     if item is None:
       if self._err_box:
         raise self._err_box[0]
       raise StopIteration
-    cats, prepped, rows = item
+    cats, prepped, rows, prepass_ms = item
+    self._credits.consume()
+    self._overlap.blocked_ms += blocked_ms
+    self._overlap.build_ms += prepass_ms
     fetch = build_fetch(self.dist, prepped, rows=rows)
     self._overlap.batches += 1
     obs_metrics.inc('coldtier.batches')
     return cats, fetch
 
   def close(self, join_timeout: float = 30.0):
-    """Stop the producer and drain the queue (idempotent); pre-passes
-    built but not consumed are discarded."""
-    self._stop.set()
-
-    def drain():
-      while True:
-        try:
-          self._q.get_nowait()
-        except queue.Empty:
-          return
-
-    drain()  # frees a producer blocked mid-put so the join can land
+    """Stop the producer and drop what it built ahead (idempotent).  At a
+    world above one the worker first finishes the pre-passes its credit
+    admitted (at most ``depth``), which every rank's worker issues
+    alike; the join waits for that."""
+    self._credits.stop()
     if join_timeout > 0 and self._thread is not threading.current_thread():
       self._thread.join(timeout=join_timeout)
-    drain()  # an item put just before the stop was seen
+    while True:
+      try:
+        self._q.get_nowait()
+      except queue.Empty:
+        return
 
   def __del__(self):
     # no join here: the garbage collector may run on any thread

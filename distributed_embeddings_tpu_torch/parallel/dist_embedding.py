@@ -445,19 +445,24 @@ class DistributedEmbedding:
     # host-DRAM cold tier: this rank's host arrays of the tail rows
     # (filled by init / set_weights), the fetch capacities per global
     # batch (constructor-pinned rows seed every batch size), the pinned
-    # staging buffers, and a CPU process group of the tier's own for the
-    # pre-pass's all-gather (created here, on every rank in one order)
+    # staging buffers, and two CPU process groups of the tier's own
+    # (created here, on every rank in one order): ``_tier_pg`` for the
+    # consumer thread's tier collectives, ``_prepass_pg`` for the
+    # ColdFetchPipeline worker's pre-pass alone (gloo pairs a group's
+    # collectives in issue order, which two threads would not keep)
     self.cold_tier = None
     self._cold_fetch_caps: Dict[int, Dict[int, int]] = {}
     self._cold_fetch_pinned: Dict[int, int] = {}
-    self._tier_pg = None
+    self._tier_pg = self._prepass_pg = None
+    self._prepass_worker = None
     if self.plan.cold_tier_groups:
       from distributed_embeddings_tpu_torch.parallel import coldtier
       self.cold_tier = coldtier.HostTier(self.plan, self.quant, self.rank)
       self._tier_staging = coldtier._Staging()
       if self.world_size > 1:
-        self._tier_pg = torch_dist.new_group(
-            torch_dist.get_process_group_ranks(mesh.group), backend='gloo')
+        ranks = torch_dist.get_process_group_ranks(mesh.group)
+        self._tier_pg = torch_dist.new_group(ranks, backend='gloo')
+        self._prepass_pg = torch_dist.new_group(ranks, backend='gloo')
     if cold_fetch_rows is not None:
       if isinstance(cold_fetch_rows, dict):
         self._cold_fetch_pinned = {int(k): int(v)

@@ -352,6 +352,33 @@ def test_over_cap_refusal_names_bucket():
   assert d2._cold_fetch_caps[64][3] >= 20
 
 
+def test_calibrate_fetch_caps_sizes_on_the_neediest_batch():
+  """``calibrate_fetch_caps`` (the DLRM example sizes the capacity on
+  batches held out of the hot-set calibration): the capacity a fresh
+  layer calibrates from the neediest batch alone, so each batch fits;
+  one batch size per call."""
+  rng = np.random.default_rng(43)
+  w = _weights(rng)
+  batches = [_ids(np.random.default_rng(200 + i), 8) for i in range(3)]
+  d = _tiered('int8')
+  checkpoint.set_weights(d, w)
+  caps = coldtier.calibrate_fetch_caps(d, batches)
+  alone = []
+  for b in batches:
+    one = _tiered('int8')
+    checkpoint.set_weights(one, w)
+    one.build_cold_fetch(b)
+    alone.append(one.fetch_caps_for(8))
+  assert caps == {gi: max(a[gi] for a in alone)
+                  for gi in d.plan.cold_tier_groups}
+  for b in batches:
+    d.build_cold_fetch(b)
+  assert d.fetch_caps_for(8) == caps
+  with pytest.raises(ValueError, match='one batch size'):
+    coldtier.calibrate_fetch_caps(_tiered('int8'),
+                                  [batches[0], _ids(rng, 4)])
+
+
 def test_cold_fetch_pipeline_ordered_and_measured():
   rng = np.random.default_rng(41)
   d = _tiered('int8')

@@ -18,7 +18,11 @@ audit's findings gathered over the ranks.
   (tests/test_torch_hotcache_ranks.py), every dequantized element of a
   quantized table within one quantization step of its row per step.
 - ``ColdFetchPipeline`` keeps the batches' order (its run equals the
-  unpipelined one bit for bit) and reports ``0 <= overlap_pct <= 1``.
+  unpipelined one bit for bit) and reports ``0 <= overlap_pct <= 1``;
+  closed early, every rank's worker ends; with the row digests on and a
+  default ``StateAuditor`` after every step (collectives of the
+  consumer's tier group beside the worker's pre-pass group) the run
+  still equals the unpipelined one, with no finding.
 - The ``'tier'`` audit finds nothing on a healthy tier and, after the
   last rank flips a byte of its first tail row, that row on that rank,
   on every rank.
@@ -246,6 +250,23 @@ def test_pipeline_keeps_order_and_overlap_bounds(ranks):
     stats = json.loads(str(g['pipe_stats']))
     assert stats['batches'] == STEPS
     assert 0.0 <= stats['overlap_pct'] <= 1.0
+
+
+def test_pipeline_with_digests_and_audit_on_ranks(ranks):
+  """The pipeline's pre-pass group beside the digest checks and the
+  audit sweeps: the same tables, optimizer state and losses as the
+  unpipelined run, every audit clean, and an early-closed pipeline's
+  worker ended on every rank."""
+  world, case, got = ranks
+  for r in range(world):
+    g = got[(r, 0)]
+    assert not bool(g['early_alive'])
+    run = json.loads(str(g['apipe_findings']))
+    assert run == {'audits': STEPS, 'digests': True, 'findings': []}, run
+    keys = [k for k in g if k.startswith('apipe_') and k != 'apipe_findings']
+    assert len(keys) > 1
+    for k in keys:
+      np.testing.assert_array_equal(g[k], g['t_' + k[6:]], err_msg=k)
 
 
 def test_tier_audit_finds_corrupt_row_on_every_rank(ranks):

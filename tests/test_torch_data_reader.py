@@ -268,6 +268,8 @@ def test_entry_point_cold_tier_equals_resident(criteo_dir, tmp_path, capsys):
                                 '--save_state', str(tmp_path / 'tier.npz')])
   text = capsys.readouterr().out
   assert 'cold_tier: 1 tiered group(s)' in text
+  assert 'sized on 1 batch(es) held out of the hot-set calibration' in text
+  assert len(out['tier_prepass_ms']) == len(out['tier_blocked_ms']) == 4
   assert '% of the host pre-pass hidden' in text
   assert len(out['tier_losses']) == 4 and np.isfinite(out['tier_losses']).all()
   assert 0.0 <= out['tier_pipeline']['overlap_pct'] <= 1.0

@@ -372,9 +372,8 @@ def test_entry_point_hot_cache_refusals(flags, why):
 
 
 def test_entry_point_parses_the_jax_flags():
-  # every flag of examples/dlrm/main.py, with its default; --device and
-  # --cold_fetch_rows (the cold tier's fetch capacity, which the JAX
-  # example only calibrates) are the port's additions
+  # every flag of examples/dlrm/main.py, with its default; --device is
+  # the port's one addition
   from examples.dlrm import main as jax_main
   import sys
   argv, sys.argv = sys.argv, ['main.py']
@@ -384,7 +383,6 @@ def test_entry_point_parses_the_jax_flags():
     sys.argv = argv
   got = vars(dlrm_main.build_parser().parse_args([]))
   assert got.pop('device') == 'cuda'
-  assert got.pop('cold_fetch_rows') is None
   assert got == want
   with pytest.raises(ValueError, match='XLA'):
     dlrm_main.main(SMALL_FLAGS + ['--fast_compile'])

@@ -20,6 +20,7 @@ nothing of JAX (spawned processes import only this)."""
 import itertools
 import json
 import pickle
+import time
 
 
 def rank_main(target, rank, world_size, init_method, case_path, out_dir):
@@ -1233,7 +1234,11 @@ def tier(rank, world_size, init_method, case_path, out_dir):
   ``case['steps']`` hybrid steps of each (a linear head, ``optim.sgd``)
   and the gathered tables, optimizer state and losses.  The first
   variant also trains a third layer through ``ColdFetchPipeline`` (saved
-  beside its stats), and its tiered layer's ``'tier'`` audit runs once
+  beside its stats); a fourth closes a pipeline after one of three
+  epochs' batches (its worker must end) and then trains through another
+  with the row digests on and a default ``StateAuditor`` run after each
+  step (the worker's all-gathers beside the fetch-time digest checks and
+  the audit's sweeps); and its tiered layer's ``'tier'`` audit runs once
   healthy and once after rank ``world_size - 1`` flips a byte of its
   first tail row."""
   import numpy as np
@@ -1268,7 +1273,7 @@ def tier(rank, world_size, init_method, case_path, out_dir):
       x = torch.cat(list(emb_outs), dim=1)
       return torch.mean((x @ dense_params['kernel'] - y)**2)
 
-    def train(dist, opt_name, pipelined=False):
+    def train(dist, opt_name, pipelined=False, audited=False):
       emb_opt = (sparse.SparseSGD(case['lr']) if opt_name == 'sgd'
                  else sparse.SparseAdagrad(case['lr']))
       dense_opt = optim.sgd(case['lr'])
@@ -1277,13 +1282,18 @@ def tier(rank, world_size, init_method, case_path, out_dir):
                  'kernel': torch.tensor(case['kernel'])},
           dense_opt, emb_opt)
       step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
-      losses, stats = [], None
+      # the default checks ('tier' among them) arm the row digests
+      auditor = audit.StateAuditor(dist, every=1) if audited else None
+      losses, stats, findings = [], None, []
       if pipelined:
         pipe = coldtier.ColdFetchPipeline(
             dist, (mine(c) for c in case['batches']))
-        for cats, fetch in pipe:
+        for i, (cats, fetch) in enumerate(pipe):
           state, loss = step(state, cats, labels, cold_fetch=fetch)
           losses.append(float(loss))
+          if auditor is not None:
+            findings += [f.brief() for f in auditor.check_state(
+                state, step=i + 1)]
         stats = pipe.stats()
         pipe.close()
       else:
@@ -1291,6 +1301,10 @@ def tier(rank, world_size, init_method, case_path, out_dir):
           state, loss = step(state, mine(cats), labels)
           losses.append(float(loss))
       got = {'losses': np.array(losses)}
+      if auditor is not None:
+        got['findings'] = np.array(json.dumps(
+            {'audits': auditor.audits, 'digests':
+             dist.cold_tier.digests_enabled, 'findings': findings}))
       for i, w in enumerate(checkpoint.export_tables(
           dist, state.params['embedding'])):
         if hasattr(w, 'payload'):
@@ -1333,6 +1347,25 @@ def tier(rank, world_size, init_method, case_path, out_dir):
         res, stats = train(tiered(), opt_name, pipelined=True)
         got.update({f'pipe_{k}': v for k, v in res.items()})
         got['pipe_stats'] = np.array(json.dumps(stats))
+        d2 = tiered()
+
+        def late_on_rank0(batches):
+          # rank 0's worker reaches batch 2 only after its consumer has
+          # closed, while the other ranks' workers already all-gather it
+          for k, c in enumerate(batches):
+            if k == 2 and rank == 0:
+              time.sleep(0.5)
+            yield mine(c)
+
+        early = coldtier.ColdFetchPipeline(d2,
+                                           late_on_rank0(case['batches'] * 3))
+        next(early)
+        if rank:
+          time.sleep(0.2)
+        early.close(join_timeout=10.0)
+        got['early_alive'] = np.array(early._thread.is_alive())
+        res, _ = train(d2, opt_name, pipelined=True, audited=True)
+        got.update({f'apipe_{k}': v for k, v in res.items()})
         auditor = audit.StateAuditor(dist, every=1, checks=('tier',),
                                      bytes_per_audit=None)
         got['audit_healthy'] = np.array(len(auditor.run()))
