@@ -145,7 +145,13 @@ Phases, each of which exits non-zero on failure:
             requantization equals the numpy quantizer and whose rows
             named by no id keep their bits; in int8, one checkpoint
             (payload and scale pairs, accumulators, MLP) saved and
-            restored in place, equal in every logical leaf.
+            restored in place, equal in every logical leaf, then
+            exported into a serving bundle (int8 payload and f32 scale
+            members, no optimizer member) and served by an engine built
+            from the bundle alone (from_bundle, table_dtype 'auto':
+            int8): requests of 1, 5, 64 and 4096 samples equal the
+            model's lookup, every lookup on the dequantizing arm
+            (counted).
 9h. wire-ranks: the wire codec (wire_dtype) across ranks: two processes
             on the one card (both on cuda:0), joined over gloo, which
             stages CUDA tensors through host memory (NCCL cannot put two
@@ -197,7 +203,10 @@ Phases, each of which exits non-zero on failure:
             measure_exchange_counters on rank 0 (dcn_rows, dcn_rows_off,
             dcn_dedup_ratio above 1); each lookup of one hierarchical
             forward and each segment walk of one more step captured on
-            each rank and held against its plain version.  Both 9h and
+            each rank and held against its plain version (the library
+            time of a dequantizing launch, here and in 9h: embedding_bag
+            over a dequantized compact copy of the rows it reads).  Both
+            9h and
             9i start their ranks through launch_ranks: a file
             rendezvous, each rank's output logged, a marker written
             after its work, os._exit(0); a rank that fails, leaves no
@@ -259,6 +268,30 @@ Phases, each of which exits non-zero on failure:
             launch one lookup and one apply each.  Save and restore
             seconds and GB/s; the free disk space first (too little
             fails the phase).
+13h. dlrm-serve: run A's step-6 file of phase 13b (kept for this
+            phase) served by examples/dlrm/serve.py in process: the
+            bundle (26 tables at step 6, no optimizer member, each
+            table's sha256 in its manifest the checkpoint's), an engine
+            at batch 1024 on rungs 128, 256, 512 and 1024 with serving
+            hot sets (coverage 0.98 in 512 MiB), 512 power-law requests
+            of 1, 2, 4 and 8 samples through the three arms (each alone,
+            the monolithic batcher, the ladder and pipeline batcher;
+            concurrency 8, 2 ms) and the overload arm (one burst at a
+            two-replica pool, deadline 50 ms, half low priority, replica
+            0 quarantined half-way).  Every answer of the monolithic and
+            the ladder arms equals lookup_padded on its request bit for
+            bit; every lookup of those arms launched the lookup kernel
+            as often as the plan says and the segment walk never
+            (counted); every overload future resolved, served or shed,
+            the retried and degraded answers equal to lookup_padded on
+            the surviving replica; one batch at each rung, every launch
+            of its lookup against its plain version (bit-exact) with
+            kernel, plain, embedding_bag and bound; an engine from the
+            bundle alone (from_bundle, no hot sets) answers 512 sampled
+            samples equal to a plain gather of the bundle's arrays; the
+            bundle with one byte flipped refuses to load; the three-arm
+            and serve_over_* blocks printed with the card's name and
+            power limit; the files deleted.
 13c. dlrm-hot: examples/dlrm/main.py --dp_input --hot_cache
             --param_dtype bfloat16 in process at phase 13b's onechip
             vocabularies (the same one cut), hot sets calibrated on the
@@ -409,7 +442,10 @@ of the segment walk they ran (``segwalk.ARM_LAUNCHES``); each run of
 phases 9c and 13b, phase 9d's steps, phase 9e's forward, requests,
 steps and lazy-Adam steps, phase 13c's run, each arm of phases 9f
 and 13d (forwards, sparse, cached and dense steps, the example runs)
-phase 9g's forward, requests and steps of each dtype, phase 13e's
+phase 9g's forward, requests and steps of each dtype and its bundle
+engine's requests, phase 13h's arms (the engine's warm-up and the
+no-batching arm, the monolithic arm, the ladder arm, the overload arm),
+phase 13e's
 forward and steps (with the dequantizing arm's launches), phase 9h's
 and 9i's forwards and steps on each rank, phase 13f's example runs and phase 20's
 benchmark (with the CSR arm's launches, ``lookup.ARM_LAUNCHES``).
@@ -418,7 +454,9 @@ segment walk, its two bf16 arms, its adam op, the lookup's CSR arm and
 its dequantizing arm: launches from phase 13e's steps, times at its
 shape, the tiny models' shapes beside them; the segment walk's
 two-source arm: launches from phase 13g's steps, times at phase 9j's
-shapes, and the lookup's tier gathers under ``tier_tiny``); each row
+shapes, and the lookup's tier gathers under ``tier_tiny``; the lookup's
+serving launches under ``dlrm_serve``, one batch a rung of phase 13h);
+each row
 and summary with a kernel time says by which ``clock``:
 ``queued`` (CUDA events around back-to-back calls queued ahead of the
 device, so no launch gap counts) or ``events: <keys>`` (the times of
@@ -449,11 +487,12 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
-from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch import optim, serving
 from distributed_embeddings_tpu_torch.examples.benchmarks import (
     lookup_benchmark)
 from distributed_embeddings_tpu_torch.examples.dlrm import gen_data
 from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
+from distributed_embeddings_tpu_torch.examples.dlrm import serve as dlrm_serve
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
@@ -467,6 +506,9 @@ from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
                                                        routing, sparse)
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
+from distributed_embeddings_tpu_torch.serving import batcher as serve_batcher
+from distributed_embeddings_tpu_torch.serving import bench as serve_bench
+from distributed_embeddings_tpu_torch.serving import pool as serve_pool
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import (data, fastloader,
@@ -601,6 +643,15 @@ TIER_STEADY_FROM = 5  # phase 13g's steps past the queue step 1's checks fill
 # the checkpoint files of phases 9c and 13b, inside the checkout (build/
 # is not committed)
 CKPT_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_ckpt'
+SERVE_DIR = CKPT_DIR / 'serve'  # phase 13h: 13b's step-6 file, the bundle
+# phase 13h: examples/dlrm/serve.py's arguments beside --checkpoint
+SERVE_ARGV = ['--batch', '1024', '--serve_buckets', '128,256,512,1024',
+              '--requests', '512', '--request_sizes', '1,2,4,8',
+              '--concurrency', '8', '--max_delay_ms', '2', '--alpha', '1.05',
+              '--hot_coverage', '0.98', '--hot_budget_mb', '512',
+              '--overload_qps', '0', '--replicas', '2', '--deadline_ms',
+              '50', '--priority_mix', '0.5']
+SERVE_CHECK_SAMPLES = 512  # phase 13h: from_bundle answers held
 
 
 def log(*args):
@@ -2259,7 +2310,8 @@ def phase_dlrm_resume():
   the save, restore and verify numbers."""
   sizes = [min(s, ONECHIP_MAX_ROWS) for s in data.MLPERF_SIZES]
   file_est = sum(sizes) * 128 * 4
-  check_disk(3.2 * file_est, 'dlrm-resume')
+  # run A's file stays for phase 13h beside the phase's own files
+  check_disk(4.2 * file_est, 'dlrm-resume')
   root = CKPT_DIR / 'dlrm'
   shutil.rmtree(root, ignore_errors=True)
   root.mkdir(parents=True)
@@ -2297,7 +2349,9 @@ def phase_dlrm_resume():
   man_a = checkpoint.read_manifest(str(a))
   file_bytes = os.path.getsize(a)
   verify_s = [verify(a, 0)]
-  os.remove(a)
+  SERVE_DIR.mkdir(parents=True, exist_ok=True)
+  serve_ckpt = SERVE_DIR / 'ckpt_6.npz'
+  os.replace(a, serve_ckpt)
   out_b3 = main('B1', 3, '--max_steps', '3', '--save_state', str(b3))
   out_b = main('B2', FIT_STEPS - 3, '--load_state', str(b3), '--max_steps',
                str(FIT_STEPS), '--save_state', str(b))
@@ -2352,7 +2406,309 @@ def phase_dlrm_resume():
       'verify_checkpoint passed both and rejected the flipped copy; '
       '--resume_dir quarantined the truncated file and resumed at step 3')
   log('[dlrm-resume] ' + json.dumps(numbers))
-  return launches, numbers
+  return launches, numbers, serve_ckpt
+
+
+def serve_answers(tag, subs, engine):
+  """Every recorded ``(cats, future)`` of a batcher against
+  ``engine.lookup_padded`` on the same request, bit for bit; returns the
+  count."""
+  for n, (cats, fut) in enumerate(subs):
+    got = fut.result(timeout=0)
+    want = serve_batcher.host_outputs(engine.lookup_padded(cats))
+    for i, (g, w) in enumerate(zip(got, want)):
+      if not np.array_equal(g, w):
+        raise AssertionError(f'{tag}: request {n} ({len(cats[0])} samples)'
+                             f' input {i} differs from lookup_padded')
+  return len(subs)
+
+
+def rung_batch(subs, bucket):
+  """A ``bucket``-sample batch merged from recorded requests as the
+  batcher merges them (hotness 1, int32)."""
+  merged = [np.concatenate(c) for c in zip(*(cats for cats, _ in subs))]
+  if merged[0].shape[0] < bucket:
+    raise AssertionError(f'{merged[0].shape[0]} recorded samples, rung '
+                         f'{bucket}')
+  return [np.ascontiguousarray(c[:bucket], dtype=np.int32) for c in merged]
+
+
+def phase_dlrm_serve(ckpt, card):
+  """Phase 13h: examples/dlrm/serve.py in process on phase 13b's step-6
+  file (the bf16 DLRM at the MLPerf widths, the onechip vocabularies).
+  Returns each arm's launches, the kernel rows at each rung and the
+  phase's numbers."""
+  tag = 'dlrm-serve'
+  ckpt = pathlib.Path(ckpt)
+  size = os.path.getsize(ckpt)
+  check_disk(1.05 * size, tag)
+  bundle = SERVE_DIR / 'bundle.npz'
+  loaded, batchers, pool_reqs = [], [], []
+  orig = {'load': serving.load_serving_bundle,
+          'init': serve_batcher.DynamicBatcher.__init__,
+          'submit': serve_batcher.DynamicBatcher.submit,
+          'close': serve_batcher.DynamicBatcher.close,
+          'req': serve_pool._PoolReq.__init__}
+
+  def load(path):
+    out = orig['load'](path)
+    loaded.append(out)
+    return out
+
+  def marks(engine):
+    return read_launches(), engine.stats()['batches_served']
+
+  def init(self, engine, *args, **kwargs):
+    orig['init'](self, engine, *args, **kwargs)
+    self.chip_marks = [marks(engine)]
+    self.chip_subs = []
+    batchers.append(self)
+
+  def submit(self, cats, *args, **kwargs):
+    fut = orig['submit'](self, cats, *args, **kwargs)
+    self.chip_subs.append((cats, fut))
+    return fut
+
+  def close(self):
+    orig['close'](self)
+    self.chip_marks.append(marks(self.engine))
+
+  def req_init(self, *args, **kwargs):
+    orig['req'](self, *args, **kwargs)
+    pool_reqs.append(self)
+
+  serving.load_serving_bundle = load
+  serve_batcher.DynamicBatcher.__init__ = init
+  serve_batcher.DynamicBatcher.submit = submit
+  serve_batcher.DynamicBatcher.close = close
+  serve_pool._PoolReq.__init__ = req_init
+  reset_launches()
+  t0 = time.perf_counter()
+  try:
+    stats = dlrm_serve.main(['--checkpoint', str(ckpt), '--bundle',
+                             str(bundle), '--device', 'cuda', *SERVE_ARGV])
+  finally:
+    serving.load_serving_bundle = orig['load']
+    serve_batcher.DynamicBatcher.__init__ = orig['init']
+    serve_batcher.DynamicBatcher.submit = orig['submit']
+    serve_batcher.DynamicBatcher.close = orig['close']
+    serve_pool._PoolReq.__init__ = orig['req']
+  run_s = time.perf_counter() - t0
+  mono, ladder, *replicas = batchers
+  if (mono.pipeline or mono.bucket_ladder or not ladder.pipeline
+      or not ladder.bucket_ladder or len(replicas) != 2):
+    raise AssertionError(f'{tag}: {len(batchers)} batchers, not the '
+                         'monolithic, the ladder and two replicas')
+  engine = mono.engine
+  per_lookup = hot_launches(engine.dist, engine.hotness)[0][
+      'lookup_combine']
+  # one batcher at a time ran on the engine until the pool: every mark's
+  # launches are the engine's lookups so far times the plan's launches
+  for arm, (launched, lookups) in (('nobatch', mono.chip_marks[0]),
+                                   ('mono', mono.chip_marks[-1]),
+                                   ('ladder', ladder.chip_marks[-1])):
+    want = {'lookup_combine': lookups * per_lookup, 'segwalk_apply': 0}
+    if launched != want:
+      raise AssertionError(f'{tag}: after the {arm} arm {launched} for '
+                           f'{lookups} lookups x {per_lookup} (the plan)')
+  warm = len(engine.buckets)
+  cuts = [warm, mono.chip_marks[0][1], mono.chip_marks[-1][1],
+          ladder.chip_marks[-1][1]]
+  lookups = {arm: b - a for arm, a, b in zip(('nobatch', 'mono', 'ladder'),
+                                             cuts, cuts[1:])}
+  launches = {arm: {'lookup_combine': n * per_lookup, 'segwalk_apply': 0}
+              for arm, n in lookups.items()}
+  end = read_launches()
+  launches['overload'] = {
+      name: end[name] - ladder.chip_marks[-1][0][name] for name in end}
+  if launches['overload']['segwalk_apply'] or not launches['overload'][
+      'lookup_combine']:
+    raise AssertionError(f'{tag}: the overload arm launched '
+                         f'{launches["overload"]}')
+  answered = {'mono': serve_answers(f'{tag} mono', mono.chip_subs, engine),
+              'ladder': serve_answers(f'{tag} ladder', ladder.chip_subs,
+                                      engine)}
+  # the overload arm: every future resolved, served or shed; the retried
+  # ones (failed over from the quarantined replica 0) and the degraded
+  # ones against lookup_padded on the survivor
+  survivor = replicas[1].engine
+  outcome = collections.Counter()
+  retried = retried_served = degraded = dropped = total = 0
+  for req in pool_reqs:
+    if not req.future.done():
+      raise AssertionError(f'{tag}: an overload future is unresolved')
+    err = req.future.error()
+    outcome[type(err).__name__ if err else 'served'] += 1
+    retried += bool(req.retries)
+    if err is not None:
+      continue
+    if req.degraded:
+      degraded += 1
+      dropped += req.dropped
+      total += req.total
+    if req.retries or req.degraded:
+      retried_served += bool(req.retries)
+      want = serve_batcher.host_outputs(survivor.lookup_padded(req.cats))
+      if not all(np.array_equal(g, w)
+                 for g, w in zip(req.future.result(timeout=0), want)):
+        raise AssertionError(f'{tag}: a retried or degraded answer '
+                             'differs from lookup_padded')
+  if (sum(outcome.values()) != stats['serve_over_requests']
+      or outcome['served'] != stats['serve_over_served']
+      or set(outcome) - {'served', 'RequestSheddedError'}):
+    raise AssertionError(f'{tag}: overload outcomes {dict(outcome)}, '
+                         f'block {stats["serve_over_served"]} served')
+  # the kernel at the serving shapes: one batch at each rung, every
+  # launch of its lookup against the plain version
+  rows = {}
+  for b in engine.buckets:
+    batch = rung_batch(ladder.chip_subs, b)
+    rows[str(b)] = checked_sum(wire_lookup_rows(engine.dist, engine.params,
+                                                batch, f'serve_b{b}'))
+  # which of the ladder and the pipeline the third arm's time follows:
+  # each alone over the same requests, and the third arm again with the
+  # interpreter's thread switch interval at 0.5 ms (default 5 ms: a
+  # thread woken by a hand-off waits for the running one to yield)
+  requests = [cats for cats, _ in ladder.chip_subs]
+  attribution = {}
+  switch = sys.getswitchinterval()
+  for arm, kw, interval in (
+      ('pipeline_only', dict(bucket_ladder=False), switch),
+      ('ladder_only', dict(pipeline=False), switch),
+      ('ladder_pipeline_switch_0.5ms', {}, 0.0005)):
+    bat = serve_batcher.DynamicBatcher(engine, max_delay_ms=2.0, **kw)
+    sys.setswitchinterval(interval)
+    try:
+      wall = serve_bench._drive(bat, requests, 8)
+      st = bat.stats()
+    finally:
+      sys.setswitchinterval(switch)
+      bat.close()
+    attribution[arm] = {
+        'p50_ms': st['p50_ms'], 'p99_ms': st['p99_ms'],
+        'qps': len(requests) / wall, 'batches': st['batches'],
+        'batch_fill': st['batch_fill'],
+        'overlap_pct': (st.get('pipeline') or {}).get('overlap_pct')}
+  # serve.py's drill quarantines a replica whose batcher then drains its
+  # queue, so nothing fails over there: a replica whose lookups raise
+  # fails every request over to the survivor
+  def failing(cats, samples=None):
+    raise RuntimeError('phase 13h: injected replica fault')
+
+  engine.lookup = failing
+  drill = serving.ServingEnginePool([engine, survivor], max_delay_ms=2.0)
+  try:
+    futs = [(r, drill.submit(r)) for r in requests[:64]]
+    for r, f in futs:
+      want = serve_batcher.host_outputs(survivor.lookup_padded(r))
+      if not all(np.array_equal(g, w)
+                 for g, w in zip(f.result(timeout=120.0), want)):
+        raise AssertionError(f'{tag}: a failed-over answer differs from '
+                             'lookup_padded on the survivor')
+    drill_stats = drill.stats()
+  finally:
+    drill.close()
+    del engine.lookup
+  if drill_stats['quarantined'] != 1 or drill_stats['failovers'] < 1:
+    raise AssertionError(f'{tag}: failover drill {drill_stats}')
+  pool_engines = {id(engine), id(survivor)}
+  del batchers, mono, ladder, replicas, pool_reqs, survivor
+  # the bundle: 26 tables at step 6, no optimizer member, each table's
+  # sha256 the checkpoint's
+  man_b = checkpoint.read_manifest(str(bundle))
+  man_c = checkpoint.read_manifest(str(ckpt))
+  tables = sorted(k for k in man_b['arrays'] if k.startswith('table'))
+  n_tables = len(data.MLPERF_SIZES)
+  if (len(tables) != n_tables or man_b['step'] != 6
+      or any('/' in k or ':' in k for k in tables)
+      or any(man_b['arrays'][k]['sha256'] != man_c['arrays'][k]['sha256']
+             for k in tables)):
+    raise AssertionError(f'{tag}: bundle tables {tables[:3]}..., step '
+                         f'{man_b["step"]}: not the checkpoint\'s')
+  # an engine from the bundle alone, no model code: sampled answers
+  # against a plain gather of the bundle's arrays
+  weights, meta = loaded[0]
+  t1 = time.perf_counter()
+  bare = ServingEngine.from_bundle(str(bundle), batch_size=1024,
+                                   device='cuda')
+  from_bundle_s = time.perf_counter() - t1
+  rng = np.random.default_rng(13)
+  sample = [rng.integers(0, c.input_dim, size=(SERVE_CHECK_SAMPLES,))
+            .astype(np.int32) for c in meta['table_configs']]
+  reset_launches()
+  got = bare.lookup_padded(sample)
+  torch.cuda.synchronize()
+  bare_launches = read_launches()
+  want_launches = {'lookup_combine': chunk_rounds(bare.dist, bare.hotness),
+                   'segwalk_apply': 0}
+  if bare_launches != want_launches:
+    raise AssertionError(f'{tag}: the bundle engine launched '
+                         f'{bare_launches}, expected {want_launches}')
+  for i, (g, w, ids) in enumerate(zip(got, weights, sample)):
+    if not np.array_equal(g.cpu().numpy(), w[ids]):
+      raise AssertionError(f'{tag}: from_bundle input {i} differs from a '
+                           'plain gather of the bundle')
+  del bare, got, weights, loaded
+  gc.collect()
+  torch.cuda.empty_cache()
+  # one flipped byte: the bundle refuses to load
+  with open(bundle, 'r+b') as f:
+    f.seek(os.path.getsize(bundle) // 2)
+    byte = f.read(1)
+    f.seek(-1, os.SEEK_CUR)
+    f.write(bytes([byte[0] ^ 0x10]))
+  t1 = time.perf_counter()
+  try:
+    serving.load_serving_bundle(str(bundle))
+  except ValueError as e:
+    if 'invalid serving bundle' not in str(e):
+      raise
+  else:
+    raise AssertionError(f'{tag}: the flipped bundle loaded')
+  refuse_s = time.perf_counter() - t1
+  shutil.rmtree(SERVE_DIR)
+  numbers = {
+      'run_s': run_s, 'from_bundle_s': from_bundle_s, 'refuse_s': refuse_s,
+      'bundle_bytes': size, 'lookups': lookups, 'per_lookup': per_lookup,
+      'answers': answered, 'overload': dict(outcome),
+      'retried': retried, 'retried_served': retried_served,
+      'degraded': degraded,
+      'hot_only_dropped': dropped, 'hot_only_total': total,
+      'replica_engines': len(pool_engines),
+      'attribution': attribution,
+      'failover_drill': {k: drill_stats[k] for k in (
+          'failovers', 'quarantined', 'completed', 'p50_ms', 'p99_ms')},
+      'stats': stats,
+  }
+  rows_total = sum(man_c['arrays'][k]['shape'][0] for k in tables)
+  log(f'[{tag}] card {card}; {n_tables} tables, {rows_total:,} rows x 128 '
+      f'(onechip cut): the bundle lists the checkpoint\'s sha256 for every '
+      f'table and no optimizer member; serve.py in {run_s:.1f} s')
+  log(f'[{tag}] launches by arm {json.dumps(launches)} ({per_lookup} a '
+      'lookup from the plan: the cold gather and the hot partial)')
+  log(f'[{tag}] answers bit-equal to lookup_padded: monolithic '
+      f'{answered["mono"]}, ladder+pipeline {answered["ladder"]}; '
+      f'overload outcomes {dict(outcome)}; of {retried} requests retried '
+      f'after the quarantine {retried_served} served (the rest shed), '
+      f'and they and {degraded} degraded answers '
+      'bit-equal on the survivor; hot_only_filter dropped '
+      f'{dropped} of {total} ids')
+  log(f'[{tag}] shed ledger: high {stats["serve_over_high_shed"]}, low '
+      f'{stats["serve_over_low_shed"]}; by reason deadline '
+      f'{stats["serve_over_shed_deadline"]}, queue_full '
+      f'{stats["serve_over_shed_queue_full"]}; degraded enters '
+      f'{stats["serve_over_degraded_enters"]}, exits '
+      f'{stats["serve_over_degraded_exits"]}')
+  log(f'[{tag}] each alone over the same requests: '
+      f'{json.dumps(attribution)}; failover drill (replica 0 raising): 64 '
+      f'answers bit-equal to lookup_padded on the survivor, '
+      f'{drill_stats["failovers"]} failovers')
+  log(f'[{tag}] from_bundle (no model code) in {from_bundle_s:.2f} s: '
+      f'{SERVE_CHECK_SAMPLES} sampled answers equal a plain gather of the '
+      f'bundle, launches {json.dumps(bare_launches)}; the bundle with one '
+      f'byte flipped refused in {refuse_s:.2f} s')
+  log(f'[{tag}] ' + json.dumps(numbers))
+  return launches, rows, numbers
 
 
 def run_small(seed, lookup_k, seg_k):
@@ -3917,11 +4273,14 @@ def summed(kernel, launches, rows, extra=None):
 # ------------------------------------------------ quantized table storage
 
 
-def check_dequant_shape(table, ids, scale, label, library=True):
+def check_dequant_shape(table, ids, scale, label, library='table'):
   """The dequantizing arm against its plain version at one shape, and
-  its timings: kernel, plain, and (``library``) ``embedding_bag`` over
-  the dequantized table, the dequantization timed inside (no PyTorch
-  call takes an int8 or fp8 table with per-row scales)."""
+  its timings: kernel, plain, and the library time: ``embedding_bag``
+  over the dequantized table (``library='table'``) or over a dequantized
+  compact copy of the rows the launch reads, its ids remapped
+  (``'compact'``), the dequantization timed inside either way (no
+  PyTorch call takes an int8 or fp8 table with per-row scales); None
+  times no library call."""
   m, h = ids.shape
   w = table.shape[1]
   lookup.ARM_LAUNCHES['dequant'] = 0
@@ -3967,9 +4326,15 @@ def check_dequant_shape(table, ids, scale, label, library=True):
   }
   if library:
     weights = mask.to(torch.float32)
+    src, src_scale, src_ids = table, scale, safe
+    if library == 'compact':
+      read, src_ids = torch.unique(safe, return_inverse=True)
+      src = quantization.bits(table)[read].view(table.dtype)
+      src_scale = scale[read]
+    row['library'] = library
     row['library_ms'] = device_ms(
         lambda: torch.nn.functional.embedding_bag(
-            safe, quantization.dequantize(table, scale), mode='sum',
+            src_ids, quantization.dequantize(src, src_scale), mode='sum',
             per_sample_weights=weights), 5, floor_ms=floor)
   row['achieved_GBps'] = nbytes / (row['kernel_ms'] * 1e-3) / 1e9
   log('[dequant] ' + json.dumps(clocked(row)))
@@ -4200,17 +4565,19 @@ def phase_quant_tiny(config, seed, dtype, numerical, cats, rng, ckpt):
   numbers['host_syncs'] = sum(host_syncs(
       lambda: step(state, *batches[1])).values())
   if ckpt:
-    numbers['checkpoint'] = quant_checkpoint(model, step, state, tag)
+    numbers['checkpoint'] = quant_checkpoint(model, step, state, tag, cats,
+                                             rng)
   del step, state, model
   gc.collect()
   torch.cuda.empty_cache()
   return numbers, rows
 
 
-def quant_checkpoint(model, step, state, tag):
+def quant_checkpoint(model, step, state, tag, cats, rng):
   """One quantized checkpoint: save (payload and scale pairs, the
   Adagrad accumulators, the MLP and its optimizer state), restore into a
-  fresh draw in place, equal in every logical leaf; the file deleted."""
+  fresh draw in place, equal in every logical leaf; then its serving
+  bundle (``quant_bundle``); the files deleted."""
   dist = model.dist_embedding
   want = logical_digests(dist, state)
   shutil.rmtree(CKPT_DIR / 'quant', ignore_errors=True)
@@ -4232,6 +4599,8 @@ def quant_checkpoint(model, step, state, tag):
   torch.cuda.synchronize()
   restore_s = time.perf_counter() - t0
   compare_digests(f'{tag} restore', want, logical_digests(dist, restored))
+  bundle = quant_bundle(model, restored.params['embedding'], path, cats,
+                        rng, tag)
   shutil.rmtree(CKPT_DIR / 'quant', ignore_errors=True)
   if verdict[0] != 'OK':
     raise AssertionError(f'{tag}: verify_checkpoint {verdict}')
@@ -4239,7 +4608,84 @@ def quant_checkpoint(model, step, state, tag):
       f'restored in place in {restore_s:.2f} s, every table, accumulator, '
       f'MLP leaf and the step equal (audit digests); verify_checkpoint '
       f'{verdict[0]}: {verdict[1]}')
-  return {'bytes': size, 'save_s': save_s, 'restore_s': restore_s}
+  return {'bytes': size, 'save_s': save_s, 'restore_s': restore_s,
+          'bundle': bundle}
+
+
+def quant_bundle(model, params, path, cats, rng, tag):
+  """Phase 9g's serving bundle: the int8 checkpoint at ``path`` exported
+  (``export_bundle_from_checkpoint`` with the model's configs), its
+  members int8 payload and f32 scale with no optimizer member; an engine
+  from the bundle alone (``from_bundle``, ``table_dtype='auto'``) serves
+  int8, every lookup on the dequantizing arm (counted), and answers
+  requests of ``REQUEST_SIZES`` samples equal to the model's lookup
+  (``params``, the restored tables) bit-exact at hotness 1, 1e-6 at 10.
+  The bundle is deleted with the checkpoint's directory."""
+  dist = model.dist_embedding
+  bundle = os.path.join(os.path.dirname(path), 'bundle.npz')
+  t0 = time.perf_counter()
+  summary = serving.export_bundle_from_checkpoint(
+      path, bundle, table_configs=dist.table_configs)
+  export_s = time.perf_counter() - t0
+  arrays = checkpoint.read_manifest(bundle)['arrays']
+  kinds = {k: v['dtype'] for k, v in arrays.items()}
+  n_tables = len(dist.table_configs)
+  payloads = [kinds.get(f'table{i}') for i in range(n_tables)]
+  scales = [kinds.get(f'table{i}:scale') for i in range(n_tables)]
+  if (summary['quantized'] != ['int8'] or set(payloads) != {'|i1'}
+      or set(scales) != {'<f4'}
+      or any(k.startswith('table') and '/' in k for k in arrays)):
+    raise AssertionError(f'{tag}: bundle members {sorted(kinds.items())[:6]}'
+                         f'..., summary {summary}')
+  t0 = time.perf_counter()
+  engine = ServingEngine.from_bundle(
+      bundle, batch_size=SERVE_BATCH, device=dist.device,
+      input_table_map=model.input_table_map, hotness=model.hotness)
+  load_s = time.perf_counter() - t0
+  if engine.stats()['table_dtype'] != 'int8':
+    raise AssertionError(f'{tag}: the bundle engine serves '
+                         f'{engine.stats()["table_dtype"]}, not int8')
+  n_subs = len(engine.dist._subgroups(tuple(model.hotness)))
+  engine.warmup(sample_cats=[c[:SERVE_BATCH] for c in cats])
+  reset_launches()
+  batch = np.asarray(cats[0]).shape[0]
+  answers = []
+  for n in REQUEST_SIZES:
+    start = int(rng.integers(0, batch - n + 1))
+    req = [c[start:start + n] for c in cats]
+    answers.append((req, engine.lookup_padded(req)))
+  torch.cuda.synchronize()
+  launches = {'lookup_combine': lookup.LAUNCHES,
+              'dequant': lookup.ARM_LAUNCHES['dequant'],
+              'segwalk_apply': segwalk.LAUNCHES}
+  want = len(REQUEST_SIZES) * n_subs
+  if launches != {'lookup_combine': want, 'dequant': want,
+                  'segwalk_apply': 0}:
+    raise AssertionError(f'{tag}: the bundle engine launched {launches}, '
+                         f'expected {want} dequantizing lookups')
+  with torch.no_grad():
+    for req, got in answers:
+      ref = dist.apply(params, req)
+      for i, (g, w, h) in enumerate(zip(got, ref, model.hotness)):
+        same = (torch.equal(g, w) if h == 1 else
+                torch.allclose(g, w, rtol=1e-6, atol=1e-6))
+        if not same:
+          raise AssertionError(f'{tag}: bundle engine, request of '
+                               f'{len(req[0])}: input {i} differs from '
+                               'the model lookup')
+  size = os.path.getsize(bundle)
+  del engine, answers
+  gc.collect()
+  torch.cuda.empty_cache()
+  log(f'[{tag}] serving bundle: {n_tables} tables, int8 payload and f32 '
+      f'scale members only ({size / 1e9:.3f} GB, '
+      f'{summary["stripped_state_leaves"]} optimizer members stripped), '
+      f'exported in {export_s:.2f} s; from_bundle (auto: int8) in '
+      f'{load_s:.2f} s; requests of {list(REQUEST_SIZES)} samples equal '
+      'the model lookup (bit-exact hotness 1, 1e-6 hotness 10), launches '
+      f'{json.dumps(launches)}')
+  return {'bytes': size, 'export_s': export_s, 'load_s': load_s,
+          'launches': launches}
 
 
 def run_quant_tiny(args):
@@ -4300,7 +4746,7 @@ def run_dlrm_int8(seed):
   # the library call would dequantize the whole table first: 89.5 GiB
   row = check_dequant_shape(table, routed.reshape(-1, 1), scale,
                             f'dlrm_int8_w128_h1_ncap{routed.shape[0]}',
-                            library=False)
+                            library=None)
   del table, routed, scale, logits
   step, state = dlrm_trainer(model)
   torch.cuda.reset_peak_memory_stats()
@@ -4508,7 +4954,8 @@ def wire_lookup_rows(dist, params, cats, tag):
     label = (f'{tag}_w{table.shape[1]}_h{ids.shape[1]}_n{ids.shape[0]}_'
              f'rows{table.shape[0]}')
     rows.append(check_kernel_shape(table, ids, label) if scale is None else
-                check_dequant_shape(table, ids, scale, label, library=False))
+                check_dequant_shape(table, ids, scale, label,
+                                    library='compact'))
   return rows
 
 
@@ -6014,7 +6461,7 @@ def main(argv=None) -> int:
           'False); this script runs on the GPU only', file=sys.stderr)
     return 1
   t_start = time.perf_counter()
-  phase_card()
+  card = phase_card()
   phase_build()
   k, seg, adam = run_tiny(args)
   gc.collect()
@@ -6034,11 +6481,19 @@ def main(argv=None) -> int:
   run_dlrm(args.seed, k, seg)
   gc.collect()
   torch.cuda.empty_cache()
-  resume_launches, resume_numbers = phase_dlrm_resume()
+  resume_launches, resume_numbers, serve_ckpt = phase_dlrm_resume()
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_resume'] = {run: n[name]
                                      for run, n in resume_launches.items()}
   seg['dlrm_resume'] = resume_numbers
+  gc.collect()
+  torch.cuda.empty_cache()
+  serve_launches, serve_rows, seg['dlrm_serve'] = phase_dlrm_serve(
+      serve_ckpt, card)
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_serve'] = {arm: n[name]
+                                    for arm, n in serve_launches.items()}
+  k['dlrm_serve'] = serve_rows
   gc.collect()
   torch.cuda.empty_cache()
   dlrm_hot_launches, dlrm_hot_numbers = phase_dlrm_hot()

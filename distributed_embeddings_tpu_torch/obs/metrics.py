@@ -1,21 +1,26 @@
 """Metrics registry: the port's own copy of the parts of
 ``distributed_embeddings_tpu/obs/metrics.py`` that the checkpoint files,
-the auditor, ``fit`` and the hot cache's exchange counters call (the
-serving and feed instruments come with ROADMAP.md item 14).
+the auditor, ``fit``, the hot cache's exchange counters, the cold tier
+and serving (the engine, the batcher and the replica pool) call (the
+feed's instruments come with ROADMAP.md item 15, devprof's with 14).
 
 Counters, gauges and fixed-bucket millisecond histograms under
 ``METRIC_TYPES`` (the JAX package's names), updated through ``inc`` /
 ``set_gauge`` / ``observe`` (one flag check while disabled, the
 default), read through ``snapshot()`` or journaled by
 ``journal_snapshot()`` (event ``metrics_snapshot``).  An unregistered
-name raises.
+name raises.  ``REGISTERED_STATS_KEYS`` names every key a component's
+``stats()`` emits.  The local primitives the components' ``stats()``
+are built on, ``OverlapStat`` (blocked-time overlap of a producer and
+its consumer) and ``LatencyWindow`` (exact latency percentiles over a
+bounded window), are always live.
 """
 
 from __future__ import annotations
 
 import threading
 
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,9 +53,56 @@ METRIC_TYPES: Dict[str, str] = {
     'coldtier.batches': 'counter',
     'coldtier.prepass_ms': 'histogram',
     'coldtier.blocked_ms': 'histogram',
+    # serving (serving/batcher.py, serving/engine.py)
+    'serve.submitted': 'counter',
+    'serve.completed': 'counter',
+    'serve.batches': 'counter',
+    'serve.batch_fill': 'gauge',
+    'serve.latency_ms': 'histogram',
+    # the batcher's pipelined stages
+    'serve.merge_ms': 'histogram',
+    'serve.demux_ms': 'histogram',
+    # the overload layer (serving/batcher.py, serving/pool.py)
+    'serve.latency_high_ms': 'histogram',
+    'serve.latency_low_ms': 'histogram',
+    'serve.shed': 'counter',
+    'serve.degraded': 'counter',
+    'serve.failover': 'counter',
+    'serve.failover_ms': 'histogram',
+    'serve.pool_depth': 'gauge',
+    'engine.lookups': 'counter',
+    'engine.samples': 'counter',
+    # rung padding: rows each launch paid for and the sentinel rows
+    'engine.rows_launched': 'counter',
+    'engine.pad_rows': 'counter',
+    'engine.lookup_ms': 'histogram',
 }
 
 REGISTERED_METRICS = frozenset(METRIC_TYPES)
+
+# Every string key a component's ``stats()`` emits (the JAX package's
+# names for the same components).
+REGISTERED_STATS_KEYS = frozenset({
+    # shared overlap accounting (ColdFetchPipeline, the batcher)
+    'batches', 'build_ms', 'blocked_ms', 'overlap_pct',
+    # DynamicBatcher (serving/batcher.py)
+    'submitted', 'completed', 'max_batch', 'max_delay_ms', 'batch_fill',
+    'p50_ms', 'p99_ms', 'bucket_ladder', 'buckets', 'bucket_launches',
+    'rows_launched', 'pad_rows', 'pad_waste_pct', 'pipeline',
+    'merge_demux_ms',
+    # admission classes and the replica pool (serving/batcher.py,
+    # serving/pool.py)
+    'p999_ms', 'classes', 'shed', 'admitted', 'served', 'depth',
+    'low_queue_depth', 'high', 'low', 'deadline', 'queue_full',
+    'closed', 'replicas', 'live_replicas', 'quarantined', 'failovers',
+    'queue_depth', 'degraded', 'degraded_served', 'degraded_enters',
+    'degraded_exits', 'degraded_drop_pct', 'watermark_high',
+    'watermark_low',
+    # ServingEngine (serving/engine.py)
+    'batches_served', 'samples_served', 'batch_size', 'world_size',
+    'hot_cache', 'cold_tier', 'table_dtype', 'fused_exchange',
+    'wire_dtype',
+})
 
 # ~x2-2.5 geometric ladder, 10 us .. 60 s
 DEFAULT_MS_BUCKETS: Tuple[float, ...] = (
@@ -116,6 +168,70 @@ class Histogram:
                     if c] + ([['+Inf', self.counts[-1]]]
                              if self.counts[-1] else []),
     }
+
+
+class OverlapStat:
+  """Blocked-time accounting of a producer and its consumer:
+  ``build_ms`` the producer's work on the batches handed out,
+  ``blocked_ms`` the consumer's wait for them (producer time NOT hidden
+  behind the consumer's own work); ``overlap_frac`` the hidden share."""
+
+  __slots__ = ('batches', 'build_ms', 'blocked_ms')
+
+  def __init__(self):
+    self.reset()
+
+  def reset(self):
+    self.batches = 0
+    self.build_ms = 0.0
+    self.blocked_ms = 0.0
+
+  def add_build(self, ms: float):
+    self.build_ms += ms
+
+  def add_blocked(self, ms: float):
+    self.blocked_ms += ms
+
+  def count_batch(self, n: int = 1):
+    self.batches += n
+
+  def overlap_frac(self) -> float:
+    """Hidden share in [0, 1]; 0.0 with no recorded build."""
+    if self.build_ms <= 0:
+      return 0.0
+    return min(1.0, max(0.0, 1.0 - self.blocked_ms / self.build_ms))
+
+
+class LatencyWindow:
+  """Bounded exact-latency recorder: keeps the most recent latencies
+  (past ``cap`` the oldest are trimmed down to ``keep``) and answers
+  percentiles with ``np.percentile`` over the window."""
+
+  __slots__ = ('cap', 'keep', '_values')
+
+  def __init__(self, cap: int = 65536, keep: int = 32768):
+    self.cap = int(cap)
+    self.keep = int(keep)
+    self._values: List[float] = []
+
+  def extend(self, values: Iterable[float]):
+    self._values.extend(values)
+    if len(self._values) > self.cap:
+      del self._values[:-self.keep]
+
+  def record(self, value: float):
+    self.extend((value,))
+
+  def __len__(self):
+    return len(self._values)
+
+  def values(self) -> np.ndarray:
+    return np.asarray(self._values, np.float64)
+
+  def percentile(self, p: float) -> Optional[float]:
+    if not self._values:
+      return None
+    return float(np.percentile(self.values(), p))
 
 
 _enabled = False

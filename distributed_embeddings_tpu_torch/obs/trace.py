@@ -1,14 +1,18 @@
 """Span tracer: named host phases -> Chrome-trace-event JSON.  The port's
 own copy of the parts of ``distributed_embeddings_tpu/obs/trace.py``
-that the checkpoint files, the auditor and ``fit`` call (the engine's
-spans, rotation and async spans come with ROADMAP.md item 14).
+that the checkpoint files, the auditor, ``fit``, the cold tier and
+serving call (rotation and the device lane come with ROADMAP.md item
+14).
 
-Call sites wrap a phase in ``with span('train/step'): ...`` or emit an
-interval they timed themselves with ``complete(name, start_s, dur_s)``
-(``start_s`` from ``now()``), so the trace and a histogram report the
-same measurement.  ``save()`` writes ``{"traceEvents": [...],
-"displayTimeUnit": "ms", "otherData": {...}}``, which Perfetto and
-``chrome://tracing`` open.
+Call sites wrap a phase in ``with span('train/step'): ...`` (or the
+``begin`` / ``end`` token pair) or emit an interval they timed
+themselves with ``complete(name, start_s, dur_s)`` (``start_s`` from
+``now()``), so the trace and a histogram report the same measurement.
+``async_span`` emits an interval no one thread owns (a serving
+request's queue residency, which overlaps its neighbours) as a
+``ph='b'`` / ``'e'`` pair keyed by an id.  ``save()`` writes
+``{"traceEvents": [...], "displayTimeUnit": "ms", "otherData": {...}}``,
+which Perfetto and ``chrome://tracing`` open.
 
 Disabled (the default) every entry point is one flag check returning a
 shared no-op object.  Runtime call sites use names from
@@ -34,11 +38,19 @@ REGISTERED_SPANS = frozenset({
     # host-DRAM cold tier (parallel/coldtier.py)
     'coldtier/fetch', 'coldtier/writeback', 'coldtier/prepass',
     'coldtier/wait',
+    # serving request path (serving/batcher.py, serving/engine.py): the
+    # batcher's merge, execute and demux stages, and the overload
+    # layer's sheds, degraded serves and failover retries
+    'serve/submit', 'serve/enqueue', 'serve/dispatch', 'serve/merge',
+    'serve/lookup', 'serve/execute', 'serve/demux',
+    'serve/shed', 'serve/degraded', 'serve/failover',
 })
 
-# 'wait' spans are host time blocked on the device
+# 'wait' spans are blocked time: on the device, or in a queue
 SPAN_CATEGORIES: Dict[str, str] = {'train/sync': 'wait',
-                                   'coldtier/wait': 'wait'}
+                                   'coldtier/wait': 'wait',
+                                   'serve/enqueue': 'wait',
+                                   'serve/shed': 'wait'}
 
 
 def span_category(name: str) -> str:
@@ -67,6 +79,10 @@ _t0 = 0.0
 _max_events = _DEFAULT_MAX_EVENTS
 _tids: Dict[Any, int] = {}
 _pid = os.getpid()
+
+
+def enabled() -> bool:
+  return _enabled
 
 
 def now() -> float:
@@ -140,8 +156,7 @@ class _Span:
     return self
 
   def __exit__(self, *exc):
-    complete(self.name, self.t0, time.perf_counter() - self.t0,
-             **(self.args or {}))
+    end(self)
     return False
 
 
@@ -151,6 +166,41 @@ def span(name: str, **args):
   if not _enabled:
     return _NOOP
   return _Span(name, args or None)
+
+
+def begin(name: str, **args):
+  """Token form of ``span``: returns None while disabled, and
+  ``end(None)`` is a no-op, so call sites never branch."""
+  if not _enabled:
+    return None
+  return _Span(name, args or None)
+
+
+def end(tok):
+  if tok is None:
+    return
+  complete(tok.name, tok.t0, time.perf_counter() - tok.t0,
+           **(tok.args or {}))
+
+
+def async_span(name: str, span_id, start_s: float, end_s: float, **args):
+  """Emit one interval no one thread owns as a ``ph='b'`` / ``'e'``
+  pair keyed by ``span_id`` (both ends on the tracer's clock)."""
+  global _dropped
+  if not _enabled:
+    return
+  base = {'name': name, 'cat': span_category(name), 'pid': _pid,
+          'id': str(span_id)}
+  b = dict(base, ph='b', ts=(start_s - _t0) * 1e6)
+  if args:
+    b['args'] = args
+  e = dict(base, ph='e', ts=(max(start_s, end_s) - _t0) * 1e6)
+  with _lock:
+    if len(_events) + 2 > _max_events:
+      _dropped += 2
+      return
+    b['tid'] = e['tid'] = _tid()
+    _events.extend((b, e))
 
 
 def complete(name: str, start_s: float, dur_s: float, **args):

@@ -685,26 +685,6 @@ def tier_stats(dist) -> dict:
   }
 
 
-class OverlapStat:
-  """Blocked-time accounting of a producer thread and its consumer (the
-  JAX package's ``obs.metrics.OverlapStat``): ``build_ms`` the
-  producer's work on the batches handed out, ``blocked_ms`` the
-  consumer's wait for them; ``overlap_frac`` the hidden share in [0,
-  1]."""
-
-  __slots__ = ('batches', 'build_ms', 'blocked_ms')
-
-  def __init__(self):
-    self.batches = 0
-    self.build_ms = 0.0
-    self.blocked_ms = 0.0
-
-  def overlap_frac(self) -> float:
-    if self.build_ms <= 0:
-      return 0.0
-    return min(1.0, max(0.0, 1.0 - self.blocked_ms / self.build_ms))
-
-
 class _Credits:
   """The pipeline's flow control: the worker may start the pre-pass of
   batch ``k`` only while ``k < consumed + depth``.  After ``stop`` a
@@ -773,7 +753,7 @@ class ColdFetchPipeline:
             'another, since both would all-gather on the layer\'s '
             'pre-pass group')
     self._q: queue.Queue = queue.Queue()
-    self._overlap = OverlapStat()
+    self._overlap = obs_metrics.OverlapStat()
     self._err_box: list = []
     self._credits = _Credits(max(1, int(depth)), collective)
     # the producer closes over the queue and the credits, never over the
@@ -854,7 +834,7 @@ class ColdFetchPipeline:
       pass  # interpreter teardown
 
   def reset_stats(self):
-    self._overlap = OverlapStat()
+    self._overlap = obs_metrics.OverlapStat()
 
   def stats(self) -> dict:
     ov = self._overlap

@@ -21,9 +21,14 @@ rank and are served with no exchange, ``hotcache.serving_hot_sets`` /
 memory, each lookup fetches its rows (each rung calibrates its own fetch
 capacity at its first launch, which ``warmup`` makes), the tier is
 frozen, so a write-back refuses, and with ``verify_tier_digests`` every
-fetched row is checked against its digest first.  ``from_bundle``,
-``hot_only_filter``, the batcher and the pool are ROADMAP.md Queue 1,
-item 13.
+fetched row is checked against its digest first.  ``from_bundle``
+builds an engine from a serving bundle (``serving/export.py``) with no
+model code; ``hot_only_filter`` masks the ids outside the serving hot
+sets for the replica pool's degraded mode.  Each ``lookup`` records one
+``'serve/lookup'`` span and the ``engine.*`` counters from one
+measurement.  ``lookup`` and ``lookup_padded`` return tensors on the
+serving device; the batcher (``serving/batcher.py``) brings a batch's
+answers to the host in one copy.
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    DistributedEmbedding, not_ported)
+    DistributedEmbedding)
 
 
 def _resolve_bundle_dtype(weights) -> Optional[str]:
@@ -75,10 +83,12 @@ class ServingEngine:
   """Lookup-only inference runtime over a frozen table set.
 
   Args:
-    table_configs: the model's ``TableConfig`` list.
+    table_configs: the model's ``TableConfig`` list (a bundle's own
+      through ``from_bundle``).
     weights: global canonical per-table ``[rows, width]`` arrays or
       tensors (a tensor already on the serving device is not copied
-      through the host).
+      through the host), or ``QuantizedWeight`` pairs (what
+      ``load_serving_bundle`` returns).
     batch_size: the LARGEST batch (the top rung); this rank's share
       of the serving world's batch.
     buckets: the rung ladder (default ``default_bucket_ladder``); every
@@ -107,6 +117,8 @@ class ServingEngine:
     verify_tier_digests: with a tier, arm its row digests, so every
       fetched row is verified (a damaged one raises
       ``coldtier.TierIntegrityError`` before it reaches the device).
+    bundle_meta: the bundle's ``meta`` (``from_bundle`` passes it), kept
+      as ``bundle_meta``.
   """
 
   def __init__(self, table_configs, weights, *, batch_size: int,
@@ -127,7 +139,8 @@ class ServingEngine:
                cold_fetch_rows=None,
                fused_exchange: bool = True,
                wire_dtype: Optional[str] = None,
-               verify_tier_digests: bool = True):
+               verify_tier_digests: bool = True,
+               bundle_meta: Optional[dict] = None):
     weights = list(weights)
     if table_dtype == 'auto':
       table_dtype = _resolve_bundle_dtype(weights)
@@ -190,6 +203,7 @@ class ServingEngine:
         self.dist.table_configs[tid].output_dim
         for tid in self.dist.plan.input_table_map
     ]
+    self.bundle_meta = bundle_meta
     self._warm = False
     self._lock = threading.Lock()
     self._batches_served = 0
@@ -199,15 +213,77 @@ class ServingEngine:
     self._rows_launched = 0
     self._pad_rows = 0
     self._bucket_launches = {b: 0 for b in self.buckets}
+    # the serving hot sets, kept for the degraded mode's hot-only filter;
+    # each table's membership mask is built at its first filtered request
+    self._hot_sets = dict(hot_sets) if hot_sets else {}
+    self._hot_members: dict = {}
 
   @classmethod
-  def from_bundle(cls, path: str, **kwargs) -> 'ServingEngine':
-    raise not_ported('ServingEngine.from_bundle (serving bundles)', 13)
-
-  def hot_only_filter(self, cats):
-    raise not_ported('ServingEngine.hot_only_filter (degraded mode)', 13)
+  def from_bundle(cls, path: str, *, table_configs=None, **kwargs
+                  ) -> 'ServingEngine':
+    """An engine from an exported bundle (``load_serving_bundle``: every
+    member verified).  ``table_configs`` overrides, or for a bundle
+    exported without configs supplies, the per-table meta."""
+    from distributed_embeddings_tpu_torch.serving.export import (
+        load_serving_bundle)
+    weights, meta = load_serving_bundle(path)
+    configs = table_configs if table_configs is not None \
+        else meta['table_configs']
+    if configs is None:
+      raise ValueError(
+          f'{path}: bundle carries no embedded table configs (exported '
+          'without table_configs): pass table_configs= explicitly.')
+    return cls(configs, weights, bundle_meta=meta, **kwargs)
 
   # ---------------------------------------------------------------- lookup
+
+  def hot_only_filter(self, cats):
+    """The degraded mode's filter (docs/design.md §23): every id OUTSIDE
+    the serving hot sets becomes the ``-1`` sentinel, so the request is
+    served from the replicated hot rows alone, at a counted accuracy
+    cost (a dropped id adds nothing to its sample, like a pad slot).
+    Returns ``(filtered, dropped, total)``: the per-input arrays and the
+    dropped and total valid-id counts.  Inputs whose table has no hot
+    set pass through unfiltered."""
+    out = []
+    dropped = 0
+    total = 0
+    for i, c in enumerate(cats):
+      c = np.asarray(c)
+      valid = c >= 0
+      n_valid = int(valid.sum())
+      total += n_valid
+      tid = int(self.dist.plan.input_table_map[i])
+      hs = self._hot_sets.get(tid)
+      if hs is None or n_valid == 0:
+        out.append(c)
+        continue
+      member = self._hot_members.get(tid)
+      if member is None:
+        rows = int(self.dist.table_configs[tid].input_dim)
+        member = np.zeros(rows, bool)
+        ids = np.asarray(getattr(hs, 'ids', hs), np.int64)
+        member[ids[(ids >= 0) & (ids < rows)]] = True
+        self._hot_members[tid] = member
+      keep = np.zeros(c.shape, bool)
+      idx = np.clip(c[valid].astype(np.int64), 0, member.size - 1)
+      keep[valid] = member[idx]
+      dropped += n_valid - int(keep.sum())
+      out.append(np.where(keep, c, -1).astype(c.dtype))
+    return out, dropped, total
+
+  @property
+  def hot_filter_available(self) -> bool:
+    """True when the engine has serving hot sets to degrade onto."""
+    return bool(self._hot_sets)
+
+  def load_kernels(self) -> 'ServingEngine':
+    """Load the lookup kernel's library on the calling thread (built
+    first where it is missing), so no serving thread builds it; an
+    engine on the CPU runs the plain versions and loads nothing."""
+    if self.dist.device.type == 'cuda':
+      lookup_ops._kernel()
+    return self
 
   def bucket_for(self, n: int) -> int:
     """The SMALLEST ladder rung holding ``n`` samples."""
@@ -277,17 +353,28 @@ class ServingEngine:
     real = b if samples is None else int(samples)
     if not 0 <= real <= b:
       raise ValueError(f'samples {real} outside [0, bucket {b}]')
-    padded = [self._pad_input(i, x, b) for i, x in enumerate(cats)]
-    if self.dist.mesh.product_size > 1:
-      block = mesh_lib.batch_sharding(self.dist.mesh, b)
-      padded = [x[block] for x in padded]
-    outs = self.dist.apply(self.params, padded)
+    # one measurement feeds both the span and the histogram
+    t0 = obs_trace.now()
+    try:
+      padded = [self._pad_input(i, x, b) for i, x in enumerate(cats)]
+      if self.dist.mesh.product_size > 1:
+        block = mesh_lib.batch_sharding(self.dist.mesh, b)
+        padded = [x[block] for x in padded]
+      outs = self.dist.apply(self.params, padded)
+    finally:
+      lookup_ms = (obs_trace.now() - t0) * 1000.0
+      obs_trace.complete('serve/lookup', t0, lookup_ms / 1000.0, batch=b)
     with self._lock:
       self._batches_served += 1
       self._samples_served += real
       self._rows_launched += b
       self._pad_rows += b - real
       self._bucket_launches[b] += 1
+    obs_metrics.inc('engine.lookups')
+    obs_metrics.inc('engine.samples', real)
+    obs_metrics.inc('engine.rows_launched', b)
+    obs_metrics.inc('engine.pad_rows', b - real)
+    obs_metrics.observe('engine.lookup_ms', lookup_ms)
     return list(outs)
 
   def lookup_padded(self, cats) -> List[torch.Tensor]:
@@ -355,4 +442,6 @@ class ServingEngine:
           'fused_exchange': bool(self.dist.fused_exchange),
           'wire_dtype': self.dist.wire_dtype,
           'cold_tier': self.dist.cold_tier is not None,
+          'table_dtype': (self.dist.quant.name
+                          if self.dist.quant else None),
       }

@@ -54,6 +54,11 @@ REGISTERED_EVENTS = frozenset({
     'audit_failure', 'tier_integrity_failure',
     # periodic registry snapshots (obs/metrics.py)
     'metrics_snapshot',
+    # serving's overload layer (serving/batcher.py, serving/pool.py):
+    # throttled sheds, the admission ledger at close, replica quarantine
+    # and failover, the degraded mode's crossings
+    'serve_shed', 'serve_admission', 'serve_replica_quarantined',
+    'serve_failover', 'serve_degraded_enter', 'serve_degraded_exit',
 })
 
 _lock = threading.Lock()

@@ -12,6 +12,8 @@ from distributed_embeddings_tpu.parallel import checkpoint as jax_ckpt
 from distributed_embeddings_tpu.parallel.dist_embedding import (
     DistributedEmbedding as JaxDistributedEmbedding)
 from distributed_embeddings_tpu.serving import engine as jax_engine
+from distributed_embeddings_tpu_torch import serving
+from distributed_embeddings_tpu_torch.examples.dlrm import serve
 from distributed_embeddings_tpu_torch.models import synthetic
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 from distributed_embeddings_tpu_torch.serving import engine
@@ -131,14 +133,18 @@ def test_explicit_buckets():
     engine.ServingEngine(t, w, batch_size=16, buckets=(20,), device='cpu')
 
 
-def test_unported_serving_refuses():
+def test_unported_serving_refuses(tmp_path):
   t = [TableConfig(10, 8, combiner='sum')]
   w = [np.zeros((10, 8), np.float32)]
   e = engine.ServingEngine(t, w, batch_size=8, device='cpu')
-  with pytest.raises(NotImplementedError, match='item 13\\)'):
-    engine.ServingEngine.from_bundle('bundle', batch_size=8)
-  with pytest.raises(NotImplementedError, match='item 13\\)'):
-    e.hot_only_filter([np.zeros(2, np.int32)])
+  # from_bundle and hot_only_filter are served since item 13
+  # (tests/test_torch_serving_bundle.py); the batcher's SparseCore feed
+  # is item 15 and the example's trace item 14
+  with pytest.raises(NotImplementedError, match='item 15\\)'):
+    serving.DynamicBatcher(e, csr_feed=True)
+  with pytest.raises(NotImplementedError, match='item 14\\)'):
+    serve.main(['--checkpoint', str(tmp_path / 'ckpt.npz'), '--trace',
+                str(tmp_path / 'trace.json')])
   # hot_sets are served since item 7 (tests/test_torch_hotcache_ckpt.py)
   # quantized tables are served since item 9a, the wire codec since 9b
   assert engine.ServingEngine(t, w, batch_size=8, device='cpu',
