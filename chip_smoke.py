@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--trace forward_trace.json]
+    python3 chip_smoke.py [--seed 0]
 
 Phases, each of which exits non-zero on failure:
 
@@ -16,7 +16,8 @@ Phases, each of which exits non-zero on failure:
 5. forward: a few forwards at the global batch; every subgroup's lookup
             ran through the kernel; logits finite and equal to an
             independent plain reference on a slice of the batch; one
-            more forward under torch.profiler (device time by kernel).
+            more forward profiled (profile_once: its synced host wall
+            and its device time on devprof's clock).
 6. serving: a ServingEngine over the model's tables answers requests of
             1, 5, 64 and 4096 samples, each equal to the model's own
             lookup on the same ids.
@@ -37,9 +38,15 @@ Phases, each of which exits non-zero on failure:
             then each stream's three ops timed again in two orders (sgd
             first, and rotated), each order after one untimed warm-up
             apply.
-9. profile: one training step under torch.profiler: device busy share
-            and device time by kernel; one more step under torch's sync
-            debug mode: its host syncs by source line.
+9. profile: training steps profiled (profile_once: the least synced
+            host wall of 3 steps after a warm-up, and the device time a
+            step over 3 more steps queued while the device spins,
+            devprof.device_clock_ms;
+            the busy share is that over the wall when the steps were
+            queued ahead, and a step that waits on the device inside is
+            printed as CUDA events with the host's gaps, never as a busy
+            share; torch.profiler is not used); one more step under
+            torch's sync debug mode: its host syncs by source line.
 9b. tiny-adam: on the same tables, lazy Adam (SparseAdam(0.001), the
             segment walk's 'adam' op; Adagrad on the MLP): one warm-up
             and 3 timed steps, every loss finite; a sample of 1 M rows
@@ -92,7 +99,7 @@ Phases, each of which exits non-zero on failure:
             the canonical tables after them within rtol 2e-4 / atol 2e-6
             and the accumulators within 5e-3 / 5e-4 (the JAX hot-vs-off
             bounds), the host syncs of one step each way and one cached
-            step under torch.profiler; on one more captured cached step,
+            step profiled (profile_once); on one more captured cached step,
             each kernel against its plain version (the cold gathers and
             hot partials: lookup, exact at hotness 1, 1e-6 at 10; the hot
             and cold segment sums: 'add' into a zero-fill, bit-exact; the
@@ -233,6 +240,23 @@ Phases, each of which exits non-zero on failure:
             and tail rows; equal to what the step wrote), timed beside
             the bound; 5 steps through ColdFetchPipeline (its
             overlap_pct); peak device memory.
+9k. obs-tiny: the observability layer (obs/) on the tiny model phase 9
+            built (f32, dp_input, no cache, no tier), drawn anew from the
+            seed before each run: 5 sparse steps through grad.fit
+            (phase 7's optimizers) untraced, then the same traced
+            (obs.enable(trace_path=)): the launches (4 lookups and 2
+            applies a step) equal and the losses bit-equal; the trace
+            through the port's trace_report --strict --require train/step,
+            train/sync and the step's four phase spans (fwd/exchange,
+            fwd/lookup_combine, bwd/exchange, apply/update), its report
+            printed; devprof.profile_step on the forward's batch (the
+            default SparseSGD on a private copy of the tables): every
+            phase at least 0, its device lane through the report with
+            every STEP_PHASES name required and device_ms above 0, each
+            phase on the synced wall and on the device clock with each
+            program's clock, the coverage, the embedding step beside
+            phase 9's step and its host syncs; obs.measure_overhead at
+            phase 9's median step.
 10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -252,8 +276,8 @@ Phases, each of which exits non-zero on failure:
             untouched rows unchanged; kernel, plain and
             Tensor.index_add_ timed on the real table at lr 0 (which
             leaves it as it is, checked).
-13. dlrm profile: one step under torch.profiler, one under sync debug
-            mode, as in phase 9.
+13. dlrm profile: one step profiled, one under sync debug mode, as in
+            phase 9.
 13b. dlrm-resume: the DLRM freed, examples/dlrm/main.py in process at
             the MLPerf widths, bf16, sparse trainer, dummy data; one cut:
             the vocabularies of gen_data.py's onechip preset (every
@@ -262,7 +286,8 @@ Phases, each of which exits non-zero on failure:
             --save_state; B: 3 steps and --save_state, then --load_state
             and 3 more and --save_state.  The two files' manifests list
             the same sha256 for every array; verify_checkpoint passes on
-            both and rejects a copy with one byte flipped; --resume_dir
+            the second (13h's export verifies the first) and rejects it
+            with one byte flipped; --resume_dir
             with a truncated newest file falls back to the step-3 file,
             quarantines the bad one and ends equal to A.  Each run's steps
             launch one lookup and one apply each.  Save and restore
@@ -291,7 +316,19 @@ Phases, each of which exits non-zero on failure:
             samples equal to a plain gather of the bundle's arrays; the
             bundle with one byte flipped refuses to load; the three-arm
             and serve_over_* blocks printed with the card's name and
-            power limit; the files deleted.
+            power limit; the files deleted.  serve.py runs with --trace:
+            the trace passes the port's trace_report --strict --require
+            with the request path's spans (submit, enqueue, dispatch,
+            lookup, execute, demux) and fwd/lookup_combine; from it, a
+            lone request's split (the no-batching arm's serve/lookup and
+            its forward's phase spans, a mean a request, beside the
+            arm's p50) and, for the monolithic and the ladder+pipeline
+            arms, the union of each stage's spans and its share of the
+            arm's wall (serve/enqueue: queue residency).
+            devprof.profile_serving of the bundle's engine and of
+            serve.py's (hot sets): one dev/serve/execute event a rung
+            (128, 256, 512, 1024), the trace through the report, no
+            segment walk; rung 128's device time on devprof's clock.
 13c. dlrm-hot: examples/dlrm/main.py --dp_input --hot_cache
             --param_dtype bfloat16 in process at phase 13b's onechip
             vocabularies (the same one cut), hot sets calibrated on the
@@ -393,7 +430,7 @@ Phases, each of which exits non-zero on failure:
             backward apply a step), and the lookup kernel against its
             plain version on this table.
 16. dense profile: right after each of phases 14 and 15, one dense step
-            under torch.profiler and one under sync debug mode, as in
+            profiled and one under sync debug mode, as in
             phase 9.
 17. small:  the dense models freed, synthetic Small V3 at full size
             (107 tables, 220,630,300 rows at widths 16 and 32, hotness 1
@@ -487,7 +524,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
-from distributed_embeddings_tpu_torch import optim, serving
+from distributed_embeddings_tpu_torch import obs, optim, serving
 from distributed_embeddings_tpu_torch.examples.benchmarks import (
     lookup_benchmark)
 from distributed_embeddings_tpu_torch.examples.dlrm import gen_data
@@ -496,7 +533,9 @@ from distributed_embeddings_tpu_torch.examples.dlrm import serve as dlrm_serve
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
     SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
+from distributed_embeddings_tpu_torch.obs import devprof
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.ops import lookup, segwalk
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import (audit, callbacks,
@@ -510,6 +549,7 @@ from distributed_embeddings_tpu_torch.serving import batcher as serve_batcher
 from distributed_embeddings_tpu_torch.serving import bench as serve_bench
 from distributed_embeddings_tpu_torch.serving import pool as serve_pool
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
+from distributed_embeddings_tpu_torch.tools import trace_report
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import (data, fastloader,
                                                     nativebuild)
@@ -652,10 +692,25 @@ SERVE_ARGV = ['--batch', '1024', '--serve_buckets', '128,256,512,1024',
               '--overload_qps', '0', '--replicas', '2', '--deadline_ms',
               '50', '--priority_mix', '0.5']
 SERVE_CHECK_SAMPLES = 512  # phase 13h: from_bundle answers held
+PROFILE_REPS = 3  # profile_once's and devprof's calls on the device clock
+OBS_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_obs'
+OBS_STEPS = 5  # phase 9k's fit steps, untraced and traced
+OBS_REQUIRE = ('train/step,train/sync,fwd/exchange,fwd/lookup_combine,'
+               'bwd/exchange,apply/update')
+SERVE_REQUIRE = ('serve/submit,serve/enqueue,serve/dispatch,serve/lookup,'
+                 'serve/execute,serve/demux,fwd/lookup_combine')
+
+
+T_START = time.perf_counter()  # main() sets it when the run starts
 
 
 def log(*args):
   print(*args, flush=True)
+
+
+def elapsed(phase):
+  """One line: the seconds since the run started, after ``phase``."""
+  log(f'[elapsed] {time.perf_counter() - T_START:.1f} s after {phase}')
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -983,38 +1038,40 @@ def phase_forward(model, numerical, cats, n_forwards=3, n_check=512,
   return weights, launches
 
 
-def profile_once(fn, tag, what, trace=None, top=10):
-  """Where one call of ``fn`` spends its time: device time by kernel and
-  the device's busy share of the call's wall time (torch.profiler)."""
-  from torch.profiler import ProfilerActivity, profile
+def profile_once(fn, tag, what, reps=PROFILE_REPS):
+  """Where a call of ``fn`` spends its time, on devprof's two clocks: the
+  least synced host wall of ``reps`` calls after a warm-up call, and the
+  device time a call over ``reps`` more calls queued while the device
+  spins (``devprof.device_clock_ms``).  The busy share is that device
+  time over the wall when the calls were queued ahead; a call that waits
+  on the device inside cannot be, and its time is then CUDA events with
+  the host's gaps, printed as such and never as a busy share.  Returns
+  ``{'wall_ms', 'device_ms', 'clock'}``."""
+  fn()
   torch.cuda.synchronize()
-  with profile(
-      activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  wall_ms = float('inf')
+  for _ in range(reps):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-  if trace:
-    prof.export_chrome_trace(trace)
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-  if not kernels:
-    log(f'[{tag}] the profiler recorded no device time: not measured')
-    return
-  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-  log(f'[{tag}] {what}: wall {wall_ms:.3f} ms (host clock, under the '
-      f'profiler); device busy {busy_ms:.3f} ms = '
-      f'{100 * busy_ms / wall_ms:.1f} % of it')
-  for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                  reverse=True)[:top]:
-    log(f'[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms '
-        f'x{e.count:<4d} {e.key[:90]}')
+    wall_ms = min(wall_ms, (time.perf_counter() - t0) * 1e3)
+  dev_ms, clock = devprof.device_clock_ms(fn, reps, torch.device('cuda'),
+                                          wall_ms)
+  head = (f'[{tag}] {what}: wall {wall_ms:.3f} ms (host clock, synced, '
+          f'least of {reps}); ')
+  if clock == 'queued':
+    log(head + f'device busy {dev_ms:.3f} ms a call (CUDA events, {reps} '
+        f'calls queued ahead) = {100 * dev_ms / wall_ms:.1f} % of it')
+  else:
+    log(head + f'{dev_ms:.3f} ms a call on CUDA events with the host\'s '
+        'gaps (the call waits on the device inside, so it cannot be '
+        'queued ahead): not a busy share')
+  return {'wall_ms': wall_ms, 'device_ms': dev_ms, 'clock': clock}
 
 
-def phase_profile(model, numerical, cats, trace=None):
+def phase_profile(model, numerical, cats):
   with torch.no_grad():
-    profile_once(lambda: model(numerical, cats), 'profile', 'one forward',
-                 trace)
+    profile_once(lambda: model(numerical, cats), 'profile', 'one forward')
 
 
 def phase_serving(model, weights, cats, rng, table_dtype='auto',
@@ -1141,7 +1198,7 @@ def phase_train(model, config, seed):
   log(f'[train] state: tables {model.total_table_gib():.3f} GiB + '
       f'Adagrad accumulators; device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB')
-  state, launches, _, _ = timed_steps(
+  state, launches, times, _ = timed_steps(
       'train', step, state, batches,
       {'segwalk_apply': TRAIN_STEPS * n_groups,
        'lookup_combine': TRAIN_STEPS * n_subs})
@@ -1149,7 +1206,7 @@ def phase_train(model, config, seed):
                                         *batches[TRAIN_STEPS + 1])
   if not bool(torch.isfinite(loss)):
     raise AssertionError(f'capture step loss {float(loss)} not finite')
-  return step, state, calls, batches[-1], launches
+  return step, state, calls, batches[-1], launches, times
 
 
 def segwalk_bound(segs, grads, table, acc, op):
@@ -1315,15 +1372,18 @@ def host_syncs(fn):
 
 
 def phase_train_profile(step, state, batch, tag='profile-train'):
+  """``profile_once`` of a training step, then the host syncs of one more
+  step; returns the profile with ``host_syncs``."""
   losses = []
-  profile_once(lambda: losses.append(step(state, *batch)[1]),
-               tag, 'one training step', top=20)
+  prof = profile_once(lambda: losses.append(step(state, *batch)[1]),
+                      tag, 'one training step')
   syncs = host_syncs(lambda: losses.append(step(state, *batch)[1]))
   if not all(bool(torch.isfinite(x)) for x in losses):
     raise AssertionError('profiled step loss not finite')
   log(f'[{tag}] host syncs in one more step (sync debug mode): '
       f'{sum(syncs.values())}, by line '
       f'{json.dumps(dict(syncs.most_common()))}')
+  return dict(prof, host_syncs=sum(syncs.values()))
 
 
 def dlrm_batches(model, seed, n):
@@ -1896,7 +1956,7 @@ def phase_dense(tag, step, state, batches, per_step):
   # phase 16: the profile and the host syncs of one more step each
   losses = []
   profile_once(lambda: losses.append(step(state, *batches[-1])[1]),
-               'dense-profile', f'{tag}: one dense step', top=20)
+               'dense-profile', f'{tag}: one dense step')
   syncs = host_syncs(lambda: losses.append(step(state, *batches[-1])[1]))
   if not all(bool(torch.isfinite(x)) for x in losses):
     raise AssertionError(f'{tag}: profiled step loss not finite')
@@ -2348,7 +2408,8 @@ def phase_dlrm_resume():
                '--save_state', str(a))
   man_a = checkpoint.read_manifest(str(a))
   file_bytes = os.path.getsize(a)
-  verify_s = [verify(a, 0)]
+  # verify_checkpoint passes b below, whose arrays are a's; 13h's export
+  # verifies a itself
   SERVE_DIR.mkdir(parents=True, exist_ok=True)
   serve_ckpt = SERVE_DIR / 'ckpt_6.npz'
   os.replace(a, serve_ckpt)
@@ -2360,16 +2421,15 @@ def phase_dlrm_resume():
     bad = [k for k in man_a['arrays']
            if man_a['arrays'][k] != man_b['arrays'].get(k)]
     raise AssertionError(f'dlrm-resume: b.npz differs from a.npz in {bad}')
-  verify_s.append(verify(b, 0))
-  flipped = root / 'flipped.npz'
-  shutil.copyfile(b, flipped)
-  with open(flipped, 'r+b') as f:
+  verify_s = [verify(b, 0)]
+  # one byte flipped in place (a copy of the 6.7 GB file cost seconds of
+  # disk): b's first MiB, all that is read of it below, stays intact
+  with open(b, 'r+b') as f:
     f.seek(file_bytes // 2)
     byte = f.read(1)
     f.seek(file_bytes // 2)
     f.write(bytes([byte[0] ^ 0x10]))
-  verify(flipped, 1)
-  os.remove(flipped)
+  verify(b, 1)
   # --resume_dir: the step-3 file and a newer, truncated one
   resume = root / 'resume'
   resume.mkdir()
@@ -2403,10 +2463,86 @@ def phase_dlrm_resume():
   log(f'[dlrm-resume] {len(sizes)} tables, {sum(sizes):,} rows x 128 '
       f'(onechip cut), files of {file_bytes / 1e9:.3f} GB: the resumed '
       'file equals the uninterrupted one array by array (sha256); '
-      'verify_checkpoint passed both and rejected the flipped copy; '
+      'verify_checkpoint passed b.npz and rejected it with a byte flipped; '
       '--resume_dir quarantined the truncated file and resumed at step 3')
   log('[dlrm-resume] ' + json.dumps(numbers))
   return launches, numbers, serve_ckpt
+
+
+def trace_ts():
+  """The tracer's clock now, as a timestamp (us) of the armed trace (its
+  base is the tracer's own, ``obs.trace._t0``)."""
+  return (obs_trace.now() - obs_trace._t0) * 1e6
+
+
+SERVE_STAGES = ('serve/submit', 'serve/enqueue', 'serve/dispatch',
+                'serve/merge', 'serve/execute', 'serve/lookup',
+                'serve/demux', 'fwd/exchange', 'fwd/lookup_combine')
+
+
+def serve_split(path, n_lone, windows):
+  """Phase 13h's attribution from serve.py's trace: the lone requests
+  (the last ``n_lone`` serve/lookup spans before the monolithic batcher
+  started: the no-batching arm), the mean of their spans a request; and
+  for the monolithic and the ladder+pipeline arms (``windows``: each
+  batcher's start and close, trace us) the union of each stage's spans
+  in the window."""
+  rows = trace_report._durations(trace_report.load_trace(str(path)))
+  t_mono = windows['mono'][0]
+  lone = sorted((r for r in rows if r['name'] == 'serve/lookup'
+                 and r['ts'] + r['dur'] <= t_mono),
+                key=lambda r: r['ts'])[-n_lone:]
+  lo = lone[0]['ts']
+  out = {'lone': {'requests': len(lone)}}
+  for name in ('serve/lookup', 'fwd/exchange', 'fwd/lookup_combine'):
+    out['lone'][name] = sum(
+        r['dur'] for r in rows if r['name'] == name and lo <= r['ts']
+        and r['ts'] + r['dur'] <= t_mono) / 1e3 / len(lone)
+  out['lone']['lookup_untraced'] = out['lone']['serve/lookup'] - (
+      out['lone']['fwd/exchange'] + out['lone']['fwd/lookup_combine'])
+  for arm, (a, b) in windows.items():
+    inside = [r for r in rows if a <= r['ts'] and r['ts'] + r['dur'] <= b]
+    enq = [r['dur'] for r in inside if r['name'] == 'serve/enqueue']
+    out[arm] = {
+        'wall_ms': (b - a) / 1e3,
+        'union_ms': {n: trace_report.union_ms(
+            [r for r in inside if r['name'] == n])
+                     for n in SERVE_STAGES},
+        'enqueue_ms_mean': statistics.mean(enq) / 1e3 if enq else None}
+  return out
+
+
+def rung_profile(tag, name, engine):
+  """``devprof.profile_serving`` of ``engine``, traced: one
+  dev/serve/execute event a rung, its rung in the args, the trace
+  through the report, no segment walk; then rung 128's device time on
+  devprof's clock over the same call."""
+  obs.enable(trace_path=str(OBS_DIR / f'rungs_{name}.json'))
+  reset_launches()
+  walls = devprof.profile_serving(engine, reps=PROFILE_REPS)
+  launched = read_launches()
+  path = obs_trace.save()
+  obs.reset()
+  got = sorted(e['args']['rung'] for e in trace_report.load_trace(path)
+               if e.get('name') == 'dev/serve/execute')
+  if got != sorted(engine.buckets) or launched['segwalk_apply']:
+    raise AssertionError(f'{tag}: profile_serving of {name}: rungs {got} '
+                         f'for {engine.buckets}, launches {launched}')
+  report_gate(tag, path, 'dev/serve/execute')
+  os.remove(path)
+  rng = np.random.default_rng(0)
+  cats = [rng.integers(0, engine.dist.table_configs[t].input_dim,
+                       size=(128,)).astype(np.int32)
+          for t in engine.dist.plan.input_table_map]
+  with torch.no_grad():
+    dev_ms, clock = devprof.device_clock_ms(
+        lambda: engine.dist.apply(engine.params, cats), PROFILE_REPS,
+        engine.dist.device, walls[128])
+  log(f'[{tag}] profile_serving ({name}): synced wall ms by rung '
+      f'{json.dumps(walls)}; launches {json.dumps(launched)}')
+  return {'rung_ms': walls, 'launches': launched,
+          'rung128': {'wall_ms': walls[128], 'device_ms': dev_ms,
+                      'clock': clock}}
 
 
 def serve_answers(tag, subs, engine):
@@ -2462,6 +2598,7 @@ def phase_dlrm_serve(ckpt, card):
     orig['init'](self, engine, *args, **kwargs)
     self.chip_marks = [marks(engine)]
     self.chip_subs = []
+    self.chip_window = [trace_ts()]
     batchers.append(self)
 
   def submit(self, cats, *args, **kwargs):
@@ -2472,6 +2609,7 @@ def phase_dlrm_serve(ckpt, card):
   def close(self):
     orig['close'](self)
     self.chip_marks.append(marks(self.engine))
+    self.chip_window.append(trace_ts())
 
   def req_init(self, *args, **kwargs):
     orig['req'](self, *args, **kwargs)
@@ -2483,10 +2621,13 @@ def phase_dlrm_serve(ckpt, card):
   serve_batcher.DynamicBatcher.close = close
   serve_pool._PoolReq.__init__ = req_init
   reset_launches()
+  OBS_DIR.mkdir(parents=True, exist_ok=True)
+  serve_trace = OBS_DIR / 'serve.json'
   t0 = time.perf_counter()
   try:
     stats = dlrm_serve.main(['--checkpoint', str(ckpt), '--bundle',
-                             str(bundle), '--device', 'cuda', *SERVE_ARGV])
+                             str(bundle), '--device', 'cuda', *SERVE_ARGV,
+                             '--trace', str(serve_trace)])
   finally:
     serving.load_serving_bundle = orig['load']
     serve_batcher.DynamicBatcher.__init__ = orig['init']
@@ -2528,6 +2669,11 @@ def phase_dlrm_serve(ckpt, card):
   answered = {'mono': serve_answers(f'{tag} mono', mono.chip_subs, engine),
               'ladder': serve_answers(f'{tag} ladder', ladder.chip_subs,
                                       engine)}
+  report_gate(tag, serve_trace, SERVE_REQUIRE)
+  split = serve_split(serve_trace, lookups['nobatch'],
+                      {'mono': mono.chip_window,
+                       'ladder': ladder.chip_window})
+  serve_trace.unlink()
   # the overload arm: every future resolved, served or shed; the retried
   # ones (failed over from the quarantined replica 0) and the degraded
   # ones against lookup_padded on the survivor
@@ -2648,6 +2794,12 @@ def phase_dlrm_serve(ckpt, card):
     if not np.array_equal(g.cpu().numpy(), w[ids]):
       raise AssertionError(f'{tag}: from_bundle input {i} differs from a '
                            'plain gather of the bundle')
+  # the execute phase at each rung (devprof.profile_serving): the bundle's
+  # engine, and serve.py's with its hot sets, whose path the lone
+  # requests took
+  rungs = {}
+  for name, eng in (('from_bundle', bare), ('serve_hot', engine)):
+    rungs[name] = rung_profile(tag, name, eng)
   del bare, got, weights, loaded
   gc.collect()
   torch.cuda.empty_cache()
@@ -2667,6 +2819,7 @@ def phase_dlrm_serve(ckpt, card):
     raise AssertionError(f'{tag}: the flipped bundle loaded')
   refuse_s = time.perf_counter() - t1
   shutil.rmtree(SERVE_DIR)
+  shutil.rmtree(OBS_DIR, ignore_errors=True)
   numbers = {
       'run_s': run_s, 'from_bundle_s': from_bundle_s, 'refuse_s': refuse_s,
       'bundle_bytes': size, 'lookups': lookups, 'per_lookup': per_lookup,
@@ -2675,7 +2828,7 @@ def phase_dlrm_serve(ckpt, card):
       'degraded': degraded,
       'hot_only_dropped': dropped, 'hot_only_total': total,
       'replica_engines': len(pool_engines),
-      'attribution': attribution,
+      'attribution': attribution, 'split': split, 'rungs': rungs,
       'failover_drill': {k: drill_stats[k] for k in (
           'failovers', 'quarantined', 'completed', 'p50_ms', 'p99_ms')},
       'stats': stats,
@@ -2707,6 +2860,27 @@ def phase_dlrm_serve(ckpt, card):
       f'{SERVE_CHECK_SAMPLES} sampled answers equal a plain gather of the '
       f'bundle, launches {json.dumps(bare_launches)}; the bundle with one '
       f'byte flipped refused in {refuse_s:.2f} s')
+  lone = split['lone']
+  log(f'[{tag}] card {card}; a lone request (no batching, rung 128, '
+      f'{lone["requests"]} requests): p50 {stats["serve_nobatch_p50_ms"]} '
+      f'ms, of it a mean {lone["serve/lookup"]:.4f} ms in serve/lookup '
+      f'(fwd/exchange {lone["fwd/exchange"]:.4f}, fwd/lookup_combine '
+      f'{lone["fwd/lookup_combine"]:.4f}, the rest of the lookup '
+      f'{lone["lookup_untraced"]:.4f}); rung 128 dist.apply on random ids: '
+      f'{rungs["serve_hot"]["rung128"]["wall_ms"]:.4f} ms synced wall, '
+      f'{rungs["serve_hot"]["rung128"]["device_ms"]:.4f} ms device clock '
+      f'({rungs["serve_hot"]["rung128"]["clock"]}) with the hot sets; '
+      f'{rungs["from_bundle"]["rung128"]["wall_ms"]:.4f} / '
+      f'{rungs["from_bundle"]["rung128"]["device_ms"]:.4f} ms '
+      f'({rungs["from_bundle"]["rung128"]["clock"]}) without; the rung\'s '
+      f'kernels {rows["128"]["kernel_ms"]:.4f} ms (queued CUDA events)')
+  for arm in ('mono', 'ladder'):
+    a = split[arm]
+    log(f'[{tag}] {arm} arm, {a["wall_ms"]:.1f} ms wall: union ms (share '
+        'of the wall) ' + ', '.join(
+            f'{n} {v:.1f} ({100 * v / a["wall_ms"]:.1f} %)'
+            for n, v in a['union_ms'].items())
+        + f'; serve/enqueue a request {a["enqueue_ms_mean"]:.3f} ms mean')
   log(f'[{tag}] ' + json.dumps(numbers))
   return launches, rows, numbers
 
@@ -3564,8 +3738,8 @@ class _Tee:
     self._out.flush()
 
 
-def run_tiny(args):
-  """Phases 3-9 on the synthetic tiny model; returns the two kernels'
+def run_tiny(args, card):
+  """Phases 3-9k on the synthetic tiny model; returns the two kernels'
   summaries.  Everything the model holds on the card is freed on
   return."""
   config = SYNTHETIC_MODELS[MODEL]
@@ -3584,24 +3758,34 @@ def run_tiny(args):
 
   rows, bf16_row = phase_kernels(model, numerical, cats)
   weights, forward_launches = phase_forward(model, numerical, cats)
-  phase_profile(model, numerical, cats, args.trace)
+  phase_profile(model, numerical, cats)
   serve_launches = phase_serving(model, weights, cats, rng)
   del weights
-  step, state, calls, profile_batch, train_launches = phase_train(
+  elapsed('phases 3-6')
+  step, state, calls, profile_batch, train_launches, train_ms = phase_train(
       model, config, args.seed)
   seg_rows, seg_bf16 = phase_segwalk(calls)
   del calls
   torch.cuda.empty_cache()
-  phase_train_profile(step, state, profile_batch)
+  train_profile = phase_train_profile(step, state, profile_batch)
   del step, state
   torch.cuda.empty_cache()
+  elapsed('phases 7-9')
   adam_launches, adam_rows, adam_times = phase_tiny_adam(model, config,
                                                          args.seed)
+  elapsed('phase 9b')
   fit_launches, fit_numbers = phase_fit_tiny(model, config, args.seed)
+  elapsed('phase 9c')
   ragged_numbers = phase_ragged_tiny(model, config, args.seed)
+  elapsed('phase 9d')
   hot_numbers, hot_rows = phase_hot_tiny(model, config, args.seed)
+  elapsed('phase 9e')
   chunked_numbers, chunked_rows = phase_chunked_tiny(model, config, args.seed,
                                                      numerical, cats)
+  elapsed('phase 9f')
+  obs_numbers = phase_obs_tiny(model, config, args.seed, cats, card,
+                               dict(train_profile, step_ms=train_ms))
+  elapsed('phase 9k')
 
   k = dict(KERNELS[0])
   k.update({
@@ -3674,7 +3858,141 @@ def run_tiny(args):
   chunked_summary(k, seg, 'chunked_tiny', chunked_numbers, chunked_rows, {
       'forward': 'forward_launches', 'sparse': 'sparse', 'hot': 'hot',
       'dense': 'dense'})
+  # phase 9k: the traced steps' launches
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_obs_tiny'] = {
+        arm: n[name] for arm, n in obs_numbers['launches'].items()}
+  seg['obs_tiny'] = obs_numbers
   return k, seg, adam
+
+
+def report_gate(tag, path, require):
+  """The port's trace_report on ``path`` with ``--strict --require``
+  (its report printed); a non-zero exit fails the phase.  Returns the
+  analysis."""
+  rc = trace_report.main([str(path), '--strict', '--require', require])
+  if rc != 0:
+    raise AssertionError(f'{tag}: trace_report --strict --require exited '
+                         f'{rc} on {path}')
+  return trace_report.report(trace_report.load_trace(str(path)))
+
+
+# which programs each step phase is made from (obs/devprof.py)
+PHASE_PROGRAMS = {'dev/fwd/exchange': ('exf',),
+                  'dev/fwd/lookup_combine': ('fwd', 'exf'),
+                  'dev/bwd/exchange': ('exb',),
+                  'dev/bwd/grad': ('fwdbwd', 'fwd', 'exb'),
+                  'dev/apply/update': ('apply',)}
+
+
+def phase_obs_tiny(model, config, seed, cats, card, train_ref):
+  """Phase 9k: the obs layer on the tiny model phase 9 built (f32,
+  dp_input, no cache, no tier).  ``train_ref``: phase 9's profile of a
+  step (its host syncs) and its timed steps."""
+  tag = 'obs-tiny'
+  dist = model.dist_embedding
+  n_subs = len(dist._subgroups(tuple(model.hotness)))
+  want = {'lookup_combine': n_subs * OBS_STEPS,
+          'segwalk_apply': len(dist.plan.groups) * OBS_STEPS}
+  batches = train_batches(config, model.hotness, seed + 11, OBS_STEPS)
+  shutil.rmtree(OBS_DIR, ignore_errors=True)
+  OBS_DIR.mkdir(parents=True)
+  train_path = OBS_DIR / 'train.json'
+  runs = {}
+  for traced in (False, True):
+    model.embedding_params = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.init(seed)
+    step, state = build_trainer(model)
+    times = []
+
+    def timed(state, *args, step=step, times=times):
+      t0 = time.perf_counter()
+      out = step(state, *args)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - t0) * 1e3)
+      return out
+
+    if traced:
+      obs.enable(trace_path=str(train_path))
+    reset_launches()
+    state, hist = grad.fit(timed, state, iter(batches), steps=OBS_STEPS,
+                           log_every=1, verbose=False, dist=dist)
+    torch.cuda.synchronize()
+    runs[traced] = {'loss': hist['loss'], 'launches': read_launches(),
+                    'step_ms': times}
+    if traced:
+      obs_trace.save()
+      obs.reset()
+    del step, state
+  for traced, run in runs.items():
+    if run['launches'] != want:
+      raise AssertionError(f'{tag}: {"traced" if traced else "untraced"} '
+                           f'steps launched {run["launches"]}, expected '
+                           f'{want}')
+  if runs[True]['loss'] != runs[False]['loss']:
+    raise AssertionError(f'{tag}: traced losses {runs[True]["loss"]} differ '
+                         f'from untraced {runs[False]["loss"]}')
+  log(f'[{tag}] card {card}; {OBS_STEPS} sparse steps through fit, untraced '
+      f'then traced from the same draw: launches {json.dumps(want)} each, '
+      f'losses bit-equal {runs[True]["loss"]}; step ms (host clock, '
+      f'synced) untraced {[round(t, 3) for t in runs[False]["step_ms"]]}, '
+      f'traced {[round(t, 3) for t in runs[True]["step_ms"]]}')
+  rep = report_gate(tag, train_path, OBS_REQUIRE)
+  train_phases = {n: p['total_ms'] / OBS_STEPS
+                  for n, p in rep['phases'].items()}
+  log(f'[{tag}] traced step, ms a step: '
+      + ', '.join(f'{n} {v:.3f}' for n, v in sorted(train_phases.items()))
+      + f'; critical path {json.dumps(rep["critical_path"])}')
+
+  # the segmented-dispatch profile, on a private clone of the tables
+  obs.enable(trace_path=str(OBS_DIR / 'devprof.json'))
+  prof = devprof.profile_step(dist, cats, params=model.embedding_params,
+                              reps=PROFILE_REPS)
+  obs_trace.save()
+  obs.reset()
+  if prof.step_ms <= 0 or any(v < 0 for v in prof.phases.values()):
+    raise AssertionError(f'{tag}: devprof phases {prof.phases}, step '
+                         f'{prof.step_ms} ms')
+  dev_rep = report_gate(tag, OBS_DIR / 'devprof.json',
+                        ','.join(devprof.STEP_PHASES))
+  if not dev_rep['critical_path']['device_ms'] > 0:
+    raise AssertionError(f'{tag}: no device lane in the report')
+  dev_phases = devprof.device_phases(prof)
+  for name in devprof.STEP_PHASES:
+    clocks = ', '.join(f'{p} {prof.device[p]["clock"]}'
+                       for p in PHASE_PROGRAMS[name])
+    log(f'[{tag}] {name}: {prof.phases[name]:.4f} ms synced wall, '
+        f'{dev_phases[name]:.4f} ms device clock ({clocks}); '
+        f'{"measured" if prof.direct[name] else "derived"}')
+  step_dev = prof.device['step']
+  ref_ms = statistics.median(train_ref['step_ms'])
+  log(f'[{tag}] the embedding step as one program: {prof.step_ms:.4f} ms '
+      f'synced wall, {step_dev["ms"]:.4f} ms device clock '
+      f'({step_dev["clock"]}); coverage {prof.coverage_pct} % of the wall; '
+      f'beside phase 9\'s whole step (MLP included) {ref_ms:.3f} ms median '
+      f'(host clock, synced) and its {train_ref["host_syncs"]} host syncs; '
+      f'cost: {prof.cost_note}')
+  overhead = obs.measure_overhead(ref_ms)
+  log(f'[{tag}] obs.measure_overhead at {ref_ms:.3f} ms a step: '
+      f'{json.dumps(overhead)}')
+  numbers = {
+      'launches': {('traced' if t else 'untraced'): r['launches']
+                   for t, r in runs.items()},
+      'step_ms': {('traced' if t else 'untraced'): r['step_ms']
+                  for t, r in runs.items()},
+      'train_phase_ms': train_phases,
+      'critical_path': rep['critical_path'],
+      'devprof': {'phases': prof.phases, 'device_phases': dev_phases,
+                  'device': prof.device, 'step_ms': prof.step_ms,
+                  'coverage_pct': prof.coverage_pct},
+      'phase9_step_ms': ref_ms, 'phase9_host_syncs': train_ref['host_syncs'],
+      **overhead,
+  }
+  log(f'[{tag}] ' + json.dumps(numbers))
+  shutil.rmtree(OBS_DIR)
+  return numbers
 
 
 def chunked_summary(k, seg, key, numbers, rows, paths):
@@ -6453,35 +6771,41 @@ def tier_forward_sample(model, state, numerical, cats, n=512):
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
-  parser.add_argument('--trace', default=None,
-                      help='write the profiled forward as a Chrome trace')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
           'False); this script runs on the GPU only', file=sys.stderr)
     return 1
-  t_start = time.perf_counter()
+  global T_START
+  T_START = time.perf_counter()
   card = phase_card()
   phase_build()
-  k, seg, adam = run_tiny(args)
+  elapsed('phases 1-2')
+  k, seg, adam = run_tiny(args, card)
   gc.collect()
   torch.cuda.empty_cache()
   log(f'[dlrm] after the tiny model: device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, '
       f'{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved')
   quant_tiny = run_quant_tiny(args)
+  elapsed('phase 9g')
   gc.collect()
   torch.cuda.empty_cache()
   wire_summary(k, seg, phase_wire_ranks(args.seed))
+  elapsed('phase 9h')
   dcn_summary(k, seg, phase_dcn_ranks(args.seed))
+  elapsed('phase 9i')
   two_source = tier_summary(k, seg, *phase_tier_tiny(
       SYNTHETIC_MODELS[MODEL], args.seed))
+  elapsed('phase 9j')
   gc.collect()
   torch.cuda.empty_cache()
   run_dlrm(args.seed, k, seg)
+  elapsed('phases 10-13')
   gc.collect()
   torch.cuda.empty_cache()
   resume_launches, resume_numbers, serve_ckpt = phase_dlrm_resume()
+  elapsed('phase 13b')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_resume'] = {run: n[name]
                                      for run, n in resume_launches.items()}
@@ -6490,6 +6814,7 @@ def main(argv=None) -> int:
   torch.cuda.empty_cache()
   serve_launches, serve_rows, seg['dlrm_serve'] = phase_dlrm_serve(
       serve_ckpt, card)
+  elapsed('phase 13h')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_serve'] = {arm: n[name]
                                     for arm, n in serve_launches.items()}
@@ -6497,12 +6822,14 @@ def main(argv=None) -> int:
   gc.collect()
   torch.cuda.empty_cache()
   dlrm_hot_launches, dlrm_hot_numbers = phase_dlrm_hot()
+  elapsed('phase 13c')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_hot'] = dlrm_hot_launches[name]
   seg['dlrm_hot'] = dlrm_hot_numbers
   gc.collect()
   torch.cuda.empty_cache()
   dlrm_chunked_numbers, dlrm_chunked_rows = phase_dlrm_chunked(args.seed)
+  elapsed('phase 13d')
   chunked_summary(k, seg, 'chunked_dlrm', dlrm_chunked_numbers,
                   dlrm_chunked_rows, {'forward': 'forward_launches',
                                       'sparse': 'steps',
@@ -6510,6 +6837,7 @@ def main(argv=None) -> int:
   gc.collect()
   torch.cuda.empty_cache()
   dequant = dequant_summary(quant_tiny, run_dlrm_int8(args.seed))
+  elapsed('phase 13e')
   seg['quant'] = {
       'dlrm_int8': dequant['dlrm_int8']['launches']['segwalk_apply'],
       **{dtype: t['numbers']['launches']['segwalk_apply']
@@ -6517,12 +6845,14 @@ def main(argv=None) -> int:
   gc.collect()
   torch.cuda.empty_cache()
   wire_launches, _ = phase_dlrm_wire(args.seed)
+  elapsed('phase 13f')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_wire'] = wire_launches[name]
   gc.collect()
   torch.cuda.empty_cache()
   tier_launches_dlrm, seg['dlrm_tier'], dlrm_tier_rows = phase_dlrm_tier(
       args.seed)
+  elapsed('phase 13g')
   two_source = dlrm_tier_summary(k, seg, two_source, tier_launches_dlrm,
                                  dlrm_tier_rows)
   for tag, run in (('tiny', lambda: run_dense_tiny(args.seed, k)),
@@ -6532,6 +6862,7 @@ def main(argv=None) -> int:
     log(f'[dense-{tag}] before the model: device memory '
         f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
     dk, dseg = run()
+    elapsed(f'dense-{tag}')
     k.setdefault('dense', {})[tag] = dk
     seg.setdefault('dense', {})[tag] = dseg
   gc.collect()
@@ -6539,10 +6870,11 @@ def main(argv=None) -> int:
   log(f'[small] before the model: device memory '
       f'{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated')
   arms = run_small(args.seed, k, seg)
+  elapsed('phases 17-19')
   gc.collect()
   torch.cuda.empty_cache()
   csr = phase_ragged_lookup()
-  log(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} s')
+  log(f'[done] all phases passed in {time.perf_counter() - T_START:.1f} s')
   log(json.dumps({'kernels': clocked([k, seg, *arms, adam, csr, dequant,
                                       two_source])}))
   log(json.dumps({'ok': True, 'device': {

@@ -70,6 +70,13 @@ rescans known-bad bytes.  ``--audit_every`` audits the state
 the newest valid file of ``--resume_dir`` in place and skips the
 offending window (at most ``--rollback_budget`` times); ``--eval_every``
 evaluates AUC during training and prints the curve.
+
+``--trace PATH`` arms the observability layer (``obs.enable``), spans
+each step of the loop as ``train/step`` (the step's own phase spans
+nest inside) and writes the Chrome trace to PATH at the end: open it in
+Perfetto or read it with ``python -m
+distributed_embeddings_tpu_torch.tools.trace_report PATH``.  The
+untraced run launches the same kernels.
 """
 
 from __future__ import annotations
@@ -85,8 +92,9 @@ import time
 import numpy as np
 import torch
 
-from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch import obs, optim
 from distributed_embeddings_tpu_torch.models.dlrm import DLRM, bce_with_logits
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import (checkpoint, coldtier,
                                                        grad, hotcache,
                                                        planner,
@@ -104,7 +112,7 @@ from distributed_embeddings_tpu_torch.utils.schedules import (
 
 # flags that select what the port does not have yet -> the ROADMAP.md
 # Queue 1 item that ports them; each raises when set off its default
-UNPORTED = {'csr_feed': 15, 'on_batch_error': 15, 'trace': 14}
+UNPORTED = {'csr_feed': 15, 'on_batch_error': 15}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -221,7 +229,13 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--rollback_budget', type=int, default=2,
                  help='in-process rollbacks before terminating')
   p.add_argument('--trace', default=None, metavar='PATH',
-                 help='not ported (item 14)')
+                 help='arm the observability layer (obs/) and write the '
+                 'Chrome-trace JSON of the run to PATH: open it in '
+                 'Perfetto (https://ui.perfetto.dev) or read it with '
+                 'python -m distributed_embeddings_tpu_torch.tools.'
+                 'trace_report for the per-step phase breakdown and '
+                 'stall attribution.  Default: off (the untraced run '
+                 'launches the same kernels)')
   p.add_argument('--device', default='cuda',
                  help="the device to run on: cuda (default) or cpu")
   return p
@@ -389,11 +403,27 @@ def _sync(device: torch.device):
 
 
 def main(argv=None):
-  """Run the example; returns a dict of its numbers."""
+  """Run the example; returns a dict of its numbers.  With ``--trace``
+  the trace is written when the run ends (or fails), and the layer is
+  reset."""
   parser = build_parser()
   args = parser.parse_args(argv)
   refuse_unported(args, parser)
+  if not args.trace:
+    return train(args)
+  obs.enable(trace_path=args.trace)
+  try:
+    return train(args)
+  finally:
+    path = obs_trace.save()
+    print(f'obs trace: {obs_trace.event_count()} event(s) -> {path} '
+          '(open in Perfetto, or: python -m '
+          f'distributed_embeddings_tpu_torch.tools.trace_report {path})')
+    obs.reset()
 
+
+def train(args):
+  """The run of ``main`` after its flags are checked."""
   table_sizes = [int(s) for s in args.table_sizes.split(',')]
   if args.dataset_path is not None:
     # table sizes come from the dataset (each stored less one)
@@ -629,11 +659,12 @@ def main(argv=None):
   seen = {'build_ms': 0.0, 'blocked_ms': 0.0}
   for i, (numerical, cats, labels, fetch) in enumerate(batch_iter):
     t_step = time.perf_counter()
-    if fetch is not None:
-      state, loss = step(state, numerical, list(cats), labels,
-                         cold_fetch=fetch)
-    else:
-      state, loss = step(state, numerical, list(cats), labels)
+    with obs_trace.span('train/step', step=resume_step + i + 1):
+      if fetch is not None:
+        state, loss = step(state, numerical, list(cats), labels,
+                           cold_fetch=fetch)
+      else:
+        state, loss = step(state, numerical, list(cats), labels)
     if tier_pipe is not None:
       # the tiered step has synchronised (its write-back): the loss is
       # read at no extra cost

@@ -24,9 +24,12 @@ The JAX example's flags and prints, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions).  One difference:
 the bundle embeds the tables' configs (the DLRM's tables are
 combiner-free, so the export passes ``combiner=None``), so the engine
-starts from the bundle alone, without model code.  ``--trace`` is
-ROADMAP.md item 14 and refuses.  ``main`` returns the printed JSON
-block.
+starts from the bundle alone, without model code.  ``--trace PATH``
+arms the observability layer and writes the Chrome trace of the request
+path (submit, enqueue, dispatch, lookup, execute, demux spans) to PATH
+when the run ends, then resets the layer; ``python -m
+distributed_embeddings_tpu_torch.tools.trace_report PATH`` reads it.
+``main`` returns the printed JSON block.
 """
 
 from __future__ import annotations
@@ -38,12 +41,11 @@ import tempfile
 
 import numpy as np
 
-from distributed_embeddings_tpu_torch import serving
+from distributed_embeddings_tpu_torch import obs, serving
 from distributed_embeddings_tpu_torch.models.synthetic import (
     gen_power_law_data)
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import hotcache
-from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    not_ported)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,8 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument('--deadline_ms', type=float, default=50.0,
                       help='per-request deadline in the overload arm')
   parser.add_argument('--trace', default=None, metavar='PATH',
-                      help='the Chrome trace of the request path (not '
-                      'ported: ROADMAP.md item 14)')
+                      help='arm the observability layer (obs/) and '
+                      'write the Chrome-trace JSON of the request path '
+                      '(submit -> enqueue -> dispatch -> lookup -> demux '
+                      'spans) to PATH: open it in Perfetto or read it '
+                      'with python -m distributed_embeddings_tpu_torch.'
+                      'tools.trace_report')
   parser.add_argument('--device', default='cuda',
                       help="the serving device ('cuda' or 'cpu')")
   return parser
@@ -103,7 +109,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
   args = build_parser().parse_args(argv)
   if args.trace:
-    raise not_ported('--trace', 14)
+    obs.enable(trace_path=args.trace)
 
   bundle = args.bundle
   tmp = None
@@ -241,6 +247,13 @@ def main(argv=None) -> dict:
   finally:
     if tmp is not None and os.path.exists(bundle):
       os.remove(bundle)
+    if args.trace:
+      path = obs_trace.save()
+      print(f'obs trace: {obs_trace.event_count()} event(s) -> {path} '
+            '(open in Perfetto, or: python -m '
+            f'distributed_embeddings_tpu_torch.tools.trace_report {path})',
+            flush=True)
+      obs.reset()
 
 
 if __name__ == '__main__':

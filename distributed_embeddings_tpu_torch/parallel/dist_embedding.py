@@ -74,6 +74,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
@@ -1317,8 +1318,8 @@ class DistributedEmbedding:
             routed_parts[si].append(r)
         rows_pending.append(self._issue(staged, 'fwd/rows', plan=lplan))
 
-      _pipeline(n_rounds, issue, process)
-      backs = _wait_rounds(rows_pending, len(subs))
+      backs = _pipeline(n_rounds, issue, process,
+                        lambda: _wait_rounds(rows_pending, len(subs)))
       residuals = tuple(_cat(rp, 0) for rp in routed_parts)
       return self._assemble(subs, backs, merge_out), residuals
 
@@ -1528,6 +1529,8 @@ class DistributedEmbedding:
 
     def bwd(d_outs):
       lplan.legs.clear()
+      # the whole cotangent exchange (eager host work, obs/trace.py)
+      tok = obs_trace.begin('bwd/exchange')
       dt = d_outs[0].dtype
       sends = []
       for si, sub in enumerate(subs):
@@ -1571,6 +1574,7 @@ class DistributedEmbedding:
         parts.append(torch.zeros((1, slice_batch, w), dtype=dt,
                                  device=dev))
         gsubs.append(torch.cat(parts)[recon[si]])
+      obs_trace.end(tok)
       return tuple(gsubs)
 
     self._fn_cache[key] = bwd
@@ -1782,8 +1786,8 @@ class DistributedEmbedding:
                                 subs[si].group.width).transpose(0, 1)
         rows_pending.append(self._issue(pre, 'fwd/cold_rows', plan=lplan))
 
-      _pipeline(n_rounds, issue, process)
-      backs = _wait_rounds(rows_pending, len(subs))
+      backs = _pipeline(n_rounds, issue, process,
+                        lambda: _wait_rounds(rows_pending, len(subs)))
       routed = [_cat(rp, 0) for rp in routed_parts]
       piece: Dict[tuple, torch.Tensor] = {}
       for si, (sub, back) in enumerate(zip(subs, backs)):
@@ -1924,6 +1928,9 @@ class DistributedEmbedding:
 
     def bwd(d_outs, hot_routing):
       lplan.legs.clear()
+      # the deduplicated cold-gradient exchange and the hot-gradient sum
+      # (eager host work, obs/trace.py)
+      tok = obs_trace.begin('bwd/exchange')
       mem, invs = hot_routing.mem, hot_routing.invs
       cot = []
       for i, d in enumerate(d_outs):
@@ -1989,6 +1996,7 @@ class DistributedEmbedding:
               _OrderedSum(total[lo:hi], self.mesh.product_group,
                           self.mesh.product_size)
               for lo, hi in hot_grads.bounds[gi]]
+      obs_trace.end(tok)
       return gsubs, hot_grads
 
     self._fn_cache[key] = bwd
@@ -2183,10 +2191,26 @@ def hierarchical_params(dist: DistributedEmbedding,
   return out
 
 
-def _pipeline(n_rounds: int, issue, process):
+def _pipeline(n_rounds: int, issue, process, finish):
   """The chunk loop: ``issue(k)`` starts round ``k``'s exchange and
   ``process(k, issued)`` consumes it; round ``k`` is issued before round
-  ``k-1`` is processed."""
+  ``k-1`` is processed.  Returns ``finish()`` (the wait for the rows
+  coming back).
+
+  The forward's phase spans (JAX's sites): one round is a
+  ``fwd/exchange`` span around the issue and a ``fwd/lookup_combine``
+  span around the rest; several rounds interleave the two by design and
+  are one ``fwd/exchange`` span with ``chunks=n_rounds``."""
+  if n_rounds == 1:
+    tok = obs_trace.begin('fwd/exchange')
+    issued = issue(0)
+    obs_trace.end(tok)
+    tok = obs_trace.begin('fwd/lookup_combine')
+    process(0, issued)
+    out = finish()
+    obs_trace.end(tok)
+    return out
+  tok = obs_trace.begin('fwd/exchange', chunks=n_rounds)
   pending = None
   for k in range(n_rounds):
     issued = issue(k)
@@ -2194,6 +2218,9 @@ def _pipeline(n_rounds: int, issue, process):
       process(*pending)
     pending = (k, issued)
   process(*pending)
+  out = finish()
+  obs_trace.end(tok)
+  return out
 
 
 def _cat(parts, dim: int):

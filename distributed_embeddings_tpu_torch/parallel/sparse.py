@@ -89,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import grad as grad_lib
 from distributed_embeddings_tpu_torch.parallel import quantization
@@ -752,8 +753,12 @@ def sparse_apply_updates(dist: DistributedEmbedding, optimizer, params,
   fn = _build_sparse_apply(
       dist, optimizer, global_batch // (dist.world_size * dist.num_slices),
       tuple(hotness))
-  return fn(params, opt_state, float(lr), residuals, gsubs, hot_grads,
-            getattr(cold_fetch, 'device', cold_fetch))
+  # the sparse optimizer apply (eager host work, obs/trace.py)
+  tok = obs_trace.begin('apply/update')
+  out = fn(params, opt_state, float(lr), residuals, gsubs, hot_grads,
+           getattr(cold_fetch, 'device', cold_fetch))
+  obs_trace.end(tok)
+  return out
 
 
 def _mean_row_sliced_inputs(dist: DistributedEmbedding, hotness: tuple):

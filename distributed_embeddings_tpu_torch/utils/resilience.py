@@ -54,6 +54,8 @@ REGISTERED_EVENTS = frozenset({
     'audit_failure', 'tier_integrity_failure',
     # periodic registry snapshots (obs/metrics.py)
     'metrics_snapshot',
+    # device-time attribution (obs/devprof.py): one event a profile
+    'devprof_profile',
     # serving's overload layer (serving/batcher.py, serving/pool.py):
     # throttled sheds, the admission ledger at close, replica quarantine
     # and failover, the degraded mode's crossings

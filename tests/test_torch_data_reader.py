@@ -13,6 +13,9 @@ write.
   refuses, and an index past the end raises ``IndexError``.
 - ``open_raw_binary_dataset`` picks and names its reader; the host
   library is built under a name keyed by its source hash.
+- The Python reader's ``pread`` retry (JAX's
+  tests/test_fault_tolerance.py cases): two transient failures are
+  retried with the batches unchanged, a persistent one raises.
 """
 
 import importlib.util
@@ -24,10 +27,12 @@ import numpy as np
 import pytest
 
 from distributed_embeddings_tpu.utils import data as jax_data
+from distributed_embeddings_tpu.utils import faultinject
 from distributed_embeddings_tpu_torch.examples.dlrm import gen_data
 from distributed_embeddings_tpu_torch.utils import data
 from distributed_embeddings_tpu_torch.utils import fastloader
 from distributed_embeddings_tpu_torch.utils import nativebuild
+from distributed_embeddings_tpu_torch.utils import resilience
 
 SIZES = [100, 40000, 3, 100000]  # int8, int16, int8, int32 files
 N_ROWS = 333
@@ -298,3 +303,45 @@ def test_entry_point_tier_refusals_match_jax(flags):
     dlrm_main.main(SMALL + flags)
   assert str(got.value) == str(want.value)
   assert '--cold_tier_budget_mb requires' in str(got.value)
+
+
+def _tiny_split(root):
+  """JAX's ``_write_tiny_dataset``: 32 rows, 3 numerical features, two
+  tables of 50 and 70 rows; reader kwargs without read-ahead."""
+  rng = np.random.default_rng(0)
+  rows, sizes = 32, [50, 70]
+  labels = rng.integers(0, 2, rows).astype(bool)
+  numerical = rng.normal(size=(rows, 3)).astype(np.float16)
+  cats = [rng.integers(0, s, rows) for s in sizes]
+  data.write_raw_binary_dataset(str(root), 'train', labels, numerical, cats,
+                                sizes)
+  return dict(batch_size=8, numerical_features=3, categorical_features=[0, 1],
+              categorical_feature_sizes=sizes, prefetch_depth=0)
+
+
+def test_reader_transient_pread_recovers_zero_loss(tmp_path, monkeypatch):
+  kwargs = _tiny_split(tmp_path)
+  want = [(n.copy(), [c.copy() for c in cs], l.copy())
+          for n, cs, l in data.BinaryCriteoReader(str(tmp_path), **kwargs)]
+  resilience.clear_recent()
+  flaky = faultinject.flaky_calls(os.pread, fail_at=[1, 6], times=1)
+  monkeypatch.setattr(os, 'pread', flaky)
+  got = list(data.BinaryCriteoReader(str(tmp_path), **kwargs))
+  monkeypatch.undo()
+  assert flaky.raised == 2
+  assert len(got) == len(want) == 4
+  for g, w in zip(got, want):
+    _assert_batches_equal(g, w)
+  assert len(resilience.recent('io_retry')) == 2
+
+
+def test_reader_persistent_io_error_still_raises(tmp_path, monkeypatch):
+  kwargs = _tiny_split(tmp_path)
+  reader = data.BinaryCriteoReader(str(tmp_path), **kwargs)
+  resilience.clear_recent()
+  # the first pread fails more times than the retry budget allows
+  flaky = faultinject.flaky_calls(os.pread, fail_at=[0], times=10)
+  monkeypatch.setattr(os, 'pread', flaky)
+  with pytest.raises(IOError):
+    reader[0]
+  assert resilience.recent('io_retry_exhausted')

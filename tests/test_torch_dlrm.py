@@ -39,6 +39,8 @@ from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import hotcache
 from distributed_embeddings_tpu_torch.parallel import sparse
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.tools import trace_report
 from distributed_embeddings_tpu_torch.utils import data, metrics, schedules
 
 from examples.dlrm import gen_data
@@ -280,11 +282,28 @@ def test_entry_point_trains_and_evaluates(capsys):
 
 @pytest.mark.parametrize('flags,item', [
     (['--csr_feed'], '15'),
-    (['--on_batch_error', 'skip'], '15'),
-    (['--trace', 't.json'], '14')])
+    (['--on_batch_error', 'skip'], '15')])
 def test_entry_point_refuses_unported_flags(flags, item):
   with pytest.raises(NotImplementedError, match=f'item {item}\\)'):
     dlrm_main.main(SMALL_FLAGS + flags)
+
+
+def test_entry_point_writes_its_trace(tmp_path, capsys):
+  """``--trace`` (item 14): every step of the loop is a ``train/step``
+  span with the step's phase spans inside; the report accepts the file
+  under ``--strict``, and the run leaves the layer off."""
+  path = str(tmp_path / 'trace.json')
+  dlrm_main.main(SMALL_FLAGS + ['--dp_input', '--max_steps', '3', '--trace',
+                                path])
+  assert f'obs trace: ' in capsys.readouterr().out
+  assert not obs_trace.enabled() and obs_trace.event_count() == 0
+  phases = 'train/step,fwd/exchange,fwd/lookup_combine,bwd/exchange,' \
+      'apply/update'
+  assert trace_report.main([path, '--strict', '--require', phases]) == 0
+  rep = trace_report.report(trace_report.load_trace(path))
+  assert [s['step'] for s in rep['steps']] == [1, 2, 3]
+  assert all(set(phases.split(',')[1:]) <= set(s['phases'])
+             for s in rep['steps'])
 
 
 def test_entry_point_trains_with_the_hot_cache(capsys, tmp_path):

@@ -47,6 +47,7 @@ from distributed_embeddings_tpu_torch.parallel import sparse
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
     DistributedEmbedding)
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+from distributed_embeddings_tpu_torch.tools import trace_report
 from distributed_embeddings_tpu_torch.utils import resilience
 
 import torch_parity
@@ -557,8 +558,13 @@ def test_example_weights_eval_every_and_audit(tmp_path, capsys):
     dlrm_main.main(SMALL + ['--on_anomaly', 'rollback'])
   with pytest.raises(SystemExit, match='trainer sparse'):
     dlrm_main.main(SMALL + ['--audit_every', '1', '--trainer', 'dense'])
-  with pytest.raises(NotImplementedError, match='item 14'):
-    dlrm_main.main(SMALL + ['--trace', str(tmp_path / 't.json')])
+  # --trace (item 14) beside the audit: the audit's spans land in the
+  # trace, which the port's report accepts under --strict
+  trace = str(tmp_path / 't.json')
+  dlrm_main.main(SMALL + ['--max_steps', '2', '--audit_every', '1',
+                          '--trace', trace])
+  assert trace_report.main([trace, '--strict', '--require',
+                            'train/step,audit/check,apply/update']) == 0
 
 
 def test_example_rollback_restores_and_skips(tmp_path, monkeypatch, capsys):

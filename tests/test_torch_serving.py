@@ -17,6 +17,7 @@ from distributed_embeddings_tpu_torch.examples.dlrm import serve
 from distributed_embeddings_tpu_torch.models import synthetic
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 from distributed_embeddings_tpu_torch.serving import engine
+from distributed_embeddings_tpu_torch.tools import trace_report
 
 import torch_parity
 
@@ -139,12 +140,16 @@ def test_unported_serving_refuses(tmp_path):
   e = engine.ServingEngine(t, w, batch_size=8, device='cpu')
   # from_bundle and hot_only_filter are served since item 13
   # (tests/test_torch_serving_bundle.py); the batcher's SparseCore feed
-  # is item 15 and the example's trace item 14
+  # is item 15
   with pytest.raises(NotImplementedError, match='item 15\\)'):
     serving.DynamicBatcher(e, csr_feed=True)
-  with pytest.raises(NotImplementedError, match='item 14\\)'):
+  # the example's --trace is ported (item 14): a run that fails (no
+  # checkpoint) still writes its trace, which the report accepts
+  trace = str(tmp_path / 'trace.json')
+  with pytest.raises(ValueError, match='unreadable'):
     serve.main(['--checkpoint', str(tmp_path / 'ckpt.npz'), '--trace',
-                str(tmp_path / 'trace.json')])
+                trace])
+  assert trace_report.main([trace, '--strict']) == 0
   # hot_sets are served since item 7 (tests/test_torch_hotcache_ckpt.py)
   # quantized tables are served since item 9a, the wire codec since 9b
   assert engine.ServingEngine(t, w, batch_size=8, device='cpu',

@@ -33,6 +33,7 @@ from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
 from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
 from distributed_embeddings_tpu_torch.tools import export_serving
+from distributed_embeddings_tpu_torch.tools import trace_report
 
 torch.set_num_threads(1)
 
@@ -370,5 +371,12 @@ def test_serve_example_on_a_main_checkpoint(tmp_path, capsys):
   eng = serving.ServingEngine.from_bundle(bundle, batch_size=32,
                                           device='cpu')
   assert [c.combiner for c in eng.dist.table_configs] == [None] * 4
-  with pytest.raises(NotImplementedError, match='item 14\\)'):
-    dlrm_serve.main(['--checkpoint', ckpt, '--trace', 't.json'])
+  # --trace (item 14): the request path's spans, accepted by the report
+  trace = str(tmp_path / 'serve_trace.json')
+  dlrm_serve.main(['--device', 'cpu', '--checkpoint', ckpt, '--batch', '32',
+                   '--requests', '16', '--hot_coverage', '0',
+                   '--overload_qps', '0', '--trace', trace])
+  assert trace_report.main([trace, '--strict', '--require',
+                            'serve/submit,serve/enqueue,serve/dispatch,'
+                            'serve/lookup,serve/execute,serve/demux,'
+                            'fwd/lookup_combine']) == 0

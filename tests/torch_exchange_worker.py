@@ -12,8 +12,9 @@ tests/test_torch_overlap_ranks.py), an int8-quantized layer
 (``quant``, for tests/test_torch_quantized_ranks.py and, column-sliced,
 tests/test_torch_wire_ranks.py), a wire-codec draw (``wire``, for
 tests/test_torch_wire_ranks.py) or a cold-tier layer beside its fully
-resident twin (``tier``, for tests/test_torch_coldtier_ranks.py): joins a
-gloo world on
+resident twin (``tier``, for tests/test_torch_coldtier_ranks.py) or
+one segmented-dispatch profile (``devprof``, for
+tests/test_torch_devprof.py): joins a gloo world on
 the CPU, runs on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
@@ -1379,4 +1380,58 @@ def tier(rank, world_size, init_method, case_path, out_dir):
       np.savez(f'{out_dir}/tier{rank}_{vi}.npz', **got)
     torch_dist.barrier()
   finally:
+    torch_dist.destroy_process_group()
+
+
+def devprof(rank, world_size, init_method, case_path, out_dir):
+  """One rank of tests/test_torch_devprof.py: with obs armed, one
+  ``devprof.profile_step`` of a ``dp_input`` layer on this rank's block
+  of the batch (on a two-axis ``case['shape']`` mesh a
+  ``dcn_sharding=True`` layer); saves its trace as ``trace{rank}.json``
+  and ``devprof{rank}.pkl``: the profile, its device phases, the
+  journaled event, the metrics and whether the caller's params were
+  left as they were."""
+  import dataclasses
+
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import obs
+  from distributed_embeddings_tpu_torch.obs import devprof as devprof_lib
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+  from distributed_embeddings_tpu_torch.utils import resilience
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu',
+                                mesh_shape=case['shape'])
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                dcn_sharding=case['shape'] is not None)
+    params = dist.init(case['seed'])
+    before = {k: v.clone() for k, v in params.items()}
+    b = case['batch'] // m.product_size
+    me = m.product_rank
+    mine = [c[me * b:(me + 1) * b] for c in case['cats']]
+    obs.enable()
+    resilience.clear_recent()
+    prof = devprof_lib.profile_step(dist, mine, params=params, reps=2)
+    out = dataclasses.asdict(prof)
+    out['device_phases'] = devprof_lib.device_phases(prof)
+    out['journal'] = resilience.recent('devprof_profile')
+    out['metrics'] = obs.metrics.snapshot()
+    out['untouched'] = all(torch.equal(before[k], params[k])
+                           for k in params)
+    obs.trace.save(f'{out_dir}/trace{rank}.json')
+    with open(f'{out_dir}/devprof{rank}.pkl', 'wb') as f:
+      pickle.dump(out, f)
+    torch_dist.barrier()
+  finally:
+    obs.reset()
     torch_dist.destroy_process_group()
