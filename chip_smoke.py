@@ -329,6 +329,29 @@ Phases, each of which exits non-zero on failure:
             serve.py's (hot sets): one dev/serve/execute event a rung
             (128, 256, 512, 1024), the trace through the report, no
             segment walk; rung 128's device time on devprof's clock.
+            It deletes its bundle and keeps the step-6 file for 13i.
+13i. dlrm-serve-ranks: the same step-6 file served by two rank
+            processes on the one card (both cuda:0, joined over gloo
+            through launch_ranks), each running examples/dlrm/serve.py's
+            main with --dist_backend gloo: the leader exports the bundle
+            and every rank loads it; 13h's arguments with 256 requests
+            (one cut from 512); every rank's two engines (the overload
+            arm's replicas) behind one serving.RankFrontEnd.  The leader
+            runs the three arms and the overload arm (replica 0
+            quarantined half-way); every answer of the monolithic and
+            the ladder arms, and every served overload answer, equals a
+            numpy gather of the bundle's rows bit for bit; every future
+            resolved, served or shed.  On each rank every lookup launched
+            the lookup kernel as often as the plan says and the segment
+            walk never (counted); one batch at rungs 128 and 1024 (the
+            warm-up's) has every launch held against its plain version
+            (bit-exact) with kernel, plain, embedding_bag and bound ms
+            (the ranks time in turn); the follower ran every batch the
+            leader sent.  Both ranks exit 0 with their markers; the
+            leader's block is printed with the card's name and power
+            limit; the files deleted.  Its times are gloo through the
+            host with two ranks sharing one card, not NCCL serving
+            speeds.
 13c. dlrm-hot: examples/dlrm/main.py --dp_input --hot_cache
             --param_dtype bfloat16 in process at phase 13b's onechip
             vocabularies (the same one cut), hot sets calibrated on the
@@ -492,7 +515,8 @@ its dequantizing arm: launches from phase 13e's steps, times at its
 shape, the tiny models' shapes beside them; the segment walk's
 two-source arm: launches from phase 13g's steps, times at phase 9j's
 shapes, and the lookup's tier gathers under ``tier_tiny``; the lookup's
-serving launches under ``dlrm_serve``, one batch a rung of phase 13h);
+serving launches under ``dlrm_serve``, one batch a rung of phase 13h,
+and each rank's of phase 13i under ``dlrm_serve_ranks``);
 each row
 and summary with a kernel time says by which ``clock``:
 ``queued`` (CUDA events around back-to-back calls queued ahead of the
@@ -692,6 +716,13 @@ SERVE_ARGV = ['--batch', '1024', '--serve_buckets', '128,256,512,1024',
               '--overload_qps', '0', '--replicas', '2', '--deadline_ms',
               '50', '--priority_mix', '0.5']
 SERVE_CHECK_SAMPLES = 512  # phase 13h: from_bundle answers held
+# phase 13i: two ranks on the one card serve 13h's arguments with 256
+# requests (a cut from 512)
+SERVE_RANKS_WORLD = 2
+SERVE_RANKS_ARGV = ['256' if i and SERVE_ARGV[i - 1] == '--requests' else a
+                    for i, a in enumerate(SERVE_ARGV)]
+SERVE_RANKS_CHECK_RUNGS = (128, 1024)
+SERVE_RANKS_TIMEOUT_S = 600  # both ranks, start to end
 PROFILE_REPS = 3  # profile_once's and devprof's calls on the device clock
 OBS_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_obs'
 OBS_STEPS = 5  # phase 9k's fit steps, untraced and traced
@@ -2818,7 +2849,7 @@ def phase_dlrm_serve(ckpt, card):
   else:
     raise AssertionError(f'{tag}: the flipped bundle loaded')
   refuse_s = time.perf_counter() - t1
-  shutil.rmtree(SERVE_DIR)
+  bundle.unlink()  # the step-6 file stays for phase 13i
   shutil.rmtree(OBS_DIR, ignore_errors=True)
   numbers = {
       'run_s': run_s, 'from_bundle_s': from_bundle_s, 'refuse_s': refuse_s,
@@ -2883,6 +2914,287 @@ def phase_dlrm_serve(ckpt, card):
         + f'; serve/enqueue a request {a["enqueue_ms_mean"]:.3f} ms mean')
   log(f'[{tag}] ' + json.dumps(numbers))
   return launches, rows, numbers
+
+
+def serve_rank(rank, init, out_dir, ckpt):
+  """One of phase 13i's two ranks (a process of its own, both on the one
+  card, joined over gloo): examples/dlrm/serve.py's ``main`` with the
+  world's flags, recording every engine, the lookup launches of one
+  batch at each of ``SERVE_RANKS_CHECK_RUNGS`` and, on the leader, the
+  bundle, the batchers' requests and the pool's.  Then the checks (see
+  the module docstring) and the kernel shapes, timed after the ranks
+  before this one (``timed{r}`` markers).  Writes ``rank{rank}.json``
+  under ``out_dir``."""
+  out_dir = pathlib.Path(out_dir)
+  engines, fronts, loaded, batchers, pool_reqs = [], [], [], [], []
+  captures = {}
+  capturing = [None]
+  orig = {'engine': ServingEngine.__init__,
+          'front': serving.RankFrontEnd.__init__,
+          'block': ServingEngine.apply_block,
+          'load': serving.load_serving_bundle,
+          'init': serve_batcher.DynamicBatcher.__init__,
+          'submit': serve_batcher.DynamicBatcher.submit,
+          'close': serve_batcher.DynamicBatcher.close,
+          'req': serve_pool._PoolReq.__init__,
+          'fused': lookup.fused_group_lookup, 'dense': lookup.dense_lookup}
+
+  def engine_init(self, *args, **kwargs):
+    orig['engine'](self, *args, **kwargs)
+    engines.append(self)
+
+  def front_init(self, *args, **kwargs):
+    orig['front'](self, *args, **kwargs)
+    fronts.append(self)
+
+  def apply_block(self, padded, b):
+    # the first batch at a checked rung: its launches are recorded
+    if b in SERVE_RANKS_CHECK_RUNGS and b not in captures:
+      capturing[0] = captures[b] = []
+    try:
+      return orig['block'](self, padded, b)
+    finally:
+      capturing[0] = None
+
+  def record_fused(table, routed, combiners, compute_dtype, scale=None):
+    if capturing[0] is not None:
+      capturing[0].extend((table, r.reshape(-1, r.shape[-1]).clone(), c,
+                           scale) for r, c in zip(routed, combiners))
+    return orig['fused'](table, routed, combiners, compute_dtype, scale)
+
+  def record_dense(table, ids, combiner, out_dtype=None, scale=None):
+    if capturing[0] is not None:
+      capturing[0].append((table, ids.clone(), combiner, scale))
+    return orig['dense'](table, ids, combiner, out_dtype, scale)
+
+  def load(path):
+    got = orig['load'](path)
+    loaded.append(got)
+    return got
+
+  def init_batcher(self, engine, *args, **kwargs):
+    orig['init'](self, engine, *args, **kwargs)
+    self.chip_subs = []
+    self.chip_window = [trace_ts()]
+    batchers.append(self)
+
+  def submit(self, cats, *args, **kwargs):
+    fut = orig['submit'](self, cats, *args, **kwargs)
+    self.chip_subs.append((cats, fut))
+    return fut
+
+  def close_batcher(self):
+    orig['close'](self)
+    self.chip_window.append(trace_ts())
+
+  def req_init(self, *args, **kwargs):
+    orig['req'](self, *args, **kwargs)
+    pool_reqs.append(self)
+
+  ServingEngine.__init__ = engine_init
+  serving.RankFrontEnd.__init__ = front_init
+  ServingEngine.apply_block = apply_block
+  serving.load_serving_bundle = load
+  serve_batcher.DynamicBatcher.__init__ = init_batcher
+  serve_batcher.DynamicBatcher.submit = submit
+  serve_batcher.DynamicBatcher.close = close_batcher
+  serve_pool._PoolReq.__init__ = req_init
+  lookup.fused_group_lookup = record_fused
+  lookup.dense_lookup = record_dense
+  reset_launches()
+  trace = out_dir / 'serve_trace.json'  # written by the leader alone
+  t0 = time.perf_counter()
+  try:
+    returned = dlrm_serve.main(
+        ['--checkpoint', str(ckpt), '--bundle', str(SERVE_DIR / 'ranks.npz'),
+         '--device', 'cuda', *SERVE_RANKS_ARGV, '--init_method', init,
+         '--world_size', str(SERVE_RANKS_WORLD), '--rank', str(rank),
+         '--dist_backend', 'gloo', '--trace', str(trace)])
+    torch.cuda.synchronize()
+  finally:
+    for name, cls_attr in (('engine', (ServingEngine, '__init__')),
+                           ('front', (serving.RankFrontEnd, '__init__')),
+                           ('block', (ServingEngine, 'apply_block')),
+                           ('init', (serve_batcher.DynamicBatcher,
+                                     '__init__')),
+                           ('submit', (serve_batcher.DynamicBatcher,
+                                       'submit')),
+                           ('close', (serve_batcher.DynamicBatcher,
+                                      'close')),
+                           ('req', (serve_pool._PoolReq, '__init__'))):
+      setattr(*cls_attr, orig[name])
+    serving.load_serving_bundle = orig['load']
+    lookup.fused_group_lookup = orig['fused']
+    lookup.dense_lookup = orig['dense']
+  run_s = time.perf_counter() - t0
+  tag = f'dlrm-serve-ranks rank {rank}'
+  launched = read_launches()
+  engine = engines[0]
+  per_lookup = hot_launches(engine.dist, engine.hotness)[0]['lookup_combine']
+  lookups = [e.stats()['batches_served'] for e in engines]
+  want = {'lookup_combine': sum(lookups) * per_lookup, 'segwalk_apply': 0}
+  if len(engines) != 2 or launched != want:
+    raise AssertionError(f'{tag}: {launched} launched by {len(engines)} '
+                         f'engines\' {lookups} lookups x {per_lookup} (the '
+                         'plan)')
+  result = {'rank': rank, 'run_s': run_s, 'launches': launched,
+            'lookups': lookups, 'per_lookup': per_lookup}
+  if rank == 0:
+    weights, _ = loaded[0]
+
+    def gathered(cats):
+      return [np.where((c >= 0)[:, None], w[np.maximum(c, 0)], 0)
+              for c, w in zip(cats, weights)]
+
+    def equal(answer, cats):
+      return all(np.array_equal(a, g)
+                 for a, g in zip(answer, gathered(cats)))
+
+    mono, ladder, *replicas = batchers
+    if (mono.pipeline or mono.bucket_ladder or not ladder.pipeline
+        or not ladder.bucket_ladder or len(replicas) != 2):
+      raise AssertionError(f'{tag}: {len(batchers)} batchers, not the '
+                           'monolithic, the ladder and two replicas')
+    answered = {}
+    for arm, bat in (('mono', mono), ('ladder', ladder)):
+      for n, (cats, fut) in enumerate(bat.chip_subs):
+        if not equal(fut.result(timeout=0), [np.asarray(c) for c in cats]):
+          raise AssertionError(f'{tag}: {arm} request {n} differs from a '
+                               'gather of the bundle')
+      answered[arm] = len(bat.chip_subs)
+    outcome = collections.Counter()
+    retried = degraded = 0
+    for req in pool_reqs:
+      if not req.future.done():
+        raise AssertionError(f'{tag}: an overload future is unresolved')
+      err = req.future.error()
+      outcome[type(err).__name__ if err else 'served'] += 1
+      if err is not None:
+        continue
+      retried += bool(req.retries)
+      degraded += req.degraded
+      if not equal(req.future.result(timeout=0),
+                   [np.asarray(c) for c in req.cats]):
+        raise AssertionError(f'{tag}: an overload answer differs from a '
+                             'gather of the bundle')
+    if (sum(outcome.values()) != returned['serve_over_requests']
+        or outcome['served'] != returned['serve_over_served']
+        or set(outcome) - {'served', 'RequestSheddedError'}):
+      raise AssertionError(f'{tag}: overload outcomes {dict(outcome)}')
+    # the leader's trace: the request path's spans, the broadcast and the
+    # gather inside serve/lookup; a lone request's split and each
+    # batcher's stage unions, as phase 13h reads its own
+    report_gate(tag, trace, SERVE_REQUIRE)
+    split = serve_split(trace, returned['serve_requests'],
+                        {'mono': mono.chip_window,
+                         'ladder': ladder.chip_window})
+    trace.unlink()
+    result.update(stats=returned, answers=answered, overload=dict(outcome),
+                  retried_served=retried, degraded=degraded,
+                  front_end=fronts[0].stats()['front_end'], split=split)
+    del weights, loaded
+  else:
+    result['counts'] = returned
+  # the kernel at this rank's block shapes, after the ranks before it
+  if rank:
+    wait_for = out_dir / f'timed{rank - 1}'
+    deadline = time.monotonic() + SERVE_RANKS_TIMEOUT_S
+    while not wait_for.exists():
+      if time.monotonic() > deadline:
+        raise AssertionError(f'{tag}: rank {rank - 1} never timed')
+      time.sleep(0.2)
+  rows = {}
+  for b in SERVE_RANKS_CHECK_RUNGS:
+    if any(c not in (None, 'sum') for _, _, c, _ in captures[b]):
+      raise AssertionError(f'{tag}: the DLRM combines with sum only')
+    launches = [check_kernel_shape(table, ids, f'serve_ranks_r{rank}_b{b}_'
+                                   f'w{table.shape[1]}_n{ids.shape[0]}_'
+                                   f'rows{table.shape[0]}')
+                for table, ids, _, scale in captures[b] if scale is None]
+    rows[str(b)] = {**checked_sum(launches),
+                    'shapes': [r['shape'] for r in launches],
+                    'kernel_ms_each': [r['kernel_ms'] for r in launches]}
+    if rows[str(b)]['launches'] != len(captures[b]) or not len(captures[b]):
+      raise AssertionError(f'{tag}: rung {b} captured {captures[b]!r}')
+  result['rows'] = rows
+  with open(out_dir / f'rank{rank}.json', 'w') as f:
+    json.dump(result, f)
+  (out_dir / f'timed{rank}').write_text('timed\n')
+
+
+def phase_dlrm_serve_ranks(ckpt, card):
+  """Phase 13i: two processes on the one card, joined over gloo, run
+  ``serve_rank`` (see the module docstring) through ``launch_ranks`` on
+  phase 13b's step-6 file, which 13h kept; then the ranks' counts
+  against each other, the leader's block printed, the files deleted.
+  Returns each rank's launches, kernel rows and the phase's numbers."""
+  tag = 'dlrm-serve-ranks'
+  check_disk(1.05 * os.path.getsize(ckpt), tag)
+  root = CKPT_DIR.parent / 'chip_smoke_serve_ranks'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  wall = launch_ranks(tag, root, 'serve_rank', SERVE_RANKS_WORLD,
+                      SERVE_RANKS_TIMEOUT_S, str(ckpt))
+  ranks = []
+  for rank in range(SERVE_RANKS_WORLD):
+    with open(root / f'rank{rank}.json') as f:
+      ranks.append(json.load(f))
+  shutil.rmtree(root)
+  shutil.rmtree(SERVE_DIR)
+  lead, follower = ranks
+  if not (follower['counts']['by_replica'] == lead['lookups']
+          == follower['lookups']):
+    raise AssertionError(f'{tag}: the follower ran '
+                         f'{follower["counts"]["by_replica"]} batches by '
+                         f'replica, the leader sent {lead["lookups"]}')
+  stats = lead['stats']
+  log(f'[{tag}] card {card}; two ranks on the one card over gloo (host '
+      f'staging: not NCCL serving speeds), serve.py in {lead["run_s"]:.1f}'
+      f' / {follower["run_s"]:.1f} s, both ranks done in {wall:.1f} s')
+  log(f'[{tag}] launches by rank {json.dumps([r["launches"] for r in ranks])}'
+      f' for {json.dumps([r["lookups"] for r in ranks])} lookups by replica '
+      f'x {lead["per_lookup"]} (the plan: the cold gather and the hot '
+      'partial on each rank\'s block)')
+  log(f'[{tag}] answers equal to a gather of the bundle: monolithic '
+      f'{lead["answers"]["mono"]}, ladder+pipeline '
+      f'{lead["answers"]["ladder"]}; overload outcomes '
+      f'{lead["overload"]}, every served answer equal ({lead["degraded"]} '
+      f'degraded, {lead["retried_served"]} retried)')
+  log(f'[{tag}] card {card}; A/B no-batch p50 '
+      f'{stats["serve_nobatch_p50_ms"]} ms p99 {stats["serve_nobatch_p99_ms"]}'
+      f' qps {stats["serve_nobatch_qps"]} | monolithic p50 '
+      f'{stats["serve_mono_p50_ms"]} p99 {stats["serve_mono_p99_ms"]} qps '
+      f'{stats["serve_mono_qps"]} | ladder+pipe p50 {stats["serve_p50_ms"]} '
+      f'p99 {stats["serve_p99_ms"]} qps {stats["serve_qps"]} | overload '
+      f'served {stats["serve_over_served"]} shed {stats["serve_over_shed"]}'
+      f' high p99 {stats["serve_over_high_p99_ms"]} ms')
+  fe = lead['front_end']
+  log(f'[{tag}] the leader\'s front end: {fe["batches"]} batches (every '
+      f'replica\'s), broadcast {fe["broadcast_ms"]:.1f} ms in all '
+      f'({fe["broadcast_ms"] / fe["batches"]:.3f} a batch), gather '
+      f'{fe["gather_ms"]:.1f} ms ({fe["gather_ms"] / fe["batches"]:.3f} a '
+      'batch, the follower\'s lag included), host clock')
+  lone, split = lead['split']['lone'], lead['split']
+  log(f'[{tag}] card {card}; a lone request (no batching, rung 128, '
+      f'{lone["requests"]} requests): p50 {stats["serve_nobatch_p50_ms"]} '
+      f'ms, of it a mean {lone["serve/lookup"]:.4f} ms in the leader\'s '
+      f'serve/lookup (broadcast, its block, gather; of it fwd/exchange '
+      f'{lone["fwd/exchange"]:.4f}, fwd/lookup_combine '
+      f'{lone["fwd/lookup_combine"]:.4f}, the rest '
+      f'{lone["lookup_untraced"]:.4f})')
+  for arm in ('mono', 'ladder'):
+    a = split[arm]
+    log(f'[{tag}] {arm} arm, {a["wall_ms"]:.1f} ms wall: union ms (share '
+        'of the wall) ' + ', '.join(
+            f'{n} {v:.1f} ({100 * v / a["wall_ms"]:.1f} %)'
+            for n, v in a['union_ms'].items()))
+  log(f'[{tag}] each rank\'s block launches held against the plain '
+      'version (queued CUDA events, the ranks in turn): ' + json.dumps(
+          clocked({r['rank']: r['rows'] for r in ranks})))
+  numbers = {'wall_s': wall, 'ranks': ranks}
+  log(f'[{tag}] ' + json.dumps(numbers))
+  return ({r['rank']: r['launches'] for r in ranks},
+          {r['rank']: r['rows'] for r in ranks}, numbers)
 
 
 def run_small(seed, lookup_k, seg_k):
@@ -6821,6 +7133,12 @@ def main(argv=None) -> int:
   k['dlrm_serve'] = serve_rows
   gc.collect()
   torch.cuda.empty_cache()
+  ranks_launches, k['dlrm_serve_ranks'], seg['dlrm_serve_ranks'] = (
+      phase_dlrm_serve_ranks(serve_ckpt, card))
+  elapsed('phase 13i')
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_serve_ranks'] = {
+        rank: n[name] for rank, n in ranks_launches.items()}
   dlrm_hot_launches, dlrm_hot_numbers = phase_dlrm_hot()
   elapsed('phase 13c')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):

@@ -30,6 +30,24 @@ path (submit, enqueue, dispatch, lookup, execute, demux spans) to PATH
 when the run ends, then resets the layer; ``python -m
 distributed_embeddings_tpu_torch.tools.trace_report PATH`` reads it.
 ``main`` returns the printed JSON block.
+
+Across ranks (no JAX counterpart flag: JAX's single controller serves
+all of a host's devices at once): given a world, torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``env://``) or ``--init_method``,
+``--world_size`` and ``--rank``, every rank joins it
+(``mesh.init_distributed``; ``--dist_backend`` defaults to NCCL on
+cuda, and gloo puts several ranks on one card), the leader exports the
+bundle and every rank loads it (one host, or a shared file system), the
+batch is cut to a multiple of the world as JAX's ``serve.py`` cuts it to
+its devices, and every rank builds its engines (and the overload arm's
+replicas) behind one ``serving.RankFrontEnd``.  The leader runs the arms
+and prints and returns the JSON block; every other rank runs
+``serve_forever``, prints one count line and returns its counts.
+``--trace`` traces the leader.
+
+    torchrun --nproc_per_node 4 -m \
+        distributed_embeddings_tpu_torch.examples.dlrm.serve \
+        --checkpoint build/dlrm_state.npz --batch 1024
 """
 
 from __future__ import annotations
@@ -39,17 +57,22 @@ import json
 import os
 import tempfile
 
+from typing import Optional
+
 import numpy as np
+
+import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch import obs, serving
 from distributed_embeddings_tpu_torch.models.synthetic import (
     gen_power_law_data)
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import hotcache
+from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 
 
 def build_parser() -> argparse.ArgumentParser:
-  """The JAX example's flags, plus ``--device``."""
+  """The JAX example's flags, plus ``--device`` and the world's."""
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--checkpoint', required=True,
                       help='save_train_npz file or checkpoint directory '
@@ -102,40 +125,84 @@ def build_parser() -> argparse.ArgumentParser:
                       'with python -m distributed_embeddings_tpu_torch.'
                       'tools.trace_report')
   parser.add_argument('--device', default='cuda',
-                      help="the serving device ('cuda' or 'cpu')")
+                      help="the serving device ('cuda' or 'cpu'); with a "
+                      "world, 'cuda' is card rank %% device count")
+  env_world = 'WORLD_SIZE' in os.environ
+  parser.add_argument('--init_method',
+                      default='env://' if env_world else None,
+                      help='the world\'s rendezvous (tcp://host:port, '
+                      'file://path; default env:// under torchrun)')
+  parser.add_argument('--world_size', type=int,
+                      default=int(os.environ.get('WORLD_SIZE', 1)),
+                      help='ranks serving together (default torchrun\'s '
+                      'WORLD_SIZE, else 1: no world)')
+  parser.add_argument('--rank', type=int,
+                      default=int(os.environ.get('RANK', 0)),
+                      help='this process\'s rank; 0 leads')
+  parser.add_argument('--dist_backend', default=None,
+                      help='the engine\'s collectives: nccl (default on '
+                      'cuda), gloo (several ranks on one card; the '
+                      'default on the CPU)')
   return parser
 
 
+def _join_world(args, parser) -> Optional[mesh_lib.Mesh]:
+  """The world given by the flags or torchrun's environment, joined;
+  None without one."""
+  if args.world_size <= 1:
+    return None
+  if not args.init_method:
+    parser.error(f'--world_size {args.world_size} needs --init_method '
+                 '(or torchrun\'s environment)')
+  return mesh_lib.init_distributed(
+      args.init_method, args.world_size, args.rank,
+      backend=args.dist_backend,
+      device=None if args.device == 'cuda' else args.device)
+
+
 def main(argv=None) -> dict:
-  args = build_parser().parse_args(argv)
-  if args.trace:
+  parser = build_parser()
+  args = parser.parse_args(argv)
+  mesh = _join_world(args, parser)
+  leader = mesh is None or args.rank == 0
+  if args.trace and leader:
     obs.enable(trace_path=args.trace)
 
   bundle = args.bundle
   tmp = None
-  if bundle is None:
+  if bundle is None and leader:
     tmp = tempfile.NamedTemporaryFile(suffix='.npz', delete=False)
     bundle = tmp.name
     tmp.close()
+  front = None
   try:
-    # DLRM tables are hotness-1 combiner-free lookups (main.py's
-    # TableConfig default); the shapes come from the verified checkpoint
-    summary = serving.export_bundle_from_checkpoint(args.checkpoint,
-                                                    bundle, combiner=None)
+    if leader:
+      # DLRM tables are hotness-1 combiner-free lookups (main.py's
+      # TableConfig default); the shapes come from the verified
+      # checkpoint
+      summary = serving.export_bundle_from_checkpoint(
+          args.checkpoint, bundle, combiner=None)
+    if mesh is not None:
+      # every rank reads the file the leader wrote
+      box = [bundle]
+      torch_dist.broadcast_object_list(box, src=0)
+      bundle = box[0]
     weights, meta = serving.load_serving_bundle(bundle)
     configs = meta['table_configs']
-    print(f"bundle: {summary['tables']} table(s) from "
-          f"{os.path.basename(summary['source'])} step {summary['step']}"
-          f" [{','.join(summary['quantized']) or 'f32'}; "
-          f"{summary['stripped_state_leaves']} optimizer slot(s) "
-          'stripped]', flush=True)
+    if leader:
+      print(f"bundle: {summary['tables']} table(s) from "
+            f"{os.path.basename(summary['source'])} step "
+            f"{summary['step']} [{','.join(summary['quantized']) or 'f32'}"
+            f"; {summary['stripped_state_leaves']} optimizer slot(s) "
+            'stripped]', flush=True)
 
     hot_sets = None
     if args.hot_coverage > 0 and args.alpha > 0:
       hot_sets = hotcache.analytic_power_law_hot_sets(
           configs, args.alpha, coverage=args.hot_coverage,
           budget_bytes=int(args.hot_budget_mb * 2**20), state_copies=0)
-    n_dev = 1  # one process, one device
+    # one process, one device; or every rank of the world
+    n_dev = 1 if mesh is None else mesh.product_size
     batch = max(n_dev, (args.batch // n_dev) * n_dev)
     buckets = None
     if args.serve_buckets:
@@ -145,9 +212,25 @@ def main(argv=None) -> dict:
     def new_engine():
       return serving.ServingEngine(configs, weights, batch_size=batch,
                                    buckets=buckets, hot_sets=hot_sets,
-                                   device=args.device, bundle_meta=meta)
+                                   device=args.device, mesh=mesh,
+                                   bundle_meta=meta)
 
+    replicas = max(1, int(args.replicas))
     engine = new_engine()
+    pool_engines = None
+    if mesh is not None:
+      # every rank builds the same engines behind one front end, in one
+      # order; the followers then run the leader's batches
+      engine = front = serving.RankFrontEnd(engine)
+      if args.overload_qps is not None:
+        pool_engines = [front] + [front.replica(new_engine())
+                                  for _ in range(replicas - 1)]
+      if not leader:
+        counts = front.serve_forever()
+        print(f"rank {counts['rank']}: served {counts['batches']} "
+              f"batch(es), {counts['samples']} samples, for the leader "
+              f"(by replica {counts['by_replica']})", flush=True)
+        return counts
     print(f'engine: batch {batch} on {n_dev} device(s), ladder '
           f'{list(engine.buckets)}, '
           f"table_dtype {engine.stats()['table_dtype']}, hot rows "
@@ -207,9 +290,9 @@ def main(argv=None) -> dict:
       # the same weights behind a replica pool, offered more than it can
       # serve: healthy is the closed-loop headline above; shedding and
       # degraded are what the overload layer did about the difference
-      replicas = max(1, int(args.replicas))
-      pool_engines = [engine] + [new_engine()
-                                 for _ in range(replicas - 1)]
+      if pool_engines is None:
+        pool_engines = [engine] + [new_engine()
+                                   for _ in range(replicas - 1)]
       over = serving.measure_overload(
           pool_engines, requests, max_delay_ms=args.max_delay_ms,
           deadline_ms=args.deadline_ms, priority_mix=args.priority_mix,
@@ -245,9 +328,13 @@ def main(argv=None) -> dict:
     print(json.dumps(stats), flush=True)
     return stats
   finally:
+    if front is not None and leader:
+      front.close()
     if tmp is not None and os.path.exists(bundle):
       os.remove(bundle)
-    if args.trace:
+    if mesh is not None:
+      torch_dist.destroy_process_group()
+    if args.trace and leader:
       path = obs_trace.save()
       print(f'obs trace: {obs_trace.event_count()} event(s) -> {path} '
             '(open in Perfetto, or: python -m '

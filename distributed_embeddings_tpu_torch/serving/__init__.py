@@ -5,9 +5,11 @@ lookup-only forward, a read-only hot cache and cold tier), a
 ``DynamicBatcher`` (``batcher.py``) merges concurrent requests into
 padded batches at the smallest fitting rung with pipelined merge,
 execute and demux, a ``ServingEnginePool`` (``pool.py``) routes across
-replicas with shedding, failover and a degraded mode, and ``bench.py``
-measures them (the JAX package's ``serve_*`` and ``serve_over_*``
-blocks)."""
+replicas with shedding, failover and a degraded mode, a
+``RankFrontEnd`` (``frontend.py``) serves an engine of several ranks
+through them (the leader admits and gathers, every rank looks up its
+block), and ``bench.py`` measures them (the JAX package's ``serve_*``
+and ``serve_over_*`` blocks)."""
 
 from distributed_embeddings_tpu_torch.serving.export import (
     SERVING_FORMAT,
@@ -26,6 +28,9 @@ from distributed_embeddings_tpu_torch.serving.batcher import (
     ReplicaLostError,
     RequestSheddedError,
     ServeFuture,
+)
+from distributed_embeddings_tpu_torch.serving.frontend import (
+    RankFrontEnd,
 )
 from distributed_embeddings_tpu_torch.serving.pool import (
     ServingEnginePool,

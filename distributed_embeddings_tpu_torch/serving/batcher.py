@@ -46,10 +46,12 @@ walls, blocked = the executor's wait for a merged batch (bounded by that
 batch's merge wall) plus its wait on the demux queue.  The device wait
 of the one host copy is part of the execute stage.
 
-Not ported: ``csr_feed=True`` (it feeds SparseCore, ROADMAP.md item 15)
-and an engine on several ranks (each rank's engine answers only its
-block of the batch, so requests would have to be broadcast and answers
-gathered: the multi-rank serving front end, item 17).
+An engine on several ranks serves through the leader's
+``RankFrontEnd`` (``serving/frontend.py``): each rank's engine answers
+only its block of a rung, so the front end broadcasts each batch to
+every rank and gathers the blocks back; a bare engine of several ranks
+refuses.  Not ported: ``csr_feed=True`` (it feeds SparseCore, ROADMAP.md
+item 15).
 """
 
 from __future__ import annotations
@@ -77,35 +79,63 @@ MULTI_RANK_ITEM = 17
 
 
 def refuse_multi_rank(engine, who: str):
-  """Refuse an engine whose world is above one (``not_ported``): its
-  lookups answer only this rank's block of a batch."""
+  """Refuse what cannot admit requests: a bare engine whose world is
+  above one (its lookups answer only this rank's block of a rung), and
+  a follower rank's ``RankFrontEnd`` (only the leader admits).  The
+  leader's front end passes."""
+  leader = getattr(engine, 'is_leader', None)
+  if leader is not None:
+    if not leader:
+      raise RuntimeError(
+          f'{who} over a follower rank\'s front end (rank '
+          f'{engine.rank}): only the leader, product rank 0, admits '
+          'requests; a follower runs serve_forever()')
+    return
   ranks = engine.dist.mesh.product_size
   if ranks > 1:
-    raise not_ported(f'{who} over an engine on {ranks} ranks (the '
-                     'multi-rank serving front end)', MULTI_RANK_ITEM)
+    raise ValueError(
+        f'{who} over a bare engine on {ranks} ranks, which answers only '
+        "this rank's block of a rung: build serving.RankFrontEnd(engine) "
+        "on every rank and give the leader's to it (the multi-rank "
+        'serving front end)')
 
 
-def host_outputs(outs) -> List[np.ndarray]:
-  """The per-input answers of one lookup as host arrays, in ONE copy:
-  the outputs flattened and concatenated on their device (bf16 widened
-  to f32, exactly: numpy has no bf16), copied once (into pinned memory
-  from a card, waited for on one event); each input's answer is a
-  contiguous view of that copy."""
-  outs = list(outs)
-  if not outs:
-    return []
+def host_flat(outs) -> torch.Tensor:
+  """The per-input answers of one lookup flattened and concatenated on
+  their device (bf16 widened to f32, exactly: numpy has no bf16) and
+  copied to the host ONCE (into pinned memory from a card, waited for
+  on one event): a 1-D CPU tensor.  Answers that already lie back to
+  back in one host f32 buffer (a ``RankFrontEnd``'s) are that buffer,
+  with no copy."""
+  first = outs[0]
+  if all(o.device.type == 'cpu' and o.dtype == torch.float32
+         and o.is_contiguous()
+         and o.untyped_storage().data_ptr()
+         == first.untyped_storage().data_ptr() for o in outs) and all(
+             b.data_ptr() == a.data_ptr() + 4 * a.numel()
+             for a, b in zip(outs, outs[1:])):
+    return first.detach().as_strided((sum(o.numel() for o in outs),), (1,))
   joined = torch.cat([o.detach().reshape(-1) for o in outs])
   if joined.dtype == torch.bfloat16:
     joined = joined.float()
-  if joined.device.type == 'cuda':
-    host = torch.empty(joined.shape, dtype=joined.dtype, pin_memory=True)
-    host.copy_(joined, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(joined.device))
-    done.synchronize()
-  else:
-    host = joined.cpu()
-  flat = host.numpy()
+  if joined.device.type != 'cuda':
+    return joined.cpu()
+  host = torch.empty(joined.shape, dtype=joined.dtype, pin_memory=True)
+  host.copy_(joined, non_blocking=True)
+  done = torch.cuda.Event()
+  done.record(torch.cuda.current_stream(joined.device))
+  done.synchronize()
+  return host
+
+
+def host_outputs(outs) -> List[np.ndarray]:
+  """The per-input answers of one lookup as host arrays, in ONE copy
+  (``host_flat``); each input's answer is a contiguous view of that
+  copy."""
+  outs = list(outs)
+  if not outs:
+    return []
+  flat = host_flat(outs).numpy()
   answers = []
   off = 0
   for o in outs:
@@ -212,9 +242,10 @@ class DynamicBatcher:
   """Merge concurrent requests into the engine's rung ladder.
 
   Args:
-    engine: a ``ServingEngine`` of one rank (warmed, or warming on its
-      first batch); its lookup kernel is loaded here, on the caller's
-      thread.
+    engine: a ``ServingEngine`` of one rank, or the leader's
+      ``RankFrontEnd`` over an engine of several (warmed, or warming on
+      its first batch); its lookup kernel is loaded here, on the
+      caller's thread.
     max_delay_ms: the longest the OLDEST queued request waits for
       co-riders before its batch launches anyway.
     max_batch: samples per launched batch (default and upper bound: the
@@ -326,8 +357,8 @@ class DynamicBatcher:
     if deadline_ms is not None and deadline_ms <= 0:
       raise ValueError(f'deadline_ms must be positive, got {deadline_ms}')
     cats = [np.asarray(x) for x in cats]
-    if len(cats) != self.engine.dist.num_inputs:
-      raise ValueError(f'expected {self.engine.dist.num_inputs} inputs, '
+    if len(cats) != len(self.engine.hotness):
+      raise ValueError(f'expected {len(self.engine.hotness)} inputs, '
                        f'got {len(cats)}')
     n = int(cats[0].shape[0]) if cats else 0
     for i, x in enumerate(cats):
@@ -524,10 +555,8 @@ class DynamicBatcher:
     """One ``-1``-padded batch at the ``bucket`` rung from the requests'
     per-input arrays (request r's samples fill rows ``[off_r, off_r +
     n_r)`` of every input)."""
-    eng = self.engine
     merged = []
-    for i in range(eng.dist.num_inputs):
-      h = eng.hotness[i]
+    for i, h in enumerate(self.engine.hotness):
       buf = np.full((bucket, h), -1, np.int32)
       off = 0
       for slot in batch:

@@ -21,6 +21,10 @@ host merge and demux walls (``obs.metrics.OverlapStat``).
 
 ``measure_overload``: a ``ServingEnginePool`` driven past capacity
 (design §23), the ``serve_over_*`` block.
+
+Both take the leader's ``RankFrontEnd`` (or a pool of them) for an
+engine of several ranks: its ``lookup_padded`` (the no-batching arm),
+``warmup`` and batches run across the world, the keys unchanged.
 """
 
 from __future__ import annotations

@@ -298,8 +298,8 @@ class ServingEngine:
         return b
     return self.batch_size  # unreachable: buckets always include B
 
-  def _pad_input(self, i: int, x, width: Optional[int] = None
-                 ) -> np.ndarray:
+  def pad_input(self, i: int, x, width: Optional[int] = None
+                ) -> np.ndarray:
     """One input padded to the rung signature ``[width(, hot_cap)]``
     (``-1`` sentinel = no id).  ``width`` defaults to the full batch."""
     x = np.asarray(x)
@@ -334,8 +334,25 @@ class ServingEngine:
     full rung).  Returns the per-input ``[bucket, output_dim]`` tensors
     on the serving device; on several ranks each passes the whole rung
     and gets its own block of the outputs back
-    (``mesh.batch_sharding``)."""
+    (``mesh.batch_sharding``; ``serving.RankFrontEnd`` gathers the
+    blocks)."""
     cats = list(cats)
+    b, real = self.check_rung(cats, samples)
+    # one measurement feeds both the span and the histogram
+    t0 = obs_trace.now()
+    try:
+      padded = [self.pad_input(i, x, b) for i, x in enumerate(cats)]
+      outs = self.apply_block(padded, b)
+    finally:
+      lookup_ms = (obs_trace.now() - t0) * 1000.0
+      obs_trace.complete('serve/lookup', t0, lookup_ms / 1000.0, batch=b)
+    self.count_lookup(b, real, lookup_ms)
+    return outs
+
+  def check_rung(self, cats, samples: Optional[int] = None):
+    """``(rung, real samples)`` of one lookup's inputs; raises on a
+    wrong input count, inputs that disagree on the batch, a batch that
+    is not a rung or ``samples`` outside it."""
     if len(cats) != self.dist.num_inputs:
       raise ValueError(f'expected {self.dist.num_inputs} inputs, '
                        f'got {len(cats)}')
@@ -353,17 +370,19 @@ class ServingEngine:
     real = b if samples is None else int(samples)
     if not 0 <= real <= b:
       raise ValueError(f'samples {real} outside [0, bucket {b}]')
-    # one measurement feeds both the span and the histogram
-    t0 = obs_trace.now()
-    try:
-      padded = [self._pad_input(i, x, b) for i, x in enumerate(cats)]
-      if self.dist.mesh.product_size > 1:
-        block = mesh_lib.batch_sharding(self.dist.mesh, b)
-        padded = [x[block] for x in padded]
-      outs = self.dist.apply(self.params, padded)
-    finally:
-      lookup_ms = (obs_trace.now() - t0) * 1000.0
-      obs_trace.complete('serve/lookup', t0, lookup_ms / 1000.0, batch=b)
+    return b, real
+
+  def apply_block(self, padded, b: int) -> List[torch.Tensor]:
+    """The forward of this rank's block of a padded rung (the whole rung
+    on a world of one): no span, no count."""
+    if self.dist.mesh.product_size > 1:
+      block = mesh_lib.batch_sharding(self.dist.mesh, b)
+      padded = [x[block] for x in padded]
+    return list(self.dist.apply(self.params, padded))
+
+  def count_lookup(self, b: int, real: int, lookup_ms: float):
+    """Book one lookup at rung ``b`` holding ``real`` samples: the stats
+    and the ``engine.*`` metrics."""
     with self._lock:
       self._batches_served += 1
       self._samples_served += real
@@ -375,7 +394,6 @@ class ServingEngine:
     obs_metrics.inc('engine.rows_launched', b)
     obs_metrics.inc('engine.pad_rows', b - real)
     obs_metrics.observe('engine.lookup_ms', lookup_ms)
-    return list(outs)
 
   def lookup_padded(self, cats) -> List[torch.Tensor]:
     """One request (``n <= batch_size`` samples) through the smallest
@@ -388,18 +406,21 @@ class ServingEngine:
                           device=self.dist.device)
               for d in self.output_dims]
     bucket = self.bucket_for(n)
-    padded = [self._pad_input(i, x, bucket) for i, x in enumerate(cats)]
+    padded = [self.pad_input(i, x, bucket) for i, x in enumerate(cats)]
     outs = self.lookup(padded, samples=n)
     # the real samples inside this rank's block of the rung
     block = mesh_lib.batch_sharding(self.dist.mesh, bucket)
     keep = min(max(n - block.start, 0), block.stop - block.start)
     return [o[:keep] for o in outs]
 
-  def warmup(self, sample_cats=None, seed: int = 0) -> 'ServingEngine':
+  def warmup(self, sample_cats=None, seed: int = 0, *,
+             lookup_padded=None) -> 'ServingEngine':
     """Run EVERY ladder rung once (idempotent): the kernel is built and
     loaded and each rung's buffers allocated before the first request.
     ``sample_cats`` (a representative full batch) drives the launches;
-    without it, uniform-random ids over each vocabulary are used."""
+    without it, uniform-random ids over each vocabulary are used.
+    ``lookup_padded`` runs each rung's request (default this engine's;
+    a ``RankFrontEnd`` passes its own, so every rank runs it)."""
     if self._warm:
       return self
     if sample_cats is None:
@@ -419,8 +440,9 @@ class ServingEngine:
           np.concatenate([c] * reps, axis=0)[:self.batch_size]
           for c in sample_cats
       ]
+    run = self.lookup_padded if lookup_padded is None else lookup_padded
     for bucket in sorted(self.buckets, reverse=True):
-      self.lookup_padded([c[:bucket] for c in sample_cats])
+      run([c[:bucket] for c in sample_cats])
     self._warm = True
     return self
 

@@ -28,7 +28,13 @@ the engine's ``hot_only_filter`` and served from the replicated hot
 rows alone, at a counted accuracy cost; high traffic is never degraded.
 It exits once the pressure drains to ``degrade_low_watermark``; both
 crossings journal (``serve_degraded_enter`` / ``serve_degraded_exit``).
-An engine of several ranks refuses (the batcher's refusal, item 17).
+
+Across ranks the replicas are the leader's ``RankFrontEnd``s of ONE
+world, one a replica index (``fe.replica(engine)``), sharing its link:
+each replica's batches reach every rank in the link's one order.  A bare
+engine of several ranks refuses (the batcher's refusal), and so do
+replicas on disjoint rank sets (front ends of different links, or a
+front end beside an engine of one rank: item 17).
 """
 
 from __future__ import annotations
@@ -41,9 +47,11 @@ from typing import List, Optional
 
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
+from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+    not_ported)
 from distributed_embeddings_tpu_torch.serving.batcher import (
-    PRIORITIES, DynamicBatcher, ReplicaLostError, RequestSheddedError,
-    ServeFuture, refuse_multi_rank)
+    MULTI_RANK_ITEM, PRIORITIES, DynamicBatcher, ReplicaLostError,
+    RequestSheddedError, ServeFuture, refuse_multi_rank)
 from distributed_embeddings_tpu_torch.utils import resilience
 
 _STOP = object()
@@ -75,7 +83,8 @@ class ServingEnginePool:
 
   Args:
     engines: the replica ``ServingEngine``s (identical weights; each
-      on its own mesh/device subset).  One is fine — the pool then
+      on its own device), or the leader's ``RankFrontEnd``s of one
+      world.  One is fine — the pool then
       adds only the admission/degraded layer, no failover target.
     max_delay_ms / max_batch / queue_depth / low_queue_depth: per
       replica, passed through to each ``DynamicBatcher``.
@@ -101,6 +110,11 @@ class ServingEnginePool:
       raise ValueError('ServingEnginePool needs at least one engine')
     for e in engines:
       refuse_multi_rank(e, 'ServingEnginePool')
+    links = {id(getattr(e, 'link', None)) for e in engines}
+    if len(links) > 1:
+      raise not_ported('ServingEnginePool over replicas on disjoint rank '
+                       'sets (front ends of different worlds, or beside '
+                       'an engine of one rank)', MULTI_RANK_ITEM)
     self.engines = engines
     kwargs = dict(batcher_kwargs or {})
     self._batchers: List[DynamicBatcher] = [

@@ -4,8 +4,8 @@ serving hot sets and a multi-hot input: admission edges, demux bit-exact
 against the direct lookup at every rung and against JAX's engine under
 fuzzed concurrent submission, the serial monolithic arm, a failing stage
 failing its batch only, an idle dispatcher without polling, close, one
-host copy a batch, the refusals (``csr_feed``, an engine of several
-ranks) and ``measure_serving``'s keys against JAX's."""
+host copy a batch, the refusals (``csr_feed``, a bare engine of
+several ranks) and ``measure_serving``'s keys against JAX's."""
 
 import queue as queue_mod
 import threading
@@ -98,6 +98,25 @@ def test_host_outputs_is_one_contiguous_copy(served):
   bf = batcher_mod.host_outputs([o.to(torch.bfloat16) for o in outs])
   _exact(bf, [o.to(torch.bfloat16).float() for o in outs])
   assert batcher_mod.host_outputs([]) == []
+
+
+def test_host_outputs_views_answers_already_in_one_host_buffer():
+  """A multi-rank front end's answers already lie back to back in one
+  host f32 buffer: ``host_outputs`` views that buffer and copies
+  nothing; answers in separate buffers are still copied once."""
+  flat = torch.arange(8 * 8 + 8 * 4, dtype=torch.float32)
+  outs = [flat[:64].view(8, 8), flat[64:].view(8, 4)]
+  host = batcher_mod.host_outputs(outs)
+  assert [h.shape for h in host] == [(8, 8), (8, 4)]
+  assert all(np.shares_memory(h, flat.numpy()) for h in host)
+  _exact(host, outs)
+  apart = [outs[0].clone(), outs[1].clone()]
+  copied = batcher_mod.host_outputs(apart)
+  assert not any(np.shares_memory(h, a.numpy())
+                 for h, a in zip(copied, apart))
+  _exact(copied, apart)
+  gap = [flat[:32].view(4, 8), flat[64:].view(8, 4)]  # not back to back
+  assert not np.shares_memory(batcher_mod.host_outputs(gap)[1], flat.numpy())
 
 
 def test_admission_edges(served):
@@ -302,8 +321,8 @@ def test_refusals(served):
     batch_size = BATCH
 
   for make in (serving.DynamicBatcher, serving.ServingEnginePool):
-    with pytest.raises(NotImplementedError,
-                       match='multi-rank serving front end.*item 17\\)'):
+    with pytest.raises(ValueError, match='bare engine on 2 ranks.*'
+                       'serving.RankFrontEnd.*multi-rank serving front end'):
       make(_TwoRanks() if make is serving.DynamicBatcher else [_TwoRanks()])
 
 

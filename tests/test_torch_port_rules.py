@@ -71,7 +71,7 @@ def test_scan_sees_the_whole_port():
                  'parallel/hotcache.py', 'parallel/mesh.py',
                  'parallel/overlap.py', 'parallel/quantization.py',
                  'parallel/coldtier.py', 'utils/fastloader.py',
-                 'examples/dlrm/gen_data.py'):
+                 'examples/dlrm/gen_data.py', 'serving/frontend.py'):
     assert f'distributed_embeddings_tpu_torch/{module}' in names
   # the scan itself catches a forbidden import in a function body
   src = 'def f():\n  from distributed_embeddings_tpu.ops import x\n'

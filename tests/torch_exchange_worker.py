@@ -14,8 +14,10 @@ tests/test_torch_wire_ranks.py), a wire-codec draw (``wire``, for
 tests/test_torch_wire_ranks.py) or a cold-tier layer beside its fully
 resident twin (``tier``, for tests/test_torch_coldtier_ranks.py) or
 one segmented-dispatch profile (``devprof``, for
-tests/test_torch_devprof.py): joins a gloo world on
-the CPU, runs on its slice of the batch and saves what it got.  Imports
+tests/test_torch_devprof.py) or the multi-rank serving front end
+(``serve_ranks``, ``serve_fault`` and ``serve_py``, for
+tests/test_torch_serving_ranks.py): joins a gloo world on the CPU, runs
+on its slice of the batch and saves what it got.  Imports
 nothing of JAX (spawned processes import only this)."""
 
 import itertools
@@ -1435,3 +1437,297 @@ def devprof(rank, world_size, init_method, case_path, out_dir):
   finally:
     obs.reset()
     torch_dist.destroy_process_group()
+
+
+def _serve_engine(case, mesh):
+  """The serving engine of tests/test_torch_serving_ranks.py's case on
+  ``mesh``."""
+  import numpy as np
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  return serving.ServingEngine(
+      [TableConfig(r, w, combiner=c) for r, w, c in case['tables']],
+      case['weights'], batch_size=case['batch'], mesh=mesh, device='cpu',
+      input_table_map=case['itm'], hotness=case['hotness'],
+      hot_sets={t: HotSet(t, np.asarray(i)) for t, i in case['hot'].items()})
+
+
+def _refusal(fn):
+  """``'<type>: <message>'`` of what ``fn()`` raised, or None."""
+  try:
+    fn()
+  except Exception as e:  # recorded, checked by the parent
+    return f'{type(e).__name__}: {e}'
+  return None
+
+
+def serve_ranks(rank, world_size, init_method, case_path, out_dir):
+  """One rank of tests/test_torch_serving_ranks.py: two engines (the
+  replicas) behind one ``RankFrontEnd``.  The leader warms up through it,
+  answers every request through ``lookup_padded``, four batchers
+  (pipelined or serial, ladder or monolithic) and a two-replica pool
+  (replica 0 failed half-way, then three low requests submitted while
+  the link is held, so the pool degrades), checks the refusals, the
+  empty request and a malformed one (no broadcast), and closes twice;
+  every other rank serves.  The leader's control-group timeout is the
+  case's ``idle_timeout``, and it idles past it before it closes: a
+  follower's wait is not bound by it.  Saves ``serve{rank}.npz`` (the
+  leader's answers) and ``serve{rank}.json`` (counts, stats,
+  refusals)."""
+  import time
+  import types
+
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.serving import frontend
+  from distributed_embeddings_tpu_torch.serving.batcher import host_outputs
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  frontend.LEADER_TIMEOUT_S = case['idle_timeout']
+  reqs = case['requests']
+  out = {'rank': rank}
+  try:
+    eng, eng2 = _serve_engine(case, m), _serve_engine(case, m)
+    out['refused_bare'] = [
+        _refusal(lambda: serving.DynamicBatcher(eng)),
+        _refusal(lambda: serving.ServingEnginePool([eng]))]
+    if world_size == 4:
+      # an engine on half the world: replicas on disjoint rank sets
+      pairs = [torch_dist.new_group([0, 1]), torch_dist.new_group([2, 3])]
+      on_pair = types.SimpleNamespace(dist=types.SimpleNamespace(
+          mesh=mesh_lib.Mesh(torch.device('cpu'), pairs[rank // 2])))
+      out['refused_disjoint_fe'] = _refusal(
+          lambda: serving.RankFrontEnd(on_pair))
+    fe = serving.RankFrontEnd(eng)
+    fe2 = fe.replica(eng2)
+    if rank != 0:
+      out['refused_follower'] = [
+          _refusal(lambda: serving.DynamicBatcher(fe)),
+          _refusal(lambda: serving.ServingEnginePool([fe, fe2])),
+          _refusal(lambda: fe.lookup_padded(reqs[1]))]
+      out['counts'] = fe.serve_forever()
+      out['served'] = [e.stats()['batches_served'] for e in (eng, eng2)]
+    else:
+      got = {}
+      fe.warmup()
+      out['warm_batches'] = fe.stats()['front_end']['batches']
+      for j, r in enumerate(reqs):
+        for i, a in enumerate(host_outputs(fe.lookup_padded(r))):
+          got[f'lone_{j}_{i}'] = a
+      for arm, kw in (('pipe_ladder', {}),
+                      ('serial_ladder', dict(pipeline=False)),
+                      ('serial_mono', dict(pipeline=False,
+                                           bucket_ladder=False)),
+                      ('pipe_mono', dict(bucket_ladder=False))):
+        bat = serving.DynamicBatcher(fe, max_delay_ms=5.0, **kw)
+        try:
+          futs = [bat.submit(r) for r in reqs]
+          for j, fut in enumerate(futs):
+            for i, a in enumerate(fut.result(timeout=120.0)):
+              got[f'{arm}_{j}_{i}'] = a
+          out[f'{arm}_stats'] = bat.stats()
+        finally:
+          bat.close()
+      before = fe.stats()['front_end']['batches']
+      wide = [np.asarray(c) for c in reqs[2]]
+      k = case['hotness'].index(1)
+      wide[k] = np.stack([wide[k], wide[k]], axis=1)
+      out['refused_wide'] = _refusal(lambda: fe.lookup_padded(wide))
+      out['empty_shapes'] = [list(o.shape) for o in fe.lookup_padded(
+          [np.asarray(c)[:0] for c in reqs[1]])]
+      out['sent_for_refused_and_empty'] = (
+          fe.stats()['front_end']['batches'] - before)
+      local = serving.ServingEngine(
+          [c for c in eng.dist.table_configs], case['weights'],
+          batch_size=case['batch'], device='cpu',
+          mesh=mesh_lib.Mesh(torch.device('cpu')),
+          input_table_map=case['itm'], hotness=case['hotness'])
+      out['refused_mixed_pool'] = _refusal(
+          lambda: serving.ServingEnginePool([fe, local]))
+      pool = serving.ServingEnginePool(
+          [fe, fe2], max_delay_ms=2.0, queue_depth=64,
+          degrade_high_watermark=2, degrade_low_watermark=1,
+          degrade_patience=1)
+      try:
+        half = len(reqs) // 2
+        for j, r in enumerate(reqs):
+          if j == half:
+            pool.fail_replica(0)
+          for i, a in enumerate(pool.submit(r).result(timeout=120.0)):
+            got[f'pool_{j}_{i}'] = a
+        # the link held: no batch completes, so the pressure builds and
+        # the second and third low requests are served degraded
+        with fe.link.lock:
+          futs = [pool.submit(r, priority='low') for r in case['degraded']]
+        for j, fut in enumerate(futs):
+          for i, a in enumerate(fut.result(timeout=120.0)):
+            got[f'degraded_{j}_{i}'] = a
+        out['pool_stats'] = pool.stats()
+      finally:
+        pool.close()
+      # idle past the leader's timeout: the followers wait on
+      t0 = time.monotonic()
+      time.sleep(case['idle_timeout'] + 1.0)
+      out['idle_s'] = time.monotonic() - t0
+      out['front_end'] = fe.stats()['front_end']
+      out['served'] = [e.stats()['batches_served'] for e in (eng, eng2)]
+      fe.close()
+      fe.close()
+      out['refused_closed'] = _refusal(lambda: fe.lookup_padded(reqs[1]))
+      np.savez(f'{out_dir}/serve{rank}.npz', **got)
+    with open(f'{out_dir}/serve{rank}.json', 'w') as f:
+      json.dump(out, f, default=str)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def serve_fault(rank, world_size, init_method, case_path, out_dir):
+  """tests/test_torch_serving_ranks.py's fault cases.  ``case['faulty']
+  == 'follower'``: the follower's second lookup raises, so it ends its
+  process (``serve_forever``).  ``'leader'``: the leader's second block
+  raises after its forward, with the follower past its lookup.  Either
+  way the leader's batch and every later request fail with
+  ``ReplicaLostError``, it closes without hanging, and a follower left
+  waiting on the control group fails at once and ends its process.  The
+  leader saves ``fault0.json`` and lingers ``case['linger']`` seconds;
+  it leaves its process group to the process's end (the link is
+  gone)."""
+  import time
+
+  import torch
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.serving import frontend
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  frontend.LEADER_TIMEOUT_S = case['timeout']
+  reqs = case['requests']
+  eng = _serve_engine(case, m)
+  fe = serving.RankFrontEnd(eng)
+  if rank == 0 and case['faulty'] == 'leader':
+    apply_block = eng.apply_block
+    blocks = []
+
+    def faulty_block(padded, b):
+      outs = apply_block(padded, b)
+      blocks.append(b)
+      if len(blocks) == 2:
+        raise RuntimeError('injected leader fault')
+      return outs
+
+    eng.apply_block = faulty_block
+  if rank != 0 and case['faulty'] == 'follower':
+    lookup = eng.lookup
+    calls = []
+
+    def faulty(cats, samples=None):
+      calls.append(samples)
+      if len(calls) == 2:
+        raise RuntimeError('injected follower fault')
+      return lookup(cats, samples=samples)
+
+    eng.lookup = faulty
+  if rank != 0:
+    fe.serve_forever()
+    raise AssertionError('serve_forever returned after a fault')
+  out = {}
+  bat = serving.DynamicBatcher(fe, max_delay_ms=1.0)
+  out['first'] = [a.shape for a in bat.submit(reqs[2]).result(timeout=60.0)]
+  t0 = time.monotonic()
+  fut = bat.submit(reqs[3])
+  out['second'] = _refusal(lambda: fut.result(timeout=case['timeout'] * 2))
+  out['second_s'] = time.monotonic() - t0
+  out['third'] = _refusal(
+      lambda: bat.submit(reqs[4]).result(timeout=case['timeout']))
+  t0 = time.monotonic()
+  bat.close()
+  fe.close()
+  fe.close()
+  out['close_s'] = time.monotonic() - t0
+  out['lost'] = fe.stats()['front_end']['lost']
+  with open(f'{out_dir}/fault{rank}.json', 'w') as f:
+    json.dump(out, f, default=str)
+  # the process (and its sockets) stays up a while: a follower that ends
+  # before it was ended by the link, not by the leader's exit
+  time.sleep(case['linger'])
+
+
+def serve_py(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the port's ``serve.py`` across gloo ranks on the CPU
+  (tests/test_torch_serving_ranks.py): ``main`` with the world's flags;
+  on the leader every submitted request of the monolithic and ladder
+  batchers and every served overload request is recorded, then held
+  against a numpy gather of the bundle's rows (a ``-1`` id, which the
+  degraded mode makes, answers zeros).  Saves ``serve_py{rank}.json``:
+  what ``main`` returned and, on the leader, the checks' counts."""
+  import numpy as np
+  import torch
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.examples.dlrm import serve
+  from distributed_embeddings_tpu_torch.serving import batcher, pool
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  subs, reqs = [], []
+  submit, req_init = batcher.DynamicBatcher.submit, pool._PoolReq.__init__
+
+  def record(self, cats, *args, **kwargs):
+    fut = submit(self, cats, *args, **kwargs)
+    subs.append((cats, fut))
+    return fut
+
+  def record_req(self, *args, **kwargs):
+    req_init(self, *args, **kwargs)
+    reqs.append(self)
+
+  batcher.DynamicBatcher.submit = record
+  pool._PoolReq.__init__ = record_req
+  got = serve.main(case['argv'] + [
+      '--init_method', init_method, '--world_size', str(world_size),
+      '--rank', str(rank), '--dist_backend', 'gloo'])
+  out = {'returned': got}
+  if rank == 0:
+    weights, _ = serving.load_serving_bundle(case['bundle'])
+
+    def gathered(cats):
+      return [np.where((c >= 0)[:, None], w[np.maximum(c, 0)], 0)
+              for c, w in zip(cats, weights)]
+
+    def equal(answer, cats):
+      return all(np.array_equal(a, g)
+                 for a, g in zip(answer, gathered(cats)))
+
+    ok = [(cats, fut) for cats, fut in subs if fut.error() is None]
+    out['batched_served'] = len(ok)
+    out['batched_equal'] = sum(
+        equal(fut.result(timeout=0), [np.asarray(c) for c in cats])
+        for cats, fut in ok)
+    served = [r for r in reqs if r.future.error() is None]
+    out['pool_resolved'] = sum(r.future.done() for r in reqs)
+    out['pool_requests'] = len(reqs)
+    out['pool_served'] = len(served)
+    out['pool_degraded'] = sum(r.degraded for r in served)
+    out['pool_equal'] = sum(
+        equal(r.future.result(timeout=0), [np.asarray(c) for c in r.cats])
+        for r in served)
+  with open(f'{out_dir}/serve_py{rank}.json', 'w') as f:
+    json.dump(out, f, default=str)
