@@ -533,6 +533,7 @@ import collections
 import concurrent.futures
 import contextlib
 import gc
+import io
 import itertools
 import json
 import os
@@ -549,6 +550,8 @@ import torch
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch import obs, optim, serving
+from distributed_embeddings_tpu_torch.analysis import commsan, graphlint
+from distributed_embeddings_tpu_torch.analysis import core as lint_core
 from distributed_embeddings_tpu_torch.examples.benchmarks import (
     lookup_benchmark)
 from distributed_embeddings_tpu_torch.examples.dlrm import gen_data
@@ -573,6 +576,7 @@ from distributed_embeddings_tpu_torch.serving import batcher as serve_batcher
 from distributed_embeddings_tpu_torch.serving import bench as serve_bench
 from distributed_embeddings_tpu_torch.serving import pool as serve_pool
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
+from distributed_embeddings_tpu_torch.tools import graphlint as graphlint_cli
 from distributed_embeddings_tpu_torch.tools import trace_report
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import (data, fastloader,
@@ -681,6 +685,7 @@ WIRE_ARMS = (('table', {'table_dtype': 'int8', 'hot_cache': True,
 WIRE_FORWARDS = 3
 WIRE_STEPS = 3  # after a warm-up, each arm and twin
 WIRE_TIMEOUT_S = 600  # both ranks, start to end
+COMMSAN_TIMEOUT_S = 120.0  # phase 9h: a barrier's wait for the peer's digest
 BF16_WIRE_BOUND = 2.0**-6  # the JAX package's bound for the bf16 wire
 WIRE_EXAMPLE_STEPS = 3  # phase 13f's example runs
 # phase 9i: a 2 x 2 (dcn, data) mesh of four ranks on the one card; each
@@ -726,6 +731,8 @@ SERVE_RANKS_TIMEOUT_S = 600  # both ranks, start to end
 PROFILE_REPS = 3  # profile_once's and devprof's calls on the device clock
 OBS_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_obs'
 OBS_STEPS = 5  # phase 9k's fit steps, untraced and traced
+LINT_CALLS = 3  # phase 9l: a train program's warm-up and monitored calls
+LINT_BUDGET = 0.5  # phase 9l's cold-fetch budget: this of the resident bytes
 OBS_REQUIRE = ('train/step,train/sync,fwd/exchange,fwd/lookup_combine,'
                'bwd/exchange,apply/update')
 SERVE_REQUIRE = ('serve/submit,serve/enqueue,serve/dispatch,serve/lookup,'
@@ -4050,6 +4057,158 @@ class _Tee:
     self._out.flush()
 
 
+def phase_lint_tiny(model, config, seed, card):
+  """Phase 9l: graphlint's programs on the tiny model at full size, a
+  world of one on the card (``analysis/graphlint.py``): the sparse step
+  monolithic and chunked, the dense step's backward, the cached forward,
+  the serving ladder and the cold-tier fetch forward, each run under the
+  monitors, then every pass under the port's baseline, strict.  Returns
+  each program's numbers and the kernels' launches by program."""
+  tag = 'lint-tiny'
+  t_phase = time.perf_counter()
+  dist = model.dist_embedding
+  hotness = tuple(model.hotness)
+  tables, _, _ = expand_tables(config)
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  batches = train_batches(config, hotness, seed + 23, LINT_CALLS)
+  cats = batches[0][0]
+  programs = []
+
+  def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+  # the sparse step, monolithic (phase 9's layer) and chunked
+  model.embedding_params = {}
+  free()
+  model.init(seed + 23)
+  step, state = build_trainer(model)
+  prog, state = graphlint.train_program('train/monolithic', dist, state,
+                                        step, batches, parity='train-step')
+  programs.append(prog)
+  del step, state
+  free()
+  chunked = SyntheticModel(config, dp_input=True, overlap_chunks=CHUNKS,
+                           device='cuda').init(seed + 23)
+  step, state = build_trainer(chunked)
+  prog, state = graphlint.train_program(
+      'train/chunked', chunked.dist_embedding, state, step, batches,
+      parity='train-step')
+  programs.append(prog)
+  del step, state, chunked
+  free()
+  # the dense step's backward on phase 9's tables (fresh from the seed)
+  model.embedding_params = {}
+  free()
+  model.init(seed + 23)
+  programs.append(graphlint.backward_program(
+      'bwd/fused', dist, model.embedding_params, cats, parity='bwd-fuse'))
+  free()
+  # the serving ladder over phase 9's tables
+  engine = ServingEngine(dist.table_configs,
+                         checkpoint.get_weights(dist, model.embedding_params),
+                         batch_size=SERVE_BATCH, device=dist.device,
+                         input_table_map=model.input_table_map,
+                         hotness=model.hotness)
+  engine.warmup(sample_cats=[c[:SERVE_BATCH] for c in cats])
+  programs += graphlint.ladder_programs(
+      engine, {rung: [c[:rung] for c in cats] for rung in engine.buckets})
+  del engine
+  free()
+  # the cached forward
+  hot = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                       device='cuda').init(seed + 23)
+  with torch.no_grad():
+    programs.append(graphlint.forward_program(
+        'lookup/hot', hot.dist_embedding, hot.embedding_params, cats))
+  del hot
+  free()
+  # the cold-tier fetch forward: int8, under half its resident bytes
+  probe = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                         table_dtype='int8', device='cuda').dist_embedding
+  budget = int(probe.plan.resident_table_bytes() * LINT_BUDGET)
+  tiered = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                          table_dtype='int8', cold_tier=True,
+                          device_hbm_budget=budget,
+                          device='cuda').init(seed + 23)
+  tdist = tiered.dist_embedding
+  with torch.no_grad():
+    programs.append(graphlint.forward_program(
+        'serve/coldfetch', tdist, tiered.embedding_params, cats,
+        cold_fetch=lambda: tdist.build_cold_fetch(cats)))
+  del tiered, tdist, probe
+  free()
+
+  res = graphlint.run_programs(
+      programs, baseline=lint_core.Baseline.load(
+          lint_core.default_baseline_path()), backend='cuda')
+  numbers = {}
+  for prog in programs:
+    syncs = graphlint.hostsync_counts(prog)
+    hbm = res.meta['graphlint_hbm'].get(prog.name, {})
+    numbers[prog.name] = {
+        'launches': prog.launches,
+        'calls': prog.hostsync.calls if prog.hostsync else None,
+        'builds_after_warmup': prog.retrace.builds if prog.retrace else None,
+        'donation': (None if prog.donation is None else
+                     {'leaves': len(prog.donation),
+                      'inplace': sum(ok for _, ok in prog.donation)}),
+        'resident_gib': (None if hbm.get('resident_state') is None
+                         else hbm['resident_state'] / 2**30),
+        'budget_gib': (None if hbm.get('budget') is None
+                       else hbm['budget'] / 2**30),
+        'peak_gib': (None if prog.peak_bytes is None
+                     else prog.peak_bytes / 2**30),
+        'syncs': syncs}
+    n = numbers[prog.name]
+    log(f'[{tag}] {prog.name}: launches {json.dumps(prog.launches)} over '
+        f'{syncs.get("calls")} monitored call(s); builds after warm-up '
+        f'{n["builds_after_warmup"]}; donation {json.dumps(n["donation"])}; '
+        f'resident {n["resident_gib"]} GiB, budget {n["budget_gib"]} GiB, '
+        f'peak {n["peak_gib"]} GiB')
+    log(f'[{tag}] {prog.name}: host syncs a call: wrapped calls '
+        f'{syncs.get("per_call")} {json.dumps(syncs.get("sites"))}; sync '
+        f'debug mode {syncs.get("device_per_call")} '
+        f'{json.dumps(syncs.get("device_sites"))}; only the debug mode '
+        f'{syncs.get("only_device")}, only the wrapped calls '
+        f'{syncs.get("only_wrapped")}')
+  c = res.counts
+  log(f'[{tag}] card {card}: {c["findings"]} finding(s), '
+      f'{c["unverifiable"]} unverifiable, {c["waived"]} waived, '
+      f'{c["stale_waivers"]} stale, {c["expired_waivers"]} expired over '
+      f'{len(programs)} programs; waived {[f.id for f in res.waived]}')
+  for f in res.findings:
+    log(f'[{tag}] FINDING {f.id}: {f.message}')
+  if (res.findings or res.unverifiable or res.stale_waivers
+      or res.expired_waivers):
+    raise AssertionError(
+        f'{tag}: graphlint is not strict-clean on the card: findings '
+        f'{[f.id for f in res.findings + res.unverifiable]}, stale '
+        f'{res.stale_waivers}, expired {res.expired_waivers}')
+  # the catalog's own small programs on the card, as the CLI runs them
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    rc = graphlint_cli.main(['--strict', '--json'])
+  small = json.loads(out.getvalue())
+  log(f'[{tag}] python -m distributed_embeddings_tpu_torch.tools.graphlint '
+      f'--strict on the card: exit {rc}, {json.dumps(small["counts"])} over '
+      f'{len(small["meta"]["graphlint_programs"])} programs')
+  if rc != 0:
+    raise AssertionError(f'{tag}: graphlint --strict exited {rc} on the card: '
+                         f'{[f["id"] for f in small["findings"]]}, stale '
+                         f'{small["stale_waivers"]}')
+  launched = {name: sum(p.launches.get(name, 0) for p in programs)
+              for name in ('lookup_combine', 'segwalk_apply')}
+  if not all(launched.values()):
+    raise AssertionError(f'{tag}: the programs launched {launched}')
+  log(f'[{tag}] strict-clean in {time.perf_counter() - t_phase:.1f} s; '
+      f'kernel launches over the monitored calls {json.dumps(launched)}')
+  return {'programs': numbers, 'launches': {
+      name: {p.name: p.launches.get(name, 0) for p in programs}
+      for name in ('lookup_combine', 'segwalk_apply')}}
+
+
 def run_tiny(args, card):
   """Phases 3-9k on the synthetic tiny model; returns the two kernels'
   summaries.  Everything the model holds on the card is freed on
@@ -4098,6 +4257,8 @@ def run_tiny(args, card):
   obs_numbers = phase_obs_tiny(model, config, args.seed, cats, card,
                                dict(train_profile, step_ms=train_ms))
   elapsed('phase 9k')
+  lint_numbers = phase_lint_tiny(model, config, args.seed, card)
+  elapsed('phase 9l')
 
   k = dict(KERNELS[0])
   k.update({
@@ -4174,7 +4335,10 @@ def run_tiny(args, card):
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_obs_tiny'] = {
         arm: n[name] for arm, n in obs_numbers['launches'].items()}
+    # phase 9l: each program's launches over its monitored calls
+    entry['launches_lint_tiny'] = lint_numbers['launches'][name]
   seg['obs_tiny'] = obs_numbers
+  seg['lint_tiny'] = lint_numbers['programs']
   return k, seg, adam
 
 
@@ -5677,123 +5841,130 @@ def wire_rank(rank, init, out_dir, seed):
     # step's batches
     batches = [mine(b) for b in train_batches(
         config, hotness, seed + 41, WIRE_FORWARDS + WIRE_STEPS + 2)]
-    for wire, options in WIRE_ARMS:
-      options = dict(options)
-      if options.pop('hot_cache', False):
-        options['hot_cache'] = train_sets
-      exact = wire == 'table'
-      models = {w: SyntheticModel(config, mesh=m, dp_input=True,
-                                  wire_dtype=w, **options).init(seed + 43)
-                for w in (wire, None)}
-      on, off = models[wire], models[None]
-      check_wired(f'{wire}: the twins\' tables as drawn',
-                  [on.embedding_params[k] for k in sorted(
-                      on.embedding_params)],
-                  [off.embedding_params[k] for k in sorted(
-                      off.embedding_params)], exact=True)
-      dist = on.dist_embedding
-      n_subs = len(dist._subgroups(hotness))
-      n_groups = len(dist.plan.groups)
-      if dist.hot_enabled:
-        fwd_want, step_want = hot_launches(dist, hotness)
-      else:
-        fwd_want = {'lookup_combine': chunk_rounds(dist, hotness),
-                    'segwalk_apply': 0}
-        step_want = {'lookup_combine': fwd_want['lookup_combine'],
-                     'segwalk_apply': n_groups}
-      arm = {'options': {k: (v if k != 'hot_cache' else len(v))
-                         for k, v in options.items()},
-             'subgroups': n_subs, 'groups': n_groups}
-      # forwards: the wired arm counted, each against its twin
-      drift, fwd_ms = 0.0, []
-      for cats, _ in batches[:WIRE_FORWARDS]:
-        with torch.no_grad():
-          reset_launches()
-          t0 = time.perf_counter()
-          got = dist.apply(on.embedding_params, cats)
-          torch.cuda.synchronize()
-          fwd_ms.append((time.perf_counter() - t0) * 1e3)
-          launches = read_launches()
-          want = off.dist_embedding.apply(off.embedding_params, cats)
-        if launches != fwd_want:
-          raise AssertionError(f'{wire}: the wired forward launched '
-                               f'{launches}, expected {fwd_want}')
-        drift = max(drift, check_wired(f'{wire} forward', list(got),
-                                       list(want), exact))
-      arm['forward'] = {'launches': launches, 'ms': fwd_ms, 'drift': drift}
-      # each lookup launch of a wired forward against its plain version
-      tag = f'wire-rank{rank}-{wire}'
-      lookup_rows = wire_lookup_rows(dist, on.embedding_params,
-                                     batches[0][0], tag)
-      if len(lookup_rows) != fwd_want['lookup_combine']:
-        raise AssertionError(f'{tag}: {len(lookup_rows)} lookups captured, '
-                             f'{fwd_want["lookup_combine"]} launched')
-      # the recorded legs: narrowed, at the twin's collective count
-      lp_on, lp_off = dist.lookup_plan(), off.dist_embedding.lookup_plan()
-      wired = [l for l in lp_on.legs if l.wire]
-      if (not wired or [l for l in lp_off.legs if l.wire]
-          or lp_on.collective_count() != lp_off.collective_count()
-          or any(l.nbytes >= l.payload_bytes for l in wired)
-          or any(l.dtype != ('uint8' if l.wire == 'q8' else 'bfloat16')
-                 for l in wired)):
-        raise AssertionError(
-            f'{wire}: legs {[(l.name, l.dtype, l.wire) for l in lp_on.legs]}'
-            f' ({lp_on.collective_count()} collectives against the '
-            f'twin\'s {lp_off.collective_count()})')
-      rec = planner.reconcile_exchange(dist, journal=False)
-      arm['legs'] = {'collectives': lp_on.collective_count(),
-                     'wired': sorted({l.name for l in wired}),
-                     'wire_bytes': rec['counted_wire_bytes'],
-                     'payload_bytes': rec['counted_payload_bytes']}
-      arm['line'] = (
-          f'wire_dtype {wire}: narrowed leg(s) {arm["legs"]["wired"]}; '
-          f'forward exchange ships {rec["counted_wire_bytes"]:,} bytes on '
-          f'the wire vs {rec["counted_payload_bytes"]:,} at compute dtype '
-          f'({rec["counted_payload_bytes"] / max(rec["counted_wire_bytes"], 1):.2f}x '
-          'fewer)')
-      # a warm-up and `steps` hybrid steps each, phase 7's optimizers
-      trainers = {w: build_trainer(models[w]) for w in (wire, None)}
-      losses, step_ms, counted = {wire: [], None: []}, [], None
-      for w in (wire, None):
-        step, state = trainers[w]
-        state, loss = step(state, *batches[WIRE_FORWARDS])
-        losses[w].append(float(loss))
-        reset_launches()
-        for b in batches[WIRE_FORWARDS + 1:-1]:
-          t0 = time.perf_counter()
-          state, loss = step(state, *b)
-          torch.cuda.synchronize()
-          if w == wire:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+    # the steps run inside the rendezvous sanitizer's window: both ranks
+    # walk the same exchanges and steps, so their digests must agree
+    with commsan.capture('wire-ranks', timeout_s=COMMSAN_TIMEOUT_S) as cap:
+      for wire, options in WIRE_ARMS:
+        options = dict(options)
+        if options.pop('hot_cache', False):
+          options['hot_cache'] = train_sets
+        exact = wire == 'table'
+        models = {w: SyntheticModel(config, mesh=m, dp_input=True,
+                                    wire_dtype=w, **options).init(seed + 43)
+                  for w in (wire, None)}
+        on, off = models[wire], models[None]
+        check_wired(f'{wire}: the twins\' tables as drawn',
+                    [on.embedding_params[k] for k in sorted(
+                        on.embedding_params)],
+                    [off.embedding_params[k] for k in sorted(
+                        off.embedding_params)], exact=True)
+        dist = on.dist_embedding
+        n_subs = len(dist._subgroups(hotness))
+        n_groups = len(dist.plan.groups)
+        if dist.hot_enabled:
+          fwd_want, step_want = hot_launches(dist, hotness)
+        else:
+          fwd_want = {'lookup_combine': chunk_rounds(dist, hotness),
+                      'segwalk_apply': 0}
+          step_want = {'lookup_combine': fwd_want['lookup_combine'],
+                       'segwalk_apply': n_groups}
+        arm = {'options': {k: (v if k != 'hot_cache' else len(v))
+                           for k, v in options.items()},
+               'subgroups': n_subs, 'groups': n_groups}
+        # forwards: the wired arm counted, each against its twin
+        drift, fwd_ms = 0.0, []
+        for cats, _ in batches[:WIRE_FORWARDS]:
+          with torch.no_grad():
+            reset_launches()
+            t0 = time.perf_counter()
+            got = dist.apply(on.embedding_params, cats)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_launches()
+            want = off.dist_embedding.apply(off.embedding_params, cats)
+          if launches != fwd_want:
+            raise AssertionError(f'{wire}: the wired forward launched '
+                                 f'{launches}, expected {fwd_want}')
+          drift = max(drift, check_wired(f'{wire} forward', list(got),
+                                         list(want), exact))
+        arm['forward'] = {'launches': launches, 'ms': fwd_ms, 'drift': drift}
+        # each lookup launch of a wired forward against its plain version
+        tag = f'wire-rank{rank}-{wire}'
+        lookup_rows = wire_lookup_rows(dist, on.embedding_params,
+                                       batches[0][0], tag)
+        if len(lookup_rows) != fwd_want['lookup_combine']:
+          raise AssertionError(f'{tag}: {len(lookup_rows)} lookups captured, '
+                               f'{fwd_want["lookup_combine"]} launched')
+        # the recorded legs: narrowed, at the twin's collective count
+        lp_on, lp_off = dist.lookup_plan(), off.dist_embedding.lookup_plan()
+        wired = [l for l in lp_on.legs if l.wire]
+        if (not wired or [l for l in lp_off.legs if l.wire]
+            or lp_on.collective_count() != lp_off.collective_count()
+            or any(l.nbytes >= l.payload_bytes for l in wired)
+            or any(l.dtype != ('uint8' if l.wire == 'q8' else 'bfloat16')
+                   for l in wired)):
+          raise AssertionError(
+              f'{wire}: legs {[(l.name, l.dtype, l.wire) for l in lp_on.legs]}'
+              f' ({lp_on.collective_count()} collectives against the '
+              f'twin\'s {lp_off.collective_count()})')
+        rec = planner.reconcile_exchange(dist, journal=False)
+        arm['legs'] = {'collectives': lp_on.collective_count(),
+                       'wired': sorted({l.name for l in wired}),
+                       'wire_bytes': rec['counted_wire_bytes'],
+                       'payload_bytes': rec['counted_payload_bytes']}
+        arm['line'] = (
+            f'wire_dtype {wire}: narrowed leg(s) {arm["legs"]["wired"]}; '
+            f'forward exchange ships {rec["counted_wire_bytes"]:,} bytes on '
+            f'the wire vs {rec["counted_payload_bytes"]:,} at compute dtype '
+            f'({rec["counted_payload_bytes"] / max(rec["counted_wire_bytes"], 1):.2f}x '
+            'fewer)')
+        # a warm-up and `steps` hybrid steps each, phase 7's optimizers
+        trainers = {w: build_trainer(models[w]) for w in (wire, None)}
+        losses, step_ms, counted = {wire: [], None: []}, [], None
+        for w in (wire, None):
+          step, state = trainers[w]
+          state, loss = step(state, *batches[WIRE_FORWARDS])
           losses[w].append(float(loss))
-        if w == wire:
-          counted = read_launches()
-        trainers[w] = (step, state)
-      want_steps = {k: v * WIRE_STEPS for k, v in step_want.items()}
-      if counted != want_steps:
-        raise AssertionError(f'{wire}: the wired steps launched {counted}, '
-                             f'expected {want_steps}')
-      if not all(np.isfinite(losses[wire] + losses[None])):
-        raise AssertionError(f'{wire}: losses {losses}')
-      arm['steps'] = {
-          'launches': counted, 'ms': step_ms, 'losses': losses[wire],
-          'twin_losses': losses[None],
-          'drift': check_wired(f'{wire} state after the steps',
-                               _state_tensors(trainers[wire][1]),
-                               _state_tensors(trainers[None][1]), exact)}
-      # each segment-walk launch of one more wired step against its plain
-      # version
-      seg_rows = wire_segwalk_rows(*trainers[wire], *batches[-1], tag)
-      if len(seg_rows) != step_want['segwalk_apply']:
-        raise AssertionError(f'{tag}: {len(seg_rows)} segment walks '
-                             f'captured, {step_want["segwalk_apply"]} '
-                             'launched a step')
-      arm['kernels'] = {'lookup_combine': lookup_rows,
-                        'segwalk_apply': seg_rows}
-      result['arms'][wire] = arm
-      del models, on, off, dist, trainers, got, want
-      gc.collect()
-      torch.cuda.empty_cache()
+          reset_launches()
+          for b in batches[WIRE_FORWARDS + 1:-1]:
+            t0 = time.perf_counter()
+            state, loss = step(state, *b)
+            torch.cuda.synchronize()
+            if w == wire:
+              step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses[w].append(float(loss))
+          if w == wire:
+            counted = read_launches()
+          trainers[w] = (step, state)
+        want_steps = {k: v * WIRE_STEPS for k, v in step_want.items()}
+        if counted != want_steps:
+          raise AssertionError(f'{wire}: the wired steps launched {counted}, '
+                               f'expected {want_steps}')
+        if not all(np.isfinite(losses[wire] + losses[None])):
+          raise AssertionError(f'{wire}: losses {losses}')
+        arm['steps'] = {
+            'launches': counted, 'ms': step_ms, 'losses': losses[wire],
+            'twin_losses': losses[None],
+            'drift': check_wired(f'{wire} state after the steps',
+                                 _state_tensors(trainers[wire][1]),
+                                 _state_tensors(trainers[None][1]), exact)}
+        # each segment-walk launch of one more wired step against its plain
+        # version
+        seg_rows = wire_segwalk_rows(*trainers[wire], *batches[-1], tag)
+        if len(seg_rows) != step_want['segwalk_apply']:
+          raise AssertionError(f'{tag}: {len(seg_rows)} segment walks '
+                               f'captured, {step_want["segwalk_apply"]} '
+                               'launched a step')
+        arm['kernels'] = {'lookup_combine': lookup_rows,
+                          'segwalk_apply': seg_rows}
+        result['arms'][wire] = arm
+        del models, on, off, dist, trainers, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+      cap.barrier_check('wire-ranks:end')
+    digest, count = cap.digest()
+    result['commsan'] = {'digest': digest, 'records': count,
+                         'checks': cap.checks}
     torch_dist.barrier()
   finally:
     with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
@@ -5887,6 +6058,9 @@ def phase_wire_ranks(seed):
   for r in results:
     log(f'[wire-ranks] rank {r["rank"]} on {r["device"]}: gloo took CUDA '
         f'tensors in {sorted(r["collectives"])}')
+    log(f'[wire-ranks] rank {r["rank"]} commsan: digest '
+        f'{r["commsan"]["digest"]} over {r["commsan"]["records"]} records, '
+        f'{r["commsan"]["checks"]} barrier check(s)')
     for wire, arm in r['arms'].items():
       log(f'[wire-ranks] rank {r["rank"]} {arm["line"]}')
       log(f'[wire-ranks] rank {r["rank"]} {wire} ({json.dumps(arm["options"])}'
@@ -5898,6 +6072,11 @@ def phase_wire_ranks(seed):
           'card): ' + json.dumps(clocked(
               {name: checked_sum(rows)
                for name, rows in arm['kernels'].items()})))
+  digests = {(r['commsan']['digest'], r['commsan']['records'])
+             for r in results}
+  if len(digests) != 1:
+    raise AssertionError(f'wire-ranks: the ranks\' commsan digests differ: '
+                         f'{[r["commsan"] for r in results]}')
   log(f'[wire-ranks] both ranks passed in {wall:.1f} s (two processes on '
       'one card over gloo, which stages CUDA tensors through host memory: '
       'a correctness run, not an exchange speed)')

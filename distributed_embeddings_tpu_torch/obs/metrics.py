@@ -110,6 +110,14 @@ REGISTERED_STATS_KEYS = frozenset({
     'wire_dtype',
 })
 
+# The ``stats()`` keys of components the port alone has: the multi-rank
+# front end's ``front_end`` block (serving/frontend.py).  Kept apart so
+# that REGISTERED_STATS_KEYS stays the JAX package's names; the registry
+# pass of detlint checks ``stats()`` keys against both.
+PORT_STATS_KEYS = frozenset({
+    'front_end', 'samples', 'broadcast_ms', 'gather_ms', 'lost',
+})
+
 # The JAX package's bench-artifact keys, whole (the same names for the
 # same facts; the port makes the devprof block's, devprof.artifact_block).
 REGISTERED_ARTIFACT_KEYS = frozenset({

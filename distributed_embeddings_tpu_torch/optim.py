@@ -94,7 +94,7 @@ def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
             eps: float = 1e-7) -> GradientTransformation:
   """``optax.adagrad``: ``t += g * g``; ``u = where(t > 0, 1 / sqrt(t +
   eps), 0) * g * -lr``.  State ``{'sum_of_squares': tree}``, each leaf at
-  its param's dtype."""
+  its param's dtype, updated in place."""
 
   def init(params: Params):
     return {'sum_of_squares': tree_map(
@@ -102,7 +102,10 @@ def adagrad(learning_rate: float, initial_accumulator_value: float = 0.1,
 
   def update(grads: Params, state, params=None):
     del params
-    sos = tree_map(lambda g, s: g * g + s, grads, state['sum_of_squares'])
+    # in place, as the JAX step's donated accumulators are reused: the
+    # returned state holds the same tensors
+    sos = tree_map(lambda g, s: s.copy_(g * g + s), grads,
+                   state['sum_of_squares'])
     step = _rounded(-learning_rate, _dtypes(grads))
     eps_at = _rounded(eps, _dtypes(sos))
 

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.analysis import commsan
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import checkpoint
@@ -552,6 +553,10 @@ class StateAuditor:
 
   def _run(self, params, opt_state, dense_flat, step):
     self.audits += 1
+    # the audit is a rendezvous every rank reaches (its checks gather
+    # over the ranks): fold it into the rendezvous sanitizer's sequence
+    # here and compare the digests at its end (docs/design.md §22)
+    commsan.record('audit/run', audit=self.audits)
     t0 = time.perf_counter()
     findings: List[AuditFinding] = []
     emb = dict(params or {})
@@ -598,6 +603,7 @@ class StateAuditor:
     obs_metrics.observe('audit.call_ms', call_ms)
     if findings:
       obs_metrics.inc('audit.findings', len(findings))
+    commsan.barrier_check(f'audit:{self.audits}')
     return findings
 
   def _tier_findings(self, tier) -> List[AuditFinding]:

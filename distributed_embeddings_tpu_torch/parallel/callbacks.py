@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.parallel.checkpoint import (
-    export_tables, get_optimizer_state, is_hybrid_opt_state,
+    commsan_save, export_tables, get_optimizer_state, is_hybrid_opt_state,
     prune_checkpoints, save_train_npz, train_extras)
 
 
@@ -90,6 +90,9 @@ class CheckpointCallback:
             re.split(r'\{step[^}]*\}', os.path.basename(self.path)))
         prune_checkpoints(os.path.dirname(os.path.abspath(path)) or '.',
                           self.keep_last, pattern=base)
+    else:
+      # the save's barrier of the rendezvous sanitizer, on every rank
+      commsan_save(int(extras['step']))
     if self.dist.mesh.product_size > 1:
       torch_dist.barrier(group=self.dist.mesh.product_group)
     logs['checkpoint'] = path

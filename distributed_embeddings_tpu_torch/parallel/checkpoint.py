@@ -97,6 +97,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.analysis import commsan
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import quantization
@@ -1279,7 +1280,17 @@ def save_train_npz(path: str,
                        path=os.path.basename(path))
   obs_metrics.inc('ckpt.saves')
   obs_metrics.observe('ckpt.save_ms', save_ms)
-  # the rendezvous sanitizer's record and barrier check: item 16
+  commsan_save(int(np.asarray(extras['step']))
+               if extras and 'step' in extras else None)
+
+
+def commsan_save(step: Optional[int]):
+  """The rendezvous sanitizer's record and barrier check of a train-state
+  save (docs/design.md §22): the periodic save is a barrier every rank
+  reaches.  ``save_train_npz`` calls it; on several ranks, where one
+  rank writes, ``CheckpointCallback`` calls it on the others."""
+  commsan.record('ckpt/save', step=step)
+  commsan.barrier_check(f'ckpt:{step}')
 
 
 def _quantized_members(i: int, w: QuantizedWeight) -> Dict[str, np.ndarray]:
@@ -1414,6 +1425,9 @@ def restore_train_state(dist: DistributedEmbedding, state, source: str,
                        source=os.path.basename(source))
   obs_metrics.inc('ckpt.restores')
   obs_metrics.observe('ckpt.restore_ms', restore_ms)
+  # recorded WITHOUT a barrier check: a restore may run on one rank only
+  # (the rollback path); the next barrier's comparison finds the split
+  commsan.record('ckpt/restore', source=os.path.basename(source))
   return out
 
 

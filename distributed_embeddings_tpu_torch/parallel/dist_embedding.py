@@ -74,6 +74,7 @@ import numpy as np
 import torch
 import torch.distributed as torch_dist
 
+from distributed_embeddings_tpu_torch.analysis import commsan
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
@@ -1080,7 +1081,13 @@ class DistributedEmbedding:
     stream after them; gloo runs them on its thread), and the pending
     phase keeps the send buffers alive until ``wait``.  A float buffer
     that requires grad takes the synchronous, differentiable
-    ``_AllToAll`` instead (the cotangents take the same exchange back)."""
+    ``_AllToAll`` instead (the cotangents take the same exchange back).
+
+    Each issued phase is one ``trace:{name}`` record of the rendezvous
+    sanitizer (``analysis/commsan.py``; a no-op outside its window), with
+    the phase's axis and leg count.  The port records on every call, as
+    it runs eagerly; the JAX package records once, when it traces the
+    exchange."""
     if axis is not None and axis == self.dcn_axis:
       D, group = self.num_slices, self.mesh.dcn_group
     else:
@@ -1118,6 +1125,7 @@ class DistributedEmbedding:
         moves.append(([(i, b)], None))
     if plan is not None:
       plan.record(legs)
+    commsan.record(f'trace:{name}', axis=axis, legs=len(legs))
     differentiable = torch.is_grad_enabled() and any(
         b.requires_grad for _, b in live)
     for members, segments in moves:

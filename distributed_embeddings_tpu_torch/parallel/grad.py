@@ -30,6 +30,7 @@ import torch
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch import optim
+from distributed_embeddings_tpu_torch.analysis import commsan
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel.coldtier import (
@@ -482,12 +483,15 @@ def fit(step_fn: Callable,
     resilience.journal('rollback', anomaly=a.kind, detect_step=a.step,
                        at_step=detect_at, to_step=to_step, path=path,
                        attempt=rollbacks, policy=on_anomaly)
-    # the rendezvous sanitizer's records of the rollback: item 16
+    commsan.record('fit/rollback', anomaly=a.kind, to_step=to_step,
+                   attempt=rollbacks)
     if on_anomaly == 'rollback_skip' and detect_at > to_step:
       # batches (to_step, detect_at] never replay
       resilience.journal('skip_window', from_step=to_step,
                          to_step=detect_at,
                          batches=detect_at - to_step)
+      commsan.record('fit/skip_window', from_step=to_step,
+                     to_step=detect_at)
       it = iter(data_factory(detect_at))
     else:
       it = iter(data_factory(to_step))
@@ -516,6 +520,7 @@ def fit(step_fn: Callable,
             else:
               state, loss = step_fn(state, *args)
           obs_metrics.inc('train.steps')
+          commsan.record('fit/step', step=i + 1)
           window.append(loss)
           i += 1
           if auditor is not None and i % auditor.every == 0:

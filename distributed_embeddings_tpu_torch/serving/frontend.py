@@ -194,7 +194,9 @@ class _Link:
     pg, self.pg = self.pg, None
     try:
       torch_dist.destroy_process_group(pg)
-    except Exception:  # the batch's own error is the one raised
+    except (RuntimeError, ValueError):
+      # a group the fault already broke, or one destroyed before: the
+      # batch's own error is the one raised
       pass
 
   def close(self):

@@ -25,36 +25,14 @@ under ``--strict``, 4 on required spans missing under ``--require``:
 
 from __future__ import annotations
 
-import argparse
 import json
 import sys
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from distributed_embeddings_tpu_torch.obs.trace import (REGISTERED_SPANS,
                                                          span_category)
-
-# the exit-code contract of the repository's tools
-EXIT_OK, EXIT_MALFORMED, EXIT_STRICT, EXIT_REQUIRE = 0, 2, 3, 4
-_CODES = {'MALFORMED': EXIT_MALFORMED, 'STRICT': EXIT_STRICT,
-          'REQUIRE': EXIT_REQUIRE}
-
-
-def _fail(klass: str, message: Any) -> int:
-  """The uniform ``trace_report: KLASS: message`` stderr line; returns
-  the class's exit code."""
-  print(f'trace_report: {klass}: {message}', file=sys.stderr)
-  return _CODES[klass]
-
-
-def _emit(payload: Any, as_json: bool, text: Callable[[], str]) -> None:
-  """The JSON payload (``--json``) or the text rendering."""
-  if as_json:
-    print(json.dumps(payload, indent=2, default=str))
-  else:
-    out = text()
-    if out:
-      print(out)
+from distributed_embeddings_tpu_torch.tools import _cli
 
 
 _KNOWN_PH = {'X', 'B', 'E', 'b', 'e', 'i', 'M'}
@@ -293,17 +271,13 @@ def format_report(rep: Dict[str, Any]) -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-  ap = argparse.ArgumentParser(
-      prog='trace_report',
+  ap = _cli.make_parser(
+      'trace_report',
       description='Per-step phase breakdown + stall attribution over an '
       'obs Chrome-trace file; nonzero exit on a malformed trace '
       '(pipeline-gate friendly).',
-      formatter_class=argparse.RawDescriptionHelpFormatter)
-  ap.add_argument('--json', action='store_true',
-                  help='emit the result as JSON instead of text')
-  ap.add_argument('--strict', action='store_true',
-                  help='exit 3 when any span name is not in '
-                  'obs.REGISTERED_SPANS')
+      strict_help='exit 3 when any span name is not in '
+      'obs.REGISTERED_SPANS')
   ap.add_argument('trace', help='trace JSON written by obs.trace.save()')
   ap.add_argument('--require', default=None,
                   help='comma-separated span names that must appear; '
@@ -312,18 +286,19 @@ def main(argv: Optional[List[str]] = None) -> int:
   try:
     events = load_trace(args.trace)
   except TraceFormatError as e:
-    return _fail('MALFORMED', e)
+    return _cli.fail('trace_report', 'MALFORMED', e)
   rep = report(events)
-  _emit(rep, args.json, lambda: format_report(rep))
+  _cli.emit(rep, args.json, lambda: format_report(rep))
   if args.strict and rep['unregistered']:
-    return _fail('STRICT',
-                 f"unregistered span name(s) {rep['unregistered']}")
+    return _cli.fail('trace_report', 'STRICT',
+                     f"unregistered span name(s) {rep['unregistered']}")
   if args.require:
     missing = [n for n in args.require.split(',')
                if n and n not in rep['phases']]
     if missing:
-      return _fail('REQUIRE', f'missing span(s) {missing}')
-  return EXIT_OK
+      return _cli.fail('trace_report', 'REQUIRE',
+                       f'missing span(s) {missing}')
+  return _cli.EXIT_OK
 
 
 if __name__ == '__main__':

@@ -61,6 +61,12 @@ REGISTERED_EVENTS = frozenset({
     # and failover, the degraded mode's crossings
     'serve_shed', 'serve_admission', 'serve_replica_quarantined',
     'serve_failover', 'serve_degraded_enter', 'serve_degraded_exit',
+    # the exchange pricer's assumption and its reconciliation with the
+    # recorded legs (parallel/planner.py)
+    'exchange_cost_model', 'exchange_reconciliation',
+    # the rendezvous sanitizer (analysis/commsan.py): each barrier's
+    # digest, and a disagreement between ranks
+    'commsan_digest', 'commsan_mismatch',
 })
 
 _lock = threading.Lock()

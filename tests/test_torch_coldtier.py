@@ -403,6 +403,32 @@ def test_cold_fetch_pipeline_ordered_and_measured():
   pipe.close()
 
 
+def test_cold_fetch_pipeline_under_port_locksan():
+  """The pipeline's prefetch ring under the port's own locksan (the JAX
+  package runs its pipeline under its locksan,
+  tests/test_quantized_storage.py): a full epoch in order, then a second
+  pipeline closed after one batch of four; the observed lock graph stays
+  acyclic."""
+  from distributed_embeddings_tpu_torch.analysis import locksan
+  rng = np.random.default_rng(43)
+  d = _tiered('int8')
+  checkpoint.set_weights(d, _weights(rng))
+  batches = [_ids(np.random.default_rng(200 + i), 8) for i in range(4)]
+  with locksan.capture('port-cold-fetch-pipeline') as cap:
+    pipe = coldtier.ColdFetchPipeline(d, iter(batches))
+    seen = [cats for cats, _ in pipe]
+    pipe.close()
+    early = coldtier.ColdFetchPipeline(d, iter(batches))
+    next(iter(early))
+    early.close()
+  assert len(seen) == 4
+  for got, want in zip(seen, batches):
+    for a, b in zip(got, want):
+      np.testing.assert_array_equal(a, b)
+  assert cap.locks_created > 0
+  cap.assert_acyclic()
+
+
 def test_training_touches_the_host_tier():
   """A step writes back exactly the fetched tail rows: touched rows land
   in the tier, untouched ones keep their bits."""

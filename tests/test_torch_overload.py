@@ -422,8 +422,19 @@ def test_shutdown_under_overload_resolves_everything():
   """close() while replica 1 is held at its gate with a saturated queue
   and replica 0 faulting resolves EVERY future (served, shed or
   replica lost), with the lock graph acyclic."""
+  _shutdown_under_overload(locksan)
+
+
+def test_shutdown_under_overload_port_locksan():
+  """The same shutdown under the port's own locksan
+  (``distributed_embeddings_tpu_torch/analysis/locksan.py``)."""
+  from distributed_embeddings_tpu_torch.analysis import locksan as port
+  _shutdown_under_overload(port)
+
+
+def _shutdown_under_overload(sanitizer):
   w = _weights()
-  with locksan.capture('port-pool-shutdown-overload') as cap:
+  with sanitizer.capture('port-pool-shutdown-overload') as cap:
     eng0, eng1 = _engine(weights=w), _engine(weights=w)
     for e in (eng0, eng1):
       e.warmup()

@@ -16,9 +16,10 @@ resident twin (``tier``, for tests/test_torch_coldtier_ranks.py) or
 one segmented-dispatch profile (``devprof``, for
 tests/test_torch_devprof.py) or the multi-rank serving front end
 (``serve_ranks``, ``serve_fault`` and ``serve_py``, for
-tests/test_torch_serving_ranks.py): joins a gloo world on the CPU, runs
-on its slice of the batch and saves what it got.  Imports
-nothing of JAX (spawned processes import only this)."""
+tests/test_torch_serving_ranks.py) or the rendezvous sanitizer's fit
+drills (``commsan_fit``, for tests/test_torch_commsan.py): joins a gloo
+world on the CPU, runs on its slice of the batch and saves what it got.
+Imports nothing of JAX (spawned processes import only this)."""
 
 import itertools
 import json
@@ -1731,3 +1732,94 @@ def serve_py(rank, world_size, init_method, case_path, out_dir):
         for r in served)
   with open(f'{out_dir}/serve_py{rank}.json', 'w') as f:
     json.dump(out, f, default=str)
+
+
+def commsan_fit(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the rendezvous sanitizer's drills (for
+  tests/test_torch_commsan.py), each inside a ``commsan.capture``:
+  ``'clean'`` runs ``grad.fit`` over ``case['steps']`` hybrid steps with
+  a ``StateAuditor`` and a ``CheckpointCallback`` (every barrier must
+  pass); ``'rollback'`` does the same with ``on_anomaly='rollback'``,
+  and rank ``case['faulty_rank']`` alone raises ``TierIntegrityError``
+  (a host-local detection) before step ``case['fault_step']``, so that
+  rank alone restores the newest checkpoint and replays.  Saves each
+  drill's digest, record count, barrier checks and the
+  ``CommSequenceError`` it raised (None when none)."""
+  import os
+
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.analysis import commsan
+  from distributed_embeddings_tpu_torch.parallel import audit
+  from distributed_embeddings_tpu_torch.parallel import callbacks
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.coldtier import (
+      TierIntegrityError)
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  results = {}
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    dist = DistributedEmbedding(tables, mesh=m, dp_input=True)
+    b = case['batch'] // world_size
+    data = [([c[rank * b:(rank + 1) * b] for c in cats],
+             torch.tensor(y[rank * b:(rank + 1) * b]))
+            for cats, y in case['batches']]
+
+    def head(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y) ** 2)
+
+    dense_opt, emb_opt = optim.adagrad(0.05), sparse.SparseAdagrad(0.05)
+    step = sparse.make_hybrid_train_step(dist, head, dense_opt, emb_opt)
+    for drill in ('clean', 'rollback'):
+      ckpt_dir = os.path.join(out_dir, f'ckpt_{drill}')
+      os.makedirs(ckpt_dir, exist_ok=True)
+      torch_dist.barrier()
+      state = sparse.init_hybrid_train_state(
+          dist, {'embedding': checkpoint.set_weights(dist, case['weights']),
+                 'kernel': torch.tensor(case['kernel'])},
+          dense_opt, emb_opt)
+      fired = []
+
+      def fn(s, cats, y, drill=drill, fired=fired):
+        if (drill == 'rollback' and rank == case['faulty_rank']
+            and int(s.step) + 1 == case['fault_step'] and not fired):
+          fired.append(int(s.step))
+          raise TierIntegrityError([(0, rank, [0])])
+        return step(s, cats, y)
+
+      cb = callbacks.CheckpointCallback(
+          dist, os.path.join(ckpt_dir, 'ckpt_{step}.npz'),
+          every=case['every'])
+      error = None
+      with commsan.capture(drill, timeout_s=case['timeout_s']) as cap:
+        try:
+          grad.fit(fn, state, iter(data), steps=case['steps'],
+                   log_every=case['every'], callbacks=[cb], verbose=False,
+                   auditor=audit.StateAuditor(dist, every=case['every']),
+                   on_anomaly='rollback' if drill == 'rollback' else None,
+                   rollback_dir=ckpt_dir, dist=dist,
+                   data_factory=lambda k: iter(data[k:]))
+        except commsan.CommSequenceError as e:
+          error = str(e)
+      digest, count = cap.digest()
+      results[drill] = {'digest': digest, 'records': count,
+                        'checks': cap.checks, 'error': error,
+                        'fired': fired, 'records_list': cap.records}
+    with open(os.path.join(out_dir, f'commsan{rank}.json'), 'w') as f:
+      json.dump(results, f)
+  finally:
+    torch_dist.destroy_process_group()
