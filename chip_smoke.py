@@ -257,6 +257,32 @@ Phases, each of which exits non-zero on failure:
             program's clock, the coverage, the embedding step beside
             phase 9's step and its host syncs; obs.measure_overhead at
             phase 9's median step.
+9l. lint-tiny: graphlint's programs on the tiny model at full size, a
+            world of one on the card (the sparse step monolithic and
+            chunked, the dense backward, the cached forward, the serving
+            ladder, the cold-tier fetch forward) under the monitors, every
+            pass strict under the port's baseline; graphlint's CLI on its
+            own small catalog, strict; then lintall --strict (detlint,
+            graphlint and commlint's four passes, one catalog) with the
+            catalog on two gloo ranks on this card: each program's
+            plan-predicted exchange rows against the rows the port's
+            ledger records (every program matched), and commlint's
+            verdicts.
+9m. hot-dense: the dense autodiff trainer (grad.make_train_step,
+            optim.adagrad on every param) on phase 9e's cached model (the
+            JAX bench's training hot sets, drawn from 9e's seed): the
+            first batch's gradient of the largest hot buffer and of the
+            largest table against the sparse path's on the same batch
+            (backward_to_mp's HotGrads, and the table's compacted stream:
+            the same segment-walk sums, bit-exact expected, rtol = atol =
+            1e-6 the bound; untouched rows zero), its launches one
+            step's; a warm-up and 3 dense steps, every loss finite and
+            every gather and partial on the lookup kernel and every
+            segment sum on the segment walk (counted a step); one more
+            step captured, each cold gather and hot partial against the
+            lookup's plain version and each segment sum (the hot
+            backward's and each table gradient's) against the segment
+            walk's, timed beside the bound and the library call.
 10. dlrm:   the tiny models freed, the DLRM of examples/dlrm/main.py at
             the MLPerf Criteo-1TB table sizes (26 tables, 187,767,399
             rows x 128, bf16, about 44.8 GiB, no row cut), model-parallel
@@ -577,6 +603,7 @@ from distributed_embeddings_tpu_torch.serving import bench as serve_bench
 from distributed_embeddings_tpu_torch.serving import pool as serve_pool
 from distributed_embeddings_tpu_torch.serving.engine import ServingEngine
 from distributed_embeddings_tpu_torch.tools import graphlint as graphlint_cli
+from distributed_embeddings_tpu_torch.tools import lintall as lintall_cli
 from distributed_embeddings_tpu_torch.tools import trace_report
 from distributed_embeddings_tpu_torch.tools import verify_checkpoint
 from distributed_embeddings_tpu_torch.utils import (data, fastloader,
@@ -733,6 +760,7 @@ OBS_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_obs'
 OBS_STEPS = 5  # phase 9k's fit steps, untraced and traced
 LINT_CALLS = 3  # phase 9l: a train program's warm-up and monitored calls
 LINT_BUDGET = 0.5  # phase 9l's cold-fetch budget: this of the resident bytes
+HOT_DENSE_STEPS = 3  # phase 9m's dense steps after its warm-up
 OBS_REQUIRE = ('train/step,train/sync,fwd/exchange,fwd/lookup_combine,'
                'bwd/exchange,apply/update')
 SERVE_REQUIRE = ('serve/submit,serve/enqueue,serve/dispatch,serve/lookup,'
@@ -1247,23 +1275,37 @@ def phase_train(model, config, seed):
   return step, state, calls, batches[-1], launches, times
 
 
+def stream_read_bytes(segs, row_bytes):
+  """``(valid, bytes)``: the positions of a sorted stream that fall in a
+  segment (its ids in ``[0, rows)``), and the least bytes a segment sum
+  over it must read: each such position's id and gradient-row index,
+  and each gradient row they name, once (``row_bytes`` a row).
+  Padding positions sort to the ends of the stream, so the valid ones
+  are ``[starts[0], ends[-1])``; neither they nor the rows only they
+  name are read."""
+  if not segs.count:
+    return 0, 0
+  lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+  named = int(torch.unique(segs.gidx[lo:hi]).numel())
+  return hi - lo, (hi - lo) * 8 + named * row_bytes
+
+
 def segwalk_bound(segs, grads, table, acc, op):
-  """``(bytes, bound_ms, bound_by)`` of one apply: each position's id
-  and gradient-row index read once, each compact gradient row read once
-  (2 B an element for a bf16 stream), each touched table and state row
-  read and written once (a bf16 accumulator at 2 B an element; Adam's m
-  and v at 4 B and its count at 4 B a row); f32 operations per summed
-  element and per updated element."""
-  n, u, w = segs.sorted_ids.shape[0], segs.count, table.shape[1]
-  valid = int((segs.ends - segs.starts).sum())
+  """``(bytes, bound_ms, bound_by)`` of one apply: the stream's valid
+  positions and the gradient rows they name read once
+  (``stream_read_bytes``; 2 B an element for a bf16 stream), each
+  touched table and state row read and written once (a bf16 accumulator
+  at 2 B an element; Adam's m and v at 4 B and its count at 4 B a row);
+  f32 operations per summed element and per updated element."""
+  u, w = segs.count, table.shape[1]
+  valid, read_bytes = stream_read_bytes(segs, w * grads.element_size())
   if op == 'adam':
     state_bytes, row_bytes, ops = 8, 4, 13
   else:
     state_bytes, row_bytes, ops = (
         0 if acc is None else acc.element_size(), 0, 6)
   row_rw = 2 * (w * (table.element_size() + state_bytes) + row_bytes)
-  nbytes = n * 4 + n * 4 + grads.shape[0] * w * grads.element_size() + \
-      u * row_rw
+  nbytes = read_bytes + u * row_rw
   flops = valid * w * (1 if op != 'adagrad_sq' else 3) + u * w * ops
   bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
   ops_ms = flops / F32_FLOP_PER_S * 1e3
@@ -1938,14 +1980,15 @@ def check_add_stream(segs, rows, vocab, dtype, label, tag):
       lambda: torch.zeros((vocab, w), dtype=dtype, device=dev).index_add_(
           0, lib_ids, lib_rows), 10)
   del lib_ids, lib_rows
-  # the least bytes of the function: the stream's ids and row map and
-  # its cotangent rows read once, the gradient written once; one f32 add
-  # per valid element.  The 'add' alone reads and writes only the
-  # touched rows, and adds each segment's sum into its row.
+  # the least bytes of the function: the stream's valid positions and
+  # the cotangent rows they name read once (``stream_read_bytes``; the
+  # padding and the rows only it names are not), the gradient written
+  # once; one f32 add per valid element.  The 'add' alone reads and
+  # writes only the touched rows, and adds each segment's sum into its
+  # row.
   n, m, u = segs.sorted_ids.shape[0], rows.shape[0], segs.count
-  valid = int((segs.ends - segs.starts).sum())
+  valid, stream_bytes = stream_read_bytes(segs, w * rows.element_size())
   itemsize = torch.empty((), dtype=dtype).element_size()
-  stream_bytes = n * 4 + n * 4 + m * w * 4
   nbytes = stream_bytes + vocab * w * itemsize
   add_bytes = stream_bytes + 2 * u * w * itemsize
   bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3577,39 +3620,47 @@ def close_tables(a, b, rtol, atol):
   return ok, err
 
 
-def captured_hot_step(step, state, cats, batch):
-  """One real cached training step that also records the arguments of
-  its lookups (the cold-row gathers, ``fused_group_lookup``, and the hot
-  partials, ``dense_lookup``), of its segment sums
-  (``routing.segment_sum``) and, as ``captured_compact_applies`` does,
-  of its applies."""
-  gathers, partials, sums = [], [], []
+@contextlib.contextmanager
+def recorded_hot_kernels():
+  """Inside the block, record the arguments of a hot-cache layer's
+  lookups (the cold-row gathers, ``fused_group_lookup``, and the hot
+  partials, ``dense_lookup``) and of its segment sums
+  (``routing.segment_sum``), into the dict it yields.  Tables are
+  recorded detached (the dense step's are autograd leaves)."""
+  calls = {'gathers': [], 'partials': [], 'sums': []}
   fused, dense, segsum = (lookup.fused_group_lookup, lookup.dense_lookup,
                           routing.segment_sum)
 
   def record_fused(table, routed, combiners, compute_dtype, scale=None):
-    gathers.extend((table, r) for r in routed)
+    calls['gathers'].extend((table.detach(), r) for r in routed)
     return fused(table, routed, combiners, compute_dtype, scale)
 
   def record_dense(table, ids, combiner, out_dtype=None, scale=None):
-    partials.append((table, ids))
+    calls['partials'].append((table.detach(), ids))
     return dense(table, ids, combiner, out_dtype, scale)
 
   def record_sum(seg, rows, num, row_index=None):
-    sums.append((seg, rows, num, row_index))
+    calls['sums'].append((seg, rows, num, row_index))
     return segsum(seg, rows, num, row_index)
 
   lookup.fused_group_lookup = record_fused
   lookup.dense_lookup = record_dense
   routing.segment_sum = record_sum
   try:
-    state, loss, applies = captured_compact_applies(step, state, cats, batch)
+    yield calls
   finally:
     lookup.fused_group_lookup = fused
     lookup.dense_lookup = dense
     routing.segment_sum = segsum
-  return state, loss, {'gathers': gathers, 'partials': partials,
-                       'sums': sums, 'applies': applies}
+
+
+def captured_hot_step(step, state, cats, batch):
+  """One real cached training step that also records its kernels'
+  arguments (``recorded_hot_kernels``) and, as
+  ``captured_compact_applies`` does, its applies."""
+  with recorded_hot_kernels() as calls:
+    state, loss, applies = captured_compact_applies(step, state, cats, batch)
+  return state, loss, dict(calls, applies=applies)
 
 
 def phase_hot_serving(model, serve_sets, cats, rng):
@@ -4202,11 +4253,212 @@ def phase_lint_tiny(model, config, seed, card):
               for name in ('lookup_combine', 'segwalk_apply')}
   if not all(launched.values()):
     raise AssertionError(f'{tag}: the programs launched {launched}')
-  log(f'[{tag}] strict-clean in {time.perf_counter() - t_phase:.1f} s; '
-      f'kernel launches over the monitored calls {json.dumps(launched)}')
+  log(f'[{tag}] graphlint strict-clean in {time.perf_counter() - t_phase:.1f} '
+      f's; kernel launches over the monitored calls {json.dumps(launched)}')
   return {'programs': numbers, 'launches': {
       name: {p.name: p.launches.get(name, 0) for p in programs}
-      for name in ('lookup_combine', 'segwalk_apply')}}
+      for name in ('lookup_combine', 'segwalk_apply')},
+      'lintall': phase_lintall(tag, card)}
+
+
+def phase_lintall(tag, card):
+  """Phase 9l's second half: ``lintall --strict`` on the card (detlint,
+  graphlint and commlint's four passes over the port's tree, one
+  catalog): the catalog runs on ``commlint.CATALOG_WORLD`` gloo ranks,
+  every rank on this card (a world of one issues no collective, so the emission pass
+  needs ranks), and commlint's emission pass holds each program's
+  plan-predicted exchange rows against the rows the port's ledger
+  recorded.  Every tier strict-clean and every program matched, or the
+  phase fails.  Returns the counts, the rows and the verdicts."""
+  t0 = time.perf_counter()
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    rc = lintall_cli.main(['--strict', '--json'])
+  payload = json.loads(out.getvalue())
+  seconds = time.perf_counter() - t0
+  counts = {tool: payload[tool].get('counts', payload[tool])
+            for tool in lintall_cli.TOOLS}
+  meta = payload['commlint']['meta']
+  emission = meta.get('commlint_emission', {})
+  for name, e in sorted(emission.items()):
+    log(f'[{tag}] commlint emission {name}: predicted {e["predicted"]} '
+        f'exchange row(s), the ledger records {e["ledger"]} row(s), '
+        f'{e.get("allowed_sync")} declared sync(s), matched '
+        f'{e.get("matched")}')
+  backend = payload['graphlint'].get('meta', {}).get('graphlint_backend')
+  log(f'[{tag}] commlint verdicts on card {card}: rankvar '
+      f'{json.dumps(meta.get("commlint_rankvar"))}; rendezvous '
+      f'{json.dumps(meta.get("commlint_rendezvous"))}; recovery '
+      f'{json.dumps(meta.get("commlint_recovery"))}; waived '
+      f'{payload["commlint"]["waived"]}')
+  log(f'[{tag}] python -m distributed_embeddings_tpu_torch.tools.lintall '
+      f'--strict (catalog on {backend}): exit {rc} in '
+      f'{seconds:.1f} s; {json.dumps(counts)}')
+  for tool in lintall_cli.TOOLS:
+    for f in payload[tool].get('findings', []):
+      log(f'[{tag}] {tool} FINDING {f["id"]}: {f["message"]}')
+    if payload[tool].get('stale_waivers'):
+      log(f'[{tag}] {tool} stale: {payload[tool]["stale_waivers"]}')
+  if rc != 0 or backend != 'cuda':
+    raise AssertionError(f'{tag}: lintall --strict exited {rc} (catalog on '
+                         f'{backend}): {json.dumps(counts)}')
+  if not emission or not all(e.get('matched') and e['ledger'] is not None
+                             for e in emission.values()):
+    raise AssertionError(f'{tag}: commlint emission unmatched: '
+                         f'{json.dumps(emission)}')
+  return {'exit': rc, 'seconds': seconds, 'counts': counts,
+          'emission': emission,
+          'rendezvous': meta.get('commlint_rendezvous'),
+          'recovery': meta.get('commlint_recovery'),
+          'rankvar': meta.get('commlint_rankvar'),
+          'waived': payload['commlint']['waived']}
+
+
+def phase_hot_dense(config, seed):
+  """Phase 9m: the dense autodiff trainer on phase 9e's hot tiny model
+  at full size (see the module docstring).  Returns the numbers and the
+  kernel rows."""
+  tag = 'hot-dense'
+  t_phase = time.perf_counter()
+  tables, _, _ = expand_tables(config)
+  train_sets = hotcache.analytic_power_law_hot_sets(tables, HOT_ALPHA,
+                                                    HOT_COVERAGE)
+  model = SyntheticModel(config, dp_input=True, hot_cache=train_sets,
+                         device='cuda').init(seed + 17)
+  dist = model.dist_embedding
+  hotness = tuple(model.hotness)
+  _, step_want = hot_launches(dist, hotness)
+  opt = optim.adagrad(LR, initial_accumulator_value=0.1, eps=1e-7)
+
+  def loss_fn(params, batch):
+    cats, (numerical, labels) = batch
+    return dlrm.bce_with_logits(model.apply(params, numerical, cats), labels)
+
+  batches = [(b,) for b in train_batches(config, hotness, seed + 29,
+                                          HOT_DENSE_STEPS + 2)]
+  params = {'embedding': model.embedding_params, **model.dense_params()}
+  log(f'[{tag}] phase 9e\'s cached model ({len(dist.plan.hot_groups)} hot '
+      f'groups), the dense step (make_train_step, optim.adagrad on every '
+      f'param, hot buffers included); a step launches {json.dumps(step_want)}')
+
+  # the first step's gradient against the sparse path's on its batch
+  reset_launches()
+  loss, grads = grad.DistributedGradientTape(loss_fn).value_and_gradient(
+      params, batches[0][0])
+  torch.cuda.synchronize()
+  grad_launches = read_launches()
+  if grad_launches != step_want or not bool(torch.isfinite(loss)):
+    raise AssertionError(f'{tag}: the gradient launched {grad_launches} '
+                         f'(expected {step_want}), loss {float(loss)}')
+  cats, (numerical, labels) = batches[0][0]
+  with torch.no_grad():
+    outs, res, routing_out, (gb, hot) = dist.forward_with_residuals(
+        model.embedding_params, cats, with_routing=True)
+  leaves = [o.detach().requires_grad_(True) for o in outs]
+  head = tiny_head_loss(model)(model.dense_params(), leaves,
+                               (numerical, labels))
+  d_outs = torch.autograd.grad(head, leaves)
+  with torch.no_grad():
+    gsubs, hot_grads = dist.backward_to_mp(d_outs, gb, hot,
+                                           routing=routing_out)
+  del outs, leaves, d_outs
+  hgi = max(dist.plan.hot_groups,
+            key=lambda gi: dist.plan.groups[gi].hot_rows_cap)
+  dense_h, sparse_h = grads['embedding'][f'hot_group_{hgi}'], hot_grads[hgi]
+  hot_exact = torch.equal(dense_h, sparse_h)
+  hot_err = float((dense_h - sparse_h).abs().max())
+  gi = max(range(len(dist.plan.groups)),
+           key=lambda g: dist.plan.groups[g].width * dist.plan.groups[g].rows_cap)
+  subs = dist._subgroups(hot)
+  sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
+  uids, sums = sparse._compact_stream(
+      torch.cat([res[si].reshape(-1) for si in sis]),
+      torch.cat([gsubs[si].reshape(-1, gsubs[si].shape[-1]) for si in sis]),
+      dist.plan.groups[gi].rows_cap)
+  dense_t = grads['embedding'][f'group_{gi}']
+  got = dense_t[uids.long()]
+  table_exact = torch.equal(got, sums)
+  table_err = float((got - sums).abs().max())
+  touched = torch.zeros(dense_t.shape[0], dtype=torch.bool,
+                        device=dense_t.device)
+  touched[uids.long()] = True
+  untouched_zero = untouched_rows_zero(dense_t, touched)
+  if not (torch.allclose(dense_h, sparse_h, rtol=1e-6, atol=1e-6)
+          and torch.allclose(got, sums, rtol=1e-6, atol=1e-6)
+          and untouched_zero):
+    raise AssertionError(
+        f'{tag}: the dense gradient differs from the sparse path\'s: '
+        f'hot_group_{hgi} max err {hot_err}, group_{gi} max err {table_err} '
+        f'over {uids.numel()} rows, untouched rows zero {untouched_zero}')
+  check = {'hot_group': hgi, 'hot_rows': int(dense_h.shape[0]),
+           'hot_bit_exact': hot_exact, 'hot_max_abs_err': hot_err,
+           'group': gi, 'group_rows_touched': int(uids.numel()),
+           'group_bit_exact': table_exact, 'group_max_abs_err': table_err,
+           'loss': float(loss), 'launches': grad_launches}
+  log(f'[{tag}] step 1\'s gradient against the sparse path on its batch '
+      f'(backward_to_mp): {json.dumps(check)} (bit-exact expected, '
+      f'rtol = atol = 1e-6 the bound)')
+  del grads, gsubs, hot_grads, res, routing_out, uids, sums, got, touched
+  del dense_h, sparse_h, dense_t
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  # the dense steps
+  state = grad.init_train_state(params, opt)
+  step = grad.make_train_step(loss_fn, opt)
+  state, launches, times, peak = timed_steps(
+      tag, step, state, batches,
+      {k: v * HOT_DENSE_STEPS for k, v in step_want.items()},
+      n_steps=HOT_DENSE_STEPS)
+  # each kernel launch of one more step against its plain version
+  with recorded_hot_kernels() as calls:
+    state, loss = step(state, *batches[HOT_DENSE_STEPS + 1])
+  if not bool(torch.isfinite(loss)):
+    raise AssertionError(f'{tag}: capture step loss {float(loss)}')
+  del step, state, params
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  rows = {'gather': [], 'partial': [], 'add': []}
+  for table, routed in calls['gathers']:
+    rows['gather'].append(check_kernel_shape(
+        table, routed.reshape(-1, 1),
+        f'hot_dense_gather_w{table.shape[1]}_ncap{routed.shape[0]}'))
+  for table, ids in calls['partials']:
+    rows['partial'].append(check_kernel_shape(
+        table, ids, f'hot_dense_partial_w{table.shape[1]}_h{ids.shape[1]}_'
+        f'K{table.shape[0]}'))
+  while calls['sums']:
+    seg, srows, num, row_index = calls['sums'].pop(0)
+    segs = segwalk.sort_stream(seg.to(torch.int32), num,
+                               None if row_index is None
+                               else row_index.to(torch.int32))
+    kind = 'grad' if row_index is None else 'sum'
+    rows['add'].append(check_add_stream(
+        segs, srows.float(), num, torch.float32,
+        f'hot_dense_{kind}_rows{num}_w{srows.shape[1]}', tag))
+    del seg, srows, row_index, segs
+    torch.cuda.empty_cache()
+  del calls
+  n_rows = {k: len(v) for k, v in rows.items()}
+  if (n_rows['gather'] + n_rows['partial'] != step_want['lookup_combine']
+      or n_rows['add'] != step_want['segwalk_apply']):
+    raise AssertionError(f'{tag}: the captured step ran {n_rows}, a step '
+                         f'launches {step_want}')
+  numbers = {'gradient_check': check, 'launches_per_step': step_want,
+             'launches': launches, 'step_ms': times,
+             'peak_gib': peak / 2**30,
+             'seconds': time.perf_counter() - t_phase}
+  log(f'[{tag}] {HOT_DENSE_STEPS} dense steps, every loss finite, launches '
+      f'{json.dumps(launches)}; the captured step\'s kernels equal their '
+      f'plain versions: {n_rows["gather"]} cold gathers and '
+      f'{n_rows["partial"]} hot partials (bit-exact hotness 1, 1e-6 '
+      f'hotness 10), {n_rows["add"]} segment sums (bit-exact); '
+      f'{numbers["seconds"]:.1f} s')
+  del model
+  gc.collect()
+  torch.cuda.empty_cache()
+  return numbers, rows
 
 
 def run_tiny(args, card):
@@ -4259,6 +4511,11 @@ def run_tiny(args, card):
   elapsed('phase 9k')
   lint_numbers = phase_lint_tiny(model, config, args.seed, card)
   elapsed('phase 9l')
+  model.embedding_params = {}
+  gc.collect()
+  torch.cuda.empty_cache()
+  hot_dense_numbers, hot_dense_rows = phase_hot_dense(config, args.seed)
+  elapsed('phase 9m')
 
   k = dict(KERNELS[0])
   k.update({
@@ -4339,6 +4596,29 @@ def run_tiny(args, card):
     entry['launches_lint_tiny'] = lint_numbers['launches'][name]
   seg['obs_tiny'] = obs_numbers
   seg['lint_tiny'] = lint_numbers['programs']
+  seg['lintall'] = lint_numbers['lintall']
+  # phase 9m: the dense trainer on the hot layer, its launches a step and
+  # its kernel shapes beside the bound
+  for entry, name, rows in (
+      (k, 'lookup_combine', hot_dense_rows['gather']
+       + hot_dense_rows['partial']),
+      (seg, 'segwalk_apply', hot_dense_rows['add'])):
+    entry['launches_hot_dense'] = {
+        'per_step': hot_dense_numbers['launches_per_step'][name],
+        'steps': hot_dense_numbers['launches'][name]}
+    entry['max_abs_err'] = max([entry['max_abs_err']]
+                               + [r['max_abs_err'] for r in rows])
+    entry['hot_dense'] = {
+        'ms': sum(r['kernel_ms'] for r in rows),
+        'plain_ms': sum(r['plain_ms'] for r in rows),
+        'bound_ms': sum(r['bound_ms'] for r in rows),
+        'library_ms': sum(r['library_ms'] for r in rows),
+        'shapes': [{key: r.get(key) for key in (
+            'shape', 'stream', 'op', 'w', 'M', 'h', 'rows', 'positions',
+            'segments', 'kernel_ms', 'add_ms', 'plain_ms', 'library_ms',
+            'bound_ms', 'add_bound_ms', 'bound_by', 'max_abs_err')}
+            for r in rows]}
+  seg['hot_dense_numbers'] = hot_dense_numbers
   return k, seg, adam
 
 

@@ -30,6 +30,11 @@ in-place state updates, kernel builds after warm-up and drifting state
 signatures, host syncs, resident bytes and the collective-count budget.
 Import it explicitly
 (``from distributed_embeddings_tpu_torch.analysis import graphlint``).
+
+``commlint`` is the third tier: the protocol across ranks (rank-variant
+branches and handlers that reach collectives, the plan-predicted
+exchange rows against graphlint's ledger, a rank-pair rendezvous model
+check, collectives in recovery paths).  Import it explicitly too.
 """
 
 from distributed_embeddings_tpu_torch.analysis.core import (

@@ -56,6 +56,11 @@ Passes (``PASSES``, JAX's names and rules where a counterpart exists):
   graphlint_ledger.json``, written from two gloo ranks by
   ``--write-ledger``: at a world of one the port issues none).
 
+Each program also carries commlint's inputs (``analysis/commlint.py``):
+the exchange rows its LookupPlans predict (``plan_expectation``, each leg
+made a ledger row by ``leg_row``) and the other collectives it declares
+(``sync_allowance``).
+
 Findings are ``core.Finding``s with ``rule@program::site`` ids (per site
 for ``hostsync``) under the port's shared baseline, whose waivers may be
 scoped to the backends that see their site (``core`` docstring).
@@ -198,6 +203,14 @@ class Program:
   rank_schedules: Optional[Dict[int, List[Tuple[str, str]]]] = None
   launches: Dict[str, int] = dataclasses.field(default_factory=dict)
   device: str = 'cpu'
+  # commlint's inputs (docs/design.md §22): the exchange rows the
+  # program's LookupPlans predict (``plan_expectation``, in the ledger's
+  # spelling: ``leg_row``), None where nothing is predicted (a world of
+  # one issues no collective), and the other collectives it may issue
+  # beside them as (function, axis) pairs: the dense gradients' and the
+  # cross-slice apply's, for which the plan records no leg
+  plan_expect: Optional[List[Dict[str, Any]]] = None
+  sync_allowance: Tuple[Tuple[str, str], ...] = ()
 
   def schedule(self) -> List[CollectiveOp]:
     return list(self.collectives or ())
@@ -213,6 +226,69 @@ def collapse_schedule(ops: Sequence[CollectiveOp]) -> List[Tuple[str, str]]:
     if not out or out[-1] != op.key():
       out.append(op.key())
   return out
+
+
+# the collective that ships every exchange leg (``DistributedEmbedding.
+# _issue``, and ``_AllToAll`` for a leg that carries autograd)
+EXCHANGE_PRIMITIVE = 'all_to_all_single'
+
+
+def leg_row(op: Dict[str, Any]) -> Dict[str, Any]:
+  """The ledger row the port records for one predicted plan leg.
+
+  ``planner.expected_collectives`` spells a leg as JAX's package does:
+  ``{'primitive': 'all_to_all', 'axis', 'dtype', 'shape', 'leg'}``, the
+  shape ``[lead, total]`` for a fused leg and the buffer's natural shape
+  for an unfused (``/g<i>``) one.  ``_issue`` ships a fused leg as the
+  ``[D, flat]`` concatenation of its buffers (``D`` is the leg's lead)
+  and an unfused leg as its buffer, each through ONE
+  ``all_to_all_single`` whose operand is what ``ScheduleRecorder``
+  records: so the row is the leg with the port's function name, and its
+  axis, on-wire dtype (``torch`` spelling without the ``torch.``
+  prefix, as the recorder writes it) and shape unchanged.  This is the
+  one place a leg becomes a row."""
+  return {'primitive': EXCHANGE_PRIMITIVE, 'axis': op['axis'],
+          'dtype': op['dtype'], 'shape': [int(d) for d in op['shape']],
+          'leg': op['leg']}
+
+
+def plan_expectation(dist, paths: Sequence[Optional[str]] = (None,),
+                     global_batch: Optional[int] = None
+                     ) -> Optional[List[Dict[str, Any]]]:
+  """The exchange rows a program's LookupPlans predict (JAX
+  ``analysis/graphlint.py`` ``plan_expectation``): ``leg_row`` of
+  ``planner.expected_collectives`` over the most recent plan of each
+  requested path (``None``: of any path), in order, optionally of one
+  ``global_batch`` (the serving ladder shares one engine across rungs).
+  Call it right after the program ran: a plan holds its last call's
+  legs.
+
+  ``None`` when a requested plan was never built, and at a world of one,
+  where the port issues no collective and records no leg (the ledger is
+  written from two ranks)."""
+  from distributed_embeddings_tpu_torch.parallel import planner
+  if dist.mesh.product_size == 1:
+    return None
+  ops: List[Dict[str, Any]] = []
+  for path in paths:
+    try:
+      plan = dist.lookup_plan(global_batch=global_batch, path=path)
+    except KeyError:
+      return None
+    ops.extend(leg_row(op) for op in planner.expected_collectives(plan))
+  return ops
+
+
+def autograd_transpose(rows: Optional[List[Dict[str, Any]]]
+                       ) -> Optional[List[Dict[str, Any]]]:
+  """The rows the dense trainer's backward issues for a forward's
+  predicted ``rows``: autograd sends each row leg's cotangent back
+  through the same ``all_to_all_single`` (``_AllToAll`` is its own
+  adjoint), in reverse issue order; the id legs carry none."""
+  if rows is None:
+    return None
+  return [r for r in reversed(rows)
+          if r['leg'].split('/')[:2] == ['fwd', 'rows']]
 
 
 def measure_resident_bytes(tree) -> int:
@@ -564,6 +640,8 @@ def forward_program(name: str, dist, params, cats, *, parity=None,
             params, cats, cold_fetch=fetches[1]))
       else:
         dist.apply(params, cats, cold_fetch=fetches[k + 1])
+  prog.plan_expect = plan_expectation(
+      dist, global_batch=len(cats[0]) * dist.world_size * dist.num_slices)
   return prog
 
 
@@ -597,20 +675,26 @@ def backward_program(name: str, dist, params, cats, *, parity=None,
         _record_schedule(prog, dist.mesh, loss.backward)
       else:
         loss.backward()
+  prog.plan_expect = autograd_transpose(plan_expectation(dist, ('dp',)))
   return prog
 
 
 def train_program(name: str, dist, state, step: Callable, batches,
-                  *, parity=None, calls: int = 3) -> Tuple[Program, Any]:
+                  *, parity=None, calls: int = 3,
+                  sync_allowance: Tuple[Tuple[str, str], ...] = ()
+                  ) -> Tuple[Program, Any]:
   """A train step: call 1 is the warm-up, calls 2..``calls`` are
   monitored (host syncs, builds, launches), call 2 records the schedule
   and the donation verdict (each state leaf's storage before and after
   it), and every call's state and batch signature is kept.
   ``batches``: ``calls`` argument tuples of ``step(state, *args)``.
+  The predicted rows are the forward plan's legs then the sparse
+  backward's (``sync_allowance``: the collectives besides them).
   Returns the program and the state after the last call."""
   device = dist.device
   prog = Program(name, parity=parity, device=device.type,
-                 hbm_budget=dist.plan.device_hbm_budget)
+                 hbm_budget=dist.plan.device_hbm_budget,
+                 sync_allowance=tuple(sync_allowance))
   sigs = [signature(state, batches[0])]
   state, loss = step(state, *batches[0])
   _sync_device(device)
@@ -631,6 +715,7 @@ def train_program(name: str, dist, state, step: Callable, batches,
     raise RuntimeError(f'{name}: the step loss is not finite')
   prog.resident_state_bytes = measure_resident_bytes(
       (state.params['embedding'], state.opt_state))
+  prog.plan_expect = plan_expectation(dist, ('dp', 'bwd'))
   return prog, state
 
 
@@ -655,6 +740,7 @@ def ladder_programs(engine, requests: Dict[int, Sequence], *,
     with _watch(prog, device, 1):
       _record_schedule(prog, dist.mesh,
                        lambda c=cats: engine.lookup_padded(c))
+    prog.plan_expect = plan_expectation(dist, global_batch=rung)
     out.append(prog)
   warm = Program('serve/ladder-warm', device=device.type)
   warm.retrace = RetraceRecord(calls=len(engine.buckets), sigs=[])
@@ -934,9 +1020,9 @@ def build_programs(tier: str = 'flagship', device=None,
   ``device``: the card by default (raises without one); ``'cpu'`` runs
   each kernel's plain version.  ``world``: the ranks to run the
   flagship catalog on; above the current process's world of one it
-  spawns that many gloo ranks on the CPU (``run_ranks``) and returns
-  rank 0's programs, each carrying the schedules of the ranks that
-  disagree with rank 0."""
+  spawns that many gloo ranks (``run_ranks``: on the CPU, or every rank
+  on the first card) and returns rank 0's programs, each carrying the
+  schedules of the ranks that disagree with rank 0."""
   if tier not in ('flagship', 'full'):
     raise ValueError(f"tier must be 'flagship' or 'full', got {tier!r}")
   from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
@@ -1074,8 +1160,11 @@ def train_programs(mesh, gbatch: int) -> List[Program]:
     model = SyntheticModel(config, mesh=mesh, dp_input=True,
                            overlap_chunks=chunks, device=mesh.device).init(0)
     step, state = synthetic_trainer(model)
+    # the dense head's gradients and the loss, averaged over the ranks
+    # (grad.allreduce_mean_): no exchange leg records them
     prog, _ = train_program(name, model.dist_embedding, state, step,
-                            batches, parity='train-step')
+                            batches, parity='train-step',
+                            sync_allowance=(('all_reduce', 'data'),))
     out.append(prog)
   return out
 
@@ -1143,8 +1232,18 @@ def hierarchical_programs(dev) -> List[Program]:
             'kernel': torch.full((8 * len(cfg2), 1), 0.1, device=dev)},
         opt, emb_opt)
     step = sparse.make_hybrid_train_step(d, head_loss, opt, emb_opt)
+    # besides the plan's legs: the dense gradients' mean over the axis
+    # product, then the apply stage across slices, which the plan records
+    # no leg for (JAX's declared allowance): the slices' stream lengths
+    # (an all_gather), then the replicas' streams (flat twin: one
+    # all_gather) or each row to its owning slice (sharded: one
+    # all_to_all_single), sparse._cross_slice_stream
+    allowance = (('all_reduce', 'product'), ('all_gather', 'dcn'))
+    if shard:
+      allowance += ((EXCHANGE_PRIMITIVE, 'dcn'),)
     prog, _ = train_program(name, d, state, step,
-                            [(b, labels) for b in batches], parity=par)
+                            [(b, labels) for b in batches], parity=par,
+                            sync_allowance=allowance)
     out.append(prog)
   return out
 
@@ -1155,10 +1254,12 @@ def hierarchical_programs(dev) -> List[Program]:
 
 
 def _rank_main(rank: int, world: int, init_method: str, what: str,
-               out_dir: str):
-  """One spawned rank: join the gloo world, build the flagship catalog
-  (``what='flagship'``) or the hierarchical pair (``'hier'``, four
-  ranks), pickle the programs to ``rank{rank}.pkl``, write
+               out_dir: str, device: str = 'cpu'):
+  """One spawned rank: join the gloo world on ``device`` (``'cpu'``, or
+  ``'cuda:0'`` for every rank: gloo stages the card's tensors through
+  host memory, so several ranks share one card), build the flagship
+  catalog (``what='flagship'``) or the hierarchical pair (``'hier'``,
+  four ranks), pickle the programs to ``rank{rank}.pkl``, write
   ``done{rank}`` and leave with ``os._exit(0)`` (a gloo rank can abort in
   the interpreter's teardown after its work is done)."""
   import faulthandler
@@ -1170,11 +1271,11 @@ def _rank_main(rank: int, world: int, init_method: str, what: str,
   faulthandler.enable(file=sys.stderr, all_threads=True)
   torch.set_num_threads(1)
   from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
-  mesh_lib.init_distributed(init_method, world, rank, backend='gloo',
-                            device='cpu')
+  m = mesh_lib.init_distributed(init_method, world, rank, backend='gloo',
+                                device=device)
   try:
-    progs = (_flagship(mesh_lib.create_mesh('cpu')) if what == 'flagship'
-             else hierarchical_programs(torch.device('cpu')))
+    progs = (_flagship(m) if what == 'flagship'
+             else hierarchical_programs(m.device))
     with open(os.path.join(out_dir, f'rank{rank}.pkl'), 'wb') as f:
       pickle.dump(progs, f)
     torch_dist.barrier()
@@ -1192,20 +1293,20 @@ def run_ranks(world: int, what: str = 'flagship', device: str = 'cpu',
               timeout_s: float = 300.0) -> List[Program]:
   """Build the flagship catalog (``what='flagship'``) or the
   hierarchical pair (``'hier'``, ``world=4``) on ``world`` spawned gloo
-  ranks on the CPU and return rank 0's programs; a program whose
-  collapsed schedule differs on another rank carries that rank's in
-  ``rank_schedules``."""
+  ranks, on the CPU or (``device='cuda'``) every rank on the first card,
+  and return rank 0's programs; a program whose collapsed schedule
+  differs on another rank carries that rank's in ``rank_schedules``."""
   import multiprocessing
   import pickle
   import tempfile
-  if device != 'cpu':
-    raise ValueError('spawned ranks run on the CPU (gloo); pass '
-                     "device='cpu'")
+  if device not in ('cpu', 'cuda'):
+    raise ValueError(f"spawned ranks run on 'cpu' or 'cuda', got {device!r}")
+  device = 'cuda:0' if device == 'cuda' else 'cpu'
   ctx = multiprocessing.get_context('spawn')
   with tempfile.TemporaryDirectory(prefix='graphlint-ranks-') as tmp:
     init_method = f'file://{os.path.join(tmp, "rendezvous")}'
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, init_method, what, tmp))
+                         args=(r, world, init_method, what, tmp, device))
              for r in range(world)]
     for p in procs:
       p.start()

@@ -38,9 +38,12 @@ fused cotangent exchange, plus one all_gather per row-sharded input).
 ``parallel/grad.make_train_step``): the lookup is one autograd node per
 fusion group (``ops/lookup.LookupCombine``), the row exchange and the
 row-shard reduce-scatter carry their cotangents back.  The hot cache
-serves the sparse hybrid step and serving; differentiating a hot layer
-is refused (the dense trainer on a hot layer is a part of item 7 left
-for later).  ``overlap_chunks=k`` (docs/design.md §11,
+serves the sparse hybrid step, serving and the dense trainer: a hot
+layer's forward is one autograd node (``_HotApply``) whose backward is
+the cached forward's transpose (``_build_backward_hot``), so autograd
+gives every table's gradient and every replicated hot buffer's, summed
+over the ranks, as ``jax.grad`` does through the JAX hot forward.
+``overlap_chunks=k`` (docs/design.md §11,
 ``parallel/overlap.py``) runs every exchange of the dp-input paths in
 ``k`` rounds of the slot axis, each issued asynchronously before the
 round before it is consumed, bit-exact against one round;
@@ -68,6 +71,7 @@ naming its ROADMAP item; none is ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -136,6 +140,18 @@ QUANTIZED_AUTODIFF = (
     'table_dtype-quantized layer trains with the sparse trainer '
     '(parallel/sparse.make_hybrid_train_step; docs/design.md §12 refusal '
     'matrix)')
+
+
+# the dense trainer's refusal of a cold-tier layer: JAX's
+# ``make_train_step`` jits the loss, so its forward meets traced ids and
+# ``_resolve_cold_fetch`` raises this (the port's autograd path, which
+# traces nothing, raises the same words)
+COLD_TIER_AUTODIFF = (
+    'cold-tier forward reached a traced (jit) context without a '
+    'cold_fetch: the host pre-pass that gathers tail rows from the host '
+    'tier cannot read traced ids. Build the fetch outside the jit boundary '
+    '(dist.build_cold_fetch(cats)) and pass it through — '
+    'make_hybrid_train_step does this automatically.')
 
 
 class DistributedEmbedding:
@@ -1154,13 +1170,22 @@ class DistributedEmbedding:
                      for b, bd in zip(bufs, bounds)], name, plan=plan)
         for k in range(n_rounds)], len(bufs))
 
-  def lookup_plan(self, global_batch: Optional[int] = None):
-    """The most recently built ``LookupPlan`` (optionally of one global
-    batch); its legs are those of the last call."""
+  def lookup_plan(self, global_batch: Optional[int] = None,
+                  path: Optional[str] = None):
+    """The most recently built ``LookupPlan`` matching (design §21):
+    of one global batch, and of one pipeline variant ``path`` (``'dp' |
+    'mp' | 'hot' | 'bwd' | 'bwd_hot'``), either filter optional.  Its
+    legs are those of its program's last call."""
     for plan in reversed(list(self._lookup_plans.values())):
-      if global_batch is None or plan.global_batch == global_batch:
-        return plan
-    raise KeyError(f'no LookupPlan built for global_batch={global_batch}')
+      if global_batch is not None and plan.global_batch != global_batch:
+        continue
+      if path is not None and plan.path != path:
+        continue
+      return plan
+    raise KeyError(
+        f'no LookupPlan traced for global_batch={global_batch} '
+        f'path={path}; built: '
+        f'{[(p.path, p.global_batch) for p in self._lookup_plans.values()]}')
 
   def _slot_consts(self, subs):
     """Per subgroup, this rank's routing constants on the device:
@@ -1418,14 +1443,23 @@ class DistributedEmbedding:
         and any(t.requires_grad for t in params.values())):
       raise ValueError(QUANTIZED_AUTODIFF)
     if self.hot_enabled:
-      if torch.is_grad_enabled() and any(t.requires_grad
-                                         for t in params.values()):
-        raise not_ported('differentiating a hot_cache layer (the dense '
-                         'autodiff trainer on a hot layer)',
-                         '7, its remaining parts')
       global_batch = batch * self.world_size * self.num_slices
-      outs, residuals, routing_out = self._build_dp_forward_hot(
-          batch, hotness)(params, inputs, fetch)
+      fwd = self._build_dp_forward_hot(batch, hotness)
+      keys = (sorted(k for k, t in params.items() if t.requires_grad)
+              if torch.is_grad_enabled() else [])
+      if keys:
+        if self.cold_tier is not None:
+          raise ValueError(COLD_TIER_AUTODIFF)
+        with torch.no_grad():
+          outs, residuals, routing_out = fwd(params, inputs)
+        leaves = [params[k] for k in keys]
+        grads_of = functools.partial(
+            self._hot_autodiff_grads, batch, hotness, residuals=residuals,
+            hot_routing=routing_out, keys=keys,
+            like=[(tuple(t.shape), t.dtype) for t in leaves])
+        outs = _HotApply.apply(grads_of, outs, *leaves)
+      else:
+        outs, residuals, routing_out = fwd(params, inputs, fetch)
     elif self.dp_input:
       global_batch = batch * self.world_size * self.num_slices
       outs, residuals = self._build_dp_forward(batch, hotness)(params,
@@ -2010,6 +2044,46 @@ class DistributedEmbedding:
     self._fn_cache[key] = bwd
     return bwd
 
+  def _hot_autodiff_grads(self, local_batch: int, hotness: tuple, d_outs,
+                          residuals, hot_routing, keys, like):
+    """The gradients of ``_HotApply``'s leaves (``keys``, each with its
+    ``(shape, dtype)`` in ``like``) from the output cotangents: the hot
+    backward's owner-side cold grads and summed hot grads, then per
+    fusion group ONE segment sum of its subgroups' unique-row grads (in
+    subgroup order, each ``[n_cap, D * U]`` in its own order) keyed by
+    the forward's routed ids into the table's rows (the routed sentinel
+    ``rows_cap`` drops).  A ``dcn_sharding`` layer first merges every
+    slice's stream at the rows' owners (``sparse._cross_slice_stream``,
+    as its sparse apply does); a replicated two-axis layer's table
+    gradients are summed across slices by ``grad.DistributedGradientTape``.
+    """
+    gsubs, hot_grads = self._build_backward_hot(local_batch, hotness)(
+        list(d_outs), hot_routing)
+    subs = self._subgroups(hotness)
+    out = []
+    for key, (shape, dtype) in zip(keys, like):
+      gi = int(key.rsplit('_', 1)[1])
+      if key == f'hot_group_{gi}':
+        out.append(hot_grads[gi].to(dtype))
+        continue
+      if key != f'group_{gi}':
+        raise ValueError(f'no gradient rule for the hot layer leaf {key!r}')
+      sis = [si for si, sub in enumerate(subs) if sub.gi == gi]
+      if not sis:
+        out.append(torch.zeros(shape, dtype=dtype, device=self.device))
+        continue
+      ids = torch.cat([residuals[si].reshape(-1) for si in sis])
+      rows = torch.cat([gsubs[si].reshape(-1, gsubs[si].shape[-1])
+                        for si in sis])
+      if self.dcn_sharding:
+        # function-level import: parallel/sparse.py imports this module
+        from distributed_embeddings_tpu_torch.parallel import sparse
+        ids, rows = sparse._cross_slice_stream(
+            self, gi, *sparse._compact_stream(
+                ids, rows, self.plan.groups[gi].rows_cap))
+      out.append(routing.segment_sum(ids, rows, shape[0]).to(dtype))
+    return out
+
   # --------------- hierarchical (dcn x data) two-level exchange (§20)
 
   def _hier_cut(self, gi: int):
@@ -2295,6 +2369,35 @@ class _PsumScatter(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     return _all_gather(g, ctx.group, ctx.world), None, None, None
+
+
+class _HotApply(torch.autograd.Function):
+  """A hot-cache layer's forward as ONE autograd node, the dense autodiff
+  trainer's path through a hot layer.
+
+  ``outs`` are the cached forward's outputs (``_build_dp_forward_hot``,
+  run without grad by the caller); the node passes them through and
+  ties them to the ``leaves``.  Its backward is the forward's transpose,
+  ``grads_of`` (``_hot_autodiff_grads`` bound to that forward's residuals
+  and routing): the sparse step's own (``_build_backward_hot``: the
+  deduplicated cold cotangents go back to their owners through the
+  exchange, and each hot buffer's occurrences sum into its layout, then
+  over the ranks in rank order, ``_OrderedSum``), then one sum a group of
+  its owner-side unique-row cotangents into the table's shape.  Every
+  sum is a segment walk ``'add'`` (``routing.segment_sum``), and every
+  gather of the forward a ``lookup_combine`` launch.  The gradients are
+  those ``jax.grad`` derives through the JAX package's hot forward: each
+  ``group_*`` table's, and each replicated ``hot_group_*`` buffer's summed
+  over the ranks (the transpose of its replication)."""
+
+  @staticmethod
+  def forward(ctx, grads_of, outs, *leaves):
+    ctx.grads_of = grads_of
+    return tuple(outs)
+
+  @staticmethod
+  def backward(ctx, *d_outs):
+    return (None, None) + tuple(ctx.grads_of(d_outs))
 
 
 class _Pending:

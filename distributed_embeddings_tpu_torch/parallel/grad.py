@@ -124,7 +124,9 @@ class DistributedGradientTape:
   gradient over the ``dcn`` group first, in rank order
   (``_OrderedSum``): the sum JAX's autodiff derives from the
   replication.  A ``dcn_sharding`` layer's table gradients already
-  carry every slice's cotangents (its DCN exchange is differentiable).
+  carry every slice's cotangents (its DCN exchange is differentiable),
+  and so does a hot layer's replicated ``hot_group_*`` buffers' (the hot
+  backward sums them over every rank of the mesh).
 
   Args:
     loss_fn: the local-mean loss.
@@ -177,8 +179,11 @@ class DistributedGradientTape:
       # function-level import, as for QUANTIZED_AUTODIFF above
       from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
           _OrderedSum)
-      for g in optim.tree_leaves(grads.get('embedding', {})):
-        _OrderedSum(g, self.dcn_group, self.num_slices).wait()
+      for k, g in grads.get('embedding', {}).items():
+        # a hot buffer's gradient came summed over every rank of the
+        # mesh (the hot backward's own sum, ``_HotApply``)
+        if not k.startswith('hot_'):
+          _OrderedSum(g, self.dcn_group, self.num_slices).wait()
     if world > 1:
       for g in optim.tree_leaves(grads.get('embedding', {})):
         g.div_(world)

@@ -321,12 +321,22 @@ def test_synthetic_model_passes_the_hot_cache_through():
 
 
 def test_dense_autodiff_on_a_hot_layer_refuses():
+  """Named for the refusal it once expected; it now checks that there is
+  none.  The dense autodiff trainer on a hot layer is ported
+  (tests/test_torch_hot_dense.py holds it against ``jax.grad``): under
+  grad the cached forward equals the no-grad one bit for bit, and the
+  backward reaches every table and hot buffer."""
   on, _ = _layers()
   params = {k: v.requires_grad_(True) for k, v in on.init(0).items()}
-  with pytest.raises(NotImplementedError, match='item 7, its remaining'):
-    on.apply(params, _ids(np.random.default_rng(0), 4))
+  ids = _ids(np.random.default_rng(0), 4)
+  outs = on.apply(params, ids)
   with torch.no_grad():
-    on.apply(params, _ids(np.random.default_rng(0), 4))
+    plain = on.apply(params, ids)
+  for a, b in zip(outs, plain):
+    assert a.requires_grad
+    torch.testing.assert_close(a.detach(), b, rtol=0, atol=0)
+  sum(o.sum() for o in outs).backward()
+  assert all(p.grad is not None for p in params.values())
 
 
 # ---------------------------------------------------------------- training

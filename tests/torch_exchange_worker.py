@@ -6,7 +6,9 @@ step (``mp``, for tests/test_torch_mp_input.py), dense autodiff step
 through all three (``ragged``, for tests/test_torch_ragged_dist.py;
 ``ragged_run`` is the world of one's and each rank's body there), a
 hot-cache layer (``hot``, for tests/test_torch_hotcache_ranks.py, and
-``hot_chunks``, its four-rank test of the chunked hot-gradient sum),
+``hot_chunks``, its four-rank test of the chunked hot-gradient sum;
+``hot_dense``, the dense autodiff trainer on a hot layer, for
+tests/test_torch_hot_dense.py),
 the chunked exchange (``overlap``, for
 tests/test_torch_overlap_ranks.py), an int8-quantized layer
 (``quant``, for tests/test_torch_quantized_ranks.py and, column-sliced,
@@ -17,7 +19,9 @@ one segmented-dispatch profile (``devprof``, for
 tests/test_torch_devprof.py) or the multi-rank serving front end
 (``serve_ranks``, ``serve_fault`` and ``serve_py``, for
 tests/test_torch_serving_ranks.py) or the rendezvous sanitizer's fit
-drills (``commsan_fit``, for tests/test_torch_commsan.py): joins a gloo
+drills (``commsan_fit``, for tests/test_torch_commsan.py) or the facts
+behind commlint's detection scope (``commlint_scope``, for
+tests/test_torch_commlint.py): joins a gloo
 world on the CPU, runs on its slice of the batch and saves what it got.
 Imports nothing of JAX (spawned processes import only this)."""
 
@@ -697,6 +701,242 @@ def hot_chunks(rank, world_size, init_method, case_path, out_dir):
       for i, s in enumerate(checkpoint.get_optimizer_state(dist, emb_state)):
         got[f'a{i}'] = s['acc'].numpy()
       np.savez(f'{out_dir}/hot_chunks{rank}_{chunks}.npz', **got)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def hot_dense(rank, world_size, init_method, case_path, out_dir):
+  """One rank of the dense autodiff trainer on a hot-cache layer, for
+  tests/test_torch_hot_dense.py: for each id set of ``case['id_sets']``
+  and each ``overlap_chunks`` of ``case['chunks']``, the gradient of
+  ``sum(outputs * cotangents)`` over its slice of the batch through
+  ``apply`` (every ``group_*`` table as this rank holds it, every
+  ``hot_group_*`` buffer) and the outputs; then ``case['steps']``
+  ``grad.make_train_step`` steps from the case's weights for each
+  optimizer of ``case['opts']`` (a linear head, the local-mean squared
+  error), on a two-axis mesh where ``case['mesh_shape']`` names one (a
+  ``dcn_sharding`` layer in ``case['options']`` trains beside its flat
+  twin, which saves its final tables relocated to the hierarchical
+  layout).  Saves all of it, with the gathered tables after the
+  steps."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding, hierarchical_params)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu',
+                                mesh_shape=case.get('mesh_shape'))
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot_sets = {t: HotSet(t, np.asarray(ids))
+                for t, ids in case['hot'].items()}
+    options = case.get('options', {})
+    b = case['batch'] // world_size
+    mine = lambda xs: [x[rank * b:(rank + 1) * b] for x in xs]
+    got = {}
+    for n, (cats, cots) in enumerate(case['id_sets']):
+      for chunks in case['chunks']:
+        dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                    hot_cache=hot_sets,
+                                    overlap_chunks=chunks)
+        params = checkpoint.set_weights(dist, case['weights'])
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        outs = dist.apply(leaves, mine(cats))
+        sum(torch.sum(o * torch.tensor(c))
+            for o, c in zip(outs, mine(cots))).backward()
+        for k, v in leaves.items():
+          got[f'g{n}_{chunks}_{k}'] = v.grad.numpy()
+        for i, o in enumerate(outs):
+          got[f'o{n}_{chunks}_{i}'] = o.detach().numpy()
+    cats = mine(case['step_cats'])
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+    hier = options.get('dcn_sharding', False)
+
+    def train(name, dist, emb):
+      opt = getattr(optim, name)(case['lr'])
+
+      def loss_fn(p, batch):
+        x = torch.cat(dist.apply(p['embedding'], batch[0]), dim=1)
+        return torch.mean((x @ p['kernel'] - batch[1])**2)
+
+      state = grad.init_train_state(
+          {'embedding': emb, 'kernel': torch.tensor(case['kernel'])}, opt)
+      step = grad.make_train_step(loss_fn, opt, dist=dist)
+      losses = []
+      for _ in range(case['steps']):
+        state, loss = step(state, (cats, labels))
+        losses.append(float(loss))
+      return state, np.array(losses)
+
+    for name in case['opts']:
+      # a dcn_sharding layer takes its weights from a flat twin
+      # (hierarchical_params): the twin trains beside it, and its final
+      # tables, relocated the same way, are what it must hold
+      flat = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                  hot_cache=hot_sets)
+      flat_emb = checkpoint.set_weights(flat, case['weights'])
+      if hier:
+        dist = DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                    hot_cache=hot_sets, **options)
+        # (the hot buffers pass through hierarchical_params as they are,
+        # and a step updates them in place: the twin keeps its own)
+        state, got[f'{name}_losses'] = train(name, dist, hierarchical_params(
+            dist, {k: v.clone() for k, v in flat_emb.items()}))
+        twin, got[f'{name}_twin_losses'] = train(name, flat, flat_emb)
+        want = hierarchical_params(dist, twin.params['embedding'])
+        for k, v in state.params['embedding'].items():
+          got[f'{name}_hier_{k}'] = v.numpy()
+          got[f'{name}_twin_{k}'] = want[k].numpy()
+        got[f'{name}_kernel'] = state.params['kernel'].numpy()
+        got[f'{name}_twin_kernel'] = twin.params['kernel'].numpy()
+        continue
+      state, got[f'{name}_losses'] = train(name, flat, flat_emb)
+      emb = state.params['embedding']
+      got[f'{name}_kernel'] = state.params['kernel'].numpy()
+      for i, w in enumerate(checkpoint.get_weights(flat, emb)):
+        got[f'{name}_w{i}'] = w.numpy()
+      for gi in flat.plan.hot_groups:
+        got[f'{name}_hot{gi}'] = emb[f'hot_group_{gi}'].numpy()
+    np.savez(f'{out_dir}/hot_dense{rank}.npz', **got)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def commlint_scope(rank, world_size, init_method, case_path, out_dir):
+  """One rank behind the port's ``commlint.DETECTION_SCOPE``, for
+  tests/test_torch_commlint.py: the detections ``fit`` acts on reach
+  every rank alike.  (1) Losses: the sparse step's and the dense step's
+  loss over unequal local batches (each rank's local mean differs) as
+  each rank returns it.  (2) ``audit_failure``: a tiered layer's
+  ``'tier'`` audit before and after rank 1 alone corrupts one host-tier
+  row.  (3) ``tier_integrity``: sparse steps of the tiered layer, rank 1
+  alone corrupting one host-tier row that step ``case['corrupt_at']``
+  fetches; the step at which ``TierIntegrityError`` reached this rank.
+  Saves all of it as JSON."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import optim
+  from distributed_embeddings_tpu_torch.parallel import audit
+  from distributed_embeddings_tpu_torch.parallel import checkpoint
+  from distributed_embeddings_tpu_torch.parallel import coldtier
+  from distributed_embeddings_tpu_torch.parallel import grad
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.parallel import sparse
+  from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
+      DistributedEmbedding)
+  from distributed_embeddings_tpu_torch.parallel.hotcache import HotSet
+  from distributed_embeddings_tpu_torch.parallel.planner import TableConfig
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  m = mesh_lib.init_distributed(init_method, world_size, rank,
+                                backend='gloo', device='cpu')
+  try:
+    tables = [TableConfig(r, w, combiner=c) for r, w, c in case['tables']]
+    hot = {t: HotSet(t, np.asarray(v)) for t, v in case['hot'].items()}
+    b = case['batch'] // world_size
+    mine = lambda xs: [x[rank * b:(rank + 1) * b] for x in xs]
+    labels = torch.tensor(case['labels'][rank * b:(rank + 1) * b])
+
+    def head_loss(dense_params, emb_outs, y):
+      x = torch.cat(list(emb_outs), dim=1)
+      return torch.mean((x @ dense_params['kernel'] - y)**2)
+
+    def layer(**kw):
+      return DistributedEmbedding(tables, mesh=m, dp_input=True,
+                                  hot_cache=dict(hot), **kw)
+
+    def trainer(d):
+      state = sparse.init_hybrid_train_state(
+          d, {'embedding': checkpoint.set_weights(d, case['weights']),
+              'kernel': torch.tensor(case['kernel'])}, optim.sgd(0.05),
+          sparse.SparseSGD(0.05))
+      return state, sparse.make_hybrid_train_step(
+          d, head_loss, optim.sgd(0.05), sparse.SparseSGD(0.05))
+
+    out = {'rank': rank}
+    # (1) the losses fit reads
+    state, step = trainer(layer())
+    _, loss = step(state, mine(case['batches'][0]), labels)
+    out['sparse_loss'] = float(loss)
+    d = layer()
+    opt = optim.sgd(0.05)
+
+    def loss_fn(p, batch):
+      return head_loss(p, d.apply(p['embedding'], batch[0]), batch[1])
+
+    dstate = grad.init_train_state(
+        {'embedding': checkpoint.set_weights(d, case['weights']),
+         'kernel': torch.tensor(case['kernel'])}, opt)
+    _, loss = grad.make_train_step(loss_fn, opt, dist=d)(
+        dstate, (mine(case['batches'][0]), labels))
+    out['dense_loss'] = float(loss)
+    out['local_loss'] = float(loss_fn(
+        {'embedding': checkpoint.set_weights(d, case['weights']),
+         'kernel': torch.tensor(case['kernel'])},
+        (mine(case['batches'][0]), labels)))
+
+    # the tiered layer: a budget under its resident bytes
+    probe = layer()
+    budget = int(probe.plan.resident_table_bytes() * case['budget_frac'])
+    t = layer(cold_tier=True, device_hbm_budget=budget)
+    state, step = trainer(t)
+    t.cold_tier.enable_digests()
+    gi = t.plan.cold_tier_groups[0]
+
+    def corrupt(row):
+      t.cold_tier.payload[gi].view(np.uint8)[row, 1] ^= np.uint8(1 << 3)
+
+    # (2) the tier audit, which gathers its findings
+    aud = audit.StateAuditor(t, every=1, checks=('tier',),
+                             bytes_per_audit=None)
+    out['audit_clean'] = [[f.leaf, list(f.devices), list(f.rows)]
+                          for f in aud.run()]
+    if rank == 1:
+      corrupt(2)
+    out['audit_one_rank'] = [[f.leaf, list(f.devices), list(f.rows)]
+                             for f in aud.run()]
+    if rank == 1:
+      corrupt(2)  # flip back
+
+    # (3) the fetch-time integrity check
+    out['raised_at'] = None
+    out['corrupted'] = None
+    for k, cats in enumerate(case['batches']):
+      if k == case['corrupt_at']:
+        rows, _ = coldtier.compute_fetch_rows(
+            t, t._prepare_inputs(mine(cats))[0])
+        if rank == 1:
+          mine_rows = rows[gi] - t.plan.groups[gi].device_rows
+          if mine_rows.size:
+            out['corrupted'] = int(mine_rows[0])
+            corrupt(out['corrupted'])
+      try:
+        state, _ = step(state, mine(cats), labels)
+      except coldtier.TierIntegrityError as e:
+        out['raised_at'] = k
+        out['error'] = str(e)
+        break
+    with open(f'{out_dir}/scope{rank}.json', 'w') as f:
+      json.dump(out, f)
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
