@@ -7,12 +7,21 @@ Phases, each of which exits non-zero on failure:
 1. card:    name and power limit (nvidia-smi); TF32 off.
 2. build:   compile every CUDA kernel from csrc/, one nvcc per source,
             all started together.
+2b. lookup-hazards: the lookup kernel against the plain versions bit
+            for bit on hazard inputs: power-law ids repeated within and
+            across bags, every position distinct, one id everywhere,
+            all-padding bags, a bag of 5000 ids; widths 1 to 300, f32 and
+            bf16, sum and mean; int8 and fp8; CSR rows empty, of 61 and
+            5000 ids, malformed splits.  Seconds.
 3. model:   the synthetic model at full size, tables drawn on the card.
 4. kernels: the lookup kernel against its plain PyTorch version on the
             ids and tables one forward passes it (captured from that
-            forward), f32 and one bf16 table; kernel, plain and library
-            device times (device_ms: CUDA events around calls queued
-            ahead of the device) beside the device-memory bound.
+            forward), f32 and one bf16 table, bit-exact; kernel, plain
+            and library device times (device_ms: CUDA events around calls
+            queued ahead of the device) beside the device-memory bound.
+            Every later lookup shape (check_kernel_shape,
+            check_dequant_shape, phase 20) is checked and timed the same
+            way.
 5. forward: a few forwards at the global batch; every subgroup's lookup
             ran through the kernel; logits finite and equal to an
             independent plain reference on a slice of the batch; one
@@ -101,7 +110,7 @@ Phases, each of which exits non-zero on failure:
             bounds), the host syncs of one step each way and one cached
             step profiled (profile_once); on one more captured cached step,
             each kernel against its plain version (the cold gathers and
-            hot partials: lookup, exact at hotness 1, 1e-6 at 10; the hot
+            hot partials: lookup, bit-exact at every hotness; the hot
             and cold segment sums: 'add' into a zero-fill, bit-exact; the
             deduplicated cold applies:
             adagrad_dedup 1e-6 and against what the step wrote, sgd
@@ -512,9 +521,8 @@ Phases, each of which exits non-zero on failure:
             forward (the gradient's too) on the lookup kernel's CSR arm,
             every backward and sparse SGD on the segment walk (counted).
             Then the CSR arm against its plain version on those ids (sum
-            and mean, f32 and a bf16 copy; rtol = atol = 1e-6, bit-exact
-            where every row has one id), the backward's 'add' and the
-            sparse SGD against theirs (bit-exact, untouched rows
+            and mean, f32 and a bf16 copy; bit-exact), the backward's
+            'add' and the sparse SGD against theirs (bit-exact, untouched rows
             unchanged); kernel, plain and embedding_bag (offsets) device
             times beside the bound (each distinct row read once, as phase
             4 counts; every gathered row once beside it).
@@ -585,7 +593,8 @@ from distributed_embeddings_tpu_torch.examples.dlrm import main as dlrm_main
 from distributed_embeddings_tpu_torch.examples.dlrm import serve as dlrm_serve
 from distributed_embeddings_tpu_torch.models import dlrm
 from distributed_embeddings_tpu_torch.models.synthetic import (
-    SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables)
+    SYNTHETIC_MODELS, InputGenerator, SyntheticModel, expand_tables,
+    gen_power_law_data)
 from distributed_embeddings_tpu_torch.obs import devprof
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
@@ -915,6 +924,108 @@ def phase_build():
       'parallel)')
 
 
+# phase 2b: (bags, hotness, rows) of each of the lookup's hazard inputs
+HAZARDS = {
+    'power_law': (300, 30, 2000),   # ids repeated within and across bags
+    'distinct': (100, 61, 8000),    # every position its own row
+    'one_id': (200, 30, 500),       # every position the same row
+    'all_padding': (150, 2, 400),   # no valid id anywhere
+    'long_bag': (6, 5000, 50000),   # a bag of 5000 ids
+}
+HAZARD_WIDTHS = (1, 3, 16, 40, 128, 300)
+
+
+def hazard_ids(rng, case, m, h, vocab):
+  """``[m, h]`` ids of one of ``HAZARDS``, padding ids -1 and ``vocab``
+  among them."""
+  if case in ('power_law', 'long_bag'):
+    ids = gen_power_law_data(rng, m, h, vocab, 1.05)
+    ids[::7, 3] = -1
+    ids[1::5, -1] = vocab
+  elif case == 'distinct':
+    ids = rng.permutation(vocab)[:m * h].reshape(m, h).astype(np.int32)
+  elif case == 'one_id':
+    ids = np.full((m, h), 7, np.int32)
+  else:
+    ids = np.where(np.arange(m * h).reshape(m, h) % 2, -1, vocab)
+  return torch.as_tensor(np.ascontiguousarray(ids, dtype=np.int32),
+                         device='cuda')
+
+
+def phase_lookup_hazards():
+  """Phase 2b: the lookup kernel against the plain versions, bit for bit,
+  on hazard inputs: power-law ids repeated within and across bags, every
+  position distinct, one id everywhere, all-padding bags, a bag of 5000
+  ids; widths 1 to 300, f32 and bf16, sum and mean; int8 and fp8
+  payloads with scales; CSR rows empty, of 61 and of 5000 ids, and
+  malformed splits (past the capacity, decreasing).  Returns the count
+  of comparisons."""
+  t0 = time.perf_counter()
+  rng = np.random.default_rng(20)
+  checks = 0
+
+  def check(table, ids, want, tag, splits=None, scale=None, mean=False):
+    nonlocal checks
+    got = lookup._launch(table, ids, mean, splits, scale)
+    if not torch.equal(got, want):
+      raise AssertionError(
+          f'lookup-hazards: {tag}: the kernel disagrees with the plain '
+          f'version, max abs err {float((got - want).abs().max())} '
+          '(bit-exact)')
+    checks += 1
+
+  for case, (m, h, vocab) in HAZARDS.items():
+    ids = hazard_ids(rng, case, m, h, vocab)
+    widths = (1, 16, 300) if case == 'long_bag' else HAZARD_WIDTHS
+    for w in widths:
+      base = torch.randn(vocab, w, device='cuda')
+      for table in (base, base.to(torch.bfloat16)):
+        for combiner in ('sum', 'mean'):
+          want = lookup.dense_lookup_reference(table, ids, combiner,
+                                               torch.float32)
+          check(table, ids, want, f'{case} w{w} {table.dtype} {combiner}',
+                mean=combiner == 'mean')
+    if case in ('power_law', 'distinct', 'long_bag'):
+      for dtype in QUANT_DTYPES:
+        spec = quantization.resolve_table_dtype(dtype)
+        payload, scale = quantization.quantize(
+            torch.randn(vocab, 16, device='cuda')
+            * torch.exp(torch.randn(vocab, 1, device='cuda') * 3), spec)
+        want = lookup.dense_lookup_reference(payload, ids, 'sum',
+                                             scale=scale)
+        check(payload, ids, want, f'{case} {dtype}', scale=scale)
+  # CSR: empty rows, rows of 61 and 5000 ids (repeats), capacity padding,
+  # then malformed splits (clamped to the capacity, as the plain version)
+  lengths = np.concatenate([[0, 0, 5000, 1, 0, 61, 61],
+                            rng.integers(0, 40, 300), [0]])
+  splits = np.zeros(len(lengths) + 1, np.int32)
+  np.cumsum(lengths, out=splits[1:])
+  nnz = int(splits[-1])
+  values = rng.integers(0, 20000, size=nnz + 7).astype(np.int32)
+  values[:nnz][values[:nnz] % 3 == 0] = 11
+  values[nnz:] = [20003, -2, 0, 1, 20000, 5, 6]
+  bad = splits.copy()
+  bad[4], bad[10], bad[11] = bad[2], 10**9, -5
+  values = torch.as_tensor(values, device='cuda')
+  for w in (1, 16, 128, 300):
+    base = torch.randn(20000, w, device='cuda')
+    for table in (base, base.to(torch.bfloat16)):
+      for sp, combiners in ((splits, ('sum', 'mean')), (bad, ('sum',))):
+        sp = torch.as_tensor(sp, device='cuda')
+        for combiner in combiners:
+          want = lookup.ragged_lookup_reference(table, values, sp, combiner,
+                                                torch.float32)
+          check(table, values, want, f'csr w{w} {table.dtype} {combiner}',
+                splits=sp, mean=combiner == 'mean')
+  torch.cuda.synchronize()
+  log(f'[lookup-hazards] the kernel equals the plain versions bit for bit in '
+      f'{checks} launches ({len(HAZARDS)} dense hazards at widths '
+      f'{HAZARD_WIDTHS}, f32 and bf16, sum and mean; int8 and fp8; CSR rows '
+      f'empty, of 61 and 5000 ids, malformed splits) in '
+      f'{time.perf_counter() - t0:.1f} s')
+  return checks
+
+
 def pad_multi_hot(cats, hotness, rng):
   """Variable-length multi-hot rows: each hotness > 1 row keeps a random
   prefix of 1..h ids and pads the rest with -1 (the serving layout)."""
@@ -959,13 +1070,8 @@ def check_kernel_shape(table, ids, label):
   want = lookup.dense_lookup_reference(table, ids, 'sum', torch.float32)
   torch.cuda.synchronize()
   err = float((got - want).abs().max()) if m else 0.0
-  if h == 1:
-    ok = torch.equal(got, want)
-    tol = 'bit-exact'
-  else:
-    ok = torch.allclose(got, want, rtol=1e-6, atol=1e-6)
-    tol = 'rtol=atol=1e-6 (sum order)'
-  if not ok:
+  tol = 'bit-exact'
+  if not torch.equal(got, want):
     raise AssertionError(f'{label}: kernel disagrees with plain version, '
                          f'max abs err {err} (tolerance {tol})')
   mask = (ids >= 0) & (ids < table.shape[0])
@@ -5206,8 +5312,7 @@ def phase_ragged_lookup():
   vocab, w = table.shape
   nrows, nnz, cap = r.nrows, res.nnz, r.nnz_cap
   lengths = r.row_lengths()
-  one_id_rows = bool((lengths == 1).all())
-  tol = 'bit-exact' if one_id_rows else 'rtol=atol=1e-6 (sum order)'
+  tol = 'bit-exact'
   err = 0.0
   for t in (table, table.to(torch.bfloat16)):
     for combiner in ('sum', 'mean'):
@@ -5217,9 +5322,7 @@ def phase_ragged_lookup():
       torch.cuda.synchronize()
       e = float((got - ref).abs().max())
       err = max(err, e)
-      ok = (torch.equal(got, ref) if one_id_rows else
-            torch.allclose(got, ref, rtol=1e-6, atol=1e-6))
-      if not ok:
+      if not torch.equal(got, ref):
         raise AssertionError(f'ragged-lookup: the CSR arm disagrees with its '
                              f'plain version ({t.dtype}, {combiner}), max '
                              f'abs err {e} ({tol})')
@@ -5364,12 +5467,8 @@ def check_dequant_shape(table, ids, scale, label, library='table'):
   if lookup.ARM_LAUNCHES['dequant'] != 1:
     raise AssertionError(f'{label}: the dequantizing arm did not launch')
   err = float((got - want).abs().max()) if m else 0.0
-  if h == 1:
-    ok, tol = torch.equal(got, want), 'bit-exact'
-  else:
-    ok = torch.allclose(got, want, rtol=1e-6, atol=1e-6)
-    tol = 'rtol=atol=1e-6 (sum order)'
-  if not ok:
+  tol = 'bit-exact'
+  if not torch.equal(got, want):
     raise AssertionError(f'{label}: the dequantizing arm disagrees with '
                          f'its plain version, max abs err {err} ({tol})')
   del got, want
@@ -7551,8 +7650,10 @@ def main(argv=None) -> int:
   T_START = time.perf_counter()
   card = phase_card()
   phase_build()
-  elapsed('phases 1-2')
+  hazard_checks = phase_lookup_hazards()
+  elapsed('phases 1-2b')
   k, seg, adam = run_tiny(args, card)
+  k['hazard_checks'] = hazard_checks
   gc.collect()
   torch.cuda.empty_cache()
   log(f'[dlrm] after the tiny model: device memory '

@@ -6,9 +6,14 @@ without JAX; from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
-Tolerances: the lookup is bit-exact at hotness 1; rtol = atol = 1e-6
-above, where the plain version may add a row's ids in another order than
-the kernel.  The segment-walk apply is bit-exact for ``sgd`` and within
+Tolerances: the lookup is bit-exact at every hotness, in both layouts
+(dense and CSR): it adds a bag's rows in ascending position, the plain
+versions' order.  It is also run on hazard inputs: power-law ids
+repeated within and across bags, every position distinct, every
+position one id, all-padding bags, hotness 2, 30, 61 and 5000, CSR rows
+that are empty, of 5000 ids or malformed, widths 1 to 300 in f32 and
+bf16, and int8 and fp8 payloads with scales; each launch counted once.
+The segment-walk apply is bit-exact for ``sgd`` and within
 rtol = atol = 1e-6 for Adagrad (only the reciprocal square root may
 differ), and rows the stream does not name stay bitwise unchanged; its
 streams put runs at the chunk edges of its two-pass design, it finishes
@@ -37,8 +42,8 @@ cached and uncached, with more lookup launches a forward.
 The lookup's dequantizing arm (quantized tables): int8 and fp8 payloads
 with per-row scales, widths 4 / 8 / 16 / 128, hotness 1 and 10, sum and
 mean, padding ids and a subnormal-scale row, against the plain version:
-bit-exact at hotness 1, rtol = atol = 1e-6 above; each launch counted as
-``'dequant'``.  The card's quantizer equals the numpy one bit for bit
+bit-exact at every hotness; each launch counted as ``'dequant'``.  The
+card's quantizer equals the numpy one bit for bit
 (subnormal scales included), and a quantized layer's hybrid step on the
 card equals its run on the CPU.
 """
@@ -47,6 +52,8 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_embeddings_tpu_torch.models.synthetic import (
+    gen_power_law_data)
 from distributed_embeddings_tpu_torch.ops import lookup
 from distributed_embeddings_tpu_torch.ops import segwalk
 from distributed_embeddings_tpu_torch.parallel import audit
@@ -97,10 +104,7 @@ def test_kernel_matches_plain_version(cuda_device, w, combiner, h, dtype):
   torch.cuda.synchronize()
   assert lookup.LAUNCHES == before + 1
   want = lookup.dense_lookup_reference(table, ids, combiner, torch.float32)
-  if h == 1:
-    assert torch.equal(got, want)
-  else:
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -116,11 +120,11 @@ def test_kernel_on_an_unaligned_table_view(cuda_device):
   # falls back to narrower ones and still agrees
   base = torch.randn(101 * 8 + 1, device=cuda_device)
   table = base[1:].view(101, 8)
-  ids = torch.randint(-1, 103, (64, 4), dtype=torch.int32,
-                      device=cuda_device)
-  got = lookup.dense_lookup(table, ids, 'sum')
-  want = lookup.dense_lookup_reference(table, ids, 'sum')
-  torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  for h in (1, 4):
+    ids = torch.randint(-1, 103, (64, h), dtype=torch.int32,
+                        device=cuda_device)
+    want = lookup.dense_lookup_reference(table, ids, 'sum', torch.float32)
+    assert torch.equal(lookup._launch(table, ids, False), want)
 
 
 @pytest.mark.cuda
@@ -133,7 +137,7 @@ def test_fused_lookup_launches_once(cuda_device):
   assert lookup.LAUNCHES == before + 1
   want = lookup.dense_lookup_reference(table, routed.reshape(-1, 2),
                                        'mean').reshape(3, 32, 16)
-  torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+  assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -142,7 +146,112 @@ def test_kernel_takes_int64_ids(cuda_device):
   ids = torch.randint(-1, 41, (16, 3), device=cuda_device)  # int64
   got = lookup.dense_lookup(table, ids, 'sum')
   want = lookup.dense_lookup_reference(table, ids, 'sum')
-  torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  assert torch.equal(got, want)
+
+
+# (case, bags, hotness, rows): the lookup's hazard inputs
+_HAZARDS = {
+    'power_law': (300, 30, 2000),   # ids repeated within and across bags
+    'distinct': (100, 61, 8000),    # every position its own row
+    'one_id': (200, 30, 500),       # every position the same row
+    'all_padding': (150, 2, 400),   # no valid id anywhere
+    'hotness_2': (700, 2, 900),
+    'long_bag': (6, 5000, 50000),   # a bag of 5000 ids
+}
+
+
+def _hazard_ids(rng, case, vocab, m, h):
+  if case == 'power_law':
+    ids = gen_power_law_data(rng, m, h, vocab, 1.05)
+    ids[::7, 3] = -1
+    ids[1::5, -1] = vocab
+  elif case == 'distinct':
+    ids = rng.permutation(vocab)[:m * h].reshape(m, h).astype(np.int32)
+  elif case == 'one_id':
+    ids = np.full((m, h), 7, np.int32)
+  elif case == 'all_padding':
+    ids = np.where(np.arange(m * h).reshape(m, h) % 2, -1, vocab)
+  elif case == 'long_bag':
+    ids = gen_power_law_data(rng, m, h, vocab, 1.05)
+    ids[2] = -1
+    ids[3, ::3] = vocab + 5
+  else:
+    ids = _ids(rng, m, h, vocab)
+  return np.ascontiguousarray(ids, dtype=np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('w', [1, 3, 8, 16, 32, 40, 128, 300])
+@pytest.mark.parametrize('case', sorted(_HAZARDS))
+def test_lookup_on_hazard_inputs(cuda_device, case, w, dtype):
+  # each hazard, sum and mean, bit for bit the plain version
+  m, h, vocab = _HAZARDS[case]
+  rng = np.random.default_rng(w * 31 + h)
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32))
+  table = table.to(_DT[dtype]).to(cuda_device)
+  ids = torch.as_tensor(_hazard_ids(rng, case, vocab, m, h)).to(cuda_device)
+  for combiner in ('sum', 'mean'):
+    before = lookup.LAUNCHES
+    got = lookup._launch(table, ids, combiner == 'mean')
+    torch.cuda.synchronize()
+    assert lookup.LAUNCHES == before + 1
+    want = lookup.dense_lookup_reference(table, ids, combiner, torch.float32)
+    assert torch.equal(got, want), (combiner,
+                                    float((got - want).abs().max()))
+  if case == 'all_padding':
+    assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['int8', 'float8_e4m3'])
+@pytest.mark.parametrize('w', [4, 8, 16, 128])
+@pytest.mark.parametrize('case', ['power_law', 'distinct', 'long_bag'])
+def test_lookup_dequantizes_hazards_bit_exact(cuda_device, case, w, dtype):
+  spec = quantization.resolve_table_dtype(dtype)
+  m, h, vocab = _HAZARDS[case]
+  rng = np.random.default_rng(w + h)
+  payload, scale = _quantized_table(rng, vocab, w, spec)
+  table = torch.from_numpy(payload).view(spec.torch_dtype).to(cuda_device)
+  sc = torch.from_numpy(scale).to(cuda_device)
+  ids = _hazard_ids(rng, case, vocab, m, h)
+  ids[0, :3] = [0, 1, 2]  # the zero, subnormal-scale and +-qmax rows
+  ids = torch.as_tensor(ids).to(cuda_device)
+  for combiner in ('sum', 'mean'):
+    got = lookup._launch(table, ids, combiner == 'mean', scale=sc)
+    want = lookup.dense_lookup_reference(table, ids, combiner, scale=sc)
+    assert torch.equal(got, want), combiner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w', [1, 16, 128, 300])
+@pytest.mark.parametrize('splits_kind', ['lengths', 'malformed'])
+def test_csr_arm_on_hazard_rows(cuda_device, splits_kind, w):
+  # empty rows, rows of 5000 ids and of 61, and splits
+  # past the capacity or decreasing (clamped, as the plain version)
+  rng = np.random.default_rng(w)
+  vocab = 20000
+  lengths = np.concatenate([[0, 0, 5000, 1, 0, 61, 61],
+                            rng.integers(0, 40, 300), [0]])
+  values, splits = _csr(rng, vocab, lengths)
+  v = values.numpy()
+  v[:int(lengths.sum())][v[:int(lengths.sum())] % 3 == 0] = 11  # repeats
+  if splits_kind == 'malformed':
+    splits = splits.clone()
+    splits[4] = splits[2]        # a row ending before it starts
+    splits[10] = 10 ** 9         # past the capacity
+    splits[11] = -5
+  table = torch.as_tensor(rng.normal(size=(vocab, w)).astype(np.float32))
+  table, values, splits = (x.to(cuda_device) for x in (table, values,
+                                                       splits))
+  for combiner in (('sum', 'mean') if splits_kind == 'lengths' else ('sum',)):
+    for dtype in (torch.float32, torch.bfloat16):
+      t = table.to(dtype)
+      got = lookup._launch(t, values, combiner == 'mean', splits)
+      want = lookup.ragged_lookup_reference(t, values, splits, combiner,
+                                            torch.float32)
+      assert torch.equal(got, want), (combiner, dtype)
+  assert not got[0].any() and not got[1].any()
 
 
 def _segwalk_against_plain(table, acc, ids, grads, op, g_index=None):
@@ -669,7 +778,7 @@ def test_csr_arm_matches_plain_version(cuda_device, combiner, w, dtype):
   want = lookup.ragged_lookup_reference(table, values.to(cuda_device),
                                         splits.to(cuda_device), combiner,
                                         torch.float32)
-  torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  assert torch.equal(got, want)
   assert not got[0].any() and not got[3].any()  # empty rows are zero
 
 
@@ -900,10 +1009,7 @@ def test_dequant_arm_matches_plain_version(cuda_device, dtype, w, combiner,
   torch.cuda.synchronize()
   assert lookup.ARM_LAUNCHES['dequant'] == before + 1
   want = lookup.dense_lookup_reference(table, ids, combiner, scale=sc)
-  if h == 1:
-    assert torch.equal(got, want)
-  else:
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+  assert torch.equal(got, want)
   # the subnormal-scale row alone: exact against the host dequantization
   one = torch.full((1, h), -1, dtype=torch.int32, device=cuda_device)
   one[0, 0] = 1
