@@ -13,6 +13,15 @@ Phases, each of which exits non-zero on failure:
             all-padding bags, a bag of 5000 ids; widths 1 to 300, f32 and
             bf16, sum and mean; int8 and fp8; CSR rows empty, of 61 and
             5000 ids, malformed splits.  Seconds.
+2c. segwalk-padding: the segment walk on synthetic padded streams at
+            the main path's shapes (9m's w8 and w16 table gradients, 9e's
+            deduplicated cold applies, dlrm-tier's two-source apply): the
+            kernel against its plain version on compact copies of the
+            touched rows (sgd and add bit-exact, adagrad_dedup 1e-6), and
+            against itself with NaN in every padding row (bit-equal); its
+            queued time on the full-size tables beside the sort's,
+            index_add_ into a zero-fill (add), the zero-fill and the
+            bound.  Seconds.
 3. model:   the synthetic model at full size, tables drawn on the card.
 4. kernels: the lookup kernel against its plain PyTorch version on the
             ids and tables one forward passes it (captured from that
@@ -41,7 +50,7 @@ Phases, each of which exits non-zero on failure:
             group's update stream captured from one more real step, for
             sgd (bit-exact), adagrad_dedup and adagrad_sq (rtol = atol =
             1e-6), untouched rows unchanged, and one bf16 table; kernel
-            device time over both passes (device_ms), plain time
+            device time of its one launch (device_ms), plain time
             (CUDA events, one call), Tensor.index_add_ for sgd, the
             bound, the longest segment and the chunks of each stream;
             then each stream's three ops timed again in two orders (sgd
@@ -1024,6 +1033,198 @@ def phase_lookup_hazards():
       f'empty, of 61 and 5000 ids, malformed splits) in '
       f'{time.perf_counter() - t0:.1f} s')
   return checks
+
+
+# phase 2c: synthetic padded streams at the main path's shapes: (op,
+# rows, w, positions, valid positions, segments (None: uniform ids),
+# padding at the head (-1) or the tail (>= rows), two-source head rows
+# or None)
+PADDED_STREAMS = {
+    # phase 9m: the hot dense trainer's table gradients (PERF.md section 6)
+    'hot_dense_table_grad_w8': ('add', 60160, 8, 2686976, 44638, None,
+                                'head', None),
+    'hot_dense_table_grad_w16': ('add', 70200000, 16, 2883584, 337780, None,
+                                 'head', None),
+    # phase 9e: the hot cache's deduplicated cold applies
+    'hot_cold_dedup_w8': ('adagrad_dedup', 60160, 8, 2686976, 44629, 39391,
+                          'head', None),
+    'hot_cold_dedup_w16': ('adagrad_dedup', 70200000, 16, 2883584, 337721,
+                           336680, 'head', None),
+    # phase 13g: dlrm-tier's two-source apply (head [125063952, 128] and
+    # fetch [206848, 128]; 107,932 head and 45,654 tail rows)
+    'dlrm_tier_two_source': ('sgd', 125063952 + 206848, 128, 1703936, 153586,
+                             153586, 'tail', 125063952),
+}
+
+
+def padded_stream(gen, rows, n, valid, segments, padding, res):
+  """``[n]`` int32 ids on the card, shuffled: ``valid`` of them in
+  ``[0, rows)`` over ``segments`` distinct ids (uniform ids when None;
+  with ``res``, the dlrm-tier split of distinct ids between ``[0, res)``
+  and ``[res, rows)``), the rest padding at the head (-1) or the tail
+  (``rows``)."""
+  dev = 'cuda'
+  if segments is None:
+    ids = torch.randint(0, rows, (valid,), generator=gen, device=dev)
+  else:
+    if res is None:
+      distinct = torch.randint(0, rows, (segments * 2,), generator=gen,
+                               device=dev).unique()
+      distinct = distinct[torch.randperm(distinct.shape[0], generator=gen,
+                                         device=dev)[:segments]]
+    else:
+      n_head = 107932  # PERF.md section 6: dlrm-tier's head rows
+      head = torch.randint(0, res, (n_head * 2,), generator=gen,
+                           device=dev).unique()
+      head = head[torch.randperm(head.shape[0], generator=gen,
+                                 device=dev)[:n_head]]
+      tail = res + torch.randperm(rows - res, generator=gen,
+                                  device=dev)[:segments - n_head]
+      distinct = torch.cat([head, tail])
+    assert distinct.shape[0] == segments
+    extra = distinct[torch.randint(0, segments, (valid - segments,),
+                                   generator=gen, device=dev)]
+    ids = torch.cat([distinct, extra])
+  pad = torch.full((n - valid,), -1 if padding == 'head' else rows,
+                   device=dev)
+  ids = torch.cat([ids, pad]).to(torch.int32)
+  return ids[torch.randperm(n, generator=gen, device=dev)]
+
+
+def compact_stream(ids, rows, res=None):
+  """The ids remapped onto the distinct valid ids they name, in order
+  (head padding stays -1, tail padding goes to the compact rows' count),
+  so the sorted stream, its chunks and its summation order are the
+  original's; with ``res``, the compact head and tail split there.
+  Returns ``(cids, compact rows, compact head rows)``."""
+  valid = (ids >= 0) & (ids < rows)
+  touched = torch.unique(ids[valid])
+  u = touched.shape[0]
+  cids = torch.searchsorted(touched, ids).to(torch.int32)
+  cids = torch.where(valid, cids, torch.where(ids < 0, ids, u))
+  n_head = u if res is None else int((touched < res).sum())
+  return cids.to(torch.int32), u, n_head
+
+
+def phase_segwalk_padding():
+  """Phase 2c: the segment walk on synthetic padded streams at the main
+  path's shapes (``PADDED_STREAMS``): on compact copies of the touched
+  rows (the same sorted stream and summation order) the kernel against
+  its plain version (sgd and add bit-exact, adagrad_dedup rtol = atol =
+  1e-6) and against itself with NaN in every gradient row of a padding
+  position (bit-equal); then on the full-size tables the kernel's
+  queued device time, sort_stream's, index_add_ into a zero-fill for
+  add (and alone), the zero-fill, and the bound (segwalk_bound).
+  Returns the rows."""
+  t0 = time.perf_counter()
+  gen = torch.Generator(device='cuda').manual_seed(21)
+  out = []
+  for label, (op, rows, w, n, valid, segments, padding,
+              res) in PADDED_STREAMS.items():
+    ids = padded_stream(gen, rows, n, valid, segments, padding, res)
+    grads = torch.randn(n, w, generator=gen, device='cuda')
+    sort_ms = device_ms(lambda: segwalk.sort_stream(ids, rows), 10)
+    segs = segwalk.sort_stream(ids, rows)
+    # the kernel against its plain version and against its poisoned run,
+    # on compact copies
+    cids, u, n_head = compact_stream(ids, rows, res)
+    csegs = segwalk.sort_stream(cids, u)
+    poisoned = grads.clone()
+    poisoned[(ids < 0) | (ids >= rows)] = float('nan')
+    ct = torch.randn(u, w, generator=gen, device='cuda')
+    ca = None if op != 'adagrad_dedup' else torch.rand(
+        u, w, generator=gen, device='cuda') + 0.05
+    results = []
+    for fn, g in ((segwalk.apply_segments, grads),
+                  (segwalk.apply_segments, poisoned),
+                  (segwalk.apply_segments_reference, grads)):
+      t = ct.clone()
+      a = None if ca is None else ca.clone()
+      tail = None
+      if res is not None:
+        tail = segwalk.Tail(t[n_head:].clone())
+        t = t[:n_head].clone()
+      fn(t, a, csegs, g, 0.3, op=op, tail=tail)
+      results.append([t, a] + ([] if tail is None else [tail.table]))
+    torch.cuda.synchronize()
+    (kern, kpois, plain) = results
+    err = max(float((x - y).abs().max()) if x is not None and x.numel()
+              else 0.0 for x, y in zip(kern, plain))
+    if op in ('sgd', 'add'):
+      ok, tol = all(x is None or torch.equal(x, y)
+                    for x, y in zip(kern, plain)), 'bit-exact'
+    else:
+      ok = all(x is None or torch.allclose(x, y, rtol=1e-6, atol=1e-6)
+               for x, y in zip(kern, plain))
+      tol = 'rtol=atol=1e-6 (rsqrt)'
+    if not ok:
+      raise AssertionError(f'segwalk-padding {label}: the kernel disagrees '
+                           f'with the plain version, max abs err {err} '
+                           f'({tol})')
+    if not all(x is None or torch.equal(x, y) for x, y in zip(kern, kpois)):
+      raise AssertionError(f'segwalk-padding {label}: NaN in the padding '
+                           'rows changed the result (it must never read '
+                           'them)')
+    plain_ms = plain_ms_of(lambda: segwalk.apply_segments_reference(
+        ct.clone() if res is None else ct[:n_head].clone(),
+        None if ca is None else ca.clone(), csegs, grads, 0.3, op=op,
+        tail=None if res is None else segwalk.Tail(ct[n_head:].clone())))
+    del results, kern, kpois, plain, poisoned, ct, ca, cids, csegs
+    # times on the full-size tables (lr 0: the values do not matter)
+    if res is None:
+      table = torch.zeros(rows, w, device='cuda')
+      tail = None
+    else:
+      table = torch.empty(res, w, device='cuda')
+      tail = segwalk.Tail(torch.empty(rows - res, w, device='cuda'))
+    acc = (None if op != 'adagrad_dedup'
+           else torch.full((rows, w), 0.1, device='cuda'))
+    nbytes, bound_ms, bound_by = segwalk_bound(segs, grads, table, acc, op)
+    kernel_ms = device_ms(lambda: segwalk.apply_segments(
+        table, acc, segs, grads, 0.0, op=op, tail=tail), 10,
+        floor_ms=bound_ms)
+    row = {'stream': label, 'op': op, 'rows': rows, 'w': w,
+           'res': res, 'positions': n,
+           'valid_positions': int((segs.ends - segs.starts).sum()),
+           'segments': segs.count, 'padding': padding,
+           'longest_segment': segs.longest(),
+           'chunks': -(-n // segwalk.CHUNK),
+           'valid_chunks': int((segs.ends[-1] - 1) // segwalk.CHUNK
+                               - segs.starts[0] // segwalk.CHUNK + 1),
+           'max_abs_err': err, 'tolerance': tol,
+           'padding_poisoned': 'bit-equal', 'kernel_ms': kernel_ms,
+           'plain_ms': plain_ms, 'sort_ms': sort_ms, 'bytes': nbytes,
+           'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+    lo, hi = int(segs.starts[0]), int(segs.ends[-1])
+    lib_ids = segs.sorted_ids[lo:hi].long()
+    lib_rows = grads[segs.gidx[lo:hi].long()]
+    if op == 'add':
+      # the function (a zero-fill, then the add) against index_add_ into
+      # a zero-fill; each part alone
+      row['zero_fill_ms'] = device_ms(table.zero_, 10)
+      row['function_ms'] = device_ms(lambda: segwalk.apply_segments(
+          table.zero_(), None, segs, grads, 0.0, op='add'), 10)
+      row['library_ms'] = device_ms(
+          lambda: table.zero_().index_add_(0, lib_ids, lib_rows), 10)
+      row['index_add_ms'] = device_ms(
+          lambda: table.index_add_(0, lib_ids, lib_rows), 10)
+    elif op == 'sgd':
+      # no one call applies to two tensors: index_add_ into each
+      in_tail = lib_ids >= res
+      h_ids, t_ids = lib_ids[~in_tail], lib_ids[in_tail] - res
+      h_rows, t_rows = lib_rows[~in_tail], lib_rows[in_tail]
+      row['index_add_two_calls_ms'] = device_ms(
+          lambda: (table.index_add_(0, h_ids, h_rows, alpha=-0.0),
+                   tail.table.index_add_(0, t_ids, t_rows, alpha=-0.0)), 10)
+    log('[segwalk-padding] ' + json.dumps(clocked(row)))
+    out.append(row)
+    del ids, grads, segs, table, tail, acc, lib_ids, lib_rows
+    torch.cuda.empty_cache()
+  log(f'[segwalk-padding] {len(out)} padded streams: the kernel equals its '
+      'plain version (sgd and add bit-exact, adagrad_dedup 1e-6) and '
+      'ignores NaN padding rows, in '
+      f'{time.perf_counter() - t0:.1f} s')
+  return out
 
 
 def pad_multi_hot(cats, hotness, rng):
@@ -6174,12 +6375,18 @@ def wire_segwalk_rows(step, state, cats, batch, tag):
 
 def checked_sum(rows):
   """The launches of a run held against their plain versions, their
-  times and bounds summed (a null library time stays null)."""
+  times and bounds summed (a null library time stays null), and apart
+  the segment sums' (op 'add', each beside index_add_ into a zero-fill:
+  a run whose applies have no library call still has theirs)."""
   library = [r['library_ms'] for r in rows]
+  adds = [r for r in rows if r.get('op') == 'add']
   return {'launches': len(rows),
           **{k: sum(r[k] for r in rows)
              for k in ('kernel_ms', 'plain_ms', 'bound_ms')},
           'library_ms': None if None in library else sum(library),
+          'add_launches': len(adds),
+          'add_kernel_ms': sum(r['kernel_ms'] for r in adds),
+          'add_library_ms': sum(r['library_ms'] for r in adds),
           'max_abs_err': max(r['max_abs_err'] for r in rows),
           'tolerances': sorted({r['tolerance'] for r in rows})}
 
@@ -7651,9 +7858,13 @@ def main(argv=None) -> int:
   card = phase_card()
   phase_build()
   hazard_checks = phase_lookup_hazards()
-  elapsed('phases 1-2b')
+  padding_rows = phase_segwalk_padding()
+  elapsed('phases 1-2c')
   k, seg, adam = run_tiny(args, card)
   k['hazard_checks'] = hazard_checks
+  seg['max_abs_err'] = max([seg['max_abs_err']]
+                           + [r['max_abs_err'] for r in padding_rows])
+  seg['padded_streams'] = padding_rows
   gc.collect()
   torch.cuda.empty_cache()
   log(f'[dlrm] after the tiny model: device memory '

@@ -21,8 +21,8 @@
 // add, as `table.at[ids].add(delta.astype(table.dtype))` does there, so a
 // bf16 table rounds twice (the other ops round once).  The count of a row
 // is read by every thread that updates a column of it and written once,
-// after all of them have read it (pass 1: after the block's last column
-// tile; pass 2: after a __syncwarp).
+// after all of them have read it (in a chunk: after the block's last
+// column tile; in a merge: after a __syncwarp).
 //
 // `add` (no learning rate, no accumulator) is the backward of the lookup
 // kernel: the wrapper zero-fills a table-shaped gradient and adds each
@@ -63,9 +63,9 @@
 // pallas_segwalk.py:232-236 and :321-330):
 // - the gradient stream G may be bf16 (stream_dtype='bfloat16': the
 //   wrapper rounds each compact gradient row to bf16 once).  Its rows are
-//   read as bf16 and up-cast to f32 once per element when they are staged;
-//   sums and sums of squares stay f32 in the same chunk order, so they
-//   equal the f32 stream's on the rounded rows, bit for bit.
+//   staged as bf16 and up-cast to f32 once per element where they are
+//   folded; sums and sums of squares stay f32 in the same chunk order, so
+//   they equal the f32 stream's on the rounded rows, bit for bit.
 // - the Adagrad accumulator A may be bf16 (accum_dtype='bfloat16'): read
 //   up to f32, S*S (or the summed squares) added in f32, the scale taken
 //   from that UNROUNDED f32 value, and the value rounded once, to nearest
@@ -86,55 +86,102 @@
 // the one table's rows would, and the resident head is never copied.
 // sgd, add and the Adagrad ops take it (lazy Adam's count has no tail).
 //
-// Design: two passes, no atomics, the same result on every run, and
-// grids sized from the stream length alone (the host reads nothing back).
+// Design: one launch, no atomic read-modify-writes, the same result on
+// every run, a grid sized without reading the device, and work that
+// follows the stream's VALID positions, not its length.
 //
-// - Pass 1 (`chunk_pass`), one block per chunk, keeps the TPU kernel's
-//   tiles.  The block loads the chunk's ids and gradient-row indices
-//   coalesced into shared memory, finds the run heads by comparing
-//   neighbouring ids (a ballot and a prefix count), then gathers the
-//   chunk's gradient rows into shared memory, kUnroll 16-byte loads in
-//   flight per thread, in column tiles of up to 32 columns.  One thread
-//   per (run, 4 columns) folds the run from shared memory.  A run that
-//   starts and ends inside the chunk is applied at once: one read and
-//   one write of its table row (and accumulator row).  A run that
-//   crosses the chunk's first or last boundary leaves its partial (and
-//   squares) in a [chunks, 2, w] f32 buffer: slot 0 for a run that
-//   continues a segment begun in an earlier chunk, slot 1 for the run
-//   that begins one.  A chunk inside one run writes its whole partial
-//   once, into slot 0.
-// - Pass 2 (`merge_pass`), one warp per chunk.  Only a chunk in which a
-//   boundary-crossing valid segment begins does work: it finds the
-//   segment's last position by binary search over the sorted ids, folds
-//   its slot-1 partial and the slot-0 partials of the following chunks
-//   in ascending order, and applies the segment once.
+// Padding ids (outside [0, rows)) sort to the two ends of the stream, so
+// the valid positions are one range [lo, hi).  On the padded streams of
+// the hot cache, the cold tier and the hot dense trainer that range is a
+// small share of the stream (1.7 % of 9m's w8 table gradient, 9 % of
+// dlrm-tier's apply).  A grid of one block per chunk spent most of its
+// time launching blocks that staged padding rows and then skipped them.
+//
+// - The grid is persistent: min(chunks, the blocks the card holds at
+//   once at this kernel's occupancy), launched cooperatively so that all
+//   of them are resident together.  Block b takes the chunks b, b + G,
+//   b + 2G, ... (G the grid), so a contiguous range of chunks lands on
+//   distinct blocks.
+// - The valid range is found on the device, per chunk, with no search
+//   and no host read.  A block loads its first chunk's ids and row
+//   indices at once; for each of its other chunks it first reads the
+//   chunk's first and last id (a chunk holds valid positions iff its
+//   last id is >= 0 and its first < rows), all in the same round of
+//   loads.  A block whose chunks are all padding exits after that round.
+//   In the two chunks that hold lo and hi the valid positions are found
+//   from the ids; the row indices of a loaded chunk's padding positions
+//   may be read with the ids (one load), their gradient rows never.
+// - Each chunk with valid positions keeps the TPU kernel's tiles.  The
+//   block loads the chunk's ids and gradient-row indices (and those of
+//   the kExt + 1 positions after it) coalesced into shared memory, finds
+//   the run heads of [lo, hi) in it by comparing neighbouring ids (a
+//   ballot and a prefix count), then copies the valid positions'
+//   gradient rows into shared memory in column tiles of up to 32
+//   columns, every copy of a tile in flight at once (cp.async: no
+//   registers held; a bf16 stream stays bf16 there and is read up to f32
+//   where it is folded).  One thread per (run, 4 columns) folds the run
+//   from shared memory.  A run that starts and ends inside the chunk is
+//   applied at once: one read and one write of its table row (and
+//   accumulator row).  So is a segment begun in the chunk that ends at
+//   most kExt positions into the next: its rows there are staged too,
+//   folded as that chunk's partial, and the two partials added in chunk
+//   order from +0, as a merge would; the next chunk's block sees from
+//   the ids that its first run was taken.  A longer run that crosses the
+//   chunk's first or last boundary leaves its partial (and squares) in a
+//   [chunks, 2, w] f32 buffer: slot 0 for a run that continues a segment
+//   begun in an earlier chunk (the chunk's flag is set, after a fence,
+//   once the block's last chunk is done: one wait for the stores, not
+//   one a chunk), slot 1 for the run that begins one.  A chunk inside one
+//   run writes its whole partial once, into slot 0.
+// - After its last chunk, a block merges each long segment that begins
+//   in one of its chunks, one warp a segment: the warp finds the
+//   segment's last chunk from the ids at the following chunks' starts
+//   (kMergeUnroll * 32 at a time), waits for those chunks' flags
+//   (relaxed loads, then a fence), folds the slot-1 partial and the
+//   slot-0 partials in ascending chunk order (a row narrower than the
+//   warp is loaded by groups of lanes, several chunks a load), applies
+//   the segment once and clears the flags it read.  Every flag a launch
+//   sets is read and cleared by exactly one merge, so the flags buffer
+//   (int32, one a chunk, zeroed once by the wrapper and kept per device
+//   and stream) is all zero between launches.  A block waits only after
+//   its own flags are set, and the cooperative launch keeps every block
+//   resident, so every flag it waits for is set; a flag still unset
+//   after seconds faults the launch rather than hanging it.  Merging in
+//   the same launch overlaps the merges with the other blocks' walks.
 //
 // The TPU kernel carries the run that crosses a tile boundary to the next
 // grid step in scratch memory; Hopper's blocks run in no order, so the
-// second pass takes the carry's place.  A hot id of L positions costs
+// flagged partials take the carry's place.  A hot id of L positions costs
 // about C shared-memory adds in each of its L / C chunks, in parallel,
-// plus L / C partial loads in pass 2: no thread walks all L positions.
+// plus L / C partial loads in its merge: no thread walks all L positions.
 //
-// What bounds it: device-memory bytes.  The sorted ids and indices are
-// read coalesced; the gradient rows are gathered in 32 B or 64 B sectors
-// (w8, w16 f32; half as many bytes for a bf16 stream); each distinct row
-// of the table (and accumulator, or Adam's two moments and count) is read
-// and written once, at random (64 B rows of the 4.5 GB w16 table); a
-// handful of flops per element.  The TPU kernel's lane packing, pair
-// fetch, SMEM sideband and DMA parity protocol fed the TPU's 512 B bursts
-// and (8, 128) tiles; on Hopper a 32 B sector is the unit of a random
-// read, so rows stay in natural [rows, w] layout.
+// What bounds it: device-memory bytes of the valid positions.  Their
+// sorted ids and indices are read coalesced (padding costs two id loads
+// a chunk, and a block's first chunk's ids); the gradient rows they name
+// are gathered in 32 B or 64 B sectors (w8, w16 f32; half as many bytes
+// for a bf16 stream); each distinct row of the table (and accumulator,
+// or Adam's two moments and count) is read and written once, at random
+// (64 B rows of the 4.5 GB w16 table); a handful of flops per element.
+// On a short valid range (a few hundred chunks) the chain of dependent
+// loads sets the time: the probe, the ids, the gradient rows, the table
+// rows; only a segment longer than kExt across a chunk's end adds its
+// partials and a wait.  The TPU kernel's lane packing, pair fetch, SMEM
+// sideband and DMA parity protocol fed the TPU's 512 B bursts and (8,
+// 128) tiles; on Hopper a 32 B sector is the unit of a random read, so
+// rows stay in natural [rows, w] layout.
 //
 // Plain C interface, loaded with ctypes, one entry point; the dtypes come
-// as flags.  Both launches go on the stream the caller passes (PyTorch's
+// as flags.  The launch goes on the stream the caller passes (PyTorch's
 // current stream); the function does not synchronise, allocates nothing
-// (the wrapper allocates the partials), and returns the cudaError_t of
-// the launches.
+// (the wrapper allocates the partials and the flags), and returns the
+// cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -142,8 +189,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+// blocks an SM holds at least: caps the kernel at 64 registers a thread,
+// the chunk walk's own need (the merge code, inlined into the same
+// kernel, would otherwise raise every instance's count and cut the
+// blocks in flight a fifth or more on dense streams)
+constexpr int kMinBlocks = 4;
 constexpr int kTile = 32;   // columns of a chunk's rows staged at once
-constexpr int kUnroll = 4;  // gradient-row loads in flight per thread
+// chunks' ids, flags and partials a merging lane has in flight
+constexpr int kMergeUnroll = 4;
+// polls of a chunk's flag before a merge gives up (over a second of
+// __nanosleep(64))
+constexpr int64_t kMaxSpins = int64_t{1} << 25;
+// a segment begun in a chunk that runs at most kExt positions into the
+// next is folded and applied whole by the chunk's block (kExt + 1 ids
+// past the chunk fit one warp's ballot)
+constexpr int kExt = 31;
 constexpr int kSgd = 0;
 constexpr int kAdagradDedup = 1;
 constexpr int kAdagradSq = 2;
@@ -246,15 +306,74 @@ __device__ __forceinline__ void fold(float (&sum)[V], float (&sq)[V],
   }
 }
 
+// Copies V elements of type X from device memory at src into shared
+// memory at dst without passing through registers (cp.async, 4, 8 or 16
+// bytes), or through registers where the copy is 2 bytes.  The copies
+// land at cp_async_wait().
+template <int V, typename X>
+__device__ __forceinline__ void stage_async(X* dst, const X* src) {
+  constexpr int kBytes = V * sizeof(X);
+  if constexpr (kBytes >= 4) {
+    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(to),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+  } else {
+    *dst = *src;
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// V f32 values at p, read from L2 (ld.global.cg): a partial another
+// block wrote in this launch, never a stale line of this SM's L1.
+template <int V>
+__device__ __forceinline__ Vec<float, V> load_cg(const float* p) {
+  Vec<float, V> y;
+  if constexpr (V == 4) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+    y.v[0] = x.x;
+    y.v[1] = x.y;
+    y.v[2] = x.z;
+    y.v[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+    y.v[0] = x.x;
+    y.v[1] = x.y;
+  } else {
+    y.v[0] = __ldcg(p);
+  }
+  return y;
+}
+
+// A chunk's flag: set (a relaxed store after a device-scope fence) once
+// its slot-0 partial is written; the merge that folds it reads it
+// relaxed and fences before it reads the partial.
+__device__ __forceinline__ void store_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
 // Adds partial `x` (and squares `xq`) into sum (and sq).
 template <int V, int OP>
 __device__ __forceinline__ void merge(float (&sum)[V], float (&sq)[V],
                                       const float* x, const float* xq) {
-  const Vec<float, V> s = load_f32<V>(x);
+  const Vec<float, V> s = load_cg<V>(x);
 #pragma unroll
   for (int k = 0; k < V; ++k) sum[k] = __fadd_rn(sum[k], s.v[k]);
   if (OP == kAdagradSq) {
-    const Vec<float, V> q = load_f32<V>(xq);
+    const Vec<float, V> q = load_cg<V>(xq);
 #pragma unroll
     for (int k = 0; k < V; ++k) sq[k] = __fadd_rn(sq[k], q.v[k]);
   }
@@ -322,229 +441,547 @@ __device__ __forceinline__ void apply_row(const Rows<T, A>& r, int64_t id,
   store_as<V>(table + off, out);
 }
 
-// Pass 1: block b folds the runs of chunk b.  Dynamic shared memory:
-// the staged gradient rows [chunk, min(w, kTile)] f32, then the chunk's
-// ids, gradient-row indices and run heads (chunk + 1), int32.
-// part: [chunks, 2, w] partial sums, then (adagrad_sq) as many squares.
 template <typename T, typename G, typename A, int V, int OP>
-__global__ void __launch_bounds__(kBlock)
-    chunk_pass(const int32_t* __restrict__ sid,
-               const int32_t* __restrict__ gidx,
-               const G* __restrict__ grads, Rows<T, A> rows_out,
-               float* __restrict__ part, int64_t n, int64_t rows, int w,
-               int chunk, Hyper h) {
+struct Walk {
+  const int32_t* __restrict__ sid;
+  const int32_t* __restrict__ gidx;
+  const G* __restrict__ grads;
+  Rows<T, A> rows_out;
+  float* part;  // written and read in this launch: no __restrict__
+  int* flags;
+  int n;  // positions: the wrapper refuses 2^31 or more
+  int chunks;
+  int64_t rows;
+  int w;
+  int chunk;
+  Hyper h;
+
+  // Loads chunk c's ids and row indices, and those of the kExt + 1
+  // positions after it, into sid_s ([chunk + kExt + 1]) and gidx_s
+  // ([chunk + kExt]); ctx[0..2] get the ids at the chunk's first position
+  // - 1, the previous chunk's first position and that position - 1 (-1
+  // where there is none).  No barrier.
+  __device__ __forceinline__ void load_chunk(int c, int32_t* sid_s,
+                                             int32_t* gidx_s,
+                                             int32_t* ctx) const {
+    const int t = threadIdx.x;
+    const int begin = c * chunk;
+    const int len = min(chunk, n - begin);
+    const int ext = min(kExt + 1, n - begin - len);
+    const int idx_end = len + min(ext, kExt);
+    for (int p = t; p < len + ext; p += kBlock) {
+      sid_s[p] = sid[begin + p];
+      if (p < idx_end) gidx_s[p] = gidx[begin + p];
+    }
+    if (t == 0) {
+      ctx[0] = begin > 0 ? sid[begin - 1] : -1;
+      ctx[1] = begin >= chunk ? sid[begin - chunk] : -1;
+      ctx[2] = begin > chunk ? sid[begin - chunk - 1] : -1;
+    }
+  }
+
+  // The runs of chunk c's valid positions, after load_chunk and a
+  // barrier.  A run that starts and ends in the chunk is applied here;
+  // so is a segment begun here that ends at most kExt positions into the
+  // next chunk (its rows there are staged too, and that chunk's block
+  // skips its first run); a longer crossing run leaves a partial (slot 0
+  // and bit `mbit` of `publish`, slot 1 and bit `mbit` of `merges`).  Shared
+  // memory: the staged gradient rows g_s [chunk + kExt, min(w, kTile)]
+  // (of the stream's type), the short tail's partial ext_s [2, kTile]
+  // f32 and the run heads run_s [chunk + 1].
+  __device__ __forceinline__ void chunk_runs(int c, const int32_t* sid_s,
+                                             const int32_t* gidx_s,
+                                             const int32_t* ctx, G* g_s,
+                                             float* ext_s, int32_t* run_s,
+                                             int* warp_heads,
+                                             unsigned* merges,
+                                             unsigned* publish,
+                                             int mbit) const {
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int begin = c * chunk;
+    const int len = min(chunk, n - begin);
+    const int ext = min(kExt + 1, n - begin - len);
+    // [va, vb): the chunk's valid positions (counted only in a chunk
+    // that holds padding)
+    int va = 0;
+    int vb = len;
+    if (!(sid_s[0] >= 0 && sid_s[len - 1] < rows)) {
+      int below = 0;
+      int above = 0;
+      for (int p0 = 0; p0 < len; p0 += kBlock) {
+        const int p = p0 + t;
+        const int32_t s = p < len ? sid_s[p] : 0;
+        below += __syncthreads_count(p < len && s < 0);
+        above += __syncthreads_count(p < len && s >= rows);
+      }
+      va = below;
+      vb = len - above;
+      if (va >= vb) return;  // all padding (uniform: no barrier skipped)
+    }
+
+    // run heads: run_s[r] is the first local position of run r
+    int runs = 0;
+    for (int p0 = va; p0 < vb; p0 += kBlock) {
+      const int p = p0 + t;
+      const bool head = p < vb && (p == va || sid_s[p] != sid_s[p - 1]);
+      const unsigned mask = __ballot_sync(0xffffffffu, head);
+      if (lane == 0) warp_heads[warp] = __popc(mask);
+      __syncthreads();
+      int before = runs;
+      int total = runs;
+      for (int k = 0; k < kWarps; ++k) {
+        const int cnt = warp_heads[k];
+        if (k < warp) before += cnt;
+        total += cnt;
+      }
+      if (head) run_s[before + __popc(mask & ((1u << lane) - 1u))] = p;
+      runs = total;
+      __syncthreads();
+    }
+    if (t == 0) run_s[runs] = vb;
+    __syncthreads();
+
+    const int32_t first = sid_s[va];
+    const int32_t last = sid_s[vb - 1];
+    const bool head_crosses = va == 0 && ctx[0] == first;
+    const bool tail_crosses = vb == len && ext > 0 && sid_s[len] == last;
+    // the first run, begun in the previous chunk and ending at most kExt
+    // positions into this one, is that chunk's block's
+    const bool head_taken =
+        head_crosses && run_s[1] - run_s[0] <= kExt &&
+        !(runs == 1 && tail_crosses) &&
+        !(ctx[1] == first && ctx[2] == first);
+    // the last run, begun here: the positions of its segment past the
+    // chunk's end (kExt + 1 stands for more)
+    const bool began_here = !(runs == 1 && head_crosses);
+    int tail_ext = 0;
+    if (tail_crosses && began_here) {
+      const unsigned other = __ballot_sync(
+          0xffffffffu, lane >= ext || sid_s[len + lane] != last);
+      tail_ext = other ? __ffs(other) - 1 : kExt + 1;
+    }
+    const bool tail_short = tail_crosses && began_here && tail_ext <= kExt;
+    const bool tail_partial = tail_crosses && !tail_short;
+    if (tail_partial && began_here && t == 0) {
+      merges[mbit >> 5] |= 1u << (mbit & 31);  // merged after the walk
+    }
+
+    const int r0 = head_taken ? 1 : 0;
+    const int sa = run_s[r0];
+    const int in_chunk = vb - sa;  // staged rows of the chunk itself
+    const int stage_rows = in_chunk + (tail_short ? tail_ext : 0);
+    const int64_t sq_part = static_cast<int64_t>(chunks) * 2 * w;
+    for (int c0 = 0; c0 < w; c0 += kTile) {
+      const int wt = min(kTile, w - c0);
+      const int nv = wt / V;  // vectors of V columns per row in this tile
+      // stage the tile's columns of the gradient rows of positions
+      // [sa, vb) and of the short tail's positions past the chunk (local
+      // position p at g_s row p), all copies in flight at once
+      const int staged = stage_rows * nv;
+      for (int i = t; i < staged; i += kBlock) {
+        const int q = i / nv;
+        const int p = q < in_chunk ? sa + q : len + q - in_chunk;
+        const int j = i - q * nv;
+        stage_async<V>(g_s + p * wt + j * V,
+                       grads + static_cast<int64_t>(gidx_s[p]) * w + c0 +
+                           j * V);
+      }
+      cp_async_wait();
+      __syncthreads();
+      if (tail_short) {
+        // the short tail's partial past the chunk, from +0
+        if (t < nv) {
+          float sum[V];
+          float sq[V];
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            sum[k] = 0.0f;
+            sq[k] = 0.0f;
+          }
+          for (int p = len; p < len + tail_ext; ++p) {
+            fold<V, OP>(sum, sq, load_f32<V>(g_s + p * wt + t * V));
+          }
+          store_as<V>(ext_s + t * V, sum);
+          if (OP == kAdagradSq) store_as<V>(ext_s + kTile + t * V, sq);
+        }
+        __syncthreads();
+      }
+      // fold each run: one thread per (run, vector of columns)
+      const int items = (runs - r0) * nv;
+      for (int i = t; i < items; i += kBlock) {
+        const int r = r0 + i / nv;
+        const int j = i - (r - r0) * nv;
+        const int s = run_s[r];
+        const int e = run_s[r + 1];
+        const int32_t id = sid_s[s];
+        float sum[V];
+        float sq[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          sum[k] = 0.0f;
+          sq[k] = 0.0f;
+        }
+        for (int p = s; p < e; ++p) {
+          fold<V, OP>(sum, sq, load_f32<V>(g_s + p * wt + j * V));
+        }
+        const int col = c0 + j * V;
+        const bool last_run = r == runs - 1;
+        if (last_run && tail_short) {
+          // the two partials in chunk order from +0, a merge's arithmetic
+          const Vec<float, V> x = load_f32<V>(ext_s + j * V);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            sum[k] = __fadd_rn(__fadd_rn(0.0f, sum[k]), x.v[k]);
+          }
+          if (OP == kAdagradSq) {
+            const Vec<float, V> y = load_f32<V>(ext_s + kTile + j * V);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              sq[k] = __fadd_rn(__fadd_rn(0.0f, sq[k]), y.v[k]);
+            }
+          }
+        }
+        const bool crosses_left = r == 0 && head_crosses;
+        if (crosses_left || (last_run && tail_partial)) {
+          const int64_t off =
+              (static_cast<int64_t>(c) * 2 + (crosses_left ? 0 : 1)) * w +
+              col;
+          store_as<V>(part + off, sum);
+          if (OP == kAdagradSq) store_as<V>(part + sq_part + off, sq);
+        } else {
+          const float step =
+              OP == kAdam ? static_cast<float>(rows_out.count[id] + 1) : 0.0f;
+          apply_row<T, A, V, OP>(rows_out, id, w, col, sum, sq, h, step);
+        }
+      }
+      __syncthreads();
+    }
+    if (head_crosses && !head_taken && t == 0) {
+      publish[mbit >> 5] |= 1u << (mbit & 31);  // flagged after the walk
+    }
+    if constexpr (OP == kAdam) {
+      // every column of the rows applied here has read its count
+      for (int r = r0 + t; r < runs; r += kBlock) {
+        const int32_t id = sid_s[run_s[r]];
+        const bool partial = (r == 0 && head_crosses) ||
+                             (r == runs - 1 && tail_partial);
+        if (!partial) rows_out.count[id] += 1;
+      }
+    }
+    __syncthreads();  // the shared buffers are the next chunk's
+  }
+
+  // One warp: the segment that begins in chunk k and runs more than kExt
+  // positions into the next.  Its chunks' ids, flags and partials are
+  // read kMergeUnroll a lane at a time, and a row of partials narrower
+  // than the warp takes a group of lanes, so a segment over many chunks
+  // costs a few round trips; the partials are folded in ascending chunk
+  // order (shuffled to the first group's lanes).
+  __device__ __forceinline__ void merge_segment(int k) const {
+    const int lane = threadIdx.x & 31;
+    const int32_t id = sid[k * chunk + chunk - 1];
+    const int64_t sq_part = static_cast<int64_t>(chunks) * 2 * w;
+    // its last chunk: the following chunks that start with id (a prefix
+    // of them, in chunk order j = base + u * 32 + lane)
+    int last = k;
+    for (int base = k + 1;; base += 32 * kMergeUnroll) {
+      unsigned starts = 0;
+#pragma unroll
+      for (int u = 0; u < kMergeUnroll; ++u) {
+        const int j = base + u * 32 + lane;
+        if (j < chunks && sid[j * chunk] == id) starts |= 1u << u;
+      }
+      bool more = true;
+#pragma unroll
+      for (int u = 0; u < kMergeUnroll; ++u) {
+        if (more) {
+          const unsigned m = __ballot_sync(0xffffffffu, (starts >> u) & 1u);
+          last += __popc(m);
+          more = m == 0xffffffffu;
+        }
+      }
+      if (!more) break;
+    }
+    // each of them has set its flag (every block is resident and sets
+    // its flags before it waits; a flag still unset after seconds is a
+    // broken invariant, and the launch faults, not hangs); then a fence,
+    // so that the partials are read after the flags
+    for (int base = k + 1; base <= last; base += 32 * kMergeUnroll) {
+      int seen[kMergeUnroll];
+#pragma unroll
+      for (int u = 0; u < kMergeUnroll; ++u) {
+        const int j = base + u * 32 + lane;
+        seen[u] = j <= last ? load_relaxed(flags + j) : 1;
+      }
+#pragma unroll
+      for (int u = 0; u < kMergeUnroll; ++u) {
+        const int j = base + u * 32 + lane;
+        for (int64_t spins = 0; seen[u] == 0; ++spins) {
+          if (spins > kMaxSpins) __trap();
+          __nanosleep(64);
+          seen[u] = load_relaxed(flags + j);
+        }
+      }
+    }
+    __threadfence();
+    __syncwarp();
+    const int32_t count = OP == kAdam ? rows_out.count[id] : 0;
+    // column slabs of up to 32 vectors; a slab of `lanes` vectors gives
+    // each of `groups` lane groups one chunk's partial row a load
+    for (int c0 = 0; c0 < w; c0 += 32 * V) {
+      const int lanes = min(32, (w - c0) / V);
+      const int groups = 32 / lanes;
+      const int g = lane / lanes;
+      const int col = c0 + (lane - g * lanes) * V;
+      float sum[V];
+      float sq[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        sum[q] = 0.0f;
+        sq[q] = 0.0f;
+      }
+      if (g == 0) {
+        const int64_t tail = (static_cast<int64_t>(k) * 2 + 1) * w + col;
+        merge<V, OP>(sum, sq, part + tail, part + sq_part + tail);
+      }
+      // (half as many in flight with the squares beside the sums)
+      constexpr int kU = OP == kAdagradSq ? kMergeUnroll / 2 : kMergeUnroll;
+      for (int base = k + 1; base <= last; base += kU * groups) {
+        Vec<float, V> x[kU] = {};
+        Vec<float, V> xq[kU] = {};
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int j = base + u * groups + g;
+          if (g < groups && j <= last) {
+            const int64_t head = static_cast<int64_t>(j) * 2 * w + col;
+            x[u] = load_cg<V>(part + head);
+            if (OP == kAdagradSq) xq[u] = load_cg<V>(part + sq_part + head);
+          }
+        }
+        // in chunk order: j = base + u * groups + e
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          for (int e = 0; e < groups && base + u * groups + e <= last; ++e) {
+            const int from = e * lanes + (lane % lanes);
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+              sum[q] = __fadd_rn(sum[q], __shfl_sync(0xffffffffu, x[u].v[q],
+                                                     from));
+              if (OP == kAdagradSq) {
+                sq[q] = __fadd_rn(sq[q], __shfl_sync(0xffffffffu,
+                                                     xq[u].v[q], from));
+              }
+            }
+          }
+        }
+      }
+      if (g == 0) {
+        apply_row<T, A, V, OP>(rows_out, id, w, col, sum, sq, h,
+                               static_cast<float>(count + 1));
+      }
+    }
+    // the flags read here are zero again for the next launch
+    for (int j = k + 1 + lane; j <= last; j += 32) flags[j] = 0;
+    if constexpr (OP == kAdam) {
+      __syncwarp();  // every lane has read the count
+      if (lane == 0) rows_out.count[id] = count + 1;
+    }
+  }
+};
+
+// Block b walks the chunks b, b + G, ... (G = gridDim.x) in rounds of
+// kBlock: its first chunk loaded at once, the others after a probe of
+// their end ids; then it sets its chunks' flags and merges the long
+// crossing segments begun in its chunks.  Dynamic shared memory: the
+// short tail's partial, the staged rows, the chunk's ids and row indices
+// and the run heads (Walk::chunk_runs), then `rounds * kWarps` merge
+// words and as many flag words.
+template <typename T, typename G, typename A, int V, int OP>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    segwalk_kernel(Walk<T, G, A, V, OP> wk, int rounds) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tile = min(w, kTile);
-  float* g_s = reinterpret_cast<float*>(smem);
-  int32_t* sid_s = reinterpret_cast<int32_t*>(g_s + chunk * tile);
-  int32_t* gidx_s = sid_s + chunk;
-  int32_t* run_s = gidx_s + chunk;
+  const int chunk = wk.chunk;
+  const int tile = min(wk.w, kTile);
+  float* ext_s = reinterpret_cast<float*>(smem);
+  G* g_s = reinterpret_cast<G*>(ext_s + 2 * kTile);
+  int32_t* sid_s = reinterpret_cast<int32_t*>(
+      smem + 2 * kTile * sizeof(float) +
+      ((chunk + kExt) * tile * sizeof(G) + 3) / 4 * 4);
+  int32_t* gidx_s = sid_s + chunk + kExt + 1;
+  int32_t* run_s = gidx_s + chunk + kExt;
+  unsigned* merges = reinterpret_cast<unsigned*>(run_s + chunk + 1);
+  unsigned* publish = merges + rounds * kWarps;
+  __shared__ int32_t ctx[3];
   __shared__ int warp_heads[kWarps];
+  __shared__ unsigned active[kWarps];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int64_t begin = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int len = n - begin < chunk ? static_cast<int>(n - begin) : chunk;
-  for (int p = t; p < len; p += kBlock) {
-    sid_s[p] = sid[begin + p];
-    gidx_s[p] = gidx[begin + p];
-  }
-  __syncthreads();
-
-  // run heads: run_s[r] is the first local position of run r
-  int runs = 0;
-  for (int p0 = 0; p0 < len; p0 += kBlock) {
-    const int p = p0 + t;
-    const bool head = p < len && (p == 0 || sid_s[p] != sid_s[p - 1]);
-    const unsigned mask = __ballot_sync(0xffffffffu, head);
-    if (lane == 0) warp_heads[warp] = __popc(mask);
-    __syncthreads();
-    int before = runs;
-    int total = runs;
-    for (int k = 0; k < kWarps; ++k) {
-      const int c = warp_heads[k];
-      if (k < warp) before += c;
-      total += c;
+  const int grid = gridDim.x;
+  const int b = blockIdx.x;
+  // this block's chunks: b + i * grid for i < mine (mine >= 1)
+  const int mine = (wk.chunks - b + grid - 1) / grid;
+  for (int i = t; i < 2 * rounds * kWarps; i += kBlock) merges[i] = 0;
+  for (int r = 0; r < rounds; ++r) {
+    // probe: does the chunk hold a valid position (its last id >= 0 and
+    // its first < rows)?
+    const int i = r * kBlock + t;
+    bool live = false;
+    if (i > 0 && i < mine) {
+      const int begin = (b + i * grid) * chunk;
+      const int end = min(begin + chunk, wk.n);
+      live = wk.sid[end - 1] >= 0 && wk.sid[begin] < wk.rows;
     }
-    if (head) run_s[before + __popc(mask & ((1u << lane) - 1u))] = p;
-    runs = total;
+    if (r == 0) wk.load_chunk(b, sid_s, gidx_s, ctx);
+    const unsigned a = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) active[warp] = a;
     __syncthreads();
+    if (r == 0) {
+      wk.chunk_runs(b, sid_s, gidx_s, ctx, g_s, ext_s, run_s, warp_heads,
+                    merges, publish, 0);
+      __syncthreads();
+    }
+    for (int q = 0; q < kWarps; ++q) {
+      unsigned m = active[q];
+      while (m) {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        const int ci = r * kBlock + q * 32 + bit;
+        wk.load_chunk(b + ci * grid, sid_s, gidx_s, ctx);
+        __syncthreads();
+        wk.chunk_runs(b + ci * grid, sid_s, gidx_s, ctx, g_s, ext_s, run_s,
+                      warp_heads, merges, publish, ci);
+        __syncthreads();
+      }
+    }
   }
-  if (t == 0) run_s[runs] = len;
-  __syncthreads();
-
-  // does the first run continue a segment of the previous chunk, the
-  // last one into the next chunk?
-  const bool head_crosses = begin > 0 && sid[begin - 1] == sid_s[0];
-  const bool tail_crosses =
-      begin + len < n && sid[begin + len] == sid_s[len - 1];
-  const int64_t sq_part = static_cast<int64_t>(gridDim.x) * 2 * w;
-
-  for (int c0 = 0; c0 < w; c0 += kTile) {
-    const int wt = min(kTile, w - c0);
-    const int nv = wt / V;  // vectors of V columns per row in this tile
-    const int items = len * nv;
-    // stage the tile's columns of the chunk's gradient rows, up-cast to f32
-    for (int i0 = t; i0 < items; i0 += kBlock * kUnroll) {
-      Vec<float, V> x[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kBlock;
-        if (i < items) {
-          const int p = i / nv;
-          const int j = i - p * nv;
-          x[u] = load_f32<V>(grads + static_cast<int64_t>(gidx_s[p]) * w +
-                             c0 + j * V);
+  // every partial of this block's chunks is written (each chunk ended at
+  // a barrier): set the slot-0 flags, one fence and then plain stores a
+  // word of them, once for the whole walk; then merge, one warp a segment
+  // (a block never waits before its own flags are out)
+  for (int i = t; i < rounds * kWarps; i += kBlock) {
+    unsigned m = publish[i];
+    if (m) __threadfence();
+    while (m) {
+      const int bit = __ffs(m) - 1;
+      m &= m - 1;
+      store_relaxed(wk.flags + b + (i * 32 + bit) * grid, 1);
+    }
+  }
+  int idx = 0;
+  for (int r = 0; r < rounds; ++r) {
+    for (int q = 0; q < kWarps; ++q) {
+      unsigned m = merges[r * kWarps + q];
+      while (m) {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        if (idx++ % kWarps == warp) {
+          wk.merge_segment(b + (r * kBlock + q * 32 + bit) * grid);
         }
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u * kBlock;
-        if (i < items) {
-          const int p = i / nv;
-          const int j = i - p * nv;
-          *reinterpret_cast<Vec<float, V>*>(g_s + p * wt + j * V) = x[u];
-        }
-      }
-    }
-    __syncthreads();
-    // fold each valid run: one thread per (run, vector of columns)
-    for (int i = t; i < runs * nv; i += kBlock) {
-      const int r = i / nv;
-      const int j = i - r * nv;
-      const int s = run_s[r];
-      const int e = run_s[r + 1];
-      const int32_t id = sid_s[s];
-      if (id < 0 || id >= rows) continue;
-      float sum[V];
-      float sq[V];
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        sum[k] = 0.0f;
-        sq[k] = 0.0f;
-      }
-      for (int p = s; p < e; ++p) {
-        fold<V, OP>(sum, sq, load_f32<V>(g_s + p * wt + j * V));
-      }
-      const int c = c0 + j * V;
-      const bool crosses_left = r == 0 && head_crosses;
-      const bool crosses_right = r == runs - 1 && tail_crosses;
-      if (crosses_left || crosses_right) {
-        const int64_t off =
-            (static_cast<int64_t>(blockIdx.x) * 2 + (crosses_left ? 0 : 1)) *
-                w + c;
-        store_as<V>(part + off, sum);
-        if (OP == kAdagradSq) store_as<V>(part + sq_part + off, sq);
-      } else {
-        const float step =
-            OP == kAdam ? static_cast<float>(rows_out.count[id] + 1) : 0.0f;
-        apply_row<T, A, V, OP>(rows_out, id, w, c, sum, sq, h, step);
-      }
-    }
-    __syncthreads();
-  }
-  if constexpr (OP == kAdam) {
-    // every column of the rows applied here has read its count
-    for (int r = t; r < runs; r += kBlock) {
-      const int32_t id = sid_s[run_s[r]];
-      const bool crosses =
-          (r == 0 && head_crosses) || (r == runs - 1 && tail_crosses);
-      if (id >= 0 && id < rows && !crosses) rows_out.count[id] += 1;
     }
   }
 }
 
-// Pass 2: warp k merges and applies the segment that begins in chunk k
-// and crosses its last boundary, if there is one.
-template <typename T, typename A, int V, int OP>
-__global__ void __launch_bounds__(kBlock)
-    merge_pass(const int32_t* __restrict__ sid,
-               const float* __restrict__ part, Rows<T, A> rows_out,
-               int64_t n, int64_t rows, int w, int chunk, int64_t chunks,
-               Hyper h) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kWarps +
-                    (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (k >= chunks) return;
-  const int64_t next = (k + 1) * chunk;  // first position of chunk k + 1
-  if (next >= n) return;
-  const int32_t id = sid[next - 1];
-  if (id < 0 || id >= rows || sid[next] != id) return;  // no crossing
-  const int64_t begin = k * chunk;
-  if (begin > 0 && sid[begin - 1] == id) return;  // begun in an earlier chunk
-  // the segment's last position: sid[lo] == id, sid[hi] != id (or hi == n)
-  int64_t lo = next;
-  int64_t hi = n;
-  while (hi - lo > 1) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    if (sid[mid] == id) {
-      lo = mid;
-    } else {
-      hi = mid;
+// Blocks of `kernel` an SM holds at `smem` bytes of dynamic shared
+// memory on the current device (the occupancy query, cached).
+int blocks_per_sm(const void* kernel, size_t smem, int device,
+                  cudaError_t* err) {
+  struct Entry {
+    const void* kernel;
+    size_t smem;
+    int device;
+    int blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int used = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == kernel && e.smem == smem && e.device == device) {
+      return e.blocks;
     }
   }
-  const int64_t last = lo / chunk;
-  const int64_t sq_part = chunks * 2 * w;
-  const int32_t count = OP == kAdam ? rows_out.count[id] : 0;
-  for (int c = lane * V; c < w; c += 32 * V) {
-    float sum[V];
-    float sq[V];
-#pragma unroll
-    for (int q = 0; q < V; ++q) {
-      sum[q] = 0.0f;
-      sq[q] = 0.0f;
-    }
-    const int64_t tail = (k * 2 + 1) * w + c;
-    merge<V, OP>(sum, sq, part + tail, part + sq_part + tail);
-#pragma unroll 8
-    for (int64_t j = k + 1; j <= last; ++j) {
-      const int64_t head = j * 2 * w + c;
-      merge<V, OP>(sum, sq, part + head, part + sq_part + head);
-    }
-    apply_row<T, A, V, OP>(rows_out, id, w, c, sum, sq, h,
-                           static_cast<float>(count + 1));
-  }
-  if constexpr (OP == kAdam) {
-    __syncwarp();  // every lane has read the count
-    if (lane == 0) rows_out.count[id] = count + 1;
-  }
+  int blocks = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                       kBlock, smem);
+  if (*err != cudaSuccess) return 0;
+  if (used < 64) cache[used++] = Entry{kernel, smem, device, blocks};
+  return blocks;
 }
 
 template <typename T, typename G, typename A, int V, int OP>
 cudaError_t launch_op(const int32_t* sid, const int32_t* gidx, const G* grads,
-                      const Rows<T, A>& r, float* part, int64_t n,
+                      const Rows<T, A>& r, float* part, int* flags, int64_t n,
                       int64_t rows, int w, int chunk, const Hyper& h,
                       cudaStream_t stream) {
-  const int64_t chunks = (n + chunk - 1) / chunk;
-  const size_t smem =
-      static_cast<size_t>(chunk) * (w < kTile ? w : kTile) * sizeof(float) +
-      (3 * static_cast<size_t>(chunk) + 1) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chunk_pass<T, G, A, V, OP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  const int chunks = static_cast<int>((n + chunk - 1) / chunk);
+  const void* kernel =
+      reinterpret_cast<const void*>(&segwalk_kernel<T, G, A, V, OP>);
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   }
-  chunk_pass<T, G, A, V, OP><<<static_cast<unsigned>(chunks), kBlock, smem,
-                               stream>>>(sid, gidx, grads, r, part, n, rows,
-                                         w, chunk, h);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks < 2) return err;
-  merge_pass<T, A, V, OP>
-      <<<static_cast<unsigned>((chunks + kWarps - 1) / kWarps), kBlock, 0,
-         stream>>>(sid, part, r, n, rows, w, chunk, chunks, h);
+  if (err != cudaSuccess) return err;
+  // the short tail's partial (f32), the staged rows (of the stream's
+  // type; a multiple of 4 bytes), the chunk's ids and row indices and the
+  // run heads (int32)
+  const size_t base =
+      2 * kTile * sizeof(float) +
+      (static_cast<size_t>(chunk + kExt) * (w < kTile ? w : kTile) *
+           sizeof(G) + 3) / 4 * 4 +
+      (2 * static_cast<size_t>(chunk + kExt) + chunk + 2) * sizeof(int32_t);
+  // the grid the card holds at once, and the rounds of kBlock chunks a
+  // block walks (their merge and flag words are shared memory too)
+  int rounds = 1;
+  int grid = 1;
+  size_t smem = 0;
+  for (;;) {
+    smem = base + 2 * static_cast<size_t>(rounds) * kWarps * sizeof(unsigned);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    const int per_sm = blocks_per_sm(kernel, smem, device, &err);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0) return cudaErrorInvalidConfiguration;
+    grid = std::min(chunks, sms * per_sm);
+    const int per_block = (chunks + grid - 1) / grid;
+    const int need = (per_block + kBlock - 1) / kBlock;
+    if (need <= rounds) break;
+    rounds = need;
+  }
+  Walk<T, G, A, V, OP> wk{sid,   gidx,   grads, r, part, flags,
+                          static_cast<int>(n), chunks, rows, w, chunk, h};
+  void* args[] = {&wk, &rounds};
+  // cooperative: every block resident at once, so a merge's wait for
+  // another block's flags always ends
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)),
+                                    dim3(kBlock), args, smem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the launch never ran: clear it
+    return err;
+  }
   return cudaGetLastError();
 }
 
 template <typename T, typename G, typename A, int V, int OP>
 cudaError_t launch_if(const int32_t* sid, const int32_t* gidx, const G* grads,
-                      const Rows<T, A>& r, float* part, int64_t n,
+                      const Rows<T, A>& r, float* part, int* flags, int64_t n,
                       int64_t rows, int w, int chunk, const Hyper& h,
                       cudaStream_t stream) {
   if constexpr (supported<G, A, OP>()) {
-    return launch_op<T, G, A, V, OP>(sid, gidx, grads, r, part, n, rows, w,
-                                     chunk, h, stream);
+    return launch_op<T, G, A, V, OP>(sid, gidx, grads, r, part, flags, n,
+                                     rows, w, chunk, h, stream);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -552,26 +989,27 @@ cudaError_t launch_if(const int32_t* sid, const int32_t* gidx, const G* grads,
 
 template <typename T, typename G, typename A, int V>
 cudaError_t launch(const int32_t* sid, const int32_t* gidx, const G* grads,
-                   const Rows<T, A>& r, float* part, int64_t n, int64_t rows,
-                   int w, int chunk, int op, const Hyper& h,
+                   const Rows<T, A>& r, float* part, int* flags, int64_t n,
+                   int64_t rows, int w, int chunk, int op, const Hyper& h,
                    cudaStream_t stream) {
   switch (op) {
     case kSgd:
-      return launch_if<T, G, A, V, kSgd>(sid, gidx, grads, r, part, n, rows,
-                                         w, chunk, h, stream);
+      return launch_if<T, G, A, V, kSgd>(sid, gidx, grads, r, part, flags, n,
+                                         rows, w, chunk, h, stream);
     case kAdagradDedup:
       return launch_if<T, G, A, V, kAdagradDedup>(sid, gidx, grads, r, part,
-                                                  n, rows, w, chunk, h,
-                                                  stream);
+                                                  flags, n, rows, w, chunk,
+                                                  h, stream);
     case kAdagradSq:
-      return launch_if<T, G, A, V, kAdagradSq>(sid, gidx, grads, r, part, n,
-                                               rows, w, chunk, h, stream);
+      return launch_if<T, G, A, V, kAdagradSq>(sid, gidx, grads, r, part,
+                                               flags, n, rows, w, chunk, h,
+                                               stream);
     case kAdd:
-      return launch_if<T, G, A, V, kAdd>(sid, gidx, grads, r, part, n, rows,
-                                         w, chunk, h, stream);
+      return launch_if<T, G, A, V, kAdd>(sid, gidx, grads, r, part, flags, n,
+                                         rows, w, chunk, h, stream);
     case kAdam:
-      return launch_if<T, G, A, V, kAdam>(sid, gidx, grads, r, part, n, rows,
-                                          w, chunk, h, stream);
+      return launch_if<T, G, A, V, kAdam>(sid, gidx, grads, r, part, flags, n,
+                                          rows, w, chunk, h, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -603,9 +1041,9 @@ int vector_width(const Rows<T, A>& r, const G* grads, const float* part,
 template <typename T, typename G, typename A>
 cudaError_t dispatch(const void* sid, const void* gidx, const void* grads,
                      void* table, void* acc, void* acc2, void* count,
-                     const Tail& tl, void* part, int64_t n, int64_t rows,
-                     int w, int chunk,
-                     int op, const Hyper& h, cudaStream_t stream) {
+                     const Tail& tl, void* part, int* flags, int64_t n,
+                     int64_t rows, int w, int chunk, int op, const Hyper& h,
+                     cudaStream_t stream) {
   const auto* i = static_cast<const int32_t*>(sid);
   const auto* x = static_cast<const int32_t*>(gidx);
   const auto* g = static_cast<const G*>(grads);
@@ -616,14 +1054,14 @@ cudaError_t dispatch(const void* sid, const void* gidx, const void* grads,
   auto* p = static_cast<float*>(part);
   switch (vector_width<T, G, A>(r, g, p, w)) {
     case 4:
-      return launch<T, G, A, 4>(i, x, g, r, p, n, rows, w, chunk, op, h,
-                                stream);
+      return launch<T, G, A, 4>(i, x, g, r, p, flags, n, rows, w, chunk, op,
+                                h, stream);
     case 2:
-      return launch<T, G, A, 2>(i, x, g, r, p, n, rows, w, chunk, op, h,
-                                stream);
+      return launch<T, G, A, 2>(i, x, g, r, p, flags, n, rows, w, chunk, op,
+                                h, stream);
     default:
-      return launch<T, G, A, 1>(i, x, g, r, p, n, rows, w, chunk, op, h,
-                                stream);
+      return launch<T, G, A, 1>(i, x, g, r, p, flags, n, rows, w, chunk, op,
+                                h, stream);
   }
 }
 
@@ -631,31 +1069,31 @@ template <typename T, typename G>
 cudaError_t by_accumulator(int acc_bf16, const void* sid, const void* gidx,
                            const void* grads, void* table, void* acc,
                            void* acc2, void* count, const Tail& tl,
-                           void* part, int64_t n, int64_t rows, int w,
-                           int chunk, int op,
-                           const Hyper& h, cudaStream_t stream) {
+                           void* part, int* flags, int64_t n, int64_t rows,
+                           int w, int chunk, int op, const Hyper& h,
+                           cudaStream_t stream) {
   return acc_bf16 ? dispatch<T, G, bf16>(sid, gidx, grads, table, acc, acc2,
-                                         count, tl, part, n, rows, w, chunk,
-                                         op, h, stream)
+                                         count, tl, part, flags, n, rows, w,
+                                         chunk, op, h, stream)
                   : dispatch<T, G, float>(sid, gidx, grads, table, acc, acc2,
-                                          count, tl, part, n, rows, w, chunk,
-                                          op, h, stream);
+                                          count, tl, part, flags, n, rows, w,
+                                          chunk, op, h, stream);
 }
 
 template <typename T>
 cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
                       const void* gidx, const void* grads, void* table,
                       void* acc, void* acc2, void* count, const Tail& tl,
-                      void* part, int64_t n, int64_t rows, int w, int chunk,
-                      int op,
-                      const Hyper& h, cudaStream_t stream) {
+                      void* part, int* flags, int64_t n, int64_t rows, int w,
+                      int chunk, int op, const Hyper& h,
+                      cudaStream_t stream) {
   return grads_bf16
              ? by_accumulator<T, bf16>(acc_bf16, sid, gidx, grads, table,
-                                       acc, acc2, count, tl, part, n, rows,
-                                       w, chunk, op, h, stream)
+                                       acc, acc2, count, tl, part, flags, n,
+                                       rows, w, chunk, op, h, stream)
              : by_accumulator<T, float>(acc_bf16, sid, gidx, grads, table,
-                                        acc, acc2, count, tl, part, n, rows,
-                                        w, chunk, op, h, stream);
+                                        acc, acc2, count, tl, part, flags, n,
+                                        rows, w, chunk, op, h, stream);
 }
 
 }  // namespace
@@ -670,34 +1108,40 @@ cudaError_t by_stream(int grads_bf16, int acc_bf16, const void* sid,
 // tail_acc, res: the cold tier's two-source arm, rows [res, rows) of the
 // table and accumulator at tail_table / tail_acc row - res (res == rows
 // and null tails otherwise; sgd, add and the Adagrad ops); part: [ceil(n /
-// chunk), 2, w] f32 scratch, twice that for adagrad_sq.  op: 0 sgd, 1
-// adagrad_dedup, 2 adagrad_sq, 3 add (lr unused), 4 adam (b1, b2 and 1 -
-// b1, 1 - b2 used by it alone).  All contiguous, on the current device.
-// Launches pass 1, then (more than one chunk) pass 2.  Returns the
-// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for a
-// combination of dtypes and op that does not exist).
+// chunk), 2, w] f32 scratch, twice that for adagrad_sq; flags: [>= ceil(n
+// / chunk)] int32, all zero, and all zero again when the launch ends (one
+// buffer a stream: two launches in flight at once must not share it).
+// op: 0 sgd, 1 adagrad_dedup, 2 adagrad_sq, 3 add (lr unused), 4 adam
+// (b1, b2 and 1 - b1, 1 - b2 used by it alone).  All contiguous, on the
+// current device; n < 2^31.  One cooperative launch.  Returns its
+// cudaError_t (0 on success; cudaErrorInvalidValue for a combination of
+// dtypes and op that does not exist or a stream too long).
 extern "C" int segwalk_apply(const void* sid, const void* gidx,
                              const void* grads, void* table, void* acc,
                              void* acc2, void* count, void* tail_table,
                              void* tail_acc, long long res, void* part,
-                             long long n, long long rows, int w, int chunk,
-                             int table_bf16, int grads_bf16, int acc_bf16,
-                             int op, float lr, float eps, float b1, float b2,
-                             float omb1, float omb2, void* stream) {
+                             void* flags, long long n, long long rows, int w,
+                             int chunk, int table_bf16, int grads_bf16,
+                             int acc_bf16, int op, float lr, float eps,
+                             float b1, float b2, float omb1, float omb2,
+                             void* stream) {
   if (n <= 0) return 0;
-  if (chunk <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk <= 0 || w <= 0 || n >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (res < 0 || res > rows || (res < rows && tail_table == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Hyper h{lr, eps, b1, b2, omb1, omb2};
   const Tail tl{tail_table, tail_acc, res};
   auto s = static_cast<cudaStream_t>(stream);
+  auto* f = static_cast<int*>(flags);
   const cudaError_t err =
       table_bf16 ? by_stream<bf16>(grads_bf16, acc_bf16, sid, gidx, grads,
-                                   table, acc, acc2, count, tl, part, n,
+                                   table, acc, acc2, count, tl, part, f, n,
                                    rows, w, chunk, op, h, s)
                  : by_stream<float>(grads_bf16, acc_bf16, sid, gidx, grads,
-                                    table, acc, acc2, count, tl, part, n,
+                                    table, acc, acc2, count, tl, part, f, n,
                                     rows, w, chunk, op, h, s);
   return static_cast<int>(err);
 }

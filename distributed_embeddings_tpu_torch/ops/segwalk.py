@@ -77,17 +77,19 @@ the kernel.
 
 On a CUDA table ``apply_segments`` launches the hand-written kernel
 ``csrc/segwalk_apply.cu`` (built at first use, ``utils/nativebuild.py``)
-or raises: a chunked segmented reduction in two passes, with grids sized
-from the stream length, so neither the sort nor the launch waits on the
-device.  On a CPU table it runs the plain version
+or raises: a chunked segmented reduction in one cooperative launch whose
+persistent grid walks only the chunks that hold valid positions (each
+block probes its chunks' end ids on the device), so neither the sort nor
+the launch waits on the device, and padding costs almost nothing.  On a
+CPU table it runs the plain version
 ``apply_segments_reference``, which computes the same function with
 torch ops in the same order: every sum, product and difference rounded
 on its own, rsqrt as ``1 / sqrt``, a bf16 table updated in f32 and
 rounded once at the store.  Nothing falls back from one to the other,
 and no arm up-casts to another.
 ``LAUNCHES`` counts applies that reached the kernel: one per apply of a
-non-empty stream, which makes one CUDA launch (one chunk) or two (pass
-1 and pass 2); ``ARM_LAUNCHES`` counts those of them that ran each arm
+non-empty stream, one CUDA launch each; ``ARM_LAUNCHES`` counts those of
+them that ran each arm
 (``'bf16_stream'``, ``'bf16_accumulator'``, ``'two_source'``) or the
 ``'adam'`` op.
 
@@ -109,10 +111,13 @@ import torch
 from distributed_embeddings_tpu_torch.utils import nativebuild
 
 # Applies that launched the kernel (one per ``_launch`` of a non-empty
-# stream, whether it made one CUDA launch or two), and those of them that
-# ran each arm or the adam op.
+# stream), and those of them that ran each arm or the adam op.
 LAUNCHES = 0
 ARM_LAUNCHES = collections.Counter()
+# The kernel's chunk flags, one int32 buffer per (device, stream): zeroed
+# once here, and left all zero by every launch, which clears each flag it
+# sets.  Two launches in flight at once must not share one.
+_FLAGS = {}
 
 # Positions per chunk of the sorted stream: the summation order's one
 # parameter (module docstring), shared by the kernel and the plain version.
@@ -157,8 +162,8 @@ def _kernel():
   if _fn is None:
     fn = nativebuild.load('segwalk_apply').segwalk_apply
     fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
             ctypes.c_float] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _fn = fn
@@ -372,9 +377,23 @@ def _arms(acc, grads, op, tail=None):
           and acc.dtype == torch.bfloat16 else [])
 
 
+def _flags(device: torch.device, stream: int, chunks: int) -> torch.Tensor:
+  """The zeroed chunk flags of ``stream`` on ``device``, at least
+  ``chunks`` of them (a larger stream replaces the buffer, in stream
+  order)."""
+  key = (device.index, stream)
+  flags = _FLAGS.get(key)
+  if flags is None or flags.shape[0] < chunks:
+    flags = torch.zeros(max(chunks, 2 * (0 if flags is None
+                                         else flags.shape[0])),
+                        dtype=torch.int32, device=device)
+    _FLAGS[key] = flags
+  return flags
+
+
 def _launch(table, acc, segs, grads, lr, eps, op, betas, tail=None):
-  """One ``segwalk_apply`` call on the current stream: both passes, with
-  the partials buffer they share.  Reads nothing from the device."""
+  """One ``segwalk_apply`` call on the current stream, with its partials
+  buffer and the stream's chunk flags.  Reads nothing from the device."""
   global LAUNCHES
   n = segs.sorted_ids.shape[0]
   if n == 0:
@@ -385,7 +404,7 @@ def _launch(table, acc, segs, grads, lr, eps, op, betas, tail=None):
   w = table.shape[1]
   chunks = -(-n // CHUNK)
   # freed to the caching allocator on return: work queued later on this
-  # stream runs after both passes
+  # stream runs after the launch
   partials = torch.empty((2 if op == 'adagrad_sq' else 1, chunks, 2, w),
                          dtype=torch.float32, device=table.device)
   if op == 'adam':
@@ -396,12 +415,14 @@ def _launch(table, acc, segs, grads, lr, eps, op, betas, tail=None):
   b1, b2 = betas
   with torch.cuda.device(table.device):
     stream = torch.cuda.current_stream(table.device).cuda_stream
+    flags = _flags(table.device, stream, chunks)
     err = _kernel()(segs.sorted_ids.data_ptr(), segs.gidx.data_ptr(),
                     grads.data_ptr(), table.data_ptr(), *state,
                     None if tail is None else tail.table.data_ptr(),
                     None if tail is None or tail.acc is None
                     else tail.acc.data_ptr(), table.shape[0],
-                    partials.data_ptr(), n, _rows(table, tail), w, CHUNK,
+                    partials.data_ptr(), flags.data_ptr(), n,
+                    _rows(table, tail), w, CHUNK,
                     bf16(table), bf16(grads),
                     bf16(acc if isinstance(acc, torch.Tensor) else None),
                     OPS.index(op), lr, eps, b1, b2, 1 - b1, 1 - b2, stream)

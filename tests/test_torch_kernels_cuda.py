@@ -16,9 +16,9 @@ bf16, and int8 and fp8 payloads with scales; each launch counted once.
 The segment-walk apply is bit-exact for ``sgd`` and within
 rtol = atol = 1e-6 for Adagrad (only the reciprocal square root may
 differ), and rows the stream does not name stay bitwise unchanged; its
-streams put runs at the chunk edges of its two-pass design, it finishes
+streams put runs at the chunk edges of its chunked design, it finishes
 a 100 k-position single-id stream in under 1 ms, and it runs the sort
-and both passes without a host sync.  Its ``'add'`` (the lookup's
+and its launch without a host sync.  Its ``'add'`` (the lookup's
 backward) is bit-exact, and equals ``'sgd'`` at ``lr = -1`` bit for bit.
 The lookup's backward on a CUDA table launches the segment walk or
 raises, and gives the plain version's gradient bit for bit.  The segment
@@ -27,6 +27,13 @@ bit for bit; a bf16 accumulator is held to the f32 one's bound; each
 launch is counted per arm.
 Its ``adam`` op: step counts exact, moments bit-exact, the table within
 rtol = atol = 1e-6 (``powf`` against ``torch.pow``).
+On padded streams (valid shares 0, one position, 1.7 %, 12 %, 100 %;
+padding at the head, the tail or both; a valid range that starts and
+ends inside chunks, one inside a single chunk, a hot id over many chunks
+between padded ends) every op, both bf16 arms and the two-source tail
+meet the same bounds; NaN and Inf in the gradient rows only padding
+names change no bit of any result; a stream of more chunks than the
+persistent grid walks in one round matches too.
 The checkpoint files and the auditor on the card: the audit digest of a
 tensor on the card equals its digest on the CPU, and a bf16 table saved
 from the card (chunked device-to-host copies) loads back bit-exact.
@@ -323,8 +330,8 @@ def test_segwalk_all_sentinel_stream_changes_nothing(cuda_device, op):
 @pytest.mark.cuda
 @pytest.mark.parametrize('op', ['sgd', 'adagrad_sq'])
 def test_segwalk_one_id_of_100k_positions(cuda_device, op):
-  # one segment over 391 chunks: pass 1 folds each chunk in parallel,
-  # pass 2 merges the 391 partials; under 1 ms on the card (events around
+  # one segment over 391 chunks: each chunk folded in parallel, then one
+  # merge of the 391 partials; under 1 ms on the card (events around
   # back-to-back applies, host gaps included)
   rows, n, w = 32, 100_000, 16
   table = torch.randn(rows, w, device=cuda_device)
@@ -413,7 +420,7 @@ def test_segwalk_chunk_edges(cuda_device, op, w, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq'])
 def test_segwalk_apply_does_not_synchronise(cuda_device, op):
-  # sort, partials and both passes under sync debug mode 'error': no
+  # sort, partials, flags and the launch under sync debug mode 'error': no
   # nonzero, no .item(), no grid sized from a device value
   rng = np.random.default_rng(11)
   rows, n, w = 1000, 20_000, 16
@@ -692,6 +699,272 @@ def test_segwalk_new_arms_do_not_synchronise(cuda_device, op, stream,
                            grads, 0.3, op=op)
   finally:
     torch.cuda.set_sync_debug_mode(0)
+
+
+# padded streams: (positions, valid positions, padding at the head, hot
+# id's run); chunks of segwalk.CHUNK (256) positions
+_C = segwalk.CHUNK
+_PADDED = {
+    'no_valid': (40_000, 0, 17_000, 0),
+    'one_valid': (40_000, 1, 20_001, 0),
+    'share_1p7_head': (200_000, 3_400, 196_600, 0),
+    'share_1p7_tail': (200_000, 3_400, 0, 0),
+    'share_12_both': (100_000, 12_000, 41_000, 0),
+    'all_valid': (60_000, 60_000, 0, 0),
+    'mid_chunks': (50_000, 9_000, 30 * _C + 77, 0),
+    'one_chunk': (50_000, 200, 40 * _C + 20, 0),
+    'hot_between': (120_000, 40_000, 9_000, 60 * _C + 31),
+}
+_ROWS = 5000
+
+
+def _padded_ids(rng, n, valid, head, hot, rows=_ROWS):
+  """``n`` ids, shuffled: ``valid`` in ``[0, rows)`` (``hot`` of them one
+  id), ``head`` negative padding (-1, -5) and the rest padding ``>=
+  rows``; sorted, the valid ones are positions ``[head, head + valid)``."""
+  ids = np.concatenate([
+      rng.choice([-1, -5], head), np.full(hot, rows // 3),
+      rng.integers(0, rows, valid - hot),
+      rng.choice([rows, rows + 9], n - head - valid)]).astype(np.int32)
+  return ids[rng.permutation(n)]
+
+
+def _padded_case(case, w, table_dtype='float32', acc_dtype='float32',
+                 m=None):
+  """Table, accumulator, ids, gradient rows and (``m`` compact rows)
+  g_index of one padded case, on the card; padding positions name
+  compact rows of their own, the second half."""
+  n, valid, head, hot = _PADDED[case]
+  rng = np.random.default_rng(sum(map(ord, case)) + w)
+  ids = _padded_ids(rng, n, valid, head, hot)
+  table = torch.as_tensor(rng.normal(size=(_ROWS, w)).astype(np.float32)).to(
+      _DT[table_dtype])
+  acc = torch.as_tensor(rng.uniform(0.05, 0.2, size=(_ROWS, w)).astype(
+      np.float32)).to(_DT[acc_dtype])
+  pad = (ids < 0) | (ids >= _ROWS)
+  if m is None:
+    grads = rng.normal(size=(n, w)).astype(np.float32)
+    g_index = None
+  else:
+    grads = rng.normal(size=(m, w)).astype(np.float32)
+    g_index = np.where(pad, rng.integers(m // 2, m, n),
+                       rng.integers(0, m // 2, n)).astype(np.int32)
+  pad_rows = (np.arange(n) if g_index is None else g_index)[pad]
+  cuda = lambda x: None if x is None else torch.as_tensor(x).to('cuda')
+  return (table.cuda(), acc.cuda(), cuda(ids), cuda(grads), cuda(g_index),
+          cuda(pad_rows.astype(np.int64)))
+
+
+def _check_against_plain(table, acc, ids, grads, op, g_index=None,
+                         tail=None, lr=0.3):
+  """Kernel and plain version on clones: sgd and add bit-exact, Adagrad
+  rtol = atol = 1e-6, Adam's counts and moments exact and its table
+  1e-6; returns the kernel's table and state."""
+  clone = lambda x: (segwalk.Moments(*(y.clone() for y in x))
+                     if isinstance(x, segwalk.Moments)
+                     else None if x is None else x.clone())
+  tails = [None, None]
+  if tail is not None:
+    tails = [segwalk.Tail(tail.table.clone(), clone(tail.acc))
+             for _ in range(2)]
+  kt, ka, pt, pa = clone(table), clone(acc), clone(table), clone(acc)
+  before = segwalk.LAUNCHES
+  segwalk.segwalk_apply(kt, ka, ids, grads, lr, op=op, g_index=g_index,
+                        tail=tails[0])
+  torch.cuda.synchronize()
+  assert segwalk.LAUNCHES == before + 1
+  segwalk.segwalk_apply_reference(pt, pa, ids, grads, lr, op=op,
+                                  g_index=g_index, tail=tails[1])
+  pairs = [(kt, pt, ka, pa)]
+  if tail is not None:
+    pairs.append((tails[0].table, tails[1].table, tails[0].acc,
+                   tails[1].acc))
+  for t1, t2, a1, a2 in pairs:
+    if op in ('sgd', 'add'):
+      assert torch.equal(t1, t2)
+    elif op == 'adam':
+      assert torch.equal(a1.t, a2.t) and torch.equal(a1.m, a2.m)
+      assert torch.equal(a1.v, a2.v)
+      torch.testing.assert_close(t1.float(), t2.float(), rtol=1e-6,
+                                 atol=1e-6)
+    else:
+      torch.testing.assert_close(t1.float(), t2.float(), rtol=1e-6,
+                                 atol=1e-6)
+      torch.testing.assert_close(a1.float(), a2.float(), rtol=1e-6,
+                                 atol=1e-6)
+  return kt, ka, tails[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq', 'add',
+                                'adam'])
+@pytest.mark.parametrize('case', sorted(_PADDED))
+def test_segwalk_on_padded_streams_matches_plain_version(cuda_device, case,
+                                                         op):
+  # the valid range anywhere in the stream: the persistent grid walks
+  # only the chunks that hold valid positions, and the result is the
+  # plain version's; rows no valid id names stay bitwise unchanged
+  for w, m in ((16, None), (8, 3000), (128, None)):
+    table, acc, ids, grads, g_index, _ = _padded_case(case, w, m=m)
+    if op in ('sgd', 'add'):
+      acc = None
+    elif op == 'adam':
+      acc = segwalk.Moments(torch.zeros_like(table), torch.zeros_like(table),
+                            torch.zeros(_ROWS, dtype=torch.int32,
+                                        device=cuda_device))
+    kt, _, _ = _check_against_plain(table, acc, ids, grads, op, g_index)
+    touched = torch.zeros(_ROWS, dtype=torch.bool, device=cuda_device)
+    touched[ids[(ids >= 0) & (ids < _ROWS)].long()] = True
+    assert torch.equal(kt[~touched], table[~touched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op,stream,acc_dtype', [
+    ('sgd', 'bfloat16', None),
+    ('adagrad_dedup', 'bfloat16', 'bfloat16'),
+    ('adagrad_sq', 'float32', 'bfloat16'),
+    ('adagrad_sq', 'bfloat16', 'float32')])
+@pytest.mark.parametrize('case', ['one_valid', 'share_1p7_head',
+                                  'share_12_both', 'mid_chunks', 'one_chunk',
+                                  'hot_between'])
+def test_segwalk_bf16_arms_on_padded_streams(cuda_device, case, op, stream,
+                                             acc_dtype):
+  for table_dtype in ('float32', 'bfloat16'):
+    table, acc, ids, grads, g_index, _ = _padded_case(
+        case, 32, table_dtype, acc_dtype or 'float32', m=4000)
+    _check_against_plain(table, None if op == 'sgd' else acc, ids,
+                         grads.to(_DT[stream]), op, g_index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_dedup', 'adagrad_sq', 'add'])
+@pytest.mark.parametrize('case', ['share_1p7_head', 'share_12_both',
+                                  'one_chunk', 'hot_between'])
+def test_segwalk_two_source_on_padded_streams(cuda_device, case, op):
+  # the cold tier's apply: rows [0, res) in the head, [res, rows) in the
+  # tail, as the one table they split
+  table, acc, ids, grads, g_index, _ = _padded_case(case, 16, m=5000)
+  res = 2000
+  head, tail = table[:res].contiguous(), table[res:].contiguous()
+  ha = None if op in ('sgd', 'add') else acc[:res].contiguous()
+  ta = None if op in ('sgd', 'add') else acc[res:].contiguous()
+  kh, ka, kt = _check_against_plain(head, ha, ids, grads, op, g_index,
+                                    tail=segwalk.Tail(tail, ta))
+  whole = table.clone()
+  whole_acc = None if ha is None else acc.clone()
+  segwalk.segwalk_apply(whole, whole_acc, ids, grads, 0.3, op=op,
+                        g_index=g_index)
+  assert torch.equal(torch.cat([kh, kt.table]), whole)
+  if whole_acc is not None:
+    assert torch.equal(torch.cat([ka, kt.acc]), whole_acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(_PADDED))
+def test_segwalk_never_reads_padding_rows(cuda_device, case):
+  # NaN and Inf in every gradient row only padding names: each op and
+  # arm gives the result of zeros there, bit for bit
+  runs = [('sgd', 'float32', None), ('adagrad_dedup', 'float32', 'float32'),
+          ('adagrad_sq', 'float32', 'float32'), ('add', 'float32', None),
+          ('adam', 'float32', None), ('sgd', 'bfloat16', None),
+          ('adagrad_dedup', 'bfloat16', 'bfloat16'),
+          ('adagrad_sq', 'float32', 'bfloat16'), ('two_source', 'float32',
+                                                   'float32')]
+  for m in (None, 3000):
+    for op, stream, acc_dtype in runs:
+      table, acc, ids, grads, g_index, pad_rows = _padded_case(
+          case, 16, acc_dtype=acc_dtype or 'float32', m=m)
+      grads = grads.to(_DT[stream])
+      outs = []
+      for value in (0.0, float('nan'), float('inf'), -float('inf')):
+        g = grads.clone()
+        g[pad_rows] = value
+        t = table.clone()
+        state = (None if acc_dtype is None else acc.clone())
+        tail = None
+        kop = op
+        if op == 'adam':
+          state = segwalk.Moments(torch.zeros_like(table),
+                                  torch.zeros_like(table),
+                                  torch.zeros(_ROWS, dtype=torch.int32,
+                                              device=cuda_device))
+        elif op == 'two_source':
+          kop, res = 'adagrad_dedup', 1500
+          tail = segwalk.Tail(t[res:].clone(), state[res:].clone())
+          t, state = t[:res].clone(), state[:res].clone()
+        segwalk.segwalk_apply(t, state, ids, g, 0.3, op=kop, g_index=g_index,
+                              tail=tail)
+        got = [t] + ([] if state is None else list(state)
+                     if isinstance(state, segwalk.Moments) else [state])
+        outs.append(got + ([] if tail is None else [tail.table, tail.acc]))
+      for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+          assert torch.equal(a, b), (op, stream, acc_dtype, m)
+
+
+def _extension_edge_ids(rows, c, ext=31, tail_padding=True):
+  """Sorted-stream layouts (then shuffled) at the kernel's hand-off of a
+  crossing segment (ext = 31 positions past a chunk's end): segments
+  that cross a chunk edge by ext and ext + 1 positions, begun mid-chunk,
+  at a chunk's first and last position and before the chunk; without
+  tail padding the stream ends 20 positions into its last chunk inside a
+  segment begun in the chunk before."""
+  runs = [(-1, c - 5), (0, 5 + ext), (1, c - ext - 2), (2, 2 + ext + 1),
+          (3, c - ext - 1), (4, c + ext), (5, c - ext - 1), (6, 1 + c + ext),
+          (7, 10)]
+  pos = sum(k for _, k in runs)
+  if tail_padding:
+    runs.append((rows, 300))
+  else:
+    runs.append((8, (-pos) % c + 20))  # ends 20 into the last chunk
+  ids = np.concatenate([np.full(k, i if i < 0 or i >= rows else 7 * i + 3,
+                                np.int32) for i, k in runs])
+  return ids[np.random.default_rng(len(ids)).permutation(len(ids))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_sq', 'add', 'adam'])
+@pytest.mark.parametrize('tail_padding', [True, False])
+def test_segwalk_runs_at_the_extension_edge(cuda_device, op, tail_padding):
+  # a segment that ends at most 31 positions into the next chunk is
+  # folded by its own chunk's block, a longer one merged from partials:
+  # both equal the plain version, on either side of the edge
+  rows = 100
+  ids = torch.as_tensor(_extension_edge_ids(rows, _C,
+                                            tail_padding=tail_padding)).to(
+                                                cuda_device)
+  for w in (8, 128):
+    table = torch.randn(rows, w, device=cuda_device)
+    acc = None
+    if op == 'adagrad_sq':
+      acc = torch.full_like(table, 0.1)
+    elif op == 'adam':
+      acc = segwalk.Moments(torch.zeros_like(table), torch.zeros_like(table),
+                            torch.zeros(rows, dtype=torch.int32,
+                                        device=cuda_device))
+    grads = torch.randn(ids.shape[0], w, device=cuda_device)
+    kt, _, _ = _check_against_plain(table, acc, ids, grads, op)
+    assert not torch.equal(kt, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', ['sgd', 'adagrad_sq'])
+def test_segwalk_walks_several_rounds_of_chunks(cuda_device, op):
+  # more chunks than kBlock times the most blocks the card can hold at
+  # once (8 an SM): each block walks its chunks in two rounds or more,
+  # and merges the crossing segments of every round after the last
+  sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+  n = 256 * _C * 8 * sms + 3 * _C + 5
+  rows = 3000
+  ids = torch.randint(-1, rows + 2, (n,), dtype=torch.int32,
+                      device=cuda_device)
+  ids[:n // 3] = 17  # one segment over many chunks and both rounds
+  grads = torch.randn(4096, 1, device=cuda_device)
+  g_index = torch.randint(0, 4096, (n,), dtype=torch.int32,
+                          device=cuda_device)
+  table = torch.randn(rows, 1, device=cuda_device)
+  acc = None if op == 'sgd' else torch.full_like(table, 0.1)
+  _check_against_plain(table, acc, ids, grads, op, g_index)
 
 
 @pytest.mark.cuda
