@@ -393,9 +393,43 @@ Phases, each of which exits non-zero on failure:
             (the ranks time in turn); the follower ran every batch the
             leader sent.  Both ranks exit 0 with their markers; the
             leader's block is printed with the card's name and power
-            limit; the files deleted.  Its times are gloo through the
-            host with two ranks sharing one card, not NCCL serving
-            speeds.
+            limit; the files deleted but for 13j's bundle.  Its times
+            are gloo through the host with two ranks sharing one card,
+            not NCCL serving speeds.
+13j. dlrm-serve-replicas: 13i's bundle served by two replicas on
+            disjoint rank sets, ranks [0, 1] and [2, 3] (four processes
+            on cuda:0, joined over gloo through launch_ranks), each rank
+            building its engine on a mesh over its replica's ranks
+            (mesh.create_mesh(ranks=...)) with 13h's arguments, behind
+            one ServingEnginePool on rank 0, the front door
+            (serving.replica_front_ends: a link each).  One cut: 128
+            power-law requests (from 512).  Rank 0 answers a lone
+            request at rung 128 and a full batch at rung 1024 through
+            each replica, each equal to a numpy gather of the bundle's
+            rows (13h's world-of-one answers), runs a ladder+pipeline
+            batcher on each replica alone (every answer equal; p50, p99
+            and QPS by replica), then the overload arm over the pool
+            with a deadline of its own, 2000 ms (13h's 50 ms would shed
+            every request retried after the quarantine):
+            where measure_overload calls its drill at half the burst,
+            the phase arms a fault instead, and rank 3's next lookup
+            raises (a hook of the phase, not of the package), so rank 3
+            and rank 2 end with FOLLOWER_FAULT_EXIT, replica 1 alone is
+            quarantined by its own error, its link lost and replica 0's
+            not, replica 0 serves the rest, at least one request
+            retried from replica 1 is served on replica 0, every future
+            resolves served or shed and every served answer (the
+            retried ones with them) equals the gather.
+            On each rank every lookup launched the lookup kernel twice
+            (the plan) and the segment walk never, up to the fault on
+            ranks 2 and 3; its first batch at rungs 128 and 1024 (the
+            warm-up's) has every launch held against its plain version
+            (bit-exact) with kernel, plain, embedding_bag and bound ms,
+            the ranks in turn; rank 1 ran every batch its link sent.
+            Printed: p50 / p99 / QPS by replica, broadcast and gather ms
+            by link, the ms from the fault to the quarantine, retried /
+            served / shed, launches by rank.  It deletes 13b's step-6
+            file and the bundle.
 13c. dlrm-hot: examples/dlrm/main.py --dp_input --hot_cache
             --param_dtype bfloat16 in process at phase 13b's onechip
             vocabularies (the same one cut), hot sets calibrated on the
@@ -559,7 +593,8 @@ shape, the tiny models' shapes beside them; the segment walk's
 two-source arm: launches from phase 13g's steps, times at phase 9j's
 shapes, and the lookup's tier gathers under ``tier_tiny``; the lookup's
 serving launches under ``dlrm_serve``, one batch a rung of phase 13h,
-and each rank's of phase 13i under ``dlrm_serve_ranks``);
+each rank's of phase 13i under ``dlrm_serve_ranks`` and of phase 13j
+under ``dlrm_serve_replicas``);
 each row
 and summary with a kernel time says by which ``clock``:
 ``queued`` (CUDA events around back-to-back calls queued ahead of the
@@ -773,6 +808,18 @@ SERVE_RANKS_ARGV = ['256' if i and SERVE_ARGV[i - 1] == '--requests' else a
                     for i, a in enumerate(SERVE_ARGV)]
 SERVE_RANKS_CHECK_RUNGS = (128, 1024)
 SERVE_RANKS_TIMEOUT_S = 600  # both ranks, start to end
+# phase 13j: two replicas of two ranks each, on the one card, behind one
+# pool on rank 0, serve 13i's bundle with 13h's arguments and 128
+# requests (a cut from 512); rank 3's lookups fault once the overload
+# arm is half submitted
+SERVE_REPLICAS_LAYOUT = ((0, 1), (2, 3))
+SERVE_REPLICAS_REQUESTS = 128
+SERVE_REPLICAS_FAULT_RANK = 3
+# the overload arm's deadline: long enough for a request retried from
+# replica 1 to be served on replica 0 after the quarantine (13h's 50 ms
+# sheds every one of them)
+SERVE_REPLICAS_FAULT_DEADLINE_MS = 2000.0
+SERVE_REPLICAS_TIMEOUT_S = 300  # all four ranks, start to end
 PROFILE_REPS = 3  # profile_once's and devprof's calls on the device clock
 OBS_DIR = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke_obs'
 OBS_STEPS = 5  # phase 9k's fit steps, untraced and traced
@@ -3273,6 +3320,22 @@ def phase_dlrm_serve(ckpt, card):
   return launches, rows, numbers
 
 
+def rung_rows(tag, label, captured):
+  """The launches one rank's block of a rung captured (``(table, ids,
+  combiner, scale)``), each held against its plain version and timed
+  (``check_kernel_shape``), summed (``checked_sum``)."""
+  if not captured or any(c not in (None, 'sum') or scale is not None
+                         for _, _, c, scale in captured):
+    raise AssertionError(f'{tag}: {label} captured {len(captured)} '
+                         'launches, not the DLRM\'s plain sums')
+  launches = [check_kernel_shape(table, ids, f'{label}_w{table.shape[1]}_'
+                                 f'n{ids.shape[0]}_rows{table.shape[0]}')
+              for table, ids, _, _ in captured]
+  return {**checked_sum(launches),
+          'shapes': [r['shape'] for r in launches],
+          'kernel_ms_each': [r['kernel_ms'] for r in launches]}
+
+
 def serve_rank(rank, init, out_dir, ckpt):
   """One of phase 13i's two ranks (a process of its own, both on the one
   card, joined over gloo): examples/dlrm/serve.py's ``main`` with the
@@ -3460,20 +3523,9 @@ def serve_rank(rank, init, out_dir, ckpt):
       if time.monotonic() > deadline:
         raise AssertionError(f'{tag}: rank {rank - 1} never timed')
       time.sleep(0.2)
-  rows = {}
-  for b in SERVE_RANKS_CHECK_RUNGS:
-    if any(c not in (None, 'sum') for _, _, c, _ in captures[b]):
-      raise AssertionError(f'{tag}: the DLRM combines with sum only')
-    launches = [check_kernel_shape(table, ids, f'serve_ranks_r{rank}_b{b}_'
-                                   f'w{table.shape[1]}_n{ids.shape[0]}_'
-                                   f'rows{table.shape[0]}')
-                for table, ids, _, scale in captures[b] if scale is None]
-    rows[str(b)] = {**checked_sum(launches),
-                    'shapes': [r['shape'] for r in launches],
-                    'kernel_ms_each': [r['kernel_ms'] for r in launches]}
-    if rows[str(b)]['launches'] != len(captures[b]) or not len(captures[b]):
-      raise AssertionError(f'{tag}: rung {b} captured {captures[b]!r}')
-  result['rows'] = rows
+  result['rows'] = {str(b): rung_rows(tag, f'serve_ranks_r{rank}_b{b}',
+                                      captures[b])
+                    for b in SERVE_RANKS_CHECK_RUNGS}
   with open(out_dir / f'rank{rank}.json', 'w') as f:
     json.dump(result, f)
   (out_dir / f'timed{rank}').write_text('timed\n')
@@ -3483,8 +3535,9 @@ def phase_dlrm_serve_ranks(ckpt, card):
   """Phase 13i: two processes on the one card, joined over gloo, run
   ``serve_rank`` (see the module docstring) through ``launch_ranks`` on
   phase 13b's step-6 file, which 13h kept; then the ranks' counts
-  against each other, the leader's block printed, the files deleted.
-  Returns each rank's launches, kernel rows and the phase's numbers."""
+  against each other, the leader's block printed, the ranks' files
+  deleted (the step-6 file and the bundle stay for 13j).  Returns each
+  rank's launches, kernel rows and the phase's numbers."""
   tag = 'dlrm-serve-ranks'
   check_disk(1.05 * os.path.getsize(ckpt), tag)
   root = CKPT_DIR.parent / 'chip_smoke_serve_ranks'
@@ -3497,7 +3550,6 @@ def phase_dlrm_serve_ranks(ckpt, card):
     with open(root / f'rank{rank}.json') as f:
       ranks.append(json.load(f))
   shutil.rmtree(root)
-  shutil.rmtree(SERVE_DIR)
   lead, follower = ranks
   if not (follower['counts']['by_replica'] == lead['lookups']
           == follower['lookups']):
@@ -3552,6 +3604,342 @@ def phase_dlrm_serve_ranks(ckpt, card):
   log(f'[{tag}] ' + json.dumps(numbers))
   return ({r['rank']: r['launches'] for r in ranks},
           {r['rank']: r['rows'] for r in ranks}, numbers)
+
+
+def serve_replica_rank(rank, init, out_dir, bundle):
+  """One of phase 13j's four ranks (a process of its own, all on the one
+  card, joined over gloo): a mesh over each replica's ranks of
+  ``SERVE_REPLICAS_LAYOUT``, this rank's ``ServingEngine`` on its own
+  from 13i's bundle with 13h's arguments, and
+  ``serving.replica_front_ends``.  Every rank holds its first batch at
+  rungs 128 and 1024 (the warm-up's) against the plain version, the
+  ranks in turn (``timed{r}_{rung}`` markers), and records its launches
+  and lookups after every lookup (``launches{r}.json``; those of the
+  checks apart).  Rank 0, the front door, runs the arms
+  (``front_door_rank``); rank 3's lookups raise once ``arm_fault``
+  exists, which the front door writes where ``measure_overload`` calls
+  its drill; the followers serve their links.  Writes ``rank{rank}.json``
+  (ranks 0 and 1), ``rows{rank}.json`` and, on rank 3, ``fault.json``."""
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  out_dir = pathlib.Path(out_dir)
+  tag = f'dlrm-serve-replicas rank {rank}'
+  argv = dict(zip(SERVE_ARGV[::2], SERVE_ARGV[1::2]))
+  rungs = [int(b) for b in argv['--serve_buckets'].split(',')]
+  t0 = time.perf_counter()
+  mesh_lib.init_distributed(init, sum(map(len, SERVE_REPLICAS_LAYOUT)),
+                            rank, backend='gloo', device='cuda:0')
+  weights, meta = serving.load_serving_bundle(str(bundle))
+  configs = meta['table_configs']
+  hot_sets = hotcache.analytic_power_law_hot_sets(
+      configs, float(argv['--alpha']),
+      coverage=float(argv['--hot_coverage']),
+      budget_bytes=int(argv['--hot_budget_mb']) << 20, state_copies=0)
+  layout = [list(r) for r in SERVE_REPLICAS_LAYOUT]
+  meshes = [mesh_lib.create_mesh('cuda:0', ranks=r) for r in layout]
+  engines = [ServingEngine(configs, weights, batch_size=int(argv['--batch']),
+                           buckets=rungs, hot_sets=hot_sets, device='cuda',
+                           mesh=m, bundle_meta=meta) if m is not None
+             else None for m in meshes]
+  engine = next(e for e in engines if e is not None)
+  if rank:
+    del weights
+  torch.cuda.synchronize()
+  ends = serving.replica_front_ends(engines, layout)
+  setup_s = time.perf_counter() - t0
+  # every lookup of this rank's block: the launches so far (the checks'
+  # apart), and the first batch at each checked rung held against the
+  # plain version once the rank before has timed its own
+  checks = collections.Counter()
+  rows = {}
+  capturing = [None]
+  orig = {'fused': lookup.fused_group_lookup, 'dense': lookup.dense_lookup,
+          'block': engine.apply_block, 'lookup': engine.lookup}
+
+  def record_fused(table, routed, combiners, compute_dtype, scale=None):
+    if capturing[0] is not None:
+      capturing[0].extend((table, r.reshape(-1, r.shape[-1]).clone(), c,
+                           scale) for r, c in zip(routed, combiners))
+    return orig['fused'](table, routed, combiners, compute_dtype, scale)
+
+  def record_dense(table, ids, combiner, out_dtype=None, scale=None):
+    if capturing[0] is not None:
+      capturing[0].append((table, ids.clone(), combiner, scale))
+    return orig['dense'](table, ids, combiner, out_dtype, scale)
+
+  def apply_block(padded, b):
+    check = b in SERVE_RANKS_CHECK_RUNGS and str(b) not in rows
+    capturing[0] = [] if check else None
+    try:
+      outs = orig['block'](padded, b)
+    finally:
+      captured, capturing[0] = capturing[0], None
+    if check:
+      wait_for_marker(tag, out_dir / f'timed{rank - 1}_{b}' if rank
+                      else None)
+      before = read_launches()
+      rows[str(b)] = rung_rows(tag, f'serve_replicas_r{rank}_b{b}',
+                               captured)
+      checks.update({k: v - before[k] for k, v in read_launches().items()})
+      (out_dir / f'rows{rank}.json').write_text(json.dumps(rows))
+      (out_dir / f'timed{rank}_{b}').write_text('timed\n')
+    # this lookup is counted once apply_block has returned
+    lookups = engine.stats()['batches_served'] + 1
+    (out_dir / f'launches{rank}.json').write_text(json.dumps({
+        'launches': {k: v - checks[k] for k, v in read_launches().items()},
+        'lookups': lookups}))
+    return outs
+
+  def lookup_or_fault(cats, samples=None):
+    if (out_dir / 'arm_fault').exists():
+      (out_dir / 'fault.json').write_text(json.dumps({'t': time.time()}))
+      raise RuntimeError(f'phase 13j: injected fault on rank {rank}')
+    return orig['lookup'](cats, samples=samples)
+
+  lookup.fused_group_lookup = record_fused
+  lookup.dense_lookup = record_dense
+  engine.apply_block = apply_block
+  if rank == SERVE_REPLICAS_FAULT_RANK:
+    engine.lookup = lookup_or_fault
+  reset_launches()
+  if rank:
+    end = next(e for e in ends if isinstance(e, serving.RankFrontEnd))
+    counts = end.serve_forever()
+    with open(out_dir / f'rank{rank}.json', 'w') as f:
+      json.dump({'rank': rank, 'setup_s': setup_s, 'counts': counts}, f)
+    return
+  front_door_rank(tag, out_dir, ends, weights, configs, setup_s)
+
+
+def wait_for_marker(tag, path):
+  """Wait for ``path`` (None: nothing to wait for) up to
+  ``SERVE_REPLICAS_TIMEOUT_S``."""
+  deadline = time.monotonic() + SERVE_REPLICAS_TIMEOUT_S
+  while path is not None and not path.exists():
+    if time.monotonic() > deadline:
+      raise AssertionError(f'{tag}: {path.name} never written')
+    time.sleep(0.05)
+
+
+def front_door_rank(tag, out_dir, ends, weights, configs, setup_s):
+  """Phase 13j's rank 0: the warm-up, the answers at rungs 128 and 1024,
+  a batcher arm on each replica, then the overload arm over the pool
+  with the drill replaced by the armed fault (see the module docstring).
+  Writes ``rank0.json``."""
+  argv = dict(zip(SERVE_ARGV[::2], SERVE_ARGV[1::2]))
+  n_req = SERVE_REPLICAS_REQUESTS
+
+  def equal(answer, cats):
+    return all(np.array_equal(
+        np.asarray(a), np.where((c >= 0)[:, None], w[np.maximum(c, 0)], 0))
+        for a, c, w in zip(answer, cats, weights))
+
+  for e in ends:
+    e.warmup()
+  # the warm-up's batches wait on the ranks' kernel checks: kept apart
+  warm = [e.stats()['front_end'] for e in ends]
+  rng = np.random.default_rng(0)
+  pool_ids = [np.clip(gen_power_law_data(rng, n_req * 8, 1, c.input_dim,
+                                         float(argv['--alpha'])).reshape(-1),
+                      0, c.input_dim - 1).astype(np.int32) for c in configs]
+  requests = serving.split_requests(
+      pool_ids, sizes=[int(x) for x in argv['--request_sizes'].split(',')],
+      limit=n_req)
+  # a lone request at rung 128 and a full batch at rung 1024 on each
+  # replica: 13h's world-of-one answers, a gather of the bundle's rows
+  rung_answers = {}
+  for i, e in enumerate(ends):
+    for n in (100, int(argv['--batch'])):
+      cats = [p[:n] for p in pool_ids]
+      if not equal(serve_batcher.host_outputs(e.lookup_padded(cats)), cats):
+        raise AssertionError(f'{tag}: replica {i} at {n} samples differs '
+                             'from a gather of the bundle')
+      rung_answers[f'replica{i}_rung{e.bucket_for(n)}'] = n
+  # each replica alone: a ladder+pipeline batcher, 8 requests in flight
+  by_replica = []
+  for i, e in enumerate(ends):
+    bat = serve_batcher.DynamicBatcher(
+        e, max_delay_ms=float(argv['--max_delay_ms']))
+    subs, submit = [], bat.submit
+
+    def recorded(cats, *args, submit=submit, subs=subs, **kwargs):
+      fut = submit(cats, *args, **kwargs)
+      subs.append((cats, fut))
+      return fut
+
+    bat.submit = recorded
+    try:
+      wall = serve_bench._drive(bat, requests, int(argv['--concurrency']))
+      st = bat.stats()
+    finally:
+      bat.close()
+    if not all(equal(f.result(timeout=0), [np.asarray(c) for c in cats])
+               for cats, f in subs):
+      raise AssertionError(f'{tag}: replica {i}: a batched answer differs '
+                           'from a gather of the bundle')
+    by_replica.append({'p50_ms': st['p50_ms'], 'p99_ms': st['p99_ms'],
+                       'qps': len(requests) / wall, 'batches': st['batches'],
+                       'answers_equal': len(subs)})
+  # the overload arm: where measure_overload calls its drill, the fault
+  # is armed in rank 3 instead, so replica 1 is quarantined by its own
+  # rank's error
+  armed, quarantined, pool_reqs = [], [], []
+  orig = {'fail': serve_pool.ServingEnginePool.fail_replica,
+          'quarantine': serve_pool.ServingEnginePool._quarantine,
+          'req': serve_pool._PoolReq.__init__}
+
+  def arm_fault(self, idx, error=None):
+    armed.append(time.time())
+    (out_dir / 'arm_fault').write_text('armed\n')
+
+  def quarantine(self, idx, err):
+    # the pool quarantines once for the first of a replica's failed
+    # requests and ignores the rest
+    if self.stats()['live_replicas'] == len(self.engines):
+      quarantined.append({'replica': idx, 't': time.time(),
+                          'error': repr(err)})
+    return orig['quarantine'](self, idx, err)
+
+  def req_init(self, *args, **kwargs):
+    orig['req'](self, *args, **kwargs)
+    pool_reqs.append(self)
+
+  serve_pool.ServingEnginePool.fail_replica = arm_fault
+  serve_pool.ServingEnginePool._quarantine = quarantine
+  serve_pool._PoolReq.__init__ = req_init
+  try:
+    over = serve_bench.measure_overload(
+        ends, requests, max_delay_ms=float(argv['--max_delay_ms']),
+        deadline_ms=SERVE_REPLICAS_FAULT_DEADLINE_MS,
+        priority_mix=float(argv['--priority_mix']),
+        failover_after=len(requests) // 2)
+  finally:
+    serve_pool.ServingEnginePool.fail_replica = orig['fail']
+    serve_pool.ServingEnginePool._quarantine = orig['quarantine']
+    serve_pool._PoolReq.__init__ = orig['req']
+  outcome = collections.Counter()
+  retried_served = 0
+  for req in pool_reqs:
+    if not req.future.done():
+      raise AssertionError(f'{tag}: an overload future is unresolved')
+    err = req.future.error()
+    outcome[type(err).__name__ if err else 'served'] += 1
+    if err is None and not equal(req.future.result(timeout=0),
+                                 [np.asarray(c) for c in req.cats]):
+      raise AssertionError(f'{tag}: an overload answer differs from a '
+                           'gather of the bundle')
+    # an answer retried from replica 1, just held against the bundle
+    retried_served += bool(req.retries) and err is None
+  links = [e.stats()['front_end'] for e in ends]
+  fault_path = out_dir / 'fault.json'
+  if (len(armed) != 1 or [q['replica'] for q in quarantined] != [1]
+      or not fault_path.exists()
+      or [link['lost'] for link in links] != [False, True]
+      or sum(outcome.values()) != len(requests)
+      or outcome['served'] != over['serve_over_served']
+      or set(outcome) - {'served', 'RequestSheddedError'}
+      or not retried_served):
+    raise AssertionError(f'{tag}: armed {armed}, quarantined {quarantined}'
+                         f', links {links}, overload outcomes '
+                         f'{dict(outcome)}, {retried_served} retried '
+                         'answers served')
+  fault_t = json.loads(fault_path.read_text())['t']
+  for e in ends:
+    e.close()
+  result = {
+      'rank': 0, 'setup_s': setup_s, 'rung_answers': rung_answers,
+      'by_replica': by_replica, 'overload': over, 'outcome': dict(outcome),
+      'retried': sum(bool(r.retries) for r in pool_reqs),
+      'retried_served': retried_served,
+      'armed_after': len(requests) // 2,
+      'fault_to_quarantine_ms': (quarantined[0]['t'] - fault_t) * 1000.0,
+      'quarantine_error': quarantined[0]['error'][:300],
+      'links': [e.stats()['front_end'] for e in ends], 'warm_links': warm}
+  with open(out_dir / 'rank0.json', 'w') as f:
+    json.dump(result, f)
+
+
+def phase_dlrm_serve_replicas(card):
+  """Phase 13j: four processes on the one card, joined over gloo, run
+  ``serve_replica_rank`` through ``launch_ranks`` on 13i's bundle, ranks
+  2 and 3 expected to end with ``FOLLOWER_FAULT_EXIT``; then each rank's
+  launches against its lookups, rank 1's counts against its link, the
+  front door's block printed, the files deleted (13b's step-6 file
+  with them).  Returns each rank's launches, kernel rows and the phase's
+  numbers."""
+  from distributed_embeddings_tpu_torch.serving import frontend
+  tag = 'dlrm-serve-replicas'
+  bundle = SERVE_DIR / 'ranks.npz'
+  root = CKPT_DIR.parent / 'chip_smoke_serve_replicas'
+  shutil.rmtree(root, ignore_errors=True)
+  root.mkdir(parents=True)
+  world = sum(map(len, SERVE_REPLICAS_LAYOUT))
+  faulted = SERVE_REPLICAS_LAYOUT[1]
+  wall = launch_ranks(tag, root, 'serve_replica_rank', world,
+                      SERVE_REPLICAS_TIMEOUT_S, str(bundle),
+                      exits={r: frontend.FOLLOWER_FAULT_EXIT
+                             for r in faulted})
+  read = lambda name: json.loads((root / name).read_text())
+  lead, follower = read('rank0.json'), read('rank1.json')
+  launched = {r: read(f'launches{r}.json') for r in range(world)}
+  rows = {r: read(f'rows{r}.json') for r in range(world)}
+  shutil.rmtree(root)
+  shutil.rmtree(SERVE_DIR)
+  per_lookup = 2  # the plan: the cold gather and the hot partial
+  for r, got in launched.items():
+    want = {'lookup_combine': got['lookups'] * per_lookup,
+            'segwalk_apply': 0}
+    if got['launches'] != want or set(rows[r]) != {
+        str(b) for b in SERVE_RANKS_CHECK_RUNGS}:
+      raise AssertionError(f'{tag}: rank {r} launched {got} (the plan: '
+                           f'{per_lookup} a lookup), rows {list(rows[r])}')
+  links = lead['links']
+  if follower['counts']['batches'] != links[0]['batches']:
+    raise AssertionError(f'{tag}: rank 1 ran {follower["counts"]}, its '
+                         f'link sent {links[0]["batches"]}')
+  over = lead['overload']
+  log(f'[{tag}] card {card}; four ranks on the one card over gloo, two '
+      f'replicas {[list(r) for r in SERVE_REPLICAS_LAYOUT]} behind one '
+      'pool on rank 0 (host staging: not NCCL serving speeds); set-up '
+      f'{lead["setup_s"]:.1f} s, all ranks done in {wall:.1f} s')
+  log(f'[{tag}] answers equal to a gather of the bundle (13h\'s '
+      f'world-of-one answers): {json.dumps(lead["rung_answers"])} samples '
+      'a rung; every batched and served overload answer')
+  for i, r in enumerate(lead['by_replica']):
+    log(f'[{tag}] card {card}; replica {i} alone, ladder+pipe, '
+        f'{SERVE_REPLICAS_REQUESTS} requests, 8 in flight: p50 '
+        f'{r["p50_ms"]} ms p99 {r["p99_ms"]} ms qps {r["qps"]:.2f} '
+        f'({r["batches"]} batches)')
+  for i, (link, warm) in enumerate(zip(links, lead['warm_links'])):
+    n = max(link['batches'] - warm['batches'], 1)
+    log(f'[{tag}] link {i} (ranks {link["ranks"]}): {link["batches"]} '
+        f'batches, {warm["batches"]} of them the warm-up (broadcast '
+        f'{warm["broadcast_ms"]:.1f} ms, gather {warm["gather_ms"]:.1f} '
+        'ms, the ranks\' kernel checks included); after it broadcast '
+        f'{(link["broadcast_ms"] - warm["broadcast_ms"]) / n:.3f} ms a '
+        f'batch, gather {(link["gather_ms"] - warm["gather_ms"]) / n:.3f}'
+        f' ms a batch; lost {link["lost"]}; host clock')
+  log(f'[{tag}] overload: {SERVE_REPLICAS_REQUESTS} requests, deadline '
+      f'{SERVE_REPLICAS_FAULT_DEADLINE_MS:g} ms, the fault '
+      f'armed in rank {SERVE_REPLICAS_FAULT_RANK} after '
+      f'{lead["armed_after"]}; replica 1 quarantined '
+      f'{lead["fault_to_quarantine_ms"]:.1f} ms after its rank raised '
+      f'({lead["quarantine_error"][:120]}...); outcomes '
+      f'{lead["outcome"]}, {lead["retried"]} retried '
+      f'({lead["retried_served"]} served on replica 0, each equal to a '
+      f'gather of the bundle); served '
+      f'{over["serve_over_served"]} shed {over["serve_over_shed"]}, high '
+      f'p99 {over["serve_over_high_p99_ms"]} ms')
+  log(f'[{tag}] launches by rank ' + json.dumps(
+      {r: g['launches'] for r, g in launched.items()}) + ' for lookups '
+      + json.dumps({r: g['lookups'] for r, g in launched.items()})
+      + f' x {per_lookup} (ranks {list(faulted)} up to the fault)')
+  log(f'[{tag}] each rank\'s block launches held against the plain '
+      'version (queued CUDA events, the ranks in turn): '
+      + json.dumps(clocked(rows)))
+  numbers = {'wall_s': wall, 'lead': lead, 'follower': follower,
+             'launched': launched}
+  log(f'[{tag}] ' + json.dumps(numbers))
+  return ({r: g['launches'] for r, g in launched.items()}, rows, numbers)
 
 
 def run_small(seed, lookup_k, seg_k):
@@ -6577,14 +6965,15 @@ def rank_main(fn_name, rank, init, out_dir, *args):
   os._exit(0)
 
 
-def launch_ranks(tag, root, fn_name, world, timeout_s, *args):
+def launch_ranks(tag, root, fn_name, world, timeout_s, *args, exits=None):
   """``world`` processes on the one card running ``rank_main(fn_name,
   rank, ...)``, joined through a file rendezvous under ``root`` (no port
   to race for, no TCPStore thread), each writing its output to
-  ``root/rank{r}.log``.  Fails unless every rank exits 0 within
-  ``timeout_s`` and left its marker; the message gives each rank's exit
-  code (-6 is SIGABRT), its marker and the tail of its output.  Returns
-  the wall seconds."""
+  ``root/rank{r}.log``.  Fails unless every rank exits with its code of
+  ``exits`` (``{rank: code}``; 0 by default, and then with its marker)
+  within ``timeout_s``; a rank still running then is killed; the message
+  gives each rank's exit code (-6 is SIGABRT), its marker and the tail
+  of its output.  Returns the wall seconds."""
   here = str(pathlib.Path(__file__).resolve().parent)
   init = f'file://{root / "rendezvous"}'
   procs, logs = [], []
@@ -6615,14 +7004,16 @@ def launch_ranks(tag, root, fn_name, world, timeout_s, *args):
     f.close()
   codes = [p.returncode for p in procs]
   markers = [(root / f'done{r}').exists() for r in range(world)]
-  if hung or any(codes) or not all(markers):
+  want = [(exits or {}).get(r, 0) for r in range(world)]
+  if hung or codes != want or not all(
+      m for m, c in zip(markers, want) if c == 0):
     for rank, text in enumerate(outputs):
       log(f'[{tag}] rank {rank} (exit {codes[rank]}, marker '
           f'{"written" if markers[rank] else "missing"}) output:\n'
           + text[-20000:])
     raise AssertionError(f'{tag}: {"a rank hung past " if hung else ""}'
-                         f'{timeout_s if hung else ""} exit codes {codes}, '
-                         f'markers {markers}')
+                         f'{timeout_s if hung else ""} exit codes {codes} '
+                         f'({want} expected), markers {markers}')
   return wall
 
 
@@ -7910,6 +8301,14 @@ def main(argv=None) -> int:
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
     entry['launches_dlrm_serve_ranks'] = {
         rank: n[name] for rank, n in ranks_launches.items()}
+  gc.collect()
+  torch.cuda.empty_cache()
+  replica_launches, k['dlrm_serve_replicas'], seg['dlrm_serve_replicas'] = (
+      phase_dlrm_serve_replicas(card))
+  elapsed('phase 13j')
+  for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):
+    entry['launches_dlrm_serve_replicas'] = {
+        rank: n[name] for rank, n in replica_launches.items()}
   dlrm_hot_launches, dlrm_hot_numbers = phase_dlrm_hot()
   elapsed('phase 13c')
   for entry, name in ((k, 'lookup_combine'), (seg, 'segwalk_apply')):

@@ -115,7 +115,7 @@ REGISTERED_STATS_KEYS = frozenset({
 # that REGISTERED_STATS_KEYS stays the JAX package's names; the registry
 # pass of detlint checks ``stats()`` keys against both.
 PORT_STATS_KEYS = frozenset({
-    'front_end', 'samples', 'broadcast_ms', 'gather_ms', 'lost',
+    'front_end', 'samples', 'broadcast_ms', 'gather_ms', 'lost', 'ranks',
 })
 
 # The JAX package's bench-artifact keys, whole (the same names for the

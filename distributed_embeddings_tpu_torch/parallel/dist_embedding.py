@@ -464,10 +464,12 @@ class DistributedEmbedding:
     # (filled by init / set_weights), the fetch capacities per global
     # batch (constructor-pinned rows seed every batch size), the pinned
     # staging buffers, and two CPU process groups of the tier's own
-    # (created here, on every rank in one order): ``_tier_pg`` for the
-    # consumer thread's tier collectives, ``_prepass_pg`` for the
-    # ColdFetchPipeline worker's pre-pass alone (gloo pairs a group's
-    # collectives in issue order, which two threads would not keep)
+    # (created here, on every rank in one order; a mesh over a subset of
+    # the world's ranks brings its own for one layer, its
+    # ``host_groups``, which every process created with it): ``_tier_pg`` for the consumer thread's
+    # tier collectives, ``_prepass_pg`` for the ColdFetchPipeline
+    # worker's pre-pass alone (gloo pairs a group's collectives in issue
+    # order, which two threads would not keep)
     self.cold_tier = None
     self._cold_fetch_caps: Dict[int, Dict[int, int]] = {}
     self._cold_fetch_pinned: Dict[int, int] = {}
@@ -477,7 +479,9 @@ class DistributedEmbedding:
       from distributed_embeddings_tpu_torch.parallel import coldtier
       self.cold_tier = coldtier.HostTier(self.plan, self.quant, self.rank)
       self._tier_staging = coldtier._Staging()
-      if self.world_size > 1:
+      if mesh.host_groups is not None:
+        self._tier_pg, self._prepass_pg = mesh.host_groups.take()
+      elif self.world_size > 1:
         ranks = torch_dist.get_process_group_ranks(mesh.group)
         self._tier_pg = torch_dist.new_group(ranks, backend='gloo')
         self._prepass_pg = torch_dist.new_group(ranks, backend='gloo')

@@ -8,7 +8,11 @@ this process's rank is its index in the group, and it plays the part of
 the mesh axis index (``jax.lax.axis_index``).  A two-axis ``(dcn,
 data)`` mesh (``create_mesh(shape=(S, D))``) adds a process group per
 axis: the data axis's (a slice's processes) and the dcn axis's (the
-processes of one data index across slices), over the world.
+processes of one data index across slices), over the world.  A mesh
+over a subset of the world's ranks (``create_mesh(ranks=[...])``, the
+JAX package's ``create_mesh(jax.devices()[a:b])``) holds a replica of
+the tables on those ranks alone: the serving replicas of a pool on
+disjoint rank sets.
 
 Entry points default to ``device='cuda'``.  Without a card they raise:
 they run on the CPU only when the caller passes ``device='cpu'``.
@@ -74,12 +78,17 @@ class Mesh:
     world_group: the group of the axis product (the world) on a
       two-axis mesh; ``None`` on a flat mesh, where it is ``group``.
     shape: ``(S, D)`` of a two-axis mesh, ``None`` for a flat one.
+    host_groups: the ``HostGroups`` of a mesh over a subset of the
+      world's ranks, where a layer cannot make its cold tier's groups
+      itself (``new_group`` is collective over the whole world);
+      ``None`` elsewhere, where each layer makes its own.
   """
   device: torch.device
   group: Optional[torch_dist.ProcessGroup] = None
   dcn_group: Optional[torch_dist.ProcessGroup] = None
   world_group: Optional[torch_dist.ProcessGroup] = None
   shape: Optional[Tuple[int, int]] = None
+  host_groups: Optional['HostGroups'] = None
 
   @property
   def axis_names(self) -> Tuple[str, ...]:
@@ -168,9 +177,54 @@ def _axis_groups(shape: Sequence[int]):
   return data, dcn
 
 
+class HostGroups:
+  """Two gloo groups over a sub-mesh's ranks, made with the mesh, for
+  ONE layer's cold tier: its consumer thread's collectives and its
+  pre-pass worker's.  Gloo pairs a group's collectives in issue order, so
+  no two threads (and no two layers) may share one: ``take()`` hands
+  them out once and refuses a second layer."""
+
+  def __init__(self, ranks: Sequence[int]):
+    self._groups = tuple(torch_dist.new_group(list(ranks), backend='gloo')
+                         for _ in range(2))
+    self._taken = False
+
+  def take(self) -> Tuple[torch_dist.ProcessGroup, torch_dist.ProcessGroup]:
+    if self._taken:
+      raise ValueError(
+          'a second layer with a cold tier on a mesh over a subset of the '
+          "world's ranks: the mesh's host groups serve one layer's cold "
+          'tier; build each such layer on a mesh of its own')
+    self._taken = True
+    return self._groups
+
+
+def _sub_mesh(dev: torch.device, ranks: Sequence[int]) -> Optional[Mesh]:
+  """``create_mesh(ranks=...)``: the flat mesh over ``ranks`` of the
+  initialised world on its members, ``None`` elsewhere.  Every process
+  creates the mesh's groups, members or not (``new_group`` is
+  collective over the world)."""
+  if not (torch_dist.is_available() and torch_dist.is_initialized()):
+    raise ValueError('create_mesh(ranks=...) needs an initialised process '
+                     'group (init_distributed)')
+  world = torch_dist.get_world_size()
+  ranks = sorted(int(r) for r in ranks)
+  if not ranks or len(set(ranks)) != len(ranks) or not (
+      0 <= ranks[0] and ranks[-1] < world):
+    raise ValueError(f'create_mesh(ranks={ranks}): distinct ranks of the '
+                     f'world of {world} expected')
+  member = torch_dist.get_rank() in ranks
+  if len(ranks) == 1:
+    return Mesh(dev) if member else None
+  group = torch_dist.new_group(ranks)
+  host = HostGroups(ranks)
+  return Mesh(dev, group, host_groups=host) if member else None
+
+
 def create_mesh(device: DeviceLike = None,
                 group: Optional[torch_dist.ProcessGroup] = None,
-                shape: Optional[Sequence[int]] = None) -> Mesh:
+                shape: Optional[Sequence[int]] = None,
+                ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
   """A mesh over ``group`` (or a world of one) on ``device``; with
   ``shape=(S, D)`` a two-axis ``(dcn, data)`` mesh over the initialised
   world of ``S * D`` processes (``create_mesh((S, D))`` of the JAX
@@ -178,10 +232,24 @@ def create_mesh(device: DeviceLike = None,
   processes.  Every process of the world must call it with the same
   shape (it creates the axes' process groups).
 
+  ``ranks=[...]``: a flat mesh over those ranks of the world (the JAX
+  package's ``create_mesh(jax.devices()[a:b])``), returned on its
+  members and ``None`` on every other process; its batch blocks go by
+  the position of a rank among ``sorted(ranks)``.  ``new_group`` is
+  collective over the whole world, so EVERY process calls it for every
+  such mesh, in one order, members or not (a process that skips one, or
+  swaps two, leaves the others waiting); one rank is a world of one and
+  creates no group.
+
   ``group=None`` while ``torch.distributed`` is initialised with more
   than one process takes the default group, so a script launched on
   several ranks shards its tables over all of them."""
   dev = resolve_device(device)
+  if ranks is not None:
+    if group is not None or shape is not None:
+      raise ValueError('create_mesh takes ranks, a group or a shape, not '
+                       'two of them')
+    return _sub_mesh(dev, ranks)
   if shape is not None:
     shape = tuple(int(x) for x in shape)
     if len(shape) > 2:

@@ -7,8 +7,9 @@ padded batches at the smallest fitting rung with pipelined merge,
 execute and demux, a ``ServingEnginePool`` (``pool.py``) routes across
 replicas with shedding, failover and a degraded mode, a
 ``RankFrontEnd`` (``frontend.py``) serves an engine of several ranks
-through them (the leader admits and gathers, every rank looks up its
-block), and ``bench.py`` measures them (the JAX package's ``serve_*``
+through them (the front door admits and gathers, every rank looks up its
+block; ``replica_front_ends`` builds replicas on disjoint rank sets, a
+link each), and ``bench.py`` measures them (the JAX package's ``serve_*``
 and ``serve_over_*`` blocks)."""
 
 from distributed_embeddings_tpu_torch.serving.export import (
@@ -31,6 +32,7 @@ from distributed_embeddings_tpu_torch.serving.batcher import (
 )
 from distributed_embeddings_tpu_torch.serving.frontend import (
     RankFrontEnd,
+    replica_front_ends,
 )
 from distributed_embeddings_tpu_torch.serving.pool import (
     ServingEnginePool,

@@ -46,11 +46,11 @@ walls, blocked = the executor's wait for a merged batch (bounded by that
 batch's merge wall) plus its wait on the demux queue.  The device wait
 of the one host copy is part of the execute stage.
 
-An engine on several ranks serves through the leader's
+An engine on several ranks serves through the front door's
 ``RankFrontEnd`` (``serving/frontend.py``): each rank's engine answers
 only its block of a rung, so the front end broadcasts each batch to
-every rank and gathers the blocks back; a bare engine of several ranks
-refuses.  Not ported: ``csr_feed=True`` (it feeds SparseCore, ROADMAP.md
+every rank of the replica and gathers the blocks back; a bare engine of
+several ranks refuses, and so does a follower's front end.  Not ported: ``csr_feed=True`` (it feeds SparseCore, ROADMAP.md
 item 15).
 """
 
@@ -75,20 +75,17 @@ from distributed_embeddings_tpu_torch.utils import resilience
 # admission classes, in dispatch-preference order
 PRIORITIES = ('high', 'low')
 
-MULTI_RANK_ITEM = 17
-
-
 def refuse_multi_rank(engine, who: str):
   """Refuse what cannot admit requests: a bare engine whose world is
   above one (its lookups answer only this rank's block of a rung), and
-  a follower rank's ``RankFrontEnd`` (only the leader admits).  The
-  leader's front end passes."""
+  a follower rank's ``RankFrontEnd`` (only the front door admits).  The
+  front door's front end passes, whichever ranks its replica holds."""
   leader = getattr(engine, 'is_leader', None)
   if leader is not None:
     if not leader:
       raise RuntimeError(
           f'{who} over a follower rank\'s front end (rank '
-          f'{engine.rank}): only the leader, product rank 0, admits '
+          f'{engine.rank}): only the front door, rank 0, admits '
           'requests; a follower runs serve_forever()')
     return
   ranks = engine.dist.mesh.product_size

@@ -22,9 +22,14 @@ host merge and demux walls (``obs.metrics.OverlapStat``).
 ``measure_overload``: a ``ServingEnginePool`` driven past capacity
 (design §23), the ``serve_over_*`` block.
 
-Both take the leader's ``RankFrontEnd`` (or a pool of them) for an
-engine of several ranks: its ``lookup_padded`` (the no-batching arm),
-``warmup`` and batches run across the world, the keys unchanged.
+Both take the front door's ``RankFrontEnd`` for an engine of several
+ranks: its ``lookup_padded`` (the no-batching arm), ``warmup`` and
+batches run across the replica's ranks, the keys unchanged.
+``measure_overload`` takes a pool's worth of them, of one link or of
+replicas on disjoint rank sets (``frontend.replica_front_ends``), beside
+bare engines; ``failover_after`` then closes replica 0's link (unless a
+live replica shares it), and each front end's ``stats()`` keeps its own
+link's ``front_end`` block.
 """
 
 from __future__ import annotations

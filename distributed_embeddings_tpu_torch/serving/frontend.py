@@ -1,58 +1,77 @@
-"""The multi-rank serving front end: one leader admits, every rank looks
-up its block, the answers are gathered back to the leader.  The JAX
-package has no counterpart: its single controller sees a global output.
+"""The multi-rank serving front end: one front door admits, every rank of
+a replica looks up its block, the answers are gathered back to the front
+door.  The JAX package has no counterpart: its single controller sees a
+global output.
 
 A ``ServingEngine`` on several ranks answers only its own rank's block
-of a rung (``mesh.batch_sharding``).  ``RankFrontEnd(engine)`` is built
-on EVERY rank of the engine's world, in the same order (it creates a
-gloo control group over the world, as ``DistributedEmbedding`` creates
-its tier groups).
+of a rung (``mesh.batch_sharding``).  A replica's ranks and the front
+door (the rank that holds the pool, world rank ``FRONT_DOOR``, 0) share
+a LINK: a gloo control group over the front door and the replica's ranks.
+``RankFrontEnd(engine)`` is built on every rank of an
+engine over the whole world, in the same order (it creates the control
+group, as ``DistributedEmbedding`` creates its tier groups).
 
-On the leader (product rank 0) it stands in for the engine: it offers
-the surface ``DynamicBatcher``, ``ServingEnginePool`` and
-``serving/bench.py`` read, and its ``lookup`` / ``lookup_padded`` return
-the WHOLE rung's answers as f32 host tensors.  Per batch, under one
-lock:
+Replicas on disjoint rank sets: each replica's engine sits on a mesh over
+its own ranks (``mesh.create_mesh(ranks=[...])``), and
+``replica_front_ends(engines, layout)``, called on EVERY
+process of the world in one order (``new_group`` is collective over the
+world), gives each replica a link of its own.  A replica of one rank on
+the front door needs none: the pool takes its bare engine.  Where the
+front door is not among a replica's ranks it holds a ``ReplicaView`` of
+the replica's engine (its host side, which the replica's first rank
+sends over the link), contributes no block to the answers, and passes
+gloo's gather a dummy block of the right size, which it drops.
 
-1. the leader validates and pads on the host, as the engine does, so a
-   request that would fail fails there, before anything is sent;
-2. ONE broadcast over the control group carries a fixed-size int32
-   buffer: a header (op, replica, rung, real samples, sequence number)
-   and the rung's padded ids, ``batch_size x sum(hotness)`` of them;
-3. every rank runs its engine on its block (the engine's own exchange
-   stays on the mesh's group: NCCL across cards, gloo for ranks that
-   share one);
-4. ONE gather to the leader: each rank's block as one flat f32 buffer
-   (``batcher.host_flat``), put back in product-rank order.
+On the front door a front end stands in for the engine: it offers the
+surface ``DynamicBatcher``, ``ServingEnginePool`` and ``serving/bench.py``
+read, and its ``lookup`` / ``lookup_padded`` return the WHOLE rung's
+answers as f32 host tensors.  Per batch, under the link's lock:
 
-The lock makes every batch reach every rank in one order, whichever
-thread sent it (a batcher's executor, the no-batching arm, ``warmup``,
-each replica's batcher).  The broadcast and the gather run inside the
-leader's ``'serve/lookup'`` span, so inside ``'serve/execute'`` when a
-batcher sends.  An empty request resolves on the leader with no
-broadcast.  ``warmup`` runs through the front end: a rank that warmed
-its engine alone would issue collectives the others do not match.
+1. the front door validates and pads on the host, as the engine does, so
+   a request that would fail fails there, before anything is sent;
+2. ONE broadcast from the front door over the control group carries a
+   fixed-size int32 buffer: a header (op, replica, rung, real samples,
+   sequence number) and the rung's padded ids, ``batch_size x
+   sum(hotness)`` of them;
+3. every rank of the replica runs its engine on its block (the engine's
+   own exchange stays on the mesh's group: NCCL across cards, gloo for
+   ranks that share one);
+4. ONE gather to the front door: each rank's block as one flat f32
+   buffer (``batcher.host_flat``), put back in product-rank order.
 
-Replicas: ``fe.replica(engine2)`` (on every rank, in one order) adds an
-engine over the SAME world to the same link, under the next replica
-index, which the header names; a pool of such front ends serves with
-the pool's semantics.  Replicas on disjoint rank sets refuse
-(``not_ported``, item 17).
+The lock makes every batch reach every rank of the link in one order,
+whichever thread sent it (a batcher's executor, the no-batching arm,
+``warmup``, each replica's batcher); links do not share it, so replicas
+on disjoint rank sets run their batches side by side.  The broadcast and
+the gather run inside the front door's ``'serve/lookup'`` span, so inside
+``'serve/execute'`` when a batcher sends.  An empty request resolves on
+the front door with no broadcast.  ``warmup`` runs through the front
+end: a rank that warmed its engine alone would issue collectives the
+others do not match.
 
-On every other rank ``serve_forever()`` runs the batches until the
-leader's ``close()`` broadcasts ``stop``, then returns this rank's
-counts.  A follower waits for the next batch as long as the leader
-idles (its control group's timeout is ``FOLLOWER_TIMEOUT_S``); the
-leader's waits end after ``LEADER_TIMEOUT_S``.  A follower whose lookup
-(or link) fails writes the error to its stderr and ends its process with
-``FOLLOWER_FAULT_EXIT``; the leader sees that as an error on the control
-group or the mesh's group, fails that batch and every later lookup with
-``ReplicaLostError`` (it never answers from its own block alone), and
-tears down its end of the control group, so every other follower's wait
-on it fails at once and ends that follower too.  A fault in the leader's
-own block after the broadcast does the same.  A follower still inside
-the engine's exchange waits out the mesh group's timeout (over NCCL, its
-watchdog).
+Replicas of one link: ``fe.replica(engine2)`` (on every rank of the
+link, in one order; ``None`` on a front door outside the replica) adds an
+engine over the SAME ranks to the same link, under the next replica
+index, which the header names; a pool of such front ends serves with the
+pool's semantics.
+
+On every other rank ``serve_forever()`` runs the batches until the front
+door's ``close()`` broadcasts ``stop``, then returns this rank's counts.
+A follower waits for the next batch as long as the front door idles (its
+control group's timeout is ``FOLLOWER_TIMEOUT_S``); the front door's
+waits end after ``LEADER_TIMEOUT_S``.  A follower whose lookup (or link)
+fails writes the error to its stderr and ends its process with
+``FOLLOWER_FAULT_EXIT``; the front door sees that as an error on the
+control group or the mesh's group, fails that batch and every later
+lookup of the link with ``ReplicaLostError`` (it never answers from its
+own block alone), and tears down its end of that link's control group,
+so every other follower's wait on it fails at once and ends that
+follower too.  A fault in the front door's own block after the
+broadcast does the same.  Other links are untouched: a pool routes
+around the lost replica and retries its requests on the others.  A
+follower still inside the engine's exchange waits out the mesh group's
+timeout (over NCCL, its watchdog); nothing on the front door waits for
+it.
 """
 
 from __future__ import annotations
@@ -63,46 +82,62 @@ import sys
 import threading
 import traceback
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as torch_dist
 
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
-from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    not_ported)
 from distributed_embeddings_tpu_torch.serving.batcher import (
-    MULTI_RANK_ITEM, ReplicaLostError, host_flat)
+    ReplicaLostError, host_flat)
+from distributed_embeddings_tpu_torch.serving.engine import ReplicaView
 
 # the control buffer's header: op, replica, rung, real samples, sequence
 HEADER = 5
 OP_STOP, OP_LOOKUP = 0, 1
-# the control group's timeout: the leader waits only for a batch's
-# blocks; a follower waits for the next batch however long the leader
-# idles
+# the control group's timeout: the front door waits only for a batch's
+# blocks; a follower waits for the next batch however long the front
+# door idles
 LEADER_TIMEOUT_S = 300.0
 FOLLOWER_TIMEOUT_S = 365 * 24 * 3600.0
 FOLLOWER_FAULT_EXIT = 3
+# the world rank that holds the pool and admits requests
+FRONT_DOOR = 0
+
+
+def _engine_ranks(engine) -> List[int]:
+  """The world ranks of an engine's mesh, in product-rank order (a flat
+  mesh's group and a two-axis mesh's world are both in rank order)."""
+  group = engine.dist.mesh.product_group
+  if group is None:
+    return [torch_dist.get_rank()]
+  return sorted(torch_dist.get_process_group_ranks(group))
+
+
+def _control_group(members: Sequence[int]):
+  """The gloo control group over ``members`` (every process of the world
+  calls this, in one order)."""
+  timeout = (LEADER_TIMEOUT_S if torch_dist.get_rank() == FRONT_DOOR
+             else FOLLOWER_TIMEOUT_S)
+  return torch_dist.new_group(list(members), backend='gloo',
+                              timeout=datetime.timedelta(seconds=timeout))
 
 
 class _Link:
-  """The world's control group and everything the replicas of one world
-  share: the lock, the sequence number, the engines by replica index,
-  the counts and the lost state."""
+  """One replica's control group and everything the engines on its
+  ranks share: the lock, the sequence number, the engines by replica
+  index (``ReplicaView``s on a front door outside the ranks), the counts
+  and the lost state."""
 
-  def __init__(self, engine):
-    self.world = torch_dist.get_world_size()
+  def __init__(self, pg, ranks: Sequence[int]):
+    self.pg = pg
     self.rank = torch_dist.get_rank()
-    timeout = LEADER_TIMEOUT_S if self.rank == 0 else FOLLOWER_TIMEOUT_S
-    self.pg = torch_dist.new_group(
-        list(range(self.world)), backend='gloo',
-        timeout=datetime.timedelta(seconds=timeout))
-    self.batch_size = engine.batch_size
-    self.hotness = tuple(engine.hotness)
-    self.output_dims = tuple(engine.output_dims)
-    self.buf = torch.zeros(HEADER + self.batch_size * sum(self.hotness),
-                           dtype=torch.int32)
+    self.ranks = tuple(ranks)  # product-rank order
+    self.world = len(self.ranks)
+    # the control group's ranks, in its rank order (gather's parts)
+    self.members = tuple(sorted(set(self.ranks) | {FRONT_DOOR}))
+    self.holds_block = FRONT_DOOR in self.ranks
     self.engines: List = []
     self.lock = threading.Lock()
     self.seq = 0
@@ -113,7 +148,32 @@ class _Link:
     self.broadcast_ms = 0.0
     self.gather_ms = 0.0
 
-  # ------------------------------------------------------------ leader
+  def add(self, engine) -> tuple:
+    """Add a replica's engine (every rank of the link, in one order; on a
+    front door outside the replica's ranks the replica's first rank
+    sends its engine's host side, which becomes a ``ReplicaView``):
+    returns its replica index and its engine on this rank."""
+    if not self.holds_block:
+      box = [engine.host_spec() if self.rank == self.ranks[0] else None]
+      torch_dist.broadcast_object_list(box, src=self.ranks[0],
+                                       group=self.pg)
+      if self.rank == FRONT_DOOR:
+        engine = ReplicaView(box[0])
+    shape = (engine.batch_size, tuple(engine.hotness),
+             tuple(engine.output_dims))
+    if not self.engines:
+      self.batch_size, self.hotness, self.output_dims = shape
+      self.buf = torch.zeros(HEADER + self.batch_size * sum(self.hotness),
+                             dtype=torch.int32)
+    elif shape != (self.batch_size, self.hotness, self.output_dims):
+      raise ValueError(
+          'a replica must match its link\'s batch, hotness and output '
+          f'widths: {shape} vs {(self.batch_size, self.hotness)}, '
+          f'{self.output_dims}')
+    self.engines.append(engine)
+    return len(self.engines) - 1, engine
+
+  # -------------------------------------------------------- front door
 
   def _send(self, op: int, replica: int = 0, rung: int = 0,
             samples: int = 0, padded=None):
@@ -126,20 +186,20 @@ class _Link:
       flat = np.asarray(x, np.int32).reshape(-1)
       arr[off:off + flat.size] = flat
       off += flat.size
-    torch_dist.broadcast(self.buf, src=0, group=self.pg)
+    torch_dist.broadcast(self.buf, src=FRONT_DOOR, group=self.pg)
 
   def check_alive(self):
     if self.lost is not None:
       raise ReplicaLostError(
-          f'the serving front end lost a rank of its world of '
-          f'{self.world}: {self.lost!r}') from self.lost
+          f'the serving front end lost a rank of its replica on ranks '
+          f'{list(self.ranks)}: {self.lost!r}') from self.lost
     if self.closed:
       raise RuntimeError('the serving front end is closed')
 
   def run(self, replica: int, padded, b: int, real: int
           ) -> List[torch.Tensor]:
-    """One batch across the world: broadcast, every rank's block,
-    gather; the whole rung's answers as f32 host tensors."""
+    """One batch across the replica's ranks: broadcast, every rank's
+    block, gather; the whole rung's answers as f32 host tensors."""
     engine = self.engines[replica]
     with self.lock:
       self.check_alive()
@@ -148,16 +208,20 @@ class _Link:
       try:
         self._send(OP_LOOKUP, replica, b, real, padded)
         t1 = obs_trace.now()
-        flat = host_flat(engine.apply_block(padded, b))
-        parts = [torch.empty_like(flat) for _ in range(self.world)]
+        if self.holds_block:
+          flat = host_flat(engine.apply_block(padded, b))
+        else:
+          # gloo gathers a block from every member, the root included
+          flat = torch.empty(b // self.world * sum(self.output_dims))
+        parts = [torch.empty_like(flat) for _ in self.members]
         t2 = obs_trace.now()
-        torch_dist.gather(flat, parts, dst=0, group=self.pg)
+        torch_dist.gather(flat, parts, dst=FRONT_DOOR, group=self.pg)
         t3 = obs_trace.now()
       except Exception as e:
         self._abort(e)
         raise ReplicaLostError(
-            f'serving batch {self.seq} (rung {b}) failed across the world '
-            f'of {self.world}: {e!r}') from e
+            f'serving batch {self.seq} (rung {b}) failed across the '
+            f'replica on ranks {list(self.ranks)}: {e!r}') from e
       finally:
         lookup_ms = (obs_trace.now() - t0) * 1000.0
         obs_trace.complete('serve/lookup', t0, lookup_ms / 1000.0, batch=b)
@@ -166,7 +230,8 @@ class _Link:
       self.broadcast_ms += (t1 - t0) * 1000.0
       self.gather_ms += (t3 - t2) * 1000.0
     engine.count_lookup(b, real, lookup_ms)
-    return self._assemble(parts, b)
+    blocks = dict(zip(self.members, parts))
+    return self._assemble([blocks[r] for r in self.ranks], b)
 
   def _assemble(self, parts, b: int) -> List[torch.Tensor]:
     """Each input's ``[b, output_dim]`` answer from the ranks' flat
@@ -186,10 +251,11 @@ class _Link:
     return outs
 
   def _abort(self, e: BaseException):
-    """Mark the link lost and destroy the leader's end of the control
-    group (the caller holds the lock): its sockets close, so a follower
-    waiting on it (a gather, the next broadcast) fails at once and ends
-    its process instead of waiting out ``FOLLOWER_TIMEOUT_S``."""
+    """Mark the link lost and destroy this rank's end of its control
+    group (on the front door the caller holds the lock): its sockets
+    close, so a rank waiting on it (a gather, the next broadcast) fails
+    at once, a follower instead of waiting out ``FOLLOWER_TIMEOUT_S``.
+    Other links are untouched."""
     self.lost = e
     pg, self.pg = self.pg, None
     try:
@@ -200,6 +266,7 @@ class _Link:
       pass
 
   def close(self):
+    """Broadcast ``stop`` (none on a lost link); idempotent."""
     with self.lock:
       if self.closed:
         return
@@ -218,7 +285,7 @@ class _Link:
     arr = self.buf.numpy()
     by_replica = [0] * len(self.engines)
     while True:
-      torch_dist.broadcast(self.buf, src=0, group=self.pg)
+      torch_dist.broadcast(self.buf, src=FRONT_DOOR, group=self.pg)
       op, replica, b, real, seq = (int(v) for v in arr[:HEADER])
       if seq != self.seq + 1:
         raise RuntimeError(f'control buffer out of order: sequence {seq} '
@@ -235,7 +302,7 @@ class _Link:
         padded.append(x if h == 1 else x.reshape(b, h))
         off += b * h
       flat = host_flat(self.engines[replica].lookup(padded, samples=real))
-      torch_dist.gather(flat, None, dst=0, group=self.pg)
+      torch_dist.gather(flat, None, dst=FRONT_DOOR, group=self.pg)
       self.batches += 1
       self.samples += real
       by_replica[replica] += 1
@@ -245,54 +312,72 @@ class _Link:
 
 
 class RankFrontEnd:
-  """The engine surface of a world of ranks on its leader; the batch loop
-  on its followers (see the module docstring).
+  """The engine surface of a replica's ranks on the front door; the
+  batch loop on its followers (see the module docstring).
 
   Args:
-    engine: this rank's ``ServingEngine`` over the whole initialised
-      world (its mesh's product is the world, in rank order).
+    engine: this rank's ``ServingEngine``.
+
+  Built directly, the control group spans the front door and the
+  engine's ranks, which must then be the whole world (every process
+  calls ``new_group``).  Replicas on disjoint rank sets are built by
+  ``replica_front_ends``, which gives a front door outside a replica's
+  ranks its end (``engine=None``).
   """
 
-  def __init__(self, engine, *, _link=None):
-    mesh = engine.dist.mesh
+  def __init__(self, engine, *, _ranks=None, _pg=None, _link=None):
     if not (torch_dist.is_available() and torch_dist.is_initialized()):
       raise ValueError('RankFrontEnd needs an initialised process group '
                        '(mesh.init_distributed)')
-    if mesh.product_size < 2:
-      raise ValueError('RankFrontEnd serves an engine of several ranks; '
-                       'an engine of one rank needs none')
-    if (mesh.product_size != torch_dist.get_world_size()
-        or mesh.product_rank != torch_dist.get_rank()):
-      raise not_ported(
-          f'a serving front end over an engine on {mesh.product_size} of '
-          f'the world\'s {torch_dist.get_world_size()} ranks (replicas on '
-          'disjoint rank sets)', MULTI_RANK_ITEM)
+    me = torch_dist.get_rank()
+    ranks = _ranks
+    if _link is not None:
+      ranks = list(_link.ranks)
+    if engine is not None:
+      if _link is not None and _engine_ranks(engine) != ranks:
+        raise ValueError(f'a replica on ranks {_engine_ranks(engine)} '
+                         f'cannot share the link of ranks {ranks}')
+      ranks = _engine_ranks(engine)
+      if engine.dist.mesh.product_rank != ranks.index(me):
+        raise ValueError(
+            f'rank {me} is product rank {engine.dist.mesh.product_rank} '
+            f'of its mesh, not {ranks.index(me)}: a front end gathers '
+            'the blocks in the order of the mesh\'s world ranks')
+    elif ranks is None or me != FRONT_DOOR or me in ranks:
+      raise ValueError('RankFrontEnd needs this rank\'s engine (a front '
+                       'door outside a replica\'s ranks gets its end from '
+                       'replica_front_ends)')
+    ranks = sorted(int(r) for r in ranks)
+    if ranks == [FRONT_DOOR]:
+      raise ValueError('an engine of one rank on the front door needs no '
+                       'RankFrontEnd: give the pool the engine itself')
     if _link is None:
-      _link = _Link(engine)
-    elif (engine.batch_size != _link.batch_size
-          or tuple(engine.hotness) != _link.hotness
-          or tuple(engine.output_dims) != _link.output_dims):
-      raise ValueError(
-          'a replica must match its link\'s batch, hotness and output '
-          f'widths: batch {engine.batch_size} vs {_link.batch_size}, '
-          f'hotness {tuple(engine.hotness)} vs {_link.hotness}')
+      if _pg is None:
+        members = sorted(set(ranks) | {FRONT_DOOR})
+        if members != list(range(torch_dist.get_world_size())):
+          raise ValueError(
+              f'a front end over ranks {ranks} with front door '
+              f'{FRONT_DOOR} leaves ranks of the world of '
+              f'{torch_dist.get_world_size()} out of its control group, '
+              'whose new_group every process must call: build replicas '
+              'on disjoint rank sets with serving.replica_front_ends on '
+              'every process')
+        _pg = _control_group(members)
+      _link = _Link(_pg, ranks)
     self._link = _link
-    self.engine = engine
-    self.replica_index = len(_link.engines)
-    _link.engines.append(engine)
+    self.replica_index, self.engine = _link.add(engine)
 
   def replica(self, engine) -> 'RankFrontEnd':
-    """A front end for another engine over the same world (a replica of
-    a pool), sharing this one's link; call it on every rank in one
-    order."""
+    """A front end for another engine over the same ranks (a replica of
+    a pool), sharing this one's link; call it on every rank of the link
+    in one order (with ``None`` on a front door outside the ranks)."""
     return RankFrontEnd(engine, _link=self._link)
 
   # ------------------------------------------------------------ surface
 
   @property
   def link(self):
-    """The world's link this front end shares with its replicas (a pool
-    serves replicas of one link only)."""
+    """The link this front end shares with the replicas on its ranks."""
     return self._link
 
   @property
@@ -301,7 +386,8 @@ class RankFrontEnd:
 
   @property
   def is_leader(self) -> bool:
-    return self._link.rank == 0
+    """True on the front door, the one rank that admits requests."""
+    return self._link.rank == FRONT_DOOR
 
   @property
   def batch_size(self) -> int:
@@ -327,8 +413,8 @@ class RankFrontEnd:
     return self
 
   def hot_only_filter(self, cats):
-    """The degraded mode's filter, on the leader before the broadcast
-    (the broadcast carries the ids it kept)."""
+    """The degraded mode's filter, on the front door before the
+    broadcast (the broadcast carries the ids it kept)."""
     return self.engine.hot_only_filter(cats)
 
   @property
@@ -338,15 +424,15 @@ class RankFrontEnd:
   def _leader_only(self, what: str):
     if not self.is_leader:
       raise RuntimeError(
-          f'{what} on follower rank {self.rank}: only the leader, '
-          'product rank 0, admits requests; a follower runs '
+          f'{what} on follower rank {self.rank}: only the front door, '
+          f'rank {FRONT_DOOR}, admits requests; a follower runs '
           'serve_forever()')
 
   def lookup(self, cats, samples: Optional[int] = None
              ) -> List[torch.Tensor]:
-    """``ServingEngine.lookup`` across the world: the per-input
-    ``[rung, output_dim]`` answers of the WHOLE rung, f32 on the
-    host."""
+    """``ServingEngine.lookup`` across the replica's ranks: the
+    per-input ``[rung, output_dim]`` answers of the WHOLE rung, f32 on
+    the host."""
     self._leader_only('lookup')
     cats = list(cats)
     b, real = self.engine.check_rung(cats, samples)
@@ -373,12 +459,14 @@ class RankFrontEnd:
     return self
 
   def stats(self) -> dict:
-    """The engine's stats plus a ``front_end`` block: the world, the
-    batches this link ran (every replica's), the broadcast and gather
-    ms summed over them, and whether a rank was lost."""
+    """The engine's stats plus a ``front_end`` block: the replica's rank
+    count and ranks, the batches its link ran (every replica's on it),
+    the broadcast and gather ms summed over them, and whether a rank was
+    lost."""
     link = self._link
     with link.lock:
-      block = {'world_size': link.world, 'replicas': len(link.engines),
+      block = {'world_size': link.world, 'ranks': list(link.ranks),
+               'replicas': len(link.engines),
                'batches': link.batches, 'samples': link.samples,
                'broadcast_ms': round(link.broadcast_ms, 3),
                'gather_ms': round(link.gather_ms, 3),
@@ -388,17 +476,23 @@ class RankFrontEnd:
   # ---------------------------------------------------------- lifecycle
 
   def serve_forever(self) -> dict:
-    """A follower's loop: run every batch the leader broadcasts until it
-    closes; returns ``{'rank', 'batches', 'samples', 'by_replica'}``.  A fault is written to stderr and ends the process
-    with ``FOLLOWER_FAULT_EXIT`` (the leader sees the rank go)."""
+    """A follower's loop: run every batch the front door broadcasts until
+    it closes; returns ``{'rank', 'batches', 'samples', 'by_replica'}``.
+    A fault tears down this rank's end of the control group, is written
+    to stderr and ends the process with ``FOLLOWER_FAULT_EXIT`` (the
+    front door sees the rank go)."""
     if self.is_leader:
       raise RuntimeError('serve_forever runs on the follower ranks; the '
-                         'leader admits requests')
+                         'front door admits requests')
     for e in self._link.engines:
       e.load_kernels()
     try:
       return self._link.serve()
-    except Exception:
+    except Exception as e:
+      # this rank's end of the control group closes first: the front
+      # door's wait on it fails now, not once the process has unmapped
+      # its memory (no operation of the group is in flight here)
+      self._link._abort(e)
       print(f'serving front end: follower rank {self.rank} failed after '
             f'{self._link.batches} batch(es):', file=sys.stderr)
       traceback.print_exc()
@@ -407,9 +501,47 @@ class RankFrontEnd:
       os._exit(FOLLOWER_FAULT_EXIT)
 
   def close(self):
-    """The leader's shutdown: broadcast ``stop`` to every follower (none
-    after a lost rank).  Idempotent; run it after closing the batcher
-    or pool that uses this front end.  Closes every replica of the
-    link."""
+    """The front door's shutdown: broadcast ``stop`` to every follower of
+    the link (none after a lost rank).  Idempotent; run it after closing
+    the batcher or pool that uses this front end.  Closes every replica
+    of the link."""
     self._leader_only('close')
     self._link.close()
+
+
+def replica_front_ends(engines, layout) -> list:
+  """Front ends of replicas on disjoint rank sets, one link each; call it
+  on EVERY process of the world, in one order, with the same ``layout``.
+
+  Args:
+    engines: by replica, this process's engine (on the replica's ranks,
+      its mesh from ``create_mesh(ranks=layout[i])``) or ``None``.
+    layout: by replica, its world ranks; the sets are disjoint.
+
+  Returns, by replica: this process's ``RankFrontEnd`` (the front door's
+  admits, a follower's runs ``serve_forever``), the bare engine of a
+  replica of one rank on the front door (the pool takes it as it is),
+  or ``None`` where this process is neither of the replica's ranks nor
+  its front door."""
+  engines, layout = list(engines), [sorted(int(r) for r in rs)
+                                    for rs in layout]
+  me = torch_dist.get_rank()
+  seen = [r for rs in layout for r in rs]
+  if len(engines) != len(layout) or len(set(seen)) != len(seen):
+    raise ValueError(f'replica_front_ends: {len(engines)} engines for the '
+                     f'layout {layout}, whose rank sets must be disjoint')
+  out = []
+  for engine, ranks in zip(engines, layout):
+    if (engine is not None) != (me in ranks):
+      raise ValueError(f'rank {me}: an engine is given exactly for the '
+                       f'replicas it is a rank of, not for {ranks}')
+    if ranks == [FRONT_DOOR]:
+      out.append(engine)
+      continue
+    members = sorted(set(ranks) | {FRONT_DOOR})
+    pg = _control_group(members)
+    if me not in members:
+      out.append(None)
+      continue
+    out.append(RankFrontEnd(engine, _ranks=ranks, _pg=pg))
+  return out

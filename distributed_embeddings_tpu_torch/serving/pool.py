@@ -29,12 +29,17 @@ rows alone, at a counted accuracy cost; high traffic is never degraded.
 It exits once the pressure drains to ``degrade_low_watermark``; both
 crossings journal (``serve_degraded_enter`` / ``serve_degraded_exit``).
 
-Across ranks the replicas are the leader's ``RankFrontEnd``s of ONE
-world, one a replica index (``fe.replica(engine)``), sharing its link:
-each replica's batches reach every rank in the link's one order.  A bare
-engine of several ranks refuses (the batcher's refusal), and so do
-replicas on disjoint rank sets (front ends of different links, or a
-front end beside an engine of one rank: item 17).
+Across ranks the replicas are the front door's ``RankFrontEnd``s: of
+one link (``fe.replica(engine)``, engines over the same ranks, whose
+batches reach every rank in the link's one order), of links of their
+own (``frontend.replica_front_ends``: replicas on disjoint rank sets,
+the JAX package's engines on disjoint device subsets), or both, beside
+bare engines on the front door's own card.  Quarantining a replica
+closes its batcher and then, once no live replica shares its link, the
+link: ``stop`` reaches its followers, which return their counts (a lost
+link was torn down when it failed).  The other links are untouched, so
+a lost rank costs only its own replica.  A bare engine of several ranks
+refuses, and so does a follower's front end (the batcher's refusal).
 """
 
 from __future__ import annotations
@@ -47,11 +52,9 @@ from typing import List, Optional
 
 from distributed_embeddings_tpu_torch.obs import metrics as obs_metrics
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
-from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
-    not_ported)
 from distributed_embeddings_tpu_torch.serving.batcher import (
-    MULTI_RANK_ITEM, PRIORITIES, DynamicBatcher, ReplicaLostError,
-    RequestSheddedError, ServeFuture, refuse_multi_rank)
+    PRIORITIES, DynamicBatcher, ReplicaLostError, RequestSheddedError,
+    ServeFuture, refuse_multi_rank)
 from distributed_embeddings_tpu_torch.utils import resilience
 
 _STOP = object()
@@ -83,8 +86,8 @@ class ServingEnginePool:
 
   Args:
     engines: the replica ``ServingEngine``s (identical weights; each
-      on its own device), or the leader's ``RankFrontEnd``s of one
-      world.  One is fine — the pool then
+      on its own device), or the front door's ``RankFrontEnd``s (of
+      one link or of several).  One is fine — the pool then
       adds only the admission/degraded layer, no failover target.
     max_delay_ms / max_batch / queue_depth / low_queue_depth: per
       replica, passed through to each ``DynamicBatcher``.
@@ -110,11 +113,6 @@ class ServingEnginePool:
       raise ValueError('ServingEnginePool needs at least one engine')
     for e in engines:
       refuse_multi_rank(e, 'ServingEnginePool')
-    links = {id(getattr(e, 'link', None)) for e in engines}
-    if len(links) > 1:
-      raise not_ported('ServingEnginePool over replicas on disjoint rank '
-                       'sets (front ends of different worlds, or beside '
-                       'an engine of one rank)', MULTI_RANK_ITEM)
     self.engines = engines
     kwargs = dict(batcher_kwargs or {})
     self._batchers: List[DynamicBatcher] = [
@@ -377,6 +375,19 @@ class ServingEnginePool:
     # right back here as retries
     self._retry_q.put(('close', idx))
 
+  def _close_link(self, idx: int):
+    """After quarantined replica ``idx``'s batcher closed: close its link
+    (``stop`` to its followers; a lost one is already torn down) unless
+    a live replica shares it."""
+    link = getattr(self.engines[idx], 'link', None)
+    if link is None:
+      return
+    with self._lock:
+      shared = any(live and getattr(e, 'link', None) is link
+                   for e, live in zip(self.engines, self._live))
+    if not shared:
+      link.close()
+
   def _enqueue_retry(self, req: _PoolReq, err: BaseException):
     if self._closed.is_set() or req.retries >= len(self.engines):
       self._finish(req, err=RequestSheddedError(
@@ -397,6 +408,7 @@ class ServingEnginePool:
       kind, payload = item
       if kind == 'close':
         self._batchers[payload].close()
+        self._close_link(payload)
         continue
       req = payload
       t0 = obs_trace.now() if obs_trace.enabled() else 0.0
@@ -479,15 +491,17 @@ class ServingEnginePool:
   def stats(self) -> dict:
     """Pool-level ledger: routing/failover counters, the per-class
     admission block, end-to-end (failover-inclusive) latency
-    percentiles and the degraded-mode accounting (design §23).
-    Per-replica batcher stats remain on ``.batchers[i].stats()``."""
+    percentiles and the degraded-mode accounting (design §23); across
+    ranks a ``front_end`` list, each replica's front-end block (None for
+    a bare engine).  Per-replica batcher stats remain on
+    ``.batchers[i].stats()``."""
     with self._lock:
       p50 = self._lat.percentile(50)
       p99 = self._lat.percentile(99)
       p999 = self._lat.percentile(99.9)
       drop_pct = (100.0 * self._degraded_dropped / self._degraded_total
                   if self._degraded_total else None)
-      return {
+      out = {
           'replicas': len(self.engines),
           'live_replicas': sum(self._live),
           'quarantined': self._quarantined,
@@ -509,6 +523,13 @@ class ServingEnginePool:
           'watermark_high': self.degrade_high_watermark,
           'watermark_low': self.degrade_low_watermark,
       }
+      ends = [getattr(e, 'link', None) for e in self.engines]
+    if any(ends):
+      # across ranks: each replica's front-end block (its link's), None
+      # for a bare engine
+      out['front_end'] = [e.stats()['front_end'] if link else None
+                          for e, link in zip(self.engines, ends)]
+    return out
 
   @property
   def batchers(self) -> List[DynamicBatcher]:

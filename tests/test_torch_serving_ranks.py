@@ -13,8 +13,11 @@ sets); the ranks run ``tests/torch_exchange_worker.py``.
   and waited on while the leader idled past its own control-group
   timeout; ``stop`` reaches every rank and ``close`` is idempotent.
 - Refusals: a bare engine of several ranks (batcher, pool), a follower's
-  front end (batcher, pool, lookup), replicas on disjoint rank sets
-  (item 17), a malformed request (refused on the leader, nothing sent).
+  front end (batcher, pool, lookup), a malformed request (refused on the
+  leader, nothing sent).  What refused before replicas on disjoint rank
+  sets were ported now serves, its answers JAX's: on four ranks two
+  replicas on the world's halves (a link each), and a pool over the front
+  end beside a world-of-one engine on the leader's card.
 - A follower whose lookup raises ends its process non-zero, and the
   leader's futures fail with ``ReplicaLostError`` within the control
   group's timeout; the leader closes without hanging (a spawn of its
@@ -176,12 +179,22 @@ def test_front_end_against_jax_batcher(world, tmp_path):
     assert all(m.startswith('RuntimeError') and 'follower' in m
                for m in r['refused_follower']), r['refused_follower']
   if world == 4:
-    for r in res:
-      msg = r['refused_disjoint_fe']
-      assert msg.startswith('NotImplementedError') and 'disjoint' in msg
-      assert 'item 17)' in msg
-  msg = lead['refused_mixed_pool']
-  assert msg.startswith('NotImplementedError') and 'item 17)' in msg
+    # the replicas on the world's halves each answered request 2 as JAX
+    # did, over a link of their own, and stop reached their followers
+    for i in range(2):
+      _assert_like_jax([got[f'disjoint_{i}_{k}'] for k in range(n_in)],
+                       want[2], case['hotness'], f'disjoint replica {i}')
+    links = lead['disjoint_links']
+    assert [link['ranks'] for link in links] == [[0, 1], [2, 3]]
+    assert all(link['batches'] == 1 and not link['lost'] for link in links)
+    for r in res[1:]:
+      assert r['disjoint_counts']['batches'] == 1, r['disjoint_counts']
+  # the front end beside a world-of-one engine: one pool, every answer
+  # JAX's
+  for j, w in enumerate(want):
+    _assert_like_jax([got[f'mixed_{j}_{i}'] for i in range(n_in)], w,
+                     case['hotness'], f'mixed pool request {j}')
+  assert sum(lead['mixed_served']) == len(SIZES)
   assert lead['refused_wide'].startswith('ValueError')
   assert 'hot cap' in lead['refused_wide']
   assert lead['empty_shapes'] == [[0, case['tables'][t][1]]

@@ -18,7 +18,9 @@ resident twin (``tier``, for tests/test_torch_coldtier_ranks.py) or
 one segmented-dispatch profile (``devprof``, for
 tests/test_torch_devprof.py) or the multi-rank serving front end
 (``serve_ranks``, ``serve_fault`` and ``serve_py``, for
-tests/test_torch_serving_ranks.py) or the rendezvous sanitizer's fit
+tests/test_torch_serving_ranks.py) or serving replicas on disjoint rank
+sets (``serve_replicas`` and ``serve_replicas_fault``, for
+tests/test_torch_serving_replicas.py) or the rendezvous sanitizer's fit
 drills (``commsan_fit``, for tests/test_torch_commsan.py) or the facts
 behind commlint's detection scope (``commlint_scope``, for
 tests/test_torch_commlint.py): joins a gloo
@@ -1680,9 +1682,10 @@ def devprof(rank, world_size, init_method, case_path, out_dir):
     torch_dist.destroy_process_group()
 
 
-def _serve_engine(case, mesh):
+def _serve_engine(case, mesh, buckets=None):
   """The serving engine of tests/test_torch_serving_ranks.py's case on
-  ``mesh``."""
+  ``mesh`` (``buckets``: its ladder, default the engine's; with a
+  ``cold_budget`` in the case, a cold tier under that budget)."""
   import numpy as np
 
   from distributed_embeddings_tpu_torch import serving
@@ -1692,7 +1695,9 @@ def _serve_engine(case, mesh):
   return serving.ServingEngine(
       [TableConfig(r, w, combiner=c) for r, w, c in case['tables']],
       case['weights'], batch_size=case['batch'], mesh=mesh, device='cpu',
-      input_table_map=case['itm'], hotness=case['hotness'],
+      buckets=buckets, input_table_map=case['itm'], hotness=case['hotness'],
+      cold_tier=case.get('cold_budget') is not None,
+      device_hbm_budget=case.get('cold_budget'),
       hot_sets={t: HotSet(t, np.asarray(i)) for t, i in case['hot'].items()})
 
 
@@ -1711,15 +1716,16 @@ def serve_ranks(rank, world_size, init_method, case_path, out_dir):
   answers every request through ``lookup_padded``, four batchers
   (pipelined or serial, ladder or monolithic) and a two-replica pool
   (replica 0 failed half-way, then three low requests submitted while
-  the link is held, so the pool degrades), checks the refusals, the
+  the link is held, so the pool degrades), a pool over the front end
+  beside a world-of-one engine on its own card, checks the refusals, the
   empty request and a malformed one (no broadcast), and closes twice;
-  every other rank serves.  The leader's control-group timeout is the
+  every other rank serves.  On four ranks two replicas on disjoint
+  halves of the world (a link each) first serve one request apiece.  The leader's control-group timeout is the
   case's ``idle_timeout``, and it idles past it before it closes: a
   follower's wait is not bound by it.  Saves ``serve{rank}.npz`` (the
   leader's answers) and ``serve{rank}.json`` (counts, stats,
   refusals)."""
   import time
-  import types
 
   import numpy as np
   import torch
@@ -1738,18 +1744,28 @@ def serve_ranks(rank, world_size, init_method, case_path, out_dir):
   frontend.LEADER_TIMEOUT_S = case['idle_timeout']
   reqs = case['requests']
   out = {'rank': rank}
+  got = {}
   try:
     eng, eng2 = _serve_engine(case, m), _serve_engine(case, m)
     out['refused_bare'] = [
         _refusal(lambda: serving.DynamicBatcher(eng)),
         _refusal(lambda: serving.ServingEnginePool([eng]))]
     if world_size == 4:
-      # an engine on half the world: replicas on disjoint rank sets
-      pairs = [torch_dist.new_group([0, 1]), torch_dist.new_group([2, 3])]
-      on_pair = types.SimpleNamespace(dist=types.SimpleNamespace(
-          mesh=mesh_lib.Mesh(torch.device('cpu'), pairs[rank // 2])))
-      out['refused_disjoint_fe'] = _refusal(
-          lambda: serving.RankFrontEnd(on_pair))
+      # engines on half the world each: replicas on disjoint rank sets,
+      # a link each, serve one request apiece before the world's
+      layout = [[0, 1], [2, 3]]
+      halves = [mesh_lib.create_mesh('cpu', ranks=r) for r in layout]
+      ends = serving.replica_front_ends(
+          [_serve_engine(case, h) if h is not None else None
+           for h in halves], layout)
+      if rank == 0:
+        for i, end in enumerate(ends):
+          for k, a in enumerate(host_outputs(end.lookup_padded(reqs[2]))):
+            got[f'disjoint_{i}_{k}'] = a
+          end.close()
+        out['disjoint_links'] = [end.stats()['front_end'] for end in ends]
+      else:
+        out['disjoint_counts'] = ends[rank // 2].serve_forever()
     fe = serving.RankFrontEnd(eng)
     fe2 = fe.replica(eng2)
     if rank != 0:
@@ -1760,7 +1776,6 @@ def serve_ranks(rank, world_size, init_method, case_path, out_dir):
       out['counts'] = fe.serve_forever()
       out['served'] = [e.stats()['batches_served'] for e in (eng, eng2)]
     else:
-      got = {}
       fe.warmup()
       out['warm_batches'] = fe.stats()['front_end']['batches']
       for j, r in enumerate(reqs):
@@ -1794,8 +1809,18 @@ def serve_ranks(rank, world_size, init_method, case_path, out_dir):
           batch_size=case['batch'], device='cpu',
           mesh=mesh_lib.Mesh(torch.device('cpu')),
           input_table_map=case['itm'], hotness=case['hotness'])
-      out['refused_mixed_pool'] = _refusal(
-          lambda: serving.ServingEnginePool([fe, local]))
+      # the front end beside a world-of-one engine on this rank's card:
+      # one pool over two links' worth of replicas, both serving
+      mixed = serving.ServingEnginePool([fe, local], max_delay_ms=2.0)
+      try:
+        futs = [mixed.submit(r) for r in reqs]
+        for j, fut in enumerate(futs):
+          for i, a in enumerate(fut.result(timeout=120.0)):
+            got[f'mixed_{j}_{i}'] = a
+        out['mixed_served'] = [b.stats()['completed']
+                               for b in mixed.batchers]
+      finally:
+        mixed.close()
       pool = serving.ServingEnginePool(
           [fe, fe2], max_delay_ms=2.0, queue_depth=64,
           degrade_high_watermark=2, degrade_low_watermark=1,
@@ -1832,6 +1857,242 @@ def serve_ranks(rank, world_size, init_method, case_path, out_dir):
     torch_dist.barrier()
   finally:
     torch_dist.destroy_process_group()
+
+
+def _replica_ends(case, rank):
+  """Every process's part of tests/test_torch_serving_replicas.py's pool:
+  a mesh over each replica's ranks of ``case['layout']`` (every process
+  creates every mesh, in one order), this rank's engine on its own, and
+  ``replica_front_ends``.  Returns the ends by replica and this rank's
+  engine."""
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+
+  meshes = [mesh_lib.create_mesh('cpu', ranks=r) for r in case['layout']]
+  engines = [_serve_engine(case, m, case['buckets']) if m is not None
+             else None for m in meshes]
+  mine = next(e for e in engines if e is not None)
+  return serving.replica_front_ends(engines, case['layout']), mine
+
+
+def _follow(ends, engine):
+  """A follower's part: serve its replica's link until ``stop``; returns
+  its counts and its engine's lookups."""
+  from distributed_embeddings_tpu_torch import serving
+
+  end = next(e for e in ends if isinstance(e, serving.RankFrontEnd))
+  counts = end.serve_forever()
+  return {'counts': counts, 'replica': ends.index(end),
+          'engine_batches': engine.stats()['batches_served']}
+
+
+def serve_replicas(rank, world_size, init_method, case_path, out_dir):
+  """One rank of tests/test_torch_serving_replicas.py's parity case:
+  replicas on the disjoint rank sets of ``case['layout']`` behind one
+  pool on rank 0, the front door.  The front door warms every replica,
+  answers every request through each replica alone (``lookup_padded``)
+  and through a batcher on each, then through a pool over all of them,
+  then the overload arm (``measure_overload``, replica 0 quarantined
+  half-way; every pool request recorded), then the drill: a pool over
+  the last replica alone, whose ``fail_replica(0)`` closes its link, so
+  its followers return their counts.  Every other rank serves its link.
+  Saves ``replicas{rank}.npz`` (the front door's answers) and
+  ``replicas{rank}.json``."""
+  import numpy as np
+  import torch
+  import torch.distributed as torch_dist
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.serving import pool as pool_mod
+  from distributed_embeddings_tpu_torch.serving.batcher import host_outputs
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  mesh_lib.init_distributed(init_method, world_size, rank, backend='gloo',
+                            device='cpu')
+  reqs = case['requests']
+  out = {'rank': rank}
+  try:
+    ends, engine = _replica_ends(case, rank)
+    if rank != 0:
+      out.update(_follow(ends, engine))
+    else:
+      got = {}
+      # refused before any group is made: ranks outside the world,
+      # replicas that share a rank, a front end without an engine
+      out['refused'] = [
+          _refusal(lambda: mesh_lib.create_mesh('cpu', ranks=[0, 99])),
+          _refusal(lambda: serving.replica_front_ends(
+              [None, None], [[1, 2], [2, 0]])),
+          _refusal(lambda: serving.RankFrontEnd(None))]
+      out['cold_groups'] = list(engine.dist.plan.cold_tier_groups)
+      if out['cold_groups']:
+        # the mesh's host groups went to this rank's engine's cold tier
+        out['refused'].append(
+            _refusal(lambda: _serve_engine(case, engine.dist.mesh)))
+      for e in ends:
+        e.warmup()
+      for i, e in enumerate(ends):
+        for j, r in enumerate(reqs):
+          for k, a in enumerate(host_outputs(e.lookup_padded(r))):
+            got[f'lone{i}_{j}_{k}'] = a
+        bat = serving.DynamicBatcher(e, max_delay_ms=5.0)
+        try:
+          for j, fut in enumerate([bat.submit(r) for r in reqs]):
+            for k, a in enumerate(fut.result(timeout=120.0)):
+              got[f'batch{i}_{j}_{k}'] = a
+        finally:
+          bat.close()
+      pool = serving.ServingEnginePool(ends, max_delay_ms=2.0,
+                                       queue_depth=64)
+      try:
+        futs = [pool.submit(r) for r in reqs]
+        for j, fut in enumerate(futs):
+          for k, a in enumerate(fut.result(timeout=120.0)):
+            got[f'pool_{j}_{k}'] = a
+        out['pool_stats'] = pool.stats()
+      finally:
+        pool.close()
+      recorded = []
+      req_init = pool_mod._PoolReq.__init__
+
+      def record(self, *args, **kwargs):
+        req_init(self, *args, **kwargs)
+        recorded.append(self)
+
+      pool_mod._PoolReq.__init__ = record
+      try:
+        over = case['overload']
+        out['overload'] = serving.measure_overload(
+            ends, over, max_delay_ms=2.0, deadline_ms=60000.0,
+            queue_depth=64, degrade_high_watermark=10**6,
+            failover_after=len(over) // 2)
+      finally:
+        pool_mod._PoolReq.__init__ = req_init
+      outcomes = []
+      for j, req in enumerate(recorded):
+        err = req.future.error() if req.future.done() else 'unresolved'
+        outcomes.append(None if err is None else type(err).__name__
+                        if not isinstance(err, str) else err)
+        if err is None:
+          for k, a in enumerate(req.future.result(timeout=0)):
+            got[f'over_{j}_{k}'] = a
+      out['over_outcomes'] = outcomes
+      out['over_retried'] = [req.retries for req in recorded]
+      out['over_links'] = [
+          e.stats()['front_end'] if isinstance(e, serving.RankFrontEnd)
+          else None for e in ends]
+      # the drill on the last replica, whose ranks are all remote
+      drill = serving.ServingEnginePool(ends[-1:], max_delay_ms=2.0)
+      try:
+        for fut in [drill.submit(r) for r in reqs[:4]]:
+          fut.result(timeout=120.0)
+        drill.fail_replica(0)
+      finally:
+        drill.close()
+      out['drill_link'] = ends[-1].stats()['front_end']
+      out['drill_closed'] = ends[-1].link.closed
+      for e in ends:
+        if isinstance(e, serving.RankFrontEnd):
+          e.close()
+      out['links'] = [
+          e.stats()['front_end'] if isinstance(e, serving.RankFrontEnd)
+          else None for e in ends]
+      out['engine_batches'] = engine.stats()['batches_served']
+      np.savez(f'{out_dir}/replicas{rank}.npz', **got)
+    with open(f'{out_dir}/replicas{rank}.json', 'w') as f:
+      json.dump(out, f, default=str)
+    torch_dist.barrier()
+  finally:
+    torch_dist.destroy_process_group()
+
+
+def serve_replicas_fault(rank, world_size, init_method, case_path,
+                         out_dir):
+  """tests/test_torch_serving_replicas.py's fault case: replicas on
+  ranks [0, 1] and [2, 3] behind one pool on rank 0; rank 3's lookup
+  raises at ``case['fault_at']``, mid-burst, so it ends its process
+  (``serve_forever``), and so does rank 2.  The front door waits for
+  every future of the burst, then for each served request that was
+  retried holds ``lookup_padded`` on replica 0 beside it, closes the
+  pool and replica 0's link (rank 1 returns its counts) and saves
+  ``fault0.json``.  No world-wide barrier or teardown: two ranks are
+  gone."""
+  import time
+
+  import numpy as np
+  import torch
+
+  from distributed_embeddings_tpu_torch import serving
+  from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
+  from distributed_embeddings_tpu_torch.serving import frontend
+  from distributed_embeddings_tpu_torch.serving import pool as pool_mod
+  from distributed_embeddings_tpu_torch.serving.batcher import host_outputs
+
+  torch.set_num_threads(1)
+  with open(case_path, 'rb') as f:
+    case = pickle.load(f)
+  mesh_lib.init_distributed(init_method, world_size, rank, backend='gloo',
+                            device='cpu')
+  frontend.LEADER_TIMEOUT_S = case['timeout']
+  ends, engine = _replica_ends(case, rank)
+  if rank == 3:
+    lookup = engine.lookup
+    calls = []
+
+    def faulty(cats, samples=None):
+      calls.append(samples)
+      if len(calls) == case['fault_at']:
+        raise RuntimeError('injected follower fault in replica 1')
+      return lookup(cats, samples=samples)
+
+    engine.lookup = faulty
+  if rank != 0:
+    out = _follow(ends, engine)
+    with open(f'{out_dir}/fault{rank}.json', 'w') as f:
+      json.dump(out, f, default=str)
+    return
+  for e in ends:
+    e.warmup()
+  recorded = []
+  req_init = pool_mod._PoolReq.__init__
+
+  def record(self, *args, **kwargs):
+    req_init(self, *args, **kwargs)
+    recorded.append(self)
+
+  pool_mod._PoolReq.__init__ = record
+  pool = serving.ServingEnginePool(ends, max_delay_ms=1.0, queue_depth=64)
+  t0 = time.monotonic()
+  futs = [pool.submit(r) for r in case['burst']]
+  outcomes = []
+  for fut in futs:
+    try:
+      fut.result(timeout=case['timeout'] * 2)
+      outcomes.append('served')
+    except Exception as e:  # recorded, checked by the parent
+      outcomes.append(type(e).__name__)
+  out = {'outcomes': outcomes, 'resolve_s': time.monotonic() - t0,
+         'pool_stats': pool.stats(),
+         'retried': [r.retries for r in recorded]}
+  pool_mod._PoolReq.__init__ = req_init
+  same = []
+  for req in recorded:
+    if req.retries and req.future.error() is None:
+      want = host_outputs(ends[0].lookup_padded(req.cats))
+      same.append(all(np.array_equal(g, w) for g, w in
+                      zip(req.future.result(timeout=0), want)))
+  out['retried_bit_equal'] = same
+  t0 = time.monotonic()
+  pool.close()
+  for e in ends:
+    e.close()
+  out['close_s'] = time.monotonic() - t0
+  out['links'] = [e.stats()['front_end'] for e in ends]
+  with open(f'{out_dir}/fault0.json', 'w') as f:
+    json.dump(out, f, default=str)
 
 
 def serve_fault(rank, world_size, init_method, case_path, out_dir):

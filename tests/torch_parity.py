@@ -34,13 +34,13 @@ def reduced(module, name='tiny', max_rows=2000, max_tables=None):
   return dataclasses.replace(cfg, embedding_configs=blocks)
 
 
-def jax_mesh(n, slices=None):
-  """A JAX CPU mesh of ``n`` devices: one flat axis, or with ``slices``
-  the two-axis ``(dcn, data)`` mesh ``create_mesh((slices, n //
-  slices))``."""
+def jax_mesh(n, slices=None, start=0):
+  """A JAX CPU mesh of ``n`` devices: one flat axis over the devices from
+  ``start`` on, or with ``slices`` the two-axis ``(dcn, data)`` mesh
+  ``create_mesh((slices, n // slices))``."""
   if slices:
     return create_mesh((slices, n // slices))
-  return create_mesh(jax.devices()[:n])
+  return create_mesh(jax.devices()[start:start + n])
 
 
 def padded_cats(cats, hotness, seed=0, vocabs=None):
