@@ -12,11 +12,8 @@ over every registry call surface of the port.
 
 The registries are the port's own: ``utils/resilience.py``
 ``REGISTERED_EVENTS``, ``obs/trace.py`` ``REGISTERED_SPANS``,
-``obs/metrics.py`` ``REGISTERED_METRICS``, ``REGISTERED_STATS_KEYS``
-(component ``stats()`` dict keys) and ``REGISTERED_ARTIFACT_KEYS``.  The
-artifact keys are checked only on a tree that has a benchmark of the
-port's own (``distributed_embeddings_tpu_torch/bench.py``, which
-produces them); the port has none yet, so the rule waits for it.
+``obs/metrics.py`` ``REGISTERED_METRICS`` and ``REGISTERED_STATS_KEYS``
+(component ``stats()`` dict keys).
 
 Rules:
   registry/journal-unregistered   journal() name not in REGISTERED_EVENTS
@@ -25,7 +22,6 @@ Rules:
   registry/unverifiable-name      derived/non-literal name argument
   registry/stats-key-unregistered stats() key not in REGISTERED_STATS_KEYS
                                   or PORT_STATS_KEYS
-  registry/artifact-key-unproduced registered artifact key produced nowhere
 """
 
 from __future__ import annotations
@@ -43,7 +39,6 @@ _METRIC_FUNCS = frozenset({'inc', 'observe', 'set_gauge'})
 _TRACE_MOD = 'distributed_embeddings_tpu_torch.obs.trace'
 _METRICS_MOD = 'distributed_embeddings_tpu_torch.obs.metrics'
 _JOURNAL_TARGET = 'distributed_embeddings_tpu_torch.utils.resilience.journal'
-_BENCH = 'distributed_embeddings_tpu_torch/bench.py'
 
 
 def _classify(mod: core.Module, call: ast.Call
@@ -110,29 +105,11 @@ def run(ctx: Context) -> List[Finding]:
                 | obs_metrics.PORT_STATS_KEYS)
   findings: List[Finding] = []
   sites = {'journal': 0, 'span': 0, 'metric': 0}
-  # string constants that can count as a key's PRODUCER: docstrings
-  # are excluded (a key named in prose is not a producer), and so is
-  # the registry-definition module itself — its frozenset literals
-  # would make the check vacuously true for every registered key
-  literal_pool: set = set()
-  registry_mod = 'distributed_embeddings_tpu_torch.obs.metrics'
 
   for mod in ctx.modules.values():
     idx = ctx.index(mod)
     unverifiable_ord: Dict[str, int] = {}
-    docstrings = {
-        id(stmt.value)
-        for node in ast.walk(mod.tree)
-        if isinstance(node, (ast.Module, ast.FunctionDef,
-                             ast.AsyncFunctionDef, ast.ClassDef))
-        for stmt in node.body[:1]
-        if isinstance(stmt, ast.Expr)
-        and isinstance(stmt.value, ast.Constant)
-        and isinstance(stmt.value.value, str)}
     for node in ast.walk(mod.tree):
-      if isinstance(node, ast.Constant) and isinstance(node.value, str) \
-          and mod.modname != registry_mod and id(node) not in docstrings:
-        literal_pool.add(node.value)
       if not isinstance(node, ast.Call):
         continue
       kind, confident = _classify(mod, node)
@@ -205,21 +182,6 @@ def run(ctx: Context) -> List[Finding]:
                 'resolve — use a literal from REGISTERED_STATS_KEYS, '
                 'or waive with rationale'))
             derived_ord += 1
-
-  # bench-artifact keys: every registered key must still be produced
-  # by a string literal somewhere in the runtime sources.  Only
-  # meaningful on a tree that HAS the port's benchmark.
-  artifact_keys = (sorted(obs_metrics.REGISTERED_ARTIFACT_KEYS)
-                   if _BENCH in ctx.modules else [])
-  for key in artifact_keys:
-    if key not in literal_pool:
-      findings.append(Finding(
-          rule='registry/artifact-key-unproduced', path=_BENCH,
-          line=0, symbol=key,
-          message=f'registered bench-artifact key {key!r} is produced '
-          'by no string literal in the runtime sources — the producer '
-          'was renamed or removed without updating '
-          'obs.metrics.REGISTERED_ARTIFACT_KEYS'))
 
   ctx.meta['registry_sites'] = dict(sites)
   return findings

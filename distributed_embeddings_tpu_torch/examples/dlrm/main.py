@@ -71,9 +71,10 @@ the newest valid file of ``--resume_dir`` in place and skips the
 offending window (at most ``--rollback_budget`` times); ``--eval_every``
 evaluates AUC during training and prints the curve.
 
-``--trace PATH`` arms the observability layer (``obs.enable``), spans
-each step of the loop as ``train/step`` (the step's own phase spans
-nest inside) and writes the Chrome trace to PATH at the end: open it in
+``--trace PATH`` arms the observability layer (``obs.enable``): each
+step records its ``train/step`` span with its phase spans inside (the
+step functions emit them), and the Chrome trace goes to PATH at the
+end: open it in
 Perfetto or read it with ``python -m
 distributed_embeddings_tpu_torch.tools.trace_report PATH``.  The
 untraced run launches the same kernels.
@@ -659,12 +660,11 @@ def train(args):
   seen = {'build_ms': 0.0, 'blocked_ms': 0.0}
   for i, (numerical, cats, labels, fetch) in enumerate(batch_iter):
     t_step = time.perf_counter()
-    with obs_trace.span('train/step', step=resume_step + i + 1):
-      if fetch is not None:
-        state, loss = step(state, numerical, list(cats), labels,
-                           cold_fetch=fetch)
-      else:
-        state, loss = step(state, numerical, list(cats), labels)
+    if fetch is not None:
+      state, loss = step(state, numerical, list(cats), labels,
+                         cold_fetch=fetch)
+    else:
+      state, loss = step(state, numerical, list(cats), labels)
     if tier_pipe is not None:
       # the tiered step has synchronised (its write-back): the loss is
       # read at no extra cost

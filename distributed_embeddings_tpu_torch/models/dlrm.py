@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -285,17 +286,18 @@ class DLRM(nn.Module):
     """Everything downstream of the embeddings (bottom MLP, interaction,
     top MLP), with ``dense_params`` (keyed as ``dense_params()``) as the
     MLPs' params: the dense half ``make_hybrid_train_step``
-    differentiates.  Returns f32 logits."""
+    differentiates.  Returns f32 logits; the ``head/forward`` span."""
     def mlp(name, x):
       own = {k[len(name) + 1:]: v for k, v in dense_params.items()
              if k.startswith(name + '.')}
       return torch.func.functional_call(getattr(self, name), own, (x,))
 
-    numerical = torch.as_tensor(numerical).to(device=self.device,
-                                              dtype=self.compute_dtype)
-    x = mlp('bottom_mlp', numerical)
-    out = dot_interact([e.to(self.compute_dtype) for e in emb_outs], x)
-    return mlp('top_mlp', out).to(torch.float32)
+    with obs_trace.span('head/forward'):
+      numerical = torch.as_tensor(numerical).to(device=self.device,
+                                                dtype=self.compute_dtype)
+      x = mlp('bottom_mlp', numerical)
+      out = dot_interact([e.to(self.compute_dtype) for e in emb_outs], x)
+      return mlp('top_mlp', out).to(torch.float32)
 
   def total_table_gib(self) -> float:
     bytes_per = torch.empty(

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from distributed_embeddings_tpu_torch.models.dlrm import MLP
+from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.parallel import checkpoint
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel.dist_embedding import (
@@ -346,18 +347,20 @@ class SyntheticModel(nn.Module):
            dense_params: Optional[Dict[str, torch.Tensor]] = None
            ) -> torch.Tensor:
     """Dense half: pool interaction + MLP, with the MLP's own params or
-    with ``dense_params`` (keyed as ``dense_params()``) in their place."""
-    x = torch.cat([o.to(self.compute_dtype) for o in emb_outs], dim=1)
-    if self.config.interact_stride is not None:
-      x = _same_avg_pool_1d(x, self.config.interact_stride)
-    numerical = torch.as_tensor(numerical).to(device=x.device,
-                                              dtype=self.compute_dtype)
-    x = torch.cat([x, numerical], dim=1)
-    if dense_params is None:
-      return self.mlp(x).to(torch.float32)
-    mlp_params = {k[len('mlp.'):]: v for k, v in dense_params.items()}
-    return torch.func.functional_call(self.mlp, mlp_params,
-                                      (x,)).to(torch.float32)
+    with ``dense_params`` (keyed as ``dense_params()``) in their place;
+    the ``head/forward`` span."""
+    with obs_trace.span('head/forward'):
+      x = torch.cat([o.to(self.compute_dtype) for o in emb_outs], dim=1)
+      if self.config.interact_stride is not None:
+        x = _same_avg_pool_1d(x, self.config.interact_stride)
+      numerical = torch.as_tensor(numerical).to(device=x.device,
+                                                dtype=self.compute_dtype)
+      x = torch.cat([x, numerical], dim=1)
+      if dense_params is None:
+        return self.mlp(x).to(torch.float32)
+      mlp_params = {k[len('mlp.'):]: v for k, v in dense_params.items()}
+      return torch.func.functional_call(self.mlp, mlp_params,
+                                        (x,)).to(torch.float32)
 
   def total_table_gib(self) -> float:
     tables, _, _ = expand_tables(self.config)

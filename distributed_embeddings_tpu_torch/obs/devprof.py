@@ -423,23 +423,3 @@ def profile_serving(engine, reps: int = 3, seed: int = 0
   resilience.journal('devprof_profile',
                      serve_rung_ms={str(k): v for k, v in out.items()})
   return out
-
-
-def artifact_block(prof: StepProfile,
-                   serve_rung_ms: Optional[Dict[int, float]] = None
-                   ) -> Dict[str, Any]:
-  """The JAX package's bench-artifact block of a profile (keys in
-  ``obs.metrics.REGISTERED_ARTIFACT_KEYS``)."""
-  out: Dict[str, Any] = {
-      'devprof_phase_ms': dict(prof.phases),
-      'devprof_step_ms': prof.step_ms,
-      'devprof_coverage_pct': prof.coverage_pct,
-      'devprof_cost': dict(prof.cost),
-      'devprof_cost_ok': prof.cost_ok,
-  }
-  if prof.dcn_lanes:
-    out['devprof_dcn_lane_ms'] = dict(prof.dcn_lanes)
-  if serve_rung_ms:
-    out['devprof_serve_rung_ms'] = {str(k): v
-                                    for k, v in serve_rung_ms.items()}
-  return out

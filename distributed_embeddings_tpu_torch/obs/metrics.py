@@ -9,12 +9,10 @@ default), read through ``snapshot()``, ``snapshot_digest()`` or
 ``prometheus_text()`` (the JAX package's formats) or journaled by
 ``journal_snapshot()`` (event ``metrics_snapshot``).  An unregistered
 name raises.  ``REGISTERED_STATS_KEYS`` names every key a component's
-``stats()`` emits, ``REGISTERED_ARTIFACT_KEYS`` every key of the JAX
-package's bench artifact (``devprof.artifact_block`` makes some).  The
-local primitives the components' ``stats()`` are built on,
-``OverlapStat`` (blocked-time overlap of a producer and its consumer)
-and ``LatencyWindow`` (exact latency percentiles over a bounded window),
-are always live.
+``stats()`` emits.  The local primitives the components' ``stats()``
+are built on, ``OverlapStat`` (blocked-time overlap of a producer and
+its consumer) and ``LatencyWindow`` (exact latency percentiles over a
+bounded window), are always live.
 """
 
 from __future__ import annotations
@@ -116,117 +114,6 @@ REGISTERED_STATS_KEYS = frozenset({
 # pass of detlint checks ``stats()`` keys against both.
 PORT_STATS_KEYS = frozenset({
     'front_end', 'samples', 'broadcast_ms', 'gather_ms', 'lost', 'ranks',
-})
-
-# The JAX package's bench-artifact keys, whole (the same names for the
-# same facts; the port makes the devprof block's, devprof.artifact_block).
-REGISTERED_ARTIFACT_KEYS = frozenset({
-    # core artifact line (bench.py)
-    'metric', 'value', 'unit', 'vs_baseline', 'comparable', 'warmup_s',
-    'window_ms', 'loadavg', 'sha', 'prior_chip_evidence', 'recorded_at',
-    # hot-cache counters (parallel/hotcache.py)
-    'alltoall_rows_sent', 'alltoall_rows_sent_off', 'unique_cold_rows',
-    'hot_hit_rate', 'cold_occurrence_fraction', 'scatter_rows_per_step',
-    'scatter_rows_per_step_off', 'total_id_occurrences',
-    # chunked-exchange block (parallel/overlap.py)
-    'a2a_overlap_pct', 'overlap_chunks', 'a2a_group_chunks',
-    'a2a_off_ms', 'a2a_on_ms', 'a2a_exchange_ms',
-    # quantized storage + cold tier (parallel/quantization.py, coldtier.py)
-    'table_bytes_per_row', 'table_scale_bytes_per_row',
-    'table_total_bytes_per_row', 'table_payload_bytes',
-    'table_scale_bytes', 'table_rows',
-    'cold_tier_fetch_rows', 'cold_tier_fetch_bytes',
-    'cold_tier_fetch_scale_bytes', 'cold_tier_fetch_rows_per_group',
-    'cold_tier_row_bytes_per_group', 'cold_tier_resident_bytes',
-    'cold_tier_host_bytes',
-    # serving three-arm A/B (serving/bench.py)
-    'serve_p50_ms', 'serve_p99_ms', 'serve_qps', 'serve_batches',
-    'serve_batch_fill', 'serve_requests', 'serve_batch',
-    'serve_max_delay_ms', 'serve_concurrency', 'serve_buckets',
-    'serve_bucket_launches', 'serve_rows_launched', 'serve_pad_rows',
-    'serve_pad_waste_pct', 'serve_pipeline_overlap_pct',
-    'serve_pipeline_merge_demux_ms', 'serve_pipeline_blocked_ms',
-    'serve_mono_p50_ms', 'serve_mono_p99_ms', 'serve_mono_qps',
-    'serve_mono_batches', 'serve_mono_batch_fill',
-    'serve_mono_pad_waste_pct', 'serve_nobatch_p50_ms',
-    'serve_nobatch_p99_ms', 'serve_nobatch_qps',
-    'serve_nobatch_pad_waste_pct', 'serve_p999_ms',
-    # overload arm (serving/bench.py measure_overload; design §23):
-    # per-class latency tails, shed accounting, degraded-mode serves
-    # and the failover drill counters the perf sentinel guards
-    'serve_over_requests', 'serve_over_served', 'serve_over_shed',
-    'serve_over_shed_rate', 'serve_over_offered_qps', 'serve_over_qps',
-    'serve_over_deadline_ms', 'serve_over_priority_mix',
-    'serve_over_replicas', 'serve_over_high_p50_ms',
-    'serve_over_high_p99_ms', 'serve_over_high_p999_ms',
-    'serve_over_low_p50_ms', 'serve_over_low_p99_ms',
-    'serve_over_low_p999_ms', 'serve_over_high_shed',
-    'serve_over_low_shed', 'serve_over_shed_deadline',
-    'serve_over_shed_queue_full', 'serve_over_degraded_served',
-    'serve_over_degraded_enters', 'serve_over_degraded_exits',
-    'serve_over_failovers', 'serve_over_quarantined',
-    # observability block (bench.obs_block)
-    'obs_trace', 'obs_trace_path', 'obs_trace_events', 'obs_off_ms',
-    'obs_on_ms', 'obs_window_delta_pct', 'obs_metrics_digest',
-    'obs_step_call_us', 'obs_overhead_pct',
-    # static-analysis gate counts (bench.lint_block; design §17)
-    'lint_findings', 'lint_waivers',
-    # IR-analysis gate counts (bench.graphlint_block; design §18)
-    'graphlint_findings', 'graphlint_donation_ok',
-    'graphlint_retraces', 'graphlint_peak_hbm_bytes',
-    # cross-rank protocol gate counts (bench.commlint_block; design
-    # §22): unwaived findings (0 on a healthy tree), the active waived
-    # true-positive count, and how many program schedules the emission
-    # pass PREDICTED from the plans — a drop below the catalog size
-    # means a plan/ledger divergence rode in under an allowance
-    'commlint_findings', 'commlint_waivers',
-    'commlint_schedules_predicted',
-    # fused-exchange counters (bench.graphlint_block, design §21):
-    # collective counts of the fused vs per-group twin programs plus
-    # the fused programs' summed on-wire payload, all counted from the
-    # graphlint schedule; the traced leg/wire views ride alongside
-    # (parallel/hotcache.py fused_leg_bytes, coldtier.py
-    # cold_exchange_leg_bytes)
-    'exchange_collectives_fwd', 'exchange_collectives_fwd_pergroup',
-    'exchange_collectives_bwd', 'exchange_collectives_bwd_pergroup',
-    'fused_exchange_bytes', 'fused_leg_bytes',
-    'cold_exchange_leg_bytes',
-    # wire-dtype compression counters (parallel/hotcache.py,
-    # coldtier.py; design §24): the traced schedule's on-wire totals,
-    # the compute-dtype counterfactual, their ratio, and the per-leg
-    # dtype ledgers that prove which legs narrowed
-    'wire_bytes', 'wire_payload_bytes', 'wire_compression_ratio',
-    'wire_leg_dtypes', 'cold_exchange_leg_dtypes', 'wire_dtype',
-    # off/bf16/int8-passthrough wire A/B (bench.py --wire_ab, design
-    # §24): measured wire bytes over the codec-targeted row legs per
-    # arm, the off/on ratios the acceptance bars gate, the forward
-    # parity drift per arm (int8 passthrough must be 0.0) and the
-    # never-fatal error tag
-    'wire_ab_bytes_off', 'wire_ab_bytes_bf16', 'wire_ab_bytes_int8',
-    'wire_ab_ratio_bf16', 'wire_ab_ratio_int8', 'wire_ab_drift_bf16',
-    'wire_ab_drift_int8', 'wire_ab_error',
-    # artifact schema + host-pressure gauges (bench.py; design §19 —
-    # the perf sentinel's comparability/noise inputs)
-    'schema_version', 'available_mem_mb',
-    # per-device imbalance accounting (parallel/hotcache.py, design §19)
-    'alltoall_rows_sent_per_device', 'alltoall_rows_sent_off_per_device',
-    'hot_hit_rate_per_device', 'total_id_occurrences_per_device',
-    'scatter_rows_per_device', 'exchange_rows_max', 'exchange_rows_mean',
-    'hottest_shard',
-    # hierarchical DCNxICI exchange (parallel/hotcache.py, design §20):
-    # per-link row counts, the flat-exchange counterfactual, the dedup
-    # leverage, per-slice breakdowns, and the mesh shape tag that keeps
-    # perf_sentinel comparisons like-for-like across topologies
-    'dcn_rows', 'dcn_rows_off', 'ici_rows', 'dcn_dedup_ratio',
-    'dcn_rows_per_slice', 'dcn_rows_off_per_slice', 'mesh_shape',
-    # the flat-vs-hierarchical bench A/B arm (bench.py, design §20)
-    'dcn_sharding', 'dcn_ab_flat_ms', 'dcn_ab_hier_ms',
-    'dcn_ab_mesh_shape', 'dcn_ab_error',
-    # device-time attribution block (obs/devprof.py, design §19)
-    'devprof_phase_ms', 'devprof_step_ms', 'devprof_coverage_pct',
-    'devprof_cost', 'devprof_cost_ok', 'devprof_serve_rung_ms',
-    # dcn/ici sub-lanes of the exchange phases (design §20)
-    'devprof_dcn_lane_ms',
 })
 
 # ~x2-2.5 geometric ladder, 10 us .. 60 s

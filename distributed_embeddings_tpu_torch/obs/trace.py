@@ -1,8 +1,9 @@
 """Span tracer: named step phases -> Chrome-trace-event JSON.  The port's
 own copy of ``distributed_embeddings_tpu/obs/trace.py``: the same API,
-span names (less the CSR feed's ``feed/*``, ROADMAP.md item 15), event
-shapes and file format, so a trace the port writes loads in either
-package's ``trace_report``.
+span names (less the CSR feed's ``feed/*``, ROADMAP.md item 15; plus
+the port's own, ``PORT_SPANS``, which the JAX package's report lists
+as unregistered), event shapes and file format, so a trace the port
+writes loads in either package's ``trace_report``.
 
 Call sites wrap a phase in ``with span('train/step'): ...`` (or the
 ``begin`` / ``end`` token pair where a ``with`` would force a re-indent)
@@ -29,12 +30,24 @@ request's queue residency), a ``ph='b'`` / ``'e'`` pair keyed by an id;
 ``instant`` a point (``ph='i'``).  Timestamps are microseconds on the
 ``time.perf_counter`` clock from ``enable()``.
 
-The one difference from the JAX package is the category of the step's
+Two things differ from the JAX package.  The category of the step's
 four phases (``fwd/exchange``, ``fwd/lookup_combine``, ``bwd/exchange``,
-``apply/update``).  JAX emits them while it traces the jitted program,
+``apply/update``): JAX emits them while it traces the jitted program,
 so they are ``'trace'`` spans there.  The port runs eagerly: the same
 spans time the Python that queues the launches and the host's waits
 inside the collectives of every step, so they are ``'host'`` work here.
+And the port's own spans, ``PORT_SPANS``: the phases of an eager step
+that JAX's jitted step has no host boundary for (the ids' copies to the
+device, the route stage before the lookup, the head and its backward,
+the dense optimizer).
+
+While the tracer is armed and ``torch.profiler`` is recording, each
+``span`` / ``begin`` also opens a profiler range of its name
+(``record_function``) and its end closes it, so the profiler's trace
+holds each span as a ``user_annotation`` on its own clock, and around
+the kernels launched inside it a ``gpu_user_annotation``.  ``complete``,
+``async_span`` and ``instant`` emit intervals measured already and open
+none.
 """
 
 from __future__ import annotations
@@ -46,8 +59,28 @@ import time
 
 from typing import Any, Dict, List, Optional
 
+import torch
+
+# The port's own spans, which the JAX package has not: its jitted step
+# has no host boundary there.  Each is eager host work ('host').
+PORT_SPANS = frozenset({
+    # the ids' validation and host-to-device copies
+    # (DistributedEmbedding._prepare_inputs, on both input paths)
+    'fwd/inputs',
+    # the route stage before the lookup: the ids stacked into the
+    # subgroups' send buffers (dp) or canonicals (mp), in the uncached
+    # forwards of parallel/dist_embedding.py
+    'fwd/route',
+    # the head (DLRM.head, SyntheticModel.head), its autograd backward
+    # with the dense gradients' mean, and the dense optimizer
+    # (parallel/sparse.py, parallel/grad.py)
+    'head/forward', 'head/backward', 'dense/update',
+})
+
+# The JAX package's names (less the CSR feed's) and the port's own.
 REGISTERED_SPANS = frozenset({
-    # training loop (parallel/grad.py fit, the DLRM example's loop)
+    # the step functions (parallel/sparse.py make_hybrid_train_step,
+    # parallel/grad.py make_train_step) and fit's loss sync
     'train/step', 'train/sync',
     # host-DRAM cold tier (parallel/coldtier.py)
     'coldtier/prepass', 'coldtier/wait', 'coldtier/fetch',
@@ -73,7 +106,7 @@ REGISTERED_SPANS = frozenset({
     # layer, nested inside their parent exchange span
     'dev/fwd/exchange/ici', 'dev/fwd/exchange/dcn',
     'dev/bwd/exchange/ici', 'dev/bwd/exchange/dcn',
-})
+}) | PORT_SPANS
 
 # Report classification (tools/trace_report.py): 'wait' spans are
 # blocked time, 'device' spans the devprof lane, the rest host work.
@@ -238,12 +271,19 @@ def _emit(event: Dict[str, Any]):
 
 
 class _Span:
-  __slots__ = ('name', 'args', 't0')
+  __slots__ = ('name', 'args', 'rf', 't0')
 
   def __init__(self, name: str, args: Optional[Dict[str, Any]]):
     self.name = name
     self.args = args
     self.t0 = time.perf_counter()
+    # the profiler's range of the same name, while it records: opened
+    # after the span's start and closed before its end, so the range's
+    # own cost stays inside the span and adjacent spans leave no gap
+    self.rf = None
+    if torch._C._autograd._profiler_enabled():
+      self.rf = torch.autograd.profiler.record_function(name)
+      self.rf.__enter__()
 
   def __enter__(self):
     return self
@@ -254,8 +294,9 @@ class _Span:
 
 
 def span(name: str, **args):
-  """Context manager timing one phase on the current thread; the shared
-  no-op when tracing is disabled."""
+  """Context manager timing one phase on the current thread (and a
+  profiler range of its name while ``torch.profiler`` records); the
+  shared no-op when tracing is disabled."""
   if not _enabled:
     return _NOOP
   return _Span(name, args or None)
@@ -270,7 +311,11 @@ def begin(name: str, **args):
 
 
 def end(tok):
-  if tok is None or not _enabled:
+  if tok is None:
+    return
+  if tok.rf is not None:
+    tok.rf.__exit__(None, None, None)
+  if not _enabled:
     return
   t1 = time.perf_counter()
   ev = {'name': tok.name, 'cat': span_category(tok.name), 'ph': 'X',

@@ -771,51 +771,53 @@ class DistributedEmbedding:
     batch.  mp: ``inputs`` maps worker-order position -> int32 tensor for
     this rank's entries only, ``batch`` is the global batch, and
     ``hotness`` is recovered from the worker order (an input's first
-    occurrence sets it; an input that appears nowhere counts as 1)."""
-    inputs = list(inputs)
-    if self.dp_input:
-      flat_ids = list(range(self.num_inputs))
-      if len(inputs) != self.num_inputs:
-        raise ValueError(
-            f'Expect {self.num_inputs} inputs, got {len(inputs)}.')
-    else:
-      flat_ids = [i for dev in self.plan.input_ids_list for i in dev]
-      if len(inputs) != len(flat_ids):
-        raise ValueError(f'Expect {len(flat_ids)} worker-order inputs, got '
-                         f'{len(inputs)}.')
-    if self.dp_input:
-      inputs = self._densify(inputs)
-    elif any(isinstance(x, RaggedBatch) for x in inputs):
-      raise TypeError(
-          'RaggedBatch inputs need dp_input=True: the model-parallel input '
-          'path takes dense [global_batch(, hot)] ids (densify with '
-          'to_padded_dense first)')
-    inputs = [x if hasattr(x, 'shape') else np.asarray(x) for x in inputs]
-    batch = inputs[0].shape[0]
-    if any(x.shape[0] != batch for x in inputs):
-      raise ValueError('All input need to have same batchsize. got ' +
-                       str({x.shape[0] for x in inputs}))
-    hot = self._input_hotness(inputs)
-    as_ids = lambda x: torch.as_tensor(x).to(device=self.device,
-                                             dtype=torch.int32)
-    if self.dp_input:
-      self._check_combiner_hotness(hot)
-      return [as_ids(x) for x in inputs], batch, tuple(hot)
-    workers = self.world_size * self.num_slices
-    if batch % workers:
-      raise ValueError(f'Global batchsize {batch} not divisible workers '
-                       f'count {workers}.')
-    hot_by_input = {}
-    for i, h in zip(flat_ids, hot):
-      hot_by_input.setdefault(i, h)
-    hotness = tuple(hot_by_input.get(i, 1) for i in range(self.num_inputs))
-    self._check_combiner_hotness(hotness)
-    mine = self._worker_positions()[self.rank]
-    # a two-axis mesh: this slice serves its block of the global batch
-    sb = batch // self.num_slices
-    block = slice(self.slice_index * sb, (self.slice_index + 1) * sb)
-    return ({k: as_ids(inputs[k][block]) for k in mine.values()}, batch,
-            hotness)
+    occurrence sets it; an input that appears nowhere counts as 1).
+    The whole is the ``fwd/inputs`` span."""
+    with obs_trace.span('fwd/inputs'):
+      inputs = list(inputs)
+      if self.dp_input:
+        flat_ids = list(range(self.num_inputs))
+        if len(inputs) != self.num_inputs:
+          raise ValueError(
+              f'Expect {self.num_inputs} inputs, got {len(inputs)}.')
+      else:
+        flat_ids = [i for dev in self.plan.input_ids_list for i in dev]
+        if len(inputs) != len(flat_ids):
+          raise ValueError(f'Expect {len(flat_ids)} worker-order inputs, got '
+                           f'{len(inputs)}.')
+      if self.dp_input:
+        inputs = self._densify(inputs)
+      elif any(isinstance(x, RaggedBatch) for x in inputs):
+        raise TypeError(
+            'RaggedBatch inputs need dp_input=True: the model-parallel input '
+            'path takes dense [global_batch(, hot)] ids (densify with '
+            'to_padded_dense first)')
+      inputs = [x if hasattr(x, 'shape') else np.asarray(x) for x in inputs]
+      batch = inputs[0].shape[0]
+      if any(x.shape[0] != batch for x in inputs):
+        raise ValueError('All input need to have same batchsize. got ' +
+                         str({x.shape[0] for x in inputs}))
+      hot = self._input_hotness(inputs)
+      as_ids = lambda x: torch.as_tensor(x).to(device=self.device,
+                                               dtype=torch.int32)
+      if self.dp_input:
+        self._check_combiner_hotness(hot)
+        return [as_ids(x) for x in inputs], batch, tuple(hot)
+      workers = self.world_size * self.num_slices
+      if batch % workers:
+        raise ValueError(f'Global batchsize {batch} not divisible workers '
+                         f'count {workers}.')
+      hot_by_input = {}
+      for i, h in zip(flat_ids, hot):
+        hot_by_input.setdefault(i, h)
+      hotness = tuple(hot_by_input.get(i, 1) for i in range(self.num_inputs))
+      self._check_combiner_hotness(hotness)
+      mine = self._worker_positions()[self.rank]
+      # a two-axis mesh: this slice serves its block of the global batch
+      sb = batch // self.num_slices
+      block = slice(self.slice_index * sb, (self.slice_index + 1) * sb)
+      return ({k: as_ids(inputs[k][block]) for k in mine.values()}, batch,
+              hotness)
 
   def _densify(self, inputs) -> list:
     """Each ``RaggedBatch`` of a dp-input list as its padded dense ids,
@@ -1300,21 +1302,22 @@ class DistributedEmbedding:
       # route stage: canonical send buffers [D, n_cap, B, h]; slot
       # (dev, s) holds the ids bound for device dev's s-th request
       sends = []
-      for sub in subs:
-        h = sub.hotness
+      with obs_trace.span('fwd/route'):
+        for sub in subs:
+          h = sub.hotness
 
-        def _ids(k, h=h):
-          if k == -1:
-            return torch.full((local_batch, h), _SENTINEL, dtype=torch.int32,
-                              device=dev)
-          x = inputs[k]
-          return x[:, None] if x.dim() == 1 else x
+          def _ids(k, h=h):
+            if k == -1:
+              return torch.full((local_batch, h), _SENTINEL,
+                                dtype=torch.int32, device=dev)
+            x = inputs[k]
+            return x[:, None] if x.dim() == 1 else x
 
-        sends.append(routing.gather_slots(
-            D, sub.n_cap,
-            lambda d, s, sub=sub: (sub.requests[d][s].input_id
-                                   if s < len(sub.requests[d]) else -1),
-            _ids))
+          sends.append(routing.gather_slots(
+              D, sub.n_cap,
+              lambda d, s, sub=sub: (sub.requests[d][s].input_id
+                                     if s < len(sub.requests[d]) else -1),
+              _ids))
       if n_rounds > 1 and not self.dcn_sharding:
         groups = {
             gi: lookup_ops.ChunkedGroupLookup(
@@ -1388,27 +1391,32 @@ class DistributedEmbedding:
 
     def fwd(params, inputs):
       lplan.legs.clear()
+      # this rank's ids stacked into each subgroup's canonical
       canonicals = []
-      for sub in subs:
-        h, mine = sub.hotness, sub.requests[me]
+      with obs_trace.span('fwd/route'):
+        for sub in subs:
+          h, mine = sub.hotness, sub.requests[me]
 
-        def _ids(k, h=h):
-          if k == -1:
-            return torch.full((slice_batch, h), _SENTINEL,
-                              dtype=torch.int32, device=dev)
-          x = inputs[k]
-          return x[:, None] if x.dim() == 1 else x
+          def _ids(k, h=h):
+            if k == -1:
+              return torch.full((slice_batch, h), _SENTINEL,
+                                dtype=torch.int32, device=dev)
+            x = inputs[k]
+            return x[:, None] if x.dim() == 1 else x
 
-        canonicals.append(routing.gather_slots(
-            1, sub.n_cap,
-            lambda _, s, mine=mine: (pos_of[mine[s].input_id]
-                                     if s < len(mine) else -1),
-            _ids)[0])
-      staged, residuals, merge_out = self._lookup_stage(
-          params, subs, consts, canonicals, local_batch)
+          canonicals.append(routing.gather_slots(
+              1, sub.n_cap,
+              lambda _, s, mine=mine: (pos_of[mine[s].input_id]
+                                       if s < len(mine) else -1),
+              _ids)[0])
+      with obs_trace.span('fwd/lookup_combine'):
+        staged, residuals, merge_out = self._lookup_stage(
+            params, subs, consts, canonicals, local_batch)
       # the mp path has no dp->mp leg; only the return exchange fuses
-      backs = self._exchange(staged, 'fwd/rows', plan=lplan)
-      return self._assemble(subs, backs, merge_out), tuple(residuals)
+      with obs_trace.span('fwd/exchange'):
+        backs = self._exchange(staged, 'fwd/rows', plan=lplan)
+        outs = self._assemble(subs, backs, merge_out)
+      return outs, tuple(residuals)
 
     self._fn_cache[key] = fwd
     return fwd

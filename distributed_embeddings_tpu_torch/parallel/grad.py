@@ -217,12 +217,14 @@ def make_train_step(loss_fn: Callable, optimizer,
   tape = DistributedGradientTape(loss_fn, group, dist)
 
   def step(state: TrainState, batch):
-    loss, grads = tape.value_and_gradient(state.params, batch)
-    updates, opt_state = optimizer.update(grads, state.opt_state,
-                                          state.params)
-    with torch.no_grad():
-      params = optim.tree_map(lambda p, u: p.add_(u.to(p.dtype)),
-                              state.params, updates)
+    with obs_trace.span('train/step', step=state.step + 1):
+      loss, grads = tape.value_and_gradient(state.params, batch)
+      with obs_trace.span('dense/update'):
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params)
+        with torch.no_grad():
+          params = optim.tree_map(lambda p, u: p.add_(u.to(p.dtype)),
+                                  state.params, updates)
     return TrainState(params, opt_state, state.step + 1), loss
 
   return step
@@ -313,6 +315,12 @@ def fit(step_fn: Callable,
       the caller's CUDA device and stream); on expiry tracebacks are
       dumped, ``watchdog_fired`` journaled and ``StepHangError`` raised.
       ``None`` (default) adds nothing.
+
+  Spans (``obs/trace.py``): ``fit`` records ``train/sync`` for each log
+  window's sync and no ``train/step`` of its own: the port's step
+  functions (``make_train_step``, ``make_hybrid_train_step``) record one
+  a step, their phases inside it, so a step function of the caller's
+  own records none.
 
   Returns:
     ``(state, history)``: ``history['step']`` / ``['loss']`` one entry a
@@ -517,13 +525,12 @@ def fit(step_fn: Callable,
             args = next(it)
           except StopIteration:
             break
-          with obs_trace.span('train/step', step=i + 1):
-            if step_timeout_s is not None:
-              state, loss = resilience.call_with_timeout(
-                  lambda s=state, a=args: step_fn(s, *a),
-                  step_timeout_s, what=f'train step dispatch at step {i}')
-            else:
-              state, loss = step_fn(state, *args)
+          if step_timeout_s is not None:
+            state, loss = resilience.call_with_timeout(
+                lambda s=state, a=args: step_fn(s, *a),
+                step_timeout_s, what=f'train step dispatch at step {i}')
+          else:
+            state, loss = step_fn(state, *args)
           obs_metrics.inc('train.steps')
           commsan.record('fit/step', step=i + 1)
           window.append(loss)

@@ -821,12 +821,15 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     cat_pos.setdefault(i, k)
 
   def step(state: TrainState, cats, batch, cold_fetch=None):
-    if dist.dp_input:
-      # RaggedBatch inputs densified once, here (the JAX step's ``run``
-      # does it outside its jit): the forward and the mean row-shard
-      # division below both read the dense ids
-      cats = dist._densify(cats)
-    if dist.cold_tier is not None:
+    # the whole step, the cold tier's fetch and write-back included
+    with obs_trace.span('train/step', step=state.step + 1):
+      if dist.dp_input:
+        # RaggedBatch inputs densified once, here (the JAX step's
+        # ``run`` does it outside its jit): the forward and the mean
+        # row-shard division below both read the dense ids
+        cats = dist._densify(cats)
+      if dist.cold_tier is None:
+        return _step(state, cats, batch, None)
       # the host pre-pass and fetch (or a pipelined one), the step on
       # it, then the tail rows' write-back before the loss returns
       fetch = (cold_fetch if cold_fetch is not None
@@ -834,7 +837,6 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
       state, loss = _step(state, cats, batch, fetch)
       dist.cold_write_back(fetch)
       return state, loss
-    return _step(state, cats, batch, None)
 
   def _step(state: TrainState, cats, batch, fetch):
     emb_params = state.params['embedding']
@@ -854,17 +856,19 @@ def make_hybrid_train_step(dist: DistributedEmbedding,
     leaves = [p.detach().requires_grad_(True) for p in dense.values()]
     dense_leaves = dict(zip(dense, leaves))
     loss = head_loss_fn(dense_leaves, tuple(outs), batch)
-    loss.backward()
-    d_dense = {k: p.grad for k, p in dense_leaves.items()}
-    grad_lib.allreduce_mean_(list(d_dense.values()), group)
-    loss = loss.detach()
-    grad_lib.allreduce_mean_([loss], group)
+    with obs_trace.span('head/backward'):
+      loss.backward()
+      d_dense = {k: p.grad for k, p in dense_leaves.items()}
+      grad_lib.allreduce_mean_(list(d_dense.values()), group)
+      loss = loss.detach()
+      grad_lib.allreduce_mean_([loss], group)
 
-    updates, dense_opt_state = dense_optimizer.update(d_dense,
-                                                      dense_opt_state, dense)
-    with torch.no_grad():
-      for k, p in dense.items():
-        p.add_(updates[k].to(p.dtype))
+    with obs_trace.span('dense/update'):
+      updates, dense_opt_state = dense_optimizer.update(
+          d_dense, dense_opt_state, dense)
+      with torch.no_grad():
+        for k, p in dense.items():
+          p.add_(updates[k].to(p.dtype))
 
     # the local-mean loss's cotangents, scaled to the global mean's
     d_emb = [o.grad if world == 1 else o.grad / world for o in outs]

@@ -2,8 +2,9 @@
 JAX package's (the cases of tests/test_devprof.py): the phase set, the
 journal and the metrics on two spawned gloo ranks, the ici / dcn lanes
 nested on a 2 x 2 mesh, the refusals, the path with obs off, the
-serving rungs, the artifact block and the cost cross-check.  Every
-trace the port writes passes both packages' ``trace_report --strict``.
+serving rungs and the cost cross-check.  Every trace the port writes
+passes the port's ``trace_report --strict``, and the JAX package's
+with no name unregistered there but the port's own (``PORT_SPANS``).
 """
 
 import importlib.util
@@ -76,8 +77,9 @@ def test_profile_step_phases_lane_and_journal_on_two_ranks(tmp_path):
   positive, derived ones floored at 0; the cost model unavailable (JAX's
   note); one devprof_profile journaled with the phases; the metrics;
   the caller's params untouched; on the CPU both clocks are the wall;
-  the device lane passes both packages' report under --strict
-  --require."""
+  the device lane passes the port's report under --strict --require
+  and the JAX package's under --require, the port's own spans all it
+  lists as unregistered."""
   jtr = _jax_trace_report()
   for r, out in enumerate(_spawn(tmp_path, 2, None)):
     assert list(out['phases']) == list(devprof.STEP_PHASES)
@@ -103,7 +105,11 @@ def test_profile_step_phases_lane_and_journal_on_two_ranks(tmp_path):
     path = str(tmp_path / f'trace{r}.json')
     need = ','.join(devprof.STEP_PHASES)
     assert trace_report.main([path, '--strict', '--require', need]) == 0
-    assert jtr.main([path, '--strict', '--require', need]) == 0
+    # the JAX package's report knows its own names: the port's own
+    # spans (the inputs' copies) are all it finds unregistered
+    assert set(jtr.report(jtr.load_trace(path))['unregistered']) <= (
+        obs_trace.PORT_SPANS)
+    assert jtr.main([path, '--require', need]) == 0
     rep = trace_report.report(trace_report.load_trace(path))
     assert rep['critical_path']['device_ms'] > 0
     assert {n for n, p in rep['phases'].items() if p['cat'] == 'device'} \
@@ -181,7 +187,8 @@ def test_profile_step_without_obs_still_journals():
 
 def test_profile_serving_per_rung(tmp_path, monkeypatch):
   """One positive least-wall a rung, a dev/serve/execute event each with
-  the rung in its args, accepted by both reports; no segment walk."""
+  the rung in its args, accepted by both reports (the JAX package's
+  finds only the port's own spans unregistered); no segment walk."""
   applies = []
   real = segwalk.apply_segments
   monkeypatch.setattr(segwalk, 'apply_segments',
@@ -205,24 +212,12 @@ def test_profile_serving_per_rung(tmp_path, monkeypatch):
   obs_trace.save(path)
   assert trace_report.main([path, '--strict',
                             '--require', 'dev/serve/execute']) == 0
-  assert _jax_trace_report().main([path, '--strict']) == 0
-
-
-def test_artifact_block_keys_match_jax():
-  """The same profile gives the JAX package's block, key for key."""
-  kw = dict(phases={n: 1.0 for n in devprof.STEP_PHASES},
-            direct={n: True for n in devprof.STEP_PHASES},
-            step_ms=5.0, coverage_pct=100.0,
-            cost={'fwd': {'flops': 1.0, 'bytes': 2.0}}, cost_ok=True)
-  lanes = {n: 0.5 for n in devprof.DCN_LANES}
-  for extra in ({}, {'dcn_lanes': lanes}):
-    port = devprof.StepProfile(**kw, **extra)
-    want = jax_devprof.StepProfile(**kw, **extra)
-    for rungs in (None, {8: 0.5, 16: 0.9}):
-      block = devprof.artifact_block(port, serve_rung_ms=rungs)
-      assert block == jax_devprof.artifact_block(want, serve_rung_ms=rungs)
-      assert set(block) <= obs_metrics.REGISTERED_ARTIFACT_KEYS
-  assert devprof.StepProfile(**kw).device == {}
+  # the JAX package's report: every name its own but the ids' copies
+  # to the device, the port's own span
+  jtr = _jax_trace_report()
+  assert jtr.report(jtr.load_trace(path))['unregistered'] == [
+      'fwd/inputs', 'fwd/route']
+  assert jtr.main([path]) == 0
 
 
 @pytest.mark.parametrize('case', [

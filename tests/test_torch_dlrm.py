@@ -289,7 +289,7 @@ def test_entry_point_refuses_unported_flags(flags, item):
 
 
 def test_entry_point_writes_its_trace(tmp_path, capsys):
-  """``--trace`` (item 14): every step of the loop is a ``train/step``
+  """``--trace`` (item 14): every step of the loop is one ``train/step``
   span with the step's phase spans inside; the report accepts the file
   under ``--strict``, and the run leaves the layer off."""
   path = str(tmp_path / 'trace.json')
@@ -300,10 +300,14 @@ def test_entry_point_writes_its_trace(tmp_path, capsys):
   phases = 'train/step,fwd/exchange,fwd/lookup_combine,bwd/exchange,' \
       'apply/update'
   assert trace_report.main([path, '--strict', '--require', phases]) == 0
-  rep = trace_report.report(trace_report.load_trace(path))
+  events = trace_report.load_trace(path)
+  rep = trace_report.report(events)
   assert [s['step'] for s in rep['steps']] == [1, 2, 3]
   assert all(set(phases.split(',')[1:]) <= set(s['phases'])
              for s in rep['steps'])
+  # one train/step a step: the step function's, the loop adds none
+  assert sum(e['name'] == 'train/step' for e in events
+             if e.get('ph') == 'X') == 3
 
 
 def test_entry_point_trains_with_the_hot_cache(capsys, tmp_path):

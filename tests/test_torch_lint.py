@@ -183,33 +183,6 @@ def test_fixture_stats_key_discipline(tmp_path):
              for f in res2.unverifiable)
 
 
-def test_fixture_artifact_key_unproduced(tmp_path):
-  """The rule arms only on a tree with the port's own benchmark
-  (``distributed_embeddings_tpu_torch/bench.py``); docstrings and the
-  registry module are never producers."""
-  root = _tree(tmp_path, {f'{PKG}/bench.py': """
-      \"\"\"A fixture bench whose docstring NAMES serve_qps.\"\"\"
-      def emit():
-        return {'metric': 'x', 'value': 1.0}
-      """})
-  res = run_passes(root, passes=['registry'])
-  unproduced = {f.symbol for f in res.findings
-                if f.rule == 'registry/artifact-key-unproduced'}
-  assert 'serve_qps' in unproduced and 'lint_waivers' in unproduced
-  assert 'metric' not in unproduced and 'value' not in unproduced
-  (tmp_path / PKG / 'bench.py').write_text(
-      "def emit():\n  return {'metric': 'x', 'value': 1.0,"
-      " 'serve_qps': 2.0}\n")
-  res2 = run_passes(root, passes=['registry'])
-  unproduced2 = {f.symbol for f in res2.findings
-                 if f.rule == 'registry/artifact-key-unproduced'}
-  assert 'serve_qps' not in unproduced2 and 'lint_waivers' in unproduced2
-  # a tree without the port's bench arms nothing
-  (tmp_path / PKG / 'bench.py').unlink()
-  (tmp_path / 'bench.py').write_text("def emit():\n  return {}\n")
-  assert not run_passes(root, passes=['registry']).findings
-
-
 # --------------------------------------------------------- concurrency
 
 CONCURRENCY_FIXTURES = {

@@ -179,7 +179,7 @@ def test_span_metric_and_event_names_registered():
   metrics = [v for _, n, v in _literals({'inc', 'observe', 'set_gauge'})]
   events = [v for _, n, v in _literals({'journal'}, owner='resilience')]
   assert {'train/step', 'train/sync', 'ckpt/save', 'ckpt/restore',
-          'audit/check'} | STEP_SPANS <= set(spans) \
+          'audit/check'} | STEP_SPANS | obs_trace.PORT_SPANS <= set(spans) \
       <= obs_trace.REGISTERED_SPANS
   assert set(metrics) <= obs_metrics.REGISTERED_METRICS and metrics
   assert set(events) <= resilience.REGISTERED_EVENTS
@@ -214,36 +214,57 @@ def test_fit_emits_its_spans_and_counters(tmp_path):
            callbacks=[callbacks.CheckpointCallback(
                dist, str(tmp_path / 'c_{step}.npz'), every=2)],
            auditor=audit.StateAuditor(dist, every=1))
-  names = [e['name'] for e in obs_trace.events() if e['ph'] == 'X']
+  evs = [e for e in obs_trace.events() if e['ph'] == 'X']
+  names = [e['name'] for e in evs]
   assert names.count('train/step') == 4 and names.count('train/sync') == 2
   assert names.count('ckpt/save') == 2 and names.count('audit/check') == 4
+  # one train/step a step, from the step function, its phases inside
+  steps = [e for e in evs if e['name'] == 'train/step']
+  assert [e['args']['step'] for e in steps] == [1, 2, 3, 4]
+  for e in evs:
+    if e['name'] in ('fwd/inputs', 'apply/update', 'dense/update'):
+      assert sum(_inside(e, s) for s in steps) == 1, e
   snap = obs_metrics.snapshot()
   assert snap['train.steps'] == 4 and snap['ckpt.saves'] == 2
   assert snap['audit.calls'] == 4 and snap['ckpt.save_ms']['count'] == 2
   assert resilience.recent('metrics_snapshot')
+  # a step function of the caller's own records no train/step
+  obs_trace.clear()
+  grad.fit(lambda st, x: (st, torch.zeros(())), state, [(0,)] * 3,
+           steps=3, log_every=3, verbose=False)
+  names = [e['name'] for e in obs_trace.events() if e['ph'] == 'X']
+  assert names == ['train/sync']
+
+
+def _inside(inner, outer) -> bool:
+  """Whether span event ``inner`` lies within ``outer`` on its track."""
+  return (inner['tid'] == outer['tid'] and outer['ts'] <= inner['ts']
+          and inner['ts'] + inner['dur'] <= outer['ts'] + outer['dur'])
 
 
 # ----------------------------------------------- the JAX package's names
 
 
 def test_registered_names_match_the_jax_package():
-  """Spans and metrics are JAX's less the CSR feed's (item 15), the
-  artifact keys JAX's whole; the categories agree but for the step's
-  four phases, host work in the port and trace-time spans in JAX."""
+  """Spans are JAX's less the CSR feed's (item 15) plus the port's own
+  (``PORT_SPANS``, none of them JAX's), metrics JAX's less the feed's;
+  the categories agree but for the step's four phases, host work in the
+  port and trace-time spans in JAX, and the port's own are host work."""
   feed = {n for n in jax_trace.REGISTERED_SPANS if n.startswith('feed/')}
-  assert obs_trace.REGISTERED_SPANS == jax_trace.REGISTERED_SPANS - feed
+  assert not obs_trace.PORT_SPANS & jax_trace.REGISTERED_SPANS
+  assert obs_trace.REGISTERED_SPANS == (
+      (jax_trace.REGISTERED_SPANS - feed) | obs_trace.PORT_SPANS)
   feed_m = {n for n in jax_metrics.REGISTERED_METRICS
             if n.startswith('feed.')}
   assert obs_metrics.REGISTERED_METRICS == (jax_metrics.REGISTERED_METRICS
                                             - feed_m)
   assert obs_metrics.METRIC_TYPES == {
       k: v for k, v in jax_metrics.METRIC_TYPES.items() if k not in feed_m}
-  assert (obs_metrics.REGISTERED_ARTIFACT_KEYS
-          == jax_metrics.REGISTERED_ARTIFACT_KEYS)
   differ = {n for n in obs_trace.REGISTERED_SPANS
             if obs_trace.span_category(n) != jax_trace.span_category(n)}
   assert differ == STEP_SPANS
-  assert {obs_trace.span_category(n) for n in STEP_SPANS} == {'host'}
+  assert {obs_trace.span_category(n)
+          for n in STEP_SPANS | obs_trace.PORT_SPANS} == {'host'}
   assert obs.__all__ == ['trace', 'metrics', 'devprof', 'REGISTERED_SPANS',
                          'REGISTERED_METRICS', 'enable', 'disable', 'reset']
 
@@ -384,7 +405,13 @@ def test_latency_window_trims_and_matches_numpy():
 
 def test_disabled_path_allocates_nothing(tmp_path):
   assert obs_trace.begin('fwd/exchange') is None
+  for name in obs_trace.PORT_SPANS:
+    assert obs_trace.begin(name) is None
+    assert obs_trace.span(name) is obs_trace.span('train/step')
   obs_trace.end(None)
+  # a disarmed step, every new site included, records nothing
+  step, state, batches = _tiny_trainer(0)
+  step(state, *batches[0])
   obs_trace.async_span('serve/enqueue', 1, 0.0, 1.0)
   obs_trace.instant('train/step')
   assert obs_trace.device_tid() == 0
@@ -638,7 +665,12 @@ def test_concurrent_batcher_spans_nest_under_fuzzed_submission(tmp_path):
   assert counts['serve/demux'] == counts['serve/execute'] == stats['batches']
   assert counts['serve/lookup'] == stats['batches']
   assert stats['completed'] == total
-  assert _jax_trace_report().main([path, '--strict']) == 0
+  # the JAX package's report: every name its own but the ids' copies
+  # to the device and the route stage, the port's own spans
+  jtr = _jax_trace_report()
+  assert jtr.report(jtr.load_trace(path))['unregistered'] == [
+      'fwd/inputs', 'fwd/route']
+  assert jtr.main([path]) == 0
 
 
 def _tiny_trainer(seed):
@@ -670,7 +702,9 @@ def test_traced_step_equals_untraced(monkeypatch):
   """Two hybrid steps of the tiny configuration traced and untraced from
   the same draw: bit-equal losses and tables, the same lookup and
   segment-walk calls (the plain versions here; the kernels' launches on
-  the card), and the step's spans carry no tensor argument."""
+  the card), each step's spans (its own ``train/step`` and every phase,
+  the port's own among them) once a step, and no span carries a tensor
+  argument."""
   calls = {'lookup': 0, 'segwalk': 0}
   real_lookup, real_apply = lookup._forward, segwalk.apply_segments
 
@@ -692,8 +726,7 @@ def test_traced_step_equals_untraced(monkeypatch):
       calls[k] = 0
     losses = []
     for cats, batch in batches:
-      with obs_trace.span('train/step'):
-        state, loss = step(state, cats, batch)
+      state, loss = step(state, cats, batch)
       losses.append(loss)
     runs[traced] = (losses, state, dict(calls))
   (l0, s0, c0), (l1, s1, c1) = runs[False], runs[True]
@@ -704,17 +737,113 @@ def test_traced_step_equals_untraced(monkeypatch):
   evs = [e for e in obs_trace.events() if e.get('ph') == 'X']
   names = [e['name'] for e in evs]
   assert names.count('train/step') == 2
-  for n in STEP_SPANS:
+  for n in STEP_SPANS | obs_trace.PORT_SPANS:
     assert names.count(n) == 2, n
   for e in evs:
     assert all(isinstance(v, int) for v in e.get('args', {}).values()), e
 
 
+# every span one sparse hybrid step records, each once
+HYBRID_STEP_SPANS = ('fwd/inputs', 'fwd/route', 'fwd/lookup_combine',
+                     'fwd/exchange', 'head/forward', 'head/backward',
+                     'dense/update', 'bwd/exchange', 'apply/update')
+
+
+def _dlrm_step(dp_input: bool):
+  """A small DLRM's sparse hybrid step as the example builds it, its
+  state and one batch (ids in the input path's order)."""
+  from distributed_embeddings_tpu_torch.examples.dlrm import main
+  model = dlrm.DLRM([30, 20, 50, 10], embedding_dim=8,
+                    bottom_mlp_dims=[16, 8], top_mlp_dims=[16, 1],
+                    dp_input=dp_input, device='cpu').init(0)
+  step, state = main.make_trainer(model, 'sparse', 0.05)
+  rng = np.random.default_rng(1)
+  cats = [rng.integers(0, n, size=(16,)).astype(np.int32)
+          for n in (30, 20, 50, 10)]
+  if not dp_input:
+    cats = [cats[i] for dev in model.dist_embedding.plan.input_ids_list
+            for i in dev]
+  numerical = rng.random((16, 13), dtype=np.float32)
+  labels = torch.tensor(rng.integers(0, 2, (16, 1)), dtype=torch.float32)
+  return step, state, (numerical, cats, labels)
+
+
+@pytest.mark.parametrize('dp_input', [True, False])
+def test_hybrid_step_records_each_phase_once(dp_input):
+  """One armed sparse hybrid step, on either input path: one
+  ``train/step`` (its ``step`` the state's next), and each phase span
+  once inside it on its track, no argument a tensor."""
+  step, state, batch = _dlrm_step(dp_input)
+  obs_trace.enable()
+  step(state, *batch)
+  evs = [e for e in obs_trace.events() if e.get('ph') == 'X']
+  names = [e['name'] for e in evs]
+  assert sorted(names) == sorted(('train/step',) + HYBRID_STEP_SPANS)
+  outer = evs[names.index('train/step')]
+  assert outer['args'] == {'step': state.step + 1}
+  for e in evs:
+    assert _inside(e, outer), e
+    assert all(isinstance(v, int) for v in e.get('args', {}).values()), e
+
+
+def test_a_step_that_raises_still_records_its_spans():
+  """A hybrid step whose head raises (one numerical feature short) still
+  closes and records its ``train/step`` and the phase span it was in,
+  as ``fit``'s rollback path catches it."""
+  step, state, (numerical, cats, labels) = _dlrm_step(False)
+  obs_trace.enable()
+  with pytest.raises(RuntimeError):
+    step(state, numerical[:, :12], cats, labels)
+  evs = [e for e in obs_trace.events() if e.get('ph') == 'X']
+  names = [e['name'] for e in evs]
+  assert names.count('train/step') == 1 and names.count('head/forward') == 1
+  assert 'head/backward' not in names
+  outer = evs[names.index('train/step')]
+  assert all(_inside(e, outer) for e in evs)
+
+
+@pytest.mark.parametrize('armed', [True, False])
+def test_spans_are_profiler_ranges_while_it_records(tmp_path, armed):
+  """Under ``torch.profiler`` (CPU activity) an armed tracer's spans are
+  ``user_annotation`` events of the same names, nested as the spans
+  are; a disarmed tracer adds none."""
+  from torch.profiler import ProfilerActivity, profile
+  step, state, batch = _dlrm_step(False)
+  step(state, *batch)  # routing plans built outside the profile
+  if armed:
+    obs_trace.enable()
+  with profile(activities=[ProfilerActivity.CPU]) as prof:
+    step(state, *batch)
+  path = str(tmp_path / 'prof.json')
+  prof.export_chrome_trace(path)
+  with open(path, encoding='utf-8') as f:
+    ann = [e for e in json.load(f)['traceEvents']
+           if e.get('cat') == 'user_annotation'
+           and e['name'] in obs_trace.REGISTERED_SPANS]
+  spans = [e for e in obs_trace.events() if e.get('ph') == 'X']
+  if not armed:
+    assert ann == [] and spans == []
+    return
+  assert sorted(e['name'] for e in ann) == sorted(e['name'] for e in spans)
+  by_name = {e['name']: e for e in ann}
+  outer = by_name['train/step']
+  for e in ann:
+    assert _inside(e, outer), e
+  # the nesting of the span tracer's own events, pair by pair
+  own = {e['name']: e for e in spans}
+  for a in HYBRID_STEP_SPANS:
+    for b in HYBRID_STEP_SPANS:
+      if a != b:
+        assert _inside(by_name[a], by_name[b]) == _inside(own[a], own[b]), (
+            a, b)
+
+
 def test_traced_training_plus_serving_single_file(tmp_path):
   """A traced 3-step fit plus one batched request: one trace whose phase
   set covers the step and the request path (JAX's required set less the
-  CSR feed's, item 15), inside the registered names, accepted by both
-  reports."""
+  CSR feed's, item 15), inside the registered names, accepted by the
+  port's report under --strict and by JAX's, which finds only the
+  port's own spans unregistered."""
   obs.enable(trace_path=str(tmp_path / 'full_trace.json'))
   cfgs = [TableConfig(48, 8, 'sum'), TableConfig(32, 8, 'sum')]
   rng = np.random.default_rng(0)
@@ -753,4 +882,9 @@ def test_traced_training_plus_serving_single_file(tmp_path):
   assert required <= have <= obs_trace.REGISTERED_SPANS, have
   need = ','.join(sorted(required))
   assert trace_report.main([path, '--strict', '--require', need]) == 0
-  assert _jax_trace_report().main([path, '--strict', '--require', need]) == 0
+  # the JAX package's report knows its own names: the port's own spans
+  # are all it finds unregistered
+  jtr = _jax_trace_report()
+  assert set(jtr.report(jtr.load_trace(path))['unregistered']) == (
+      have & obs_trace.PORT_SPANS)
+  assert jtr.main([path, '--require', need]) == 0
