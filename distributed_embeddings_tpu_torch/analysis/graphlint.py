@@ -447,7 +447,7 @@ class ScheduleRecorder:
 
 def _sync_site() -> Optional[str]:
   """``file:qualname`` of the first frame outside torch and this module
-  (``dist_embedding.py:DistributedEmbedding._prepare_inputs.<lambda>``),
+  (``routing.py:gather_slots``),
   or None when that frame is exempt."""
   own = os.path.abspath(__file__)
   frame = sys._getframe(1)

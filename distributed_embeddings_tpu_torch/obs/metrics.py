@@ -3,13 +3,14 @@
 instruments and stats keys (ROADMAP.md item 15).
 
 Counters, gauges and fixed-bucket millisecond histograms under
-``METRIC_TYPES`` (the JAX package's names), updated through ``inc`` /
-``set_gauge`` / ``observe`` (one flag check while disabled, the
-default), read through ``snapshot()``, ``snapshot_digest()`` or
-``prometheus_text()`` (the JAX package's formats) or journaled by
-``journal_snapshot()`` (event ``metrics_snapshot``).  An unregistered
-name raises.  ``REGISTERED_STATS_KEYS`` names every key a component's
-``stats()`` emits.  The local primitives the components' ``stats()``
+``METRIC_TYPES`` (the JAX package's names and the port's own,
+``PORT_METRICS``), updated through ``inc`` / ``set_gauge`` /
+``observe`` (one flag check while disabled, the default), read through
+``snapshot()``, ``snapshot_digest()`` or ``prometheus_text()`` (the JAX
+package's formats) or journaled by ``journal_snapshot()`` (event
+``metrics_snapshot``).  An unregistered name raises.
+``REGISTERED_STATS_KEYS`` names every key a component's ``stats()``
+emits.  The local primitives the components' ``stats()``
 are built on, ``OverlapStat`` (blocked-time overlap of a producer and
 its consumer) and ``LatencyWindow`` (exact latency percentiles over a
 bounded window), are always live.
@@ -26,6 +27,17 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from distributed_embeddings_tpu_torch.utils import resilience
+
+# The port's own metrics, which the JAX package has not: its jitted step
+# has no host-to-device boundary for the ids.
+PORT_METRICS: Dict[str, str] = {
+    # the ids' copies to the device (parallel/id_staging.py IdStager):
+    # inputs packed into pinned blocks, their int32 bytes, and inputs
+    # copied as they are (already on the device, or pinned)
+    'inputs.staged': 'counter',
+    'inputs.staged_bytes': 'counter',
+    'inputs.direct': 'counter',
+}
 
 METRIC_TYPES: Dict[str, str] = {
     # training loop (parallel/grad.py fit)
@@ -80,6 +92,7 @@ METRIC_TYPES: Dict[str, str] = {
     # device-time attribution (obs/devprof.py)
     'devprof.runs': 'counter',
     'devprof.phase_ms': 'histogram',
+    **PORT_METRICS,
 }
 
 REGISTERED_METRICS = frozenset(METRIC_TYPES)

@@ -82,6 +82,7 @@ from distributed_embeddings_tpu_torch.analysis import commsan
 from distributed_embeddings_tpu_torch.obs import trace as obs_trace
 from distributed_embeddings_tpu_torch.ops import lookup as lookup_ops
 from distributed_embeddings_tpu_torch.ops.ragged import RaggedBatch
+from distributed_embeddings_tpu_torch.parallel import id_staging
 from distributed_embeddings_tpu_torch.parallel import mesh as mesh_lib
 from distributed_embeddings_tpu_torch.parallel import overlap
 from distributed_embeddings_tpu_torch.parallel import quantization
@@ -460,6 +461,8 @@ class DistributedEmbedding:
     # (local batch, hotness); a plan's legs are those of its last call
     self._fn_cache: Dict[Any, Any] = {}
     self._lookup_plans: Dict[Any, LookupPlan] = {}
+    # the ids' copies to the device (_prepare_inputs)
+    self._id_stager = id_staging.IdStager(self.device)
     # host-DRAM cold tier: this rank's host arrays of the tail rows
     # (filled by init / set_weights), the fetch capacities per global
     # batch (constructor-pinned rows seed every batch size), the pinned
@@ -772,7 +775,9 @@ class DistributedEmbedding:
     this rank's entries only, ``batch`` is the global batch, and
     ``hotness`` is recovered from the worker order (an input's first
     occurrence sets it; an input that appears nowhere counts as 1).
-    The whole is the ``fwd/inputs`` span."""
+    The ids reach the device through ``id_staging.IdStager``: on the
+    card, every host input of the call packed into pinned blocks and
+    copied asynchronously.  The whole is the ``fwd/inputs`` span."""
     with obs_trace.span('fwd/inputs'):
       inputs = list(inputs)
       if self.dp_input:
@@ -798,11 +803,9 @@ class DistributedEmbedding:
         raise ValueError('All input need to have same batchsize. got ' +
                          str({x.shape[0] for x in inputs}))
       hot = self._input_hotness(inputs)
-      as_ids = lambda x: torch.as_tensor(x).to(device=self.device,
-                                               dtype=torch.int32)
       if self.dp_input:
         self._check_combiner_hotness(hot)
-        return [as_ids(x) for x in inputs], batch, tuple(hot)
+        return self._id_stager(inputs), batch, tuple(hot)
       workers = self.world_size * self.num_slices
       if batch % workers:
         raise ValueError(f'Global batchsize {batch} not divisible workers '
@@ -816,8 +819,9 @@ class DistributedEmbedding:
       # a two-axis mesh: this slice serves its block of the global batch
       sb = batch // self.num_slices
       block = slice(self.slice_index * sb, (self.slice_index + 1) * sb)
-      return ({k: as_ids(inputs[k][block]) for k in mine.values()}, batch,
-              hotness)
+      keys = list(mine.values())
+      ids = self._id_stager([inputs[k][block] for k in keys])
+      return dict(zip(keys, ids)), batch, hotness
 
   def _densify(self, inputs) -> list:
     """Each ``RaggedBatch`` of a dp-input list as its padded dense ids,

@@ -187,7 +187,8 @@ def test_span_metric_and_event_names_registered():
       events)
   assert resilience.REGISTERED_EVENTS <= jax_resilience.REGISTERED_EVENTS
   assert all(jax_metrics.METRIC_TYPES[k] == t
-             for k, t in obs_metrics.METRIC_TYPES.items())
+             for k, t in obs_metrics.METRIC_TYPES.items()
+             if k not in obs_metrics.PORT_METRICS)
 
 
 def test_fit_emits_its_spans_and_counters(tmp_path):
@@ -247,7 +248,8 @@ def _inside(inner, outer) -> bool:
 
 def test_registered_names_match_the_jax_package():
   """Spans are JAX's less the CSR feed's (item 15) plus the port's own
-  (``PORT_SPANS``, none of them JAX's), metrics JAX's less the feed's;
+  (``PORT_SPANS``, none of them JAX's), metrics JAX's less the feed's
+  plus the port's own (``PORT_METRICS``, none of them JAX's);
   the categories agree but for the step's four phases, host work in the
   port and trace-time spans in JAX, and the port's own are host work."""
   feed = {n for n in jax_trace.REGISTERED_SPANS if n.startswith('feed/')}
@@ -256,10 +258,13 @@ def test_registered_names_match_the_jax_package():
       (jax_trace.REGISTERED_SPANS - feed) | obs_trace.PORT_SPANS)
   feed_m = {n for n in jax_metrics.REGISTERED_METRICS
             if n.startswith('feed.')}
-  assert obs_metrics.REGISTERED_METRICS == (jax_metrics.REGISTERED_METRICS
-                                            - feed_m)
+  assert not set(obs_metrics.PORT_METRICS) & jax_metrics.REGISTERED_METRICS
+  assert obs_metrics.REGISTERED_METRICS == (
+      (jax_metrics.REGISTERED_METRICS - feed_m)
+      | set(obs_metrics.PORT_METRICS))
   assert obs_metrics.METRIC_TYPES == {
-      k: v for k, v in jax_metrics.METRIC_TYPES.items() if k not in feed_m}
+      **{k: v for k, v in jax_metrics.METRIC_TYPES.items()
+         if k not in feed_m}, **obs_metrics.PORT_METRICS}
   differ = {n for n in obs_trace.REGISTERED_SPANS
             if obs_trace.span_category(n) != jax_trace.span_category(n)}
   assert differ == STEP_SPANS
